@@ -27,7 +27,7 @@ before the result line is printed:
    ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
-limit. It imports nothing of JAX.
+limit. It imports nothing of JAX, and fails if the port did.
 """
 
 from __future__ import annotations
@@ -50,14 +50,15 @@ BATCH = 8
 REPS = 10
 # |kernel - plain| <= atol + rtol |plain|, elementwise, outputs in bf16. Both
 # sides compute in fp32 and round once to bf16; a reordered fp32 sum may move
-# that rounding by one ulp, so rtol is two bf16 ulps (2**-6). Attention's atol
-# is wider because its bf16 probabilities are rounded against the running row
-# max of the online softmax, the plain version's against the final max.
+# that rounding by one ulp, so rtol is two bf16 ulps (2**-6). Attention rounds
+# its bf16 probabilities against the running row max of the online softmax,
+# the plain version against the final max; the largest error this gave at
+# these inputs on an H100 was 2**-8 = 0.0039, and its atol is twice that.
 TOLERANCE = {
     "ln_gelu": (1e-2, 2.0**-6),
     "ln_fused": (1e-2, 2.0**-6),
     "conv_ln_gelu": (1e-2, 2.0**-6),
-    "attention": (2e-2, 2.0**-6),
+    "attention": (8e-3, 2.0**-6),
     "ffn_ln": (1e-2, 2.0**-6),
 }
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
@@ -217,7 +218,6 @@ def kernel_checks(card: str) -> dict:
 def serving_run(card: str) -> tuple[dict, dict]:
     """The main path through ASRPipeline; returns (launch counts, metrics)."""
     from coral_tpu_torch import ASRPipeline
-    from coral_tpu_torch.evaluation.longform import chunk_waveform
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.training.model_setup import GreedyCtcPredictor
@@ -238,7 +238,8 @@ def serving_run(card: str) -> tuple[dict, dict]:
     clips = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
     long_clip = (rng.standard_normal(45 * SR) * 0.1).astype(np.float32)
     T = int(asr.window_seconds * SR)
-    n_windows = len(chunk_waveform(long_clip, T, T // 6))
+    step = T - 2 * (T // 6)  # ASRPipeline.transcribe's windows overlap by T // 6 a side
+    n_windows = 1 + math.ceil((len(long_clip) - T) / step)
     forwards = math.ceil(len(clips) / BATCH) + math.ceil(n_windows / BATCH)
 
     # The main path, counted.
@@ -363,6 +364,8 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
 
     counts, _ = serving_run(card)
+    if "jax" in sys.modules:
+        fail("the port imported jax")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

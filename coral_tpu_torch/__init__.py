@@ -3,7 +3,9 @@
 A port of ``coral_tpu`` (JAX, TPU) that runs on one NVIDIA H100. It covers the
 wav2vec2-CTC serving slice: ``ASRPipeline`` -> ``load_saved_predictor`` ->
 ``Wav2Vec2Setup.make_predictor`` -> ``Wav2Vec2ForCTC`` with greedy CTC
-decoding. It imports ``torch`` and never ``jax``.
+decoding. It imports ``torch`` and never ``jax``; of ``coral_tpu`` it reuses
+only the modules that import no JAX (``coral_tpu.text``,
+``coral_tpu.evaluation.longform``).
 """
 
 __version__ = "0.1.0"

@@ -14,11 +14,12 @@ do. ``models/convert.py`` maps the JAX package's weights onto them.
 
 Routes follow the JAX model: a conv block takes the fused kernel only for
 stride 2, k in {2, 3}, C_in == C_out and C % 128 == 0 (else the conv as one
-product + ``ln_gelu``), and the FFN takes the block kernel only when D and F
-are multiples of 128 (else its plain composition), so CPU parity at small
-widths covers the same routes. ``plain=True`` builds the same model on the
-kernels' plain PyTorch versions: the reference that the kernel path is held
-against on the card.
+product + ``ln_gelu``), so CPU parity at small widths covers the same routes.
+The FFN always calls ``ffn_ln_block``: on the CPU that is its plain version at
+any width, and on the card the kernel, which raises for widths it does not
+take. ``Wav2Vec2ForCTC(plain=True)`` builds the same model on the kernels'
+plain PyTorch versions: the reference that the kernel path is held against on
+the card.
 
 The positional conv, FE conv 0 and the q/k/v/out/fc2/lm_head products run
 outside any Pallas kernel in the JAX package and are library calls here. The
@@ -271,7 +272,7 @@ class FeedForward(nn.Module):
         D, Fi = config.hidden_size, config.intermediate_size
         self.intermediate_dense = nn.Linear(D, Fi)
         self.output_dense = nn.Linear(Fi, D)
-        self.block = ops.ffn_ln_block if D % 128 == 0 and Fi % 128 == 0 else ffn_ln_block_plain
+        self.block = ops.ffn_ln_block
 
     def forward(self, x, ln: nn.LayerNorm):
         fc1, fc2 = self.intermediate_dense, self.output_dense
@@ -383,12 +384,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             module.bias.zero_()
 
 
-def build_model(config: Wav2Vec2Config, device: Any, seed: int = 0,
-                plain: bool = False) -> Wav2Vec2ForCTC:
+def build_model(config: Wav2Vec2Config, device: Any, seed: int = 0) -> Wav2Vec2ForCTC:
     """A seeded, randomly initialised model on ``device`` in eval mode (the
     weights are drawn on the device itself from ``torch.Generator``)."""
     with torch.device("meta"):
-        model = Wav2Vec2ForCTC(config, plain=plain)
+        model = Wav2Vec2ForCTC(config)
     model = model.to_empty(device=device)
     generator = torch.Generator(device=device).manual_seed(seed)
     init_weights(model, generator)

@@ -9,7 +9,7 @@ Port of ``coral_tpu/pipeline.py`` (``ASRPipeline``) on PyTorch:
 Clips are padded to the model window (30 s) and run in fixed batches; a
 partial batch is filled with ``lengths=1`` rows whose outputs are dropped.
 Audio beyond the window goes through overlapping windows
-(``evaluation.longform.chunk_waveform``).
+(``coral_tpu.evaluation.longform.chunk_waveform``, which imports no JAX).
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class ASRPipeline:
         T = int(self.window_seconds * self.sampling_rate)
         if len(audio) <= T:
             return self.transcribe_batch([audio])[0]
-        from .evaluation.longform import chunk_waveform
+        from coral_tpu.evaluation.longform import chunk_waveform
 
         stride = T // 6
         windows = [w for _, w in chunk_waveform(audio, T, stride)]

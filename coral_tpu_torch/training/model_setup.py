@@ -21,9 +21,10 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from coral_tpu.text.tokenizer import CtcTokenizer
+
 from ..audio.features import znorm
 from ..models.wav2vec2 import NOT_PORTED, Wav2Vec2Config, Wav2Vec2ForCTC, build_model
-from ..text.tokenizer import CtcTokenizer
 
 logger = logging.getLogger(__package__)
 

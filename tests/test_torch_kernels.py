@@ -11,14 +11,16 @@ head_dim 64, D = 1024) and short lengths, in bf16: the point is the kernel.
 Tolerance: |kernel - plain| <= atol + rtol |plain| with rtol = 2**-6, two bf16
 ulps of the output: both sides compute in fp32 and round once to bf16, and a
 reordered fp32 sum can move that rounding by one ulp. atol covers values near
-zero (1e-2; attention 2e-2, whose bf16 probabilities are rounded against the
-running rather than the final row max).
+zero (1e-2; attention 8e-3, twice the largest error measured at the serving
+shapes, 2**-8, which its bf16 probabilities rounded against the running rather
+than the final row max cause).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
 from coral_tpu_torch.ops import _build, attention, conv_ln_gelu, ffn, ln_gelu
 
 pytestmark = pytest.mark.cuda
@@ -92,7 +94,7 @@ def test_attention_kernel_matches_plain(cuda, packed):
     mask = torch.from_numpy(mask).to(cuda)
     o, lse = attention.short_t_attention_flat(q, k, v, mask, d, qkv_bias)
     want_o, want_lse = attention.attention_plain(q, k, v, mask, d, qkv_bias)
-    _close(o, want_o, 2e-2)
+    _close(o, want_o, 8e-3)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     assert (lse[2] == -1e25).all()
 
@@ -124,3 +126,15 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         conv_ln_gelu.conv_ln_gelu(x, torch.zeros(512, 512, 3, device=cuda),
                                   *(torch.zeros(512, device=cuda),) * 3)
+
+
+def test_ffn_of_a_width_the_kernel_does_not_take_raises_on_the_card(cuda):
+    """The tiny config's 32-wide FFN: the model calls the kernel's wrapper,
+    which raises on the card rather than running the plain version."""
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny()).to(cuda).eval()
+    layer = model.wav2vec2.encoder.layers[0]
+    x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        layer.feed_forward(x, layer.final_layer_norm)
+    assert not _build.launch_counts

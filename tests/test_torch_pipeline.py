@@ -86,6 +86,20 @@ def _jax_znorm(batch):
     return znorm(batch["input_values"], batch["input_lengths"])
 
 
+def test_init_params_is_seeded():
+    setup = port_setup.Wav2Vec2Setup(
+        {"model": {"architecture": "tiny", "characters_to_keep": CHARS},
+         "max_seconds_per_example": 5.0}
+    )
+    first, again, other = (setup.init_params(seed).state_dict() for seed in (0, 0, 1))
+    assert all(torch.equal(first[k], again[k]) for k in first)
+    weight = "wav2vec2.encoder.layers.0.attention.q_proj.weight"
+    assert not torch.equal(first[weight], other[weight])
+    # flax's init: unit LayerNorm scales, zero biases.
+    assert torch.equal(first["wav2vec2.encoder.layer_norm.weight"], torch.ones(32))
+    assert not any(first[k].any() for k in first if k.endswith("bias"))
+
+
 @pytest.fixture
 def offline_hub(tmp_path, monkeypatch):
     """An empty Hugging Face cache, so no pretrained id resolves to a file."""
@@ -165,40 +179,24 @@ def test_off_default_kernel_flags_are_rejected(flag, value):
         )
 
 
-def test_copied_pieces_match_the_jax_package():
-    from coral_tpu.evaluation.longform import chunk_waveform as jax_chunk
-    from coral_tpu.text.tokenizer import CtcTokenizer as JaxTokenizer
-    from coral_tpu_torch.evaluation.longform import chunk_waveform
-    from coral_tpu_torch.text.tokenizer import CtcTokenizer
-
-    ours, theirs = CtcTokenizer.from_characters(CHARS), JaxTokenizer.from_characters(CHARS)
-    assert ours.vocab == theirs.vocab and ours.pad_token_id == theirs.pad_token_id
-    assert ours.vocab_size == theirs.vocab_size
-    ids = np.random.default_rng(0).integers(0, ours.vocab_size, (8, 50))
-    for row in ids:
-        for group_tokens in (True, False):
-            assert ours.decode(row, group_tokens) == theirs.decode(row, group_tokens)
-    audio = np.arange(1000, dtype=np.float32)
-    for length, stride in ((1000, 10), (300, 50), (128, 21)):
-        got, want = chunk_waveform(audio, length, stride), jax_chunk(audio, length, stride)
-        assert [s for s, _ in got] == [s for s, _ in want]
-        assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
-
-
 def test_every_module_imports_with_jax_blocked():
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "coral_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml"):
     sys.modules[name] = None
 import coral_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(coral_tpu_torch.__path__, "coral_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 from coral_tpu_torch import ASRPipeline
+from coral_tpu.evaluation.longform import chunk_waveform
+loaded = sorted(m for m in sys.modules if m.split(".")[0] == "coral_tpu")
+assert all(m.startswith(("coral_tpu.text", "coral_tpu.evaluation")) or m == "coral_tpu"
+           for m in loaded), loaded
 print(len(names))
 """
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 13

@@ -24,7 +24,7 @@ from coral_tpu.models.wav2vec2 import Wav2Vec2Config as JaxConfig
 from coral_tpu.models.wav2vec2 import Wav2Vec2ForCTC as JaxModel
 from coral_tpu_torch.models.convert import wav2vec2_state_dict_from_jax
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
-from coral_tpu_torch.ops.ffn import ffn_ln_block, ffn_ln_block_plain
+from coral_tpu_torch.ops.ffn import ffn_ln_block
 
 # coral_tpu/training/model_setup.py's production defaults.
 PRODUCTION_FLAGS = dict(
@@ -122,13 +122,14 @@ def test_logits_and_frame_lengths_match_jax(case):
 def test_routes_follow_the_jax_model(case):
     name, _, port, *_ = case
     convs = port.wav2vec2.feature_extractor.conv_layers
-    ffn = port.wav2vec2.encoder.layers[0].feed_forward
     if name == "narrow":
         assert [c.fused for c in convs] == [False, True, True]
-        assert ffn.block is ffn_ln_block
-    else:  # stride-4 convs and a 32-wide FFN take the unfused routes
+    else:  # stride-4 convs take the unfused route
         assert not any(c.fused for c in convs)
-        assert ffn.block is ffn_ln_block_plain
+    # At every width the FFN calls the kernel's wrapper, which runs the plain
+    # version on the CPU and the kernel (or raises) on the card.
+    assert all(layer.feed_forward.block is ffn_ln_block
+               for layer in port.wav2vec2.encoder.layers)
 
 
 def test_plain_model_is_the_same_function(case):
