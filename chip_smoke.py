@@ -5,25 +5,37 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-It drives the port's serving path, ``ASRPipeline`` with XLS-R-300M at full
-width (24 layers, 30 s window, batch 8, bf16, seeded random weights), through
-the hand-written CUDA kernels, in phases; any failing phase exits non-zero
-before the result line is printed:
+It drives the port's two paths through the hand-written CUDA kernels, with
+XLS-R-300M at full width and depth (24 layers, bf16, seeded random weights):
+serving, ``ASRPipeline`` (30 s window, batch 8), and training, the CTC train
+step of ``Wav2Vec2Setup.make_train_step`` (frozen feature encoder, 8 clips of
+6-10 s padded to 10 s, 2 accumulation microbatches). It runs in phases; any
+failing phase exits non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
 2. the kernels are built from ``coral_tpu_torch/csrc`` and the build time is
    printed;
-3. each kernel runs at the slice's own shapes in bf16 against its plain
+3. each kernel runs at its path's own shapes in bf16 against its plain
    PyTorch version: errors against a stated tolerance, and both times (CUDA
    events, median of 10);
-4. ``transcribe_batch`` on 12 clips of 3-30 s (the second device batch is
-   partial, with fully masked filler rows) and ``transcribe`` on a 45 s clip
-   (long-form windows), with the kernels' launch counts over that run; then
-   finite logits, the kernel path's logits against the plain path's on the
-   same weights and batch, audio-seconds per second, latency per batch and
-   peak device memory;
-5. a JSON line with every kernel, then the last line
+4. serving: ``transcribe_batch`` on 12 clips of 3-30 s (the second device
+   batch is partial, with fully masked filler rows) and ``transcribe`` on a
+   45 s clip (long-form windows), with the kernels' launch counts over that
+   run; then finite logits, the kernel path's logits against the plain path's
+   on the same weights and batch, audio-seconds per second, latency per batch
+   and peak device memory;
+5. training: (a) the kernel path's loss and gradients against the plain
+   path's (``Wav2Vec2ForCTC(plain=True)``: every kernel's plain version,
+   forward and backward, and the plain CTC recursions) on the same weights,
+   batch and generator seed, at activation dropout 0 with SpecAugment on;
+   (b) the production configuration (activation dropout 0.1) for several
+   optimizer steps on one fixed batch: launch counts over the first step,
+   finite losses and a last loss below the first, training audio-s/s, ms per
+   step against the plain path's, peak memory, and a ``torch.profiler``
+   breakdown of one step;
+6. a JSON line with every kernel (its launches summed over the counted
+   serving and training runs), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -60,7 +72,19 @@ TOLERANCE = {
     "conv_ln_gelu": (1e-2, 2.0**-6),
     "attention": (8e-3, 2.0**-6),
     "ffn_ln": (1e-2, 2.0**-6),
+    "ffn_ln_drop": (1e-2, 2.0**-6),
+    "ln_bwd": (1e-2, 2.0**-6),
+    "ctc_alpha": (1e-3, 1e-5),  # fp32 on both sides, the same order of sums
+    "ctc_beta": (1e-3, 1e-5),
 }
+# Gradients that sum over rows, keys or F columns: |kernel - plain| <= frac
+# max|plain| + 2**-6 |plain|. Their bf16 operands (ds, dh, p) are rounded from
+# fp32 products that the kernel and torch sum in other orders, so a value may
+# round one ulp apart before hundreds of them are summed.
+# Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W): attention_bwd 2.1e-3 of
+# max|plain|, ffn_bwd 5.2e-3, the fp32 partial sums 1.0e-4; the bounds are 4 to
+# 10 times those.
+GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3}
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
 # Kernel path vs plain path logits over the whole model: max |diff| / max |plain|.
 # Both paths round the bf16 residual stream after each of the 24 layers at
@@ -75,7 +99,57 @@ SOURCES = {
     "attention": ("coral_tpu_torch/csrc/attention.cu",
                   "coral_tpu/ops/attention_pallas.py:237"),
     "ffn_ln": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:163"),
+    "ln_bwd": ("coral_tpu_torch/csrc/ln_gelu.cu", "coral_tpu/ops/ln_gelu_pallas.py:58"),
+    "attention_bwd": ("coral_tpu_torch/csrc/attention.cu",
+                      "coral_tpu/ops/attention_pallas.py:276"),
+    "ffn_ln_drop": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:169"),
+    "ffn_bwd": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:385"),
+    "ctc_alpha": ("coral_tpu_torch/csrc/ctc.cu", "coral_tpu/ops/ctc_pallas.py:81"),
+    "ctc_beta": ("coral_tpu_torch/csrc/ctc.cu", "coral_tpu/ops/ctc_pallas.py:125"),
 }
+# The training slice: XLS-R-300M with config/model/test-wav2vec2.yaml's values
+# and config/asr_finetuning.yaml's optimisation, augmentation off, the
+# remat policy the port implements.
+TRAIN_CONFIG = {
+    "model": {
+        "type": "wav2vec2", "pretrained_model_id": "facebook/wav2vec2-xls-r-300m",
+        "freeze_feature_encoder": True,
+        "characters_to_keep": "abcdefghijklmnopqrstuvwxyzæøå0123456789éü",
+        "sampling_rate": 16_000, "activation_dropout": 0.1, "attention_dropout": 0.0,
+        "hidden_dropout": 0.0, "feat_proj_dropout": 0.0, "final_dropout": 0.0,
+        "mask_time_prob": 0.5, "mask_time_length": 10, "mask_feature_prob": 0.5,
+        "mask_feature_length": 64, "layerdrop": 0.1, "ctc_loss_reduction": "sum",
+        "learning_rate": 1e-4,
+    },
+    "max_seconds_per_example": 10.0, "per_device_batch_size": 8,
+    "adam_first_momentum": 0.9, "adam_second_momentum": 0.98, "max_grad_norm": 1.0,
+    "adam_mu_dtype": "bfloat16", "grad_dtype": "bfloat16",
+    "gradient_checkpointing": True, "remat_policy": "nothing_saveable",
+    "augment_audio": False,
+}
+ACCUM = 2
+MAX_LABEL = 128
+# Adam's first update moves every weight by about the learning rate (m /
+# sqrt(v) is +-1 per element), which at random init first raises the CTC loss
+# (+43% measured at lr 1e-4 without warmup); a 3-step warmup shrinks that
+# jump, and 10 steps at the config's lr 1e-4 leave the loss below its start.
+TRAIN_STEPS = 10
+WARMUP_STEPS = 3
+# Kernel path vs plain path in training, on one microbatch: the loss and the
+# gradient norm relative to the plain path's, and each parameter's gradient
+# max|diff| / max|plain|. Both paths round the bf16 residual stream at
+# slightly different values through 24 layers forward and 24 back. Measured
+# on an H100 (700 W): loss 3.9e-5, gradient norm 1.4e-3, worst parameter
+# 0.047, k_proj.bias noise 1.0e-3; the bounds are 2 to 25 times those.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_NORM_RTOL = 5e-3
+TRAIN_GRAD_TOL = 0.1
+K_BIAS_NOISE = 1e-2
+# Launches of each kernel per microbatch of a training step under the
+# nothing_saveable replay (forward + replay of the 24 layers, their backward).
+PER_MICROBATCH = {"ln_gelu": 1, "conv_ln_gelu": 6, "ln_fused": 48, "attention": 48,
+                  "ffn_ln_drop": 48, "attention_bwd": 24, "ffn_bwd": 24, "ln_bwd": 48,
+                  "ctc_alpha": 1, "ctc_beta": 1}
 
 
 def fail(msg: str) -> None:
@@ -121,6 +195,29 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
           f"{result['max_rel_err']:.6g} tolerance atol {atol} + rtol {rtol:.6g}|plain|: "
           f"{'ok' if ok else 'EXCEEDED'}", flush=True)
     return result
+
+
+def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor, frac: float) -> dict:
+    """As ``compare`` with atol = frac max|plain| (gradients summed over rows)."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and bool((err <= frac * scale + 2.0**-6 * want.abs()).all())
+    res = {"max_abs_err": float(err.max()), "max_rel_err": float(err.max()) / max(scale, 1e-30),
+           "ok": ok}
+    print(f"  {name}: max_abs_err {res['max_abs_err']:.6g} max_rel_err "
+          f"{res['max_rel_err']:.6g} tolerance {frac} max|plain| + 2**-6|plain|: "
+          f"{'ok' if ok else 'EXCEEDED'}", flush=True)
+    return res
+
+
+def merge(*results) -> dict:
+    """One kernel's result over several outputs: the first output's errors,
+    ok only if every output is."""
+    out = dict(results[0])
+    out["ok"] = all(r["ok"] for r in results)
+    return out
 
 
 def kernel_checks(card: str) -> dict:
@@ -212,6 +309,146 @@ def kernel_checks(card: str) -> dict:
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
             lambda: compare("ffn_ln", ffn.ffn_ln_fc1(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)))
+    return results
+
+
+def train_kernel_checks(card: str) -> dict:
+    """The training slice's kernels against their plain versions at its
+    shapes: 8 clips of 10 s (T' = 499 frames), XLS-R-300M widths."""
+    from coral_tpu_torch.ops import attention, ctc, ffn, ln_gelu, philox
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    bf16 = torch.bfloat16
+    results = {}
+
+    def measure(name, kernel, plain, check):
+        res = check()
+        res["ms"] = median_ms(kernel)
+        res["plain_ms"] = median_ms(plain)
+        print(f"  {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
+              f"(median of {REPS}; {card})", flush=True)
+        results[name] = res
+
+    T = 499
+    # LN backward: the pre-attention LN (8, 499, 1024), timed; the FE conv 0
+    # shape with GELU (8, 31999, 512); the FFN's use, fp32 dy.
+    x = randn(BATCH, T, 1024, dtype=bf16)
+    dy = randn(BATCH, T, 1024, dtype=bf16)
+    g, b = randn(1024, scale=0.1, offset=1.0), randn(1024, scale=0.1)
+
+    def ln_check():
+        out = []
+        for args, gelu in (((x, g, b, dy), False),
+                           ((randn(BATCH, 31999, 512, scale=2.0, dtype=bf16),
+                             g[:512].contiguous(), b[:512].contiguous(),
+                             randn(BATCH, 31999, 512, dtype=bf16)), True),
+                           ((x, g, b, dy.float()), False)):
+            got = ln_gelu.ln_bwd(*args, apply_gelu=gelu)
+            want = ln_gelu.ln_bwd_plain(*args, apply_gelu=gelu)
+            out.append(compare("ln_bwd", got[0], want[0]))
+            out += [compare_grad("ln_bwd partials", gg, ww, GRAD_FRAC["partials"])
+                    for gg, ww in zip(got[1:], want[1:])]
+        return merge(*out)
+
+    measure("ln_bwd", lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False),
+            lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check)
+
+    # Attention backward: (8, 499, 16 x 64), padded keys and a fully masked row.
+    q, k, v, do = (randn(BATCH, T, 1024, dtype=bf16) for _ in range(4))
+    bq, bk, bv = (randn(1024, scale=0.1, dtype=bf16) for _ in range(3))
+    lengths = torch.tensor([499, 400, 300, 250, 200, 499, 50, -1], device=dev)
+    key_bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0,
+                           -1e30).float()
+    o, lse = attention._fwd(q, k, v, bq, bk, bv, key_bias, 64, 0.125)
+    args = (q, k, v, bq, bk, bv, key_bias, do, lse, o, 64, 0.125)
+
+    def attn_check():
+        got, want = attention.attention_bwd(*args), attention.attention_bwd_plain(*args)
+        out = [compare_grad(f"attention_bwd {n}", gg, ww, GRAD_FRAC["attention_bwd"])
+               for n, gg, ww in zip(("dq", "dk", "dv"), got[:3], want[:3])]
+        out.append(compare_grad("attention_bwd db", got[3], want[3], GRAD_FRAC["partials"]))
+        masked_zero = all(not t[-1].any() for t in got[:3])
+        print(f"  attention_bwd: fully masked row gets no gradient: {masked_zero}", flush=True)
+        res = merge(*out)
+        res["ok"] = res["ok"] and masked_zero
+        return res
+
+    measure("attention_bwd", lambda: attention.attention_bwd(*args),
+            lambda: attention.attention_bwd_plain(*args), attn_check)
+    del q, k, v, do, o
+
+    # FFN: (8, 499, 1024) -> 4096 at rate 0 and 0.1.
+    x = randn(BATCH, T, 1024, offset=0.2, dtype=bf16)
+    w1 = randn(4096, 1024, scale=1.0 / 32, dtype=bf16)
+    w2 = randn(1024, 4096, scale=1.0 / 64, dtype=bf16)
+    b1 = randn(4096, scale=0.1)
+    dy = randn(BATCH, T, 1024, dtype=bf16)
+    seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    keep = philox.keep_mask(seeds, T, 4096, 0.1)
+
+    def drop_check():
+        got = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds)
+        res = compare("ffn_ln_drop", got, ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1,
+                                                               seeds=seeds))
+        same = bool(torch.equal(got != 0, keep))
+        frac = float(keep.float().mean())
+        print(f"  ffn_ln_drop: kernel mask == plain Philox mask: {same}; keep fraction "
+              f"{frac:.6f} (rate 0.1)", flush=True)
+        res["ok"] = res["ok"] and same and abs(frac - 0.9) < 1e-3
+        return res
+
+    measure("ffn_ln_drop", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
+            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check)
+
+    def bwd_check():
+        out = []
+        for rate in (0.0, 0.1):
+            got = ffn.ffn_bwd(x, w1, b1, g, b, dy, w2, rate=rate, seeds=seeds)
+            want = ffn.ffn_bwd_plain(x, w1, b1, g, b, dy, w2, rate=rate, seeds=seeds)
+            g_fwd = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=rate, seeds=seeds)
+            same_g = bool(torch.equal(got[0], g_fwd))
+            dropped_zero = rate == 0.0 or not bool(got[1][~keep].any())
+            print(f"  ffn_bwd rate {rate}: g regenerated bit for bit: {same_g}; dh zero "
+                  f"where dropped: {dropped_zero}", flush=True)
+            res = [compare_grad(f"ffn_bwd rate {rate} {n}", gg, ww, GRAD_FRAC["ffn_bwd"])
+                   for n, gg, ww in (("dh", got[1], want[1]), ("dx", got[3], want[3]))]
+            res.append(compare("ffn_ln", got[2], want[2]))  # ln_out, a rounded LN
+            res += [compare_grad(f"ffn_bwd rate {rate} {n}", gg, ww, GRAD_FRAC["partials"])
+                    for n, gg, ww in zip(("db1", "dgamma", "dbeta"), got[4:], want[4:])]
+            merged = merge(*res)
+            merged["ok"] = merged["ok"] and same_g and dropped_zero
+            out.append(merged)
+        return merge(*out)
+
+    measure("ffn_bwd", lambda: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
+            lambda: ffn.ffn_bwd_plain(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
+            bwd_check)
+    del x, dy, keep
+
+    # CTC recursions: T' = 499, B = 8, L = 128 (S = 257), row 7 infeasible.
+    log_probs = torch.log_softmax(randn(T, BATCH, 46, scale=3.0), dim=-1)
+    labels = torch.randint(1, 46, (BATCH, MAX_LABEL), generator=gen, device=dev)
+    in_len = torch.tensor([499, 450, 400, 350, 300, 499, 499, 100], device=dev)
+    lab_len = torch.tensor([128, 100, 64, 128, 32, 1, 0, 128], device=dev)
+    ext = ctc._extended_labels(labels, 0)
+    skip, skip_fwd, valid, terminal = ctc._state_masks(ext, lab_len, 0)
+    emit = ctc._emissions(log_probs, ext).contiguous()
+    a_args, b_args = (emit, skip, valid, in_len), (emit, skip_fwd, valid, in_len, terminal)
+    measure("ctc_alpha", lambda: ctc.ctc_alpha(*a_args), lambda: ctc.ctc_alpha_plain(*a_args),
+            lambda: compare("ctc_alpha", ctc.ctc_alpha(*a_args), ctc.ctc_alpha_plain(*a_args)))
+    measure("ctc_beta", lambda: ctc.ctc_beta(*b_args), lambda: ctc.ctc_beta_plain(*b_args),
+            lambda: compare("ctc_beta", ctc.ctc_beta(*b_args), ctc.ctc_beta_plain(*b_args)))
+    nll = ctc.ctc_loss(log_probs, labels, in_len, lab_len, reduction="none")
+    print(f"  ctc_loss: per-row losses {[round(float(v), 3) for v in nll]} (row 7 "
+          f"infeasible -> 0)", flush=True)
+    if float(nll[7]) != 0.0 or not bool(torch.isfinite(nll).all()):
+        results["ctc_alpha"]["ok"] = False
     return results
 
 
@@ -331,6 +568,218 @@ def serving_run(card: str) -> tuple[dict, dict]:
     return counts, metrics
 
 
+def train_batch(seed: int) -> tuple[dict, float]:
+    """A fixed (ACCUM, 8, 160000) batch: clips of 6-10 s of seeded noise, padded
+    to 10 s, with random label sequences of 64-128 ids (the blank excluded).
+    Returns the batch and the seconds of audio in it."""
+    rng = np.random.default_rng(seed)
+    T = int(TRAIN_CONFIG["max_seconds_per_example"] * SR)
+    lengths = rng.integers(6 * SR, T + 1, size=(ACCUM, BATCH)).astype(np.int32)
+    audio = np.zeros((ACCUM, BATCH, T), np.float32)
+    for a in range(ACCUM):
+        for i in range(BATCH):
+            audio[a, i, : lengths[a, i]] = rng.standard_normal(lengths[a, i]) * 0.1
+    label_lengths = rng.integers(64, MAX_LABEL + 1, size=(ACCUM, BATCH)).astype(np.int32)
+    labels = np.full((ACCUM, BATCH, MAX_LABEL), -100, np.int32)
+    for a in range(ACCUM):
+        for i in range(BATCH):
+            labels[a, i, : label_lengths[a, i]] = rng.integers(1, 46, label_lengths[a, i])
+    batch = {"input_values": audio, "input_lengths": lengths, "labels": labels,
+             "label_lengths": label_lengths}
+    return batch, float(lengths.sum()) / SR
+
+
+def training_run(card: str) -> tuple[dict, dict]:
+    """The training slice through ``Wav2Vec2Setup.make_train_step``; returns
+    (launch counts of the first production step, metrics)."""
+    import copy
+
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training import TrainState, create_optimizer
+    from coral_tpu_torch.training.model_setup import load_model_setup
+    from coral_tpu_torch.training.train_state import _load_work_params, ctc_loss_and_grads
+
+    batch, audio_seconds = train_batch(0)
+    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+    def plain_twin(model):
+        with torch.device("meta"):
+            plain = Wav2Vec2ForCTC(model.config, plain=True)
+        plain = plain.to_empty(device="cuda")
+        plain.load_state_dict(model.state_dict())
+        plain.wav2vec2.encoder.gradient_checkpointing = True
+        return plain
+
+    # (a) Kernel path vs plain path: activation dropout 0, SpecAugment on.
+    cfg_a = copy.deepcopy(TRAIN_CONFIG)
+    cfg_a["model"]["activation_dropout"] = 0.0
+    setup = load_model_setup(cfg_a, device="cuda")
+    model = setup.init_params(seed=0)
+    plain = plain_twin(model)
+    masters = {n: p.detach().float().clone() for n, p in model.named_parameters()}
+    one = {k: v[:1] for k, v in dev_batch.items()}
+    out = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        _load_work_params(m, masters, torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        out[name] = ctc_loss_and_grads(m, one, gen, setup.blank_id, "sum", True)
+    torch.cuda.synchronize()
+    (loss_k, grads_k), (loss_p, grads_p) = out["kernel"], out["plain"]
+    from coral_tpu_torch.training.optimizer import global_norm
+
+    norm_k, norm_p = float(global_norm(list(grads_k.values()))), float(
+        global_norm(list(grads_p.values())))
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    ratios, k_bias = [], []
+    for n, gp in grads_p.items():
+        scale = float(gp.abs().max())
+        if scale == 0.0:
+            if bool(grads_k[n].any()):
+                fail(f"{n}: the kernel path has a gradient where the plain path has none")
+            continue
+        if n.endswith("k_proj.bias"):
+            # Adding bk shifts every score of a query by q.bk, which softmax
+            # ignores: its gradient is 0 and both paths hold rounding noise.
+            k_bias.append((max(scale, float(grads_k[n].abs().max()))
+                           / float(grads_p[n.replace("k_proj", "v_proj")].abs().max())))
+            continue
+        ratios.append((float((grads_k[n] - gp).abs().max()) / scale, n))
+    ratios.sort(reverse=True)
+    worst = ratios[0][0]
+    print(f"training (a) kernel vs plain, one microbatch of {BATCH}: loss {float(loss_k):.6f} "
+          f"vs {float(loss_p):.6f} (rel {loss_rel:.6g}, tolerance {TRAIN_LOSS_RTOL}); grad norm "
+          f"{norm_k:.6f} vs {norm_p:.6f} (rel {norm_rel:.6g}, tolerance {TRAIN_GRAD_NORM_RTOL}); "
+          f"gradient max|diff|/max|plain| over {len(ratios)} parameters (tolerance "
+          f"{TRAIN_GRAD_TOL}), worst: " + "; ".join(f"{r:.6g} {n}" for r, n in ratios[:5]),
+          flush=True)
+    print(f"  k_proj.bias gradients (0 in exact arithmetic), max|g| / max|g of v_proj.bias| "
+          f"over {len(k_bias)} layers: worst {max(k_bias):.6g} (tolerance "
+          f"{K_BIAS_NOISE})", flush=True)
+    if not (math.isfinite(float(loss_k)) and loss_rel <= TRAIN_LOSS_RTOL
+            and norm_rel <= TRAIN_GRAD_NORM_RTOL and worst <= TRAIN_GRAD_TOL
+            and max(k_bias) <= K_BIAS_NOISE):
+        fail("the training kernel path and plain path disagree")
+    fe_grads = [n for n in grads_k if "feature_extractor" in n and bool(grads_k[n].any())]
+    if fe_grads:
+        fail(f"the frozen feature encoder got gradients: {fe_grads[:3]}")
+    del model, plain, out, grads_k, grads_p, masters
+    torch.cuda.empty_cache()
+
+    # (b) The production configuration: activation dropout 0.1, A = 2.
+    setup = load_model_setup(TRAIN_CONFIG, device="cuda")
+    model = setup.init_params(seed=0)
+    cfg = setup.model_config
+    print(f"training model: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"activation dropout {cfg.activation_dropout}, SpecAugment time "
+          f"{cfg.mask_time_prob}/{cfg.mask_time_length} feature {cfg.mask_feature_prob}/"
+          f"{cfg.mask_feature_length}, {cfg.dtype}, batch {ACCUM} x {BATCH} x "
+          f"{batch['input_values'].shape[-1]} samples", flush=True)
+    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype) != (1024, 24, torch.bfloat16):
+        fail("the setup did not build XLS-R-300M in bf16")
+
+    def optimizer():
+        return create_optimizer(
+            learning_rate=setup.learning_rate, warmup_steps=WARMUP_STEPS, max_steps=1000,
+            adam_beta1=TRAIN_CONFIG["adam_first_momentum"],
+            adam_beta2=TRAIN_CONFIG["adam_second_momentum"],
+            max_grad_norm=TRAIN_CONFIG["max_grad_norm"], mu_dtype=TRAIN_CONFIG["adam_mu_dtype"])
+
+    tx, schedule = optimizer()
+    state = TrainState.create(model, tx)
+    step = setup.make_train_step(tx, schedule)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # The main path, counted: the first optimizer step.
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"training main path: 1 step of {ACCUM} microbatches, launch counts {counts}",
+          flush=True)
+    for name, n in PER_MICROBATCH.items():
+        if counts.get(name, 0) < n * ACCUM:
+            fail(f"{name} launched {counts.get(name, 0)} times, expected >= {n * ACCUM}")
+    losses = [float(metrics["loss"])]
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))  # synchronises
+        walls.append(time.perf_counter() - start)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training losses over {TRAIN_STEPS} steps: {[round(v, 4) for v in losses]}; "
+          f"last grad norm {float(metrics['grad_norm']):.6f}, learning rate "
+          f"{float(metrics['learning_rate']):.6g}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail("training loss not finite or not falling")
+
+    # One step under the profiler: device time by kernel, and the busy share
+    # (the union of the kernels' intervals over the step's window).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    cpu = [e.time_range for e in prof.events() if e.device_type == DeviceType.CPU]
+    window = (max(r.end for r in cpu) - min(r.start for r in cpu)) / 1e3
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    by_name: dict = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()), reverse=True)
+    print(f"profile of one training step ({card}): window {window:.3f} ms (profiler on), "
+          f"device busy {busy:.3f} ms (union of {len(kernels)} kernels), busy share "
+          f"{busy / window:.4f}; device time by kernel:", flush=True)
+    for ms, n, key in rows[:16]:
+        print(f"    {ms:10.3f} ms  {n:6d}x  {key[:96]}", flush=True)
+    print(f"    {sum(r[0] for r in rows[16:]):10.3f} ms  {sum(r[1] for r in rows[16:]):6d}x  "
+          f"the other {len(rows) - 16} kernels", flush=True)
+
+    # The plain path's time per step on the same weights and batch.
+    plain = plain_twin(model)
+    ptx, pschedule = optimizer()
+    pstate = TrainState.create(plain, ptx)
+    pstep = setup.make_train_step(ptx, pschedule)
+    pgen = torch.Generator(device="cuda").manual_seed(0)
+    pwalls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        pstate, pm = pstep(pstate, batch, pgen)
+        float(pm["loss"])
+        pwalls.append(time.perf_counter() - start)
+    wall = float(np.median(walls))
+    metrics = {
+        "train_audio_s_per_s": audio_seconds / wall,
+        "ms_per_step": wall * 1e3,
+        "plain_ms_per_step": pwalls[-1] * 1e3,
+        "peak_memory_gib": peak / 2**30,
+        "losses": losses,
+        "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": worst,
+    }
+    print(f"training ({card}): {metrics['train_audio_s_per_s']:.3f} audio-s/s "
+          f"({audio_seconds:.3f} s of audio per step of {ACCUM} x {BATCH} clips); "
+          f"{metrics['ms_per_step']:.3f} ms per optimizer step (median of "
+          f"{len(walls)}; plain path {metrics['plain_ms_per_step']:.3f} ms); peak memory "
+          f"{metrics['peak_memory_gib']:.3f} GiB", flush=True)
+    return counts, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on an NVIDIA GPU only")
@@ -357,15 +806,24 @@ def main() -> int:
         print(f"  ptxas, {len(used)} kernels: {'; '.join(used)}; spills: {spills or 'none'}",
               flush=True)
 
-    print(f"kernel checks at slice shapes (bf16, batch {BATCH}):", flush=True)
+    print(f"kernel checks at serving shapes (bf16, batch {BATCH}):", flush=True)
     checks = kernel_checks(card)
+    print(f"kernel checks at training shapes (bf16, batch {BATCH} x 10 s):", flush=True)
+    checks.update(train_kernel_checks(card))
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    torch.cuda.empty_cache()
 
-    counts, _ = serving_run(card)
+    serve_counts, _ = serving_run(card)
+    torch.cuda.empty_cache()
+    train_counts, _ = training_run(card)
     if "jax" in sys.modules:
         fail("the port imported jax")
+    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0) for name in checks}
+    idle = [name for name, n in counts.items() if n == 0]
+    if idle:
+        fail(f"kernels never launched on a main path: {idle}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

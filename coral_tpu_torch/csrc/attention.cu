@@ -200,7 +200,419 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- Backward ------------------------------------------------------------------
+//
+// Replaces: coral_tpu/ops/attention_pallas.py `_bwd_pallas_stats_ctx_qb` /
+// `_bwd_kernel_stats_ctx_qb` (the v3 backward with in-kernel q/k/v biases):
+// dq, dk, dv and the fp32 row sums of their bf16-rounded values (the bias
+// gradients), from the forward's lse and o.
+//
+// Bound on the H100: the tensor cores (five T x T x 64 products per head, two
+// more for dq's pass) and the exponentials; the (T, T) score tile the TPU
+// kernel holds in VMEM does not fit an SM at T = 499 or 1499.
+//
+// Design: two kernels, neither with atomics, so the gradients are
+// deterministic. The key-major kernel (one block per 64-key tile, head, batch
+// row) walks the query tiles and accumulates dk and dv in registers, in the
+// TPU kernel's transposed space (S^T = K Q^T). The query-major kernel walks
+// the key tiles and accumulates dq; it rebuilds p and dp instead of summing
+// dq across key blocks. Both rebuild p = exp(s + key_bias - lse) from the
+// saved lse, exactly the TPU kernel's formula: a fully masked row has lse
+// clamped at -1e25 and so p = 0 there, not the forward's uniform average.
+// delta = rowsum(do * o) is computed per query tile from the saved o. Keys
+// past T get -inf and queries past T get lse = +inf, so both have p = 0.
+// Each block writes the column sums of its 64 rows of bf16-rounded dq (or dk,
+// dv) as one partial; the sum over tiles and batch rows runs outside, as the
+// JAX package sums its per-batch-row partials outside.
+
+constexpr int kBwdSmemDkdv = 6 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4 + 4 * 64 * 4;
+constexpr int kBwdSmemDq = 5 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4 + 4 * 64 * 4;
+
+// Rows r0 .. r0+63 of one head without a bias; rows at or past T are zero.
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int T,
+                                          long long stride_t) {
+  for (int i = threadIdx.x; i < 64 * (kD / 8); i += kThreads) {
+    const int r = i >> 3;
+    const int c = (i & 7) * 8;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < T) u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride_t + c);
+    *reinterpret_cast<uint4*>(dst + r * kLdH + c) = u;
+  }
+}
+
+// lse and delta = rowsum(do * o) of query rows q0 .. q0+63 (dOs already in
+// shared memory); rows past T get lse = +inf and delta = 0. Two threads a row.
+__device__ __forceinline__ void load_query_stats(float* lse_s, float* delta_s,
+                                                 const float* lse_row, const bf16* dOs,
+                                                 const bf16* o_head, int q0, int T,
+                                                 long long stride_o) {
+  const int r = threadIdx.x >> 1;
+  const int half = threadIdx.x & 1;
+  float s = 0.f;
+  if (q0 + r < T) {
+#pragma unroll
+    for (int j = 0; j < 32; j += 8) {
+      float a[8], d[8];
+      coral_load8(o_head + (long long)(q0 + r) * stride_o + half * 32 + j, a);
+      coral_load8(dOs + r * kLdH + half * 32 + j, d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += d[e] * a[e];
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  if (half == 0) {
+    lse_s[r] = q0 + r < T ? lse_row[q0 + r] : INFINITY;
+    delta_s[r] = s;
+  }
+}
+
+// A warp's 16 x 64 fp32 accumulators times `mul`, rounded to bf16, go to rows
+// r0 + 16 warp .. of dst (rows at or past T are skipped); the column sums of
+// the rounded values over the block's 64 rows go to part[0 .. 63]. Called by
+// every thread of the block.
+__device__ __forceinline__ void store_rows_colsum(FragC (&acc)[4], float mul, float* Sw,
+                                                  float* red, bf16* dst, long long stride,
+                                                  int r0, int T, float* part) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane >> 1;
+  const int half = lane & 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wmma::store_matrix_sync(Sw + j * 16, acc[j], kLdS, wmma::mem_row_major);
+  __syncwarp();
+  const int t = r0 + warp * 16 + row;
+  float out[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    out[j] = t < T ? coral_round_bf16(Sw[row * kLdS + half * 32 + j] * mul) : 0.f;
+  if (t < T) {
+#pragma unroll
+    for (int j = 0; j < 32; j += 8) coral_store8(dst + (long long)t * stride + half * 32 + j, out + j);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 32; ++j) Sw[row * kLdS + half * 32 + j] = out[j];
+  __syncwarp();
+  float c0 = 0.f, c1 = 0.f;
+  for (int r = 0; r < 16; ++r) {
+    c0 += Sw[r * kLdS + lane];
+    c1 += Sw[r * kLdS + lane + 32];
+  }
+  red[warp * 64 + lane] = c0;
+  red[warp * 64 + lane + 32] = c1;
+  __syncthreads();
+  if (threadIdx.x < 64)
+    part[threadIdx.x] = ((red[threadIdx.x] + red[64 + threadIdx.x]) + red[128 + threadIdx.x]) +
+                        red[192 + threadIdx.x];
+  __syncthreads();
+}
+
+// q, k, v, bq, bk, bv, key_bias as the forward; dout, o: (B, T, H*64) bf16
+// contiguous; lse: (B, H, T) fp32; dk, dv: (B, T, H*64) bf16; db_part:
+// (B, nT, 3, H*64) fp32 with nT = ceil(T / 64).
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ bq,
+                              const bf16* __restrict__ bk, const bf16* __restrict__ bv,
+                              const float* __restrict__ key_bias, const bf16* __restrict__ dout,
+                              const float* __restrict__ lse, const bf16* __restrict__ o,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              float* __restrict__ db_part, int T, int H, long long stride_b,
+                              long long stride_t, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kBQ * kLdH;
+  bf16* Qs = Vs + kBQ * kLdH;
+  bf16* dOs = Qs + kBQ * kLdH;
+  bf16* Ps = dOs + kBQ * kLdH;
+  bf16* dSs = Ps + kBQ * kLdH;
+  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdH);
+  float* lse_s = Ss + kBQ * kLdS;
+  float* delta_s = lse_s + 64;
+  float* kb = delta_s + 64;
+  float* red = kb + 64;
+
+  const int k0 = blockIdx.x * kBKV;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  const long long HD = (long long)H * kD;
+  const long long head = (long long)b * stride_b + h * kD;
+  const long long ohead = (long long)b * T * HD + h * kD;
+
+  load_tile(Ks, k + head, bk + h * kD, k0, T, stride_t, 0.0f);
+  load_tile(Vs, v + head, bv + h * kD, k0, T, stride_t, 0.0f);
+  if (threadIdx.x < kBKV) {
+    const int key = k0 + threadIdx.x;
+    kb[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
+  }
+
+  FragC dk_acc[4], dv_acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wmma::fill_fragment(dk_acc[j], 0.0f);
+    wmma::fill_fragment(dv_acc[j], 0.0f);
+  }
+  float* Sw = Ss + warp * 16 * kLdS;
+  bf16* Pw = Ps + warp * 16 * kLdH;
+  bf16* dSw = dSs + warp * 16 * kLdH;
+  const bf16* Kw = Ks + warp * 16 * kLdH;
+  const bf16* Vw = Vs + warp * 16 * kLdH;
+
+  for (int q0 = 0; q0 < T; q0 += kBQ) {
+    __syncthreads();  // the previous query tile is no longer read
+    load_tile(Qs, q + head, bq + h * kD, q0, T, stride_t, scale);
+    load_rows(dOs, dout + ohead, q0, T, HD);
+    __syncthreads();
+    load_query_stats(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0, T, HD);
+    __syncthreads();
+
+    // S^T = K_w Q^T for this warp's 16 keys.
+    FragC s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < kD; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, Kw + kk, kLdH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBc bt;
+        wmma::load_matrix_sync(bt, Qs + (j * 16) * kLdH + kk, kLdH);
+        wmma::mma_sync(s[j], a, bt, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(Sw + j * 16, s[j], kLdS, wmma::mem_row_major);
+    __syncwarp();
+    float p[32];
+    const float kbr = kb[warp * 16 + row];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      p[j] = expf(Sw[row * kLdS + c] + kbr - lse_s[c]);
+      Pw[row * kLdH + c] = __float2bfloat16(p[j]);
+    }
+    __syncwarp();
+
+    // dP^T = V_w dO^T.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < kD; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, Vw + kk, kLdH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBc bt;
+        wmma::load_matrix_sync(bt, dOs + (j * 16) * kLdH + kk, kLdH);
+        wmma::mma_sync(s[j], a, bt, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(Sw + j * 16, s[j], kLdS, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      dSw[row * kLdH + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_s[c]));
+    }
+    __syncwarp();
+
+    // dV += P^T dO and dK += dS^T Q.
+#pragma unroll
+    for (int kk = 0; kk < kBQ; kk += 16) {
+      FragA ap, as;
+      wmma::load_matrix_sync(ap, Pw + kk, kLdH);
+      wmma::load_matrix_sync(as, dSw + kk, kLdH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBr bo, bqf;
+        wmma::load_matrix_sync(bo, dOs + kk * kLdH + j * 16, kLdH);
+        wmma::mma_sync(dv_acc[j], ap, bo, dv_acc[j]);
+        wmma::load_matrix_sync(bqf, Qs + kk * kLdH + j * 16, kLdH);
+        wmma::mma_sync(dk_acc[j], as, bqf, dk_acc[j]);
+      }
+    }
+    __syncwarp();
+  }
+
+  const int nT = gridDim.x;
+  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * kD;
+  store_rows_colsum(dk_acc, 1.0f, Sw, red, dk + ohead, HD, k0, T, part + HD);
+  store_rows_colsum(dv_acc, 1.0f, Sw, red, dv + ohead, HD, k0, T, part + 2 * HD);
+}
+
+// As attention_bwd_dkdv_kernel, for dq (and the first third of db_part).
+__global__ void __launch_bounds__(kThreads)
+    attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ bq,
+                            const bf16* __restrict__ bk, const bf16* __restrict__ bv,
+                            const float* __restrict__ key_bias, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, const bf16* __restrict__ o,
+                            bf16* __restrict__ dq, float* __restrict__ db_part, int T, int H,
+                            long long stride_b, long long stride_t, float scale,
+                            float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kBQ * kLdH;
+  bf16* Ks = dOs + kBQ * kLdH;
+  bf16* Vs = Ks + kBKV * kLdH;
+  bf16* dSs = Vs + kBKV * kLdH;
+  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdH);
+  float* lse_s = Ss + kBQ * kLdS;
+  float* delta_s = lse_s + 64;
+  float* kb = delta_s + 64;
+  float* red = kb + 64;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  const long long HD = (long long)H * kD;
+  const long long head = (long long)b * stride_b + h * kD;
+  const long long ohead = (long long)b * T * HD + h * kD;
+
+  load_tile(Qs, q + head, bq + h * kD, q0, T, stride_t, scale);
+  load_rows(dOs, dout + ohead, q0, T, HD);
+  __syncthreads();
+  load_query_stats(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0, T, HD);
+
+  FragC dq_acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
+  float* Sw = Ss + warp * 16 * kLdS;
+  bf16* dSw = dSs + warp * 16 * kLdH;
+  const bf16* Qw = Qs + warp * 16 * kLdH;
+  const bf16* dOw = dOs + warp * 16 * kLdH;
+
+  for (int k0 = 0; k0 < T; k0 += kBKV) {
+    __syncthreads();  // the previous key tile is no longer read
+    load_tile(Ks, k + head, bk + h * kD, k0, T, stride_t, 0.0f);
+    load_tile(Vs, v + head, bv + h * kD, k0, T, stride_t, 0.0f);
+    if (threadIdx.x < kBKV) {
+      const int key = k0 + threadIdx.x;
+      kb[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
+    }
+    __syncthreads();
+    const float lse_r = lse_s[warp * 16 + row];
+    const float delta_r = delta_s[warp * 16 + row];
+
+    // S = Q_w K^T.
+    FragC s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < kD; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, Qw + kk, kLdH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBc bt;
+        wmma::load_matrix_sync(bt, Ks + (j * 16) * kLdH + kk, kLdH);
+        wmma::mma_sync(s[j], a, bt, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(Sw + j * 16, s[j], kLdS, wmma::mem_row_major);
+    __syncwarp();
+    float p[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      p[j] = expf(Sw[row * kLdS + c] + kb[c] - lse_r);
+    }
+    __syncwarp();
+
+    // dP = dO_w V^T.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < kD; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, dOw + kk, kLdH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBc bt;
+        wmma::load_matrix_sync(bt, Vs + (j * 16) * kLdH + kk, kLdH);
+        wmma::mma_sync(s[j], a, bt, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(Sw + j * 16, s[j], kLdS, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      dSw[row * kLdH + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_r));
+    }
+    __syncwarp();
+
+    // dQ += dS K.
+#pragma unroll
+    for (int kk = 0; kk < kBKV; kk += 16) {
+      FragA a;
+      wmma::load_matrix_sync(a, dSw + kk, kLdH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        FragBr bkf;
+        wmma::load_matrix_sync(bkf, Ks + kk * kLdH + j * 16, kLdH);
+        wmma::mma_sync(dq_acc[j], a, bkf, dq_acc[j]);
+      }
+    }
+    __syncwarp();
+  }
+
+  const int nT = gridDim.x;
+  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * kD;
+  store_rows_colsum(dq_acc, sm_scale, Sw, red, dq + ohead, HD, q0, T, part);
+}
+
 }  // namespace
+
+// Launches both backward kernels on `stream`. scale is the bf16-rounded score
+// scale applied to q + bq (as the forward); sm_scale the fp32 one dq is
+// multiplied by (as the JAX kernel). Returns the cudaError_t of the launches.
+extern "C" int coral_attention_bwd(const void* q, const void* k, const void* v, const void* bq,
+                                   const void* bk, const void* bv, const void* key_bias,
+                                   const void* dout, const void* lse, const void* o, void* dq,
+                                   void* dk, void* dv, void* db_part, int B, int T, int H,
+                                   long long stride_b, long long stride_t, float scale,
+                                   float sm_scale, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kBwdSmemDkdv);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemDq);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *bqp = static_cast<const bf16*>(bq),
+             *bkp = static_cast<const bf16*>(bk), *bvp = static_cast<const bf16*>(bv),
+             *dop = static_cast<const bf16*>(dout), *op = static_cast<const bf16*>(o);
+  const float* kbp = static_cast<const float*>(key_bias);
+  const float* lp = static_cast<const float*>(lse);
+  float* dbp = static_cast<float*>(db_part);
+  attention_bwd_dkdv_kernel<<<grid, kThreads, kBwdSmemDkdv, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dbp, T, H, stride_b, stride_t, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dq_kernel<<<grid, kThreads, kBwdSmemDq, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, static_cast<bf16*>(dq), dbp, T, H, stride_b,
+      stride_t, scale, sm_scale);
+  return (int)cudaGetLastError();
+}
 
 // Returns the cudaError_t of the launch.
 extern "C" int coral_attention_fwd(const void* q, const void* k, const void* v,

@@ -1,9 +1,11 @@
-// FFN up-projection block forward: g = gelu(bf16(layer_norm(x)) @ W1^T + b1).
+// The pre-LN FFN block: the forward's up-projection kernel (with activation
+// dropout) and the backward's two kernels.
 //
+// Forward: g = dropout(gelu(bf16(layer_norm(x)) @ W1^T + b1)).
 // Replaces: coral_tpu/ops/ffn_pallas.py `_fwd_pallas_ln` / `_fwd_kernel_ln`
-// (the forward of `ffn_ln_block` at dropout rate 0, the pre-LN FFN of every
-// wav2vec2 encoder layer). fc2 stays outside the kernel, as in the JAX
-// package (`_fc2`).
+// (rate 0) and `_fwd_kernel_ln_drop` (rate > 0), the forward of
+// `ffn_ln_block`, the pre-LN FFN of every wav2vec2 encoder layer. fc2 stays
+// outside the kernel, as in the JAX package (`_fc2`).
 //
 // Bound on the H100: the tensor cores. At XLS-R-300M widths the product is
 // 2 * 1024 * 4096 flops per row against 2 KB of input and 8 KB of output,
@@ -17,11 +19,14 @@
 // (F, D), K contiguous per column) into bf16 WMMA fragments with fp32
 // accumulators, eight warps of 32 x 64 each. The epilogue stages the
 // accumulators through shared memory (over the dead A panel), adds b1, applies
-// the polynomial GELU and stores g in bf16, 16 bytes a lane.
+// the polynomial GELU and the dropout mask (csrc/philox.cuh: a pure function
+// of seed[b], row t and column, not of the tiling) and stores g in bf16, 16
+// bytes a lane.
 #include <mma.h>
 
 #include "common.cuh"
 #include "gelu_poly.cuh"
+#include "philox.cuh"
 
 using namespace nvcuda;
 
@@ -33,37 +38,26 @@ constexpr int kBN = 256;       // F columns per block
 constexpr int kBK = 32;        // reduction chunk per shared-memory stage
 constexpr int kThreads = 256;  // 8 warps: 2 row groups x 4 column groups
 constexpr int kLdA = kD + 8;   // bf16 row pitch of the normalised panel
-constexpr int kLdB = kBK + 8;  // bf16 row pitch of the W1 tile
+constexpr int kLdB = kBK + 8;  // bf16 row pitch of the W1 tile (and the dy chunk)
 constexpr int kLdC = kBN + 4;  // fp32 row pitch of the staged accumulators
+constexpr int kLdW = kBN + 8;  // bf16 row pitch of the W2 tile
 constexpr int kSmem = (kBM * kLdA + kBN * kLdB) * 2;
 static_assert(kBM * kLdC * 4 <= kBM * kLdA * 2, "staging must fit over the A panel");
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// x: (M, D) bf16; w1: (F, D) bf16; b1: (F,) fp32; gamma, beta: (D,) fp32;
-// g: (M, F) bf16.
-__global__ void __launch_bounds__(kThreads)
-    ffn_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, bf16* __restrict__ g, long long M, int F,
-                  float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kBM * kLdA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wr = warp >> 2;  // 0..1: rows wr*32 .. +31
-  const int wc = warp & 3;   // 0..3: columns wc*64 .. +63
-
-  // Prologue: warp w normalises rows 8w .. 8w+7; lane owns four 8-value
-  // chunks at (i*32 + lane)*8.
+// The fp32 LayerNorm of rows m0 .. m0+63 of x, rounded to bf16 into As (rows
+// past M are zero); with ln_out, the rows are written there too. Warp w
+// normalises rows 8w .. 8w+7; a lane owns four 8-value chunks at (i*32+lane)*8.
+__device__ __forceinline__ void ln_panel(bf16* As, const bf16* __restrict__ x,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta, long long m0,
+                                         long long M, float eps, bf16* ln_out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   constexpr int kChunks = kD / (32 * 8);
 #pragma unroll 1
   for (int rr = 0; rr < kBM / 8; ++rr) {
@@ -102,18 +96,26 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 8; ++e) out[e] = (v[i * 8 + e] * rstd) * ga[e] + be[e];
       coral_store8(arow + col, out);  // rounds to bf16, the product's operand
+      if (ln_out != nullptr)
+        *reinterpret_cast<uint4*>(ln_out + row * kD + col) =
+            *reinterpret_cast<const uint4*>(arow + col);
     }
   }
-  __syncthreads();
+}
 
-  FragC acc[2][4];
+// acc (this warp's 32 x 64) = As (64 x D) @ W1[n0 .. n0+255, :]^T over the
+// whole D, streaming 256 x 32 tiles of W1 through Bs. Ends on a barrier.
+__device__ __forceinline__ void ln_times_w1(FragC (&acc)[2][4], const bf16* As, bf16* Bs,
+                                            const bf16* __restrict__ w1, int n0) {
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp >> 2;  // 0..1: rows wr*32 .. +31
+  const int wc = warp & 3;   // 0..3: columns wc*64 .. +63
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
   for (int k0 = 0; k0 < kD; k0 += kBK) {
-    for (int i = tid; i < kBN * (kBK / 8); i += kThreads) {
+    for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
       const int n = i >> 2;
       const int c = (i & 3) * 8;
       *reinterpret_cast<uint4*>(Bs + n * kLdB + c) =
@@ -137,14 +139,44 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
+}
 
-  // The loop ended on a barrier, so the A panel may now be overwritten.
+__device__ __forceinline__ void stage(float* Cs, FragC (&acc)[2][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp >> 2;
+  const int wc = warp & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * kLdC + wc * 64 + j * 16, acc[i][j],
                               kLdC, wmma::mem_row_major);
+}
+
+// x: (M, D) bf16; w1: (F, D) bf16; b1: (F,) fp32; gamma, beta: (D,) fp32;
+// seeds: (M / T,) int32 (kDrop); g: (M, F) bf16.
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+    ffn_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                  const float* __restrict__ b1, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, const int* __restrict__ seeds,
+                  bf16* __restrict__ g, long long M, int F, int T, uint32_t threshold,
+                  float scale, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + kBM * kLdA;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  ln_panel(As, x, gamma, beta, m0, M, eps, nullptr);
+  __syncthreads();
+  FragC acc[2][4];
+  ln_times_w1(acc, As, Bs, w1, n0);
+  stage(Cs, acc);  // the K loop ended on a barrier: the A panel is dead
   __syncthreads();
 
   // Epilogue: warp w writes rows 8w .. 8w+7; lane owns columns lane*8 .. +7.
@@ -160,25 +192,327 @@ __global__ void __launch_bounds__(kThreads)
     float out[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) out[e] = coral_gelu(Cs[r * kLdC + col + e] + bias[e]);
+    if (kDrop) {
+      bool keep[8];
+      coral_keep8((uint32_t)seeds[row / T], (uint32_t)(row % T), n0 + col, threshold, keep);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) out[e] = keep[e] ? out[e] * scale : 0.f;
+    }
     coral_store8(g + row * F + n0 + col, out);
   }
 }
 
+// --- Backward ------------------------------------------------------------------
+//
+// Replaces: coral_tpu/ops/ffn_pallas.py `_bwd_pallas_ln_g_dg` /
+// `_bwd_kernel_ln_g_dg` (rate 0) and `_bwd_kernel_ln_g_dg_drop` (rate > 0), the
+// backward of `ffn_ln_block` with dg computed in the kernel.
+//
+// Bound on the H100: the tensor cores: three products of 2 * D * F flops per
+// row (h recomputed, dg = dy W2^T, dl = dh W1), against 2 KB of x and dy in
+// and 16 KB of g and dh out.
+//
+// The TPU kernel holds a (TM, F) block and its (TM, D) LayerNorm backward in
+// VMEM at once: dl = dh W1 must be complete over all D columns of a row
+// before any dx is written. A 64-row tile of dl alone is 256 KB of fp32, more
+// than an SM's 227 KB, so the work is split into three hand-written kernels:
+//  (i)  ffn_bwd_kernel, one block per (64 rows, 256 F columns): the LayerNorm
+//       panel as the forward (written once as ln_out, the dW1 operand),
+//       h = ln W1^T + b1 over the whole D, then dg = dy W2^T over the whole D
+//       with dy and W2 streamed in 32-wide chunks; the epilogue regenerates the
+//       forward's dropout mask from the same seeds, writes g (the dW2 operand)
+//       and dh = dg * mask / keep * gelu'(h) in bf16, and the column sums of
+//       the fp32 dh over its 64 rows (the db1 partial);
+//  (ii) dl_kernel: dl = dh @ W1 in fp32, 128 x 128 tiles;
+//  (iii) the LayerNorm backward of csrc/ln_gelu.cu on (x, dl) (apply_gelu=0,
+//       fp32 dy), launched by the wrapper, for dx and the dgamma/dbeta
+//       partials.
+// dW1 = ln_out^T dh, dW2 = dy^T g, db2 and the sums of the partials stay
+// outside, as in `_ffn_ln_block_dg_bwd`.
+constexpr int kBwdSmem = (kBM * kLdA + kBN * kLdB) * 2;
+constexpr int kOffY = kBM * kLdC * 4;           // dy chunk, after the staged h
+constexpr int kOffW = kOffY + kBM * kLdB * 2;   // W2 tile
+constexpr int kOffG = kOffY;                    // staged dg, after the loop
+constexpr int kOffRed = kOffG + kBM * kLdC * 4;  // column-sum partials
+static_assert(kOffW + kBK * kLdW * 2 <= kBwdSmem, "the dg operands must fit");
+static_assert(kOffRed + 4 * kBN * 4 <= kBwdSmem, "the staging must fit");
+
+// dy: (M, D) bf16; w2: (D, F) bf16; g, dh: (M, F) bf16; ln_out: (M, D) bf16;
+// db1_part: (ceil(M / 64), F) fp32.
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+    ffn_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                   const float* __restrict__ b1, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, const bf16* __restrict__ dy,
+                   const bf16* __restrict__ w2, const int* __restrict__ seeds,
+                   bf16* __restrict__ g, bf16* __restrict__ dh, bf16* __restrict__ ln_out,
+                   float* __restrict__ db1_part, long long M, int F, int T, uint32_t threshold,
+                   float scale, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + kBM * kLdA;
+  float* Hs = reinterpret_cast<float*>(smem);
+  bf16* Ys = reinterpret_cast<bf16*>(smem + kOffY);
+  bf16* Ws = reinterpret_cast<bf16*>(smem + kOffW);
+  float* Gs = reinterpret_cast<float*>(smem + kOffG);
+  float* red = reinterpret_cast<float*>(smem + kOffRed);
+
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp >> 2;
+  const int wc = warp & 3;
+
+  ln_panel(As, x, gamma, beta, m0, M, eps, blockIdx.y == 0 ? ln_out : nullptr);
+  __syncthreads();
+  FragC acc[2][4];
+  ln_times_w1(acc, As, Bs, w1, n0);
+  stage(Hs, acc);  // h - b1, over the dead A panel
+
+  // dg = dy W2^T: 64 x 32 chunks of dy and 32 x 256 tiles of W2 (stored
+  // (D, F), F contiguous).
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int k0 = 0; k0 < kD; k0 += kBK) {
+    {
+      const int r = threadIdx.x >> 2;
+      const int c = (threadIdx.x & 3) * 8;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M) u = *reinterpret_cast<const uint4*>(dy + (m0 + r) * kD + k0 + c);
+      *reinterpret_cast<uint4*>(Ys + r * kLdB + c) = u;
+    }
+    for (int i = threadIdx.x; i < kBK * (kBN / 8); i += kThreads) {
+      const int kr = i >> 5;
+      const int c = (i & 31) * 8;
+      *reinterpret_cast<uint4*>(Ws + kr * kLdW + c) =
+          *reinterpret_cast<const uint4*>(w2 + (long long)(k0 + kr) * F + n0 + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      FragA a[2];
+      FragBr bf[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], Ys + (wr * 32 + i * 16) * kLdB + kk, kLdB);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(bf[j], Ws + kk * kLdW + wc * 64 + j * 16, kLdW);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  stage(Gs, acc);
+  __syncthreads();
+
+  // Epilogue: thread owns columns 4*cg .. +3 of rows 16*rg .. +15.
+  const int cg = threadIdx.x & 63;
+  const int rg = threadIdx.x >> 6;
+  const int c0 = cg * 4;
+  float bias[4], colsum[4] = {0.f, 0.f, 0.f, 0.f};
+  coral_load4(b1 + n0 + c0, bias);
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = rg * 16 + rr;
+    const long long row = m0 + r;
+    if (row >= M) break;
+    bool keep[4] = {true, true, true, true};
+    if (kDrop) {
+      const uint4 bits = coral_philox((uint32_t)(n0 + c0) >> 2, (uint32_t)(row % T),
+                                      (uint32_t)seeds[row / T]);
+      keep[0] = bits.x >= threshold;
+      keep[1] = bits.y >= threshold;
+      keep[2] = bits.z >= threshold;
+      keep[3] = bits.w >= threshold;
+    }
+    float gv[4], dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = Hs[r * kLdC + c0 + e] + bias[e];
+      const float dgv = Gs[r * kLdC + c0 + e];
+      if (kDrop) {
+        gv[e] = keep[e] ? coral_gelu(h) * scale : 0.f;
+        dv[e] = keep[e] ? dgv * scale * coral_dgelu(h) : 0.f;
+      } else {
+        gv[e] = coral_gelu(h);
+        dv[e] = dgv * coral_dgelu(h);
+      }
+      colsum[e] += dv[e];
+    }
+    __nv_bfloat162* gp = reinterpret_cast<__nv_bfloat162*>(g + row * F + n0 + c0);
+    __nv_bfloat162* dp = reinterpret_cast<__nv_bfloat162*>(dh + row * F + n0 + c0);
+    gp[0] = __floats2bfloat162_rn(gv[0], gv[1]);
+    gp[1] = __floats2bfloat162_rn(gv[2], gv[3]);
+    dp[0] = __floats2bfloat162_rn(dv[0], dv[1]);
+    dp[1] = __floats2bfloat162_rn(dv[2], dv[3]);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) red[rg * kBN + c0 + e] = colsum[e];
+  __syncthreads();
+  {
+    const int c = threadIdx.x;  // kThreads == kBN
+    db1_part[(long long)blockIdx.x * F + n0 + c] =
+        ((red[c] + red[kBN + c]) + red[2 * kBN + c]) + red[3 * kBN + c];
+  }
+}
+
+// dl = dh @ W1: dh (M, F) bf16, W1 (F, D) bf16 row-major, dl (M, D) fp32.
+// 128 x 128 tiles, eight warps of 32 x 64, 32-deep chunks.
+constexpr int kGM = 128;
+constexpr int kGN = 128;
+constexpr int kLdGA = kBK + 8;
+constexpr int kLdGB = kGN + 8;
+
+__global__ void __launch_bounds__(kThreads)
+    dl_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ w1, float* __restrict__ dl,
+              long long M, int F) {
+  __shared__ __align__(128) bf16 As[kGM * kLdGA];
+  __shared__ __align__(128) bf16 Bs[kBK * kLdGB];
+  const long long m0 = (long long)blockIdx.y * kGM;
+  const int n0 = blockIdx.x * kGN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wr = warp >> 1;  // 0..3: rows wr*32 .. +31
+  const int wc = warp & 1;   // 0..1: columns wc*64 .. +63
+  FragC acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int k0 = 0; k0 < F; k0 += kBK) {
+    for (int i = threadIdx.x; i < kGM * (kBK / 8); i += kThreads) {
+      const int r = i >> 2;
+      const int c = (i & 3) * 8;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M) u = *reinterpret_cast<const uint4*>(dh + (m0 + r) * F + k0 + c);
+      *reinterpret_cast<uint4*>(As + r * kLdGA + c) = u;
+    }
+    for (int i = threadIdx.x; i < kBK * (kGN / 8); i += kThreads) {
+      const int kr = i >> 4;
+      const int c = (i & 15) * 8;
+      *reinterpret_cast<uint4*>(Bs + kr * kLdGB + c) =
+          *reinterpret_cast<const uint4*>(w1 + (long long)(k0 + kr) * kD + n0 + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      FragA a[2];
+      FragBr bf[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * kLdGA + kk, kLdGA);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(bf[j], Bs + kk * kLdGB + wc * 64 + j * 16, kLdGB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // Each warp stages one 16 x 16 fragment at a time through its own 1 KB of
+  // the dead A tile and writes the rows below M.
+  float* St = reinterpret_cast<float*>(As) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(St, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int r = lane >> 1;
+      const int c = (lane & 1) * 8;
+      const long long row = m0 + wr * 32 + i * 16 + r;
+      if (row < M) {
+        float* out = dl + row * kD + n0 + wc * 64 + j * 16 + c;
+        coral_store4(out, St + r * 16 + c);
+        coral_store4(out + 4, St + r * 16 + c + 4);
+      }
+      __syncwarp();
+    }
+  }
+}
+static_assert(kGM * kLdGA * 2 >= 8 * 256 * 4, "the output staging must fit the A tile");
+
 }  // namespace
 
-// Returns the cudaError_t of the launch, or -1 for a shape it was not built for.
+// Forward. seeds: (M / T,) int32, or null for rate 0 (threshold and scale are
+// then not read). Returns the cudaError_t of the launch, or -1 for a shape it
+// was not built for.
 extern "C" int coral_ffn_ln_fwd(const void* x, const void* w1, const void* b1,
-                                const void* gamma, const void* beta, void* g, long long M,
-                                int D, int F, float eps, void* stream) {
-  if (D != kD || F % kBN != 0) return -1;
+                                const void* gamma, const void* beta, const void* seeds,
+                                void* g, long long M, int D, int F, int T,
+                                unsigned int threshold, float scale, float eps, void* stream) {
+  if (D != kD || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
   if (M <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)(F / kBN));
-  ffn_ln_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<bf16*>(g), M, F, eps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* wp = static_cast<const bf16*>(w1);
+  const float *bp = static_cast<const float*>(b1), *gp = static_cast<const float*>(gamma),
+              *tp = static_cast<const float*>(beta);
+  const int* sp = static_cast<const int*>(seeds);
+  bf16* out = static_cast<bf16*>(g);
+  cudaError_t err;
+  if (seeds != nullptr) {
+    err = cudaFuncSetAttribute(ffn_ln_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err != cudaSuccess) return (int)err;
+    ffn_ln_kernel<true><<<grid, kThreads, kSmem, s>>>(xp, wp, bp, gp, tp, sp, out, M, F, T,
+                                                      threshold, scale, eps);
+  } else {
+    err = cudaFuncSetAttribute(ffn_ln_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+    if (err != cudaSuccess) return (int)err;
+    ffn_ln_kernel<false><<<grid, kThreads, kSmem, s>>>(xp, wp, bp, gp, tp, sp, out, M, F, 1,
+                                                       0u, 1.0f, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Backward kernels (i) and (ii); seeds as the forward. db1_part has
+// ceil(M / 64) rows of F. Returns the cudaError_t of the launches, or -1 for a
+// shape they were not built for.
+extern "C" int coral_ffn_bwd(const void* x, const void* w1, const void* b1, const void* gamma,
+                             const void* beta, const void* dy, const void* w2, const void* seeds,
+                             void* g, void* dh, void* ln_out, void* db1_part, void* dl,
+                             long long M, int D, int F, int T, unsigned int threshold,
+                             float scale, float eps, void* stream) {
+  if (D != kD || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
+  if (M <= 0) return 0;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)(F / kBN));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *xp = static_cast<const bf16*>(x), *w1p = static_cast<const bf16*>(w1),
+             *dyp = static_cast<const bf16*>(dy), *w2p = static_cast<const bf16*>(w2);
+  const float *bp = static_cast<const float*>(b1), *gp = static_cast<const float*>(gamma),
+              *tp = static_cast<const float*>(beta);
+  const int* sp = static_cast<const int*>(seeds);
+  bf16 *gout = static_cast<bf16*>(g), *dhp = static_cast<bf16*>(dh),
+       *lnp = static_cast<bf16*>(ln_out);
+  float* part = static_cast<float*>(db1_part);
+  cudaError_t err;
+  if (seeds != nullptr) {
+    err = cudaFuncSetAttribute(ffn_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kBwdSmem);
+    if (err != cudaSuccess) return (int)err;
+    ffn_bwd_kernel<true><<<grid, kThreads, kBwdSmem, s>>>(
+        xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part, M, F, T, threshold, scale, eps);
+  } else {
+    err = cudaFuncSetAttribute(ffn_bwd_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (err != cudaSuccess) return (int)err;
+    ffn_bwd_kernel<false><<<grid, kThreads, kBwdSmem, s>>>(
+        xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part, M, F, 1, 0u, 1.0f, eps);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_dl((unsigned)(kD / kGN), (unsigned)((M + kGM - 1) / kGM));
+  dl_kernel<<<grid_dl, kThreads, 0, s>>>(dhp, w1p, static_cast<float*>(dl), M, F);
   return (int)cudaGetLastError();
 }

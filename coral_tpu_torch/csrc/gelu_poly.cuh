@@ -34,3 +34,31 @@ __device__ __forceinline__ float coral_phi(float x) {
 
 // gelu(x) = x * Phi(x), the forward the JAX kernels write (`_gelu_parts`).
 __device__ __forceinline__ float coral_gelu(float x) { return x * coral_phi(x); }
+
+// gelu'(x) = Phi(x) + x phi(x) as its own fit (`_dgelu`), not the derivative
+// of the forward's polynomial; same form and evaluation order.
+__device__ __forceinline__ float coral_dgelu(float x) {
+#if CORAL_GELU_POLY_F32
+  constexpr int kN = 17;
+  constexpr float kB = 6.0f;
+  const float c[kN] = {
+      1.160769890e-02f, -2.627453446e-02f, 2.958332316e-03f, 1.345187901e-02f,
+      3.941384738e-02f, -7.720006826e-02f, 5.279141289e-02f, -4.532931027e-02f,
+      6.637700848e-02f, -7.008341803e-02f, 5.899570471e-02f, -5.007458583e-02f,
+      4.450609891e-02f, -4.242304905e-02f, 4.606032178e-02f, -5.934169541e-02f,
+      1.178977407e-01f};
+#else
+  constexpr int kN = 9;
+  constexpr float kB = 4.5f;
+  const float c[kN] = {
+      4.661251130e-02f, -9.640384027e-02f, 6.408569320e-02f, -5.309721980e-02f,
+      9.629088892e-02f, -1.040159096e-01f, 8.764104305e-02f, -8.934778768e-02f,
+      1.594094857e-01f};
+#endif
+  const float xc = fminf(fmaxf(x, -kB), kB);
+  const float t = (2.0f / (kB * kB)) * (xc * xc) - 1.0f;
+  float acc = c[0];
+#pragma unroll
+  for (int i = 1; i < kN; ++i) acc = acc * t + c[i];
+  return 0.5f + xc * acc;
+}

@@ -50,10 +50,12 @@ def wav2vec2_state_dict_from_jax(
     params: Mapping[str, Any], config: Wav2Vec2Config
 ) -> dict[str, torch.Tensor]:
     """Convert ``coral_tpu`` ``Wav2Vec2ForCTC`` params to this package's
-    ``state_dict`` (fp32 CPU tensors). ``masked_spec_embed``, a training-only
-    parameter, is dropped."""
+    ``state_dict`` (fp32 CPU tensors), ``masked_spec_embed`` (SpecAugment's
+    fill vector) included where the tree has one."""
     sd: dict[str, torch.Tensor] = {}
     w2v = params["wav2vec2"]
+    if "masked_spec_embed" in w2v:
+        sd["wav2vec2.masked_spec_embed"] = _t(w2v["masked_spec_embed"])
 
     fe = w2v["feature_extractor"]
     for i in range(len(config.conv_dim)):

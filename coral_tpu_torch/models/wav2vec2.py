@@ -1,10 +1,24 @@
-"""wav2vec2 encoder + CTC head in PyTorch, eval mode (serving).
+"""wav2vec2 encoder + CTC head in PyTorch, for serving and for training.
 
 Port of ``coral_tpu/models/wav2vec2.py`` with the JAX package's production
 defaults (``coral_tpu/training/model_setup.py``): pre-LN encoder layers, the
 fused feature-encoder conv blocks, the ``ln_fused`` pre-attention LayerNorm,
 the v3-stats attention with in-kernel q/k/v biases and the LN-folded FFN block.
-There is no SpecAugment, dropout or layerdrop: those belong to training.
+
+``forward(..., deterministic=False, generator=...)`` is the training mode of
+the JAX model's ``deterministic=False``: SpecAugment (``_span_mask``, the time
+mask ANDed with the padding mask, the feature mask over all frames), every
+``nn.Dropout`` site, the FFN's activation dropout, ``freeze_feature_encoder``
+(the conv stack runs under ``torch.no_grad()``, the JAX ``stop_gradient``) and
+``gradient_checkpointing`` with ``nothing_saveable`` (each encoder layer under
+``torch.utils.checkpoint``). All randomness is drawn from the generator before
+the layer stack and passed in as tensors (the SpecAugment masks, and Philox
+seeds per dropout site, ``ops/philox.py``): ``torch.utils.checkpoint``
+restores only the global generators, so a layer that drew from an explicit
+generator would replay with another mask. As in the JAX model, ``layerdrop``
+is never applied, and the kernel attention applies no ``attention_dropout``
+(``coral_tpu/models/wav2vec2.py:555-583``). Training the feature encoder
+(its backward, K3 bwd) is not ported and raises.
 
 Parameters use PyTorch's layouts and Hugging Face's names
 (``wav2vec2.encoder.layers.3.attention.q_proj.weight`` is (out, in)), one
@@ -37,12 +51,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import attention_plain, short_t_attention_flat
+from ..ops.attention import short_t_attention_flat
 from ..ops.conv_ln_gelu import conv_ln_gelu, conv_ln_gelu_plain
-from ..ops.ffn import ffn_ln_block, ffn_ln_block_plain
-from ..ops.ln_gelu import ln_fused, ln_gelu, ln_gelu_plain
+from ..ops.ffn import ffn_ln_block
+from ..ops.ln_gelu import ln_fused, ln_gelu
+from ..ops.philox import dropout
 
 # Message tail of every NotImplementedError for what the port does not cover.
 NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item {})"
@@ -66,7 +82,21 @@ class Wav2Vec2Config:
     do_stable_layer_norm: bool = True
     feat_extract_norm: str = "layer"
     layer_norm_eps: float = 1e-5
-    dtype: torch.dtype = torch.float32  # compute dtype; bfloat16 when serving
+    # Dropouts (coral_tpu/models/wav2vec2.py:52-58). layerdrop is carried for
+    # the config surface and, as in the JAX model, never applied.
+    hidden_dropout: float = 0.0
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.0
+    feat_proj_dropout: float = 0.0
+    final_dropout: float = 0.0
+    layerdrop: float = 0.0
+    # SpecAugment
+    apply_spec_augment: bool = True
+    mask_time_prob: float = 0.5
+    mask_time_length: int = 10
+    mask_feature_prob: float = 0.5
+    mask_feature_length: int = 64
+    dtype: torch.dtype = torch.float32  # compute dtype; bfloat16 on the card
 
     def __post_init__(self) -> None:
         if self.feat_extract_norm != "layer":
@@ -130,12 +160,68 @@ class _Ops(NamedTuple):
 
 _KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat, ffn_ln_block)
 _PLAIN = _Ops(
-    functools.partial(ln_gelu_plain, apply_gelu=True),
-    functools.partial(ln_gelu_plain, apply_gelu=False),
+    functools.partial(ln_gelu, plain=True),
+    functools.partial(ln_fused, plain=True),
     conv_ln_gelu_plain,
-    attention_plain,
-    ffn_ln_block_plain,
+    functools.partial(short_t_attention_flat, plain=True),
+    functools.partial(ffn_ln_block, plain=True),
 )
+
+# Dropout sites inside an encoder layer, in the order of their seed rows.
+_ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
+
+
+class Randomness(NamedTuple):
+    """Everything random in one training forward, drawn before the layer stack.
+
+    time_starts (B, T') and feature_starts (B, D) are SpecAugment's Bernoulli
+    span starts (None when that mask is off); the seeds are (B,) int32 per
+    dropout site: feat_proj, encoder (after the positional conv), layers
+    (L, 3, B: attention output, FFN activation, FFN output) and final.
+    """
+
+    time_starts: torch.Tensor | None
+    feature_starts: torch.Tensor | None
+    feat_proj: torch.Tensor
+    encoder: torch.Tensor
+    layers: torch.Tensor
+    final: torch.Tensor
+
+
+def _seeds(generator, *shape, device):
+    return torch.randint(-(2**31), 2**31, shape, generator=generator, device=device,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def draw_randomness(config: Wav2Vec2Config, batch: int, frames: int,
+                    generator: torch.Generator, device) -> Randomness:
+    """Draws one forward's SpecAugment starts and dropout seeds, in a fixed order."""
+    def starts(n, prob, span):
+        if not (config.apply_spec_augment and prob > 0):
+            return None
+        return torch.rand((batch, n), generator=generator, device=device) < prob / span
+
+    return Randomness(
+        starts(frames, config.mask_time_prob, config.mask_time_length),
+        starts(config.hidden_size, config.mask_feature_prob, config.mask_feature_length),
+        _seeds(generator, batch, device=device),
+        _seeds(generator, batch, device=device),
+        _seeds(generator, config.num_hidden_layers, 3, batch, device=device),
+        _seeds(generator, batch, device=device),
+    )
+
+
+def span_dilate(starts: torch.Tensor, span: int) -> torch.Tensor:
+    """(B, N) bool span starts -> (B, N) bool mask: position t is masked if a
+    start lies in (t - span, t], the ``jnp.convolve(..., mode="full")[:N]`` of
+    ``_span_mask``."""
+    padded = F.pad(starts.float()[:, None, :], (span - 1, 0))
+    return F.max_pool1d(padded, span, stride=1)[:, 0, :] > 0
+
+
+def _dropout(x, rate: float, seeds):
+    """``nn.Dropout(rate)``; identity when deterministic (no seeds)."""
+    return x if seeds is None else dropout(x, rate, seeds)
 
 
 def _linear(x, layer: nn.Linear, dtype, bias: bool = True):
@@ -176,7 +262,8 @@ class ConvLayer(nn.Module):
             if bias is None:
                 bias = torch.zeros_like(ln.bias)
             return self.ops.conv_ln_gelu(
-                x.to(self.dtype), self.conv.weight, bias, ln.weight, ln.bias, ln.eps
+                x.to(self.dtype), self.conv.weight, bias.float(), ln.weight.float(),
+                ln.bias.float(), ln.eps
             )
         x = _conv1d(x, self.conv.weight, self.conv.bias, self.conv.stride[0], self.dtype)
         return self.ops.ln_gelu(x, ln.weight, ln.bias, ln.eps)
@@ -203,7 +290,8 @@ class FeatureEncoder(nn.Module):
 def _layer_norm(x, ln: nn.LayerNorm, dtype):
     """LayerNorm in fp32, output in ``dtype`` (flax ``nn.LayerNorm`` with a
     compute dtype); the JAX package runs these two outside its kernels."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
+                        ln.eps).to(dtype)
 
 
 class FeatureProjection(nn.Module):
@@ -213,8 +301,11 @@ class FeatureProjection(nn.Module):
         self.projection = nn.Linear(config.conv_dim[-1], config.hidden_size)
         self.dtype = config.dtype
 
-    def forward(self, x):
-        return _linear(_layer_norm(x, self.layer_norm, self.dtype), self.projection, self.dtype)
+        self.rate = config.feat_proj_dropout
+
+    def forward(self, x, seeds=None):
+        x = _linear(_layer_norm(x, self.layer_norm, self.dtype), self.projection, self.dtype)
+        return _dropout(x, self.rate, seeds)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -252,16 +343,17 @@ class Attention(nn.Module):
         self.out_proj = nn.Linear(D, D)
         self.head_dim = D // config.num_attention_heads
         self.dtype = config.dtype
+        self.rate = config.hidden_dropout
         self.ops = ops
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, seeds=None):
         dt = self.dtype
         q, k, v = (_linear(x, p, dt, bias=False) for p in (self.q_proj, self.k_proj, self.v_proj))
         o, _ = self.ops.attention(
             q, k, v, pad_mask, self.head_dim,
             (self.q_proj.bias, self.k_proj.bias, self.v_proj.bias),
         )
-        return _linear(o, self.out_proj, dt)
+        return _dropout(_linear(o, self.out_proj, dt), self.rate, seeds)
 
 
 class FeedForward(nn.Module):
@@ -273,12 +365,19 @@ class FeedForward(nn.Module):
         self.intermediate_dense = nn.Linear(D, Fi)
         self.output_dense = nn.Linear(Fi, D)
         self.block = ops.ffn_ln_block
+        self.activation_rate = config.activation_dropout
+        self.rate = config.hidden_dropout
 
-    def forward(self, x, ln: nn.LayerNorm):
+    def forward(self, x, ln: nn.LayerNorm, act_seeds=None, out_seeds=None):
+        """act_seeds: (B,) seeds of the activation dropout (None: rate 0, the
+        deterministic forward); out_seeds: those of the hidden dropout."""
         fc1, fc2 = self.intermediate_dense, self.output_dense
-        return self.block(
-            x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias, ln.eps
+        rate = self.activation_rate if act_seeds is not None else 0.0
+        x = self.block(
+            x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias, ln.eps,
+            rate, act_seeds if rate > 0.0 else None,
         )
+        return _dropout(x, self.rate, out_seeds)
 
 
 class EncoderLayer(nn.Module):
@@ -292,10 +391,13 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
         self.ops = ops
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, seeds=None):
+        """seeds: (3, B) int32, this layer's dropout seeds (None: deterministic)."""
         ln = self.layer_norm
-        x = x + self.attention(self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps), pad_mask)
-        return x + self.feed_forward(x, self.final_layer_norm)
+        s = [None] * 3 if seeds is None else seeds
+        x = x + self.attention(self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps), pad_mask,
+                               s[_ATTN_OUT])
+        return x + self.feed_forward(x, self.final_layer_norm, s[_FFN_ACT], s[_FFN_OUT])
 
 
 class Encoder(nn.Module):
@@ -309,14 +411,25 @@ class Encoder(nn.Module):
             EncoderLayer(config, ops) for _ in range(config.num_hidden_layers)
         )
         self.dtype = config.dtype
+        self.rate = config.hidden_dropout
+        # Recompute each layer's forward in the backward (the JAX
+        # ``nn.remat(..., policy=nothing_saveable)``); set by the train setup.
+        self.gradient_checkpointing = False
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, rnd: Randomness | None = None):
         # Zero padded frames first so padding cannot smear into valid frames
         # through the positional conv window.
         x = x * pad_mask[..., None].to(x.dtype)
         x = x + self.pos_conv_embed(x)
-        for layer in self.layers:
-            x = layer(x, pad_mask)
+        x = _dropout(x, self.rate, None if rnd is None else rnd.encoder)
+        remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            seeds = None if rnd is None else rnd.layers[i]
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(layer, x, pad_mask, seeds,
+                                                      use_reentrant=False)
+            else:
+                x = layer(x, pad_mask, seeds)
         return _layer_norm(x, self.layer_norm, self.dtype)
 
 
@@ -327,16 +440,51 @@ class Wav2Vec2Model(nn.Module):
         self.feature_extractor = FeatureEncoder(config, ops)
         self.feature_projection = FeatureProjection(config)
         self.encoder = Encoder(config, ops)
+        if config.apply_spec_augment:
+            self.masked_spec_embed = nn.Parameter(torch.empty(config.hidden_size))
 
-    def forward(self, input_values, input_lengths):
+    def forward(self, input_values, input_lengths, rnd: Randomness | None = None,
+                freeze_feature_encoder: bool = False):
         """(B, T) z-normalised waveforms, (B,) valid sample counts ->
-        (hidden (B, T', D), frame_lengths (B,))."""
-        feats = self.feature_extractor(input_values)
+        (hidden (B, T', D), frame_lengths (B,)).
+
+        Args:
+            rnd: the training forward's randomness (None: deterministic, no
+                dropout and no SpecAugment).
+            freeze_feature_encoder: run the conv stack without gradients.
+        """
+        if freeze_feature_encoder:
+            with torch.no_grad():
+                feats = self.feature_extractor(input_values)
+        else:
+            if torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.feature_extractor.parameters()
+            ):
+                raise NotImplementedError(
+                    "gradients through the feature encoder (freeze_feature_encoder="
+                    "False; its backward, K3 bwd): " + NOT_PORTED.format("5b")
+                )
+            feats = self.feature_extractor(input_values)
         frame_lengths = self.config.feat_extract_output_lengths(input_lengths)
         T_out = feats.shape[1]
         pad_mask = torch.arange(T_out, device=feats.device)[None, :] < frame_lengths[:, None]
-        hidden = self.feature_projection(feats)
-        return self.encoder(hidden, pad_mask), frame_lengths
+        hidden = self.feature_projection(feats, None if rnd is None else rnd.feat_proj)
+        if rnd is not None:
+            hidden = self.spec_augment(hidden, pad_mask, rnd)
+        return self.encoder(hidden, pad_mask, rnd), frame_lengths
+
+    def spec_augment(self, hidden, pad_mask, rnd: Randomness):
+        """The JAX model's SpecAugment (``coral_tpu/models/wav2vec2.py:974-990``)."""
+        cfg = self.config
+        if rnd.time_starts is not None:
+            tmask = span_dilate(rnd.time_starts, cfg.mask_time_length) & pad_mask
+            hidden = torch.where(tmask[..., None], self.masked_spec_embed.to(hidden.dtype),
+                                 hidden)
+        if rnd.feature_starts is not None:
+            fmask = span_dilate(rnd.feature_starts, cfg.mask_feature_length)
+            hidden = torch.where(fmask[:, None, :], torch.zeros((), dtype=hidden.dtype,
+                                                                device=hidden.device), hidden)
+        return hidden
 
 
 class Wav2Vec2ForCTC(nn.Module):
@@ -344,19 +492,41 @@ class Wav2Vec2ForCTC(nn.Module):
 
     Args:
         config: the architecture.
-        plain: run every kernel's plain PyTorch version instead of the kernel
-            (the reference the kernel path is compared with).
+        plain: run every kernel's plain PyTorch version instead of the kernel,
+            forward and backward, and the train step's CTC recursions too (the
+            reference the kernel path is compared with).
     """
 
     def __init__(self, config: Wav2Vec2Config, plain: bool = False) -> None:
         super().__init__()
         self.config = config
+        self.plain = plain
         ops = _PLAIN if plain else _KERNELS
         self.wav2vec2 = Wav2Vec2Model(config, ops)
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size)
 
-    def forward(self, input_values, input_lengths):
-        hidden, frame_lengths = self.wav2vec2(input_values, input_lengths)
+    def forward(self, input_values, input_lengths, deterministic: bool = True,
+                freeze_feature_encoder: bool = False, generator=None):
+        """(logits (B, T', V) in ``config.dtype``, frame_lengths (B,)).
+
+        Args:
+            deterministic: no dropout and no SpecAugment (serving).
+            freeze_feature_encoder: run the conv stack without gradients.
+            generator: the source of all randomness when not deterministic;
+                everything is drawn from it here, before the model runs.
+        """
+        rnd = None
+        if not deterministic:
+            if generator is None:
+                raise ValueError("a training forward (deterministic=False) needs a generator")
+            B, T = input_values.shape
+            frames = int(self.config.feat_extract_output_lengths(T))
+            rnd = draw_randomness(self.config, B, frames, generator, input_values.device)
+        hidden, frame_lengths = self.wav2vec2(
+            input_values, input_lengths, rnd, freeze_feature_encoder
+        )
+        if rnd is not None:
+            hidden = _dropout(hidden, self.config.final_dropout, rnd.final)
         return _linear(hidden, self.lm_head, self.config.dtype), frame_lengths
 
 
@@ -369,7 +539,8 @@ def _trunc_normal(w: torch.Tensor, fan_in: int, scale: float, generator) -> None
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init with the flax model's distributions: he-normal convs,
-    lecun-normal dense layers, zero biases, unit LayerNorm scales."""
+    lecun-normal dense layers, zero biases, unit LayerNorm scales, and
+    ``masked_spec_embed`` uniform in [0, 1) (drawn last)."""
     for module in model.modules():
         if isinstance(module, nn.Conv1d):
             w = module.weight
@@ -382,6 +553,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             continue
         if module.bias is not None:
             module.bias.zero_()
+    for module in model.modules():
+        if isinstance(module, Wav2Vec2Model) and hasattr(module, "masked_spec_embed"):
+            module.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
 
 
 def build_model(config: Wav2Vec2Config, device: Any, seed: int = 0) -> Wav2Vec2ForCTC:

@@ -35,6 +35,7 @@ launch_counts: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
@@ -42,13 +43,27 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, gamma, beta, y, rows, C, is_bf16, apply_gelu, eps, stream
     "coral_ln_gelu": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
+    # x, gamma, beta, dy, dx, part, rows, C, blocks, x_bf16, dy_bf16,
+    # apply_gelu, eps, stream
+    "coral_ln_bwd": [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _F, _P],
     # x, w, bias, gamma, beta, y, B, T_in, T_out, C, K, eps, stream
     "coral_conv_ln_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, bq, bk, bv, key_bias, o, lse, B, T, H, stride_b, stride_t,
     # scale, stream
     "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _LL, _LL, _F, _P],
-    # x, w1, b1, gamma, beta, g, M, D, F, eps, stream
-    "coral_ffn_ln_fwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+    # q, k, v, bq, bk, bv, key_bias, do, lse, o, dq, dk, dv, db_part, B, T, H,
+    # stride_b, stride_t, scale, sm_scale, stream
+    "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _LL, _LL, _F, _F, _P],
+    # x, w1, b1, gamma, beta, seeds, g, M, D, F, T, threshold, scale, eps,
+    # stream
+    "coral_ffn_ln_fwd": [_P] * 7 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # x, w1, b1, gamma, beta, dy, w2, seeds, g, dh, ln_out, db1_part, dl, M, D,
+    # F, T, threshold, scale, eps, stream
+    "coral_ffn_bwd": [_P] * 13 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # emit, skip, valid, lengths, out, T, B, S, stream
+    "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
+    # emit, skip, valid, lengths, last, out, T, B, S, stream
+    "coral_ctc_beta": [_P] * 6 + [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

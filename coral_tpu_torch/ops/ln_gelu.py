@@ -1,9 +1,16 @@
-"""Row LayerNorm (+ polynomial GELU): ``ln_gelu`` and ``ln_fused``.
+"""Row LayerNorm (+ polynomial GELU): ``ln_gelu`` and ``ln_fused``, with backward.
 
-Port of ``coral_tpu/ops/ln_gelu_pallas.py`` (forward only). On a CUDA tensor
-the wrappers launch ``csrc/ln_gelu.cu`` (one kernel, ``apply_gelu`` a flag);
-on a CPU tensor they run the plain version beside it, the same fp32 math as
-the JAX off-TPU path.
+Port of ``coral_tpu/ops/ln_gelu_pallas.py``: the forward ``_fwd_kernel`` and
+the backward ``_bwd_kernel`` with its ``custom_vjp`` (:195-219). On a CUDA
+tensor the wrappers launch ``csrc/ln_gelu.cu`` (``apply_gelu`` a flag of one
+kernel each way); on a CPU tensor they run the plain versions beside them,
+the same fp32 math as the JAX kernels. ``plain=True`` runs the plain versions
+on any device: the reference the kernel path is held against on the card.
+
+The backward writes dx and per-block dgamma/dbeta partials; their sum, as in
+the JAX package, runs outside the kernel. Gradients come back in the dtype of
+each input, so bf16 work copies of gamma and beta get bf16 gradients, as
+``.astype(gamma.dtype)`` gives them in JAX.
 """
 
 from __future__ import annotations
@@ -11,10 +18,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .gelu_poly import gelu_poly
+from .gelu_poly import _dgelu, gelu_poly
 
 _EPS = 1e-5
 _KERNEL_C = (512, 1024)
+_BWD_BLOCKS = 528  # 4 blocks of 8 rows per SM of an H100; partials (528, 2, C)
 
 
 def ln_gelu_plain(x, gamma, beta, eps: float = _EPS, apply_gelu: bool = True):
@@ -30,10 +38,27 @@ def ln_gelu_plain(x, gamma, beta, eps: float = _EPS, apply_gelu: bool = True):
     return z.to(x.dtype)
 
 
-def _ln(x, gamma, beta, eps, apply_gelu):
-    name = "coral_ln_gelu"
-    if not _build.require_cuda(name, x):
-        return ln_gelu_plain(x, gamma, beta, eps, apply_gelu)
+def ln_bwd_plain(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
+    """``_bwd_kernel`` in plain ops: the statistics recomputed from x in fp32,
+    ``g = dy * gelu'(z)`` with GELU, ``dx = (dn - mean(dn) - n mean(dn n))
+    rstd`` for ``dn = g gamma``. Returns (dx in x.dtype, dgamma, dbeta) fp32."""
+    C = x.shape[-1]
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    c = x32 - mu
+    rstd = torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+    n = c * rstd
+    gamma = gamma.float()
+    g = dy.float()
+    if apply_gelu:
+        g = g * _dgelu(n * gamma + beta.float())
+    dn = g * gamma
+    dx = (dn - dn.mean(dim=-1, keepdim=True)
+          - n * (dn * n).mean(dim=-1, keepdim=True)) * rstd
+    return dx.to(x.dtype), (g * n).reshape(-1, C).sum(0), g.reshape(-1, C).sum(0)
+
+
+def _check_row_op(name, x, gamma, beta):
     C = x.shape[-1]
     if C not in _KERNEL_C:
         raise ValueError(f"{name}: the kernel takes C in {_KERNEL_C}, got {C}")
@@ -43,6 +68,14 @@ def _ln(x, gamma, beta, eps, apply_gelu):
     _build.check_cuda(name, torch.float32, gamma, beta)
     if gamma.shape != (C,) or beta.shape != (C,) or gamma.device != x.device:
         raise ValueError(f"{name}: gamma and beta must be ({C},) on {x.device}")
+    return C
+
+
+def _ln(x, gamma, beta, eps, apply_gelu):
+    name = "coral_ln_gelu"
+    if not _build.require_cuda(name, x):
+        return ln_gelu_plain(x, gamma, beta, eps, apply_gelu)
+    C = _check_row_op(name, x, gamma, beta)
     y = torch.empty_like(x)
     _build.launch(
         name, "ln_gelu" if apply_gelu else "ln_fused", x.data_ptr(),
@@ -52,19 +85,72 @@ def _ln(x, gamma, beta, eps, apply_gelu):
     return y
 
 
-def ln_gelu(x, gamma, beta, eps: float = _EPS):
-    """``gelu(layer_norm(x) * gamma + beta)`` over the last axis.
+def ln_bwd(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
+    """The backward kernel: (dx in x.dtype, dgamma (C,) fp32, dbeta (C,) fp32).
+
+    Args:
+        x: (..., C) the forward's input, bf16 or fp32; on CUDA C is 512 or 1024.
+        gamma, beta: (C,) fp32.
+        dy: x's shape; bf16 (with a bf16 x) or fp32.
+    """
+    name = "coral_ln_bwd"
+    if not _build.require_cuda(name, x):
+        return ln_bwd_plain(x, gamma, beta, dy, eps, apply_gelu)
+    C = _check_row_op(name, x, gamma, beta)
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    if dy.dtype not in (torch.bfloat16, torch.float32) or (
+        dy.dtype == torch.bfloat16 and x.dtype != torch.bfloat16
+    ):
+        raise TypeError(f"{name}: the kernel takes dy in bf16 (with bf16 x) or fp32, "
+                        f"got {dy.dtype} with {x.dtype}")
+    _build.check_cuda(name, dy.dtype, dy)
+    rows = x.numel() // C
+    blocks = max(1, min(-(-rows // 8), _BWD_BLOCKS))
+    dx = torch.empty_like(x)
+    part = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
+    _build.launch(
+        name, "ln_bwd", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), rows, C, blocks, int(x.dtype == torch.bfloat16),
+        int(dy.dtype == torch.bfloat16), int(apply_gelu), float(eps),
+    )
+    dvec = part.sum(0)
+    return dx, dvec[0], dvec[1]
+
+
+class _LayerNorm(torch.autograd.Function):
+    """``_ln_gelu``'s custom VJP: residuals (x, gamma, beta), backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, apply_gelu, plain):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.apply_gelu, ctx.plain = eps, apply_gelu, plain
+        fwd = ln_gelu_plain if plain else _ln
+        return fwd(x, gamma.float(), beta.float(), eps, apply_gelu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        bwd = ln_bwd_plain if ctx.plain else ln_bwd
+        dx, dg, db = bwd(x, gamma.float(), beta.float(), dy.contiguous(), ctx.eps,
+                         ctx.apply_gelu)
+        return dx, dg.to(gamma.dtype), db.to(beta.dtype), None, None, None
+
+
+def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False):
+    """``gelu(layer_norm(x) * gamma + beta)`` over the last axis, differentiable.
 
     Args:
         x: (..., C) bf16 or fp32; on CUDA, C is 512 or 1024.
-        gamma, beta: (C,) fp32.
+        gamma, beta: (C,); cast to fp32 for the kernel.
+        plain: run the plain versions (forward and backward) on any device.
 
     Returns:
         Same shape and dtype as ``x``.
     """
-    return _ln(x, gamma, beta, eps, True)
+    return _LayerNorm.apply(x, gamma, beta, eps, True, plain)
 
 
-def ln_fused(x, gamma, beta, eps: float = _EPS):
-    """Plain LayerNorm through the same kernel, without the GELU."""
-    return _ln(x, gamma, beta, eps, False)
+def ln_fused(x, gamma, beta, eps: float = _EPS, plain: bool = False):
+    """Plain LayerNorm through the same kernels, without the GELU."""
+    return _LayerNorm.apply(x, gamma, beta, eps, False, plain)

@@ -1,1 +1,7 @@
-"""Model setup (the serving half of the JAX package's ``training/model_setup.py``)."""
+"""Model setup, optimizer and the CTC train step (the JAX package's ``training/``)."""
+
+from .optimizer import create_learning_rate_schedule, create_optimizer
+from .train_state import TrainState, make_ctc_train_step
+
+__all__ = ["TrainState", "create_learning_rate_schedule", "create_optimizer",
+           "make_ctc_train_step"]

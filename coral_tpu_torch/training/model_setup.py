@@ -1,11 +1,14 @@
-"""Model setup for serving: config -> tokenizer + seeded model + greedy predictor.
+"""Model setup: config -> tokenizer + seeded model + greedy predictor + train step.
 
-Port of the serving half of ``coral_tpu/training/model_setup.py``
-(``Wav2Vec2Setup``: the tokenizer, ``_infer_arch``, ``init_params`` and
-``make_predictor``). Training (``make_train_step``), beam search with an
-n-gram LM, Whisper and loading a checkpoint are not ported yet; each raises
-``NotImplementedError`` naming its ROADMAP item rather than serving something
-else in silence.
+Port of ``coral_tpu/training/model_setup.py`` ``Wav2Vec2Setup``: the
+tokenizer, ``_infer_arch``, the training fields of the config (:125-293),
+``init_params``, ``make_predictor`` and ``make_train_step`` (:326-341), the
+wav2vec2-CTC step with the feature encoder frozen. What is not ported raises
+``NotImplementedError`` naming its ROADMAP item rather than running something
+else in silence: beam search with an n-gram LM, Whisper, loading a checkpoint,
+and in training the feature encoder's backward (``freeze_feature_encoder:
+false``), the augmentation chain (``augment_audio: true``), any remat policy
+but ``nothing_saveable``, and more than one device.
 
 Configs are plain mappings with the keys of the JAX package's config surface
 (``config["model"]["pretrained_model_id"]`` and so on).
@@ -112,7 +115,8 @@ class GreedyCtcPredictor:
 
 
 class Wav2Vec2Setup:
-    """wav2vec2-CTC family, serving only."""
+    """wav2vec2-CTC family: serving, and the train step with a frozen feature
+    encoder."""
 
     def __init__(self, config: Mapping[str, Any], is_main: bool = True,
                  device: str | torch.device = "cpu") -> None:
@@ -129,6 +133,27 @@ class Wav2Vec2Setup:
         self.model_config = self._infer_arch(model_cfg)(
             vocab_size=self.tokenizer.vocab_size,
             dtype=torch.bfloat16 if use_bf16 else torch.float32,
+            hidden_dropout=model_cfg.get("hidden_dropout", 0.0),
+            activation_dropout=model_cfg.get("activation_dropout", 0.1),
+            attention_dropout=model_cfg.get("attention_dropout", 0.0),
+            feat_proj_dropout=model_cfg.get("feat_proj_dropout", 0.0),
+            final_dropout=model_cfg.get("final_dropout", 0.0),
+            layerdrop=model_cfg.get("layerdrop", 0.0),
+            mask_time_prob=model_cfg.get("mask_time_prob", 0.5),
+            mask_time_length=model_cfg.get("mask_time_length", 10),
+            mask_feature_prob=model_cfg.get("mask_feature_prob", 0.5),
+            mask_feature_length=model_cfg.get("mask_feature_length", 64),
+        )
+        self.config = config
+        self.blank_id = self.tokenizer.pad_token_id
+        self.ctc_loss_reduction = model_cfg.get("ctc_loss_reduction", "sum")
+        self.freeze_feature_encoder = bool(model_cfg.get("freeze_feature_encoder", False))
+        self.learning_rate = float(model_cfg.get("learning_rate", 1e-4))
+        self.grad_dtype = config.get("grad_dtype", "bfloat16")
+        self.gradient_checkpointing = bool(config.get("gradient_checkpointing", True))
+        # As the JAX setup: model.remat_policy wins over the top-level key.
+        self.remat_policy = model_cfg.get(
+            "remat_policy", config.get("remat_policy", "save_qk_ctx")
         )
         self.audio_pad_seconds = float(config["max_seconds_per_example"])
         pretrained = model_cfg.get("pretrained_model_id")
@@ -160,7 +185,46 @@ class Wav2Vec2Setup:
 
     def init_params(self, seed: int = 0) -> Wav2Vec2ForCTC:
         """A randomly initialised model on the setup's device, from ``seed``."""
-        return build_model(self.model_config, self.device, seed=seed)
+        model = build_model(self.model_config, self.device, seed=seed)
+        model.wav2vec2.encoder.gradient_checkpointing = self.gradient_checkpointing
+        return model
+
+    def make_train_step(self, tx, schedule) -> Callable:
+        """The CTC train step ``(state, batch, generator) -> (state, metrics)``
+        (``training/train_state.py``), after refusing what is not ported."""
+        from .train_state import make_ctc_train_step
+
+        cfg = self.config
+        if not self.freeze_feature_encoder:
+            raise NotImplementedError(
+                "freeze_feature_encoder=false (the feature-encoder backward, K3 bwd): "
+                + NOT_PORTED.format("5b")
+            )
+        if bool(cfg.get("augment_audio", True)):
+            raise NotImplementedError(
+                "augment_audio=true (the augmentation chain and its noise bank): "
+                + NOT_PORTED.format("5b")
+            )
+        if self.gradient_checkpointing and self.remat_policy != "nothing_saveable":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r} (the port implements "
+                "'nothing_saveable'): " + NOT_PORTED.format("5b")
+            )
+        mesh = cfg.get("mesh")
+        if bool(cfg.get("distributed", False)) or (
+            mesh is not None and int(np.prod(list(mesh))) > 1
+        ):
+            raise NotImplementedError(
+                "training on more than one device: " + NOT_PORTED.format("7")
+            )
+        return make_ctc_train_step(
+            tx, schedule, blank_id=self.blank_id,
+            ctc_loss_reduction=self.ctc_loss_reduction,
+            freeze_feature_encoder=self.freeze_feature_encoder,
+            # bf16 gradient buffers over fp32 masters, the JAX default;
+            # `grad_dtype: float32` opts out.
+            grad_dtype=self.grad_dtype,
+        )
 
     def make_predictor(self, model: Wav2Vec2ForCTC) -> GreedyCtcPredictor:
         """Greedy CTC decode: host batch -> list of transcript strings."""

@@ -1,0 +1,158 @@
+"""Train state and the CTC train step on one device.
+
+Port of ``coral_tpu/training/train_state.py`` (``_device_audio`` :28,
+``TrainState`` :35, ``make_ctc_train_step`` :51-183) for one device. Per
+microbatch: z-norm, the model in training mode, fp32 log-softmax, the CTC
+loss (sum divided by the microbatch size); gradients accumulate in fp32 over
+the A microbatches and are divided by A; then the optimizer step, and the
+metrics ``loss``, ``grad_norm`` (of the unclipped gradients) and
+``learning_rate`` (``schedule(state.step)`` before the increment).
+
+``grad_dtype="bfloat16"`` differentiates with respect to bf16 copies of the
+fp32 master parameters, as the JAX step does: the model's own parameters are
+those work copies, refreshed from the masters before each step, and every
+gradient buffer is bf16; the masters live in ``state.params`` and the update
+runs on them in fp32. With ``grad_dtype=None`` the model's parameters are the
+masters themselves. Parameters without a gradient (the frozen feature
+encoder) count as zeros, as the JAX ``stop_gradient`` gives them.
+
+The step updates ``state`` in place and returns it (the JAX step returns a new
+pytree; in place saves a copy of every parameter).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..audio.features import znorm
+from ..ops.ctc import ctc_loss
+from .optimizer import AdamW, AdamWState, global_norm
+
+
+def _device_audio(audio: torch.Tensor) -> torch.Tensor:
+    """Accept PCM16 infeed (half the host->device bytes) or float32."""
+    if audio.dtype == torch.int16:
+        return audio.float() / 32768.0
+    return audio
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step count, fp32 master parameters (by name), optimizer state, and the
+    model whose parameters the step differentiates."""
+
+    step: int
+    params: dict[str, torch.Tensor]
+    opt_state: AdamWState
+    model: nn.Module
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: AdamW) -> "TrainState":
+        params = {n: p.detach().to(torch.float32, copy=True)
+                  for n, p in model.named_parameters()}
+        return cls(step=0, params=params, opt_state=tx.init(params), model=model)
+
+
+def _load_work_params(model: nn.Module, masters: Mapping[str, torch.Tensor],
+                      grad_dtype: torch.dtype | None) -> None:
+    """Point the model's parameters at the masters, or at ``grad_dtype``
+    copies of them."""
+    for name, p in model.named_parameters():
+        master = masters[name]
+        if grad_dtype is None or master.dtype != torch.float32:
+            p.data = master
+        elif p.dtype == grad_dtype and p.data_ptr() != master.data_ptr():
+            p.data.copy_(master)
+        else:
+            p.data = master.to(grad_dtype)
+
+
+def ctc_loss_and_grads(model: nn.Module, batch: Mapping[str, torch.Tensor],
+                       generator: torch.Generator, blank_id: int,
+                       ctc_loss_reduction: str = "sum",
+                       freeze_feature_encoder: bool = False):
+    """The accumulated loss and gradients of one optimizer step.
+
+    ``batch`` holds (A, ...) tensors on the model's device. Returns (the mean
+    of the A microbatch losses, fp32 gradients by parameter name divided by
+    A, zeros where a parameter got none).
+    """
+    named = dict(model.named_parameters())
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in named.items()}
+    num_micro = batch["input_values"].shape[0]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=batch["input_values"].device)
+    for a in range(num_micro):
+        for p in named.values():
+            p.grad = None
+        mb = {k: v[a] for k, v in batch.items()}
+        audio = _device_audio(mb["input_values"])
+        lengths = mb["input_lengths"]
+        # On-device z-norm, then the model in training mode.
+        logits, frame_lengths = model(
+            znorm(audio.float(), lengths), lengths, deterministic=False,
+            freeze_feature_encoder=freeze_feature_encoder, generator=generator,
+        )
+        log_probs = F.log_softmax(logits.float(), dim=-1)
+        loss = ctc_loss(
+            log_probs.transpose(0, 1), mb["labels"], frame_lengths, mb["label_lengths"],
+            blank_id=blank_id, reduction=ctc_loss_reduction, zero_infinity=True,
+            plain=model.plain,
+        )
+        if ctc_loss_reduction == "sum":
+            # The JAX step's per-sample scale: the sum over the microbatch
+            # divided by its size.
+            loss = loss / mb["labels"].shape[0]
+        loss.backward()
+        loss_sum += loss.detach().float()
+        for n, p in named.items():
+            if p.grad is not None:
+                grads[n] += p.grad.float()
+                p.grad = None
+    if num_micro > 1:
+        for g in grads.values():
+            g /= num_micro
+    return loss_sum / num_micro, grads
+
+
+def make_ctc_train_step(
+    tx: AdamW,
+    schedule: Callable[[int], float],
+    blank_id: int,
+    ctc_loss_reduction: str = "sum",
+    freeze_feature_encoder: bool = False,
+    grad_dtype: str | None = None,
+) -> Callable:
+    """The train step ``(state, batch, generator) -> (state, metrics)``.
+
+    ``batch`` holds ``input_values (A, B, T)`` float32 or int16 PCM,
+    ``input_lengths (A, B)``, ``labels (A, B, L)`` and ``label_lengths
+    (A, B)`` (numpy arrays or tensors), with A the accumulation microbatches.
+    ``generator`` (a ``torch.Generator`` on the model's device) is the source
+    of every dropout mask and SpecAugment span of the step.
+    """
+    work_dtype = getattr(torch, grad_dtype) if grad_dtype else None
+
+    def train_step(state: TrainState, batch: Mapping[str, Any], generator: torch.Generator):
+        device = next(iter(state.params.values())).device
+        batch = {k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(device)
+                 for k, v in batch.items()}
+        _load_work_params(state.model, state.params, work_dtype)
+        loss, grads = ctc_loss_and_grads(state.model, batch, generator, blank_id,
+                                         ctc_loss_reduction, freeze_feature_encoder)
+        metrics = {
+            "loss": loss,
+            "grad_norm": global_norm(list(grads.values())),
+            "learning_rate": torch.tensor(schedule(state.step), dtype=torch.float32),
+        }
+        tx.update(grads, state.opt_state, state.params)
+        state.step += 1
+        return state, metrics
+
+    return train_step

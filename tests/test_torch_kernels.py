@@ -14,6 +14,15 @@ reordered fp32 sum can move that rounding by one ulp. atol covers values near
 zero (1e-2; attention 8e-3, twice the largest error measured at the serving
 shapes, 2**-8, which its bf16 probabilities rounded against the running rather
 than the final row max cause).
+
+The backward kernels and the dropout variants: gradients that are sums over
+many rows are held at ``atol = 2e-2 max|plain|`` on top of the two-ulp rtol
+(bf16 operands whose rounding may move by one ulp between the kernel's and
+torch's fp32 products, summed over up to 4096 terms); fp32 partial sums
+(dgamma, dbeta, db1, the bias gradients) at 1e-2 of their largest value; the
+CTC recursions, fp32 end to end, at rtol 1e-5 and atol 1e-3 (log-probs of
+order 100, summed in the same order). Dropout masks are compared exactly:
+kernel and plain draw the same Philox bits.
 """
 
 import numpy as np
@@ -21,7 +30,7 @@ import pytest
 import torch
 
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
-from coral_tpu_torch.ops import _build, attention, conv_ln_gelu, ffn, ln_gelu
+from coral_tpu_torch.ops import _build, attention, conv_ln_gelu, ctc, ffn, ln_gelu, philox
 
 pytestmark = pytest.mark.cuda
 RTOL_BF16 = 2.0**-6
@@ -138,3 +147,162 @@ def test_ffn_of_a_width_the_kernel_does_not_take_raises_on_the_card(cuda):
     with pytest.raises(ValueError, match="the kernel takes D"):
         layer.feed_forward(x, layer.final_layer_norm)
     assert not _build.launch_counts
+
+
+def _close_rel(got, want, frac=2e-2):
+    """|got - want| <= frac max|want| + rtol |want|: gradients summed over rows."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    bound = frac * want.abs().max() + RTOL_BF16 * want.abs()
+    assert (err <= bound).all(), f"max err {err.max().item()} vs max {want.abs().max().item()}"
+
+
+@pytest.mark.parametrize("C", [512, 1024])
+@pytest.mark.parametrize("dtypes", ["bf16/bf16", "bf16/fp32", "fp32/fp32"])
+@pytest.mark.parametrize("apply_gelu", [True, False])
+def test_ln_bwd_kernel_matches_plain(cuda, C, dtypes, apply_gelu):
+    xd, dyd = (torch.bfloat16 if d == "bf16" else torch.float32 for d in dtypes.split("/"))
+    x = _on(cuda, _np(3, 333, C, seed=0, scale=2.0, offset=0.3), xd)
+    dy = _on(cuda, _np(3, 333, C, seed=1), dyd)
+    gamma = _on(cuda, _np(C, seed=2, scale=0.1, offset=1.0))
+    beta = _on(cuda, _np(C, seed=3, scale=0.1))
+    got = ln_gelu.ln_bwd(x, gamma, beta, dy, apply_gelu=apply_gelu)
+    want = ln_gelu.ln_bwd_plain(x, gamma, beta, dy, apply_gelu=apply_gelu)
+    assert got[0].dtype == xd
+    _close(got[0], want[0], 1e-2)
+    for g, w in zip(got[1:], want[1:]):
+        _close_rel(g, w, 1e-2)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+def test_attention_bwd_kernel_matches_plain(cuda, packed):
+    B, T, H, d = 3, 150, 2, 64
+    q, k, v = (_np(B, T, H * d, seed=i) for i in range(3))
+    if packed:
+        qkv = _on(cuda, np.concatenate([q, k, v], axis=-1), torch.bfloat16)
+        q, k, v = qkv.split(H * d, dim=-1)
+    else:
+        q, k, v = (_on(cuda, a, torch.bfloat16) for a in (q, k, v))
+    bq, bk, bv = (_on(cuda, _np(H * d, seed=3 + i, scale=0.5), torch.bfloat16) for i in range(3))
+    mask = np.ones((B, T), bool)
+    mask[1, 80:] = False
+    mask[2, :] = False  # a fully padded row: p = 0 in the backward
+    key_bias = torch.where(torch.from_numpy(mask).to(cuda), 0.0, -1e30).float()
+    o, lse = attention._fwd(q, k, v, bq, bk, bv, key_bias, d, 0.125)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = attention.attention_bwd(q, k, v, bq, bk, bv, key_bias, do, lse, o, d, 0.125)
+    assert _build.launch_counts == {"attention_bwd": 1}
+    want = attention.attention_bwd_plain(q, k, v, bq, bk, bv, key_bias, do, lse, o, d, 0.125)
+    for g, w in zip(got[:3], want[:3]):
+        _close_rel(g, w)
+        assert not g[2].any()  # the fully masked row gets no gradient
+    _close_rel(got[3], want[3], 1e-2)
+
+
+def _ffn_inputs(cuda, F=512, T=75):
+    D = 1024
+    x = _on(cuda, _np(2, T, D, seed=0, offset=0.2), torch.bfloat16)
+    w1 = _on(cuda, _np(F, D, seed=1, scale=0.03), torch.bfloat16)
+    b1 = _on(cuda, _np(F, seed=2, scale=0.1))
+    gamma = _on(cuda, _np(D, seed=3, scale=0.1, offset=1.0))
+    beta = _on(cuda, _np(D, seed=4, scale=0.1))
+    w2 = _on(cuda, _np(D, F, seed=5, scale=0.03), torch.bfloat16)
+    dy = _on(cuda, _np(2, T, D, seed=6), torch.bfloat16)
+    seeds = torch.tensor([12345, -7], dtype=torch.int32, device=cuda)
+    return x, w1, b1, gamma, beta, w2, dy, seeds
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_dropout_kernel_matches_plain(cuda, rate):
+    x, w1, b1, gamma, beta, _, _, seeds = _ffn_inputs(cuda)
+    g = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
+    want = ffn.ffn_ln_fc1_plain(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
+    _close(g, want, 1e-2)
+    if rate:
+        keep = philox.keep_mask(seeds, x.shape[1], w1.shape[0], rate)
+        assert torch.equal(g != 0, keep)  # the same Philox bits in CUDA and torch
+        frac = keep.float().mean().item()
+        assert abs(frac - (1 - rate)) < 0.01
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_bwd_kernel_matches_plain(cuda, rate):
+    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda)
+    _build.reset_launch_counts()
+    got = ffn.ffn_bwd(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)
+    assert _build.launch_counts == {"ffn_bwd": 1, "ln_bwd": 1}
+    want = ffn.ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)
+    g_fwd = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
+    assert torch.equal(got[0], g_fwd)  # the backward regenerates the forward's g
+    if rate:  # dh is zero exactly where the forward dropped g
+        keep = philox.keep_mask(seeds, x.shape[1], w1.shape[0], rate)
+        assert not got[1][~keep].any()
+    _close(got[0], want[0], 1e-2)
+    _close(got[2], want[2], 1e-2)
+    for g, w in zip(got[1:2] + got[3:4], want[1:2] + want[3:4]):
+        _close_rel(g, w)
+    for g, w in zip(got[4:], want[4:]):
+        _close_rel(g, w, 1e-2)
+
+
+def _ctc_inputs(cuda, T=100, B=4, L=20, V=30):
+    rng = np.random.default_rng(0)
+    log_probs = torch.log_softmax(_on(cuda, _np(T, B, V, seed=1) * 3), dim=-1)
+    labels = torch.from_numpy(rng.integers(1, V, size=(B, L))).to(cuda)
+    labels[1, 12:] = -100
+    in_len = torch.tensor([100, 80, 10, 64], device=cuda)  # row 2 is infeasible
+    lab_len = torch.tensor([20, 12, 20, 0], device=cuda)
+    return log_probs, labels, in_len, lab_len
+
+
+def test_ctc_kernels_match_plain(cuda):
+    log_probs, labels, in_len, lab_len = _ctc_inputs(cuda)
+    ext = ctc._extended_labels(torch.where(labels < 0, 0, labels), 0)
+    skip, skip_fwd, valid, terminal = ctc._state_masks(ext, lab_len, 0)
+    emit = ctc._emissions(log_probs, ext).contiguous()
+    _build.reset_launch_counts()
+    alpha = ctc.ctc_alpha(emit, skip, valid, in_len)
+    beta = ctc.ctc_beta(emit, skip_fwd, valid, in_len, terminal)
+    assert _build.launch_counts == {"ctc_alpha": 1, "ctc_beta": 1}
+    torch.testing.assert_close(alpha, ctc.ctc_alpha_plain(emit, skip, valid, in_len),
+                               rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(beta, ctc.ctc_beta_plain(emit, skip_fwd, valid, in_len, terminal),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_ctc_loss_kernel_path_matches_plain(cuda):
+    log_probs, labels, in_len, lab_len = _ctc_inputs(cuda)
+    grads = []
+    for plain in (False, True):
+        lp = log_probs.clone().requires_grad_(True)
+        loss = ctc.ctc_loss(lp, labels, in_len, lab_len, reduction="none", plain=plain)
+        loss.sum().backward()
+        grads.append((loss.detach(), lp.grad))
+    assert grads[0][0][2] == 0 and not grads[0][1][:, 2].any()  # zero_infinity
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-4, atol=1e-5)
+
+
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 10, 256, device=cuda)
+    with pytest.raises(ValueError, match="C in"):
+        ln_gelu.ln_bwd(x, torch.ones(256, device=cuda), torch.zeros(256, device=cuda), x)
+    q = torch.zeros(1, 8, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+    kb = torch.zeros(1, 8, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.attention_bwd(q, q, q, b, b, b, kb, q, lse, q, 32, 0.17)
+    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda)
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        ffn.ffn_bwd(x[..., :512], w1[:, :512], b1, gamma[:512], beta[:512], dy[..., :512],
+                    w2[:512], rate=0.0)
+    with pytest.raises(ValueError, match="seeds"):
+        ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=0.1, seeds=None)
+    emit = torch.zeros(4, 1, 7000, device=cuda)
+    m = torch.ones(1, 7000, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="S <="):
+        ctc.ctc_alpha(emit, m, m, torch.ones(1, device=cuda, dtype=torch.int32))

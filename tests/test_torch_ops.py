@@ -6,7 +6,12 @@ seed), in fp32, where the point is the algorithm. The JAX side runs as the JAX
 package's own CPU tests run it: Pallas kernels in interpret mode, or the
 off-TPU path. Tolerances: atol 2e-5, the bound the JAX package's own op tests
 use (tests/test_conv_ln_gelu.py, tests/test_ffn_pallas.py): fp32 math whose
-reductions run in another order.
+reductions run in another order. Gradients that are sums over rows (dgamma,
+dbeta, the bias gradients, dW) are held at atol 1e-4: sums of a few hundred
+fp32 terms of order 1 in another order.
+The backward passes are compared through ``jax.vjp`` of the same JAX entry
+points. Dropout cannot match the JAX bits (the TPU's PRNG, or
+``jax.random.bernoulli`` on the CPU), so its laws are checked instead.
 The CUDA kernels against their plain versions on the card are in
 tests/test_torch_kernels.py.
 """
@@ -19,12 +24,15 @@ import torch
 
 import coral_tpu.ops.attention_pallas as jat
 import coral_tpu.ops.conv_ln_gelu_pallas as jcg
+import coral_tpu.ops.ctc as jctc
 import coral_tpu.ops.ffn_pallas as jffn
 import coral_tpu.ops.gelu_dropout_pallas as jgelu
 import coral_tpu.ops.ln_gelu_pallas as jln
-from coral_tpu_torch.ops import _build, attention, conv_ln_gelu, ffn, gelu_poly, ln_gelu
+from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, ffn, gelu_poly,
+                                 ln_gelu, philox)
 
 ATOL = 2e-5
+ATOL_SUM = 1e-4
 
 
 def _np(*shape, seed, scale=1.0, offset=0.0):
@@ -75,6 +83,25 @@ def test_ln_matches_jax(apply_gelu, jax_path):
                                True, apply_gelu=apply_gelu)
     port = ln_gelu.ln_gelu if apply_gelu else ln_gelu.ln_fused
     _close(port(_t(x), _t(gamma), _t(beta)), want)
+
+
+@pytest.mark.parametrize("apply_gelu", [True, False], ids=["ln_gelu", "ln_fused"])
+def test_ln_bwd_matches_jax_interpret(apply_gelu):
+    """The backward against ``jax.vjp`` of the custom-VJP ``_ln_gelu`` with the
+    Pallas kernels in interpret mode (ragged last 512-row tile)."""
+    x = _np(2, 515, 128, seed=1, scale=2.0, offset=0.5)
+    gamma = _np(128, seed=2, scale=0.1, offset=1.0)
+    beta = _np(128, seed=3, scale=0.1)
+    dy = _np(2, 515, 128, seed=4)
+    _, vjp = jax.vjp(lambda *a: jln._ln_gelu(*a, True, apply_gelu, 1e-5),
+                     *map(jnp.asarray, (x, gamma, beta)))
+    want = vjp(jnp.asarray(dy))
+    args = [_t(a).requires_grad_(True) for a in (x, gamma, beta)]
+    port = ln_gelu.ln_gelu if apply_gelu else ln_gelu.ln_fused
+    port(*args).backward(_t(dy))
+    _close(args[0].grad, want[0])
+    _close(args[1].grad, want[1], atol=ATOL_SUM)
+    _close(args[2].grad, want[2], atol=ATOL_SUM)
 
 
 # -- conv_ln_gelu -----------------------------------------------------------------
@@ -135,6 +162,32 @@ def test_attention_matches_jax_interpret(head_dim):
     assert (lse[2] == -1e25).all()
 
 
+@pytest.mark.parametrize("head_dim", [64, 32])
+def test_attention_bwd_matches_jax_interpret(head_dim):
+    """All six cotangents against ``jax.vjp`` of the v3 + qkv_bias attention
+    in interpret mode, with padded keys and a fully masked row, which gets no
+    gradient (its p is rebuilt from the clamped lse as 0)."""
+    B, T, H = 3, 75, 2
+    q, k, v, qkv_bias, mask = _attention_inputs(B, T, H, head_dim)
+    do = _np(B, T, H * head_dim, seed=9)
+    _, vjp = jax.vjp(
+        lambda q, k, v, *b: jat.short_t_attention_flat(
+            q, k, v, jnp.asarray(mask), head_dim, save_stats="v3", qkv_bias=b,
+            interpret=True),
+        *map(jnp.asarray, (q, k, v, *qkv_bias)),
+    )
+    want = vjp(jnp.asarray(do))
+    args = [_t(a).requires_grad_(True) for a in (q, k, v, *qkv_bias)]
+    o, _ = attention.short_t_attention_flat(*args[:3], torch.from_numpy(mask), head_dim,
+                                            tuple(args[3:]))
+    o.backward(_t(do))
+    for a, w in zip(args[:3], want[:3]):
+        _close(a.grad, w)
+        assert not a.grad[2].any()
+    for a, w in zip(args[3:], want[3:]):
+        _close(a.grad, w, atol=ATOL_SUM)
+
+
 # -- ffn_ln_block -----------------------------------------------------------------
 
 
@@ -153,6 +206,114 @@ def test_ffn_ln_block_matches_jax_interpret():
     _close(got, want)
 
 
+def test_ffn_ln_block_bwd_matches_jax_interpret():
+    """Every gradient of the block at rate 0 against ``jax.vjp`` of
+    ``ffn_ln_block(..., interpret=True, dg_in_kernel=True)``."""
+    D, F = 128, 256
+    jx = [_np(2, 75, D, seed=0, offset=0.3), _np(D, F, seed=1, scale=0.1),
+          _np(F, seed=2, scale=0.1), _np(D, seed=3, scale=0.1, offset=1.0),
+          _np(D, seed=4, scale=0.1), _np(F, D, seed=5, scale=0.1), _np(D, seed=6, scale=0.1)]
+    dy = _np(2, 75, D, seed=7)
+    _, vjp = jax.vjp(lambda *a: jffn.ffn_ln_block(*a, interpret=True, dg_in_kernel=True),
+                     *map(jnp.asarray, jx))
+    want = vjp(jnp.asarray(dy))
+    transposed = (1, 5)  # W1, W2: JAX (in, out), the port (out, in)
+    args = [_t(a.T if i in transposed else a).requires_grad_(True) for i, a in enumerate(jx)]
+    ffn.ffn_ln_block(*args).backward(_t(dy))
+    _close(args[0].grad, want[0])
+    for i in range(1, 7):
+        got = args[i].grad.T if i in transposed else args[i].grad
+        _close(got, want[i], atol=ATOL_SUM)
+
+
+def test_ffn_dropout_laws():
+    """Rate 0.1: the keep fraction, the 1/keep scale, a mask fixed by the seeds
+    (and per batch row by its own seed), and dh zero exactly where g was
+    dropped."""
+    rate, B, T, D, F = 0.1, 4, 200, 32, 512
+    x = _t(_np(B, T, D, seed=0))
+    w1, b1 = _t(_np(F, D, seed=1, scale=0.2)), _t(_np(F, seed=2, scale=0.1))
+    gamma, beta = torch.ones(D), torch.zeros(D)
+    w2, dy = _t(_np(D, F, seed=3, scale=0.1)), _t(_np(B, T, D, seed=4))
+    seeds = torch.tensor([1, 2, -3, 2**31 - 1], dtype=torch.int32)
+    keep = philox.keep_mask(seeds, T, F, rate)
+    assert abs(keep.float().mean().item() - (1 - rate)) < 5e-3  # 10 sigma
+    g0 = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta)
+    g = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
+    assert torch.equal(g[keep], g0[keep] * (1.0 / (1.0 - rate)))
+    assert not g[~keep].any()
+    assert torch.equal(philox.keep_mask(seeds, T, F, rate), keep)
+    assert torch.equal(philox.keep_mask(seeds[2:3], T, F, rate), keep[2:3])
+    other = philox.keep_mask(seeds + 1, T, F, rate)
+    assert 0.1 < (other != keep).float().mean().item() < 0.3
+    g_bwd, dh = ffn.ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)[:2]
+    assert torch.equal(g_bwd, g)
+    assert not dh[~keep].any() and dh[keep].ne(0).float().mean() > 0.99
+
+
+def test_philox_known_answer():
+    """Philox4x32-10 of counter 0 and key 0 (Random123's known-answer test)."""
+    zero = torch.zeros(1, dtype=torch.int64)
+    words = [int(w) for w in philox.philox4x32(zero, zero, zero)]
+    assert words == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+
+
+# -- ctc --------------------------------------------------------------------------
+
+
+def _ctc_case(blank):
+    T, B, V, L = 30, 5, 7, 6
+    rng = np.random.default_rng(0)
+    logits = _np(T, B, V, seed=1, scale=2.0)
+    labels = rng.integers(0, V, size=(B, L)).astype(np.int64)
+    labels = np.where(labels == blank, (blank + 1) % V, labels)
+    labels[1, 4:] = -100  # -100 padding past the label length
+    in_len = np.array([30, 25, 3, 20, 30], np.int64)  # row 2 is infeasible
+    lab_len = np.array([6, 4, 6, 0, 1], np.int64)
+    return logits, labels, in_len, lab_len
+
+
+@pytest.mark.parametrize("reduction", ["none", "sum", "mean"])
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_ctc_loss_matches_jax(impl, reduction, monkeypatch):
+    """Loss and gradient through log-softmax against the JAX ``ctc_loss`` with
+    its lax.scan recursions and with its Pallas kernels in interpret mode;
+    an infeasible row (zero_infinity), -100 padding and a nonzero blank."""
+    monkeypatch.setenv("CORAL_CTC_IMPL", impl)
+    blank = 3
+    logits, labels, in_len, lab_len = _ctc_case(blank)
+
+    def jloss(x):
+        return jnp.sum(jctc.ctc_loss(jax.nn.log_softmax(x, -1), jnp.asarray(labels),
+                                     jnp.asarray(in_len), jnp.asarray(lab_len), blank,
+                                     reduction))
+
+    want, want_grad = jax.value_and_grad(jloss)(jnp.asarray(logits))
+    x = _t(logits).requires_grad_(True)
+    got = ctc.ctc_loss(torch.log_softmax(x, -1), torch.from_numpy(labels),
+                       torch.from_numpy(in_len), torch.from_numpy(lab_len), blank, reduction)
+    got.sum().backward()
+    _close(got.sum().detach(), want, atol=1e-4)
+    _close(x.grad, want_grad, atol=1e-5)
+    assert not x.grad[:, 2].any()  # zero_infinity zeroes the infeasible row's gradient
+
+
+def test_ctc_loss_matches_torch_ctc_loss():
+    """An independent oracle: ``torch.nn.functional.ctc_loss`` (tests only)."""
+    blank = 3
+    logits, labels, in_len, lab_len = _ctc_case(blank)
+    grads, losses = [], []
+    for fn in (ctc.ctc_loss, torch.nn.functional.ctc_loss):
+        x = _t(logits).requires_grad_(True)
+        loss = fn(torch.log_softmax(x, -1), torch.from_numpy(np.maximum(labels, 0)),
+                  torch.from_numpy(in_len), torch.from_numpy(lab_len), blank, "none", True)
+        loss.sum().backward()
+        losses.append(loss.detach())
+        grads.append(x.grad)
+    _close(losses[0], losses[1], atol=1e-4)
+    _close(grads[0], grads[1], atol=1e-5)
+
+
 # -- wrappers on the CPU ----------------------------------------------------------
 
 
@@ -166,9 +327,12 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
     q = _t(_np(1, 9, 128, seed=1))
     attention.short_t_attention_flat(q, q, q, torch.ones(1, 9, dtype=torch.bool), 64,
                                      (zero[:128],) * 3)
-    y = torch.zeros(1, 9, 1024)
+    y = torch.zeros(1, 9, 1024, requires_grad=True)
     ffn.ffn_ln_block(y, torch.zeros(256, 1024), zero[:256], torch.ones(1024),
-                     torch.zeros(1024), torch.zeros(1024, 256), torch.zeros(1024))
+                     torch.zeros(1024), torch.zeros(1024, 256), torch.zeros(1024)).sum().backward()
+    lp = torch.log_softmax(torch.zeros(9, 1, 5, requires_grad=True), -1)
+    ctc.ctc_loss(lp, torch.ones(1, 2, dtype=torch.long), torch.tensor([9]),
+                 torch.tensor([2])).backward()
     assert sum(_build.launch_counts.values()) == 0
     assert _build._lib is None  # nothing was built either
     with pytest.raises(ValueError, match="no kernel or plain path"):

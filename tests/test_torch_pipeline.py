@@ -193,10 +193,13 @@ from coral_tpu.evaluation.longform import chunk_waveform
 loaded = sorted(m for m in sys.modules if m.split(".")[0] == "coral_tpu")
 assert all(m.startswith(("coral_tpu.text", "coral_tpu.evaluation")) or m == "coral_tpu"
            for m in loaded), loaded
+new = {"coral_tpu_torch.ops.ctc", "coral_tpu_torch.ops.philox",
+       "coral_tpu_torch.training.optimizer", "coral_tpu_torch.training.train_state"}
+assert new <= set(names), new - set(names)
 print(len(names))
 """
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 13
+    assert int(out.stdout.split()[-1]) >= 17

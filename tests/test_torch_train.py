@@ -1,0 +1,297 @@
+"""coral_tpu_torch's train step against coral_tpu's, on the CPU.
+
+The whole step (``make_ctc_train_step``: z-norm, the model in training mode,
+the CTC loss, accumulation over A = 2 microbatches, clip + AdamW with a bf16
+first moment, the warmup-cosine schedule) runs in both packages from the same
+numpy-seeded weights and batch, on the JAX ``tiny`` config with the production
+kernel flags, in fp32, with the feature encoder frozen, activation dropout 0
+and the SpecAugment probabilities 0 (their random streams differ by design;
+their laws are checked separately). The JAX side runs as its own tests run it
+on the CPU: Pallas kernels in interpret mode or their off-TPU paths.
+
+Tolerances, fp32 throughout with sums in another order: the loss 1e-4 and the
+gradient norm 5e-4 relative (both move apart once the parameters do, after
+the first update); the learning rate 1e-6 relative. The parameters after 3
+steps: Adam divides each gradient by its own running size, so an element
+whose gradient is near zero turns fp32 noise into an update of up to the
+learning rate, either way. So the bound is on the distribution of |port -
+JAX| over all 29036 parameters: median <= 1e-5 and 99th percentile <= 5e-5
+(measured about 1e-6 and 6e-6), and every element within 3e-3, twice the
+1.5e-3 that the two non-zero updates (learning rates 5e-4 and 1e-3) can move
+one (a sign flip).
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from coral_tpu.models.wav2vec2 import Wav2Vec2Config as JaxConfig
+from coral_tpu.models.wav2vec2 import Wav2Vec2ForCTC as JaxModel
+from coral_tpu.models.wav2vec2 import _span_mask
+from coral_tpu.training import TrainState as JaxTrainState
+from coral_tpu.training import create_optimizer as jax_create_optimizer
+from coral_tpu.training.train_state import make_ctc_train_step as jax_make_ctc_train_step
+from coral_tpu_torch.models.convert import wav2vec2_state_dict_from_jax
+from coral_tpu_torch.models.wav2vec2 import (Wav2Vec2Config, Wav2Vec2ForCTC,
+                                             draw_randomness, span_dilate)
+from coral_tpu_torch.training import TrainState, create_optimizer, make_ctc_train_step
+from coral_tpu_torch.training.model_setup import load_model_setup
+from coral_tpu_torch.training.optimizer import create_learning_rate_schedule
+from coral_tpu_torch.training.train_state import _device_audio, ctc_loss_and_grads
+from test_torch_wav2vec2 import PRODUCTION_FLAGS, _seeded_params
+
+VOCAB = 12
+BLANK = VOCAB - 1
+QUIET = dict(activation_dropout=0.0, mask_time_prob=0.0, mask_feature_prob=0.0)
+CHARS = "abcdefghijklmnopqrstuvwxyzæøå0123456789éü"
+
+
+def _batch(seed=3, A=2, B=4, T=6400, L=8):
+    rng = np.random.default_rng(seed)
+    batch = {
+        "input_values": rng.standard_normal((A, B, T)).astype(np.float32),
+        "input_lengths": rng.integers(T // 2, T + 1, size=(A, B)).astype(np.int32),
+        "labels": rng.integers(0, VOCAB - 1, size=(A, B, L)).astype(np.int32),
+        "label_lengths": rng.integers(1, L + 1, size=(A, B)).astype(np.int32),
+    }
+    batch["input_lengths"][0, 0] = T
+    batch["labels"][0, 1, batch["label_lengths"][0, 1]:] = -100
+    return batch
+
+
+@pytest.fixture(scope="module")
+def jax_case():
+    model = JaxModel(JaxConfig.tiny(vocab_size=VOCAB, **PRODUCTION_FLAGS, **QUIET),
+                     gradient_checkpointing=True, remat_policy="nothing_saveable")
+    return model, _seeded_params(model, seed=0)
+
+
+def _port_model(params, **kw):
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB, **{**QUIET, **kw}))
+    model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
+    model.wav2vec2.encoder.gradient_checkpointing = True
+    return model
+
+
+@pytest.mark.parametrize("grad_dtype", [None, "bfloat16"], ids=["fp32_grads", "bf16_grads"])
+def test_train_step_matches_jax(jax_case, grad_dtype):
+    jax_model, params = jax_case
+    batch = _batch()
+    tx, schedule = jax_create_optimizer(1e-3, warmup_steps=2, max_steps=20,
+                                        mu_dtype="bfloat16")
+    state = JaxTrainState.create(params, tx)
+    step = jax.jit(jax_make_ctc_train_step(jax_model, tx, schedule, blank_id=BLANK,
+                                           freeze_feature_encoder=True,
+                                           grad_dtype=grad_dtype))
+    want = []
+    for i in range(3):
+        state, m = step(state, batch, jax.random.PRNGKey(i))
+        want.append({k: float(v) for k, v in m.items()})
+
+    model = _port_model(params)
+    ptx, pschedule = create_optimizer(1e-3, warmup_steps=2, max_steps=20, mu_dtype="bfloat16")
+    pstate = TrainState.create(model, ptx)
+    pstep = make_ctc_train_step(ptx, pschedule, BLANK, freeze_feature_encoder=True,
+                                grad_dtype=grad_dtype)
+    gen = torch.Generator().manual_seed(0)
+    for i in range(3):
+        pstate, m = pstep(pstate, batch, gen)
+        got = {k: float(v) for k, v in m.items()}
+        np.testing.assert_allclose(got["loss"], want[i]["loss"], rtol=1e-4)
+        np.testing.assert_allclose(got["grad_norm"], want[i]["grad_norm"], rtol=5e-4)
+        np.testing.assert_allclose(got["learning_rate"], want[i]["learning_rate"], rtol=1e-6)
+    assert pstate.step == 3
+    initial = wav2vec2_state_dict_from_jax(params, model.config)
+    final = wav2vec2_state_dict_from_jax(jax.device_get(state.params), model.config)
+    assert all(pstate.params[k].dtype == torch.float32 for k in final)
+    diff = torch.cat([(pstate.params[k] - final[k]).abs().flatten() for k in final])
+    assert diff.median() <= 1e-5
+    assert torch.quantile(diff, 0.99) <= 5e-5
+    assert diff.max() <= 3e-3
+    for k in final:
+        if "feature_extractor" in k:  # frozen: unchanged in both packages
+            assert torch.equal(pstate.params[k], initial[k])
+
+
+def test_gradient_checkpointing_gives_identical_gradients(jax_case):
+    """Dropout at 0.1 and SpecAugment on: the replay draws nothing, so the
+    gradients with and without checkpointing are the same bits."""
+    _, params = jax_case
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    grads = []
+    for remat in (True, False):
+        model = _port_model(params, activation_dropout=0.1, hidden_dropout=0.1,
+                            mask_time_prob=0.5, mask_feature_prob=0.5,
+                            mask_feature_length=8)
+        model.wav2vec2.encoder.gradient_checkpointing = remat
+        gen = torch.Generator().manual_seed(5)
+        grads.append(ctc_loss_and_grads(model, batch, gen, BLANK, "sum", True))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert grads[0][1].keys() == grads[1][1].keys()
+    for k in grads[0][1]:
+        assert torch.equal(grads[0][1][k], grads[1][1][k]), k
+    assert grads[0][1]["wav2vec2.masked_spec_embed"].any()  # SpecAugment was on
+
+
+def _setup_config(**over):
+    cfg = {
+        "model": {"type": "wav2vec2", "architecture": "tiny", "characters_to_keep": CHARS,
+                  "freeze_feature_encoder": True, "activation_dropout": 0.1,
+                  "mask_time_prob": 0.5, "mask_time_length": 10, "mask_feature_prob": 0.5,
+                  "mask_feature_length": 8, "layerdrop": 0.1, "ctc_loss_reduction": "sum",
+                  "learning_rate": 1e-3},
+        "max_seconds_per_example": 1.0, "bf16_allowed": False, "grad_dtype": "bfloat16",
+        "gradient_checkpointing": True, "remat_policy": "nothing_saveable",
+        "augment_audio": False,
+    }
+    for k, v in over.items():
+        if k.startswith("model."):
+            cfg["model"][k[6:]] = v
+        else:
+            cfg[k] = v
+    return cfg
+
+
+def test_loss_decreases_through_the_setup():
+    """The production configuration at the tiny size through the entry point
+    (as tests/test_train_step.py:48 does for the JAX step)."""
+    setup = load_model_setup(_setup_config())
+    model = setup.init_params(seed=0)
+    tx, schedule = create_optimizer(setup.learning_rate, warmup_steps=1, max_steps=100,
+                                    mu_dtype="bfloat16")
+    state = TrainState.create(model, tx)
+    step = setup.make_train_step(tx, schedule)
+    batch = _batch(seed=0)
+    batch["labels"] = np.where(batch["labels"] == setup.blank_id, 0, batch["labels"])
+    gen = torch.Generator().manual_seed(0)
+    losses = []
+    for _ in range(6):
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0], losses
+    assert float(metrics["learning_rate"]) > 0 and state.step == 6
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"model.freeze_feature_encoder": False}, "5b"),
+    ({"augment_audio": True}, "5b"),
+    ({"remat_policy": "save_qk_ctx"}, "5b"),
+    ({"remat_policy": None}, "5b"),  # the JAX default, save_qk_ctx
+    ({"mesh": [2, 1]}, "item 7"),
+    ({"distributed": True}, "item 7"),
+])
+def test_unported_training_inputs_raise(over, match):
+    cfg = _setup_config(**{k: v for k, v in over.items() if v is not None})
+    if over.get("remat_policy", "") is None:
+        del cfg["remat_policy"]
+    setup = load_model_setup(cfg)
+    tx, schedule = create_optimizer(1e-3, 1, 10)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
+        setup.make_train_step(tx, schedule)
+
+
+def test_feature_encoder_gradients_and_whisper_training_raise():
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny())
+    audio, lengths = torch.zeros(1, 1600), torch.tensor([1600])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*5b"):
+        model(audio, lengths, deterministic=False, generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Whisper"):
+        load_model_setup({"model": {"type": "whisper"}})
+
+
+def test_span_dilation_matches_jax_span_mask(monkeypatch):
+    """Given the same Bernoulli starts, the port's dilation is ``_span_mask``'s
+    convolve-and-truncate: t is masked iff a start lies in (t - span, t]."""
+    starts = np.random.default_rng(0).random((6, 97)) < 0.05
+    monkeypatch.setattr(jax.random, "bernoulli", lambda key, p, shape: jnp.asarray(starts))
+    for span in (1, 10, 64):
+        want = np.asarray(_span_mask(jax.random.PRNGKey(0), 6, 97, 0.5, span))
+        got = span_dilate(torch.from_numpy(starts), span).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_spec_augment_laws():
+    """Coverage 1 - (1 - p/span)^span away from the left edge; the time mask
+    keeps off padded frames and fills masked_spec_embed; the feature mask zeroes
+    whole channels over all frames."""
+    cfg = Wav2Vec2Config.tiny(mask_time_prob=0.5, mask_time_length=10, mask_feature_prob=0.5,
+                              mask_feature_length=4)
+    rnd = draw_randomness(cfg, 256, 400, torch.Generator().manual_seed(0), "cpu")
+    tmask = span_dilate(rnd.time_starts, 10)
+    expected = 1 - (1 - 0.05) ** 10
+    assert abs(tmask[:, 10:].float().mean().item() - expected) < 0.01
+    model = Wav2Vec2ForCTC(cfg).wav2vec2
+    torch.nn.init.uniform_(model.masked_spec_embed)
+    hidden = torch.randn(256, 400, 32)
+    pad = torch.arange(400)[None, :] < torch.randint(100, 401, (256,))[:, None]
+    out = model.spec_augment(hidden, pad, rnd)
+    fmask = span_dilate(rnd.feature_starts, 4)
+    t_only = tmask & pad
+    assert torch.equal(out[~fmask[:, None, :].expand_as(out) & t_only[..., None].expand_as(out)],
+                       model.masked_spec_embed.expand_as(out)[
+                           ~fmask[:, None, :].expand_as(out) & t_only[..., None].expand_as(out)])
+    assert not out[fmask[:, None, :].expand_as(out)].any()
+    untouched = ~t_only[..., None].expand_as(out) & ~fmask[:, None, :].expand_as(out)
+    assert torch.equal(out[untouched], hidden[untouched])
+
+
+def test_optimizer_and_schedule_match_optax():
+    """clip_by_global_norm + adamw with a bf16 first moment, four updates (the
+    clip on and off), against optax on the same numpy tensors."""
+    rng = np.random.default_rng(0)
+    shapes = {"a": (5, 7), "b": (11,), "c": (3, 2, 4)}
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    tx, schedule = jax_create_optimizer(1e-2, warmup_steps=2, max_steps=6,
+                                        mu_dtype="bfloat16")
+    ptx, pschedule = create_optimizer(1e-2, warmup_steps=2, max_steps=6, mu_dtype="bfloat16")
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jparams)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = ptx.init(tparams)
+    for i, scale in enumerate((3.0, 0.01, 5.0, 0.02)):
+        grads = {k: (rng.standard_normal(s) * scale).astype(np.float32)
+                 for k, s in shapes.items()}
+        upd, jstate = tx.update({k: jnp.asarray(v) for k, v in grads.items()}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        ptx.update({k: torch.from_numpy(v) for k, v in grads.items()}, tstate, tparams)
+        for k in shapes:
+            np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]), atol=1e-7,
+                                       rtol=1e-6)
+            assert tstate.mu[k].dtype == torch.bfloat16
+    for count in range(12):
+        np.testing.assert_allclose(pschedule(count), float(schedule(count)), rtol=1e-6,
+                                   atol=1e-12)
+    s0 = create_learning_rate_schedule(1e-4, 0, 5)
+    assert s0(0) == pytest.approx(1e-4)
+
+
+def test_pcm16_infeed():
+    pcm = torch.tensor([-32768, 0, 16384], dtype=torch.int16)
+    assert torch.equal(_device_audio(pcm), torch.tensor([-1.0, 0.0, 0.5]))
+    f = torch.ones(3)
+    assert _device_audio(f) is f
+
+
+def test_randomness_is_drawn_before_the_model_runs():
+    """Every draw happens in draw_randomness, in a fixed order: the same seed
+    gives the same masks and seeds; another seed gives others."""
+    cfg = Wav2Vec2Config.tiny()
+    a = draw_randomness(cfg, 4, 20, torch.Generator().manual_seed(1), "cpu")
+    b = draw_randomness(cfg, 4, 20, torch.Generator().manual_seed(1), "cpu")
+    c = draw_randomness(cfg, 4, 20, torch.Generator().manual_seed(2), "cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a.layers, c.layers)
+    assert a.layers.shape == (cfg.num_hidden_layers, 3, 4) and a.layers.dtype == torch.int32
+
+
+def test_copy_of_config_is_not_mutated():
+    cfg = _setup_config()
+    before = copy.deepcopy(cfg)
+    load_model_setup(cfg)
+    assert cfg == before
