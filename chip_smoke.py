@@ -8,9 +8,9 @@ Run from the root of the repository:
 It drives the port's two paths through the hand-written CUDA kernels, with
 XLS-R-300M at full width and depth (24 layers, bf16, seeded random weights):
 serving, ``ASRPipeline`` (30 s window, batch 8), and training, the CTC train
-step of ``Wav2Vec2Setup.make_train_step`` (frozen feature encoder, 8 clips of
-6-10 s padded to 10 s, 2 accumulation microbatches). It runs in phases; any
-failing phase exits non-zero before the result line is printed:
+step of ``Wav2Vec2Setup.make_train_step`` (8 clips of 6-10 s padded to 10 s,
+2 accumulation microbatches). It runs in phases; any failing phase exits
+non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
@@ -18,7 +18,8 @@ failing phase exits non-zero before the result line is printed:
    printed;
 3. each kernel runs at its path's own shapes in bf16 against its plain
    PyTorch version: errors against a stated tolerance, and both times (CUDA
-   events, median of 10);
+   events, median of 10); the feature encoder's training forward and backward
+   at FE blocks 1 and 5;
 4. serving: ``transcribe_batch`` on 12 clips of 3-30 s (the second device
    batch is partial, with fully masked filler rows) and ``transcribe`` on a
    45 s clip (long-form windows), with the kernels' launch counts over that
@@ -28,12 +29,14 @@ failing phase exits non-zero before the result line is printed:
 5. training: (a) the kernel path's loss and gradients against the plain
    path's (``Wav2Vec2ForCTC(plain=True)``: every kernel's plain version,
    forward and backward, and the plain CTC recursions) on the same weights,
-   batch and generator seed, at activation dropout 0 with SpecAugment on;
-   (b) the production configuration (activation dropout 0.1) for several
-   optimizer steps on one fixed batch: launch counts over the first step,
-   finite losses and a last loss below the first, training audio-s/s, ms per
-   step against the plain path's, peak memory, and a ``torch.profiler``
-   breakdown of one step;
+   batch and generator seed, the feature encoder training under save_qk_ctx,
+   at activation dropout 0 with SpecAugment on; (b) the frozen encoder under
+   nothing_saveable, augmentation off, and (c) the production configuration
+   (the feature encoder training, save_qk_ctx, the augmentation chain with a
+   seeded synthetic noise bank), each for several optimizer steps on one
+   fixed batch: exact launch counts over the first step, finite losses and a
+   last loss below the first, training audio-s/s, ms per step against the
+   plain path's, peak memory, and a ``torch.profiler`` breakdown of one step;
 6. a JSON line with every kernel (its launches summed over the counted
    serving and training runs), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -74,6 +77,10 @@ TOLERANCE = {
     "ffn_ln": (1e-2, 2.0**-6),
     "ffn_ln_drop": (1e-2, 2.0**-6),
     "ln_bwd": (1e-2, 2.0**-6),
+    "conv_ln_gelu_train": (1e-2, 2.0**-6),
+    # rstd is fp32 on both sides, from the conv's fp32 sums in another order
+    # (measured 9.5e-7 relative on an H100).
+    "conv_ln_gelu_train rstd": (0.0, 1e-4),
     "ctc_alpha": (1e-3, 1e-5),  # fp32 on both sides, the same order of sums
     "ctc_beta": (1e-3, 1e-5),
 }
@@ -82,9 +89,9 @@ TOLERANCE = {
 # fp32 products that the kernel and torch sum in other orders, so a value may
 # round one ulp apart before hundreds of them are summed.
 # Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W): attention_bwd 2.1e-3 of
-# max|plain|, ffn_bwd 5.2e-3, the fp32 partial sums 1.0e-4; the bounds are 4 to
-# 10 times those.
-GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3}
+# max|plain|, ffn_bwd 5.2e-3, conv_ln_gelu_bwd 4.8e-3 (dx; dW 1.2e-4), the fp32
+# partial sums 1.0e-4; the bounds are 4 to 10 times those.
+GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3, "conv_bwd": 2e-2}
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
 # Kernel path vs plain path logits over the whole model: max |diff| / max |plain|.
 # Both paths round the bf16 residual stream after each of the 24 layers at
@@ -106,10 +113,15 @@ SOURCES = {
     "ffn_bwd": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:385"),
     "ctc_alpha": ("coral_tpu_torch/csrc/ctc.cu", "coral_tpu/ops/ctc_pallas.py:81"),
     "ctc_beta": ("coral_tpu_torch/csrc/ctc.cu", "coral_tpu/ops/ctc_pallas.py:125"),
+    "conv_ln_gelu_train": ("coral_tpu_torch/csrc/conv_ln_gelu.cu",
+                           "coral_tpu/ops/conv_ln_gelu_pallas.py:133"),
+    # The backward kernels, the k = 3 halo fixup (:374) folded into their dx.
+    "conv_ln_gelu_bwd": ("coral_tpu_torch/csrc/conv_ln_gelu.cu",
+                         "coral_tpu/ops/conv_ln_gelu_pallas.py:174"),
 }
-# The training slice: XLS-R-300M with config/model/test-wav2vec2.yaml's values
-# and config/asr_finetuning.yaml's optimisation, augmentation off, the
-# remat policy the port implements.
+# Training (b): XLS-R-300M with config/model/test-wav2vec2.yaml's values and
+# config/asr_finetuning.yaml's optimisation, the feature encoder frozen,
+# augmentation off and the replay of everything (nothing_saveable).
 TRAIN_CONFIG = {
     "model": {
         "type": "wav2vec2", "pretrained_model_id": "facebook/wav2vec2-xls-r-300m",
@@ -127,6 +139,16 @@ TRAIN_CONFIG = {
     "gradient_checkpointing": True, "remat_policy": "nothing_saveable",
     "augment_audio": False,
 }
+# Training (c), the production configuration: config/model/wav2vec2-small.yaml
+# (the feature encoder trains) with config/asr_finetuning.yaml (augmentation
+# on, a background-noise bank, no remat_policy key: the default save_qk_ctx).
+PRODUCTION_CONFIG = {
+    **{k: v for k, v in TRAIN_CONFIG.items() if k != "remat_policy"},
+    "model": {**TRAIN_CONFIG["model"], "freeze_feature_encoder": False},
+    "augment_audio": True,
+}
+# The synthetic stand-in for the ESC-50 bank: 64 clips of 5 s of seeded noise.
+NOISE_CLIPS, NOISE_SECONDS = 64, 5
 ACCUM = 2
 MAX_LABEL = 128
 # Adam's first update moves every weight by about the learning rate (m /
@@ -145,11 +167,20 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_NORM_RTOL = 5e-3
 TRAIN_GRAD_TOL = 0.1
 K_BIAS_NOISE = 1e-2
-# Launches of each kernel per microbatch of a training step under the
-# nothing_saveable replay (forward + replay of the 24 layers, their backward).
+# Launches of each kernel per microbatch of a training step. (b), frozen
+# encoder, nothing_saveable: the 24 layers run forward and again in the
+# replay, except the FFN block, whose residuals are its inputs; ln_bwd is LN1's
+# backward and the FFN backward's LN.
 PER_MICROBATCH = {"ln_gelu": 1, "conv_ln_gelu": 6, "ln_fused": 48, "attention": 48,
-                  "ffn_ln_drop": 48, "attention_bwd": 24, "ffn_bwd": 24, "ln_bwd": 48,
+                  "ffn_ln_drop": 24, "attention_bwd": 24, "ffn_bwd": 24, "ln_bwd": 48,
                   "ctc_alpha": 1, "ctc_beta": 1}
+# (c), the feature encoder training under save_qk_ctx: the replay runs LN1 but
+# not the attention forward (q, k, o and lse are kept); FE blocks 1-6 take the
+# training forward and their backward, FE conv 0's LN+GELU its ln_bwd.
+PRODUCTION_PER_MICROBATCH = {
+    "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ln_fused": 48,
+    "attention": 24, "ffn_ln_drop": 24, "attention_bwd": 24, "ffn_bwd": 24, "ln_bwd": 49,
+    "ctc_alpha": 1, "ctc_beta": 1}
 
 
 def fail(msg: str) -> None:
@@ -315,7 +346,7 @@ def kernel_checks(card: str) -> dict:
 def train_kernel_checks(card: str) -> dict:
     """The training slice's kernels against their plain versions at its
     shapes: 8 clips of 10 s (T' = 499 frames), XLS-R-300M widths."""
-    from coral_tpu_torch.ops import attention, ctc, ffn, ln_gelu, philox
+    from coral_tpu_torch.ops import attention, conv_ln_gelu, ctc, ffn, ln_gelu, philox
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -357,6 +388,63 @@ def train_kernel_checks(card: str) -> dict:
 
     measure("ln_bwd", lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False),
             lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check)
+    del x, dy
+
+    # The feature encoder's training forward and backward: FE block 1 (k = 3,
+    # 31999 -> 15999 rows), timed, and block 5 (k = 2, 1999 -> 999 rows: input
+    # row 1998 is read by no output and must get dx = 0).
+    def conv_args(k, T_in):
+        return (randn(BATCH, T_in, 512, dtype=bf16),
+                randn(512, 512, k, scale=math.sqrt(2.0 / (512 * k)), dtype=bf16),
+                randn(512, scale=0.1), randn(512, scale=0.1, offset=1.0),
+                randn(512, scale=0.1))
+
+    blocks = {"block 1": conv_args(3, 31999), "block 5": conv_args(2, 1999)}
+
+    def conv_fwd_check():
+        out = []
+        for args in blocks.values():
+            got = conv_ln_gelu.conv_ln_gelu_fwd(*args)
+            want = conv_ln_gelu.conv_ln_gelu_fwd_plain(*args)
+            out += [compare("conv_ln_gelu_train", got[0], want[0]),
+                    compare("conv_ln_gelu_train", got[1], want[1]),
+                    compare("conv_ln_gelu_train rstd", got[2], want[2])]
+        return merge(*out)
+
+    c1 = blocks["block 1"]
+    measure("conv_ln_gelu_train", lambda: conv_ln_gelu.conv_ln_gelu_fwd(*c1),
+            lambda: conv_ln_gelu.conv_ln_gelu_fwd_plain(*c1), conv_fwd_check)
+    bwd_args = {}
+    for name, args in blocks.items():
+        _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(*args)
+        bwd_args[name] = (*args[:2], *args[3:], xhat, rstd, randn(*xhat.shape, dtype=bf16))
+
+    def conv_bwd_check():
+        out = []
+        for name, args in bwd_args.items():
+            x, k, T_out = args[0], args[1].shape[-1], args[4].shape[1]
+            want = conv_ln_gelu.conv_ln_gelu_bwd_plain(*args)
+            # Free blocks of dx's and da's sizes full of NaN: the kernels'
+            # outputs come from the same allocator.
+            dirty = [torch.full_like(x, float("nan")), torch.full_like(args[6], float("nan"))]
+            del dirty
+            got = conv_ln_gelu.conv_ln_gelu_bwd(*args)
+            out += [compare_grad(f"conv_ln_gelu_bwd {name} {n}", gg, ww, GRAD_FRAC["conv_bwd"])
+                    for n, gg, ww in (("dx", got[0], want[0]), ("dW", got[1], want[1]))]
+            out += [compare_grad(f"conv_ln_gelu_bwd {name} {n}", gg, ww, GRAD_FRAC["partials"])
+                    for n, gg, ww in zip(("dgamma", "dbeta", "dbias"), got[2], want[2])]
+            read = 2 * (T_out - 1) + k
+            unread = not bool(got[0][:, read:].any())
+            rows = f"rows {read}..{x.shape[1] - 1}" if read < x.shape[1] else "no rows"
+            print(f"  conv_ln_gelu_bwd {name}: T_in {x.shape[1]}, T_out {T_out}, k {k}: input "
+                  f"{rows} unread, their dx 0: {unread}", flush=True)
+            out[-1]["ok"] = out[-1]["ok"] and unread
+        return merge(*out)
+
+    b1 = bwd_args["block 1"]
+    measure("conv_ln_gelu_bwd", lambda: conv_ln_gelu.conv_ln_gelu_bwd(*b1),
+            lambda: conv_ln_gelu.conv_ln_gelu_bwd_plain(*b1), conv_bwd_check)
+    del blocks, bwd_args, c1, b1
 
     # Attention backward: (8, 499, 16 x 64), padded keys and a fully masked row.
     q, k, v, do = (randn(BATCH, T, 1024, dtype=bf16) for _ in range(4))
@@ -589,45 +677,48 @@ def train_batch(seed: int) -> tuple[dict, float]:
     return batch, float(lengths.sum()) / SR
 
 
-def training_run(card: str) -> tuple[dict, dict]:
-    """The training slice through ``Wav2Vec2Setup.make_train_step``; returns
-    (launch counts of the first production step, metrics)."""
+def plain_twin(model):
+    """The plain-path model (``Wav2Vec2ForCTC(plain=True)``) on ``model``'s
+    weights, checkpointed under its remat policy."""
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+
+    with torch.device("meta"):
+        plain = Wav2Vec2ForCTC(model.config, plain=True)
+    plain = plain.to_empty(device="cuda")
+    plain.load_state_dict(model.state_dict())
+    encoder = model.wav2vec2.encoder
+    plain.wav2vec2.encoder.gradient_checkpointing = encoder.gradient_checkpointing
+    plain.wav2vec2.encoder.remat_policy = encoder.remat_policy
+    return plain
+
+
+def training_compare(card: str, batch: dict) -> dict:
+    """Training (a): the kernel path's loss and gradients against the plain
+    path's on one microbatch, the feature encoder training under save_qk_ctx."""
     import copy
 
-    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
-    from coral_tpu_torch.ops import _build
-    from coral_tpu_torch.training import TrainState, create_optimizer
     from coral_tpu_torch.training.model_setup import load_model_setup
+    from coral_tpu_torch.training.optimizer import global_norm
     from coral_tpu_torch.training.train_state import _load_work_params, ctc_loss_and_grads
 
-    batch, audio_seconds = train_batch(0)
-    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
-
-    def plain_twin(model):
-        with torch.device("meta"):
-            plain = Wav2Vec2ForCTC(model.config, plain=True)
-        plain = plain.to_empty(device="cuda")
-        plain.load_state_dict(model.state_dict())
-        plain.wav2vec2.encoder.gradient_checkpointing = True
-        return plain
-
-    # (a) Kernel path vs plain path: activation dropout 0, SpecAugment on.
-    cfg_a = copy.deepcopy(TRAIN_CONFIG)
+    cfg_a = copy.deepcopy(PRODUCTION_CONFIG)
     cfg_a["model"]["activation_dropout"] = 0.0
+    cfg_a["augment_audio"] = False
     setup = load_model_setup(cfg_a, device="cuda")
     model = setup.init_params(seed=0)
+    if (setup.freeze_feature_encoder, model.wav2vec2.encoder.remat_policy) != (
+            False, "save_qk_ctx"):
+        fail("training (a) did not get the feature encoder training under save_qk_ctx")
     plain = plain_twin(model)
     masters = {n: p.detach().float().clone() for n, p in model.named_parameters()}
-    one = {k: v[:1] for k, v in dev_batch.items()}
+    one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
     out = {}
     for name, m in (("kernel", model), ("plain", plain)):
         _load_work_params(m, masters, torch.bfloat16)
         gen = torch.Generator(device="cuda").manual_seed(7)
-        out[name] = ctc_loss_and_grads(m, one, gen, setup.blank_id, "sum", True)
+        out[name] = ctc_loss_and_grads(m, one, gen, setup.blank_id, "sum", False)
     torch.cuda.synchronize()
     (loss_k, grads_k), (loss_p, grads_p) = out["kernel"], out["plain"]
-    from coral_tpu_torch.training.optimizer import global_norm
-
     norm_k, norm_p = float(global_norm(list(grads_k.values()))), float(
         global_norm(list(grads_p.values())))
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
@@ -648,43 +739,55 @@ def training_run(card: str) -> tuple[dict, dict]:
         ratios.append((float((grads_k[n] - gp).abs().max()) / scale, n))
     ratios.sort(reverse=True)
     worst = ratios[0][0]
-    print(f"training (a) kernel vs plain, one microbatch of {BATCH}: loss {float(loss_k):.6f} "
-          f"vs {float(loss_p):.6f} (rel {loss_rel:.6g}, tolerance {TRAIN_LOSS_RTOL}); grad norm "
-          f"{norm_k:.6f} vs {norm_p:.6f} (rel {norm_rel:.6g}, tolerance {TRAIN_GRAD_NORM_RTOL}); "
-          f"gradient max|diff|/max|plain| over {len(ratios)} parameters (tolerance "
-          f"{TRAIN_GRAD_TOL}), worst: " + "; ".join(f"{r:.6g} {n}" for r, n in ratios[:5]),
-          flush=True)
+    fe = [(r, n) for r, n in ratios if "feature_extractor" in n]
+    print(f"training (a) kernel vs plain, one microbatch of {BATCH}, feature encoder training, "
+          f"save_qk_ctx: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_rel:.6g}, "
+          f"tolerance {TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel "
+          f"{norm_rel:.6g}, tolerance {TRAIN_GRAD_NORM_RTOL}); gradient max|diff|/max|plain| over "
+          f"{len(ratios)} parameters (tolerance {TRAIN_GRAD_TOL}), worst: "
+          + "; ".join(f"{r:.6g} {n}" for r, n in ratios[:5]), flush=True)
+    print(f"  feature encoder, {len(fe)} parameters with gradients: worst "
+          + "; ".join(f"{r:.6g} {n}" for r, n in fe[:3]), flush=True)
     print(f"  k_proj.bias gradients (0 in exact arithmetic), max|g| / max|g of v_proj.bias| "
           f"over {len(k_bias)} layers: worst {max(k_bias):.6g} (tolerance "
           f"{K_BIAS_NOISE})", flush=True)
+    fe_params = [n for n in grads_k if "feature_extractor" in n]
+    fe_live = all(bool(torch.isfinite(grads_k[n]).all()) and bool(grads_k[n].any())
+                  for n in fe_params)
     if not (math.isfinite(float(loss_k)) and loss_rel <= TRAIN_LOSS_RTOL
             and norm_rel <= TRAIN_GRAD_NORM_RTOL and worst <= TRAIN_GRAD_TOL
-            and max(k_bias) <= K_BIAS_NOISE):
+            and max(k_bias) <= K_BIAS_NOISE and fe_live and len(fe) == len(fe_params)):
         fail("the training kernel path and plain path disagree")
-    fe_grads = [n for n in grads_k if "feature_extractor" in n and bool(grads_k[n].any())]
-    if fe_grads:
-        fail(f"the frozen feature encoder got gradients: {fe_grads[:3]}")
-    del model, plain, out, grads_k, grads_p, masters
-    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": worst,
+            "worst_fe_grad": fe[0][0]}
 
-    # (b) The production configuration: activation dropout 0.1, A = 2.
-    setup = load_model_setup(TRAIN_CONFIG, device="cuda")
+
+def production_run(card: str, label: str, config: dict, per_microbatch: dict,
+                   batch: dict, audio_seconds: float) -> tuple[dict, dict]:
+    """``TRAIN_STEPS`` optimizer steps through ``Wav2Vec2Setup.make_train_step``
+    on one fixed batch; returns (launch counts of the first step, metrics)."""
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training import TrainState, create_optimizer
+    from coral_tpu_torch.training.model_setup import load_model_setup
+
+    setup = load_model_setup(config, device="cuda")
     model = setup.init_params(seed=0)
     cfg = setup.model_config
-    print(f"training model: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+    print(f"training {label}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
           f"activation dropout {cfg.activation_dropout}, SpecAugment time "
           f"{cfg.mask_time_prob}/{cfg.mask_time_length} feature {cfg.mask_feature_prob}/"
-          f"{cfg.mask_feature_length}, {cfg.dtype}, batch {ACCUM} x {BATCH} x "
-          f"{batch['input_values'].shape[-1]} samples", flush=True)
+          f"{cfg.mask_feature_length}, {cfg.dtype}, feature encoder "
+          f"{'frozen' if setup.freeze_feature_encoder else 'training'}, remat "
+          f"{setup.remat_policy}, augmentation {config['augment_audio']}, batch {ACCUM} x "
+          f"{BATCH} x {batch['input_values'].shape[-1]} samples", flush=True)
     if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype) != (1024, 24, torch.bfloat16):
         fail("the setup did not build XLS-R-300M in bf16")
 
     def optimizer():
         return create_optimizer(
             learning_rate=setup.learning_rate, warmup_steps=WARMUP_STEPS, max_steps=1000,
-            adam_beta1=TRAIN_CONFIG["adam_first_momentum"],
-            adam_beta2=TRAIN_CONFIG["adam_second_momentum"],
-            max_grad_norm=TRAIN_CONFIG["max_grad_norm"], mu_dtype=TRAIN_CONFIG["adam_mu_dtype"])
+            adam_beta1=config["adam_first_momentum"], adam_beta2=config["adam_second_momentum"],
+            max_grad_norm=config["max_grad_norm"], mu_dtype=config["adam_mu_dtype"])
 
     tx, schedule = optimizer()
     state = TrainState.create(model, tx)
@@ -697,11 +800,11 @@ def training_run(card: str) -> tuple[dict, dict]:
     state, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    print(f"training main path: 1 step of {ACCUM} microbatches, launch counts {counts}",
-          flush=True)
-    for name, n in PER_MICROBATCH.items():
-        if counts.get(name, 0) < n * ACCUM:
-            fail(f"{name} launched {counts.get(name, 0)} times, expected >= {n * ACCUM}")
+    print(f"training {label} main path: 1 step of {ACCUM} microbatches, launch counts "
+          f"{counts}", flush=True)
+    expected = {name: n * ACCUM for name, n in per_microbatch.items()}
+    if counts != expected:
+        fail(f"training {label}: launch counts {counts}, expected {expected}")
     losses = [float(metrics["loss"])]
     walls = []
     torch.cuda.reset_peak_memory_stats()
@@ -712,11 +815,11 @@ def training_run(card: str) -> tuple[dict, dict]:
         losses.append(float(metrics["loss"]))  # synchronises
         walls.append(time.perf_counter() - start)
     peak = torch.cuda.max_memory_allocated()
-    print(f"training losses over {TRAIN_STEPS} steps: {[round(v, 4) for v in losses]}; "
+    print(f"training {label} losses over {TRAIN_STEPS} steps: {[round(v, 4) for v in losses]}; "
           f"last grad norm {float(metrics['grad_norm']):.6f}, learning rate "
           f"{float(metrics['learning_rate']):.6g}", flush=True)
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail("training loss not finite or not falling")
+        fail(f"training {label} loss not finite or not falling")
 
     # One step under the profiler: device time by kernel, and the busy share
     # (the union of the kernels' intervals over the step's window).
@@ -742,8 +845,8 @@ def training_run(card: str) -> tuple[dict, dict]:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()), reverse=True)
-    print(f"profile of one training step ({card}): window {window:.3f} ms (profiler on), "
-          f"device busy {busy:.3f} ms (union of {len(kernels)} kernels), busy share "
+    print(f"profile of one training {label} step ({card}): window {window:.3f} ms (profiler "
+          f"on), device busy {busy:.3f} ms (union of {len(kernels)} kernels), busy share "
           f"{busy / window:.4f}; device time by kernel:", flush=True)
     for ms, n, key in rows[:16]:
         print(f"    {ms:10.3f} ms  {n:6d}x  {key[:96]}", flush=True)
@@ -763,6 +866,8 @@ def training_run(card: str) -> tuple[dict, dict]:
         pstate, pm = pstep(pstate, batch, pgen)
         float(pm["loss"])
         pwalls.append(time.perf_counter() - start)
+    del plain, pstate, state, model
+    torch.cuda.empty_cache()
     wall = float(np.median(walls))
     metrics = {
         "train_audio_s_per_s": audio_seconds / wall,
@@ -770,14 +875,34 @@ def training_run(card: str) -> tuple[dict, dict]:
         "plain_ms_per_step": pwalls[-1] * 1e3,
         "peak_memory_gib": peak / 2**30,
         "losses": losses,
-        "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": worst,
     }
-    print(f"training ({card}): {metrics['train_audio_s_per_s']:.3f} audio-s/s "
+    print(f"training {label} ({card}): {metrics['train_audio_s_per_s']:.3f} audio-s/s "
           f"({audio_seconds:.3f} s of audio per step of {ACCUM} x {BATCH} clips); "
           f"{metrics['ms_per_step']:.3f} ms per optimizer step (median of "
           f"{len(walls)}; plain path {metrics['plain_ms_per_step']:.3f} ms); peak memory "
           f"{metrics['peak_memory_gib']:.3f} GiB", flush=True)
     return counts, metrics
+
+
+def training_run(card: str) -> dict:
+    """Training (a), (b) and (c); returns the launch counts summed over the
+    counted first steps of (b) and (c)."""
+    import tempfile
+
+    batch, audio_seconds = train_batch(0)
+    training_compare(card, batch)
+    torch.cuda.empty_cache()
+    counts_b, _ = production_run(card, "(b)", TRAIN_CONFIG, PER_MICROBATCH, batch,
+                                 audio_seconds)
+    with tempfile.TemporaryDirectory() as tmp:
+        bank = np.random.default_rng(1).standard_normal(
+            (NOISE_CLIPS, NOISE_SECONDS * SR)).astype(np.float32) * 0.1
+        np.save(Path(tmp) / "noise.npy", bank)
+        config = {**PRODUCTION_CONFIG, "background_noise_path": str(Path(tmp) / "noise.npy")}
+        counts_c, _ = production_run(card, "(c)", config, PRODUCTION_PER_MICROBATCH, batch,
+                                     audio_seconds)
+    return {name: counts_b.get(name, 0) + counts_c.get(name, 0)
+            for name in {*counts_b, *counts_c}}
 
 
 def main() -> int:
@@ -817,7 +942,7 @@ def main() -> int:
 
     serve_counts, _ = serving_run(card)
     torch.cuda.empty_cache()
-    train_counts, _ = training_run(card)
+    train_counts = training_run(card)
     if "jax" in sys.modules:
         fail("the port imported jax")
     counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0) for name in checks}

@@ -1,1 +1,2 @@
-"""Audio helpers of the serving path: z-normalisation, WAV reading, resampling."""
+"""Audio helpers: z-normalisation, WAV reading, resampling, and the train-time
+augmentation chain with its noise bank."""

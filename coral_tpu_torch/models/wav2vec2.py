@@ -8,17 +8,29 @@ the v3-stats attention with in-kernel q/k/v biases and the LN-folded FFN block.
 ``forward(..., deterministic=False, generator=...)`` is the training mode of
 the JAX model's ``deterministic=False``: SpecAugment (``_span_mask``, the time
 mask ANDed with the padding mask, the feature mask over all frames), every
-``nn.Dropout`` site, the FFN's activation dropout, ``freeze_feature_encoder``
-(the conv stack runs under ``torch.no_grad()``, the JAX ``stop_gradient``) and
-``gradient_checkpointing`` with ``nothing_saveable`` (each encoder layer under
-``torch.utils.checkpoint``). All randomness is drawn from the generator before
-the layer stack and passed in as tensors (the SpecAugment masks, and Philox
-seeds per dropout site, ``ops/philox.py``): ``torch.utils.checkpoint``
-restores only the global generators, so a layer that drew from an explicit
-generator would replay with another mask. As in the JAX model, ``layerdrop``
-is never applied, and the kernel attention applies no ``attention_dropout``
-(``coral_tpu/models/wav2vec2.py:555-583``). Training the feature encoder
-(its backward, K3 bwd) is not ported and raises.
+``nn.Dropout`` site, the FFN's activation dropout, the feature encoder with
+its gradients (FE conv 0 as a product + the ``ln_gelu`` kernel, blocks 1-6
+through the ``conv_ln_gelu`` kernels forward and backward) or frozen
+(``freeze_feature_encoder``: the conv stack runs under ``torch.no_grad()``,
+the JAX ``stop_gradient``), and ``gradient_checkpointing`` of each encoder
+layer under the JAX package's named remat policies (``REMAT_POLICIES``). All
+randomness is drawn from the generator before the layer stack and passed in
+as tensors (the SpecAugment masks, and Philox seeds per dropout site,
+``ops/philox.py``): ``torch.utils.checkpoint`` restores only the global
+generators, so a layer that drew from an explicit generator would replay with
+another mask. As in the JAX model, ``layerdrop`` is never applied, and the
+kernel attention applies no ``attention_dropout``
+(``coral_tpu/models/wav2vec2.py:555-583``).
+
+The remat policies keep the outputs they name, as ``save_only_these_names``
+does. The kernels are launched through ctypes and are no ATen ops, so
+``torch.utils.checkpoint``'s selective mode cannot see them; each layer writes
+its save and its replay instead (``_Remat``): under the non-reentrant
+checkpoint the backward runs the autograd nodes of the first forward on the
+tensors that the replay packs, so in the replay an op whose output was kept
+returns it, packs the same residuals and launches nothing. The FFN block's
+residuals are its inputs, so the replay never runs its forward, under every
+policy, as the JAX replay drops it.
 
 Parameters use PyTorch's layouts and Hugging Face's names
 (``wav2vec2.encoder.layers.3.attention.q_proj.weight`` is (out, in)), one
@@ -55,7 +67,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import short_t_attention_flat
-from ..ops.conv_ln_gelu import conv_ln_gelu, conv_ln_gelu_plain
+from ..ops.conv_ln_gelu import conv_ln_gelu
 from ..ops.ffn import ffn_ln_block
 from ..ops.ln_gelu import ln_fused, ln_gelu
 from ..ops.philox import dropout
@@ -162,13 +174,75 @@ _KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat, ffn_ln_
 _PLAIN = _Ops(
     functools.partial(ln_gelu, plain=True),
     functools.partial(ln_fused, plain=True),
-    conv_ln_gelu_plain,
+    functools.partial(conv_ln_gelu, plain=True),
     functools.partial(short_t_attention_flat, plain=True),
     functools.partial(ffn_ln_block, plain=True),
 )
 
 # Dropout sites inside an encoder layer, in the order of their seed rows.
 _ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
+
+# The JAX package's remat policies (coral_tpu/models/wav2vec2.py:774-843) by
+# the names each saves. At the production kernel flags a layer emits "attn_in"
+# (the LN1 output), "q", "k", "v" (the projections before their biases),
+# "attn_ctx" and "attn_lse" (the attention's o and lse) and "ffn_in" (the
+# residual stream into the FFN block); "ffn_act" and "ffn_hidden" exist only
+# on FFN routes the port does not take, so naming them keeps nothing.
+REMAT_POLICIES: dict[str, tuple[str, ...]] = {
+    "nothing_saveable": (),
+    "save_matmul_inputs": ("attn_in", "q", "k", "v", "attn_ctx", "ffn_in"),
+    "save_attn_ctx": ("attn_ctx",),
+    "save_ctx_act": ("attn_ctx", "ffn_act"),
+    "save_attn_ctx_lse": ("attn_ctx", "attn_lse"),
+    "save_qkv_ctx": ("q", "k", "v", "attn_ctx", "attn_lse"),
+    "save_qk_ctx": ("q", "k", "attn_ctx", "attn_lse"),
+    "save_matmul_inputs_ffn": ("attn_in", "q", "k", "v", "attn_ctx", "ffn_in", "ffn_hidden",
+                               "ffn_act"),
+}
+
+
+def remat_names(policy: str) -> frozenset[str]:
+    """The names ``policy`` keeps; raises for a policy the port does not have."""
+    if policy == "dots_saveable":
+        raise NotImplementedError(
+            "remat_policy='dots_saveable' (keep every product's output): "
+            + NOT_PORTED.format("5c")
+        )
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat_policy {policy!r}; choose from "
+                         f"{sorted(REMAT_POLICIES)} or 'dots_saveable'")
+    return frozenset(REMAT_POLICIES[policy])
+
+
+class _Remat:
+    """One layer's checkpoint under a named policy.
+
+    The layer runs twice under ``torch.utils.checkpoint``: the forward, where
+    ``keep`` holds on to the outputs the policy names, and the replay in the
+    backward, where ``saved`` hands each kept output back to the op that made
+    it, which then packs its residuals and launches nothing. The attention's o
+    is kept only together with its lse: the backward kernel reads both, so
+    with one of them missing the forward kernel runs in the replay anyway (the
+    JAX setup's warning for ``save_attn_ctx``).
+    """
+
+    def __init__(self, names: frozenset[str]) -> None:
+        if not {"attn_ctx", "attn_lse"} <= names:
+            names = names - {"attn_ctx", "attn_lse"}
+        self.names = names
+        self.kept: dict[str, torch.Tensor] = {}
+        self.replaying = False
+
+    def keep(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        if not self.replaying and name in self.names:
+            self.kept[name] = t.detach()
+        return t
+
+    def saved(self, name: str) -> torch.Tensor | None:
+        return self.kept.get(name) if self.replaying else None
+
+
+_NO_REMAT = _Remat(frozenset())  # no checkpoint: nothing kept, nothing replayed
 
 
 class Randomness(NamedTuple):
@@ -226,6 +300,39 @@ def _dropout(x, rate: float, seeds):
 
 def _linear(x, layer: nn.Linear, dtype, bias: bool = True):
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype) if bias else None)
+
+
+class _Projection(torch.autograd.Function):
+    """``F.linear(x, w, b)`` whose product a checkpoint replay can skip: given
+    ``saved`` (a kept output, or a stand-in the replay never reads) it returns
+    that and packs the same residuals (x, w). The backward is the product's:
+    ``dx = dy w``, ``dw = dy^T x``, ``db`` the column sums of dy. Only a
+    product whose output the policy keeps goes through it: elsewhere
+    ``F.linear`` keeps autograd's own node, with no Python in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, saved):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return F.linear(x, w, b) if saved is None else saved.detach()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = torch.matmul(dy, w) if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(dy2.t(), x.reshape(-1, x.shape[-1]))
+        return dx, dw, dy2.sum(0) if ctx.has_bias else None, None
+
+
+def _project(x, layer: nn.Linear, dtype, remat: _Remat, name: str, bias: bool = True,
+             saved=None):
+    """The projection ``layer`` of x, skippable in a replay when ``remat``
+    keeps ``name``."""
+    if name not in remat.names:
+        return _linear(x, layer, dtype, bias)
+    return _Projection.apply(x, layer.weight.to(dtype),
+                             layer.bias.to(dtype) if bias else None, saved)
 
 
 def _conv1d(x, weight, bias, stride: int, dtype):
@@ -346,14 +453,23 @@ class Attention(nn.Module):
         self.rate = config.hidden_dropout
         self.ops = ops
 
-    def forward(self, x, pad_mask, seeds=None):
+    def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
         dt = self.dtype
-        q, k, v = (_linear(x, p, dt, bias=False) for p in (self.q_proj, self.k_proj, self.v_proj))
-        o, _ = self.ops.attention(
+        q, k, v = (remat.keep(n, _project(x, p, dt, remat, n, bias=False, saved=remat.saved(n)))
+                   for n, p in (("q", self.q_proj), ("k", self.k_proj), ("v", self.v_proj)))
+        saved = remat.saved("attn_ctx")
+        o, lse = self.ops.attention(
             q, k, v, pad_mask, self.head_dim,
             (self.q_proj.bias, self.k_proj.bias, self.v_proj.bias),
+            saved=None if saved is None else (saved, remat.saved("attn_lse")),
         )
-        return _dropout(_linear(o, self.out_proj, dt), self.rate, seeds)
+        remat.keep("attn_ctx", o)
+        remat.keep("attn_lse", lse)
+        # A kept "ffn_in" is the replay's residual stream: it reads no output
+        # of the out projection, which then only packs its residuals.
+        unread = None if remat.saved("ffn_in") is None else torch.empty_like(o)
+        return _dropout(_project(o, self.out_proj, dt, remat, "ffn_in", saved=unread),
+                        self.rate, seeds)
 
 
 class FeedForward(nn.Module):
@@ -368,14 +484,17 @@ class FeedForward(nn.Module):
         self.activation_rate = config.activation_dropout
         self.rate = config.hidden_dropout
 
-    def forward(self, x, ln: nn.LayerNorm, act_seeds=None, out_seeds=None):
+    def forward(self, x, ln: nn.LayerNorm, act_seeds=None, out_seeds=None,
+                replay: bool = False):
         """act_seeds: (B,) seeds of the activation dropout (None: rate 0, the
-        deterministic forward); out_seeds: those of the hidden dropout."""
+        deterministic forward); out_seeds: those of the hidden dropout;
+        replay: a checkpoint replay, which reads no output of the block."""
         fc1, fc2 = self.intermediate_dense, self.output_dense
         rate = self.activation_rate if act_seeds is not None else 0.0
         x = self.block(
             x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias, ln.eps,
             rate, act_seeds if rate > 0.0 else None,
+            saved=torch.empty_like(x) if replay else None,
         )
         return _dropout(x, self.rate, out_seeds)
 
@@ -391,13 +510,21 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
         self.ops = ops
 
-    def forward(self, x, pad_mask, seeds=None):
-        """seeds: (3, B) int32, this layer's dropout seeds (None: deterministic)."""
+    def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
+        """seeds: (3, B) int32, this layer's dropout seeds (None: deterministic);
+        remat: this layer's checkpoint record (``_Remat``)."""
         ln = self.layer_norm
         s = [None] * 3 if seeds is None else seeds
-        x = x + self.attention(self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps), pad_mask,
-                               s[_ATTN_OUT])
-        return x + self.feed_forward(x, self.final_layer_norm, s[_FFN_ACT], s[_FFN_OUT])
+        attn_in = remat.keep("attn_in", self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps,
+                                                          saved=remat.saved("attn_in")))
+        h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat)
+        ffn_in = remat.saved("ffn_in")
+        if ffn_in is None:
+            ffn_in = remat.keep("ffn_in", x + h)
+        out = ffn_in + self.feed_forward(ffn_in, self.final_layer_norm, s[_FFN_ACT],
+                                         s[_FFN_OUT], replay=remat.replaying)
+        remat.replaying = remat is not _NO_REMAT
+        return out
 
 
 class Encoder(nn.Module):
@@ -412,9 +539,11 @@ class Encoder(nn.Module):
         )
         self.dtype = config.dtype
         self.rate = config.hidden_dropout
-        # Recompute each layer's forward in the backward (the JAX
-        # ``nn.remat(..., policy=nothing_saveable)``); set by the train setup.
+        # Replay each layer's forward in the backward, keeping what the
+        # policy names (the JAX ``nn.remat(..., policy=...)``); both are set
+        # by the train setup.
         self.gradient_checkpointing = False
+        self.remat_policy = "nothing_saveable"
 
     def forward(self, x, pad_mask, rnd: Randomness | None = None):
         # Zero padded frames first so padding cannot smear into valid frames
@@ -423,10 +552,11 @@ class Encoder(nn.Module):
         x = x + self.pos_conv_embed(x)
         x = _dropout(x, self.rate, None if rnd is None else rnd.encoder)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
+        names = remat_names(self.remat_policy) if remat else frozenset()
         for i, layer in enumerate(self.layers):
             seeds = None if rnd is None else rnd.layers[i]
             if remat:
-                x = torch.utils.checkpoint.checkpoint(layer, x, pad_mask, seeds,
+                x = torch.utils.checkpoint.checkpoint(layer, x, pad_mask, seeds, _Remat(names),
                                                       use_reentrant=False)
             else:
                 x = layer(x, pad_mask, seeds)
@@ -457,13 +587,6 @@ class Wav2Vec2Model(nn.Module):
             with torch.no_grad():
                 feats = self.feature_extractor(input_values)
         else:
-            if torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.feature_extractor.parameters()
-            ):
-                raise NotImplementedError(
-                    "gradients through the feature encoder (freeze_feature_encoder="
-                    "False; its backward, K3 bwd): " + NOT_PORTED.format("5b")
-                )
             feats = self.feature_extractor(input_values)
         frame_lengths = self.config.feat_extract_output_lengths(input_lengths)
         T_out = feats.shape[1]

@@ -46,8 +46,11 @@ _SIGNATURES = {
     # x, gamma, beta, dy, dx, part, rows, C, blocks, x_bf16, dy_bf16,
     # apply_gelu, eps, stream
     "coral_ln_bwd": [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _F, _P],
-    # x, w, bias, gamma, beta, y, B, T_in, T_out, C, K, eps, stream
-    "coral_conv_ln_gelu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, C, K, eps, stream
+    "coral_conv_ln_gelu": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
+    # T_out, C, K, row_blocks, chunk, n_chunks, stream
+    "coral_conv_ln_gelu_bwd": [_P] * 11 + [_I] * 8 + [_P],
     # q, k, v, bq, bk, bv, key_bias, o, lse, B, T, H, stride_b, stride_t,
     # scale, stream
     "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _LL, _LL, _F, _P],

@@ -173,13 +173,18 @@ def attention_bwd(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int,
 class _Attention(torch.autograd.Function):
     """``_attention_stats_v3_qb``: residuals (q, k, v, bq, bk, bv, key_bias,
     lse, o), the backward kernels, and bias gradients as the column sums cast
-    to the working dtype (``dbsum.astype(bq.dtype)``), then to each bias's."""
+    to the working dtype (``dbsum.astype(bq.dtype)``), then to each bias's.
+    Given ``saved`` (the (o, lse) a remat policy kept), the forward returns
+    them without a launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bq, bk, bv, key_bias, head_dim, sm_scale, plain):
+    def forward(ctx, q, k, v, bq, bk, bv, key_bias, head_dim, sm_scale, plain, saved):
         qb, kb, vb = (b.to(q.dtype) for b in (bq, bk, bv))
-        fwd = _fwd_plain if plain else _fwd
-        o, lse = fwd(q, k, v, qb, kb, vb, key_bias, head_dim, sm_scale)
+        if saved is not None:
+            o, lse = (t.detach() for t in saved)
+        else:
+            fwd = _fwd_plain if plain else _fwd
+            o, lse = fwd(q, k, v, qb, kb, vb, key_bias, head_dim, sm_scale)
         ctx.save_for_backward(q, k, v, qb, kb, vb, key_bias, lse, o)
         ctx.head_dim, ctx.sm_scale, ctx.plain = head_dim, sm_scale, plain
         ctx.bias_dtypes = (bq.dtype, bk.dtype, bv.dtype)
@@ -193,11 +198,11 @@ class _Attention(torch.autograd.Function):
         dq, dk, dv, db = bwd(q, k, v, qb, kb, vb, key_bias, do.contiguous(), lse, o,
                              ctx.head_dim, ctx.sm_scale)
         dbs = [db[i].to(q.dtype).to(dtype) for i, dtype in enumerate(ctx.bias_dtypes)]
-        return dq, dk, dv, *dbs, None, None, None, None
+        return dq, dk, dv, *dbs, None, None, None, None, None
 
 
 def short_t_attention_flat(q, k, v, pad_mask, head_dim: int, qkv_bias,
-                           sm_scale: float | None = None, plain: bool = False):
+                           sm_scale: float | None = None, plain: bool = False, saved=None):
     """``softmax((q + bq) (k + bk)^T * scale + key_bias) (v + bv)`` per head,
     differentiable in q, k, v and the biases.
 
@@ -211,6 +216,7 @@ def short_t_attention_flat(q, k, v, pad_mask, head_dim: int, qkv_bias,
         sm_scale: score scale, default head_dim ** -0.5 (rounded to q.dtype
             before use, as the JAX kernel does).
         plain: run the plain versions (forward and backward) on any device.
+        saved: the (o, lse) a checkpoint replay already holds (no launch).
 
     Returns:
         (o, lse): o (B, T, H*head_dim) in q.dtype, lse (B, H, T) fp32.
@@ -218,4 +224,4 @@ def short_t_attention_flat(q, k, v, pad_mask, head_dim: int, qkv_bias,
     if sm_scale is None:
         sm_scale = float(head_dim) ** -0.5
     return _Attention.apply(q, k, v, *qkv_bias, _key_bias(pad_mask), head_dim, sm_scale,
-                            plain)
+                            plain, saved)

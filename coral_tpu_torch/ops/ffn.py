@@ -191,12 +191,16 @@ class _FFNBlock(torch.autograd.Function):
     (``ffn_pallas.py:1760``); the backward is the kernels above plus the
     outside products ``dW1 = dh^T ln_out`` and ``dW2 = dy^T g`` (rounded to
     the working dtype, as ``.astype(w1.dtype)`` of the bf16 copies) and
-    ``db2 = sum(dy)``."""
+    ``db2 = sum(dy)``. Since no residual comes from the forward, a checkpoint
+    replay passes ``saved`` (a tensor it never reads) and nothing runs, as
+    the JAX replay drops the block's forward."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, gamma, beta, w2, b2, seeds, rate, eps, plain):
+    def forward(ctx, x, w1, b1, gamma, beta, w2, b2, seeds, rate, eps, plain, saved):
         ctx.save_for_backward(x, w1, b1, gamma, beta, w2, seeds)
         ctx.rate, ctx.eps, ctx.plain, ctx.b2_dtype = rate, eps, plain, b2.dtype
+        if saved is not None:
+            return saved.detach()
         fc1 = ffn_ln_fc1_plain if plain else ffn_ln_fc1
         g = fc1(x, w1, b1.float(), gamma.float(), beta.float(), eps, rate, seeds)
         return _fc2(g, w2, b2)
@@ -217,11 +221,11 @@ class _FFNBlock(torch.autograd.Function):
         db2 = dy2.float().sum(0)
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dgamma.to(gamma.dtype),
                 dbeta.to(beta.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None, None,
-                None)
+                None, None)
 
 
 def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float = 0.0,
-                 seeds=None, plain: bool = False):
+                 seeds=None, plain: bool = False, saved=None):
     """The whole pre-LN FFN, differentiable.
 
     Args:
@@ -229,6 +233,8 @@ def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float 
         w1: (F, D); b1: (F,); gamma, beta: (D,); w2: (D, F); b2: (D,).
         rate: activation-dropout rate; seeds: (B,) int32 when rate > 0.
         plain: run the plain versions (forward and backward) on any device.
+        saved: a checkpoint replay's stand-in for the output, which it does
+            not read (no launch).
 
     Returns:
         (B, T, D) in ``x.dtype`` (the residual add stays outside).
@@ -236,5 +242,5 @@ def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float 
     if rate > 0.0 and seeds is None:
         raise ValueError("ffn_ln_block: dropout needs seeds")
     return _FFNBlock.apply(x, w1, b1, gamma, beta, w2, b2, seeds, float(rate), float(eps),
-                           plain)
+                           plain, saved)
 

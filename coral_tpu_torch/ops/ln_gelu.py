@@ -119,12 +119,16 @@ def ln_bwd(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
 
 
 class _LayerNorm(torch.autograd.Function):
-    """``_ln_gelu``'s custom VJP: residuals (x, gamma, beta), backward kernel."""
+    """``_ln_gelu``'s custom VJP: residuals (x, gamma, beta), backward kernel.
+    Given ``saved`` (the output a remat policy kept), the forward returns it
+    without a launch."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, apply_gelu, plain):
+    def forward(ctx, x, gamma, beta, eps, apply_gelu, plain, saved):
         ctx.save_for_backward(x, gamma, beta)
         ctx.eps, ctx.apply_gelu, ctx.plain = eps, apply_gelu, plain
+        if saved is not None:
+            return saved.detach()
         fwd = ln_gelu_plain if plain else _ln
         return fwd(x, gamma.float(), beta.float(), eps, apply_gelu)
 
@@ -134,7 +138,7 @@ class _LayerNorm(torch.autograd.Function):
         bwd = ln_bwd_plain if ctx.plain else ln_bwd
         dx, dg, db = bwd(x, gamma.float(), beta.float(), dy.contiguous(), ctx.eps,
                          ctx.apply_gelu)
-        return dx, dg.to(gamma.dtype), db.to(beta.dtype), None, None, None
+        return dx, dg.to(gamma.dtype), db.to(beta.dtype), None, None, None, None
 
 
 def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False):
@@ -148,9 +152,10 @@ def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False):
     Returns:
         Same shape and dtype as ``x``.
     """
-    return _LayerNorm.apply(x, gamma, beta, eps, True, plain)
+    return _LayerNorm.apply(x, gamma, beta, eps, True, plain, None)
 
 
-def ln_fused(x, gamma, beta, eps: float = _EPS, plain: bool = False):
-    """Plain LayerNorm through the same kernels, without the GELU."""
-    return _LayerNorm.apply(x, gamma, beta, eps, False, plain)
+def ln_fused(x, gamma, beta, eps: float = _EPS, plain: bool = False, saved=None):
+    """Plain LayerNorm through the same kernels, without the GELU; ``saved``
+    is the output a checkpoint replay already holds (no launch)."""
+    return _LayerNorm.apply(x, gamma, beta, eps, False, plain, saved)

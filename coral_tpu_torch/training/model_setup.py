@@ -1,14 +1,15 @@
 """Model setup: config -> tokenizer + seeded model + greedy predictor + train step.
 
 Port of ``coral_tpu/training/model_setup.py`` ``Wav2Vec2Setup``: the
-tokenizer, ``_infer_arch``, the training fields of the config (:125-293),
+tokenizer, ``_infer_arch``, the training fields of the config (:125-293) with
+the remat policy and its warnings, ``_augmentation_settings`` (:78-98),
 ``init_params``, ``make_predictor`` and ``make_train_step`` (:326-341), the
-wav2vec2-CTC step with the feature encoder frozen. What is not ported raises
+wav2vec2-CTC step with the feature encoder trained or frozen, the named remat
+policies and the augmentation chain. What is not ported raises
 ``NotImplementedError`` naming its ROADMAP item rather than running something
 else in silence: beam search with an n-gram LM, Whisper, loading a checkpoint,
-and in training the feature encoder's backward (``freeze_feature_encoder:
-false``), the augmentation chain (``augment_audio: true``), any remat policy
-but ``nothing_saveable``, and more than one device.
+and in training the ``dots_saveable`` policy, ``remat_feature_encoder: true``
+and more than one device.
 
 Configs are plain mappings with the keys of the JAX package's config surface
 (``config["model"]["pretrained_model_id"]`` and so on).
@@ -27,7 +28,9 @@ import torch
 from coral_tpu.text.tokenizer import CtcTokenizer
 
 from ..audio.features import znorm
-from ..models.wav2vec2 import NOT_PORTED, Wav2Vec2Config, Wav2Vec2ForCTC, build_model
+from ..audio.noise_bank import download_background_noises, load_noise_bank
+from ..models.wav2vec2 import (NOT_PORTED, Wav2Vec2Config, Wav2Vec2ForCTC, build_model,
+                               remat_names)
 
 logger = logging.getLogger(__package__)
 
@@ -85,6 +88,27 @@ def _find_local_checkpoint(pretrained_model_id: str | None) -> Path | None:
     return None
 
 
+def _augmentation_settings(config: Mapping[str, Any],
+                           is_main: bool) -> tuple[bool, np.ndarray | None]:
+    """Resolve train-time augmentation (the reference trains with the
+    augmentation chain on; ``src/coral/data.py:246-258``) and the optional
+    noise bank."""
+    augment = bool(config.get("augment_audio", True))
+    noise_bank = None
+    noise_path = config.get("background_noise_path")
+    if augment and noise_path is None and config.get("download_noise", False):
+        noise_path = download_background_noises(
+            Path(config.get("cache_dir") or Path.home() / ".cache/coral_tpu")
+        )
+    if augment and noise_path:
+        noise_bank = load_noise_bank(
+            noise_path, sample_rate=int(config["model"]["sampling_rate"])
+        )
+        if noise_bank is not None and is_main:
+            logger.info(f"Background-noise bank: {noise_bank.shape}")
+    return augment, noise_bank
+
+
 class GreedyCtcPredictor:
     """Host batch -> transcripts: z-norm, the model, greedy argmax and the CTC
     collapse of ``CtcTokenizer.decode`` (the JAX ``make_ctc_eval_step`` plus
@@ -115,8 +139,7 @@ class GreedyCtcPredictor:
 
 
 class Wav2Vec2Setup:
-    """wav2vec2-CTC family: serving, and the train step with a frozen feature
-    encoder."""
+    """wav2vec2-CTC family: serving and the train step."""
 
     def __init__(self, config: Mapping[str, Any], is_main: bool = True,
                  device: str | torch.device = "cpu") -> None:
@@ -145,16 +168,33 @@ class Wav2Vec2Setup:
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
         )
         self.config = config
+        self.is_main = is_main
         self.blank_id = self.tokenizer.pad_token_id
         self.ctc_loss_reduction = model_cfg.get("ctc_loss_reduction", "sum")
         self.freeze_feature_encoder = bool(model_cfg.get("freeze_feature_encoder", False))
         self.learning_rate = float(model_cfg.get("learning_rate", 1e-4))
         self.grad_dtype = config.get("grad_dtype", "bfloat16")
         self.gradient_checkpointing = bool(config.get("gradient_checkpointing", True))
-        # As the JAX setup: model.remat_policy wins over the top-level key.
+        # As the JAX setup: model.remat_policy wins over the top-level key,
+        # and the default is save_qk_ctx.
         self.remat_policy = model_cfg.get(
             "remat_policy", config.get("remat_policy", "save_qk_ctx")
         )
+        if self.remat_policy == "save_ctx_act":
+            # The FFN block emits no "ffn_act" (its residuals are its inputs).
+            logger.warning(
+                "remat_policy=save_ctx_act with fused_ffn_block degrades to "
+                "save_attn_ctx (the FFN block emits no 'ffn_act' checkpoint)."
+            )
+        if self.remat_policy in ("save_attn_ctx", "save_ctx_act"):
+            # The v3 attention's backward reads its lse, which these policies
+            # do not save, so the replay runs the attention forward again.
+            logger.warning(
+                f"remat_policy={self.remat_policy} with attention_save_stats "
+                "forces an attention forward replay to rebuild the unsaved "
+                "lse residual; use remat_policy=save_attn_ctx_lse (default) "
+                "or nothing_saveable with the stats variants."
+            )
         self.audio_pad_seconds = float(config["max_seconds_per_example"])
         pretrained = model_cfg.get("pretrained_model_id")
         ckpt = _find_local_checkpoint(pretrained)
@@ -187,6 +227,7 @@ class Wav2Vec2Setup:
         """A randomly initialised model on the setup's device, from ``seed``."""
         model = build_model(self.model_config, self.device, seed=seed)
         model.wav2vec2.encoder.gradient_checkpointing = self.gradient_checkpointing
+        model.wav2vec2.encoder.remat_policy = self.remat_policy
         return model
 
     def make_train_step(self, tx, schedule) -> Callable:
@@ -195,20 +236,12 @@ class Wav2Vec2Setup:
         from .train_state import make_ctc_train_step
 
         cfg = self.config
-        if not self.freeze_feature_encoder:
+        if self.gradient_checkpointing:
+            remat_names(self.remat_policy)  # raises for dots_saveable
+        if bool(cfg.get("remat_feature_encoder", False)):
             raise NotImplementedError(
-                "freeze_feature_encoder=false (the feature-encoder backward, K3 bwd): "
-                + NOT_PORTED.format("5b")
-            )
-        if bool(cfg.get("augment_audio", True)):
-            raise NotImplementedError(
-                "augment_audio=true (the augmentation chain and its noise bank): "
-                + NOT_PORTED.format("5b")
-            )
-        if self.gradient_checkpointing and self.remat_policy != "nothing_saveable":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} (the port implements "
-                "'nothing_saveable'): " + NOT_PORTED.format("5b")
+                "remat_feature_encoder=true (replay the conv stack in the backward): "
+                + NOT_PORTED.format("9 (off-default kernel flags)")
             )
         mesh = cfg.get("mesh")
         if bool(cfg.get("distributed", False)) or (
@@ -217,10 +250,13 @@ class Wav2Vec2Setup:
             raise NotImplementedError(
                 "training on more than one device: " + NOT_PORTED.format("7")
             )
+        augment, noise_bank = _augmentation_settings(cfg, self.is_main)
         return make_ctc_train_step(
             tx, schedule, blank_id=self.blank_id,
             ctc_loss_reduction=self.ctc_loss_reduction,
             freeze_feature_encoder=self.freeze_feature_encoder,
+            augment=augment,
+            noise_bank=noise_bank,
             # bf16 gradient buffers over fp32 masters, the JAX default;
             # `grad_dtype: float32` opts out.
             grad_dtype=self.grad_dtype,

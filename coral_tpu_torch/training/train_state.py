@@ -2,11 +2,14 @@
 
 Port of ``coral_tpu/training/train_state.py`` (``_device_audio`` :28,
 ``TrainState`` :35, ``make_ctc_train_step`` :51-183) for one device. Per
-microbatch: z-norm, the model in training mode, fp32 log-softmax, the CTC
-loss (sum divided by the microbatch size); gradients accumulate in fp32 over
-the A microbatches and are divided by A; then the optimizer step, and the
-metrics ``loss``, ``grad_norm`` (of the unclipped gradients) and
-``learning_rate`` (``schedule(state.step)`` before the increment).
+microbatch: the augmentation chain (``augment=True``, ``audio/augment.py``,
+with the background-noise bank when one is given), z-norm, the model in
+training mode, fp32 log-softmax, the CTC loss (sum divided by the microbatch
+size); gradients accumulate in fp32 over the A microbatches and are divided by
+A; then the optimizer step, and the metrics ``loss``, ``grad_norm`` (of the
+unclipped gradients) and ``learning_rate`` (``schedule(state.step)`` before
+the increment). The step's augmentation draws come from its generator first,
+for all A microbatches, before the model runs.
 
 ``grad_dtype="bfloat16"`` differentiates with respect to bf16 copies of the
 fp32 master parameters, as the JAX step does: the model's own parameters are
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..audio.augment import apply_augmentation, draw_augmentation
 from ..audio.features import znorm
 from ..ops.ctc import ctc_loss
 from .optimizer import AdamW, AdamWState, global_norm
@@ -76,24 +80,34 @@ def _load_work_params(model: nn.Module, masters: Mapping[str, torch.Tensor],
 def ctc_loss_and_grads(model: nn.Module, batch: Mapping[str, torch.Tensor],
                        generator: torch.Generator, blank_id: int,
                        ctc_loss_reduction: str = "sum",
-                       freeze_feature_encoder: bool = False):
+                       freeze_feature_encoder: bool = False, augment: bool = False,
+                       noise_bank: torch.Tensor | None = None):
     """The accumulated loss and gradients of one optimizer step.
 
-    ``batch`` holds (A, ...) tensors on the model's device. Returns (the mean
-    of the A microbatch losses, fp32 gradients by parameter name divided by
-    A, zeros where a parameter got none).
+    ``batch`` holds (A, ...) tensors on the model's device; ``noise_bank`` an
+    (N, T) tensor there, or None. Returns (the mean of the A microbatch
+    losses, fp32 gradients by parameter name divided by A, zeros where a
+    parameter got none).
     """
     named = dict(model.named_parameters())
     grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for n, p in named.items()}
-    num_micro = batch["input_values"].shape[0]
-    loss_sum = torch.zeros((), dtype=torch.float32, device=batch["input_values"].device)
+    num_micro, B, T = batch["input_values"].shape
+    device = batch["input_values"].device
+    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    draws = [None] * num_micro
+    if augment:
+        bank_shape = None if noise_bank is None else tuple(noise_bank.shape)
+        draws = [draw_augmentation(B, T, generator, device, bank_shape)
+                 for _ in range(num_micro)]
     for a in range(num_micro):
         for p in named.values():
             p.grad = None
         mb = {k: v[a] for k, v in batch.items()}
         audio = _device_audio(mb["input_values"])
         lengths = mb["input_lengths"]
+        if augment:
+            audio = apply_augmentation(audio.float(), lengths, draws[a], noise_bank)
         # On-device z-norm, then the model in training mode.
         logits, frame_lengths = model(
             znorm(audio.float(), lengths), lengths, deterministic=False,
@@ -127,6 +141,8 @@ def make_ctc_train_step(
     blank_id: int,
     ctc_loss_reduction: str = "sum",
     freeze_feature_encoder: bool = False,
+    augment: bool = False,
+    noise_bank: np.ndarray | torch.Tensor | None = None,
     grad_dtype: str | None = None,
 ) -> Callable:
     """The train step ``(state, batch, generator) -> (state, metrics)``.
@@ -135,17 +151,23 @@ def make_ctc_train_step(
     ``input_lengths (A, B)``, ``labels (A, B, L)`` and ``label_lengths
     (A, B)`` (numpy arrays or tensors), with A the accumulation microbatches.
     ``generator`` (a ``torch.Generator`` on the model's device) is the source
-    of every dropout mask and SpecAugment span of the step.
+    of every augmentation draw, dropout mask and SpecAugment span of the step.
+    ``noise_bank`` (N, T) goes to the device at the first step and stays.
     """
     work_dtype = getattr(torch, grad_dtype) if grad_dtype else None
+    bank = None
 
     def train_step(state: TrainState, batch: Mapping[str, Any], generator: torch.Generator):
+        nonlocal bank
         device = next(iter(state.params.values())).device
         batch = {k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(device)
                  for k, v in batch.items()}
+        if augment and noise_bank is not None and bank is None:
+            bank = torch.as_tensor(noise_bank, dtype=torch.float32).to(device)
         _load_work_params(state.model, state.params, work_dtype)
         loss, grads = ctc_loss_and_grads(state.model, batch, generator, blank_id,
-                                         ctc_loss_reduction, freeze_feature_encoder)
+                                         ctc_loss_reduction, freeze_feature_encoder, augment,
+                                         bank)
         metrics = {
             "loss": loss,
             "grad_norm": global_norm(list(grads.values())),

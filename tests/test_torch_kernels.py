@@ -248,6 +248,85 @@ def test_ffn_bwd_kernel_matches_plain(cuda, rate):
         _close_rel(g, w, 1e-2)
 
 
+def _conv_inputs(cuda, k, T_in, B=2):
+    C = 512
+    x = _on(cuda, _np(B, T_in, C, seed=0), torch.bfloat16)
+    w = _on(cuda, _np(C, C, k, seed=1, scale=0.05), torch.bfloat16)
+    b, gamma, beta = (_on(cuda, _np(C, seed=s, scale=0.1, offset=o))
+                      for s, o in ((2, 0.0), (3, 1.0), (4, 0.0)))
+    return x, w, b, gamma, beta
+
+
+@pytest.mark.parametrize("k,T_in", [(3, 1001), (2, 258), (3, 1025)])
+def test_conv_train_forward_kernel_matches_plain(cuda, k, T_in):
+    """The training launch: y as the serving launch, plus xhat (bf16) and
+    rstd (fp32)."""
+    args = _conv_inputs(cuda, k, T_in)
+    _build.reset_launch_counts()
+    y, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(*args)
+    assert _build.launch_counts == {"conv_ln_gelu_train": 1}
+    want = conv_ln_gelu.conv_ln_gelu_fwd_plain(*args)
+    assert xhat.dtype == torch.bfloat16 and rstd.dtype == torch.float32
+    _close(y, want[0], 1e-2)
+    _close(xhat, want[1], 1e-2)
+    torch.testing.assert_close(rstd, want[2], rtol=1e-4, atol=0.0)
+    assert torch.equal(y, conv_ln_gelu.conv_ln_gelu_fwd(*args, residuals=False)[0])
+
+
+@pytest.mark.parametrize("k,T_in", [(3, 1101), (3, 1102), (2, 999), (3, 1025), (2, 5)])
+def test_conv_bwd_kernel_matches_plain(cuda, k, T_in):
+    """dx, dW and (dgamma, dbeta, dbias) against the plain formula; ragged
+    tiles of rows and of dW chunks, and input rows that no output reads (past
+    2 (T_out - 1) + k - 1) come out exactly 0 even where the allocator hands
+    back memory full of NaN."""
+    x, w, b, gamma, beta = _conv_inputs(cuda, k, T_in)
+    _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)
+    dy = _on(cuda, _np(*xhat.shape, seed=5), torch.bfloat16)
+    torch.full((4 * x.numel(),), float("nan"), device=cuda)  # freed: dirty memory
+    _build.reset_launch_counts()
+    got = conv_ln_gelu.conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, dy)
+    assert _build.launch_counts == {"conv_ln_gelu_bwd": 1}
+    want = conv_ln_gelu.conv_ln_gelu_bwd_plain(x, w, gamma, beta, xhat, rstd, dy)
+    assert got[0].shape == x.shape and got[1].shape == w.shape and got[2].shape == (3, 512)
+    _close_rel(got[0], want[0])
+    _close_rel(got[1], want[1])
+    _close_rel(got[2], want[2], 1e-2)
+    read = 2 * (xhat.shape[1] - 1) + k
+    assert not got[0][:, read:].any() and not want[0][:, read:].any()
+
+
+def test_conv_autograd_kernel_path_matches_plain(cuda):
+    """The Function around the kernels: every input gets its gradient, in its
+    own dtype."""
+    args = _conv_inputs(cuda, 3, 777)
+    dy = _on(cuda, _np(2, 388, 512, seed=6), torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        conv_ln_gelu.conv_ln_gelu(*leaves, plain=plain).backward(dy)
+        grads.append([t.grad for t in leaves])
+    for i, (g, w) in enumerate(zip(*grads)):
+        assert g.dtype == args[i].dtype
+        _close_rel(g, w, 1e-2 if i >= 2 else 2e-2)
+
+
+def test_conv_bwd_rejects_what_it_does_not_take(cuda):
+    x, w, b, gamma, beta = _conv_inputs(cuda, 3, 101)
+    _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)
+    with pytest.raises(ValueError, match="C_in = C_out = 512"):
+        conv_ln_gelu.conv_ln_gelu_bwd(x[..., :256].contiguous(), w[:256, :256].contiguous(),
+                                      gamma[:256], beta[:256], xhat[..., :256].contiguous(),
+                                      rstd, xhat[..., :256].contiguous())
+    with pytest.raises(TypeError):  # fp32 dy: the kernel takes bf16
+        conv_ln_gelu.conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, xhat.float())
+    with pytest.raises(ValueError, match="k=5"):
+        conv_ln_gelu.conv_ln_gelu_bwd(x, torch.zeros(512, 512, 5, device=cuda), gamma, beta,
+                                      xhat, rstd, xhat)
+    with pytest.raises(ValueError, match="xhat and dy"):
+        conv_ln_gelu.conv_ln_gelu_bwd(x, w, gamma, beta, xhat[:, 1:].contiguous(), rstd,
+                                      xhat[:, 1:].contiguous())
+
+
 def _ctc_inputs(cuda, T=100, B=4, L=20, V=30):
     rng = np.random.default_rng(0)
     log_probs = torch.log_softmax(_on(cuda, _np(T, B, V, seed=1) * 3), dim=-1)

@@ -127,6 +127,66 @@ def test_conv_ln_gelu_matches_jax_interpret(k, T_in):
     _close(got, want)
 
 
+@pytest.mark.parametrize("k,T_in", [(3, 1101), (2, 999)])
+def test_conv_ln_gelu_training_forward_matches_jax_interpret(k, T_in):
+    """The training launch's residuals: xhat (pre-affine, in x.dtype) and the
+    fp32 rstd, against ``_fwd_pallas`` in interpret mode."""
+    x, w, b, gamma, beta = _conv_inputs(k, 2, T_in, 128)
+    want = jcg._fwd_pallas(*map(jnp.asarray, (x, w, b, gamma, beta)), k, 1e-5, True)
+    got = conv_ln_gelu.conv_ln_gelu_fwd(_t(x), _t(w.transpose(2, 1, 0)), _t(b), _t(gamma),
+                                        _t(beta))
+    for g, wnt in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g.reshape(wnt.shape), wnt)
+
+
+def _conv_grads(x, w, b, gamma, beta, dy):
+    """The port's gradients of every input, in the JAX layout (dW (k, C_in,
+    C_out))."""
+    args = [_t(a).requires_grad_(True)
+            for a in (x, w.transpose(2, 1, 0), b, gamma, beta)]
+    conv_ln_gelu.conv_ln_gelu(*args).backward(_t(dy))
+    grads = [a.grad for a in args]
+    grads[1] = grads[1].permute(2, 1, 0)
+    return grads
+
+
+def _close_conv_grads(got, want):
+    _close(got[0], want[0])
+    for g, wnt in zip(got[1:], want[1:]):
+        _close(g, wnt, atol=ATOL_SUM, rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,T_in", [(3, 1101), (3, 1102), (2, 999)])
+def test_conv_ln_gelu_bwd_matches_jax_interpret(k, T_in):
+    """Every gradient against ``jax.vjp`` of ``_conv_ln_gelu``, whose backward
+    runs ``_bwd_pallas`` and ``_halo_fixup`` in interpret mode: ragged last
+    256-row slabs, the k = 3 row that crosses a slab, and input rows that no
+    output reads (T_in 1102 at k = 3, 999 at k = 2), whose dx is 0."""
+    x, w, b, gamma, beta = _conv_inputs(k, 2, T_in, 128)
+    T_out = (T_in - k) // 2 + 1
+    dy = _np(2, T_out, 128, seed=9)
+    _, vjp = jax.vjp(lambda *a: jcg._conv_ln_gelu(*a, k, 1e-5, True),
+                     *map(jnp.asarray, (x, w, b, gamma, beta)))
+    want = vjp(jnp.asarray(dy))
+    got = _conv_grads(x, w, b, gamma, beta, dy)
+    _close_conv_grads(got, want)
+    read = 2 * (T_out - 1) + k
+    assert read < T_in or (k, T_in) == (3, 1101)
+    assert not got[0][:, read:].any()
+
+
+def test_conv_ln_gelu_bwd_exact_fit_matches_xla_reference():
+    """k = 3, T_in 1025: T_out 512 fills whole 256-row slabs, a shape the JAX
+    wrapper routes to XLA; the port's kernels take it, against ``jax.vjp`` of
+    ``_xla_reference``."""
+    x, w, b, gamma, beta = _conv_inputs(3, 2, 1025, 128)
+    dy = _np(2, 512, 128, seed=9)
+    _, vjp = jax.vjp(lambda *a: jcg._xla_reference(*a, 3, 1e-5),
+                     *map(jnp.asarray, (x, w, b, gamma, beta)))
+    _close_conv_grads(_conv_grads(x, w, b, gamma, beta, dy), vjp(jnp.asarray(dy)))
+
+
 # -- attention --------------------------------------------------------------------
 
 
