@@ -5,12 +5,14 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-It drives the port's two paths through the hand-written CUDA kernels, with
-XLS-R-300M at full width and depth (24 layers, bf16, seeded random weights):
-serving, ``ASRPipeline`` (30 s window, batch 8), and training, the CTC train
-step of ``Wav2Vec2Setup.make_train_step`` (8 clips of 6-10 s padded to 10 s,
-2 accumulation microbatches). It runs in phases; any failing phase exits
-non-zero before the result line is printed:
+It drives the port's three paths through the hand-written CUDA kernels, at
+full width and depth with seeded random weights in bf16: wav2vec2 serving,
+``ASRPipeline`` with XLS-R-300M (24 layers, 30 s window, batch 8); wav2vec2
+training, the CTC train step of ``Wav2Vec2Setup.make_train_step`` (8 clips of
+6-10 s padded to 10 s, 2 accumulation microbatches); and Whisper serving,
+``ASRPipeline("openai/whisper-large-v3")`` (32 + 32 layers, d 1280, 30 s
+windows, batch 8, greedy generation to 225 tokens). It runs in phases; any
+failing phase exits non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
@@ -18,8 +20,12 @@ non-zero before the result line is printed:
    printed;
 3. each kernel runs at its path's own shapes in bf16 against its plain
    PyTorch version: errors against a stated tolerance, and both times (CUDA
-   events, median of 10); the feature encoder's training forward and backward
-   at FE blocks 1 and 5;
+   events, median of 10), with the least time the card could take for the
+   same work (its bound, from the shapes) and, where one PyTorch call computes
+   the same function, that call's time as a yardstick the port never uses;
+   the feature encoder's training forward and backward at FE blocks 1 and 5;
+   Whisper's encoder flash attention, decode self-attention (K = 1, and K = 5
+   beams at a reduced batch), decode cross-attention and the FFN at D = 1280;
 4. serving: ``transcribe_batch`` on 12 clips of 3-30 s (the second device
    batch is partial, with fully masked filler rows) and ``transcribe`` on a
    45 s clip (long-form windows), with the kernels' launch counts over that
@@ -37,16 +43,26 @@ non-zero before the result line is printed:
    fixed batch: exact launch counts over the first step, finite losses and a
    last loss below the first, training audio-s/s, ms per step against the
    plain path's, peak memory, and a ``torch.profiler`` breakdown of one step;
-6. a JSON line with every kernel (its launches summed over the counted
-   serving and training runs), then the last line
-   ``{"ok": true, "device": {...}}``.
+6. Whisper serving (d): ``transcribe_batch`` on 12 clips of 3-30 s (two
+   device batches, the second partial) with exact launch counts (flash
+   attention and the 1280-wide FFN 32 per encoder call, decode self- and
+   cross-attention 32 per decode step) and the number of decode steps;
+   audio-s/s, latency per batch, encoder ms, ms per decode step, peak memory,
+   a profile of one batch; then the kernel path against the plain path
+   (``WhisperForConditionalGeneration(plain=True)``) on the same weights and
+   batch: the encoder output, and the logits of every decode step with both
+   paths fed the kernel path's ids;
+7. a JSON line with every kernel (its launches summed over the counted runs
+   of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
-limit. It imports nothing of JAX, and fails if the port did.
+limit. It imports nothing of JAX or of the JAX package, and fails if the port
+did.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -83,6 +99,15 @@ TOLERANCE = {
     "conv_ln_gelu_train rstd": (0.0, 1e-4),
     "ctc_alpha": (1e-3, 1e-5),  # fp32 on both sides, the same order of sums
     "ctc_beta": (1e-3, 1e-5),
+    # The encoder's flash attention rounds its bf16 probabilities against the
+    # running max, as the wav2vec2 attention does.
+    "flash_attention": (8e-3, 2.0**-6),
+    # The decode kernels keep the probabilities in fp32 where the plain
+    # version rounds them to bf16 before p @ v (2**-9 of each term, over
+    # weights that sum to 1); atol is one bf16 ulp at |o| = 0.5.
+    "decode_self_attention": (4e-3, 2.0**-6),
+    "decode_cross_attention": (4e-3, 2.0**-6),
+    "ffn_ln_1280": (1e-2, 2.0**-6),
 }
 # Gradients that sum over rows, keys or F columns: |kernel - plain| <= frac
 # max|plain| + 2**-6 |plain|. Their bf16 operands (ds, dh, p) are rounded from
@@ -118,7 +143,35 @@ SOURCES = {
     # The backward kernels, the k = 3 halo fixup (:374) folded into their dx.
     "conv_ln_gelu_bwd": ("coral_tpu_torch/csrc/conv_ln_gelu.cu",
                          "coral_tpu/ops/conv_ln_gelu_pallas.py:174"),
+    # JAX's stock TPU flash kernel, through `_flash` and `_fwd_cp`.
+    "flash_attention": ("coral_tpu_torch/csrc/flash_attention.cu",
+                        "coral_tpu/ops/flash_attention.py:57"),
+    "decode_self_attention": ("coral_tpu_torch/csrc/decode_attention.cu",
+                              "coral_tpu/ops/decode_attention.py:210"),
+    "decode_cross_attention": ("coral_tpu_torch/csrc/decode_attention.cu",
+                               "coral_tpu/ops/decode_attention.py:279"),
+    "ffn_ln_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:163"),
 }
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
+# fp32 outside them, and device memory. A kernel's bound is the larger of its
+# operations over the rate of their type and its bytes (each input read once,
+# each output written once) over the memory rate.
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# Operations per element of the row kernels, counted from their code: a
+# two-pass LayerNorm (sum, centre, square-sum, scale, affine) 8, its backward
+# 12, the polynomial GELU 10 (its derivative 12), a CTC cell's three-way
+# log-sum-exp 12. Products count 2 per multiply-add.
+LN_OPS, LN_BWD_OPS, GELU_OPS, CTC_CELL_OPS = 8, 12, 10, 12
+# Whisper serving (d): whisper-large-v3 (config/model/whisper-large.yaml),
+# batch 8, greedy to max_length 225. Kernel path vs plain path: the encoder
+# output and each decode step's logits, max |diff| / max |plain|; bf16
+# through 32 layers that round the residual stream at slightly different
+# values, as the wav2vec2 logits bound.
+WHISPER_ID = "openai/whisper-large-v3"
+WHISPER_ENC_TOL = 5e-2
+WHISPER_LOGITS_TOL = 5e-2
 # Training (b): XLS-R-300M with config/model/test-wav2vec2.yaml's values and
 # config/asr_finetuning.yaml's optimisation, the feature encoder frozen,
 # augmentation off and the replay of everything (nothing_saveable).
@@ -211,6 +264,37 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = REPS) -> float:
+    """The device time of one call of ``fn``: the summed durations of the CUDA
+    kernels of ``reps`` calls under ``torch.profiler``, over ``reps``. Unlike
+    the events' time it leaves out the host's time to launch them, which sets
+    the events' time of a launch shorter than its Python wrapper."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / reps
+
+
+def timed(fn, reps: int) -> float:
+    """Median wall seconds of ``fn`` over ``reps`` calls, each ending in a
+    synchronise."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    return float(np.median(walls))
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
     torch.cuda.synchronize()
     atol, rtol = TOLERANCE[name]
@@ -243,6 +327,35 @@ def compare_grad(name: str, got: torch.Tensor, want: torch.Tensor, frac: float) 
     return res
 
 
+def bound(flops: float, rate: float, moved: float) -> tuple[float, str]:
+    """The least time in ms the card could take, and what sets it."""
+    ops_ms = flops / rate * 1e3
+    mem_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _measure(results: dict, card: str, name: str, kernel, plain, check, work, library=None):
+    """Checks kernel ``name`` against its plain version, then times the kernel,
+    the plain version and the library yardstick (CUDA events, median of
+    ``REPS``), and computes the bound from ``work`` = (operations, their peak
+    rate, bytes moved)."""
+    res = check()
+    res["ms"] = median_ms(kernel)
+    res["device_ms"] = device_ms(kernel)
+    res["plain_ms"] = median_ms(plain)
+    res["library_ms"] = None if library is None else median_ms(library)
+    res["bound_ms"], res["bound_by"] = bound(*work)
+    lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
+    print(f"  {name}: kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms), plain "
+          f"{res['plain_ms']:.4f} ms, library {lib}, bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']} (median of {REPS}; {card})", flush=True)
+    results[name] = res
+
+
 def merge(*results) -> dict:
     """One kernel's result over several outputs: the first output's errors,
     ok only if every output is."""
@@ -264,28 +377,26 @@ def kernel_checks(card: str) -> dict:
     bf16 = torch.bfloat16
     results = {}
 
-    def measure(name, kernel, plain, check):
-        res = check()
-        res["ms"] = median_ms(kernel)
-        res["plain_ms"] = median_ms(plain)
-        print(f"  {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
-              f"(median of {REPS}; {card})", flush=True)
-        results[name] = res
+    measure = functools.partial(_measure, results, card)
 
     # FE conv 0's output: (8, 95999, 512), LN + GELU.
     x = randn(BATCH, 95999, 512, scale=2.0, offset=0.3, dtype=bf16)
     g, b = randn(512, scale=0.1, offset=1.0), randn(512, scale=0.1)
     measure("ln_gelu", lambda: ln_gelu.ln_gelu(x, g, b),
             lambda: ln_gelu.ln_gelu_plain(x, g, b),
-            lambda: compare("ln_gelu", ln_gelu.ln_gelu(x, g, b), ln_gelu.ln_gelu_plain(x, g, b)))
+            lambda: compare("ln_gelu", ln_gelu.ln_gelu(x, g, b), ln_gelu.ln_gelu_plain(x, g, b)),
+            ((LN_OPS + GELU_OPS) * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(g, b)))
 
     # The pre-attention LN: (8, 1499, 1024).
     x = randn(BATCH, 1499, 1024, dtype=bf16)
     g, b = randn(1024, scale=0.1, offset=1.0), randn(1024, scale=0.1)
+    gb, bb = g.to(bf16), b.to(bf16)
     measure("ln_fused", lambda: ln_gelu.ln_fused(x, g, b),
             lambda: ln_gelu.ln_gelu_plain(x, g, b, apply_gelu=False),
             lambda: compare("ln_fused", ln_gelu.ln_fused(x, g, b),
-                            ln_gelu.ln_gelu_plain(x, g, b, apply_gelu=False)))
+                            ln_gelu.ln_gelu_plain(x, g, b, apply_gelu=False)),
+            (LN_OPS * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(g, b)),
+            lambda: torch.nn.functional.layer_norm(x, (1024,), gb, bb))
 
     # FE conv 1 (k=3, 95999 -> 47999 rows) timed; conv 5 (k=2) checked too.
     def conv_args(k, T_in):
@@ -307,8 +418,11 @@ def kernel_checks(card: str) -> dict:
         res["max_abs_err"] = max(res["max_abs_err"], res2["max_abs_err"])
         return res
 
+    T_out = (a3[0].shape[1] - 3) // 2 + 1
+    y_bytes = BATCH * T_out * 512 * 2
     measure("conv_ln_gelu", lambda: conv_ln_gelu.conv_ln_gelu(*a3),
-            lambda: conv_ln_gelu.conv_ln_gelu_plain(*a3), conv_check)
+            lambda: conv_ln_gelu.conv_ln_gelu_plain(*a3), conv_check,
+            (2 * BATCH * T_out * 512 * 512 * 3, BF16_FLOPS, nbytes(*a3) + y_bytes))
     del a3
 
     # Attention: (8, 1499, 16 x 64), padded rows and one fully masked row.
@@ -328,18 +442,27 @@ def kernel_checks(card: str) -> dict:
         res["ok"] = res["ok"] and lse_err <= LSE_ATOL and bool((lse[-1] == -1e25).all())
         return res
 
+    heads = [(t + bb.to(bf16)).view(BATCH, T, 16, 64).transpose(1, 2)
+             for t, bb in zip((q, k, v), bias)]
+    key_bias = torch.where(mask, 0.0, -1e30).to(bf16)[:, None, None, :]
     measure("attention", lambda: attention.short_t_attention_flat(q, k, v, mask, 64, bias),
-            lambda: attention.attention_plain(q, k, v, mask, 64, bias), attn_check)
+            lambda: attention.attention_plain(q, k, v, mask, 64, bias), attn_check,
+            (4 * BATCH * 16 * T * T * 64, BF16_FLOPS, 4 * nbytes(q) + nbytes(mask, *bias)),
+            lambda: torch.nn.functional.scaled_dot_product_attention(*heads,
+                                                                     attn_mask=key_bias))
+    del heads
     del q, k, v
 
     # FFN up-projection block: (8, 1499, 1024) -> (8, 1499, 4096).
     x = randn(BATCH, T, 1024, dtype=bf16)
     w1 = randn(4096, 1024, scale=1.0 / 32, dtype=bf16)
     b1, g, b = randn(4096, scale=0.1), randn(1024, scale=0.1, offset=1.0), randn(1024, scale=0.1)
+    M = BATCH * T
     measure("ffn_ln", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
             lambda: compare("ffn_ln", ffn.ffn_ln_fc1(x, w1, b1, g, b),
-                            ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)))
+                            ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
+            (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * 4096 * 2))
     return results
 
 
@@ -357,13 +480,7 @@ def train_kernel_checks(card: str) -> dict:
     bf16 = torch.bfloat16
     results = {}
 
-    def measure(name, kernel, plain, check):
-        res = check()
-        res["ms"] = median_ms(kernel)
-        res["plain_ms"] = median_ms(plain)
-        print(f"  {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
-              f"(median of {REPS}; {card})", flush=True)
-        results[name] = res
+    measure = functools.partial(_measure, results, card)
 
     T = 499
     # LN backward: the pre-attention LN (8, 499, 1024), timed; the FE conv 0
@@ -387,7 +504,8 @@ def train_kernel_checks(card: str) -> dict:
         return merge(*out)
 
     measure("ln_bwd", lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False),
-            lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check)
+            lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check,
+            (LN_BWD_OPS * x.numel(), FP32_FLOPS, 3 * nbytes(x) + 3 * nbytes(g)))
     del x, dy
 
     # The feature encoder's training forward and backward: FE block 1 (k = 3,
@@ -412,8 +530,11 @@ def train_kernel_checks(card: str) -> dict:
         return merge(*out)
 
     c1 = blocks["block 1"]
+    T1 = (c1[0].shape[1] - 3) // 2 + 1
     measure("conv_ln_gelu_train", lambda: conv_ln_gelu.conv_ln_gelu_fwd(*c1),
-            lambda: conv_ln_gelu.conv_ln_gelu_fwd_plain(*c1), conv_fwd_check)
+            lambda: conv_ln_gelu.conv_ln_gelu_fwd_plain(*c1), conv_fwd_check,
+            (2 * BATCH * T1 * 512 * 512 * 3, BF16_FLOPS,
+             nbytes(*c1) + 2 * BATCH * T1 * 512 * 2 + BATCH * T1 * 4))
     bwd_args = {}
     for name, args in blocks.items():
         _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(*args)
@@ -442,8 +563,12 @@ def train_kernel_checks(card: str) -> dict:
         return merge(*out)
 
     b1 = bwd_args["block 1"]
+    # dx and dW: two products of the forward's size; dGELU and the LN backward
+    # per output element. Outputs dx, dW and the three vectors.
     measure("conv_ln_gelu_bwd", lambda: conv_ln_gelu.conv_ln_gelu_bwd(*b1),
-            lambda: conv_ln_gelu.conv_ln_gelu_bwd_plain(*b1), conv_bwd_check)
+            lambda: conv_ln_gelu.conv_ln_gelu_bwd_plain(*b1), conv_bwd_check,
+            (2 * 2 * BATCH * T1 * 512 * 512 * 3, BF16_FLOPS,
+             nbytes(*b1) + nbytes(b1[0], b1[1]) + 3 * 512 * 4))
     del blocks, bwd_args, c1, b1
 
     # Attention backward: (8, 499, 16 x 64), padded keys and a fully masked row.
@@ -466,8 +591,12 @@ def train_kernel_checks(card: str) -> dict:
         res["ok"] = res["ok"] and masked_zero
         return res
 
+    # Five T x T x 64 products per head (s, dp, dv, dq, dk); outputs dq, dk,
+    # dv and the bias sums.
     measure("attention_bwd", lambda: attention.attention_bwd(*args),
-            lambda: attention.attention_bwd_plain(*args), attn_check)
+            lambda: attention.attention_bwd_plain(*args), attn_check,
+            (5 * 2 * BATCH * 16 * T * T * 64, BF16_FLOPS,
+             nbytes(*args[:10]) + 3 * nbytes(q) + 3 * 1024 * 4))
     del q, k, v, do, o
 
     # FFN: (8, 499, 1024) -> 4096 at rate 0 and 0.1.
@@ -491,8 +620,10 @@ def train_kernel_checks(card: str) -> dict:
         res["ok"] = res["ok"] and same and abs(frac - 0.9) < 1e-3
         return res
 
+    M = BATCH * T
     measure("ffn_ln_drop", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
-            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check)
+            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
+            (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * 4096 * 2))
 
     def bwd_check():
         out = []
@@ -514,9 +645,14 @@ def train_kernel_checks(card: str) -> dict:
             out.append(merged)
         return merge(*out)
 
+    # Three products of 2 M D F (h again, dg, dl); outputs g, dh, ln_out, dx
+    # and the vectors.
     measure("ffn_bwd", lambda: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_bwd_plain(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
-            bwd_check)
+            bwd_check,
+            (3 * 2 * M * 1024 * 4096, BF16_FLOPS,
+             nbytes(x, w1, b1, g, b, dy, w2, seeds) + 2 * M * 4096 * 2 + 2 * nbytes(x)
+             + (4096 + 2 * 1024) * 4))
     del x, dy, keep
 
     # CTC recursions: T' = 499, B = 8, L = 128 (S = 257), row 7 infeasible.
@@ -528,10 +664,14 @@ def train_kernel_checks(card: str) -> dict:
     skip, skip_fwd, valid, terminal = ctc._state_masks(ext, lab_len, 0)
     emit = ctc._emissions(log_probs, ext).contiguous()
     a_args, b_args = (emit, skip, valid, in_len), (emit, skip_fwd, valid, in_len, terminal)
+    # The recursion visits every (t, b, s) cell once; it reads the emissions
+    # and masks and writes one fp32 value per cell.
     measure("ctc_alpha", lambda: ctc.ctc_alpha(*a_args), lambda: ctc.ctc_alpha_plain(*a_args),
-            lambda: compare("ctc_alpha", ctc.ctc_alpha(*a_args), ctc.ctc_alpha_plain(*a_args)))
+            lambda: compare("ctc_alpha", ctc.ctc_alpha(*a_args), ctc.ctc_alpha_plain(*a_args)),
+            (CTC_CELL_OPS * emit.numel(), FP32_FLOPS, nbytes(*a_args) + nbytes(emit)))
     measure("ctc_beta", lambda: ctc.ctc_beta(*b_args), lambda: ctc.ctc_beta_plain(*b_args),
-            lambda: compare("ctc_beta", ctc.ctc_beta(*b_args), ctc.ctc_beta_plain(*b_args)))
+            lambda: compare("ctc_beta", ctc.ctc_beta(*b_args), ctc.ctc_beta_plain(*b_args)),
+            (CTC_CELL_OPS * emit.numel(), FP32_FLOPS, nbytes(*b_args) + nbytes(emit)))
     nll = ctc.ctc_loss(log_probs, labels, in_len, lab_len, reduction="none")
     print(f"  ctc_loss: per-row losses {[round(float(v), 3) for v in nll]} (row 7 "
           f"infeasible -> 0)", flush=True)
@@ -623,16 +763,6 @@ def serving_run(card: str) -> tuple[dict, dict]:
     full = {"input_values": np.stack([np.resize(c, T) for c in clips[-BATCH:]]),
             "input_lengths": np.full((BATCH,), T, np.int32)}
 
-    def timed(fn, reps):
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - start)
-        return float(np.median(walls))
-
     latency = timed(lambda: predictor(full), 5)
     plain_latency = timed(lambda: plain(full), 3)
     del plain, plain_model
@@ -654,6 +784,42 @@ def serving_run(card: str) -> tuple[dict, dict]:
           f"(plain path {metrics['plain_latency_ms_per_batch']:.3f} ms); peak memory "
           f"{metrics['peak_memory_gib']:.3f} GiB", flush=True)
     return counts, metrics
+
+
+def profile_window(card: str, label: str, fn) -> float:
+    """Runs ``fn`` once under ``torch.profiler`` and prints the device's busy
+    share (the union of the kernels' intervals over the window) and the
+    device time by kernel; returns the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    cpu = [e.time_range for e in prof.events() if e.device_type == DeviceType.CPU]
+    window = (max(r.end for r in cpu) - min(r.start for r in cpu)) / 1e3
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    by_name: dict = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()), reverse=True)
+    print(f"profile of {label} ({card}): window {window:.3f} ms (profiler on), device busy "
+          f"{busy:.3f} ms (union of {len(kernels)} kernels), busy share {busy / window:.4f}; "
+          f"device time by kernel:", flush=True)
+    for ms, n, key in rows[:16]:
+        print(f"    {ms:10.3f} ms  {n:6d}x  {key[:96]}", flush=True)
+    print(f"    {sum(r[0] for r in rows[16:]):10.3f} ms  {sum(r[1] for r in rows[16:]):6d}x  "
+          f"the other {max(len(rows) - 16, 0)} kernels", flush=True)
+    return busy / window
 
 
 def train_batch(seed: int) -> tuple[dict, float]:
@@ -821,37 +987,12 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"training {label} loss not finite or not falling")
 
-    # One step under the profiler: device time by kernel, and the busy share
-    # (the union of the kernels' intervals over the step's window).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    # One step under the profiler: device time by kernel, and the busy share.
+    def one_step():
+        nonlocal state, metrics
         state, metrics = step(state, batch, gen)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    cpu = [e.time_range for e in prof.events() if e.device_type == DeviceType.CPU]
-    window = (max(r.end for r in cpu) - min(r.start for r in cpu)) / 1e3
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy /= 1e3
-    by_name: dict = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-    rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()), reverse=True)
-    print(f"profile of one training {label} step ({card}): window {window:.3f} ms (profiler "
-          f"on), device busy {busy:.3f} ms (union of {len(kernels)} kernels), busy share "
-          f"{busy / window:.4f}; device time by kernel:", flush=True)
-    for ms, n, key in rows[:16]:
-        print(f"    {ms:10.3f} ms  {n:6d}x  {key[:96]}", flush=True)
-    print(f"    {sum(r[0] for r in rows[16:]):10.3f} ms  {sum(r[1] for r in rows[16:]):6d}x  "
-          f"the other {len(rows) - 16} kernels", flush=True)
+
+    profile_window(card, f"one training {label} step", one_step)
 
     # The plain path's time per step on the same weights and batch.
     plain = plain_twin(model)
@@ -905,6 +1046,269 @@ def training_run(card: str) -> dict:
             for name in {*counts_b, *counts_c}}
 
 
+def whisper_kernel_checks(card: str) -> dict:
+    """Whisper serving's kernels against their plain versions at its shapes:
+    whisper-large-v3 (d 1280, 20 heads x 64, 32 layers), 8 x 30 s (T = 1500
+    encoder rows), the decode caches at their largest phase (225 slots)."""
+    from coral_tpu_torch.ops import decode_attention, ffn, flash_attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    bf16 = torch.bfloat16
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    T, H, d, D, L, F = 1500, 20, 64, 1280, 32, 5120
+
+    # Encoder self-attention: q, k, v (8, 1500, 20, 64), views of the projections.
+    q, k, v = (randn(BATCH, T, D, dtype=bf16).view(BATCH, T, H, d) for _ in range(3))
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    measure("flash_attention", lambda: flash_attention.flash_self_attention(q, k, v),
+            lambda: flash_attention.flash_self_attention_plain(q, k, v),
+            lambda: compare("flash_attention", flash_attention.flash_self_attention(q, k, v),
+                            flash_attention.flash_self_attention_plain(q, k, v)),
+            (4 * BATCH * H * T * T * d, BF16_FLOPS, 4 * nbytes(q)),
+            lambda: sdpa(*heads))
+    del q, k, v, heads
+
+    # Decode self-attention over layer 17 of the (32, 8, 225, 1280) cache at
+    # position 150 (K = 1, the causal mask), and at K = 5 beams of 2 items
+    # with a random ancestor mask. Scores and p @ v are fp32 FMAs.
+    T_b, pos, layer = 225, 150, 17
+    qd = randn(BATCH, D, dtype=bf16)
+    ck, cv = (randn(L, BATCH, T_b, D, dtype=bf16) for _ in range(2))
+    onehot = (torch.arange(T_b, device=dev) <= pos).float()[None, None, :].expand(
+        BATCH, 1, T_b).contiguous()
+    K = 5
+    q5 = randn(2 * K, D, dtype=bf16)
+    c5k, c5v = (randn(L, 2 * K, T_b, D, dtype=bf16) for _ in range(2))
+    ancestors = torch.randint(0, K, (2, K, pos + 1), generator=gen, device=dev)
+    onehot5 = torch.zeros(2, K, K * T_b, device=dev)
+    onehot5.scatter_(2, ancestors * T_b + torch.arange(pos + 1, device=dev), 1.0)
+
+    def self_check():
+        r1 = compare("decode_self_attention",
+                     decode_attention.decode_self_attention(qd, ck, cv, onehot, H, layer),
+                     decode_attention.decode_self_attention_plain(qd, ck, cv, onehot, H, layer))
+        print(f"  decode_self_attention above: K = 1, batch {BATCH}; below: K = {K} beams, "
+              f"batch 2, a random ancestor mask", flush=True)
+        r5 = compare("decode_self_attention",
+                     decode_attention.decode_self_attention(q5, c5k, c5v, onehot5, H, layer),
+                     decode_attention.decode_self_attention_plain(q5, c5k, c5v, onehot5, H,
+                                                                  layer))
+        out = merge(r1, r5)
+        out["max_abs_err"] = max(r1["max_abs_err"], r5["max_abs_err"])
+        return out
+
+    sq = qd.view(BATCH, 1, H, d).transpose(1, 2)
+    sk, sv = (t[layer].view(BATCH, T_b, H, d).transpose(1, 2) for t in (ck, cv))
+    smask = torch.where(onehot > 0, 0.0, -1e30).to(bf16).view(BATCH, 1, 1, T_b)
+    measure("decode_self_attention",
+            lambda: decode_attention.decode_self_attention(qd, ck, cv, onehot, H, layer),
+            lambda: decode_attention.decode_self_attention_plain(qd, ck, cv, onehot, H, layer),
+            self_check,
+            (4 * BATCH * T_b * D, FP32_FLOPS, 2 * nbytes(qd) + 2 * nbytes(ck[layer]) + nbytes(onehot)),
+            lambda: sdpa(sq, sk, sv, attn_mask=smask))
+    del ck, cv, c5k, c5v, sk, sv
+
+    # Decode cross-attention over layer 17 of the (32, 8, 1500, 1280) encoder K/V.
+    xk, xv = (randn(L, BATCH, T, D, dtype=bf16) for _ in range(2))
+    hk, hv = (t[layer].view(BATCH, T, H, d).transpose(1, 2) for t in (xk, xv))
+    measure("decode_cross_attention",
+            lambda: decode_attention.decode_cross_attention(qd, xk, xv, H, layer),
+            lambda: decode_attention.decode_cross_attention_plain(qd, xk, xv, H, layer),
+            lambda: compare("decode_cross_attention",
+                            decode_attention.decode_cross_attention(qd, xk, xv, H, layer),
+                            decode_attention.decode_cross_attention_plain(qd, xk, xv, H, layer)),
+            (4 * BATCH * T * D, FP32_FLOPS, 2 * nbytes(qd) + 2 * nbytes(xk[layer])),
+            lambda: sdpa(sq, hk, hv))
+    del xk, xv, hk, hv
+
+    # The encoder FFN's LN + fc1 + GELU at D = 1280: (8, 1500, 1280) -> 5120.
+    x = randn(BATCH, T, D, dtype=bf16)
+    w1 = randn(F, D, scale=D**-0.5, dtype=bf16)
+    b1, g, b = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+    M = BATCH * T
+    measure("ffn_ln_1280", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b),
+            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
+            lambda: compare("ffn_ln_1280", ffn.ffn_ln_fc1(x, w1, b1, g, b),
+                            ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
+            (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * F * 2))
+    return results
+
+
+def decode_steps(ids: np.ndarray, eos: int) -> int:
+    """The decode steps greedy generation ran for one batch: it stops once every
+    row has emitted EOS, or at max_length - 1."""
+    done = [int(np.argmax(row[1:] == eos)) + 1 if (row[1:] == eos).any() else len(row) - 1
+            for row in ids]
+    return min(ids.shape[1] - 1, max(done))
+
+
+def whisper_compare(model, feats, ids, steps: int, n_forced: int, eos: int):
+    """The kernel path against the plain path
+    (``WhisperForConditionalGeneration(plain=True)``) on ``model``'s weights:
+    the encoder output on ``feats``, then both decode loops fed the kernel
+    path's ``ids`` for ``steps`` steps. Returns (encoder max|diff|/max|plain|,
+    the worst step's logits max|diff|/max|plain|, whether the kernel path's
+    argmax gives its own ids, the first step where the plain path's greedy
+    token parts or None). The plain model lives only inside this call."""
+    from coral_tpu_torch.models import whisper as W
+
+    cfg = model.config
+    with torch.device("meta"):
+        plain = W.WhisperForConditionalGeneration(cfg, plain=True)
+    plain = plain.to_empty(device="cuda").eval()
+    plain.load_state_dict(model.state_dict())
+    phases = W._decode_phases(ids.shape[1])
+    with torch.inference_mode():
+        enc = {"kernel": W.encode(model, feats), "plain": W.encode(plain, feats)}
+        if not bool(torch.isfinite(enc["kernel"]).all()) or enc["kernel"].shape != (
+                BATCH, 1500, cfg.d_model):
+            fail("whisper encoder output not finite or of the wrong shape")
+        enc_diff = float((enc["kernel"].float() - enc["plain"].float()).abs().max()
+                         / enc["plain"].float().abs().max())
+        paths = {name: [m, W.precompute_cross_kv(m, enc[name]), W.decoder_linears(m),
+                        W.init_self_cache(cfg, BATCH, phases[0], "cuda")]
+                 for name, m in (("kernel", model), ("plain", plain))}
+        del enc
+        worst, parted, agree_k = 0.0, None, True
+        for pos in range(steps):
+            t_b = next(t for t in phases if pos < t)
+            out = {}
+            for name, (m, kv, lin, cache) in paths.items():
+                out[name], paths[name][3] = W.decode_step(m, ids[:, pos], pos,
+                                                          W._pad_cache(cache, t_b), kv,
+                                                          linears=lin)
+            if not bool(torch.isfinite(out["kernel"]).all()):
+                fail(f"whisper logits not finite at step {pos}")
+            worst = max(worst, float((out["kernel"] - out["plain"]).abs().max()
+                                     / out["plain"].abs().max()))
+            active = ~(ids[:, 1 : pos + 1] == eos).any(dim=1)
+            if pos + 1 >= n_forced and bool(active.any()):
+                nxt = ids[active, pos + 1]
+                agree_k = agree_k and bool((out["kernel"][active].argmax(-1) == nxt).all())
+                if parted is None and not bool((out["plain"][active].argmax(-1) == nxt).all()):
+                    parted = pos
+    return enc_diff, worst, agree_k, parted
+
+
+def whisper_device_times(model, feats, tokens) -> tuple[float, int, float]:
+    """(encoder ms per batch, CUDA events, median of 3; the steps timed; ms per
+    decode step, host clock over them, with a cache of 64 slots)."""
+    from coral_tpu_torch.models import whisper as W
+
+    with torch.inference_mode():
+        encoder_ms = median_ms(lambda: W.encode(model, feats), 3)
+        kv = W.precompute_cross_kv(model, W.encode(model, feats))
+        lin = W.decoder_linears(model)
+        cache = W.init_self_cache(model.config, feats.shape[0], 64, "cuda")
+        n = 63
+
+        def run_steps():
+            for pos in range(n):
+                W.decode_step(model, tokens, pos, cache, kv, linears=lin)
+
+        return encoder_ms, n, timed(run_steps, 2) * 1e3 / n
+
+
+def whisper_run(card: str) -> dict:
+    """Phase (d), Whisper serving through ASRPipeline; returns the launch counts."""
+    from coral_tpu_torch import ASRPipeline
+    from coral_tpu_torch.audio.augment import peak_normalize
+    from coral_tpu_torch.audio.mel import log_mel_spectrogram
+    from coral_tpu_torch.models import whisper as W
+    from coral_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    asr = ASRPipeline(WHISPER_ID, batch_size=BATCH, device="cuda")
+    predictor = asr.predictor
+    model, eos = predictor.model, predictor.tokenizer.eos_token_id
+    cfg = model.config
+    print(f"whisper (d): d_model {cfg.d_model}, {cfg.encoder_layers} + {cfg.decoder_layers} "
+          f"layers, {cfg.encoder_attention_heads} heads, FFN {cfg.ffn_dim}, {cfg.num_mel_bins} "
+          f"mels, vocab {cfg.vocab_size} (byte-fallback tokenizer), {cfg.dtype}, window "
+          f"{asr.window_seconds} s, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    if (cfg.d_model, cfg.encoder_layers, cfg.decoder_layers, cfg.encoder_attention_heads,
+            cfg.ffn_dim, cfg.num_mel_bins, cfg.dtype) != (1280, 32, 32, 20, 5120, 128,
+                                                          torch.bfloat16):
+        fail("the pipeline did not build whisper-large-v3 in bf16")
+
+    rng = np.random.default_rng(3)
+    seconds = np.linspace(3.0, 30.0, 12)
+    clips = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+    generate = predictor.generate
+    seen: list = []
+
+    def keep_ids(m, batch):
+        ids = generate(m, batch)
+        seen.append(ids.cpu().numpy())
+        return ids
+
+    # The main path, counted.
+    predictor.generate = keep_ids
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    texts = asr.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    predictor.generate = generate
+    steps = [decode_steps(ids, eos) for ids in seen]
+    n_layers = cfg.encoder_layers
+    expected = {"flash_attention": n_layers * len(seen), "ffn_ln_1280": n_layers * len(seen),
+                "decode_self_attention": cfg.decoder_layers * sum(steps),
+                "decode_cross_attention": cfg.decoder_layers * sum(steps)}
+    print(f"whisper (d) main path: {len(seen)} encoder calls, decode steps {steps} (max_length "
+          f"{seen[0].shape[1]}), launch counts {counts}", flush=True)
+    if counts != expected:
+        fail(f"whisper (d): launch counts {counts}, expected {expected}")
+    if len(texts) != len(clips) or not all(isinstance(t, str) for t in texts):
+        fail("whisper transcribe_batch returned the wrong transcripts")
+    print(f"whisper transcripts: {len(texts)} clips, first {texts[0][:40]!r}", flush=True)
+
+    # Kernel path vs plain path on the first batch, whose ids the main path kept.
+    T = int(asr.window_seconds * SR)
+    audio = np.zeros((BATCH, T), np.float32)
+    for j, clip in enumerate(clips[:BATCH]):
+        audio[j, : len(clip)] = clip
+    feats = log_mel_spectrogram(peak_normalize(torch.from_numpy(audio).cuda()),
+                                n_mels=cfg.num_mel_bins, dtype=cfg.dtype)
+    ids = torch.from_numpy(seen[0]).cuda().long()
+    n_forced = len(predictor.tokenizer.forced_decoder_ids)
+    enc_diff, worst, agree_k, parted = whisper_compare(model, feats, ids, steps[0], n_forced,
+                                                       eos)
+    torch.cuda.empty_cache()
+    print(f"whisper kernel vs plain: encoder output max|diff|/max|plain| {enc_diff:.6g} "
+          f"(tolerance {WHISPER_ENC_TOL}); teacher-forced logits over {steps[0]} steps, worst "
+          f"{worst:.6g} (tolerance {WHISPER_LOGITS_TOL}); the kernel path's own argmax gives "
+          f"its ids: {agree_k}; first step where the plain path's greedy token parts: "
+          f"{parted if parted is not None else 'none'}", flush=True)
+    if enc_diff > WHISPER_ENC_TOL or worst > WHISPER_LOGITS_TOL or not agree_k:
+        fail("whisper kernel path and plain path disagree")
+
+    full = {"input_values": np.stack([np.resize(c, T) for c in clips[-BATCH:]]),
+            "input_lengths": np.full((BATCH,), T, np.int32)}
+    encoder_ms, n, step_ms = whisper_device_times(model, feats, ids[:, 0])
+    latency = timed(lambda: predictor(full), 2)
+    full_steps = decode_steps(predictor.generate(model, full).cpu().numpy(), eos)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wall = timed(lambda: asr.transcribe_batch(clips), 2)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"whisper serving ({card}): {seconds.sum() / wall:.3f} audio-s/s over "
+          f"{seconds.sum():.1f} s of audio in {len(clips)} clips (median of 2); latency "
+          f"{latency * 1e3:.3f} ms per batch of {BATCH} x 30 s ({full_steps} decode steps); "
+          f"encoder {encoder_ms:.3f} ms per batch (median of 3); {step_ms:.3f} ms per decode "
+          f"step (host clock over {n} steps, cache of 64); peak memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    profile_window(card, f"one whisper batch of {BATCH} x 30 s", lambda: predictor(full))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on an NVIDIA GPU only")
@@ -935,6 +1339,9 @@ def main() -> int:
     checks = kernel_checks(card)
     print(f"kernel checks at training shapes (bf16, batch {BATCH} x 10 s):", flush=True)
     checks.update(train_kernel_checks(card))
+    print(f"kernel checks at Whisper serving shapes (bf16, batch {BATCH} x 30 s, "
+          f"whisper-large-v3):", flush=True)
+    checks.update(whisper_kernel_checks(card))
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -943,9 +1350,13 @@ def main() -> int:
     serve_counts, _ = serving_run(card)
     torch.cuda.empty_cache()
     train_counts = training_run(card)
-    if "jax" in sys.modules:
-        fail("the port imported jax")
-    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0) for name in checks}
+    torch.cuda.empty_cache()
+    whisper_counts = whisper_run(card)
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
+    if imported:
+        fail(f"the port imported jax or the JAX package: {imported[:5]}")
+    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0)
+              + whisper_counts.get(name, 0) for name in checks}
     idle = [name for name, n in counts.items() if n == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")
@@ -953,7 +1364,9 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],
-         "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"]}
+         "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+         "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+         "library_ms": res["library_ms"], "device_ms": res["device_ms"]}
         for name, res in checks.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

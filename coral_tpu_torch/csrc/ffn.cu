@@ -9,12 +9,14 @@
 //
 // Bound on the H100: the tensor cores. At XLS-R-300M widths the product is
 // 2 * 1024 * 4096 flops per row against 2 KB of input and 8 KB of output,
-// hundreds of flops per byte.
+// hundreds of flops per byte (Whisper large-v3 and XLS-R-1B: D = 1280,
+// F = 5120).
 //
 // Design: one block per (64 rows, 256 of the F columns). The prologue computes
-// the fp32 LayerNorm of its 64 rows over D = 1024 (two-pass, as `_ln_rows`),
-// rounds it to bf16 as `_ln_matmul` does, and keeps the whole 64 x 1024 panel
-// in shared memory (132 KB) for the K loop, so the normalised tensor never
+// the fp32 LayerNorm of its 64 rows over the width D (two-pass, as
+// `_ln_rows`), rounds it to bf16 as `_ln_matmul` does, and keeps the whole
+// 64 x D panel in shared memory (132 KB at D = 1024, 165 KB at D = 1280) for
+// the K loop, so the normalised tensor never
 // reaches device memory. The K loop streams 256 x 32 tiles of W1 (stored
 // (F, D), K contiguous per column) into bf16 WMMA fragments with fp32
 // accumulators, eight warps of 32 x 64 each. The epilogue stages the
@@ -32,7 +34,9 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int kD = 1024;       // model width: LayerNorm and reduction length
+// The model width (LayerNorm and reduction length) of the backward kernels and
+// the dropout forward; the rate-0 forward is a template over D in {1024, 1280}.
+constexpr int kD = 1024;
 constexpr int kBM = 64;        // rows per block
 constexpr int kBN = 256;       // F columns per block
 constexpr int kBK = 32;        // reduction chunk per shared-memory stage
@@ -41,8 +45,10 @@ constexpr int kLdA = kD + 8;   // bf16 row pitch of the normalised panel
 constexpr int kLdB = kBK + 8;  // bf16 row pitch of the W1 tile (and the dy chunk)
 constexpr int kLdC = kBN + 4;  // fp32 row pitch of the staged accumulators
 constexpr int kLdW = kBN + 8;  // bf16 row pitch of the W2 tile
-constexpr int kSmem = (kBM * kLdA + kBN * kLdB) * 2;
+// Shared memory of the forward at width D: the normalised panel and a W1 tile.
+constexpr int fwd_smem(int D) { return (kBM * (D + 8) + kBN * kLdB) * 2; }
 static_assert(kBM * kLdC * 4 <= kBM * kLdA * 2, "staging must fit over the A panel");
+static_assert(fwd_smem(1280) <= 232448, "the 1280 panel must fit a block's shared memory");
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
@@ -51,14 +57,18 @@ using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // The fp32 LayerNorm of rows m0 .. m0+63 of x, rounded to bf16 into As (rows
 // past M are zero); with ln_out, the rows are written there too. Warp w
-// normalises rows 8w .. 8w+7; a lane owns four 8-value chunks at (i*32+lane)*8.
+// normalises rows 8w .. 8w+7; a lane owns D / 256 8-value chunks at
+// (i*32+lane)*8. The panel's row pitch is D + 8.
+template <int D>
 __device__ __forceinline__ void ln_panel(bf16* As, const bf16* __restrict__ x,
                                          const float* __restrict__ gamma,
                                          const float* __restrict__ beta, long long m0,
                                          long long M, float eps, bf16* ln_out) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  constexpr int kChunks = kD / (32 * 8);
+  constexpr int kChunks = D / (32 * 8);
+  constexpr int kLdA = D + 8;
+  static_assert(D % 256 == 0, "a lane owns whole 8-value chunks");
 #pragma unroll 1
   for (int rr = 0; rr < kBM / 8; ++rr) {
     const int r = warp * (kBM / 8) + rr;
@@ -70,21 +80,21 @@ __device__ __forceinline__ void ln_panel(bf16* As, const bf16* __restrict__ x,
       for (int i = 0; i < kChunks; ++i) coral_store8(arow + (i * 32 + lane) * 8, zero);
       continue;
     }
-    const bf16* xr = x + row * kD;
+    const bf16* xr = x + row * D;
     float v[kChunks * 8];
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) coral_load8(xr + (i * 32 + lane) * 8, v + i * 8);
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < kChunks * 8; ++j) s += v[j];
-    const float mean = coral_warp_sum(s) / kD;
+    const float mean = coral_warp_sum(s) / D;
     float q = 0.f;
 #pragma unroll
     for (int j = 0; j < kChunks * 8; ++j) {
       v[j] -= mean;
       q += v[j] * v[j];
     }
-    const float rstd = rsqrtf(coral_warp_sum(q) / kD + eps);
+    const float rstd = rsqrtf(coral_warp_sum(q) / D + eps);
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int col = (i * 32 + lane) * 8;
@@ -97,7 +107,7 @@ __device__ __forceinline__ void ln_panel(bf16* As, const bf16* __restrict__ x,
       for (int e = 0; e < 8; ++e) out[e] = (v[i * 8 + e] * rstd) * ga[e] + be[e];
       coral_store8(arow + col, out);  // rounds to bf16, the product's operand
       if (ln_out != nullptr)
-        *reinterpret_cast<uint4*>(ln_out + row * kD + col) =
+        *reinterpret_cast<uint4*>(ln_out + row * D + col) =
             *reinterpret_cast<const uint4*>(arow + col);
     }
   }
@@ -105,8 +115,10 @@ __device__ __forceinline__ void ln_panel(bf16* As, const bf16* __restrict__ x,
 
 // acc (this warp's 32 x 64) = As (64 x D) @ W1[n0 .. n0+255, :]^T over the
 // whole D, streaming 256 x 32 tiles of W1 through Bs. Ends on a barrier.
+template <int D>
 __device__ __forceinline__ void ln_times_w1(FragC (&acc)[2][4], const bf16* As, bf16* Bs,
                                             const bf16* __restrict__ w1, int n0) {
+  constexpr int kLdA = D + 8;
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 2;  // 0..1: rows wr*32 .. +31
   const int wc = warp & 3;   // 0..3: columns wc*64 .. +63
@@ -114,12 +126,12 @@ __device__ __forceinline__ void ln_times_w1(FragC (&acc)[2][4], const bf16* As, 
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  for (int k0 = 0; k0 < kD; k0 += kBK) {
+  for (int k0 = 0; k0 < D; k0 += kBK) {
     for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
       const int n = i >> 2;
       const int c = (i & 3) * 8;
       *reinterpret_cast<uint4*>(Bs + n * kLdB + c) =
-          *reinterpret_cast<const uint4*>(w1 + (long long)(n0 + n) * kD + k0 + c);
+          *reinterpret_cast<const uint4*>(w1 + (long long)(n0 + n) * D + k0 + c);
     }
     __syncthreads();
 #pragma unroll
@@ -155,7 +167,7 @@ __device__ __forceinline__ void stage(float* Cs, FragC (&acc)[2][4]) {
 
 // x: (M, D) bf16; w1: (F, D) bf16; b1: (F,) fp32; gamma, beta: (D,) fp32;
 // seeds: (M / T,) int32 (kDrop); g: (M, F) bf16.
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     ffn_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ gamma,
@@ -164,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
                   float scale, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kBM * kLdA;
+  bf16* Bs = As + kBM * (D + 8);
   float* Cs = reinterpret_cast<float*>(smem);
 
   const long long m0 = (long long)blockIdx.x * kBM;
@@ -172,10 +184,10 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  ln_panel(As, x, gamma, beta, m0, M, eps, nullptr);
+  ln_panel<D>(As, x, gamma, beta, m0, M, eps, nullptr);
   __syncthreads();
   FragC acc[2][4];
-  ln_times_w1(acc, As, Bs, w1, n0);
+  ln_times_w1<D>(acc, As, Bs, w1, n0);
   stage(Cs, acc);  // the K loop ended on a barrier: the A panel is dead
   __syncthreads();
 
@@ -263,10 +275,10 @@ __global__ void __launch_bounds__(kThreads)
   const int wr = warp >> 2;
   const int wc = warp & 3;
 
-  ln_panel(As, x, gamma, beta, m0, M, eps, blockIdx.y == 0 ? ln_out : nullptr);
+  ln_panel<kD>(As, x, gamma, beta, m0, M, eps, blockIdx.y == 0 ? ln_out : nullptr);
   __syncthreads();
   FragC acc[2][4];
-  ln_times_w1(acc, As, Bs, w1, n0);
+  ln_times_w1<kD>(acc, As, Bs, w1, n0);
   stage(Hs, acc);  // h - b1, over the dead A panel
 
   // dg = dy W2^T: 64 x 32 chunks of dy and 32 x 256 tiles of W2 (stored
@@ -440,18 +452,42 @@ __global__ void __launch_bounds__(kThreads)
 }
 static_assert(kGM * kLdGA * 2 >= 8 * 256 * 4, "the output staging must fit the A tile");
 
+// Launches the forward at width D; the dropout variant only at D = 1024.
+template <int D>
+cudaError_t launch_ffn_ln(const bf16* xp, const bf16* wp, const float* bp, const float* gp,
+                          const float* tp, const int* sp, bf16* out, long long M, int F, int T,
+                          unsigned int threshold, float scale, float eps, cudaStream_t s) {
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)(F / kBN));
+  constexpr int smem = fwd_smem(D);
+  cudaError_t err;
+  if (sp != nullptr) {
+    err = cudaFuncSetAttribute(ffn_ln_kernel<D, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ffn_ln_kernel<D, true><<<grid, kThreads, smem, s>>>(xp, wp, bp, gp, tp, sp, out, M, F, T,
+                                                        threshold, scale, eps);
+  } else {
+    err = cudaFuncSetAttribute(ffn_ln_kernel<D, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ffn_ln_kernel<D, false><<<grid, kThreads, smem, s>>>(xp, wp, bp, gp, tp, sp, out, M, F, 1,
+                                                         0u, 1.0f, eps);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Forward. seeds: (M / T,) int32, or null for rate 0 (threshold and scale are
-// then not read). Returns the cudaError_t of the launch, or -1 for a shape it
-// was not built for.
+// then not read). D is 1024, or 1280 at rate 0. Returns the cudaError_t of the
+// launch, or -1 for a shape it was not built for.
 extern "C" int coral_ffn_ln_fwd(const void* x, const void* w1, const void* b1,
                                 const void* gamma, const void* beta, const void* seeds,
                                 void* g, long long M, int D, int F, int T,
                                 unsigned int threshold, float scale, float eps, void* stream) {
-  if (D != kD || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
+  if (F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
+  if (D != kD && !(D == 1280 && seeds == nullptr)) return -1;
   if (M <= 0) return 0;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)(F / kBN));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* wp = static_cast<const bf16*>(w1);
@@ -459,21 +495,10 @@ extern "C" int coral_ffn_ln_fwd(const void* x, const void* w1, const void* b1,
               *tp = static_cast<const float*>(beta);
   const int* sp = static_cast<const int*>(seeds);
   bf16* out = static_cast<bf16*>(g);
-  cudaError_t err;
-  if (seeds != nullptr) {
-    err = cudaFuncSetAttribute(ffn_ln_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (err != cudaSuccess) return (int)err;
-    ffn_ln_kernel<true><<<grid, kThreads, kSmem, s>>>(xp, wp, bp, gp, tp, sp, out, M, F, T,
-                                                      threshold, scale, eps);
-  } else {
-    err = cudaFuncSetAttribute(ffn_ln_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
-    if (err != cudaSuccess) return (int)err;
-    ffn_ln_kernel<false><<<grid, kThreads, kSmem, s>>>(xp, wp, bp, gp, tp, sp, out, M, F, 1,
-                                                       0u, 1.0f, eps);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      D == kD ? launch_ffn_ln<1024>(xp, wp, bp, gp, tp, sp, out, M, F, T, threshold, scale, eps, s)
+              : launch_ffn_ln<1280>(xp, wp, bp, gp, tp, sp, out, M, F, T, threshold, scale, eps, s);
+  return (int)err;
 }
 
 // Backward kernels (i) and (ii); seeds as the forward. db1_part has

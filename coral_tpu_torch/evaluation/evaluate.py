@@ -1,8 +1,9 @@
 """Building a transcriber for a model id.
 
 Port of ``load_saved_predictor`` from ``coral_tpu/evaluation/evaluate.py``:
-the pretrained-id branch, which runs the architecture the id names with seeded
-random weights while no checkpoint is on disk. A saved coral-tpu model
+the pretrained-id branch, which runs the architecture the id names (wav2vec2,
+or Whisper when the id contains "whisper") with seeded random weights while no
+checkpoint is on disk. A saved coral-tpu model
 directory (orbax params, JAX-only) and beam search with a stored n-gram LM
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -10,17 +11,17 @@ raise ``NotImplementedError`` naming their ROADMAP item.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import torch
 
 from ..models.wav2vec2 import NOT_PORTED
-from ..training.model_setup import GreedyCtcPredictor, load_model_setup
+from ..training.model_setup import load_model_setup
 
 
 def load_saved_predictor(
-    config: Mapping[str, Any], device: str | torch.device = "cpu"
-) -> tuple[GreedyCtcPredictor, dict]:
+    config: Mapping[str, Any], device: str | torch.device = "cuda"
+) -> tuple[Callable[[Mapping[str, Any]], list[str]], dict]:
     """Build a transcriber for ``config["model_id"]`` on ``device``.
 
     ``config`` has these keys of the JAX package's evaluation surface:

@@ -1,8 +1,9 @@
-"""The JAX package's wav2vec2 weights -> this package's ``state_dict``.
+"""The JAX package's wav2vec2 and Whisper weights -> this package's ``state_dict``.
 
-The reverse of ``coral_tpu/models/convert.py``'s map: the flax tree of
+The reverse of ``coral_tpu/models/convert.py``'s maps: the flax tree of
 ``coral_tpu.models.Wav2Vec2ForCTC`` (as numpy arrays) becomes the ``state_dict``
-of ``coral_tpu_torch.models.Wav2Vec2ForCTC``. Flax stacks the scanned encoder
+of ``coral_tpu_torch.models.Wav2Vec2ForCTC``, and the stacked tree of
+``init_whisper_params`` that of ``WhisperForConditionalGeneration``. Flax stacks the scanned encoder
 layers on a leading (L,) axis, keeps dense kernels as (in, out) and conv
 kernels as (K, C_in/groups, C_out); the bridge unstacks the layers and
 transposes to PyTorch's (out, in) and (C_out, C_in/groups, K). The q/k/v
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .wav2vec2 import Wav2Vec2Config
+from .whisper import WhisperConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -25,7 +27,8 @@ def _t(a) -> torch.Tensor:
 
 def _dense(tree: Mapping[str, Any], prefix: str, out: dict) -> None:
     out[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
-    out[f"{prefix}.bias"] = _t(tree["bias"])
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _t(tree["bias"])
 
 
 def _layer_norm(tree: Mapping[str, Any], prefix: str, out: dict) -> None:
@@ -82,4 +85,38 @@ def wav2vec2_state_dict_from_jax(
             _dense(layer["feed_forward"][name], f"{p}.feed_forward.{name}", sd)
 
     _dense(params["lm_head"], "lm_head", sd)
+    return sd
+
+
+def whisper_state_dict_from_jax(
+    params: Mapping[str, Any], config: WhisperConfig
+) -> dict[str, torch.Tensor]:
+    """Convert ``coral_tpu`` ``init_whisper_params``' tree (stacked layers) to
+    this package's ``WhisperForConditionalGeneration`` ``state_dict`` (fp32
+    CPU tensors): layers unstacked, dense kernels (in, out) -> (out, in), conv
+    kernels (K, C_in, C_out) -> (C_out, C_in, K), ``k_proj`` without a bias."""
+    sd: dict[str, torch.Tensor] = {}
+    enc, dec = params["encoder"], params["decoder"]
+    for name in ("conv1", "conv2"):
+        sd[f"model.encoder.{name}.weight"] = _t(
+            np.asarray(enc[name]["kernel"]).transpose(2, 1, 0))
+        sd[f"model.encoder.{name}.bias"] = _t(enc[name]["bias"])
+    sd["model.encoder.embed_positions.weight"] = _t(enc["embed_positions"])
+    sd["model.decoder.embed_tokens.weight"] = _t(dec["embed_tokens"])
+    sd["model.decoder.embed_positions.weight"] = _t(dec["embed_positions"])
+    for side, tree, n_layers, attns in (
+        ("encoder", enc, config.encoder_layers, ("self_attn",)),
+        ("decoder", dec, config.decoder_layers, ("self_attn", "encoder_attn")),
+    ):
+        _layer_norm(tree["layer_norm"], f"model.{side}.layer_norm", sd)
+        for i in range(n_layers):
+            layer = _layer(tree["layers"], i)
+            p = f"model.{side}.layers.{i}"
+            for attn in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    _dense(layer[attn][proj], f"{p}.{attn}.{proj}", sd)
+                _layer_norm(layer[f"{attn}_layer_norm"], f"{p}.{attn}_layer_norm", sd)
+            for fc in ("fc1", "fc2"):
+                _dense(layer[fc], f"{p}.{fc}", sd)
+            _layer_norm(layer["final_layer_norm"], f"{p}.final_layer_norm", sd)
     return sd

@@ -67,6 +67,10 @@ _SIGNATURES = {
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream
     "coral_ctc_beta": [_P] * 6 + [_I, _I, _I, _P],
+    # q, k, v, o, B, T, H, stride_b, stride_t, scale, stream
+    "coral_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, mask, part_o, part_ml, out, B, K, n_keys, H, layer, scale, stream
+    "coral_decode_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

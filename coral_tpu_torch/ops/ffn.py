@@ -33,7 +33,11 @@ from .ln_gelu import ln_bwd
 from .philox import keep_mask, threshold
 
 _KERNEL_D = 1024
+# Widths the rate-0 forward kernel takes: XLS-R-300M's, and Whisper large-v3's
+# (and XLS-R-1B's). Dropout and the backward kernels take _KERNEL_D only.
+_KERNEL_FWD_D = (1024, 1280)
 _KERNEL_F_TILE = 256
+_WIDTHS_ROADMAP = "other widths: ROADMAP.md, Queue 2 item 3 (the FFN kernels at 1280 and 1920)"
 _ROW_TILE = 64
 
 
@@ -67,12 +71,13 @@ def _fc2(g, w2, b2):
     return (torch.matmul(g, w2.to(g.dtype).t()).float() + b2.float()).to(g.dtype)
 
 
-def _check_shapes(name, x, w1, F):
+def _check_shapes(name, x, w1, F, widths=(_KERNEL_D,)):
     D = x.shape[-1]
-    if D != _KERNEL_D or w1.shape != (F, D) or F % _KERNEL_F_TILE:
+    if D not in widths or w1.shape != (F, D) or F % _KERNEL_F_TILE:
         raise ValueError(
-            f"{name}: the kernel takes D = {_KERNEL_D} and F a multiple of "
-            f"{_KERNEL_F_TILE}, got x {tuple(x.shape)} and w1 {tuple(w1.shape)}"
+            f"{name}: the kernel takes D in {widths} and F a multiple of "
+            f"{_KERNEL_F_TILE}, got x {tuple(x.shape)} and w1 {tuple(w1.shape)}; "
+            + _WIDTHS_ROADMAP
         )
     return D
 
@@ -91,7 +96,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
     """``g = dropout(gelu(bf16(layer_norm(x)) @ W1^T + b1))``, the kernel's output.
 
     Args:
-        x: (B, T, D); on CUDA bf16 with D = 1024.
+        x: (B, T, D); on CUDA bf16 with D = 1024, or D = 1280 at rate 0.
         w1: (F, D), cast to ``x.dtype``; on CUDA F a multiple of 256.
         b1: (F,) fp32.  gamma, beta: (D,) fp32.
         rate: activation-dropout rate in [0, 1).
@@ -104,7 +109,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
     if not _build.require_cuda(name, x):
         return ffn_ln_fc1_plain(x, w1, b1, gamma, beta, eps, rate, seeds)
     F = w1.shape[0]
-    D = _check_shapes(name, x, w1, F)
+    D = _check_shapes(name, x, w1, F, _KERNEL_FWD_D if rate == 0.0 else (_KERNEL_D,))
     w1 = w1.to(x.dtype)
     _build.check_cuda(name, torch.bfloat16, x, w1)
     _build.check_cuda(name, torch.float32, b1, gamma, beta)
@@ -114,8 +119,10 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
         raise ValueError(f"{name}: all tensors must be on {x.device}")
     seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
     g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
+    # Each width is its own instantiation of the kernel, counted apart.
+    kernel = "ffn_ln_drop" if rate > 0.0 else "ffn_ln" if D == _KERNEL_D else f"ffn_ln_{D}"
     _build.launch(
-        name, "ffn_ln_drop" if rate > 0.0 else "ffn_ln", x.data_ptr(), w1.data_ptr(),
+        name, kernel, x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), seed_ptr, g.data_ptr(),
         x.numel() // D, D, F, T, thr, scale, float(eps),
     )

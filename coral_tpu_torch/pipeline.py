@@ -3,24 +3,22 @@
 Port of ``coral_tpu/pipeline.py`` (``ASRPipeline``) on PyTorch:
 
     from coral_tpu_torch import ASRPipeline
-    asr = ASRPipeline("facebook/wav2vec2-xls-r-300m", device="cuda")
+    asr = ASRPipeline("facebook/wav2vec2-xls-r-300m")  # or "openai/whisper-large-v3"
     print(asr("recording.wav"))
 
-Clips are padded to the model window (30 s) and run in fixed batches; a
-partial batch is filled with ``lengths=1`` rows whose outputs are dropped.
-Audio beyond the window goes through overlapping windows
-(``coral_tpu.evaluation.longform.chunk_waveform``, which imports no JAX).
+The model runs on the card unless ``device="cpu"`` is asked for. Clips are
+padded to the model window (30 s) and run in fixed batches; a partial batch is
+filled with ``lengths=1`` rows whose outputs are dropped. Audio beyond the
+window goes through overlapping windows (``evaluation/longform.py``).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Iterable, Sequence
+from typing import Any, Callable, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
-
-from .training.model_setup import GreedyCtcPredictor
 
 
 class ASRPipeline:
@@ -28,12 +26,14 @@ class ASRPipeline:
 
     Args:
         model_id: A pretrained checkpoint id or path (its name picks the
-            architecture, e.g. ``facebook/wav2vec2-xls-r-300m``).
+            family and architecture, e.g. ``facebook/wav2vec2-xls-r-300m`` or
+            ``openai/whisper-large-v3``).
         batch_size: Device batch size for transcription.
         no_lm: Decode greedily even when an n-gram LM is stored with the model
             (beam search is not ported yet).
         sampling_rate: Input audio is resampled to this rate.
-        device: Where the model runs (``"cuda"`` for the kernels).
+        device: Where the model runs: the card (the kernels), or ``"cpu"``
+            (the kernels' plain versions).
     """
 
     def __init__(
@@ -42,7 +42,7 @@ class ASRPipeline:
         batch_size: int = 8,
         no_lm: bool = False,
         sampling_rate: int = 16_000,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ) -> None:
         from .evaluation.evaluate import load_saved_predictor
 
@@ -59,8 +59,8 @@ class ASRPipeline:
         self.window_seconds = float(geometry["max_seconds"])
 
     @property
-    def predictor(self) -> GreedyCtcPredictor:
-        """The batch transcriber: its ``model``, ``tokenizer`` and ``logits``."""
+    def predictor(self) -> Callable[[Mapping[str, Any]], list[str]]:
+        """The batch transcriber, with its ``model`` and ``tokenizer``."""
         return self._predict
 
     # -- input handling ---------------------------------------------------------
@@ -111,7 +111,7 @@ class ASRPipeline:
         T = int(self.window_seconds * self.sampling_rate)
         if len(audio) <= T:
             return self.transcribe_batch([audio])[0]
-        from coral_tpu.evaluation.longform import chunk_waveform
+        from .evaluation.longform import chunk_waveform
 
         stride = T // 6
         windows = [w for _, w in chunk_waveform(audio, T, stride)]

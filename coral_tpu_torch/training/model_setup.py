@@ -1,15 +1,21 @@
 """Model setup: config -> tokenizer + seeded model + greedy predictor + train step.
 
-Port of ``coral_tpu/training/model_setup.py`` ``Wav2Vec2Setup``: the
+Port of ``coral_tpu/training/model_setup.py``. ``Wav2Vec2Setup``: the
 tokenizer, ``_infer_arch``, the training fields of the config (:125-293) with
 the remat policy and its warnings, ``_augmentation_settings`` (:78-98),
 ``init_params``, ``make_predictor`` and ``make_train_step`` (:326-341), the
 wav2vec2-CTC step with the feature encoder trained or frozen, the named remat
-policies and the augmentation chain. What is not ported raises
-``NotImplementedError`` naming its ROADMAP item rather than running something
-else in silence: beam search with an n-gram LM, Whisper, loading a checkpoint,
-and in training the ``dots_saveable`` policy, ``remat_feature_encoder: true``
-and more than one device.
+policies and the augmentation chain. ``WhisperSetup`` (:452-628), the serving
+half: ``_infer_arch``, the tokenizer, the model config from the YAML surface
+with the JAX setup's kernel flags, ``init_params`` and the greedy
+``make_predictor``. What is not ported raises ``NotImplementedError`` naming
+its ROADMAP item rather than running something else in silence: beam search
+(with an n-gram LM, or Whisper's), Whisper timestamps and training, loading a
+checkpoint, and in wav2vec2 training the ``dots_saveable`` policy,
+``remat_feature_encoder: true`` and more than one device.
+
+Every setup builds its model on ``device``, the card unless the caller asks
+for the CPU; without a card that raises, as torch does.
 
 Configs are plain mappings with the keys of the JAX package's config surface
 (``config["model"]["pretrained_model_id"]`` and so on).
@@ -25,12 +31,13 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from coral_tpu.text.tokenizer import CtcTokenizer
-
 from ..audio.features import znorm
 from ..audio.noise_bank import download_background_noises, load_noise_bank
+from ..models import whisper as W
 from ..models.wav2vec2 import (NOT_PORTED, Wav2Vec2Config, Wav2Vec2ForCTC, build_model,
                                remat_names)
+from ..text.tokenizer import CtcTokenizer
+from ..text.whisper_tokenizer import WhisperTokenizer
 
 logger = logging.getLogger(__package__)
 
@@ -88,6 +95,33 @@ def _find_local_checkpoint(pretrained_model_id: str | None) -> Path | None:
     return None
 
 
+def _check_kernel_flags(model_cfg: Mapping[str, Any], defaults: Mapping[str, Any]) -> None:
+    """Raise for a kernel flag set to a value whose route the port lacks."""
+    for key, default in defaults.items():
+        if key in model_cfg and model_cfg[key] != default:
+            raise NotImplementedError(
+                f"model.{key}={model_cfg[key]!r} (the port implements "
+                f"{default!r}): " + NOT_PORTED.format("9 (off-default kernel flags)")
+            )
+
+
+def _refuse_checkpoint(pretrained: str | None, is_main: bool) -> None:
+    """Raise if a checkpoint for ``pretrained`` is on disk: the port cannot
+    load one yet and does not serve random weights in its place."""
+    ckpt = _find_local_checkpoint(pretrained)
+    if ckpt is not None:
+        raise NotImplementedError(
+            f"found checkpoint {ckpt}; loading it is "
+            + NOT_PORTED.format("2 (HF checkpoints)")
+            + ", and the port does not serve random weights in its place"
+        )
+    if is_main and pretrained:
+        logger.warning(
+            f"Pretrained checkpoint {pretrained!r} not found locally; "
+            "initialising from scratch."
+        )
+
+
 def _augmentation_settings(config: Mapping[str, Any],
                            is_main: bool) -> tuple[bool, np.ndarray | None]:
     """Resolve train-time augmentation (the reference trains with the
@@ -142,14 +176,9 @@ class Wav2Vec2Setup:
     """wav2vec2-CTC family: serving and the train step."""
 
     def __init__(self, config: Mapping[str, Any], is_main: bool = True,
-                 device: str | torch.device = "cpu") -> None:
+                 device: str | torch.device = "cuda") -> None:
         model_cfg = config["model"]
-        for key, default in _KERNEL_FLAG_DEFAULTS.items():
-            if key in model_cfg and model_cfg[key] != default:
-                raise NotImplementedError(
-                    f"model.{key}={model_cfg[key]!r} (the port implements "
-                    f"{default!r}): " + NOT_PORTED.format("9 (off-default kernel flags)")
-                )
+        _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
         self.device = torch.device(device)
         self.tokenizer = CtcTokenizer.from_characters(model_cfg["characters_to_keep"])
         use_bf16 = bool(config.get("bf16_allowed", True))
@@ -196,19 +225,7 @@ class Wav2Vec2Setup:
                 "or nothing_saveable with the stats variants."
             )
         self.audio_pad_seconds = float(config["max_seconds_per_example"])
-        pretrained = model_cfg.get("pretrained_model_id")
-        ckpt = _find_local_checkpoint(pretrained)
-        if ckpt is not None:
-            raise NotImplementedError(
-                f"found checkpoint {ckpt}; loading it is "
-                + NOT_PORTED.format("2 (HF checkpoints)")
-                + ", and the port does not serve random weights in its place"
-            )
-        if is_main and pretrained:
-            logger.warning(
-                f"Pretrained checkpoint {pretrained!r} not found locally; "
-                "initialising from scratch."
-            )
+        _refuse_checkpoint(model_cfg.get("pretrained_model_id"), is_main)
 
     @staticmethod
     def _infer_arch(model_cfg: Mapping[str, Any]) -> Callable[..., Wav2Vec2Config]:
@@ -273,12 +290,130 @@ class Wav2Vec2Setup:
         )
 
 
+# Ordered: the first key found in the architecture or checkpoint id wins
+# (coral_tpu/training/model_setup.py _WHISPER_ARCHS).
+_WHISPER_ARCHS: list[tuple[str, Callable[..., W.WhisperConfig]]] = [
+    ("tiny_test", W.WhisperConfig.tiny_test),
+    ("turbo", W.WhisperConfig.large_v3_turbo),
+    ("large-v3", W.WhisperConfig.large_v3),
+    ("large", W.WhisperConfig.large_v2),
+    ("medium", W.WhisperConfig.medium),
+    ("small", W.WhisperConfig.small),
+    ("base", W.WhisperConfig.base),
+    ("tiny", W.WhisperConfig.tiny),
+]
+
+# The JAX Whisper setup's FFN kernel flags at their defaults: the encoder FFN
+# is ``ffn_ln_block`` with fc2 outside the kernel. ``fused_ffn_ln`` is read
+# only without the block, which the port does not take.
+_WHISPER_KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
+    "fused_ffn_block": True,
+    "fused_ffn_block_dw": False,
+    "fused_ffn_block_fc2": False,
+    "fused_ffn_block_dg": True,
+}
+
+
+class WhisperPredictor:
+    """Host batch -> transcripts: the generate step, then
+    ``WhisperTokenizer.batch_decode`` (the JAX ``make_predictor``'s
+    ``predict``)."""
+
+    def __init__(self, model: W.WhisperForConditionalGeneration, tokenizer: WhisperTokenizer,
+                 generate: Callable) -> None:
+        self.model = model
+        self.tokenizer = tokenizer
+        self.generate = generate
+
+    def __call__(self, batch: Mapping[str, Any]) -> list[str]:
+        return self.tokenizer.batch_decode(self.generate(self.model, batch).cpu().numpy())
+
+
+class WhisperSetup:
+    """Whisper seq2seq family: serving (greedy generation)."""
+
+    CHUNK_SECONDS = 30  # published checkpoints expect 30 s / 3000 mel frames
+
+    def __init__(self, config: Mapping[str, Any], is_main: bool = True,
+                 device: str | torch.device = "cuda") -> None:
+        model_cfg = config["model"]
+        if not (bool(model_cfg.get("fused_ffn", True))
+                or bool(model_cfg.get("fused_ffn_ln", False))):
+            raise NotImplementedError(
+                "model.fused_ffn=False (the plain FFN with exact GELU): "
+                + NOT_PORTED.format("9 (off-default kernel flags)"))
+        _check_kernel_flags(model_cfg, _WHISPER_KERNEL_FLAG_DEFAULTS)
+        self.config = config
+        self.device = torch.device(device)
+        self._is_main = is_main
+        arch = self._infer_arch(model_cfg)
+        _refuse_checkpoint(model_cfg.get("pretrained_model_id"), is_main)
+        self.tokenizer = WhisperTokenizer.byte_fallback(
+            language=model_cfg.get("language", "danish"),
+            task=model_cfg.get("task", "transcribe"),
+        )
+        use_bf16 = bool(config.get("bf16_allowed", True))
+        self.model_config = arch(
+            vocab_size=self.tokenizer.vocab_size,
+            dtype=torch.bfloat16 if use_bf16 else torch.float32,
+            dropout=model_cfg.get("dropout", 0.0),
+            activation_dropout=model_cfg.get("activation_dropout", 0.1),
+            attention_dropout=model_cfg.get("attention_dropout", 0.0),
+            mask_time_prob=model_cfg.get("mask_time_prob", 0.5),
+            mask_time_length=model_cfg.get("mask_time_length", 10),
+            mask_feature_prob=model_cfg.get("mask_feature_prob", 0.5),
+            mask_feature_length=model_cfg.get("mask_feature_length", 64),
+            ln_impl=model_cfg.get("ln_impl", "xla"),
+        )
+        self.generation_max_length = int(model_cfg.get("max_length", 225))
+        self.audio_pad_seconds = float(model_cfg.get("chunk_seconds", self.CHUNK_SECONDS))
+
+    @staticmethod
+    def _infer_arch(model_cfg: Mapping[str, Any]) -> Callable[..., W.WhisperConfig]:
+        explicit = model_cfg.get("architecture")
+        pretrained = (model_cfg.get("pretrained_model_id") or "").lower()
+        key_source = explicit if explicit is not None else pretrained
+        for key, factory in _WHISPER_ARCHS:
+            if key in key_source:
+                return factory
+        if explicit is not None:
+            raise ValueError(f"Unknown whisper architecture {explicit!r}")
+        return W.WhisperConfig.small
+
+    def init_params(self, seed: int = 0) -> W.WhisperForConditionalGeneration:
+        """A randomly initialised model on the setup's device, from ``seed``."""
+        return W.build_model(self.model_config, self.device, seed=seed)
+
+    def make_train_step(self, tx, schedule) -> Callable:
+        raise NotImplementedError(
+            "the seq2seq train step: " + NOT_PORTED.format("6c (Whisper training)"))
+
+    def make_predictor(self, model: W.WhisperForConditionalGeneration) -> WhisperPredictor:
+        """Greedy generation: host batch -> list of transcript strings.
+        ``generation_num_beams`` > 1 and ``return_timestamps`` raise (not
+        ported)."""
+        from .train_state import make_whisper_generate_step
+
+        model_cfg = self.config["model"]
+        timestamps = bool(model_cfg.get("return_timestamps", False))
+        generate = make_whisper_generate_step(
+            self.model_config,
+            forced_ids=(self.tokenizer.forced_decoder_ids_timestamps if timestamps
+                        else self.tokenizer.forced_decoder_ids),
+            max_length=self.generation_max_length,
+            eos_id=self.tokenizer.eos_token_id,
+            num_beams=int(model_cfg.get("generation_num_beams", 1)),
+            timestamps=timestamps,
+        )
+        return WhisperPredictor(model, self.tokenizer, generate)
+
+
 def load_model_setup(config: Mapping[str, Any], is_main: bool = True,
-                     device: str | torch.device = "cpu") -> Wav2Vec2Setup:
+                     device: str | torch.device = "cuda") -> Wav2Vec2Setup | WhisperSetup:
     """Dispatch on ``config["model"]["type"]``."""
     model_type = config["model"]["type"]
     if model_type == "wav2vec2":
         return Wav2Vec2Setup(config, is_main=is_main, device=device)
     if model_type == "whisper":
-        raise NotImplementedError("Whisper: " + NOT_PORTED.format("6 (Whisper)"))
+        return WhisperSetup(config, is_main=is_main, device=device)
     raise ValueError(f"Unsupported model type: {model_type!r}")

@@ -1,7 +1,8 @@
-"""Train state and the CTC train step on one device.
+"""Train state and the CTC train step on one device, and Whisper's generate step.
 
 Port of ``coral_tpu/training/train_state.py`` (``_device_audio`` :28,
-``TrainState`` :35, ``make_ctc_train_step`` :51-183) for one device. Per
+``TrainState`` :35, ``make_ctc_train_step`` :51-183, and the greedy half of
+``make_whisper_generate_step`` :329-374) for one device. Per
 microbatch: the augmentation chain (``augment=True``, ``audio/augment.py``,
 with the background-noise bank when one is given), z-norm, the model in
 training mode, fp32 log-softmax, the CTC loss (sum divided by the microbatch
@@ -178,3 +179,39 @@ def make_ctc_train_step(
         return state, metrics
 
     return train_step
+
+
+def make_whisper_generate_step(
+    model_config,
+    forced_ids,
+    max_length: int,
+    eos_id: int,
+    num_beams: int = 1,
+    timestamps: bool = False,
+) -> Callable:
+    """The eval forward ``(model, batch) -> (B, max_length) ids``: generation
+    from raw waveforms (peak normalisation, the log-mel frontend, greedy
+    decoding). Beam search and timestamps raise: they are not ported yet."""
+    from ..audio.augment import peak_normalize
+    from ..audio.mel import log_mel_spectrogram
+    from ..models import whisper as W
+    from ..models.wav2vec2 import NOT_PORTED
+
+    if num_beams > 1:
+        raise NotImplementedError(
+            f"beam search (num_beams={num_beams}): "
+            + NOT_PORTED.format("6b (Whisper beam search and timestamps)"))
+    if timestamps:
+        raise NotImplementedError(
+            "timestamps: " + NOT_PORTED.format("6b (Whisper beam search and timestamps)"))
+    forced = [int(t) for t in np.asarray(forced_ids)]
+
+    @torch.inference_mode()
+    def generate_step(model: nn.Module, batch: Mapping[str, Any]) -> torch.Tensor:
+        device = next(model.parameters()).device
+        audio = torch.as_tensor(np.asarray(batch["input_values"])).to(device)
+        feats = log_mel_spectrogram(peak_normalize(_device_audio(audio).float()),
+                                    n_mels=model_config.num_mel_bins, dtype=model_config.dtype)
+        return W.greedy_generate(model, feats, forced, max_length=max_length, eos_id=eos_id)
+
+    return generate_step

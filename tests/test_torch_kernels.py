@@ -7,7 +7,8 @@ where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Inputs are made by numpy from a seed, at the real widths (C = 512/1024,
-head_dim 64, D = 1024) and short lengths, in bf16: the point is the kernel.
+head_dim 64, D = 1024/1280) and short lengths, in bf16: the point is the
+kernel.
 Tolerance: |kernel - plain| <= atol + rtol |plain| with rtol = 2**-6, two bf16
 ulps of the output: both sides compute in fp32 and round once to bf16, and a
 reordered fp32 sum can move that rounding by one ulp. atol covers values near
@@ -23,6 +24,12 @@ torch's fp32 products, summed over up to 4096 terms); fp32 partial sums
 CTC recursions, fp32 end to end, at rtol 1e-5 and atol 1e-3 (log-probs of
 order 100, summed in the same order). Dropout masks are compared exactly:
 kernel and plain draw the same Philox bits.
+
+Whisper's attention kernels: the encoder's flash attention at 8e-3 as the
+wav2vec2 attention (bf16 probabilities rounded against the running max); the
+decode kernels at 4e-3, which keep the probabilities in fp32 where the plain
+version (the JAX composition) rounds them to bf16 before p @ v: at most
+2**-9 of each term, summed over keys whose weights add to 1.
 """
 
 import numpy as np
@@ -30,7 +37,8 @@ import pytest
 import torch
 
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
-from coral_tpu_torch.ops import _build, attention, conv_ln_gelu, ctc, ffn, ln_gelu, philox
+from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, decode_attention, ffn,
+                                 flash_attention, ln_gelu, philox)
 
 pytestmark = pytest.mark.cuda
 RTOL_BF16 = 2.0**-6
@@ -108,8 +116,9 @@ def test_attention_kernel_matches_plain(cuda, packed):
     assert (lse[2] == -1e25).all()
 
 
-def test_ffn_kernel_matches_plain(cuda):
-    D, F = 1024, 512
+@pytest.mark.parametrize("D", [1024, 1280])
+def test_ffn_kernel_matches_plain(cuda, D):
+    F = 512
     x = _on(cuda, _np(2, 75, D, seed=0), torch.bfloat16)
     w1 = _on(cuda, _np(F, D, seed=1, scale=0.03), torch.bfloat16)
     b1 = _on(cuda, _np(F, seed=2, scale=0.1))
@@ -385,3 +394,88 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     m = torch.ones(1, 7000, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="S <="):
         ctc.ctc_alpha(emit, m, m, torch.ones(1, device=cuda, dtype=torch.int32))
+
+
+# -- Whisper serving: encoder flash attention, decode attention ----------------------
+
+
+@pytest.mark.parametrize("T", [1500, 1000])
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+def test_flash_attention_kernel_matches_plain(cuda, T, packed):
+    """T = 1500 (Whisper's encoder, not a multiple of the 64-key tile) and
+    T = 1000; q, k, v as separate tensors or as views of one packed
+    projection (strided rows)."""
+    B, H, d = 2, 3, 64
+    q, k, v = (_np(B, T, H * d, seed=i) for i in range(3))
+    if packed:
+        qkv = _on(cuda, np.concatenate([q, k, v], axis=-1), torch.bfloat16)
+        q, k, v = (t.view(B, T, H, d) for t in qkv.split(H * d, dim=-1))
+    else:
+        q, k, v = (_on(cuda, a, torch.bfloat16).view(B, T, H, d) for a in (q, k, v))
+    _build.reset_launch_counts()
+    got = flash_attention.flash_self_attention(q, k, v)
+    assert _build.launch_counts == {"flash_attention": 1}
+    _close(got, flash_attention.flash_self_attention_plain(q, k, v), 8e-3)
+
+
+def _beam_onehot(B, K, T, pos, seed):
+    """Query beam k of item b attends, at each position t <= pos, the slot of
+    a random ancestor beam (K = 1: the causal mask)."""
+    rng = np.random.default_rng(seed)
+    onehot = np.zeros((B, K, K * T), np.float32)
+    for b in range(B):
+        for k in range(K):
+            for t in range(pos + 1):
+                onehot[b, k, rng.integers(K) * T + t] = 1.0
+    return onehot
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_decode_self_kernel_matches_plain(cuda, K):
+    """Layer 1 of a 3-layer cache at Whisper large-v3's width (20 heads x 64),
+    T = 70 slots a beam (K * T spans several 128-key chunks at K = 5)."""
+    B, T, L, HD, pos = 3, 70, 3, 1280, 40
+    q = _on(cuda, _np(B * K, HD, seed=0), torch.bfloat16)
+    ck = _on(cuda, _np(L, B * K, T, HD, seed=1), torch.bfloat16)
+    cv = _on(cuda, _np(L, B * K, T, HD, seed=2), torch.bfloat16)
+    onehot = _on(cuda, _beam_onehot(B, K, T, pos, seed=3))
+    _build.reset_launch_counts()
+    got = decode_attention.decode_self_attention(q, ck, cv, onehot, 20, 1)
+    assert _build.launch_counts == {"decode_self_attention": 1}
+    _close(got, decode_attention.decode_self_attention_plain(q, ck, cv, onehot, 20, 1), 4e-3)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_decode_cross_kernel_matches_plain(cuda, K):
+    """Layer 2 of a 3-layer store of S = 1500 encoder rows, shared by K beams."""
+    B, S, L, HD = 2, 1500, 3, 1280
+    q = _on(cuda, _np(B * K, HD, seed=0), torch.bfloat16)
+    k = _on(cuda, _np(L, B, S, HD, seed=1), torch.bfloat16)
+    v = _on(cuda, _np(L, B, S, HD, seed=2), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = decode_attention.decode_cross_attention(q, k, v, 20, 2)
+    assert _build.launch_counts == {"decode_cross_attention": 1}
+    _close(got, decode_attention.decode_cross_attention_plain(q, k, v, 20, 2), 4e-3)
+
+
+def test_whisper_kernels_reject_what_they_do_not_take(cuda):
+    """A CUDA tensor the kernels do not take raises and is never sent to the
+    plain version: the FFN's dropout at D = 1280, head_dim 32, > 64 beams."""
+    _build.reset_launch_counts()
+    x = torch.zeros(1, 8, 1280, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(512, 1280, device=cuda, dtype=torch.bfloat16)
+    b1, g = torch.zeros(512, device=cuda), torch.ones(1280, device=cuda)
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        ffn.ffn_ln_fc1(x, w1, b1, g, g, rate=0.1,
+                       seeds=torch.zeros(1, dtype=torch.int32, device=cuda))
+    q = torch.zeros(1, 64, 4, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_self_attention(q, q, q)
+    cache = torch.zeros(2, 1, 8, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention.decode_cross_attention(cache[0, :, 0], cache, cache, 4, 0)
+    many = torch.zeros(2, 65, 8, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="beams"):
+        decode_attention.decode_self_attention(many[0, :, 0], many, many,
+                                               torch.ones(1, 65, 65 * 8, device=cuda), 2, 0)
+    assert not _build.launch_counts

@@ -25,11 +25,12 @@ import torch
 import coral_tpu.ops.attention_pallas as jat
 import coral_tpu.ops.conv_ln_gelu_pallas as jcg
 import coral_tpu.ops.ctc as jctc
+import coral_tpu.ops.decode_attention as jdec
 import coral_tpu.ops.ffn_pallas as jffn
 import coral_tpu.ops.gelu_dropout_pallas as jgelu
 import coral_tpu.ops.ln_gelu_pallas as jln
-from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, ffn, gelu_poly,
-                                 ln_gelu, philox)
+from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, decode_attention, ffn,
+                                 flash_attention, gelu_poly, ln_gelu, philox)
 
 ATOL = 2e-5
 ATOL_SUM = 1e-4
@@ -286,6 +287,23 @@ def test_ffn_ln_block_bwd_matches_jax_interpret():
         _close(got, want[i], atol=ATOL_SUM)
 
 
+def test_ffn_ln_block_matches_jax_interpret_at_whisper_large_width():
+    """D = 1280, F = 5120 (Whisper large-v3, XLS-R-1B): the width the forward
+    kernel gained for Whisper serving, against the JAX block in interpret mode."""
+    D, F = 1280, 5120
+    x = _np(1, 16, D, seed=0, offset=0.3)
+    w1 = _np(D, F, seed=1, scale=D**-0.5)
+    b1 = _np(F, seed=2, scale=0.1)
+    gamma = _np(D, seed=3, scale=0.1, offset=1.0)
+    beta = _np(D, seed=4, scale=0.1)
+    w2 = _np(F, D, seed=5, scale=F**-0.5)
+    b2 = _np(D, seed=6, scale=0.1)
+    want = jffn.ffn_ln_block(*map(jnp.asarray, (x, w1, b1, gamma, beta, w2, b2)),
+                             interpret=True, dg_in_kernel=True)
+    got = ffn.ffn_ln_block(_t(x), _t(w1.T), _t(b1), _t(gamma), _t(beta), _t(w2.T), _t(b2))
+    _close(got, want)
+
+
 def test_ffn_dropout_laws():
     """Rate 0.1: the keep fraction, the 1/keep scale, a mask fixed by the seeds
     (and per batch row by its own seed), and dh zero exactly where g was
@@ -374,6 +392,62 @@ def test_ctc_loss_matches_torch_ctc_loss():
     _close(grads[0], grads[1], atol=1e-5)
 
 
+# -- Whisper's attention: encoder flash and the decode step ------------------------
+
+
+@pytest.mark.parametrize("T", [100, 150])
+def test_flash_self_attention_matches_jax_dot_product_attention(T):
+    """The plain flash attention against ``jax.nn.dot_product_attention``,
+    which the JAX model runs off-TPU, on (B, T, H, d) in fp32."""
+    q, k, v = (_np(2, T, 3, 64, seed=i) for i in range(3))
+    want = jax.nn.dot_product_attention(*map(jnp.asarray, (q, k, v)))
+    got = flash_attention.flash_self_attention(_t(q), _t(k), _t(v))
+    assert got.shape == (2, T, 3, 64)
+    _close(got, want, atol=1e-5)
+
+
+def _ancestor_onehot(B, K, T, pos, seed):
+    """A beam-search slot mask: query beam k of item b attends, at every
+    position t <= pos, the cache slot of a random ancestor beam."""
+    rng = np.random.default_rng(seed)
+    onehot = np.zeros((B, K, K * T), np.float32)
+    for b in range(B):
+        for k in range(K):
+            for t in range(pos + 1):
+                onehot[b, k, rng.integers(K) * T + t] = 1.0
+    return onehot
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [1, 3])
+def test_decode_attention_matches_jax_off_tpu(K, dtype):
+    """The plain decode self- and cross-attention against the JAX package's own
+    off-TPU composition (``interpret=True``), reading layer 1 of stacked
+    stores, K = 1 (the causal mask) and K = 3 (a random ancestor mask). fp32
+    within 1e-6; bf16 within one bf16 ulp of the output (2**-7 relative at
+    |o| < 1), the products' fp32 sums in another order."""
+    B, T, S, H, d, L, pos = 2, 12, 40, 4, 16, 3, 7
+    q = _np(B * K, H * d, seed=0)
+    cache_k, cache_v = _np(L, B * K, T, H * d, seed=1), _np(L, B * K, T, H * d, seed=2)
+    cross_k, cross_v = _np(L, B, S, H * d, seed=3), _np(L, B, S, H * d, seed=4)
+    onehot = (_ancestor_onehot(B, K, T, pos, seed=5) if K > 1 else
+              np.broadcast_to(np.arange(T) <= pos, (B, 1, T)).astype(np.float32))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j = lambda a: jnp.asarray(a).astype(jdt)  # noqa: E731
+    p = lambda a: torch.from_numpy(np.array(a)).to(tdt)  # noqa: E731
+    want_self = jdec.decode_self_attention(j(q), j(cache_k), j(cache_v), jnp.asarray(onehot),
+                                           H, jnp.int32(1), interpret=True)
+    want_cross = jdec.decode_cross_attention(j(q), j(cross_k), j(cross_v), H, jnp.int32(1),
+                                             interpret=True)
+    got_self = decode_attention.decode_self_attention(p(q), p(cache_k), p(cache_v),
+                                                      torch.from_numpy(onehot), H, 1)
+    got_cross = decode_attention.decode_cross_attention(p(q), p(cross_k), p(cross_v), H, 1)
+    atol = 1e-6 if dtype == "float32" else 2.0**-7
+    for got, want in ((got_self, want_self), (got_cross, want_cross)):
+        assert got.dtype == tdt and got.shape == (B * K, H * d)
+        _close(got.float(), np.asarray(want.astype(jnp.float32)), atol=atol)
+
+
 # -- wrappers on the CPU ----------------------------------------------------------
 
 
@@ -393,6 +467,11 @@ def test_cpu_tensors_run_plain_and_count_no_launch():
     lp = torch.log_softmax(torch.zeros(9, 1, 5, requires_grad=True), -1)
     ctc.ctc_loss(lp, torch.ones(1, 2, dtype=torch.long), torch.tensor([9]),
                  torch.tensor([2])).backward()
+    qh = torch.zeros(1, 9, 2, 64)
+    flash_attention.flash_self_attention(qh, qh, qh)
+    cache = torch.zeros(2, 1, 9, 128)
+    decode_attention.decode_self_attention(q[0, :1], cache, cache, torch.ones(1, 1, 9), 2, 1)
+    decode_attention.decode_cross_attention(q[0, :1], cache, cache, 2, 0)
     assert sum(_build.launch_counts.values()) == 0
     assert _build._lib is None  # nothing was built either
     with pytest.raises(ValueError, match="no kernel or plain path"):

@@ -260,7 +260,7 @@ def _setup_config(**over):
 def test_loss_decreases_through_the_setup():
     """The production configuration at the tiny size through the entry point
     (as tests/test_train_step.py:48 does for the JAX step)."""
-    setup = load_model_setup(_setup_config())
+    setup = load_model_setup(_setup_config(), device="cpu")
     model = setup.init_params(seed=0)
     tx, schedule = create_optimizer(setup.learning_rate, warmup_steps=1, max_steps=100,
                                     mu_dtype="bfloat16")
@@ -289,7 +289,7 @@ def test_production_settings_train_through_the_setup(tmp_path):
     cfg = _setup_config(**{"model.freeze_feature_encoder": False, "augment_audio": True,
                            "background_noise_path": str(tmp_path / "bank.npy")})
     del cfg["remat_policy"]
-    setup = load_model_setup(cfg)
+    setup = load_model_setup(cfg, device="cpu")
     assert setup.remat_policy == "save_qk_ctx" and not setup.freeze_feature_encoder
     model = setup.init_params(seed=0)
     assert model.wav2vec2.encoder.remat_policy == "save_qk_ctx"
@@ -315,15 +315,17 @@ def test_production_settings_train_through_the_setup(tmp_path):
     ({"distributed": True}, "item 7"),
 ])
 def test_unported_training_inputs_raise(over, match):
-    setup = load_model_setup(_setup_config(**over))
+    setup = load_model_setup(_setup_config(**over), device="cpu")
     tx, schedule = create_optimizer(1e-3, 1, 10)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         setup.make_train_step(tx, schedule)
 
 
 def test_whisper_training_raises():
+    setup = load_model_setup({"model": {"type": "whisper", "architecture": "tiny_test"}},
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*Whisper"):
-        load_model_setup({"model": {"type": "whisper"}})
+        setup.make_train_step(None, None)
 
 
 def test_remat_policy_warnings_match_jax(caplog):
@@ -332,7 +334,7 @@ def test_remat_policy_warnings_match_jax(caplog):
     warnings)."""
     for policy, n in (("save_ctx_act", 2), ("save_attn_ctx", 1), ("save_qk_ctx", 0)):
         caplog.clear()
-        load_model_setup(_setup_config(remat_policy=policy))
+        load_model_setup(_setup_config(remat_policy=policy), device="cpu")
         assert len([r for r in caplog.records if r.levelname == "WARNING"]) == n, policy
 
 
@@ -424,5 +426,5 @@ def test_randomness_is_drawn_before_the_model_runs():
 def test_copy_of_config_is_not_mutated():
     cfg = _setup_config()
     before = copy.deepcopy(cfg)
-    load_model_setup(cfg)
+    load_model_setup(cfg, device="cpu")
     assert cfg == before
