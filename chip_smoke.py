@@ -5,14 +5,16 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-It drives the port's three paths through the hand-written CUDA kernels, at
+It drives the port's four paths through the hand-written CUDA kernels, at
 full width and depth with seeded random weights in bf16: wav2vec2 serving,
 ``ASRPipeline`` with XLS-R-300M (24 layers, 30 s window, batch 8); wav2vec2
 training, the CTC train step of ``Wav2Vec2Setup.make_train_step`` (8 clips of
-6-10 s padded to 10 s, 2 accumulation microbatches); and Whisper serving,
+6-10 s padded to 10 s, 2 accumulation microbatches); Whisper serving,
 ``ASRPipeline("openai/whisper-large-v3")`` (32 + 32 layers, d 1280, 30 s
-windows, batch 8, greedy generation to 225 tokens). It runs in phases; any
-failing phase exits non-zero before the result line is printed:
+windows, batch 8, greedy generation to 225 tokens); and Whisper training,
+the seq2seq train step of ``WhisperSetup.make_train_step`` (8 clips of 6-10 s
+padded to 30 s, 2 accumulation microbatches). It runs in phases; any failing
+phase exits non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
@@ -26,6 +28,9 @@ failing phase exits non-zero before the result line is printed:
    the feature encoder's training forward and backward at FE blocks 1 and 5;
    Whisper's encoder flash attention, decode self-attention (K = 1, and K = 5
    beams at a reduced batch), decode cross-attention and the FFN at D = 1280;
+   Whisper training's flash forward with its row stats, the flash backward's
+   dkv and dq kernels, and the FFN's dropout forward, its backward (at the
+   encoder's and the decoder's rows) and the LN backward at D = 1280;
 4. serving: ``transcribe_batch`` on 12 clips of 3-30 s (the second device
    batch is partial, with fully masked filler rows) and ``transcribe`` on a
    45 s clip (long-form windows), with the kernels' launch counts over that
@@ -52,7 +57,15 @@ failing phase exits non-zero before the result line is printed:
    (``WhisperForConditionalGeneration(plain=True)``) on the same weights and
    batch: the encoder output, and the logits of every decode step with both
    paths fed the kernel path's ids;
-7. a JSON line with every kernel (its launches summed over the counted runs
+7. Whisper training (e): config/model/whisper-large.yaml with
+   config/asr_finetuning.yaml (save_flash_ctx, activation dropout 0.1,
+   SpecAugment, the augmentation chain with a seeded synthetic noise bank,
+   bf16 gradients over fp32 masters, a bf16 first Adam moment): the kernel
+   path's loss and gradients against the plain path's on one microbatch,
+   then several optimizer steps on one fixed batch with exact launch counts
+   over the first, finite losses and a last loss below the first, ms per
+   step, training audio-s/s, peak memory and a profile of one step;
+8. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -108,6 +121,12 @@ TOLERANCE = {
     "decode_self_attention": (4e-3, 2.0**-6),
     "decode_cross_attention": (4e-3, 2.0**-6),
     "ffn_ln_1280": (1e-2, 2.0**-6),
+    "flash_attention_train": (8e-3, 2.0**-6),
+    # m and l are fp32 on both sides: a max of fp32 sums of 64 products, and
+    # a sum of up to 1500 exponentials, each in another order.
+    "flash_attention_train stats": (1e-4, 1e-4),
+    "ffn_ln_drop_1280": (1e-2, 2.0**-6),
+    "ln_bwd_1280": (1e-2, 2.0**-6),
 }
 # Gradients that sum over rows, keys or F columns: |kernel - plain| <= frac
 # max|plain| + 2**-6 |plain|. Their bf16 operands (ds, dh, p) are rounded from
@@ -116,7 +135,8 @@ TOLERANCE = {
 # Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W): attention_bwd 2.1e-3 of
 # max|plain|, ffn_bwd 5.2e-3, conv_ln_gelu_bwd 4.8e-3 (dx; dW 1.2e-4), the fp32
 # partial sums 1.0e-4; the bounds are 4 to 10 times those.
-GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3, "conv_bwd": 2e-2}
+GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3, "conv_bwd": 2e-2,
+             "flash_bwd": 1e-2}
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
 # Kernel path vs plain path logits over the whole model: max |diff| / max |plain|.
 # Both paths round the bf16 residual stream after each of the 24 layers at
@@ -151,6 +171,17 @@ SOURCES = {
     "decode_cross_attention": ("coral_tpu_torch/csrc/decode_attention.cu",
                                "coral_tpu/ops/decode_attention.py:279"),
     "ffn_ln_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:163"),
+    # The stock kernel with save_residuals, through `_flash_res`; its backward
+    # `_grads`: the stock dkv kernel, and the patched dq kernel.
+    "flash_attention_train": ("coral_tpu_torch/csrc/flash_attention.cu",
+                              "coral_tpu/ops/flash_attention.py:78"),
+    "flash_attention_bwd_dkv": ("coral_tpu_torch/csrc/flash_attention.cu",
+                                "coral_tpu/ops/flash_attention.py:123"),
+    "flash_attention_bwd_dq": ("coral_tpu_torch/csrc/flash_attention.cu",
+                               "coral_tpu/ops/_flash_bwd_patch.py:145"),
+    "ffn_ln_drop_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:169"),
+    "ffn_bwd_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:385"),
+    "ln_bwd_1280": ("coral_tpu_torch/csrc/ln_gelu.cu", "coral_tpu/ops/ln_gelu_pallas.py:58"),
 }
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # fp32 outside them, and device memory. A kernel's bound is the larger of its
@@ -234,6 +265,34 @@ PRODUCTION_PER_MICROBATCH = {
     "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ln_fused": 48,
     "attention": 24, "ffn_ln_drop": 24, "attention_bwd": 24, "ffn_bwd": 24, "ln_bwd": 49,
     "ctc_alpha": 1, "ctc_beta": 1}
+# Whisper training (e): config/model/whisper-large.yaml with
+# config/asr_finetuning.yaml (its optimisation and augmentation; no
+# remat_policy key, so the 1280-wide default save_flash_ctx). Whisper pads
+# every clip to its 30 s window.
+WHISPER_TRAIN_CONFIG = {
+    "model": {
+        "name": "whisper-large", "type": "whisper", "pretrained_model_id": WHISPER_ID,
+        "freeze_feature_encoder": False, "sampling_rate": 16_000, "dropout": 0.0,
+        "activation_dropout": 0.1, "attention_dropout": 0.0, "mask_time_prob": 0.5,
+        "mask_time_length": 10, "mask_feature_prob": 0.5, "mask_feature_length": 64,
+        "layerdrop": 0.1, "max_length": 225, "learning_rate": 1e-6,
+    },
+    "max_seconds_per_example": 10.0, "per_device_batch_size": 8,
+    "adam_first_momentum": 0.9, "adam_second_momentum": 0.98, "max_grad_norm": 1.0,
+    "adam_mu_dtype": "bfloat16", "grad_dtype": "bfloat16", "gradient_checkpointing": True,
+    "augment_audio": True,
+}
+# The config's learning rate (1e-6) with a 1-step warmup (the config's 1000
+# would leave every update of a short run near 0), over a few steps.
+WHISPER_TRAIN_STEPS = 6
+WHISPER_WARMUP_STEPS = 1
+# Launches per microbatch under save_flash_ctx: the flash forward once per
+# encoder layer (its o, l and m are kept, so the replay skips it), its two
+# backward kernels once; the FFN block's dropout forward, backward and LN
+# backward once per encoder and decoder layer; the serving launches never.
+WHISPER_PER_MICROBATCH = {
+    "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
+    "ffn_ln_drop_1280": 64, "ffn_bwd_1280": 64, "ln_bwd_1280": 64}
 
 
 def fail(msg: str) -> None:
@@ -819,6 +878,9 @@ def profile_window(card: str, label: str, fn) -> float:
         print(f"    {ms:10.3f} ms  {n:6d}x  {key[:96]}", flush=True)
     print(f"    {sum(r[0] for r in rows[16:]):10.3f} ms  {sum(r[1] for r in rows[16:]):6d}x  "
           f"the other {max(len(rows) - 16, 0)} kernels", flush=True)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    print("  host time by op (self CPU ms, profiler on): " + "; ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count}x)" for e in host[:8]), flush=True)
     return busy / window
 
 
@@ -1309,6 +1371,338 @@ def whisper_run(card: str) -> dict:
     return counts
 
 
+def sdpa_flash_yardsticks(qh, kh, vh, do_h, scale):
+    """PyTorch's own flash attention forward with its log-sum-exp
+    (``aten._scaled_dot_product_flash_attention``) and its backward fed that
+    forward's outputs, as two timed calls on (B, H, T, d); either is None,
+    with the reason printed, where the installed torch lacks it."""
+    aten = torch.ops.aten
+    try:
+        out = aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, False, False,
+                                                       scale=scale)
+    except (AttributeError, RuntimeError, TypeError) as err:
+        print(f"  library flash attention: none ({type(err).__name__}: {err})", flush=True)
+        return None, None
+
+    def fwd():
+        return aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, False, False,
+                                                        scale=scale)
+
+    o, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = out
+    try:
+        aten._scaled_dot_product_flash_attention_backward(
+            do_h, qh, kh, vh, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset,
+            scale=scale)
+    except (AttributeError, RuntimeError, TypeError) as err:
+        print(f"  library flash backward: none ({type(err).__name__}: {err})", flush=True)
+        return fwd, None
+
+    def bwd():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do_h, qh, kh, vh, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset,
+            scale=scale)
+
+    return fwd, bwd
+
+
+def whisper_train_kernel_checks(card: str) -> dict:
+    """Whisper training's kernels against their plain versions at its shapes:
+    whisper-large-v3 (d 1280, 20 heads x 64, FFN 5120), 8 x 30 s (T = 1500
+    encoder rows; the decoder's 8 x 128 label positions)."""
+    from coral_tpu_torch.ops import ffn, flash_attention, ln_gelu, philox
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    bf16 = torch.bfloat16
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    T, H, d, D, F, L = 1500, 20, 64, 1280, 5120, 128
+    scale = d**-0.5
+
+    # The encoder's flash attention, training forward: o and the row stats.
+    q, k, v = (randn(BATCH, T, D, dtype=bf16).view(BATCH, T, H, d) for _ in range(3))
+    do = randn(BATCH, T, H, d, dtype=bf16)
+    heads = [t.transpose(1, 2) for t in (q, k, v, do)]
+    lib_fwd, lib_bwd = sdpa_flash_yardsticks(*heads, scale)
+
+    def train_check():
+        o, l, m = flash_attention.flash_attention_fwd(q, k, v)
+        want = flash_attention.flash_attention_fwd_plain(q, k, v)
+        return merge(compare("flash_attention_train", o, want[0]),
+                     compare("flash_attention_train stats", l, want[1]),
+                     compare("flash_attention_train stats", m, want[2]))
+
+    measure("flash_attention_train", lambda: flash_attention.flash_attention_fwd(q, k, v),
+            lambda: flash_attention.flash_attention_fwd_plain(q, k, v), train_check,
+            (4 * BATCH * H * T * T * d, BF16_FLOPS, 4 * nbytes(q) + 2 * BATCH * H * T * 4),
+            lib_fwd)
+
+    # Its backward: dk and dv (key-major) and dq (query-major), from the
+    # forward's o, l and m. The plain and library times are of the whole
+    # backward (dq, dk and dv).
+    o, l, m = flash_attention.flash_attention_fwd(q, k, v)
+    args = (q, k, v, o, l, m, do)
+    want = {}
+
+    def bwd_check(which):
+        if not want:
+            want.update(zip(("dq", "dk", "dv"), flash_attention.flash_attention_bwd_plain(*args)))
+        if which == "dkv":
+            got = dict(zip(("dk", "dv"), flash_attention.flash_attention_bwd_dkv(*args)))
+        else:
+            got = {"dq": flash_attention.flash_attention_bwd_dq(*args)}
+        return merge(*(compare_grad(f"flash_attention_bwd_{which} {n}", g, want[n],
+                                    GRAD_FRAC["flash_bwd"]) for n, g in got.items()))
+
+    # Inputs read once (q, k, v, o, do, l, m), the gradients written once.
+    moved = nbytes(q, k, v, o, do, l, m)
+    measure("flash_attention_bwd_dkv", lambda: flash_attention.flash_attention_bwd_dkv(*args),
+            lambda: flash_attention.flash_attention_bwd_plain(*args),
+            functools.partial(bwd_check, "dkv"),
+            (8 * BATCH * H * T * T * d, BF16_FLOPS, moved + 2 * nbytes(q)), lib_bwd)
+    measure("flash_attention_bwd_dq", lambda: flash_attention.flash_attention_bwd_dq(*args),
+            lambda: flash_attention.flash_attention_bwd_plain(*args),
+            functools.partial(bwd_check, "dq"),
+            (6 * BATCH * H * T * T * d, BF16_FLOPS, moved + nbytes(q)), lib_bwd)
+    del q, k, v, do, heads, o, l, m, args, want, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
+
+    # The FFN block at D = 1280 with activation dropout 0.1: the encoder's
+    # (8, 1500, 1280) rows, and the decoder's (8, 128, 1280).
+    x = randn(BATCH, T, D, offset=0.2, dtype=bf16)
+    w1 = randn(F, D, scale=D**-0.5, dtype=bf16)
+    w2 = randn(D, F, scale=F**-0.5, dtype=bf16)
+    b1, g, b = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+    dy = randn(BATCH, T, D, dtype=bf16)
+    seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    keep = philox.keep_mask(seeds, T, F, 0.1)
+    M = BATCH * T
+
+    def drop_check():
+        got = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds)
+        res = compare("ffn_ln_drop_1280", got,
+                      ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds))
+        same = bool(torch.equal(got != 0, keep))
+        frac = float(keep.float().mean())
+        print(f"  ffn_ln_drop_1280: kernel mask == plain Philox mask: {same}; keep fraction "
+              f"{frac:.6f} (rate 0.1)", flush=True)
+        res["ok"] = res["ok"] and same and abs(frac - 0.9) < 1e-3
+        return res
+
+    measure("ffn_ln_drop_1280", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
+            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
+            (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * F * 2))
+
+    xd = randn(BATCH, L, D, offset=0.2, dtype=bf16)
+    dyd = randn(BATCH, L, D, dtype=bf16)
+
+    def bwd_ffn_check():
+        out = []
+        for label, xx, yy in (("encoder", x, dy), ("decoder", xd, dyd)):
+            got = ffn.ffn_bwd(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
+            want_f = ffn.ffn_bwd_plain(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
+            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1(xx, w1, b1, g, b, rate=0.1,
+                                                             seeds=seeds)))
+            mask = philox.keep_mask(seeds, xx.shape[1], F, 0.1)
+            dropped_zero = not bool(got[1][~mask].any())
+            print(f"  ffn_bwd_1280 {label} rows {tuple(xx.shape)}: g regenerated bit for bit: "
+                  f"{same_g}; dh zero where dropped: {dropped_zero}", flush=True)
+            res = [compare_grad(f"ffn_bwd_1280 {label} {n}", gg, ww, GRAD_FRAC["ffn_bwd"])
+                   for n, gg, ww in (("dh", got[1], want_f[1]), ("dx", got[3], want_f[3]))]
+            res.append(compare("ffn_ln_1280", got[2], want_f[2]))  # ln_out, a rounded LN
+            res += [compare_grad(f"ffn_bwd_1280 {label} {n}", gg, ww, GRAD_FRAC["partials"])
+                    for n, gg, ww in zip(("db1", "dgamma", "dbeta"), got[4:], want_f[4:])]
+            merged = merge(*res)
+            merged["ok"] = merged["ok"] and same_g and dropped_zero
+            out.append(merged)
+        return merge(*out)
+
+    # Three products of 2 M D F (h again, dg, dl); outputs g, dh, ln_out, dx
+    # and the vectors. Timed at the encoder's rows.
+    measure("ffn_bwd_1280", lambda: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
+            lambda: ffn.ffn_bwd_plain(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
+            bwd_ffn_check,
+            (3 * 2 * M * D * F, BF16_FLOPS,
+             nbytes(x, w1, b1, g, b, dy, w2, seeds) + 2 * M * F * 2 + 2 * nbytes(x)
+             + (F + 2 * D) * 4))
+    del keep, w1, w2, xd, dyd
+
+    # The LN step of the FFN backward: x bf16, dl fp32, (8, 1500, 1280).
+    dl = randn(BATCH, T, D)
+
+    def ln_check():
+        got = ln_gelu.ln_bwd(x, g, b, dl, apply_gelu=False)
+        want_l = ln_gelu.ln_bwd_plain(x, g, b, dl, apply_gelu=False)
+        return merge(compare("ln_bwd_1280", got[0], want_l[0]),
+                     *(compare_grad("ln_bwd_1280 partials", gg, ww, GRAD_FRAC["partials"])
+                       for gg, ww in zip(got[1:], want_l[1:])))
+
+    measure("ln_bwd_1280", lambda: ln_gelu.ln_bwd(x, g, b, dl, apply_gelu=False),
+            lambda: ln_gelu.ln_bwd_plain(x, g, b, dl, apply_gelu=False), ln_check,
+            (LN_BWD_OPS * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(dl) + 4 * nbytes(g)))
+    return results
+
+
+def whisper_train_batch(seed: int, text_ids: int) -> tuple[dict, float]:
+    """A fixed (ACCUM, 8, 480000) batch: clips of 6-10 s of seeded noise,
+    padded to the 30 s window, with labels of 64-128 random text ids (below
+    ``text_ids``) padded with -100 to ``MAX_LABEL``. Returns the batch and
+    the seconds of (unpadded) audio in it."""
+    rng = np.random.default_rng(seed)
+    T = 30 * SR
+    lengths = rng.integers(6 * SR, 10 * SR + 1, size=(ACCUM, BATCH)).astype(np.int32)
+    audio = np.zeros((ACCUM, BATCH, T), np.float32)
+    labels = np.full((ACCUM, BATCH, MAX_LABEL), -100, np.int32)
+    n_labels = rng.integers(64, MAX_LABEL + 1, size=(ACCUM, BATCH))
+    for a in range(ACCUM):
+        for i in range(BATCH):
+            audio[a, i, : lengths[a, i]] = rng.standard_normal(lengths[a, i]) * 0.1
+            labels[a, i, : n_labels[a, i]] = rng.integers(0, text_ids, n_labels[a, i])
+    batch = {"input_values": audio, "input_lengths": lengths, "labels": labels}
+    return batch, float(lengths.sum()) / SR
+
+
+def whisper_train_compare(card: str, setup, batch: dict) -> dict:
+    """Training (e), kernel vs plain: the loss and the gradients of one
+    microbatch on the same weights, batch and generator seed, through
+    ``seq2seq_loss_and_grads`` under the setup's policy, dropout on (both
+    paths draw the same Philox bits), SpecAugment on, augmentation off."""
+    from coral_tpu_torch.models import whisper as W
+    from coral_tpu_torch.training.optimizer import global_norm
+    from coral_tpu_torch.training.train_state import _load_work_params, seq2seq_loss_and_grads
+
+    model = setup.init_params(seed=0)
+    with torch.device("meta"):
+        plain = W.WhisperForConditionalGeneration(model.config, plain=True)
+    plain = plain.to_empty(device="cuda")
+    plain.load_state_dict(model.state_dict())
+    masters = {n: p.detach().float().clone() for n, p in model.named_parameters()}
+    one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
+    tok = setup.tokenizer
+    out = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        _load_work_params(m, masters, torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        out[name] = seq2seq_loss_and_grads(m, one, gen, tok.sot_token_id, tok.pad_token_id,
+                                           setup.gradient_checkpointing)
+        torch.cuda.synchronize()
+    del model, plain, masters
+    (loss_k, grads_k), (loss_p, grads_p) = out["kernel"], out["plain"]
+    norm_k, norm_p = (float(global_norm(list(g.values()))) for g in (grads_k, grads_p))
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    ratios = []
+    for n, gp in grads_p.items():
+        scale = float(gp.abs().max())
+        if scale == 0.0:
+            if bool(grads_k[n].any()):
+                fail(f"{n}: the kernel path has a gradient where the plain path has none")
+            continue
+        ratios.append((float((grads_k[n] - gp).abs().max()) / scale, n))
+    ratios.sort(reverse=True)
+    live = sum(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads_k.values())
+    del out, grads_k, grads_p
+    torch.cuda.empty_cache()
+    print(f"training (e) kernel vs plain, one microbatch of {BATCH} x 30 s, "
+          f"{setup.model_config.remat_policy}, dropout and SpecAugment on: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_rel:.6g}, tolerance "
+          f"{TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel {norm_rel:.6g}, "
+          f"tolerance {TRAIN_GRAD_NORM_RTOL}); gradient max|diff|/max|plain| over {len(ratios)} "
+          f"parameters (tolerance {TRAIN_GRAD_TOL}), {live} with finite non-zero gradients, "
+          f"worst: " + "; ".join(f"{r:.6g} {n}" for r, n in ratios[:5]) + f" ({card})",
+          flush=True)
+    if not (math.isfinite(float(loss_k)) and loss_rel <= TRAIN_LOSS_RTOL
+            and norm_rel <= TRAIN_GRAD_NORM_RTOL and ratios[0][0] <= TRAIN_GRAD_TOL):
+        fail("the Whisper training kernel path and plain path disagree")
+    return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": ratios[0][0]}
+
+
+def whisper_train_run(card: str) -> dict:
+    """Phase (e), Whisper training through ``WhisperSetup.make_train_step``;
+    returns the launch counts of the first step."""
+    import tempfile
+
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training import TrainState, create_optimizer
+    from coral_tpu_torch.training.model_setup import load_model_setup
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bank = np.random.default_rng(1).standard_normal(
+            (NOISE_CLIPS, NOISE_SECONDS * SR)).astype(np.float32) * 0.1
+        np.save(Path(tmp) / "noise.npy", bank)
+        config = {**WHISPER_TRAIN_CONFIG, "background_noise_path": str(Path(tmp) / "noise.npy")}
+        setup = load_model_setup(config, device="cuda")
+        tx, schedule = create_optimizer(
+            learning_rate=setup.learning_rate, warmup_steps=WHISPER_WARMUP_STEPS,
+            max_steps=1000, adam_beta1=config["adam_first_momentum"],
+            adam_beta2=config["adam_second_momentum"], max_grad_norm=config["max_grad_norm"],
+            mu_dtype=config["adam_mu_dtype"])
+        step = setup.make_train_step(tx, schedule)  # loads the noise bank
+    cfg = setup.model_config
+    print(f"training (e): whisper d_model {cfg.d_model}, {cfg.encoder_layers} + "
+          f"{cfg.decoder_layers} layers, {cfg.encoder_attention_heads} heads, FFN {cfg.ffn_dim}, "
+          f"{cfg.num_mel_bins} mels, vocab {cfg.vocab_size}, {cfg.dtype}, remat "
+          f"{cfg.remat_policy}, activation dropout {cfg.activation_dropout}, SpecAugment time "
+          f"{cfg.mask_time_prob}/{cfg.mask_time_length} feature {cfg.mask_feature_prob}/"
+          f"{cfg.mask_feature_length}, learning rate {setup.learning_rate}, grad dtype "
+          f"{setup.grad_dtype}, batch {ACCUM} x {BATCH} x {setup.chunk_length} samples", flush=True)
+    if (cfg.d_model, cfg.encoder_layers, cfg.decoder_layers, cfg.ffn_dim, cfg.num_mel_bins,
+            cfg.dtype, cfg.remat_policy) != (1280, 32, 32, 5120, 128, torch.bfloat16,
+                                             "save_flash_ctx"):
+        fail("the setup did not build whisper-large-v3 in bf16 under save_flash_ctx")
+    batch, audio_seconds = whisper_train_batch(4, setup.tokenizer.sot_token_id)
+    whisper_train_compare(card, setup, batch)
+
+    state = TrainState.create(setup.init_params(seed=0), tx)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # The main path, counted: the first optimizer step.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    print(f"training (e) main path: 1 step of {ACCUM} microbatches, launch counts {counts}",
+          flush=True)
+    expected = {name: n * ACCUM for name, n in WHISPER_PER_MICROBATCH.items()}
+    if counts != expected:
+        fail(f"training (e): launch counts {counts}, expected {expected}")
+    losses = [float(metrics["loss"])]
+    walls = []
+    for _ in range(WHISPER_TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))  # synchronises
+        walls.append(time.perf_counter() - start)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training (e) losses over {WHISPER_TRAIN_STEPS} steps: {[round(v, 6) for v in losses]}"
+          f"; last grad norm {float(metrics['grad_norm']):.6f}, learning rate "
+          f"{float(metrics['learning_rate']):.6g}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail("training (e) loss not finite or not falling")
+
+    def one_step():
+        nonlocal state, metrics
+        state, metrics = step(state, batch, gen)
+
+    profile_window(card, "one training (e) step", one_step)
+    wall = float(np.median(walls))
+    print(f"training (e) ({card}): {audio_seconds / wall:.3f} audio-s/s ({audio_seconds:.3f} s "
+          f"of audio per step of {ACCUM} x {BATCH} clips, padded to 30 s); {wall * 1e3:.3f} ms "
+          f"per optimizer step (median of {len(walls)}); peak memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on an NVIDIA GPU only")
@@ -1342,6 +1736,9 @@ def main() -> int:
     print(f"kernel checks at Whisper serving shapes (bf16, batch {BATCH} x 30 s, "
           f"whisper-large-v3):", flush=True)
     checks.update(whisper_kernel_checks(card))
+    print(f"kernel checks at Whisper training shapes (bf16, batch {BATCH} x 30 s, "
+          f"whisper-large-v3):", flush=True)
+    checks.update(whisper_train_kernel_checks(card))
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -1352,11 +1749,14 @@ def main() -> int:
     train_counts = training_run(card)
     torch.cuda.empty_cache()
     whisper_counts = whisper_run(card)
+    torch.cuda.empty_cache()
+    whisper_train_counts = whisper_train_run(card)
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")
-    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0)
-              + whisper_counts.get(name, 0) for name in checks}
+    counts = {name: sum(c.get(name, 0) for c in (serve_counts, train_counts, whisper_counts,
+                                                 whisper_train_counts))
+              for name in checks}
     idle = [name for name, n in counts.items() if n == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

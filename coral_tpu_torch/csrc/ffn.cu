@@ -34,20 +34,20 @@ using namespace nvcuda;
 
 namespace {
 
-// The model width (LayerNorm and reduction length) of the backward kernels and
-// the dropout forward; the rate-0 forward is a template over D in {1024, 1280}.
-constexpr int kD = 1024;
+// The model widths (LayerNorm and reduction length) the kernels are built
+// for: XLS-R-300M's 1024 and Whisper large-v3's 1280 (also XLS-R-1B's). Every
+// kernel is a template over D.
 constexpr int kBM = 64;        // rows per block
 constexpr int kBN = 256;       // F columns per block
 constexpr int kBK = 32;        // reduction chunk per shared-memory stage
 constexpr int kThreads = 256;  // 8 warps: 2 row groups x 4 column groups
-constexpr int kLdA = kD + 8;   // bf16 row pitch of the normalised panel
 constexpr int kLdB = kBK + 8;  // bf16 row pitch of the W1 tile (and the dy chunk)
 constexpr int kLdC = kBN + 4;  // fp32 row pitch of the staged accumulators
 constexpr int kLdW = kBN + 8;  // bf16 row pitch of the W2 tile
-// Shared memory of the forward at width D: the normalised panel and a W1 tile.
+// Shared memory of the forward and of the backward at width D: the normalised
+// panel (row pitch D + 8) and a W1 tile.
 constexpr int fwd_smem(int D) { return (kBM * (D + 8) + kBN * kLdB) * 2; }
-static_assert(kBM * kLdC * 4 <= kBM * kLdA * 2, "staging must fit over the A panel");
+static_assert(kBM * kLdC * 4 <= kBM * (1024 + 8) * 2, "staging must fit over the A panel");
 static_assert(fwd_smem(1280) <= 232448, "the 1280 panel must fit a block's shared memory");
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
@@ -221,13 +221,14 @@ __global__ void __launch_bounds__(kThreads)
 // backward of `ffn_ln_block` with dg computed in the kernel.
 //
 // Bound on the H100: the tensor cores: three products of 2 * D * F flops per
-// row (h recomputed, dg = dy W2^T, dl = dh W1), against 2 KB of x and dy in
-// and 16 KB of g and dh out.
+// row (h recomputed, dg = dy W2^T, dl = dh W1), against 4 KB of x and dy in
+// and 16 KB of g and dh out (at D = 1024; 5 KB and 20 KB at 1280).
 //
 // The TPU kernel holds a (TM, F) block and its (TM, D) LayerNorm backward in
 // VMEM at once: dl = dh W1 must be complete over all D columns of a row
-// before any dx is written. A 64-row tile of dl alone is 256 KB of fp32, more
-// than an SM's 227 KB, so the work is split into three hand-written kernels:
+// before any dx is written. A 64-row tile of dl alone is 256 KB of fp32 (320
+// KB at D = 1280), more than an SM's 227 KB, so the work is split into three
+// hand-written kernels, each a template over D:
 //  (i)  ffn_bwd_kernel, one block per (64 rows, 256 F columns): the LayerNorm
 //       panel as the forward (written once as ln_out, the dW1 operand),
 //       h = ln W1^T + b1 over the whole D, then dg = dy W2^T over the whole D
@@ -241,17 +242,21 @@ __global__ void __launch_bounds__(kThreads)
 //       partials.
 // dW1 = ln_out^T dh, dW2 = dy^T g, db2 and the sums of the partials stay
 // outside, as in `_ffn_ln_block_dg_bwd`.
-constexpr int kBwdSmem = (kBM * kLdA + kBN * kLdB) * 2;
+// Shared memory: the forward's (fwd_smem(D): 152,576 bytes at 1024, 185,344
+// at 1280); after the h product the regions below reuse it, the same at every
+// D, so they must fit the smaller, 1024, stage.
 constexpr int kOffY = kBM * kLdC * 4;           // dy chunk, after the staged h
 constexpr int kOffW = kOffY + kBM * kLdB * 2;   // W2 tile
 constexpr int kOffG = kOffY;                    // staged dg, after the loop
 constexpr int kOffRed = kOffG + kBM * kLdC * 4;  // column-sum partials
-static_assert(kOffW + kBK * kLdW * 2 <= kBwdSmem, "the dg operands must fit");
-static_assert(kOffRed + 4 * kBN * 4 <= kBwdSmem, "the staging must fit");
+static_assert(kOffW + kBK * kLdW * 2 <= fwd_smem(1024), "the dg operands must fit");
+static_assert(kOffRed + 4 * kBN * 4 <= fwd_smem(1024), "the staging must fit");
+static_assert(kOffRed + 4 * kBN * 4 <= fwd_smem(1280) && fwd_smem(1280) <= 232448,
+              "the 1280 stage must fit a block's shared memory");
 
 // dy: (M, D) bf16; w2: (D, F) bf16; g, dh: (M, F) bf16; ln_out: (M, D) bf16;
 // db1_part: (ceil(M / 64), F) fp32.
-template <bool kDrop>
+template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     ffn_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ gamma,
@@ -262,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
                    float scale, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kBM * kLdA;
+  bf16* Bs = As + kBM * (D + 8);
   float* Hs = reinterpret_cast<float*>(smem);
   bf16* Ys = reinterpret_cast<bf16*>(smem + kOffY);
   bf16* Ws = reinterpret_cast<bf16*>(smem + kOffW);
@@ -275,10 +280,10 @@ __global__ void __launch_bounds__(kThreads)
   const int wr = warp >> 2;
   const int wc = warp & 3;
 
-  ln_panel<kD>(As, x, gamma, beta, m0, M, eps, blockIdx.y == 0 ? ln_out : nullptr);
+  ln_panel<D>(As, x, gamma, beta, m0, M, eps, blockIdx.y == 0 ? ln_out : nullptr);
   __syncthreads();
   FragC acc[2][4];
-  ln_times_w1<kD>(acc, As, Bs, w1, n0);
+  ln_times_w1<D>(acc, As, Bs, w1, n0);
   stage(Hs, acc);  // h - b1, over the dead A panel
 
   // dg = dy W2^T: 64 x 32 chunks of dy and 32 x 256 tiles of W2 (stored
@@ -287,12 +292,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  for (int k0 = 0; k0 < kD; k0 += kBK) {
+  for (int k0 = 0; k0 < D; k0 += kBK) {
     {
       const int r = threadIdx.x >> 2;
       const int c = (threadIdx.x & 3) * 8;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) u = *reinterpret_cast<const uint4*>(dy + (m0 + r) * kD + k0 + c);
+      if (m0 + r < M) u = *reinterpret_cast<const uint4*>(dy + (m0 + r) * D + k0 + c);
       *reinterpret_cast<uint4*>(Ys + r * kLdB + c) = u;
     }
     for (int i = threadIdx.x; i < kBK * (kBN / 8); i += kThreads) {
@@ -378,7 +383,9 @@ constexpr int kGM = 128;
 constexpr int kGN = 128;
 constexpr int kLdGA = kBK + 8;
 constexpr int kLdGB = kGN + 8;
+static_assert(1024 % kGN == 0 && 1280 % kGN == 0, "D must be a multiple of the tile");
 
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     dl_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ w1, float* __restrict__ dl,
               long long M, int F) {
@@ -408,7 +415,7 @@ __global__ void __launch_bounds__(kThreads)
       const int kr = i >> 4;
       const int c = (i & 15) * 8;
       *reinterpret_cast<uint4*>(Bs + kr * kLdGB + c) =
-          *reinterpret_cast<const uint4*>(w1 + (long long)(k0 + kr) * kD + n0 + c);
+          *reinterpret_cast<const uint4*>(w1 + (long long)(k0 + kr) * D + n0 + c);
     }
     __syncthreads();
 #pragma unroll
@@ -442,7 +449,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = (lane & 1) * 8;
       const long long row = m0 + wr * 32 + i * 16 + r;
       if (row < M) {
-        float* out = dl + row * kD + n0 + wc * 64 + j * 16 + c;
+        float* out = dl + row * D + n0 + wc * 64 + j * 16 + c;
         coral_store4(out, St + r * 16 + c);
         coral_store4(out + 4, St + r * 16 + c + 4);
       }
@@ -452,7 +459,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 static_assert(kGM * kLdGA * 2 >= 8 * 256 * 4, "the output staging must fit the A tile");
 
-// Launches the forward at width D; the dropout variant only at D = 1024.
+// Launches the forward at width D, with dropout when seeds are given.
 template <int D>
 cudaError_t launch_ffn_ln(const bf16* xp, const bf16* wp, const float* bp, const float* gp,
                           const float* tp, const int* sp, bf16* out, long long M, int F, int T,
@@ -476,17 +483,46 @@ cudaError_t launch_ffn_ln(const bf16* xp, const bf16* wp, const float* bp, const
   return cudaGetLastError();
 }
 
+// Launches backward kernels (i) and (ii) at width D.
+template <int D>
+cudaError_t launch_ffn_bwd(const bf16* xp, const bf16* w1p, const float* bp, const float* gp,
+                           const float* tp, const bf16* dyp, const bf16* w2p, const int* sp,
+                           bf16* gout, bf16* dhp, bf16* lnp, float* part, float* dlp, long long M,
+                           int F, int T, unsigned int threshold, float scale, float eps,
+                           cudaStream_t s) {
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)(F / kBN));
+  constexpr int smem = fwd_smem(D);
+  cudaError_t err;
+  if (sp != nullptr) {
+    err = cudaFuncSetAttribute(ffn_bwd_kernel<D, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ffn_bwd_kernel<D, true><<<grid, kThreads, smem, s>>>(
+        xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part, M, F, T, threshold, scale, eps);
+  } else {
+    err = cudaFuncSetAttribute(ffn_bwd_kernel<D, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ffn_bwd_kernel<D, false><<<grid, kThreads, smem, s>>>(
+        xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part, M, F, 1, 0u, 1.0f, eps);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_dl((unsigned)(D / kGN), (unsigned)((M + kGM - 1) / kGM));
+  dl_kernel<D><<<grid_dl, kThreads, 0, s>>>(dhp, w1p, dlp, M, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Forward. seeds: (M / T,) int32, or null for rate 0 (threshold and scale are
-// then not read). D is 1024, or 1280 at rate 0. Returns the cudaError_t of the
-// launch, or -1 for a shape it was not built for.
+// then not read). D is 1024 or 1280. Returns the cudaError_t of the launch, or
+// -1 for a shape it was not built for.
 extern "C" int coral_ffn_ln_fwd(const void* x, const void* w1, const void* b1,
                                 const void* gamma, const void* beta, const void* seeds,
                                 void* g, long long M, int D, int F, int T,
                                 unsigned int threshold, float scale, float eps, void* stream) {
-  if (F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
-  if (D != kD && !(D == 1280 && seeds == nullptr)) return -1;
+  if (F % kBN != 0 || (seeds != nullptr && T <= 0) || (D != 1024 && D != 1280)) return -1;
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
@@ -496,22 +532,21 @@ extern "C" int coral_ffn_ln_fwd(const void* x, const void* w1, const void* b1,
   const int* sp = static_cast<const int*>(seeds);
   bf16* out = static_cast<bf16*>(g);
   const cudaError_t err =
-      D == kD ? launch_ffn_ln<1024>(xp, wp, bp, gp, tp, sp, out, M, F, T, threshold, scale, eps, s)
+      D == 1024 ? launch_ffn_ln<1024>(xp, wp, bp, gp, tp, sp, out, M, F, T, threshold, scale, eps, s)
               : launch_ffn_ln<1280>(xp, wp, bp, gp, tp, sp, out, M, F, T, threshold, scale, eps, s);
   return (int)err;
 }
 
-// Backward kernels (i) and (ii); seeds as the forward. db1_part has
-// ceil(M / 64) rows of F. Returns the cudaError_t of the launches, or -1 for a
+// Backward kernels (i) and (ii) at D = 1024 or 1280; seeds as the forward.
+// db1_part has ceil(M / 64) rows of F. Returns the cudaError_t of the launches, or -1 for a
 // shape they were not built for.
 extern "C" int coral_ffn_bwd(const void* x, const void* w1, const void* b1, const void* gamma,
                              const void* beta, const void* dy, const void* w2, const void* seeds,
                              void* g, void* dh, void* ln_out, void* db1_part, void* dl,
                              long long M, int D, int F, int T, unsigned int threshold,
                              float scale, float eps, void* stream) {
-  if (D != kD || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
+  if ((D != 1024 && D != 1280) || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
   if (M <= 0) return 0;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)(F / kBN));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *xp = static_cast<const bf16*>(x), *w1p = static_cast<const bf16*>(w1),
              *dyp = static_cast<const bf16*>(dy), *w2p = static_cast<const bf16*>(w2);
@@ -520,24 +555,11 @@ extern "C" int coral_ffn_bwd(const void* x, const void* w1, const void* b1, cons
   const int* sp = static_cast<const int*>(seeds);
   bf16 *gout = static_cast<bf16*>(g), *dhp = static_cast<bf16*>(dh),
        *lnp = static_cast<bf16*>(ln_out);
-  float* part = static_cast<float*>(db1_part);
-  cudaError_t err;
-  if (seeds != nullptr) {
-    err = cudaFuncSetAttribute(ffn_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kBwdSmem);
-    if (err != cudaSuccess) return (int)err;
-    ffn_bwd_kernel<true><<<grid, kThreads, kBwdSmem, s>>>(
-        xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part, M, F, T, threshold, scale, eps);
-  } else {
-    err = cudaFuncSetAttribute(ffn_bwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
-    if (err != cudaSuccess) return (int)err;
-    ffn_bwd_kernel<false><<<grid, kThreads, kBwdSmem, s>>>(
-        xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part, M, F, 1, 0u, 1.0f, eps);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_dl((unsigned)(kD / kGN), (unsigned)((M + kGM - 1) / kGM));
-  dl_kernel<<<grid_dl, kThreads, 0, s>>>(dhp, w1p, static_cast<float*>(dl), M, F);
-  return (int)cudaGetLastError();
+  float *part = static_cast<float*>(db1_part), *dlp = static_cast<float*>(dl);
+  const cudaError_t err =
+      D == 1024 ? launch_ffn_bwd<1024>(xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part,
+                                       dlp, M, F, T, threshold, scale, eps, s)
+                : launch_ffn_bwd<1280>(xp, w1p, bp, gp, tp, dyp, w2p, sp, gout, dhp, lnp, part,
+                                       dlp, M, F, T, threshold, scale, eps, s);
+  return (int)err;
 }

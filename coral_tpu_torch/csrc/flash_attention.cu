@@ -1,10 +1,11 @@
-// Unmasked, non-causal self-attention forward over the flat (B, T, H*64)
-// layout: o = softmax(q k^T * scale) v per head, for the Whisper encoder.
+// Unmasked, non-causal self-attention over the flat (B, T, H*64) layout, for
+// the Whisper encoder: the forward o = softmax(q k^T * scale) v per head (with
+// the fp32 row stats m and l for training), and the backward's two kernels.
 //
 // Replaces: coral_tpu/ops/flash_attention.py `_flash` / `_fwd_cp` (JAX's stock
 // TPU flash kernel, `flash_attention` with segment ids over T padded to the
-// 512/768 grid), behind `flash_self_attention`; output o only (the row stats
-// (l, m) of `_flash_res` belong to the training slice).
+// 512/768 grid), behind `flash_self_attention`, and `_flash_res`, the same
+// kernel with `save_residuals`, which also returns l and m.
 //
 // Bound on the H100: the tensor cores and the fp32 softmax between the two
 // products: 4 * T^2 * 64 flops and T^2 exponentials per head, against
@@ -23,6 +24,8 @@
 // for the product with V, and the sum is divided by the fp32 row sum at the
 // end. Scores and P @ V go through bf16 WMMA fragments staged in shared memory,
 // where two lanes share each query row for the softmax and the running output.
+// The training launch also writes each row's final max m and its sum of
+// exp(s - m), l (the stock kernel's residuals), in fp32 (B, H, T).
 #include <math.h>
 #include <mma.h>
 
@@ -57,12 +60,53 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, in
   }
 }
 
+// acc[j] (16 x 16 each, columns 16j ..) = A (16 x 64, pitch kLdH) times the
+// transpose of B (64 x 64, pitch kLdH): the rows of B are the columns.
+__device__ __forceinline__ void times_bt(FragC (&acc)[4], const bf16* A, const bf16* B) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
+#pragma unroll
+  for (int kk = 0; kk < kD; kk += 16) {
+    FragA a;
+    wmma::load_matrix_sync(a, A + kk, kLdH);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      FragBc bt;
+      wmma::load_matrix_sync(bt, B + (j * 16) * kLdH + kk, kLdH);
+      wmma::mma_sync(acc[j], a, bt, acc[j]);
+    }
+  }
+}
+
+// acc[j] += A (16 x 64, pitch kLdH) times B (64 x 64, pitch kLdH).
+__device__ __forceinline__ void times_b(FragC (&acc)[4], const bf16* A, const bf16* B) {
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 16) {
+    FragA a;
+    wmma::load_matrix_sync(a, A + kk, kLdH);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      FragBr bf;
+      wmma::load_matrix_sync(bf, B + kk * kLdH + j * 16, kLdH);
+      wmma::mma_sync(acc[j], a, bf, acc[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void stage(float* Sw, FragC (&acc)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(Sw + j * 16, acc[j], kLdS, wmma::mem_row_major);
+}
+
 // q, k, v: (B, T, H*64) bf16 with strides (stride_b, stride_t, 1), the same for
-// all three; o: (B, T, H*64) bf16 contiguous.
+// all three; o: (B, T, H*64) bf16 contiguous; with kStats, m and l: (B, H, T)
+// fp32.
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int T, int H,
-                     long long stride_b, long long stride_t, float scale) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int T, int H, long long stride_b,
+                     long long stride_t, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kBQ * kLdH;
@@ -99,22 +143,8 @@ __global__ void __launch_bounds__(kThreads)
 
     // S = Q K^T for this warp's 16 rows.
     FragC s[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, Qw + kk, kLdH);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBc bt;
-        wmma::load_matrix_sync(bt, Ks + (j * 16) * kLdH + kk, kLdH);
-        wmma::mma_sync(s[j], a, bt, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Sw + j * 16, s[j], kLdS, wmma::mem_row_major);
+    times_bt(s, Qw, Ks);
+    stage(Sw, s);
     __syncwarp();
 
     // Online softmax over this tile; two lanes per row. Keys past T: -inf.
@@ -145,20 +175,8 @@ __global__ void __launch_bounds__(kThreads)
     FragC pv[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(pv[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kBKV; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, Pw + kk, kLdH);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBr bvf;
-        wmma::load_matrix_sync(bvf, Vs + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(pv[j], a, bvf, pv[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Sw + j * 16, pv[j], kLdS, wmma::mem_row_major);
+    times_b(pv, Pw, Vs);
+    stage(Sw, pv);
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < 32; ++j) acc[j] = acc[j] * alpha + Sw[row * kLdS + half * 32 + j];
@@ -173,22 +191,331 @@ __global__ void __launch_bounds__(kThreads)
     bf16* orow = o + ((long long)b * T + t) * ((long long)H * kD) + h * kD + half * 32;
 #pragma unroll
     for (int j = 0; j < 32; j += 8) coral_store8(orow + j, out + j);
+    if (kStats && half == 0) {
+      const long long i = ((long long)b * H + h) * T + t;
+      m_out[i] = m;
+      l_out[i] = l;
+    }
   }
+}
+
+// --- Backward ------------------------------------------------------------------
+//
+// Replaces: coral_tpu/ops/flash_attention.py `_grads`: the stock TPU kernel's
+// dkv backward (`_flash_attention_bwd_dkv`) and coral_tpu/ops/_flash_bwd_patch.py
+// `flash_attention_bwd_dq_fixed`, from the forward's o, l and m.
+//
+// Bound on the H100: the tensor cores: the dkv kernel makes four T x T x 64
+// products per head (s, dp, dv, dk), the dq kernel three (s, dp, dq), plus
+// T^2 exponentials in each; the TPU kernels hold (block, block) tiles in VMEM
+// that a Hopper SM cannot.
+//
+// Design: two kernels and no atomics, so the gradients are reproducible, the
+// split of the wav2vec2 attention backward (csrc/attention.cu). The key-major
+// kernel (one block per 64-key tile, head, batch row) walks the query tiles and
+// accumulates dk and dv in registers, in the transposed space S^T = K Q^T; the
+// query-major kernel walks the key tiles and accumulates dq. Both rebuild the
+// stock kernel's p = exp(s * scale - m) / l from the saved stats and form
+// ds = (dp - di) p scale, with di = rowsum(o * do) in fp32 computed per query
+// tile in each kernel from o and do (the TPU package computes di once, outside
+// its kernels: here each dkv block reads o once more per query tile, 64 x 64
+// bf16, half again the q and do it reads anyway). p and ds are rounded to bf16
+// for the products dv = p^T do, dk = ds^T q and dq = ds k, as the stock kernel
+// rounds them to the operands' dtype; sums are fp32. Keys past T are zero rows
+// (s = 0), whose dk and dv are never written; queries past T get m = +inf and
+// so p = 0; the dq kernel gives keys past T p = 0.
+
+constexpr int kBwdSmemDkv = 6 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4;
+constexpr int kBwdSmemDq = 5 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4;
+
+// m, 1/l and di = rowsum(o * do) of query rows q0 .. q0+63 (dOs already in
+// shared memory); rows past T get m = +inf, 1/l = 1 and di = 0. Two threads a
+// row.
+__device__ __forceinline__ void load_query_stats(float* m_s, float* il_s, float* di_s,
+                                                 const float* m_row, const float* l_row,
+                                                 const bf16* dOs, const bf16* o_head, int q0,
+                                                 int T, long long stride_o) {
+  const int r = threadIdx.x >> 1;
+  const int half = threadIdx.x & 1;
+  float s = 0.f;
+  if (q0 + r < T) {
+#pragma unroll
+    for (int j = 0; j < 32; j += 8) {
+      float a[8], d[8];
+      coral_load8(o_head + (long long)(q0 + r) * stride_o + half * 32 + j, a);
+      coral_load8(dOs + r * kLdH + half * 32 + j, d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += a[e] * d[e];
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  if (half == 0) {
+    const bool in = q0 + r < T;
+    m_s[r] = in ? m_row[q0 + r] : INFINITY;
+    il_s[r] = in ? 1.0f / l_row[q0 + r] : 1.0f;
+    di_s[r] = s;
+  }
+}
+
+// A warp's 16 x 64 fp32 accumulators, rounded to bf16, to rows r0 + 16 warp ..
+// of dst (rows at or past T are skipped).
+__device__ __forceinline__ void store_rows(FragC (&acc)[4], float* Sw, bf16* dst,
+                                           long long stride, int r0, int T) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  stage(Sw, acc);
+  __syncwarp();
+  const int t = r0 + warp * 16 + row;
+  if (t < T) {
+    float out[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) out[j] = Sw[row * kLdS + half * 32 + j];
+#pragma unroll
+    for (int j = 0; j < 32; j += 8) coral_store8(dst + (long long)t * stride + half * 32 + j, out + j);
+  }
+}
+
+// q, k, v as the forward; o, dout: (B, T, H*64) bf16 contiguous; m, l:
+// (B, H, T) fp32; dk, dv: (B, T, H*64) bf16 contiguous.
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout, const float* __restrict__ m,
+                         const float* __restrict__ l, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int T, int H, long long stride_b,
+                         long long stride_t, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kBKV * kLdH;
+  bf16* Qs = Vs + kBKV * kLdH;
+  bf16* dOs = Qs + kBQ * kLdH;
+  bf16* Ps = dOs + kBQ * kLdH;
+  bf16* dSs = Ps + kBKV * kLdH;
+  float* Ss = reinterpret_cast<float*>(dSs + kBKV * kLdH);
+  float* m_s = Ss + kBKV * kLdS;
+  float* il_s = m_s + 64;
+  float* di_s = il_s + 64;
+
+  const int k0 = blockIdx.x * kBKV;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane >> 1;  // this lane's key row within the warp's 16
+  const int half = lane & 1;
+  const long long HD = (long long)H * kD;
+  const long long head = (long long)b * stride_b + h * kD;
+  const long long ohead = (long long)b * T * HD + h * kD;
+  const long long stat = ((long long)b * H + h) * T;
+
+  load_rows(Ks, k + head, k0, T, stride_t);
+  load_rows(Vs, v + head, k0, T, stride_t);
+
+  FragC dk_acc[4], dv_acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wmma::fill_fragment(dk_acc[j], 0.0f);
+    wmma::fill_fragment(dv_acc[j], 0.0f);
+  }
+  float* Sw = Ss + warp * 16 * kLdS;
+  bf16* Pw = Ps + warp * 16 * kLdH;
+  bf16* dSw = dSs + warp * 16 * kLdH;
+  const bf16* Kw = Ks + warp * 16 * kLdH;
+  const bf16* Vw = Vs + warp * 16 * kLdH;
+
+  for (int q0 = 0; q0 < T; q0 += kBQ) {
+    __syncthreads();  // the previous query tile is no longer read
+    load_rows(Qs, q + head, q0, T, stride_t);
+    load_rows(dOs, dout + ohead, q0, T, HD);
+    __syncthreads();
+    load_query_stats(m_s, il_s, di_s, m + stat, l + stat, dOs, o + ohead, q0, T, HD);
+    __syncthreads();
+
+    // S^T = K_w Q^T for this warp's 16 keys; p^T.
+    FragC s[4];
+    times_bt(s, Kw, Qs);
+    stage(Sw, s);
+    __syncwarp();
+    float p[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      p[j] = expf(Sw[row * kLdS + c] * scale - m_s[c]) * il_s[c];
+      Pw[row * kLdH + c] = __float2bfloat16(p[j]);
+    }
+    __syncwarp();
+
+    // dP^T = V_w dO^T; dS^T.
+    times_bt(s, Vw, dOs);
+    stage(Sw, s);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      dSw[row * kLdH + c] = __float2bfloat16((Sw[row * kLdS + c] - di_s[c]) * p[j] * scale);
+    }
+    __syncwarp();
+
+    // dV += P^T dO and dK += dS^T Q.
+    times_b(dv_acc, Pw, dOs);
+    times_b(dk_acc, dSw, Qs);
+    __syncwarp();
+  }
+
+  store_rows(dk_acc, Sw, dk + ohead, HD, k0, T);
+  __syncwarp();
+  store_rows(dv_acc, Sw, dv + ohead, HD, k0, T);
+}
+
+// As flash_bwd_dkv_kernel, for dq: (B, T, H*64) bf16 contiguous.
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout, const float* __restrict__ m,
+                        const float* __restrict__ l, bf16* __restrict__ dq, int T, int H,
+                        long long stride_b, long long stride_t, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kBQ * kLdH;
+  bf16* Ks = dOs + kBQ * kLdH;
+  bf16* Vs = Ks + kBKV * kLdH;
+  bf16* dSs = Vs + kBKV * kLdH;
+  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdH);
+  float* m_s = Ss + kBQ * kLdS;
+  float* il_s = m_s + 64;
+  float* di_s = il_s + 64;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = lane >> 1;
+  const int half = lane & 1;
+  const long long HD = (long long)H * kD;
+  const long long head = (long long)b * stride_b + h * kD;
+  const long long ohead = (long long)b * T * HD + h * kD;
+  const long long stat = ((long long)b * H + h) * T;
+
+  load_rows(Qs, q + head, q0, T, stride_t);
+  load_rows(dOs, dout + ohead, q0, T, HD);
+  __syncthreads();
+  load_query_stats(m_s, il_s, di_s, m + stat, l + stat, dOs, o + ohead, q0, T, HD);
+
+  FragC dq_acc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
+  float* Sw = Ss + warp * 16 * kLdS;
+  bf16* dSw = dSs + warp * 16 * kLdH;
+  const bf16* Qw = Qs + warp * 16 * kLdH;
+  const bf16* dOw = dOs + warp * 16 * kLdH;
+
+  for (int k0 = 0; k0 < T; k0 += kBKV) {
+    __syncthreads();  // the previous key tile is no longer read
+    load_rows(Ks, k + head, k0, T, stride_t);
+    load_rows(Vs, v + head, k0, T, stride_t);
+    __syncthreads();
+    const float m_r = m_s[warp * 16 + row];
+    const float il_r = il_s[warp * 16 + row];
+    const float di_r = di_s[warp * 16 + row];
+
+    // S = Q_w K^T; p, 0 for keys past T.
+    FragC s[4];
+    times_bt(s, Qw, Ks);
+    stage(Sw, s);
+    __syncwarp();
+    float p[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      p[j] = k0 + c < T ? expf(Sw[row * kLdS + c] * scale - m_r) * il_r : 0.0f;
+    }
+    __syncwarp();
+
+    // dP = dO_w V^T; dS.
+    times_bt(s, dOw, Vs);
+    stage(Sw, s);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      dSw[row * kLdH + c] = __float2bfloat16((Sw[row * kLdS + c] - di_r) * p[j] * scale);
+    }
+    __syncwarp();
+
+    // dQ += dS K.
+    times_b(dq_acc, dSw, Ks);
+    __syncwarp();
+  }
+
+  store_rows(dq_acc, Sw, dq + ohead, HD, q0, T);
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch, or -1 for a shape it was not built for.
+// The forward; m and l both null (serving: o only) or both (B, H, T) fp32
+// (training). Returns the cudaError_t of the launch, or -1 for a shape it was
+// not built for.
 extern "C" int coral_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int B, int T, int H, long long stride_b,
-                                         long long stride_t, float scale, void* stream) {
+                                         void* m, void* l, int B, int T, int H,
+                                         long long stride_b, long long stride_t, float scale,
+                                         void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535) return -1;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (attr != cudaSuccess) return (int)attr;
+  if ((m == nullptr) != (l == nullptr)) return -1;
   const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_fwd_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), T, H, stride_b, stride_t, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v);
+  float *mp = static_cast<float*>(m), *lp = static_cast<float*>(l);
+  cudaError_t err;
+  if (m != nullptr) {
+    err = set_smem(flash_fwd_kernel<true>, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_kernel<true><<<grid, kThreads, kSmem, s>>>(qp, kp, vp, static_cast<bf16*>(o), mp,
+                                                         lp, T, H, stride_b, stride_t, scale);
+  } else {
+    err = set_smem(flash_fwd_kernel<false>, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_kernel<false><<<grid, kThreads, kSmem, s>>>(qp, kp, vp, static_cast<bf16*>(o), mp,
+                                                          lp, T, H, stride_b, stride_t, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward's key-major kernel (dk, dv) when dq is null, else its
+// query-major kernel (dq); the other outputs are then not read. Returns the
+// cudaError_t of the launch, or -1 for a shape it was not built for.
+extern "C" int coral_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout, const void* m,
+                                         const void* l, void* dq, void* dk, void* dv, int B,
+                                         int T, int H, long long stride_b, long long stride_t,
+                                         float scale, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535) return -1;
+  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
+             *dop = static_cast<const bf16*>(dout);
+  const float *mp = static_cast<const float*>(m), *lp = static_cast<const float*>(l);
+  cudaError_t err;
+  if (dq == nullptr) {
+    err = set_smem(flash_bwd_dkv_kernel, kBwdSmemDkv);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkv_kernel<<<grid, kThreads, kBwdSmemDkv, s>>>(
+        qp, kp, vp, op, dop, mp, lp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
+        stride_b, stride_t, scale);
+  } else {
+    err = set_smem(flash_bwd_dq_kernel, kBwdSmemDq);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<<<grid, kThreads, kBwdSmemDq, s>>>(
+        qp, kp, vp, op, dop, mp, lp, static_cast<bf16*>(dq), T, H, stride_b, stride_t, scale);
+  }
   return (int)cudaGetLastError();
 }

@@ -110,8 +110,9 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, long lon
 //
 // Bound on the H100: device memory, as the forward (read x and dy, write dx).
 //
-// Design: one warp per row, the row in registers; the fp32 statistics are
-// recomputed from x, as the TPU kernel does. The TPU kernel carries its
+// Design: one warp per row, the row in registers (C = 512, 1024, or 1280 for
+// the LN step of the FFN backward at Whisper large-v3's width); the fp32
+// statistics are recomputed from x, as the TPU kernel does. The TPU kernel carries its
 // dgamma/dbeta sums across a batch row's time tiles in VMEM scratch; here each
 // warp walks rows blockIdx*8+warp, +gridDim*8, ... and keeps its sums in
 // registers, the block adds its eight warps in a fixed order, and each block
@@ -251,6 +252,7 @@ int dispatch_bwd(const void* x, const void* gamma, const void* beta, const void*
                  cudaStream_t s) {
   if (C == 512) return launch_bwd<TX, TY, 512>(x, gamma, beta, dy, dx, part, rows, blocks, apply_gelu, eps, s);
   if (C == 1024) return launch_bwd<TX, TY, 1024>(x, gamma, beta, dy, dx, part, rows, blocks, apply_gelu, eps, s);
+  if (C == 1280) return launch_bwd<TX, TY, 1280>(x, gamma, beta, dy, dx, part, rows, blocks, apply_gelu, eps, s);
   return -1;
 }
 

@@ -220,15 +220,19 @@ class _Remat:
     The layer runs twice under ``torch.utils.checkpoint``: the forward, where
     ``keep`` holds on to the outputs the policy names, and the replay in the
     backward, where ``saved`` hands each kept output back to the op that made
-    it, which then packs its residuals and launches nothing. The attention's o
-    is kept only together with its lse: the backward kernel reads both, so
-    with one of them missing the forward kernel runs in the replay anyway (the
-    JAX setup's warning for ``save_attn_ctx``).
+    it, which then packs its residuals and launches nothing. The outputs of
+    one op in ``groups`` are kept only all together: here the attention's o
+    and lse, which its backward kernel reads both, so with one of them missing
+    the forward kernel runs in the replay anyway (the JAX setup's warning for
+    ``save_attn_ctx``).
     """
 
-    def __init__(self, names: frozenset[str]) -> None:
-        if not {"attn_ctx", "attn_lse"} <= names:
-            names = names - {"attn_ctx", "attn_lse"}
+    def __init__(self, names: frozenset[str],
+                 groups: tuple[frozenset[str], ...] = (frozenset({"attn_ctx", "attn_lse"}),)
+                 ) -> None:
+        for group in groups:
+            if not group <= names:
+                names = names - group
         self.names = names
         self.kept: dict[str, torch.Tensor] = {}
         self.replaying = False

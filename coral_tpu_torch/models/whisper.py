@@ -1,11 +1,12 @@
-"""Whisper encoder-decoder in PyTorch: the serving half, greedy generation.
+"""Whisper encoder-decoder in PyTorch: greedy generation and the training forward.
 
 Port of ``coral_tpu/models/whisper.py``: ``WhisperConfig`` (every checkpoint
-family and ``tiny_test``), ``sinusoidal_positions``, ``encode``,
+family and ``tiny_test``), ``REMAT_POLICIES``, ``sinusoidal_positions``,
+``encode`` (with ``_spec_augment``), ``decode_train``, ``forward``,
 ``precompute_cross_kv``, ``init_self_cache``, ``decode_step``,
 ``_decode_phases``/``_pad_cache``, ``greedy_generate`` and
 ``segments_from_tokens``. Beam search and the timestamp rules (ROADMAP.md,
-Queue 1 item 6b) and the training forward (item 6c) are not ported.
+Queue 1 item 6b) are not ported.
 
 Routes follow the JAX model at the JAX setup's serving defaults. The encoder
 convs run as ``F.conv1d`` with exact erf GELU. Encoder self-attention takes
@@ -32,6 +33,22 @@ the kernel path is held against on the card.
 Generation runs eagerly: a host loop over positions that updates the caches
 in place (JAX carries them functionally through a ``while_loop``), with the
 same prompt forcing, EOS fill of finished rows, early exit and phase buckets.
+
+Training (``forward(..., deterministic=False, generator=...)``) is the JAX
+model's ``deterministic=False``: SpecAugment on the mel features, the FFN's
+activation dropout through ``ffn_ln_block`` (rate and Philox seeds), the
+decoder's embedding dropout when ``dropout > 0``, and the encoder's flash
+attention through its differentiable form (``flash_attention``: the training
+forward writes o and the row stats l, m; the backward kernels read them).
+With gradients off the encoder takes the serving launch, o only. The decoder's
+causal self-attention and its cross-attention are plain PyTorch math under
+autograd, as the JAX package runs them through XLA
+(``jax.nn.dot_product_attention``), not a Pallas kernel. As in the JAX model,
+``attention_dropout`` and ``layerdrop`` are never applied. All randomness is
+drawn from the step's generator before the layer stacks (``draw_randomness``),
+so a checkpoint replay draws nothing. ``gradient_checkpointing`` runs each
+layer under ``torch.utils.checkpoint`` with the named policy's explicit save
+and replay (``_Remat``, shared with ``models/wav2vec2.py``).
 """
 
 from __future__ import annotations
@@ -43,18 +60,48 @@ from typing import Any, Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.decode_attention import (decode_cross_attention, decode_cross_attention_plain,
                                     decode_self_attention, decode_self_attention_plain)
 from ..ops.ffn import ffn_ln_block
-from ..ops.flash_attention import flash_self_attention, flash_self_attention_plain
+from ..ops.flash_attention import (flash_attention, flash_self_attention,
+                                   flash_self_attention_plain)
 from ..ops.ln_gelu import ln_fused
-from .wav2vec2 import _trunc_normal
+from ..ops.philox import dropout
+from .wav2vec2 import _NO_REMAT, _Remat, _linear, _project, _seeds, _trunc_normal, span_dilate
 
 _LN_EPS = 1e-5
 # The JAX model takes its flash kernel from this sequence length on.
 _FLASH_MIN_T = 1024
+
+# The JAX package's remat policies for the layer stacks
+# (coral_tpu/models/whisper.py:44-64) by the names each saves. A layer emits
+# "attn_in" and "cross_in" (the LayerNorm outputs), "q", "k", "v" and
+# "cross_q" (the projections), "attn_ctx" and "cross_attn_ctx" (the attention
+# outputs), "flash_o", "flash_l" and "flash_m" (the encoder flash attention's
+# residuals) and "ffn_in" (the residual stream into the FFN block). The port
+# skips in the replay what a kept name lets it skip: a projection, the flash
+# forward (o, l and m kept together) and the out projection under "ffn_in".
+# The LayerNorms and the decoder's attention are autograd ops whose own
+# residuals the replay packs again, so it recomputes them, and in the encoder
+# "attn_ctx" is the kept flash o itself: those four names keep nothing apart.
+REMAT_POLICIES: dict[str, tuple[str, ...]] = {
+    "nothing_saveable": (),
+    "save_matmul_inputs": ("attn_in", "q", "k", "v", "attn_ctx", "cross_in", "cross_q",
+                           "cross_attn_ctx", "ffn_in", "flash_o", "flash_l", "flash_m"),
+    "save_flash_ctx": ("attn_ctx", "cross_attn_ctx", "flash_o", "flash_l", "flash_m"),
+}
+_NOT_APART = frozenset({"attn_in", "cross_in", "attn_ctx", "cross_attn_ctx"})
+_FLASH_RESIDUALS = (frozenset({"flash_o", "flash_l", "flash_m"}),)
+
+
+def remat_names(policy: str) -> frozenset[str]:
+    """The names ``policy`` keeps apart; raises for a policy it does not know."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat_policy {policy!r}; choose from {sorted(REMAT_POLICIES)}")
+    return frozenset(REMAT_POLICIES[policy]) - _NOT_APART
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +133,8 @@ class WhisperConfig:
     encoder_attention_impl: str = "flash"
     # Encoder LayerNorms: "xla" (plain fp32) or "pallas" (the ln_fused kernel).
     ln_impl: str = "xla"
+    # Layer-stack remat policy under gradient checkpointing (REMAT_POLICIES).
+    remat_policy: str = "save_matmul_inputs"
 
     @property
     def head_dim(self) -> int:
@@ -212,16 +261,18 @@ class _Ops(NamedTuple):
     """The kernel entry points the model calls, or their plain versions."""
 
     flash_self_attention: Callable
+    flash_attention: Callable
     decode_self_attention: Callable
     decode_cross_attention: Callable
     ffn_ln_block: Callable
     ln_fused: Callable
 
 
-_KERNELS = _Ops(flash_self_attention, decode_self_attention, decode_cross_attention,
-                ffn_ln_block, ln_fused)
-_PLAIN = _Ops(flash_self_attention_plain, decode_self_attention_plain,
-              decode_cross_attention_plain, functools.partial(ffn_ln_block, plain=True),
+_KERNELS = _Ops(flash_self_attention, flash_attention, decode_self_attention,
+                decode_cross_attention, ffn_ln_block, ln_fused)
+_PLAIN = _Ops(flash_self_attention_plain, functools.partial(flash_attention, plain=True),
+              decode_self_attention_plain, decode_cross_attention_plain,
+              functools.partial(ffn_ln_block, plain=True),
               functools.partial(ln_fused, plain=True))
 
 
@@ -230,8 +281,9 @@ class WhisperForConditionalGeneration(nn.Module):
 
     Args:
         config: the architecture.
-        plain: run every kernel's plain PyTorch version instead of the kernel
-            (the reference the kernel path is compared with).
+        plain: run every kernel's plain PyTorch version instead of the kernel,
+            forward and backward (the reference the kernel path is compared
+            with).
     """
 
     def __init__(self, config: WhisperConfig, plain: bool = False) -> None:
@@ -297,11 +349,18 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.eps).to(x.dtype)
 
 
-def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.dot_product_attention`` on (B, T, H, d) without a mask: fp32
-    scores times d**-0.5, fp32 softmax, probabilities in the working dtype."""
+def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = False) -> torch.Tensor:
+    """``jax.nn.dot_product_attention`` on (B, T, H, d), unmasked or causal:
+    fp32 scores times d**-0.5, masked scores set to its large negative
+    (-0.7 times the fp32 maximum), fp32 softmax, probabilities in the working
+    dtype."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     s = (qh.float() @ kh.float().transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, -0.7 * torch.finfo(torch.float32).max)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return (p @ vh).transpose(1, 2)
 
@@ -311,7 +370,7 @@ def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 # --------------------------------------------------------------------------------
 
 
-def _encoder_layer_norm(model, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+def _train_layer_norm(model, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """``_train_layer_norm``: the ln_fused kernel under ``ln_impl="pallas"`` at
     widths that are a multiple of 128, else plain."""
     if model.config.ln_impl == "pallas" and x.shape[-1] % 128 == 0:
@@ -319,40 +378,254 @@ def _encoder_layer_norm(model, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tenso
     return _layer_norm(ln, x)
 
 
-def encode(model: WhisperForConditionalGeneration, input_features: torch.Tensor) -> torch.Tensor:
+class Randomness(NamedTuple):
+    """Everything random in one training forward, drawn before the layer stacks.
+
+    time_starts (B, T_mel) and feature_starts (B, n_mels) are SpecAugment's
+    Bernoulli span starts on the mel features (None when that mask is off);
+    encoder (L_enc, B) and decoder (L_dec, B) are the int32 Philox seeds of
+    each layer's FFN activation dropout (None at rate 0), embed (B,) those of
+    the decoder's embedding dropout (None at ``dropout == 0``).
+    """
+
+    time_starts: torch.Tensor | None
+    feature_starts: torch.Tensor | None
+    encoder: torch.Tensor | None
+    embed: torch.Tensor | None
+    decoder: torch.Tensor | None
+
+
+def draw_randomness(config: WhisperConfig, batch: int, frames: int,
+                    generator: torch.Generator, device) -> Randomness:
+    """Draws one training forward's SpecAugment starts and dropout seeds, in a
+    fixed order, for ``batch`` items of ``frames`` mel frames."""
+    def starts(n, prob, span):
+        if not (config.apply_spec_augment and prob > 0):
+            return None
+        return torch.rand((batch, n), generator=generator, device=device) < prob / span
+
+    def seeds(*shape, rate):
+        return _seeds(generator, *shape, device=device) if rate > 0 else None
+
+    return Randomness(
+        starts(frames, config.mask_time_prob, config.mask_time_length),
+        starts(config.num_mel_bins, config.mask_feature_prob, config.mask_feature_length),
+        seeds(config.encoder_layers, batch, rate=config.activation_dropout),
+        seeds(batch, rate=config.dropout),
+        seeds(config.decoder_layers, batch, rate=config.activation_dropout),
+    )
+
+
+def _spec_augment(feats: torch.Tensor, rnd: Randomness, config: WhisperConfig) -> torch.Tensor:
+    """``_spec_augment``: the time mask over all mel frames and the feature
+    mask over the mel bins, the span starts dilated by ``span_dilate``; masked
+    values are 0."""
+    zero = torch.zeros((), dtype=feats.dtype, device=feats.device)
+    if rnd.time_starts is not None:
+        tmask = span_dilate(rnd.time_starts, config.mask_time_length)
+        feats = torch.where(tmask[..., None], zero, feats)
+    if rnd.feature_starts is not None:
+        fmask = span_dilate(rnd.feature_starts, config.mask_feature_length)
+        feats = torch.where(fmask[:, None, :], zero, feats)
+    return feats
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    B, T, D = t.shape
+    return t.view(B, T, n_heads, D // n_heads)
+
+
+def _projections(model, attn: WhisperAttention, h: torch.Tensor, names: str, prefix: str,
+                 remat: _Remat, H: int) -> list[torch.Tensor]:
+    """The (B, T, H, d) projections ``names`` (of "qkv") of h, each kept and
+    skipped in a replay under the name ``prefix + n``."""
+    dt = model.config.dtype
+    out = []
+    for n in names:
+        key = prefix + n
+        t = _project(h, getattr(attn, f"{n}_proj"), dt, remat, key, bias=n != "k",
+                     saved=remat.saved(key))
+        out.append(_heads(remat.keep(key, t), H))
+    return out
+
+
+def _ffn_residual(model, layer, x: torch.Tensor, a_in: torch.Tensor, out_proj: nn.Linear,
+                  seeds, remat: _Remat) -> torch.Tensor:
+    """``x + out_proj(a_in)``, then that plus the FFN block of it: the end of
+    every layer. A kept "ffn_in" is the replay's residual stream, which reads
+    no output of the out projection (a stand-in) nor of the FFN block (its
+    residuals are its inputs, so the replay never runs its forward)."""
+    dt = model.config.dtype
+    unread = None if remat.saved("ffn_in") is None else torch.empty_like(x)
+    a = _project(a_in, out_proj, dt, remat, "ffn_in", saved=unread)
+    ffn_in = remat.saved("ffn_in")
+    if ffn_in is None:
+        ffn_in = remat.keep("ffn_in", x + a)
+    fln = layer.final_layer_norm
+    rate = model.config.activation_dropout if seeds is not None else 0.0
+    out = ffn_in + model.ops.ffn_ln_block(
+        ffn_in, layer.fc1.weight, layer.fc1.bias, fln.weight, fln.bias, layer.fc2.weight,
+        layer.fc2.bias, fln.eps, rate, seeds, saved=torch.empty_like(ffn_in) if remat.replaying
+        else None)
+    remat.replaying = remat is not _NO_REMAT
+    return out
+
+
+def _encoder_layer(model, layer: WhisperEncoderLayer, x: torch.Tensor, seeds=None,
+                   remat: _Remat = _NO_REMAT) -> torch.Tensor:
+    """One encoder layer; seeds: (B,) FFN dropout seeds (None: rate 0);
+    remat: this layer's checkpoint record."""
+    cfg, ops = model.config, model.ops
+    B, T, D = x.shape
+    h = _train_layer_norm(model, layer.self_attn_layer_norm, x)
+    q, k, v = _projections(model, layer.self_attn, h, "qkv", "", remat,
+                           cfg.encoder_attention_heads)
+    if cfg.encoder_attention_impl == "flash" and T >= _FLASH_MIN_T:
+        if torch.is_grad_enabled():
+            saved = remat.saved("flash_o")
+            o, l, m = ops.flash_attention(q, k, v, saved=None if saved is None else (
+                saved, remat.saved("flash_l"), remat.saved("flash_m")))
+            for name, t in (("flash_o", o), ("flash_l", l), ("flash_m", m)):
+                remat.keep(name, t)
+        else:
+            o = ops.flash_self_attention(q, k, v)
+    else:
+        o = _attention_plain(q, k, v)
+    return _ffn_residual(model, layer, x, o.reshape(B, T, D), layer.self_attn.out_proj, seeds,
+                         remat)
+
+
+def _layer_stack(layers, run, x, seeds, checkpointing: bool, policy: str, *args):
+    """``run(layer, x, *args, seeds[i], remat)`` over the layers, each under
+    ``torch.utils.checkpoint`` with the policy's save and replay when
+    ``checkpointing`` (the JAX ``jax.checkpoint`` of the scanned layer)."""
+    names = remat_names(policy) if checkpointing and torch.is_grad_enabled() else None
+    for i, layer in enumerate(layers):
+        s = None if seeds is None else seeds[i]
+        if names is None:
+            x = run(layer, x, *args, s)
+        else:
+            x = torch.utils.checkpoint.checkpoint(run, layer, x, *args, s,
+                                                  _Remat(names, _FLASH_RESIDUALS),
+                                                  use_reentrant=False)
+    return x
+
+
+def encode(model: WhisperForConditionalGeneration, input_features: torch.Tensor,
+           deterministic: bool = True, rnd: Randomness | None = None,
+           gradient_checkpointing: bool = False) -> torch.Tensor:
     """Run the audio encoder.
 
     Args:
         input_features: (B, T_mel, n_mels) log-mel features (T_mel = 3000 for
             30 s, as published checkpoints expect; any even T_mel runs).
+        deterministic: no SpecAugment and no dropout (serving).
+        rnd: the training forward's randomness (``draw_randomness``), needed
+            when not deterministic.
+        gradient_checkpointing: replay each layer in the backward under
+            ``config.remat_policy``.
 
     Returns:
         (B, T_mel // 2, d_model) encoder states in ``config.dtype``.
     """
-    cfg, ops = model.config, model.ops
+    cfg = model.config
     enc = model.model.encoder
     dt = cfg.dtype
-    x = input_features.to(dt).transpose(1, 2)  # (B, n_mels, T_mel)
+    x = input_features
+    if not deterministic:
+        if rnd is None:
+            raise ValueError("a training forward (deterministic=False) needs its randomness")
+        x = _spec_augment(x, rnd, cfg)
+    x = x.to(dt).transpose(1, 2)  # (B, n_mels, T_mel)
     x = F.gelu(F.conv1d(x, enc.conv1.weight.to(dt), enc.conv1.bias.to(dt), padding=1))
     x = F.gelu(F.conv1d(x, enc.conv2.weight.to(dt), enc.conv2.bias.to(dt), stride=2,
                         padding=1))
     x = x.transpose(1, 2).contiguous()  # (B, T, D) rows, as the kernels read them
-    B, T, D = x.shape
-    x = x + enc.embed_positions.weight[:T].to(dt)
-
-    H = cfg.encoder_attention_heads
-    flash = cfg.encoder_attention_impl == "flash" and T >= _FLASH_MIN_T
-    for layer in enc.layers:
-        w = _linears(layer, dt)
-        h = _encoder_layer_norm(model, layer.self_attn_layer_norm, x)
-        q, k, v = (F.linear(h, *w[f"self_attn.{n}_proj"]).view(B, T, H, D // H)
-                   for n in ("q", "k", "v"))
-        o = (ops.flash_self_attention if flash else _attention_plain)(q, k, v)
-        x = x + F.linear(o.reshape(B, T, D), *w["self_attn.out_proj"])
-        fln = layer.final_layer_norm
-        x = x + ops.ffn_ln_block(x, layer.fc1.weight, layer.fc1.bias, fln.weight, fln.bias,
-                                 layer.fc2.weight, layer.fc2.bias, fln.eps)
+    x = x + enc.embed_positions.weight[: x.shape[1]].to(dt)
+    seeds = None if deterministic else rnd.encoder
+    x = _layer_stack(enc.layers, functools.partial(_encoder_layer, model), x, seeds,
+                     gradient_checkpointing, cfg.remat_policy)
     return _layer_norm(enc.layer_norm, x)
+
+
+# --------------------------------------------------------------------------------
+# Decoder (teacher-forced training forward)
+# --------------------------------------------------------------------------------
+
+
+def _decoder_layer(model, layer: WhisperDecoderLayer, x: torch.Tensor,
+                   encoder_out: torch.Tensor, seeds=None,
+                   remat: _Remat = _NO_REMAT) -> torch.Tensor:
+    """One decoder layer of ``decode_train``: causal self-attention,
+    cross-attention over ``encoder_out``, the FFN block."""
+    dt = model.config.dtype
+    B, L, D = x.shape
+    H = model.config.decoder_attention_heads
+    h = _train_layer_norm(model, layer.self_attn_layer_norm, x)
+    q, k, v = _projections(model, layer.self_attn, h, "qkv", "", remat, H)
+    o = _attention_plain(q, k, v, causal=True)
+    x = x + _linear(o.reshape(B, L, D), layer.self_attn.out_proj, dt)
+    attn = layer.encoder_attn
+    h = _train_layer_norm(model, layer.encoder_attn_layer_norm, x)
+    (qc,) = _projections(model, attn, h, "q", "cross_", remat, H)
+    kc = _heads(_linear(encoder_out, attn.k_proj, dt, bias=False), H)
+    vc = _heads(_linear(encoder_out, attn.v_proj, dt), H)
+    o = _attention_plain(qc, kc, vc)
+    return _ffn_residual(model, layer, x, o.reshape(B, L, D), attn.out_proj, seeds, remat)
+
+
+def decode_train(model: WhisperForConditionalGeneration, encoder_out: torch.Tensor,
+                 decoder_input_ids: torch.Tensor, deterministic: bool = True,
+                 rnd: Randomness | None = None,
+                 gradient_checkpointing: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder forward.
+
+    Args:
+        encoder_out: (B, S, D) encoder states.
+        decoder_input_ids: (B, L) token ids (already shifted right).
+        deterministic, rnd, gradient_checkpointing: as ``encode``.
+
+    Returns:
+        (B, L, vocab) fp32 logits (the tied LM head in fp32).
+    """
+    cfg = model.config
+    dec = model.model.decoder
+    dt = cfg.dtype
+    if not deterministic and rnd is None:
+        raise ValueError("a training forward (deterministic=False) needs its randomness")
+    L = decoder_input_ids.shape[1]
+    x = dec.embed_tokens.weight[decoder_input_ids].to(dt)
+    x = x + dec.embed_positions.weight[:L].to(dt)
+    if not deterministic and rnd.embed is not None:
+        x = dropout(x, cfg.dropout, rnd.embed)
+    seeds = None if deterministic else rnd.decoder
+    x = _layer_stack(dec.layers, functools.partial(_decoder_layer, model), x, seeds,
+                     gradient_checkpointing, cfg.remat_policy, encoder_out)
+    x = _layer_norm(dec.layer_norm, x)
+    return x.float() @ dec.embed_tokens.weight.float().t()
+
+
+def forward(model: WhisperForConditionalGeneration, input_features: torch.Tensor,
+            decoder_input_ids: torch.Tensor, deterministic: bool = True,
+            generator: torch.Generator | None = None,
+            gradient_checkpointing: bool = False) -> torch.Tensor:
+    """Full training forward: (B, T_mel, mels) + (B, L) -> (B, L, vocab) fp32.
+
+    Args:
+        deterministic: no SpecAugment and no dropout.
+        generator: the source of all randomness when not deterministic;
+            everything is drawn from it here, before the model runs.
+        gradient_checkpointing: as ``encode``.
+    """
+    rnd = None
+    if not deterministic:
+        if generator is None:
+            raise ValueError("a training forward (deterministic=False) needs a generator")
+        B, T_mel, _ = input_features.shape
+        rnd = draw_randomness(model.config, B, T_mel, generator, input_features.device)
+    encoder_out = encode(model, input_features, deterministic, rnd, gradient_checkpointing)
+    return decode_train(model, encoder_out, decoder_input_ids, deterministic, rnd,
+                        gradient_checkpointing)
 
 
 # --------------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Builds the hand-written Hopper kernels and counts their launches.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared library
-with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), which is
-loaded with ``ctypes``. The library goes to ``coral_tpu_torch/_build/`` under a
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together (``-gencode arch=compute_90a,code=sm_90a``), and the objects are
+linked into one shared library with a plain C interface, which is loaded with
+``ctypes``. The library goes to ``coral_tpu_torch/_build/`` under a
 name that hashes the sources and the flags, so an edited source or another
 GELU table set builds anew and a stale library is never loaded. The build runs
 at the first kernel launch, never at import: the CPU tests import every module
@@ -67,8 +68,11 @@ _SIGNATURES = {
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream
     "coral_ctc_beta": [_P] * 6 + [_I, _I, _I, _P],
-    # q, k, v, o, B, T, H, stride_b, stride_t, scale, stream
-    "coral_flash_attention_fwd": [_P] * 4 + [_I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, o, m, l, B, T, H, stride_b, stride_t, scale, stream
+    "coral_flash_attention_fwd": [_P] * 6 + [_I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, o, dout, m, l, dq, dk, dv, B, T, H, stride_b, stride_t, scale,
+    # stream
+    "coral_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _LL, _LL, _F, _P],
     # q, k, v, mask, part_o, part_ml, out, B, K, n_keys, H, layer, scale, stream
     "coral_decode_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
 }
@@ -95,11 +99,41 @@ def _nvcc() -> str:
 
 
 def _flags() -> list[str]:
+    """The flags of each source's compilation."""
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
     if GELU_POLY_CHOICE == "f32":
         flags.append("-DCORAL_GELU_POLY_F32=1")
     return flags
+
+
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Runs the commands as processes started together; waits for every one."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    done = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        done.append(subprocess.CompletedProcess(cmd, proc.returncode, out, err))
+    return done
+
+
+def _compile(sources: list[Path], target: Path) -> str:
+    """Compiles ``sources`` in parallel and links them into ``target``;
+    returns ptxas's report. Raises with nvcc's output if a step fails."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        lib = str(Path(tmp) / "lib.so")
+        steps = [_run_all([[_nvcc(), *_flags(), "-c", "-o", obj, str(src)]
+                           for src, obj in zip(sources, objs)])]
+        if all(p.returncode == 0 for p in steps[0]):
+            steps.append(_run_all([[_nvcc(), "-shared", "-o", lib, *objs]]))
+        for proc in (p for step in steps for p in step):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(proc.args)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, target)  # atomic: concurrent builds agree
+    return "".join(p.stderr for p in steps[0])
 
 
 def library() -> ctypes.CDLL:
@@ -115,20 +149,10 @@ def library() -> ctypes.CDLL:
         target = BUILD_DIR / f"libcoral_kernels_{digest.hexdigest()[:16]}.so"
         if not target.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *_flags(), "-o", tmp, *map(str, sources)]
             start = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
+            report = _compile(sources, target)
             build_seconds = time.perf_counter() - start
-            (BUILD_DIR / (target.stem + ".ptxas.txt")).write_text(proc.stderr)
-            os.replace(tmp, target)  # atomic: concurrent builds agree
+            (BUILD_DIR / (target.stem + ".ptxas.txt")).write_text(report)
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

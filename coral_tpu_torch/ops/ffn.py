@@ -2,7 +2,9 @@
 
 Port of ``coral_tpu/ops/ffn_pallas.py`` ``ffn_ln_block`` with
 ``dg_in_kernel=True`` (``_ffn_ln_block_dg``, :1742-1789), forward and
-backward, at any dropout rate. On a CUDA tensor the wrappers launch
+backward, at any dropout rate, at the widths D = 1024 (XLS-R-300M) and 1280
+(Whisper large-v3, XLS-R-1B); other widths raise on the card (XLS-R-2B's 1920
+is ROADMAP.md Queue 2 item 3). On a CUDA tensor the wrappers launch
 ``csrc/ffn.cu``: the forward writes ``g = dropout(gelu(bf16(layer_norm(x)) @
 W1^T + b1))`` (``_fwd_kernel_ln`` / ``_fwd_kernel_ln_drop``) and fc2 runs as
 ``torch.matmul``, which the JAX package also leaves outside its kernel
@@ -32,12 +34,12 @@ from .gelu_poly import _dgelu, _phi, gelu_poly
 from .ln_gelu import ln_bwd
 from .philox import keep_mask, threshold
 
-_KERNEL_D = 1024
-# Widths the rate-0 forward kernel takes: XLS-R-300M's, and Whisper large-v3's
-# (and XLS-R-1B's). Dropout and the backward kernels take _KERNEL_D only.
-_KERNEL_FWD_D = (1024, 1280)
+# Widths the kernels take: XLS-R-300M's, and Whisper large-v3's (and
+# XLS-R-1B's). Each is its own instantiation of the kernels, counted apart:
+# the 1280 launches under names ending in "_1280".
+_KERNEL_D = (1024, 1280)
 _KERNEL_F_TILE = 256
-_WIDTHS_ROADMAP = "other widths: ROADMAP.md, Queue 2 item 3 (the FFN kernels at 1280 and 1920)"
+_WIDTHS_ROADMAP = "other widths: ROADMAP.md, Queue 2 item 3 (the FFN kernels at 1920)"
 _ROW_TILE = 64
 
 
@@ -71,11 +73,11 @@ def _fc2(g, w2, b2):
     return (torch.matmul(g, w2.to(g.dtype).t()).float() + b2.float()).to(g.dtype)
 
 
-def _check_shapes(name, x, w1, F, widths=(_KERNEL_D,)):
+def _check_shapes(name, x, w1, F):
     D = x.shape[-1]
-    if D not in widths or w1.shape != (F, D) or F % _KERNEL_F_TILE:
+    if D not in _KERNEL_D or w1.shape != (F, D) or F % _KERNEL_F_TILE:
         raise ValueError(
-            f"{name}: the kernel takes D in {widths} and F a multiple of "
+            f"{name}: the kernel takes D in {_KERNEL_D} and F a multiple of "
             f"{_KERNEL_F_TILE}, got x {tuple(x.shape)} and w1 {tuple(w1.shape)}; "
             + _WIDTHS_ROADMAP
         )
@@ -96,7 +98,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
     """``g = dropout(gelu(bf16(layer_norm(x)) @ W1^T + b1))``, the kernel's output.
 
     Args:
-        x: (B, T, D); on CUDA bf16 with D = 1024, or D = 1280 at rate 0.
+        x: (B, T, D); on CUDA bf16 with D = 1024 or 1280.
         w1: (F, D), cast to ``x.dtype``; on CUDA F a multiple of 256.
         b1: (F,) fp32.  gamma, beta: (D,) fp32.
         rate: activation-dropout rate in [0, 1).
@@ -109,7 +111,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
     if not _build.require_cuda(name, x):
         return ffn_ln_fc1_plain(x, w1, b1, gamma, beta, eps, rate, seeds)
     F = w1.shape[0]
-    D = _check_shapes(name, x, w1, F, _KERNEL_FWD_D if rate == 0.0 else (_KERNEL_D,))
+    D = _check_shapes(name, x, w1, F)
     w1 = w1.to(x.dtype)
     _build.check_cuda(name, torch.bfloat16, x, w1)
     _build.check_cuda(name, torch.float32, b1, gamma, beta)
@@ -119,8 +121,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
         raise ValueError(f"{name}: all tensors must be on {x.device}")
     seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
     g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
-    # Each width is its own instantiation of the kernel, counted apart.
-    kernel = "ffn_ln_drop" if rate > 0.0 else "ffn_ln" if D == _KERNEL_D else f"ffn_ln_{D}"
+    kernel = ("ffn_ln_drop" if rate > 0.0 else "ffn_ln") + ("" if D == 1024 else f"_{D}")
     _build.launch(
         name, kernel, x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), seed_ptr, g.data_ptr(),
@@ -163,7 +164,7 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     """The backward kernels; arguments and results as ``ffn_bwd_plain``.
 
     Args:
-        x, dy: (B, T, D) bf16, D = 1024.
+        x, dy: (B, T, D) bf16, D = 1024 or 1280.
         w1: (F, D); w2: (D, F); cast to x.dtype. b1 (F,), gamma, beta (D,) fp32.
     """
     name = "coral_ffn_bwd"
@@ -184,10 +185,10 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     db1_part = torch.empty((-(-M // _ROW_TILE), F), dtype=torch.float32, device=x.device)
     dl = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     _build.launch(
-        name, "ffn_bwd", x.data_ptr(), w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), dy.data_ptr(), w2.data_ptr(), seed_ptr, g.data_ptr(),
-        dh.data_ptr(), ln_out.data_ptr(), db1_part.data_ptr(), dl.data_ptr(), M, D, F, T,
-        thr, scale, float(eps),
+        name, "ffn_bwd" if D == 1024 else f"ffn_bwd_{D}", x.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), w2.data_ptr(),
+        seed_ptr, g.data_ptr(), dh.data_ptr(), ln_out.data_ptr(), db1_part.data_ptr(),
+        dl.data_ptr(), M, D, F, T, thr, scale, float(eps),
     )
     dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
     return g, dh, ln_out, dx, db1_part.sum(0), dgamma, dbeta

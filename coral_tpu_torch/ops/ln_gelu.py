@@ -22,6 +22,9 @@ from .gelu_poly import _dgelu, gelu_poly
 
 _EPS = 1e-5
 _KERNEL_C = (512, 1024)
+# The backward also takes the FFN backward's LN step at Whisper large-v3's
+# width; that instantiation is counted apart, as "ln_bwd_1280".
+_KERNEL_C_BWD = (512, 1024, 1280)
 _BWD_BLOCKS = 528  # 4 blocks of 8 rows per SM of an H100; partials (528, 2, C)
 
 
@@ -58,10 +61,10 @@ def ln_bwd_plain(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True)
     return dx.to(x.dtype), (g * n).reshape(-1, C).sum(0), g.reshape(-1, C).sum(0)
 
 
-def _check_row_op(name, x, gamma, beta):
+def _check_row_op(name, x, gamma, beta, widths=_KERNEL_C):
     C = x.shape[-1]
-    if C not in _KERNEL_C:
-        raise ValueError(f"{name}: the kernel takes C in {_KERNEL_C}, got {C}")
+    if C not in widths:
+        raise ValueError(f"{name}: the kernel takes C in {widths}, got {C}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the kernel takes bf16 or fp32, got {x.dtype}")
     _build.check_cuda(name, x.dtype, x)
@@ -89,14 +92,15 @@ def ln_bwd(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
     """The backward kernel: (dx in x.dtype, dgamma (C,) fp32, dbeta (C,) fp32).
 
     Args:
-        x: (..., C) the forward's input, bf16 or fp32; on CUDA C is 512 or 1024.
+        x: (..., C) the forward's input, bf16 or fp32; on CUDA C is 512, 1024
+            or 1280.
         gamma, beta: (C,) fp32.
         dy: x's shape; bf16 (with a bf16 x) or fp32.
     """
     name = "coral_ln_bwd"
     if not _build.require_cuda(name, x):
         return ln_bwd_plain(x, gamma, beta, dy, eps, apply_gelu)
-    C = _check_row_op(name, x, gamma, beta)
+    C = _check_row_op(name, x, gamma, beta, _KERNEL_C_BWD)
     if dy.shape != x.shape:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     if dy.dtype not in (torch.bfloat16, torch.float32) or (
@@ -110,9 +114,10 @@ def ln_bwd(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
     dx = torch.empty_like(x)
     part = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
     _build.launch(
-        name, "ln_bwd", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), rows, C, blocks, int(x.dtype == torch.bfloat16),
-        int(dy.dtype == torch.bfloat16), int(apply_gelu), float(eps),
+        name, "ln_bwd_1280" if C == 1280 else "ln_bwd", x.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(), rows, C, blocks,
+        int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16), int(apply_gelu),
+        float(eps),
     )
     dvec = part.sum(0)
     return dx, dvec[0], dvec[1]

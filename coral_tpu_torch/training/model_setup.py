@@ -5,14 +5,16 @@ tokenizer, ``_infer_arch``, the training fields of the config (:125-293) with
 the remat policy and its warnings, ``_augmentation_settings`` (:78-98),
 ``init_params``, ``make_predictor`` and ``make_train_step`` (:326-341), the
 wav2vec2-CTC step with the feature encoder trained or frozen, the named remat
-policies and the augmentation chain. ``WhisperSetup`` (:452-628), the serving
-half: ``_infer_arch``, the tokenizer, the model config from the YAML surface
-with the JAX setup's kernel flags, ``init_params`` and the greedy
-``make_predictor``. What is not ported raises ``NotImplementedError`` naming
-its ROADMAP item rather than running something else in silence: beam search
-(with an n-gram LM, or Whisper's), Whisper timestamps and training, loading a
-checkpoint, and in wav2vec2 training the ``dots_saveable`` policy,
-``remat_feature_encoder: true`` and more than one device.
+policies and the augmentation chain. ``WhisperSetup`` (:440-628):
+``_infer_arch``, the tokenizer, the model config from the YAML surface with
+the JAX setup's kernel flags and its remat policy by width, the training
+fields, ``init_params``, the greedy ``make_predictor`` and
+``make_train_step`` (the seq2seq step). What is not ported raises
+``NotImplementedError`` naming its ROADMAP item rather than running something
+else in silence: beam search (with an n-gram LM, or Whisper's), Whisper
+timestamps, loading a checkpoint, training on more than one device, and in
+wav2vec2 training the ``dots_saveable`` policy and
+``remat_feature_encoder: true``.
 
 Every setup builds its model on ``device``, the card unless the caller asks
 for the CPU; without a card that raises, as torch does.
@@ -23,6 +25,7 @@ Configs are plain mappings with the keys of the JAX package's config surface
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from pathlib import Path
@@ -260,13 +263,7 @@ class Wav2Vec2Setup:
                 "remat_feature_encoder=true (replay the conv stack in the backward): "
                 + NOT_PORTED.format("9 (off-default kernel flags)")
             )
-        mesh = cfg.get("mesh")
-        if bool(cfg.get("distributed", False)) or (
-            mesh is not None and int(np.prod(list(mesh))) > 1
-        ):
-            raise NotImplementedError(
-                "training on more than one device: " + NOT_PORTED.format("7")
-            )
+        _refuse_devices(cfg)
         augment, noise_bank = _augmentation_settings(cfg, self.is_main)
         return make_ctc_train_step(
             tx, schedule, blank_id=self.blank_id,
@@ -329,8 +326,19 @@ class WhisperPredictor:
         return self.tokenizer.batch_decode(self.generate(self.model, batch).cpu().numpy())
 
 
+def _refuse_devices(config: Mapping[str, Any]) -> None:
+    """Raise for training on more than one device (a mesh or distributed)."""
+    mesh = config.get("mesh")
+    if bool(config.get("distributed", False)) or (
+        mesh is not None and int(np.prod(list(mesh))) > 1
+    ):
+        raise NotImplementedError(
+            "training on more than one device: " + NOT_PORTED.format("7")
+        )
+
+
 class WhisperSetup:
-    """Whisper seq2seq family: serving (greedy generation)."""
+    """Whisper seq2seq family: serving (greedy generation) and the train step."""
 
     CHUNK_SECONDS = 30  # published checkpoints expect 30 s / 3000 mel frames
 
@@ -365,8 +373,22 @@ class WhisperSetup:
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
             ln_impl=model_cfg.get("ln_impl", "xla"),
         )
+        # As the JAX setup: save_flash_ctx for the 1280-wide large family,
+        # save_matmul_inputs below; model.remat_policy wins.
+        default_policy = ("save_flash_ctx" if self.model_config.d_model >= 1280
+                          else "save_matmul_inputs")
+        self.model_config = dataclasses.replace(
+            self.model_config, remat_policy=model_cfg.get("remat_policy", default_policy))
+        self.learning_rate = float(model_cfg.get("learning_rate", 1e-5))
         self.generation_max_length = int(model_cfg.get("max_length", 225))
+        self.gradient_checkpointing = bool(config.get("gradient_checkpointing", True))
+        self.grad_dtype = config.get("grad_dtype", "bfloat16")
         self.audio_pad_seconds = float(model_cfg.get("chunk_seconds", self.CHUNK_SECONDS))
+        self.chunk_length = int(self.audio_pad_seconds * int(model_cfg.get("sampling_rate",
+                                                                           16_000)))
+        # Label padding must stay within the decoder's position table.
+        self.max_label_length = min(self.tokenizer.model_max_length,
+                                    self.model_config.max_target_positions)
 
     @staticmethod
     def _infer_arch(model_cfg: Mapping[str, Any]) -> Callable[..., W.WhisperConfig]:
@@ -385,8 +407,26 @@ class WhisperSetup:
         return W.build_model(self.model_config, self.device, seed=seed)
 
     def make_train_step(self, tx, schedule) -> Callable:
-        raise NotImplementedError(
-            "the seq2seq train step: " + NOT_PORTED.format("6c (Whisper training)"))
+        """The seq2seq train step ``(state, batch, generator) -> (state,
+        metrics)`` (``training/train_state.py``), after refusing what is not
+        ported; an unknown remat policy raises ``ValueError``."""
+        from .train_state import make_seq2seq_train_step
+
+        if self.gradient_checkpointing:
+            W.remat_names(self.model_config.remat_policy)
+        _refuse_devices(self.config)
+        augment, noise_bank = _augmentation_settings(self.config, self._is_main)
+        return make_seq2seq_train_step(
+            tx, schedule,
+            sot_id=self.tokenizer.sot_token_id,
+            pad_id=self.tokenizer.pad_token_id,
+            gradient_checkpointing=self.gradient_checkpointing,
+            augment=augment,
+            noise_bank=noise_bank,
+            # bf16 gradient buffers over fp32 masters, the JAX default;
+            # `grad_dtype: float32` opts out.
+            grad_dtype=self.grad_dtype,
+        )
 
     def make_predictor(self, model: W.WhisperForConditionalGeneration) -> WhisperPredictor:
         """Greedy generation: host batch -> list of transcript strings.

@@ -1,16 +1,22 @@
-"""Train state and the CTC train step on one device, and Whisper's generate step.
+"""Train state, the CTC and seq2seq train steps on one device, and Whisper's generate step.
 
 Port of ``coral_tpu/training/train_state.py`` (``_device_audio`` :28,
-``TrainState`` :35, ``make_ctc_train_step`` :51-183, and the greedy half of
-``make_whisper_generate_step`` :329-374) for one device. Per
-microbatch: the augmentation chain (``augment=True``, ``audio/augment.py``,
+``TrainState`` :35, ``make_ctc_train_step`` :51-183,
+``make_seq2seq_train_step`` :203-326, and the greedy half of
+``make_whisper_generate_step`` :329-374) for one device. Per microbatch of
+the CTC step: the augmentation chain (``augment=True``, ``audio/augment.py``,
 with the background-noise bank when one is given), z-norm, the model in
 training mode, fp32 log-softmax, the CTC loss (sum divided by the microbatch
-size); gradients accumulate in fp32 over the A microbatches and are divided by
-A; then the optimizer step, and the metrics ``loss``, ``grad_norm`` (of the
-unclipped gradients) and ``learning_rate`` (``schedule(state.step)`` before
-the increment). The step's augmentation draws come from its generator first,
-for all A microbatches, before the model runs.
+size). Per microbatch of the seq2seq (Whisper) step: the ``% 320`` length
+check, the augmentation chain or else ``peak_normalize``, the log-mel
+frontend, the labels shifted right behind ``sot_id`` with -100 replaced by
+``pad_id``, the model in training mode, fp32 log-softmax and the mean negative
+log-likelihood over the tokens that are not -100. Both: gradients accumulate
+in fp32 over the A microbatches and are divided by A; then the optimizer step,
+and the metrics ``loss``, ``grad_norm`` (of the unclipped gradients) and
+``learning_rate`` (``schedule(state.step)`` before the increment). The step's
+augmentation draws come from its generator first, for all A microbatches,
+before the model runs.
 
 ``grad_dtype="bfloat16"`` differentiates with respect to bf16 copies of the
 fp32 master parameters, as the JAX step does: the model's own parameters are
@@ -34,8 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..audio.augment import apply_augmentation, draw_augmentation
+from ..audio.augment import apply_augmentation, draw_augmentation, peak_normalize
 from ..audio.features import znorm
+from ..audio.mel import log_mel_spectrogram
 from ..ops.ctc import ctc_loss
 from .optimizer import AdamW, AdamWState, global_norm
 
@@ -78,6 +85,39 @@ def _load_work_params(model: nn.Module, masters: Mapping[str, torch.Tensor],
             p.data = master.to(grad_dtype)
 
 
+def _accumulate(model: nn.Module, num_micro: int, microbatch_loss: Callable[[int], torch.Tensor]):
+    """Runs ``microbatch_loss(a)`` and its backward for each microbatch;
+    returns (the mean loss, fp32 gradients by parameter name summed and
+    divided by ``num_micro``, zeros where a parameter got none)."""
+    named = dict(model.named_parameters())
+    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in named.items()}
+    loss_sum = 0.0
+    for a in range(num_micro):
+        for p in named.values():
+            p.grad = None
+        loss = microbatch_loss(a)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach().float()
+        for n, p in named.items():
+            if p.grad is not None:
+                grads[n] += p.grad.float()
+                p.grad = None
+    if num_micro > 1:
+        for g in grads.values():
+            g /= num_micro
+    return loss_sum / num_micro, grads
+
+
+def _augmentation_draws(batch: Mapping[str, torch.Tensor], generator: torch.Generator,
+                        noise_bank: torch.Tensor | None) -> list:
+    """Every microbatch's augmentation draws, in microbatch order."""
+    num_micro, B, T = batch["input_values"].shape
+    bank_shape = None if noise_bank is None else tuple(noise_bank.shape)
+    return [draw_augmentation(B, T, generator, batch["input_values"].device, bank_shape)
+            for _ in range(num_micro)]
+
+
 def ctc_loss_and_grads(model: nn.Module, batch: Mapping[str, torch.Tensor],
                        generator: torch.Generator, blank_id: int,
                        ctc_loss_reduction: str = "sum",
@@ -90,20 +130,9 @@ def ctc_loss_and_grads(model: nn.Module, batch: Mapping[str, torch.Tensor],
     losses, fp32 gradients by parameter name divided by A, zeros where a
     parameter got none).
     """
-    named = dict(model.named_parameters())
-    grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for n, p in named.items()}
-    num_micro, B, T = batch["input_values"].shape
-    device = batch["input_values"].device
-    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-    draws = [None] * num_micro
-    if augment:
-        bank_shape = None if noise_bank is None else tuple(noise_bank.shape)
-        draws = [draw_augmentation(B, T, generator, device, bank_shape)
-                 for _ in range(num_micro)]
-    for a in range(num_micro):
-        for p in named.values():
-            p.grad = None
+    draws = _augmentation_draws(batch, generator, noise_bank) if augment else None
+
+    def microbatch_loss(a):
         mb = {k: v[a] for k, v in batch.items()}
         audio = _device_audio(mb["input_values"])
         lengths = mb["input_lengths"]
@@ -124,16 +153,38 @@ def ctc_loss_and_grads(model: nn.Module, batch: Mapping[str, torch.Tensor],
             # The JAX step's per-sample scale: the sum over the microbatch
             # divided by its size.
             loss = loss / mb["labels"].shape[0]
-        loss.backward()
-        loss_sum += loss.detach().float()
-        for n, p in named.items():
-            if p.grad is not None:
-                grads[n] += p.grad.float()
-                p.grad = None
-    if num_micro > 1:
-        for g in grads.values():
-            g /= num_micro
-    return loss_sum / num_micro, grads
+        return loss
+
+    return _accumulate(model, batch["input_values"].shape[0], microbatch_loss)
+
+
+def _make_step(tx: AdamW, schedule: Callable[[int], float], grad_dtype: str | None,
+               noise_bank, loss_and_grads: Callable) -> Callable:
+    """The step ``(state, batch, generator) -> (state, metrics)`` around
+    ``loss_and_grads(model, batch, generator, bank)``: the batch and (once)
+    the noise bank to the device, the work copies, the update, the metrics."""
+    work_dtype = getattr(torch, grad_dtype) if grad_dtype else None
+    bank = None
+
+    def train_step(state: TrainState, batch: Mapping[str, Any], generator: torch.Generator):
+        nonlocal bank
+        device = next(iter(state.params.values())).device
+        batch = {k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(device)
+                 for k, v in batch.items()}
+        if noise_bank is not None and bank is None:
+            bank = torch.as_tensor(noise_bank, dtype=torch.float32).to(device)
+        _load_work_params(state.model, state.params, work_dtype)
+        loss, grads = loss_and_grads(state.model, batch, generator, bank)
+        metrics = {
+            "loss": loss,
+            "grad_norm": global_norm(list(grads.values())),
+            "learning_rate": torch.tensor(schedule(state.step), dtype=torch.float32),
+        }
+        tx.update(grads, state.opt_state, state.params)
+        state.step += 1
+        return state, metrics
+
+    return train_step
 
 
 def make_ctc_train_step(
@@ -155,30 +206,75 @@ def make_ctc_train_step(
     of every augmentation draw, dropout mask and SpecAugment span of the step.
     ``noise_bank`` (N, T) goes to the device at the first step and stays.
     """
-    work_dtype = getattr(torch, grad_dtype) if grad_dtype else None
-    bank = None
+    def loss_and_grads(model, batch, generator, bank):
+        return ctc_loss_and_grads(model, batch, generator, blank_id, ctc_loss_reduction,
+                                  freeze_feature_encoder, augment, bank)
 
-    def train_step(state: TrainState, batch: Mapping[str, Any], generator: torch.Generator):
-        nonlocal bank
-        device = next(iter(state.params.values())).device
-        batch = {k: torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v)).to(device)
-                 for k, v in batch.items()}
-        if augment and noise_bank is not None and bank is None:
-            bank = torch.as_tensor(noise_bank, dtype=torch.float32).to(device)
-        _load_work_params(state.model, state.params, work_dtype)
-        loss, grads = ctc_loss_and_grads(state.model, batch, generator, blank_id,
-                                         ctc_loss_reduction, freeze_feature_encoder, augment,
-                                         bank)
-        metrics = {
-            "loss": loss,
-            "grad_norm": global_norm(list(grads.values())),
-            "learning_rate": torch.tensor(schedule(state.step), dtype=torch.float32),
-        }
-        tx.update(grads, state.opt_state, state.params)
-        state.step += 1
-        return state, metrics
+    return _make_step(tx, schedule, grad_dtype, noise_bank if augment else None, loss_and_grads)
 
-    return train_step
+
+def seq2seq_loss_and_grads(model: nn.Module, batch: Mapping[str, torch.Tensor],
+                           generator: torch.Generator, sot_id: int, pad_id: int,
+                           gradient_checkpointing: bool = False, augment: bool = False,
+                           noise_bank: torch.Tensor | None = None):
+    """The accumulated loss and gradients of one Whisper optimizer step, as
+    ``ctc_loss_and_grads``; ``batch`` holds ``input_values (A, B, T)``,
+    ``input_lengths (A, B)`` and ``labels (A, B, L)`` with -100 padding."""
+    from ..models import whisper as W
+
+    cfg = model.config
+    T = batch["input_values"].shape[-1]
+    # 160 = the mel hop, x2 for the encoder's stride-2 conv.
+    if T % 320:
+        raise ValueError(f"whisper audio length must be a multiple of 320, got {T}")
+    draws = _augmentation_draws(batch, generator, noise_bank) if augment else None
+
+    def microbatch_loss(a):
+        mb = {k: v[a] for k, v in batch.items()}
+        audio = _device_audio(mb["input_values"]).float()
+        if augment:  # the chain peak-normalises before its gain
+            audio = apply_augmentation(audio, mb["input_lengths"], draws[a], noise_bank)
+        else:
+            audio = peak_normalize(audio)
+        feats = log_mel_spectrogram(audio, n_mels=cfg.num_mel_bins, dtype=cfg.dtype)
+        labels = mb["labels"].long()
+        # Shift right: decoder input t sees label t-1; -100 padding -> pad id.
+        safe = torch.where(labels == -100, pad_id, labels)
+        decoder_input_ids = torch.cat([torch.full_like(safe[:, :1], sot_id), safe[:, :-1]], 1)
+        logits = W.forward(model, feats, decoder_input_ids, deterministic=False,
+                           generator=generator, gradient_checkpointing=gradient_checkpointing)
+        mask = labels != -100
+        token_ll = F.log_softmax(logits.float(), dim=-1).gather(-1, safe[..., None])[..., 0]
+        # Mean over the valid tokens (CrossEntropyLoss(ignore_index=-100)).
+        return -(token_ll * mask).sum() / mask.sum().clamp_min(1)
+
+    return _accumulate(model, batch["input_values"].shape[0], microbatch_loss)
+
+
+def make_seq2seq_train_step(
+    tx: AdamW,
+    schedule: Callable[[int], float],
+    sot_id: int,
+    pad_id: int,
+    gradient_checkpointing: bool = False,
+    augment: bool = False,
+    noise_bank: np.ndarray | torch.Tensor | None = None,
+    grad_dtype: str | None = None,
+) -> Callable:
+    """The Whisper train step ``(state, batch, generator) -> (state,
+    metrics)``: the on-device log-mel frontend, the encoder-decoder in
+    training mode (the model config's ``remat_policy`` under
+    ``gradient_checkpointing``), the cross-entropy. The batch is as
+    ``seq2seq_loss_and_grads`` takes it; its T is the setup's
+    ``chunk_length`` (30 s for checkpoint parity) and must be a multiple of
+    320. Unlike the JAX step it takes no model config and no chunk length:
+    the model carries its config, and T is the batch's."""
+
+    def loss_and_grads(model, batch, generator, bank):
+        return seq2seq_loss_and_grads(model, batch, generator, sot_id, pad_id,
+                                      gradient_checkpointing, augment, bank)
+
+    return _make_step(tx, schedule, grad_dtype, noise_bank if augment else None, loss_and_grads)
 
 
 def make_whisper_generate_step(

@@ -26,10 +26,12 @@ order 100, summed in the same order). Dropout masks are compared exactly:
 kernel and plain draw the same Philox bits.
 
 Whisper's attention kernels: the encoder's flash attention at 8e-3 as the
-wav2vec2 attention (bf16 probabilities rounded against the running max); the
-decode kernels at 4e-3, which keep the probabilities in fp32 where the plain
-version (the JAX composition) rounds them to bf16 before p @ v: at most
-2**-9 of each term, summed over keys whose weights add to 1.
+wav2vec2 attention (bf16 probabilities rounded against the running max), its
+row stats m and l (fp32 on both sides, sums in another order) at rtol 1e-5,
+its backward's dq, dk and dv as the other gradients; the decode kernels at
+4e-3, which keep the probabilities in fp32 where the plain version (the JAX
+composition) rounds them to bf16 before p @ v: at most 2**-9 of each term,
+summed over keys whose weights add to 1.
 """
 
 import numpy as np
@@ -168,7 +170,7 @@ def _close_rel(got, want, frac=2e-2):
     assert (err <= bound).all(), f"max err {err.max().item()} vs max {want.abs().max().item()}"
 
 
-@pytest.mark.parametrize("C", [512, 1024])
+@pytest.mark.parametrize("C", [512, 1024, 1280])
 @pytest.mark.parametrize("dtypes", ["bf16/bf16", "bf16/fp32", "fp32/fp32"])
 @pytest.mark.parametrize("apply_gelu", [True, False])
 def test_ln_bwd_kernel_matches_plain(cuda, C, dtypes, apply_gelu):
@@ -177,7 +179,9 @@ def test_ln_bwd_kernel_matches_plain(cuda, C, dtypes, apply_gelu):
     dy = _on(cuda, _np(3, 333, C, seed=1), dyd)
     gamma = _on(cuda, _np(C, seed=2, scale=0.1, offset=1.0))
     beta = _on(cuda, _np(C, seed=3, scale=0.1))
+    _build.reset_launch_counts()
     got = ln_gelu.ln_bwd(x, gamma, beta, dy, apply_gelu=apply_gelu)
+    assert _build.launch_counts == {"ln_bwd_1280" if C == 1280 else "ln_bwd": 1}
     want = ln_gelu.ln_bwd_plain(x, gamma, beta, dy, apply_gelu=apply_gelu)
     assert got[0].dtype == xd
     _close(got[0], want[0], 1e-2)
@@ -211,8 +215,7 @@ def test_attention_bwd_kernel_matches_plain(cuda, packed):
     _close_rel(got[3], want[3], 1e-2)
 
 
-def _ffn_inputs(cuda, F=512, T=75):
-    D = 1024
+def _ffn_inputs(cuda, F=512, T=75, D=1024):
     x = _on(cuda, _np(2, T, D, seed=0, offset=0.2), torch.bfloat16)
     w1 = _on(cuda, _np(F, D, seed=1, scale=0.03), torch.bfloat16)
     b1 = _on(cuda, _np(F, seed=2, scale=0.1))
@@ -224,10 +227,14 @@ def _ffn_inputs(cuda, F=512, T=75):
     return x, w1, b1, gamma, beta, w2, dy, seeds
 
 
+@pytest.mark.parametrize("D", [1024, 1280])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_ffn_dropout_kernel_matches_plain(cuda, rate):
-    x, w1, b1, gamma, beta, _, _, seeds = _ffn_inputs(cuda)
+def test_ffn_dropout_kernel_matches_plain(cuda, rate, D):
+    x, w1, b1, gamma, beta, _, _, seeds = _ffn_inputs(cuda, D=D)
+    _build.reset_launch_counts()
     g = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
+    name = "ffn_ln_drop" if rate else "ffn_ln"
+    assert _build.launch_counts == {name if D == 1024 else f"{name}_{D}": 1}
     want = ffn.ffn_ln_fc1_plain(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
     _close(g, want, 1e-2)
     if rate:
@@ -237,12 +244,14 @@ def test_ffn_dropout_kernel_matches_plain(cuda, rate):
         assert abs(frac - (1 - rate)) < 0.01
 
 
+@pytest.mark.parametrize("D", [1024, 1280])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_ffn_bwd_kernel_matches_plain(cuda, rate):
-    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda)
+def test_ffn_bwd_kernel_matches_plain(cuda, rate, D):
+    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda, D=D)
     _build.reset_launch_counts()
     got = ffn.ffn_bwd(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)
-    assert _build.launch_counts == {"ffn_bwd": 1, "ln_bwd": 1}
+    tail = "" if D == 1024 else f"_{D}"
+    assert _build.launch_counts == {f"ffn_bwd{tail}": 1, f"ln_bwd{tail}": 1}
     want = ffn.ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)
     g_fwd = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
     assert torch.equal(got[0], g_fwd)  # the backward regenerates the forward's g
@@ -418,6 +427,41 @@ def test_flash_attention_kernel_matches_plain(cuda, T, packed):
     _close(got, flash_attention.flash_self_attention_plain(q, k, v), 8e-3)
 
 
+@pytest.mark.parametrize("T", [1500, 1000])
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+def test_flash_attention_train_and_bwd_kernels_match_plain(cuda, T, packed):
+    """The training forward (o and the fp32 row stats l, m) and the two
+    backward kernels against their plain versions, at a T that is not a
+    multiple of the 64-key tile; then the autograd Function."""
+    B, H, d = 2, 3, 64
+    q, k, v = (_np(B, T, H * d, seed=i) for i in range(3))
+    if packed:
+        qkv = _on(cuda, np.concatenate([q, k, v], axis=-1), torch.bfloat16)
+        q, k, v = (t.view(B, T, H, d) for t in qkv.split(H * d, dim=-1))
+    else:
+        q, k, v = (_on(cuda, a, torch.bfloat16).view(B, T, H, d) for a in (q, k, v))
+    _build.reset_launch_counts()
+    o, l, m = flash_attention.flash_attention_fwd(q, k, v)
+    assert _build.launch_counts == {"flash_attention_train": 1}
+    want = flash_attention.flash_attention_fwd_plain(q, k, v)
+    _close(o, want[0], 8e-3)
+    assert torch.equal(o, flash_attention.flash_self_attention(q, k, v))
+    torch.testing.assert_close(l, want[1], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(m, want[2], rtol=1e-5, atol=1e-6)
+    do = _on(cuda, _np(B, T, H, d, seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do)
+    assert _build.launch_counts == {"flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, l, m, do)
+    for g, w in zip(got, want):
+        assert g.shape == (B, T, H, d) and g.is_contiguous()
+        _close_rel(g, w)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention.flash_attention(*leaves)[0].backward(do)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
 def _beam_onehot(B, K, T, pos, seed):
     """Query beam k of item b attends, at each position t <= pos, the slot of
     a random ancestor beam (K = 1: the causal mask)."""
@@ -460,17 +504,20 @@ def test_decode_cross_kernel_matches_plain(cuda, K):
 
 def test_whisper_kernels_reject_what_they_do_not_take(cuda):
     """A CUDA tensor the kernels do not take raises and is never sent to the
-    plain version: the FFN's dropout at D = 1280, head_dim 32, > 64 beams."""
+    plain version: the FFN's dropout at D = 1920 (XLS-R-2B), head_dim 32,
+    > 64 beams."""
     _build.reset_launch_counts()
-    x = torch.zeros(1, 8, 1280, device=cuda, dtype=torch.bfloat16)
-    w1 = torch.zeros(512, 1280, device=cuda, dtype=torch.bfloat16)
-    b1, g = torch.zeros(512, device=cuda), torch.ones(1280, device=cuda)
+    x = torch.zeros(1, 8, 1920, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(512, 1920, device=cuda, dtype=torch.bfloat16)
+    b1, g = torch.zeros(512, device=cuda), torch.ones(1920, device=cuda)
     with pytest.raises(ValueError, match="the kernel takes D"):
         ffn.ffn_ln_fc1(x, w1, b1, g, g, rate=0.1,
                        seeds=torch.zeros(1, dtype=torch.int32, device=cuda))
     q = torch.zeros(1, 64, 4, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention.flash_self_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(q, q, q)
     cache = torch.zeros(2, 1, 8, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention.decode_cross_attention(cache[0, :, 0], cache, cache, 4, 0)
