@@ -5,16 +5,19 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-It drives the port's four paths through the hand-written CUDA kernels, at
-full width and depth with seeded random weights in bf16: wav2vec2 serving,
-``ASRPipeline`` with XLS-R-300M (24 layers, 30 s window, batch 8); wav2vec2
-training, the CTC train step of ``Wav2Vec2Setup.make_train_step`` (8 clips of
-6-10 s padded to 10 s, 2 accumulation microbatches); Whisper serving,
-``ASRPipeline("openai/whisper-large-v3")`` (32 + 32 layers, d 1280, 30 s
-windows, batch 8, greedy generation to 225 tokens); and Whisper training,
+It drives the port's paths through the hand-written CUDA kernels, with seeded
+random weights in bf16, at every model config of the repository: wav2vec2
+serving, ``ASRPipeline`` with XLS-R-300M (24 layers, 30 s window, batch 8);
+wav2vec2 training, the CTC train step of ``Wav2Vec2Setup.make_train_step`` (8
+clips of 6-10 s padded to 10 s, 2 accumulation microbatches); Whisper
+serving, ``ASRPipeline("openai/whisper-large-v3")`` (32 + 32 layers, d 1280,
+30 s windows, batch 8, greedy generation to 225 tokens); Whisper training,
 the seq2seq train step of ``WhisperSetup.make_train_step`` (8 clips of 6-10 s
-padded to 30 s, 2 accumulation microbatches). It runs in phases; any failing
-phase exits non-zero before the result line is printed:
+padded to 30 s, 2 accumulation microbatches); XLS-R-2B's production
+fine-tune and serving at full width and depth (48 layers, d 1920, 16 heads x
+120); XLS-R-1B (d 1280, 16 x 80), whisper-small, -base and -tiny at full
+width, each served and trained. It runs in phases; any failing phase exits
+non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
@@ -30,7 +33,10 @@ phase exits non-zero before the result line is printed:
    beams at a reduced batch), decode cross-attention and the FFN at D = 1280;
    Whisper training's flash forward with its row stats, the flash backward's
    dkv and dq kernels, and the FFN's dropout forward, its backward (at the
-   encoder's and the decoder's rows) and the LN backward at D = 1280;
+   encoder's and the decoder's rows) and the LN backward at D = 1280; and
+   each kernel at the other configs' widths: the LN forward at 1280 and 1920,
+   the attention forward and backward at head_dim 80 and 120, the FFN's three
+   kernels at 384, 512, 768 and 1920, the LN backward at 384, 768 and 1920;
 4. serving: ``transcribe_batch`` on 12 clips of 3-30 s (the second device
    batch is partial, with fully masked filler rows) and ``transcribe`` on a
    45 s clip (long-form windows), with the kernels' launch counts over that
@@ -45,9 +51,10 @@ phase exits non-zero before the result line is printed:
    nothing_saveable, augmentation off, and (c) the production configuration
    (the feature encoder training, save_qk_ctx, the augmentation chain with a
    seeded synthetic noise bank), each for several optimizer steps on one
-   fixed batch: exact launch counts over the first step, finite losses and a
-   last loss below the first, training audio-s/s, ms per step against the
-   plain path's, peak memory, and a ``torch.profiler`` breakdown of one step;
+   fixed batch with the same draws each step: exact launch counts over the
+   first step, finite losses and a last loss below the first, training
+   audio-s/s, ms per step against the plain path's, peak memory, and a
+   ``torch.profiler`` breakdown of one step;
 6. Whisper serving (d): ``transcribe_batch`` on 12 clips of 3-30 s (two
    device batches, the second partial) with exact launch counts (flash
    attention and the 1280-wide FFN 32 per encoder call, decode self- and
@@ -65,7 +72,27 @@ phase exits non-zero before the result line is printed:
    then several optimizer steps on one fixed batch with exact launch counts
    over the first, finite losses and a last loss below the first, ms per
    step, training audio-s/s, peak memory and a profile of one step;
-8. a JSON line with every kernel (its launches summed over the counted runs
+8. training (f), the slice's main path: config/model/wav2vec2-large.yaml
+   (XLS-R-2B) with config/asr_finetuning.yaml through
+   ``Wav2Vec2Setup.make_train_step``, (c)'s configuration and traffic: the
+   kernel path's loss and gradients against the plain path's on one
+   microbatch at 24 of the 48 layers, then 10 steps at full depth (the
+   config's 1000-step warmup, the same draws each step, as (b) and (c))
+   with exact launch counts over the first, a
+   falling loss, ms per step, audio-s/s, the step state against the peak
+   memory and a profile of one step;
+9. serving (f'): ``ASRPipeline("facebook/wav2vec2-xls-r-2b")`` on the 12 clips
+   of phase 4, the logits against the plain path, audio-s/s, latency and
+   peak memory;
+10. (g) XLS-R-1B (wav2vec2-medium.yaml): serving as (f'), then 3 steps of
+   the production step with exact launch counts and finite losses;
+11. (h), (i) whisper-small, whisper-xsmall (base), whisper-xxsmall and
+   test-whisper (tiny) through ``WhisperSetup``: one batch of 8 clips served
+   greedily with exact launch counts, the encoder output and 32 steps of
+   teacher-forced logits against the plain path; then (test-whisper aside)
+   3 steps of the seq2seq step with exact launch counts over the first and
+   finite losses;
+12. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -75,6 +102,7 @@ did.
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import math
@@ -183,6 +211,28 @@ SOURCES = {
     "ffn_bwd_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:385"),
     "ln_bwd_1280": ("coral_tpu_torch/csrc/ln_gelu.cu", "coral_tpu/ops/ln_gelu_pallas.py:58"),
 }
+# The instantiations at the other widths of the repository's configs: each has
+# its base kernel's tolerance and TPU source.
+NEW_FFN_D = (384, 512, 768, 1920)
+for _D in NEW_FFN_D:
+    for _base, _line in (("ffn_ln", 163), ("ffn_ln_drop", 169), ("ffn_bwd", 385)):
+        SOURCES[f"{_base}_{_D}"] = ("coral_tpu_torch/csrc/ffn.cu",
+                                    f"coral_tpu/ops/ffn_pallas.py:{_line}")
+        if _base in TOLERANCE:
+            TOLERANCE[f"{_base}_{_D}"] = TOLERANCE[_base]
+for _C in (1280, 1920):
+    SOURCES[f"ln_fused_{_C}"] = SOURCES["ln_fused"]
+    TOLERANCE[f"ln_fused_{_C}"] = TOLERANCE["ln_fused"]
+for _C in (384, 768, 1920):
+    SOURCES[f"ln_bwd_{_C}"] = SOURCES["ln_bwd"]
+    TOLERANCE[f"ln_bwd_{_C}"] = TOLERANCE["ln_bwd"]
+# Checks of a second route of a kernel that has its row under another check:
+# they must pass and are printed, but give no row of the kernels line.
+ROUTE_KEYS = {"ln_bwd_1280": "ln_bwd_1280 bf16 dy"}
+for _d in (80, 120):
+    SOURCES[f"attention_fwd_hd{_d}"] = SOURCES["attention"]
+    SOURCES[f"attention_bwd_hd{_d}"] = SOURCES["attention_bwd"]
+    TOLERANCE[f"attention_fwd_hd{_d}"] = TOLERANCE["attention"]
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # fp32 outside them, and device memory. A kernel's bound is the larger of its
 # operations over the rate of their type and its bytes (each input read once,
@@ -239,8 +289,17 @@ MAX_LABEL = 128
 # sqrt(v) is +-1 per element), which at random init first raises the CTC loss
 # (+43% measured at lr 1e-4 without warmup); a 3-step warmup shrinks that
 # jump, and 10 steps at the config's lr 1e-4 leave the loss below its start.
+# Every step of a wav2vec2 training phase takes the same draws (SpecAugment,
+# dropout, augmentation: a generator seeded alike), so that the losses show
+# the learning and not the draws: with new draws each step, (c)'s last loss
+# came out above its first (1086.5 -> 1124.1, 444.0 the step before; H100)
+# and new draws alone moved XLS-R-2B's loss by 2% at learning rate 0.
 TRAIN_STEPS = 10
 WARMUP_STEPS = 3
+# XLS-R-2B at lr 1e-4 after that warmup first climbs (1113.6 to 1439.3 in 8
+# steps, the path itself not bit for bit the same between runs), so (f) keeps
+# config/asr_finetuning.yaml's own warmup of 1000 steps.
+FINETUNE_WARMUP_STEPS = 1000
 # Kernel path vs plain path in training, on one microbatch: the loss and the
 # gradient norm relative to the plain path's, and each parameter's gradient
 # max|diff| / max|plain|. Both paths round the bf16 residual stream at
@@ -293,6 +352,41 @@ WHISPER_WARMUP_STEPS = 1
 WHISPER_PER_MICROBATCH = {
     "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
     "ffn_ln_drop_1280": 64, "ffn_bwd_1280": 64, "ln_bwd_1280": 64}
+
+# Phases (f)-(i): the six configs whose widths the kernels gained in this
+# slice. (f) config/model/wav2vec2-large.yaml (XLS-R-2B) and (g)
+# wav2vec2-medium.yaml (XLS-R-1B) differ from wav2vec2-small.yaml only in
+# their checkpoint id: the production configuration (c) with their widths.
+XLSR_2B_ID, XLSR_1B_ID = "facebook/wav2vec2-xls-r-2b", "facebook/wav2vec2-xls-r-1b"
+W2V2_LARGE_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "name": "wav2vec2-large", "pretrained_model_id": XLSR_2B_ID}}
+W2V2_MEDIUM_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "name": "wav2vec2-medium", "pretrained_model_id": XLSR_1B_ID}}
+# (f) kernel vs plain on one microbatch at 24 of the 48 layers: a plain twin
+# is a second 2 B model, and 24 layers are the depth the tolerances were set
+# at (XLS-R-300M); then the steps at full depth, (c)'s warmup and count.
+XLSR_2B_COMPARE_LAYERS = 24
+# (g): a few steps at full depth, the loss finite (no claim that it falls).
+FEW_STEPS = 3
+# (h), (i): whisper-small.yaml, -xsmall.yaml (whisper-base), -xxsmall.yaml and
+# test-whisper.yaml (whisper-tiny): whisper-large.yaml's values but for the
+# checkpoint id and the learning rate (test-whisper also sets dropout and
+# attention dropout 0.1 and freezes nothing the port trains otherwise).
+# (label, name, checkpoint, learning rate, other keys, (d_model, encoder
+# layers, decoder layers, heads, FFN), train steps).
+WHISPER_SIZES = [
+    ("(h)", "whisper-small", "openai/whisper-small", 1e-5, {}, (768, 12, 12, 12, 3072),
+     FEW_STEPS),
+    ("(i)", "whisper-xsmall", "openai/whisper-base", 2.5e-5, {}, (512, 6, 6, 8, 2048),
+     FEW_STEPS),
+    ("(i)", "whisper-xxsmall", "openai/whisper-tiny", 3.75e-5, {}, (384, 4, 4, 6, 1536),
+     FEW_STEPS),
+    ("(i)", "test-whisper", "openai/whisper-tiny", 3.75e-5,
+     {"freeze_feature_encoder": True, "dropout": 0.1, "attention_dropout": 0.1},
+     (384, 4, 4, 6, 1536), 0),
+]
+# Teacher-forced decode steps of the kernel-vs-plain check at these sizes.
+WHISPER_COMPARE_STEPS = 32
 
 
 def fail(msg: str) -> None:
@@ -739,52 +833,66 @@ def train_kernel_checks(card: str) -> dict:
     return results
 
 
-def serving_run(card: str) -> tuple[dict, dict]:
-    """The main path through ASRPipeline; returns (launch counts, metrics)."""
+def w2v2_forward_launches(cfg) -> dict:
+    """The kernel launches of one wav2vec2 forward (serving) at cfg's widths."""
+    from coral_tpu_torch.ops import attention, ffn, ln_gelu
+
+    D, L = cfg.hidden_size, cfg.num_hidden_layers
+    hd = D // cfg.num_attention_heads
+    return {"ln_gelu": 1, "conv_ln_gelu": 6, ln_gelu._name("ln_fused", D): L,
+            attention._name("fwd", hd): L, ffn._name("ffn_ln", D): L}
+
+
+def serving_run(card: str, model_id: str = "facebook/wav2vec2-xls-r-300m",
+                arch: tuple = (1024, 24, 16), label: str = "serving",
+                long_clip: bool = True, reps: tuple = (5, 3, 3)) -> tuple[dict, dict]:
+    """The main path through ASRPipeline; returns (launch counts, metrics).
+    ``reps``: the timed runs of the latency, the plain path's latency and the
+    transcription of the clips."""
     from coral_tpu_torch import ASRPipeline
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.training.model_setup import GreedyCtcPredictor
 
     t0 = time.perf_counter()
-    asr = ASRPipeline("facebook/wav2vec2-xls-r-300m", batch_size=BATCH, device="cuda")
+    asr = ASRPipeline(model_id, batch_size=BATCH, device="cuda")
     predictor = asr.predictor
     cfg = predictor.model.config
-    print(f"model: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
-          f"{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, {cfg.dtype}, "
+    print(f"{label} model {model_id}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} "
+          f"layers, {cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, {cfg.dtype}, "
           f"window {asr.window_seconds} s, built in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype) != (1024, 24, torch.bfloat16):
-        fail("the pipeline did not build XLS-R-300M in bf16")
+    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.dtype) != (*arch, torch.bfloat16):
+        fail(f"the pipeline did not build {model_id} in bf16")
 
     rng = np.random.default_rng(0)
     seconds = np.linspace(3.0, 30.0, 12)
     clips = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
-    long_clip = (rng.standard_normal(45 * SR) * 0.1).astype(np.float32)
+    long_audio = (rng.standard_normal(45 * SR) * 0.1).astype(np.float32)
     T = int(asr.window_seconds * SR)
     step = T - 2 * (T // 6)  # ASRPipeline.transcribe's windows overlap by T // 6 a side
-    n_windows = 1 + math.ceil((len(long_clip) - T) / step)
+    n_windows = 1 + math.ceil((len(long_audio) - T) / step) if long_clip else 0
     forwards = math.ceil(len(clips) / BATCH) + math.ceil(n_windows / BATCH)
 
     # The main path, counted.
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     texts = asr.transcribe_batch(clips)
-    long_text = asr.transcribe(long_clip)
+    long_text = asr.transcribe(long_audio) if long_clip else ""
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    print(f"main path: {forwards} forwards, launch counts {counts}", flush=True)
-    per_forward = {"ln_gelu": 1, "ln_fused": 24, "conv_ln_gelu": 6, "attention": 24,
-                   "ffn_ln": 24}
-    for name, n in per_forward.items():
+    print(f"{label} main path: {forwards} forwards, launch counts {counts}", flush=True)
+    for name, n in w2v2_forward_launches(cfg).items():
         if counts.get(name, 0) < n * forwards:
             fail(f"{name} launched {counts.get(name, 0)} times, expected >= {n * forwards}")
     if len(texts) != len(clips) or not all(isinstance(t, str) for t in texts):
         fail("transcribe_batch returned the wrong transcripts")
     if not isinstance(long_text, str):
         fail("transcribe returned no transcript for the long clip")
-    print(f"transcripts: {len(texts)} clips, first {texts[0][:40]!r}; 45 s clip in "
-          f"{n_windows} windows, {len(long_text)} characters", flush=True)
+    print(f"{label} transcripts: {len(texts)} clips, first {texts[0][:40]!r}"
+          + (f"; 45 s clip in {n_windows} windows, {len(long_text)} characters"
+             if long_clip else ""), flush=True)
 
     # Kernel path vs plain path on the second, partial batch.
     batch_audio = np.zeros((BATCH, T), np.float32)
@@ -813,21 +921,21 @@ def serving_run(card: str) -> tuple[dict, dict]:
         if n > 0:
             agree += int((logits[i, :n].argmax(-1) == plain_logits[i, :n].argmax(-1)).sum())
             total += n
-    print(f"logits kernel vs plain: max|diff|/max|plain| {diff:.6g} (tolerance {LOGITS_TOL}); "
-          f"argmax agreement over {total} valid frames {agree / total:.6f}; filler rows "
-          f"frame lengths {frames[len(clips) - BATCH:].tolist()}", flush=True)
+    print(f"{label} logits kernel vs plain: max|diff|/max|plain| {diff:.6g} (tolerance "
+          f"{LOGITS_TOL}); argmax agreement over {total} valid frames {agree / total:.6f}; "
+          f"filler rows frame lengths {frames[len(clips) - BATCH:].tolist()}", flush=True)
     if diff > LOGITS_TOL:
         fail("kernel path and plain path disagree")
 
     full = {"input_values": np.stack([np.resize(c, T) for c in clips[-BATCH:]]),
             "input_lengths": np.full((BATCH,), T, np.int32)}
 
-    latency = timed(lambda: predictor(full), 5)
-    plain_latency = timed(lambda: plain(full), 3)
+    latency = timed(lambda: predictor(full), reps[0])
+    plain_latency = timed(lambda: plain(full), reps[1])
     del plain, plain_model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    wall = timed(lambda: asr.transcribe_batch(clips), 3)
+    wall = timed(lambda: asr.transcribe_batch(clips), reps[2])
     peak = torch.cuda.max_memory_allocated()
     metrics = {
         "audio_s_per_s": float(seconds.sum() / wall),
@@ -837,10 +945,10 @@ def serving_run(card: str) -> tuple[dict, dict]:
         "logits_max_rel_diff": diff,
         "argmax_agreement": agree / total,
     }
-    print(f"serving ({card}): {metrics['audio_s_per_s']:.3f} audio-s/s over "
-          f"{seconds.sum():.1f} s of audio in 12 clips (median of 3); latency "
-          f"{metrics['latency_ms_per_batch']:.3f} ms per batch of {BATCH} x 30 s "
-          f"(plain path {metrics['plain_latency_ms_per_batch']:.3f} ms); peak memory "
+    print(f"{label} ({card}): {metrics['audio_s_per_s']:.3f} audio-s/s over "
+          f"{seconds.sum():.1f} s of audio in 12 clips (median of {reps[2]}); latency "
+          f"{metrics['latency_ms_per_batch']:.3f} ms per batch of {BATCH} x 30 s (median of "
+          f"{reps[0]}; plain path {metrics['plain_latency_ms_per_batch']:.3f} ms); peak memory "
           f"{metrics['peak_memory_gib']:.3f} GiB", flush=True)
     return counts, metrics
 
@@ -920,23 +1028,28 @@ def plain_twin(model):
     return plain
 
 
-def training_compare(card: str, batch: dict) -> dict:
+def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
+                     label: str = "(a)", layers: int | None = None) -> dict:
     """Training (a): the kernel path's loss and gradients against the plain
-    path's on one microbatch, the feature encoder training under save_qk_ctx."""
+    path's on one microbatch, the feature encoder training under save_qk_ctx;
+    ``layers`` cuts the encoder's depth (the plain twin is a second model)."""
     import copy
+    import dataclasses
 
     from coral_tpu_torch.training.model_setup import load_model_setup
     from coral_tpu_torch.training.optimizer import global_norm
     from coral_tpu_torch.training.train_state import _load_work_params, ctc_loss_and_grads
 
-    cfg_a = copy.deepcopy(PRODUCTION_CONFIG)
+    cfg_a = copy.deepcopy(config)
     cfg_a["model"]["activation_dropout"] = 0.0
     cfg_a["augment_audio"] = False
     setup = load_model_setup(cfg_a, device="cuda")
+    if layers is not None:
+        setup.model_config = dataclasses.replace(setup.model_config, num_hidden_layers=layers)
     model = setup.init_params(seed=0)
     if (setup.freeze_feature_encoder, model.wav2vec2.encoder.remat_policy) != (
             False, "save_qk_ctx"):
-        fail("training (a) did not get the feature encoder training under save_qk_ctx")
+        fail(f"training {label} did not get the feature encoder training under save_qk_ctx")
     plain = plain_twin(model)
     masters = {n: p.detach().float().clone() for n, p in model.named_parameters()}
     one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
@@ -968,7 +1081,11 @@ def training_compare(card: str, batch: dict) -> dict:
     ratios.sort(reverse=True)
     worst = ratios[0][0]
     fe = [(r, n) for r, n in ratios if "feature_extractor" in n]
-    print(f"training (a) kernel vs plain, one microbatch of {BATCH}, feature encoder training, "
+    cfg = model.config
+    del model, plain, masters, out
+    torch.cuda.empty_cache()
+    print(f"training {label} kernel vs plain, hidden {cfg.hidden_size}, {cfg.num_hidden_layers} "
+          f"layers, one microbatch of {BATCH}, feature encoder training, "
           f"save_qk_ctx: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_rel:.6g}, "
           f"tolerance {TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel "
           f"{norm_rel:.6g}, tolerance {TRAIN_GRAD_NORM_RTOL}); gradient max|diff|/max|plain| over "
@@ -985,15 +1102,19 @@ def training_compare(card: str, batch: dict) -> dict:
     if not (math.isfinite(float(loss_k)) and loss_rel <= TRAIN_LOSS_RTOL
             and norm_rel <= TRAIN_GRAD_NORM_RTOL and worst <= TRAIN_GRAD_TOL
             and max(k_bias) <= K_BIAS_NOISE and fe_live and len(fe) == len(fe_params)):
-        fail("the training kernel path and plain path disagree")
+        fail(f"the training {label} kernel path and plain path disagree")
     return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": worst,
             "worst_fe_grad": fe[0][0]}
 
 
 def production_run(card: str, label: str, config: dict, per_microbatch: dict,
-                   batch: dict, audio_seconds: float) -> tuple[dict, dict]:
-    """``TRAIN_STEPS`` optimizer steps through ``Wav2Vec2Setup.make_train_step``
-    on one fixed batch; returns (launch counts of the first step, metrics)."""
+                   batch: dict, audio_seconds: float, arch: tuple = (1024, 24),
+                   steps: int = TRAIN_STEPS, plain_steps: int = 2, falling: bool = True,
+                   warmup: int = WARMUP_STEPS) -> tuple[dict, dict]:
+    """``steps`` optimizer steps through ``Wav2Vec2Setup.make_train_step`` on
+    one fixed batch with the same draws each step, then ``plain_steps`` of
+    the plain path for its time; returns (launch counts of the first step,
+    metrics)."""
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.training import TrainState, create_optimizer
     from coral_tpu_torch.training.model_setup import load_model_setup
@@ -1008,24 +1129,27 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
           f"{'frozen' if setup.freeze_feature_encoder else 'training'}, remat "
           f"{setup.remat_policy}, augmentation {config['augment_audio']}, batch {ACCUM} x "
           f"{BATCH} x {batch['input_values'].shape[-1]} samples", flush=True)
-    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype) != (1024, 24, torch.bfloat16):
-        fail("the setup did not build XLS-R-300M in bf16")
+    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype) != (*arch, torch.bfloat16):
+        fail(f"training {label}: the setup did not build hidden {arch[0]}, {arch[1]} layers "
+             "in bf16")
 
     def optimizer():
         return create_optimizer(
-            learning_rate=setup.learning_rate, warmup_steps=WARMUP_STEPS, max_steps=1000,
+            learning_rate=setup.learning_rate, warmup_steps=warmup, max_steps=1000,
             adam_beta1=config["adam_first_momentum"], adam_beta2=config["adam_second_momentum"],
             max_grad_norm=config["max_grad_norm"], mu_dtype=config["adam_mu_dtype"])
+
+    def draws():
+        return torch.Generator(device="cuda").manual_seed(0)
 
     tx, schedule = optimizer()
     state = TrainState.create(model, tx)
     step = setup.make_train_step(tx, schedule)
-    gen = torch.Generator(device="cuda").manual_seed(0)
 
     # The main path, counted: the first optimizer step.
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    state, metrics = step(state, batch, gen)
+    state, metrics = step(state, batch, draws())
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
     print(f"training {label} main path: 1 step of {ACCUM} microbatches, launch counts "
@@ -1036,54 +1160,63 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
     losses = [float(metrics["loss"])]
     walls = []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(TRAIN_STEPS - 1):
+    for _ in range(steps - 1):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        state, metrics = step(state, batch, gen)
+        state, metrics = step(state, batch, draws())
         losses.append(float(metrics["loss"]))  # synchronises
         walls.append(time.perf_counter() - start)
     peak = torch.cuda.max_memory_allocated()
-    print(f"training {label} losses over {TRAIN_STEPS} steps: {[round(v, 4) for v in losses]}; "
+    # The step state: fp32 masters and second moment, the bf16 first moment
+    # and work copies; the rest of the peak is activations and temporaries.
+    state_bytes = sum(nbytes(*d.values()) for d in (state.params, state.opt_state.mu,
+                                                    state.opt_state.nu))
+    state_bytes += nbytes(*model.parameters())
+    print(f"training {label} losses over {steps} steps: {[round(v, 4) for v in losses]}; "
           f"last grad norm {float(metrics['grad_norm']):.6f}, learning rate "
-          f"{float(metrics['learning_rate']):.6g}", flush=True)
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail(f"training {label} loss not finite or not falling")
+          f"{float(metrics['learning_rate']):.6g}; step state {state_bytes / 2**30:.3f} GiB of "
+          f"the {peak / 2**30:.3f} GiB peak", flush=True)
+    if not all(math.isfinite(v) for v in losses) or (falling and not losses[-1] < losses[0]):
+        fail(f"training {label} loss not finite" + (" or not falling" if falling else ""))
 
     # One step under the profiler: device time by kernel, and the busy share.
     def one_step():
         nonlocal state, metrics
-        state, metrics = step(state, batch, gen)
+        state, metrics = step(state, batch, draws())
 
     profile_window(card, f"one training {label} step", one_step)
 
     # The plain path's time per step on the same weights and batch.
-    plain = plain_twin(model)
-    ptx, pschedule = optimizer()
-    pstate = TrainState.create(plain, ptx)
-    pstep = setup.make_train_step(ptx, pschedule)
-    pgen = torch.Generator(device="cuda").manual_seed(0)
     pwalls = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        pstate, pm = pstep(pstate, batch, pgen)
-        float(pm["loss"])
-        pwalls.append(time.perf_counter() - start)
-    del plain, pstate, state, model
+    if plain_steps:
+        plain = plain_twin(model)
+        ptx, pschedule = optimizer()
+        pstate = TrainState.create(plain, ptx)
+        pstep = setup.make_train_step(ptx, pschedule)
+        pgen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(plain_steps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            pstate, pm = pstep(pstate, batch, pgen)
+            float(pm["loss"])
+            pwalls.append(time.perf_counter() - start)
+        del plain, pstate
+    del state, model, step
     torch.cuda.empty_cache()
     wall = float(np.median(walls))
     metrics = {
         "train_audio_s_per_s": audio_seconds / wall,
         "ms_per_step": wall * 1e3,
-        "plain_ms_per_step": pwalls[-1] * 1e3,
+        "plain_ms_per_step": pwalls[-1] * 1e3 if pwalls else None,
         "peak_memory_gib": peak / 2**30,
         "losses": losses,
     }
+    plain_text = (f"; plain path {metrics['plain_ms_per_step']:.3f} ms" if pwalls else "")
     print(f"training {label} ({card}): {metrics['train_audio_s_per_s']:.3f} audio-s/s "
           f"({audio_seconds:.3f} s of audio per step of {ACCUM} x {BATCH} clips); "
           f"{metrics['ms_per_step']:.3f} ms per optimizer step (median of "
-          f"{len(walls)}; plain path {metrics['plain_ms_per_step']:.3f} ms); peak memory "
-          f"{metrics['peak_memory_gib']:.3f} GiB", flush=True)
+          f"{len(walls)}{plain_text}); peak memory {metrics['peak_memory_gib']:.3f} GiB",
+          flush=True)
     return counts, metrics
 
 
@@ -1548,6 +1681,222 @@ def whisper_train_kernel_checks(card: str) -> dict:
     return results
 
 
+def width_kernel_checks(card: str) -> dict:
+    """The ported kernels at the other widths of the repository's configs, at
+    their paths' shapes: the LN forward at XLS-R-1B's and -2B's serving rows
+    (8 x 1499 x 1280, 1920); the attention at head_dim 80 and 120, 16 heads (8
+    x 1499 serving, 8 x 499 training, padded rows and a fully masked one); the
+    FFN block at XLS-R-2B's width (8 x 1499 serving rows, 8 x 499 training
+    rows) and at Whisper tiny's, base's and small's (8 x 1500 encoder rows,
+    and the decoder's 8 x 128 in the backward); the LN backward at 1920 (8 x
+    499, bf16 and fp32 dy), at 384 and 768 (8 x 1500, the FFN backward's LN
+    step with an fp32 dy) and at 1280 (8 x 499, XLS-R-1B's bf16 dy)."""
+    from coral_tpu_torch.ops import attention, ln_gelu
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    bf16 = torch.bfloat16
+    results = {}
+    measure = functools.partial(_measure, results, card)
+
+    # The encoder LN forward of XLS-R-1B and -2B.
+    for C in (1280, 1920):
+        x = randn(BATCH, 1499, C, dtype=bf16)
+        g, b = randn(C, scale=0.1, offset=1.0), randn(C, scale=0.1)
+        gb, bb = g.to(bf16), b.to(bf16)
+        name = f"ln_fused_{C}"
+        measure(name, lambda: ln_gelu.ln_fused(x, g, b),
+                lambda: ln_gelu.ln_gelu_plain(x, g, b, apply_gelu=False),
+                lambda: compare(name, ln_gelu.ln_fused(x, g, b),
+                                ln_gelu.ln_gelu_plain(x, g, b, apply_gelu=False)),
+                (LN_OPS * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(g, b)),
+                lambda: torch.nn.functional.layer_norm(x, (C,), gb, bb))
+    del x
+
+    # The LN backward: 1920 (the encoder LN's gradient, bf16 dy, timed; the
+    # FFN's LN step, fp32 dy), 384 and 768 (the FFN's LN step, timed; bf16 dy),
+    # and 1280's bf16-dy route, XLS-R-1B's encoder LN gradient (another
+    # instantiation than Whisper's fp32-dy route, which gives the kernels-line
+    # row; this one is checked and timed under a key of its own).
+    for C, T, timed_dtype in ((1920, 499, bf16), (384, 1500, torch.float32),
+                              (768, 1500, torch.float32), (1280, 499, bf16)):
+        x = randn(BATCH, T, C, offset=0.3, dtype=bf16)
+        dys = {dt: randn(BATCH, T, C, dtype=dt) for dt in (bf16, torch.float32)}
+        g, b = randn(C, scale=0.1, offset=1.0), randn(C, scale=0.1)
+        name = f"ln_bwd_{C}"
+        key = ROUTE_KEYS.get(name, name)
+
+        def ln_check():
+            out = []
+            for dy in dys.values():
+                got = ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False)
+                want = ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False)
+                out.append(compare(name, got[0], want[0]))
+                out += [compare_grad(f"{name} partials ({dy.dtype})", gg, ww, GRAD_FRAC["partials"])
+                        for gg, ww in zip(got[1:], want[1:])]
+            return merge(*out)
+
+        dy = dys[timed_dtype]
+        measure(key, lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False),
+                lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check,
+                (LN_BWD_OPS * x.numel(), FP32_FLOPS,
+                 2 * nbytes(x) + nbytes(dy) + 4 * nbytes(g)))
+    del x, dys, dy
+
+    # The attention at XLS-R-1B's and -2B's head dims, 16 heads.
+    H = 16
+    for d in (80, 120):
+        T = 1499
+        q, k, v = (randn(BATCH, T, H * d, dtype=bf16) for _ in range(3))
+        bias = tuple(randn(H * d, scale=0.1) for _ in range(3))
+        lengths = torch.tensor([1499, 1200, 900, 600, 300, 1499, 50, -1], device=dev)
+        mask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+        name = f"attention_fwd_hd{d}"
+
+        def attn_check():
+            o, lse = attention.short_t_attention_flat(q, k, v, mask, d, bias)
+            want_o, want_lse = attention.attention_plain(q, k, v, mask, d, bias)
+            res = compare(name, o, want_o)
+            lse_err = float((lse - want_lse).abs().max())
+            clamped = bool((lse[-1] == -1e25).all())
+            print(f"  {name} lse: max_abs_err {lse_err:.6g} (tolerance {LSE_ATOL}); masked row "
+                  f"clamped: {clamped}", flush=True)
+            res["ok"] = res["ok"] and lse_err <= LSE_ATOL and clamped
+            return res
+
+        heads = [(t + bb.to(bf16)).view(BATCH, T, H, d).transpose(1, 2)
+                 for t, bb in zip((q, k, v), bias)]
+        key_bias = torch.where(mask, 0.0, -1e30).to(bf16)[:, None, None, :]
+        measure(name, lambda: attention.short_t_attention_flat(q, k, v, mask, d, bias),
+                lambda: attention.attention_plain(q, k, v, mask, d, bias), attn_check,
+                (4 * BATCH * H * T * T * d, BF16_FLOPS, 4 * nbytes(q) + nbytes(mask, *bias)),
+                lambda: sdpa(*heads, attn_mask=key_bias))
+        del q, k, v, heads
+
+        # Its backward at the training rows.
+        T = 499
+        q, k, v, do = (randn(BATCH, T, H * d, dtype=bf16) for _ in range(4))
+        bq, bk, bv = (randn(H * d, scale=0.1, dtype=bf16) for _ in range(3))
+        lengths = torch.tensor([499, 400, 300, 250, 200, 499, 50, -1], device=dev)
+        key_bias = torch.where(torch.arange(T, device=dev)[None, :] < lengths[:, None], 0.0,
+                               -1e30).float()
+        o, lse = attention._fwd(q, k, v, bq, bk, bv, key_bias, d, d**-0.5)
+        args = (q, k, v, bq, bk, bv, key_bias, do, lse, o, d, d**-0.5)
+        name = f"attention_bwd_hd{d}"
+
+        def attn_bwd_check():
+            got, want = attention.attention_bwd(*args), attention.attention_bwd_plain(*args)
+            out = [compare_grad(f"{name} {n}", gg, ww, GRAD_FRAC["attention_bwd"])
+                   for n, gg, ww in zip(("dq", "dk", "dv"), got[:3], want[:3])]
+            out.append(compare_grad(f"{name} db", got[3], want[3], GRAD_FRAC["partials"]))
+            masked_zero = all(not t[-1].any() for t in got[:3])
+            print(f"  {name}: fully masked row gets no gradient: {masked_zero}", flush=True)
+            res = merge(*out)
+            res["ok"] = res["ok"] and masked_zero
+            return res
+
+        measure(name, lambda: attention.attention_bwd(*args),
+                lambda: attention.attention_bwd_plain(*args), attn_bwd_check,
+                (5 * 2 * BATCH * H * T * T * d, BF16_FLOPS,
+                 nbytes(*args[:10]) + 3 * nbytes(q) + 3 * H * d * 4))
+        del q, k, v, do, o, args
+
+    # The FFN block: XLS-R-2B (serving T' = 1499, training 499), Whisper tiny,
+    # base and small (the encoder's 1500 rows; the decoder's 128 in the backward).
+    for D, T_serve, T_train, T_dec in ((1920, 1499, 499, None), (384, 1500, 1500, 128),
+                                       (512, 1500, 1500, 128), (768, 1500, 1500, 128)):
+        ffn_width_checks(measure, randn, gen, D, 4 * D, T_serve, T_train, T_dec)
+        torch.cuda.empty_cache()
+    return results
+
+
+def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train: int,
+                     T_dec: int | None) -> None:
+    """The FFN block's three kernels at width D against their plain versions:
+    rate 0 at the serving rows, the dropout forward and the backward at the
+    training rows (and the decoder's, when it has one), the masks exact."""
+    from coral_tpu_torch.ops import ffn, philox
+
+    bf16 = torch.bfloat16
+    names = {base: ffn._name(base, D) for base in ("ffn_ln", "ffn_ln_drop", "ffn_bwd")}
+    w1 = randn(F, D, scale=D**-0.5, dtype=bf16)
+    w2 = randn(D, F, scale=F**-0.5, dtype=bf16)
+    b1, g, b = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+    x = randn(BATCH, T_serve, D, dtype=bf16)
+    name = names["ffn_ln"]
+    M = BATCH * T_serve
+    measure(name, lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b),
+            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
+            lambda: compare(name, ffn.ffn_ln_fc1(x, w1, b1, g, b),
+                            ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
+            (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * F * 2))
+
+    x = randn(BATCH, T_train, D, offset=0.2, dtype=bf16)
+    dy = randn(BATCH, T_train, D, dtype=bf16)
+    seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=x.device,
+                          dtype=torch.int64).to(torch.int32)
+    keep = philox.keep_mask(seeds, T_train, F, 0.1)
+    M = BATCH * T_train
+    name = names["ffn_ln_drop"]
+
+    def drop_check():
+        got = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds)
+        res = compare(name, got, ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds))
+        # Dropped is exactly 0; a kept value is 0 only where the polynomial
+        # GELU is (h far below 0, more often at the narrow widths).
+        dropped_zero = not bool(got[~keep].any())
+        kept_live = float((got[keep] != 0).float().mean())
+        frac = float(keep.float().mean())
+        print(f"  {name}: zero where the plain Philox mask drops: {dropped_zero}; non-zero "
+              f"where it keeps: {kept_live:.6f}; keep fraction {frac:.6f} (rate 0.1)", flush=True)
+        res["ok"] = res["ok"] and dropped_zero and kept_live > 0.99 and abs(frac - 0.9) < 1e-3
+        return res
+
+    measure(name, lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
+            lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
+            (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * F * 2))
+    del keep
+    rows = [("training", x, dy)]
+    if T_dec is not None:
+        rows.append(("decoder", randn(BATCH, T_dec, D, offset=0.2, dtype=bf16),
+                     randn(BATCH, T_dec, D, dtype=bf16)))
+    name = names["ffn_bwd"]
+
+    def bwd_check():
+        out = []
+        for label, xx, yy in rows:
+            got = ffn.ffn_bwd(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
+            want = ffn.ffn_bwd_plain(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
+            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1(xx, w1, b1, g, b, rate=0.1,
+                                                             seeds=seeds)))
+            mask = philox.keep_mask(seeds, xx.shape[1], F, 0.1)
+            dropped_zero = not bool(got[1][~mask].any())
+            print(f"  {name} {label} rows {tuple(xx.shape)}: g regenerated bit for bit: "
+                  f"{same_g}; dh zero where dropped: {dropped_zero}", flush=True)
+            res = [compare_grad(f"{name} {label} {n}", gg, ww, GRAD_FRAC["ffn_bwd"])
+                   for n, gg, ww in (("dh", got[1], want[1]), ("dx", got[3], want[3]))]
+            res.append(compare(names["ffn_ln"], got[2], want[2]))  # ln_out, a rounded LN
+            res += [compare_grad(f"{name} {label} {n}", gg, ww, GRAD_FRAC["partials"])
+                    for n, gg, ww in zip(("db1", "dgamma", "dbeta"), got[4:], want[4:])]
+            merged = merge(*res)
+            merged["ok"] = merged["ok"] and same_g and dropped_zero
+            out.append(merged)
+        return merge(*out)
+
+    # Three products of 2 M D F (h again, dg, dl); outputs g, dh, ln_out, dx
+    # and the vectors. Timed at the training rows.
+    measure(name, lambda: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds),
+            lambda: ffn.ffn_bwd_plain(x, w1, b1, g, b, dy, w2, rate=0.1, seeds=seeds), bwd_check,
+            (3 * 2 * M * D * F, BF16_FLOPS,
+             nbytes(x, w1, b1, g, b, dy, w2, seeds) + 2 * M * F * 2 + 2 * nbytes(x)
+             + (F + 2 * D) * 4))
+
+
 def whisper_train_batch(seed: int, text_ids: int) -> tuple[dict, float]:
     """A fixed (ACCUM, 8, 480000) batch: clips of 6-10 s of seeded noise,
     padded to the 30 s window, with labels of 64-128 random text ids (below
@@ -1703,7 +2052,191 @@ def whisper_train_run(card: str) -> dict:
     return counts
 
 
+def production_launches(cfg) -> dict:
+    """Launches per microbatch of the production step (the feature encoder
+    training, save_qk_ctx) at cfg's widths: LN1 forward and again in the
+    replay, the attention forward once (q, k, o and lse are kept), the FFN
+    block and both backwards once a layer; ln_bwd is LN1's backward and the
+    FFN's LN step, and FE conv 0's (at 512) once."""
+    from coral_tpu_torch.ops import attention, ffn, ln_gelu
+
+    D, L = cfg.hidden_size, cfg.num_hidden_layers
+    hd = D // cfg.num_attention_heads
+    counts = collections.Counter({
+        "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ctc_alpha": 1,
+        "ctc_beta": 1, ln_gelu._name("ln_fused", D): 2 * L, attention._name("fwd", hd): L,
+        attention._name("bwd", hd): L, ffn._name("ffn_ln_drop", D): L,
+        ffn._name("ffn_bwd", D): L})
+    counts[ln_gelu._name("ln_bwd", D)] += 2 * L
+    counts["ln_bwd"] += 1
+    return dict(counts)
+
+
+def with_noise_bank(config: dict, tmp: str) -> dict:
+    """``config`` with a seeded synthetic stand-in for the ESC-50 bank, saved
+    under ``tmp``."""
+    bank = np.random.default_rng(1).standard_normal(
+        (NOISE_CLIPS, NOISE_SECONDS * SR)).astype(np.float32) * 0.1
+    np.save(Path(tmp) / "noise.npy", bank)
+    return {**config, "background_noise_path": str(Path(tmp) / "noise.npy")}
+
+
+def xlsr_train_run(card: str, label: str, config: dict, arch_name: str, steps: int,
+                   compare_layers: int | None, falling: bool,
+                   warmup: int = WARMUP_STEPS) -> dict:
+    """An XLS-R production fine-tune through ``Wav2Vec2Setup.make_train_step``
+    (``arch_name`` the ``Wav2Vec2Config`` factory its checkpoint id selects):
+    kernel vs plain on one microbatch (at ``compare_layers``, when given),
+    then ``steps`` steps at full depth; returns the first step's launches."""
+    import tempfile
+
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    arch = getattr(Wav2Vec2Config, arch_name)()
+    batch, audio_seconds = train_batch(0)
+    if compare_layers is not None:
+        training_compare(card, batch, config, label, layers=compare_layers)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, _ = production_run(card, label, with_noise_bank(config, tmp),
+                                   production_launches(arch), batch, audio_seconds,
+                                   arch=(arch.hidden_size, arch.num_hidden_layers), steps=steps,
+                                   plain_steps=0, falling=falling, warmup=warmup)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def whisper_size_run(card: str, label: str, name: str, checkpoint: str, lr: float,
+                     extra: dict, arch: tuple, train_steps: int) -> dict:
+    """One Whisper config through ``WhisperSetup`` on the card: greedy serving
+    of one batch of 8 clips of 3-30 s with exact launch counts, the kernel
+    path against the plain path on it (the encoder output, teacher-forced
+    logits), then ``train_steps`` steps of its train step with exact launch
+    counts over the first; returns the launch counts of both main paths."""
+    import tempfile
+
+    from coral_tpu_torch.audio.augment import peak_normalize
+    from coral_tpu_torch.audio.mel import log_mel_spectrogram
+    from coral_tpu_torch.ops import _build, ffn, ln_gelu
+    from coral_tpu_torch.training import TrainState, create_optimizer
+    from coral_tpu_torch.training.model_setup import load_model_setup
+
+    config = {**WHISPER_TRAIN_CONFIG, "model": {
+        **WHISPER_TRAIN_CONFIG["model"], "name": name, "pretrained_model_id": checkpoint,
+        "learning_rate": lr, **extra}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = with_noise_bank(config, tmp)
+        setup = load_model_setup(config, device="cuda")
+        tx, schedule = create_optimizer(
+            learning_rate=setup.learning_rate, warmup_steps=WHISPER_WARMUP_STEPS,
+            max_steps=1000, adam_beta1=config["adam_first_momentum"],
+            adam_beta2=config["adam_second_momentum"], max_grad_norm=config["max_grad_norm"],
+            mu_dtype=config["adam_mu_dtype"])
+        step = setup.make_train_step(tx, schedule) if train_steps else None
+    cfg = setup.model_config
+    model = setup.init_params(seed=0)
+    predictor = setup.make_predictor(model)
+    D, Le, Ld = cfg.d_model, cfg.encoder_layers, cfg.decoder_layers
+    print(f"{label} {name} ({checkpoint}): d_model {D}, {Le} + {Ld} layers, "
+          f"{cfg.encoder_attention_heads} heads, FFN {cfg.ffn_dim}, {cfg.dtype}, remat "
+          f"{cfg.remat_policy}, lr {setup.learning_rate}, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if (D, Le, Ld, cfg.encoder_attention_heads, cfg.ffn_dim, cfg.dtype) != (
+            *arch, torch.bfloat16):
+        fail(f"{label} {name}: the setup did not build {arch} in bf16")
+
+    rng = np.random.default_rng(6)
+    seconds = np.linspace(3.0, 30.0, BATCH)
+    T = setup.chunk_length
+    audio = np.zeros((BATCH, T), np.float32)
+    for j, sec in enumerate(seconds):
+        audio[j, : int(sec * SR)] = rng.standard_normal(int(sec * SR)) * 0.1
+    batch = {"input_values": audio, "input_lengths": (seconds * SR).astype(np.int32)}
+
+    # Serving, counted: one batch through the greedy generate step.
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    start = time.perf_counter()
+    ids = predictor.generate(model, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    serve_counts = dict(_build.launch_counts)
+    eos = predictor.tokenizer.eos_token_id
+    steps = decode_steps(ids.cpu().numpy(), eos)
+    texts = predictor.tokenizer.batch_decode(ids.cpu().numpy())
+    expected = {"flash_attention": Le, ffn._name("ffn_ln", D): Le,
+                "decode_self_attention": Ld * steps, "decode_cross_attention": Ld * steps}
+    print(f"{label} {name} serving main path: 1 batch of {BATCH} x 30 s, {steps} decode steps, "
+          f"{wall * 1e3:.3f} ms, launch counts {serve_counts}", flush=True)
+    if serve_counts != expected:
+        fail(f"{label} {name} serving: launch counts {serve_counts}, expected {expected}")
+    if len(texts) != BATCH or not all(isinstance(t, str) for t in texts):
+        fail(f"{label} {name}: the predictor returned the wrong transcripts")
+    feats = log_mel_spectrogram(peak_normalize(torch.from_numpy(audio).cuda()),
+                                n_mels=cfg.num_mel_bins, dtype=cfg.dtype)
+    n = min(steps, WHISPER_COMPARE_STEPS)
+    enc_diff, worst, agree_k, parted = whisper_compare(
+        model, feats, ids.long(), n, len(predictor.tokenizer.forced_decoder_ids), eos)
+    print(f"{label} {name} kernel vs plain: encoder output max|diff|/max|plain| "
+          f"{enc_diff:.6g} (tolerance {WHISPER_ENC_TOL}); teacher-forced logits over {n} "
+          f"steps, worst {worst:.6g} (tolerance {WHISPER_LOGITS_TOL}); the kernel path's own "
+          f"argmax gives its ids: {agree_k}; first step where the plain path's greedy token "
+          f"parts: {parted if parted is not None else 'none'} ({card})", flush=True)
+    if enc_diff > WHISPER_ENC_TOL or worst > WHISPER_LOGITS_TOL or not agree_k:
+        fail(f"{label} {name}: kernel path and plain path disagree")
+    del predictor, feats
+    if not train_steps:
+        del model
+        torch.cuda.empty_cache()
+        return serve_counts
+
+    # Training, the first step counted.
+    tbatch, audio_seconds = whisper_train_batch(5, setup.tokenizer.sot_token_id)
+    state = TrainState.create(model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    state, metrics = step(state, tbatch, gen)
+    torch.cuda.synchronize()
+    train_counts = dict(_build.launch_counts)
+    layers = Le + Ld
+    expected = {"flash_attention_train": Le, "flash_attention_bwd_dkv": Le,
+                "flash_attention_bwd_dq": Le, ffn._name("ffn_ln_drop", D): layers,
+                ffn._name("ffn_bwd", D): layers, ln_gelu._name("ln_bwd", D): layers}
+    expected = {k: v * ACCUM for k, v in expected.items()}
+    print(f"{label} {name} training main path: 1 step of {ACCUM} microbatches, launch counts "
+          f"{train_counts}", flush=True)
+    if train_counts != expected:
+        fail(f"{label} {name} training: launch counts {train_counts}, expected {expected}")
+    losses, walls = [float(metrics["loss"])], []
+    for _ in range(train_steps - 1):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = step(state, tbatch, gen)
+        losses.append(float(metrics["loss"]))  # synchronises
+        walls.append(time.perf_counter() - start)
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls))
+    print(f"{label} {name} training ({card}): losses {[round(v, 6) for v in losses]}; "
+          f"{wall * 1e3:.3f} ms per optimizer step (median of {len(walls)}), "
+          f"{audio_seconds / wall:.3f} audio-s/s ({audio_seconds:.3f} s of audio a step, padded "
+          f"to 30 s); peak memory {peak / 2**30:.3f} GiB", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label} {name}: training loss not finite")
+    del state, step, model
+    torch.cuda.empty_cache()
+    return {k: serve_counts.get(k, 0) + train_counts.get(k, 0)
+            for k in {*serve_counts, *train_counts}}
+
+
 def main() -> int:
+    t0 = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {phase} done", flush=True)
+
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on an NVIDIA GPU only")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1725,7 +2258,12 @@ def main() -> int:
     for path in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
         lines = path.read_text().splitlines()
         used = [line.split(":", 1)[1].strip() for line in lines if "Used" in line]
-        spills = [line.strip() for line in lines if "spill" in line and " 0 bytes spill" not in line]
+        spills, function = [], ""
+        for line in lines:
+            if "Function properties for" in line:
+                function = line.split("Function properties for", 1)[1].strip()
+            elif "spill" in line and " 0 bytes spill" not in line:
+                spills.append(f"{function[:80]}: {line.strip()}")
         print(f"  ptxas, {len(used)} kernels: {'; '.join(used)}; spills: {spills or 'none'}",
               flush=True)
 
@@ -1739,6 +2277,10 @@ def main() -> int:
     print(f"kernel checks at Whisper training shapes (bf16, batch {BATCH} x 30 s, "
           f"whisper-large-v3):", flush=True)
     checks.update(whisper_train_kernel_checks(card))
+    print(f"kernel checks at the other configs' widths (bf16, batch {BATCH}: XLS-R-1B, -2B, "
+          f"Whisper tiny, base, small):", flush=True)
+    checks.update(width_kernel_checks(card))
+    mark("kernel checks")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -1746,17 +2288,42 @@ def main() -> int:
 
     serve_counts, _ = serving_run(card)
     torch.cuda.empty_cache()
+    mark("serving")
     train_counts = training_run(card)
     torch.cuda.empty_cache()
+    mark("training (a)-(c)")
     whisper_counts = whisper_run(card)
     torch.cuda.empty_cache()
+    mark("Whisper serving (d)")
     whisper_train_counts = whisper_train_run(card)
+    torch.cuda.empty_cache()
+    mark("Whisper training (e)")
+    main_counts = [serve_counts, train_counts, whisper_counts, whisper_train_counts]
+    # (f) XLS-R-2B's production fine-tune, (f') its serving.
+    main_counts.append(xlsr_train_run(card, "(f)", W2V2_LARGE_CONFIG, "xls_r_2b", TRAIN_STEPS,
+                                      XLSR_2B_COMPARE_LAYERS, falling=True,
+                                      warmup=FINETUNE_WARMUP_STEPS))
+    mark("XLS-R-2B training (f)")
+    main_counts.append(serving_run(card, XLSR_2B_ID, (1920, 48, 16), "serving (f')",
+                                   long_clip=False, reps=(3, 1, 2))[0])
+    torch.cuda.empty_cache()
+    mark("XLS-R-2B serving (f')")
+    # (g) XLS-R-1B (wav2vec2-medium.yaml): serving, then a few train steps.
+    main_counts.append(serving_run(card, XLSR_1B_ID, (1280, 48, 16), "serving (g)",
+                                   long_clip=False, reps=(3, 1, 2))[0])
+    torch.cuda.empty_cache()
+    main_counts.append(xlsr_train_run(card, "(g)", W2V2_MEDIUM_CONFIG, "xls_r_1b", FEW_STEPS,
+                                      None, falling=False))
+    mark("XLS-R-1B (g)")
+    # (h), (i): whisper-small, -xsmall, -xxsmall and test-whisper.
+    for size in WHISPER_SIZES:
+        main_counts.append(whisper_size_run(card, *size))
+        mark(f"{size[0]} {size[1]}")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")
-    counts = {name: sum(c.get(name, 0) for c in (serve_counts, train_counts, whisper_counts,
-                                                 whisper_train_counts))
-              for name in checks}
+    rows = {name: res for name, res in checks.items() if name in SOURCES}
+    counts = {name: sum(c.get(name, 0) for c in main_counts) for name in rows}
     idle = [name for name, n in counts.items() if n == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")
@@ -1767,7 +2334,7 @@ def main() -> int:
          "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
          "library_ms": res["library_ms"], "device_ms": res["device_ms"]}
-        for name, res in checks.items()
+        for name, res in rows.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

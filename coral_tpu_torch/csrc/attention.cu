@@ -1,4 +1,4 @@
-// Bidirectional attention forward on the flat (B, T, H*64) layout, with the
+// Bidirectional attention forward on the flat (B, T, H*d) layout, with the
 // q/k/v projection biases added in the kernel; writes o and the per-head lse.
 //
 // Replaces: coral_tpu/ops/attention_pallas.py `_fwd_pallas_stats_v2_qb` /
@@ -6,22 +6,28 @@
 // the wav2vec2 serving default).
 //
 // Bound on the H100: the tensor cores and the fp32 softmax between the two
-// products (T^2 * 64 * 4 flops and T^2 exponentials per head); q/k/v/o are
-// only 4 * T * 64 * 2 bytes per head. The TPU kernel keeps the whole (T, T)
+// products (T^2 * d * 4 flops and T^2 exponentials per head); q/k/v/o are
+// only 4 * T * d * 2 bytes per head. The TPU kernel keeps the whole (T, T)
 // score tile on chip, which does not fit a Hopper SM at T = 1499.
 //
 // Design: one block per (64-query tile, head, batch row), four warps of 16
 // query rows each. The block walks 64-key tiles with an online softmax in fp32,
 // so nothing of size T x T exists anywhere. Head h is the lane slice
-// h*64 .. h*64+63 of each row, read through the row strides; no (B, H, T, d)
-// copy is made. On load q, k, v get their bias added and rounded to bf16, and
-// q is then scaled and rounded again, in the JAX kernel's order. Padded keys
-// carry the caller's finite -1e30 bias, so a row whose keys are all padded
-// comes out as the uniform average (not NaN), as in the JAX kernel; keys past
-// T in the last tile get -inf and contribute exactly 0. Scores and P @ V go
-// through bf16 WMMA fragments; the fragments are staged in shared memory where
-// two lanes share each query row for the softmax and the rescaled running
-// output.
+// h*d .. h*d+d-1 of each row, read through the row strides; no (B, H, T, d)
+// copy is made. Every kernel is a template over the head dim d, built for the
+// repository's three: 64 (XLS-R-300M), 80 (XLS-R-1B) and 120 (XLS-R-2B). The
+// tiles in shared memory hold d padded with zero columns to DP, the next
+// multiple of WMMA's k = 16 (120 -> 128): exact for q k^T, and P @ V then
+// computes DP - d columns that are never written, so a head writes nothing
+// past its d columns (the next head starts there). On load q, k, v get their
+// bias added and rounded to bf16, and q is then scaled and rounded again, in
+// the JAX kernel's order (80**-0.5 and 120**-0.5 are not exact in bf16, so
+// the order shows). Padded keys carry the caller's finite -1e30 bias, so a row
+// whose keys are all padded comes out as the uniform average (not NaN), as in
+// the JAX kernel; keys past T in the last tile get -inf and contribute exactly
+// 0. Scores and P @ V go through bf16 WMMA fragments; the fragments are staged
+// in shared memory where two lanes share each query row for the softmax and
+// the rescaled running output (DP / 2 columns a lane).
 #include <math.h>
 #include <mma.h>
 
@@ -31,29 +37,47 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBQ = 64;       // queries per block
-constexpr int kBKV = 64;      // keys per tile
+constexpr int kBQ = 64;        // queries per block
+constexpr int kBKV = 64;       // keys per tile
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kLdH = kD + 8;   // bf16 row pitch of the Q, K, V and P tiles
-constexpr int kLdS = kBKV + 4;  // fp32 row pitch of the staged S and P @ V
-constexpr int kSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + kBKV * 4;
+constexpr int kLdP = kBKV + 8;  // bf16 row pitch of the P and dS tiles (64 wide)
+constexpr int kMaxSmem = 232448;
+
+// The shapes that follow from head dim D.
+template <int D>
+struct Head {
+  static_assert(D % 8 == 0, "a head is whole 16-byte chunks");
+  static constexpr int kDP = (D + 15) / 16 * 16;  // padded to WMMA's k
+  static constexpr int kLdH = kDP + 8;            // bf16 pitch of the Q, K, V, dO tiles
+  static constexpr int kLdS = (kDP > kBKV ? kDP : kBKV) + 4;  // fp32 pitch of staged S, P@V
+  static constexpr int kNF = kDP / 16;            // 16-wide fragments across the head
+  static constexpr int kHalf = kDP / 2;           // columns of each of a row's two lanes
+  static constexpr int kChunks = kDP / 8;         // 8-value chunks of a tile row
+  static constexpr int kFwdSmem = 3 * kBQ * kLdH * 2 + kBQ * kLdP * 2 + kBQ * kLdS * 4 + kBKV * 4;
+  static constexpr int kStats = 3 * 64 * 4 + 4 * kDP * 4;  // lse, delta, key bias; colsums
+  static constexpr int kDkdvSmem = 4 * kBQ * kLdH * 2 + 2 * kBQ * kLdP * 2 + kBQ * kLdS * 4 + kStats;
+  static constexpr int kDqSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdP * 2 + kBQ * kLdS * 4 + kStats;
+  static_assert(kFwdSmem <= kMaxSmem && kDkdvSmem <= kMaxSmem && kDqSmem <= kMaxSmem,
+                "each kernel's tiles must fit a block's shared memory");
+};
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Loads a 64 x 64 tile of rows r0.. of one head, adds the bias and rounds to
+// Loads a 64 x DP tile of rows r0.. of one head, adds the bias and rounds to
 // bf16, then (scale != 0) multiplies by scale and rounds again; rows at or past
-// T are zero.
+// T and the padding columns d .. DP-1 are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, const bf16* bvec,
                                           int r0, int T, long long stride_t, float scale) {
-  for (int i = threadIdx.x; i < 64 * (kD / 8); i += kThreads) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 8;
+  using H = Head<D>;
+  for (int i = threadIdx.x; i < 64 * H::kChunks; i += kThreads) {
+    const int r = i / H::kChunks;
+    const int c = (i % H::kChunks) * 8;
     float f[8];
-    if (r0 + r < T) {
+    if (r0 + r < T && c < D) {
       float bb[8];
       coral_load8(src + (long long)(r0 + r) * stride_t + c, f);
       coral_load8(bvec + c, bb);
@@ -66,13 +90,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, const bf16
 #pragma unroll
       for (int e = 0; e < 8; ++e) f[e] = 0.0f;
     }
-    coral_store8(dst + r * kLdH + c, f);
+    coral_store8(dst + r * H::kLdH + c, f);
   }
 }
 
-// q, k, v: (B, T, H*64) bf16 with strides (stride_b, stride_t, 1), the same for
-// all three; bq, bk, bv: (H*64,) bf16; key_bias: (B, T) fp32 (0 or -1e30);
-// o: (B, T, H*64) bf16 contiguous; lse: (B, H, T) fp32.
+// q, k, v: (B, T, H*D) bf16 with strides (stride_b, stride_t, 1), the same for
+// all three; bq, bk, bv: (H*D,) bf16; key_bias: (B, T) fp32 (0 or -1e30);
+// o: (B, T, H*D) bf16 contiguous; lse: (B, H, T) fp32.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -80,12 +105,14 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ key_bias, bf16* __restrict__ o,
                          float* __restrict__ lse, int T, int H, long long stride_b,
                          long long stride_t, float scale) {
+  using Hd = Head<D>;
+  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kHalf = Hd::kHalf;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kBQ * kLdH;
   bf16* Vs = Ks + kBKV * kLdH;
   bf16* Ps = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdH);
+  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdP);
   float* kbias = Ss + kBQ * kLdS;
 
   const int q0 = blockIdx.x * kBQ;
@@ -94,25 +121,25 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = lane >> 1;   // this lane's query row within the warp's 16
-  const int half = lane & 1;   // and which 32 of the 64 columns it handles
-  const long long head = (long long)b * stride_b + h * kD;
+  const int half = lane & 1;   // and which half of the keys (and of the head) it handles
+  const long long head = (long long)b * stride_b + h * D;
 
-  load_tile(Qs, q + head, bq + h * kD, q0, T, stride_t, scale);
+  load_tile<D>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
 
   float m = -INFINITY;  // running max of this row's scores
   float l = 0.0f;       // running sum of exp(score - m)
-  float acc[32];        // running sum of p * v for this lane's 32 columns
+  float acc[kHalf];     // running sum of p * v for this lane's kHalf columns
 #pragma unroll
-  for (int j = 0; j < 32; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
 
   float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdH;
+  bf16* Pw = Ps + warp * 16 * kLdP;
   const bf16* Qw = Qs + warp * 16 * kLdH;
 
   for (int k0 = 0; k0 < T; k0 += kBKV) {
     __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile(Ks, k + head, bk + h * kD, k0, T, stride_t, 0.0f);
-    load_tile(Vs, v + head, bv + h * kD, k0, T, stride_t, 0.0f);
+    load_tile<D>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
+    load_tile<D>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
     if (threadIdx.x < kBKV) {
       const int key = k0 + threadIdx.x;
       kbias[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
@@ -124,7 +151,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
+    for (int kk = 0; kk < Hd::kDP; kk += 16) {
       FragA a;
       wmma::load_matrix_sync(a, Qw + kk, kLdH);
 #pragma unroll
@@ -139,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
       wmma::store_matrix_sync(Sw + j * 16, s[j], kLdS, wmma::mem_row_major);
     __syncwarp();
 
-    // Online softmax over this tile; two lanes per row.
+    // Online softmax over this tile; two lanes per row, 32 keys each.
     float sv[32];
     float mx = -INFINITY;
 #pragma unroll
@@ -155,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) {
       const float p = expf(sv[j] - m_new);
       psum += p;
-      Pw[row * kLdH + half * 32 + j] = __float2bfloat16(p);
+      Pw[row * kLdP + half * 32 + j] = __float2bfloat16(p);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l = l * alpha + psum;
@@ -163,37 +190,38 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
 
     // P @ V for this warp's 16 rows, staged over S.
-    FragC pv[4];
+    FragC pv[Hd::kNF];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(pv[j], 0.0f);
+    for (int j = 0; j < Hd::kNF; ++j) wmma::fill_fragment(pv[j], 0.0f);
 #pragma unroll
     for (int kk = 0; kk < kBKV; kk += 16) {
       FragA a;
-      wmma::load_matrix_sync(a, Pw + kk, kLdH);
+      wmma::load_matrix_sync(a, Pw + kk, kLdP);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < Hd::kNF; ++j) {
         FragBr bvf;
         wmma::load_matrix_sync(bvf, Vs + kk * kLdH + j * 16, kLdH);
         wmma::mma_sync(pv[j], a, bvf, pv[j]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < Hd::kNF; ++j)
       wmma::store_matrix_sync(Sw + j * 16, pv[j], kLdS, wmma::mem_row_major);
     __syncwarp();
 #pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] = acc[j] * alpha + Sw[row * kLdS + half * 32 + j];
+    for (int j = 0; j < kHalf; ++j) acc[j] = acc[j] * alpha + Sw[row * kLdS + half * kHalf + j];
     __syncwarp();
   }
 
   const int t = q0 + warp * 16 + row;
   if (t < T) {
-    float out[32];
+    float out[kHalf];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) out[j] = acc[j] / l;
-    bf16* orow = o + ((long long)b * T + t) * ((long long)H * kD) + h * kD + half * 32;
+    for (int j = 0; j < kHalf; ++j) out[j] = acc[j] / l;
+    bf16* orow = o + ((long long)b * T + t) * ((long long)H * D) + h * D + half * kHalf;
 #pragma unroll
-    for (int j = 0; j < 32; j += 8) coral_store8(orow + j, out + j);
+    for (int j = 0; j < kHalf; j += 8)
+      if (half * kHalf + j < D) coral_store8(orow + j, out + j);
     // A fully padded row has m = -1e30; the clamp keeps the backward's
     // exp(s - lse) at 0 for it, as in the JAX kernel.
     if (half == 0) lse[((long long)b * H + h) * T + t] = fmaxf(m + logf(l), -1e25f);
@@ -207,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
 // dq, dk, dv and the fp32 row sums of their bf16-rounded values (the bias
 // gradients), from the forward's lse and o.
 //
-// Bound on the H100: the tensor cores (five T x T x 64 products per head, two
+// Bound on the H100: the tensor cores (five T x T x d products per head, two
 // more for dq's pass) and the exponentials; the (T, T) score tile the TPU
 // kernel holds in VMEM does not fit an SM at T = 499 or 1499.
 //
@@ -223,38 +251,45 @@ __global__ void __launch_bounds__(kThreads)
 // past T get -inf and queries past T get lse = +inf, so both have p = 0.
 // Each block writes the column sums of its 64 rows of bf16-rounded dq (or dk,
 // dv) as one partial; the sum over tiles and batch rows runs outside, as the
-// JAX package sums its per-batch-row partials outside.
+// JAX package sums its per-batch-row partials outside. The head dim is padded
+// as in the forward; the padding columns of dq, dk, dv are neither written nor
+// summed.
 
-constexpr int kBwdSmemDkdv = 6 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4 + 4 * 64 * 4;
-constexpr int kBwdSmemDq = 5 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4 + 4 * 64 * 4;
-
-// Rows r0 .. r0+63 of one head without a bias; rows at or past T are zero.
+// Rows r0 .. r0+63 of one head without a bias; rows at or past T and the
+// padding columns are zero.
+template <int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int T,
                                           long long stride_t) {
-  for (int i = threadIdx.x; i < 64 * (kD / 8); i += kThreads) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 8;
+  using H = Head<D>;
+  for (int i = threadIdx.x; i < 64 * H::kChunks; i += kThreads) {
+    const int r = i / H::kChunks;
+    const int c = (i % H::kChunks) * 8;
     uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T) u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride_t + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdH + c) = u;
+    if (r0 + r < T && c < D)
+      u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride_t + c);
+    *reinterpret_cast<uint4*>(dst + r * H::kLdH + c) = u;
   }
 }
 
 // lse and delta = rowsum(do * o) of query rows q0 .. q0+63 (dOs already in
 // shared memory); rows past T get lse = +inf and delta = 0. Two threads a row.
+template <int D>
 __device__ __forceinline__ void load_query_stats(float* lse_s, float* delta_s,
                                                  const float* lse_row, const bf16* dOs,
                                                  const bf16* o_head, int q0, int T,
                                                  long long stride_o) {
+  using H = Head<D>;
   const int r = threadIdx.x >> 1;
   const int half = threadIdx.x & 1;
   float s = 0.f;
   if (q0 + r < T) {
 #pragma unroll
-    for (int j = 0; j < 32; j += 8) {
+    for (int j = 0; j < H::kHalf; j += 8) {
+      const int c = half * H::kHalf + j;
+      if (c >= D) break;
       float a[8], d[8];
-      coral_load8(o_head + (long long)(q0 + r) * stride_o + half * 32 + j, a);
-      coral_load8(dOs + r * kLdH + half * 32 + j, d);
+      coral_load8(o_head + (long long)(q0 + r) * stride_o + c, a);
+      coral_load8(dOs + r * H::kLdH + c, d);
 #pragma unroll
       for (int e = 0; e < 8; ++e) s += d[e] * a[e];
     }
@@ -266,51 +301,55 @@ __device__ __forceinline__ void load_query_stats(float* lse_s, float* delta_s,
   }
 }
 
-// A warp's 16 x 64 fp32 accumulators times `mul`, rounded to bf16, go to rows
-// r0 + 16 warp .. of dst (rows at or past T are skipped); the column sums of
-// the rounded values over the block's 64 rows go to part[0 .. 63]. Called by
-// every thread of the block.
-__device__ __forceinline__ void store_rows_colsum(FragC (&acc)[4], float mul, float* Sw,
-                                                  float* red, bf16* dst, long long stride,
-                                                  int r0, int T, float* part) {
+// A warp's 16 x DP fp32 accumulators times `mul`, rounded to bf16, go to rows
+// r0 + 16 warp .. of dst, columns 0 .. d-1 (rows at or past T are skipped);
+// the column sums of the rounded values over the block's 64 rows go to
+// part[0 .. d-1]. Called by every thread of the block.
+template <int D>
+__device__ __forceinline__ void store_rows_colsum(FragC (&acc)[Head<D>::kNF], float mul,
+                                                  float* Sw, float* red, bf16* dst,
+                                                  long long stride, int r0, int T, float* part) {
+  using H = Head<D>;
+  constexpr int kHalf = H::kHalf;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = lane >> 1;
   const int half = lane & 1;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, acc[j], kLdS, wmma::mem_row_major);
+  for (int j = 0; j < H::kNF; ++j)
+    wmma::store_matrix_sync(Sw + j * 16, acc[j], H::kLdS, wmma::mem_row_major);
   __syncwarp();
   const int t = r0 + warp * 16 + row;
-  float out[32];
+  float out[kHalf];
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
-    out[j] = t < T ? coral_round_bf16(Sw[row * kLdS + half * 32 + j] * mul) : 0.f;
+  for (int j = 0; j < kHalf; ++j)
+    out[j] = t < T ? coral_round_bf16(Sw[row * H::kLdS + half * kHalf + j] * mul) : 0.f;
   if (t < T) {
 #pragma unroll
-    for (int j = 0; j < 32; j += 8) coral_store8(dst + (long long)t * stride + half * 32 + j, out + j);
+    for (int j = 0; j < kHalf; j += 8)
+      if (half * kHalf + j < D)
+        coral_store8(dst + (long long)t * stride + half * kHalf + j, out + j);
   }
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < 32; ++j) Sw[row * kLdS + half * 32 + j] = out[j];
+  for (int j = 0; j < kHalf; ++j) Sw[row * H::kLdS + half * kHalf + j] = out[j];
   __syncwarp();
-  float c0 = 0.f, c1 = 0.f;
-  for (int r = 0; r < 16; ++r) {
-    c0 += Sw[r * kLdS + lane];
-    c1 += Sw[r * kLdS + lane + 32];
+  for (int c = lane; c < D; c += 32) {
+    float cs = 0.f;
+    for (int r = 0; r < 16; ++r) cs += Sw[r * H::kLdS + c];
+    red[warp * H::kDP + c] = cs;
   }
-  red[warp * 64 + lane] = c0;
-  red[warp * 64 + lane + 32] = c1;
   __syncthreads();
-  if (threadIdx.x < 64)
-    part[threadIdx.x] = ((red[threadIdx.x] + red[64 + threadIdx.x]) + red[128 + threadIdx.x]) +
-                        red[192 + threadIdx.x];
+  if (threadIdx.x < D)
+    part[threadIdx.x] = ((red[threadIdx.x] + red[H::kDP + threadIdx.x]) +
+                         red[2 * H::kDP + threadIdx.x]) + red[3 * H::kDP + threadIdx.x];
   __syncthreads();
 }
 
-// q, k, v, bq, bk, bv, key_bias as the forward; dout, o: (B, T, H*64) bf16
-// contiguous; lse: (B, H, T) fp32; dk, dv: (B, T, H*64) bf16; db_part:
-// (B, nT, 3, H*64) fp32 with nT = ceil(T / 64).
+// q, k, v, bq, bk, bv, key_bias as the forward; dout, o: (B, T, H*D) bf16
+// contiguous; lse: (B, H, T) fp32; dk, dv: (B, T, H*D) bf16; db_part:
+// (B, nT, 3, H*D) fp32 with nT = ceil(T / 64).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -320,14 +359,16 @@ __global__ void __launch_bounds__(kThreads)
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               float* __restrict__ db_part, int T, int H, long long stride_b,
                               long long stride_t, float scale) {
+  using Hd = Head<D>;
+  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + kBQ * kLdH;
   bf16* Qs = Vs + kBQ * kLdH;
   bf16* dOs = Qs + kBQ * kLdH;
   bf16* Ps = dOs + kBQ * kLdH;
-  bf16* dSs = Ps + kBQ * kLdH;
-  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdH);
+  bf16* dSs = Ps + kBQ * kLdP;
+  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdP);
   float* lse_s = Ss + kBQ * kLdS;
   float* delta_s = lse_s + 64;
   float* kb = delta_s + 64;
@@ -340,35 +381,36 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int row = lane >> 1;
   const int half = lane & 1;
-  const long long HD = (long long)H * kD;
-  const long long head = (long long)b * stride_b + h * kD;
-  const long long ohead = (long long)b * T * HD + h * kD;
+  const long long HD = (long long)H * D;
+  const long long head = (long long)b * stride_b + h * D;
+  const long long ohead = (long long)b * T * HD + h * D;
 
-  load_tile(Ks, k + head, bk + h * kD, k0, T, stride_t, 0.0f);
-  load_tile(Vs, v + head, bv + h * kD, k0, T, stride_t, 0.0f);
+  load_tile<D>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
+  load_tile<D>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
   if (threadIdx.x < kBKV) {
     const int key = k0 + threadIdx.x;
     kb[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
   }
 
-  FragC dk_acc[4], dv_acc[4];
+  FragC dk_acc[kNF], dv_acc[kNF];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kNF; ++j) {
     wmma::fill_fragment(dk_acc[j], 0.0f);
     wmma::fill_fragment(dv_acc[j], 0.0f);
   }
   float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdH;
-  bf16* dSw = dSs + warp * 16 * kLdH;
+  bf16* Pw = Ps + warp * 16 * kLdP;
+  bf16* dSw = dSs + warp * 16 * kLdP;
   const bf16* Kw = Ks + warp * 16 * kLdH;
   const bf16* Vw = Vs + warp * 16 * kLdH;
 
   for (int q0 = 0; q0 < T; q0 += kBQ) {
     __syncthreads();  // the previous query tile is no longer read
-    load_tile(Qs, q + head, bq + h * kD, q0, T, stride_t, scale);
-    load_rows(dOs, dout + ohead, q0, T, HD);
+    load_tile<D>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
+    load_rows<D>(dOs, dout + ohead, q0, T, HD);
     __syncthreads();
-    load_query_stats(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0, T, HD);
+    load_query_stats<D>(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0,
+                        T, HD);
     __syncthreads();
 
     // S^T = K_w Q^T for this warp's 16 keys.
@@ -376,7 +418,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
+    for (int kk = 0; kk < Hd::kDP; kk += 16) {
       FragA a;
       wmma::load_matrix_sync(a, Kw + kk, kLdH);
 #pragma unroll
@@ -395,7 +437,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
       p[j] = expf(Sw[row * kLdS + c] + kbr - lse_s[c]);
-      Pw[row * kLdH + c] = __float2bfloat16(p[j]);
+      Pw[row * kLdP + c] = __float2bfloat16(p[j]);
     }
     __syncwarp();
 
@@ -403,7 +445,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
+    for (int kk = 0; kk < Hd::kDP; kk += 16) {
       FragA a;
       wmma::load_matrix_sync(a, Vw + kk, kLdH);
 #pragma unroll
@@ -419,7 +461,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
-      dSw[row * kLdH + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_s[c]));
+      dSw[row * kLdP + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_s[c]));
     }
     __syncwarp();
 
@@ -427,10 +469,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < kBQ; kk += 16) {
       FragA ap, as;
-      wmma::load_matrix_sync(ap, Pw + kk, kLdH);
-      wmma::load_matrix_sync(as, dSw + kk, kLdH);
+      wmma::load_matrix_sync(ap, Pw + kk, kLdP);
+      wmma::load_matrix_sync(as, dSw + kk, kLdP);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kNF; ++j) {
         FragBr bo, bqf;
         wmma::load_matrix_sync(bo, dOs + kk * kLdH + j * 16, kLdH);
         wmma::mma_sync(dv_acc[j], ap, bo, dv_acc[j]);
@@ -442,12 +484,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int nT = gridDim.x;
-  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * kD;
-  store_rows_colsum(dk_acc, 1.0f, Sw, red, dk + ohead, HD, k0, T, part + HD);
-  store_rows_colsum(dv_acc, 1.0f, Sw, red, dv + ohead, HD, k0, T, part + 2 * HD);
+  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * D;
+  store_rows_colsum<D>(dk_acc, 1.0f, Sw, red, dk + ohead, HD, k0, T, part + HD);
+  store_rows_colsum<D>(dv_acc, 1.0f, Sw, red, dv + ohead, HD, k0, T, part + 2 * HD);
 }
 
 // As attention_bwd_dkdv_kernel, for dq (and the first third of db_part).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -457,13 +500,15 @@ __global__ void __launch_bounds__(kThreads)
                             bf16* __restrict__ dq, float* __restrict__ db_part, int T, int H,
                             long long stride_b, long long stride_t, float scale,
                             float sm_scale) {
+  using Hd = Head<D>;
+  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + kBQ * kLdH;
   bf16* Ks = dOs + kBQ * kLdH;
   bf16* Vs = Ks + kBKV * kLdH;
   bf16* dSs = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdH);
+  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdP);
   float* lse_s = Ss + kBQ * kLdS;
   float* delta_s = lse_s + 64;
   float* kb = delta_s + 64;
@@ -476,27 +521,28 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int row = lane >> 1;
   const int half = lane & 1;
-  const long long HD = (long long)H * kD;
-  const long long head = (long long)b * stride_b + h * kD;
-  const long long ohead = (long long)b * T * HD + h * kD;
+  const long long HD = (long long)H * D;
+  const long long head = (long long)b * stride_b + h * D;
+  const long long ohead = (long long)b * T * HD + h * D;
 
-  load_tile(Qs, q + head, bq + h * kD, q0, T, stride_t, scale);
-  load_rows(dOs, dout + ohead, q0, T, HD);
+  load_tile<D>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
+  load_rows<D>(dOs, dout + ohead, q0, T, HD);
   __syncthreads();
-  load_query_stats(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0, T, HD);
+  load_query_stats<D>(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0, T,
+                      HD);
 
-  FragC dq_acc[4];
+  FragC dq_acc[kNF];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
+  for (int j = 0; j < kNF; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
   float* Sw = Ss + warp * 16 * kLdS;
-  bf16* dSw = dSs + warp * 16 * kLdH;
+  bf16* dSw = dSs + warp * 16 * kLdP;
   const bf16* Qw = Qs + warp * 16 * kLdH;
   const bf16* dOw = dOs + warp * 16 * kLdH;
 
   for (int k0 = 0; k0 < T; k0 += kBKV) {
     __syncthreads();  // the previous key tile is no longer read
-    load_tile(Ks, k + head, bk + h * kD, k0, T, stride_t, 0.0f);
-    load_tile(Vs, v + head, bv + h * kD, k0, T, stride_t, 0.0f);
+    load_tile<D>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
+    load_tile<D>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
     if (threadIdx.x < kBKV) {
       const int key = k0 + threadIdx.x;
       kb[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
@@ -510,7 +556,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
+    for (int kk = 0; kk < Hd::kDP; kk += 16) {
       FragA a;
       wmma::load_matrix_sync(a, Qw + kk, kLdH);
 #pragma unroll
@@ -535,7 +581,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
+    for (int kk = 0; kk < Hd::kDP; kk += 16) {
       FragA a;
       wmma::load_matrix_sync(a, dOw + kk, kLdH);
 #pragma unroll
@@ -551,7 +597,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
-      dSw[row * kLdH + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_r));
+      dSw[row * kLdP + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_r));
     }
     __syncwarp();
 
@@ -559,9 +605,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < kBKV; kk += 16) {
       FragA a;
-      wmma::load_matrix_sync(a, dSw + kk, kLdH);
+      wmma::load_matrix_sync(a, dSw + kk, kLdP);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kNF; ++j) {
         FragBr bkf;
         wmma::load_matrix_sync(bkf, Ks + kk * kLdH + j * 16, kLdH);
         wmma::mma_sync(dq_acc[j], a, bkf, dq_acc[j]);
@@ -571,30 +617,64 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int nT = gridDim.x;
-  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * kD;
-  store_rows_colsum(dq_acc, sm_scale, Sw, red, dq + ohead, HD, q0, T, part);
+  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * D;
+  store_rows_colsum<D>(dq_acc, sm_scale, Sw, red, dq + ohead, HD, q0, T, part);
+}
+
+template <int D>
+int launch_bwd(const bf16* qp, const bf16* kp, const bf16* vp, const bf16* bqp, const bf16* bkp,
+               const bf16* bvp, const float* kbp, const bf16* dop, const float* lp,
+               const bf16* op, bf16* dq, bf16* dk, bf16* dv, float* dbp, int B, int T, int H,
+               long long stride_b, long long stride_t, float scale, float sm_scale,
+               cudaStream_t s) {
+  using Hd = Head<D>;
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Hd::kDkdvSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Hd::kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  attention_bwd_dkdv_kernel<D><<<grid, kThreads, Hd::kDkdvSmem, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dk, dv, dbp, T, H, stride_b, stride_t, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dq_kernel<D><<<grid, kThreads, Hd::kDqSmem, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dq, dbp, T, H, stride_b, stride_t, scale,
+      sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd(const bf16* qp, const bf16* kp, const bf16* vp, const bf16* bqp, const bf16* bkp,
+               const bf16* bvp, const float* kbp, bf16* op, float* lp, int B, int T, int H,
+               long long stride_b, long long stride_t, float scale, cudaStream_t s) {
+  using Hd = Head<D>;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Hd::kFwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  attention_fwd_kernel<D><<<grid, kThreads, Hd::kFwdSmem, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, T, H, stride_b, stride_t, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches both backward kernels on `stream`. scale is the bf16-rounded score
-// scale applied to q + bq (as the forward); sm_scale the fp32 one dq is
-// multiplied by (as the JAX kernel). Returns the cudaError_t of the launches.
+// Launches both backward kernels on `stream` at head dim D (64, 80 or 120).
+// scale is the bf16-rounded score scale applied to q + bq (as the forward);
+// sm_scale the fp32 one dq is multiplied by (as the JAX kernel). Returns the
+// cudaError_t of the launches, or -1 for a head dim they were not built for.
 extern "C" int coral_attention_bwd(const void* q, const void* k, const void* v, const void* bq,
                                    const void* bk, const void* bv, const void* key_bias,
                                    const void* dout, const void* lse, const void* o, void* dq,
-                                   void* dk, void* dv, void* db_part, int B, int T, int H,
+                                   void* dk, void* dv, void* db_part, int B, int T, int H, int D,
                                    long long stride_b, long long stride_t, float scale,
                                    float sm_scale, void* stream) {
+  if (D != 64 && D != 80 && D != 120) return -1;
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kBwdSmemDkdv);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmemDq);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v), *bqp = static_cast<const bf16*>(bq),
@@ -603,32 +683,40 @@ extern "C" int coral_attention_bwd(const void* q, const void* k, const void* v, 
   const float* kbp = static_cast<const float*>(key_bias);
   const float* lp = static_cast<const float*>(lse);
   float* dbp = static_cast<float*>(db_part);
-  attention_bwd_dkdv_kernel<<<grid, kThreads, kBwdSmemDkdv, s>>>(
-      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), dbp, T, H, stride_b, stride_t, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<<<grid, kThreads, kBwdSmemDq, s>>>(
-      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, static_cast<bf16*>(dq), dbp, T, H, stride_b,
-      stride_t, scale, sm_scale);
-  return (int)cudaGetLastError();
+  bf16 *dqp = static_cast<bf16*>(dq), *dkp = static_cast<bf16*>(dk),
+       *dvp = static_cast<bf16*>(dv);
+  if (D == 64)
+    return launch_bwd<64>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T,
+                          H, stride_b, stride_t, scale, sm_scale, s);
+  if (D == 80)
+    return launch_bwd<80>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T,
+                          H, stride_b, stride_t, scale, sm_scale, s);
+  return launch_bwd<120>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T,
+                         H, stride_b, stride_t, scale, sm_scale, s);
 }
 
-// Returns the cudaError_t of the launch.
+// The forward at head dim D (64, 80 or 120). Returns the cudaError_t of the
+// launch, or -1 for a head dim it was not built for.
 extern "C" int coral_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bq, const void* bk, const void* bv,
                                    const void* key_bias, void* o, void* lse, int B, int T,
-                                   int H, long long stride_b, long long stride_t,
+                                   int H, int D, long long stride_b, long long stride_t,
                                    float scale, void* stream) {
+  if (D != 64 && D != 80 && D != 120) return -1;
   if (B <= 0 || T <= 0 || H <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  attention_fwd_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(bq), static_cast<const bf16*>(bk), static_cast<const bf16*>(bv),
-      static_cast<const float*>(key_bias), static_cast<bf16*>(o), static_cast<float*>(lse), T,
-      H, stride_b, stride_t, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *bqp = static_cast<const bf16*>(bq),
+             *bkp = static_cast<const bf16*>(bk), *bvp = static_cast<const bf16*>(bv);
+  const float* kbp = static_cast<const float*>(key_bias);
+  bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
+  if (D == 64)
+    return launch_fwd<64>(qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t,
+                          scale, s);
+  if (D == 80)
+    return launch_fwd<80>(qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t,
+                          scale, s);
+  return launch_fwd<120>(qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t,
+                         scale, s);
 }

@@ -66,6 +66,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops import attention as _attention
+from ..ops import conv_ln_gelu as _conv_ln_gelu
+from ..ops import ffn as _ffn
+from ..ops import ln_gelu as _ln_gelu
 from ..ops.attention import short_t_attention_flat
 from ..ops.conv_ln_gelu import conv_ln_gelu
 from ..ops.ffn import ffn_ln_block
@@ -158,6 +162,26 @@ class Wav2Vec2Config:
         for kernel, stride in zip(self.conv_kernel, self.conv_stride):
             lengths = (lengths - kernel) // stride + 1
         return lengths
+
+
+def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
+    """(what, its value, the values the kernel takes) for each width that a
+    kernel on this model's path depends on: every route below is taken by
+    flag, never by width, so an untaken width would fail at its launch."""
+    bf16 = torch.bfloat16
+    D = config.hidden_size
+    return [
+        ("hidden_size (the FFN block)", D, _ffn.KERNEL_D),
+        ("intermediate_size's remainder by the FFN's F tile",
+         config.intermediate_size % _ffn.KERNEL_F_TILE, (0,)),
+        ("hidden_size (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[bf16]),
+        ("hidden_size (the LayerNorm backward)", D, _ln_gelu.KERNEL_C_BWD[bf16]),
+        ("head_dim (the attention)", D / config.num_attention_heads,
+         _attention.KERNEL_HEAD_DIMS),
+        ("conv_dim[0] (LayerNorm + GELU)", config.conv_dim[0], _ln_gelu.KERNEL_C[bf16]),
+        *((f"conv_dim[{i}] (the conv block)", c, (_conv_ln_gelu.KERNEL_C,))
+          for i, c in enumerate(config.conv_dim[1:], 1)),
+    ]
 
 
 class _Ops(NamedTuple):

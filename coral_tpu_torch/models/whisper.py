@@ -63,6 +63,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops import decode_attention as _decode_attention
+from ..ops import ffn as _ffn
+from ..ops import flash_attention as _flash_attention
+from ..ops import ln_gelu as _ln_gelu
 from ..ops.decode_attention import (decode_cross_attention, decode_cross_attention_plain,
                                     decode_self_attention, decode_self_attention_plain)
 from ..ops.ffn import ffn_ln_block
@@ -370,10 +374,34 @@ def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --------------------------------------------------------------------------------
 
 
+def _kernel_layer_norm(config: WhisperConfig, width: int) -> bool:
+    """Whether the encoder's LayerNorms take the ln_fused kernel: under
+    ``ln_impl="pallas"`` at widths that are a multiple of 128."""
+    return config.ln_impl == "pallas" and width % 128 == 0
+
+
+def kernel_widths(config: WhisperConfig) -> list[tuple[str, float, tuple]]:
+    """(what, its value, the values the kernel takes) for each width that a
+    kernel on this model's path depends on."""
+    D = config.d_model
+    needs = [
+        ("d_model (the FFN block)", D, _ffn.KERNEL_D),
+        ("ffn_dim's remainder by the FFN's F tile", config.ffn_dim % _ffn.KERNEL_F_TILE, (0,)),
+        ("d_model (the FFN backward's LayerNorm)", D, _ln_gelu.KERNEL_C_BWD[torch.bfloat16]),
+        ("encoder head_dim (flash attention)", D / config.encoder_attention_heads,
+         (_flash_attention.KERNEL_HEAD_DIM,)),
+        ("decoder head_dim (decode attention)", D / config.decoder_attention_heads,
+         (_decode_attention.KERNEL_HEAD_DIM,)),
+    ]
+    if _kernel_layer_norm(config, D):
+        needs.append(("d_model (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[torch.bfloat16]))
+    return needs
+
+
 def _train_layer_norm(model, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """``_train_layer_norm``: the ln_fused kernel under ``ln_impl="pallas"`` at
-    widths that are a multiple of 128, else plain."""
-    if model.config.ln_impl == "pallas" and x.shape[-1] % 128 == 0:
+    """``_train_layer_norm``: the ln_fused kernel where ``_kernel_layer_norm``
+    says so, else plain."""
+    if _kernel_layer_norm(model.config, x.shape[-1]):
         return model.ops.ln_fused(x, ln.weight.float(), ln.bias.float()).to(x.dtype)
     return _layer_norm(ln, x)
 

@@ -47,23 +47,29 @@ _SIGNATURES = {
     # x, gamma, beta, dy, dx, part, rows, C, blocks, x_bf16, dy_bf16,
     # apply_gelu, eps, stream
     "coral_ln_bwd": [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _F, _P],
+    # rows, C, x_bf16, dy_bf16, apply_gelu: the blocks coral_ln_bwd launches
+    # on the current card, -1 for an unbuilt combination (no launch)
+    "coral_ln_bwd_blocks": [_LL, _I, _I, _I, _I],
     # x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, C, K, eps, stream
     "coral_conv_ln_gelu": [_P] * 8 + [_I] * 5 + [_F, _P],
     # x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
     # T_out, C, K, row_blocks, chunk, n_chunks, stream
     "coral_conv_ln_gelu_bwd": [_P] * 11 + [_I] * 8 + [_P],
-    # q, k, v, bq, bk, bv, key_bias, o, lse, B, T, H, stride_b, stride_t,
-    # scale, stream
-    "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, bq, bk, bv, key_bias, o, lse, B, T, H, head_dim, stride_b,
+    # stride_t, scale, stream
+    "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
     # q, k, v, bq, bk, bv, key_bias, do, lse, o, dq, dk, dv, db_part, B, T, H,
-    # stride_b, stride_t, scale, sm_scale, stream
-    "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _LL, _LL, _F, _F, _P],
+    # head_dim, stride_b, stride_t, scale, sm_scale, stream
+    "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _LL, _LL, _F, _F, _P],
     # x, w1, b1, gamma, beta, seeds, g, M, D, F, T, threshold, scale, eps,
     # stream
     "coral_ffn_ln_fwd": [_P] * 7 + [_LL, _I, _I, _I, _U, _F, _F, _P],
     # x, w1, b1, gamma, beta, dy, w2, seeds, g, dh, ln_out, db1_part, dl, M, D,
     # F, T, threshold, scale, eps, stream
     "coral_ffn_bwd": [_P] * 13 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # D: the kernels' rows per block at width D, -1 for an unbuilt width (no
+    # launch)
+    "coral_ffn_row_tile": [_I],
     # emit, skip, valid, lengths, out, T, B, S, stream
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream

@@ -23,9 +23,19 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .ln_gelu import WIDTHS_ROADMAP
 
-_KERNEL_HEAD_DIM = 64
+# Head dims the kernels take, each its own instantiation: XLS-R-300M's 64
+# (counted as "attention", "attention_bwd"), XLS-R-1B's 80 and XLS-R-2B's 120
+# ("attention_fwd_hd80", "attention_bwd_hd120", ...).
+KERNEL_HEAD_DIMS = (64, 80, 120)
 _TILE = 64
+
+
+def _name(direction: str, head_dim: int) -> str:
+    if head_dim == 64:
+        return "attention" if direction == "fwd" else "attention_bwd"
+    return f"attention_{direction}_hd{head_dim}"
 
 
 def _key_bias(pad_mask):
@@ -98,10 +108,10 @@ def attention_bwd_plain(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int
 
 def _check(name, q, k, v, bq, bk, bv, key_bias, head_dim):
     B, T, HD = q.shape
-    if head_dim != _KERNEL_HEAD_DIM or HD % head_dim:
+    if head_dim not in KERNEL_HEAD_DIMS or HD % head_dim:
         raise ValueError(
-            f"{name}: the kernel takes head_dim {_KERNEL_HEAD_DIM}, got {head_dim}"
-            f" with width {HD}"
+            f"{name}: the kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}"
+            f" with width {HD}; " + WIDTHS_ROADMAP
         )
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: the kernel takes bf16 q, k, v")
@@ -131,9 +141,9 @@ def _fwd(q, k, v, bq, bk, bv, key_bias, head_dim, sm_scale):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     scale = float(torch.tensor(sm_scale, dtype=q.dtype))
     _build.launch(
-        name, "attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), bq.data_ptr(),
+        name, _name("fwd", head_dim), q.data_ptr(), k.data_ptr(), v.data_ptr(), bq.data_ptr(),
         bk.data_ptr(), bv.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, T, H, stride_b, stride_t, scale,
+        lse.data_ptr(), B, T, H, head_dim, stride_b, stride_t, scale,
     )
     return o, lse
 
@@ -143,9 +153,9 @@ def attention_bwd(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int,
     """The backward kernels; arguments and results as ``attention_bwd_plain``.
 
     Args:
-        q, k, v: (B, T, H*64) bf16 as the forward took them; bq, bk, bv (H*64,)
-            bf16; key_bias (B, T) fp32; do, o (B, T, H*64) bf16; lse (B, H, T)
-            fp32.
+        q, k, v: (B, T, H*d) bf16 as the forward took them, d in
+            ``KERNEL_HEAD_DIMS``; bq, bk, bv (H*d,) bf16; key_bias (B, T)
+            fp32; do, o (B, T, H*d) bf16; lse (B, H, T) fp32.
     """
     name = "coral_attention_bwd"
     if not _build.require_cuda(name, q):
@@ -162,10 +172,10 @@ def attention_bwd(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int,
     db_part = torch.empty((B, n_tiles, 3, HD), dtype=torch.float32, device=q.device)
     scale = float(torch.tensor(sm_scale, dtype=q.dtype))
     _build.launch(
-        name, "attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), bq.data_ptr(),
-        bk.data_ptr(), bv.data_ptr(), key_bias.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        o.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), db_part.data_ptr(),
-        B, T, H, stride_b, stride_t, scale, float(sm_scale),
+        name, _name("bwd", head_dim), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bq.data_ptr(), bk.data_ptr(), bv.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), o.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        db_part.data_ptr(), B, T, H, head_dim, stride_b, stride_t, scale, float(sm_scale),
     )
     return dq, dk, dv, db_part.sum(dim=(0, 1))
 
@@ -208,9 +218,9 @@ def short_t_attention_flat(q, k, v, pad_mask, head_dim: int, qkv_bias,
 
     Args:
         q, k, v: (B, T, H*head_dim) projections without their biases; on CUDA
-            bf16 with head_dim 64, the last axis contiguous and the row strides
-            equal for all three (slices of one packed tensor are taken as they
-            are).
+            bf16 with head_dim in ``KERNEL_HEAD_DIMS``, the last axis contiguous
+            and the row strides equal for all three (slices of one packed
+            tensor are taken as they are).
         pad_mask: (B, T) bool, True for a valid key.
         qkv_bias: (bq, bk, bv), each (H*head_dim,); cast to q.dtype.
         sm_scale: score scale, default head_dim ** -0.5 (rounded to q.dtype

@@ -25,7 +25,7 @@ import torch
 from . import _build
 from .gelu_poly import _dgelu, gelu_poly
 
-_KERNEL_C = 512
+KERNEL_C = 512
 _BWD_ROW_BLOCKS = 528  # 4 blocks of 8 rows per SM of an H100; partials (528, 3, C)
 _DW_CHUNK = 2048  # rows of one batch row per dW partial (a multiple of 32)
 
@@ -91,9 +91,9 @@ def _check(name, x, w, *vecs):
     returns (B, T_in, T_out, k) and w as (C_out, k, C_in) in x.dtype."""
     B, T_in, C = x.shape
     k = w.shape[-1]
-    if C != _KERNEL_C or w.shape != (C, C, k):
+    if C != KERNEL_C or w.shape != (C, C, k):
         raise ValueError(
-            f"{name}: the kernel takes C_in = C_out = {_KERNEL_C}, got x {tuple(x.shape)}"
+            f"{name}: the kernel takes C_in = C_out = {KERNEL_C}, got x {tuple(x.shape)}"
             f" and w {tuple(w.shape)}"
         )
     T_out = (T_in - k) // 2 + 1

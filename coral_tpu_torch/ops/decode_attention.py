@@ -19,7 +19,7 @@ import torch
 from . import _build
 
 _NEG = -1e30
-_KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIM = 64
 _CHUNK = 128
 _MAX_BEAMS = 64
 
@@ -64,8 +64,8 @@ def _launch(kernel, q, k, v, mask, B, K, n_keys, n_heads, layer):
     L = k.shape[0]
     HD = q.shape[-1]
     d = HD // n_heads
-    if d * n_heads != HD or d != _KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim {_KERNEL_HEAD_DIM}, got {HD} "
+    if d * n_heads != HD or d != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {HD} "
                          f"over {n_heads} heads")
     if not 1 <= K <= _MAX_BEAMS:
         raise ValueError(f"{name}: the kernel takes 1 to {_MAX_BEAMS} beams, got {K}")

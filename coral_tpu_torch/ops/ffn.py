@@ -2,9 +2,10 @@
 
 Port of ``coral_tpu/ops/ffn_pallas.py`` ``ffn_ln_block`` with
 ``dg_in_kernel=True`` (``_ffn_ln_block_dg``, :1742-1789), forward and
-backward, at any dropout rate, at the widths D = 1024 (XLS-R-300M) and 1280
-(Whisper large-v3, XLS-R-1B); other widths raise on the card (XLS-R-2B's 1920
-is ROADMAP.md Queue 2 item 3). On a CUDA tensor the wrappers launch
+backward, at any dropout rate, at every width of the repository's configs
+(``KERNEL_D``: Whisper tiny, base and small's 384, 512 and 768, XLS-R-300M's
+1024, Whisper large-v3's and XLS-R-1B's 1280, XLS-R-2B's 1920); other widths
+raise on the card (ROADMAP.md Queue 2 item 3). On a CUDA tensor the wrappers launch
 ``csrc/ffn.cu``: the forward writes ``g = dropout(gelu(bf16(layer_norm(x)) @
 W1^T + b1))`` (``_fwd_kernel_ln`` / ``_fwd_kernel_ln_drop``) and fc2 runs as
 ``torch.matmul``, which the JAX package also leaves outside its kernel
@@ -31,16 +32,18 @@ import torch
 
 from . import _build
 from .gelu_poly import _dgelu, _phi, gelu_poly
-from .ln_gelu import ln_bwd
+from .ln_gelu import WIDTHS_ROADMAP, ln_bwd
 from .philox import keep_mask, threshold
 
-# Widths the kernels take: XLS-R-300M's, and Whisper large-v3's (and
-# XLS-R-1B's). Each is its own instantiation of the kernels, counted apart:
-# the 1280 launches under names ending in "_1280".
-_KERNEL_D = (1024, 1280)
-_KERNEL_F_TILE = 256
-_WIDTHS_ROADMAP = "other widths: ROADMAP.md, Queue 2 item 3 (the FFN kernels at 1920)"
-_ROW_TILE = 64
+# Widths the kernels take, each its own instantiation, counted apart: the
+# launches at 1024 under the bare names ("ffn_ln", "ffn_bwd"), the others
+# under names ending in the width ("ffn_ln_drop_1920").
+KERNEL_D = (384, 512, 768, 1024, 1280, 1920)
+KERNEL_F_TILE = 256
+
+
+def _name(base: str, D: int) -> str:
+    return base if D == 1024 else f"{base}_{D}"
 
 
 def _ln_rows(x, gamma, beta, eps):
@@ -75,11 +78,11 @@ def _fc2(g, w2, b2):
 
 def _check_shapes(name, x, w1, F):
     D = x.shape[-1]
-    if D not in _KERNEL_D or w1.shape != (F, D) or F % _KERNEL_F_TILE:
+    if D not in KERNEL_D or w1.shape != (F, D) or F % KERNEL_F_TILE:
         raise ValueError(
-            f"{name}: the kernel takes D in {_KERNEL_D} and F a multiple of "
-            f"{_KERNEL_F_TILE}, got x {tuple(x.shape)} and w1 {tuple(w1.shape)}; "
-            + _WIDTHS_ROADMAP
+            f"{name}: the kernel takes D in {KERNEL_D} and F a multiple of "
+            f"{KERNEL_F_TILE}, got x {tuple(x.shape)} and w1 {tuple(w1.shape)}; "
+            + WIDTHS_ROADMAP
         )
     return D
 
@@ -98,7 +101,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
     """``g = dropout(gelu(bf16(layer_norm(x)) @ W1^T + b1))``, the kernel's output.
 
     Args:
-        x: (B, T, D); on CUDA bf16 with D = 1024 or 1280.
+        x: (B, T, D); on CUDA bf16 with D in ``KERNEL_D``.
         w1: (F, D), cast to ``x.dtype``; on CUDA F a multiple of 256.
         b1: (F,) fp32.  gamma, beta: (D,) fp32.
         rate: activation-dropout rate in [0, 1).
@@ -121,9 +124,8 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
         raise ValueError(f"{name}: all tensors must be on {x.device}")
     seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
     g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
-    kernel = ("ffn_ln_drop" if rate > 0.0 else "ffn_ln") + ("" if D == 1024 else f"_{D}")
     _build.launch(
-        name, kernel, x.data_ptr(), w1.data_ptr(),
+        name, _name("ffn_ln_drop" if rate > 0.0 else "ffn_ln", D), x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), seed_ptr, g.data_ptr(),
         x.numel() // D, D, F, T, thr, scale, float(eps),
     )
@@ -164,7 +166,7 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     """The backward kernels; arguments and results as ``ffn_bwd_plain``.
 
     Args:
-        x, dy: (B, T, D) bf16, D = 1024 or 1280.
+        x, dy: (B, T, D) bf16, D in ``KERNEL_D``.
         w1: (F, D); w2: (D, F); cast to x.dtype. b1 (F,), gamma, beta (D,) fp32.
     """
     name = "coral_ffn_bwd"
@@ -182,10 +184,12 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
     dh = torch.empty_like(g)
     ln_out = torch.empty_like(x)
-    db1_part = torch.empty((-(-M // _ROW_TILE), F), dtype=torch.float32, device=x.device)
+    # One db1 partial per row tile of the kernel (64 rows, 32 at D = 1920).
+    row_tile = _build.library().coral_ffn_row_tile(D)
+    db1_part = torch.empty((-(-M // row_tile), F), dtype=torch.float32, device=x.device)
     dl = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     _build.launch(
-        name, "ffn_bwd" if D == 1024 else f"ffn_bwd_{D}", x.data_ptr(), w1.data_ptr(),
+        name, _name("ffn_bwd", D), x.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), w2.data_ptr(),
         seed_ptr, g.data_ptr(), dh.data_ptr(), ln_out.data_ptr(), db1_part.data_ptr(),
         dl.data_ptr(), M, D, F, T, thr, scale, float(eps),

@@ -23,7 +23,7 @@ import torch
 
 from . import _build
 
-_KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIM = 64
 
 
 def _heads(t):
@@ -72,8 +72,8 @@ def _check(name, q, k, v):
     """Raises unless the kernels take q, k, v; returns (B, T, H, stride_b,
     stride_t)."""
     B, T, H, d = q.shape
-    if d != _KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim {_KERNEL_HEAD_DIM}, got {d}")
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: the kernel takes bf16 q, k, v")
     for t in (k, v):

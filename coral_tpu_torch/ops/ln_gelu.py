@@ -20,12 +20,23 @@ import torch
 from . import _build
 from .gelu_poly import _dgelu, gelu_poly
 
+# Where a width no kernel was built for is queued.
+WIDTHS_ROADMAP = "other widths: ROADMAP.md, Queue 2 item 3"
+
 _EPS = 1e-5
-_KERNEL_C = (512, 1024)
-# The backward also takes the FFN backward's LN step at Whisper large-v3's
-# width; that instantiation is counted apart, as "ln_bwd_1280".
-_KERNEL_C_BWD = (512, 1024, 1280)
-_BWD_BLOCKS = 528  # 4 blocks of 8 rows per SM of an H100; partials (528, 2, C)
+# Widths the kernels take, by the dtype of x (csrc/ln_gelu.cu): the forward
+# at every wav2vec2 encoder width in bf16 (XLS-R-300M, -1B, -2B; 512 is the
+# feature encoder's), the backward at every model width with a bf16 x (the
+# encoder LNs' gradients, and the FFN backward's LN step with an fp32 dy).
+KERNEL_C = {torch.bfloat16: (512, 1024, 1280, 1920), torch.float32: (512, 1024)}
+KERNEL_C_BWD = {torch.bfloat16: (384, 512, 768, 1024, 1280, 1920),
+                torch.float32: (512, 1024, 1280)}
+
+
+def _name(base: str, C: int) -> str:
+    """The launch counter's name: the base at 512 and 1024, which the first
+    instantiations took, else with the width (``ln_bwd_1920``)."""
+    return base if C in (512, 1024) else f"{base}_{C}"
 
 
 def ln_gelu_plain(x, gamma, beta, eps: float = _EPS, apply_gelu: bool = True):
@@ -61,12 +72,13 @@ def ln_bwd_plain(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True)
     return dx.to(x.dtype), (g * n).reshape(-1, C).sum(0), g.reshape(-1, C).sum(0)
 
 
-def _check_row_op(name, x, gamma, beta, widths=_KERNEL_C):
+def _check_row_op(name, x, gamma, beta, widths):
     C = x.shape[-1]
-    if C not in widths:
-        raise ValueError(f"{name}: the kernel takes C in {widths}, got {C}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype not in widths:
         raise TypeError(f"{name}: the kernel takes bf16 or fp32, got {x.dtype}")
+    if C not in widths[x.dtype]:
+        raise ValueError(f"{name}: the kernel takes C in {widths[x.dtype]} for {x.dtype}, "
+                         f"got {C}; " + WIDTHS_ROADMAP)
     _build.check_cuda(name, x.dtype, x)
     _build.check_cuda(name, torch.float32, gamma, beta)
     if gamma.shape != (C,) or beta.shape != (C,) or gamma.device != x.device:
@@ -78,10 +90,10 @@ def _ln(x, gamma, beta, eps, apply_gelu):
     name = "coral_ln_gelu"
     if not _build.require_cuda(name, x):
         return ln_gelu_plain(x, gamma, beta, eps, apply_gelu)
-    C = _check_row_op(name, x, gamma, beta)
+    C = _check_row_op(name, x, gamma, beta, KERNEL_C)
     y = torch.empty_like(x)
     _build.launch(
-        name, "ln_gelu" if apply_gelu else "ln_fused", x.data_ptr(),
+        name, _name("ln_gelu" if apply_gelu else "ln_fused", C), x.data_ptr(),
         gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), x.numel() // C, C,
         int(x.dtype == torch.bfloat16), int(apply_gelu), float(eps),
     )
@@ -92,15 +104,15 @@ def ln_bwd(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
     """The backward kernel: (dx in x.dtype, dgamma (C,) fp32, dbeta (C,) fp32).
 
     Args:
-        x: (..., C) the forward's input, bf16 or fp32; on CUDA C is 512, 1024
-            or 1280.
+        x: (..., C) the forward's input, bf16 or fp32; on CUDA C is in
+            ``KERNEL_C_BWD`` for its dtype.
         gamma, beta: (C,) fp32.
         dy: x's shape; bf16 (with a bf16 x) or fp32.
     """
     name = "coral_ln_bwd"
     if not _build.require_cuda(name, x):
         return ln_bwd_plain(x, gamma, beta, dy, eps, apply_gelu)
-    C = _check_row_op(name, x, gamma, beta, _KERNEL_C_BWD)
+    C = _check_row_op(name, x, gamma, beta, KERNEL_C_BWD)
     if dy.shape != x.shape:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     if dy.dtype not in (torch.bfloat16, torch.float32) or (
@@ -110,14 +122,18 @@ def ln_bwd(x, gamma, beta, dy, eps: float = _EPS, apply_gelu: bool = True):
                         f"got {dy.dtype} with {x.dtype}")
     _build.check_cuda(name, dy.dtype, dy)
     rows = x.numel() // C
-    blocks = max(1, min(-(-rows // 8), _BWD_BLOCKS))
+    # As many blocks as the card holds at once (the library's choice); the
+    # partials are (blocks, 2, C).
+    flags = (int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16), int(apply_gelu))
+    blocks = _build.library().coral_ln_bwd_blocks(rows, C, *flags)
+    if blocks < 1:
+        raise RuntimeError(f"{name}: no block count for C = {C} ({x.dtype} x, {dy.dtype} dy)")
     dx = torch.empty_like(x)
     part = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
     _build.launch(
-        name, "ln_bwd_1280" if C == 1280 else "ln_bwd", x.data_ptr(), gamma.data_ptr(),
+        name, _name("ln_bwd", C), x.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(), rows, C, blocks,
-        int(x.dtype == torch.bfloat16), int(dy.dtype == torch.bfloat16), int(apply_gelu),
-        float(eps),
+        *flags, float(eps),
     )
     dvec = part.sum(0)
     return dx, dvec[0], dvec[1]
@@ -150,7 +166,7 @@ def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False):
     """``gelu(layer_norm(x) * gamma + beta)`` over the last axis, differentiable.
 
     Args:
-        x: (..., C) bf16 or fp32; on CUDA, C is 512 or 1024.
+        x: (..., C) bf16 or fp32; on CUDA, C is in ``KERNEL_C`` for its dtype.
         gamma, beta: (C,); cast to fp32 for the kernel.
         plain: run the plain versions (forward and backward) on any device.
 

@@ -14,7 +14,10 @@ fields, ``init_params``, the greedy ``make_predictor`` and
 else in silence: beam search (with an n-gram LM, or Whisper's), Whisper
 timestamps, loading a checkpoint, training on more than one device, and in
 wav2vec2 training the ``dots_saveable`` policy and
-``remat_feature_encoder: true``.
+``remat_feature_encoder: true``. A setup on the card also refuses, before it
+builds anything, a model width that no kernel on its path was built for
+(``check_kernel_widths``, ROADMAP.md Queue 2 item 3); every config in
+``config/model/`` passes.
 
 Every setup builds its model on ``device``, the card unless the caller asks
 for the CPU; without a card that raises, as torch does.
@@ -36,6 +39,7 @@ import torch
 
 from ..audio.features import znorm
 from ..audio.noise_bank import download_background_noises, load_noise_bank
+from ..models import wav2vec2
 from ..models import whisper as W
 from ..models.wav2vec2 import (NOT_PORTED, Wav2Vec2Config, Wav2Vec2ForCTC, build_model,
                                remat_names)
@@ -106,6 +110,20 @@ def _check_kernel_flags(model_cfg: Mapping[str, Any], defaults: Mapping[str, Any
                 f"model.{key}={model_cfg[key]!r} (the port implements "
                 f"{default!r}): " + NOT_PORTED.format("9 (off-default kernel flags)")
             )
+
+
+def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
+    """Raise ``NotImplementedError`` for a width of ``model_config`` that a
+    kernel on its path was not built for (ROADMAP.md Queue 2 item 3), so that
+    a setup on the card fails before it builds a model, not at the first
+    launch. Each model module lists its own routes' widths
+    (``kernel_widths``); the plain versions on the CPU take every width."""
+    model_module = wav2vec2 if isinstance(model_config, Wav2Vec2Config) else W
+    for what, value, takes in model_module.kernel_widths(model_config):
+        if value not in takes:
+            raise NotImplementedError(
+                f"model {what} = {value:g}: the port's kernels take {takes}, "
+                "not ported yet (ROADMAP.md, Queue 2 item 3)")
 
 
 def _refuse_checkpoint(pretrained: str | None, is_main: bool) -> None:
@@ -199,6 +217,8 @@ class Wav2Vec2Setup:
             mask_feature_prob=model_cfg.get("mask_feature_prob", 0.5),
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
         )
+        if self.device.type == "cuda":
+            check_kernel_widths(self.model_config)
         self.config = config
         self.is_main = is_main
         self.blank_id = self.tokenizer.pad_token_id
@@ -373,6 +393,8 @@ class WhisperSetup:
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
             ln_impl=model_cfg.get("ln_impl", "xla"),
         )
+        if self.device.type == "cuda":
+            check_kernel_widths(self.model_config)
         # As the JAX setup: save_flash_ctx for the 1280-wide large family,
         # save_matmul_inputs below; model.remat_policy wins.
         default_policy = ("save_flash_ctx" if self.model_config.d_model >= 1280

@@ -6,9 +6,10 @@ where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Inputs are made by numpy from a seed, at the real widths (C = 512/1024,
-head_dim 64, D = 1024/1280) and short lengths, in bf16: the point is the
-kernel.
+Inputs are made by numpy from a seed, at the real widths (every width of the
+repository's configs: C and D = 384 to 1920, head_dim 64, 80 and 120) and
+short lengths whose rows are not a multiple of the kernels' row tiles, in
+bf16: the point is the kernel.
 Tolerance: |kernel - plain| <= atol + rtol |plain| with rtol = 2**-6, two bf16
 ulps of the output: both sides compute in fp32 and round once to bf16, and a
 reordered fp32 sum can move that rounding by one ulp. atol covers values near
@@ -118,7 +119,10 @@ def test_attention_kernel_matches_plain(cuda, packed):
     assert (lse[2] == -1e25).all()
 
 
-@pytest.mark.parametrize("D", [1024, 1280])
+ALL_D = [384, 512, 768, 1024, 1280, 1920]
+
+
+@pytest.mark.parametrize("D", ALL_D)
 def test_ffn_kernel_matches_plain(cuda, D):
     F = 512
     x = _on(cuda, _np(2, 75, D, seed=0), torch.bfloat16)
@@ -227,7 +231,7 @@ def _ffn_inputs(cuda, F=512, T=75, D=1024):
     return x, w1, b1, gamma, beta, w2, dy, seeds
 
 
-@pytest.mark.parametrize("D", [1024, 1280])
+@pytest.mark.parametrize("D", ALL_D)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_ffn_dropout_kernel_matches_plain(cuda, rate, D):
     x, w1, b1, gamma, beta, _, _, seeds = _ffn_inputs(cuda, D=D)
@@ -244,14 +248,16 @@ def test_ffn_dropout_kernel_matches_plain(cuda, rate, D):
         assert abs(frac - (1 - rate)) < 0.01
 
 
-@pytest.mark.parametrize("D", [1024, 1280])
+@pytest.mark.parametrize("D", ALL_D)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_ffn_bwd_kernel_matches_plain(cuda, rate, D):
+    """150 rows: a ragged last tile of 64 rows (of 32 at D = 1920)."""
     x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda, D=D)
     _build.reset_launch_counts()
     got = ffn.ffn_bwd(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)
     tail = "" if D == 1024 else f"_{D}"
-    assert _build.launch_counts == {f"ffn_bwd{tail}": 1, f"ln_bwd{tail}": 1}
+    ln_tail = "" if D in (512, 1024) else f"_{D}"
+    assert _build.launch_counts == {f"ffn_bwd{tail}": 1, f"ln_bwd{ln_tail}": 1}
     want = ffn.ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=seeds)
     g_fwd = ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds)
     assert torch.equal(got[0], g_fwd)  # the backward regenerates the forward's g
@@ -394,9 +400,9 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         attention.attention_bwd(q, q, q, b, b, b, kb, q, lse, q, 32, 0.17)
     x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda)
-    with pytest.raises(ValueError, match="the kernel takes D"):
-        ffn.ffn_bwd(x[..., :512], w1[:, :512], b1, gamma[:512], beta[:512], dy[..., :512],
-                    w2[:512], rate=0.0)
+    with pytest.raises(ValueError, match="the kernel takes D"):  # 256: no config's width
+        ffn.ffn_bwd(x[..., :256].contiguous(), w1[:, :256].contiguous(), b1, gamma[:256],
+                    beta[:256], dy[..., :256].contiguous(), w2[:256].contiguous(), rate=0.0)
     with pytest.raises(ValueError, match="seeds"):
         ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=0.1, seeds=None)
     emit = torch.zeros(4, 1, 7000, device=cuda)
@@ -504,12 +510,12 @@ def test_decode_cross_kernel_matches_plain(cuda, K):
 
 def test_whisper_kernels_reject_what_they_do_not_take(cuda):
     """A CUDA tensor the kernels do not take raises and is never sent to the
-    plain version: the FFN's dropout at D = 1920 (XLS-R-2B), head_dim 32,
-    > 64 beams."""
+    plain version: the FFN's dropout at D = 640 (no config's width), head_dim
+    32, > 64 beams."""
     _build.reset_launch_counts()
-    x = torch.zeros(1, 8, 1920, device=cuda, dtype=torch.bfloat16)
-    w1 = torch.zeros(512, 1920, device=cuda, dtype=torch.bfloat16)
-    b1, g = torch.zeros(512, device=cuda), torch.ones(1920, device=cuda)
+    x = torch.zeros(1, 8, 640, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(512, 640, device=cuda, dtype=torch.bfloat16)
+    b1, g = torch.zeros(512, device=cuda), torch.ones(640, device=cuda)
     with pytest.raises(ValueError, match="the kernel takes D"):
         ffn.ffn_ln_fc1(x, w1, b1, g, g, rate=0.1,
                        seeds=torch.zeros(1, dtype=torch.int32, device=cuda))
@@ -526,3 +532,168 @@ def test_whisper_kernels_reject_what_they_do_not_take(cuda):
         decode_attention.decode_self_attention(many[0, :, 0], many, many,
                                                torch.ones(1, 65, 65 * 8, device=cuda), 2, 0)
     assert not _build.launch_counts
+
+
+# -- the widths of every config: XLS-R-1B and -2B, Whisper tiny, base, small --------
+
+
+@pytest.mark.parametrize("C", [1280, 1920])
+def test_ln_forward_kernel_at_xls_r_widths_matches_plain(cuda, C):
+    """The encoder's ``ln_fused`` at XLS-R-1B's and -2B's widths (1920: lane
+    vectors of 4), 999 rows: a ragged last block of 8."""
+    x = _on(cuda, _np(3, 333, C, seed=0, scale=2.0, offset=0.3), torch.bfloat16)
+    gamma = _on(cuda, _np(C, seed=1, scale=0.1, offset=1.0))
+    beta = _on(cuda, _np(C, seed=2, scale=0.1))
+    _build.reset_launch_counts()
+    got = ln_gelu.ln_fused(x, gamma, beta)
+    assert _build.launch_counts == {f"ln_fused_{C}": 1}
+    _close(got, ln_gelu.ln_gelu_plain(x, gamma, beta, apply_gelu=False), 1e-2)
+
+
+@pytest.mark.parametrize("C", [384, 768, 1920])
+@pytest.mark.parametrize("dtypes", ["bf16/bf16", "bf16/fp32"])
+@pytest.mark.parametrize("apply_gelu", [True, False])
+def test_ln_bwd_kernel_at_new_widths_matches_plain(cuda, C, dtypes, apply_gelu):
+    """The LN backward at Whisper tiny's and small's and XLS-R-2B's widths:
+    the encoder LN's gradient (bf16 dy) and the FFN backward's LN step (fp32
+    dy); 384 and 1920 take lane vectors of 4."""
+    dyd = torch.bfloat16 if dtypes.endswith("bf16") else torch.float32
+    x = _on(cuda, _np(3, 333, C, seed=0, scale=2.0, offset=0.3), torch.bfloat16)
+    dy = _on(cuda, _np(3, 333, C, seed=1), dyd)
+    gamma = _on(cuda, _np(C, seed=2, scale=0.1, offset=1.0))
+    beta = _on(cuda, _np(C, seed=3, scale=0.1))
+    _build.reset_launch_counts()
+    got = ln_gelu.ln_bwd(x, gamma, beta, dy, apply_gelu=apply_gelu)
+    assert _build.launch_counts == {f"ln_bwd_{C}": 1}
+    want = ln_gelu.ln_bwd_plain(x, gamma, beta, dy, apply_gelu=apply_gelu)
+    _close(got[0], want[0], 1e-2)
+    for g, w in zip(got[1:], want[1:]):
+        _close_rel(g, w, 1e-2)
+
+
+def _attention_args(cuda, B, T, H, d, packed=False):
+    q, k, v = (_np(B, T, H * d, seed=i) for i in range(3))
+    if packed:
+        qkv = _on(cuda, np.concatenate([q, k, v], axis=-1), torch.bfloat16)
+        q, k, v = qkv.split(H * d, dim=-1)
+    else:
+        q, k, v = (_on(cuda, a, torch.bfloat16) for a in (q, k, v))
+    bq, bk, bv = (_on(cuda, _np(H * d, seed=3 + i, scale=0.5), torch.bfloat16) for i in range(3))
+    mask = np.ones((B, T), bool)
+    mask[1 % B, 80:] = False
+    mask[B - 1, :] = False  # a fully padded row
+    mask = torch.from_numpy(mask).to(cuda)
+    return q, k, v, (bq, bk, bv), mask
+
+
+@pytest.mark.parametrize("d", [80, 120])
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+def test_attention_kernels_at_xls_r_head_dims_match_plain(cuda, d, packed):
+    """Forward and backward at XLS-R-1B's head_dim 80 (5 WMMA k-steps) and
+    -2B's 120 (padded to 128 in shared memory), T = 150, a fully padded row;
+    sm_scale d**-0.5 is not exact in bf16."""
+    B, T, H = 3, 150, 2
+    q, k, v, bias, mask = _attention_args(cuda, B, T, H, d, packed)
+    _build.reset_launch_counts()
+    o, lse = attention.short_t_attention_flat(q, k, v, mask, d, bias)
+    assert _build.launch_counts == {f"attention_fwd_hd{d}": 1}
+    want_o, want_lse = attention.attention_plain(q, k, v, mask, d, bias)
+    _close(o, want_o, 8e-3)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    assert (lse[2] == -1e25).all()
+    key_bias = attention._key_bias(mask)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    args = (q, k, v, *bias, key_bias, do, lse, o, d, d**-0.5)
+    _build.reset_launch_counts()
+    got = attention.attention_bwd(*args)
+    assert _build.launch_counts == {f"attention_bwd_hd{d}": 1}
+    want = attention.attention_bwd_plain(*args)
+    for g, w in zip(got[:3], want[:3]):
+        _close_rel(g, w)
+        assert not g[2].any()  # the fully masked row gets no gradient
+    _close_rel(got[3], want[3], 1e-2)
+
+
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_attention_kernels_write_nothing_past_a_head(cuda, d):
+    """The padding columns d .. DP-1 (120 .. 127 at d = 120) are never written:
+    o, dq, dk and dv go to buffers one row longer than the output, filled with
+    a sentinel, so that the last head of the last row, if it wrote past its d
+    columns, would overwrite the sentinel; H = 2, so a head's spill would land
+    in the next head's columns, which the values' match checks."""
+    B, T, H = 2, 70, 2
+    q, k, v, bias, mask = _attention_args(cuda, B, T, H, d)
+    key_bias = attention._key_bias(mask)
+    n = B * T * H * d
+    sentinel = 7.0
+
+    def buffer():
+        return torch.full((n + H * d,), sentinel, dtype=torch.bfloat16, device=cuda)
+
+    stride_b, stride_t, _ = q.stride()
+    scale = float(torch.tensor(d**-0.5, dtype=torch.bfloat16))
+    ptrs = [t.data_ptr() for t in (q, k, v, *bias, key_bias)]
+    o_buf, lse = buffer(), torch.empty(B, H, T, device=cuda)
+    _build.launch("coral_attention_fwd", "sentinel", *ptrs, o_buf.data_ptr(), lse.data_ptr(),
+                  B, T, H, d, stride_b, stride_t, scale)
+    torch.cuda.synchronize()
+    assert (o_buf[n:] == sentinel).all()
+    o, _ = attention._fwd(q, k, v, *bias, key_bias, d, d**-0.5)
+    assert torch.equal(o_buf[:n].view(B, T, H * d), o)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    grads = [buffer() for _ in range(3)]
+    db_part = torch.empty(B, -(-T // 64), 3, H * d, device=cuda)
+    _build.launch("coral_attention_bwd", "sentinel", *ptrs, do.data_ptr(), lse.data_ptr(),
+                  o.data_ptr(), *(g.data_ptr() for g in grads), db_part.data_ptr(), B, T, H, d,
+                  stride_b, stride_t, scale, d**-0.5)
+    torch.cuda.synchronize()
+    want = attention.attention_bwd(q, k, v, *bias, key_bias, do, lse, o, d, d**-0.5)
+    for g, w in zip(grads, want[:3]):
+        assert (g[n:] == sentinel).all()
+        assert torch.equal(g[:n].view(B, T, H * d), w)
+    assert torch.equal(db_part.sum(dim=(0, 1)), want[3])
+
+
+def test_new_widths_are_counted_apart_and_unbuilt_widths_raise(cuda):
+    """Each width launches under its own name; a width no config uses (640,
+    896, head_dim 96) raises on the card and launches nothing."""
+    bf16 = torch.bfloat16
+    _build.reset_launch_counts()
+    for C in (384, 1920):
+        x = torch.zeros(2, 9, C, device=cuda, dtype=bf16)
+        ln_gelu.ln_bwd(x, torch.ones(C, device=cuda), torch.zeros(C, device=cuda), x.float(),
+                       apply_gelu=False)
+    assert _build.launch_counts == {"ln_bwd_384": 1, "ln_bwd_1920": 1}
+    _build.reset_launch_counts()
+    x = torch.zeros(2, 9, 896, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="Queue 2 item 3"):
+        ln_gelu.ln_fused(x, torch.ones(896, device=cuda), torch.zeros(896, device=cuda))
+    x = torch.zeros(2, 9, 640, device=cuda, dtype=bf16)
+    w1 = torch.zeros(512, 640, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="Queue 2 item 3"):
+        ffn.ffn_ln_fc1(x, w1, torch.zeros(512, device=cuda), torch.ones(640, device=cuda),
+                       torch.zeros(640, device=cuda))
+    q = torch.zeros(1, 8, 192, device=cuda, dtype=bf16)
+    b = torch.zeros(192, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="Queue 2 item 3"):
+        attention.short_t_attention_flat(q, q, q, torch.ones(1, 8, dtype=torch.bool,
+                                                             device=cuda), 96, (b, b, b))
+    assert not _build.launch_counts
+    assert _build.library().coral_ffn_row_tile(640) == -1
+    assert [_build.library().coral_ffn_row_tile(D) for D in ALL_D] == [64] * 5 + [32]
+
+
+def test_ln_bwd_block_count_comes_from_the_card(cuda):
+    """The LN backward's block count is the library's: a grid-filling count
+    for many rows (at most 4 blocks an SM), one block of 8 rows per 8 rows for
+    few, and -1 for a combination not built (a width, fp32 x with bf16 dy)."""
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for C in (384, 512, 768, 1024, 1280, 1920):
+        for dy_bf16 in (0, 1):
+            many = lib.coral_ln_bwd_blocks(8 * 1500, C, 1, dy_bf16, 0)
+            assert 1 <= many <= 4 * sms and many % sms == 0, (C, dy_bf16, many)
+            assert lib.coral_ln_bwd_blocks(17, C, 1, dy_bf16, 1) == 3
+    assert lib.coral_ln_bwd_blocks(64, 640, 1, 1, 0) == -1
+    assert lib.coral_ln_bwd_blocks(64, 1024, 0, 1, 0) == -1
+    assert lib.coral_ln_bwd_blocks(64, 1920, 0, 0, 0) == -1
