@@ -92,7 +92,16 @@ non-zero before the result line is printed:
    teacher-forced logits against the plain path; then (test-whisper aside)
    3 steps of the seq2seq step with exact launch counts over the first and
    finite losses;
-12. a JSON line with every kernel (its launches summed over the counted runs
+12. the unfused routes: the flash kernels with segment ids and GELU +
+   dropout checked with the other kernels in phase 3; (j)
+   config/model/wav2vec2-small.yaml + config/asr_finetuning.yaml with
+   ``attention_impl: flash`` and ``fused_ffn: false``: the serving clips
+   through ``Wav2Vec2Setup.make_predictor``, the kernel path against the
+   plain path on one microbatch with activation dropout on, 10 steps of (c)
+   with exact launch counts and a falling loss; (j') the same with
+   ``attention_impl: xla``, one batch and 3 steps; (k) (e) with
+   ``fused_ffn: false``, the kernel path against the plain path and 3 steps;
+13. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -155,6 +164,15 @@ TOLERANCE = {
     "flash_attention_train stats": (1e-4, 1e-4),
     "ffn_ln_drop_1280": (1e-2, 2.0**-6),
     "ln_bwd_1280": (1e-2, 2.0**-6),
+    # wav2vec2's flash route: the flash kernels with segment ids, as above.
+    "flash_attention_seg": (8e-3, 2.0**-6),
+    "flash_attention_seg_train": (8e-3, 2.0**-6),
+    "flash_attention_seg_train stats": (1e-4, 1e-4),
+    # GELU + dropout: fp32 on both sides, rounded once to bf16.
+    "gelu_dropout_4096": (1e-2, 2.0**-6),
+    "gelu_dropout_5120": (1e-2, 2.0**-6),
+    "gelu_dropout_bwd_4096": (1e-2, 2.0**-6),
+    "gelu_dropout_bwd_5120": (1e-2, 2.0**-6),
 }
 # Gradients that sum over rows, keys or F columns: |kernel - plain| <= frac
 # max|plain| + 2**-6 |plain|. Their bf16 operands (ds, dh, p) are rounded from
@@ -210,6 +228,17 @@ SOURCES = {
     "ffn_ln_drop_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:169"),
     "ffn_bwd_1280": ("coral_tpu_torch/csrc/ffn.cu", "coral_tpu/ops/ffn_pallas.py:385"),
     "ln_bwd_1280": ("coral_tpu_torch/csrc/ln_gelu.cu", "coral_tpu/ops/ln_gelu_pallas.py:58"),
+    # wav2vec2's `attention_impl: flash` route: JAX's stock kernel with
+    # segment ids (`_flash_attention`), forward, with stats, dkv and dq.
+    **{f"flash_attention_seg{k}": ("coral_tpu_torch/csrc/flash_attention.cu",
+                                   "coral_tpu/models/wav2vec2.py:440")
+       for k in ("", "_train", "_bwd_dkv", "_bwd_dq")},
+    # `fused_ffn: false`: GELU + dropout, `_fwd_kernel` and `_bwd_kernel`
+    # through `_call`'s pallas_call (:194), at XLS-R-300M's and Whisper
+    # large-v3's F.
+    **{f"gelu_dropout{k}_{F}": ("coral_tpu_torch/csrc/gelu_dropout.cu",
+                                f"coral_tpu/ops/gelu_dropout_pallas.py:{line}")
+       for k, line in (("", 162), ("_bwd", 173)) for F in (4096, 5120)},
 }
 # The instantiations at the other widths of the repository's configs: each has
 # its base kernel's tolerance and TPU source.
@@ -245,6 +274,10 @@ HBM_BYTES_PER_S = 3.35e12
 # 12, the polynomial GELU 10 (its derivative 12), a CTC cell's three-way
 # log-sum-exp 12. Products count 2 per multiply-add.
 LN_OPS, LN_BWD_OPS, GELU_OPS, CTC_CELL_OPS = 8, 12, 10, 12
+# Philox4x32-10 per element: 10 rounds of two 32-bit products (high and low
+# words), two xors and two key adds per 4 elements, about 25 integer
+# operations each, counted at the fp32 rate.
+PHILOX_OPS = 25
 # Whisper serving (d): whisper-large-v3 (config/model/whisper-large.yaml),
 # batch 8, greedy to max_length 225. Kernel path vs plain path: the encoder
 # output and each decode step's logits, max |diff| / max |plain|; bf16
@@ -387,6 +420,30 @@ WHISPER_SIZES = [
 ]
 # Teacher-forced decode steps of the kernel-vs-plain check at these sizes.
 WHISPER_COMPARE_STEPS = 32
+# Phases (j), (j') and (k): the JAX package's unfused routes.
+# (j) config/model/wav2vec2-small.yaml + config/asr_finetuning.yaml, (c)'s
+# production configuration and traffic, with `attention_impl: flash` (the
+# flash kernel with segment ids) and `fused_ffn: false` (the LayerNorm, fc1,
+# GELU+dropout and fc2 apart): the serving clips through the setup's
+# predictor, kernel vs plain on one microbatch with activation dropout on,
+# then (c)'s 10 steps. (j') the same with `attention_impl: xla` (plain
+# attention math): one served batch and 3 steps. (k)
+# config/model/whisper-large.yaml with `fused_ffn: false`: (e)'s kernel vs
+# plain and 3 of its steps, the GELU+dropout kernel at F = 5120 in both
+# stacks.
+UNFUSED_FLASH_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "attention_impl": "flash", "fused_ffn": False}}
+UNFUSED_XLA_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "attention_impl": "xla", "fused_ffn": False}}
+WHISPER_UNFUSED_CONFIG = {**WHISPER_TRAIN_CONFIG, "model": {
+    **WHISPER_TRAIN_CONFIG["model"], "fused_ffn": False}}
+# Launches per microbatch of (k) under save_flash_ctx: the flash kernels as
+# (e); the GELU+dropout forward in the forward and again in the replay of
+# every encoder and decoder layer (fc2's weight gradient reads its output,
+# which no policy keeps), its backward once; no LN kernel (`ln_impl: xla`).
+WHISPER_UNFUSED_PER_MICROBATCH = {
+    "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
+    "gelu_dropout_5120": 128, "gelu_dropout_bwd_5120": 64}
 
 
 def fail(msg: str) -> None:
@@ -1029,10 +1086,12 @@ def plain_twin(model):
 
 
 def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
-                     label: str = "(a)", layers: int | None = None) -> dict:
+                     label: str = "(a)", layers: int | None = None,
+                     activation_dropout: float = 0.0) -> dict:
     """Training (a): the kernel path's loss and gradients against the plain
     path's on one microbatch, the feature encoder training under save_qk_ctx;
-    ``layers`` cuts the encoder's depth (the plain twin is a second model)."""
+    ``layers`` cuts the encoder's depth (the plain twin is a second model);
+    ``activation_dropout`` (both paths draw the same Philox bits)."""
     import copy
     import dataclasses
 
@@ -1041,7 +1100,7 @@ def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
     from coral_tpu_torch.training.train_state import _load_work_params, ctc_loss_and_grads
 
     cfg_a = copy.deepcopy(config)
-    cfg_a["model"]["activation_dropout"] = 0.0
+    cfg_a["model"]["activation_dropout"] = activation_dropout
     cfg_a["augment_audio"] = False
     setup = load_model_setup(cfg_a, device="cuda")
     if layers is not None:
@@ -1085,9 +1144,9 @@ def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
     del model, plain, masters, out
     torch.cuda.empty_cache()
     print(f"training {label} kernel vs plain, hidden {cfg.hidden_size}, {cfg.num_hidden_layers} "
-          f"layers, one microbatch of {BATCH}, feature encoder training, "
-          f"save_qk_ctx: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_rel:.6g}, "
-          f"tolerance {TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel "
+          f"layers, one microbatch of {BATCH}, feature encoder training, activation dropout "
+          f"{activation_dropout}, save_qk_ctx: loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+          f"(rel {loss_rel:.6g}, tolerance {TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel "
           f"{norm_rel:.6g}, tolerance {TRAIN_GRAD_NORM_RTOL}); gradient max|diff|/max|plain| over "
           f"{len(ratios)} parameters (tolerance {TRAIN_GRAD_TOL}), worst: "
           + "; ".join(f"{r:.6g} {n}" for r, n in ratios[:5]), flush=True)
@@ -1916,8 +1975,8 @@ def whisper_train_batch(seed: int, text_ids: int) -> tuple[dict, float]:
     return batch, float(lengths.sum()) / SR
 
 
-def whisper_train_compare(card: str, setup, batch: dict) -> dict:
-    """Training (e), kernel vs plain: the loss and the gradients of one
+def whisper_train_compare(card: str, setup, batch: dict, label: str = "(e)") -> dict:
+    """Training (e) (or ``label``), kernel vs plain: the loss and the gradients of one
     microbatch on the same weights, batch and generator seed, through
     ``seq2seq_loss_and_grads`` under the setup's policy, dropout on (both
     paths draw the same Philox bits), SpecAugment on, augmentation off."""
@@ -1957,7 +2016,7 @@ def whisper_train_compare(card: str, setup, batch: dict) -> dict:
     live = sum(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads_k.values())
     del out, grads_k, grads_p
     torch.cuda.empty_cache()
-    print(f"training (e) kernel vs plain, one microbatch of {BATCH} x 30 s, "
+    print(f"training {label} kernel vs plain, one microbatch of {BATCH} x 30 s, "
           f"{setup.model_config.remat_policy}, dropout and SpecAugment on: loss "
           f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel {loss_rel:.6g}, tolerance "
           f"{TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel {norm_rel:.6g}, "
@@ -1971,9 +2030,12 @@ def whisper_train_compare(card: str, setup, batch: dict) -> dict:
     return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": ratios[0][0]}
 
 
-def whisper_train_run(card: str) -> dict:
-    """Phase (e), Whisper training through ``WhisperSetup.make_train_step``;
-    returns the launch counts of the first step."""
+def whisper_train_run(card: str, label: str = "(e)", config: dict = WHISPER_TRAIN_CONFIG,
+                      per_microbatch: dict = WHISPER_PER_MICROBATCH,
+                      steps: int = WHISPER_TRAIN_STEPS, falling: bool = True) -> dict:
+    """Phase (e) (or ``label``: (k)), Whisper training through
+    ``WhisperSetup.make_train_step``; returns the launch counts of the first
+    step."""
     import tempfile
 
     from coral_tpu_torch.ops import _build
@@ -1984,7 +2046,7 @@ def whisper_train_run(card: str) -> dict:
         bank = np.random.default_rng(1).standard_normal(
             (NOISE_CLIPS, NOISE_SECONDS * SR)).astype(np.float32) * 0.1
         np.save(Path(tmp) / "noise.npy", bank)
-        config = {**WHISPER_TRAIN_CONFIG, "background_noise_path": str(Path(tmp) / "noise.npy")}
+        config = {**config, "background_noise_path": str(Path(tmp) / "noise.npy")}
         setup = load_model_setup(config, device="cuda")
         tx, schedule = create_optimizer(
             learning_rate=setup.learning_rate, warmup_steps=WHISPER_WARMUP_STEPS,
@@ -1993,19 +2055,22 @@ def whisper_train_run(card: str) -> dict:
             mu_dtype=config["adam_mu_dtype"])
         step = setup.make_train_step(tx, schedule)  # loads the noise bank
     cfg = setup.model_config
-    print(f"training (e): whisper d_model {cfg.d_model}, {cfg.encoder_layers} + "
-          f"{cfg.decoder_layers} layers, {cfg.encoder_attention_heads} heads, FFN {cfg.ffn_dim}, "
-          f"{cfg.num_mel_bins} mels, vocab {cfg.vocab_size}, {cfg.dtype}, remat "
+    print(f"training {label}: whisper d_model {cfg.d_model}, {cfg.encoder_layers} + "
+          f"{cfg.decoder_layers} layers, {cfg.encoder_attention_heads} heads, FFN {cfg.ffn_dim} "
+          f"({'the block' if cfg.fused_ffn else 'unfused'}), {cfg.num_mel_bins} mels, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat "
           f"{cfg.remat_policy}, activation dropout {cfg.activation_dropout}, SpecAugment time "
           f"{cfg.mask_time_prob}/{cfg.mask_time_length} feature {cfg.mask_feature_prob}/"
           f"{cfg.mask_feature_length}, learning rate {setup.learning_rate}, grad dtype "
           f"{setup.grad_dtype}, batch {ACCUM} x {BATCH} x {setup.chunk_length} samples", flush=True)
     if (cfg.d_model, cfg.encoder_layers, cfg.decoder_layers, cfg.ffn_dim, cfg.num_mel_bins,
-            cfg.dtype, cfg.remat_policy) != (1280, 32, 32, 5120, 128, torch.bfloat16,
-                                             "save_flash_ctx"):
-        fail("the setup did not build whisper-large-v3 in bf16 under save_flash_ctx")
+            cfg.dtype, cfg.remat_policy, cfg.fused_ffn) != (
+                1280, 32, 32, 5120, 128, torch.bfloat16, "save_flash_ctx",
+                config["model"].get("fused_ffn", True)):
+        fail("the setup did not build whisper-large-v3 in bf16 under save_flash_ctx with the "
+             "configured FFN")
     batch, audio_seconds = whisper_train_batch(4, setup.tokenizer.sot_token_id)
-    whisper_train_compare(card, setup, batch)
+    whisper_train_compare(card, setup, batch, label)
 
     state = TrainState.create(setup.init_params(seed=0), tx)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2017,33 +2082,33 @@ def whisper_train_run(card: str) -> dict:
     state, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    print(f"training (e) main path: 1 step of {ACCUM} microbatches, launch counts {counts}",
-          flush=True)
-    expected = {name: n * ACCUM for name, n in WHISPER_PER_MICROBATCH.items()}
+    print(f"training {label} main path: 1 step of {ACCUM} microbatches, launch counts "
+          f"{counts}", flush=True)
+    expected = {name: n * ACCUM for name, n in per_microbatch.items()}
     if counts != expected:
-        fail(f"training (e): launch counts {counts}, expected {expected}")
+        fail(f"training {label}: launch counts {counts}, expected {expected}")
     losses = [float(metrics["loss"])]
     walls = []
-    for _ in range(WHISPER_TRAIN_STEPS - 1):
+    for _ in range(steps - 1):
         torch.cuda.synchronize()
         start = time.perf_counter()
         state, metrics = step(state, batch, gen)
         losses.append(float(metrics["loss"]))  # synchronises
         walls.append(time.perf_counter() - start)
     peak = torch.cuda.max_memory_allocated()
-    print(f"training (e) losses over {WHISPER_TRAIN_STEPS} steps: {[round(v, 6) for v in losses]}"
+    print(f"training {label} losses over {steps} steps: {[round(v, 6) for v in losses]}"
           f"; last grad norm {float(metrics['grad_norm']):.6f}, learning rate "
           f"{float(metrics['learning_rate']):.6g}", flush=True)
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail("training (e) loss not finite or not falling")
+    if not all(math.isfinite(v) for v in losses) or (falling and not losses[-1] < losses[0]):
+        fail(f"training {label} loss not finite" + (" or not falling" if falling else ""))
 
     def one_step():
         nonlocal state, metrics
         state, metrics = step(state, batch, gen)
 
-    profile_window(card, "one training (e) step", one_step)
+    profile_window(card, f"one training {label} step", one_step)
     wall = float(np.median(walls))
-    print(f"training (e) ({card}): {audio_seconds / wall:.3f} audio-s/s ({audio_seconds:.3f} s "
+    print(f"training {label} ({card}): {audio_seconds / wall:.3f} audio-s/s ({audio_seconds:.3f} s "
           f"of audio per step of {ACCUM} x {BATCH} clips, padded to 30 s); {wall * 1e3:.3f} ms "
           f"per optimizer step (median of {len(walls)}); peak memory {peak / 2**30:.3f} GiB",
           flush=True)
@@ -2231,6 +2296,283 @@ def whisper_size_run(card: str, label: str, name: str, checkpoint: str, lr: floa
             for k in {*serve_counts, *train_counts}}
 
 
+def segment_pairs(ids: torch.Tensor, T: int, keys: int) -> int:
+    """Query-key pairs of one head that share a segment: queries below T,
+    keys below ``keys`` (the forward's Tp, or T in the backward, where the
+    grid's rows add nothing). The work of these inputs, as the bound counts it."""
+    q, k = ids[:, :T], ids[:, :keys]
+    return int(sum(int((q[b][:, None] == k[b][None, :]).sum()) for b in range(ids.shape[0])))
+
+
+def unfused_kernel_checks(card: str) -> dict:
+    """The unfused routes' kernels against their plain versions at their
+    paths' shapes: the flash kernels with segment ids at XLS-R-300M's
+    (8, T, 16, 64), T = 1499 (padded to 1536; the serving clips' second
+    device batch, 4 filler rows of one sample) and T = 499 (padded to 512;
+    the training batch's clips); GELU + dropout at (8, 499, 4096) and
+    Whisper large-v3's (8, 1500, 5120), rate 0.1. Each kernel's row comes
+    from its path's shape; the other shape is checked and timed under a key
+    of its own."""
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from coral_tpu_torch.ops import flash_attention as fa
+    from coral_tpu_torch.ops import gelu_dropout as gd
+    from coral_tpu_torch.ops import philox
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    H, d = 16, 64
+    arch = Wav2Vec2Config()
+    serve = np.ones(BATCH, np.int64)
+    serve[:4] = [int(s * SR) for s in np.linspace(3.0, 30.0, 12)[BATCH:]]
+    train = train_batch(0)[0]["input_lengths"][0]
+    for T, samples in ((1499, serve), (499, train)):
+        frames = torch.as_tensor(arch.feat_extract_output_lengths(samples), device=dev)
+        pad_mask = torch.arange(T, device=dev)[None, :] < frames[:, None]
+        ids = fa.segment_ids(pad_mask)
+        Tp = ids.shape[1]
+        print(f"  flash attention with segment ids: T {T} padded to {Tp}, frame lengths "
+              f"{frames.tolist()}", flush=True)
+        q, k, v = (randn(BATCH, T, H * d).view(BATCH, T, H, d) for _ in range(3))
+        do = randn(BATCH, T, H, d)
+        # The library yardstick: SDPA over the padded (B, H, Tp, d) heads with
+        # the (B, 1, Tp, Tp) boolean segment mask (the padding made outside).
+        heads = [fa._pad_rows(t, Tp).transpose(1, 2) for t in (q, k, v)]
+        same = (ids[:, None, :, None] == ids[:, None, None, :])
+        pairs_fwd, pairs_bwd = segment_pairs(ids, T, Tp), segment_pairs(ids, T, T)
+        io = 4 * nbytes(q) + nbytes(ids)
+        stats = 2 * BATCH * H * T * 4
+
+        def key(name):
+            """The row's name at its path's T (serving's for the forward
+            alone, training's for the others), else a key of its own."""
+            path_T = 1499 if name == "flash_attention_seg" else 499
+            return name if T == path_T else f"{name} at T {T}"
+
+        def fwd_check():
+            return compare("flash_attention_seg", fa.flash_self_attention(q, k, v, ids),
+                           fa.flash_self_attention_plain(q, k, v, ids))
+
+        measure(key("flash_attention_seg"), lambda: fa.flash_self_attention(q, k, v, ids),
+                lambda: fa.flash_self_attention_plain(q, k, v, ids), fwd_check,
+                (4 * H * d * pairs_fwd, BF16_FLOPS, io), lambda: sdpa(*heads, attn_mask=same))
+
+        def train_check():
+            o, l, m = fa.flash_attention_fwd(q, k, v, ids)
+            want = fa.flash_attention_fwd_plain(*(fa._pad_rows(t, Tp) for t in (q, k, v)), ids)
+            return merge(compare("flash_attention_seg_train", o, want[0][:, :T]),
+                         compare("flash_attention_seg_train stats", l, want[1][..., :T]),
+                         compare("flash_attention_seg_train stats", m, want[2][..., :T]))
+
+        measure(key("flash_attention_seg_train"), lambda: fa.flash_attention_fwd(q, k, v, ids),
+                lambda: fa._padded_fwd_plain(q, k, v, ids), train_check,
+                (4 * H * d * pairs_fwd, BF16_FLOPS, io + stats),
+                lambda: sdpa(*heads, attn_mask=same))
+        o, l, m = fa.flash_attention_fwd(q, k, v, ids)
+        args = (q, k, v, o, l, m, do)
+        want = dict(zip(("dq", "dk", "dv"), fa._padded_bwd_plain(*args, ids)))
+
+        def bwd_check(which):
+            if which == "dkv":
+                got = dict(zip(("dk", "dv"), fa.flash_attention_bwd_dkv(*args, ids)))
+            else:
+                got = {"dq": fa.flash_attention_bwd_dq(*args, ids)}
+            return merge(*(compare_grad(f"flash_attention_seg_bwd_{which} {n} (T {T})", g,
+                                        want[n], GRAD_FRAC["flash_bwd"])
+                           for n, g in got.items()))
+
+        moved = nbytes(q, k, v, o, do, l, m, ids)
+        measure(key("flash_attention_seg_bwd_dkv"),
+                lambda: fa.flash_attention_bwd_dkv(*args, ids),
+                lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dkv"),
+                (8 * H * d * pairs_bwd, BF16_FLOPS, moved + 2 * nbytes(q)))
+        measure(key("flash_attention_seg_bwd_dq"),
+                lambda: fa.flash_attention_bwd_dq(*args, ids),
+                lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dq"),
+                (6 * H * d * pairs_bwd, BF16_FLOPS, moved + nbytes(q)))
+        del q, k, v, do, heads, same, o, l, m, args, want
+        torch.cuda.empty_cache()
+
+    # GELU + dropout, rate 0.1: the mask exact (the plain version's Philox bits).
+    rate = 0.1
+    seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    for T, F in ((499, 4096), (1500, 5120)):
+        x = randn(BATCH, T, F, scale=2.0)
+        dy = randn(BATCH, T, F)
+        keep = philox.keep_mask(seeds, T, F, rate)
+
+        def check(bwd):
+            name = f"gelu_dropout{'_bwd' if bwd else ''}_{F}"
+            got = gd.gelu_dropout_bwd(x, dy, rate, seeds) if bwd else gd.gelu_dropout_fwd(
+                x, rate, seeds)
+            want = (gd.gelu_dropout_bwd_plain(x, dy, rate, seeds) if bwd
+                    else gd.gelu_dropout_plain(x, rate, seeds))
+            res = compare(name, got, want)
+            zero = not bool(got[~keep].any())
+            print(f"  {name}: zero wherever the Philox mask drops: {zero}; keep fraction "
+                  f"{float(keep.float().mean()):.6f} (rate {rate})", flush=True)
+            res["ok"] = res["ok"] and zero
+            return res
+
+        n = x.numel()
+        ops = (GELU_OPS + 2 + PHILOX_OPS) * n
+        measure(f"gelu_dropout_{F}", lambda: gd.gelu_dropout_fwd(x, rate, seeds),
+                lambda: gd.gelu_dropout_plain(x, rate, seeds), functools.partial(check, False),
+                (ops, FP32_FLOPS, 2 * nbytes(x) + nbytes(seeds)))
+        measure(f"gelu_dropout_bwd_{F}", lambda: gd.gelu_dropout_bwd(x, dy, rate, seeds),
+                lambda: gd.gelu_dropout_bwd_plain(x, dy, rate, seeds),
+                functools.partial(check, True),
+                (ops + n, FP32_FLOPS, 3 * nbytes(x) + nbytes(seeds)))
+        del x, dy, keep
+        torch.cuda.empty_cache()
+    return results
+
+
+def unfused_launches(cfg, serving: bool) -> dict:
+    """Launches per forward (serving) or per microbatch (the production step:
+    the feature encoder training, save_qk_ctx) of the unfused routes at cfg's
+    widths. Both LayerNorms are ``ln_fused``; in training each runs again in
+    the replay (neither "attn_in" nor "ffn_in" is kept), and so do the flash
+    forward with its stats (its o, l, m have no name) and the GELU+dropout
+    forward (fc2's weight gradient reads its output); ln_bwd is the two
+    LayerNorms' backward and FE conv 0's."""
+    from coral_tpu_torch.ops import ln_gelu
+
+    L, F = cfg.num_hidden_layers, cfg.intermediate_size
+    flash = cfg.attention_impl == "flash"
+    ln = ln_gelu._name("ln_fused", cfg.hidden_size)
+    if serving:
+        return {"ln_gelu": 1, "conv_ln_gelu": 6, ln: 2 * L,
+                **({"flash_attention_seg": L} if flash else {})}
+    counts = collections.Counter({
+        "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ctc_alpha": 1,
+        "ctc_beta": 1, ln: 4 * L, f"gelu_dropout_{F}": 2 * L, f"gelu_dropout_bwd_{F}": L})
+    counts[ln_gelu._name("ln_bwd", cfg.hidden_size)] += 2 * L
+    counts["ln_bwd"] += 1
+    if flash:
+        counts.update({"flash_attention_seg_train": 2 * L, "flash_attention_seg_bwd_dkv": L,
+                       "flash_attention_seg_bwd_dq": L})
+    return dict(counts)
+
+
+def unfused_serving(card: str, label: str, config: dict, batches: int) -> dict:
+    """The serving clips of phase 4 (12 clips of 3-30 s in 30 s windows of
+    batch 8, the second batch with 4 filler rows of one sample) through
+    ``Wav2Vec2Setup.make_predictor`` on ``config``'s routes, the first
+    ``batches`` device batches: exact launch counts, finite logits of the
+    right shape, the kernel path against the plain path on the last batch,
+    audio-s/s and latency. Returns the launch counts."""
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training.model_setup import GreedyCtcPredictor, load_model_setup
+
+    setup = load_model_setup(config, device="cuda")
+    model = setup.init_params(seed=0)
+    cfg = setup.model_config
+    predictor = setup.make_predictor(model)
+    print(f"serving {label}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
+          f"attention {cfg.attention_impl}, FFN {'fused' if cfg.fused_ffn else 'unfused'}, "
+          f"{cfg.dtype}", flush=True)
+    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.fused_ffn,
+            cfg.attention_impl) != (1024, 24, torch.bfloat16, False,
+                                    config["model"]["attention_impl"]):
+        fail(f"serving {label}: the setup did not build the configured routes")
+    rng = np.random.default_rng(0)
+    seconds = np.linspace(3.0, 30.0, 12)
+    clips = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+    T = 30 * SR
+    device_batches = []
+    for i in range(0, len(clips), BATCH):
+        audio = np.zeros((BATCH, T), np.float32)
+        lengths = np.ones((BATCH,), np.int32)
+        for j, clip in enumerate(clips[i:i + BATCH]):
+            audio[j, : len(clip)] = clip
+            lengths[j] = len(clip)
+        device_batches.append({"input_values": audio, "input_lengths": lengths})
+    device_batches = device_batches[-batches:]
+    served = float(sum(b["input_lengths"][b["input_lengths"] > 1].sum()
+                       for b in device_batches)) / SR
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    texts = [t for b in device_batches for t in predictor(b)]
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    expected = {n: c * batches for n, c in unfused_launches(cfg, serving=True).items()}
+    print(f"serving {label} main path: {batches} forwards, launch counts {counts}", flush=True)
+    if counts != expected:
+        fail(f"serving {label}: launch counts {counts}, expected {expected}")
+    if len(texts) != BATCH * batches or not all(isinstance(t, str) for t in texts):
+        fail(f"serving {label} returned the wrong transcripts")
+
+    batch = device_batches[-1]
+    logits, frames = predictor.logits(batch)
+    with torch.device("meta"):
+        plain_model = Wav2Vec2ForCTC(cfg, plain=True)
+    plain_model = plain_model.to_empty(device="cuda").eval()
+    plain_model.load_state_dict(model.state_dict())
+    plain = GreedyCtcPredictor(plain_model, predictor.tokenizer)
+    plain_logits, _ = plain.logits(batch)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 1499, cfg.vocab_size):
+        fail(f"serving {label}: logits not finite or of shape {tuple(logits.shape)}")
+    diff = float((logits.float() - plain_logits.float()).abs().max()
+                 / plain_logits.float().abs().max())
+    valid = torch.arange(1499, device="cuda")[None, :] < frames[:, None]
+    agree = float((logits.argmax(-1) == plain_logits.argmax(-1))[valid].float().mean())
+    print(f"serving {label} logits kernel vs plain (every frame, filler rows included): "
+          f"max|diff|/max|plain| {diff:.6g} (tolerance {LOGITS_TOL}); argmax agreement over "
+          f"{int(valid.sum())} valid frames {agree:.6f}", flush=True)
+    if diff > LOGITS_TOL:
+        fail(f"serving {label}: kernel path and plain path disagree")
+    del plain, plain_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    latency = timed(lambda: predictor(batch), 3)
+    wall = timed(lambda: [predictor(b) for b in device_batches], 3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving {label} ({card}): {served / wall:.3f} audio-s/s over {served:.1f} s of "
+          f"audio in {batches} batches (median of 3); latency {latency * 1e3:.3f} ms per batch "
+          f"of {BATCH} x 30 s (median of 3); peak memory {peak / 2**30:.3f} GiB", flush=True)
+    del model, predictor
+    torch.cuda.empty_cache()
+    return counts
+
+
+def unfused_run(card: str, label: str, config: dict, steps: int, serve_batches: int,
+                compare: bool) -> dict:
+    """Phases (j), (j'): serving through the setup's predictor, then
+    ``steps`` of (c)'s production step on ``config``'s routes (the kernel
+    path against the plain path on one microbatch first, when ``compare``);
+    returns the launch counts of the counted runs."""
+    import tempfile
+
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    counts = collections.Counter(unfused_serving(card, label, config, serve_batches))
+    batch, audio_seconds = train_batch(0)
+    if compare:
+        training_compare(card, batch, config, label, activation_dropout=0.1)
+        torch.cuda.empty_cache()
+    arch = Wav2Vec2Config(attention_impl=config["model"]["attention_impl"], fused_ffn=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, _ = production_run(card, label, with_noise_bank(config, tmp),
+                                         unfused_launches(arch, serving=False), batch,
+                                         audio_seconds, steps=steps,
+                                         plain_steps=1 if compare else 0,
+                                         falling=steps >= TRAIN_STEPS)
+    counts.update(train_counts)
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -2280,6 +2622,9 @@ def main() -> int:
     print(f"kernel checks at the other configs' widths (bf16, batch {BATCH}: XLS-R-1B, -2B, "
           f"Whisper tiny, base, small):", flush=True)
     checks.update(width_kernel_checks(card))
+    print(f"kernel checks of the unfused routes (bf16, batch {BATCH}: XLS-R-300M's flash "
+          f"attention with segment ids, GELU + dropout at F 4096 and 5120):", flush=True)
+    checks.update(unfused_kernel_checks(card))
     mark("kernel checks")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
@@ -2319,6 +2664,16 @@ def main() -> int:
     for size in WHISPER_SIZES:
         main_counts.append(whisper_size_run(card, *size))
         mark(f"{size[0]} {size[1]}")
+    # (j), (j'), (k): the unfused routes.
+    main_counts.append(unfused_run(card, "(j)", UNFUSED_FLASH_CONFIG, TRAIN_STEPS, 2, True))
+    mark("(j) flash attention, unfused FFN")
+    main_counts.append(unfused_run(card, "(j')", UNFUSED_XLA_CONFIG, FEW_STEPS, 1, False))
+    mark("(j') xla attention, unfused FFN")
+    main_counts.append(whisper_train_run(card, "(k)", WHISPER_UNFUSED_CONFIG,
+                                         WHISPER_UNFUSED_PER_MICROBATCH, FEW_STEPS,
+                                         falling=False))
+    torch.cuda.empty_cache()
+    mark("(k) Whisper large-v3, unfused FFN")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")

@@ -1,6 +1,7 @@
-// Unmasked, non-causal self-attention over the flat (B, T, H*64) layout, for
-// the Whisper encoder: the forward o = softmax(q k^T * scale) v per head (with
-// the fp32 row stats m and l for training), and the backward's two kernels.
+// Non-causal self-attention over the flat (B, T, H*64) layout: the forward
+// o = softmax(q k^T * scale) v per head (with the fp32 row stats m and l for
+// training), and the backward's two kernels. Unmasked for the Whisper encoder;
+// with segment ids (kSeg) for wav2vec2's `attention_impl: flash` route.
 //
 // Replaces: coral_tpu/ops/flash_attention.py `_flash` / `_fwd_cp` (JAX's stock
 // TPU flash kernel, `flash_attention` with segment ids over T padded to the
@@ -26,6 +27,18 @@
 // where two lanes share each query row for the softmax and the running output.
 // The training launch also writes each row's final max m and its sum of
 // exp(s - m), l (the stock kernel's residuals), in fp32 (B, H, T).
+//
+// Segment ids (kSeg): replaces coral_tpu/models/wav2vec2.py `_flash_attention`
+// (:440), the same stock kernel over q, k, v padded with zero rows to the
+// 128-row grid Tk >= T, with one (B, Tk) int32 segment vector for queries and
+// keys (valid frames 1, padded frames and the grid's rows 0). A score is
+// masked where the two ids differ, so a padded query attends to every padded
+// key, the grid's zero rows included (score 0, v = 0), as the stock kernel
+// does. Here the grid's rows are never stored: rows at or past T load as
+// zeros and the key loop runs to Tk, so the forward and its stats are those
+// of the padded call. A tile can hold no key of a row's segment, so a row's
+// running max may still be -inf after a tile, which the update treats as 0.
+// Without segments (kSeg false) the code is the unmasked kernel's.
 #include <math.h>
 #include <mma.h>
 
@@ -42,11 +55,17 @@ constexpr int kThreads = 128;   // 4 warps x 16 query rows
 constexpr int kLdH = kD + 8;    // bf16 row pitch of the Q, K, V and P tiles
 constexpr int kLdS = kBKV + 4;  // fp32 row pitch of the staged S and P @ V
 constexpr int kSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdS * 4;
+constexpr int kSegSmem = 64 * 4;  // one tile's segment ids, after the tiles
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// Segment ids of rows r0 .. r0+63 (those at or past n: 0); threads 0..63.
+__device__ __forceinline__ void load_seg(int* dst, const int* seg, int r0, int n) {
+  if (threadIdx.x < 64) dst[threadIdx.x] = r0 + (int)threadIdx.x < n ? seg[r0 + threadIdx.x] : 0;
+}
 
 // Rows r0 .. r0+63 of one head into a 64 x 64 tile; rows at or past T are zero.
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int T,
@@ -100,19 +119,20 @@ __device__ __forceinline__ void stage(float* Sw, FragC (&acc)[4]) {
 
 // q, k, v: (B, T, H*64) bf16 with strides (stride_b, stride_t, 1), the same for
 // all three; o: (B, T, H*64) bf16 contiguous; with kStats, m and l: (B, H, T)
-// fp32.
-template <bool kStats>
+// fp32; with kSeg, seg: (B, Tk) int32 and keys run to Tk (else Tk = T).
+template <bool kStats, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int T, int H, long long stride_b,
-                     long long stride_t, float scale) {
+                     float* __restrict__ l_out, const int* __restrict__ seg, int T, int Tk,
+                     int H, long long stride_b, long long stride_t, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kBQ * kLdH;
   bf16* Vs = Ks + kBKV * kLdH;
   bf16* Ps = Vs + kBKV * kLdH;
   float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdH);
+  int* seg_k = reinterpret_cast<int*>(Ss + kBQ * kLdS);  // kSeg: this tile's key ids
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -124,6 +144,12 @@ __global__ void __launch_bounds__(kThreads)
   const long long head = (long long)b * stride_b + h * kD;
 
   load_rows(Qs, q + head, q0, T, stride_t);
+  int seg_q = 0;  // this lane's query's segment
+  if constexpr (kSeg) {
+    seg += (long long)b * Tk;
+    const int t = q0 + warp * 16 + row;
+    seg_q = t < T ? seg[t] : 0;
+  }
 
   float m = -INFINITY;  // running max of this row's scaled scores
   float l = 0.0f;       // running sum of exp(score - m)
@@ -135,10 +161,11 @@ __global__ void __launch_bounds__(kThreads)
   bf16* Pw = Ps + warp * 16 * kLdH;
   const bf16* Qw = Qs + warp * 16 * kLdH;
 
-  for (int k0 = 0; k0 < T; k0 += kBKV) {
+  for (int k0 = 0; k0 < (kSeg ? Tk : T); k0 += kBKV) {
     __syncthreads();  // the previous tile's K and V are no longer read
     load_rows(Ks, k + head, k0, T, stride_t);
     load_rows(Vs, v + head, k0, T, stride_t);
+    if constexpr (kSeg) load_seg(seg_k, seg, k0, Tk);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows.
@@ -147,22 +174,30 @@ __global__ void __launch_bounds__(kThreads)
     stage(Sw, s);
     __syncwarp();
 
-    // Online softmax over this tile; two lanes per row. Keys past T: -inf.
+    // Online softmax over this tile; two lanes per row. Keys past T (Tk) or
+    // of another segment: -inf.
     float sv[32];
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const int key = k0 + half * 32 + j;
-      sv[j] = key < T ? Sw[row * kLdS + half * 32 + j] * scale : -INFINITY;
+      const int c = half * 32 + j;
+      bool in;
+      if constexpr (kSeg) in = k0 + c < Tk && seg_k[c] == seg_q;
+      else in = k0 + c < T;
+      sv[j] = in ? Sw[row * kLdS + c] * scale : -INFINITY;
       mx = fmaxf(mx, sv[j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // finite: every tile holds a key < T
-    const float alpha = expf(m - m_new);
+    // Unmasked: finite, every tile holds a key < T. Segments: -inf while no
+    // key of the row's segment was seen, and the tile's p and alpha are 0.
+    const float m_new = fmaxf(m, mx);
+    float m_use = m_new;
+    if constexpr (kSeg) m_use = m_new == -INFINITY ? 0.0f : m_new;
+    const float alpha = expf(m - m_use);
     float psum = 0.0f;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const float p = expf(sv[j] - m_new);
+      const float p = expf(sv[j] - m_use);
       psum += p;
       Pw[row * kLdH + half * 32 + j] = __float2bfloat16(p);
     }
@@ -224,9 +259,16 @@ __global__ void __launch_bounds__(kThreads)
 // rounds them to the operands' dtype; sums are fp32. Keys past T are zero rows
 // (s = 0), whose dk and dv are never written; queries past T get m = +inf and
 // so p = 0; the dq kernel gives keys past T p = 0.
+//
+// With segment ids (kSeg), p = 0 where the query's and the key's ids differ.
+// The padded call's rows at or past T are left out: a query there has do = 0
+// (its output is sliced away) and adds nothing to dk or dv, and a key there
+// has k = v = 0 and adds nothing to dq; its own dk and dv are sliced away.
+// The stats l and m of the forward over Tk keys carry what they did add.
 
 constexpr int kBwdSmemDkv = 6 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4;
 constexpr int kBwdSmemDq = 5 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + 3 * 64 * 4;
+// kSeg launches add one tile's segment ids (kSegSmem) after di.
 
 // m, 1/l and di = rowsum(o * do) of query rows q0 .. q0+63 (dOs already in
 // shared memory); rows past T get m = +inf, 1/l = 1 and di = 0. Two threads a
@@ -278,14 +320,16 @@ __device__ __forceinline__ void store_rows(FragC (&acc)[4], float* Sw, bf16* dst
 }
 
 // q, k, v as the forward; o, dout: (B, T, H*64) bf16 contiguous; m, l:
-// (B, H, T) fp32; dk, dv: (B, T, H*64) bf16 contiguous.
+// (B, H, T) fp32; dk, dv: (B, T, H*64) bf16 contiguous; with kSeg, seg:
+// (B, Tk) int32.
+template <bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ o,
                          const bf16* __restrict__ dout, const float* __restrict__ m,
-                         const float* __restrict__ l, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int T, int H, long long stride_b,
-                         long long stride_t, float scale) {
+                         const float* __restrict__ l, const int* __restrict__ seg,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Tk, int H,
+                         long long stride_b, long long stride_t, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + kBKV * kLdH;
@@ -297,6 +341,7 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = Ss + kBKV * kLdS;
   float* il_s = m_s + 64;
   float* di_s = il_s + 64;
+  int* seg_s = reinterpret_cast<int*>(di_s + 64);  // kSeg: the query tile's ids
 
   const int k0 = blockIdx.x * kBKV;
   const int h = blockIdx.y;
@@ -312,6 +357,12 @@ __global__ void __launch_bounds__(kThreads)
 
   load_rows(Ks, k + head, k0, T, stride_t);
   load_rows(Vs, v + head, k0, T, stride_t);
+  int seg_r = 0;  // this lane's key's segment
+  if constexpr (kSeg) {
+    seg += (long long)b * Tk;
+    const int t = k0 + warp * 16 + row;
+    seg_r = t < Tk ? seg[t] : 0;
+  }
 
   FragC dk_acc[4], dv_acc[4];
 #pragma unroll
@@ -329,6 +380,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous query tile is no longer read
     load_rows(Qs, q + head, q0, T, stride_t);
     load_rows(dOs, dout + ohead, q0, T, HD);
+    if constexpr (kSeg) load_seg(seg_s, seg, q0, T);
     __syncthreads();
     load_query_stats(m_s, il_s, di_s, m + stat, l + stat, dOs, o + ohead, q0, T, HD);
     __syncthreads();
@@ -343,6 +395,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
       p[j] = expf(Sw[row * kLdS + c] * scale - m_s[c]) * il_s[c];
+      if constexpr (kSeg) p[j] = seg_s[c] == seg_r ? p[j] : 0.0f;
       Pw[row * kLdH + c] = __float2bfloat16(p[j]);
     }
     __syncwarp();
@@ -370,12 +423,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // As flash_bwd_dkv_kernel, for dq: (B, T, H*64) bf16 contiguous.
+template <bool kSeg>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout, const float* __restrict__ m,
-                        const float* __restrict__ l, bf16* __restrict__ dq, int T, int H,
-                        long long stride_b, long long stride_t, float scale) {
+                        const float* __restrict__ l, const int* __restrict__ seg,
+                        bf16* __restrict__ dq, int T, int Tk, int H, long long stride_b,
+                        long long stride_t, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + kBQ * kLdH;
@@ -386,6 +441,7 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = Ss + kBQ * kLdS;
   float* il_s = m_s + 64;
   float* di_s = il_s + 64;
+  int* seg_s = reinterpret_cast<int*>(di_s + 64);  // kSeg: the key tile's ids
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -403,6 +459,12 @@ __global__ void __launch_bounds__(kThreads)
   load_rows(dOs, dout + ohead, q0, T, HD);
   __syncthreads();
   load_query_stats(m_s, il_s, di_s, m + stat, l + stat, dOs, o + ohead, q0, T, HD);
+  int seg_r = 0;  // this lane's query's segment
+  if constexpr (kSeg) {
+    seg += (long long)b * Tk;
+    const int t = q0 + warp * 16 + row;
+    seg_r = t < T ? seg[t] : 0;
+  }
 
   FragC dq_acc[4];
 #pragma unroll
@@ -416,6 +478,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous key tile is no longer read
     load_rows(Ks, k + head, k0, T, stride_t);
     load_rows(Vs, v + head, k0, T, stride_t);
+    if constexpr (kSeg) load_seg(seg_s, seg, k0, T);
     __syncthreads();
     const float m_r = m_s[warp * 16 + row];
     const float il_r = il_s[warp * 16 + row];
@@ -430,7 +493,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
-      p[j] = k0 + c < T ? expf(Sw[row * kLdS + c] * scale - m_r) * il_r : 0.0f;
+      bool in = k0 + c < T;
+      if constexpr (kSeg) in = in && seg_s[c] == seg_r;
+      p[j] = in ? expf(Sw[row * kLdS + c] * scale - m_r) * il_r : 0.0f;
     }
     __syncwarp();
 
@@ -458,64 +523,98 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <bool kStats, bool kSeg>
+cudaError_t launch_fwd(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+                       bf16* o, float* m, float* l, const int* seg, int T, int Tk, int H,
+                       long long stride_b, long long stride_t, float scale) {
+  const int smem = kSmem + (kSeg ? kSegSmem : 0);
+  const cudaError_t err = set_smem(flash_fwd_kernel<kStats, kSeg>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<kStats, kSeg><<<grid, kThreads, smem, s>>>(q, k, v, o, m, l, seg, T, Tk, H,
+                                                              stride_b, stride_t, scale);
+  return cudaGetLastError();
+}
+
+template <bool kSeg>
+cudaError_t launch_bwd(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
+                       const bf16* o, const bf16* dout, const float* m, const float* l,
+                       const int* seg, bf16* dq, bf16* dk, bf16* dv, int T, int Tk, int H,
+                       long long stride_b, long long stride_t, float scale) {
+  const int extra = kSeg ? kSegSmem : 0;
+  cudaError_t err;
+  if (dq == nullptr) {
+    err = set_smem(flash_bwd_dkv_kernel<kSeg>, kBwdSmemDkv + extra);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<kSeg><<<grid, kThreads, kBwdSmemDkv + extra, s>>>(
+        q, k, v, o, dout, m, l, seg, dk, dv, T, Tk, H, stride_b, stride_t, scale);
+  } else {
+    err = set_smem(flash_bwd_dq_kernel<kSeg>, kBwdSmemDq + extra);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<kSeg><<<grid, kThreads, kBwdSmemDq + extra, s>>>(
+        q, k, v, o, dout, m, l, seg, dq, T, Tk, H, stride_b, stride_t, scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The forward; m and l both null (serving: o only) or both (B, H, T) fp32
-// (training). Returns the cudaError_t of the launch, or -1 for a shape it was
-// not built for.
+// (training). seg null (unmasked, Tk = T) or (B, Tk) int32 segment ids with
+// Tk >= T (the padded call's key count). Returns the cudaError_t of the
+// launch, or -1 for a shape it was not built for.
 extern "C" int coral_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                         void* m, void* l, int B, int T, int H,
-                                         long long stride_b, long long stride_t, float scale,
-                                         void* stream) {
+                                         void* m, void* l, const void* seg, int B, int T,
+                                         int Tk, int H, long long stride_b, long long stride_t,
+                                         float scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535) return -1;
   if ((m == nullptr) != (l == nullptr)) return -1;
+  if (seg == nullptr ? Tk != T : Tk < T) return -1;
   const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
   float *mp = static_cast<float*>(m), *lp = static_cast<float*>(l);
+  const int* sp = static_cast<const int*>(seg);
   cudaError_t err;
-  if (m != nullptr) {
-    err = set_smem(flash_fwd_kernel<true>, kSmem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<true><<<grid, kThreads, kSmem, s>>>(qp, kp, vp, static_cast<bf16*>(o), mp,
-                                                         lp, T, H, stride_b, stride_t, scale);
+  if (seg == nullptr) {
+    err = m != nullptr ? launch_fwd<true, false>(grid, s, qp, kp, vp, op, mp, lp, sp, T, Tk, H,
+                                                 stride_b, stride_t, scale)
+                       : launch_fwd<false, false>(grid, s, qp, kp, vp, op, mp, lp, sp, T, Tk, H,
+                                                  stride_b, stride_t, scale);
   } else {
-    err = set_smem(flash_fwd_kernel<false>, kSmem);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_kernel<false><<<grid, kThreads, kSmem, s>>>(qp, kp, vp, static_cast<bf16*>(o), mp,
-                                                          lp, T, H, stride_b, stride_t, scale);
+    err = m != nullptr ? launch_fwd<true, true>(grid, s, qp, kp, vp, op, mp, lp, sp, T, Tk, H,
+                                                stride_b, stride_t, scale)
+                       : launch_fwd<false, true>(grid, s, qp, kp, vp, op, mp, lp, sp, T, Tk, H,
+                                                 stride_b, stride_t, scale);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // The backward's key-major kernel (dk, dv) when dq is null, else its
-// query-major kernel (dq); the other outputs are then not read. Returns the
-// cudaError_t of the launch, or -1 for a shape it was not built for.
+// query-major kernel (dq); the other outputs are then not read. seg as the
+// forward's. Returns the cudaError_t of the launch, or -1 for a shape it was
+// not built for.
 extern "C" int coral_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* m,
-                                         const void* l, void* dq, void* dk, void* dv, int B,
-                                         int T, int H, long long stride_b, long long stride_t,
-                                         float scale, void* stream) {
+                                         const void* l, const void* seg, void* dq, void* dk,
+                                         void* dv, int B, int T, int Tk, int H,
+                                         long long stride_b, long long stride_t, float scale,
+                                         void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535) return -1;
+  if (seg == nullptr ? Tk != T : Tk < T) return -1;
   const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
              *dop = static_cast<const bf16*>(dout);
   const float *mp = static_cast<const float*>(m), *lp = static_cast<const float*>(l);
-  cudaError_t err;
-  if (dq == nullptr) {
-    err = set_smem(flash_bwd_dkv_kernel, kBwdSmemDkv);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_kernel<<<grid, kThreads, kBwdSmemDkv, s>>>(
-        qp, kp, vp, op, dop, mp, lp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
-        stride_b, stride_t, scale);
-  } else {
-    err = set_smem(flash_bwd_dq_kernel, kBwdSmemDq);
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_kernel<<<grid, kThreads, kBwdSmemDq, s>>>(
-        qp, kp, vp, op, dop, mp, lp, static_cast<bf16*>(dq), T, H, stride_b, stride_t, scale);
-  }
-  return (int)cudaGetLastError();
+  const int* sp = static_cast<const int*>(seg);
+  bf16 *dqp = static_cast<bf16*>(dq), *dkp = static_cast<bf16*>(dk), *dvp = static_cast<bf16*>(dv);
+  const cudaError_t err =
+      seg == nullptr ? launch_bwd<false>(grid, s, qp, kp, vp, op, dop, mp, lp, sp, dqp, dkp, dvp,
+                                         T, Tk, H, stride_b, stride_t, scale)
+                     : launch_bwd<true>(grid, s, qp, kp, vp, op, dop, mp, lp, sp, dqp, dkp, dvp,
+                                        T, Tk, H, stride_b, stride_t, scale);
+  return (int)err;
 }

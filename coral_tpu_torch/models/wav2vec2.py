@@ -4,6 +4,14 @@ Port of ``coral_tpu/models/wav2vec2.py`` with the JAX package's production
 defaults (``coral_tpu/training/model_setup.py``): pre-LN encoder layers, the
 fused feature-encoder conv blocks, the ``ln_fused`` pre-attention LayerNorm,
 the v3-stats attention with in-kernel q/k/v biases and the LN-folded FFN block.
+Two unfused routes are taken by flag, as in the JAX model
+(:540-595, :684-697): ``attention_impl="flash"`` (q/k/v with their biases,
+the flash kernel with segment ids over T padded to 128 rows,
+``ops/flash_attention.py``) or ``"xla"`` (``jax.nn.dot_product_attention``
+with the -1e30 key bias, plain math under autograd); ``fused_ffn=False``
+(the LayerNorm through ``ln_fused``, fc1, then the GELU+dropout kernel in
+training at activation dropout > 0, ``ops/gelu_dropout.py``, else exact erf
+GELU with no kernel, then fc2).
 
 ``forward(..., deterministic=False, generator=...)`` is the training mode of
 the JAX model's ``deterministic=False``: SpecAugment (``_span_mask``, the time
@@ -41,9 +49,10 @@ do. ``models/convert.py`` maps the JAX package's weights onto them.
 Routes follow the JAX model: a conv block takes the fused kernel only for
 stride 2, k in {2, 3}, C_in == C_out and C % 128 == 0 (else the conv as one
 product + ``ln_gelu``), so CPU parity at small widths covers the same routes.
-The FFN always calls ``ffn_ln_block``: on the CPU that is its plain version at
-any width, and on the card the kernel, which raises for widths it does not
-take. ``Wav2Vec2ForCTC(plain=True)`` builds the same model on the kernels'
+Every other route is taken by flag, never by width: the FFN block always
+calls ``ffn_ln_block``, the flash route the flash kernel: on the CPU their
+plain versions at any width, and on the card the kernels, which raise for
+widths they do not take. ``Wav2Vec2ForCTC(plain=True)`` builds the same model on the kernels'
 plain PyTorch versions: the reference that the kernel path is held against on
 the card.
 
@@ -69,10 +78,14 @@ from torch import nn
 from ..ops import attention as _attention
 from ..ops import conv_ln_gelu as _conv_ln_gelu
 from ..ops import ffn as _ffn
+from ..ops import flash_attention as _flash
+from ..ops import gelu_dropout as _gelu_dropout
 from ..ops import ln_gelu as _ln_gelu
 from ..ops.attention import short_t_attention_flat
 from ..ops.conv_ln_gelu import conv_ln_gelu
 from ..ops.ffn import ffn_ln_block
+from ..ops.flash_attention import flash_attention, flash_self_attention
+from ..ops.gelu_dropout import gelu_dropout
 from ..ops.ln_gelu import ln_fused, ln_gelu
 from ..ops.philox import dropout
 
@@ -113,6 +126,15 @@ class Wav2Vec2Config:
     mask_feature_prob: float = 0.5
     mask_feature_length: int = 64
     dtype: torch.dtype = torch.float32  # compute dtype; bfloat16 on the card
+    # Kernel routes (coral_tpu/models/wav2vec2.py:64-143), at the production
+    # values by default. attention_impl: "pallas" (the v3-stats kernel, the
+    # q/k/v biases inside it), "flash" or "xla" (the biases in the
+    # projections). fused_ffn: the LN-folded FFN block; False: the unfused
+    # FFN. The setup resolves the JAX flags that ride on these
+    # (attention_fused_qkv_bias, fused_ffn_ln) and raises for the pairs the
+    # port has no route for.
+    attention_impl: str = "pallas"
+    fused_ffn: bool = True
 
     def __post_init__(self) -> None:
         if self.feat_extract_norm != "layer":
@@ -125,6 +147,9 @@ class Wav2Vec2Config:
                 "post-LN encoder layers (do_stable_layer_norm=False): "
                 + NOT_PORTED.format("8 (wav2vec2 base models)")
             )
+        if self.attention_impl not in ("pallas", "flash", "xla"):
+            raise ValueError(f"attention_impl={self.attention_impl!r}: expected 'pallas', "
+                             "'flash' or 'xla'")
 
     @classmethod
     def xls_r_300m(cls, vocab_size: int = 46, **kw) -> "Wav2Vec2Config":
@@ -170,14 +195,24 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
     flag, never by width, so an untaken width would fail at its launch."""
     bf16 = torch.bfloat16
     D = config.hidden_size
+    head_dim = D / config.num_attention_heads
+    if config.fused_ffn:
+        ffn = [("hidden_size (the FFN block)", D, _ffn.KERNEL_D),
+               ("intermediate_size's remainder by the FFN's F tile",
+                config.intermediate_size % _ffn.KERNEL_F_TILE, (0,))]
+    else:
+        ffn = [("intermediate_size's remainder by the GELU+dropout's vector",
+                config.intermediate_size % _gelu_dropout.KERNEL_F_MULTIPLE, (0,))]
+    attention = {
+        "pallas": [("head_dim (the attention)", head_dim, _attention.KERNEL_HEAD_DIMS)],
+        "flash": [("head_dim (the flash attention)", head_dim, (_flash.KERNEL_HEAD_DIM,))],
+        "xla": [],
+    }[config.attention_impl]
     return [
-        ("hidden_size (the FFN block)", D, _ffn.KERNEL_D),
-        ("intermediate_size's remainder by the FFN's F tile",
-         config.intermediate_size % _ffn.KERNEL_F_TILE, (0,)),
+        *ffn,
         ("hidden_size (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[bf16]),
         ("hidden_size (the LayerNorm backward)", D, _ln_gelu.KERNEL_C_BWD[bf16]),
-        ("head_dim (the attention)", D / config.num_attention_heads,
-         _attention.KERNEL_HEAD_DIMS),
+        *attention,
         ("conv_dim[0] (LayerNorm + GELU)", config.conv_dim[0], _ln_gelu.KERNEL_C[bf16]),
         *((f"conv_dim[{i}] (the conv block)", c, (_conv_ln_gelu.KERNEL_C,))
           for i, c in enumerate(config.conv_dim[1:], 1)),
@@ -192,15 +227,22 @@ class _Ops(NamedTuple):
     conv_ln_gelu: Callable
     attention: Callable
     ffn_ln_block: Callable
+    flash_attention: Callable
+    flash_self_attention: Callable
+    gelu_dropout: Callable
 
 
-_KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat, ffn_ln_block)
+_KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat, ffn_ln_block,
+                flash_attention, flash_self_attention, gelu_dropout)
 _PLAIN = _Ops(
     functools.partial(ln_gelu, plain=True),
     functools.partial(ln_fused, plain=True),
     functools.partial(conv_ln_gelu, plain=True),
     functools.partial(short_t_attention_flat, plain=True),
     functools.partial(ffn_ln_block, plain=True),
+    functools.partial(flash_attention, plain=True),
+    _flash.flash_self_attention_plain,
+    functools.partial(gelu_dropout, plain=True),
 )
 
 # Dropout sites inside an encoder layer, in the order of their seed rows.
@@ -210,8 +252,13 @@ _ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
 # the names each saves. At the production kernel flags a layer emits "attn_in"
 # (the LN1 output), "q", "k", "v" (the projections before their biases),
 # "attn_ctx" and "attn_lse" (the attention's o and lse) and "ffn_in" (the
-# residual stream into the FFN block); "ffn_act" and "ffn_hidden" exist only
-# on FFN routes the port does not take, so naming them keeps nothing.
+# residual stream into the FFN block). On the flash and xla routes "q", "k",
+# "v" are the projections with their biases, and "attn_ctx" keeps nothing
+# apart: the flash forward's residuals o, l, m have no name, so its replay
+# runs the forward (with its stats) again, as the JAX replay does, and the
+# plain attention packs its own residuals. On the unfused FFN "ffn_in" is
+# the LN2 output and "ffn_hidden" the fc1 output. "ffn_act" exists only on
+# FFN routes the port does not take, so naming it keeps nothing.
 REMAT_POLICIES: dict[str, tuple[str, ...]] = {
     "nothing_saveable": (),
     "save_matmul_inputs": ("attn_in", "q", "k", "v", "attn_ctx", "ffn_in"),
@@ -466,8 +513,22 @@ class PositionalConvEmbedding(nn.Module):
         return F.gelu(out.transpose(1, 2))
 
 
+def _attention_xla(q, k, v, pad_mask):
+    """``jax.nn.dot_product_attention`` with the wav2vec2 key bias, on (B, T,
+    H, d): fp32 scores times d**-0.5 plus ``where(pad_mask, 0, -1e30)`` in
+    the working dtype, an fp32 softmax, the probabilities in the working dtype
+    for the product with v. A row with no valid key averages every key."""
+    dt = q.dtype
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    s = (qh.float() @ kh.float().transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    bias = torch.where(pad_mask, 0.0, -1e30).to(dt).float()[:, None, None, :]
+    p = torch.softmax(s + bias, dim=-1).to(dt)
+    return (p @ vh).transpose(1, 2)
+
+
 class Attention(nn.Module):
-    """Self-attention whose q/k/v projection biases are added in the kernel."""
+    """Self-attention: on the pallas route the q/k/v projection biases are
+    added in the kernel; on the flash and xla routes in the projections."""
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
@@ -476,54 +537,89 @@ class Attention(nn.Module):
         self.k_proj = nn.Linear(D, D)
         self.v_proj = nn.Linear(D, D)
         self.out_proj = nn.Linear(D, D)
+        self.num_heads = config.num_attention_heads
         self.head_dim = D // config.num_attention_heads
+        self.impl = config.attention_impl
         self.dtype = config.dtype
         self.rate = config.hidden_dropout
         self.ops = ops
 
-    def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
+    def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT,
+                skip_out: bool = False):
+        """skip_out: a kept "ffn_in" is the replay's residual stream (the FFN
+        block's route), so the replay reads no output of the out projection,
+        which then only packs its residuals."""
         dt = self.dtype
-        q, k, v = (remat.keep(n, _project(x, p, dt, remat, n, bias=False, saved=remat.saved(n)))
+        bias = self.impl != "pallas"
+        q, k, v = (remat.keep(n, _project(x, p, dt, remat, n, bias=bias, saved=remat.saved(n)))
                    for n, p in (("q", self.q_proj), ("k", self.k_proj), ("v", self.v_proj)))
-        saved = remat.saved("attn_ctx")
-        o, lse = self.ops.attention(
-            q, k, v, pad_mask, self.head_dim,
-            (self.q_proj.bias, self.k_proj.bias, self.v_proj.bias),
-            saved=None if saved is None else (saved, remat.saved("attn_lse")),
-        )
-        remat.keep("attn_ctx", o)
-        remat.keep("attn_lse", lse)
-        # A kept "ffn_in" is the replay's residual stream: it reads no output
-        # of the out projection, which then only packs its residuals.
+        if self.impl == "pallas":
+            saved = remat.saved("attn_ctx")
+            o, lse = self.ops.attention(
+                q, k, v, pad_mask, self.head_dim,
+                (self.q_proj.bias, self.k_proj.bias, self.v_proj.bias),
+                saved=None if saved is None else (saved, remat.saved("attn_lse")),
+            )
+            remat.keep("attn_ctx", o)
+            remat.keep("attn_lse", lse)
+        else:
+            B, T, D = x.shape
+            q4, k4, v4 = (t.view(B, T, self.num_heads, self.head_dim) for t in (q, k, v))
+            if self.impl == "xla":
+                o = _attention_xla(q4, k4, v4, pad_mask)
+            else:
+                ids = _flash.segment_ids(pad_mask)
+                o = (self.ops.flash_attention(q4, k4, v4, segment_ids=ids)[0]
+                     if torch.is_grad_enabled()
+                     else self.ops.flash_self_attention(q4, k4, v4, segment_ids=ids))
+            o = o.reshape(B, T, D)
+        if not skip_out:
+            return _dropout(_linear(o, self.out_proj, dt), self.rate, seeds)
         unread = None if remat.saved("ffn_in") is None else torch.empty_like(o)
         return _dropout(_project(o, self.out_proj, dt, remat, "ffn_in", saved=unread),
                         self.rate, seeds)
 
 
 class FeedForward(nn.Module):
-    """The pre-LN FFN with its LayerNorm folded in (``ffn_ln_block``)."""
+    """The pre-LN FFN: with ``fused_ffn`` its LayerNorm folded into the block
+    (``ffn_ln_block``), else fc1, GELU (+ dropout) and fc2 after an outside
+    LayerNorm."""
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
         D, Fi = config.hidden_size, config.intermediate_size
         self.intermediate_dense = nn.Linear(D, Fi)
         self.output_dense = nn.Linear(Fi, D)
+        self.fused = config.fused_ffn
         self.block = ops.ffn_ln_block
+        self.gelu_dropout = ops.gelu_dropout
         self.activation_rate = config.activation_dropout
         self.rate = config.hidden_dropout
+        self.dtype = config.dtype
 
     def forward(self, x, ln: nn.LayerNorm, act_seeds=None, out_seeds=None,
-                replay: bool = False):
-        """act_seeds: (B,) seeds of the activation dropout (None: rate 0, the
-        deterministic forward); out_seeds: those of the hidden dropout;
-        replay: a checkpoint replay, which reads no output of the block."""
+                remat: _Remat = _NO_REMAT):
+        """x: the residual stream (the block folds ``ln`` in) or, unfused, the
+        LN2 output; act_seeds: (B,) seeds of the activation dropout (None:
+        rate 0, the deterministic forward); out_seeds: those of the hidden
+        dropout; remat: the layer's checkpoint record (the block's replay
+        reads no output of it; unfused, a kept "ffn_hidden" skips fc1)."""
         fc1, fc2 = self.intermediate_dense, self.output_dense
         rate = self.activation_rate if act_seeds is not None else 0.0
-        x = self.block(
-            x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias, ln.eps,
-            rate, act_seeds if rate > 0.0 else None,
-            saved=torch.empty_like(x) if replay else None,
-        )
+        if self.fused:
+            x = self.block(
+                x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias, ln.eps,
+                rate, act_seeds if rate > 0.0 else None,
+                saved=torch.empty_like(x) if remat.replaying else None,
+            )
+        else:
+            dt = self.dtype
+            h = remat.keep("ffn_hidden", _project(x, fc1, dt, remat, "ffn_hidden",
+                                                  saved=remat.saved("ffn_hidden")))
+            # The JAX model: the kernel only for dropout in training, else
+            # exact erf GELU (coral_tpu/models/wav2vec2.py:684-695).
+            h = self.gelu_dropout(h, rate, act_seeds) if rate > 0.0 else F.gelu(h)
+            x = _linear(h, fc2, dt)
         return _dropout(x, self.rate, out_seeds)
 
 
@@ -541,16 +637,24 @@ class EncoderLayer(nn.Module):
     def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
         """seeds: (3, B) int32, this layer's dropout seeds (None: deterministic);
         remat: this layer's checkpoint record (``_Remat``)."""
-        ln = self.layer_norm
+        ln, fln = self.layer_norm, self.final_layer_norm
         s = [None] * 3 if seeds is None else seeds
         attn_in = remat.keep("attn_in", self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps,
                                                           saved=remat.saved("attn_in")))
-        h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat)
-        ffn_in = remat.saved("ffn_in")
-        if ffn_in is None:
-            ffn_in = remat.keep("ffn_in", x + h)
-        out = ffn_in + self.feed_forward(ffn_in, self.final_layer_norm, s[_FFN_ACT],
-                                         s[_FFN_OUT], replay=remat.replaying)
+        fused = self.feed_forward.fused
+        h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat, skip_out=fused)
+        if fused:
+            # "ffn_in" names the residual stream, the block's input.
+            ffn_in = remat.saved("ffn_in")
+            if ffn_in is None:
+                ffn_in = remat.keep("ffn_in", x + h)
+            x = ffn_in
+        else:
+            # "ffn_in" names the LN2 output (coral_tpu/models/wav2vec2.py:762-765).
+            x = x + h
+            ffn_in = remat.keep("ffn_in", self.ops.ln_fused(x, fln.weight, fln.bias, fln.eps,
+                                                            saved=remat.saved("ffn_in")))
+        out = x + self.feed_forward(ffn_in, fln, s[_FFN_ACT], s[_FFN_OUT], remat)
         remat.replaying = remat is not _NO_REMAT
         return out
 

@@ -15,7 +15,11 @@ kernel: ``encoder_attention_impl="flash"`` and T >= 1024, no mask, not causal;
 otherwise plain matmul + fp32 softmax, the math of
 ``jax.nn.dot_product_attention``. The encoder FFN is ``ffn_ln_block`` (the JAX
 ``fused_ffn_block`` route: LayerNorm folded into fc1, the polynomial GELU
-tables, fc2 outside the kernel). Encoder LayerNorms are plain fp32
+tables, fc2 outside the kernel), or with ``fused_ffn=False`` the JAX
+``_ffn_block`` -> ``_ffn_up`` -> ``_ffn_activation`` chain: the LayerNorm,
+fc1, the GELU+dropout kernel (``ops/gelu_dropout.py``) in training at
+activation dropout > 0, else exact erf GELU, then fc2; the same FFN in the
+decoder's training forward. Encoder LayerNorms are plain fp32
 (``ln_impl="xla"``) or the ``ln_fused`` kernel (``"pallas"``, at widths that
 are a multiple of 128, as JAX). The decode step's LayerNorms and FFN are
 plain (fp32 LayerNorm, exact erf GELU), its attention the decode kernels
@@ -66,12 +70,14 @@ from torch import nn
 from ..ops import decode_attention as _decode_attention
 from ..ops import ffn as _ffn
 from ..ops import flash_attention as _flash_attention
+from ..ops import gelu_dropout as _gelu_dropout
 from ..ops import ln_gelu as _ln_gelu
 from ..ops.decode_attention import (decode_cross_attention, decode_cross_attention_plain,
                                     decode_self_attention, decode_self_attention_plain)
 from ..ops.ffn import ffn_ln_block
 from ..ops.flash_attention import (flash_attention, flash_self_attention,
                                    flash_self_attention_plain)
+from ..ops.gelu_dropout import gelu_dropout
 from ..ops.ln_gelu import ln_fused
 from ..ops.philox import dropout
 from .wav2vec2 import _NO_REMAT, _Remat, _linear, _project, _seeds, _trunc_normal, span_dilate
@@ -85,9 +91,11 @@ _FLASH_MIN_T = 1024
 # "attn_in" and "cross_in" (the LayerNorm outputs), "q", "k", "v" and
 # "cross_q" (the projections), "attn_ctx" and "cross_attn_ctx" (the attention
 # outputs), "flash_o", "flash_l" and "flash_m" (the encoder flash attention's
-# residuals) and "ffn_in" (the residual stream into the FFN block). The port
-# skips in the replay what a kept name lets it skip: a projection, the flash
-# forward (o, l and m kept together) and the out projection under "ffn_in".
+# residuals) and "ffn_in" (the residual stream into the FFN block; with
+# fused_ffn False the LayerNorm's output, which keeps nothing apart, as
+# "attn_in"). The port skips in the replay what a kept name lets it skip: a
+# projection, the flash forward (o, l and m kept together) and, on the
+# block's route, the out projection under "ffn_in".
 # The LayerNorms and the decoder's attention are autograd ops whose own
 # residuals the replay packs again, so it recomputes them, and in the encoder
 # "attn_ctx" is the kept flash o itself: those four names keep nothing apart.
@@ -139,6 +147,9 @@ class WhisperConfig:
     ln_impl: str = "xla"
     # Layer-stack remat policy under gradient checkpointing (REMAT_POLICIES).
     remat_policy: str = "save_matmul_inputs"
+    # The FFN: the LN-folded block (True) or LayerNorm, fc1, GELU (+ dropout)
+    # and fc2 apart (False).
+    fused_ffn: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -270,14 +281,16 @@ class _Ops(NamedTuple):
     decode_cross_attention: Callable
     ffn_ln_block: Callable
     ln_fused: Callable
+    gelu_dropout: Callable
 
 
 _KERNELS = _Ops(flash_self_attention, flash_attention, decode_self_attention,
-                decode_cross_attention, ffn_ln_block, ln_fused)
+                decode_cross_attention, ffn_ln_block, ln_fused, gelu_dropout)
 _PLAIN = _Ops(flash_self_attention_plain, functools.partial(flash_attention, plain=True),
               decode_self_attention_plain, decode_cross_attention_plain,
               functools.partial(ffn_ln_block, plain=True),
-              functools.partial(ln_fused, plain=True))
+              functools.partial(ln_fused, plain=True),
+              functools.partial(gelu_dropout, plain=True))
 
 
 class WhisperForConditionalGeneration(nn.Module):
@@ -384,10 +397,18 @@ def kernel_widths(config: WhisperConfig) -> list[tuple[str, float, tuple]]:
     """(what, its value, the values the kernel takes) for each width that a
     kernel on this model's path depends on."""
     D = config.d_model
-    needs = [
-        ("d_model (the FFN block)", D, _ffn.KERNEL_D),
-        ("ffn_dim's remainder by the FFN's F tile", config.ffn_dim % _ffn.KERNEL_F_TILE, (0,)),
-        ("d_model (the FFN backward's LayerNorm)", D, _ln_gelu.KERNEL_C_BWD[torch.bfloat16]),
+    if config.fused_ffn:
+        needs = [
+            ("d_model (the FFN block)", D, _ffn.KERNEL_D),
+            ("ffn_dim's remainder by the FFN's F tile", config.ffn_dim % _ffn.KERNEL_F_TILE,
+             (0,)),
+            ("d_model (the FFN backward's LayerNorm)", D,
+             _ln_gelu.KERNEL_C_BWD[torch.bfloat16]),
+        ]
+    else:
+        needs = [("ffn_dim's remainder by the GELU+dropout's vector",
+                  config.ffn_dim % _gelu_dropout.KERNEL_F_MULTIPLE, (0,))]
+    needs += [
         ("encoder head_dim (flash attention)", D / config.encoder_attention_heads,
          (_flash_attention.KERNEL_HEAD_DIM,)),
         ("decoder head_dim (decode attention)", D / config.decoder_attention_heads,
@@ -395,6 +416,8 @@ def kernel_widths(config: WhisperConfig) -> list[tuple[str, float, tuple]]:
     ]
     if _kernel_layer_norm(config, D):
         needs.append(("d_model (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[torch.bfloat16]))
+        needs.append(("d_model (the LayerNorm backward)", D,
+                      _ln_gelu.KERNEL_C_BWD[torch.bfloat16]))
     return needs
 
 
@@ -477,13 +500,31 @@ def _projections(model, attn: WhisperAttention, h: torch.Tensor, names: str, pre
     return out
 
 
+def _ffn_unfused(model, layer, x: torch.Tensor, seeds) -> torch.Tensor:
+    """The JAX ``_ffn_block`` -> ``_ffn_up`` -> ``_ffn_activation``, then fc2
+    (coral_tpu/models/whisper.py:330-377, :402-403): the LayerNorm (its
+    output the JAX "ffn_in"), fc1, the GELU+dropout kernel for dropout in
+    training, else exact erf GELU, fc2."""
+    dt = model.config.dtype
+    h = _linear(_train_layer_norm(model, layer.final_layer_norm, x), layer.fc1, dt)
+    rate = model.config.activation_dropout if seeds is not None else 0.0
+    h = model.ops.gelu_dropout(h, rate, seeds) if rate > 0.0 else F.gelu(h)
+    return _linear(h, layer.fc2, dt)
+
+
 def _ffn_residual(model, layer, x: torch.Tensor, a_in: torch.Tensor, out_proj: nn.Linear,
                   seeds, remat: _Remat) -> torch.Tensor:
-    """``x + out_proj(a_in)``, then that plus the FFN block of it: the end of
-    every layer. A kept "ffn_in" is the replay's residual stream, which reads
-    no output of the out projection (a stand-in) nor of the FFN block (its
-    residuals are its inputs, so the replay never runs its forward)."""
+    """``x + out_proj(a_in)``, then that plus the FFN of it: the end of
+    every layer. On the block's route a kept "ffn_in" is the replay's residual
+    stream, which reads no output of the out projection (a stand-in) nor of
+    the FFN block (its residuals are its inputs, so the replay never runs its
+    forward)."""
     dt = model.config.dtype
+    if not model.config.fused_ffn:
+        x = x + _linear(a_in, out_proj, dt)
+        out = x + _ffn_unfused(model, layer, x, seeds)
+        remat.replaying = remat is not _NO_REMAT
+        return out
     unread = None if remat.saved("ffn_in") is None else torch.empty_like(x)
     a = _project(a_in, out_proj, dt, remat, "ffn_in", saved=unread)
     ffn_in = remat.saved("ffn_in")

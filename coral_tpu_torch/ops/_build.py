@@ -74,11 +74,13 @@ _SIGNATURES = {
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream
     "coral_ctc_beta": [_P] * 6 + [_I, _I, _I, _P],
-    # q, k, v, o, m, l, B, T, H, stride_b, stride_t, scale, stream
-    "coral_flash_attention_fwd": [_P] * 6 + [_I, _I, _I, _LL, _LL, _F, _P],
-    # q, k, v, o, dout, m, l, dq, dk, dv, B, T, H, stride_b, stride_t, scale,
-    # stream
-    "coral_flash_attention_bwd": [_P] * 10 + [_I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, o, m, l, seg, B, T, Tk, H, stride_b, stride_t, scale, stream
+    "coral_flash_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, o, dout, m, l, seg, dq, dk, dv, B, T, Tk, H, stride_b, stride_t,
+    # scale, stream
+    "coral_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
+    # x, dy, out, seeds, B, T, F, threshold, scale, stream
+    "coral_gelu_dropout": [_P] * 4 + [_I, _I, _I, _U, _F, _P],
     # q, k, v, mask, part_o, part_ml, out, B, K, n_keys, H, layer, scale, stream
     "coral_decode_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
 }

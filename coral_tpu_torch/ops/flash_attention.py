@@ -1,4 +1,5 @@
-"""Unmasked, non-causal self-attention for the Whisper encoder, with backward.
+"""Non-causal self-attention with backward: unmasked for the Whisper encoder,
+with segment ids for wav2vec2's ``attention_impl: flash`` route.
 
 Port of ``coral_tpu/ops/flash_attention.py`` ``flash_self_attention``, which
 runs JAX's stock TPU flash kernel over T padded to its block grid: the forward
@@ -15,50 +16,78 @@ m)``, both fp32 (B, H, T). The backward is the stock kernel's formula:
 ``di = rowsum(o do)`` in fp32, ``p = exp(s scale - m) / l``, ``dv =
 bf16(p)^T do``, ``ds = (do v^T - di) p scale``, ``dk = bf16(ds)^T q``, ``dq =
 bf16(ds) k``, sums in fp32, results in q's dtype.
+
+Segment ids port ``coral_tpu/models/wav2vec2.py`` ``_flash_attention``
+(:440-478): the same stock kernel over q, k and v padded with zero rows to a
+multiple of 128 (``SEGMENT_BLOCK``), with ``SegmentIds(q=ids, kv=ids)``, ids
+1 for valid frames and 0 for padded frames and the grid's rows
+(``segment_ids``). A score is masked where the ids differ, so a padded query
+attends to every padded key, the grid's zero rows included (score 0, v = 0),
+unlike a key mask. The wrappers take q, k, v at T rows and the (B, Tp) ids;
+the kernels read rows past T as zeros, so no padded copy is made, and return
+T rows, as ``out[:, :, :T]`` does; the gradient of the grid's rows is the
+zero the slice gives them. The plain versions take the padded (B, Tp, H, d)
+tensors and the ids, the stock call's own arguments.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 KERNEL_HEAD_DIM = 64
+# The row grid wav2vec2's flash route pads T to (its block sizes, all 128).
+SEGMENT_BLOCK = 128
 
 
 def _heads(t):
     return t.transpose(1, 2).float()  # (B, T, H, d) -> (B, H, T, d) fp32
 
 
-def flash_attention_fwd_plain(q, k, v):
+def segment_ids(pad_mask):
+    """(B, T) bool valid frames -> (B, Tp) int32 segment ids, T padded to a
+    multiple of ``SEGMENT_BLOCK``: 1 for valid frames, 0 for padded ones and
+    the grid's rows (``jnp.pad(pad_mask.astype(int32), ...)``)."""
+    T = pad_mask.shape[1]
+    return F.pad(pad_mask.to(torch.int32), (0, -(-T // SEGMENT_BLOCK) * SEGMENT_BLOCK - T))
+
+
+def _scores(q, k, segment_ids):
+    """fp32 (B, H, T, T) scores ``q k^T * d**-0.5``, -inf where the query's
+    and the key's segment ids differ."""
+    s = (_heads(q) @ _heads(k).transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    if segment_ids is None:
+        return s
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    return s.masked_fill(~same, float("-inf"))
+
+
+def flash_attention_fwd_plain(q, k, v, segment_ids=None):
     """The TPU kernel's math on (B, T, H, d): fp32 scores ``q k^T`` times
-    ``d**-0.5``, unnormalised probabilities ``exp(s - m)`` rounded to the
-    working dtype for the product with v, the fp32 sum divided by the row sum
-    l, cast to q.dtype. Returns (o (B, T, H, d), l, m (B, H, T) fp32), the
-    order of ``_flash_res``."""
+    ``d**-0.5`` (masked by ``segment_ids`` (B, T) where given), unnormalised
+    probabilities ``exp(s - m)`` rounded to the working dtype for the product
+    with v, the fp32 sum divided by the row sum l, cast to q.dtype. Returns
+    (o (B, T, H, d), l, m (B, H, T) fp32), the order of ``_flash_res``."""
     dt = q.dtype
-    qh, kh, vh = (_heads(t) for t in (q, k, v))
-    s = (qh @ kh.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    s = _scores(q, k, segment_ids)
     m = s.amax(dim=-1)
     e = torch.exp(s - m[..., None])
     l = e.sum(dim=-1)
-    o = (e.to(dt).float() @ vh) / l[..., None]
+    o = (e.to(dt).float() @ _heads(v)) / l[..., None]
     return o.to(dt).transpose(1, 2), l, m
 
 
-def flash_self_attention_plain(q, k, v):
-    """The forward's plain version, o only."""
-    return flash_attention_fwd_plain(q, k, v)[0]
-
-
-def flash_attention_bwd_plain(q, k, v, o, l, m, do):
+def flash_attention_bwd_plain(q, k, v, o, l, m, do, segment_ids=None):
     """The stock TPU backward (dkv and dq kernels) in plain ops; see the
-    module docstring. q, k, v, o, do (B, T, H, d); l, m (B, H, T) fp32.
-    Returns (dq, dk, dv), (B, T, H, d) in q.dtype."""
+    module docstring. q, k, v, o, do (B, T, H, d); l, m (B, H, T) fp32;
+    ``segment_ids`` (B, T) as the forward's. Returns (dq, dk, dv), (B, T, H,
+    d) in q.dtype."""
     dt = q.dtype
     scale = q.shape[-1] ** -0.5
     qh, kh, vh, oh, doh = (_heads(t) for t in (q, k, v, o, do))
-    s = (qh @ kh.transpose(-1, -2)) * scale
+    s = _scores(q, k, segment_ids)
     p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
     di = (oh * doh).sum(dim=-1, keepdim=True)
     dv = p.to(dt).float().transpose(-1, -2) @ doh
@@ -66,6 +95,39 @@ def flash_attention_bwd_plain(q, k, v, o, l, m, do):
     dk = ds.transpose(-1, -2) @ qh
     dq = ds @ kh
     return tuple(t.to(dt).transpose(1, 2) for t in (dq, dk, dv))
+
+
+def _pad_rows(t, Tp):
+    """(B, T, H, d) -> (B, Tp, H, d), the new rows zero."""
+    return F.pad(t, (0, 0, 0, 0, 0, Tp - t.shape[1]))
+
+
+def _padded_fwd_plain(q, k, v, segment_ids=None):
+    """The wrappers' plain forward, through the stock call: q, k, v (B, T, H,
+    d) padded with zero rows to the ids' Tp (T without ids), then T rows of
+    o, l, m."""
+    T = q.shape[1]
+    Tp = T if segment_ids is None else segment_ids.shape[1]
+    o, l, m = flash_attention_fwd_plain(*(_pad_rows(t, Tp) for t in (q, k, v)), segment_ids)
+    return o[:, :T], l[..., :T], m[..., :T]
+
+
+def _padded_bwd_plain(q, k, v, o, l, m, do, segment_ids=None):
+    """The wrappers' plain backward, through the stock call: the padded rows
+    get do = 0 (the slice's cotangent), and l = 1, m = +inf, which give them
+    p = 0 (what they add is 0 either way); then T rows of dq, dk, dv."""
+    T = q.shape[1]
+    Tp = T if segment_ids is None else segment_ids.shape[1]
+    lp, mp = (F.pad(t, (0, Tp - T), value=value) for t, value in ((l, 1.0), (m, float("inf"))))
+    grads = flash_attention_bwd_plain(*(_pad_rows(t, Tp) for t in (q, k, v, o)), lp, mp,
+                                      _pad_rows(do, Tp), segment_ids)
+    return tuple(g[:, :T] for g in grads)
+
+
+def flash_self_attention_plain(q, k, v, segment_ids=None):
+    """The forward's plain version, o only, T rows; ``segment_ids`` as
+    ``flash_self_attention``."""
+    return _padded_fwd_plain(q, k, v, segment_ids)[0]
 
 
 def _check(name, q, k, v):
@@ -87,49 +149,79 @@ def _check(name, q, k, v):
     return B, T, H, stride_b, stride_t
 
 
-def _launch_fwd(name, kernel, q, k, v, stats: bool):
+def _check_segments(name, q, segment_ids):
+    """Raises unless ``segment_ids`` is (B, Tp >= T) int32 on q's device;
+    returns (its pointer, Tp), or (None, T) without ids."""
+    B, T = q.shape[:2]
+    if segment_ids is None:
+        return None, T
+    if segment_ids.dim() != 2 or segment_ids.shape[0] != B or segment_ids.shape[1] < T:
+        raise ValueError(f"{name}: segment ids must be ({B}, >= {T}), got "
+                         f"{tuple(segment_ids.shape)}")
+    if (segment_ids.dtype != torch.int32 or not segment_ids.is_contiguous()
+            or segment_ids.device != q.device):
+        raise ValueError(f"{name}: segment ids must be contiguous int32 on {q.device}")
+    return segment_ids.data_ptr(), segment_ids.shape[1]
+
+
+def _counter(kernel, segment_ids):
+    """The launch counter's name: the segment-id instantiations apart
+    (``flash_attention_seg_train``)."""
+    if segment_ids is None:
+        return kernel
+    return kernel.replace("flash_attention", "flash_attention_seg", 1)
+
+
+def _launch_fwd(name, kernel, q, k, v, stats: bool, segment_ids):
     B, T, H, stride_b, stride_t = _check(name, q, k, v)
+    seg, Tk = _check_segments(name, q, segment_ids)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     l, m = ((torch.empty((B, H, T), dtype=torch.float32, device=q.device) for _ in range(2))
             if stats else (None, None))
-    _build.launch(name, kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
-                  B, T, H, stride_b, stride_t, float(q.shape[-1]) ** -0.5)
+    _build.launch(name, _counter(kernel, segment_ids), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), None if m is None else m.data_ptr(),
+                  None if l is None else l.data_ptr(), seg, B, T, Tk, H, stride_b, stride_t,
+                  float(q.shape[-1]) ** -0.5)
     return o, l, m
 
 
-def flash_self_attention(q, k, v):
-    """``softmax(q k^T * d**-0.5) v`` per head, no mask, not causal (serving:
-    no residuals, no gradient).
+def flash_self_attention(q, k, v, segment_ids=None):
+    """``softmax(q k^T * d**-0.5) v`` per head, not causal (serving: no
+    residuals, no gradient), unmasked or masked by segment ids.
 
     Args:
         q, k, v: (B, T, H, d); on CUDA bf16 with d = 64, the (H, d) axes of
             each row contiguous, and the same strides for all three (views of
             one packed projection are taken as they are).
+        segment_ids: None, or the (B, Tp) int32 ids of the padded call
+            (``segment_ids``), Tp >= T, contiguous: rows past T count as zero
+            rows.
 
     Returns:
         (B, T, H, d) in q.dtype (contiguous on CUDA).
     """
     name = "coral_flash_attention_fwd"
     if not _build.require_cuda(name, q):
-        return flash_self_attention_plain(q, k, v)
-    return _launch_fwd(name, "flash_attention", q, k, v, stats=False)[0]
+        return flash_self_attention_plain(q, k, v, segment_ids)
+    return _launch_fwd(name, "flash_attention", q, k, v, False, segment_ids)[0]
 
 
-def flash_attention_fwd(q, k, v):
+def flash_attention_fwd(q, k, v, segment_ids=None):
     """The training forward (``_flash_res``): (o, l, m) as
-    ``flash_attention_fwd_plain``; q, k, v as ``flash_self_attention``."""
+    ``flash_attention_fwd_plain``, T rows; arguments as
+    ``flash_self_attention``."""
     name = "coral_flash_attention_fwd"
     if not _build.require_cuda(name, q):
-        return flash_attention_fwd_plain(q, k, v)
-    return _launch_fwd(name, "flash_attention_train", q, k, v, stats=True)
+        return _padded_fwd_plain(q, k, v, segment_ids)
+    return _launch_fwd(name, "flash_attention_train", q, k, v, True, segment_ids)
 
 
-def _launch_bwd(name, kernel, q, k, v, o, l, m, do, dq, dk, dv):
+def _launch_bwd(name, kernel, q, k, v, o, l, m, do, dq, dk, dv, segment_ids):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: {kernel} takes CUDA tensors; the plain version of the "
                          "backward is flash_attention_bwd_plain")
     B, T, H, stride_b, stride_t = _check(name, q, k, v)
+    seg, Tk = _check_segments(name, q, segment_ids)
     _build.check_cuda(name, torch.bfloat16, o, do)
     _build.check_cuda(name, torch.float32, l, m)
     if o.shape != q.shape or do.shape != q.shape or l.shape != (B, H, T) or m.shape != l.shape:
@@ -137,77 +229,80 @@ def _launch_bwd(name, kernel, q, k, v, o, l, m, do, dq, dk, dv):
     if o.device != q.device:
         raise ValueError(f"{name}: tensors on {o.device} and {q.device}")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _build.launch(name, kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  do.data_ptr(), m.data_ptr(), l.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-                  B, T, H, stride_b, stride_t, float(q.shape[-1]) ** -0.5)
+    _build.launch(name, _counter(kernel, segment_ids), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), seg, ptr(dq),
+                  ptr(dk), ptr(dv), B, T, Tk, H, stride_b, stride_t, float(q.shape[-1]) ** -0.5)
 
 
-def flash_attention_bwd_dkv(q, k, v, o, l, m, do):
+def flash_attention_bwd_dkv(q, k, v, o, l, m, do, segment_ids=None):
     """The key-major backward kernel (the stock ``_flash_attention_bwd_dkv``):
-    (dk, dv), (B, T, H, d) bf16 contiguous. q, k, v as the forward took them;
-    o, do (B, T, H, d) bf16 contiguous; l, m (B, H, T) fp32. CUDA only."""
+    (dk, dv), (B, T, H, d) bf16 contiguous. q, k, v and ``segment_ids`` as the
+    forward took them; o, do (B, T, H, d) bf16 contiguous; l, m (B, H, T)
+    fp32. CUDA only."""
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     _launch_bwd("coral_flash_attention_bwd", "flash_attention_bwd_dkv", q, k, v, o, l, m, do,
-                None, dk, dv)
+                None, dk, dv, segment_ids)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, o, l, m, do):
+def flash_attention_bwd_dq(q, k, v, o, l, m, do, segment_ids=None):
     """The query-major backward kernel (``flash_attention_bwd_dq_fixed``):
     dq, arguments as ``flash_attention_bwd_dkv``. CUDA only."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("coral_flash_attention_bwd", "flash_attention_bwd_dq", q, k, v, o, l, m, do,
-                dq, None, None)
+                dq, None, None, segment_ids)
     return dq
 
 
-def flash_attention_bwd(q, k, v, o, l, m, do):
+def flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=None):
     """The backward kernels, dk and dv in one launch and dq in another;
-    arguments and results as ``flash_attention_bwd_plain``.
+    arguments and results as ``flash_attention_bwd_plain``, T rows.
 
     Args:
-        q, k, v: as the forward took them; o, do: (B, T, H, d) bf16
-            contiguous; l, m: (B, H, T) fp32.
+        q, k, v, segment_ids: as the forward took them; o, do: (B, T, H, d)
+            bf16 contiguous; l, m: (B, H, T) fp32.
     """
     if not _build.require_cuda("coral_flash_attention_bwd", q):
-        return flash_attention_bwd_plain(q, k, v, o, l, m, do)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, o, l, m, do)
-    return flash_attention_bwd_dq(q, k, v, o, l, m, do), dk, dv
+        return _padded_bwd_plain(q, k, v, o, l, m, do, segment_ids)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, o, l, m, do, segment_ids)
+    return flash_attention_bwd_dq(q, k, v, o, l, m, do, segment_ids), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``_attention_fwd`` / ``_attention_bwd``: residuals (q, k, v, o, l, m).
-    Given ``saved`` (the (o, l, m) a remat policy kept, the JAX ``flash_o``,
-    ``flash_l`` and ``flash_m``), the forward returns them without a launch."""
+    """``_attention_fwd`` / ``_attention_bwd``: residuals (q, k, v, o, l, m)
+    and the segment ids. Given ``saved`` (the (o, l, m) a remat policy kept,
+    the JAX ``flash_o``, ``flash_l`` and ``flash_m``), the forward returns
+    them without a launch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, plain, saved):
+    def forward(ctx, q, k, v, plain, saved, segment_ids):
         if saved is not None:
             o, l, m = (t.detach() for t in saved)
         else:
-            o, l, m = (flash_attention_fwd_plain if plain else flash_attention_fwd)(q, k, v)
-        ctx.save_for_backward(q, k, v, o, l, m)
+            o, l, m = (_padded_fwd_plain if plain else flash_attention_fwd)(q, k, v, segment_ids)
+        ctx.save_for_backward(q, k, v, o, l, m, segment_ids)
         ctx.plain = plain
         ctx.mark_non_differentiable(l, m)
         return o, l, m
 
     @staticmethod
     def backward(ctx, do, _dl, _dm):
-        q, k, v, o, l, m = ctx.saved_tensors
-        bwd = flash_attention_bwd_plain if ctx.plain else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, o, l, m, do.contiguous())
-        return dq, dk, dv, None, None
+        q, k, v, o, l, m, segment_ids = ctx.saved_tensors
+        bwd = _padded_bwd_plain if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, l, m, do.contiguous(), segment_ids)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, plain: bool = False, saved=None):
+def flash_attention(q, k, v, plain: bool = False, saved=None, segment_ids=None):
     """``flash_self_attention``, differentiable in q, k and v.
 
     Args:
         q, k, v: (B, T, H, d), as ``flash_self_attention`` takes them.
         plain: run the plain versions (forward and backward) on any device.
         saved: the (o, l, m) a checkpoint replay already holds (no launch).
+        segment_ids: as ``flash_self_attention``.
 
     Returns:
         (o (B, T, H, d) in q.dtype, l, m (B, H, T) fp32).
     """
-    return _FlashAttention.apply(q, k, v, plain, saved)
+    return _FlashAttention.apply(q, k, v, plain, saved, segment_ids)

@@ -5,7 +5,14 @@ tokenizer, ``_infer_arch``, the training fields of the config (:125-293) with
 the remat policy and its warnings, ``_augmentation_settings`` (:78-98),
 ``init_params``, ``make_predictor`` and ``make_train_step`` (:326-341), the
 wav2vec2-CTC step with the feature encoder trained or frozen, the named remat
-policies and the augmentation chain. ``WhisperSetup`` (:440-628):
+policies and the augmentation chain. Both setups resolve the kernel flags as
+the JAX setups do (wav2vec2 :127-205, Whisper :495-516): ``fused_ffn`` is
+``fused_ffn or fused_ffn_ln`` and ``fused_ffn_ln`` defaults to ``fused_ffn``,
+so ``fused_ffn: false`` alone gives the unfused FFN; the ``fused_ffn_block*``
+flags are read only when ``fused_ffn`` resolves to true; wav2vec2's
+``attention_impl`` takes ``pallas``, ``flash`` or ``xla``, and
+``attention_fused_qkv_bias`` defaults to true only for ``pallas`` (with the
+v3 stats and no ``fused_qkv_ln``). ``WhisperSetup`` (:440-628):
 ``_infer_arch``, the tokenizer, the model config from the YAML surface with
 the JAX setup's kernel flags and its remat policy by width, the training
 fields, ``init_params``, the greedy ``make_predictor`` and
@@ -55,27 +62,29 @@ _W2V2_ARCHS: dict[str, Callable[..., Wav2Vec2Config]] = {
     "2b": Wav2Vec2Config.xls_r_2b,
 }
 
-# The JAX model's kernel and layout flags at their production defaults
-# (coral_tpu/training/model_setup.py); the port implements exactly these.
-# Any other value raises, as the JAX package's own trap rule asks
-# (tests/test_model_setup_traps.py): it must not run a path other than the one
-# configured. pos_conv_fold is absent because both of its values are the same
-# math, which the port computes as a plain grouped conv.
+# The JAX model's kernel and layout flags whose other values the port has no
+# route for (coral_tpu/training/model_setup.py): any other value raises, as
+# the JAX package's own trap rule asks (tests/test_model_setup_traps.py): it
+# must not run a path other than the one configured. attention_impl,
+# attention_fused_qkv_bias, fused_ffn and fused_ffn_ln are resolved instead,
+# raising for the pairs without a route (``_w2v2_kernel_flags``), and
+# pos_conv_fold is absent because both of its values are the same math, which
+# the port computes as a plain grouped conv.
 _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
-    "attention_impl": "pallas",
     "attention_save_stats": "v3",
     "attention_o_residual": False,
-    "attention_fused_qkv_bias": True,
     "fused_fe_conv": True,
     "encoder_ln_impl": "pallas",
-    "fused_ffn": True,
-    "fused_ffn_ln": True,
+    "fused_qkv_ln": False,
+    "do_stable_layer_norm": True,
+}
+# The FFN block's variants, read only when fused_ffn resolves to true: the
+# port has the block with dg in the kernel, dW and fc2 outside.
+_FFN_BLOCK_FLAG_DEFAULTS: dict[str, Any] = {
     "fused_ffn_block": True,
     "fused_ffn_block_dw": False,
     "fused_ffn_block_fc2": False,
     "fused_ffn_block_dg": True,
-    "fused_qkv_ln": False,
-    "do_stable_layer_norm": True,
 }
 
 
@@ -110,6 +119,44 @@ def _check_kernel_flags(model_cfg: Mapping[str, Any], defaults: Mapping[str, Any
                 f"model.{key}={model_cfg[key]!r} (the port implements "
                 f"{default!r}): " + NOT_PORTED.format("9 (off-default kernel flags)")
             )
+
+
+def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> tuple[bool, bool]:
+    """(fused_ffn, fused_ffn_ln) as both JAX setups resolve them; the block's
+    variant flags are checked only when fused_ffn resolves to true."""
+    fused_ffn = bool(model_cfg.get("fused_ffn", True)) or bool(
+        model_cfg.get("fused_ffn_ln", False))
+    fused_ffn_ln = bool(model_cfg.get("fused_ffn_ln", model_cfg.get("fused_ffn", True)))
+    if fused_ffn:
+        _check_kernel_flags(model_cfg, _FFN_BLOCK_FLAG_DEFAULTS)
+    return fused_ffn, fused_ffn_ln
+
+
+def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
+    """The wav2vec2 model's routes (attention_impl, fused_ffn) as the JAX
+    setup resolves them (coral_tpu/training/model_setup.py:127-205); raises
+    for a flag whose route the port lacks, and, as the JAX model does
+    (coral_tpu/models/wav2vec2.py:518-530), for in-kernel q/k/v biases off
+    the pallas route."""
+    _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
+    attention_impl = model_cfg.get("attention_impl", "pallas")
+    fused_ffn, fused_ffn_ln = _fused_ffn_flags(model_cfg)
+    # True by default only where its prerequisites hold (pallas, the v3 stats
+    # and no fused_qkv_ln, the only values the check above lets through).
+    qkv_bias = bool(model_cfg.get("attention_fused_qkv_bias", attention_impl == "pallas"))
+    if qkv_bias and attention_impl != "pallas":
+        raise ValueError("attention_fused_qkv_bias requires attention_impl='pallas' "
+                         f"(got {attention_impl!r})")
+    if attention_impl == "pallas" and not qkv_bias:
+        raise NotImplementedError(
+            "attention_impl='pallas' with the q/k/v biases outside the kernel "
+            "(attention_fused_qkv_bias=False): "
+            + NOT_PORTED.format("9 (off-default kernel flags)"))
+    if fused_ffn and not fused_ffn_ln:
+        raise NotImplementedError(
+            "fused_ffn without the LayerNorm folded in (fused_ffn_ln=False): "
+            + NOT_PORTED.format("9 (off-default kernel flags)"))
+    return dict(attention_impl=attention_impl, fused_ffn=fused_ffn)
 
 
 def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
@@ -199,7 +246,7 @@ class Wav2Vec2Setup:
     def __init__(self, config: Mapping[str, Any], is_main: bool = True,
                  device: str | torch.device = "cuda") -> None:
         model_cfg = config["model"]
-        _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
+        flags = _w2v2_kernel_flags(model_cfg)
         self.device = torch.device(device)
         self.tokenizer = CtcTokenizer.from_characters(model_cfg["characters_to_keep"])
         use_bf16 = bool(config.get("bf16_allowed", True))
@@ -216,6 +263,7 @@ class Wav2Vec2Setup:
             mask_time_length=model_cfg.get("mask_time_length", 10),
             mask_feature_prob=model_cfg.get("mask_feature_prob", 0.5),
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
+            **flags,
         )
         if self.device.type == "cuda":
             check_kernel_widths(self.model_config)
@@ -232,13 +280,21 @@ class Wav2Vec2Setup:
         self.remat_policy = model_cfg.get(
             "remat_policy", config.get("remat_policy", "save_qk_ctx")
         )
-        if self.remat_policy == "save_ctx_act":
+        fused_ffn = self.model_config.fused_ffn
+        if self.remat_policy == "save_ctx_act" and not fused_ffn:
+            # "ffn_act" is emitted only on the fused-FFN path.
+            logger.warning(
+                "remat_policy=save_ctx_act without fused_ffn degrades to "
+                "save_attn_ctx (no 'ffn_act' checkpoint is emitted)."
+            )
+        if self.remat_policy == "save_ctx_act" and fused_ffn:
             # The FFN block emits no "ffn_act" (its residuals are its inputs).
             logger.warning(
                 "remat_policy=save_ctx_act with fused_ffn_block degrades to "
                 "save_attn_ctx (the FFN block emits no 'ffn_act' checkpoint)."
             )
-        if self.remat_policy in ("save_attn_ctx", "save_ctx_act"):
+        if (self.remat_policy in ("save_attn_ctx", "save_ctx_act")
+                and self.model_config.attention_impl == "pallas"):
             # The v3 attention's backward reads its lse, which these policies
             # do not save, so the replay runs the attention forward again.
             logger.warning(
@@ -320,17 +376,6 @@ _WHISPER_ARCHS: list[tuple[str, Callable[..., W.WhisperConfig]]] = [
     ("tiny", W.WhisperConfig.tiny),
 ]
 
-# The JAX Whisper setup's FFN kernel flags at their defaults: the encoder FFN
-# is ``ffn_ln_block`` with fc2 outside the kernel. ``fused_ffn_ln`` is read
-# only without the block, which the port does not take.
-_WHISPER_KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
-    "fused_ffn_block": True,
-    "fused_ffn_block_dw": False,
-    "fused_ffn_block_fc2": False,
-    "fused_ffn_block_dg": True,
-}
-
-
 class WhisperPredictor:
     """Host batch -> transcripts: the generate step, then
     ``WhisperTokenizer.batch_decode`` (the JAX ``make_predictor``'s
@@ -365,12 +410,10 @@ class WhisperSetup:
     def __init__(self, config: Mapping[str, Any], is_main: bool = True,
                  device: str | torch.device = "cuda") -> None:
         model_cfg = config["model"]
-        if not (bool(model_cfg.get("fused_ffn", True))
-                or bool(model_cfg.get("fused_ffn_ln", False))):
-            raise NotImplementedError(
-                "model.fused_ffn=False (the plain FFN with exact GELU): "
-                + NOT_PORTED.format("9 (off-default kernel flags)"))
-        _check_kernel_flags(model_cfg, _WHISPER_KERNEL_FLAG_DEFAULTS)
+        # The block folds the LayerNorm in whatever fused_ffn_ln says (the JAX
+        # ``_ffn_full``), and fused_ffn false resolves it to false: only
+        # fused_ffn picks the route.
+        fused_ffn, _ = _fused_ffn_flags(model_cfg)
         self.config = config
         self.device = torch.device(device)
         self._is_main = is_main
@@ -392,6 +435,7 @@ class WhisperSetup:
             mask_feature_prob=model_cfg.get("mask_feature_prob", 0.5),
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
             ln_impl=model_cfg.get("ln_impl", "xla"),
+            fused_ffn=fused_ffn,
         )
         if self.device.type == "cuda":
             check_kernel_widths(self.model_config)

@@ -24,6 +24,10 @@ from coral_tpu.training import model_setup as jsetup
 from coral_tpu_torch.audio import augment, noise_bank
 from coral_tpu_torch.training import model_setup
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 # Every optional step at p = 0.5, so that 16 rows see both branches of each.
 HALF = dict(background_noise_p=0.5, colored_noise_p=0.5, filter_p=0.5)
 

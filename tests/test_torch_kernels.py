@@ -33,6 +33,10 @@ its backward's dq, dk and dv as the other gradients; the decode kernels at
 4e-3, which keep the probabilities in fp32 where the plain version (the JAX
 composition) rounds them to bf16 before p @ v: at most 2**-9 of each term,
 summed over keys whose weights add to 1.
+
+The unfused routes: the flash kernels with segment ids as the unmasked ones,
+against the plain versions through the padded call; the GELU+dropout kernel
+at rtol 2**-6 and atol 1e-2 as the other row kernels, its masks exact.
 """
 
 import numpy as np
@@ -41,7 +45,11 @@ import torch
 
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
 from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, decode_attention, ffn,
-                                 flash_attention, ln_gelu, philox)
+                                 flash_attention, gelu_dropout, ln_gelu, philox)
+
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 RTOL_BF16 = 2.0**-6
@@ -697,3 +705,87 @@ def test_ln_bwd_block_count_comes_from_the_card(cuda):
     assert lib.coral_ln_bwd_blocks(64, 640, 1, 1, 0) == -1
     assert lib.coral_ln_bwd_blocks(64, 1024, 0, 1, 0) == -1
     assert lib.coral_ln_bwd_blocks(64, 1920, 0, 0, 0) == -1
+
+
+# -- the unfused routes: flash attention with segment ids, GELU + dropout ------------
+
+
+@pytest.mark.parametrize("T,lengths", [(1499, (1499, 1000, 700, 1)), (499, (499, 300, 64, 1))])
+def test_flash_attention_segment_kernels_match_plain(cuda, T, lengths):
+    """wav2vec2's flash route at the serving (1499 -> 1536) and training (499
+    -> 512) frame counts, with a full, two padded and a length-1 filler row:
+    the forward (o; o, l, m) and the backward's two kernels against the plain
+    versions of the padded call, then the autograd Function."""
+    B, H, d = len(lengths), 2, 64
+    pad_mask = torch.arange(T, device=cuda)[None, :] < torch.tensor(lengths, device=cuda)[:, None]
+    ids = flash_attention.segment_ids(pad_mask)
+    q, k, v = (_on(cuda, _np(B, T, H * d, seed=i), torch.bfloat16).view(B, T, H, d)
+               for i in range(3))
+    _build.reset_launch_counts()
+    o_serve = flash_attention.flash_self_attention(q, k, v, segment_ids=ids)
+    o, l, m = flash_attention.flash_attention_fwd(q, k, v, segment_ids=ids)
+    assert _build.launch_counts == {"flash_attention_seg": 1, "flash_attention_seg_train": 1}
+    want = flash_attention._padded_fwd_plain(q, k, v, ids)
+    _close(o, want[0], 8e-3)
+    assert torch.equal(o, o_serve)
+    torch.testing.assert_close(l, want[1], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(m, want[2], rtol=1e-5, atol=1e-6)
+    do = _on(cuda, _np(B, T, H, d, seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
+    assert _build.launch_counts == {"flash_attention_seg_bwd_dkv": 1,
+                                    "flash_attention_seg_bwd_dq": 1}
+    for g, w in zip(got, flash_attention._padded_bwd_plain(q, k, v, o, l, m, do, ids)):
+        assert g.shape == (B, T, H, d) and g.is_contiguous()
+        _close_rel(g, w)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention.flash_attention(*leaves, segment_ids=ids)[0].backward(do)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("shape", [(2, 499, 4096), (2, 130, 5120), (3, 7, 1536)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_gelu_dropout_kernels_match_plain(cuda, shape, rate):
+    """The forward and backward at XLS-R-300M's and Whisper large-v3's F, and
+    at a few rows of Whisper tiny's; rate 0 keeps all, rate 0.1 drops exactly
+    the plain version's elements (the same Philox bits)."""
+    B, T, F = shape
+    x = _on(cuda, _np(*shape, seed=0, scale=2.0), torch.bfloat16)
+    dy = _on(cuda, _np(*shape, seed=1), torch.bfloat16)
+    seeds = (torch.tensor([5, -9, 2**31 - 1], dtype=torch.int32, device=cuda)[:B]
+             if rate else None)
+    _build.reset_launch_counts()
+    out = gelu_dropout.gelu_dropout_fwd(x, rate, seeds)
+    dx = gelu_dropout.gelu_dropout_bwd(x, dy, rate, seeds)
+    assert _build.launch_counts == {f"gelu_dropout_{F}": 1, f"gelu_dropout_bwd_{F}": 1}
+    _close(out, gelu_dropout.gelu_dropout_plain(x, rate, seeds), 1e-2)
+    _close(dx, gelu_dropout.gelu_dropout_bwd_plain(x, dy, rate, seeds), 1e-2)
+    if rate:
+        keep = philox.keep_mask(seeds, T, F, rate)
+        assert not out[~keep].any() and not dx[~keep].any()
+        assert (out[keep] != 0).float().mean() > 0.99
+    leaf = x.detach().clone().requires_grad_(True)
+    gelu_dropout.gelu_dropout(leaf, rate, seeds).backward(dy)
+    assert torch.equal(leaf.grad, dx)
+
+
+def test_unfused_kernels_reject_what_they_do_not_take(cuda):
+    """A CUDA tensor the kernels do not take raises and is never sent to the
+    plain version: F not a multiple of 8, fp32, dropout without seeds, segment
+    ids shorter than T or not int32."""
+    _build.reset_launch_counts()
+    x = torch.zeros(1, 4, 12, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gelu_dropout.gelu_dropout_fwd(x, 0.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gelu_dropout.gelu_dropout_fwd(torch.zeros(1, 4, 16, device=cuda), 0.0)
+    with pytest.raises(ValueError, match="seeds"):
+        gelu_dropout.gelu_dropout_fwd(x.new_zeros(1, 4, 8), 0.1)
+    q = torch.zeros(1, 130, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="segment ids"):
+        flash_attention.flash_self_attention(q, q, q, segment_ids=torch.ones(
+            1, 128, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="segment ids"):
+        flash_attention.flash_self_attention(q, q, q, segment_ids=torch.ones(1, 256, device=cuda))
+    assert not _build.launch_counts

@@ -32,6 +32,10 @@ import coral_tpu.ops.ln_gelu_pallas as jln
 from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, decode_attention, ffn,
                                  flash_attention, gelu_poly, ln_gelu, philox)
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 ATOL = 2e-5
 ATOL_SUM = 1e-4
 

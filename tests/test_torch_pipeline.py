@@ -20,6 +20,10 @@ from coral_tpu_torch.models.convert import wav2vec2_state_dict_from_jax
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
 from coral_tpu_torch.training import model_setup as port_setup
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 CHARS = "abcdefghijklmnopqrstuvwxyzæøå0123456789éü"
 
@@ -210,7 +214,7 @@ def test_whisper_and_beam_search_are_rejected(offline_hub):
 
 @pytest.mark.parametrize("flag,value", [
     ("attention_save_stats", "v2"), ("fused_qkv_ln", True),
-    ("fused_ffn_block_fc2", True), ("attention_impl", "xla"), ("fused_fe_conv", False),
+    ("fused_ffn_block_fc2", True), ("attention_o_residual", True), ("fused_fe_conv", False),
 ])
 def test_off_default_kernel_flags_are_rejected(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
@@ -221,12 +225,13 @@ def test_off_default_kernel_flags_are_rejected(flag, value):
 
 
 @pytest.mark.parametrize("flags", [
-    {"fused_ffn": False}, {"fused_ffn_block": False, "fused_ffn_ln": True},
+    {"fused_ffn_block_dw": True}, {"fused_ffn_block": False, "fused_ffn_ln": True},
     {"fused_ffn_block_fc2": True},
 ])
 def test_whisper_off_default_kernel_flags_are_rejected(flags):
-    """The FFN routes whose kernels the port lacks: the plain FFN, the
-    LN-folded fc1 without the block, fc2 inside the forward kernel."""
+    """The FFN routes whose kernels the port lacks: dW inside the block's
+    backward, the LN-folded fc1 without the block, fc2 inside the forward
+    kernel."""
     with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
         port_setup.load_model_setup(
             {"model": {"type": "whisper", "architecture": "tiny_test", **flags}}, device="cpu")
@@ -248,7 +253,8 @@ new = {"coral_tpu_torch.ops.ctc", "coral_tpu_torch.ops.philox",
        "coral_tpu_torch.training.optimizer", "coral_tpu_torch.training.train_state",
        "coral_tpu_torch.ops.flash_attention", "coral_tpu_torch.ops.decode_attention",
        "coral_tpu_torch.models.whisper", "coral_tpu_torch.audio.mel",
-       "coral_tpu_torch.text.whisper_tokenizer", "coral_tpu_torch.evaluation.longform"}
+       "coral_tpu_torch.text.whisper_tokenizer", "coral_tpu_torch.evaluation.longform",
+       "coral_tpu_torch.ops.gelu_dropout"}
 assert new <= set(names), new - set(names)
 print(len(names))
 """

@@ -51,6 +51,10 @@ from coral_tpu_torch.training.optimizer import create_learning_rate_schedule
 from coral_tpu_torch.training.train_state import _device_audio, ctc_loss_and_grads
 from test_torch_wav2vec2 import PRODUCTION_FLAGS, _seeded_params
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 VOCAB = 12
 BLANK = VOCAB - 1
 QUIET = dict(activation_dropout=0.0, mask_time_prob=0.0, mask_feature_prob=0.0)

@@ -26,6 +26,10 @@ from coral_tpu_torch.models.convert import wav2vec2_state_dict_from_jax
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
 from coral_tpu_torch.ops.ffn import ffn_ln_block
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 # coral_tpu/training/model_setup.py's production defaults.
 PRODUCTION_FLAGS = dict(
     attention_impl="pallas", attention_save_stats="v3", attention_fused_qkv_bias=True,

@@ -8,7 +8,8 @@ tree of ``init_whisper_params``, with non-zero biases, and bridged into the
 port by ``whisper_state_dict_from_jax``. Two configs: the JAX ``tiny_test``
 (d 32: the JAX FFN block falls back to its XLA reference), and a narrow one
 (d 128, 2 x 64 heads, FFN 256, 2 + 2 layers) at which JAX runs ``ffn_ln_block``
-in interpret mode. Inputs: 80 mels, T_mel 200.
+in interpret mode; and ``tiny_test`` with ``fused_ffn: false`` (the FFN's
+LayerNorm, fc1, exact erf GELU and fc2 apart). Inputs: 80 mels, T_mel 200.
 
 Tolerances (fp32 on both sides, reductions in another order): the log-mel
 features within 1e-4 absolute (values of order 1 after log10 of sums of up to
@@ -31,6 +32,10 @@ from coral_tpu_torch.audio.mel import log_mel_spectrogram
 from coral_tpu_torch.models import whisper as PW
 from coral_tpu_torch.models.convert import whisper_state_dict_from_jax
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 REL_TOL = 1e-4
 # coral_tpu/training/model_setup.py WhisperSetup's FFN flags (serving defaults).
 SETUP_FLAGS = dict(fused_ffn=True, fused_ffn_ln=True, fused_ffn_block=True,
@@ -38,12 +43,19 @@ SETUP_FLAGS = dict(fused_ffn=True, fused_ffn_ln=True, fused_ffn_block=True,
 NARROW = dict(vocab_size=300, d_model=128, encoder_layers=2, decoder_layers=2,
               encoder_attention_heads=2, decoder_attention_heads=2, ffn_dim=256,
               max_target_positions=64)
-ARCHS = ("tiny_test", "narrow")
+# coral_tpu/training/model_setup.py's resolution of `fused_ffn: false`: the
+# LayerNorm, fc1, exact erf GELU (GELU+dropout in training) and fc2 apart.
+UNFUSED_FLAGS = dict(fused_ffn=False, fused_ffn_ln=False, fused_ffn_block=True,
+                     fused_ffn_block_dg=True)
+ARCHS = ("tiny_test", "narrow", "tiny_test_unfused")
 B, T_MEL, N_MELS = 3, 200, 80
 FORCED = [290, 291, 292, 293]
 
 
 def _configs(name):
+    if name == "tiny_test_unfused":
+        return (JW.WhisperConfig.tiny_test(vocab_size=300, **UNFUSED_FLAGS),
+                PW.WhisperConfig.tiny_test(vocab_size=300, fused_ffn=False))
     if name == "tiny_test":
         return (JW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS),
                 PW.WhisperConfig.tiny_test(vocab_size=300))

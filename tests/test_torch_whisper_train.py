@@ -44,7 +44,11 @@ from coral_tpu_torch.models.convert import whisper_state_dict_from_jax
 from coral_tpu_torch.ops import ffn, flash_attention
 from coral_tpu_torch.training import TrainState, create_optimizer, make_seq2seq_train_step
 from coral_tpu_torch.training.model_setup import load_model_setup
-from test_torch_whisper import NARROW, SETUP_FLAGS, _seeded_params
+from test_torch_whisper import NARROW, SETUP_FLAGS, UNFUSED_FLAGS, _seeded_params
+
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
 
 REL_TOL = 1e-4
 QUIET = dict(activation_dropout=0.0, mask_time_prob=0.0, mask_feature_prob=0.0)
@@ -56,6 +60,9 @@ def _rel(got, want):
 
 
 def _configs(name, **over):
+    if name == "tiny_test_unfused":
+        return (JW.WhisperConfig.tiny_test(vocab_size=300, **UNFUSED_FLAGS, **over),
+                PW.WhisperConfig.tiny_test(vocab_size=300, fused_ffn=False, **over))
     if name == "tiny_test":
         return (JW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS, **over),
                 PW.WhisperConfig.tiny_test(vocab_size=300, **over))
@@ -98,8 +105,9 @@ def _batch(seed=3, A=2, B=3, T=16_000, L=10):
 
 
 @pytest.mark.parametrize("arch,grad_dtype", [("tiny_test", None), ("tiny_test", "bfloat16"),
-                                             ("narrow", None)],
-                         ids=["fp32_grads", "bf16_grads", "narrow_fp32_grads"])
+                                             ("narrow", None), ("tiny_test_unfused", None)],
+                         ids=["fp32_grads", "bf16_grads", "narrow_fp32_grads",
+                              "unfused_fp32_grads"])
 def test_train_step_matches_jax(arch, grad_dtype):
     """Three steps of both packages' ``make_seq2seq_train_step`` (A = 2, fp32,
     checkpointing under save_matmul_inputs, SpecAugment and dropout off) from
@@ -281,7 +289,7 @@ def test_setup_picks_the_remat_policy_by_width_and_refuses_what_is_not_ported(tm
                                                                              monkeypatch):
     """save_matmul_inputs below d 1280, save_flash_ctx for large-v3, a
     model.remat_policy wins; more than one device, an unknown policy and
-    ``fused_ffn: false`` raise."""
+    ``fused_ffn_block: false`` (the FFN without the block) raise."""
     monkeypatch.setenv("HF_HOME", str(tmp_path))
     assert load_model_setup(_setup_config(), device="cpu").model_config.remat_policy == (
         "save_matmul_inputs")
@@ -302,7 +310,7 @@ def test_setup_picks_the_remat_policy_by_width_and_refuses_what_is_not_ported(tm
         load_model_setup(_setup_config(remat_policy="save_everything"),
                          device="cpu").make_train_step(tx, schedule)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        load_model_setup(_setup_config(fused_ffn=False), device="cpu")
+        load_model_setup(_setup_config(fused_ffn_block=False), device="cpu")
 
 
 def test_loss_decreases_through_the_setup(tmp_path):

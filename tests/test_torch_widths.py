@@ -34,6 +34,10 @@ from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from coral_tpu_torch.ops import attention, ffn, ln_gelu
 from coral_tpu_torch.training import model_setup as port_setup
 
+# One intra-op thread: the suite runs in several processes at once, and
+# OpenMP threads spinning on shared cores slow these small ops tens of times.
+torch.set_num_threads(1)
+
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "config" / "model").glob("*.yaml"))
 WIDTHS = {"wav2vec2": ("hidden_size", "num_hidden_layers", "num_attention_heads",
                        "intermediate_size", "conv_dim"),
