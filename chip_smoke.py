@@ -101,7 +101,17 @@ non-zero before the result line is printed:
    with exact launch counts and a falling loss; (j') the same with
    ``attention_impl: xla``, one batch and 3 steps; (k) (e) with
    ``fused_ffn: false``, the kernel path against the plain path and 3 steps;
-13. a JSON line with every kernel (its launches summed over the counted runs
+13. the FFN without the folded LayerNorm or the block: fc1's kernels N1-N4
+   checked with the other kernels in phase 3 (at rate 0 and 0.1, at D 384
+   and 1920 too); (l) (c)'s configuration with ``fused_ffn_ln: false`` (LN2
+   apart, the LayerNorm-less block): one serving batch through the setup's
+   predictor, the kernel path against the plain path on one microbatch at
+   activation dropout 0.1, 3 steps; (l') with ``fused_ffn_block: false``
+   added (fc1 alone, its forward again in each replay): one batch and 3
+   steps; (m) (e) with ``fused_ffn_block: false`` (the LayerNorm-folded fc1
+   and its backward N4): the kernel path against the plain path and 3 steps;
+   each with exact launch counts;
+14. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -173,6 +183,9 @@ TOLERANCE = {
     "gelu_dropout_5120": (1e-2, 2.0**-6),
     "gelu_dropout_bwd_4096": (1e-2, 2.0**-6),
     "gelu_dropout_bwd_5120": (1e-2, 2.0**-6),
+    # fc1 without the block or the folded LayerNorm: g (and ln_out) as the
+    # other FFN outputs, fp32 sums rounded once to bf16.
+    "ffn_fc1": (1e-2, 2.0**-6),
 }
 # Gradients that sum over rows, keys or F columns: |kernel - plain| <= frac
 # max|plain| + 2**-6 |plain|. Their bf16 operands (ds, dh, p) are rounded from
@@ -182,6 +195,10 @@ TOLERANCE = {
 # max|plain|, ffn_bwd 5.2e-3, conv_ln_gelu_bwd 4.8e-3 (dx; dW 1.2e-4), the fp32
 # partial sums 1.0e-4; the bounds are 4 to 10 times those.
 GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3, "conv_bwd": 2e-2,
+             # fc1's backwards: dx = dh @ W1 rounded once (N2, N3) at 2**-8 of
+             # its max; N4's dx through the LayerNorm backward as K5's; db1,
+             # dgamma and dbeta at 5e-3.
+             "fc1_dx": 2.0**-8, "fc1_vectors": 5e-3,
              "flash_bwd": 1e-2}
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
 # Kernel path vs plain path logits over the whole model: max |diff| / max |plain|.
@@ -240,6 +257,18 @@ SOURCES = {
                                 f"coral_tpu/ops/gelu_dropout_pallas.py:{line}")
        for k, line in (("", 162), ("_bwd", 173)) for F in (4096, 5120)},
 }
+# fc1 without the block or the folded LayerNorm (`fused_ffn_ln: false`,
+# `fused_ffn_block: false`): N1 forward (`_fwd_kernel[_drop]`), N2 and N3
+# backward (`_bwd_kernel_drop`, `_bwd_kernel_g_drop`) at XLS-R-300M's width,
+# N4 (`_bwd_kernel_ln_drop`) at Whisper large-v3's, each at its path's shape.
+SOURCES.update({
+    "ffn_fc1": ("coral_tpu_torch/csrc/ffn_fc1.cu", "coral_tpu/ops/ffn_pallas.py:87"),
+    "ffn_fc1_drop": ("coral_tpu_torch/csrc/ffn_fc1.cu", "coral_tpu/ops/ffn_pallas.py:92"),
+    "ffn_fc1_bwd": ("coral_tpu_torch/csrc/ffn_fc1.cu", "coral_tpu/ops/ffn_pallas.py:139"),
+    "ffn_block_bwd": ("coral_tpu_torch/csrc/ffn_fc1.cu", "coral_tpu/ops/ffn_pallas.py:418"),
+    "ffn_ln_fc1_bwd_1280": ("coral_tpu_torch/csrc/ffn_ln_fc1.cu",
+                            "coral_tpu/ops/ffn_pallas.py:433"),
+})
 # The instantiations at the other widths of the repository's configs: each has
 # its base kernel's tolerance and TPU source.
 NEW_FFN_D = (384, 512, 768, 1920)
@@ -444,6 +473,29 @@ WHISPER_UNFUSED_CONFIG = {**WHISPER_TRAIN_CONFIG, "model": {
 WHISPER_UNFUSED_PER_MICROBATCH = {
     "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
     "gelu_dropout_5120": 128, "gelu_dropout_bwd_5120": 64}
+# Phases (l), (l') and (m): the FFN without the block or the folded
+# LayerNorm. (l) (c)'s configuration (config/model/wav2vec2-small.yaml +
+# config/asr_finetuning.yaml) with `fused_ffn_ln: false`: LN2 through
+# `ln_fused`, then `ffn_block` without a LayerNorm (N1 forward, N3
+# backward); the serving clips through the setup's predictor, kernel vs plain
+# on one microbatch at activation dropout 0.1, 3 steps. (l') the same with
+# `fused_ffn_block: false` added: `ffn_fc1` (N1, N2) and fc2 as a product,
+# one served batch and 3 steps. (m) (e)'s configuration with
+# `fused_ffn_block: false`: `ffn_ln_fc1` (K5's forward, N4) and fc2 as a
+# product in both stacks; kernel vs plain and 3 steps.
+LN_APART_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "fused_ffn_ln": False}}
+FC1_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "fused_ffn_ln": False, "fused_ffn_block": False}}
+WHISPER_FC1_CONFIG = {**WHISPER_TRAIN_CONFIG, "model": {
+    **WHISPER_TRAIN_CONFIG["model"], "fused_ffn_block": False}}
+# Launches per microbatch of (m) under save_flash_ctx: the flash kernels as
+# (e); K5's dropout forward in the forward and again in the replay of every
+# encoder and decoder layer (fc2's weight gradient reads g, which no Whisper
+# policy keeps), N4 and its LayerNorm backward once.
+WHISPER_FC1_PER_MICROBATCH = {
+    "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
+    "ffn_ln_drop_1280": 128, "ffn_ln_fc1_bwd_1280": 64, "ln_bwd_1280": 64}
 
 
 def fail(msg: str) -> None:
@@ -505,9 +557,11 @@ def timed(fn, reps: int) -> float:
     return float(np.median(walls))
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, key: str | None = None) -> dict:
+    """|kernel - plain| <= atol + rtol |plain| with the tolerance of ``key``
+    (default ``name``), elementwise."""
     torch.cuda.synchronize()
-    atol, rtol = TOLERANCE[name]
+    atol, rtol = TOLERANCE[key or name]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()) and bool((err <= atol + rtol * want.abs()).all())
@@ -668,9 +722,9 @@ def kernel_checks(card: str) -> dict:
     w1 = randn(4096, 1024, scale=1.0 / 32, dtype=bf16)
     b1, g, b = randn(4096, scale=0.1), randn(1024, scale=0.1, offset=1.0), randn(1024, scale=0.1)
     M = BATCH * T
-    measure("ffn_ln", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b),
+    measure("ffn_ln", lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
-            lambda: compare("ffn_ln", ffn.ffn_ln_fc1(x, w1, b1, g, b),
+            lambda: compare("ffn_ln", ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * 4096 * 2))
     return results
@@ -820,7 +874,7 @@ def train_kernel_checks(card: str) -> dict:
     keep = philox.keep_mask(seeds, T, 4096, 0.1)
 
     def drop_check():
-        got = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds)
+        got = ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds)
         res = compare("ffn_ln_drop", got, ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1,
                                                                seeds=seeds))
         same = bool(torch.equal(got != 0, keep))
@@ -831,7 +885,7 @@ def train_kernel_checks(card: str) -> dict:
         return res
 
     M = BATCH * T
-    measure("ffn_ln_drop", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
+    measure("ffn_ln_drop", lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
             (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * 4096 * 2))
 
@@ -840,7 +894,7 @@ def train_kernel_checks(card: str) -> dict:
         for rate in (0.0, 0.1):
             got = ffn.ffn_bwd(x, w1, b1, g, b, dy, w2, rate=rate, seeds=seeds)
             want = ffn.ffn_bwd_plain(x, w1, b1, g, b, dy, w2, rate=rate, seeds=seeds)
-            g_fwd = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=rate, seeds=seeds)
+            g_fwd = ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=rate, seeds=seeds)
             same_g = bool(torch.equal(got[0], g_fwd))
             dropped_zero = rate == 0.0 or not bool(got[1][~keep].any())
             print(f"  ffn_bwd rate {rate}: g regenerated bit for bit: {same_g}; dh zero "
@@ -1387,9 +1441,9 @@ def whisper_kernel_checks(card: str) -> dict:
     w1 = randn(F, D, scale=D**-0.5, dtype=bf16)
     b1, g, b = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
     M = BATCH * T
-    measure("ffn_ln_1280", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b),
+    measure("ffn_ln_1280", lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
-            lambda: compare("ffn_ln_1280", ffn.ffn_ln_fc1(x, w1, b1, g, b),
+            lambda: compare("ffn_ln_1280", ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * F * 2))
     return results
@@ -1676,7 +1730,7 @@ def whisper_train_kernel_checks(card: str) -> dict:
     M = BATCH * T
 
     def drop_check():
-        got = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds)
+        got = ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds)
         res = compare("ffn_ln_drop_1280", got,
                       ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds))
         same = bool(torch.equal(got != 0, keep))
@@ -1686,7 +1740,7 @@ def whisper_train_kernel_checks(card: str) -> dict:
         res["ok"] = res["ok"] and same and abs(frac - 0.9) < 1e-3
         return res
 
-    measure("ffn_ln_drop_1280", lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
+    measure("ffn_ln_drop_1280", lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * F * 2))
 
@@ -1698,7 +1752,7 @@ def whisper_train_kernel_checks(card: str) -> dict:
         for label, xx, yy in (("encoder", x, dy), ("decoder", xd, dyd)):
             got = ffn.ffn_bwd(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
             want_f = ffn.ffn_bwd_plain(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
-            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1(xx, w1, b1, g, b, rate=0.1,
+            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1_fwd(xx, w1, b1, g, b, rate=0.1,
                                                              seeds=seeds)))
             mask = philox.keep_mask(seeds, xx.shape[1], F, 0.1)
             dropped_zero = not bool(got[1][~mask].any())
@@ -1889,9 +1943,9 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
     x = randn(BATCH, T_serve, D, dtype=bf16)
     name = names["ffn_ln"]
     M = BATCH * T_serve
-    measure(name, lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b),
+    measure(name, lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b),
-            lambda: compare(name, ffn.ffn_ln_fc1(x, w1, b1, g, b),
+            lambda: compare(name, ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * F * 2))
 
@@ -1904,7 +1958,7 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
     name = names["ffn_ln_drop"]
 
     def drop_check():
-        got = ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds)
+        got = ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds)
         res = compare(name, got, ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds))
         # Dropped is exactly 0; a kept value is 0 only where the polynomial
         # GELU is (h far below 0, more often at the narrow widths).
@@ -1916,7 +1970,7 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
         res["ok"] = res["ok"] and dropped_zero and kept_live > 0.99 and abs(frac - 0.9) < 1e-3
         return res
 
-    measure(name, lambda: ffn.ffn_ln_fc1(x, w1, b1, g, b, rate=0.1, seeds=seeds),
+    measure(name, lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * F * 2))
     del keep
@@ -1931,7 +1985,7 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
         for label, xx, yy in rows:
             got = ffn.ffn_bwd(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
             want = ffn.ffn_bwd_plain(xx, w1, b1, g, b, yy, w2, rate=0.1, seeds=seeds)
-            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1(xx, w1, b1, g, b, rate=0.1,
+            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1_fwd(xx, w1, b1, g, b, rate=0.1,
                                                              seeds=seeds)))
             mask = philox.keep_mask(seeds, xx.shape[1], F, 0.1)
             dropped_zero = not bool(got[1][~mask].any())
@@ -2032,10 +2086,11 @@ def whisper_train_compare(card: str, setup, batch: dict, label: str = "(e)") -> 
 
 def whisper_train_run(card: str, label: str = "(e)", config: dict = WHISPER_TRAIN_CONFIG,
                       per_microbatch: dict = WHISPER_PER_MICROBATCH,
-                      steps: int = WHISPER_TRAIN_STEPS, falling: bool = True) -> dict:
-    """Phase (e) (or ``label``: (k)), Whisper training through
-    ``WhisperSetup.make_train_step``; returns the launch counts of the first
-    step."""
+                      steps: int = WHISPER_TRAIN_STEPS, falling: bool = True,
+                      route: str = "ffn_ln_block") -> dict:
+    """Phase (e) (or ``label``: (k), (m), the FFN on ``route``), Whisper
+    training through ``WhisperSetup.make_train_step``; returns the launch
+    counts of the first step."""
     import tempfile
 
     from coral_tpu_torch.ops import _build
@@ -2057,16 +2112,15 @@ def whisper_train_run(card: str, label: str = "(e)", config: dict = WHISPER_TRAI
     cfg = setup.model_config
     print(f"training {label}: whisper d_model {cfg.d_model}, {cfg.encoder_layers} + "
           f"{cfg.decoder_layers} layers, {cfg.encoder_attention_heads} heads, FFN {cfg.ffn_dim} "
-          f"({'the block' if cfg.fused_ffn else 'unfused'}), {cfg.num_mel_bins} mels, vocab "
+          f"({cfg.ffn_route}), {cfg.num_mel_bins} mels, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, remat "
           f"{cfg.remat_policy}, activation dropout {cfg.activation_dropout}, SpecAugment time "
           f"{cfg.mask_time_prob}/{cfg.mask_time_length} feature {cfg.mask_feature_prob}/"
           f"{cfg.mask_feature_length}, learning rate {setup.learning_rate}, grad dtype "
           f"{setup.grad_dtype}, batch {ACCUM} x {BATCH} x {setup.chunk_length} samples", flush=True)
     if (cfg.d_model, cfg.encoder_layers, cfg.decoder_layers, cfg.ffn_dim, cfg.num_mel_bins,
-            cfg.dtype, cfg.remat_policy, cfg.fused_ffn) != (
-                1280, 32, 32, 5120, 128, torch.bfloat16, "save_flash_ctx",
-                config["model"].get("fused_ffn", True)):
+            cfg.dtype, cfg.remat_policy, cfg.ffn_route) != (
+                1280, 32, 32, 5120, 128, torch.bfloat16, "save_flash_ctx", route):
         fail("the setup did not build whisper-large-v3 in bf16 under save_flash_ctx with the "
              "configured FFN")
     batch, audio_seconds = whisper_train_batch(4, setup.tokenizer.sot_token_id)
@@ -2435,40 +2489,203 @@ def unfused_kernel_checks(card: str) -> dict:
     return results
 
 
-def unfused_launches(cfg, serving: bool) -> dict:
-    """Launches per forward (serving) or per microbatch (the production step:
-    the feature encoder training, save_qk_ctx) of the unfused routes at cfg's
-    widths. Both LayerNorms are ``ln_fused``; in training each runs again in
-    the replay (neither "attn_in" nor "ffn_in" is kept), and so do the flash
-    forward with its stats (its o, l, m have no name) and the GELU+dropout
-    forward (fc2's weight gradient reads its output); ln_bwd is the two
-    LayerNorms' backward and FE conv 0's."""
-    from coral_tpu_torch.ops import ln_gelu
+def fc1_case(kernel: str, D: int, T: int, rate: float, randn, seeds):
+    """One of fc1's kernels without the block or the folded LayerNorm at (8,
+    T, D) rows, F = 4 D: returns (check, launch, plain, work) for
+    ``_measure``. ``kernel``: "ffn_fc1" (N1), "ffn_fc1_bwd" (N2),
+    "ffn_block_bwd" (N3) or "ffn_ln_fc1_bwd" (N4); masks exact, dh zero where
+    the forward dropped, N3's g the forward's bits."""
+    from coral_tpu_torch.ops import ffn, philox
 
-    L, F = cfg.num_hidden_layers, cfg.intermediate_size
-    flash = cfg.attention_impl == "flash"
-    ln = ln_gelu._name("ln_fused", cfg.hidden_size)
+    bf16 = torch.bfloat16
+    F, M = 4 * D, BATCH * T
+    x = randn(BATCH, T, D, offset=0.2, dtype=bf16)
+    w1 = randn(F, D, scale=D**-0.5, dtype=bf16)
+    b1, g, b = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+    s = seeds if rate else None
+    keep = philox.keep_mask(seeds, T, F, rate) if rate else None
+    tag = f"{kernel} D {D}, {BATCH} x {T} rows, rate {rate}"
+    in_bytes = nbytes(x, w1, b1) + (nbytes(seeds) if rate else 0)
+    if kernel == "ffn_fc1":
+        def launch():
+            return ffn.ffn_fc1_fwd(x, w1, b1, rate, s)
+
+        def plain():
+            return ffn.ffn_fc1_plain(x, w1, b1, rate, s)
+
+        def check():
+            got = launch()
+            res = compare(tag, got, plain(), key="ffn_fc1")
+            if rate:
+                dropped_zero = not bool(got[~keep].any())
+                frac = float(keep.float().mean())
+                print(f"  {tag}: zero where the plain Philox mask drops: {dropped_zero}; keep "
+                      f"fraction {frac:.6f}", flush=True)
+                res["ok"] = res["ok"] and dropped_zero and abs(frac - (1 - rate)) < 1e-3
+            return res
+
+        return check, launch, plain, (2 * M * D * F, BF16_FLOPS, in_bytes + M * F * 2)
+
+    dg = randn(BATCH, T, F, dtype=bf16)
+    if kernel == "ffn_ln_fc1_bwd":
+        def launch():
+            return ffn.ffn_ln_fc1_bwd(x, w1, b1, g, b, dg, rate=rate, seeds=s)
+
+        def plain():
+            return ffn.ffn_ln_fc1_bwd_plain(x, w1, b1, g, b, dg, rate=rate, seeds=s)
+
+        names = ("dh", "dx", "ln_out", "db1", "dgamma", "dbeta")
+        fracs = (GRAD_FRAC["ffn_bwd"], GRAD_FRAC["ffn_bwd"], None) + (GRAD_FRAC["fc1_vectors"],) * 3
+        # Two products (h again, dl = dh W1) and the LayerNorm's rows; dh,
+        # dx, ln_out out, and the vectors.
+        work = (4 * M * D * F + (LN_OPS + LN_BWD_OPS) * M * D, BF16_FLOPS,
+                in_bytes + nbytes(g, b, dg) + M * F * 2 + 2 * M * D * 2 + (F + 2 * D) * 4)
+    else:
+        emit_g = kernel == "ffn_block_bwd"
+
+        def launch():
+            return ffn.ffn_fc1_bwd(x, w1, b1, dg, rate, s, emit_g=emit_g)
+
+        def plain():
+            return ffn.ffn_fc1_bwd_plain(x, w1, b1, dg, rate, s, emit_g=emit_g)
+
+        names = ("dh", "g", "dx", "db1") if emit_g else ("dh", "dx", "db1")
+        fracs = ((GRAD_FRAC["ffn_bwd"],) + ((None,) if emit_g else ())
+                 + (GRAD_FRAC["fc1_dx"], GRAD_FRAC["fc1_vectors"]))
+        # Two products (h again, dx = dh W1); dh (and g) and dx out.
+        work = (4 * M * D * F, BF16_FLOPS,
+                in_bytes + nbytes(dg) + M * F * 2 * (2 if emit_g else 1) + M * D * 2 + F * 4)
+
+    def check():
+        got, want = launch(), plain()
+        out = []
+        for name, frac, gg, ww in zip(names, fracs, got, want):
+            if frac is None:  # g or ln_out: rounded outputs
+                out.append(compare(f"{tag} {name}", gg, ww, key="ffn_fc1"))
+            else:
+                out.append(compare_grad(f"{tag} {name}", gg, ww, frac))
+        res = merge(*out)
+        if rate:
+            dropped_zero = not bool(got[0][~keep].any())
+            print(f"  {tag}: dh zero where the forward dropped: {dropped_zero}", flush=True)
+            res["ok"] = res["ok"] and dropped_zero
+        if kernel == "ffn_block_bwd":
+            same_g = bool(torch.equal(got[1], ffn.ffn_fc1_fwd(x, w1, b1, rate, s)))
+            print(f"  {tag}: g regenerated bit for bit: {same_g}", flush=True)
+            res["ok"] = res["ok"] and same_g
+        return res
+
+    return check, launch, plain, work
+
+
+# fc1's kernels at each path's shapes, rate 0 and 0.1: the rows of the
+# kernels line (timed) and the other rate of each (checked only).
+FC1_ROWS = (("ffn_fc1", "ffn_fc1", 1024, 1499, 0.0), ("ffn_fc1_drop", "ffn_fc1", 1024, 499, 0.1),
+            ("ffn_fc1_bwd", "ffn_fc1_bwd", 1024, 499, 0.1),
+            ("ffn_block_bwd", "ffn_block_bwd", 1024, 499, 0.1),
+            ("ffn_ln_fc1_bwd_1280", "ffn_ln_fc1_bwd", 1280, 1500, 0.1))
+FC1_CHECKS = (("ffn_fc1", 1024, 1499, 0.1), ("ffn_fc1", 1024, 499, 0.0),
+              ("ffn_fc1", 1280, 1500, 0.0), ("ffn_fc1", 1280, 1500, 0.1),
+              ("ffn_fc1_bwd", 1024, 499, 0.0), ("ffn_block_bwd", 1024, 499, 0.0),
+              ("ffn_ln_fc1_bwd", 1280, 1500, 0.0), ("ffn_ln_fc1_bwd", 1280, 128, 0.1),
+              *((k, D, T, r) for D, T in ((384, 1500), (1920, 499))
+                for k in ("ffn_fc1", "ffn_fc1_bwd", "ffn_block_bwd", "ffn_ln_fc1_bwd")
+                for r in (0.0, 0.1)))
+
+
+def fc1_kernel_checks(card: str) -> dict:
+    """fc1's kernels without the block or the folded LayerNorm (N1-N4)
+    against their plain versions: the rows at their paths' shapes (XLS-R-300M
+    serving 8 x 1499 and training 8 x 499 rows at D 1024, Whisper large-v3's
+    encoder 8 x 1500 at 1280), timed with cuBLAS's fc1 product alone beside
+    them; then the other rate of each, N1 at 1280, N4 at the decoder's 8 x
+    128 rows, and all four at D 384 and 1920, checked."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    for name, kernel, D, T, rate in FC1_ROWS:
+        check, launch, plain, work = fc1_case(kernel, D, T, rate, randn, seeds)
+        measure(name, launch, plain, check, work)
+        x = randn(BATCH * T, D, dtype=torch.bfloat16)
+        w1 = randn(4 * D, D, scale=D**-0.5, dtype=torch.bfloat16)
+        print(f"  {name}: cuBLAS's fc1 product alone ({BATCH * T} x {D} @ {D} x {4 * D}, bf16) "
+              f"{median_ms(lambda: torch.matmul(x, w1.t())):.4f} ms (median of {REPS}; {card})",
+              flush=True)
+        del check, launch, plain, x, w1
+        torch.cuda.empty_cache()
+    for kernel, D, T, rate in FC1_CHECKS:
+        check, *_ = fc1_case(kernel, D, T, rate, randn, seeds)
+        results[f"{kernel} D {D} T {T} rate {rate}"] = check()
+        del check
+        torch.cuda.empty_cache()
+    return results
+
+
+def route_launches(cfg, serving: bool) -> dict:
+    """Launches per forward (serving) or per microbatch (the production step:
+    the feature encoder training, save_qk_ctx) of a wav2vec2 config off the
+    production routes, at cfg's widths. LN1 is ``ln_fused``, and so is LN2
+    where the FFN's kernels do not fold it in; in training each runs again in
+    the replay (neither "attn_in" nor "ffn_in" is kept), and so do the flash
+    forward with its stats (its o, l, m have no name), the GELU+dropout
+    forward and the fc1 kernel of the fc1 routes (fc2's weight gradient reads
+    their output, and save_qk_ctx keeps no "ffn_act"); the blocks' forward
+    never. ln_bwd counts the LayerNorms' backward (LN2's inside N4's and K5's
+    wrappers) and FE conv 0's."""
+    from coral_tpu_torch.ops import attention, ffn, ln_gelu
+
+    D, L, F = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
+    route = cfg.ffn_route
+    hd = D // cfg.num_attention_heads
+    ln = ln_gelu._name("ln_fused", D)
+    ln_apart = route in ("unfused", "ffn_block", "ffn_fc1")
     if serving:
-        return {"ln_gelu": 1, "conv_ln_gelu": 6, ln: 2 * L,
-                **({"flash_attention_seg": L} if flash else {})}
+        counts = collections.Counter({"ln_gelu": 1, "conv_ln_gelu": 6,
+                                      ln: (2 if ln_apart else 1) * L})
+        counts.update({"flash": {"flash_attention_seg": L},
+                       "pallas": {attention._name("fwd", hd): L}}.get(cfg.attention_impl, {}))
+        fwd = {"ffn_ln_block": "ffn_ln", "ffn_ln_fc1": "ffn_ln", "ffn_block": "ffn_fc1",
+               "ffn_fc1": "ffn_fc1"}.get(route)
+        if fwd is not None:
+            counts[ffn._name(fwd, D)] += L
+        return dict(counts)
     counts = collections.Counter({
         "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ctc_alpha": 1,
-        "ctc_beta": 1, ln: 4 * L, f"gelu_dropout_{F}": 2 * L, f"gelu_dropout_bwd_{F}": L})
-    counts[ln_gelu._name("ln_bwd", cfg.hidden_size)] += 2 * L
+        "ctc_beta": 1, ln: (4 if ln_apart else 2) * L})
+    counts[ln_gelu._name("ln_bwd", D)] += 2 * L
     counts["ln_bwd"] += 1
-    if flash:
+    if cfg.attention_impl == "flash":
         counts.update({"flash_attention_seg_train": 2 * L, "flash_attention_seg_bwd_dkv": L,
                        "flash_attention_seg_bwd_dq": L})
+    elif cfg.attention_impl == "pallas":
+        counts.update({attention._name("fwd", hd): L, attention._name("bwd", hd): L})
+    fwd, fwd_runs, bwd = {
+        "unfused": (f"gelu_dropout_{F}", 2, f"gelu_dropout_bwd_{F}"),
+        "ffn_ln_block": ("ffn_ln_drop", 1, "ffn_bwd"),
+        "ffn_block": ("ffn_fc1_drop", 1, "ffn_block_bwd"),
+        "ffn_ln_fc1": ("ffn_ln_drop", 2, "ffn_ln_fc1_bwd"),
+        "ffn_fc1": ("ffn_fc1_drop", 2, "ffn_fc1_bwd"),
+    }[route]
+    if route != "unfused":
+        fwd, bwd = ffn._name(fwd, D), ffn._name(bwd, D)
+    counts.update({fwd: fwd_runs * L, bwd: L})
     return dict(counts)
 
 
-def unfused_serving(card: str, label: str, config: dict, batches: int) -> dict:
+def route_serving(card: str, label: str, config: dict, batches: int, route: str) -> dict:
     """The serving clips of phase 4 (12 clips of 3-30 s in 30 s windows of
     batch 8, the second batch with 4 filler rows of one sample) through
-    ``Wav2Vec2Setup.make_predictor`` on ``config``'s routes, the first
-    ``batches`` device batches: exact launch counts, finite logits of the
-    right shape, the kernel path against the plain path on the last batch,
-    audio-s/s and latency. Returns the launch counts."""
+    ``Wav2Vec2Setup.make_predictor`` on ``config``'s routes (the FFN on
+    ``route``), the first ``batches`` device batches: exact launch counts,
+    finite logits of the right shape, the kernel path against the plain path
+    on the last batch, audio-s/s and latency. Returns the launch counts."""
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.training.model_setup import GreedyCtcPredictor, load_model_setup
@@ -2478,11 +2695,10 @@ def unfused_serving(card: str, label: str, config: dict, batches: int) -> dict:
     cfg = setup.model_config
     predictor = setup.make_predictor(model)
     print(f"serving {label}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
-          f"attention {cfg.attention_impl}, FFN {'fused' if cfg.fused_ffn else 'unfused'}, "
-          f"{cfg.dtype}", flush=True)
-    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.fused_ffn,
-            cfg.attention_impl) != (1024, 24, torch.bfloat16, False,
-                                    config["model"]["attention_impl"]):
+          f"attention {cfg.attention_impl}, FFN {cfg.ffn_route}, {cfg.dtype}", flush=True)
+    if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.ffn_route,
+            cfg.attention_impl) != (1024, 24, torch.bfloat16, route,
+                                    config["model"].get("attention_impl", "pallas")):
         fail(f"serving {label}: the setup did not build the configured routes")
     rng = np.random.default_rng(0)
     seconds = np.linspace(3.0, 30.0, 12)
@@ -2505,7 +2721,7 @@ def unfused_serving(card: str, label: str, config: dict, batches: int) -> dict:
     texts = [t for b in device_batches for t in predictor(b)]
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    expected = {n: c * batches for n, c in unfused_launches(cfg, serving=True).items()}
+    expected = {n: c * batches for n, c in route_launches(cfg, serving=True).items()}
     print(f"serving {label} main path: {batches} forwards, launch counts {counts}", flush=True)
     if counts != expected:
         fail(f"serving {label}: launch counts {counts}, expected {expected}")
@@ -2546,25 +2762,25 @@ def unfused_serving(card: str, label: str, config: dict, batches: int) -> dict:
     return counts
 
 
-def unfused_run(card: str, label: str, config: dict, steps: int, serve_batches: int,
-                compare: bool) -> dict:
-    """Phases (j), (j'): serving through the setup's predictor, then
-    ``steps`` of (c)'s production step on ``config``'s routes (the kernel
-    path against the plain path on one microbatch first, when ``compare``);
-    returns the launch counts of the counted runs."""
+def route_run(card: str, label: str, config: dict, route: str, steps: int,
+              serve_batches: int, compare: bool) -> dict:
+    """Phases (j), (j'), (l), (l'): serving through the setup's predictor,
+    then ``steps`` of (c)'s production step on ``config``'s routes (the FFN
+    on ``route``; the kernel path against the plain path on one microbatch
+    first, when ``compare``); returns the launch counts of the counted runs."""
     import tempfile
 
-    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from coral_tpu_torch.training.model_setup import load_model_setup
 
-    counts = collections.Counter(unfused_serving(card, label, config, serve_batches))
+    counts = collections.Counter(route_serving(card, label, config, serve_batches, route))
     batch, audio_seconds = train_batch(0)
     if compare:
         training_compare(card, batch, config, label, activation_dropout=0.1)
         torch.cuda.empty_cache()
-    arch = Wav2Vec2Config(attention_impl=config["model"]["attention_impl"], fused_ffn=False)
+    cfg = load_model_setup(config, device="cuda").model_config
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, _ = production_run(card, label, with_noise_bank(config, tmp),
-                                         unfused_launches(arch, serving=False), batch,
+                                         route_launches(cfg, serving=False), batch,
                                          audio_seconds, steps=steps,
                                          plain_steps=1 if compare else 0,
                                          falling=steps >= TRAIN_STEPS)
@@ -2625,6 +2841,10 @@ def main() -> int:
     print(f"kernel checks of the unfused routes (bf16, batch {BATCH}: XLS-R-300M's flash "
           f"attention with segment ids, GELU + dropout at F 4096 and 5120):", flush=True)
     checks.update(unfused_kernel_checks(card))
+    print(f"kernel checks of fc1 without the block or the folded LayerNorm (bf16, batch "
+          f"{BATCH}: N1-N4 at XLS-R-300M's and Whisper large-v3's shapes, at D 384 and 1920):",
+          flush=True)
+    checks.update(fc1_kernel_checks(card))
     mark("kernel checks")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
@@ -2665,15 +2885,27 @@ def main() -> int:
         main_counts.append(whisper_size_run(card, *size))
         mark(f"{size[0]} {size[1]}")
     # (j), (j'), (k): the unfused routes.
-    main_counts.append(unfused_run(card, "(j)", UNFUSED_FLASH_CONFIG, TRAIN_STEPS, 2, True))
+    main_counts.append(route_run(card, "(j)", UNFUSED_FLASH_CONFIG, "unfused", TRAIN_STEPS, 2,
+                                 True))
     mark("(j) flash attention, unfused FFN")
-    main_counts.append(unfused_run(card, "(j')", UNFUSED_XLA_CONFIG, FEW_STEPS, 1, False))
+    main_counts.append(route_run(card, "(j')", UNFUSED_XLA_CONFIG, "unfused", FEW_STEPS, 1,
+                                 False))
     mark("(j') xla attention, unfused FFN")
     main_counts.append(whisper_train_run(card, "(k)", WHISPER_UNFUSED_CONFIG,
                                          WHISPER_UNFUSED_PER_MICROBATCH, FEW_STEPS,
-                                         falling=False))
+                                         falling=False, route="unfused"))
     torch.cuda.empty_cache()
     mark("(k) Whisper large-v3, unfused FFN")
+    # (l), (l'), (m): the FFN without the folded LayerNorm or the block.
+    main_counts.append(route_run(card, "(l)", LN_APART_CONFIG, "ffn_block", FEW_STEPS, 1, True))
+    mark("(l) fused_ffn_ln: false, the LayerNorm-less block")
+    main_counts.append(route_run(card, "(l')", FC1_CONFIG, "ffn_fc1", FEW_STEPS, 1, False))
+    mark("(l') fused_ffn_ln and fused_ffn_block false, fc1 alone")
+    main_counts.append(whisper_train_run(card, "(m)", WHISPER_FC1_CONFIG,
+                                         WHISPER_FC1_PER_MICROBATCH, FEW_STEPS, falling=False,
+                                         route="ffn_ln_fc1"))
+    torch.cuda.empty_cache()
+    mark("(m) Whisper large-v3, fused_ffn_block: false")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")

@@ -4,11 +4,15 @@ Port of ``coral_tpu/models/wav2vec2.py`` with the JAX package's production
 defaults (``coral_tpu/training/model_setup.py``): pre-LN encoder layers, the
 fused feature-encoder conv blocks, the ``ln_fused`` pre-attention LayerNorm,
 the v3-stats attention with in-kernel q/k/v biases and the LN-folded FFN block.
-Two unfused routes are taken by flag, as in the JAX model
-(:540-595, :684-697): ``attention_impl="flash"`` (q/k/v with their biases,
-the flash kernel with segment ids over T padded to 128 rows,
+The other routes are taken by flag, as in the JAX model
+(:540-595, :624-697, :751-765): ``attention_impl="flash"`` (q/k/v with their
+biases, the flash kernel with segment ids over T padded to 128 rows,
 ``ops/flash_attention.py``) or ``"xla"`` (``jax.nn.dot_product_attention``
-with the -1e30 key bias, plain math under autograd); ``fused_ffn=False``
+with the -1e30 key bias, plain math under autograd); the FFN by
+``Wav2Vec2Config.ffn_route``: ``fused_ffn_ln=False`` normalises outside the
+FFN (``ln_fused``) and runs ``ffn_block`` without a LayerNorm;
+``fused_ffn_block=False`` runs fc1 alone (``ffn_ln_fc1``, or ``ffn_fc1``
+after ``ln_fused``) and fc2 as a product; ``fused_ffn=False`` the unfused FFN
 (the LayerNorm through ``ln_fused``, fc1, then the GELU+dropout kernel in
 training at activation dropout > 0, ``ops/gelu_dropout.py``, else exact erf
 GELU with no kernel, then fc2).
@@ -83,7 +87,7 @@ from ..ops import gelu_dropout as _gelu_dropout
 from ..ops import ln_gelu as _ln_gelu
 from ..ops.attention import short_t_attention_flat
 from ..ops.conv_ln_gelu import conv_ln_gelu
-from ..ops.ffn import ffn_ln_block
+from ..ops.ffn import ffn_block, ffn_fc1, ffn_ln_block, ffn_ln_fc1
 from ..ops.flash_attention import flash_attention, flash_self_attention
 from ..ops.gelu_dropout import gelu_dropout
 from ..ops.ln_gelu import ln_fused, ln_gelu
@@ -129,12 +133,16 @@ class Wav2Vec2Config:
     # Kernel routes (coral_tpu/models/wav2vec2.py:64-143), at the production
     # values by default. attention_impl: "pallas" (the v3-stats kernel, the
     # q/k/v biases inside it), "flash" or "xla" (the biases in the
-    # projections). fused_ffn: the LN-folded FFN block; False: the unfused
-    # FFN. The setup resolves the JAX flags that ride on these
-    # (attention_fused_qkv_bias, fused_ffn_ln) and raises for the pairs the
-    # port has no route for.
+    # projections). fused_ffn: the FFN's fused kernels, False: the unfused
+    # FFN; with it fused_ffn_ln folds the LayerNorm into them, and
+    # fused_ffn_block runs the whole FFN as one block (``ffn_route``). The
+    # setup resolves the JAX flags that ride on these
+    # (attention_fused_qkv_bias) and raises for the flags the port has no
+    # route for.
     attention_impl: str = "pallas"
     fused_ffn: bool = True
+    fused_ffn_ln: bool = True
+    fused_ffn_block: bool = True
 
     def __post_init__(self) -> None:
         if self.feat_extract_norm != "layer":
@@ -150,6 +158,17 @@ class Wav2Vec2Config:
         if self.attention_impl not in ("pallas", "flash", "xla"):
             raise ValueError(f"attention_impl={self.attention_impl!r}: expected 'pallas', "
                              "'flash' or 'xla'")
+
+    @property
+    def ffn_route(self) -> str:
+        """The FFN's route, as the JAX model picks it
+        (coral_tpu/models/wav2vec2.py:624-697, :751-765): "ffn_ln_block",
+        "ffn_block" (LN2 outside), "ffn_ln_fc1", "ffn_fc1" (LN2 outside),
+        each with fc2 outside the kernels, or "unfused"."""
+        if not self.fused_ffn:
+            return "unfused"
+        return (("ffn_ln_" if self.fused_ffn_ln else "ffn_")
+                + ("block" if self.fused_ffn_block else "fc1"))
 
     @classmethod
     def xls_r_300m(cls, vocab_size: int = 46, **kw) -> "Wav2Vec2Config":
@@ -197,7 +216,7 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
     D = config.hidden_size
     head_dim = D / config.num_attention_heads
     if config.fused_ffn:
-        ffn = [("hidden_size (the FFN block)", D, _ffn.KERNEL_D),
+        ffn = [(f"hidden_size (the FFN kernels, {config.ffn_route})", D, _ffn.KERNEL_D),
                ("intermediate_size's remainder by the FFN's F tile",
                 config.intermediate_size % _ffn.KERNEL_F_TILE, (0,))]
     else:
@@ -227,19 +246,26 @@ class _Ops(NamedTuple):
     conv_ln_gelu: Callable
     attention: Callable
     ffn_ln_block: Callable
+    ffn_block: Callable
+    ffn_ln_fc1: Callable
+    ffn_fc1: Callable
     flash_attention: Callable
     flash_self_attention: Callable
     gelu_dropout: Callable
 
 
 _KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat, ffn_ln_block,
-                flash_attention, flash_self_attention, gelu_dropout)
+                ffn_block, ffn_ln_fc1, ffn_fc1, flash_attention, flash_self_attention,
+                gelu_dropout)
 _PLAIN = _Ops(
     functools.partial(ln_gelu, plain=True),
     functools.partial(ln_fused, plain=True),
     functools.partial(conv_ln_gelu, plain=True),
     functools.partial(short_t_attention_flat, plain=True),
     functools.partial(ffn_ln_block, plain=True),
+    functools.partial(ffn_block, plain=True),
+    functools.partial(ffn_ln_fc1, plain=True),
+    functools.partial(ffn_fc1, plain=True),
     functools.partial(flash_attention, plain=True),
     _flash.flash_self_attention_plain,
     functools.partial(gelu_dropout, plain=True),
@@ -256,9 +282,13 @@ _ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
 # "v" are the projections with their biases, and "attn_ctx" keeps nothing
 # apart: the flash forward's residuals o, l, m have no name, so its replay
 # runs the forward (with its stats) again, as the JAX replay does, and the
-# plain attention packs its own residuals. On the unfused FFN "ffn_in" is
-# the LN2 output and "ffn_hidden" the fc1 output. "ffn_act" exists only on
-# FFN routes the port does not take, so naming it keeps nothing.
+# plain attention packs its own residuals. "ffn_in" names the residual
+# stream where the LayerNorm is folded into the FFN's kernels and the LN2
+# output elsewhere (coral_tpu/models/wav2vec2.py:751-765). On the fc1 routes
+# ("ffn_ln_fc1", "ffn_fc1") "ffn_act" is fc1's output g: kept, the replay
+# skips the fc1 kernel; else it runs it again, since fc2's weight gradient
+# reads g. The blocks emit no "ffn_act" (their replay launches nothing), and
+# the unfused FFN names its fc1 output "ffn_hidden".
 REMAT_POLICIES: dict[str, tuple[str, ...]] = {
     "nothing_saveable": (),
     "save_matmul_inputs": ("attn_in", "q", "k", "v", "attn_ctx", "ffn_in"),
@@ -581,44 +611,55 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """The pre-LN FFN: with ``fused_ffn`` its LayerNorm folded into the block
-    (``ffn_ln_block``), else fc1, GELU (+ dropout) and fc2 after an outside
-    LayerNorm."""
+    """The pre-LN FFN on the route of ``config.ffn_route``: one of the fused
+    entry points of ``ops/ffn.py`` (the blocks take fc2 in, the fc1 routes
+    leave it to a product), else fc1, GELU (+ dropout) and fc2."""
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
         D, Fi = config.hidden_size, config.intermediate_size
         self.intermediate_dense = nn.Linear(D, Fi)
         self.output_dense = nn.Linear(Fi, D)
-        self.fused = config.fused_ffn
-        self.block = ops.ffn_ln_block
-        self.gelu_dropout = ops.gelu_dropout
+        self.route = config.ffn_route
+        self.ops = ops
         self.activation_rate = config.activation_dropout
         self.rate = config.hidden_dropout
         self.dtype = config.dtype
 
     def forward(self, x, ln: nn.LayerNorm, act_seeds=None, out_seeds=None,
                 remat: _Remat = _NO_REMAT):
-        """x: the residual stream (the block folds ``ln`` in) or, unfused, the
-        LN2 output; act_seeds: (B,) seeds of the activation dropout (None:
-        rate 0, the deterministic forward); out_seeds: those of the hidden
-        dropout; remat: the layer's checkpoint record (the block's replay
-        reads no output of it; unfused, a kept "ffn_hidden" skips fc1)."""
+        """x: the residual stream on the routes that fold ``ln`` in, else
+        the LN2 output; act_seeds: (B,) seeds of the activation dropout
+        (None: rate 0, the deterministic forward); out_seeds: those of the
+        hidden dropout; remat: the layer's checkpoint record (a block's
+        replay reads no output of it; a kept "ffn_act" skips the fc1 kernel,
+        a kept "ffn_hidden" the unfused fc1)."""
         fc1, fc2 = self.intermediate_dense, self.output_dense
         rate = self.activation_rate if act_seeds is not None else 0.0
-        if self.fused:
-            x = self.block(
-                x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias, ln.eps,
-                rate, act_seeds if rate > 0.0 else None,
-                saved=torch.empty_like(x) if remat.replaying else None,
-            )
+        seeds = act_seeds if rate > 0.0 else None
+        dt, ops = self.dtype, self.ops
+        if self.route in ("ffn_ln_block", "ffn_block"):
+            stand_in = torch.empty_like(x) if remat.replaying else None
+            if self.route == "ffn_ln_block":
+                x = ops.ffn_ln_block(x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight,
+                                     fc2.bias, ln.eps, rate, seeds, saved=stand_in)
+            else:
+                x = ops.ffn_block(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, rate, seeds,
+                                  saved=stand_in)
+        elif self.route in ("ffn_ln_fc1", "ffn_fc1"):
+            saved = remat.saved("ffn_act")
+            if self.route == "ffn_ln_fc1":
+                g = ops.ffn_ln_fc1(x, fc1.weight, fc1.bias, ln.weight, ln.bias, ln.eps, rate,
+                                   seeds, saved=saved)
+            else:
+                g = ops.ffn_fc1(x, fc1.weight, fc1.bias, rate, seeds, saved=saved)
+            x = _linear(remat.keep("ffn_act", g), fc2, dt)
         else:
-            dt = self.dtype
             h = remat.keep("ffn_hidden", _project(x, fc1, dt, remat, "ffn_hidden",
                                                   saved=remat.saved("ffn_hidden")))
             # The JAX model: the kernel only for dropout in training, else
             # exact erf GELU (coral_tpu/models/wav2vec2.py:684-695).
-            h = self.gelu_dropout(h, rate, act_seeds) if rate > 0.0 else F.gelu(h)
+            h = ops.gelu_dropout(h, rate, act_seeds) if rate > 0.0 else F.gelu(h)
             x = _linear(h, fc2, dt)
         return _dropout(x, self.rate, out_seeds)
 
@@ -632,6 +673,8 @@ class EncoderLayer(nn.Module):
         self.layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
         self.feed_forward = FeedForward(config, ops)
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
+        # The FFN's kernels take the residual stream and fold LN2 in.
+        self.ln_folded = config.ffn_route in ("ffn_ln_block", "ffn_ln_fc1")
         self.ops = ops
 
     def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
@@ -641,10 +684,9 @@ class EncoderLayer(nn.Module):
         s = [None] * 3 if seeds is None else seeds
         attn_in = remat.keep("attn_in", self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps,
                                                           saved=remat.saved("attn_in")))
-        fused = self.feed_forward.fused
-        h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat, skip_out=fused)
-        if fused:
-            # "ffn_in" names the residual stream, the block's input.
+        h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat, skip_out=self.ln_folded)
+        if self.ln_folded:
+            # "ffn_in" names the residual stream, the FFN kernels' input.
             ffn_in = remat.saved("ffn_in")
             if ffn_in is None:
                 ffn_in = remat.keep("ffn_in", x + h)

@@ -13,15 +13,18 @@ convs run as ``F.conv1d`` with exact erf GELU. Encoder self-attention takes
 the flash kernel (``ops/flash_attention.py``) where JAX takes its flash
 kernel: ``encoder_attention_impl="flash"`` and T >= 1024, no mask, not causal;
 otherwise plain matmul + fp32 softmax, the math of
-``jax.nn.dot_product_attention``. The encoder FFN is ``ffn_ln_block`` (the JAX
-``fused_ffn_block`` route: LayerNorm folded into fc1, the polynomial GELU
-tables, fc2 outside the kernel), or with ``fused_ffn=False`` the JAX
-``_ffn_block`` -> ``_ffn_up`` -> ``_ffn_activation`` chain: the LayerNorm,
-fc1, the GELU+dropout kernel (``ops/gelu_dropout.py``) in training at
-activation dropout > 0, else exact erf GELU, then fc2; the same FFN in the
-decoder's training forward. Encoder LayerNorms are plain fp32
-(``ln_impl="xla"``) or the ``ln_fused`` kernel (``"pallas"``, at widths that
-are a multiple of 128, as JAX). The decode step's LayerNorms and FFN are
+``jax.nn.dot_product_attention``. The encoder FFN takes the route of
+``WhisperConfig.ffn_route``, as the JAX ``_ffn_full``: ``ffn_ln_block`` (the
+JAX ``fused_ffn_block`` route: LayerNorm folded into fc1, the polynomial
+GELU tables, fc2 outside the kernel); with ``fused_ffn_block=False`` fc1
+alone, ``ffn_ln_fc1`` (the LayerNorm folded in) or, with
+``fused_ffn_ln=False``, the LayerNorm then ``ffn_fc1``, and fc2 as a
+product; with ``fused_ffn=False`` the JAX ``_ffn_block`` -> ``_ffn_up`` ->
+``_ffn_activation`` chain: the LayerNorm, fc1, the GELU+dropout kernel
+(``ops/gelu_dropout.py``) in training at activation dropout > 0, else exact
+erf GELU, then fc2; the same FFN in the decoder's training forward. Encoder
+LayerNorms are plain fp32 (``ln_impl="xla"``) or the ``ln_fused`` kernel
+(``"pallas"``, at widths that are a multiple of 128, as JAX). The decode step's LayerNorms and FFN are
 plain (fp32 LayerNorm, exact erf GELU), its attention the decode kernels
 (``ops/decode_attention.py``) over the stacked (L, B, T, H*d) caches, and the
 LM head an fp32 product with the tied token embedding.
@@ -74,7 +77,7 @@ from ..ops import gelu_dropout as _gelu_dropout
 from ..ops import ln_gelu as _ln_gelu
 from ..ops.decode_attention import (decode_cross_attention, decode_cross_attention_plain,
                                     decode_self_attention, decode_self_attention_plain)
-from ..ops.ffn import ffn_ln_block
+from ..ops.ffn import ffn_fc1, ffn_ln_block, ffn_ln_fc1
 from ..ops.flash_attention import (flash_attention, flash_self_attention,
                                    flash_self_attention_plain)
 from ..ops.gelu_dropout import gelu_dropout
@@ -91,11 +94,13 @@ _FLASH_MIN_T = 1024
 # "attn_in" and "cross_in" (the LayerNorm outputs), "q", "k", "v" and
 # "cross_q" (the projections), "attn_ctx" and "cross_attn_ctx" (the attention
 # outputs), "flash_o", "flash_l" and "flash_m" (the encoder flash attention's
-# residuals) and "ffn_in" (the residual stream into the FFN block; with
-# fused_ffn False the LayerNorm's output, which keeps nothing apart, as
-# "attn_in"). The port skips in the replay what a kept name lets it skip: a
-# projection, the flash forward (o, l and m kept together) and, on the
-# block's route, the out projection under "ffn_in".
+# residuals) and "ffn_in" (the residual stream into the FFN's kernels where
+# they fold the LayerNorm in; on the "ffn_fc1" and unfused routes the
+# LayerNorm's output, which keeps nothing apart, as "attn_in"). The port skips
+# in the replay what a kept name lets it skip: a projection, the flash forward
+# (o, l and m kept together) and, where the LayerNorm is folded, the out
+# projection under "ffn_in". No Whisper policy names the fc1 output, so off
+# the block's route the fc1 forward runs again in every replay.
 # The LayerNorms and the decoder's attention are autograd ops whose own
 # residuals the replay packs again, so it recomputes them, and in the encoder
 # "attn_ctx" is the kept flash o itself: those four names keep nothing apart.
@@ -147,13 +152,29 @@ class WhisperConfig:
     ln_impl: str = "xla"
     # Layer-stack remat policy under gradient checkpointing (REMAT_POLICIES).
     remat_policy: str = "save_matmul_inputs"
-    # The FFN: the LN-folded block (True) or LayerNorm, fc1, GELU (+ dropout)
-    # and fc2 apart (False).
+    # The FFN (``ffn_route``): its fused kernels (True) or LayerNorm, fc1,
+    # GELU (+ dropout) and fc2 apart (False); with the kernels, the whole FFN
+    # as the LN-folded block (fused_ffn_block) or fc1 alone, with the
+    # LayerNorm folded in (fused_ffn_ln) or apart, and fc2 a product.
     fused_ffn: bool = True
+    fused_ffn_ln: bool = True
+    fused_ffn_block: bool = True
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.encoder_attention_heads
+
+    @property
+    def ffn_route(self) -> str:
+        """The FFN's route, as the JAX ``_ffn_full`` picks it
+        (coral_tpu/models/whisper.py:345-403): "ffn_ln_block" (the block
+        folds the LayerNorm in whatever fused_ffn_ln says), "ffn_ln_fc1",
+        "ffn_fc1" (the LayerNorm apart) or "unfused"."""
+        if not self.fused_ffn:
+            return "unfused"
+        if self.fused_ffn_block:
+            return "ffn_ln_block"
+        return "ffn_ln_fc1" if self.fused_ffn_ln else "ffn_fc1"
 
     # Checkpoint families (HF config.json values for openai/whisper-*)
     @classmethod
@@ -280,15 +301,20 @@ class _Ops(NamedTuple):
     decode_self_attention: Callable
     decode_cross_attention: Callable
     ffn_ln_block: Callable
+    ffn_ln_fc1: Callable
+    ffn_fc1: Callable
     ln_fused: Callable
     gelu_dropout: Callable
 
 
 _KERNELS = _Ops(flash_self_attention, flash_attention, decode_self_attention,
-                decode_cross_attention, ffn_ln_block, ln_fused, gelu_dropout)
+                decode_cross_attention, ffn_ln_block, ffn_ln_fc1, ffn_fc1, ln_fused,
+                gelu_dropout)
 _PLAIN = _Ops(flash_self_attention_plain, functools.partial(flash_attention, plain=True),
               decode_self_attention_plain, decode_cross_attention_plain,
               functools.partial(ffn_ln_block, plain=True),
+              functools.partial(ffn_ln_fc1, plain=True),
+              functools.partial(ffn_fc1, plain=True),
               functools.partial(ln_fused, plain=True),
               functools.partial(gelu_dropout, plain=True))
 
@@ -399,12 +425,13 @@ def kernel_widths(config: WhisperConfig) -> list[tuple[str, float, tuple]]:
     D = config.d_model
     if config.fused_ffn:
         needs = [
-            ("d_model (the FFN block)", D, _ffn.KERNEL_D),
+            (f"d_model (the FFN kernels, {config.ffn_route})", D, _ffn.KERNEL_D),
             ("ffn_dim's remainder by the FFN's F tile", config.ffn_dim % _ffn.KERNEL_F_TILE,
              (0,)),
-            ("d_model (the FFN backward's LayerNorm)", D,
-             _ln_gelu.KERNEL_C_BWD[torch.bfloat16]),
         ]
+        if config.ffn_route != "ffn_fc1":
+            needs.append(("d_model (the FFN backward's LayerNorm)", D,
+                          _ln_gelu.KERNEL_C_BWD[torch.bfloat16]))
     else:
         needs = [("ffn_dim's remainder by the GELU+dropout's vector",
                   config.ffn_dim % _gelu_dropout.KERNEL_F_MULTIPLE, (0,))]
@@ -500,29 +527,38 @@ def _projections(model, attn: WhisperAttention, h: torch.Tensor, names: str, pre
     return out
 
 
-def _ffn_unfused(model, layer, x: torch.Tensor, seeds) -> torch.Tensor:
-    """The JAX ``_ffn_block`` -> ``_ffn_up`` -> ``_ffn_activation``, then fc2
-    (coral_tpu/models/whisper.py:330-377, :402-403): the LayerNorm (its
-    output the JAX "ffn_in"), fc1, the GELU+dropout kernel for dropout in
-    training, else exact erf GELU, fc2."""
+def _ffn_apart(model, layer, x: torch.Tensor, seeds) -> torch.Tensor:
+    """The JAX ``_ffn_block`` -> ``_ffn_up`` chain, then fc2, with the
+    LayerNorm apart (coral_tpu/models/whisper.py:330-377, :402-403): the
+    LayerNorm (its output the JAX "ffn_in"), then on the "ffn_fc1" route the
+    fc1 kernel (its forward runs again in every replay: fc2's weight gradient
+    reads g, which no Whisper policy keeps), else fc1, the GELU+dropout kernel
+    for dropout in training or exact erf GELU; fc2."""
     dt = model.config.dtype
-    h = _linear(_train_layer_norm(model, layer.final_layer_norm, x), layer.fc1, dt)
     rate = model.config.activation_dropout if seeds is not None else 0.0
-    h = model.ops.gelu_dropout(h, rate, seeds) if rate > 0.0 else F.gelu(h)
+    h = _train_layer_norm(model, layer.final_layer_norm, x)
+    fc1 = layer.fc1
+    if model.config.ffn_route == "ffn_fc1":
+        h = model.ops.ffn_fc1(h, fc1.weight, fc1.bias, rate, seeds)
+    else:
+        h = _linear(h, fc1, dt)
+        h = model.ops.gelu_dropout(h, rate, seeds) if rate > 0.0 else F.gelu(h)
     return _linear(h, layer.fc2, dt)
 
 
 def _ffn_residual(model, layer, x: torch.Tensor, a_in: torch.Tensor, out_proj: nn.Linear,
                   seeds, remat: _Remat) -> torch.Tensor:
     """``x + out_proj(a_in)``, then that plus the FFN of it: the end of
-    every layer. On the block's route a kept "ffn_in" is the replay's residual
-    stream, which reads no output of the out projection (a stand-in) nor of
-    the FFN block (its residuals are its inputs, so the replay never runs its
-    forward)."""
+    every layer. Where the FFN's kernels fold the LayerNorm in, a kept
+    "ffn_in" is the replay's residual stream, which reads no output of the
+    out projection (a stand-in); the block's forward never runs in the replay
+    (its residuals are its inputs), the LN-folded fc1's does (fc2's weight
+    gradient reads its output)."""
     dt = model.config.dtype
-    if not model.config.fused_ffn:
+    route = model.config.ffn_route
+    if route in ("unfused", "ffn_fc1"):
         x = x + _linear(a_in, out_proj, dt)
-        out = x + _ffn_unfused(model, layer, x, seeds)
+        out = x + _ffn_apart(model, layer, x, seeds)
         remat.replaying = remat is not _NO_REMAT
         return out
     unread = None if remat.saved("ffn_in") is None else torch.empty_like(x)
@@ -530,12 +566,17 @@ def _ffn_residual(model, layer, x: torch.Tensor, a_in: torch.Tensor, out_proj: n
     ffn_in = remat.saved("ffn_in")
     if ffn_in is None:
         ffn_in = remat.keep("ffn_in", x + a)
-    fln = layer.final_layer_norm
+    fln, fc1, fc2 = layer.final_layer_norm, layer.fc1, layer.fc2
     rate = model.config.activation_dropout if seeds is not None else 0.0
-    out = ffn_in + model.ops.ffn_ln_block(
-        ffn_in, layer.fc1.weight, layer.fc1.bias, fln.weight, fln.bias, layer.fc2.weight,
-        layer.fc2.bias, fln.eps, rate, seeds, saved=torch.empty_like(ffn_in) if remat.replaying
-        else None)
+    if route == "ffn_ln_block":
+        ffn = model.ops.ffn_ln_block(
+            ffn_in, fc1.weight, fc1.bias, fln.weight, fln.bias, fc2.weight, fc2.bias, fln.eps,
+            rate, seeds, saved=torch.empty_like(ffn_in) if remat.replaying else None)
+    else:
+        g = model.ops.ffn_ln_fc1(ffn_in, fc1.weight, fc1.bias, fln.weight, fln.bias, fln.eps,
+                                 rate, seeds)
+        ffn = _linear(g, fc2, dt)
+    out = ffn_in + ffn
     remat.replaying = remat is not _NO_REMAT
     return out
 

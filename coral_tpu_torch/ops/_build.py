@@ -70,6 +70,14 @@ _SIGNATURES = {
     # D: the kernels' rows per block at width D, -1 for an unbuilt width (no
     # launch)
     "coral_ffn_row_tile": [_I],
+    # x, w1, b1, seeds, g, M, D, F, T, threshold, scale, stream
+    "coral_ffn_fc1_fwd": [_P] * 5 + [_LL, _I, _I, _I, _U, _F, _P],
+    # x, w1, b1, dg, seeds, g (null: not written), dh, db1_part, dx, M, D, F,
+    # T, threshold, scale, stream
+    "coral_ffn_fc1_bwd": [_P] * 9 + [_LL, _I, _I, _I, _U, _F, _P],
+    # x, w1, b1, gamma, beta, dg, seeds, dh, ln_out, db1_part, dl, M, D, F, T,
+    # threshold, scale, eps, stream
+    "coral_ffn_ln_fc1_bwd": [_P] * 11 + [_LL, _I, _I, _I, _U, _F, _F, _P],
     # emit, skip, valid, lengths, out, T, B, S, stream
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream

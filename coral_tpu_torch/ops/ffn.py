@@ -1,21 +1,44 @@
-"""The pre-LN FFN block: ``dropout(gelu(layer_norm(x) @ W1^T + b1)) @ W2^T + b2``.
+"""The FFN's fused up-projection kernels: the pre-LN block and fc1 alone.
 
-Port of ``coral_tpu/ops/ffn_pallas.py`` ``ffn_ln_block`` with
-``dg_in_kernel=True`` (``_ffn_ln_block_dg``, :1742-1789), forward and
-backward, at any dropout rate, at every width of the repository's configs
-(``KERNEL_D``: Whisper tiny, base and small's 384, 512 and 768, XLS-R-300M's
-1024, Whisper large-v3's and XLS-R-1B's 1280, XLS-R-2B's 1920); other widths
-raise on the card (ROADMAP.md Queue 2 item 3). On a CUDA tensor the wrappers launch
-``csrc/ffn.cu``: the forward writes ``g = dropout(gelu(bf16(layer_norm(x)) @
-W1^T + b1))`` (``_fwd_kernel_ln`` / ``_fwd_kernel_ln_drop``) and fc2 runs as
-``torch.matmul``, which the JAX package also leaves outside its kernel
-(``_fc2``); the backward (``_bwd_kernel_ln_g_dg[_drop]``) recomputes h, forms
-``dg = dy @ W2^T`` in the kernel, writes g (the dW2 operand), dh and ln_out
-(the dW1 operand), computes ``dl = dh @ W1`` in a second kernel and passes dl
-through the LayerNorm backward of ``csrc/ln_gelu.cu``. dW1, dW2, db2 and the
-sums of the row partials stay outside as products and sums, as in
-``_ffn_ln_block_dg_bwd``. On a CPU tensor the plain versions beside them run;
-``plain=True`` runs them on any device.
+Port of ``coral_tpu/ops/ffn_pallas.py`` at every width of the repository's
+configs (``KERNEL_D``: Whisper tiny, base and small's 384, 512 and 768,
+XLS-R-300M's 1024, Whisper large-v3's and XLS-R-1B's 1280, XLS-R-2B's 1920);
+other widths raise on the card (ROADMAP.md Queue 2 item 3). Four
+differentiable entry points, each a ``torch.autograd.Function`` whose
+residuals are its primal inputs and the seeds, as the JAX custom VJPs':
+
+- ``ffn_ln_block``: ``dropout(gelu(layer_norm(x) @ W1^T + b1)) @ W2^T + b2``,
+  ``ffn_ln_block`` with ``dg_in_kernel=True`` (``_ffn_ln_block_dg``,
+  :1742-1789). The forward writes ``g`` in ``csrc/ffn.cu``
+  (``_fwd_kernel_ln[_drop]``) and fc2 runs as ``torch.matmul``, which the JAX
+  package also leaves outside its kernel (``_fc2``); the backward
+  (``_bwd_kernel_ln_g_dg[_drop]``) recomputes h, forms ``dg = dy @ W2^T`` in
+  the kernel, writes g (the dW2 operand), dh and ln_out (the dW1 operand),
+  computes ``dl = dh @ W1`` in a second kernel and passes dl through the
+  LayerNorm backward of ``csrc/ln_gelu.cu``.
+- ``ffn_block``: the same without the LayerNorm (``_ffn_block``,
+  :1864-1905): the forward ``csrc/ffn_fc1.cu`` (``_fwd_kernel[_drop]``),
+  fc2 outside; the backward forms ``dg = dy @ W2^T`` outside, rounded to the
+  working dtype as JAX's ``.astype(dy.dtype)``, and ``csrc/ffn_fc1.cu``
+  (``_bwd_kernel_g[_drop]``) writes dh, g and dx = dh @ W1.
+- ``ffn_ln_fc1``: ``dropout(gelu(layer_norm(x) @ W1^T + b1))`` alone
+  (``_ffn_ln_fc1``, :1604-1642): the forward is the block's, the backward
+  ``csrc/ffn_ln_fc1.cu`` (``_bwd_kernel_ln[_drop]``: dh, ln_out, dl) and the
+  LayerNorm backward.
+- ``ffn_fc1``: ``dropout(gelu(x @ W1^T + b1))`` (``_ffn_fc1``,
+  :1645-1674): ``csrc/ffn_fc1.cu`` both ways (``_fwd_kernel[_drop]``,
+  ``_bwd_kernel[_drop]``: dh and dx = dh @ W1).
+
+dW1, dW2, db2 and the sums of the kernels' row partials stay outside as
+products and sums, as in the JAX backward functions. On a CPU tensor the
+plain versions beside the kernels run, with the kernels' roundings: h in
+fp32, g rounded to x's dtype, dh rounded to x's dtype before its product with
+W1 and summed unrounded into db1, as the TPU kernels do (``_bwd_epilogue``);
+``plain=True`` runs them on any device. Each entry point takes ``saved``, a
+checkpoint replay's hook: for the blocks a stand-in for the output, which the
+backward never reads (nothing launches, as the JAX replay drops the block's
+forward); for fc1 alone the kept output g, which fc2's weight gradient reads
+(without it the replay runs the forward again, as JAX's does).
 
 Dropout draws its mask from ``ops/philox.py``: a pure function of (seeds[b],
 row, column), so the backward regenerates the forward's mask bit for bit and
@@ -55,18 +78,44 @@ def _ln_rows(x, gamma, beta, eps):
     return (xhat * gamma.float() + beta.float()).to(x.dtype), xhat, rstd
 
 
+def _h(a, w1, b1):
+    """The pre-activation ``a @ W1^T + b1``: bf16 operands, fp32 sums and bias."""
+    return a.float() @ w1.to(a.dtype).float().t() + b1.float()
+
+
+def _act(h, T, rate, seeds):
+    """``dropout(gelu(h))`` in fp32: the polynomial GELU, the Philox mask of
+    (seeds[b], row, column) and the 1/keep scale."""
+    g = gelu_poly(h)
+    if rate > 0.0:
+        keep = keep_mask(seeds, T, h.shape[-1], rate)
+        g = torch.where(keep, g * (1.0 / (1.0 - rate)), 0.0)
+    return g
+
+
+def _act_bwd(h, dg, T, rate, seeds):
+    """(g, dh) in fp32 from h and dg, the forward's mask regenerated."""
+    g = h * _phi(h)
+    if rate > 0.0:
+        keep = keep_mask(seeds, T, h.shape[-1], rate)
+        scale = 1.0 / (1.0 - rate)
+        return torch.where(keep, g * scale, 0.0), torch.where(keep, dg * scale * _dgelu(h), 0.0)
+    return g, dg * _dgelu(h)
+
+
 def ffn_ln_fc1_plain(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0,
                      seeds=None):
     """``g`` in plain ops: fp32 LayerNorm rounded to ``x.dtype`` (the
     product's operand, as ``_ln_matmul``), the product accumulated in fp32,
     + b1, polynomial GELU, the dropout mask, cast to ``x.dtype``."""
     ln, _, _ = _ln_rows(x, gamma, beta, eps)
-    h = ln.float() @ w1.to(x.dtype).float().t() + b1.float()
-    g = gelu_poly(h)
-    if rate > 0.0:
-        keep = keep_mask(seeds, x.shape[1], w1.shape[0], rate)
-        g = torch.where(keep, g * (1.0 / (1.0 - rate)), 0.0)
-    return g.to(x.dtype)
+    return _act(_h(ln, w1, b1), x.shape[1], rate, seeds).to(x.dtype)
+
+
+def ffn_fc1_plain(x, w1, b1, rate: float = 0.0, seeds=None):
+    """``g`` of ``_fwd_kernel[_drop]`` in plain ops: ``x @ W1^T`` accumulated
+    in fp32, + b1, polynomial GELU, the dropout mask, cast to ``x.dtype``."""
+    return _act(_h(x, w1, b1), x.shape[1], rate, seeds).to(x.dtype)
 
 
 def _fc2(g, w2, b2):
@@ -97,7 +146,36 @@ def _check_seeds(name, x, rate, seeds):
     return seeds.data_ptr(), x.shape[1], threshold(rate), 1.0 / (1.0 - rate)
 
 
-def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, seeds=None):
+def _check_fc1(name, x, w1, b1, vectors=()):
+    """Checks the operands of an fc1 kernel; returns (D, F, w1 in x.dtype)."""
+    F = w1.shape[0]
+    D = _check_shapes(name, x, w1, F)
+    w1 = w1.to(x.dtype)
+    _build.check_cuda(name, torch.bfloat16, x, w1)
+    _build.check_cuda(name, torch.float32, b1, *vectors)
+    if b1.shape != (F,) or any(v.shape != (D,) for v in vectors):
+        raise ValueError(f"{name}: b1 must be ({F},), gamma and beta ({D},)")
+    if any(t.device != x.device for t in (w1, b1, *vectors)):
+        raise ValueError(f"{name}: all tensors must be on {x.device}")
+    return D, F, w1
+
+
+def _check_dg(name, x, dg, F):
+    dg = dg.to(x.dtype).contiguous()
+    _build.check_cuda(name, torch.bfloat16, dg)
+    if dg.shape != (*x.shape[:-1], F):
+        raise ValueError(f"{name}: dg must be {(*x.shape[:-1], F)}, got {tuple(dg.shape)}")
+    return dg
+
+
+def _db1_part(x, D, F):
+    """The kernels' db1 partials: one row per row tile (64 rows, 32 at D = 1920)."""
+    M = x.numel() // D
+    row_tile = _build.library().coral_ffn_row_tile(D)
+    return M, torch.empty((-(-M // row_tile), F), dtype=torch.float32, device=x.device)
+
+
+def ffn_ln_fc1_fwd(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, seeds=None):
     """``g = dropout(gelu(bf16(layer_norm(x)) @ W1^T + b1))``, the kernel's output.
 
     Args:
@@ -113,15 +191,7 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
     name = "coral_ffn_ln_fwd"
     if not _build.require_cuda(name, x):
         return ffn_ln_fc1_plain(x, w1, b1, gamma, beta, eps, rate, seeds)
-    F = w1.shape[0]
-    D = _check_shapes(name, x, w1, F)
-    w1 = w1.to(x.dtype)
-    _build.check_cuda(name, torch.bfloat16, x, w1)
-    _build.check_cuda(name, torch.float32, b1, gamma, beta)
-    if b1.shape != (F,) or gamma.shape != (D,) or beta.shape != (D,):
-        raise ValueError(f"{name}: b1 must be ({F},), gamma and beta ({D},)")
-    if any(t.device != x.device for t in (w1, b1, gamma, beta)):
-        raise ValueError(f"{name}: all tensors must be on {x.device}")
+    D, F, w1 = _check_fc1(name, x, w1, b1, (gamma, beta))
     seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
     g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
     _build.launch(
@@ -130,6 +200,30 @@ def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, see
         x.numel() // D, D, F, T, thr, scale, float(eps),
     )
     return g
+
+
+def ffn_fc1_fwd(x, w1, b1, rate: float = 0.0, seeds=None):
+    """``g = dropout(gelu(x @ W1^T + b1))``, the kernel's output (N1);
+    arguments and result as ``ffn_ln_fc1_fwd`` without the LayerNorm."""
+    name = "coral_ffn_fc1_fwd"
+    if not _build.require_cuda(name, x):
+        return ffn_fc1_plain(x, w1, b1, rate, seeds)
+    D, F, w1 = _check_fc1(name, x, w1, b1)
+    seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
+    g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
+    _build.launch(
+        name, _name("ffn_fc1_drop" if rate > 0.0 else "ffn_fc1", D), x.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), seed_ptr, g.data_ptr(), x.numel() // D, D, F, T, thr,
+        scale,
+    )
+    return g
+
+
+def _ln_bwd_rows(dl, xhat, rstd, gamma):
+    """The LayerNorm backward of ``_bwd_ln_epilogue``: dx (fp32) from dl."""
+    dn = dl * gamma.float()
+    return (dn - dn.mean(dim=-1, keepdim=True)
+            - xhat * (dn * xhat).mean(dim=-1, keepdim=True)) * rstd
 
 
 def ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0,
@@ -142,21 +236,11 @@ def ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float
     dt = x.dtype
     D = x.shape[-1]
     ln, xhat, rstd = _ln_rows(x, gamma, beta, eps)
-    h = ln.float() @ w1.to(dt).float().t() + b1.float()
     dg = dy.to(dt).float() @ w2.to(dt).float()
-    g = h * _phi(h)
-    if rate > 0.0:
-        keep = keep_mask(seeds, x.shape[1], w1.shape[0], rate)
-        scale = 1.0 / (1.0 - rate)
-        g = torch.where(keep, g * scale, 0.0)
-        dh = torch.where(keep, dg * scale * _dgelu(h), 0.0)
-    else:
-        dh = dg * _dgelu(h)
+    g, dh = _act_bwd(_h(ln, w1, b1), dg, x.shape[1], rate, seeds)
     dhb = dh.to(dt)
     dl = dhb.float() @ w1.to(dt).float()
-    dn = dl * gamma.float()
-    dx = (dn - dn.mean(dim=-1, keepdim=True)
-          - xhat * (dn * xhat).mean(dim=-1, keepdim=True)) * rstd
+    dx = _ln_bwd_rows(dl, xhat, rstd, gamma)
     return (g.to(dt), dhb, ln, dx.to(dt), dh.reshape(-1, dh.shape[-1]).sum(0),
             (dl * xhat).reshape(-1, D).sum(0), dl.reshape(-1, D).sum(0))
 
@@ -172,21 +256,16 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     name = "coral_ffn_bwd"
     if not _build.require_cuda(name, x):
         return ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, eps, rate, seeds)
-    F = w1.shape[0]
-    D = _check_shapes(name, x, w1, F)
-    w1, w2, dy = w1.to(x.dtype), w2.to(x.dtype).contiguous(), dy.to(x.dtype).contiguous()
-    _build.check_cuda(name, torch.bfloat16, x, w1, w2, dy)
-    _build.check_cuda(name, torch.float32, b1, gamma, beta)
-    if w2.shape != (D, F) or dy.shape != x.shape or b1.shape != (F,):
-        raise ValueError(f"{name}: w2 must be ({D}, {F}), dy {tuple(x.shape)}, b1 ({F},)")
+    D, F, w1 = _check_fc1(name, x, w1, b1, (gamma, beta))
+    w2, dy = w2.to(x.dtype).contiguous(), dy.to(x.dtype).contiguous()
+    _build.check_cuda(name, torch.bfloat16, x, w2, dy)
+    if w2.shape != (D, F) or dy.shape != x.shape:
+        raise ValueError(f"{name}: w2 must be ({D}, {F}), dy {tuple(x.shape)}")
     seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
-    M = x.numel() // D
+    M, db1_part = _db1_part(x, D, F)
     g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
     dh = torch.empty_like(g)
     ln_out = torch.empty_like(x)
-    # One db1 partial per row tile of the kernel (64 rows, 32 at D = 1920).
-    row_tile = _build.library().coral_ffn_row_tile(D)
-    db1_part = torch.empty((-(-M // row_tile), F), dtype=torch.float32, device=x.device)
     dl = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     _build.launch(
         name, _name("ffn_bwd", D), x.data_ptr(), w1.data_ptr(),
@@ -196,6 +275,100 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     )
     dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
     return g, dh, ln_out, dx, db1_part.sum(0), dgamma, dbeta
+
+
+def ffn_fc1_bwd_plain(x, w1, b1, dg, rate: float = 0.0, seeds=None, emit_g: bool = False):
+    """``_bwd_kernel[_drop]`` (N2) or, with ``emit_g``, ``_bwd_kernel_g[_drop]``
+    (N3) + ``_bwd_epilogue`` in plain ops.
+
+    Returns (dh, dx, db1), or (dh, g, dx, db1) with ``emit_g``: dh, g and dx
+    in x.dtype, db1 (F,) fp32. dh is rounded before ``dx = dh @ W1`` and
+    summed unrounded into db1, as in the TPU kernel."""
+    dt = x.dtype
+    g, dh = _act_bwd(_h(x, w1, b1), dg.to(dt).float(), x.shape[1], rate, seeds)
+    dhb = dh.to(dt)
+    dx = (dhb.float() @ w1.to(dt).float()).to(dt)
+    db1 = dh.reshape(-1, dh.shape[-1]).sum(0)
+    return (dhb, g.to(dt), dx, db1) if emit_g else (dhb, dx, db1)
+
+
+def ffn_fc1_bwd(x, w1, b1, dg, rate: float = 0.0, seeds=None, emit_g: bool = False):
+    """The backward kernels of fc1 without the LayerNorm (N2; N3 with
+    ``emit_g``); arguments and results as ``ffn_fc1_bwd_plain``.
+
+    Args:
+        x: (B, T, D) bf16, D in ``KERNEL_D``; dg: (B, T, F), cast to x.dtype.
+        w1: (F, D), cast to x.dtype; b1 (F,) fp32.
+    """
+    name = "coral_ffn_fc1_bwd"
+    if not _build.require_cuda(name, x):
+        return ffn_fc1_bwd_plain(x, w1, b1, dg, rate, seeds, emit_g)
+    D, F, w1 = _check_fc1(name, x, w1, b1)
+    dg = _check_dg(name, x, dg, F)
+    seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
+    M, db1_part = _db1_part(x, D, F)
+    dh = torch.empty_like(dg)
+    g = torch.empty_like(dg) if emit_g else None
+    dx = torch.empty_like(x)
+    _build.launch(
+        name, _name("ffn_block_bwd" if emit_g else "ffn_fc1_bwd", D), x.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), dg.data_ptr(), seed_ptr,
+        None if g is None else g.data_ptr(), dh.data_ptr(), db1_part.data_ptr(), dx.data_ptr(),
+        M, D, F, T, thr, scale,
+    )
+    db1 = db1_part.sum(0)
+    return (dh, g, dx, db1) if emit_g else (dh, dx, db1)
+
+
+def ffn_ln_fc1_bwd_plain(x, w1, b1, gamma, beta, dg, eps: float = 1e-5, rate: float = 0.0,
+                         seeds=None):
+    """``_bwd_kernel_ln[_drop]`` + ``_bwd_ln_epilogue`` in plain ops (N4).
+
+    Returns (dh, dx, ln_out, db1, dgamma, dbeta): dh, dx and ln_out in
+    x.dtype; db1 (F,), dgamma and dbeta (D,) fp32."""
+    dt = x.dtype
+    D = x.shape[-1]
+    ln, xhat, rstd = _ln_rows(x, gamma, beta, eps)
+    _, dh = _act_bwd(_h(ln, w1, b1), dg.to(dt).float(), x.shape[1], rate, seeds)
+    dhb = dh.to(dt)
+    dl = dhb.float() @ w1.to(dt).float()
+    dx = _ln_bwd_rows(dl, xhat, rstd, gamma)
+    return (dhb, dx.to(dt), ln, dh.reshape(-1, dh.shape[-1]).sum(0),
+            (dl * xhat).reshape(-1, D).sum(0), dl.reshape(-1, D).sum(0))
+
+
+def ffn_ln_fc1_bwd(x, w1, b1, gamma, beta, dg, eps: float = 1e-5, rate: float = 0.0,
+                   seeds=None):
+    """The backward kernels of the LayerNorm-folded fc1 (N4) and the
+    LayerNorm backward; arguments and results as ``ffn_ln_fc1_bwd_plain``.
+
+    Args:
+        x: (B, T, D) bf16, D in ``KERNEL_D``; dg: (B, T, F), cast to x.dtype.
+        w1: (F, D), cast to x.dtype; b1 (F,), gamma, beta (D,) fp32.
+    """
+    name = "coral_ffn_ln_fc1_bwd"
+    if not _build.require_cuda(name, x):
+        return ffn_ln_fc1_bwd_plain(x, w1, b1, gamma, beta, dg, eps, rate, seeds)
+    D, F, w1 = _check_fc1(name, x, w1, b1, (gamma, beta))
+    dg = _check_dg(name, x, dg, F)
+    seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
+    M, db1_part = _db1_part(x, D, F)
+    dh = torch.empty_like(dg)
+    ln_out = torch.empty_like(x)
+    dl = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _build.launch(
+        name, _name("ffn_ln_fc1_bwd", D), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), dg.data_ptr(), seed_ptr, dh.data_ptr(),
+        ln_out.data_ptr(), db1_part.data_ptr(), dl.data_ptr(), M, D, F, T, thr, scale,
+        float(eps),
+    )
+    dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
+    return dh, dx, ln_out, db1_part.sum(0), dgamma, dbeta
+
+
+def _seeds_for(name, rate, seeds):
+    if rate > 0.0 and seeds is None:
+        raise ValueError(f"{name}: dropout needs seeds")
 
 
 class _FFNBlock(torch.autograd.Function):
@@ -213,7 +386,7 @@ class _FFNBlock(torch.autograd.Function):
         ctx.rate, ctx.eps, ctx.plain, ctx.b2_dtype = rate, eps, plain, b2.dtype
         if saved is not None:
             return saved.detach()
-        fc1 = ffn_ln_fc1_plain if plain else ffn_ln_fc1
+        fc1 = ffn_ln_fc1_plain if plain else ffn_ln_fc1_fwd
         g = fc1(x, w1, b1.float(), gamma.float(), beta.float(), eps, rate, seeds)
         return _fc2(g, w2, b2)
 
@@ -226,14 +399,102 @@ class _FFNBlock(torch.autograd.Function):
             x, w1, b1.float(), gamma.float(), beta.float(), dy.to(dt), w2, ctx.eps,
             ctx.rate, seeds,
         )
-        D, F = x.shape[-1], w1.shape[0]
-        dy2 = dy.reshape(-1, D)
-        dw1 = torch.matmul(dh.reshape(-1, F).t(), ln_out.reshape(-1, D))
-        dw2 = torch.matmul(dy2.to(dt).t(), g.reshape(-1, F))
-        db2 = dy2.float().sum(0)
+        dw1, dw2, db2 = _outside_grads(dh, ln_out, dy, g)
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dgamma.to(gamma.dtype),
                 dbeta.to(beta.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None, None,
                 None, None)
+
+
+def _outside_grads(dh, a, dy=None, g=None):
+    """The products and sums the JAX backward functions leave outside their
+    kernels: ``dW1 = dh^T a`` (a: x or ln_out), and with the block's dy and
+    g also ``dW2 = dy^T g`` and ``db2 = sum(dy)``, in the working dtype
+    (bf16 products with fp32 sums, rounded once)."""
+    dw1 = torch.matmul(dh.reshape(-1, dh.shape[-1]).t(), a.reshape(-1, a.shape[-1]))
+    if dy is None:
+        return dw1
+    dy2 = dy.reshape(-1, dy.shape[-1])
+    dw2 = torch.matmul(dy2.to(g.dtype).t(), g.reshape(-1, g.shape[-1]))
+    return dw1, dw2, dy2.float().sum(0)
+
+
+class _FFNBlockNoLn(torch.autograd.Function):
+    """``_ffn_block``: ``_FFNBlock`` without the LayerNorm. The backward forms
+    ``dg = dy @ W2^T`` outside, rounded to the working dtype as the JAX
+    backward's ``.astype(dy.dtype)`` after its fp32 product, then the kernels
+    write dh, g and dx; dW1, dW2, db2 outside. A replay passes ``saved`` and
+    nothing runs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, seeds, rate, plain, saved):
+        ctx.save_for_backward(x, w1, b1, w2, seeds)
+        ctx.rate, ctx.plain, ctx.b2_dtype = rate, plain, b2.dtype
+        if saved is not None:
+            return saved.detach()
+        fc1 = ffn_fc1_plain if plain else ffn_fc1_fwd
+        return _fc2(fc1(x, w1, b1.float(), rate, seeds), w2, b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2, seeds = ctx.saved_tensors
+        dt = x.dtype
+        dg = torch.matmul(dy.to(dt), w2.to(dt))
+        bwd = ffn_fc1_bwd_plain if ctx.plain else ffn_fc1_bwd
+        dh, g, dx, db1 = bwd(x, w1, b1.float(), dg, ctx.rate, seeds, emit_g=True)
+        dw1, dw2, db2 = _outside_grads(dh, x, dy, g)
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(ctx.b2_dtype), None, None, None, None)
+
+
+class _FFNLnFc1(torch.autograd.Function):
+    """``_ffn_ln_fc1``: residuals are the primal inputs and the seeds; the
+    backward is N4 and the LayerNorm backward, with ``dW1 = dh^T ln_out``
+    outside. A replay passes the kept g as ``saved``: the forward returns it
+    and launches nothing."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, gamma, beta, seeds, rate, eps, plain, saved):
+        ctx.save_for_backward(x, w1, b1, gamma, beta, seeds)
+        ctx.rate, ctx.eps, ctx.plain = rate, eps, plain
+        if saved is not None:
+            return saved.detach()
+        fc1 = ffn_ln_fc1_plain if plain else ffn_ln_fc1_fwd
+        return fc1(x, w1, b1.float(), gamma.float(), beta.float(), eps, rate, seeds)
+
+    @staticmethod
+    def backward(ctx, dg):
+        x, w1, b1, gamma, beta, seeds = ctx.saved_tensors
+        bwd = ffn_ln_fc1_bwd_plain if ctx.plain else ffn_ln_fc1_bwd
+        dh, dx, ln_out, db1, dgamma, dbeta = bwd(
+            x, w1, b1.float(), gamma.float(), beta.float(), dg.to(x.dtype), ctx.eps, ctx.rate,
+            seeds,
+        )
+        dw1 = _outside_grads(dh, ln_out)
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), None, None, None, None, None)
+
+
+class _FFNFc1(torch.autograd.Function):
+    """``_ffn_fc1``: residuals are the primal inputs and the seeds; the
+    backward is N2, with ``dW1 = dh^T x`` outside. ``saved`` as
+    ``_FFNLnFc1``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, seeds, rate, plain, saved):
+        ctx.save_for_backward(x, w1, b1, seeds)
+        ctx.rate, ctx.plain = rate, plain
+        if saved is not None:
+            return saved.detach()
+        fc1 = ffn_fc1_plain if plain else ffn_fc1_fwd
+        return fc1(x, w1, b1.float(), rate, seeds)
+
+    @staticmethod
+    def backward(ctx, dg):
+        x, w1, b1, seeds = ctx.saved_tensors
+        bwd = ffn_fc1_bwd_plain if ctx.plain else ffn_fc1_bwd
+        dh, dx, db1 = bwd(x, w1, b1.float(), dg.to(x.dtype), ctx.rate, seeds)
+        dw1 = _outside_grads(dh, x)
+        return dx, dw1.to(w1.dtype), db1.to(b1.dtype), None, None, None, None
 
 
 def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float = 0.0,
@@ -251,8 +512,40 @@ def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float 
     Returns:
         (B, T, D) in ``x.dtype`` (the residual add stays outside).
     """
-    if rate > 0.0 and seeds is None:
-        raise ValueError("ffn_ln_block: dropout needs seeds")
+    _seeds_for("ffn_ln_block", rate, seeds)
     return _FFNBlock.apply(x, w1, b1, gamma, beta, w2, b2, seeds, float(rate), float(eps),
                            plain, saved)
 
+
+def ffn_block(x, w1, b1, w2, b2, rate: float = 0.0, seeds=None, plain: bool = False,
+              saved=None):
+    """The whole FFN without a LayerNorm, differentiable: ``ffn_ln_block``'s
+    arguments and result without gamma, beta and eps (x is the normalised
+    input)."""
+    _seeds_for("ffn_block", rate, seeds)
+    return _FFNBlockNoLn.apply(x, w1, b1, w2, b2, seeds, float(rate), plain, saved)
+
+
+def ffn_ln_fc1(x, w1, b1, gamma, beta, eps: float = 1e-5, rate: float = 0.0, seeds=None,
+               plain: bool = False, saved=None):
+    """``dropout(gelu(layer_norm(x) @ W1^T + b1))``, differentiable.
+
+    Args:
+        x: (B, T, D) residual stream; w1: (F, D); b1: (F,); gamma, beta: (D,).
+        rate: activation-dropout rate; seeds: (B,) int32 when rate > 0.
+        plain: run the plain versions (forward and backward) on any device.
+        saved: a checkpoint replay's kept output g (returned, no launch).
+
+    Returns:
+        (B, T, F) in ``x.dtype``.
+    """
+    _seeds_for("ffn_ln_fc1", rate, seeds)
+    return _FFNLnFc1.apply(x, w1, b1, gamma, beta, seeds, float(rate), float(eps), plain,
+                           saved)
+
+
+def ffn_fc1(x, w1, b1, rate: float = 0.0, seeds=None, plain: bool = False, saved=None):
+    """``dropout(gelu(x @ W1^T + b1))``, differentiable: ``ffn_ln_fc1``'s
+    arguments and result without the LayerNorm."""
+    _seeds_for("ffn_fc1", rate, seeds)
+    return _FFNFc1.apply(x, w1, b1, seeds, float(rate), plain, saved)

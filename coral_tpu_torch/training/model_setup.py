@@ -7,9 +7,12 @@ the remat policy and its warnings, ``_augmentation_settings`` (:78-98),
 wav2vec2-CTC step with the feature encoder trained or frozen, the named remat
 policies and the augmentation chain. Both setups resolve the kernel flags as
 the JAX setups do (wav2vec2 :127-205, Whisper :495-516): ``fused_ffn`` is
-``fused_ffn or fused_ffn_ln`` and ``fused_ffn_ln`` defaults to ``fused_ffn``,
-so ``fused_ffn: false`` alone gives the unfused FFN; the ``fused_ffn_block*``
-flags are read only when ``fused_ffn`` resolves to true; wav2vec2's
+``fused_ffn or fused_ffn_ln``, ``fused_ffn_ln`` defaults to ``fused_ffn``
+and ``fused_ffn_block`` to true, so ``fused_ffn: false`` alone gives the
+unfused FFN; the models take the FFN route those flags select
+(``ffn_route``), and the block's variant flags (``fused_ffn_block_dw``,
+``_fc2``, ``_dg``) are read, and refused off their defaults, only on the
+LayerNorm-folded block's route, where the JAX models read them; wav2vec2's
 ``attention_impl`` takes ``pallas``, ``flash`` or ``xla``, and
 ``attention_fused_qkv_bias`` defaults to true only for ``pallas`` (with the
 v3 stats and no ``fused_qkv_ln``). ``WhisperSetup`` (:440-628):
@@ -66,8 +69,9 @@ _W2V2_ARCHS: dict[str, Callable[..., Wav2Vec2Config]] = {
 # route for (coral_tpu/training/model_setup.py): any other value raises, as
 # the JAX package's own trap rule asks (tests/test_model_setup_traps.py): it
 # must not run a path other than the one configured. attention_impl,
-# attention_fused_qkv_bias, fused_ffn and fused_ffn_ln are resolved instead,
-# raising for the pairs without a route (``_w2v2_kernel_flags``), and
+# attention_fused_qkv_bias, fused_ffn, fused_ffn_ln and fused_ffn_block are
+# resolved instead, raising for the pairs without a route
+# (``_w2v2_kernel_flags``, ``_check_ffn_route``), and
 # pos_conv_fold is absent because both of its values are the same math, which
 # the port computes as a plain grouped conv.
 _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
@@ -78,10 +82,9 @@ _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
     "fused_qkv_ln": False,
     "do_stable_layer_norm": True,
 }
-# The FFN block's variants, read only when fused_ffn resolves to true: the
-# port has the block with dg in the kernel, dW and fc2 outside.
+# The LayerNorm-folded FFN block's variants, read only on its route: the port
+# has the block with dg in the kernel, dW and fc2 outside.
 _FFN_BLOCK_FLAG_DEFAULTS: dict[str, Any] = {
-    "fused_ffn_block": True,
     "fused_ffn_block_dw": False,
     "fused_ffn_block_fc2": False,
     "fused_ffn_block_dg": True,
@@ -121,26 +124,33 @@ def _check_kernel_flags(model_cfg: Mapping[str, Any], defaults: Mapping[str, Any
             )
 
 
-def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> tuple[bool, bool]:
-    """(fused_ffn, fused_ffn_ln) as both JAX setups resolve them; the block's
-    variant flags are checked only when fused_ffn resolves to true."""
-    fused_ffn = bool(model_cfg.get("fused_ffn", True)) or bool(
-        model_cfg.get("fused_ffn_ln", False))
-    fused_ffn_ln = bool(model_cfg.get("fused_ffn_ln", model_cfg.get("fused_ffn", True)))
-    if fused_ffn:
+def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> dict[str, bool]:
+    """fused_ffn, fused_ffn_ln and fused_ffn_block as both JAX setups
+    resolve them (coral_tpu/training/model_setup.py:159-198, :504-520)."""
+    return dict(
+        fused_ffn=bool(model_cfg.get("fused_ffn", True))
+        or bool(model_cfg.get("fused_ffn_ln", False)),
+        fused_ffn_ln=bool(model_cfg.get("fused_ffn_ln", model_cfg.get("fused_ffn", True))),
+        fused_ffn_block=bool(model_cfg.get("fused_ffn_block", True)),
+    )
+
+
+def _check_ffn_route(model_cfg: Mapping[str, Any],
+                     model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
+    """Raise for a variant of the LayerNorm-folded FFN block the port lacks,
+    on that block's route only: elsewhere the JAX models never read them."""
+    if model_config.ffn_route == "ffn_ln_block":
         _check_kernel_flags(model_cfg, _FFN_BLOCK_FLAG_DEFAULTS)
-    return fused_ffn, fused_ffn_ln
 
 
 def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
-    """The wav2vec2 model's routes (attention_impl, fused_ffn) as the JAX
-    setup resolves them (coral_tpu/training/model_setup.py:127-205); raises
+    """The wav2vec2 model's routes (attention_impl and the FFN's flags) as the
+    JAX setup resolves them (coral_tpu/training/model_setup.py:127-205); raises
     for a flag whose route the port lacks, and, as the JAX model does
     (coral_tpu/models/wav2vec2.py:518-530), for in-kernel q/k/v biases off
     the pallas route."""
     _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
     attention_impl = model_cfg.get("attention_impl", "pallas")
-    fused_ffn, fused_ffn_ln = _fused_ffn_flags(model_cfg)
     # True by default only where its prerequisites hold (pallas, the v3 stats
     # and no fused_qkv_ln, the only values the check above lets through).
     qkv_bias = bool(model_cfg.get("attention_fused_qkv_bias", attention_impl == "pallas"))
@@ -152,11 +162,7 @@ def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
             "attention_impl='pallas' with the q/k/v biases outside the kernel "
             "(attention_fused_qkv_bias=False): "
             + NOT_PORTED.format("9 (off-default kernel flags)"))
-    if fused_ffn and not fused_ffn_ln:
-        raise NotImplementedError(
-            "fused_ffn without the LayerNorm folded in (fused_ffn_ln=False): "
-            + NOT_PORTED.format("9 (off-default kernel flags)"))
-    return dict(attention_impl=attention_impl, fused_ffn=fused_ffn)
+    return dict(attention_impl=attention_impl, **_fused_ffn_flags(model_cfg))
 
 
 def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
@@ -265,6 +271,7 @@ class Wav2Vec2Setup:
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
             **flags,
         )
+        _check_ffn_route(model_cfg, self.model_config)
         if self.device.type == "cuda":
             check_kernel_widths(self.model_config)
         self.config = config
@@ -280,15 +287,15 @@ class Wav2Vec2Setup:
         self.remat_policy = model_cfg.get(
             "remat_policy", config.get("remat_policy", "save_qk_ctx")
         )
-        fused_ffn = self.model_config.fused_ffn
-        if self.remat_policy == "save_ctx_act" and not fused_ffn:
-            # "ffn_act" is emitted only on the fused-FFN path.
+        # As the JAX setup, each warning on its own flag: "ffn_act" is emitted
+        # only by fc1's kernels, never by the unfused FFN or the FFN block
+        # (whose residuals are its inputs).
+        if self.remat_policy == "save_ctx_act" and not self.model_config.fused_ffn:
             logger.warning(
                 "remat_policy=save_ctx_act without fused_ffn degrades to "
                 "save_attn_ctx (no 'ffn_act' checkpoint is emitted)."
             )
-        if self.remat_policy == "save_ctx_act" and fused_ffn:
-            # The FFN block emits no "ffn_act" (its residuals are its inputs).
+        if self.remat_policy == "save_ctx_act" and self.model_config.fused_ffn_block:
             logger.warning(
                 "remat_policy=save_ctx_act with fused_ffn_block degrades to "
                 "save_attn_ctx (the FFN block emits no 'ffn_act' checkpoint)."
@@ -410,10 +417,6 @@ class WhisperSetup:
     def __init__(self, config: Mapping[str, Any], is_main: bool = True,
                  device: str | torch.device = "cuda") -> None:
         model_cfg = config["model"]
-        # The block folds the LayerNorm in whatever fused_ffn_ln says (the JAX
-        # ``_ffn_full``), and fused_ffn false resolves it to false: only
-        # fused_ffn picks the route.
-        fused_ffn, _ = _fused_ffn_flags(model_cfg)
         self.config = config
         self.device = torch.device(device)
         self._is_main = is_main
@@ -435,8 +438,9 @@ class WhisperSetup:
             mask_feature_prob=model_cfg.get("mask_feature_prob", 0.5),
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
             ln_impl=model_cfg.get("ln_impl", "xla"),
-            fused_ffn=fused_ffn,
+            **_fused_ffn_flags(model_cfg),
         )
+        _check_ffn_route(model_cfg, self.model_config)
         if self.device.type == "cuda":
             check_kernel_widths(self.model_config)
         # As the JAX setup: save_flash_ctx for the 1280-wide large family,

@@ -172,6 +172,21 @@ def test_ffn_of_a_width_the_kernel_does_not_take_raises_on_the_card(cuda):
     assert not _build.launch_counts
 
 
+@pytest.mark.parametrize("flags", [{"fused_ffn_ln": False}, {"fused_ffn_block": False},
+                                   {"fused_ffn_ln": False, "fused_ffn_block": False}],
+                         ids=["ffn_block", "ffn_ln_fc1", "ffn_fc1"])
+def test_ffn_routes_of_a_width_the_kernels_do_not_take_raise_on_the_card(cuda, flags):
+    """The tiny config's 32-wide FFN on the routes without the block or the
+    folded LayerNorm: the wrappers raise on the card, nothing launches."""
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(**flags)).to(cuda).eval()
+    layer = model.wav2vec2.encoder.layers[0]
+    x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="the kernel takes D"):
+        layer.feed_forward(x, layer.final_layer_norm)
+    assert not _build.launch_counts
+
+
 def _close_rel(got, want, frac=2e-2):
     """|got - want| <= frac max|want| + rtol |want|: gradients summed over rows."""
     torch.cuda.synchronize()
@@ -278,6 +293,55 @@ def test_ffn_bwd_kernel_matches_plain(cuda, rate, D):
         _close_rel(g, w)
     for g, w in zip(got[4:], want[4:]):
         _close_rel(g, w, 1e-2)
+
+
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_fc1_kernel_matches_plain(cuda, rate, D):
+    """fc1 without the LayerNorm (N1), 150 rows: a ragged last row tile."""
+    x, w1, b1, _, _, _, _, seeds = _ffn_inputs(cuda, D=D)
+    _build.reset_launch_counts()
+    g = ffn.ffn_fc1_fwd(x, w1, b1, rate=rate, seeds=seeds)
+    assert _build.launch_counts == {ffn._name("ffn_fc1_drop" if rate else "ffn_fc1", D): 1}
+    _close(g, ffn.ffn_fc1_plain(x, w1, b1, rate=rate, seeds=seeds), 1e-2)
+    if rate:
+        keep = philox.keep_mask(seeds, x.shape[1], w1.shape[0], rate)
+        assert torch.equal(g != 0, keep)
+
+
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kernel", ["ffn_fc1_bwd", "ffn_block_bwd", "ffn_ln_fc1_bwd"])
+def test_ffn_fc1_bwd_kernels_match_plain(cuda, kernel, rate, D):
+    """The backwards with dg read in (N2, N3, N4), 150 rows: dh zero where
+    the forward dropped, N3's g the forward's bits, the rest as K5's."""
+    x, w1, b1, gamma, beta, _, _, seeds = _ffn_inputs(cuda, D=D)
+    dg = _on(cuda, _np(2, x.shape[1], w1.shape[0], seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    if kernel == "ffn_ln_fc1_bwd":
+        got = ffn.ffn_ln_fc1_bwd(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)
+        want = ffn.ffn_ln_fc1_bwd_plain(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)
+        assert _build.launch_counts == {ffn._name(kernel, D): 1, ln_gelu._name("ln_bwd", D): 1}
+        _close(got[2], want[2], 1e-2)  # ln_out
+        pairs = [(got[0], want[0], 2e-2), (got[1], want[1], 2e-2)]
+        vectors = zip(got[3:], want[3:])
+    else:
+        emit_g = kernel == "ffn_block_bwd"
+        got = ffn.ffn_fc1_bwd(x, w1, b1, dg, rate=rate, seeds=seeds, emit_g=emit_g)
+        want = ffn.ffn_fc1_bwd_plain(x, w1, b1, dg, rate=rate, seeds=seeds, emit_g=emit_g)
+        assert _build.launch_counts == {ffn._name(kernel, D): 1}
+        if emit_g:
+            assert torch.equal(got[1], ffn.ffn_fc1_fwd(x, w1, b1, rate=rate, seeds=seeds))
+            _close(got[1], want[1], 1e-2)
+        pairs = [(got[0], want[0], 2e-2), (got[-2], want[-2], 2.0**-8)]
+        vectors = [(got[-1], want[-1])]
+    if rate:
+        keep = philox.keep_mask(seeds, x.shape[1], w1.shape[0], rate)
+        assert not got[0][~keep].any()
+    for g, w, frac in pairs:
+        _close_rel(g, w, frac)
+    for g, w in vectors:
+        _close_rel(g, w, 5e-3)
 
 
 def _conv_inputs(cuda, k, T_in, B=2):

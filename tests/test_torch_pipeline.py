@@ -225,13 +225,12 @@ def test_off_default_kernel_flags_are_rejected(flag, value):
 
 
 @pytest.mark.parametrize("flags", [
-    {"fused_ffn_block_dw": True}, {"fused_ffn_block": False, "fused_ffn_ln": True},
+    {"fused_ffn_block_dw": True}, {"fused_ffn_block_dg": False},
     {"fused_ffn_block_fc2": True},
 ])
 def test_whisper_off_default_kernel_flags_are_rejected(flags):
-    """The FFN routes whose kernels the port lacks: dW inside the block's
-    backward, the LN-folded fc1 without the block, fc2 inside the forward
-    kernel."""
+    """The FFN block's variants whose kernels the port lacks: dW inside the
+    block's backward, dg outside it, fc2 inside the forward kernel."""
     with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
         port_setup.load_model_setup(
             {"model": {"type": "whisper", "architecture": "tiny_test", **flags}}, device="cpu")

@@ -295,7 +295,7 @@ def test_unfused_policies_replay_what_they_do_not_keep(policy, monkeypatch):
 
 # -- the setups' flag resolution -------------------------------------------------------
 
-W2V2_RESOLVED = ("attention_impl", "fused_ffn")
+W2V2_RESOLVED = ("attention_impl", "fused_ffn", "fused_ffn_ln", "fused_ffn_block")
 
 
 @pytest.mark.parametrize("flags", [
@@ -320,8 +320,8 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
     ({"attention_impl": "xla", "attention_fused_qkv_bias": True}, ValueError, "requires"),
     ({"attention_impl": "pallas", "attention_fused_qkv_bias": False}, NotImplementedError,
      "item 9"),
-    ({"fused_ffn_ln": False}, NotImplementedError, "item 9"),
-    ({"fused_ffn_block": False}, NotImplementedError, "item 9"),
+    ({"fused_ffn_block_dw": True}, NotImplementedError, "item 9"),
+    ({"fused_ffn_block_fc2": True}, NotImplementedError, "item 9"),
     ({"fused_ffn_block_dg": False}, NotImplementedError, "item 9"),
     ({"attention_impl": "flash", "attention_save_stats": False}, NotImplementedError, "item 9"),
     ({"attention_o_residual": True}, NotImplementedError, "item 9"),
@@ -331,7 +331,8 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
 ])
 def test_wav2vec2_flags_without_a_route_raise(flags, error, match):
     """The explicit in-kernel biases off the pallas route raise as the JAX
-    model does; the routes the port lacks raise naming their ROADMAP item."""
+    model does; the routes the port lacks (here the LayerNorm-folded block's
+    variants) raise naming their ROADMAP item."""
     config = {"model": {"architecture": "tiny", "characters_to_keep": CHARS, **flags},
               "max_seconds_per_example": 1.0}
     with pytest.raises(error, match=match):

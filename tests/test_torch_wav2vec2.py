@@ -132,7 +132,8 @@ def test_routes_follow_the_jax_model(case):
         assert not any(c.fused for c in convs)
     # At every width the FFN calls the kernel's wrapper, which runs the plain
     # version on the CPU and the kernel (or raises) on the card.
-    assert all(layer.feed_forward.block is ffn_ln_block
+    assert all(layer.feed_forward.route == "ffn_ln_block"
+               and layer.feed_forward.ops.ffn_ln_block is ffn_ln_block
                for layer in port.wav2vec2.encoder.layers)
 
 

@@ -104,16 +104,11 @@ def _batch(seed=3, A=2, B=3, T=16_000, L=10):
     return batch
 
 
-@pytest.mark.parametrize("arch,grad_dtype", [("tiny_test", None), ("tiny_test", "bfloat16"),
-                                             ("narrow", None), ("tiny_test_unfused", None)],
-                         ids=["fp32_grads", "bf16_grads", "narrow_fp32_grads",
-                              "unfused_fp32_grads"])
-def test_train_step_matches_jax(arch, grad_dtype):
-    """Three steps of both packages' ``make_seq2seq_train_step`` (A = 2, fp32,
-    checkpointing under save_matmul_inputs, SpecAugment and dropout off) from
-    the same weights and batch; at the narrow config the JAX FFN block runs
-    forward and backward in interpret mode."""
-    jc, pc = _configs(arch, **QUIET)
+def _steps_match_jax(jc, pc, grad_dtype=None):
+    """Three steps of both packages' ``make_seq2seq_train_step`` (A = 2,
+    checkpointing under the configs' policy) from the same weights and
+    batch; returns (the port's state, the initial weights, the JAX weights
+    after the steps) as state dicts."""
     params = _seeded_params(jc, seed=0)
     batch = _batch()
     tx, schedule = jax_create_optimizer(1e-3, warmup_steps=2, max_steps=20,
@@ -143,12 +138,26 @@ def test_train_step_matches_jax(arch, grad_dtype):
     initial = whisper_state_dict_from_jax(params, pc)
     final = whisper_state_dict_from_jax(jax.device_get(state.params), pc)
     assert all(pstate.params[k].dtype == torch.float32 for k in final)
-    assert not torch.equal(pstate.params["model.decoder.layers.1.fc2.weight"],
-                           initial["model.decoder.layers.1.fc2.weight"])
     diff = torch.cat([(pstate.params[k] - final[k]).abs().flatten() for k in final])
     assert diff.median() <= 1e-5
     assert torch.quantile(diff, 0.99) <= 5e-5
     assert diff.max() <= 3e-3
+    return pstate, initial, final
+
+
+@pytest.mark.parametrize("arch,grad_dtype", [("tiny_test", None), ("tiny_test", "bfloat16"),
+                                             ("narrow", None), ("tiny_test_unfused", None)],
+                         ids=["fp32_grads", "bf16_grads", "narrow_fp32_grads",
+                              "unfused_fp32_grads"])
+def test_train_step_matches_jax(arch, grad_dtype):
+    """Three steps of both packages' ``make_seq2seq_train_step`` (A = 2, fp32,
+    checkpointing under save_matmul_inputs, SpecAugment and dropout off) from
+    the same weights and batch; at the narrow config the JAX FFN block runs
+    forward and backward in interpret mode."""
+    jc, pc = _configs(arch, **QUIET)
+    pstate, initial, _ = _steps_match_jax(jc, pc, grad_dtype)
+    assert not torch.equal(pstate.params["model.decoder.layers.1.fc2.weight"],
+                           initial["model.decoder.layers.1.fc2.weight"])
 
 
 def test_spec_augment_matches_jax_given_its_span_starts(monkeypatch):
@@ -289,7 +298,7 @@ def test_setup_picks_the_remat_policy_by_width_and_refuses_what_is_not_ported(tm
                                                                              monkeypatch):
     """save_matmul_inputs below d 1280, save_flash_ctx for large-v3, a
     model.remat_policy wins; more than one device, an unknown policy and
-    ``fused_ffn_block: false`` (the FFN without the block) raise."""
+    ``fused_ffn_block_dw: true`` (dW inside the block's backward) raise."""
     monkeypatch.setenv("HF_HOME", str(tmp_path))
     assert load_model_setup(_setup_config(), device="cpu").model_config.remat_policy == (
         "save_matmul_inputs")
@@ -310,7 +319,7 @@ def test_setup_picks_the_remat_policy_by_width_and_refuses_what_is_not_ported(tm
         load_model_setup(_setup_config(remat_policy="save_everything"),
                          device="cpu").make_train_step(tx, schedule)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        load_model_setup(_setup_config(fused_ffn_block=False), device="cpu")
+        load_model_setup(_setup_config(fused_ffn_block_dw=True), device="cpu")
 
 
 def test_loss_decreases_through_the_setup(tmp_path):

@@ -74,13 +74,33 @@ def test_every_model_config_is_here():
     assert len(CONFIGS) == 11
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=[p.stem for p in CONFIGS])
-def test_every_config_passes_the_width_check_on_the_card(path):
+# The FFN flag pairs of the routes without the block or the folded LayerNorm,
+# and the route each family takes (no config in config/model/ sets them).
+FFN_FLAGS = {
+    "fused_ffn_ln_false": ({"fused_ffn_ln": False},
+                           {"wav2vec2": "ffn_block", "whisper": "ffn_ln_block"}),
+    "fused_ffn_block_false": ({"fused_ffn_block": False},
+                              {"wav2vec2": "ffn_ln_fc1", "whisper": "ffn_ln_fc1"}),
+    "both_false": ({"fused_ffn_ln": False, "fused_ffn_block": False},
+                   {"wav2vec2": "ffn_fc1", "whisper": "ffn_fc1"}),
+}
+WIDTH_CASES = [pytest.param(p, None, id=p.stem) for p in CONFIGS] + [
+    pytest.param(p, name, id=f"{p.stem}-{name}") for p in CONFIGS for name in FFN_FLAGS]
+
+
+@pytest.mark.parametrize("path,ffn_flags", WIDTH_CASES)
+def test_every_config_passes_the_width_check_on_the_card(path, ffn_flags):
     """The setup on ``cuda`` (nothing is built, so no card is needed) takes
-    the config, with the widths of the architecture the JAX setup infers."""
+    the config, with the widths of the architecture the JAX setup infers, at
+    the default kernel flags and with each FFN flag pair (on its route)."""
     config = _config(path)
     kind = config["model"]["type"]
+    if ffn_flags is not None:
+        flags, routes = FFN_FLAGS[ffn_flags]
+        config["model"].update(flags)
     setup = port_setup.load_model_setup(config, device="cuda")
+    if ffn_flags is not None:
+        assert setup.model_config.ffn_route == routes[kind]
     if kind == "wav2vec2":
         want = jax_setup.Wav2Vec2Setup._infer_arch(config["model"])()
     else:
