@@ -111,7 +111,18 @@ non-zero before the result line is printed:
    steps; (m) (e) with ``fused_ffn_block: false`` (the LayerNorm-folded fc1
    and its backward N4): the kernel path against the plain path and 3 steps;
    each with exact launch counts;
-14. a JSON line with every kernel (its launches summed over the counted runs
+14. the LayerNorm-folded block's variants: N5 (dg read in), N6 (the weight
+   gradients in the kernels) and N7 (fc2 in the forward kernel) checked with
+   the other kernels in phase 3 (at rate 0 and 0.1, at D 384 and 1920 too;
+   N7's mask against N5's, bit for bit); (n) (c)'s configuration with
+   ``fused_ffn_block_fc2: true``: one serving batch, the kernel path against
+   the plain path on one microbatch at activation dropout 0.1, 3 steps; (n')
+   with ``fused_ffn_block_dw: true``: kernel against plain, 3 steps; (n'')
+   with ``fused_ffn_block_dg: false``: 2 steps; (o) (e) with
+   ``fused_ffn_block_dw: true``: kernel against plain, 3 steps; (o') (e)
+   with ``fused_ffn_block_fc2: true``: one batch served, 2 steps; each with
+   exact launch counts;
+15. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -199,7 +210,12 @@ GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3, "conv_bwd
              # its max; N4's dx through the LayerNorm backward as K5's; db1,
              # dgamma and dbeta at 5e-3.
              "fc1_dx": 2.0**-8, "fc1_vectors": 5e-3,
-             "flash_bwd": 1e-2}
+             "flash_bwd": 1e-2,
+             # N6's dW1 and dW2, fp32 sums over every row of bf16 products
+             # whose operands (dh, g) may round one ulp apart from the plain
+             # version's: 1e-2 of their max, as the card tests; the dW kernel
+             # alone on the same operands (sums in another order) 1e-3.
+             "dw": 1e-2, "dw_kernel": 1e-3}
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
 # Kernel path vs plain path logits over the whole model: max |diff| / max |plain|.
 # Both paths round the bf16 residual stream after each of the 24 layers at
@@ -269,6 +285,24 @@ SOURCES.update({
     "ffn_ln_fc1_bwd_1280": ("coral_tpu_torch/csrc/ffn_ln_fc1.cu",
                             "coral_tpu/ops/ffn_pallas.py:433"),
 })
+# The LayerNorm-folded block's variants: N5 (`_bwd_kernel_ln_g_drop`, the
+# backward of `fused_ffn_block_dg: false` and of `fused_ffn_block_fc2`), N6
+# (`_bwd_kernel_ln_dw`, `fused_ffn_block_dw`) and N7 (`_fwd_kernel_ln_fc2`
+# and `_fwd_kernel_ln_fc2_drop`, `fused_ffn_block_fc2`), at XLS-R-300M's and
+# Whisper large-v3's widths. N7's y holds fc2's fp32 sum over F rounded once,
+# as the other FFN outputs.
+for _tail in ("", "_1280"):
+    SOURCES.update({
+        f"ffn_ln_fc2{_tail}": ("coral_tpu_torch/csrc/ffn_ln_fc2.cu",
+                               "coral_tpu/ops/ffn_pallas.py:451"),
+        f"ffn_ln_fc2_drop{_tail}": ("coral_tpu_torch/csrc/ffn_ln_fc2.cu",
+                                    "coral_tpu/ops/ffn_pallas.py:467"),
+        f"ffn_ln_g_bwd{_tail}": ("coral_tpu_torch/csrc/ffn_ln_g.cu",
+                                 "coral_tpu/ops/ffn_pallas.py:263"),
+        f"ffn_ln_dw_bwd{_tail}": ("coral_tpu_torch/csrc/ffn_ln_g.cu",
+                                  "coral_tpu/ops/ffn_pallas.py:282"),
+    })
+TOLERANCE["ffn_ln_fc2"] = (1e-2, 2.0**-6)
 # The instantiations at the other widths of the repository's configs: each has
 # its base kernel's tolerance and TPU source.
 NEW_FFN_D = (384, 512, 768, 1920)
@@ -496,6 +530,29 @@ WHISPER_FC1_CONFIG = {**WHISPER_TRAIN_CONFIG, "model": {
 WHISPER_FC1_PER_MICROBATCH = {
     "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
     "ffn_ln_drop_1280": 128, "ffn_ln_fc1_bwd_1280": 64, "ln_bwd_1280": 64}
+
+
+# Phases (n)-(o'): the LayerNorm-folded block's variants. (n) (c)'s
+# configuration (config/model/wav2vec2-small.yaml + config/asr_finetuning.yaml)
+# with `fused_ffn_block_fc2: true`: N7 forward, N5 backward; one served batch
+# through the setup's predictor, kernel vs plain on one microbatch at
+# activation dropout 0.1, 3 steps. (n') with `fused_ffn_block_dw: true`: K5's
+# forward, N6; kernel vs plain, 3 steps. (n'') with `fused_ffn_block_dg:
+# false`: K5's forward, N5; 2 steps (one counted, one timed). (o) (e)'s
+# configuration with `fused_ffn_block_dw: true` in both stacks: kernel vs
+# plain, 3 steps; (o') with `fused_ffn_block_fc2: true`: one batch served,
+# 2 steps.
+FC2_CONFIG, DW_CONFIG, DG_OUT_CONFIG = ({**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], key: value}} for key, value in (
+        ("fused_ffn_block_fc2", True), ("fused_ffn_block_dw", True),
+        ("fused_ffn_block_dg", False)))
+WHISPER_DW_CONFIG = {**WHISPER_TRAIN_CONFIG, "model": {
+    **WHISPER_TRAIN_CONFIG["model"], "fused_ffn_block_dw": True}}
+# Launches per microbatch of (o) under save_flash_ctx: (e)'s with N6 in the
+# place of K5's backward.
+WHISPER_DW_PER_MICROBATCH = {
+    "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
+    "ffn_ln_drop_1280": 64, "ffn_ln_dw_bwd_1280": 64, "ln_bwd_1280": 64}
 
 
 def fail(msg: str) -> None:
@@ -2236,7 +2293,7 @@ def whisper_size_run(card: str, label: str, name: str, checkpoint: str, lr: floa
 
     from coral_tpu_torch.audio.augment import peak_normalize
     from coral_tpu_torch.audio.mel import log_mel_spectrogram
-    from coral_tpu_torch.ops import _build, ffn, ln_gelu
+    from coral_tpu_torch.ops import _build, ln_gelu
     from coral_tpu_torch.training import TrainState, create_optimizer
     from coral_tpu_torch.training.model_setup import load_model_setup
 
@@ -2284,7 +2341,8 @@ def whisper_size_run(card: str, label: str, name: str, checkpoint: str, lr: floa
     eos = predictor.tokenizer.eos_token_id
     steps = decode_steps(ids.cpu().numpy(), eos)
     texts = predictor.tokenizer.batch_decode(ids.cpu().numpy())
-    expected = {"flash_attention": Le, ffn._name("ffn_ln", D): Le,
+    serve_fwd, train_fwd, bwd = block_kernels(cfg, D)
+    expected = {"flash_attention": Le, serve_fwd: Le,
                 "decode_self_attention": Ld * steps, "decode_cross_attention": Ld * steps}
     print(f"{label} {name} serving main path: 1 batch of {BATCH} x 30 s, {steps} decode steps, "
           f"{wall * 1e3:.3f} ms, launch counts {serve_counts}", flush=True)
@@ -2322,8 +2380,8 @@ def whisper_size_run(card: str, label: str, name: str, checkpoint: str, lr: floa
     train_counts = dict(_build.launch_counts)
     layers = Le + Ld
     expected = {"flash_attention_train": Le, "flash_attention_bwd_dkv": Le,
-                "flash_attention_bwd_dq": Le, ffn._name("ffn_ln_drop", D): layers,
-                ffn._name("ffn_bwd", D): layers, ln_gelu._name("ln_bwd", D): layers}
+                "flash_attention_bwd_dq": Le, train_fwd: layers, bwd: layers,
+                ln_gelu._name("ln_bwd", D): layers}
     expected = {k: v * ACCUM for k, v in expected.items()}
     print(f"{label} {name} training main path: 1 step of {ACCUM} microbatches, launch counts "
           f"{train_counts}", flush=True)
@@ -2628,6 +2686,188 @@ def fc1_kernel_checks(card: str) -> dict:
     return results
 
 
+def block_case(kernel: str, D: int, T: int, rate: float, randn, seeds):
+    """One of the LayerNorm-folded block's variant kernels at (8, T, D) rows,
+    F = 4 D: returns (check, launch, plain, work, yardstick) for ``_measure``
+    and the note beside it. ``kernel``: "fc2" (N7), "g_bwd" (N5) or "dw_bwd"
+    (N6); masks exact: N5's dh zero where the forward dropped and its g the
+    forward's bits, N7's mask N5's (selection weights copy g's columns into
+    y bit for bit)."""
+    from coral_tpu_torch.ops import ffn, philox
+
+    bf16 = torch.bfloat16
+    F, M = 4 * D, BATCH * T
+    x = randn(BATCH, T, D, offset=0.2, dtype=bf16)
+    w1 = randn(F, D, scale=D**-0.5, dtype=bf16)
+    w2 = randn(D, F, scale=F**-0.5, dtype=bf16)
+    b1, b2 = randn(F, scale=0.1), randn(D, scale=0.1)
+    g, b = randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+    s = seeds if rate else None
+    keep = philox.keep_mask(seeds, T, F, rate) if rate else None
+    tag = f"{kernel} D {D}, {BATCH} x {T} rows, rate {rate}"
+    in_bytes = nbytes(x, w1, b1, g, b) + (nbytes(seeds) if rate else 0)
+    dg = randn(BATCH, T, F, dtype=bf16)
+    dy = randn(BATCH, T, D, dtype=bf16)
+    lnf = LN_OPS * M * D
+    if kernel == "fc2":
+        def launch():
+            return ffn.ffn_ln_fc2_fwd(x, w1, b1, g, b, w2, b2, rate=rate, seeds=s)
+
+        def plain():
+            return ffn.ffn_ln_fc2_fwd_plain(x, w1, b1, g, b, w2, b2, rate=rate, seeds=s)
+
+        def check():
+            res = compare(tag, launch(), plain(), key="ffn_ln_fc2")
+            # The mask: y's columns under selection weights against N5's g.
+            g5 = ffn.ffn_ln_g_bwd(x, w1, b1, g, b, torch.zeros_like(dg), rate=rate, seeds=s)[0]
+            same = True
+            for part in range(4):
+                sel = torch.zeros(D, F, device=x.device, dtype=bf16)
+                cols = torch.arange(D, device=x.device)
+                sel[cols, part * D + cols] = 1.0
+                y = ffn.ffn_ln_fc2_fwd(x, w1, b1, g, b, sel, torch.zeros_like(b2), rate=rate,
+                                       seeds=s)
+                same = same and bool(torch.equal(y, g5[..., part * D:(part + 1) * D]))
+            print(f"  {tag}: g inside N7 equals N5's regenerated g bit for bit (mask and "
+                  f"values): {same}", flush=True)
+            res["ok"] = res["ok"] and same
+            return res
+
+        def yardstick():
+            return torch.matmul(ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=rate, seeds=s), w2.t())
+
+        note = "K5's forward + cuBLAS's fc2 product (two calls)"
+        work = (4 * M * D * F + lnf, BF16_FLOPS, in_bytes + nbytes(w2, b2) + M * D * 2)
+        return check, launch, plain, work, yardstick, note
+
+    if kernel == "g_bwd":
+        def launch():
+            return ffn.ffn_ln_g_bwd(x, w1, b1, g, b, dg, rate=rate, seeds=s)
+
+        def plain():
+            return ffn.ffn_ln_g_bwd_plain(x, w1, b1, g, b, dg, rate=rate, seeds=s)
+
+        names = ("g", "dh", "ln_out", "dx", "db1", "dgamma", "dbeta")
+        fracs = (None, GRAD_FRAC["ffn_bwd"], None, GRAD_FRAC["ffn_bwd"]) + (
+            GRAD_FRAC["fc1_vectors"],) * 3
+        # Two products (h again, dl = dh W1) and the LayerNorm's rows; g, dh,
+        # ln_out, dx and the vectors out.
+        work = (4 * M * D * F + (LN_OPS + LN_BWD_OPS) * M * D, BF16_FLOPS,
+                in_bytes + nbytes(dg) + 2 * M * F * 2 + 2 * M * D * 2 + (F + 2 * D) * 4)
+
+        def yardstick():
+            return torch.matmul(dg.view(M, F), w1)
+
+        note = "cuBLAS's dl = dh W1 product alone"
+    else:
+        def launch():
+            return ffn.ffn_ln_dw_bwd(x, w1, b1, g, b, dy, dg, rate=rate, seeds=s)
+
+        def plain():
+            return ffn.ffn_ln_dw_bwd_plain(x, w1, b1, g, b, dy, dg, rate=rate, seeds=s)
+
+        names = ("dx", "dW1", "dW2", "db1", "dgamma", "dbeta")
+        fracs = (GRAD_FRAC["ffn_bwd"], GRAD_FRAC["dw"], GRAD_FRAC["dw"]) + (
+            GRAD_FRAC["fc1_vectors"],) * 3
+        # Four products (h again, dl, dW1, dW2); dx, the fp32 dW1 and dW2 and
+        # the vectors out (g, dh and ln_out never leave the TPU kernel).
+        work = (8 * M * D * F + (LN_OPS + LN_BWD_OPS) * M * D, BF16_FLOPS,
+                in_bytes + nbytes(dg, dy) + M * D * 2 + 2 * D * F * 4 + (F + 2 * D) * 4)
+        dh, gg = dg.view(M, F), randn(M, F, dtype=bf16)
+
+        def yardstick():
+            return torch.matmul(dh.t(), x.view(M, D)), torch.matmul(dy.view(M, D).t(), gg)
+
+        note = "cuBLAS's two dW products"
+
+    def check():
+        got, want = launch(), plain()
+        out = []
+        for name, frac, gg_, ww in zip(names, fracs, got, want):
+            if frac is None:  # g or ln_out: rounded outputs
+                out.append(compare(f"{tag} {name}", gg_, ww, key="ffn_fc1"))
+            else:
+                out.append(compare_grad(f"{tag} {name}", gg_, ww, frac))
+        res = merge(*out)
+        if kernel == "g_bwd":
+            same_g = bool(torch.equal(got[0], ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=rate,
+                                                                 seeds=s)))
+            zero = not rate or not bool(got[1][~keep].any())
+            print(f"  {tag}: g regenerated bit for bit: {same_g}; dh zero where the forward "
+                  f"dropped: {zero}", flush=True)
+            res["ok"] = res["ok"] and same_g and zero
+        else:
+            # The dW kernel against the plain products on N5's own operands.
+            g5, dh5, ln5, *_ = ffn.ffn_ln_g_bwd(x, w1, b1, g, b, dg, rate=rate, seeds=s)
+            res["ok"] = res["ok"] and all(
+                compare_grad(f"{tag} {n} on N5's operands", k, p, GRAD_FRAC["dw_kernel"])["ok"]
+                for n, k, p in zip(("dW1", "dW2"), got[1:3], ffn.ffn_dw_plain(dh5, ln5, dy, g5)))
+        return res
+
+    return check, launch, plain, work, yardstick, note
+
+
+# The block variants' kernels at each path's shapes: the rows of the kernels
+# line (timed; XLS-R-300M serving 8 x 1499 and training 8 x 499 rows at D
+# 1024, Whisper large-v3's encoder 8 x 1500 at 1280), then the other rate of
+# each, the decoder's 8 x 128 rows, and D 384 and 1920 (checked only).
+BLOCK_ROWS = (("ffn_ln_fc2", "fc2", 1024, 1499, 0.0), ("ffn_ln_fc2_drop", "fc2", 1024, 499, 0.1),
+              ("ffn_ln_g_bwd", "g_bwd", 1024, 499, 0.1),
+              ("ffn_ln_dw_bwd", "dw_bwd", 1024, 499, 0.1),
+              ("ffn_ln_fc2_1280", "fc2", 1280, 1500, 0.0),
+              ("ffn_ln_fc2_drop_1280", "fc2", 1280, 1500, 0.1),
+              ("ffn_ln_g_bwd_1280", "g_bwd", 1280, 1500, 0.1),
+              ("ffn_ln_dw_bwd_1280", "dw_bwd", 1280, 1500, 0.1))
+BLOCK_CHECKS = (("fc2", 1024, 1499, 0.1), ("fc2", 1024, 499, 0.0), ("g_bwd", 1024, 499, 0.0),
+                ("dw_bwd", 1024, 499, 0.0), ("g_bwd", 1280, 1500, 0.0),
+                ("dw_bwd", 1280, 1500, 0.0),
+                *((k, 1280, 128, 0.1) for k in ("fc2", "g_bwd", "dw_bwd")),
+                *((k, D, T, r) for D, T in ((384, 1500), (1920, 499))
+                  for k in ("fc2", "g_bwd", "dw_bwd") for r in (0.0, 0.1)))
+
+
+def block_variant_checks(card: str) -> dict:
+    """The LayerNorm-folded block's variant kernels (N5-N7) against their
+    plain versions: the rows at their paths' shapes, timed with their
+    yardsticks beside them (two library calls each, so printed, not in the
+    kernels line); then the other checks of ``BLOCK_CHECKS``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    for name, kernel, D, T, rate in BLOCK_ROWS:
+        check, launch, plain, work, yardstick, note = block_case(kernel, D, T, rate, randn, seeds)
+        measure(name, launch, plain, check, work)
+        print(f"  {name}: {note}: {median_ms(yardstick):.4f} ms (median of {REPS}; {card})",
+              flush=True)
+        del check, launch, plain, yardstick
+        torch.cuda.empty_cache()
+    for kernel, D, T, rate in BLOCK_CHECKS:
+        check, *_ = block_case(kernel, D, T, rate, randn, seeds)
+        results[f"{kernel} D {D} T {T} rate {rate}"] = check()
+        del check
+        torch.cuda.empty_cache()
+    return results
+
+
+def block_kernels(cfg, D: int) -> tuple[str, str, str]:
+    """The LayerNorm-folded block's kernels at width D on cfg's variant
+    (``ffn_variant``): the serving forward, the training (dropout) forward
+    and the backward, by their launch-count names."""
+    from coral_tpu_torch.ops import ffn
+
+    fwd = "ffn_ln_fc2" if cfg.ffn_variant == "fc2" else "ffn_ln"
+    bwd = {"dg_in": "ffn_bwd", "dg_out": "ffn_ln_g_bwd", "fc2": "ffn_ln_g_bwd",
+           "dw": "ffn_ln_dw_bwd"}[cfg.ffn_variant]
+    return ffn._name(fwd, D), ffn._name(f"{fwd}_drop", D), ffn._name(bwd, D)
+
+
 def route_launches(cfg, serving: bool) -> dict:
     """Launches per forward (serving) or per microbatch (the production step:
     the feature encoder training, save_qk_ctx) of a wav2vec2 config off the
@@ -2651,9 +2891,10 @@ def route_launches(cfg, serving: bool) -> dict:
                                       ln: (2 if ln_apart else 1) * L})
         counts.update({"flash": {"flash_attention_seg": L},
                        "pallas": {attention._name("fwd", hd): L}}.get(cfg.attention_impl, {}))
-        fwd = {"ffn_ln_block": "ffn_ln", "ffn_ln_fc1": "ffn_ln", "ffn_block": "ffn_fc1",
-               "ffn_fc1": "ffn_fc1"}.get(route)
-        if fwd is not None:
+        fwd = {"ffn_ln_fc1": "ffn_ln", "ffn_block": "ffn_fc1", "ffn_fc1": "ffn_fc1"}.get(route)
+        if route == "ffn_ln_block":
+            counts[block_kernels(cfg, D)[0]] += L
+        elif fwd is not None:
             counts[ffn._name(fwd, D)] += L
         return dict(counts)
     counts = collections.Counter({
@@ -2668,12 +2909,14 @@ def route_launches(cfg, serving: bool) -> dict:
         counts.update({attention._name("fwd", hd): L, attention._name("bwd", hd): L})
     fwd, fwd_runs, bwd = {
         "unfused": (f"gelu_dropout_{F}", 2, f"gelu_dropout_bwd_{F}"),
-        "ffn_ln_block": ("ffn_ln_drop", 1, "ffn_bwd"),
+        "ffn_ln_block": (None, 1, None),
         "ffn_block": ("ffn_fc1_drop", 1, "ffn_block_bwd"),
         "ffn_ln_fc1": ("ffn_ln_drop", 2, "ffn_ln_fc1_bwd"),
         "ffn_fc1": ("ffn_fc1_drop", 2, "ffn_fc1_bwd"),
     }[route]
-    if route != "unfused":
+    if route == "ffn_ln_block":
+        _, fwd, bwd = block_kernels(cfg, D)
+    elif route != "unfused":
         fwd, bwd = ffn._name(fwd, D), ffn._name(bwd, D)
     counts.update({fwd: fwd_runs * L, bwd: L})
     return dict(counts)
@@ -2764,15 +3007,17 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str)
 
 def route_run(card: str, label: str, config: dict, route: str, steps: int,
               serve_batches: int, compare: bool) -> dict:
-    """Phases (j), (j'), (l), (l'): serving through the setup's predictor,
-    then ``steps`` of (c)'s production step on ``config``'s routes (the FFN
-    on ``route``; the kernel path against the plain path on one microbatch
-    first, when ``compare``); returns the launch counts of the counted runs."""
+    """Phases (j), (j'), (l), (l'), (n)-(n''): serving through the setup's
+    predictor (``serve_batches`` device batches, none for 0), then ``steps``
+    of (c)'s production step on ``config``'s routes (the FFN on ``route``;
+    the kernel path against the plain path on one microbatch first, when
+    ``compare``); returns the launch counts of the counted runs."""
     import tempfile
 
     from coral_tpu_torch.training.model_setup import load_model_setup
 
-    counts = collections.Counter(route_serving(card, label, config, serve_batches, route))
+    counts = collections.Counter(route_serving(card, label, config, serve_batches, route)
+                                 if serve_batches else {})
     batch, audio_seconds = train_batch(0)
     if compare:
         training_compare(card, batch, config, label, activation_dropout=0.1)
@@ -2845,6 +3090,9 @@ def main() -> int:
           f"{BATCH}: N1-N4 at XLS-R-300M's and Whisper large-v3's shapes, at D 384 and 1920):",
           flush=True)
     checks.update(fc1_kernel_checks(card))
+    print(f"kernel checks of the LayerNorm-folded block's variants (bf16, batch {BATCH}: N5-N7 "
+          f"at XLS-R-300M's and Whisper large-v3's shapes, at D 384 and 1920):", flush=True)
+    checks.update(block_variant_checks(card))
     mark("kernel checks")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
@@ -2906,6 +3154,21 @@ def main() -> int:
                                          route="ffn_ln_fc1"))
     torch.cuda.empty_cache()
     mark("(m) Whisper large-v3, fused_ffn_block: false")
+    # (n)-(o'): the LayerNorm-folded block's variants.
+    main_counts.append(route_run(card, "(n)", FC2_CONFIG, "ffn_ln_block", FEW_STEPS, 1, True))
+    mark("(n) fused_ffn_block_fc2: true")
+    main_counts.append(route_run(card, "(n')", DW_CONFIG, "ffn_ln_block", FEW_STEPS, 0, True))
+    mark("(n') fused_ffn_block_dw: true")
+    main_counts.append(route_run(card, "(n'')", DG_OUT_CONFIG, "ffn_ln_block", 2, 0, False))
+    mark("(n'') fused_ffn_block_dg: false")
+    main_counts.append(whisper_train_run(card, "(o)", WHISPER_DW_CONFIG,
+                                         WHISPER_DW_PER_MICROBATCH, FEW_STEPS, falling=False))
+    torch.cuda.empty_cache()
+    mark("(o) Whisper large-v3, fused_ffn_block_dw: true")
+    main_counts.append(whisper_size_run(card, "(o')", "whisper-large", WHISPER_ID, 1e-6,
+                                        {"fused_ffn_block_fc2": True}, (1280, 32, 32, 20, 5120),
+                                        2))
+    mark("(o') Whisper large-v3, fused_ffn_block_fc2: true")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")

@@ -15,7 +15,9 @@ FFN (``ln_fused``) and runs ``ffn_block`` without a LayerNorm;
 after ``ln_fused``) and fc2 as a product; ``fused_ffn=False`` the unfused FFN
 (the LayerNorm through ``ln_fused``, fc1, then the GELU+dropout kernel in
 training at activation dropout > 0, ``ops/gelu_dropout.py``, else exact erf
-GELU with no kernel, then fc2).
+GELU with no kernel, then fc2). The LayerNorm-folded block runs the variant
+its flags select (``ffn_variant``: dg in or out of the backward kernel, fc2
+in the forward kernel, or the weight gradients in the backward's kernels).
 
 ``forward(..., deterministic=False, generator=...)`` is the training mode of
 the JAX model's ``deterministic=False``: SpecAugment (``_span_mask``, the time
@@ -97,8 +99,29 @@ from ..ops.philox import dropout
 NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item {})"
 
 
+class FFNBlockVariant:
+    """The LayerNorm-folded FFN block's variant of a model config with the
+    fields ``fused_ffn_block_dw``, ``_fc2``, ``_dg`` and an ``ffn_route``."""
+
+    @property
+    def ffn_variant(self) -> str | None:
+        """``ops.ffn.block_variant`` of the flags, None off the block's route,
+        where the JAX models never read them."""
+        if self.ffn_route != "ffn_ln_block":
+            return None
+        return _ffn.block_variant(self.fused_ffn_block_dw, self.fused_ffn_block_fc2,
+                                  self.fused_ffn_block_dg)
+
+    @property
+    def ffn_block_flags(self) -> dict[str, bool]:
+        """``ffn_ln_block``'s variant keywords, as the JAX models pass them."""
+        return dict(dw_in_kernel=self.fused_ffn_block_dw,
+                    fc2_in_kernel=self.fused_ffn_block_fc2,
+                    dg_in_kernel=self.fused_ffn_block_dg)
+
+
 @dataclasses.dataclass(frozen=True)
-class Wav2Vec2Config:
+class Wav2Vec2Config(FFNBlockVariant):
     """Architecture hyperparameters (defaults = XLS-R 300m)."""
 
     vocab_size: int = 46
@@ -135,14 +158,18 @@ class Wav2Vec2Config:
     # q/k/v biases inside it), "flash" or "xla" (the biases in the
     # projections). fused_ffn: the FFN's fused kernels, False: the unfused
     # FFN; with it fused_ffn_ln folds the LayerNorm into them, and
-    # fused_ffn_block runs the whole FFN as one block (``ffn_route``). The
-    # setup resolves the JAX flags that ride on these
-    # (attention_fused_qkv_bias) and raises for the flags the port has no
-    # route for.
+    # fused_ffn_block runs the whole FFN as one block (``ffn_route``). On the
+    # LayerNorm-folded block, fused_ffn_block_dw, _fc2 and _dg pick its
+    # variant (``ffn_variant``), at the setup's defaults. The setup resolves
+    # the JAX flags that ride on these (attention_fused_qkv_bias) and raises
+    # for the flags the port has no route for.
     attention_impl: str = "pallas"
     fused_ffn: bool = True
     fused_ffn_ln: bool = True
     fused_ffn_block: bool = True
+    fused_ffn_block_dw: bool = False
+    fused_ffn_block_fc2: bool = False
+    fused_ffn_block_dg: bool = True
 
     def __post_init__(self) -> None:
         if self.feat_extract_norm != "layer":
@@ -216,7 +243,8 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
     D = config.hidden_size
     head_dim = D / config.num_attention_heads
     if config.fused_ffn:
-        ffn = [(f"hidden_size (the FFN kernels, {config.ffn_route})", D, _ffn.KERNEL_D),
+        route = config.ffn_route + (f" {config.ffn_variant}" if config.ffn_variant else "")
+        ffn = [(f"hidden_size (the FFN kernels, {route})", D, _ffn.KERNEL_D),
                ("intermediate_size's remainder by the FFN's F tile",
                 config.intermediate_size % _ffn.KERNEL_F_TILE, (0,))]
     else:
@@ -621,6 +649,7 @@ class FeedForward(nn.Module):
         self.intermediate_dense = nn.Linear(D, Fi)
         self.output_dense = nn.Linear(Fi, D)
         self.route = config.ffn_route
+        self.block_flags = config.ffn_block_flags
         self.ops = ops
         self.activation_rate = config.activation_dropout
         self.rate = config.hidden_dropout
@@ -642,7 +671,8 @@ class FeedForward(nn.Module):
             stand_in = torch.empty_like(x) if remat.replaying else None
             if self.route == "ffn_ln_block":
                 x = ops.ffn_ln_block(x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight,
-                                     fc2.bias, ln.eps, rate, seeds, saved=stand_in)
+                                     fc2.bias, ln.eps, rate, seeds, saved=stand_in,
+                                     **self.block_flags)
             else:
                 x = ops.ffn_block(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, rate, seeds,
                                   saved=stand_in)

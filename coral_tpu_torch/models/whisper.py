@@ -16,7 +16,8 @@ otherwise plain matmul + fp32 softmax, the math of
 ``jax.nn.dot_product_attention``. The encoder FFN takes the route of
 ``WhisperConfig.ffn_route``, as the JAX ``_ffn_full``: ``ffn_ln_block`` (the
 JAX ``fused_ffn_block`` route: LayerNorm folded into fc1, the polynomial
-GELU tables, fc2 outside the kernel); with ``fused_ffn_block=False`` fc1
+GELU tables, fc2 outside the kernel, or the variant of ``ffn_variant``,
+as the wav2vec2 model's); with ``fused_ffn_block=False`` fc1
 alone, ``ffn_ln_fc1`` (the LayerNorm folded in) or, with
 ``fused_ffn_ln=False``, the LayerNorm then ``ffn_fc1``, and fc2 as a
 product; with ``fused_ffn=False`` the JAX ``_ffn_block`` -> ``_ffn_up`` ->
@@ -83,7 +84,8 @@ from ..ops.flash_attention import (flash_attention, flash_self_attention,
 from ..ops.gelu_dropout import gelu_dropout
 from ..ops.ln_gelu import ln_fused
 from ..ops.philox import dropout
-from .wav2vec2 import _NO_REMAT, _Remat, _linear, _project, _seeds, _trunc_normal, span_dilate
+from .wav2vec2 import (_NO_REMAT, FFNBlockVariant, _Remat, _linear, _project, _seeds,
+                       _trunc_normal, span_dilate)
 
 _LN_EPS = 1e-5
 # The JAX model takes its flash kernel from this sequence length on.
@@ -122,7 +124,7 @@ def remat_names(policy: str) -> frozenset[str]:
 
 
 @dataclasses.dataclass(frozen=True)
-class WhisperConfig:
+class WhisperConfig(FFNBlockVariant):
     """Architecture hyperparameters (defaults = whisper-tiny)."""
 
     vocab_size: int = 51_865
@@ -159,6 +161,10 @@ class WhisperConfig:
     fused_ffn: bool = True
     fused_ffn_ln: bool = True
     fused_ffn_block: bool = True
+    # The block's variant (``ffn_variant``), at the setup's defaults.
+    fused_ffn_block_dw: bool = False
+    fused_ffn_block_fc2: bool = False
+    fused_ffn_block_dg: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -425,7 +431,8 @@ def kernel_widths(config: WhisperConfig) -> list[tuple[str, float, tuple]]:
     D = config.d_model
     if config.fused_ffn:
         needs = [
-            (f"d_model (the FFN kernels, {config.ffn_route})", D, _ffn.KERNEL_D),
+            (f"d_model (the FFN kernels, {config.ffn_route}"
+             + (f" {config.ffn_variant})" if config.ffn_variant else ")"), D, _ffn.KERNEL_D),
             ("ffn_dim's remainder by the FFN's F tile", config.ffn_dim % _ffn.KERNEL_F_TILE,
              (0,)),
         ]
@@ -571,7 +578,8 @@ def _ffn_residual(model, layer, x: torch.Tensor, a_in: torch.Tensor, out_proj: n
     if route == "ffn_ln_block":
         ffn = model.ops.ffn_ln_block(
             ffn_in, fc1.weight, fc1.bias, fln.weight, fln.bias, fc2.weight, fc2.bias, fln.eps,
-            rate, seeds, saved=torch.empty_like(ffn_in) if remat.replaying else None)
+            rate, seeds, saved=torch.empty_like(ffn_in) if remat.replaying else None,
+            **model.config.ffn_block_flags)
     else:
         g = model.ops.ffn_ln_fc1(ffn_in, fc1.weight, fc1.bias, fln.weight, fln.bias, fln.eps,
                                  rate, seeds)

@@ -78,6 +78,15 @@ _SIGNATURES = {
     # x, w1, b1, gamma, beta, dg, seeds, dh, ln_out, db1_part, dl, M, D, F, T,
     # threshold, scale, eps, stream
     "coral_ffn_ln_fc1_bwd": [_P] * 11 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # x, w1, b1, gamma, beta, dg, seeds, g, dh, ln_out, db1_part, dl, M, D, F,
+    # T, threshold, scale, eps, stream
+    "coral_ffn_ln_g_bwd": [_P] * 12 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # x, w1, b1, gamma, beta, dy, dg, seeds, g, dh, ln_out, db1_part, dl, dw1,
+    # dw2, M, D, F, T, threshold, scale, eps, stream
+    "coral_ffn_ln_dw_bwd": [_P] * 15 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # x, w1, b1, gamma, beta, w2, b2, seeds, y, M, D, F, T, threshold, scale,
+    # eps, stream
+    "coral_ffn_ln_fc2_fwd": [_P] * 9 + [_LL, _I, _I, _I, _U, _F, _F, _P],
     # emit, skip, valid, lengths, out, T, B, S, stream
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream

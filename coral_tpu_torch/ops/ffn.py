@@ -8,14 +8,22 @@ differentiable entry points, each a ``torch.autograd.Function`` whose
 residuals are its primal inputs and the seeds, as the JAX custom VJPs':
 
 - ``ffn_ln_block``: ``dropout(gelu(layer_norm(x) @ W1^T + b1)) @ W2^T + b2``,
-  ``ffn_ln_block`` with ``dg_in_kernel=True`` (``_ffn_ln_block_dg``,
-  :1742-1789). The forward writes ``g`` in ``csrc/ffn.cu``
-  (``_fwd_kernel_ln[_drop]``) and fc2 runs as ``torch.matmul``, which the JAX
-  package also leaves outside its kernel (``_fc2``); the backward
-  (``_bwd_kernel_ln_g_dg[_drop]``) recomputes h, forms ``dg = dy @ W2^T`` in
-  the kernel, writes g (the dW2 operand), dh and ln_out (the dW1 operand),
-  computes ``dl = dh @ W1`` in a second kernel and passes dl through the
-  LayerNorm backward of ``csrc/ln_gelu.cu``.
+  in the variant its flags select (``block_variant``, the JAX precedence of
+  ``ffn_pallas.py:2139-2147``). By default ``dg_in_kernel=True``
+  (``_ffn_ln_block_dg``, :1742-1789): the forward writes ``g`` in
+  ``csrc/ffn.cu`` (``_fwd_kernel_ln[_drop]``) and fc2 runs as
+  ``torch.matmul``, which the JAX package also leaves outside its kernel
+  (``_fc2``); the backward (``_bwd_kernel_ln_g_dg[_drop]``) recomputes h,
+  forms ``dg = dy @ W2^T`` in the kernel, writes g (the dW2 operand), dh and
+  ln_out (the dW1 operand), computes ``dl = dh @ W1`` in a second kernel and
+  passes dl through the LayerNorm backward of ``csrc/ln_gelu.cu``. With
+  ``dg_in_kernel=False`` (``_ffn_ln_block``) dg is a product outside and N5
+  (``csrc/ffn_ln_g.cu``, ``_bwd_kernel_ln_g[_drop]``) reads it; with
+  ``fc2_in_kernel`` the forward is N7 (``csrc/ffn_ln_fc2.cu``,
+  ``_fwd_kernel_ln_fc2[_drop]``: LayerNorm, fc1, GELU, dropout and fc2 in
+  one kernel) and the backward N5's; with ``dw_in_kernel`` the backward is
+  N6 (``csrc/ffn_ln_g.cu``, ``_bwd_kernel_ln_dw``: N5's pass, then a kernel
+  for dW1 and dW2).
 - ``ffn_block``: the same without the LayerNorm (``_ffn_block``,
   :1864-1905): the forward ``csrc/ffn_fc1.cu`` (``_fwd_kernel[_drop]``),
   fc2 outside; the backward forms ``dg = dy @ W2^T`` outside, rounded to the
@@ -29,12 +37,12 @@ residuals are its primal inputs and the seeds, as the JAX custom VJPs':
   :1645-1674): ``csrc/ffn_fc1.cu`` both ways (``_fwd_kernel[_drop]``,
   ``_bwd_kernel[_drop]``: dh and dx = dh @ W1).
 
-dW1, dW2, db2 and the sums of the kernels' row partials stay outside as
-products and sums, as in the JAX backward functions. On a CPU tensor the
-plain versions beside the kernels run, with the kernels' roundings: h in
-fp32, g rounded to x's dtype, dh rounded to x's dtype before its product with
-W1 and summed unrounded into db1, as the TPU kernels do (``_bwd_epilogue``);
-``plain=True`` runs them on any device. Each entry point takes ``saved``, a
+dW1, dW2 (but in N6), db2 and the sums of the kernels' row partials stay
+outside as products and sums, as in the JAX backward functions. On a CPU
+tensor the plain versions beside the kernels run, with the kernels'
+roundings: h in fp32, g rounded to x's dtype, dh rounded to x's dtype before
+its product with W1 and summed unrounded into db1, as the TPU kernels do
+(``_bwd_epilogue``); ``plain=True`` runs them on any device. Each entry point takes ``saved``, a
 checkpoint replay's hook: for the blocks a stand-in for the output, which the
 backward never reads (nothing launches, as the JAX replay drops the block's
 forward); for fc1 alone the kept output g, which fc2's weight gradient reads
@@ -123,6 +131,16 @@ def _fc2(g, w2, b2):
     cast to g.dtype. (For bf16 ``torch.matmul`` rounds its output to bf16
     before the bias add; in fp32 the two agree.)"""
     return (torch.matmul(g, w2.to(g.dtype).t()).float() + b2.float()).to(g.dtype)
+
+
+def ffn_ln_fc2_fwd_plain(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5,
+                         rate: float = 0.0, seeds=None):
+    """``_fwd_kernel_ln_fc2[_drop]`` in plain ops (N7): g as
+    ``ffn_ln_fc1_plain`` (rounded to x.dtype, fc2's operand), then
+    ``g @ W2^T + b2`` summed in fp32 and rounded once to x.dtype, the
+    rounding of ``_fc2`` in the JAX package."""
+    g = ffn_ln_fc1_plain(x, w1, b1, gamma, beta, eps, rate, seeds)
+    return (g.float() @ w2.to(x.dtype).float().t() + b2.float()).to(x.dtype)
 
 
 def _check_shapes(name, x, w1, F):
@@ -219,6 +237,43 @@ def ffn_fc1_fwd(x, w1, b1, rate: float = 0.0, seeds=None):
     return g
 
 
+def ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float = 0.0,
+                   seeds=None):
+    """The whole block's forward in one kernel (N7): ``dropout(gelu(bf16(
+    layer_norm(x)) @ W1^T + b1)) @ W2^T + b2``; g never reaches device
+    memory.
+
+    Args:
+        x: (B, T, D); on CUDA bf16 with D in ``KERNEL_D``.
+        w1: (F, D); w2: (D, F); cast to ``x.dtype``; on CUDA F a multiple of
+            256 and both 32-byte aligned (the kernel reads their WMMA tiles
+            from device memory).
+        b1: (F,), gamma, beta, b2: (D,), fp32.
+        rate, seeds: as ``ffn_ln_fc1_fwd``.
+
+    Returns:
+        (B, T, D) in ``x.dtype``.
+    """
+    name = "coral_ffn_ln_fc2_fwd"
+    if not _build.require_cuda(name, x):
+        return ffn_ln_fc2_fwd_plain(x, w1, b1, gamma, beta, w2, b2, eps, rate, seeds)
+    D, F, w1 = _check_fc1(name, x, w1, b1, (gamma, beta, b2))
+    w2 = w2.to(x.dtype).contiguous()
+    _build.check_cuda(name, torch.bfloat16, w2)
+    if w2.shape != (D, F) or w2.device != x.device:
+        raise ValueError(f"{name}: w2 must be ({D}, {F}) on {x.device}")
+    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
+        raise ValueError(f"{name}: the kernel needs 32-byte aligned weights")
+    seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
+    y = torch.empty_like(x)
+    _build.launch(
+        name, _name("ffn_ln_fc2_drop" if rate > 0.0 else "ffn_ln_fc2", D), x.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), seed_ptr, y.data_ptr(), x.numel() // D, D, F, T, thr, scale, float(eps),
+    )
+    return y
+
+
 def _ln_bwd_rows(dl, xhat, rstd, gamma):
     """The LayerNorm backward of ``_bwd_ln_epilogue``: dx (fp32) from dl."""
     dn = dl * gamma.float()
@@ -226,23 +281,59 @@ def _ln_bwd_rows(dl, xhat, rstd, gamma):
             - xhat * (dn * xhat).mean(dim=-1, keepdim=True)) * rstd
 
 
-def ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0,
-                  seeds=None):
-    """``_bwd_kernel_ln_g_dg[_drop]`` + ``_bwd_ln_epilogue`` in plain ops.
-
-    Returns (g, dh, ln_out, dx, db1, dgamma, dbeta): g, dh, ln_out and dx in
-    x.dtype; db1 (F,), dgamma and dbeta (D,) fp32. dh is rounded before
-    ``dl = dh @ W1`` and summed unrounded into db1, as in the TPU kernel."""
+def _ln_g_bwd_plain(x, w1, b1, gamma, beta, dg32, eps, rate, seeds):
+    """The LayerNorm-folded backward pass in plain ops from dg in fp32:
+    (g, dh, ln_out, dx, db1, dgamma, dbeta), as ``ffn_ln_g_bwd_plain``."""
     dt = x.dtype
     D = x.shape[-1]
     ln, xhat, rstd = _ln_rows(x, gamma, beta, eps)
-    dg = dy.to(dt).float() @ w2.to(dt).float()
-    g, dh = _act_bwd(_h(ln, w1, b1), dg, x.shape[1], rate, seeds)
+    g, dh = _act_bwd(_h(ln, w1, b1), dg32, x.shape[1], rate, seeds)
     dhb = dh.to(dt)
     dl = dhb.float() @ w1.to(dt).float()
     dx = _ln_bwd_rows(dl, xhat, rstd, gamma)
     return (g.to(dt), dhb, ln, dx.to(dt), dh.reshape(-1, dh.shape[-1]).sum(0),
             (dl * xhat).reshape(-1, D).sum(0), dl.reshape(-1, D).sum(0))
+
+
+def ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0,
+                  seeds=None):
+    """``_bwd_kernel_ln_g_dg[_drop]`` + ``_bwd_ln_epilogue`` in plain ops.
+
+    Returns (g, dh, ln_out, dx, db1, dgamma, dbeta): g, dh, ln_out and dx in
+    x.dtype; db1 (F,), dgamma and dbeta (D,) fp32. dg = dy W2^T stays in
+    fp32, as in the kernel; dh is rounded before ``dl = dh @ W1`` and summed
+    unrounded into db1, as in the TPU kernel."""
+    dt = x.dtype
+    dg = dy.to(dt).float() @ w2.to(dt).float()
+    return _ln_g_bwd_plain(x, w1, b1, gamma, beta, dg, eps, rate, seeds)
+
+
+def ffn_ln_g_bwd_plain(x, w1, b1, gamma, beta, dg, eps: float = 1e-5, rate: float = 0.0,
+                       seeds=None):
+    """``_bwd_kernel_ln_g[_drop]`` + ``_bwd_ln_epilogue`` in plain ops (N5):
+    ``ffn_bwd_plain`` with dg (B, T, F) read in, rounded to x.dtype as the
+    kernel reads it. Returns (g, dh, ln_out, dx, db1, dgamma, dbeta)."""
+    return _ln_g_bwd_plain(x, w1, b1, gamma, beta, dg.to(x.dtype).float(), eps, rate, seeds)
+
+
+def ffn_dw_plain(dh, ln_out, dy, g):
+    """N6's weight gradients in plain ops: ``dW1 = dh^T ln_out`` (F, D) and
+    ``dW2 = dy^T g`` (D, F), bf16 operands summed in fp32 over every row."""
+    def at_b(a, b):
+        return a.reshape(-1, a.shape[-1]).float().t() @ b.reshape(-1, b.shape[-1]).float()
+
+    return at_b(dh, ln_out), at_b(dy.to(g.dtype), g)
+
+
+def ffn_ln_dw_bwd_plain(x, w1, b1, gamma, beta, dy, dg, eps: float = 1e-5,
+                        rate: float = 0.0, seeds=None):
+    """``_bwd_kernel_ln_dw`` in plain ops (N6): dh, g and ln_out as N5's,
+    then the weight gradients over every row. Returns (dx, dW1 (F, D) fp32,
+    dW2 (D, F) fp32, db1, dgamma, dbeta)."""
+    g, dh, ln_out, dx, db1, dgamma, dbeta = ffn_ln_g_bwd_plain(
+        x, w1, b1, gamma, beta, dg, eps, rate, seeds)
+    dw1, dw2 = ffn_dw_plain(dh, ln_out, dy, g)
+    return dx, dw1, dw2, db1, dgamma, dbeta
 
 
 def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0,
@@ -275,6 +366,76 @@ def ffn_bwd(x, w1, b1, gamma, beta, dy, w2, eps: float = 1e-5, rate: float = 0.0
     )
     dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
     return g, dh, ln_out, dx, db1_part.sum(0), dgamma, dbeta
+
+
+def _ln_g_outputs(x, F):
+    """g, dh (M, F) in x.dtype, ln_out (M, D) and dl (M, D) fp32: N5's outputs."""
+    g = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
+    dl = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    return g, torch.empty_like(g), torch.empty_like(x), dl
+
+
+def ffn_ln_g_bwd(x, w1, b1, gamma, beta, dg, eps: float = 1e-5, rate: float = 0.0,
+                 seeds=None):
+    """The backward kernels with dg read in (N5) and the LayerNorm backward;
+    arguments and results as ``ffn_ln_g_bwd_plain``.
+
+    Args:
+        x: (B, T, D) bf16, D in ``KERNEL_D``; dg: (B, T, F), cast to x.dtype.
+        w1: (F, D), cast to x.dtype; b1 (F,), gamma, beta (D,) fp32.
+    """
+    name = "coral_ffn_ln_g_bwd"
+    if not _build.require_cuda(name, x):
+        return ffn_ln_g_bwd_plain(x, w1, b1, gamma, beta, dg, eps, rate, seeds)
+    D, F, w1 = _check_fc1(name, x, w1, b1, (gamma, beta))
+    dg = _check_dg(name, x, dg, F)
+    seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
+    M, db1_part = _db1_part(x, D, F)
+    g, dh, ln_out, dl = _ln_g_outputs(x, F)
+    _build.launch(
+        name, _name("ffn_ln_g_bwd", D), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), dg.data_ptr(), seed_ptr, g.data_ptr(), dh.data_ptr(),
+        ln_out.data_ptr(), db1_part.data_ptr(), dl.data_ptr(), M, D, F, T, thr, scale,
+        float(eps),
+    )
+    dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
+    return g, dh, ln_out, dx, db1_part.sum(0), dgamma, dbeta
+
+
+def ffn_ln_dw_bwd(x, w1, b1, gamma, beta, dy, dg, eps: float = 1e-5, rate: float = 0.0,
+                  seeds=None):
+    """The backward with the weight gradients in the kernels (N6: N5's pass,
+    dl = dh W1 and the dW kernel in one call) and the LayerNorm backward;
+    arguments and results as ``ffn_ln_dw_bwd_plain``. g, dh and ln_out are
+    scratch, freed on return.
+
+    Args:
+        x, dy: (B, T, D) bf16, D in ``KERNEL_D``; dg: (B, T, F), cast to
+            x.dtype.
+        w1: (F, D), cast to x.dtype; b1 (F,), gamma, beta (D,) fp32.
+    """
+    name = "coral_ffn_ln_dw_bwd"
+    if not _build.require_cuda(name, x):
+        return ffn_ln_dw_bwd_plain(x, w1, b1, gamma, beta, dy, dg, eps, rate, seeds)
+    D, F, w1 = _check_fc1(name, x, w1, b1, (gamma, beta))
+    dg = _check_dg(name, x, dg, F)
+    dy = dy.to(x.dtype).contiguous()
+    _build.check_cuda(name, torch.bfloat16, x, dy)
+    if dy.shape != x.shape:
+        raise ValueError(f"{name}: dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
+    M, db1_part = _db1_part(x, D, F)
+    g, dh, ln_out, dl = _ln_g_outputs(x, F)
+    dw1 = torch.empty((F, D), dtype=torch.float32, device=x.device)
+    dw2 = torch.empty((D, F), dtype=torch.float32, device=x.device)
+    _build.launch(
+        name, _name("ffn_ln_dw_bwd", D), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), dg.data_ptr(), seed_ptr, g.data_ptr(),
+        dh.data_ptr(), ln_out.data_ptr(), db1_part.data_ptr(), dl.data_ptr(), dw1.data_ptr(),
+        dw2.data_ptr(), M, D, F, T, thr, scale, float(eps),
+    )
+    dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
+    return dx, dw1, dw2, db1_part.sum(0), dgamma, dbeta
 
 
 def ffn_fc1_bwd_plain(x, w1, b1, dg, rate: float = 0.0, seeds=None, emit_g: bool = False):
@@ -325,16 +486,10 @@ def ffn_ln_fc1_bwd_plain(x, w1, b1, gamma, beta, dg, eps: float = 1e-5, rate: fl
     """``_bwd_kernel_ln[_drop]`` + ``_bwd_ln_epilogue`` in plain ops (N4).
 
     Returns (dh, dx, ln_out, db1, dgamma, dbeta): dh, dx and ln_out in
-    x.dtype; db1 (F,), dgamma and dbeta (D,) fp32."""
-    dt = x.dtype
-    D = x.shape[-1]
-    ln, xhat, rstd = _ln_rows(x, gamma, beta, eps)
-    _, dh = _act_bwd(_h(ln, w1, b1), dg.to(dt).float(), x.shape[1], rate, seeds)
-    dhb = dh.to(dt)
-    dl = dhb.float() @ w1.to(dt).float()
-    dx = _ln_bwd_rows(dl, xhat, rstd, gamma)
-    return (dhb, dx.to(dt), ln, dh.reshape(-1, dh.shape[-1]).sum(0),
-            (dl * xhat).reshape(-1, D).sum(0), dl.reshape(-1, D).sum(0))
+    x.dtype; db1 (F,), dgamma and dbeta (D,) fp32: N5's without g."""
+    _, dh, ln_out, dx, db1, dgamma, dbeta = ffn_ln_g_bwd_plain(
+        x, w1, b1, gamma, beta, dg, eps, rate, seeds)
+    return dh, dx, ln_out, db1, dgamma, dbeta
 
 
 def ffn_ln_fc1_bwd(x, w1, b1, gamma, beta, dg, eps: float = 1e-5, rate: float = 0.0,
@@ -371,51 +526,82 @@ def _seeds_for(name, rate, seeds):
         raise ValueError(f"{name}: dropout needs seeds")
 
 
+def block_variant(dw_in_kernel: bool = False, fc2_in_kernel: bool = False,
+                  dg_in_kernel: bool = True) -> str:
+    """The LayerNorm-folded block's variant that ``ffn_ln_block``'s flags
+    select, with the JAX precedence dw > fc2 > dg (``ffn_pallas.py:2139-
+    2147``): "dw" (K5's forward, N6), "fc2" (N7, N5), "dg_in" (K5's forward
+    and backward) or "dg_out" (K5's forward, N5)."""
+    if dw_in_kernel:
+        return "dw"
+    if fc2_in_kernel:
+        return "fc2"
+    return "dg_in" if dg_in_kernel else "dg_out"
+
+
 class _FFNBlock(torch.autograd.Function):
-    """``_ffn_ln_block_dg``: residuals are the primal inputs and the seeds
-    (``ffn_pallas.py:1760``); the backward is the kernels above plus the
-    outside products ``dW1 = dh^T ln_out`` and ``dW2 = dy^T g`` (rounded to
-    the working dtype, as ``.astype(w1.dtype)`` of the bf16 copies) and
-    ``db2 = sum(dy)``. Since no residual comes from the forward, a checkpoint
-    replay passes ``saved`` (a tensor it never reads) and nothing runs, as
-    the JAX replay drops the block's forward."""
+    """``_ffn_ln_block_dg`` and the other variants of ``ffn_ln_block``
+    (``block_variant``): residuals are the primal inputs and the seeds
+    (``ffn_pallas.py:1760``). The forward is K5's with fc2 outside, or N7's
+    with fc2 inside ("fc2"). The backward is K5's (dg = dy W2^T in the
+    kernel, "dg_in") or takes dg from outside, rounded to the working dtype
+    as the JAX backward's ``.astype(dy.dtype)``: N5 ("fc2", "dg_out") or N6,
+    which also forms dW1 and dW2 ("dw"). Elsewhere ``dW1 = dh^T ln_out`` and
+    ``dW2 = dy^T g`` are products outside, rounded to the working dtype as
+    ``.astype(w1.dtype)`` of the bf16 copies; ``db2 = sum(dy)`` always is.
+    Since no residual comes from the forward, a checkpoint replay passes
+    ``saved`` (a tensor it never reads) and nothing runs, as the JAX replay
+    drops the block's forward."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, gamma, beta, w2, b2, seeds, rate, eps, plain, saved):
+    def forward(ctx, x, w1, b1, gamma, beta, w2, b2, seeds, rate, eps, plain, saved, variant):
         ctx.save_for_backward(x, w1, b1, gamma, beta, w2, seeds)
-        ctx.rate, ctx.eps, ctx.plain, ctx.b2_dtype = rate, eps, plain, b2.dtype
+        ctx.rate, ctx.eps, ctx.plain, ctx.variant = rate, eps, plain, variant
+        ctx.b2_dtype = b2.dtype
         if saved is not None:
             return saved.detach()
+        args = (x, w1, b1.float(), gamma.float(), beta.float())
+        if variant == "fc2":
+            fwd = ffn_ln_fc2_fwd_plain if plain else ffn_ln_fc2_fwd
+            return fwd(*args, w2, b2.float(), eps, rate, seeds)
         fc1 = ffn_ln_fc1_plain if plain else ffn_ln_fc1_fwd
-        g = fc1(x, w1, b1.float(), gamma.float(), beta.float(), eps, rate, seeds)
-        return _fc2(g, w2, b2)
+        return _fc2(fc1(*args, eps, rate, seeds), w2, b2)
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, b1, gamma, beta, w2, seeds = ctx.saved_tensors
-        bwd = ffn_bwd_plain if ctx.plain else ffn_bwd
-        dt = x.dtype
-        g, dh, ln_out, dx, db1, dgamma, dbeta = bwd(
-            x, w1, b1.float(), gamma.float(), beta.float(), dy.to(dt), w2, ctx.eps,
-            ctx.rate, seeds,
-        )
-        dw1, dw2, db2 = _outside_grads(dh, ln_out, dy, g)
+        dt, plain = x.dtype, ctx.plain
+        args = (x, w1, b1.float(), gamma.float(), beta.float())
+        tail = (ctx.eps, ctx.rate, seeds)
+        if ctx.variant == "dg_in":
+            bwd = ffn_bwd_plain if plain else ffn_bwd
+            g, dh, ln_out, dx, db1, dgamma, dbeta = bwd(*args, dy.to(dt), w2, *tail)
+        else:
+            dg = torch.matmul(dy.to(dt), w2.to(dt))
+            if ctx.variant == "dw":
+                bwd = ffn_ln_dw_bwd_plain if plain else ffn_ln_dw_bwd
+                dx, dw1, dw2, db1, dgamma, dbeta = bwd(*args, dy, dg, *tail)
+            else:
+                bwd = ffn_ln_g_bwd_plain if plain else ffn_ln_g_bwd
+                g, dh, ln_out, dx, db1, dgamma, dbeta = bwd(*args, dg, *tail)
+        if ctx.variant != "dw":
+            dw1, dw2 = _outside_grads(dh, ln_out, dy, g)
+        db2 = dy.reshape(-1, dy.shape[-1]).float().sum(0)
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dgamma.to(gamma.dtype),
                 dbeta.to(beta.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None, None,
-                None, None)
+                None, None, None)
 
 
 def _outside_grads(dh, a, dy=None, g=None):
-    """The products and sums the JAX backward functions leave outside their
-    kernels: ``dW1 = dh^T a`` (a: x or ln_out), and with the block's dy and
-    g also ``dW2 = dy^T g`` and ``db2 = sum(dy)``, in the working dtype
-    (bf16 products with fp32 sums, rounded once)."""
+    """The products the JAX backward functions leave outside their kernels:
+    ``dW1 = dh^T a`` (a: x or ln_out), and with the block's dy and g also
+    ``dW2 = dy^T g``, in the working dtype (bf16 products with fp32 sums,
+    rounded once)."""
     dw1 = torch.matmul(dh.reshape(-1, dh.shape[-1]).t(), a.reshape(-1, a.shape[-1]))
     if dy is None:
         return dw1
     dy2 = dy.reshape(-1, dy.shape[-1])
-    dw2 = torch.matmul(dy2.to(g.dtype).t(), g.reshape(-1, g.shape[-1]))
-    return dw1, dw2, dy2.float().sum(0)
+    return dw1, torch.matmul(dy2.to(g.dtype).t(), g.reshape(-1, g.shape[-1]))
 
 
 class _FFNBlockNoLn(torch.autograd.Function):
@@ -441,7 +627,8 @@ class _FFNBlockNoLn(torch.autograd.Function):
         dg = torch.matmul(dy.to(dt), w2.to(dt))
         bwd = ffn_fc1_bwd_plain if ctx.plain else ffn_fc1_bwd
         dh, g, dx, db1 = bwd(x, w1, b1.float(), dg, ctx.rate, seeds, emit_g=True)
-        dw1, dw2, db2 = _outside_grads(dh, x, dy, g)
+        dw1, dw2 = _outside_grads(dh, x, dy, g)
+        db2 = dy.reshape(-1, dy.shape[-1]).float().sum(0)
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
                 db2.to(ctx.b2_dtype), None, None, None, None)
 
@@ -498,7 +685,8 @@ class _FFNFc1(torch.autograd.Function):
 
 
 def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float = 0.0,
-                 seeds=None, plain: bool = False, saved=None):
+                 seeds=None, plain: bool = False, saved=None, dw_in_kernel: bool = False,
+                 fc2_in_kernel: bool = False, dg_in_kernel: bool = True):
     """The whole pre-LN FFN, differentiable.
 
     Args:
@@ -508,13 +696,17 @@ def ffn_ln_block(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: float 
         plain: run the plain versions (forward and backward) on any device.
         saved: a checkpoint replay's stand-in for the output, which it does
             not read (no launch).
+        dw_in_kernel, fc2_in_kernel, dg_in_kernel: the JAX ``ffn_ln_block``'s
+            variant flags (``block_variant``; dg_in_kernel defaults to the
+            setups' true, where the JAX function's own default is false).
 
     Returns:
         (B, T, D) in ``x.dtype`` (the residual add stays outside).
     """
     _seeds_for("ffn_ln_block", rate, seeds)
+    variant = block_variant(dw_in_kernel, fc2_in_kernel, dg_in_kernel)
     return _FFNBlock.apply(x, w1, b1, gamma, beta, w2, b2, seeds, float(rate), float(eps),
-                           plain, saved)
+                           plain, saved, variant)
 
 
 def ffn_block(x, w1, b1, w2, b2, rate: float = 0.0, seeds=None, plain: bool = False,

@@ -10,9 +10,9 @@ the JAX setups do (wav2vec2 :127-205, Whisper :495-516): ``fused_ffn`` is
 ``fused_ffn or fused_ffn_ln``, ``fused_ffn_ln`` defaults to ``fused_ffn``
 and ``fused_ffn_block`` to true, so ``fused_ffn: false`` alone gives the
 unfused FFN; the models take the FFN route those flags select
-(``ffn_route``), and the block's variant flags (``fused_ffn_block_dw``,
-``_fc2``, ``_dg``) are read, and refused off their defaults, only on the
-LayerNorm-folded block's route, where the JAX models read them; wav2vec2's
+(``ffn_route``), and on the LayerNorm-folded block's route, the only one
+where the JAX models read them, the block's variant flags
+(``fused_ffn_block_dw``, ``_fc2``, ``_dg``: ``ffn_variant``); wav2vec2's
 ``attention_impl`` takes ``pallas``, ``flash`` or ``xla``, and
 ``attention_fused_qkv_bias`` defaults to true only for ``pallas`` (with the
 v3 stats and no ``fused_qkv_ln``). ``WhisperSetup`` (:440-628):
@@ -69,9 +69,9 @@ _W2V2_ARCHS: dict[str, Callable[..., Wav2Vec2Config]] = {
 # route for (coral_tpu/training/model_setup.py): any other value raises, as
 # the JAX package's own trap rule asks (tests/test_model_setup_traps.py): it
 # must not run a path other than the one configured. attention_impl,
-# attention_fused_qkv_bias, fused_ffn, fused_ffn_ln and fused_ffn_block are
-# resolved instead, raising for the pairs without a route
-# (``_w2v2_kernel_flags``, ``_check_ffn_route``), and
+# attention_fused_qkv_bias, fused_ffn, fused_ffn_ln, fused_ffn_block and the
+# block's variants are resolved instead, raising for the pairs without a
+# route (``_w2v2_kernel_flags``), and
 # pos_conv_fold is absent because both of its values are the same math, which
 # the port computes as a plain grouped conv.
 _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
@@ -81,13 +81,6 @@ _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
     "encoder_ln_impl": "pallas",
     "fused_qkv_ln": False,
     "do_stable_layer_norm": True,
-}
-# The LayerNorm-folded FFN block's variants, read only on its route: the port
-# has the block with dg in the kernel, dW and fc2 outside.
-_FFN_BLOCK_FLAG_DEFAULTS: dict[str, Any] = {
-    "fused_ffn_block_dw": False,
-    "fused_ffn_block_fc2": False,
-    "fused_ffn_block_dg": True,
 }
 
 
@@ -125,22 +118,18 @@ def _check_kernel_flags(model_cfg: Mapping[str, Any], defaults: Mapping[str, Any
 
 
 def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> dict[str, bool]:
-    """fused_ffn, fused_ffn_ln and fused_ffn_block as both JAX setups
-    resolve them (coral_tpu/training/model_setup.py:159-198, :504-520)."""
+    """fused_ffn, fused_ffn_ln, fused_ffn_block and the block's variants
+    (fused_ffn_block_dw, _fc2, _dg) as both JAX setups resolve them
+    (coral_tpu/training/model_setup.py:159-198, :504-520)."""
     return dict(
         fused_ffn=bool(model_cfg.get("fused_ffn", True))
         or bool(model_cfg.get("fused_ffn_ln", False)),
         fused_ffn_ln=bool(model_cfg.get("fused_ffn_ln", model_cfg.get("fused_ffn", True))),
         fused_ffn_block=bool(model_cfg.get("fused_ffn_block", True)),
+        fused_ffn_block_dw=bool(model_cfg.get("fused_ffn_block_dw", False)),
+        fused_ffn_block_fc2=bool(model_cfg.get("fused_ffn_block_fc2", False)),
+        fused_ffn_block_dg=bool(model_cfg.get("fused_ffn_block_dg", True)),
     )
-
-
-def _check_ffn_route(model_cfg: Mapping[str, Any],
-                     model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
-    """Raise for a variant of the LayerNorm-folded FFN block the port lacks,
-    on that block's route only: elsewhere the JAX models never read them."""
-    if model_config.ffn_route == "ffn_ln_block":
-        _check_kernel_flags(model_cfg, _FFN_BLOCK_FLAG_DEFAULTS)
 
 
 def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
@@ -271,7 +260,6 @@ class Wav2Vec2Setup:
             mask_feature_length=model_cfg.get("mask_feature_length", 64),
             **flags,
         )
-        _check_ffn_route(model_cfg, self.model_config)
         if self.device.type == "cuda":
             check_kernel_widths(self.model_config)
         self.config = config
@@ -440,7 +428,6 @@ class WhisperSetup:
             ln_impl=model_cfg.get("ln_impl", "xla"),
             **_fused_ffn_flags(model_cfg),
         )
-        _check_ffn_route(model_cfg, self.model_config)
         if self.device.type == "cuda":
             check_kernel_widths(self.model_config)
         # As the JAX setup: save_flash_ctx for the 1280-wide large family,

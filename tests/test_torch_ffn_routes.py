@@ -338,6 +338,7 @@ COMBOS = [{k: v[0] for k, v in zip(("fused_ffn", "fused_ffn_ln", "fused_ffn_bloc
 VARIANTS = ({"fused_ffn_block_dw": True}, {"fused_ffn_block_fc2": True},
             {"fused_ffn_block_dg": False})
 FLAGS = ("fused_ffn", "fused_ffn_ln", "fused_ffn_block")
+VARIANT_FLAGS = ("fused_ffn_block_dw", "fused_ffn_block_fc2", "fused_ffn_block_dg")
 JAX_FFN = ("ffn_ln_block", "ffn_block", "ffn_ln_fc1", "ffn_fc1")
 
 
@@ -352,21 +353,23 @@ def _config(family, flags, tmp_path):
 @functools.lru_cache(maxsize=None)
 def _jax_route(family, resolved):
     """The FFN function of ``coral_tpu.ops.ffn_pallas`` the JAX model calls
-    at these resolved flags (None: the unfused FFN) and the keywords it
-    passes, traced with ``jax.eval_shape``."""
+    at these resolved flags (``FLAGS`` and ``VARIANT_FLAGS``; None: the
+    unfused FFN) and the variant keywords it passes with their values,
+    traced with ``jax.eval_shape``."""
     seen = []
     saved = {name: getattr(jffn, name) for name in JAX_FFN}
 
     def spy(name):
         def call(*args, **kw):
-            seen.append((name, tuple(sorted(k for k in kw if k.endswith("_in_kernel")))))
+            seen.append((name, tuple(sorted((k, v) for k, v in kw.items()
+                                            if k.endswith("_in_kernel")))))
             return saved[name](*args, **kw)
         return call
 
     for name in JAX_FFN:
         setattr(jffn, name, spy(name))
     try:
-        flags = dict(zip(FLAGS, resolved))
+        flags = dict(zip(FLAGS + VARIANT_FLAGS, resolved))
         if family == "wav2vec2":
             model = JaxModel(JaxConfig.tiny(vocab_size=VOCAB, **flags))
             jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, N_SAMPLES)),
@@ -388,26 +391,27 @@ def _jax_route(family, resolved):
     f"{k}={v}" for k, v in f.items()) or "defaults")
 def test_ffn_flags_resolve_and_route_as_the_jax_setups(family, flags, tmp_path):
     """Every combination of fused_ffn, fused_ffn_ln and fused_ffn_block
-    (absent, true, false): the port resolves them as the JAX setup, takes
+    (absent, true, false), alone and with each block variant (_dw, _fc2,
+    _dg off their defaults): the port resolves them as the JAX setup, takes
     the route the JAX model takes (``ffn_route`` against the JAX model's call
-    into ``ffn_pallas``), and refuses a block variant (_dw, _fc2, _dg off
-    their defaults) exactly where the JAX model reads it: on its
-    LayerNorm-folded block."""
-    want = jax_load_model_setup(DictConfig(_config(family, flags, tmp_path))).model_config
-    got = load_model_setup(_config(family, flags, tmp_path), device="cpu").model_config
-    resolved = tuple(getattr(want, k) for k in FLAGS)
-    assert tuple(getattr(got, k) for k in FLAGS) == resolved
-    jax_fn, variant_keywords = _jax_route(family, resolved)
-    assert got.ffn_route == (jax_fn or "unfused")
-    reads_variants = bool(variant_keywords)
-    assert reads_variants == (got.ffn_route == "ffn_ln_block")
-    for variant in VARIANTS:
+    into ``ffn_pallas``), and on the LayerNorm-folded block, the only route
+    where the JAX model reads the variant flags, passes ``ffn_ln_block`` the
+    variant keywords the JAX model passes, with their values."""
+    for variant in ({}, *VARIANTS):
         config = _config(family, {**flags, **variant}, tmp_path)
+        want = jax_load_model_setup(DictConfig(config)).model_config
+        got = load_model_setup(config, device="cpu").model_config
+        resolved = tuple(getattr(want, k) for k in FLAGS + VARIANT_FLAGS)
+        assert tuple(getattr(got, k) for k in FLAGS + VARIANT_FLAGS) == resolved
+        jax_fn, variant_keywords = _jax_route(family, resolved)
+        assert got.ffn_route == (jax_fn or "unfused")
+        reads_variants = bool(variant_keywords)
+        assert reads_variants == (got.ffn_route == "ffn_ln_block")
         if reads_variants:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                load_model_setup(config, device="cpu")
+            assert got.ffn_block_flags == dict(variant_keywords)
+            assert got.ffn_variant == ffn.block_variant(**got.ffn_block_flags)
         else:
-            assert load_model_setup(config, device="cpu").model_config.ffn_route == got.ffn_route
+            assert got.ffn_variant is None
 
 
 @pytest.mark.parametrize("family", ["wav2vec2", "whisper"])

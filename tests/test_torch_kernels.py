@@ -344,6 +344,116 @@ def test_ffn_fc1_bwd_kernels_match_plain(cuda, kernel, rate, D):
         _close_rel(g, w, 5e-3)
 
 
+def _selections(D, F, cuda):
+    """W2 matrices (D, F) of ones at (d, s D + d): with b2 = 0, fc2 copies g
+    column s D + d to y column d, exactly (one product, fp32 sum of zeros)."""
+    out = []
+    for s in range(-(-F // D)):
+        cols = min(D, F - s * D)
+        w2 = torch.zeros(D, F, device=cuda, dtype=torch.bfloat16)
+        w2[torch.arange(cols), s * D + torch.arange(cols)] = 1.0
+        out.append((w2, slice(s * D, s * D + cols), cols))
+    return out
+
+
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_ln_g_bwd_kernel_matches_plain(cuda, rate, D):
+    """N5 (dg read in, g written), 150 rows: a ragged last row tile; g the
+    forward's bits, dh zero where the forward dropped, the rest as K5's."""
+    x, w1, b1, gamma, beta, _, _, seeds = _ffn_inputs(cuda, D=D)
+    dg = _on(cuda, _np(2, x.shape[1], w1.shape[0], seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = ffn.ffn_ln_g_bwd(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)
+    assert _build.launch_counts == {ffn._name("ffn_ln_g_bwd", D): 1,
+                                    ln_gelu._name("ln_bwd", D): 1}
+    want = ffn.ffn_ln_g_bwd_plain(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)
+    assert torch.equal(got[0], ffn.ffn_ln_fc1(x, w1, b1, gamma, beta, rate=rate, seeds=seeds))
+    if rate:
+        keep = philox.keep_mask(seeds, x.shape[1], w1.shape[0], rate)
+        assert not got[1][~keep].any()
+    _close(got[0], want[0], 1e-2)  # g
+    _close(got[2], want[2], 1e-2)  # ln_out
+    for g, w in ((got[1], want[1]), (got[3], want[3])):  # dh, dx
+        _close_rel(g, w)
+    for g, w in zip(got[4:], want[4:]):
+        _close_rel(g, w, 5e-3)
+
+
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_ln_dw_bwd_kernels_match_plain(cuda, rate, D):
+    """N6 (N5's pass, dl and the dW kernel), 150 rows: dW1 and dW2 sum
+    bf16 products over every row in fp32, in another order than torch's, of
+    operands (dh, g) that may round one ulp apart: within 1e-2 of their max
+    (ragged rows add nothing); dx and the vectors as N5's."""
+    x, w1, b1, gamma, beta, _, dy, seeds = _ffn_inputs(cuda, D=D)
+    dg = _on(cuda, _np(2, x.shape[1], w1.shape[0], seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = ffn.ffn_ln_dw_bwd(x, w1, b1, gamma, beta, dy, dg, rate=rate, seeds=seeds)
+    assert _build.launch_counts == {ffn._name("ffn_ln_dw_bwd", D): 1,
+                                    ln_gelu._name("ln_bwd", D): 1}
+    want = ffn.ffn_ln_dw_bwd_plain(x, w1, b1, gamma, beta, dy, dg, rate=rate, seeds=seeds)
+    assert got[1].shape == (w1.shape[0], D) and got[2].shape == (D, w1.shape[0])
+    _close_rel(got[0], want[0])  # dx
+    for g, w in zip(got[1:3], want[1:3]):  # dW1, dW2
+        _close_rel(g, w, 1e-2)
+    for g, w in zip(got[3:], want[3:]):
+        _close_rel(g, w, 5e-3)
+    # The dW kernel against the plain products on the kernel's own dh, g, ln_out.
+    g, dh, ln_out, *_ = ffn.ffn_ln_g_bwd(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)
+    for a, w in zip(got[1:3], ffn.ffn_dw_plain(dh, ln_out, dy, g)):
+        _close_rel(a, w, 1e-3)
+
+
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_ln_fc2_kernel_matches_plain(cuda, rate, D):
+    """N7 (fc2 in the kernel), 150 rows: y as the plain version; with
+    selection weights y holds g's columns bit for bit, N5's regenerated g, so
+    the mask is N5's."""
+    x, w1, b1, gamma, beta, w2, _, seeds = _ffn_inputs(cuda, D=D)
+    F = w1.shape[0]
+    b2 = _on(cuda, _np(D, seed=8, scale=0.1))
+    _build.reset_launch_counts()
+    y = ffn.ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2, rate=rate, seeds=seeds)
+    assert _build.launch_counts == {ffn._name("ffn_ln_fc2_drop" if rate else "ffn_ln_fc2", D): 1}
+    _close(y, ffn.ffn_ln_fc2_fwd_plain(x, w1, b1, gamma, beta, w2, b2, rate=rate, seeds=seeds),
+           1e-2)
+    dg = torch.zeros(*x.shape[:-1], F, device=cuda, dtype=torch.bfloat16)
+    g = ffn.ffn_ln_g_bwd(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)[0]
+    zero = torch.zeros(D, device=cuda)
+    for w2_sel, cols, n in _selections(D, F, cuda):
+        y_sel = ffn.ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2_sel, zero, rate=rate, seeds=seeds)
+        assert torch.equal(y_sel[..., :n], g[..., cols])
+
+
+@pytest.mark.parametrize("variant", ["dg_in", "dg_out", "fc2", "dw"])
+def test_ffn_block_variants_launch_their_kernels(cuda, variant):
+    """``ffn_ln_block``'s variants at D 1024, forward and backward: each
+    launches its own kernels once, and its gradients agree with the plain
+    path's."""
+    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda)
+    b2 = _on(cuda, _np(1024, seed=8, scale=0.1))
+    flags = {"dg_in": {}, "dg_out": {"dg_in_kernel": False}, "fc2": {"fc2_in_kernel": True},
+             "dw": {"dw_in_kernel": True}}[variant]
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, gamma, beta, w2, b2)]
+        _build.reset_launch_counts()
+        y = ffn.ffn_ln_block(*leaves, rate=0.1, seeds=seeds, plain=plain, **flags)
+        y.backward(dy)
+        if not plain:
+            counts = dict(_build.launch_counts)
+        grads.append([leaf.grad for leaf in leaves])
+    fwd = "ffn_ln_fc2_drop" if variant == "fc2" else "ffn_ln_drop"
+    bwd = {"dg_in": "ffn_bwd", "dg_out": "ffn_ln_g_bwd", "fc2": "ffn_ln_g_bwd",
+           "dw": "ffn_ln_dw_bwd"}[variant]
+    assert counts == {fwd: 1, bwd: 1, "ln_bwd": 1}
+    for got, want in zip(*grads):
+        _close_rel(got, want, 2e-2)
+
+
 def _conv_inputs(cuda, k, T_in, B=2):
     C = 512
     x = _on(cuda, _np(B, T_in, C, seed=0), torch.bfloat16)

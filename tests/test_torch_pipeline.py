@@ -214,7 +214,7 @@ def test_whisper_and_beam_search_are_rejected(offline_hub):
 
 @pytest.mark.parametrize("flag,value", [
     ("attention_save_stats", "v2"), ("fused_qkv_ln", True),
-    ("fused_ffn_block_fc2", True), ("attention_o_residual", True), ("fused_fe_conv", False),
+    ("encoder_ln_impl", "xla"), ("attention_o_residual", True), ("fused_fe_conv", False),
 ])
 def test_off_default_kernel_flags_are_rejected(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
@@ -228,12 +228,23 @@ def test_off_default_kernel_flags_are_rejected(flag, value):
     {"fused_ffn_block_dw": True}, {"fused_ffn_block_dg": False},
     {"fused_ffn_block_fc2": True},
 ])
-def test_whisper_off_default_kernel_flags_are_rejected(flags):
-    """The FFN block's variants whose kernels the port lacks: dW inside the
-    block's backward, dg outside it, fc2 inside the forward kernel."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
-        port_setup.load_model_setup(
-            {"model": {"type": "whisper", "architecture": "tiny_test", **flags}}, device="cpu")
+def test_whisper_off_default_kernel_flags_are_rejected(flags, tmp_path):
+    """The FFN block's variants, refused until their kernels were ported (dW
+    inside the block's backward, dg outside it, fc2 inside the forward
+    kernel), now build: the setup resolves the three flags as the JAX setup
+    does and takes the variant of the JAX precedence (dw > fc2 > dg)."""
+    from coral_tpu.config import DictConfig
+    from coral_tpu.training.model_setup import load_model_setup as jax_load_model_setup
+
+    config = {"model": {"type": "whisper", "architecture": "tiny_test", "sampling_rate": 16_000,
+                        **flags}, "max_seconds_per_example": 1.0, "model_dir": str(tmp_path)}
+    got = port_setup.load_model_setup(config, device="cpu").model_config
+    want = jax_load_model_setup(DictConfig(config)).model_config
+    keys = ("fused_ffn_block_dw", "fused_ffn_block_fc2", "fused_ffn_block_dg")
+    assert {k: getattr(got, k) for k in keys} == {k: getattr(want, k) for k in keys}
+    variant = {"fused_ffn_block_dw": "dw", "fused_ffn_block_fc2": "fc2",
+               "fused_ffn_block_dg": "dg_out"}[next(iter(flags))]
+    assert got.ffn_route == "ffn_ln_block" and got.ffn_variant == variant
 
 
 def test_every_module_imports_with_jax_blocked():

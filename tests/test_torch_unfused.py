@@ -295,7 +295,8 @@ def test_unfused_policies_replay_what_they_do_not_keep(policy, monkeypatch):
 
 # -- the setups' flag resolution -------------------------------------------------------
 
-W2V2_RESOLVED = ("attention_impl", "fused_ffn", "fused_ffn_ln", "fused_ffn_block")
+W2V2_RESOLVED = ("attention_impl", "fused_ffn", "fused_ffn_ln", "fused_ffn_block",
+                 "fused_ffn_block_dw", "fused_ffn_block_fc2", "fused_ffn_block_dg")
 
 
 @pytest.mark.parametrize("flags", [
@@ -304,6 +305,9 @@ W2V2_RESOLVED = ("attention_impl", "fused_ffn", "fused_ffn_ln", "fused_ffn_block
     {"attention_impl": "flash", "fused_ffn": False},
     {"attention_impl": "xla", "fused_ffn": False, "fused_ffn_block": False},
     {"attention_impl": "flash", "attention_fused_qkv_bias": False},
+    {"fused_ffn_block_dw": True}, {"fused_ffn_block_fc2": True}, {"fused_ffn_block_dg": False},
+    {"fused_ffn_block_dw": True, "fused_ffn_block_fc2": True, "fused_ffn_block_dg": False},
+    {"fused_ffn": False, "fused_ffn_block_dw": True},
 ], ids=lambda f: ",".join(f"{k}={v}" for k, v in f.items()) or "defaults")
 def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
     config = {"model": {"type": "wav2vec2", "architecture": "tiny", "characters_to_keep": CHARS,
@@ -320,9 +324,9 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
     ({"attention_impl": "xla", "attention_fused_qkv_bias": True}, ValueError, "requires"),
     ({"attention_impl": "pallas", "attention_fused_qkv_bias": False}, NotImplementedError,
      "item 9"),
-    ({"fused_ffn_block_dw": True}, NotImplementedError, "item 9"),
-    ({"fused_ffn_block_fc2": True}, NotImplementedError, "item 9"),
-    ({"fused_ffn_block_dg": False}, NotImplementedError, "item 9"),
+    ({"attention_save_stats": "v2"}, NotImplementedError, "item 9"),
+    ({"fused_fe_conv": False}, NotImplementedError, "item 9"),
+    ({"do_stable_layer_norm": False}, NotImplementedError, "item 9"),
     ({"attention_impl": "flash", "attention_save_stats": False}, NotImplementedError, "item 9"),
     ({"attention_o_residual": True}, NotImplementedError, "item 9"),
     ({"encoder_ln_impl": "xla"}, NotImplementedError, "item 9"),
@@ -331,8 +335,9 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
 ])
 def test_wav2vec2_flags_without_a_route_raise(flags, error, match):
     """The explicit in-kernel biases off the pallas route raise as the JAX
-    model does; the routes the port lacks (here the LayerNorm-folded block's
-    variants) raise naming their ROADMAP item."""
+    model does; the routes the port lacks (the attention variants of K15, the
+    feature encoder's unfused conv, the post-LN encoder) raise naming their
+    ROADMAP item."""
     config = {"model": {"architecture": "tiny", "characters_to_keep": CHARS, **flags},
               "max_seconds_per_example": 1.0}
     with pytest.raises(error, match=match):

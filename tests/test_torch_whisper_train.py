@@ -297,8 +297,9 @@ def _setup_config(**model):
 def test_setup_picks_the_remat_policy_by_width_and_refuses_what_is_not_ported(tmp_path,
                                                                              monkeypatch):
     """save_matmul_inputs below d 1280, save_flash_ctx for large-v3, a
-    model.remat_policy wins; more than one device, an unknown policy and
-    ``fused_ffn_block_dw: true`` (dW inside the block's backward) raise."""
+    model.remat_policy wins; more than one device and an unknown policy
+    raise; ``fused_ffn_block_dw: true`` (dW inside the block's backward)
+    builds its train step on that variant."""
     monkeypatch.setenv("HF_HOME", str(tmp_path))
     assert load_model_setup(_setup_config(), device="cpu").model_config.remat_policy == (
         "save_matmul_inputs")
@@ -318,8 +319,9 @@ def test_setup_picks_the_remat_policy_by_width_and_refuses_what_is_not_ported(tm
     with pytest.raises(ValueError, match="remat_policy"):
         load_model_setup(_setup_config(remat_policy="save_everything"),
                          device="cpu").make_train_step(tx, schedule)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        load_model_setup(_setup_config(fused_ffn_block_dw=True), device="cpu")
+    dw = load_model_setup(_setup_config(fused_ffn_block_dw=True), device="cpu")
+    assert dw.model_config.ffn_variant == "dw"
+    assert callable(dw.make_train_step(tx, schedule))
 
 
 def test_loss_decreases_through_the_setup(tmp_path):
