@@ -16,7 +16,8 @@ the seq2seq train step of ``WhisperSetup.make_train_step`` (8 clips of 6-10 s
 padded to 30 s, 2 accumulation microbatches); XLS-R-2B's production
 fine-tune and serving at full width and depth (48 layers, d 1920, 16 heads x
 120); XLS-R-1B (d 1280, 16 x 80), whisper-small, -base and -tiny at full
-width, each served and trained. It runs in phases; any failing phase exits
+width, each served and trained; and the production fine-tune's kernel routes
+off the defaults. It runs in phases; any failing phase exits
 non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
@@ -122,7 +123,17 @@ non-zero before the result line is printed:
    ``fused_ffn_block_dw: true``: kernel against plain, 3 steps; (o') (e)
    with ``fused_ffn_block_fc2: true``: one batch served, 2 steps; each with
    exact launch counts;
-15. a JSON line with every kernel (its launches summed over the counted runs
+15. the packed QKV projection and the attention without biases: the
+   LayerNorm-folded projection's forward and backward and the v3 attention's
+   kernels without their bias loads checked with the other kernels in phase
+   3 (at D 1024 on the paths' shapes, at 1280 and 1920, head_dim 80 and 120;
+   the attention's outputs those of the biased kernels at zero biases, bit
+   for bit); (p) (c)'s configuration with ``fused_qkv_ln: true``: one
+   serving batch, the kernel path against the plain path on one microbatch
+   at activation dropout 0.1, 3 steps; (p') with
+   ``attention_fused_qkv_bias: false``: one batch, kernel against plain, 2
+   steps; each with exact launch counts and its ms per step beside (c)'s;
+16. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -318,6 +329,20 @@ for _C in (1280, 1920):
 for _C in (384, 768, 1920):
     SOURCES[f"ln_bwd_{_C}"] = SOURCES["ln_bwd"]
     TOLERANCE[f"ln_bwd_{_C}"] = TOLERANCE["ln_bwd"]
+# The LayerNorm-folded packed QKV projection (`fused_qkv_ln`: `_fwd_kernel_lnmm`,
+# `_bwd_kernel_lnmm`) and the v3 attention without in-kernel biases
+# (`_fwd_kernel_stats_v2`, `_bwd_kernel_stats_ctx`), at XLS-R-300M's width;
+# checked at 1280 and 1920 (head_dim 80, 120) too. y and ln_out are rounded
+# outputs as the FFN's, the attention's o as the biased kernel's.
+SOURCES.update({
+    "ln_dense": ("coral_tpu_torch/csrc/ln_dense.cu", "coral_tpu/ops/ffn_pallas.py:485"),
+    "ln_dense_bwd": ("coral_tpu_torch/csrc/ln_dense.cu", "coral_tpu/ops/ffn_pallas.py:493"),
+    "attention_nb": ("coral_tpu_torch/csrc/attention.cu",
+                     "coral_tpu/ops/attention_pallas.py:123"),
+    "attention_nb_bwd": ("coral_tpu_torch/csrc/attention.cu",
+                         "coral_tpu/ops/attention_pallas.py:348"),
+})
+TOLERANCE.update({"ln_dense": (1e-2, 2.0**-6), "attention_nb": TOLERANCE["attention"]})
 # Checks of a second route of a kernel that has its row under another check:
 # they must pass and are printed, but give no row of the kernels line.
 ROUTE_KEYS = {"ln_bwd_1280": "ln_bwd_1280 bf16 dy"}
@@ -553,6 +578,19 @@ WHISPER_DW_CONFIG = {**WHISPER_TRAIN_CONFIG, "model": {
 WHISPER_DW_PER_MICROBATCH = {
     "flash_attention_train": 32, "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
     "ffn_ln_drop_1280": 64, "ffn_ln_dw_bwd_1280": 64, "ln_bwd_1280": 64}
+# Phases (p) and (p'): the packed QKV projection and the attention without
+# in-kernel biases. (p) (c)'s configuration (config/model/wav2vec2-small.yaml +
+# config/asr_finetuning.yaml) with `fused_qkv_ln: true` (the pre-attention
+# LayerNorm folded into one packed (3D, D) projection, the attention without
+# biases on its lane thirds): one served batch through the setup's predictor,
+# kernel vs plain on one microbatch at activation dropout 0.1, 3 steps. (p')
+# with `attention_fused_qkv_bias: false` (LN1 apart, the q/k/v biases in the
+# projections): one batch, kernel vs plain, 2 steps.
+QKV_LN_CONFIG, QKV_BIAS_OFF_CONFIG = ({**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], key: value}} for key, value in (
+        ("fused_qkv_ln", True), ("attention_fused_qkv_bias", False)))
+# Each production step's ms (``production_run``), to set a phase beside (c).
+STEP_MS: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -1381,6 +1419,7 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
         "peak_memory_gib": peak / 2**30,
         "losses": losses,
     }
+    STEP_MS[label] = metrics["ms_per_step"]
     plain_text = (f"; plain path {metrics['plain_ms_per_step']:.3f} ms" if pwalls else "")
     print(f"training {label} ({card}): {metrics['train_audio_s_per_s']:.3f} audio-s/s "
           f"({audio_seconds:.3f} s of audio per step of {ACCUM} x {BATCH} clips); "
@@ -2856,6 +2895,171 @@ def block_variant_checks(card: str) -> dict:
     return results
 
 
+def qkv_case(kernel: str, D: int, T: int, randn):
+    """One of the packed QKV projection's or the bias-free attention's kernels
+    at (8, T) rows of width D (F = 3 D, head_dim D / 16), on the layout of
+    phase (p): q, k, v the lane thirds of one packed projection, the backward
+    writing one packed gradient. Returns (check, launch, plain, work, library,
+    yardstick, note) for ``_measure``; ``kernel``: "fwd", "bwd" (``ln_dense``)
+    or "attn_fwd", "attn_bwd"."""
+    from coral_tpu_torch.ops import attention, ffn
+
+    bf16 = torch.bfloat16
+    F, M, H = 3 * D, BATCH * T, 16
+    hd = D // H
+    tag = f"{kernel} D {D}, {BATCH} x {T} rows"
+    if kernel in ("fwd", "bwd"):
+        x = randn(BATCH, T, D, offset=0.2, dtype=bf16)
+        w = randn(F, D, scale=D**-0.5, dtype=bf16)
+        b, g, bt = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+        if kernel == "fwd":
+            def launch():
+                return ffn.ln_dense_fwd(x, w, b, g, bt)
+
+            def plain():
+                return ffn.ln_dense_plain(x, w, b, g, bt)
+
+            def check():
+                return compare(tag, launch(), plain(), key="ln_dense")
+
+            def yardstick():
+                return torch.matmul(x.view(M, D), w.t())
+
+            work = (2 * M * D * F + LN_OPS * M * D, BF16_FLOPS,
+                    nbytes(x, w, b, g, bt) + M * F * 2)
+            return check, launch, plain, work, None, yardstick, "cuBLAS's (3D, D) product alone"
+        dy = randn(BATCH, T, F, dtype=bf16)
+
+        def launch():
+            return ffn.ln_dense_bwd(x, w, g, bt, dy)
+
+        def plain():
+            return ffn.ln_dense_bwd_plain(x, w, g, bt, dy)
+
+        def check():
+            got, want = launch(), plain()
+            out = [compare_grad(f"{tag} dx", got[0], want[0], GRAD_FRAC["ffn_bwd"]),
+                   compare(f"{tag} ln_out", got[1], want[1], key="ln_dense")]
+            out += [compare_grad(f"{tag} {n}", gg, ww, GRAD_FRAC["fc1_vectors"])
+                    for n, gg, ww in zip(("db", "dgamma", "dbeta"), got[2:], want[2:])]
+            return merge(*out)
+
+        def yardstick():
+            return torch.matmul(dy.view(M, F), w)
+
+        # One product (dl = dy W), the LayerNorm's rows both ways and db's
+        # sums; dx, ln_out and the vectors out.
+        work = (2 * M * D * F + (LN_OPS + LN_BWD_OPS) * M * D + M * F, BF16_FLOPS,
+                nbytes(x, w, g, bt, dy) + 2 * M * D * 2 + (F + 2 * D) * 4)
+        return check, launch, plain, work, None, yardstick, "cuBLAS's dl = dy W product alone"
+
+    dev = torch.device("cuda")
+    qkv = randn(BATCH, T, F, dtype=bf16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    lengths = torch.tensor([T, T * 4 // 5, T * 3 // 5, T * 2 // 5, T // 5, T, 50, -1],
+                           device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    key_bias = attention._key_bias(mask)
+    scale = hd**-0.5
+    zero = torch.zeros(D, dtype=bf16, device=dev)
+    if kernel == "attn_fwd":
+        def launch():
+            return attention.short_t_attention_packed(qkv, mask, hd)
+
+        def plain():
+            return attention.attention_plain(q, k, v, mask, hd)
+
+        def check():
+            (o, lse), (want_o, want_lse) = launch(), plain()
+            res = compare(tag, o, want_o, key="attention_nb")
+            lse_err = float((lse - want_lse).abs().max())
+            o_b, lse_b = attention._fwd(q, k, v, zero, zero, zero, key_bias, hd, scale)
+            same = bool(torch.equal(o, o_b) and torch.equal(lse, lse_b))
+            clamped = bool((lse[-1] == -1e25).all())
+            print(f"  {tag} lse: max_abs_err {lse_err:.6g} (tolerance {LSE_ATOL}); masked row "
+                  f"clamped: {clamped}; o and lse the biased kernel's at zero biases bit for "
+                  f"bit: {same}", flush=True)
+            res["ok"] = res["ok"] and lse_err <= LSE_ATOL and clamped and same
+            return res
+
+        heads = [t.view(BATCH, T, H, hd).transpose(1, 2) for t in (q, k, v)]
+        sdpa_bias = torch.where(mask, 0.0, -1e30).to(bf16)[:, None, None, :]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=sdpa_bias)
+
+        work = (4 * BATCH * H * T * T * hd, BF16_FLOPS,
+                nbytes(qkv, mask) + nbytes(q) + BATCH * H * T * 4)
+        return check, launch, plain, work, library, None, None
+    do = randn(BATCH, T, D, dtype=bf16)
+    o, lse = attention._fwd(q, k, v, None, None, None, key_bias, hd, scale)
+    args = (q, k, v, None, None, None, key_bias, do, lse, o, hd, scale)
+    dqkv = torch.empty_like(qkv)
+
+    def launch():
+        return attention.attention_bwd(*args, out=dqkv)
+
+    def plain():
+        return attention.attention_bwd_plain(*args)
+
+    def check():
+        got, want = launch(), plain()
+        out = [compare_grad(f"{tag} {n}", gg, ww, GRAD_FRAC["attention_bwd"])
+               for n, gg, ww in zip(("dq", "dk", "dv"), got[:3], want[:3])]
+        got_b = attention.attention_bwd(q, k, v, zero, zero, zero, *args[6:])
+        same = all(bool(torch.equal(gg, gb)) for gg, gb in zip(got[:3], got_b[:3]))
+        masked_zero = all(not t[-1].any() for t in got[:3])
+        print(f"  {tag}: the biased kernels' dq, dk, dv at zero biases bit for bit: {same}; "
+              f"fully masked row gets no gradient: {masked_zero}", flush=True)
+        res = merge(*out)
+        res["ok"] = res["ok"] and same and masked_zero
+        return res
+
+    # Five T x T x d products per head; the packed dq, dk, dv out.
+    work = (5 * 2 * BATCH * H * T * T * hd, BF16_FLOPS,
+            nbytes(qkv, key_bias, do, lse, o) + nbytes(qkv))
+    return check, launch, plain, work, None, None, None
+
+
+# The packed projection's and the bias-free attention's kernels at their
+# paths' shapes: the rows of the kernels line (timed; XLS-R-300M serving 8 x
+# 1499 rows for the forwards, training 8 x 499 for the backwards), then the
+# other shape of each and XLS-R-1B's and -2B's widths (checked only).
+QKV_ROWS = (("ln_dense", "fwd", 1024, 1499), ("ln_dense_bwd", "bwd", 1024, 499),
+            ("attention_nb", "attn_fwd", 1024, 1499), ("attention_nb_bwd", "attn_bwd", 1024, 499))
+QKV_CHECKS = (("fwd", 1024, 499), ("attn_fwd", 1024, 499),
+              *((k, D, T) for D in (1280, 1920)
+                for k, T in (("fwd", 1499), ("bwd", 499), ("attn_fwd", 1499), ("attn_bwd", 499))))
+
+
+def qkv_kernel_checks(card: str) -> dict:
+    """The packed QKV projection's kernels and the attention without biases
+    against their plain versions: the rows at their paths' shapes, timed, the
+    projection's beside its cuBLAS yardstick; then ``QKV_CHECKS``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    for name, kernel, D, T in QKV_ROWS:
+        check, launch, plain, work, library, yardstick, note = qkv_case(kernel, D, T, randn)
+        measure(name, launch, plain, check, work, library)
+        if yardstick is not None:
+            print(f"  {name}: {note}: {median_ms(yardstick):.4f} ms (median of {REPS}; {card})",
+                  flush=True)
+        del check, launch, plain, library, yardstick
+        torch.cuda.empty_cache()
+    for kernel, D, T in QKV_CHECKS:
+        check, *_ = qkv_case(kernel, D, T, randn)
+        results[f"{kernel} D {D} T {T}"] = check()
+        del check
+        torch.cuda.empty_cache()
+    return results
+
+
 def block_kernels(cfg, D: int) -> tuple[str, str, str]:
     """The LayerNorm-folded block's kernels at width D on cfg's variant
     (``ffn_variant``): the serving forward, the training (dropout) forward
@@ -2878,7 +3082,11 @@ def route_launches(cfg, serving: bool) -> dict:
     forward and the fc1 kernel of the fc1 routes (fc2's weight gradient reads
     their output, and save_qk_ctx keeps no "ffn_act"); the blocks' forward
     never. ln_bwd counts the LayerNorms' backward (LN2's inside N4's and K5's
-    wrappers) and FE conv 0's."""
+    wrappers, LN1's inside the packed projection's) and FE conv 0's. Under
+    ``fused_qkv_ln`` LN1 is in the packed projection (``ln_dense``), whose
+    forward runs again in the replay (save_qk_ctx keeps q and k but not v);
+    the attention then runs without in-kernel biases, as with
+    ``attention_fused_qkv_bias: false``."""
     from coral_tpu_torch.ops import attention, ffn, ln_gelu
 
     D, L, F = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
@@ -2886,27 +3094,33 @@ def route_launches(cfg, serving: bool) -> dict:
     hd = D // cfg.num_attention_heads
     ln = ln_gelu._name("ln_fused", D)
     ln_apart = route in ("unfused", "ffn_block", "ffn_fc1")
+    qkv_ln = cfg.fused_qkv_ln
+    attn = {d: attention._name(d, hd, cfg.attention_fused_qkv_bias) for d in ("fwd", "bwd")}
     if serving:
         counts = collections.Counter({"ln_gelu": 1, "conv_ln_gelu": 6,
-                                      ln: (2 if ln_apart else 1) * L})
+                                      ln: (int(ln_apart) + int(not qkv_ln)) * L})
         counts.update({"flash": {"flash_attention_seg": L},
-                       "pallas": {attention._name("fwd", hd): L}}.get(cfg.attention_impl, {}))
+                       "pallas": {attn["fwd"]: L}}.get(cfg.attention_impl, {}))
+        if qkv_ln:
+            counts[ffn._name("ln_dense", D)] += L
         fwd = {"ffn_ln_fc1": "ffn_ln", "ffn_block": "ffn_fc1", "ffn_fc1": "ffn_fc1"}.get(route)
         if route == "ffn_ln_block":
             counts[block_kernels(cfg, D)[0]] += L
         elif fwd is not None:
             counts[ffn._name(fwd, D)] += L
-        return dict(counts)
+        return dict(+counts)
     counts = collections.Counter({
         "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ctc_alpha": 1,
-        "ctc_beta": 1, ln: (4 if ln_apart else 2) * L})
+        "ctc_beta": 1, ln: 2 * (int(ln_apart) + int(not qkv_ln)) * L})
+    if qkv_ln:
+        counts.update({ffn._name("ln_dense", D): 2 * L, ffn._name("ln_dense_bwd", D): L})
     counts[ln_gelu._name("ln_bwd", D)] += 2 * L
     counts["ln_bwd"] += 1
     if cfg.attention_impl == "flash":
         counts.update({"flash_attention_seg_train": 2 * L, "flash_attention_seg_bwd_dkv": L,
                        "flash_attention_seg_bwd_dq": L})
     elif cfg.attention_impl == "pallas":
-        counts.update({attention._name("fwd", hd): L, attention._name("bwd", hd): L})
+        counts.update({attn["fwd"]: L, attn["bwd"]: L})
     fwd, fwd_runs, bwd = {
         "unfused": (f"gelu_dropout_{F}", 2, f"gelu_dropout_bwd_{F}"),
         "ffn_ln_block": (None, 1, None),
@@ -2919,7 +3133,7 @@ def route_launches(cfg, serving: bool) -> dict:
     elif route != "unfused":
         fwd, bwd = ffn._name(fwd, D), ffn._name(bwd, D)
     counts.update({fwd: fwd_runs * L, bwd: L})
-    return dict(counts)
+    return dict(+counts)
 
 
 def route_serving(card: str, label: str, config: dict, batches: int, route: str) -> dict:
@@ -2938,7 +3152,9 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str)
     cfg = setup.model_config
     predictor = setup.make_predictor(model)
     print(f"serving {label}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
-          f"attention {cfg.attention_impl}, FFN {cfg.ffn_route}, {cfg.dtype}", flush=True)
+          f"attention {cfg.attention_impl} (q/k/v biases in the kernel: "
+          f"{cfg.attention_fused_qkv_bias}, LN1 folded into the packed QKV projection: "
+          f"{cfg.fused_qkv_ln}), FFN {cfg.ffn_route}, {cfg.dtype}", flush=True)
     if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.ffn_route,
             cfg.attention_impl) != (1024, 24, torch.bfloat16, route,
                                     config["model"].get("attention_impl", "pallas")):
@@ -3093,6 +3309,9 @@ def main() -> int:
     print(f"kernel checks of the LayerNorm-folded block's variants (bf16, batch {BATCH}: N5-N7 "
           f"at XLS-R-300M's and Whisper large-v3's shapes, at D 384 and 1920):", flush=True)
     checks.update(block_variant_checks(card))
+    print(f"kernel checks of the packed QKV projection and the attention without biases "
+          f"(bf16, batch {BATCH}: XLS-R-300M's shapes, D 1280 and 1920):", flush=True)
+    checks.update(qkv_kernel_checks(card))
     mark("kernel checks")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
@@ -3169,6 +3388,15 @@ def main() -> int:
                                         {"fused_ffn_block_fc2": True}, (1280, 32, 32, 20, 5120),
                                         2))
     mark("(o') Whisper large-v3, fused_ffn_block_fc2: true")
+    # (p), (p'): the packed QKV projection, the attention without biases.
+    main_counts.append(route_run(card, "(p)", QKV_LN_CONFIG, "ffn_ln_block", FEW_STEPS, 1, True))
+    mark("(p) fused_qkv_ln: true")
+    main_counts.append(route_run(card, "(p')", QKV_BIAS_OFF_CONFIG, "ffn_ln_block", 2, 1, True))
+    mark("(p') attention_fused_qkv_bias: false")
+    for label in ("(p)", "(p')"):
+        print(f"training {label} ({card}): {STEP_MS[label]:.3f} ms per optimizer step against "
+              f"(c)'s {STEP_MS['(c)']:.3f} ms in this run ({STEP_MS[label] / STEP_MS['(c)']:.4f}"
+              f"x)", flush=True)
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")

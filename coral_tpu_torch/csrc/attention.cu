@@ -31,6 +31,8 @@
 #include <math.h>
 #include <mma.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace nvcuda;
@@ -66,10 +68,10 @@ using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
 using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Loads a 64 x DP tile of rows r0.. of one head, adds the bias and rounds to
-// bf16, then (scale != 0) multiplies by scale and rounds again; rows at or past
-// T and the padding columns d .. DP-1 are zero.
-template <int D>
+// Loads a 64 x DP tile of rows r0.. of one head, adds the bias (kBias) and
+// rounds to bf16, then (scale != 0) multiplies by scale and rounds again; rows
+// at or past T and the padding columns d .. DP-1 are zero.
+template <int D, bool kBias>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, const bf16* bvec,
                                           int r0, int T, long long stride_t, float scale) {
   using H = Head<D>;
@@ -78,12 +80,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, const bf16
     const int c = (i % H::kChunks) * 8;
     float f[8];
     if (r0 + r < T && c < D) {
-      float bb[8];
       coral_load8(src + (long long)(r0 + r) * stride_t + c, f);
-      coral_load8(bvec + c, bb);
+      if constexpr (kBias) {
+        float bb[8];
+        coral_load8(bvec + c, bb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = coral_round_bf16(f[e] + bb[e]);
+      }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        f[e] = coral_round_bf16(f[e] + bb[e]);
         if (scale != 0.0f) f[e] = coral_round_bf16(f[e] * scale);
       }
     } else {
@@ -95,9 +100,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, const bf16
 }
 
 // q, k, v: (B, T, H*D) bf16 with strides (stride_b, stride_t, 1), the same for
-// all three; bq, bk, bv: (H*D,) bf16; key_bias: (B, T) fp32 (0 or -1e30);
-// o: (B, T, H*D) bf16 contiguous; lse: (B, H, T) fp32.
-template <int D>
+// all three; bq, bk, bv: (H*D,) bf16 (kBias, else not read); key_bias: (B, T)
+// fp32 (0 or -1e30); o: (B, T, H*D) bf16 contiguous; lse: (B, H, T) fp32.
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -124,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
   const int half = lane & 1;   // and which half of the keys (and of the head) it handles
   const long long head = (long long)b * stride_b + h * D;
 
-  load_tile<D>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
+  load_tile<D, kBias>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
 
   float m = -INFINITY;  // running max of this row's scores
   float l = 0.0f;       // running sum of exp(score - m)
@@ -138,8 +143,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < T; k0 += kBKV) {
     __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile<D>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
-    load_tile<D>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
+    load_tile<D, kBias>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
+    load_tile<D, kBias>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
     if (threadIdx.x < kBKV) {
       const int key = k0 + threadIdx.x;
       kbias[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
@@ -254,6 +259,12 @@ __global__ void __launch_bounds__(kThreads)
 // JAX package sums its per-batch-row partials outside. The head dim is padded
 // as in the forward; the padding columns of dq, dk, dv are neither written nor
 // summed.
+//
+// Without biases (kBias = false) the kernels replace `_bwd_pallas_stats_ctx`
+// / `_bwd_kernel_stats_ctx` (:348, :698): the same dq, dk, dv, no bias loads
+// and no column sums. dq, dk and dv are written through their own row stride,
+// so for q, k, v sliced from one packed (B, T, 3 H*D) projection they land in
+// the lane thirds of one packed gradient, the projection's dy, with no copy.
 
 // Rows r0 .. r0+63 of one head without a bias; rows at or past T and the
 // padding columns are zero.
@@ -303,12 +314,12 @@ __device__ __forceinline__ void load_query_stats(float* lse_s, float* delta_s,
 
 // A warp's 16 x DP fp32 accumulators times `mul`, rounded to bf16, go to rows
 // r0 + 16 warp .. of dst, columns 0 .. d-1 (rows at or past T are skipped);
-// the column sums of the rounded values over the block's 64 rows go to
-// part[0 .. d-1]. Called by every thread of the block.
-template <int D>
-__device__ __forceinline__ void store_rows_colsum(FragC (&acc)[Head<D>::kNF], float mul,
-                                                  float* Sw, float* red, bf16* dst,
-                                                  long long stride, int r0, int T, float* part) {
+// with kSum the column sums of the rounded values over the block's 64 rows go
+// to part[0 .. d-1]. Called by every thread of the block.
+template <int D, bool kSum>
+__device__ __forceinline__ void store_rows(FragC (&acc)[Head<D>::kNF], float mul, float* Sw,
+                                           float* red, bf16* dst, long long stride, int r0, int T,
+                                           float* part) {
   using H = Head<D>;
   constexpr int kHalf = H::kHalf;
   const int warp = threadIdx.x >> 5;
@@ -331,25 +342,28 @@ __device__ __forceinline__ void store_rows_colsum(FragC (&acc)[Head<D>::kNF], fl
         coral_store8(dst + (long long)t * stride + half * kHalf + j, out + j);
   }
   __syncwarp();
+  if constexpr (kSum) {
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) Sw[row * H::kLdS + half * kHalf + j] = out[j];
-  __syncwarp();
-  for (int c = lane; c < D; c += 32) {
-    float cs = 0.f;
-    for (int r = 0; r < 16; ++r) cs += Sw[r * H::kLdS + c];
-    red[warp * H::kDP + c] = cs;
+    for (int j = 0; j < kHalf; ++j) Sw[row * H::kLdS + half * kHalf + j] = out[j];
+    __syncwarp();
+    for (int c = lane; c < D; c += 32) {
+      float cs = 0.f;
+      for (int r = 0; r < 16; ++r) cs += Sw[r * H::kLdS + c];
+      red[warp * H::kDP + c] = cs;
+    }
+    __syncthreads();
+    if (threadIdx.x < D)
+      part[threadIdx.x] = ((red[threadIdx.x] + red[H::kDP + threadIdx.x]) +
+                           red[2 * H::kDP + threadIdx.x]) + red[3 * H::kDP + threadIdx.x];
+    __syncthreads();
   }
-  __syncthreads();
-  if (threadIdx.x < D)
-    part[threadIdx.x] = ((red[threadIdx.x] + red[H::kDP + threadIdx.x]) +
-                         red[2 * H::kDP + threadIdx.x]) + red[3 * H::kDP + threadIdx.x];
-  __syncthreads();
 }
 
 // q, k, v, bq, bk, bv, key_bias as the forward; dout, o: (B, T, H*D) bf16
-// contiguous; lse: (B, H, T) fp32; dk, dv: (B, T, H*D) bf16; db_part:
-// (B, nT, 3, H*D) fp32 with nT = ceil(T / 64).
-template <int D>
+// contiguous; lse: (B, H, T) fp32; dk, dv: (B, T, H*D) bf16 with row stride
+// stride_d (batch stride T stride_d); db_part (kBias): (B, nT, 3, H*D) fp32
+// with nT = ceil(T / 64).
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -358,7 +372,7 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ lse, const bf16* __restrict__ o,
                               bf16* __restrict__ dk, bf16* __restrict__ dv,
                               float* __restrict__ db_part, int T, int H, long long stride_b,
-                              long long stride_t, float scale) {
+                              long long stride_t, long long stride_d, float scale) {
   using Hd = Head<D>;
   constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -384,9 +398,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long HD = (long long)H * D;
   const long long head = (long long)b * stride_b + h * D;
   const long long ohead = (long long)b * T * HD + h * D;
+  const long long dhead = (long long)b * T * stride_d + h * D;
 
-  load_tile<D>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
-  load_tile<D>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
+  load_tile<D, kBias>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
+  load_tile<D, kBias>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
   if (threadIdx.x < kBKV) {
     const int key = k0 + threadIdx.x;
     kb[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
@@ -406,7 +421,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = 0; q0 < T; q0 += kBQ) {
     __syncthreads();  // the previous query tile is no longer read
-    load_tile<D>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
+    load_tile<D, kBias>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
     load_rows<D>(dOs, dout + ohead, q0, T, HD);
     __syncthreads();
     load_query_stats<D>(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0,
@@ -483,14 +498,15 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
   }
 
-  const int nT = gridDim.x;
-  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * D;
-  store_rows_colsum<D>(dk_acc, 1.0f, Sw, red, dk + ohead, HD, k0, T, part + HD);
-  store_rows_colsum<D>(dv_acc, 1.0f, Sw, red, dv + ohead, HD, k0, T, part + 2 * HD);
+  float* part = kBias ? db_part + ((long long)b * gridDim.x + blockIdx.x) * 3 * HD + h * D
+                      : nullptr;
+  store_rows<D, kBias>(dk_acc, 1.0f, Sw, red, dk + dhead, stride_d, k0, T, kBias ? part + HD : part);
+  store_rows<D, kBias>(dv_acc, 1.0f, Sw, red, dv + dhead, stride_d, k0, T,
+                       kBias ? part + 2 * HD : part);
 }
 
 // As attention_bwd_dkdv_kernel, for dq (and the first third of db_part).
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ bq,
@@ -498,8 +514,8 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ key_bias, const bf16* __restrict__ dout,
                             const float* __restrict__ lse, const bf16* __restrict__ o,
                             bf16* __restrict__ dq, float* __restrict__ db_part, int T, int H,
-                            long long stride_b, long long stride_t, float scale,
-                            float sm_scale) {
+                            long long stride_b, long long stride_t, long long stride_d,
+                            float scale, float sm_scale) {
   using Hd = Head<D>;
   constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -524,8 +540,9 @@ __global__ void __launch_bounds__(kThreads)
   const long long HD = (long long)H * D;
   const long long head = (long long)b * stride_b + h * D;
   const long long ohead = (long long)b * T * HD + h * D;
+  const long long dhead = (long long)b * T * stride_d + h * D;
 
-  load_tile<D>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
+  load_tile<D, kBias>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
   load_rows<D>(dOs, dout + ohead, q0, T, HD);
   __syncthreads();
   load_query_stats<D>(lse_s, delta_s, lse + ((long long)b * H + h) * T, dOs, o + ohead, q0, T,
@@ -541,8 +558,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < T; k0 += kBKV) {
     __syncthreads();  // the previous key tile is no longer read
-    load_tile<D>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
-    load_tile<D>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
+    load_tile<D, kBias>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
+    load_tile<D, kBias>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
     if (threadIdx.x < kBKV) {
       const int key = k0 + threadIdx.x;
       kb[threadIdx.x] = key < T ? key_bias[(long long)b * T + key] : -INFINITY;
@@ -616,63 +633,83 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
   }
 
-  const int nT = gridDim.x;
-  float* part = db_part + ((long long)b * nT + blockIdx.x) * 3 * HD + h * D;
-  store_rows_colsum<D>(dq_acc, sm_scale, Sw, red, dq + ohead, HD, q0, T, part);
+  float* part = kBias ? db_part + ((long long)b * gridDim.x + blockIdx.x) * 3 * HD + h * D
+                      : nullptr;
+  store_rows<D, kBias>(dq_acc, sm_scale, Sw, red, dq + dhead, stride_d, q0, T, part);
 }
 
-template <int D>
+template <int D, bool kBias>
 int launch_bwd(const bf16* qp, const bf16* kp, const bf16* vp, const bf16* bqp, const bf16* bkp,
                const bf16* bvp, const float* kbp, const bf16* dop, const float* lp,
                const bf16* op, bf16* dq, bf16* dk, bf16* dv, float* dbp, int B, int T, int H,
-               long long stride_b, long long stride_t, float scale, float sm_scale,
-               cudaStream_t s) {
+               long long stride_b, long long stride_t, long long stride_d, float scale,
+               float sm_scale, cudaStream_t s) {
   using Hd = Head<D>;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<D, kBias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Hd::kDkdvSmem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D>,
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D, kBias>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Hd::kDqSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  attention_bwd_dkdv_kernel<D><<<grid, kThreads, Hd::kDkdvSmem, s>>>(
-      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dk, dv, dbp, T, H, stride_b, stride_t, scale);
+  attention_bwd_dkdv_kernel<D, kBias><<<grid, kThreads, Hd::kDkdvSmem, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dk, dv, dbp, T, H, stride_b, stride_t,
+      stride_d, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<D><<<grid, kThreads, Hd::kDqSmem, s>>>(
-      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dq, dbp, T, H, stride_b, stride_t, scale,
-      sm_scale);
+  attention_bwd_dq_kernel<D, kBias><<<grid, kThreads, Hd::kDqSmem, s>>>(
+      qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dq, dbp, T, H, stride_b, stride_t, stride_d,
+      scale, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kBias>
 int launch_fwd(const bf16* qp, const bf16* kp, const bf16* vp, const bf16* bqp, const bf16* bkp,
                const bf16* bvp, const float* kbp, bf16* op, float* lp, int B, int T, int H,
                long long stride_b, long long stride_t, float scale, cudaStream_t s) {
   using Hd = Head<D>;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D, kBias>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Hd::kFwdSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  attention_fwd_kernel<D><<<grid, kThreads, Hd::kFwdSmem, s>>>(
+  attention_fwd_kernel<D, kBias><<<grid, kThreads, Hd::kFwdSmem, s>>>(
       qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, T, H, stride_b, stride_t, scale);
   return (int)cudaGetLastError();
 }
 
+// Calls f(std::integral_constant<int, D>{}, std::integral_constant<bool, kBias>{})
+// for a built head dim D (64, 80, 120); returns -1 for any other.
+template <typename Fn>
+int with_head(int D, bool bias, Fn&& f) {
+  auto on = [&](auto d) {
+    return bias ? f(d, std::integral_constant<bool, true>{})
+                : f(d, std::integral_constant<bool, false>{});
+  };
+  switch (D) {
+    case 64: return on(std::integral_constant<int, 64>{});
+    case 80: return on(std::integral_constant<int, 80>{});
+    case 120: return on(std::integral_constant<int, 120>{});
+    default: return -1;
+  }
+}
+
 }  // namespace
 
-// Launches both backward kernels on `stream` at head dim D (64, 80 or 120).
-// scale is the bf16-rounded score scale applied to q + bq (as the forward);
-// sm_scale the fp32 one dq is multiplied by (as the JAX kernel). Returns the
+// Launches both backward kernels on `stream` at head dim D (64, 80 or 120),
+// with the q/k/v biases when bq is not null (then bk, bv and db_part are
+// read and written too), else without (the three and db_part are not read).
+// dq, dk, dv: (B, T, H*D) bf16 each with row stride stride_d. scale is the
+// bf16-rounded score scale applied to q (+ bq) (as the forward); sm_scale
+// the fp32 one dq is multiplied by (as the JAX kernel). Returns the
 // cudaError_t of the launches, or -1 for a head dim they were not built for.
 extern "C" int coral_attention_bwd(const void* q, const void* k, const void* v, const void* bq,
                                    const void* bk, const void* bv, const void* key_bias,
                                    const void* dout, const void* lse, const void* o, void* dq,
                                    void* dk, void* dv, void* db_part, int B, int T, int H, int D,
-                                   long long stride_b, long long stride_t, float scale,
-                                   float sm_scale, void* stream) {
+                                   long long stride_b, long long stride_t, long long stride_d,
+                                   float scale, float sm_scale, void* stream) {
   if (D != 64 && D != 80 && D != 120) return -1;
   if (B <= 0 || T <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -685,18 +722,16 @@ extern "C" int coral_attention_bwd(const void* q, const void* k, const void* v, 
   float* dbp = static_cast<float*>(db_part);
   bf16 *dqp = static_cast<bf16*>(dq), *dkp = static_cast<bf16*>(dk),
        *dvp = static_cast<bf16*>(dv);
-  if (D == 64)
-    return launch_bwd<64>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T,
-                          H, stride_b, stride_t, scale, sm_scale, s);
-  if (D == 80)
-    return launch_bwd<80>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T,
-                          H, stride_b, stride_t, scale, sm_scale, s);
-  return launch_bwd<120>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T,
-                         H, stride_b, stride_t, scale, sm_scale, s);
+  return with_head(D, bqp != nullptr, [&](auto d, auto bias) {
+    return launch_bwd<decltype(d)::value, decltype(bias)::value>(
+        qp, kp, vp, bqp, bkp, bvp, kbp, dop, lp, op, dqp, dkp, dvp, dbp, B, T, H, stride_b,
+        stride_t, stride_d, scale, sm_scale, s);
+  });
 }
 
-// The forward at head dim D (64, 80 or 120). Returns the cudaError_t of the
-// launch, or -1 for a head dim it was not built for.
+// The forward at head dim D (64, 80 or 120), with the q/k/v biases when bq is
+// not null, else without. Returns the cudaError_t of the launch, or -1 for a
+// head dim it was not built for.
 extern "C" int coral_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bq, const void* bk, const void* bv,
                                    const void* key_bias, void* o, void* lse, int B, int T,
@@ -711,12 +746,8 @@ extern "C" int coral_attention_fwd(const void* q, const void* k, const void* v,
   const float* kbp = static_cast<const float*>(key_bias);
   bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
-  if (D == 64)
-    return launch_fwd<64>(qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t,
-                          scale, s);
-  if (D == 80)
-    return launch_fwd<80>(qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t,
-                          scale, s);
-  return launch_fwd<120>(qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t,
-                         scale, s);
+  return with_head(D, bqp != nullptr, [&](auto d, auto bias) {
+    return launch_fwd<decltype(d)::value, decltype(bias)::value>(
+        qp, kp, vp, bqp, bkp, bvp, kbp, op, lp, B, T, H, stride_b, stride_t, scale, s);
+  });
 }

@@ -144,10 +144,13 @@ __device__ __forceinline__ void x_panel(bf16* As, const bf16* __restrict__ x, lo
 }
 
 // acc (this warp's BM/2 x 64) = As (BM x D) @ W1[n0 .. n0+255, :]^T over the
-// whole D, streaming 256 x 32 tiles of W1 through Bs. Ends on a barrier.
-template <int D, int BM>
+// whole D, streaming 256 x 32 tiles of W1 through Bs. With kColTail, rows of W1
+// at or past F (a last column tile of 128, F a multiple of 128 but not of 256)
+// load as zero. Ends on a barrier.
+template <int D, int BM, bool kColTail = false>
 __device__ __forceinline__ void panel_times_w1(FragC (&acc)[BM / 32][4], const bf16* As,
-                                               bf16* Bs, const bf16* __restrict__ w1, int n0) {
+                                               bf16* Bs, const bf16* __restrict__ w1, int n0,
+                                               int F = 0) {
   constexpr int kLdA = D + 8;
   constexpr int kFR = BM / 32;  // 16-row fragments of a warp
   const int warp = threadIdx.x >> 5;
@@ -161,8 +164,10 @@ __device__ __forceinline__ void panel_times_w1(FragC (&acc)[BM / 32][4], const b
     for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
       const int n = i >> 2;
       const int c = (i & 3) * 8;
-      *reinterpret_cast<uint4*>(Bs + n * kLdB + c) =
-          *reinterpret_cast<const uint4*>(w1 + (long long)(n0 + n) * D + k0 + c);
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (!kColTail || n0 + n < F)
+        u = *reinterpret_cast<const uint4*>(w1 + (long long)(n0 + n) * D + k0 + c);
+      *reinterpret_cast<uint4*>(Bs + n * kLdB + c) = u;
     }
     __syncthreads();
 #pragma unroll

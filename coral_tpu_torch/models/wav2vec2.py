@@ -5,7 +5,13 @@ defaults (``coral_tpu/training/model_setup.py``): pre-LN encoder layers, the
 fused feature-encoder conv blocks, the ``ln_fused`` pre-attention LayerNorm,
 the v3-stats attention with in-kernel q/k/v biases and the LN-folded FFN block.
 The other routes are taken by flag, as in the JAX model
-(:540-595, :624-697, :751-765): ``attention_impl="flash"`` (q/k/v with their
+(:494-598, :624-697, :735-765): ``fused_qkv_ln`` folds the pre-attention
+LayerNorm into one packed (3D, D) QKV projection (``ops.ffn.ln_dense``; the
+parameters keep their ``q_proj``/``k_proj``/``v_proj`` and ``layer_norm``
+names) whose lane thirds are q, k and v; ``attention_fused_qkv_bias=False``
+adds the q/k/v biases in the projections and runs the v3-stats attention
+without them (the resolved default under ``fused_qkv_ln``, where the packed
+projection adds them); ``attention_impl="flash"`` (q/k/v with their
 biases, the flash kernel with segment ids over T padded to 128 rows,
 ``ops/flash_attention.py``) or ``"xla"`` (``jax.nn.dot_product_attention``
 with the -1e30 key bias, plain math under autograd); the FFN by
@@ -87,9 +93,9 @@ from ..ops import ffn as _ffn
 from ..ops import flash_attention as _flash
 from ..ops import gelu_dropout as _gelu_dropout
 from ..ops import ln_gelu as _ln_gelu
-from ..ops.attention import short_t_attention_flat
+from ..ops.attention import short_t_attention_flat, short_t_attention_packed
 from ..ops.conv_ln_gelu import conv_ln_gelu
-from ..ops.ffn import ffn_block, ffn_fc1, ffn_ln_block, ffn_ln_fc1
+from ..ops.ffn import ffn_block, ffn_fc1, ffn_ln_block, ffn_ln_fc1, ln_dense
 from ..ops.flash_attention import flash_attention, flash_self_attention
 from ..ops.gelu_dropout import gelu_dropout
 from ..ops.ln_gelu import ln_fused, ln_gelu
@@ -160,10 +166,15 @@ class Wav2Vec2Config(FFNBlockVariant):
     # FFN; with it fused_ffn_ln folds the LayerNorm into them, and
     # fused_ffn_block runs the whole FFN as one block (``ffn_route``). On the
     # LayerNorm-folded block, fused_ffn_block_dw, _fc2 and _dg pick its
-    # variant (``ffn_variant``), at the setup's defaults. The setup resolves
-    # the JAX flags that ride on these (attention_fused_qkv_bias) and raises
-    # for the flags the port has no route for.
+    # variant (``ffn_variant``), at the setup's defaults. fused_qkv_ln folds
+    # the pre-attention LayerNorm into the packed QKV projection;
+    # attention_fused_qkv_bias adds the q/k/v biases inside the pallas
+    # attention (None: the JAX setup's default, true on the pallas route
+    # without fused_qkv_ln). The setup raises for the flags the port has no
+    # route for.
     attention_impl: str = "pallas"
+    fused_qkv_ln: bool = False
+    attention_fused_qkv_bias: bool | None = None
     fused_ffn: bool = True
     fused_ffn_ln: bool = True
     fused_ffn_block: bool = True
@@ -185,6 +196,16 @@ class Wav2Vec2Config(FFNBlockVariant):
         if self.attention_impl not in ("pallas", "flash", "xla"):
             raise ValueError(f"attention_impl={self.attention_impl!r}: expected 'pallas', "
                              "'flash' or 'xla'")
+        if self.attention_fused_qkv_bias is None:
+            object.__setattr__(self, "attention_fused_qkv_bias",
+                               self.attention_impl == "pallas" and not self.fused_qkv_ln)
+        # The JAX model's two refusals (coral_tpu/models/wav2vec2.py:494-530).
+        if self.fused_qkv_ln and self.attention_fused_qkv_bias:
+            raise ValueError("attention_fused_qkv_bias is mutually exclusive with fused_qkv_ln "
+                             "(the LN fold already owns the q/k/v biases)")
+        if self.attention_fused_qkv_bias and self.attention_impl != "pallas":
+            raise ValueError("attention_fused_qkv_bias requires attention_impl='pallas' "
+                             f"(got {self.attention_impl!r})")
 
     @property
     def ffn_route(self) -> str:
@@ -255,6 +276,9 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
         "flash": [("head_dim (the flash attention)", head_dim, (_flash.KERNEL_HEAD_DIM,))],
         "xla": [],
     }[config.attention_impl]
+    if config.fused_qkv_ln:
+        attention.append(("hidden_size (the LayerNorm-folded packed QKV projection)", D,
+                          _ffn.KERNEL_QKV_D))
     return [
         *ffn,
         ("hidden_size (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[bf16]),
@@ -273,6 +297,8 @@ class _Ops(NamedTuple):
     ln_fused: Callable
     conv_ln_gelu: Callable
     attention: Callable
+    attention_packed: Callable
+    ln_dense: Callable
     ffn_ln_block: Callable
     ffn_block: Callable
     ffn_ln_fc1: Callable
@@ -282,14 +308,16 @@ class _Ops(NamedTuple):
     gelu_dropout: Callable
 
 
-_KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat, ffn_ln_block,
-                ffn_block, ffn_ln_fc1, ffn_fc1, flash_attention, flash_self_attention,
-                gelu_dropout)
+_KERNELS = _Ops(ln_gelu, ln_fused, conv_ln_gelu, short_t_attention_flat,
+                short_t_attention_packed, ln_dense, ffn_ln_block, ffn_block, ffn_ln_fc1,
+                ffn_fc1, flash_attention, flash_self_attention, gelu_dropout)
 _PLAIN = _Ops(
     functools.partial(ln_gelu, plain=True),
     functools.partial(ln_fused, plain=True),
     functools.partial(conv_ln_gelu, plain=True),
     functools.partial(short_t_attention_flat, plain=True),
+    functools.partial(short_t_attention_packed, plain=True),
+    functools.partial(ln_dense, plain=True),
     functools.partial(ffn_ln_block, plain=True),
     functools.partial(ffn_block, plain=True),
     functools.partial(ffn_ln_fc1, plain=True),
@@ -316,7 +344,13 @@ _ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
 # ("ffn_ln_fc1", "ffn_fc1") "ffn_act" is fc1's output g: kept, the replay
 # skips the fc1 kernel; else it runs it again, since fc2's weight gradient
 # reads g. The blocks emit no "ffn_act" (their replay launches nothing), and
-# the unfused FFN names its fc1 output "ffn_hidden".
+# the unfused FFN names its fc1 output "ffn_hidden". Under fused_qkv_ln "q",
+# "k" and "v" name the lane thirds of the one packed projection (the JAX
+# model's checkpoint names on its slices) and "attn_in" the residual stream
+# (the layer's input, which the checkpoint holds anyway): the packed output
+# is kept only with all three names (save_qkv_ctx, save_matmul_inputs[_ffn]),
+# and else the replay runs the projection's forward again for all of it, as
+# the JAX replay runs the custom VJP's forward for a v it does not keep.
 REMAT_POLICIES: dict[str, tuple[str, ...]] = {
     "nothing_saveable": (),
     "save_matmul_inputs": ("attn_in", "q", "k", "v", "attn_ctx", "ffn_in"),
@@ -362,6 +396,8 @@ class _Remat:
         for group in groups:
             if not group <= names:
                 names = names - group
+        if {"q", "k", "v"} <= names:
+            names = names | {"qkv"}  # the packed projection of fused_qkv_ln
         self.names = names
         self.kept: dict[str, torch.Tensor] = {}
         self.replaying = False
@@ -585,8 +621,10 @@ def _attention_xla(q, k, v, pad_mask):
 
 
 class Attention(nn.Module):
-    """Self-attention: on the pallas route the q/k/v projection biases are
-    added in the kernel; on the flash and xla routes in the projections."""
+    """Self-attention: on the pallas route with ``attention_fused_qkv_bias``
+    the q/k/v projection biases are added in the kernel; elsewhere in the
+    projections, or, given the pre-attention LayerNorm (``fused_qkv_ln``), in
+    the one packed projection ``ln_dense`` whose lane thirds are q, k, v."""
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
@@ -598,30 +636,45 @@ class Attention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.head_dim = D // config.num_attention_heads
         self.impl = config.attention_impl
+        self.qkv_bias = config.attention_fused_qkv_bias
         self.dtype = config.dtype
         self.rate = config.hidden_dropout
         self.ops = ops
 
     def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT,
-                skip_out: bool = False):
+                skip_out: bool = False, ln: nn.LayerNorm | None = None):
         """skip_out: a kept "ffn_in" is the replay's residual stream (the FFN
         block's route), so the replay reads no output of the out projection,
-        which then only packs its residuals."""
+        which then only packs its residuals. ln: the pre-attention LayerNorm
+        to fold into the packed projection (x is then the residual stream)."""
         dt = self.dtype
-        bias = self.impl != "pallas"
-        q, k, v = (remat.keep(n, _project(x, p, dt, remat, n, bias=bias, saved=remat.saved(n)))
-                   for n, p in (("q", self.q_proj), ("k", self.k_proj), ("v", self.v_proj)))
+        projections = (self.q_proj, self.k_proj, self.v_proj)
+        qkv = None
+        if ln is not None:
+            w = torch.cat([p.weight.to(dt) for p in projections])
+            b = torch.cat([p.bias for p in projections])
+            qkv = remat.keep("qkv", self.ops.ln_dense(x, w, b, ln.weight, ln.bias, ln.eps,
+                                                       saved=remat.saved("qkv")))
+            q, k, v = qkv.chunk(3, dim=-1)
+        else:
+            bias = self.impl != "pallas" or not self.qkv_bias
+            q, k, v = (remat.keep(n, _project(x, p, dt, remat, n, bias=bias,
+                                              saved=remat.saved(n)))
+                       for n, p in zip(("q", "k", "v"), projections))
         if self.impl == "pallas":
             saved = remat.saved("attn_ctx")
-            o, lse = self.ops.attention(
-                q, k, v, pad_mask, self.head_dim,
-                (self.q_proj.bias, self.k_proj.bias, self.v_proj.bias),
-                saved=None if saved is None else (saved, remat.saved("attn_lse")),
-            )
+            saved = None if saved is None else (saved, remat.saved("attn_lse"))
+            if qkv is not None:
+                o, lse = self.ops.attention_packed(qkv, pad_mask, self.head_dim, saved=saved)
+            else:
+                biases = ((self.q_proj.bias, self.k_proj.bias, self.v_proj.bias)
+                          if self.qkv_bias else None)
+                o, lse = self.ops.attention(q, k, v, pad_mask, self.head_dim, biases,
+                                            saved=saved)
             remat.keep("attn_ctx", o)
             remat.keep("attn_lse", lse)
         else:
-            B, T, D = x.shape
+            B, T, D = q.shape
             q4, k4, v4 = (t.view(B, T, self.num_heads, self.head_dim) for t in (q, k, v))
             if self.impl == "xla":
                 o = _attention_xla(q4, k4, v4, pad_mask)
@@ -705,6 +758,7 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
         # The FFN's kernels take the residual stream and fold LN2 in.
         self.ln_folded = config.ffn_route in ("ffn_ln_block", "ffn_ln_fc1")
+        self.qkv_ln = config.fused_qkv_ln
         self.ops = ops
 
     def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
@@ -712,9 +766,13 @@ class EncoderLayer(nn.Module):
         remat: this layer's checkpoint record (``_Remat``)."""
         ln, fln = self.layer_norm, self.final_layer_norm
         s = [None] * 3 if seeds is None else seeds
-        attn_in = remat.keep("attn_in", self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps,
-                                                          saved=remat.saved("attn_in")))
-        h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat, skip_out=self.ln_folded)
+        if self.qkv_ln:
+            # LN1 folded into the packed QKV projection; "attn_in" names x.
+            h = self.attention(x, pad_mask, s[_ATTN_OUT], remat, skip_out=self.ln_folded, ln=ln)
+        else:
+            attn_in = remat.keep("attn_in", self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps,
+                                                              saved=remat.saved("attn_in")))
+            h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat, skip_out=self.ln_folded)
         if self.ln_folded:
             # "ffn_in" names the residual stream, the FFN kernels' input.
             ffn_in = remat.saved("ffn_in")

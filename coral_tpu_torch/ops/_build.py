@@ -59,8 +59,9 @@ _SIGNATURES = {
     # stride_t, scale, stream
     "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
     # q, k, v, bq, bk, bv, key_bias, do, lse, o, dq, dk, dv, db_part, B, T, H,
-    # head_dim, stride_b, stride_t, scale, sm_scale, stream
-    "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _LL, _LL, _F, _F, _P],
+    # head_dim, stride_b, stride_t, stride_d, scale, sm_scale, stream (bq null:
+    # the kernels without biases, for both)
+    "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _LL, _LL, _LL, _F, _F, _P],
     # x, w1, b1, gamma, beta, seeds, g, M, D, F, T, threshold, scale, eps,
     # stream
     "coral_ffn_ln_fwd": [_P] * 7 + [_LL, _I, _I, _I, _U, _F, _F, _P],
@@ -87,6 +88,10 @@ _SIGNATURES = {
     # x, w1, b1, gamma, beta, w2, b2, seeds, y, M, D, F, T, threshold, scale,
     # eps, stream
     "coral_ffn_ln_fc2_fwd": [_P] * 9 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # x, w, b, gamma, beta, y, M, D, F, eps, stream
+    "coral_ln_dense_fwd": [_P] * 6 + [_LL, _I, _I, _F, _P],
+    # x, w, gamma, beta, dy, ln_out, db_part, dl, M, D, F, eps, stream
+    "coral_ln_dense_bwd": [_P] * 8 + [_LL, _I, _I, _F, _P],
     # emit, skip, valid, lengths, out, T, B, S, stream
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream

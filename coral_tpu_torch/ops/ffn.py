@@ -36,6 +36,15 @@ residuals are its primal inputs and the seeds, as the JAX custom VJPs':
 - ``ffn_fc1``: ``dropout(gelu(x @ W1^T + b1))`` (``_ffn_fc1``,
   :1645-1674): ``csrc/ffn_fc1.cu`` both ways (``_fwd_kernel[_drop]``,
   ``_bwd_kernel[_drop]``: dh and dx = dh @ W1).
+- ``ln_dense``: ``bf16(layer_norm(x)) @ W^T + b`` with no activation, the
+  pre-attention LayerNorm folded into the packed (3D, D) QKV projection
+  (``fused_qkv_ln``; ``ln_dense`` :1972-2015 and its ``custom_vjp``
+  ``_ln_dense`` :1575-1601): ``csrc/ln_dense.cu`` both ways
+  (``_fwd_kernel_lnmm``; ``_bwd_kernel_lnmm``: ln_out, db's row partials, dl =
+  dy W, then the LayerNorm backward), dW = ``dy^T ln_out`` outside, as the JAX
+  backward leaves it. At D or F not a multiple of 128 it takes the JAX
+  function's other route, the LayerNorm and the product as plain ops under
+  autograd (no kernel there in either package).
 
 dW1, dW2 (but in N6), db2 and the sums of the kernels' row partials stay
 outside as products and sums, as in the JAX backward functions. On a CPU
@@ -71,6 +80,10 @@ from .philox import keep_mask, threshold
 # under names ending in the width ("ffn_ln_drop_1920").
 KERNEL_D = (384, 512, 768, 1024, 1280, 1920)
 KERNEL_F_TILE = 256
+# Widths of the packed QKV projection's kernels (``ln_dense``): the XLS-R
+# encoders' (300M, 1B, 2B), F = 3 D; counted as "ln_dense", "ln_dense_bwd" at
+# 1024 and with the width elsewhere ("ln_dense_bwd_1920").
+KERNEL_QKV_D = (1024, 1280, 1920)
 
 
 def _name(base: str, D: int) -> str:
@@ -741,3 +754,144 @@ def ffn_fc1(x, w1, b1, rate: float = 0.0, seeds=None, plain: bool = False, saved
     arguments and result without the LayerNorm."""
     _seeds_for("ffn_fc1", rate, seeds)
     return _FFNFc1.apply(x, w1, b1, seeds, float(rate), plain, saved)
+
+
+# -- the LayerNorm-folded packed projection (ln_dense) ----------------------------------
+
+
+def ln_dense_plain(x, w, b, gamma, beta, eps: float = 1e-5):
+    """``_fwd_kernel_lnmm`` in plain ops: the fp32 LayerNorm rounded to
+    ``x.dtype`` (``_ln_matmul``), the product accumulated in fp32, + b in
+    fp32, rounded once to ``x.dtype``."""
+    ln, _, _ = _ln_rows(x, gamma, beta, eps)
+    return _h(ln, w, b).to(x.dtype)
+
+
+def ln_dense_bwd_plain(x, w, gamma, beta, dy, eps: float = 1e-5):
+    """``_bwd_kernel_lnmm`` + the sums outside it in plain ops: the LayerNorm
+    rebuilt from x, ``dl = dy @ W`` from the working-dtype dy in fp32, its
+    LayerNorm backward.
+
+    Returns (dx in x.dtype, ln_out in x.dtype, db (F,), dgamma, dbeta (D,)
+    fp32): db the column sums of dy in fp32, dgamma = sum(dl xhat), dbeta =
+    sum(dl)."""
+    dt = x.dtype
+    D, F = x.shape[-1], dy.shape[-1]
+    ln, xhat, rstd = _ln_rows(x, gamma, beta, eps)
+    dl = dy.to(dt).float() @ w.to(dt).float()
+    dx = _ln_bwd_rows(dl, xhat, rstd, gamma)
+    return (dx.to(dt), ln, dy.float().reshape(-1, F).sum(0), (dl * xhat).reshape(-1, D).sum(0),
+            dl.reshape(-1, D).sum(0))
+
+
+def _check_qkv(name, x, w, vectors):
+    """Checks the operands of the packed projection's kernels; returns
+    (D, F, w in x.dtype)."""
+    D = x.shape[-1]
+    F = w.shape[0]
+    if D not in KERNEL_QKV_D or w.shape != (F, D) or F % 128:
+        raise ValueError(
+            f"{name}: the kernel takes D in {KERNEL_QKV_D} and F a multiple of 128, got x "
+            f"{tuple(x.shape)} and w {tuple(w.shape)}; " + WIDTHS_ROADMAP
+        )
+    w = w.to(x.dtype)
+    _build.check_cuda(name, torch.bfloat16, x, w)
+    _build.check_cuda(name, torch.float32, *vectors)
+    if any(t.device != x.device for t in (w, *vectors)):
+        raise ValueError(f"{name}: all tensors must be on {x.device}")
+    return D, F, w
+
+
+def ln_dense_fwd(x, w, b, gamma, beta, eps: float = 1e-5):
+    """``y = bf16(layer_norm(x)) @ W^T + b``, the forward kernel's output.
+
+    Args:
+        x: (B, T, D); on CUDA bf16 with D in ``KERNEL_QKV_D``.
+        w: (F, D), cast to ``x.dtype``; on CUDA F a multiple of 128.
+        b: (F,) fp32.  gamma, beta: (D,) fp32.
+
+    Returns:
+        (B, T, F) in ``x.dtype``.
+    """
+    name = "coral_ln_dense_fwd"
+    if not _build.require_cuda(name, x):
+        return ln_dense_plain(x, w, b, gamma, beta, eps)
+    D, F, w = _check_qkv(name, x, w, (b, gamma, beta))
+    if b.shape != (F,) or gamma.shape != (D,) or beta.shape != (D,):
+        raise ValueError(f"{name}: b must be ({F},), gamma and beta ({D},)")
+    y = torch.empty((*x.shape[:-1], F), dtype=x.dtype, device=x.device)
+    _build.launch(name, _name("ln_dense", D), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), x.numel() // D, D, F,
+                  float(eps))
+    return y
+
+
+def ln_dense_bwd(x, w, gamma, beta, dy, eps: float = 1e-5):
+    """The backward kernels (ln_out, db's partials, dl) and the LayerNorm
+    backward; arguments and results as ``ln_dense_bwd_plain``.
+
+    Args:
+        x: (B, T, D) bf16, D in ``KERNEL_QKV_D``; dy: (B, T, F), cast to x.dtype.
+        w: (F, D), cast to x.dtype; gamma, beta (D,) fp32.
+    """
+    name = "coral_ln_dense_bwd"
+    if not _build.require_cuda(name, x):
+        return ln_dense_bwd_plain(x, w, gamma, beta, dy, eps)
+    D, F, w = _check_qkv(name, x, w, (gamma, beta))
+    dy = _check_dg(name, x, dy, F)
+    M = x.numel() // D
+    ln_out = torch.empty_like(x)
+    db_part = torch.empty((-(-M // 64), F), dtype=torch.float32, device=x.device)
+    dl = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _build.launch(name, _name("ln_dense_bwd", D), x.data_ptr(), w.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), dy.data_ptr(), ln_out.data_ptr(), db_part.data_ptr(),
+                  dl.data_ptr(), M, D, F, float(eps))
+    dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
+    return dx, ln_out, db_part.sum(0), dgamma, dbeta
+
+
+class _LnDense(torch.autograd.Function):
+    """``_ln_dense``: residuals (x, w, gamma, beta), the primal inputs; the
+    backward kernels and ``dW = dy^T ln_out`` outside, in the working dtype
+    (``.astype(w.dtype)`` of the bf16 copy), db and the LayerNorm's vectors
+    summed in fp32. A replay passes the kept output as ``saved``: the forward
+    returns it and launches nothing."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gamma, beta, eps, plain, saved):
+        ctx.save_for_backward(x, w, gamma, beta)
+        ctx.eps, ctx.plain, ctx.b_dtype = eps, plain, b.dtype
+        if saved is not None:
+            return saved.detach()
+        fwd = ln_dense_plain if plain else ln_dense_fwd
+        return fwd(x, w, b.float(), gamma.float(), beta.float(), eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, gamma, beta = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        bwd = ln_dense_bwd_plain if ctx.plain else ln_dense_bwd
+        dx, ln_out, db, dgamma, dbeta = bwd(x, w, gamma.float(), beta.float(), dy, ctx.eps)
+        dw = _outside_grads(dy, ln_out)
+        return (dx, dw.to(w.dtype), db.to(ctx.b_dtype), dgamma.to(gamma.dtype),
+                dbeta.to(beta.dtype), None, None, None)
+
+
+def ln_dense(x, w, b, gamma, beta, eps: float = 1e-5, plain: bool = False, saved=None):
+    """``layer_norm(x) @ W^T + b``, differentiable (the JAX ``ln_dense``).
+
+    Args:
+        x: (B, T, D) residual stream; w: (F, D), cast to x.dtype (F = 3 D for
+            the packed QKV projection); b: (F,); gamma, beta: (D,).
+        plain: run the plain versions (forward and backward) on any device.
+        saved: a checkpoint replay's kept output (returned, no launch).
+
+    Returns:
+        (B, T, F) in ``x.dtype``. At D or F not a multiple of 128, the JAX
+        function's XLA route: the LayerNorm rounded to x.dtype and the product
+        in fp32 + b, as plain ops under autograd.
+    """
+    if x.shape[-1] % 128 or w.shape[0] % 128:
+        return ln_dense_plain(x, w, b, gamma, beta, eps)  # under autograd
+    return _LnDense.apply(x, w.to(x.dtype), b, gamma, beta, float(eps), plain, saved)
+

@@ -13,9 +13,11 @@ unfused FFN; the models take the FFN route those flags select
 (``ffn_route``), and on the LayerNorm-folded block's route, the only one
 where the JAX models read them, the block's variant flags
 (``fused_ffn_block_dw``, ``_fc2``, ``_dg``: ``ffn_variant``); wav2vec2's
-``attention_impl`` takes ``pallas``, ``flash`` or ``xla``, and
-``attention_fused_qkv_bias`` defaults to true only for ``pallas`` (with the
-v3 stats and no ``fused_qkv_ln``). ``WhisperSetup`` (:440-628):
+``attention_impl`` takes ``pallas``, ``flash`` or ``xla``, ``fused_qkv_ln``
+folds the pre-attention LayerNorm into the packed QKV projection on any of
+them, and ``attention_fused_qkv_bias`` defaults to true only for ``pallas``
+(with the v3 stats and no ``fused_qkv_ln``); false runs the v3 attention
+without in-kernel biases. ``WhisperSetup`` (:440-628):
 ``_infer_arch``, the tokenizer, the model config from the YAML surface with
 the JAX setup's kernel flags and its remat policy by width, the training
 fields, ``init_params``, the greedy ``make_predictor`` and
@@ -69,9 +71,10 @@ _W2V2_ARCHS: dict[str, Callable[..., Wav2Vec2Config]] = {
 # route for (coral_tpu/training/model_setup.py): any other value raises, as
 # the JAX package's own trap rule asks (tests/test_model_setup_traps.py): it
 # must not run a path other than the one configured. attention_impl,
-# attention_fused_qkv_bias, fused_ffn, fused_ffn_ln, fused_ffn_block and the
-# block's variants are resolved instead, raising for the pairs without a
-# route (``_w2v2_kernel_flags``), and
+# attention_fused_qkv_bias, fused_qkv_ln, fused_ffn, fused_ffn_ln,
+# fused_ffn_block and the block's variants are resolved instead, raising as
+# the JAX setup and model do for the pairs that contradict each other
+# (``_w2v2_kernel_flags``), and
 # pos_conv_fold is absent because both of its values are the same math, which
 # the port computes as a plain grouped conv.
 _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
@@ -79,7 +82,6 @@ _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
     "attention_o_residual": False,
     "fused_fe_conv": True,
     "encoder_ln_impl": "pallas",
-    "fused_qkv_ln": False,
     "do_stable_layer_norm": True,
 }
 
@@ -133,25 +135,27 @@ def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> dict[str, bool]:
 
 
 def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
-    """The wav2vec2 model's routes (attention_impl and the FFN's flags) as the
-    JAX setup resolves them (coral_tpu/training/model_setup.py:127-205); raises
-    for a flag whose route the port lacks, and, as the JAX model does
-    (coral_tpu/models/wav2vec2.py:518-530), for in-kernel q/k/v biases off
-    the pallas route."""
+    """The wav2vec2 model's routes (attention_impl, fused_qkv_ln, the q/k/v
+    biases and the FFN's flags) as the JAX setup resolves them
+    (coral_tpu/training/model_setup.py:127-217); raises as the JAX setup does
+    for a LayerNorm fold without the pre-LN encoder, as the JAX model does
+    (coral_tpu/models/wav2vec2.py:494-530) for in-kernel q/k/v biases with
+    fused_qkv_ln or off the pallas route (``Wav2Vec2Config``), and for a flag
+    whose route the port lacks."""
+    qkv_ln = bool(model_cfg.get("fused_qkv_ln", False))
+    if qkv_ln and not bool(model_cfg.get("do_stable_layer_norm", True)):
+        raise ValueError(
+            "fused_ffn_ln / fused_qkv_ln require do_stable_layer_norm "
+            "(pre-LN, the XLS-R architecture); set fused_ffn_ln=false "
+            "and fused_qkv_ln=false for post-LN configs.")
     _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
-    attention_impl = model_cfg.get("attention_impl", "pallas")
-    # True by default only where its prerequisites hold (pallas, the v3 stats
-    # and no fused_qkv_ln, the only values the check above lets through).
-    qkv_bias = bool(model_cfg.get("attention_fused_qkv_bias", attention_impl == "pallas"))
-    if qkv_bias and attention_impl != "pallas":
-        raise ValueError("attention_fused_qkv_bias requires attention_impl='pallas' "
-                         f"(got {attention_impl!r})")
-    if attention_impl == "pallas" and not qkv_bias:
-        raise NotImplementedError(
-            "attention_impl='pallas' with the q/k/v biases outside the kernel "
-            "(attention_fused_qkv_bias=False): "
-            + NOT_PORTED.format("9 (off-default kernel flags)"))
-    return dict(attention_impl=attention_impl, **_fused_ffn_flags(model_cfg))
+    # Unset, the config takes the JAX setup's default: true where its
+    # prerequisites hold (pallas, the v3 stats, the only ones the check above
+    # lets through, and no fused_qkv_ln).
+    qkv_bias = model_cfg.get("attention_fused_qkv_bias")
+    return dict(attention_impl=model_cfg.get("attention_impl", "pallas"), fused_qkv_ln=qkv_ln,
+                attention_fused_qkv_bias=None if qkv_bias is None else bool(qkv_bias),
+                **_fused_ffn_flags(model_cfg))
 
 
 def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:

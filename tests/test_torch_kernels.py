@@ -37,6 +37,12 @@ summed over keys whose weights add to 1.
 The unfused routes: the flash kernels with segment ids as the unmasked ones,
 against the plain versions through the padded call; the GELU+dropout kernel
 at rtol 2**-6 and atol 1e-2 as the other row kernels, its masks exact.
+
+The packed QKV projection of ``fused_qkv_ln`` (``ln_dense``, D 1024, 1280 and
+1920, F = 3 D, at 1920 a 128-column tail): y and ln_out as the other rounded
+outputs, dx as the other gradients, db, dgamma and dbeta as fp32 partial
+sums. The attention without in-kernel biases at head_dim 64, 80 and 120 as
+the biased one, and bit for bit the biased kernels' output at zero biases.
 """
 
 import numpy as np
@@ -827,7 +833,7 @@ def test_attention_kernels_write_nothing_past_a_head(cuda, d):
     db_part = torch.empty(B, -(-T // 64), 3, H * d, device=cuda)
     _build.launch("coral_attention_bwd", "sentinel", *ptrs, do.data_ptr(), lse.data_ptr(),
                   o.data_ptr(), *(g.data_ptr() for g in grads), db_part.data_ptr(), B, T, H, d,
-                  stride_b, stride_t, scale, d**-0.5)
+                  stride_b, stride_t, H * d, scale, d**-0.5)
     torch.cuda.synchronize()
     want = attention.attention_bwd(q, k, v, *bias, key_bias, do, lse, o, d, d**-0.5)
     for g, w in zip(grads, want[:3]):
@@ -963,3 +969,147 @@ def test_unfused_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="segment ids"):
         flash_attention.flash_self_attention(q, q, q, segment_ids=torch.ones(1, 256, device=cuda))
     assert not _build.launch_counts
+
+
+# -- the packed QKV projection and the attention without biases ---------------------
+
+QKV_D = [1024, 1280, 1920]
+
+
+def _ln_dense_args(cuda, D, T=75):
+    F = 3 * D
+    x = _on(cuda, _np(2, T, D, seed=0, offset=0.2), torch.bfloat16)
+    w = _on(cuda, _np(F, D, seed=1, scale=D**-0.5), torch.bfloat16)
+    b = _on(cuda, _np(F, seed=2, scale=0.1))
+    gamma = _on(cuda, _np(D, seed=3, scale=0.1, offset=1.0))
+    beta = _on(cuda, _np(D, seed=4, scale=0.1))
+    dy = _on(cuda, _np(2, T, F, seed=5), torch.bfloat16)
+    return x, w, b, gamma, beta, dy
+
+
+@pytest.mark.parametrize("D", QKV_D)
+def test_ln_dense_kernels_match_plain(cuda, D):
+    """The forward and the backward (its kernels, then the LayerNorm
+    backward) at F = 3 D, 150 rows: a ragged last row tile (64 rows, 32 at D
+    1920) and, at D 1920, F = 5760 ending in a 128-column tail."""
+    x, w, b, gamma, beta, dy = _ln_dense_args(cuda, D)
+    tail = "" if D == 1024 else f"_{D}"
+    _build.reset_launch_counts()
+    y = ffn.ln_dense_fwd(x, w, b, gamma, beta)
+    assert _build.launch_counts == {f"ln_dense{tail}": 1}
+    _close(y, ffn.ln_dense_plain(x, w, b, gamma, beta), 1e-2)
+    _build.reset_launch_counts()
+    got = ffn.ln_dense_bwd(x, w, gamma, beta, dy)
+    assert _build.launch_counts == {f"ln_dense_bwd{tail}": 1, f"ln_bwd{tail}": 1}
+    want = ffn.ln_dense_bwd_plain(x, w, gamma, beta, dy)
+    _close_rel(got[0], want[0])
+    _close(got[1], want[1], 1e-2)
+    for g, wnt in zip(got[2:], want[2:]):
+        _close_rel(g, wnt, 1e-2)
+
+
+def test_ln_dense_writes_nothing_past_its_columns(cuda):
+    """D 1920: the last column tile covers 5632 .. 5887 of F = 5760; y goes to
+    a buffer one row longer than the output, filled with a sentinel, which
+    the last row, if it wrote past F, would overwrite."""
+    D, M = 1920, 2 * 75
+    x, w, b, gamma, beta, _ = _ln_dense_args(cuda, D)
+    F = 3 * D
+    buf = torch.full((M * F + F,), 7.0, dtype=torch.bfloat16, device=cuda)
+    _build.launch("coral_ln_dense_fwd", "sentinel", x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), buf.data_ptr(), M, D, F, 1e-5)
+    torch.cuda.synchronize()
+    assert (buf[M * F:] == 7.0).all()
+    assert torch.equal(buf[:M * F].view(2, 75, F), ffn.ln_dense_fwd(x, w, b, gamma, beta))
+
+
+def test_ln_dense_autograd_launches_its_kernels(cuda):
+    """``ln_dense`` on the card: the forward kernel, then in the backward its
+    kernels and the LayerNorm backward, dW a product outside; its gradients
+    as the plain Function's."""
+    x, w, b, gamma, beta, dy = _ln_dense_args(cuda, 1024)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gamma, beta)]
+        _build.reset_launch_counts()
+        ffn.ln_dense(*leaves, plain=plain).backward(dy)
+        assert _build.launch_counts == ({} if plain else {"ln_dense": 1, "ln_dense_bwd": 1,
+                                                          "ln_bwd": 1})
+        grads.append([leaf.grad for leaf in leaves])
+    for g, wnt in zip(*grads):
+        _close_rel(g, wnt, 2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 80, 120])
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+def test_attention_kernels_without_biases_match_plain(cuda, d, packed):
+    """Forward and backward without in-kernel biases at each head dim, T =
+    150, padded keys and a fully padded row, counted apart from the biased
+    kernels; bit for bit the biased kernels' output at zero biases (bf16 q +
+    0 = q); on packed q, k, v the backward writes one packed gradient."""
+    B, T, H = 3, 150, 2
+    q, k, v, _, mask = _attention_args(cuda, B, T, H, d, packed)
+    fwd, bwd = attention._name("fwd", d, bias=False), attention._name("bwd", d, bias=False)
+    _build.reset_launch_counts()
+    o, lse = attention.short_t_attention_flat(q, k, v, mask, d)
+    assert _build.launch_counts == {fwd: 1}
+    want_o, want_lse = attention.attention_plain(q, k, v, mask, d)
+    _close(o, want_o, 8e-3)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    assert (lse[2] == -1e25).all()
+    key_bias = attention._key_bias(mask)
+    zero = torch.zeros(H * d, dtype=torch.bfloat16, device=cuda)
+    o_b, lse_b = attention._fwd(q, k, v, zero, zero, zero, key_bias, d, d**-0.5)
+    assert torch.equal(o, o_b) and torch.equal(lse, lse_b)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    args = (q, k, v, None, None, None, key_bias, do, lse, o, d, d**-0.5)
+    _build.reset_launch_counts()
+    got = attention.attention_bwd(*args)
+    assert _build.launch_counts == {bwd: 1} and got[3] is None
+    want = attention.attention_bwd_plain(*args)
+    got_b = attention.attention_bwd(q, k, v, zero, zero, zero, *args[6:])
+    for g, wnt, gb in zip(got[:3], want[:3], got_b[:3]):
+        _close_rel(g, wnt)
+        assert not g[2].any()  # the fully masked row gets no gradient
+        assert torch.equal(g, gb)
+    if packed:
+        out = torch.full((B, T, 3 * H * d), 7.0, dtype=torch.bfloat16, device=cuda)
+        attention.attention_bwd(*args, out=out)
+        assert torch.equal(out, torch.cat(got[:3], dim=-1))
+
+
+def test_packed_attention_autograd_launches_its_kernels(cuda):
+    """``short_t_attention_packed`` on the card: one forward and one backward
+    launch without biases, the packed gradient as the plain Function's."""
+    B, T, H, d = 3, 150, 2, 64
+    q, k, v, _, mask = _attention_args(cuda, B, T, H, d)
+    qkv = torch.cat([q, k, v], dim=-1)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        leaf = qkv.clone().requires_grad_(True)
+        _build.reset_launch_counts()
+        o, _ = attention.short_t_attention_packed(leaf, mask, d, plain=plain)
+        o.backward(do)
+        assert _build.launch_counts == ({} if plain else {"attention_nb": 1,
+                                                          "attention_nb_bwd": 1})
+        grads.append(leaf.grad)
+    _close_rel(*grads)
+
+
+@pytest.mark.parametrize("flags", [{"fused_qkv_ln": True}, {"attention_fused_qkv_bias": False}],
+                         ids=["fused_qkv_ln", "qkv_bias_off"])
+def test_qkv_routes_of_a_width_the_kernels_do_not_take_raise_on_the_card(cuda, flags):
+    """The tiny config's 32-wide layer on the card: the bias-free attention's
+    wrapper raises for head_dim 16; with ``fused_qkv_ln`` the projection takes
+    the JAX package's XLA route at width 32 (no kernel in either package)
+    before the attention raises. Nothing launches."""
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(dtype=torch.bfloat16, **flags)).to(cuda).eval()
+    layer = model.wav2vec2.encoder.layers[0]
+    x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        layer.attention(x, torch.ones(1, 4, dtype=torch.bool, device=cuda),
+                        ln=layer.layer_norm if flags.get("fused_qkv_ln") else None)
+    assert not _build.launch_counts
+

@@ -213,7 +213,7 @@ def test_whisper_and_beam_search_are_rejected(offline_hub):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("attention_save_stats", "v2"), ("fused_qkv_ln", True),
+    ("attention_save_stats", "v2"), ("attention_save_stats", False),
     ("encoder_ln_impl", "xla"), ("attention_o_residual", True), ("fused_fe_conv", False),
 ])
 def test_off_default_kernel_flags_are_rejected(flag, value):

@@ -322,15 +322,14 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     ({"attention_impl": "flash", "attention_fused_qkv_bias": True}, ValueError, "requires"),
     ({"attention_impl": "xla", "attention_fused_qkv_bias": True}, ValueError, "requires"),
-    ({"attention_impl": "pallas", "attention_fused_qkv_bias": False}, NotImplementedError,
-     "item 9"),
+    ({"attention_save_stats": True}, NotImplementedError, "item 9"),
     ({"attention_save_stats": "v2"}, NotImplementedError, "item 9"),
     ({"fused_fe_conv": False}, NotImplementedError, "item 9"),
     ({"do_stable_layer_norm": False}, NotImplementedError, "item 9"),
     ({"attention_impl": "flash", "attention_save_stats": False}, NotImplementedError, "item 9"),
     ({"attention_o_residual": True}, NotImplementedError, "item 9"),
     ({"encoder_ln_impl": "xla"}, NotImplementedError, "item 9"),
-    ({"fused_qkv_ln": True, "fused_ffn": False}, NotImplementedError, "item 9"),
+    ({"fused_qkv_ln": True, "attention_save_stats": False}, NotImplementedError, "item 9"),
     ({"attention_impl": "softmax"}, ValueError, "attention_impl"),
 ])
 def test_wav2vec2_flags_without_a_route_raise(flags, error, match):
