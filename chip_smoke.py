@@ -133,7 +133,20 @@ non-zero before the result line is printed:
    at activation dropout 0.1, 3 steps; (p') with
    ``attention_fused_qkv_bias: false``: one batch, kernel against plain, 2
    steps; each with exact launch counts and its ms per step beside (c)'s;
-16. a JSON line with every kernel (its launches summed over the counted runs
+16. the attention's other routes: the forward without stats, v1's forward
+   and the three backwards with their per-row pre-pass checked and timed with
+   the other kernels in phase 3 (forwards at 8 x 1499 rows beside SDPA,
+   backwards at 8 x 499, head_dim 64, 80 and 120; the fully masked row without
+   gradient on the stats routes, with the uniform average's on the others;
+   the forward without stats bit for bit the v2 forward's o; one backward on
+   packed lane thirds); (q) (c)'s configuration with
+   ``attention_save_stats: false``: one serving batch, the kernel path against
+   the plain path on one microbatch at activation dropout 0.1, 2 steps; (q')
+   with ``attention_o_residual: true``, (r) ``attention_save_stats: v2``: kernel
+   against plain, 2 steps each; (r') ``attention_save_stats: true``: one
+   batch, kernel against plain, 2 steps; each with exact launch counts and
+   its ms per step beside (c)'s;
+17. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths), then the last line ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
@@ -350,6 +363,24 @@ for _d in (80, 120):
     SOURCES[f"attention_fwd_hd{_d}"] = SOURCES["attention"]
     SOURCES[f"attention_bwd_hd{_d}"] = SOURCES["attention_bwd"]
     TOLERANCE[f"attention_fwd_hd{_d}"] = TOLERANCE["attention"]
+# The attention's other routes (K15): the forward without stats (`_fwd_kernel`
+# through `_fwd_pallas` :565) and v1's (`_fwd_kernel_stats`, :631), which
+# normalises p before rounding it (its o as the online forward's, within the
+# same tolerance); the backwards with the per-row pre-pass: recomputing the
+# softmax (`_bwd_kernel`, :581), with o's delta (`_bwd_kernel_ctx`, :597),
+# from the lse alone (`_bwd_kernel_stats`, :676). The rows at head_dim 64; at
+# 80 and 120 they are checked and timed but launched on no main path.
+SOURCES.update({
+    "attention_ns": ("coral_tpu_torch/csrc/attention.cu", "coral_tpu/ops/attention_pallas.py:565"),
+    "attention_v1": ("coral_tpu_torch/csrc/attention.cu", "coral_tpu/ops/attention_pallas.py:631"),
+    "attention_ns_bwd": ("coral_tpu_torch/csrc/attention_rows.cu",
+                         "coral_tpu/ops/attention_pallas.py:581"),
+    "attention_ctx_bwd": ("coral_tpu_torch/csrc/attention_rows.cu",
+                          "coral_tpu/ops/attention_pallas.py:597"),
+    "attention_stats_bwd": ("coral_tpu_torch/csrc/attention_rows.cu",
+                            "coral_tpu/ops/attention_pallas.py:676"),
+})
+TOLERANCE.update({name: TOLERANCE["attention"] for name in ("attention_ns", "attention_v1")})
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # fp32 outside them, and device memory. A kernel's bound is the larger of its
 # operations over the rate of their type and its bytes (each input read once,
@@ -589,6 +620,23 @@ WHISPER_DW_PER_MICROBATCH = {
 QKV_LN_CONFIG, QKV_BIAS_OFF_CONFIG = ({**PRODUCTION_CONFIG, "model": {
     **PRODUCTION_CONFIG["model"], key: value}} for key, value in (
         ("fused_qkv_ln", True), ("attention_fused_qkv_bias", False)))
+# Phases (q)-(r'): the attention's other routes (K15), on (c)'s configuration
+# (config/model/wav2vec2-small.yaml + config/asr_finetuning.yaml, save_qk_ctx),
+# where the setup resolves attention_fused_qkv_bias to false. (q)
+# `attention_save_stats: false` (the forward without stats, the backward that
+# recomputes the softmax): one served batch through the setup's predictor,
+# kernel vs plain on one microbatch at activation dropout 0.1, 2 steps; (q')
+# with `attention_o_residual: true` (the backward's delta from o): kernel vs
+# plain, 2 steps; (r) `attention_save_stats: v2` (the v2 forward, the
+# lse-only backward): kernel vs plain, 2 steps; (r') `true` (the v1 forward,
+# twice a layer in training: its lse has no name): one served batch, kernel vs
+# plain, 2 steps.
+VARIANT_PHASES = [(label, {**PRODUCTION_CONFIG, "model": {**PRODUCTION_CONFIG["model"], **flags}},
+                   serve) for label, flags, serve in (
+    ("(q)", {"attention_save_stats": False}, 1),
+    ("(q')", {"attention_save_stats": False, "attention_o_residual": True}, 0),
+    ("(r)", {"attention_save_stats": "v2"}, 0),
+    ("(r')", {"attention_save_stats": True}, 1))]
 # Each production step's ms (``production_run``), to set a phase beside (c).
 STEP_MS: dict = {}
 
@@ -3060,6 +3108,151 @@ def qkv_kernel_checks(card: str) -> dict:
     return results
 
 
+def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool = False):
+    """One kernel of the attention's other routes (K15) at (8, T, 16 x d), the
+    serving clips' or the training batch's lengths with one fully masked row
+    (length -1): ``route`` as ``ops.attention.ROUTES``, ``direction`` "fwd"
+    or "bwd"; ``packed``: q, k, v the lane thirds of one (B, T, 3 H d)
+    projection, the backward writing one packed gradient (the layout of
+    ``fused_qkv_ln``). Returns (check, launch, plain, work, library) for
+    ``_measure``. The forward without stats is checked bit for bit against
+    the v2 forward's o; the backward's fully masked row gets no gradient on
+    the stats routes and the uniform average's (every key's dv the mean of
+    do) on the routes that recompute the softmax."""
+    from coral_tpu_torch.ops import attention
+
+    bf16, H, dev = torch.bfloat16, 16, torch.device("cuda")
+    D = H * d
+    name = attention._name(direction, d, False, route)
+    tag = f"{name} ({BATCH}, {T}, {H} x {d}){' packed' if packed else ''}"
+    qkv = randn(BATCH, T, 3 * D, dtype=bf16)
+    q, k, v = qkv.chunk(3, dim=-1) if packed else (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    lengths = (torch.tensor([1499, 1200, 900, 600, 300, 1499, 50, -1], device=dev) if T == 1499
+               else torch.tensor([499, 400, 300, 250, 200, 499, 50, -1], device=dev))
+    mask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    key_bias = attention._key_bias(mask)
+    scale = d**-0.5
+    if direction == "fwd":
+        def launch():
+            return attention._fwd(q, k, v, None, None, None, key_bias, d, scale, route)
+
+        def plain():
+            return attention.attention_plain(q, k, v, mask, d, route=route)
+
+        def check():
+            (o, lse), (want_o, want_lse) = launch(), plain()
+            res = compare(tag, o, want_o, key="attention_v1" if route == "stats" else
+                          "attention_ns")
+            if route == "attention":
+                o_v2, _ = attention._fwd(q, k, v, None, None, None, key_bias, d, scale,
+                                         "stats_v2")
+                same = bool(torch.equal(o, o_v2))
+                print(f"  {tag}: o the v2 forward's (attention_nb) bit for bit: {same}",
+                      flush=True)
+                res["ok"] = res["ok"] and same and lse is None
+                return res
+            lse_err = float((lse - want_lse).abs().max())
+            clamped = bool((lse[-1] == -1e25).all())
+            print(f"  {tag} lse: max_abs_err {lse_err:.6g} (tolerance {LSE_ATOL}); masked row "
+                  f"clamped: {clamped}", flush=True)
+            res["ok"] = res["ok"] and lse_err <= LSE_ATOL and clamped
+            return res
+
+        heads = [t.reshape(BATCH, T, H, d).transpose(1, 2) for t in (q, k, v)]
+        sdpa_bias = torch.where(mask, 0.0, -1e30).to(bf16)[:, None, None, :]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=sdpa_bias)
+
+        # Two T x T x d products per head (v1's second score product counts
+        # against the bound, not into it); q, k, v, the mask in, o (and lse)
+        # out.
+        work = (4 * BATCH * H * T * T * d, BF16_FLOPS,
+                nbytes(q, k, v, mask) + nbytes(q) + (BATCH * H * T * 4 if route != "attention"
+                                                     else 0))
+        return check, launch, plain, work, library
+    do = randn(BATCH, T, D, dtype=bf16)
+    # The backward's residuals from its route's forward (v2's lse for v1's).
+    fwd_route = "stats_v2" if route == "stats" else route
+    o, lse = attention._fwd(q, k, v, None, None, None, key_bias, d, scale, fwd_route)
+    args = (q, k, v, None, None, None, key_bias, do, lse, o, d, scale)
+    out = torch.empty_like(qkv) if packed else None
+
+    def launch():
+        return attention.attention_bwd(*args, out=out, route=route)
+
+    def plain():
+        return attention.attention_bwd_plain(*args, route=route)
+
+    def check():
+        got, want = launch(), plain()
+        res = merge(*[compare_grad(f"{tag} {n}", gg, ww, GRAD_FRAC["attention_bwd"])
+                      for n, gg, ww in zip(("dq", "dk", "dv"), got[:3], want[:3])])
+        masked = [t[-1] for t in got[:3]]
+        if route in attention.LSE_ROUTES:
+            ok = not any(bool(t.any()) for t in masked)
+            what = "no gradient"
+        else:
+            mean_do = do[-1].float().mean(dim=0)
+            err = float((masked[2].float() - mean_do).abs().max())
+            bound_err = (GRAD_FRAC["attention_bwd"] + 2.0**-6) * float(mean_do.abs().max())
+            ok = all(bool(t.any()) for t in masked) and err <= bound_err
+            what = f"nonzero gradients, every key's dv the mean of do within {err:.3g}"
+        print(f"  {tag}: fully masked row: {what}: {ok}", flush=True)
+        if packed:
+            same = all(bool(torch.equal(g, w)) for g, w in zip(
+                got[:3], attention.attention_bwd(*args, route=route)[:3]))
+            print(f"  {tag}: the packed gradient the separate one's bit for bit: {same}",
+                  flush=True)
+            ok = ok and same
+        res["ok"] = res["ok"] and ok
+        return res
+
+    # Five T x T x d products per head (s, dp, dv, dq, dk), as the TPU kernel;
+    # the pre-pass's products count against the bound, not into it. Inputs
+    # q, k, v, key_bias, do and lse or o where the route reads them; dq, dk,
+    # dv out.
+    reads = [t for t, used in ((lse, route in attention.LSE_ROUTES),
+                               (o, route in attention.O_ROUTES)) if used]
+    work = (5 * 2 * BATCH * H * T * T * d, BF16_FLOPS,
+            nbytes(q, k, v, key_bias, do, *reads) + 3 * nbytes(do))
+    return check, launch, plain, work, None
+
+
+# The K15 kernels at their paths' shapes (XLS-R-300M serving 8 x 1499 rows
+# for the forwards, training 8 x 499 for the backwards): the rows of the
+# kernels line, then the same at head_dim 80 and 120 (timed, launched on no
+# main path), and one backward on packed lane thirds (checked).
+VARIANT_ROWS = (("attention", "fwd", 1499), ("stats", "fwd", 1499), ("attention", "bwd", 499),
+                ("ctx", "bwd", 499), ("stats", "bwd", 499))
+
+
+def variant_kernel_checks(card: str) -> dict:
+    """The attention's other routes' kernels against their plain versions:
+    ``VARIANT_ROWS`` at head_dim 64, 80 and 120, timed, the forwards beside
+    SDPA; then one packed backward."""
+    from coral_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + offset).to(dtype)
+
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    for d in (64, 80, 120):
+        for route, direction, T in VARIANT_ROWS:
+            check, launch, plain, work, library = variant_case(route, direction, d, T, randn)
+            measure(attention._name(direction, d, False, route), launch, plain, check, work,
+                    library)
+            del check, launch, plain, library
+            torch.cuda.empty_cache()
+    check, *_ = variant_case("attention", "bwd", 64, 499, randn, packed=True)
+    results["attention_ns_bwd packed"] = check()
+    return results
+
+
 def block_kernels(cfg, D: int) -> tuple[str, str, str]:
     """The LayerNorm-folded block's kernels at width D on cfg's variant
     (``ffn_variant``): the serving forward, the training (dropout) forward
@@ -3086,7 +3279,10 @@ def route_launches(cfg, serving: bool) -> dict:
     ``fused_qkv_ln`` LN1 is in the packed projection (``ln_dense``), whose
     forward runs again in the replay (save_qk_ctx keeps q and k but not v);
     the attention then runs without in-kernel biases, as with
-    ``attention_fused_qkv_bias: false``."""
+    ``attention_fused_qkv_bias: false``. The pallas attention takes the
+    kernels of its route (``attention_route``); its forward runs once a layer
+    under save_qk_ctx (o, and the lse where the backward reads it, are kept),
+    but twice on v1, whose lse has no name."""
     from coral_tpu_torch.ops import attention, ffn, ln_gelu
 
     D, L, F = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
@@ -3095,12 +3291,15 @@ def route_launches(cfg, serving: bool) -> dict:
     ln = ln_gelu._name("ln_fused", D)
     ln_apart = route in ("unfused", "ffn_block", "ffn_fc1")
     qkv_ln = cfg.fused_qkv_ln
-    attn = {d: attention._name(d, hd, cfg.attention_fused_qkv_bias) for d in ("fwd", "bwd")}
+    attn = {d: attention._name(d, hd, cfg.attention_fused_qkv_bias, cfg.attention_route)
+            for d in ("fwd", "bwd")} if cfg.attention_impl == "pallas" else {}
     if serving:
         counts = collections.Counter({"ln_gelu": 1, "conv_ln_gelu": 6,
                                       ln: (int(ln_apart) + int(not qkv_ln)) * L})
-        counts.update({"flash": {"flash_attention_seg": L},
-                       "pallas": {attn["fwd"]: L}}.get(cfg.attention_impl, {}))
+        if cfg.attention_impl == "flash":
+            counts["flash_attention_seg"] += L
+        elif cfg.attention_impl == "pallas":
+            counts[attn["fwd"]] += L
         if qkv_ln:
             counts[ffn._name("ln_dense", D)] += L
         fwd = {"ffn_ln_fc1": "ffn_ln", "ffn_block": "ffn_fc1", "ffn_fc1": "ffn_fc1"}.get(route)
@@ -3120,7 +3319,8 @@ def route_launches(cfg, serving: bool) -> dict:
         counts.update({"flash_attention_seg_train": 2 * L, "flash_attention_seg_bwd_dkv": L,
                        "flash_attention_seg_bwd_dq": L})
     elif cfg.attention_impl == "pallas":
-        counts.update({attn["fwd"]: L, attn["bwd"]: L})
+        counts.update({attn["fwd"]: (2 if cfg.attention_route == "stats" else 1) * L,
+                       attn["bwd"]: L})
     fwd, fwd_runs, bwd = {
         "unfused": (f"gelu_dropout_{F}", 2, f"gelu_dropout_bwd_{F}"),
         "ffn_ln_block": (None, 1, None),
@@ -3152,7 +3352,8 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str)
     cfg = setup.model_config
     predictor = setup.make_predictor(model)
     print(f"serving {label}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
-          f"attention {cfg.attention_impl} (q/k/v biases in the kernel: "
+          f"attention {cfg.attention_impl} (route {cfg.attention_route}, q/k/v biases in the "
+          f"kernel: "
           f"{cfg.attention_fused_qkv_bias}, LN1 folded into the packed QKV projection: "
           f"{cfg.fused_qkv_ln}), FFN {cfg.ffn_route}, {cfg.dtype}", flush=True)
     if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.ffn_route,
@@ -3312,6 +3513,9 @@ def main() -> int:
     print(f"kernel checks of the packed QKV projection and the attention without biases "
           f"(bf16, batch {BATCH}: XLS-R-300M's shapes, D 1280 and 1920):", flush=True)
     checks.update(qkv_kernel_checks(card))
+    print(f"kernel checks of the attention's other routes (bf16, batch {BATCH}: the forwards "
+          f"at 1499 rows, the backwards at 499, head_dim 64, 80 and 120):", flush=True)
+    checks.update(variant_kernel_checks(card))
     mark("kernel checks")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
@@ -3393,7 +3597,12 @@ def main() -> int:
     mark("(p) fused_qkv_ln: true")
     main_counts.append(route_run(card, "(p')", QKV_BIAS_OFF_CONFIG, "ffn_ln_block", 2, 1, True))
     mark("(p') attention_fused_qkv_bias: false")
-    for label in ("(p)", "(p')"):
+    # (q)-(r'): the attention's other routes.
+    for label, config, serve in VARIANT_PHASES:
+        main_counts.append(route_run(card, label, config, "ffn_ln_block", 2, serve, True))
+        mark(f"{label} attention_save_stats: {config['model']['attention_save_stats']}, "
+             f"attention_o_residual: {config['model'].get('attention_o_residual', False)}")
+    for label in ("(p)", "(p')", *(phase[0] for phase in VARIANT_PHASES)):
         print(f"training {label} ({card}): {STEP_MS[label]:.3f} ms per optimizer step against "
               f"(c)'s {STEP_MS['(c)']:.3f} ms in this run ({STEP_MS[label] / STEP_MS['(c)']:.4f}"
               f"x)", flush=True)

@@ -1,11 +1,15 @@
 """wav2vec2 encoder + CTC head in PyTorch, for serving and for training.
 
-Port of ``coral_tpu/models/wav2vec2.py`` with the JAX package's production
-defaults (``coral_tpu/training/model_setup.py``): pre-LN encoder layers, the
-fused feature-encoder conv blocks, the ``ln_fused`` pre-attention LayerNorm,
-the v3-stats attention with in-kernel q/k/v biases and the LN-folded FFN block.
-The other routes are taken by flag, as in the JAX model
-(:494-598, :624-697, :735-765): ``fused_qkv_ln`` folds the pre-attention
+Port of ``coral_tpu/models/wav2vec2.py``: pre-LN encoder layers, the fused
+feature-encoder conv blocks and the ``ln_fused`` pre-attention LayerNorm. The
+config dataclass has the JAX dataclass's defaults (the short-T attention
+without stats, the unfused FFN); the setups pass the JAX setups' production
+flags (``coral_tpu/training/model_setup.py``): the v3-stats attention with
+in-kernel q/k/v biases and the LN-folded FFN block. The routes are taken by
+flag, as in the JAX model (:494-598, :624-697, :735-765): on the pallas
+attention, ``attention_save_stats`` and ``attention_o_residual`` pick the
+kernels' route (``attention_route``, ``ops/attention.py``: v3, v2, v1, the
+o-residual or the recomputing backward); ``fused_qkv_ln`` folds the pre-attention
 LayerNorm into one packed (3D, D) QKV projection (``ops.ffn.ln_dense``; the
 parameters keep their ``q_proj``/``k_proj``/``v_proj`` and ``layer_norm``
 names) whose lane thirds are q, k and v; ``attention_fused_qkv_bias=False``
@@ -159,28 +163,31 @@ class Wav2Vec2Config(FFNBlockVariant):
     mask_feature_prob: float = 0.5
     mask_feature_length: int = 64
     dtype: torch.dtype = torch.float32  # compute dtype; bfloat16 on the card
-    # Kernel routes (coral_tpu/models/wav2vec2.py:64-143), at the production
-    # values by default. attention_impl: "pallas" (the v3-stats kernel, the
-    # q/k/v biases inside it), "flash" or "xla" (the biases in the
-    # projections). fused_ffn: the FFN's fused kernels, False: the unfused
-    # FFN; with it fused_ffn_ln folds the LayerNorm into them, and
-    # fused_ffn_block runs the whole FFN as one block (``ffn_route``). On the
+    # Kernel routes (coral_tpu/models/wav2vec2.py:64-143), with the JAX
+    # dataclass's defaults; the setups pass every flag at the JAX setups'
+    # values. attention_impl: "pallas" (the short-T kernels), "flash" or
+    # "xla" (the q/k/v biases in the projections). On pallas,
+    # attention_save_stats (False, True, "v2", "v3") and attention_o_residual
+    # pick the kernels' route (``attention_route``), and
+    # attention_fused_qkv_bias adds the q/k/v biases inside the v3 kernels.
+    # fused_qkv_ln folds the pre-attention LayerNorm into the packed QKV
+    # projection. fused_ffn: the FFN's fused kernels, False: the unfused FFN;
+    # with it fused_ffn_ln folds the LayerNorm into them, and fused_ffn_block
+    # runs the whole FFN as one block (``ffn_route``). On the
     # LayerNorm-folded block, fused_ffn_block_dw, _fc2 and _dg pick its
-    # variant (``ffn_variant``), at the setup's defaults. fused_qkv_ln folds
-    # the pre-attention LayerNorm into the packed QKV projection;
-    # attention_fused_qkv_bias adds the q/k/v biases inside the pallas
-    # attention (None: the JAX setup's default, true on the pallas route
-    # without fused_qkv_ln). The setup raises for the flags the port has no
-    # route for.
+    # variant (``ffn_variant``). The setup raises for the flags the port has
+    # no route for.
     attention_impl: str = "pallas"
+    attention_save_stats: bool | str = False
+    attention_o_residual: bool = False
     fused_qkv_ln: bool = False
-    attention_fused_qkv_bias: bool | None = None
-    fused_ffn: bool = True
-    fused_ffn_ln: bool = True
-    fused_ffn_block: bool = True
+    attention_fused_qkv_bias: bool = False
+    fused_ffn: bool = False
+    fused_ffn_ln: bool = False
+    fused_ffn_block: bool = False
     fused_ffn_block_dw: bool = False
     fused_ffn_block_fc2: bool = False
-    fused_ffn_block_dg: bool = True
+    fused_ffn_block_dg: bool = False
 
     def __post_init__(self) -> None:
         if self.feat_extract_norm != "layer":
@@ -196,16 +203,24 @@ class Wav2Vec2Config(FFNBlockVariant):
         if self.attention_impl not in ("pallas", "flash", "xla"):
             raise ValueError(f"attention_impl={self.attention_impl!r}: expected 'pallas', "
                              "'flash' or 'xla'")
-        if self.attention_fused_qkv_bias is None:
-            object.__setattr__(self, "attention_fused_qkv_bias",
-                               self.attention_impl == "pallas" and not self.fused_qkv_ln)
         # The JAX model's two refusals (coral_tpu/models/wav2vec2.py:494-530).
         if self.fused_qkv_ln and self.attention_fused_qkv_bias:
             raise ValueError("attention_fused_qkv_bias is mutually exclusive with fused_qkv_ln "
                              "(the LN fold already owns the q/k/v biases)")
-        if self.attention_fused_qkv_bias and self.attention_impl != "pallas":
-            raise ValueError("attention_fused_qkv_bias requires attention_impl='pallas' "
-                             f"(got {self.attention_impl!r})")
+        if self.attention_fused_qkv_bias and (self.attention_impl != "pallas"
+                                              or self.attention_save_stats != "v3"):
+            raise ValueError("attention_fused_qkv_bias requires attention_impl='pallas' and "
+                             f"attention_save_stats='v3' (got {self.attention_impl!r} / "
+                             f"{self.attention_save_stats!r})")
+
+    @property
+    def attention_route(self) -> str | None:
+        """The pallas attention's route (``ops.attention.route``: "stats_v3",
+        "stats_v2", "stats", "ctx" or "attention"), None off the pallas
+        route, where the JAX model never reads the two flags."""
+        if self.attention_impl != "pallas":
+            return None
+        return _attention.route(self.attention_save_stats, self.attention_o_residual)
 
     @property
     def ffn_route(self) -> str:
@@ -272,7 +287,8 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
         ffn = [("intermediate_size's remainder by the GELU+dropout's vector",
                 config.intermediate_size % _gelu_dropout.KERNEL_F_MULTIPLE, (0,))]
     attention = {
-        "pallas": [("head_dim (the attention)", head_dim, _attention.KERNEL_HEAD_DIMS)],
+        "pallas": [(f"head_dim (the attention, {config.attention_route})", head_dim,
+                    _attention.KERNEL_HEAD_DIMS)],
         "flash": [("head_dim (the flash attention)", head_dim, (_flash.KERNEL_HEAD_DIM,))],
         "xla": [],
     }[config.attention_impl]
@@ -334,7 +350,10 @@ _ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
 # the names each saves. At the production kernel flags a layer emits "attn_in"
 # (the LN1 output), "q", "k", "v" (the projections before their biases),
 # "attn_ctx" and "attn_lse" (the attention's o and lse) and "ffn_in" (the
-# residual stream into the FFN block). On the flash and xla routes "q", "k",
+# residual stream into the FFN block). The pallas attention's other routes
+# emit "attn_ctx" alone (no stats, with or without the o residual; the replay
+# skips the forward when it is kept) or, on v1, nothing that the replay can
+# use (its lse has no name). On the flash and xla routes "q", "k",
 # "v" are the projections with their biases, and "attn_ctx" keeps nothing
 # apart: the flash forward's residuals o, l, m have no name, so its replay
 # runs the forward (with its stats) again, as the JAX replay does, and the
@@ -384,15 +403,13 @@ class _Remat:
     ``keep`` holds on to the outputs the policy names, and the replay in the
     backward, where ``saved`` hands each kept output back to the op that made
     it, which then packs its residuals and launches nothing. The outputs of
-    one op in ``groups`` are kept only all together: here the attention's o
-    and lse, which its backward kernel reads both, so with one of them missing
-    the forward kernel runs in the replay anyway (the JAX setup's warning for
-    ``save_attn_ctx``).
+    one op in ``groups`` are kept only all together: the attention's o and
+    lse on the v3 and v2 routes, whose backward reads the lse, so with one of
+    them missing the forward kernel runs in the replay anyway (the JAX
+    setup's warning for ``save_attn_ctx``).
     """
 
-    def __init__(self, names: frozenset[str],
-                 groups: tuple[frozenset[str], ...] = (frozenset({"attn_ctx", "attn_lse"}),)
-                 ) -> None:
+    def __init__(self, names: frozenset[str], groups: tuple[frozenset[str], ...] = ()) -> None:
         for group in groups:
             if not group <= names:
                 names = names - group
@@ -412,6 +429,7 @@ class _Remat:
 
 
 _NO_REMAT = _Remat(frozenset())  # no checkpoint: nothing kept, nothing replayed
+_CTX_LSE = frozenset({"attn_ctx", "attn_lse"})
 
 
 class Randomness(NamedTuple):
@@ -636,6 +654,9 @@ class Attention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.head_dim = D // config.num_attention_heads
         self.impl = config.attention_impl
+        self.route = config.attention_route
+        self.flags = dict(save_stats=config.attention_save_stats,
+                          o_residual=config.attention_o_residual)
         self.qkv_bias = config.attention_fused_qkv_bias
         self.dtype = config.dtype
         self.rate = config.hidden_dropout
@@ -662,17 +683,26 @@ class Attention(nn.Module):
                                               saved=remat.saved(n)))
                        for n, p in zip(("q", "k", "v"), projections))
         if self.impl == "pallas":
-            saved = remat.saved("attn_ctx")
-            saved = None if saved is None else (saved, remat.saved("attn_lse"))
+            # A replay skips the forward where the policy kept what it made
+            # and its backward reads: o ("attn_ctx"), and the lse
+            # ("attn_lse") on v3 and v2, whose group in ``_Remat`` keeps both
+            # or neither. v1's lse has no name (coral_tpu/models/wav2vec2.py:
+            # 556-578), so its forward runs again under every policy.
+            saved = None
+            if self.route != "stats" and remat.saved("attn_ctx") is not None:
+                saved = (remat.saved("attn_ctx"), remat.saved("attn_lse"))
             if qkv is not None:
-                o, lse = self.ops.attention_packed(qkv, pad_mask, self.head_dim, saved=saved)
+                o, lse = self.ops.attention_packed(qkv, pad_mask, self.head_dim, saved=saved,
+                                                   **self.flags)
             else:
                 biases = ((self.q_proj.bias, self.k_proj.bias, self.v_proj.bias)
                           if self.qkv_bias else None)
                 o, lse = self.ops.attention(q, k, v, pad_mask, self.head_dim, biases,
-                                            saved=saved)
-            remat.keep("attn_ctx", o)
-            remat.keep("attn_lse", lse)
+                                            saved=saved, **self.flags)
+            if self.route != "stats":
+                remat.keep("attn_ctx", o)
+                if lse is not None:
+                    remat.keep("attn_lse", lse)
         else:
             B, T, D = q.shape
             q4, k4, v4 = (t.view(B, T, self.num_heads, self.head_dim) for t in (q, k, v))
@@ -801,6 +831,7 @@ class Encoder(nn.Module):
         )
         self.dtype = config.dtype
         self.rate = config.hidden_dropout
+        self.attention_route = config.attention_route
         # Replay each layer's forward in the backward, keeping what the
         # policy names (the JAX ``nn.remat(..., policy=...)``); both are set
         # by the train setup.
@@ -815,11 +846,13 @@ class Encoder(nn.Module):
         x = _dropout(x, self.rate, None if rnd is None else rnd.encoder)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
         names = remat_names(self.remat_policy) if remat else frozenset()
+        # o and lse go together only where the attention's backward reads lse.
+        groups = (_CTX_LSE,) if self.attention_route in ("stats_v3", "stats_v2") else ()
         for i, layer in enumerate(self.layers):
             seeds = None if rnd is None else rnd.layers[i]
             if remat:
-                x = torch.utils.checkpoint.checkpoint(layer, x, pad_mask, seeds, _Remat(names),
-                                                      use_reentrant=False)
+                x = torch.utils.checkpoint.checkpoint(layer, x, pad_mask, seeds,
+                                                      _Remat(names, groups), use_reentrant=False)
             else:
                 x = layer(x, pad_mask, seeds)
         return _layer_norm(x, self.layer_norm, self.dtype)

@@ -157,14 +157,16 @@ class WhisperConfig(FFNBlockVariant):
     # The FFN (``ffn_route``): its fused kernels (True) or LayerNorm, fc1,
     # GELU (+ dropout) and fc2 apart (False); with the kernels, the whole FFN
     # as the LN-folded block (fused_ffn_block) or fc1 alone, with the
-    # LayerNorm folded in (fused_ffn_ln) or apart, and fc2 a product.
-    fused_ffn: bool = True
-    fused_ffn_ln: bool = True
-    fused_ffn_block: bool = True
-    # The block's variant (``ffn_variant``), at the setup's defaults.
+    # LayerNorm folded in (fused_ffn_ln) or apart, and fc2 a product. The
+    # JAX dataclass's defaults (coral_tpu/models/whisper.py:100-113); the
+    # setup passes the JAX setup's (all true but the block's dw and fc2).
+    fused_ffn: bool = False
+    fused_ffn_ln: bool = False
+    fused_ffn_block: bool = False
+    # The block's variant (``ffn_variant``).
     fused_ffn_block_dw: bool = False
     fused_ffn_block_fc2: bool = False
-    fused_ffn_block_dg: bool = True
+    fused_ffn_block_dg: bool = False
 
     @property
     def head_dim(self) -> int:

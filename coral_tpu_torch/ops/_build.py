@@ -56,12 +56,17 @@ _SIGNATURES = {
     # T_out, C, K, row_blocks, chunk, n_chunks, stream
     "coral_conv_ln_gelu_bwd": [_P] * 11 + [_I] * 8 + [_P],
     # q, k, v, bq, bk, bv, key_bias, o, lse, B, T, H, head_dim, stride_b,
-    # stride_t, scale, stream
-    "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
+    # stride_t, scale, v1, stream (bq null: without biases; lse null: o alone;
+    # v1: the v1 forward)
+    "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _LL, _LL, _F, _I, _P],
     # q, k, v, bq, bk, bv, key_bias, do, lse, o, dq, dk, dv, db_part, B, T, H,
     # head_dim, stride_b, stride_t, stride_d, scale, sm_scale, stream (bq null:
-    # the kernels without biases, for both)
+    # the kernels without biases)
     "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _LL, _LL, _LL, _F, _F, _P],
+    # q, k, v, key_bias, do, lse, o, m, l, delta, dq, dk, dv, B, T, H,
+    # head_dim, stride_b, stride_t, stride_d, scale, sm_scale, mode, stream
+    # (the backwards with a per-row pre-pass, csrc/attention_rows.cu)
+    "coral_attention_bwd_rows": [_P] * 13 + [_I, _I, _I, _I, _LL, _LL, _LL, _F, _F, _I, _P],
     # x, w1, b1, gamma, beta, seeds, g, M, D, F, T, threshold, scale, eps,
     # stream
     "coral_ffn_ln_fwd": [_P] * 7 + [_LL, _I, _I, _I, _U, _F, _F, _P],

@@ -13,11 +13,13 @@ unfused FFN; the models take the FFN route those flags select
 (``ffn_route``), and on the LayerNorm-folded block's route, the only one
 where the JAX models read them, the block's variant flags
 (``fused_ffn_block_dw``, ``_fc2``, ``_dg``: ``ffn_variant``); wav2vec2's
-``attention_impl`` takes ``pallas``, ``flash`` or ``xla``, ``fused_qkv_ln``
-folds the pre-attention LayerNorm into the packed QKV projection on any of
-them, and ``attention_fused_qkv_bias`` defaults to true only for ``pallas``
-(with the v3 stats and no ``fused_qkv_ln``); false runs the v3 attention
-without in-kernel biases. ``WhisperSetup`` (:440-628):
+``attention_impl`` takes ``pallas``, ``flash`` or ``xla``; on ``pallas``
+``attention_save_stats`` (default ``v3``; false, true, ``v2``) and
+``attention_o_residual`` pick the attention kernels' route,
+``fused_qkv_ln`` folds the pre-attention LayerNorm into the packed QKV
+projection on any of them, and ``attention_fused_qkv_bias`` defaults to true
+only for ``pallas`` with the v3 stats and no ``fused_qkv_ln``; false runs the
+v3 attention without in-kernel biases. ``WhisperSetup`` (:440-628):
 ``_infer_arch``, the tokenizer, the model config from the YAML surface with
 the JAX setup's kernel flags and its remat policy by width, the training
 fields, ``init_params``, the greedy ``make_predictor`` and
@@ -71,15 +73,13 @@ _W2V2_ARCHS: dict[str, Callable[..., Wav2Vec2Config]] = {
 # route for (coral_tpu/training/model_setup.py): any other value raises, as
 # the JAX package's own trap rule asks (tests/test_model_setup_traps.py): it
 # must not run a path other than the one configured. attention_impl,
-# attention_fused_qkv_bias, fused_qkv_ln, fused_ffn, fused_ffn_ln,
-# fused_ffn_block and the block's variants are resolved instead, raising as
-# the JAX setup and model do for the pairs that contradict each other
-# (``_w2v2_kernel_flags``), and
+# attention_save_stats, attention_o_residual, attention_fused_qkv_bias,
+# fused_qkv_ln, fused_ffn, fused_ffn_ln, fused_ffn_block and the block's
+# variants are resolved instead, raising as the JAX setup and model do for
+# the pairs that contradict each other (``_w2v2_kernel_flags``), and
 # pos_conv_fold is absent because both of its values are the same math, which
 # the port computes as a plain grouped conv.
 _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
-    "attention_save_stats": "v3",
-    "attention_o_residual": False,
     "fused_fe_conv": True,
     "encoder_ln_impl": "pallas",
     "do_stable_layer_norm": True,
@@ -135,13 +135,14 @@ def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> dict[str, bool]:
 
 
 def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
-    """The wav2vec2 model's routes (attention_impl, fused_qkv_ln, the q/k/v
-    biases and the FFN's flags) as the JAX setup resolves them
-    (coral_tpu/training/model_setup.py:127-217); raises as the JAX setup does
-    for a LayerNorm fold without the pre-LN encoder, as the JAX model does
-    (coral_tpu/models/wav2vec2.py:494-530) for in-kernel q/k/v biases with
-    fused_qkv_ln or off the pallas route (``Wav2Vec2Config``), and for a flag
-    whose route the port lacks."""
+    """The wav2vec2 model's routes (attention_impl, the attention's stats and
+    o residual, fused_qkv_ln, the q/k/v biases and the FFN's flags) as the
+    JAX setup resolves them (coral_tpu/training/model_setup.py:127-217);
+    raises as the JAX setup does for a LayerNorm fold without the pre-LN
+    encoder, as the JAX model does (coral_tpu/models/wav2vec2.py:494-530) for
+    in-kernel q/k/v biases with fused_qkv_ln, off the pallas route or with
+    stats other than "v3" (``Wav2Vec2Config``), and for a flag whose route
+    the port lacks."""
     qkv_ln = bool(model_cfg.get("fused_qkv_ln", False))
     if qkv_ln and not bool(model_cfg.get("do_stable_layer_norm", True)):
         raise ValueError(
@@ -149,12 +150,14 @@ def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
             "(pre-LN, the XLS-R architecture); set fused_ffn_ln=false "
             "and fused_qkv_ln=false for post-LN configs.")
     _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
-    # Unset, the config takes the JAX setup's default: true where its
-    # prerequisites hold (pallas, the v3 stats, the only ones the check above
-    # lets through, and no fused_qkv_ln).
-    qkv_bias = model_cfg.get("attention_fused_qkv_bias")
-    return dict(attention_impl=model_cfg.get("attention_impl", "pallas"), fused_qkv_ln=qkv_ln,
-                attention_fused_qkv_bias=None if qkv_bias is None else bool(qkv_bias),
+    impl = model_cfg.get("attention_impl", "pallas")
+    stats = model_cfg.get("attention_save_stats", "v3")
+    # Unset, the in-kernel biases are on where their prerequisites hold.
+    qkv_bias = model_cfg.get("attention_fused_qkv_bias",
+                             impl == "pallas" and stats == "v3" and not qkv_ln)
+    return dict(attention_impl=impl, attention_save_stats=stats,
+                attention_o_residual=bool(model_cfg.get("attention_o_residual", False)),
+                fused_qkv_ln=qkv_ln, attention_fused_qkv_bias=bool(qkv_bias),
                 **_fused_ffn_flags(model_cfg))
 
 
@@ -293,8 +296,9 @@ class Wav2Vec2Setup:
                 "save_attn_ctx (the FFN block emits no 'ffn_act' checkpoint)."
             )
         if (self.remat_policy in ("save_attn_ctx", "save_ctx_act")
+                and self.model_config.attention_save_stats
                 and self.model_config.attention_impl == "pallas"):
-            # The v3 attention's backward reads its lse, which these policies
+            # The stats routes' backward reads their lse, which these policies
             # do not save, so the replay runs the attention forward again.
             logger.warning(
                 f"remat_policy={self.remat_policy} with attention_save_stats "

@@ -44,7 +44,8 @@ from coral_tpu_torch.ops.gelu_poly import gelu_poly
 from coral_tpu_torch.training.train_state import ctc_loss_and_grads
 from test_torch_ffn_routes import _grad, _inputs, _port_leaves, _rel
 from test_torch_train import BLANK, FE_ARCH, QUIET, VOCAB, _batch, _steps_match_jax
-from test_torch_wav2vec2 import ARCHS, LENGTHS, N_SAMPLES, PRODUCTION_FLAGS, _seeded_params
+from test_torch_wav2vec2 import (ARCHS, LENGTHS, N_SAMPLES, PORT_FLAGS, PRODUCTION_FLAGS,
+                                 _seeded_params)
 from test_torch_whisper import NARROW, SETUP_FLAGS
 from test_torch_whisper import _seeded_params as whisper_params
 from test_torch_whisper_train import _steps_match_jax as whisper_steps_match_jax
@@ -170,7 +171,8 @@ def test_wav2vec2_model_matches_jax(variant):
     audio = np.random.default_rng(1).standard_normal((3, N_SAMPLES)).astype(np.float32)
     want, _ = jax_model.apply({"params": params}, jnp.asarray(audio), jnp.asarray(LENGTHS),
                               deterministic=True)
-    model = Wav2Vec2ForCTC(Wav2Vec2Config(**ARCHS["narrow"], **CONFIG_FLAGS[variant])).eval()
+    model = Wav2Vec2ForCTC(Wav2Vec2Config(**ARCHS["narrow"],
+                                          **{**PORT_FLAGS, **CONFIG_FLAGS[variant]})).eval()
     assert model.config.ffn_variant == variant
     model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
     with torch.inference_mode():
@@ -186,8 +188,8 @@ def test_wav2vec2_train_step_matches_jax(variant):
     jax_model = JaxModel(JaxConfig.tiny(vocab_size=VOCAB, **flags, **QUIET),
                          gradient_checkpointing=True, remat_policy="nothing_saveable")
     params = _seeded_params(jax_model, seed=0)
-    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB, **CONFIG_FLAGS[variant],
-                                               **QUIET))
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB,
+                                               **{**PORT_FLAGS, **CONFIG_FLAGS[variant]}, **QUIET))
     model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
     model.wav2vec2.encoder.gradient_checkpointing = True
     model.wav2vec2.encoder.remat_policy = "nothing_saveable"
@@ -200,7 +202,7 @@ def test_whisper_training_forward_matches_jax(variant):
     JAX FFN kernels in interpret mode, encoder and decoder) against JAX
     ``forward``, and ``encode``."""
     jc = JW.WhisperConfig(**NARROW, **{**SETUP_FLAGS, **CONFIG_FLAGS[variant]})
-    pc = PW.WhisperConfig(**NARROW, **CONFIG_FLAGS[variant])
+    pc = PW.WhisperConfig(**NARROW, **{**SETUP_FLAGS, **CONFIG_FLAGS[variant]})
     assert pc.ffn_variant == variant
     params = whisper_params(jc, seed=1)
     rng = np.random.default_rng(2)
@@ -224,7 +226,8 @@ def test_whisper_train_step_matches_jax(variant):
     and SpecAugment off, save_matmul_inputs)."""
     jc = JW.WhisperConfig.tiny_test(vocab_size=300, **{**SETUP_FLAGS, **CONFIG_FLAGS[variant]},
                                     **QUIET)
-    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **CONFIG_FLAGS[variant], **QUIET)
+    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **{**SETUP_FLAGS, **CONFIG_FLAGS[variant]},
+                                    **QUIET)
     whisper_steps_match_jax(jc, pc)
 
 
@@ -263,7 +266,8 @@ def test_wav2vec2_replay_runs_no_block_forward(variant, monkeypatch):
     for remat in (True, False):
         torch.manual_seed(0)  # the same initial weights each time
         model = Wav2Vec2ForCTC(Wav2Vec2Config(
-            vocab_size=VOCAB, **FE_ARCH, **CONFIG_FLAGS[variant], activation_dropout=0.1,
+            vocab_size=VOCAB, **FE_ARCH, **{**PORT_FLAGS, **CONFIG_FLAGS[variant]},
+            activation_dropout=0.1,
             hidden_dropout=0.1, mask_feature_length=8))
         torch.nn.init.uniform_(model.wav2vec2.masked_spec_embed)
         model.wav2vec2.encoder.gradient_checkpointing = remat
@@ -287,8 +291,8 @@ def test_whisper_replay_runs_no_block_forward(variant, monkeypatch):
     block's forward and backward once a layer in both stacks."""
     calls = _spy(monkeypatch, SPIED)
     jc = JW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS)
-    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **CONFIG_FLAGS[variant], dropout=0.1,
-                                    mask_feature_length=8)
+    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **{**SETUP_FLAGS, **CONFIG_FLAGS[variant]},
+                                    dropout=0.1, mask_feature_length=8)
     params = whisper_params(jc, seed=0)
     rng = np.random.default_rng(1)
     feats = torch.from_numpy(rng.standard_normal((2, 200, 80)).astype(np.float32))

@@ -47,7 +47,8 @@ from coral_tpu_torch.ops.gelu_poly import gelu_poly
 from coral_tpu_torch.training.model_setup import load_model_setup
 from coral_tpu_torch.training.train_state import ctc_loss_and_grads
 from test_torch_train import BLANK, CHARS, FE_ARCH, QUIET, VOCAB, _batch, _steps_match_jax
-from test_torch_wav2vec2 import ARCHS, LENGTHS, N_SAMPLES, PRODUCTION_FLAGS, _seeded_params
+from test_torch_wav2vec2 import (ARCHS, LENGTHS, N_SAMPLES, PORT_FLAGS, PRODUCTION_FLAGS,
+                                 _seeded_params)
 from test_torch_whisper import NARROW, SETUP_FLAGS
 from test_torch_whisper import _seeded_params as whisper_params
 from test_torch_whisper_train import _steps_match_jax as whisper_steps_match_jax
@@ -183,7 +184,8 @@ def test_wav2vec2_model_matches_jax(pair):
     audio = np.random.default_rng(1).standard_normal((3, N_SAMPLES)).astype(np.float32)
     want, _ = jax_model.apply({"params": params}, jnp.asarray(audio), jnp.asarray(LENGTHS),
                               deterministic=True)
-    model = Wav2Vec2ForCTC(Wav2Vec2Config(**ARCHS["narrow"], **PAIRS[pair])).eval()
+    model = Wav2Vec2ForCTC(Wav2Vec2Config(**ARCHS["narrow"],
+                                          **{**PORT_FLAGS, **PAIRS[pair]})).eval()
     assert model.config.ffn_route == W2V2_ROUTES[pair]
     model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
     plain = Wav2Vec2ForCTC(model.config, plain=True).eval()
@@ -204,7 +206,8 @@ def test_wav2vec2_train_step_matches_jax(pair):
     jax_model = JaxModel(JaxConfig.tiny(vocab_size=VOCAB, **flags, **QUIET),
                          gradient_checkpointing=True, remat_policy="save_ctx_act")
     params = _seeded_params(jax_model, seed=0)
-    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB, **PAIRS[pair], **QUIET))
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB, **{**PORT_FLAGS, **PAIRS[pair]},
+                                               **QUIET))
     model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
     model.wav2vec2.encoder.gradient_checkpointing = True
     model.wav2vec2.encoder.remat_policy = "save_ctx_act"
@@ -217,7 +220,7 @@ def test_whisper_training_forward_matches_jax(pair):
     JAX FFN kernels in interpret mode, encoder and decoder) against JAX
     ``forward``; ``fused_ffn_ln: false`` alone keeps the block."""
     jc = JW.WhisperConfig(**NARROW, **{**SETUP_FLAGS, **PAIRS[pair]})
-    pc = PW.WhisperConfig(**NARROW, **PAIRS[pair])
+    pc = PW.WhisperConfig(**NARROW, **{**SETUP_FLAGS, **PAIRS[pair]})
     assert pc.ffn_route == WHISPER_ROUTES[pair]
     params = whisper_params(jc, seed=1)
     rng = np.random.default_rng(2)
@@ -240,7 +243,7 @@ def test_whisper_train_step_matches_jax(pair):
     """Three steps of both packages' seq2seq step (tiny_test, fp32, dropout
     and SpecAugment off, save_matmul_inputs) on the fc1 routes."""
     jc = JW.WhisperConfig.tiny_test(vocab_size=300, **{**SETUP_FLAGS, **PAIRS[pair]}, **QUIET)
-    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **PAIRS[pair], **QUIET)
+    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **{**SETUP_FLAGS, **PAIRS[pair]}, **QUIET)
     whisper_steps_match_jax(jc, pc)
 
 
@@ -279,7 +282,7 @@ def test_wav2vec2_policies_keep_the_bits(pair, policy, monkeypatch):
     for remat in (True, False):
         torch.manual_seed(0)  # the same initial weights each time
         model = Wav2Vec2ForCTC(Wav2Vec2Config(
-            vocab_size=VOCAB, **FE_ARCH, **PAIRS[pair], activation_dropout=0.1,
+            vocab_size=VOCAB, **FE_ARCH, **{**PORT_FLAGS, **PAIRS[pair]}, activation_dropout=0.1,
             hidden_dropout=0.1, mask_feature_length=8))
         torch.nn.init.uniform_(model.wav2vec2.masked_spec_embed)
         model.wav2vec2.encoder.gradient_checkpointing = remat
@@ -306,7 +309,7 @@ def test_whisper_policies_keep_the_bits(pair, policy, monkeypatch):
     stacks."""
     calls = _count_fc1(monkeypatch)
     jc = JW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS)
-    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **PAIRS[pair], dropout=0.1,
+    pc = PW.WhisperConfig.tiny_test(vocab_size=300, **{**SETUP_FLAGS, **PAIRS[pair]}, dropout=0.1,
                                     mask_feature_length=8, remat_policy=policy)
     params = whisper_params(jc, seed=0)
     rng = np.random.default_rng(1)
@@ -442,14 +445,18 @@ def test_kernel_widths_name_the_route():
     from coral_tpu_torch.training.model_setup import check_kernel_widths
 
     for pair in PAIRS.values():
-        names = [w[0] for w in wav2vec2.kernel_widths(Wav2Vec2Config(**pair))]
-        assert any(Wav2Vec2Config(**pair).ffn_route in n for n in names)
-        check_kernel_widths(Wav2Vec2Config.xls_r_2b(**pair))
-    names = [w[0] for w in PW.kernel_widths(PW.WhisperConfig.large_v3(**PAIRS["both_false"]))]
+        flags = {**PORT_FLAGS, **pair}
+        names = [w[0] for w in wav2vec2.kernel_widths(Wav2Vec2Config(**flags))]
+        assert any(Wav2Vec2Config(**flags).ffn_route in n for n in names)
+        check_kernel_widths(Wav2Vec2Config.xls_r_2b(**flags))
+    names = [w[0] for w in PW.kernel_widths(
+        PW.WhisperConfig.large_v3(**{**SETUP_FLAGS, **PAIRS["both_false"]}))]
     assert not any("LayerNorm" in n for n in names)
-    names = [w[0] for w in PW.kernel_widths(PW.WhisperConfig.large_v3(fused_ffn_block=False))]
+    names = [w[0] for w in PW.kernel_widths(
+        PW.WhisperConfig.large_v3(**{**SETUP_FLAGS, "fused_ffn_block": False}))]
     assert any("LayerNorm" in n for n in names)
     with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
         check_kernel_widths(Wav2Vec2Config(hidden_size=640, num_attention_heads=10,
-                                           intermediate_size=2560, **PAIRS["both_false"]))
+                                           intermediate_size=2560,
+                                           **{**PORT_FLAGS, **PAIRS["both_false"]}))
     assert dataclasses.replace(PW.WhisperConfig(), fused_ffn=False).ffn_route == "unfused"

@@ -34,6 +34,12 @@ its backward's dq, dk and dv as the other gradients; the decode kernels at
 composition) rounds them to bf16 before p @ v: at most 2**-9 of each term,
 summed over keys whose weights add to 1.
 
+The attention's other routes (``save_stats`` false, with ``o_residual``,
+true and "v2") at head_dim 64, 80 and 120 as the v3 kernels, on separate and
+packed q, k, v; the fully padded row gets no gradient on the stats routes and
+the uniform average's on the others; the forward without stats writes the v2
+forward's o bit for bit.
+
 The unfused routes: the flash kernels with segment ids as the unmasked ones,
 against the plain versions through the padded call; the GELU+dropout kernel
 at rtol 2**-6 and atol 1e-2 as the other row kernels, its masks exact.
@@ -59,6 +65,10 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 RTOL_BF16 = 2.0**-6
+# The kernel flags the setups resolve by default (the model config's own
+# defaults are the JAX dataclass's).
+SETUP_FLAGS = dict(attention_save_stats="v3", attention_fused_qkv_bias=True, fused_ffn=True,
+                   fused_ffn_ln=True, fused_ffn_block=True, fused_ffn_block_dg=True)
 
 
 def _np(*shape, seed, scale=1.0, offset=0.0):
@@ -169,7 +179,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 def test_ffn_of_a_width_the_kernel_does_not_take_raises_on_the_card(cuda):
     """The tiny config's 32-wide FFN: the model calls the kernel's wrapper,
     which raises on the card rather than running the plain version."""
-    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny()).to(cuda).eval()
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(**SETUP_FLAGS)).to(cuda).eval()
     layer = model.wav2vec2.encoder.layers[0]
     x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)
     _build.reset_launch_counts()
@@ -184,7 +194,7 @@ def test_ffn_of_a_width_the_kernel_does_not_take_raises_on_the_card(cuda):
 def test_ffn_routes_of_a_width_the_kernels_do_not_take_raise_on_the_card(cuda, flags):
     """The tiny config's 32-wide FFN on the routes without the block or the
     folded LayerNorm: the wrappers raise on the card, nothing launches."""
-    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(**flags)).to(cuda).eval()
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(**{**SETUP_FLAGS, **flags})).to(cuda).eval()
     layer = model.wav2vec2.encoder.layers[0]
     x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)
     _build.reset_launch_counts()
@@ -808,7 +818,9 @@ def test_attention_kernels_write_nothing_past_a_head(cuda, d):
     o, dq, dk and dv go to buffers one row longer than the output, filled with
     a sentinel, so that the last head of the last row, if it wrote past its d
     columns, would overwrite the sentinel; H = 2, so a head's spill would land
-    in the next head's columns, which the values' match checks."""
+    in the next head's columns, which the values' match checks. The same for
+    the v1 forward and the recomputing backward (the pre-pass and its dkdv
+    and dq kernels)."""
     B, T, H = 2, 70, 2
     q, k, v, bias, mask = _attention_args(cuda, B, T, H, d)
     key_bias = attention._key_bias(mask)
@@ -823,7 +835,7 @@ def test_attention_kernels_write_nothing_past_a_head(cuda, d):
     ptrs = [t.data_ptr() for t in (q, k, v, *bias, key_bias)]
     o_buf, lse = buffer(), torch.empty(B, H, T, device=cuda)
     _build.launch("coral_attention_fwd", "sentinel", *ptrs, o_buf.data_ptr(), lse.data_ptr(),
-                  B, T, H, d, stride_b, stride_t, scale)
+                  B, T, H, d, stride_b, stride_t, scale, 0)
     torch.cuda.synchronize()
     assert (o_buf[n:] == sentinel).all()
     o, _ = attention._fwd(q, k, v, *bias, key_bias, d, d**-0.5)
@@ -840,6 +852,28 @@ def test_attention_kernels_write_nothing_past_a_head(cuda, d):
         assert (g[n:] == sentinel).all()
         assert torch.equal(g[:n].view(B, T, H * d), w)
     assert torch.equal(db_part.sum(dim=(0, 1)), want[3])
+    # The v1 forward and a backward with the per-row pre-pass, without biases.
+    ptrs = [t.data_ptr() for t in (q, k, v)]
+    o_buf = buffer()
+    _build.launch("coral_attention_fwd", "sentinel", *ptrs, None, None, None,
+                  key_bias.data_ptr(), o_buf.data_ptr(), lse.data_ptr(), B, T, H, d, stride_b,
+                  stride_t, scale, 1)
+    torch.cuda.synchronize()
+    assert (o_buf[n:] == sentinel).all()
+    o, lse = attention._fwd(q, k, v, None, None, None, key_bias, d, d**-0.5, "stats")
+    assert torch.equal(o_buf[:n].view(B, T, H * d), o)
+    grads = [buffer() for _ in range(3)]
+    scratch = torch.empty(3, B, H, T, device=cuda)
+    _build.launch("coral_attention_bwd_rows", "sentinel", *ptrs, key_bias.data_ptr(),
+                  do.data_ptr(), None, o.data_ptr(), *(t.data_ptr() for t in scratch),
+                  *(g.data_ptr() for g in grads), B, T, H, d, stride_b, stride_t, H * d, scale,
+                  d**-0.5, 1)
+    torch.cuda.synchronize()
+    want = attention.attention_bwd(q, k, v, None, None, None, key_bias, do, None, o, d, d**-0.5,
+                                   route="attention")
+    for g, w in zip(grads, want[:3]):
+        assert (g[n:] == sentinel).all()
+        assert torch.equal(g[:n].view(B, T, H * d), w)
 
 
 def test_new_widths_are_counted_apart_and_unbuilt_widths_raise(cuda):
@@ -1097,6 +1131,93 @@ def test_packed_attention_autograd_launches_its_kernels(cuda):
     _close_rel(*grads)
 
 
+# The other routes of short_t_attention_flat, by the JAX keywords.
+VARIANT_FLAGS = {"attention": dict(save_stats=False),
+                 "ctx": dict(save_stats=False, o_residual=True),
+                 "stats": dict(save_stats=True), "stats_v2": dict(save_stats="v2")}
+
+
+@pytest.mark.parametrize("d", [64, 80, 120])
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+@pytest.mark.parametrize("route", VARIANT_FLAGS)
+def test_attention_variant_kernels_match_plain(cuda, route, d, packed):
+    """Each route's forward and backward kernels (the backward with its
+    per-row pre-pass) against the plain versions at each head dim, T = 150,
+    padded keys and a fully padded row: the stats routes clamp its lse at
+    -1e25 and give it no gradient; the routes without stats give it the
+    uniform average's nonzero gradients, as the plain version; on packed q, k,
+    v the backward writes one packed gradient."""
+    B, T, H = 3, 150, 2
+    q, k, v, _, mask = _attention_args(cuda, B, T, H, d, packed)
+    fwd, bwd = attention._name("fwd", d, False, route), attention._name("bwd", d, False, route)
+    _build.reset_launch_counts()
+    o, lse = attention.short_t_attention_flat(q, k, v, mask, d, **VARIANT_FLAGS[route])
+    assert _build.launch_counts == {fwd: 1}
+    want_o, want_lse = attention.attention_plain(q, k, v, mask, d, route=route)
+    _close(o, want_o, 8e-3)
+    if route in attention.LSE_ROUTES:
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+        assert (lse[2] == -1e25).all()
+    else:
+        assert lse is None and want_lse is None
+    key_bias = attention._key_bias(mask)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    args = (q, k, v, None, None, None, key_bias, do, lse, o, d, d**-0.5)
+    _build.reset_launch_counts()
+    got = attention.attention_bwd(*args, route=route)
+    assert _build.launch_counts == {bwd: 1} and got[3] is None
+    want = attention.attention_bwd_plain(*args, route=route)
+    for g, wnt in zip(got[:3], want[:3]):
+        _close_rel(g, wnt)
+        if route in attention.LSE_ROUTES:
+            assert not g[2].any()
+        else:
+            assert g[2].float().abs().max() > 0.1 * wnt[2].float().abs().max() > 0
+    if packed:
+        out = torch.full((B, T, 3 * H * d), 7.0, dtype=torch.bfloat16, device=cuda)
+        attention.attention_bwd(*args, out=out, route=route)
+        assert torch.equal(out, torch.cat(got[:3], dim=-1))
+
+
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_forward_without_stats_is_the_v2_forward_bit_for_bit(cuda, d):
+    """The stats-free forward (`_fwd_kernel` :48) is the v2 forward minus the
+    lse store: o bit for bit ``attention_nb``'s."""
+    q, k, v, _, mask = _attention_args(cuda, 3, 150, 2, d)
+    key_bias = attention._key_bias(mask)
+    o, lse = attention._fwd(q, k, v, None, None, None, key_bias, d, d**-0.5, "attention")
+    o_nb, lse_nb = attention._fwd(q, k, v, None, None, None, key_bias, d, d**-0.5, "stats_v2")
+    assert lse is None and lse_nb is not None
+    assert torch.equal(o, o_nb)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+@pytest.mark.parametrize("route", VARIANT_FLAGS)
+def test_attention_variant_autograd_launches_its_kernels(cuda, route, packed):
+    """Each route's autograd Function on the card: one forward and one
+    backward launch, the gradients as the plain Function's."""
+    B, T, H, d = 3, 150, 2, 64
+    q, k, v, _, mask = _attention_args(cuda, B, T, H, d)
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        _build.reset_launch_counts()
+        if packed:
+            leaves = [torch.cat([q, k, v], dim=-1).requires_grad_(True)]
+            o, _ = attention.short_t_attention_packed(*leaves, mask, d, plain=plain,
+                                                      **VARIANT_FLAGS[route])
+        else:
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o, _ = attention.short_t_attention_flat(*leaves, mask, d, plain=plain,
+                                                    **VARIANT_FLAGS[route])
+        o.backward(do)
+        assert _build.launch_counts == ({} if plain else {
+            attention._name(way, d, False, route): 1 for way in ("fwd", "bwd")})
+        grads.append([leaf.grad for leaf in leaves])
+    for g, wnt in zip(*grads):
+        _close_rel(g, wnt)
+
+
 @pytest.mark.parametrize("flags", [{"fused_qkv_ln": True}, {"attention_fused_qkv_bias": False}],
                          ids=["fused_qkv_ln", "qkv_bias_off"])
 def test_qkv_routes_of_a_width_the_kernels_do_not_take_raise_on_the_card(cuda, flags):
@@ -1104,6 +1225,7 @@ def test_qkv_routes_of_a_width_the_kernels_do_not_take_raise_on_the_card(cuda, f
     wrapper raises for head_dim 16; with ``fused_qkv_ln`` the projection takes
     the JAX package's XLA route at width 32 (no kernel in either package)
     before the attention raises. Nothing launches."""
+    flags = {**SETUP_FLAGS, "attention_fused_qkv_bias": False, **flags}
     model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(dtype=torch.bfloat16, **flags)).to(cuda).eval()
     layer = model.wav2vec2.encoder.layers[0]
     x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)

@@ -212,10 +212,7 @@ def test_whisper_and_beam_search_are_rejected(offline_hub):
         setup.make_beam_predictor()
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("attention_save_stats", "v2"), ("attention_save_stats", False),
-    ("encoder_ln_impl", "xla"), ("attention_o_residual", True), ("fused_fe_conv", False),
-])
+@pytest.mark.parametrize("flag,value", [("encoder_ln_impl", "xla"), ("fused_fe_conv", False)])
 def test_off_default_kernel_flags_are_rejected(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
         port_setup.Wav2Vec2Setup(

@@ -51,7 +51,8 @@ from coral_tpu_torch.ops import attention, ffn, ln_gelu
 from coral_tpu_torch.training.model_setup import check_kernel_widths, load_model_setup
 from coral_tpu_torch.training.train_state import ctc_loss_and_grads
 from test_torch_train import BLANK, CHARS, QUIET, VOCAB, _batch
-from test_torch_wav2vec2 import ARCHS, LENGTHS, N_SAMPLES, PRODUCTION_FLAGS, _seeded_params
+from test_torch_wav2vec2 import (ARCHS, LENGTHS, N_SAMPLES, PORT_FLAGS, PRODUCTION_FLAGS,
+                                 _seeded_params)
 
 # One intra-op thread: the suite runs in several processes at once, and
 # OpenMP threads spinning on shared cores slow these small ops tens of times.
@@ -229,7 +230,7 @@ def _narrow(route, **kw):
     the JAX config with the production flags, the port's."""
     flags = {**PRODUCTION_FLAGS, **ROUTES[route]}
     return (JaxConfig(**ARCHS["narrow"], **flags, **kw),
-            Wav2Vec2Config(**ARCHS["narrow"], **ROUTES[route], **kw))
+            Wav2Vec2Config(**ARCHS["narrow"], **{**PORT_FLAGS, **ROUTES[route]}, **kw))
 
 
 @pytest.fixture(scope="module")
@@ -388,15 +389,14 @@ def test_fused_qkv_ln_on_the_xla_and_flash_routes_matches_jax(impl):
     unfused FFN, against JAX's ``fused_qkv_ln`` on its xla route (the flash
     route on the valid frames: JAX's flash route lowers only on a TPU)."""
     flags = dict(fused_qkv_ln=True, fused_ffn=False)
-    jcfg = JaxConfig(**ARCHS["narrow"], **{**PRODUCTION_FLAGS, **flags, "attention_impl": "xla",
-                                          "attention_fused_qkv_bias": False,
-                                          "fused_ffn_ln": False})
+    flags.update(attention_fused_qkv_bias=False, fused_ffn_ln=False)
+    jcfg = JaxConfig(**ARCHS["narrow"], **{**PRODUCTION_FLAGS, **flags, "attention_impl": "xla"})
     params = _seeded_params(JaxModel(jcfg), seed=0)
     audio = np.random.default_rng(1).standard_normal((3, N_SAMPLES)).astype(np.float32)
     want, frames = JaxModel(jcfg).apply({"params": params}, jnp.asarray(audio),
                                         jnp.asarray(LENGTHS), deterministic=True)
-    model = _port_model(params, Wav2Vec2Config(**ARCHS["narrow"], attention_impl=impl,
-                                               **flags)).eval()
+    model = _port_model(params, Wav2Vec2Config(**ARCHS["narrow"], **{
+        **PORT_FLAGS, **flags, "attention_impl": impl})).eval()
     with torch.inference_mode():
         logits, _ = model(torch.from_numpy(audio), torch.from_numpy(LENGTHS).long())
     got, want = logits.numpy(), np.asarray(want)
@@ -475,8 +475,8 @@ def test_fused_qkv_ln_combines_with_every_ffn_route(tmp_path, ffn_flags):
 def test_fused_qkv_ln_refusals_match_jax(tmp_path):
     """The post-LN encoder with the LN fold raises ``ValueError`` in both
     setups; explicit in-kernel biases with it raise in the JAX model and the
-    port's setup; the other attention variants still raise naming their
-    ROADMAP item."""
+    port's setup. (The attention variants with it resolve as the JAX setup's:
+    tests/test_torch_attention_variants.py.)"""
     config = _config(tmp_path, fused_qkv_ln=True, do_stable_layer_norm=False)
     with pytest.raises(ValueError, match="do_stable_layer_norm"):
         jax_load_model_setup(DictConfig(config))
@@ -485,10 +485,6 @@ def test_fused_qkv_ln_refusals_match_jax(tmp_path):
     with pytest.raises(ValueError, match="mutually exclusive"):
         load_model_setup(_config(tmp_path, fused_qkv_ln=True, attention_fused_qkv_bias=True),
                          device="cpu")
-    for flags in ({"attention_save_stats": "v2"}, {"attention_save_stats": False},
-                  {"attention_o_residual": True}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            load_model_setup(_config(tmp_path, fused_qkv_ln=True, **flags), device="cpu")
 
 
 def test_kernel_widths_list_the_packed_projection():
@@ -498,7 +494,7 @@ def test_kernel_widths_list_the_packed_projection():
     anything is built."""
     for arch in (Wav2Vec2Config.xls_r_300m, Wav2Vec2Config.xls_r_1b, Wav2Vec2Config.xls_r_2b):
         for route in ROUTES.values():
-            check_kernel_widths(arch(**route))
+            check_kernel_widths(arch(**{**PORT_FLAGS, **route}))
     names = [w[0] for w in wav2vec2.kernel_widths(Wav2Vec2Config(fused_qkv_ln=True))]
     assert any("packed QKV" in n for n in names)
     with pytest.raises(NotImplementedError, match="packed QKV.*Queue 2 item 3"):
@@ -545,7 +541,7 @@ def test_policies_replay_what_they_do_not_keep(policy, monkeypatch):
     for remat in (policy is not None, False):
         torch.manual_seed(0)  # the same initial weights each time
         model = Wav2Vec2ForCTC(Wav2Vec2Config(
-            vocab_size=VOCAB, **ARCHS["narrow"], **ROUTES["fused_qkv_ln"],
+            vocab_size=VOCAB, **ARCHS["narrow"], **{**PORT_FLAGS, **ROUTES["fused_qkv_ln"]},
             activation_dropout=0.1, hidden_dropout=0.1, mask_feature_length=8))
         torch.nn.init.uniform_(model.wav2vec2.masked_spec_embed)
         model.wav2vec2.encoder.gradient_checkpointing = remat

@@ -49,7 +49,7 @@ from coral_tpu_torch.training import TrainState, create_optimizer, make_ctc_trai
 from coral_tpu_torch.training.model_setup import load_model_setup
 from coral_tpu_torch.training.optimizer import create_learning_rate_schedule
 from coral_tpu_torch.training.train_state import _device_audio, ctc_loss_and_grads
-from test_torch_wav2vec2 import PRODUCTION_FLAGS, _seeded_params
+from test_torch_wav2vec2 import PORT_FLAGS, PRODUCTION_FLAGS, _seeded_params
 
 # One intra-op thread: the suite runs in several processes at once, and
 # OpenMP threads spinning on shared cores slow these small ops tens of times.
@@ -82,7 +82,7 @@ def jax_case():
 
 
 def _port_model(params, **kw):
-    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB, **{**QUIET, **kw}))
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(vocab_size=VOCAB, **{**PORT_FLAGS, **QUIET, **kw}))
     model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
     model.wav2vec2.encoder.gradient_checkpointing = True
     return model
@@ -156,7 +156,8 @@ def fe_params():
 
 
 def _fe_port_model(params, policy="nothing_saveable", **kw):
-    model = Wav2Vec2ForCTC(Wav2Vec2Config(vocab_size=VOCAB, **FE_ARCH, **{**QUIET, **kw}))
+    model = Wav2Vec2ForCTC(Wav2Vec2Config(vocab_size=VOCAB, **FE_ARCH,
+                                          **{**PORT_FLAGS, **QUIET, **kw}))
     model.load_state_dict(wav2vec2_state_dict_from_jax(params, model.config))
     model.wav2vec2.encoder.gradient_checkpointing = True
     model.wav2vec2.encoder.remat_policy = policy

@@ -42,7 +42,8 @@ from coral_tpu_torch.ops import flash_attention, gelu_dropout, gelu_poly, ln_gel
 from coral_tpu_torch.training.model_setup import load_model_setup
 from coral_tpu_torch.training.train_state import ctc_loss_and_grads
 from test_torch_train import BLANK, CHARS, FE_ARCH, QUIET, VOCAB, _batch, _steps_match_jax
-from test_torch_wav2vec2 import ARCHS, LENGTHS, N_SAMPLES, PRODUCTION_FLAGS, _seeded_params
+from test_torch_wav2vec2 import (ARCHS, LENGTHS, N_SAMPLES, PORT_FLAGS, PRODUCTION_FLAGS,
+                                 _seeded_params)
 from test_torch_whisper import NARROW, UNFUSED_FLAGS as WHISPER_UNFUSED
 from test_torch_whisper import _seeded_params as whisper_params
 from test_torch_whisper_train import FLASH_FORWARDS
@@ -166,7 +167,8 @@ def test_gelu_dropout_laws_at_rate_0_1():
 # `fused_ffn: false` (the q/k/v biases in the projections, the FFN unfused).
 UNFUSED_FLAGS = {**PRODUCTION_FLAGS, "attention_impl": "xla", "attention_fused_qkv_bias": False,
                  "fused_ffn": False, "fused_ffn_ln": False}
-PORT_UNFUSED = dict(fused_ffn=False)
+# The same flags on the port's config (attention_impl given apart).
+PORT_UNFUSED = {k: v for k, v in UNFUSED_FLAGS.items() if k in PORT_FLAGS and k != "attention_impl"}
 
 
 @pytest.fixture(scope="module")
@@ -322,21 +324,17 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     ({"attention_impl": "flash", "attention_fused_qkv_bias": True}, ValueError, "requires"),
     ({"attention_impl": "xla", "attention_fused_qkv_bias": True}, ValueError, "requires"),
-    ({"attention_save_stats": True}, NotImplementedError, "item 9"),
-    ({"attention_save_stats": "v2"}, NotImplementedError, "item 9"),
     ({"fused_fe_conv": False}, NotImplementedError, "item 9"),
     ({"do_stable_layer_norm": False}, NotImplementedError, "item 9"),
-    ({"attention_impl": "flash", "attention_save_stats": False}, NotImplementedError, "item 9"),
-    ({"attention_o_residual": True}, NotImplementedError, "item 9"),
     ({"encoder_ln_impl": "xla"}, NotImplementedError, "item 9"),
-    ({"fused_qkv_ln": True, "attention_save_stats": False}, NotImplementedError, "item 9"),
     ({"attention_impl": "softmax"}, ValueError, "attention_impl"),
 ])
 def test_wav2vec2_flags_without_a_route_raise(flags, error, match):
     """The explicit in-kernel biases off the pallas route raise as the JAX
-    model does; the routes the port lacks (the attention variants of K15, the
-    feature encoder's unfused conv, the post-LN encoder) raise naming their
-    ROADMAP item."""
+    model does; the routes the port lacks (the feature encoder's unfused
+    conv, the post-LN encoder, the plain encoder LayerNorm) raise naming their
+    ROADMAP item. The attention variants resolve as the JAX setup's
+    (tests/test_torch_attention_variants.py)."""
     config = {"model": {"architecture": "tiny", "characters_to_keep": CHARS, **flags},
               "max_seconds_per_example": 1.0}
     with pytest.raises(error, match=match):
@@ -392,7 +390,7 @@ def test_whisper_unfused_policies_keep_what_they_kept(policy, monkeypatch):
         monkeypatch.setattr(module, name, lambda *a, _fn=fn, _key=key, **kw: (
             calls.update([_key]), _fn(*a, **kw))[1])
     params = whisper_params(JW.WhisperConfig(**NARROW, **WHISPER_UNFUSED), seed=0)
-    pc = PW.WhisperConfig(**NARROW, fused_ffn=False, dropout=0.1, mask_feature_length=8,
+    pc = PW.WhisperConfig(**NARROW, **WHISPER_UNFUSED, dropout=0.1, mask_feature_length=8,
                           remat_policy=policy)
     rng = np.random.default_rng(1)
     feats = torch.from_numpy(rng.standard_normal((1, 2048, 80)).astype(np.float32))

@@ -14,6 +14,8 @@ the JAX package's own model-parity tests use (tests/test_wav2vec2.py): fp32
 throughout, reductions in another order.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,10 @@ PRODUCTION_FLAGS = dict(
     fused_fe_conv=True, encoder_ln_impl="pallas", fused_ffn=True, fused_ffn_ln=True,
     fused_ffn_block=True, fused_ffn_block_dg=True, pos_conv_fold=True,
 )
+# The same routes on the port's config, whose dataclass (like the JAX one)
+# defaults to others: every field of PRODUCTION_FLAGS the port has.
+PORT_FLAGS = {k: v for k, v in PRODUCTION_FLAGS.items()
+              if k in {f.name for f in dataclasses.fields(Wav2Vec2Config)}}
 ARCHS = {
     "tiny": {},
     "narrow": dict(
@@ -49,7 +55,8 @@ LENGTHS = np.array([N_SAMPLES, 2500, 1], np.int32)  # full, padded, filler row
 
 
 def _port_config(name):
-    return Wav2Vec2Config.tiny() if name == "tiny" else Wav2Vec2Config(**ARCHS[name])
+    return Wav2Vec2Config(**ARCHS[name], **PORT_FLAGS) if name != "tiny" else (
+        Wav2Vec2Config.tiny(**PORT_FLAGS))
 
 
 def _jax_config(name):

@@ -55,11 +55,11 @@ FORCED = [290, 291, 292, 293]
 def _configs(name):
     if name == "tiny_test_unfused":
         return (JW.WhisperConfig.tiny_test(vocab_size=300, **UNFUSED_FLAGS),
-                PW.WhisperConfig.tiny_test(vocab_size=300, fused_ffn=False))
+                PW.WhisperConfig.tiny_test(vocab_size=300, **UNFUSED_FLAGS))
     if name == "tiny_test":
         return (JW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS),
-                PW.WhisperConfig.tiny_test(vocab_size=300))
-    return JW.WhisperConfig(**NARROW, **SETUP_FLAGS), PW.WhisperConfig(**NARROW)
+                PW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS))
+    return JW.WhisperConfig(**NARROW, **SETUP_FLAGS), PW.WhisperConfig(**NARROW, **SETUP_FLAGS)
 
 
 def _seeded_params(config, seed):

@@ -62,11 +62,12 @@ def _rel(got, want):
 def _configs(name, **over):
     if name == "tiny_test_unfused":
         return (JW.WhisperConfig.tiny_test(vocab_size=300, **UNFUSED_FLAGS, **over),
-                PW.WhisperConfig.tiny_test(vocab_size=300, fused_ffn=False, **over))
+                PW.WhisperConfig.tiny_test(vocab_size=300, **UNFUSED_FLAGS, **over))
     if name == "tiny_test":
         return (JW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS, **over),
-                PW.WhisperConfig.tiny_test(vocab_size=300, **over))
-    return JW.WhisperConfig(**NARROW, **SETUP_FLAGS, **over), PW.WhisperConfig(**NARROW, **over)
+                PW.WhisperConfig.tiny_test(vocab_size=300, **SETUP_FLAGS, **over))
+    return (JW.WhisperConfig(**NARROW, **SETUP_FLAGS, **over),
+            PW.WhisperConfig(**NARROW, **SETUP_FLAGS, **over))
 
 
 def _port_model(params, config):

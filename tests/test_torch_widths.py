@@ -33,6 +33,7 @@ import coral_tpu.training.model_setup as jax_setup
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from coral_tpu_torch.ops import attention, ffn, ln_gelu
 from coral_tpu_torch.training import model_setup as port_setup
+from test_torch_wav2vec2 import PORT_FLAGS
 
 # One intra-op thread: the suite runs in several processes at once, and
 # OpenMP threads spinning on shared cores slow these small ops tens of times.
@@ -246,6 +247,6 @@ def test_kernel_width_tables_cover_every_config():
     assert {384, 768, 1920} <= set(ln_gelu.KERNEL_C_BWD[torch.bfloat16])
     assert {80, 120} <= set(attention.KERNEL_HEAD_DIMS)
     for factory in (Wav2Vec2Config.xls_r_300m, Wav2Vec2Config.xls_r_1b, Wav2Vec2Config.xls_r_2b):
-        port_setup.check_kernel_widths(factory())
+        port_setup.check_kernel_widths(factory(**PORT_FLAGS))
     with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        port_setup.check_kernel_widths(Wav2Vec2Config.tiny())
+        port_setup.check_kernel_widths(Wav2Vec2Config.tiny(**PORT_FLAGS))
