@@ -38,6 +38,13 @@ non-zero before the result line is printed:
    each kernel at the other configs' widths: the LN forward at 1280 and 1920,
    the attention forward and backward at head_dim 80 and 120, the FFN's three
    kernels at 384, 512, 768 and 1920, the LN backward at 384, 768 and 1920;
+   the attention backwards beside PyTorch's memory-efficient attention
+   backward with the key or segment mask as its bias, the LN backwards beside
+   ``aten.native_layer_norm_backward``; then the H100 probes
+   (``coral_tpu_torch/tools``): the K3 backward's seven modes at FE blocks 1
+   and 5 (batch 8 x 10 s; ``full`` bit for bit the production backward),
+   each launch timed by CUDA events, and the gelu_cost and lane_reduce
+   kernels' cases, checked at a few steps and timed at the probes' own;
 4. serving: ``transcribe_batch`` on 12 clips of 3-30 s (the second device
    batch is partial, with fully masked filler rows) and ``transcribe`` on a
    45 s clip (long-form windows), with the kernels' launch counts over that
@@ -146,8 +153,17 @@ non-zero before the result line is printed:
    against plain, 2 steps each; (r') ``attention_save_stats: true``: one
    batch, kernel against plain, 2 steps; each with exact launch counts and
    its ms per step beside (c)'s;
-17. a JSON line with every kernel (its launches summed over the counted runs
-   of the main paths), then the last line ``{"ok": true, "device": {...}}``.
+17. the flash route at XLS-R-1B's and -2B's widths: the flash kernels with
+   segment ids at head_dim 80 and 120 checked and timed with the other
+   kernels in phase 3 (8 x 1499 -> 1536 and 8 x 499 -> 512); (s) (g)'s
+   configuration (wav2vec2-medium.yaml) and (s') (f)'s (wav2vec2-large.yaml)
+   with ``attention_impl: flash``: one serving batch through the setup's
+   predictor, the kernel path against the plain path on one microbatch at
+   activation dropout 0.1 (24 of the 48 layers), 2 steps at full depth, each
+   with exact launch counts and its ms per step beside (g)'s and (f)'s;
+18. a JSON line with every kernel (its launches summed over the counted runs
+   of the main paths; the probes' 0), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Numbers are measured in this run and printed beside the card's name and power
 limit. It imports nothing of JAX or of the JAX package, and fails if the port
@@ -381,6 +397,31 @@ SOURCES.update({
                             "coral_tpu/ops/attention_pallas.py:676"),
 })
 TOLERANCE.update({name: TOLERANCE["attention"] for name in ("attention_ns", "attention_v1")})
+# K7 with segment ids at XLS-R-1B's and -2B's head dims (80, 120; 120 padded
+# to 128 in the tiles), the rows of phases (s) and (s').
+for _d in (80, 120):
+    for _k in ("", "_train", "_bwd_dkv", "_bwd_dq"):
+        SOURCES[f"flash_attention_seg{_k}_hd{_d}"] = SOURCES["flash_attention_seg"]
+# The H100 probes (coral_tpu_torch/tools), ports of the three TPU probes in
+# tools/: the K3 backward's modes (`_variant_kernel`, its pallas_call
+# `_bwd_variant` :148), the polynomial epilogues (`_kernel`, `run` :54), the
+# row reductions (`_kernel`, `run` :69). Launched on no main path: 0.
+PROBE_MODES = ("full", "no_vpu", "no_dvec", "no_dw", "no_dx", "no_inter", "mm_only")
+PROBE_GELU = ("probe_gelu_cost_mm", "probe_gelu_cost_poly13", "probe_gelu_cost_poly13_poly17",
+              "probe_gelu_cost_poly7_poly9", "probe_gelu_cost_prng")
+PROBE_LANE = tuple(f"probe_lane_reduce_{m}_{n}" for n in (1, 2, 4) for m in ("vpu", "mxu"))
+SOURCES.update({f"probe_fe_bwd_{m}": ("coral_tpu_torch/csrc/conv_ln_gelu.cu",
+                                      "tools/probe_fe_bwd.py:50") for m in PROBE_MODES})
+SOURCES.update({name: ("coral_tpu_torch/csrc/probe_gelu_cost.cu", "tools/probe_gelu_cost.py:37")
+                for name in PROBE_GELU})
+SOURCES.update({name: ("coral_tpu_torch/csrc/probe_lane_reduce.cu",
+                       "tools/probe_lane_reduce.py:51") for name in PROBE_LANE})
+# The probes' bf16 outputs are fp32 sums and epilogues rounded once, as the
+# FFN's outputs.
+TOLERANCE.update({"probe_gelu_cost": (1e-2, 2.0**-6), "probe_lane_reduce": (1e-2, 2.0**-6)})
+# gelu_cost and lane_reduce are checked at these steps (the probes' widths)
+# and timed at the probes' own (256 and 2048).
+PROBE_CHECK_STEPS = 8
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor cores,
 # fp32 outside them, and device memory. A kernel's bound is the larger of its
 # operations over the rate of their type and its bytes (each input read once,
@@ -637,6 +678,13 @@ VARIANT_PHASES = [(label, {**PRODUCTION_CONFIG, "model": {**PRODUCTION_CONFIG["m
     ("(q')", {"attention_save_stats": False, "attention_o_residual": True}, 0),
     ("(r)", {"attention_save_stats": "v2"}, 0),
     ("(r')", {"attention_save_stats": True}, 1))]
+# Phases (s), (s'): the flash route (K7 with segment ids at head_dim 80 and
+# 120) on XLS-R-1B's and -2B's production fine-tune, (g)'s and (f)'s
+# configurations with `attention_impl: flash`: one served batch through the
+# setup's predictor, kernel vs plain on one microbatch at activation dropout
+# 0.1 (at 24 of the 48 layers, as (f)), 2 steps at full depth.
+FLASH_1B_CONFIG, FLASH_2B_CONFIG = ({**cfg, "model": {**cfg["model"], "attention_impl": "flash"}}
+                                    for cfg in (W2V2_MEDIUM_CONFIG, W2V2_LARGE_CONFIG))
 # Each production step's ms (``production_run``), to set a phase beside (c).
 STEP_MS: dict = {}
 
@@ -912,7 +960,8 @@ def train_kernel_checks(card: str) -> dict:
 
     measure("ln_bwd", lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False),
             lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check,
-            (LN_BWD_OPS * x.numel(), FP32_FLOPS, 3 * nbytes(x) + 3 * nbytes(g)))
+            (LN_BWD_OPS * x.numel(), FP32_FLOPS, 3 * nbytes(x) + 3 * nbytes(g)),
+            layer_norm_bwd_yardstick(x, g, b, dy))
     del x, dy
 
     # The feature encoder's training forward and backward: FE block 1 (k = 3,
@@ -1000,11 +1049,15 @@ def train_kernel_checks(card: str) -> dict:
 
     # Five T x T x 64 products per head (s, dp, dv, dq, dk); outputs dq, dk,
     # dv and the bias sums.
+    heads = [heads_of(t + bb, 16) for t, bb in zip((q, k, v), (bq, bk, bv))]
     measure("attention_bwd", lambda: attention.attention_bwd(*args),
             lambda: attention.attention_bwd_plain(*args), attn_check,
             (5 * 2 * BATCH * 16 * T * T * 64, BF16_FLOPS,
-             nbytes(*args[:10]) + 3 * nbytes(q) + 3 * 1024 * 4))
-    del q, k, v, do, o
+             nbytes(*args[:10]) + 3 * nbytes(q) + 3 * 1024 * 4),
+            sdpa_bwd_yardstick(*heads, heads_of(do, 16),
+                               attention_bias(key_bias[:, None, None, :], (BATCH, 16, T, T)),
+                               0.125))
+    del q, k, v, do, o, heads
 
     # FFN: (8, 499, 1024) -> 4096 at rate 0 and 0.1.
     x = randn(BATCH, T, 1024, offset=0.2, dtype=bf16)
@@ -1795,6 +1848,59 @@ def sdpa_flash_yardsticks(qh, kh, vh, do_h, scale):
     return fwd, bwd
 
 
+def attention_bias(bias, shape) -> torch.Tensor:
+    """The additive ``bias`` (broadcastable to ``shape`` = (B, H, Tq, Tk): a
+    key or segment mask) as the bf16 ``attn_bias`` the memory-efficient
+    kernels take, its rows on storage padded to 16 elements, as SDPA pads a
+    mask for them."""
+    B, H, Tq, Tk = shape
+    full = torch.empty((B, H, Tq, -(-Tk // 16) * 16), dtype=torch.bfloat16, device=bias.device)
+    full[..., :Tk] = bias
+    return full[..., :Tk]
+
+
+def sdpa_bwd_yardstick(qh, kh, vh, do_h, bias, scale):
+    """PyTorch's memory-efficient attention backward
+    (``aten._scaled_dot_product_efficient_attention_backward``: dq, dk and dv
+    in one call) on (B, H, T, d) heads with the additive ``bias``
+    (``attention_bias``), fed its own forward's o and lse: one timed call, or
+    None, with the reason printed, where the installed torch lacks it. The
+    backward rows' yardstick; the port never calls it."""
+    aten = torch.ops.aten
+    try:
+        o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, bias, True, scale=scale)
+
+        def bwd():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                do_h, qh, kh, vh, bias, o, lse, seed, offset, 0.0, [True, True, True, False],
+                scale=scale)
+
+        bwd()
+    except (AttributeError, RuntimeError, TypeError) as err:
+        print(f"  library attention backward: none ({type(err).__name__}: {err})", flush=True)
+        return None
+    return bwd
+
+
+def heads_of(t, H: int):
+    """(B, T, H*d) rows -> (B, H, T, d) heads, a view."""
+    B, T, HD = t.shape
+    return t.view(B, T, H, HD // H).transpose(1, 2)
+
+
+def layer_norm_bwd_yardstick(x, g, b, dy):
+    """``aten.native_layer_norm_backward`` (dx, dgamma, dbeta in one call) on
+    x's rows, with gamma, beta and dy in x's dtype (the kernel also takes an
+    fp32 dy) and the mean and rstd of ``aten.native_layer_norm``: one timed
+    call, the LayerNorm backward rows' yardstick."""
+    C = x.shape[-1]
+    gx, bx, dyx = g.to(x.dtype), b.to(x.dtype), dy.to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], gx, bx, 1e-5)
+    return lambda: torch.ops.aten.native_layer_norm_backward(dyx, x, [C], mean, rstd, gx, bx,
+                                                             [True, True, True])
+
+
 def whisper_train_kernel_checks(card: str) -> dict:
     """Whisper training's kernels against their plain versions at its shapes:
     whisper-large-v3 (d 1280, 20 heads x 64, FFN 5120), 8 x 30 s (T = 1500
@@ -1934,7 +2040,8 @@ def whisper_train_kernel_checks(card: str) -> dict:
 
     measure("ln_bwd_1280", lambda: ln_gelu.ln_bwd(x, g, b, dl, apply_gelu=False),
             lambda: ln_gelu.ln_bwd_plain(x, g, b, dl, apply_gelu=False), ln_check,
-            (LN_BWD_OPS * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(dl) + 4 * nbytes(g)))
+            (LN_BWD_OPS * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(dl) + 4 * nbytes(g)),
+            layer_norm_bwd_yardstick(x, g, b, dl))
     return results
 
 
@@ -2002,7 +2109,8 @@ def width_kernel_checks(card: str) -> dict:
         measure(key, lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=False),
                 lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=False), ln_check,
                 (LN_BWD_OPS * x.numel(), FP32_FLOPS,
-                 2 * nbytes(x) + nbytes(dy) + 4 * nbytes(g)))
+                 2 * nbytes(x) + nbytes(dy) + 4 * nbytes(g)),
+                layer_norm_bwd_yardstick(x, g, b, dy))
     del x, dys, dy
 
     # The attention at XLS-R-1B's and -2B's head dims, 16 heads.
@@ -2057,11 +2165,15 @@ def width_kernel_checks(card: str) -> dict:
             res["ok"] = res["ok"] and masked_zero
             return res
 
+        heads = [heads_of(t + bb, H) for t, bb in zip((q, k, v), (bq, bk, bv))]
         measure(name, lambda: attention.attention_bwd(*args),
                 lambda: attention.attention_bwd_plain(*args), attn_bwd_check,
                 (5 * 2 * BATCH * H * T * T * d, BF16_FLOPS,
-                 nbytes(*args[:10]) + 3 * nbytes(q) + 3 * H * d * 4))
-        del q, k, v, do, o, args
+                 nbytes(*args[:10]) + 3 * nbytes(q) + 3 * H * d * 4),
+                sdpa_bwd_yardstick(*heads, heads_of(do, H),
+                                   attention_bias(key_bias[:, None, None, :], (BATCH, H, T, T)),
+                                   d**-0.5))
+        del q, k, v, do, o, args, heads
 
     # The FFN block: XLS-R-2B (serving T' = 1499, training 499), Whisper tiny,
     # base and small (the encoder's 1500 rows; the decoder's 128 in the backward).
@@ -2505,13 +2617,15 @@ def segment_pairs(ids: torch.Tensor, T: int, keys: int) -> int:
 
 def unfused_kernel_checks(card: str) -> dict:
     """The unfused routes' kernels against their plain versions at their
-    paths' shapes: the flash kernels with segment ids at XLS-R-300M's
-    (8, T, 16, 64), T = 1499 (padded to 1536; the serving clips' second
-    device batch, 4 filler rows of one sample) and T = 499 (padded to 512;
-    the training batch's clips); GELU + dropout at (8, 499, 4096) and
-    Whisper large-v3's (8, 1500, 5120), rate 0.1. Each kernel's row comes
-    from its path's shape; the other shape is checked and timed under a key
-    of its own."""
+    paths' shapes: the flash kernels with segment ids at XLS-R-300M's,
+    -1B's and -2B's (8, T, 16, d), d = 64, 80 and 120, T = 1499 (padded to
+    1536; the serving clips' second device batch, 4 filler rows of one
+    sample) and T = 499 (padded to 512; the training batch's clips), beside
+    SDPA (forwards) and the memory-efficient attention backward (dkv, dq),
+    both with the segment mask; GELU + dropout at (8, 499, 4096) and Whisper
+    large-v3's (8, 1500, 5120), rate 0.1. Each kernel's row comes from its
+    path's shape; the other shape is checked and timed under a key of its
+    own."""
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
     from coral_tpu_torch.ops import flash_attention as fa
     from coral_tpu_torch.ops import gelu_dropout as gd
@@ -2526,77 +2640,89 @@ def unfused_kernel_checks(card: str) -> dict:
 
     results = {}
     measure = functools.partial(_measure, results, card)
-    H, d = 16, 64
+    H = 16
     arch = Wav2Vec2Config()
     serve = np.ones(BATCH, np.int64)
     serve[:4] = [int(s * SR) for s in np.linspace(3.0, 30.0, 12)[BATCH:]]
     train = train_batch(0)[0]["input_lengths"][0]
-    for T, samples in ((1499, serve), (499, train)):
-        frames = torch.as_tensor(arch.feat_extract_output_lengths(samples), device=dev)
-        pad_mask = torch.arange(T, device=dev)[None, :] < frames[:, None]
-        ids = fa.segment_ids(pad_mask)
-        Tp = ids.shape[1]
-        print(f"  flash attention with segment ids: T {T} padded to {Tp}, frame lengths "
-              f"{frames.tolist()}", flush=True)
-        q, k, v = (randn(BATCH, T, H * d).view(BATCH, T, H, d) for _ in range(3))
-        do = randn(BATCH, T, H, d)
-        # The library yardstick: SDPA over the padded (B, H, Tp, d) heads with
-        # the (B, 1, Tp, Tp) boolean segment mask (the padding made outside).
-        heads = [fa._pad_rows(t, Tp).transpose(1, 2) for t in (q, k, v)]
-        same = (ids[:, None, :, None] == ids[:, None, None, :])
-        pairs_fwd, pairs_bwd = segment_pairs(ids, T, Tp), segment_pairs(ids, T, T)
-        io = 4 * nbytes(q) + nbytes(ids)
-        stats = 2 * BATCH * H * T * 4
+    for d in fa.KERNEL_HEAD_DIMS:
+        for T, samples in ((1499, serve), (499, train)):
+            frames = torch.as_tensor(arch.feat_extract_output_lengths(samples), device=dev)
+            pad_mask = torch.arange(T, device=dev)[None, :] < frames[:, None]
+            ids = fa.segment_ids(pad_mask)
+            Tp = ids.shape[1]
+            print(f"  flash attention with segment ids: head_dim {d}, T {T} padded to {Tp}, "
+                  f"frame lengths {frames.tolist()}", flush=True)
+            q, k, v = (randn(BATCH, T, H * d).view(BATCH, T, H, d) for _ in range(3))
+            do = randn(BATCH, T, H, d)
+            # The library yardsticks: SDPA over the padded (B, H, Tp, d) heads
+            # with the (B, 1, Tp, Tp) boolean segment mask (the padding made
+            # outside), and the memory-efficient backward with that mask as
+            # its bias.
+            heads = [fa._pad_rows(t, Tp).transpose(1, 2) for t in (q, k, v)]
+            same = (ids[:, None, :, None] == ids[:, None, None, :])
+            pairs_fwd, pairs_bwd = segment_pairs(ids, T, Tp), segment_pairs(ids, T, T)
+            io = 4 * nbytes(q) + nbytes(ids)
+            stats = 2 * BATCH * H * T * 4
 
-        def key(name):
-            """The row's name at its path's T (serving's for the forward
-            alone, training's for the others), else a key of its own."""
-            path_T = 1499 if name == "flash_attention_seg" else 499
-            return name if T == path_T else f"{name} at T {T}"
+            def key(name):
+                """The row's name at its path's T (serving's for the forward
+                alone, training's for the others), else a key of its own;
+                head dims other than 64 apart, as their launches are."""
+                name = fa._counter(name, ids, d)
+                path_T = 1499 if name.startswith("flash_attention_seg_hd") or \
+                    name == "flash_attention_seg" else 499
+                return name if T == path_T else f"{name} at T {T}"
 
-        def fwd_check():
-            return compare("flash_attention_seg", fa.flash_self_attention(q, k, v, ids),
-                           fa.flash_self_attention_plain(q, k, v, ids))
+            def fwd_check():
+                return compare(key("flash_attention"), fa.flash_self_attention(q, k, v, ids),
+                               fa.flash_self_attention_plain(q, k, v, ids),
+                               key="flash_attention_seg")
 
-        measure(key("flash_attention_seg"), lambda: fa.flash_self_attention(q, k, v, ids),
-                lambda: fa.flash_self_attention_plain(q, k, v, ids), fwd_check,
-                (4 * H * d * pairs_fwd, BF16_FLOPS, io), lambda: sdpa(*heads, attn_mask=same))
+            measure(key("flash_attention"), lambda: fa.flash_self_attention(q, k, v, ids),
+                    lambda: fa.flash_self_attention_plain(q, k, v, ids), fwd_check,
+                    (4 * H * d * pairs_fwd, BF16_FLOPS, io), lambda: sdpa(*heads, attn_mask=same))
 
-        def train_check():
+            def train_check():
+                o, l, m = fa.flash_attention_fwd(q, k, v, ids)
+                want = fa.flash_attention_fwd_plain(*(fa._pad_rows(t, Tp) for t in (q, k, v)),
+                                                    ids)
+                name = key("flash_attention_train")
+                return merge(compare(name, o, want[0][:, :T], key="flash_attention_seg_train"),
+                             *(compare(f"{name} stats", got, w[..., :T],
+                                       key="flash_attention_seg_train stats")
+                               for got, w in ((l, want[1]), (m, want[2]))))
+
+            measure(key("flash_attention_train"), lambda: fa.flash_attention_fwd(q, k, v, ids),
+                    lambda: fa._padded_fwd_plain(q, k, v, ids), train_check,
+                    (4 * H * d * pairs_fwd, BF16_FLOPS, io + stats),
+                    lambda: sdpa(*heads, attn_mask=same))
             o, l, m = fa.flash_attention_fwd(q, k, v, ids)
-            want = fa.flash_attention_fwd_plain(*(fa._pad_rows(t, Tp) for t in (q, k, v)), ids)
-            return merge(compare("flash_attention_seg_train", o, want[0][:, :T]),
-                         compare("flash_attention_seg_train stats", l, want[1][..., :T]),
-                         compare("flash_attention_seg_train stats", m, want[2][..., :T]))
+            args = (q, k, v, o, l, m, do)
+            want = dict(zip(("dq", "dk", "dv"), fa._padded_bwd_plain(*args, ids)))
 
-        measure(key("flash_attention_seg_train"), lambda: fa.flash_attention_fwd(q, k, v, ids),
-                lambda: fa._padded_fwd_plain(q, k, v, ids), train_check,
-                (4 * H * d * pairs_fwd, BF16_FLOPS, io + stats),
-                lambda: sdpa(*heads, attn_mask=same))
-        o, l, m = fa.flash_attention_fwd(q, k, v, ids)
-        args = (q, k, v, o, l, m, do)
-        want = dict(zip(("dq", "dk", "dv"), fa._padded_bwd_plain(*args, ids)))
+            def bwd_check(which):
+                if which == "dkv":
+                    got = dict(zip(("dk", "dv"), fa.flash_attention_bwd_dkv(*args, ids)))
+                else:
+                    got = {"dq": fa.flash_attention_bwd_dq(*args, ids)}
+                return merge(*(compare_grad(f"{key('flash_attention_bwd_' + which)} {n} (T {T})",
+                                            g, want[n], GRAD_FRAC["flash_bwd"])
+                               for n, g in got.items()))
 
-        def bwd_check(which):
-            if which == "dkv":
-                got = dict(zip(("dk", "dv"), fa.flash_attention_bwd_dkv(*args, ids)))
-            else:
-                got = {"dq": fa.flash_attention_bwd_dq(*args, ids)}
-            return merge(*(compare_grad(f"flash_attention_seg_bwd_{which} {n} (T {T})", g,
-                                        want[n], GRAD_FRAC["flash_bwd"])
-                           for n, g in got.items()))
-
-        moved = nbytes(q, k, v, o, do, l, m, ids)
-        measure(key("flash_attention_seg_bwd_dkv"),
-                lambda: fa.flash_attention_bwd_dkv(*args, ids),
-                lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dkv"),
-                (8 * H * d * pairs_bwd, BF16_FLOPS, moved + 2 * nbytes(q)))
-        measure(key("flash_attention_seg_bwd_dq"),
-                lambda: fa.flash_attention_bwd_dq(*args, ids),
-                lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dq"),
-                (6 * H * d * pairs_bwd, BF16_FLOPS, moved + nbytes(q)))
-        del q, k, v, do, heads, same, o, l, m, args, want
-        torch.cuda.empty_cache()
+            moved = nbytes(q, k, v, o, do, l, m, ids)
+            library = sdpa_bwd_yardstick(
+                *heads, fa._pad_rows(do, Tp).transpose(1, 2),
+                attention_bias(torch.where(same, 0.0, float("-inf")), (BATCH, H, Tp, Tp)),
+                d**-0.5)
+            measure(key("flash_attention_bwd_dkv"), lambda: fa.flash_attention_bwd_dkv(*args, ids),
+                    lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dkv"),
+                    (8 * H * d * pairs_bwd, BF16_FLOPS, moved + 2 * nbytes(q)), library)
+            measure(key("flash_attention_bwd_dq"), lambda: fa.flash_attention_bwd_dq(*args, ids),
+                    lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dq"),
+                    (6 * H * d * pairs_bwd, BF16_FLOPS, moved + nbytes(q)), library)
+            del q, k, v, do, heads, same, o, l, m, args, want, library
+            torch.cuda.empty_cache()
 
     # GELU + dropout, rate 0.1: the mask exact (the plain version's Philox bits).
     rate = 0.1
@@ -2631,6 +2757,110 @@ def unfused_kernel_checks(card: str) -> dict:
                 (ops + n, FP32_FLOPS, 3 * nbytes(x) + nbytes(seeds)))
         del x, dy, keep
         torch.cuda.empty_cache()
+    return results
+
+
+def probe_checks(card: str) -> dict:
+    """The H100 probes' kernels against their plain versions, timed beside
+    their bounds: the K3 backward's modes at (c)'s shapes (8 x 10 s, FE block
+    1 for the rows, block 5 under keys of their own), ``full`` bit for bit
+    the production backward's output, each mode's three launches timed by
+    CUDA events; gelu_cost's and lane_reduce's cases checked at
+    ``PROBE_CHECK_STEPS`` and timed at the probes' own steps."""
+    from coral_tpu_torch.ops import conv_ln_gelu
+    from coral_tpu_torch.tools import event_ms
+    from coral_tpu_torch.tools import probe_fe_bwd as pf
+    from coral_tpu_torch.tools import probe_gelu_cost as pg
+    from coral_tpu_torch.tools import probe_lane_reduce as pl
+
+    dev = torch.device("cuda")
+    results = {}
+    measure = functools.partial(_measure, results, card)
+    C = pf.C
+    for layer in (1, 5):
+        B, T_in, T_out, k = pf.layer_shape(layer, 10.0, BATCH)
+        inputs = pf.make_inputs(B, T_in, k, dev)
+        prod = conv_ln_gelu.conv_ln_gelu_bwd(*inputs)
+        floor = pf.floor_flops(B, T_out, k) / BF16_FLOPS * 1e3
+        print(f"  probe fe_bwd: FE block {layer}, B {B}, T_in {T_in}, T_out {T_out}, k {k}; "
+              f"floor {floor:.4f} ms (the JAX probe's 2k products at 989 TFLOP/s bf16)",
+              flush=True)
+        for mode in pf.MODES:
+            name = f"probe_fe_bwd_{mode}" + ("" if layer == 1 else f" layer {layer}")
+
+            def check(mode=mode, name=name):
+                got = pf.bwd_variant(*inputs, mode)
+                want = pf.bwd_variant_plain(*inputs, mode)
+                out = [compare_grad(f"{name} {n}", g, w, GRAD_FRAC[frac]) for n, g, w, frac in
+                       zip(("dx", "dW", "dvec"), got, want, ("conv_bwd", "conv_bwd", "partials"))]
+                res = merge(*out)
+                if mode == "full":
+                    same = all(bool(torch.equal(g, p)) for g, p in zip(got, prod))
+                    print(f"  {name}: conv_ln_gelu_bwd's dx, dW and dvec bit for bit: {same}",
+                          flush=True)
+                    res["ok"] = res["ok"] and same
+                return res
+
+            # The mode's products (dx's k and dW's k of T_out x C x C), its
+            # inputs read once, dx, dW and dvec written.
+            products = {"no_dw": k, "no_dx": k}.get(mode, 2 * k)
+            moved = nbytes(*inputs) + nbytes(inputs[0]) + k * C * C * 4 + 3 * C * 4
+            measure(name, lambda m=mode: pf.bwd_variant(*inputs, m),
+                    lambda m=mode: pf.bwd_variant_plain(*inputs, m), check,
+                    (2.0 * products * B * T_out * C * C, BF16_FLOPS, moved))
+            ms, launches = event_ms(lambda ev, m=mode: pf.bwd_variant(*inputs, m, events=ev),
+                                    REPS, n_events=4)
+            print(f"  {name}: {ms:.4f} ms a call (CUDA events, median of {REPS}): row kernel "
+                  f"{launches[0]:.4f}, dx {launches[1]:.4f}, dW {launches[2]:.4f} ms; "
+                  f"{100 * floor / ms:.2f}% of the floor; {card}", flush=True)
+        del inputs, prod
+        torch.cuda.empty_cache()
+
+    x, w = pg.make_inputs(pg.STEPS, dev)
+    xc = x[:PROBE_CHECK_STEPS]
+    for case, polys, prng in pg.CASES:
+        name = pg.kernel_name(polys, prng)
+
+        def check(polys=polys, prng=prng, name=name):
+            got = pg.gelu_cost(xc, w, polys, prng, seed=3)
+            want = pg.gelu_cost_plain(xc, w, polys, prng, seed=3)
+            res = compare(f"{name} ({PROBE_CHECK_STEPS} steps)", got, want, key="probe_gelu_cost")
+            if prng:
+                same = bool(torch.equal(got == 0, want == 0))
+                kept = float((want != 0).float().mean())
+                print(f"  {name}: zero where the plain Philox mask drops, bit for bit: {same}; "
+                      f"kept {kept:.6f} (15/16 = 0.9375, no rescale)", flush=True)
+                res["ok"] = res["ok"] and same
+            return res
+
+        flops, moved = pg.case_work(pg.STEPS)
+        library = None
+        if not polys and not prng:
+            library = functools.partial(torch.matmul, x.view(-1, pg.D), w.t())
+        measure(name, lambda p=polys, r=prng: pg.gelu_cost(x, w, p, r, seed=3),
+                lambda p=polys, r=prng: pg.gelu_cost_plain(x, w, p, r, seed=3), check,
+                (flops, BF16_FLOPS, moved), library)
+        print(f"  {name} ({case}): {pg.STEPS} steps of ({pg.TB}, {pg.D}) @ ({pg.D}, {pg.F}); "
+              f"{card}", flush=True)
+    del x, w, xc
+    torch.cuda.empty_cache()
+
+    x, w, ones = pl.make_inputs(pl.STEPS, dev)
+    xc = x[:PROBE_CHECK_STEPS]
+    for nred, mode in pl.CASES:
+        name = pl.kernel_name(mode, nred)
+
+        def check(mode=mode, nred=nred, name=name):
+            return compare(f"{name} ({PROBE_CHECK_STEPS} steps)",
+                           pl.lane_reduce(xc, w, ones, mode, nred),
+                           pl.lane_reduce_plain(xc, w, ones, mode, nred), key="probe_lane_reduce")
+
+        flops, moved = pl.case_work(pl.STEPS, mode, nred)
+        measure(name, lambda m=mode, n=nred: pl.lane_reduce(x, w, ones, m, n),
+                lambda m=mode, n=nred: pl.lane_reduce_plain(x, w, ones, m, n), check,
+                (flops, BF16_FLOPS, moved))
+    del x, w, ones, xc
+    torch.cuda.empty_cache()
     return results
 
 
@@ -3066,7 +3296,10 @@ def qkv_case(kernel: str, D: int, T: int, randn):
     # Five T x T x d products per head; the packed dq, dk, dv out.
     work = (5 * 2 * BATCH * H * T * T * hd, BF16_FLOPS,
             nbytes(qkv, key_bias, do, lse, o) + nbytes(qkv))
-    return check, launch, plain, work, None, None, None
+    library = sdpa_bwd_yardstick(*(heads_of(t, H) for t in (q, k, v, do)),
+                                 attention_bias(key_bias[:, None, None, :], (BATCH, H, T, T)),
+                                 scale)
+    return check, launch, plain, work, library, None, None
 
 
 # The packed projection's and the bias-free attention's kernels at their
@@ -3216,7 +3449,10 @@ def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool
                                (o, route in attention.O_ROUTES)) if used]
     work = (5 * 2 * BATCH * H * T * T * d, BF16_FLOPS,
             nbytes(q, k, v, key_bias, do, *reads) + 3 * nbytes(do))
-    return check, launch, plain, work, None
+    library = sdpa_bwd_yardstick(*(heads_of(t, H) for t in (q, k, v, do)),
+                                 attention_bias(key_bias[:, None, None, :], (BATCH, H, T, T)),
+                                 scale)
+    return check, launch, plain, work, library
 
 
 # The K15 kernels at their paths' shapes (XLS-R-300M serving 8 x 1499 rows
@@ -3284,6 +3520,7 @@ def route_launches(cfg, serving: bool) -> dict:
     under save_qk_ctx (o, and the lse where the backward reads it, are kept),
     but twice on v1, whose lse has no name."""
     from coral_tpu_torch.ops import attention, ffn, ln_gelu
+    from coral_tpu_torch.ops.flash_attention import _counter as flash
 
     D, L, F = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
     route = cfg.ffn_route
@@ -3297,7 +3534,7 @@ def route_launches(cfg, serving: bool) -> dict:
         counts = collections.Counter({"ln_gelu": 1, "conv_ln_gelu": 6,
                                       ln: (int(ln_apart) + int(not qkv_ln)) * L})
         if cfg.attention_impl == "flash":
-            counts["flash_attention_seg"] += L
+            counts[flash("flash_attention", True, hd)] += L
         elif cfg.attention_impl == "pallas":
             counts[attn["fwd"]] += L
         if qkv_ln:
@@ -3316,8 +3553,9 @@ def route_launches(cfg, serving: bool) -> dict:
     counts[ln_gelu._name("ln_bwd", D)] += 2 * L
     counts["ln_bwd"] += 1
     if cfg.attention_impl == "flash":
-        counts.update({"flash_attention_seg_train": 2 * L, "flash_attention_seg_bwd_dkv": L,
-                       "flash_attention_seg_bwd_dq": L})
+        counts.update({flash("flash_attention_train", True, hd): 2 * L,
+                       flash("flash_attention_bwd_dkv", True, hd): L,
+                       flash("flash_attention_bwd_dq", True, hd): L})
     elif cfg.attention_impl == "pallas":
         counts.update({attn["fwd"]: (2 if cfg.attention_route == "stats" else 1) * L,
                        attn["bwd"]: L})
@@ -3336,13 +3574,15 @@ def route_launches(cfg, serving: bool) -> dict:
     return dict(+counts)
 
 
-def route_serving(card: str, label: str, config: dict, batches: int, route: str) -> dict:
+def route_serving(card: str, label: str, config: dict, batches: int, route: str,
+                  arch: tuple = (1024, 24)) -> dict:
     """The serving clips of phase 4 (12 clips of 3-30 s in 30 s windows of
     batch 8, the second batch with 4 filler rows of one sample) through
     ``Wav2Vec2Setup.make_predictor`` on ``config``'s routes (the FFN on
-    ``route``), the first ``batches`` device batches: exact launch counts,
-    finite logits of the right shape, the kernel path against the plain path
-    on the last batch, audio-s/s and latency. Returns the launch counts."""
+    ``route``) at ``arch`` (hidden size, layers), the first ``batches`` device
+    batches: exact launch counts, finite logits of the right shape, the
+    kernel path against the plain path on the last batch, audio-s/s and
+    latency. Returns the launch counts."""
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.training.model_setup import GreedyCtcPredictor, load_model_setup
@@ -3357,7 +3597,7 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str)
           f"{cfg.attention_fused_qkv_bias}, LN1 folded into the packed QKV projection: "
           f"{cfg.fused_qkv_ln}), FFN {cfg.ffn_route}, {cfg.dtype}", flush=True)
     if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.ffn_route,
-            cfg.attention_impl) != (1024, 24, torch.bfloat16, route,
+            cfg.attention_impl) != (*arch, torch.bfloat16, route,
                                     config["model"].get("attention_impl", "pallas")):
         fail(f"serving {label}: the setup did not build the configured routes")
     rng = np.random.default_rng(0)
@@ -3423,28 +3663,34 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str)
 
 
 def route_run(card: str, label: str, config: dict, route: str, steps: int,
-              serve_batches: int, compare: bool) -> dict:
-    """Phases (j), (j'), (l), (l'), (n)-(n''): serving through the setup's
-    predictor (``serve_batches`` device batches, none for 0), then ``steps``
-    of (c)'s production step on ``config``'s routes (the FFN on ``route``;
-    the kernel path against the plain path on one microbatch first, when
-    ``compare``); returns the launch counts of the counted runs."""
+              serve_batches: int, compare: bool, arch: tuple = (1024, 24),
+              compare_layers: int | None = None, plain_steps: int | None = None) -> dict:
+    """Phases (j)-(s'): serving through the setup's predictor
+    (``serve_batches`` device batches, none for 0), then ``steps`` of (c)'s
+    production step on ``config``'s routes (the FFN on ``route``) at
+    ``arch`` (hidden size, layers; the kernel path against the plain path on
+    one microbatch first, when ``compare``, at ``compare_layers`` of the
+    layers where given; ``plain_steps`` of the plain path for its time, by
+    default one where ``compare``); returns the launch counts of the counted
+    runs."""
     import tempfile
 
     from coral_tpu_torch.training.model_setup import load_model_setup
 
-    counts = collections.Counter(route_serving(card, label, config, serve_batches, route)
+    counts = collections.Counter(route_serving(card, label, config, serve_batches, route, arch)
                                  if serve_batches else {})
     batch, audio_seconds = train_batch(0)
     if compare:
-        training_compare(card, batch, config, label, activation_dropout=0.1)
+        training_compare(card, batch, config, label, layers=compare_layers,
+                         activation_dropout=0.1)
         torch.cuda.empty_cache()
     cfg = load_model_setup(config, device="cuda").model_config
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, _ = production_run(card, label, with_noise_bank(config, tmp),
                                          route_launches(cfg, serving=False), batch,
-                                         audio_seconds, steps=steps,
-                                         plain_steps=1 if compare else 0,
+                                         audio_seconds, arch=arch, steps=steps,
+                                         plain_steps=(int(compare) if plain_steps is None
+                                                      else plain_steps),
                                          falling=steps >= TRAIN_STEPS)
     counts.update(train_counts)
     torch.cuda.empty_cache()
@@ -3500,8 +3746,9 @@ def main() -> int:
     print(f"kernel checks at the other configs' widths (bf16, batch {BATCH}: XLS-R-1B, -2B, "
           f"Whisper tiny, base, small):", flush=True)
     checks.update(width_kernel_checks(card))
-    print(f"kernel checks of the unfused routes (bf16, batch {BATCH}: XLS-R-300M's flash "
-          f"attention with segment ids, GELU + dropout at F 4096 and 5120):", flush=True)
+    print(f"kernel checks of the unfused routes (bf16, batch {BATCH}: the flash attention with "
+          f"segment ids at XLS-R-300M's, -1B's and -2B's head_dim 64, 80 and 120, GELU + "
+          f"dropout at F 4096 and 5120):", flush=True)
     checks.update(unfused_kernel_checks(card))
     print(f"kernel checks of fc1 without the block or the folded LayerNorm (bf16, batch "
           f"{BATCH}: N1-N4 at XLS-R-300M's and Whisper large-v3's shapes, at D 384 and 1920):",
@@ -3517,6 +3764,11 @@ def main() -> int:
           f"at 1499 rows, the backwards at 499, head_dim 64, 80 and 120):", flush=True)
     checks.update(variant_kernel_checks(card))
     mark("kernel checks")
+    print(f"the H100 probes (bf16: the K3 backward's modes at batch {BATCH} x 10 s, FE blocks 1 "
+          f"and 5; gelu_cost and lane_reduce checked at {PROBE_CHECK_STEPS} steps, timed at "
+          f"the probes' own):", flush=True)
+    checks.update(probe_checks(card))
+    mark("probes")
     bad = [name for name, res in checks.items() if not res["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -3602,16 +3854,28 @@ def main() -> int:
         main_counts.append(route_run(card, label, config, "ffn_ln_block", 2, serve, True))
         mark(f"{label} attention_save_stats: {config['model']['attention_save_stats']}, "
              f"attention_o_residual: {config['model'].get('attention_o_residual', False)}")
-    for label in ("(p)", "(p')", *(phase[0] for phase in VARIANT_PHASES)):
+    # (s), (s'): the flash route at XLS-R-1B's and -2B's head dims.
+    main_counts.append(route_run(card, "(s)", FLASH_1B_CONFIG, "ffn_ln_block", 2, 1, True,
+                                 arch=(1280, 48), compare_layers=XLSR_2B_COMPARE_LAYERS,
+                                 plain_steps=0))
+    mark("(s) XLS-R-1B, attention_impl: flash")
+    main_counts.append(route_run(card, "(s')", FLASH_2B_CONFIG, "ffn_ln_block", 2, 1, True,
+                                 arch=(1920, 48), compare_layers=XLSR_2B_COMPARE_LAYERS,
+                                 plain_steps=0))
+    mark("(s') XLS-R-2B, attention_impl: flash")
+    for label, base in (("(p)", "(c)"), ("(p')", "(c)"),
+                        *((phase[0], "(c)") for phase in VARIANT_PHASES),
+                        ("(s)", "(g)"), ("(s')", "(f)")):
         print(f"training {label} ({card}): {STEP_MS[label]:.3f} ms per optimizer step against "
-              f"(c)'s {STEP_MS['(c)']:.3f} ms in this run ({STEP_MS[label] / STEP_MS['(c)']:.4f}"
+              f"{base}'s {STEP_MS[base]:.3f} ms in this run ({STEP_MS[label] / STEP_MS[base]:.4f}"
               f"x)", flush=True)
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
     if imported:
         fail(f"the port imported jax or the JAX package: {imported[:5]}")
     rows = {name: res for name, res in checks.items() if name in SOURCES}
     counts = {name: sum(c.get(name, 0) for c in main_counts) for name in rows}
-    idle = [name for name, n in counts.items() if n == 0]
+    # The probes run on no main path; every other kernel must have.
+    idle = [name for name, n in counts.items() if n == 0 and not name.startswith("probe_")]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")
 

@@ -1,7 +1,8 @@
 // The short-T attention's shared pieces: tile shapes by head dim, tile loads,
 // the WMMA score product, and the two backward kernels, which
 // `attention.cu` (the v3 backward) and `attention_rows.cu` (the backwards of
-// the other variants) instantiate.
+// the other variants) instantiate; `flash_attention.cu` builds its kernels on
+// the same tiles, loads, score product and row stores.
 //
 // Layout: q, k, v are (B, T, H*d) with strides (stride_b, stride_t, 1), the
 // same for all three; head h is the lane slice h*d .. h*d+d-1 of each row,

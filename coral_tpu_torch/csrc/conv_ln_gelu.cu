@@ -219,15 +219,46 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma,
 //       are summed outside in a fixed order, so dW is deterministic. Rows past
 //       T_out load as zeros on both operands and add nothing.
 // All products are bf16 WMMA with fp32 accumulators, as the forward.
+//
+// Probe modes. Replaces tools/probe_fe_bwd.py `_bwd_variant` (:138, its
+// `pallas_call` :148) -> `_variant_kernel` (:50): the production backward
+// with one phase taken out, so that each phase's cost is the difference to
+// the full backward (and, here, also each launch's own time). The modes are
+// template instantiations of the three launches above:
+//   kFull     the production kernels (the same instantiation the backward
+//             launches);
+//   kNoVpu    the row kernel is a copy da = dy (no dGELU, LayerNorm backward
+//             or dvec); dx and dW as in production;
+//   kNoDvec   the row kernel without its three dvec partial sums;
+//   kNoDw     the dW launch is skipped;
+//   kNoDx     the dx launch is skipped; the row kernel writes da into rows
+//             t < T_out of dx (the dW kernel reads it there), as the TPU
+//             variant writes dx[:, :T_out] = da;
+//   kNoInter  the dx kernel writes the even rows of each 256-pair slab to the
+//             slab's first 256 rows and the odd rows to its last 256, the TPU
+//             variant's two half writes at its 256-row tile, instead of
+//             interleaving them;
+//   mm_only   (`da = dy` without the row mask, then the products) is kNoVpu
+//             here: the loaders already zero every row past T_out, so the
+//             TPU variant's unmasked read has no counterpart.
+// What a mode does not compute is not written: the caller zeroes dvec (kNoVpu,
+// kNoDvec), dW (kNoDw) and dx (kNoDx, kNoInter) where it needs them.
+enum BwdMode { kFull = 0, kNoVpu = 1, kNoDvec = 2, kNoDw = 3, kNoDx = 4, kNoInter = 5,
+               kMmOnly = 6 };
 
 constexpr int kRowWarps = 8;  // rows per block of the row kernel
 
+// da rows go to row (r / T_out) da_rows + r % T_out of da: da_rows = T_out in
+// every mode but kNoDx, where da is dx (da_rows = T_in).
+template <int kMode>
 __global__ void __launch_bounds__(kRowWarps * 32)
     conv_bwd_rows_kernel(const bf16* __restrict__ xhat, const float* __restrict__ rstd,
                          const bf16* __restrict__ dy, const float* __restrict__ gamma,
                          const float* __restrict__ beta, bf16* __restrict__ da,
-                         float* __restrict__ part, long long rows) {
+                         float* __restrict__ part, long long rows, int T_out, int da_rows) {
   constexpr int kPerLane = kC / 32;  // 16: columns h*256 + lane*8 .. +7, h = 0, 1
+  constexpr bool kCopy = kMode == kNoVpu;  // da = dy
+  constexpr bool kDvec = kMode != kNoVpu && kMode != kNoDvec;
   __shared__ float red[3 * kC];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -246,6 +277,17 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 
   for (long long row = (long long)blockIdx.x * kRowWarps + warp; row < rows;
        row += (long long)gridDim.x * kRowWarps) {
+    long long out_row = row;
+    if constexpr (kMode == kNoDx) out_row = (row / T_out) * da_rows + row % T_out;
+    if constexpr (kCopy) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = h * 256 + lane * 8;
+        *reinterpret_cast<uint4*>(da + out_row * kC + col) =
+            *reinterpret_cast<const uint4*>(dy + row * kC + col);
+      }
+      continue;
+    }
     float n[kPerLane], g[kPerLane];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -258,8 +300,10 @@ __global__ void __launch_bounds__(kRowWarps * 32)
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j) {
       g[j] *= coral_dgelu(n[j] * ga[j] + be[j]);  // dh
-      acc_gn[j] += g[j] * n[j];
-      acc_g[j] += g[j];
+      if constexpr (kDvec) {
+        acc_gn[j] += g[j] * n[j];
+        acc_g[j] += g[j];
+      }
       const float dn = g[j] * ga[j];
       sdn += dn;
       sdnn += dn * n[j];
@@ -273,12 +317,13 @@ __global__ void __launch_bounds__(kRowWarps * 32)
       for (int e = 0; e < 8; ++e) {
         const int j = h * 8 + e;
         out[e] = (g[j] * ga[j] - mdn - n[j] * mdnn) * r;
-        acc_da[j] += out[e];
+        if constexpr (kDvec) acc_da[j] += out[e];
       }
-      coral_store8(da + row * kC + h * 256 + lane * 8, out);
+      coral_store8(da + out_row * kC + h * 256 + lane * 8, out);
     }
   }
 
+  if constexpr (!kDvec) return;
   for (int i = threadIdx.x; i < 3 * kC; i += blockDim.x) red[i] = 0.f;
   __syncthreads();
   for (int w = 0; w < kRowWarps; ++w) {
@@ -306,7 +351,11 @@ constexpr int kDxThreads = 256;  // 8 warps: 2 row groups x 4 column groups
 constexpr int kLdDa = kDxBK + 16;
 constexpr int kLdWt = kDxBN + 8;
 
-template <int K>
+// kSplit (kNoInter): the rows of pair s of slab s / 256 go to row 512 (s /
+// 256) + s % 256 (even) and that + 256 (odd), instead of 2s and 2s + 1.
+constexpr int kSlabPairs = 256;
+
+template <int K, bool kSplit = false>
 __global__ void __launch_bounds__(kDxThreads)
     conv_bwd_dx_kernel(const bf16* __restrict__ da, const bf16* __restrict__ w,
                        bf16* __restrict__ dx, int T_in, int T_out) {
@@ -393,7 +442,10 @@ __global__ void __launch_bounds__(kDxThreads)
       for (int jj = 0; jj < 2; ++jj) {
         wmma::store_matrix_sync(cw, par ? od[i][jj] : ev[i][jj], 16, wmma::mem_row_major);
         __syncwarp();
-        const long long row = 2LL * (s0 + wr * 32 + i * 16 + r) + par;
+        const long long pair = s0 + wr * 32 + i * 16 + r;
+        const long long row = kSplit ? 2LL * kSlabPairs * (pair / kSlabPairs) +
+                                           par * kSlabPairs + pair % kSlabPairs
+                                     : 2LL * pair + par;
         if (row < T_in)
           coral_store8(dx + ((long long)b * T_in + row) * kC + n0 + wc * 32 + jj * 16 + c,
                        cw + r * 16 + c);
@@ -408,11 +460,13 @@ constexpr int kWThreads = 256;  // 8 warps: 4 row groups x 2 column groups
 constexpr int kLdT = 128 + 8;
 
 // grid (16 tiles, K taps, B * n_chunks): the partial of tap j over rows
-// t in [c*chunk, (c+1)*chunk) of batch row b.
+// t in [c*chunk, (c+1)*chunk) of batch row b; da holds da_rows rows a batch
+// row (T_out; T_in in kNoDx, where da is dx).
 template <int K>
 __global__ void __launch_bounds__(kWThreads)
     conv_bwd_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ da,
-                       float* __restrict__ part, int T_in, int T_out, int chunk, int n_chunks) {
+                       float* __restrict__ part, int T_in, int T_out, int chunk, int n_chunks,
+                       int da_rows) {
   __shared__ __align__(128) bf16 As[kWBK * kLdT];  // da[t][c_out]: A = da^T, col-major
   __shared__ __align__(128) bf16 Bs[kWBK * kLdT];  // x[2t+j][c_in]
 
@@ -423,7 +477,7 @@ __global__ void __launch_bounds__(kWThreads)
   const int b = p / n_chunks;
   const int t_begin = (p % n_chunks) * chunk;
   const int t_end = min(T_out, t_begin + chunk);
-  const bf16* dab = da + (long long)b * T_out * kC;
+  const bf16* dab = da + (long long)b * da_rows * kC;
   const bf16* xb = x + (long long)b * T_in * kC;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -477,30 +531,71 @@ __global__ void __launch_bounds__(kWThreads)
                               acc[i][jj], kC, wmma::mem_row_major);
 }
 
-template <int K>
+// The backward's three launches in mode kMode; with events (4 cudaEvent_t, the
+// probe's), records events[0] before the row kernel and events[i] after
+// launch i, a skipped launch included.
+template <int K, int kMode>
 int launch_bwd(const void* x, const void* w, const void* gamma, const void* beta,
                const void* xhat, const void* rstd, const void* dy, void* da, void* dx,
                void* dw_part, void* dvec_part, int B, int T_in, int T_out, int row_blocks,
-               int chunk, int n_chunks, cudaStream_t stream) {
-  conv_bwd_rows_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
+               int chunk, int n_chunks, cudaStream_t stream, void* const* events = nullptr) {
+  auto mark = [&](int i) {
+    return events == nullptr ? cudaSuccess
+                             : cudaEventRecord(static_cast<cudaEvent_t>(events[i]), stream);
+  };
+  // kNoDx: da lives in dx's rows t < T_out.
+  bf16* da_buf = static_cast<bf16*>(kMode == kNoDx ? dx : da);
+  const int da_rows = kMode == kNoDx ? T_in : T_out;
+  cudaError_t err = mark(0);
+  if (err != cudaSuccess) return (int)err;
+  conv_bwd_rows_kernel<kMode><<<row_blocks, kRowWarps * 32, 0, stream>>>(
       static_cast<const bf16*>(xhat), static_cast<const float*>(rstd),
       static_cast<const bf16*>(dy), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<bf16*>(da), static_cast<float*>(dvec_part),
-      (long long)B * T_out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int pairs = (T_in + 1) / 2;
-  const dim3 dx_grid((unsigned)((pairs + kDxBM - 1) / kDxBM), kC / kDxBN, (unsigned)B);
-  conv_bwd_dx_kernel<K><<<dx_grid, kDxThreads, 0, stream>>>(
-      static_cast<const bf16*>(da), static_cast<const bf16*>(w), static_cast<bf16*>(dx), T_in,
-      T_out);
+      static_cast<const float*>(beta), da_buf, static_cast<float*>(dvec_part),
+      (long long)B * T_out, T_out, da_rows);
   err = cudaGetLastError();
+  if (err == cudaSuccess) err = mark(1);
   if (err != cudaSuccess) return (int)err;
-  const dim3 dw_grid((kC / kWBM) * (kC / kWBN), K, (unsigned)(B * n_chunks));
-  conv_bwd_dw_kernel<K><<<dw_grid, kWThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(da), static_cast<float*>(dw_part),
-      T_in, T_out, chunk, n_chunks);
-  return (int)cudaGetLastError();
+  if constexpr (kMode != kNoDx) {
+    const int pairs = (T_in + 1) / 2;
+    const dim3 dx_grid((unsigned)((pairs + kDxBM - 1) / kDxBM), kC / kDxBN, (unsigned)B);
+    conv_bwd_dx_kernel<K, kMode == kNoInter><<<dx_grid, kDxThreads, 0, stream>>>(
+        static_cast<const bf16*>(da), static_cast<const bf16*>(w), static_cast<bf16*>(dx), T_in,
+        T_out);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = mark(2);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kMode != kNoDw) {
+    const dim3 dw_grid((kC / kWBM) * (kC / kWBN), K, (unsigned)(B * n_chunks));
+    conv_bwd_dw_kernel<K><<<dw_grid, kWThreads, 0, stream>>>(
+        static_cast<const bf16*>(x), da_buf, static_cast<float*>(dw_part), T_in, T_out, chunk,
+        n_chunks, da_rows);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) err = mark(3);
+  return (int)err;
+}
+
+template <int K>
+int launch_probe(int mode, const void* x, const void* w, const void* gamma, const void* beta,
+                 const void* xhat, const void* rstd, const void* dy, void* da, void* dx,
+                 void* dw_part, void* dvec_part, int B, int T_in, int T_out, int row_blocks,
+                 int chunk, int n_chunks, cudaStream_t s, void* const* events) {
+#define CORAL_PROBE(M)                                                                     \
+  return launch_bwd<K, M>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, \
+                          T_in, T_out, row_blocks, chunk, n_chunks, s, events)
+  switch (mode) {
+    case kFull: CORAL_PROBE(kFull);
+    case kNoVpu:
+    case kMmOnly: CORAL_PROBE(kNoVpu);
+    case kNoDvec: CORAL_PROBE(kNoDvec);
+    case kNoDw: CORAL_PROBE(kNoDw);
+    case kNoDx: CORAL_PROBE(kNoDx);
+    case kNoInter: CORAL_PROBE(kNoInter);
+    default: return -1;
+  }
+#undef CORAL_PROBE
 }
 }  // namespace
 
@@ -534,10 +629,34 @@ extern "C" int coral_conv_ln_gelu_bwd(const void* x, const void* w, const void* 
   if (B <= 0 || T_out <= 0 || row_blocks <= 0 || n_chunks <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K == 2)
-    return launch_bwd<2>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
-                         T_out, row_blocks, chunk, n_chunks, s);
+    return launch_bwd<2, kFull>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B,
+                                T_in, T_out, row_blocks, chunk, n_chunks, s);
   if (K == 3)
-    return launch_bwd<3>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
-                         T_out, row_blocks, chunk, n_chunks, s);
+    return launch_bwd<3, kFull>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B,
+                                T_in, T_out, row_blocks, chunk, n_chunks, s);
+  return -1;
+}
+
+// The backward in probe mode `mode` (BwdMode: 0 full, 1 no_vpu, 2 no_dvec, 3
+// no_dw, 4 no_dx, 5 no_inter, 6 mm_only), arguments as coral_conv_ln_gelu_bwd;
+// events null or 4 cudaEvent_t recorded around the launches. Returns the
+// first cudaError_t that is not 0, or -1 for a mode or shape it was not built
+// for.
+extern "C" int coral_conv_ln_gelu_bwd_probe(int mode, const void* x, const void* w,
+                                            const void* gamma, const void* beta,
+                                            const void* xhat, const void* rstd, const void* dy,
+                                            void* da, void* dx, void* dw_part, void* dvec_part,
+                                            int B, int T_in, int T_out, int C, int K,
+                                            int row_blocks, int chunk, int n_chunks,
+                                            void* const* events, void* stream) {
+  if (C != kC || chunk <= 0 || chunk % kWBK || mode < 0 || mode > kMmOnly) return -1;
+  if (B <= 0 || T_out <= 0 || row_blocks <= 0 || n_chunks <= 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K == 2)
+    return launch_probe<2>(mode, x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part,
+                           B, T_in, T_out, row_blocks, chunk, n_chunks, s, events);
+  if (K == 3)
+    return launch_probe<3>(mode, x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part,
+                           B, T_in, T_out, row_blocks, chunk, n_chunks, s, events);
   return -1;
 }

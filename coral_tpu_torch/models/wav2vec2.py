@@ -289,7 +289,7 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
     attention = {
         "pallas": [(f"head_dim (the attention, {config.attention_route})", head_dim,
                     _attention.KERNEL_HEAD_DIMS)],
-        "flash": [("head_dim (the flash attention)", head_dim, (_flash.KERNEL_HEAD_DIM,))],
+        "flash": [("head_dim (the flash attention)", head_dim, _flash.KERNEL_HEAD_DIMS)],
         "xla": [],
     }[config.attention_impl]
     if config.fused_qkv_ln:

@@ -446,7 +446,7 @@ def kernel_widths(config: WhisperConfig) -> list[tuple[str, float, tuple]]:
                   config.ffn_dim % _gelu_dropout.KERNEL_F_MULTIPLE, (0,))]
     needs += [
         ("encoder head_dim (flash attention)", D / config.encoder_attention_heads,
-         (_flash_attention.KERNEL_HEAD_DIM,)),
+         _flash_attention.KERNEL_HEAD_DIMS),
         ("decoder head_dim (decode attention)", D / config.decoder_attention_heads,
          (_decode_attention.KERNEL_HEAD_DIM,)),
     ]

@@ -55,6 +55,13 @@ _SIGNATURES = {
     # x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
     # T_out, C, K, row_blocks, chunk, n_chunks, stream
     "coral_conv_ln_gelu_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    # mode, then coral_conv_ln_gelu_bwd's arguments up to n_chunks, events (4
+    # cudaEvent_t or null), stream: the probe's modes (tools/probe_fe_bwd.py)
+    "coral_conv_ln_gelu_bwd_probe": [_I] + [_P] * 11 + [_I] * 8 + [_P, _P],
+    # x, w, out, M, D, F, n1, n2, prng, seed, stream (tools/probe_gelu_cost.py)
+    "coral_probe_gelu_cost": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _U, _P],
+    # x, w, ones, out, M, D, mxu, nred, stream (tools/probe_lane_reduce.py)
+    "coral_probe_lane_reduce": [_P] * 4 + [_LL, _I, _I, _I, _P],
     # q, k, v, bq, bk, bv, key_bias, o, lse, B, T, H, head_dim, stride_b,
     # stride_t, scale, v1, stream (bq null: without biases; lse null: o alone;
     # v1: the v1 forward)
@@ -101,11 +108,12 @@ _SIGNATURES = {
     "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
     # emit, skip, valid, lengths, last, out, T, B, S, stream
     "coral_ctc_beta": [_P] * 6 + [_I, _I, _I, _P],
-    # q, k, v, o, m, l, seg, B, T, Tk, H, stride_b, stride_t, scale, stream
-    "coral_flash_attention_fwd": [_P] * 7 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
-    # q, k, v, o, dout, m, l, seg, dq, dk, dv, B, T, Tk, H, stride_b, stride_t,
-    # scale, stream
-    "coral_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _LL, _LL, _F, _P],
+    # q, k, v, o, m, l, seg, B, T, Tk, H, head_dim, stride_b, stride_t, scale,
+    # stream
+    "coral_flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_LL, _LL, _F, _P],
+    # q, k, v, o, dout, m, l, seg, dq, dk, dv, B, T, Tk, H, head_dim, stride_b,
+    # stride_t, scale, stream
+    "coral_flash_attention_bwd": [_P] * 11 + [_I] * 5 + [_LL, _LL, _F, _P],
     # x, dy, out, seeds, B, T, F, threshold, scale, stream
     "coral_gelu_dropout": [_P] * 4 + [_I, _I, _I, _U, _F, _P],
     # q, k, v, mask, part_o, part_ml, out, B, K, n_keys, H, layer, scale, stream

@@ -9,7 +9,10 @@ patched dq kernel) behind the ``custom_vjp`` ``_attention_fwd`` /
 ``_attention_bwd``, whose residuals are ``(q, k, v, o, l, m)``. On a CUDA
 tensor the wrappers launch ``csrc/flash_attention.cu`` on the projections as
 they lie, (B, T, H*d) rows read through their strides, with keys past T masked
-in the kernels; on a CPU tensor they run the plain versions beside them.
+in the kernels; on a CPU tensor they run the plain versions beside them. The
+kernels are built at head_dim 64 (Whisper, XLS-R-300M), 80 (XLS-R-1B) and 120
+(XLS-R-2B, padded to 128 inside the kernels' tiles), ``KERNEL_HEAD_DIMS``; a
+CUDA tensor of another head_dim raises. The plain versions take any d.
 
 m is each query row's max of the scaled scores and l its sum of ``exp(s -
 m)``, both fp32 (B, H, T). The backward is the stock kernel's formula:
@@ -36,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .attention import KERNEL_HEAD_DIMS  # the head dims of attention.cuh's tiles
 
-KERNEL_HEAD_DIM = 64
 # The row grid wav2vec2's flash route pads T to (its block sizes, all 128).
 SEGMENT_BLOCK = 128
 
@@ -134,8 +137,9 @@ def _check(name, q, k, v):
     """Raises unless the kernels take q, k, v; returns (B, T, H, stride_b,
     stride_t)."""
     B, T, H, d = q.shape
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take head_dim {KERNEL_HEAD_DIMS}, got {d} "
+                         "(ROADMAP.md, Queue 2 item 3)")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: the kernel takes bf16 q, k, v")
     for t in (k, v):
@@ -164,12 +168,13 @@ def _check_segments(name, q, segment_ids):
     return segment_ids.data_ptr(), segment_ids.shape[1]
 
 
-def _counter(kernel, segment_ids):
+def _counter(kernel, segment_ids, head_dim):
     """The launch counter's name: the segment-id instantiations apart
-    (``flash_attention_seg_train``)."""
-    if segment_ids is None:
-        return kernel
-    return kernel.replace("flash_attention", "flash_attention_seg", 1)
+    (``flash_attention_seg_train``), and the head dims other than 64 apart
+    (``flash_attention_seg_bwd_dq_hd120``)."""
+    if segment_ids is not None:
+        kernel = kernel.replace("flash_attention", "flash_attention_seg", 1)
+    return kernel if head_dim == 64 else f"{kernel}_hd{head_dim}"
 
 
 def _launch_fwd(name, kernel, q, k, v, stats: bool, segment_ids):
@@ -178,10 +183,11 @@ def _launch_fwd(name, kernel, q, k, v, stats: bool, segment_ids):
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     l, m = ((torch.empty((B, H, T), dtype=torch.float32, device=q.device) for _ in range(2))
             if stats else (None, None))
-    _build.launch(name, _counter(kernel, segment_ids), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), None if m is None else m.data_ptr(),
-                  None if l is None else l.data_ptr(), seg, B, T, Tk, H, stride_b, stride_t,
-                  float(q.shape[-1]) ** -0.5)
+    d = q.shape[-1]
+    _build.launch(name, _counter(kernel, segment_ids, d), q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), None if m is None else m.data_ptr(),
+                  None if l is None else l.data_ptr(), seg, B, T, Tk, H, d, stride_b, stride_t,
+                  float(d) ** -0.5)
     return o, l, m
 
 
@@ -190,9 +196,9 @@ def flash_self_attention(q, k, v, segment_ids=None):
     residuals, no gradient), unmasked or masked by segment ids.
 
     Args:
-        q, k, v: (B, T, H, d); on CUDA bf16 with d = 64, the (H, d) axes of
-            each row contiguous, and the same strides for all three (views of
-            one packed projection are taken as they are).
+        q, k, v: (B, T, H, d); on CUDA bf16 with d in ``KERNEL_HEAD_DIMS``,
+            the (H, d) axes of each row contiguous, and the same strides for
+            all three (views of one packed projection are taken as they are).
         segment_ids: None, or the (B, Tp) int32 ids of the padded call
             (``segment_ids``), Tp >= T, contiguous: rows past T count as zero
             rows.
@@ -229,9 +235,10 @@ def _launch_bwd(name, kernel, q, k, v, o, l, m, do, dq, dk, dv, segment_ids):
     if o.device != q.device:
         raise ValueError(f"{name}: tensors on {o.device} and {q.device}")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _build.launch(name, _counter(kernel, segment_ids), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), seg, ptr(dq),
-                  ptr(dk), ptr(dv), B, T, Tk, H, stride_b, stride_t, float(q.shape[-1]) ** -0.5)
+    d = q.shape[-1]
+    _build.launch(name, _counter(kernel, segment_ids, d), q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), seg,
+                  ptr(dq), ptr(dk), ptr(dv), B, T, Tk, H, d, stride_b, stride_t, float(d) ** -0.5)
 
 
 def flash_attention_bwd_dkv(q, k, v, o, l, m, do, segment_ids=None):

@@ -31,7 +31,8 @@ wav2vec2 training the ``dots_saveable`` policy and
 ``remat_feature_encoder: true``. A setup on the card also refuses, before it
 builds anything, a model width that no kernel on its path was built for
 (``check_kernel_widths``, ROADMAP.md Queue 2 item 3); every config in
-``config/model/`` passes.
+``config/model/`` passes on every route, ``attention_impl`` pallas, flash
+and xla included (the flash kernels are built at head_dim 64, 80 and 120).
 
 Every setup builds its model on ``device``, the card unless the caller asks
 for the CPU; without a card that raises, as torch does.
@@ -166,7 +167,9 @@ def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
     kernel on its path was not built for (ROADMAP.md Queue 2 item 3), so that
     a setup on the card fails before it builds a model, not at the first
     launch. Each model module lists its own routes' widths
-    (``kernel_widths``); the plain versions on the CPU take every width."""
+    (``kernel_widths``); the plain versions on the CPU take every width.
+    Every config of ``config/model/`` passes on every route; a width no
+    config uses (head_dim 96, hidden 896) raises."""
     model_module = wav2vec2 if isinstance(model_config, Wav2Vec2Config) else W
     for what, value, takes in model_module.kernel_widths(model_config):
         if value not in takes:

@@ -41,8 +41,14 @@ the uniform average's on the others; the forward without stats writes the v2
 forward's o bit for bit.
 
 The unfused routes: the flash kernels with segment ids as the unmasked ones,
-against the plain versions through the padded call; the GELU+dropout kernel
-at rtol 2**-6 and atol 1e-2 as the other row kernels, its masks exact.
+against the plain versions through the padded call, at head_dim 64, 80 and
+120; the GELU+dropout kernel at rtol 2**-6 and atol 1e-2 as the other row
+kernels, its masks exact.
+
+The probes (``coral_tpu_torch/tools``): the K3 backward's modes as the
+production backward's gradients (``full`` bit for bit its kernels' output);
+the gelu_cost and lane_reduce kernels' bf16 outputs as the other rounded
+outputs, the mask exact.
 
 The packed QKV projection of ``fused_qkv_ln`` (``ln_dense``, D 1024, 1280 and
 1920, F = 3 D, at 1920 a 128-column tail): y and ln_out as the other rounded
@@ -58,6 +64,7 @@ import torch
 from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
 from coral_tpu_torch.ops import (_build, attention, conv_ln_gelu, ctc, decode_attention, ffn,
                                  flash_attention, gelu_dropout, ln_gelu, philox)
+from coral_tpu_torch.tools import probe_fe_bwd, probe_gelu_cost, probe_lane_reduce
 
 # One intra-op thread: the suite runs in several processes at once, and
 # OpenMP threads spinning on shared cores slow these small ops tens of times.
@@ -956,6 +963,163 @@ def test_flash_attention_segment_kernels_match_plain(cuda, T, lengths):
     flash_attention.flash_attention(*leaves, segment_ids=ids)[0].backward(do)
     for leaf, g in zip(leaves, got):
         assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("d", [80, 120])
+@pytest.mark.parametrize("segments", [False, True], ids=["unmasked", "segment_ids"])
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+def test_flash_attention_kernels_at_xls_r_head_dims_match_plain(cuda, d, segments, packed):
+    """The four flash kernels (the forward, the forward with stats, dkv and
+    dq) at XLS-R-1B's head_dim 80 and -2B's 120 (padded to 128 in the
+    tiles), with segment ids (the training frames 499 -> 512: a full, two
+    padded and a length-1 filler row) and without, on separate tensors and on
+    views of one packed projection; each launch counted under its head dim."""
+    B, T, H = 4, 499, 2
+    tail = f"_hd{d}"
+    ids = None
+    if segments:
+        lengths = torch.tensor((499, 300, 64, 1), device=cuda)
+        ids = flash_attention.segment_ids(torch.arange(T, device=cuda)[None, :] < lengths[:, None])
+    q, k, v = (_np(B, T, H * d, seed=i) for i in range(3))
+    if packed:
+        qkv = _on(cuda, np.concatenate([q, k, v], axis=-1), torch.bfloat16)
+        q, k, v = (t.view(B, T, H, d) for t in qkv.split(H * d, dim=-1))
+    else:
+        q, k, v = (_on(cuda, a, torch.bfloat16).view(B, T, H, d) for a in (q, k, v))
+    base = "flash_attention_seg" if segments else "flash_attention"
+    _build.reset_launch_counts()
+    o_serve = flash_attention.flash_self_attention(q, k, v, segment_ids=ids)
+    o, l, m = flash_attention.flash_attention_fwd(q, k, v, segment_ids=ids)
+    assert _build.launch_counts == {base + tail: 1, f"{base}_train{tail}": 1}
+    want = flash_attention._padded_fwd_plain(q, k, v, ids)
+    _close(o, want[0], 8e-3)
+    assert torch.equal(o, o_serve)
+    torch.testing.assert_close(l, want[1], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(m, want[2], rtol=1e-5, atol=1e-6)
+    do = _on(cuda, _np(B, T, H, d, seed=7), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
+    assert _build.launch_counts == {f"{base}_bwd_dkv{tail}": 1, f"{base}_bwd_dq{tail}": 1}
+    for g, w in zip(got, flash_attention._padded_bwd_plain(q, k, v, o, l, m, do, ids)):
+        assert g.shape == (B, T, H, d) and g.is_contiguous()
+        _close_rel(g, w)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention.flash_attention(*leaves, segment_ids=ids)[0].backward(do)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_flash_attention_kernels_write_nothing_past_a_head(cuda, d):
+    """o, dq, dk and dv of the segment-id kernels go to buffers one head
+    longer than the output, filled with a sentinel: the last head of the last
+    row, if it wrote past its d columns (120 .. 127 of the padded tile at d =
+    120), would overwrite it; with H = 2 a spill of the first head would land
+    in the second's columns, which the values' match checks."""
+    B, T, H = 2, 130, 2
+    ids = flash_attention.segment_ids(torch.arange(T, device=cuda)[None, :]
+                                      < torch.tensor((130, 70), device=cuda)[:, None])
+    q, k, v, do = (_on(cuda, _np(B, T, H, d, seed=i), torch.bfloat16) for i in range(4))
+    n, sentinel = B * T * H * d, 7.0
+
+    def buffer():
+        return torch.full((n + H * d,), sentinel, dtype=torch.bfloat16, device=cuda)
+
+    stride_b, stride_t = q.stride()[:2]
+    ptrs = [t.data_ptr() for t in (q, k, v)]
+    o_buf, l, m = buffer(), torch.empty(B, H, T, device=cuda), torch.empty(B, H, T, device=cuda)
+    _build.launch("coral_flash_attention_fwd", "sentinel", *ptrs, o_buf.data_ptr(), m.data_ptr(),
+                  l.data_ptr(), ids.data_ptr(), B, T, ids.shape[1], H, d, stride_b, stride_t,
+                  float(d) ** -0.5)
+    torch.cuda.synchronize()
+    assert (o_buf[n:] == sentinel).all()
+    o, l2, m2 = flash_attention.flash_attention_fwd(q, k, v, segment_ids=ids)
+    assert torch.equal(o_buf[:n].view(B, T, H, d), o)
+    assert torch.equal(l, l2) and torch.equal(m, m2)
+    grads = [buffer() for _ in range(3)]
+    for dq, dk, dv in ((grads[0], None, None), (None, grads[1], grads[2])):
+        _build.launch("coral_flash_attention_bwd", "sentinel", *ptrs, o.data_ptr(),
+                      do.data_ptr(), m.data_ptr(), l.data_ptr(), ids.data_ptr(),
+                      *(None if g is None else g.data_ptr() for g in (dq, dk, dv)), B, T,
+                      ids.shape[1], H, d, stride_b, stride_t, float(d) ** -0.5)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
+    for g, w in zip(grads, want):
+        assert (g[n:] == sentinel).all()
+        assert torch.equal(g[:n].view(B, T, H, d), w)
+
+
+def test_flash_attention_of_an_unbuilt_head_dim_raises_on_the_card(cuda):
+    """head_dim 96 (no config's) raises, naming the built head dims and Queue
+    2 item 3, and launches nothing; the C entry refuses it too."""
+    _build.reset_launch_counts()
+    q = torch.zeros(1, 130, 2, 96, device=cuda, dtype=torch.bfloat16)
+    ids = torch.ones(1, 256, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(64, 80, 120\).*Queue 2 item 3"):
+        flash_attention.flash_self_attention(q, q, q, segment_ids=ids)
+    assert not _build.launch_counts
+    o = torch.empty_like(q)
+    lib = _build.library()
+    assert lib.coral_flash_attention_fwd(q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(),
+                                         None, None, ids.data_ptr(), 1, 130, 256, 2, 96, 192,
+                                         192, 96**-0.5, None) == -1
+
+
+# -- the probes: tools/probe_fe_bwd.py, probe_gelu_cost.py, probe_lane_reduce.py -----
+
+
+@pytest.mark.parametrize("k,T_in", [(3, 1101), (2, 999)])
+@pytest.mark.parametrize("mode", probe_fe_bwd.MODES)
+def test_fe_bwd_probe_kernels_match_plain(cuda, mode, k, T_in):
+    """Each mode of the K3 backward against its plain version (the
+    production backward's tolerances), ``full`` bit for bit the production
+    kernels' outputs, each launch recorded by the events; T_in 1101 makes
+    three 256-pair slabs, the last partial, for no_inter's layout."""
+    x, w, b, gamma, beta = _conv_inputs(cuda, k, T_in)
+    _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)
+    dy = _on(cuda, _np(*xhat.shape, seed=5), torch.bfloat16)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for e in events:
+        e.record()
+    _build.reset_launch_counts()
+    got = probe_fe_bwd.bwd_variant(x, w, gamma, beta, xhat, rstd, dy, mode, events=events)
+    assert _build.launch_counts == {f"probe_fe_bwd_{mode}": 1}
+    torch.cuda.synchronize()
+    assert all(a.elapsed_time(b) >= 0 for a, b in zip(events, events[1:]))
+    want = probe_fe_bwd.bwd_variant_plain(x, w, gamma, beta, xhat, rstd, dy, mode)
+    _close_rel(got[0], want[0])
+    _close_rel(got[1], want[1])
+    _close_rel(got[2], want[2], 1e-2)
+    if mode == "full":
+        prod = conv_ln_gelu.conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, dy)
+        for g, p in zip(got, prod):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("name,polys,prng", probe_gelu_cost.CASES,
+                         ids=[c[0].split()[0] for c in probe_gelu_cost.CASES])
+def test_gelu_cost_probe_kernel_matches_plain(cuda, name, polys, prng):
+    """Each case at 3 steps (768 rows) of the probe's widths; the mask drops
+    exactly the plain version's elements."""
+    x, w = probe_gelu_cost.make_inputs(3, cuda)
+    _build.reset_launch_counts()
+    got = probe_gelu_cost.gelu_cost(x, w, polys, prng, seed=11)
+    assert _build.launch_counts == {probe_gelu_cost.kernel_name(polys, prng): 1}
+    want = probe_gelu_cost.gelu_cost_plain(x, w, polys, prng, seed=11)
+    _close(got, want, 1e-2)
+    if prng:
+        assert torch.equal(got == 0, want == 0)
+
+
+@pytest.mark.parametrize("nred,mode", probe_lane_reduce.CASES,
+                         ids=[f"{m}-{n}" for n, m in probe_lane_reduce.CASES])
+def test_lane_reduce_probe_kernel_matches_plain(cuda, nred, mode):
+    """Each case at 3 steps (768 rows) of the probe's widths."""
+    x, w, ones = probe_lane_reduce.make_inputs(3, cuda)
+    _build.reset_launch_counts()
+    got = probe_lane_reduce.lane_reduce(x, w, ones, mode, nred)
+    assert _build.launch_counts == {probe_lane_reduce.kernel_name(mode, nred): 1}
+    _close(got, probe_lane_reduce.lane_reduce_plain(x, w, ones, mode, nred), 1e-2)
 
 
 @pytest.mark.parametrize("shape", [(2, 499, 4096), (2, 130, 5120), (3, 7, 1536)])

@@ -20,6 +20,7 @@ the train step as tests/test_torch_train.py holds it.
 """
 
 import collections
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -60,11 +61,14 @@ def _rel(got, want):
 # -- K7 with segment ids ---------------------------------------------------------------
 
 
-def test_segment_flash_plain_matches_the_stock_reference():
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_segment_flash_plain_matches_the_stock_reference(d):
     """The plain forward (o, l, m) and backward on the padded call, T = 200 (not
     a multiple of 128) padded to 256, a full row, a padded row and a length-1
-    filler row, every row compared; then the wrappers at T rows against it."""
-    B, T, H, d = 3, 200, 2, 64
+    filler row, every row compared; then the wrappers at T rows against it. At
+    each head dim the kernels are built for: XLS-R-300M's 64, -1B's 80 and
+    -2B's 120 (scale d**-0.5)."""
+    B, T, H = 3, 200, 2
     pad_mask = torch.arange(T)[None, :] < torch.tensor([200, 130, 1])[:, None]
     ids = flash_attention.segment_ids(pad_mask)
     Tp = ids.shape[1]
@@ -356,17 +360,20 @@ def test_whisper_flags_resolve_as_the_jax_setup(flags, fused, tmp_path):
 
 
 def test_kernel_widths_follow_the_routes():
-    """The flash route's kernel takes head_dim 64 only: XLS-R-1B and -2B with
-    ``attention_impl: flash`` are refused on the card before anything is
-    built (Queue 2 item 3); the unfused FFN needs only F % 8 == 0."""
+    """The flash route's kernels take head_dim 64, 80 and 120: XLS-R-300M,
+    -1B and -2B pass with ``attention_impl: flash`` (and xla); a head_dim no
+    config uses (96: 20 heads of 1920) is refused on the card before anything
+    is built, naming Queue 2 item 3; the unfused FFN needs only F % 8 == 0."""
     from coral_tpu_torch.models import wav2vec2
     from coral_tpu_torch.training.model_setup import check_kernel_widths
 
-    for arch in (Wav2Vec2Config.xls_r_1b, Wav2Vec2Config.xls_r_2b):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-            check_kernel_widths(arch(attention_impl="flash", **PORT_UNFUSED))
+    for arch in (Wav2Vec2Config.xls_r_300m, Wav2Vec2Config.xls_r_1b, Wav2Vec2Config.xls_r_2b):
+        check_kernel_widths(arch(attention_impl="flash", **PORT_UNFUSED))
         check_kernel_widths(arch(attention_impl="xla", **PORT_UNFUSED))
-    check_kernel_widths(Wav2Vec2Config.xls_r_300m(attention_impl="flash", **PORT_UNFUSED))
+    with pytest.raises(NotImplementedError,
+                       match=r"head_dim \(the flash attention\) = 96.*Queue 2 item 3"):
+        check_kernel_widths(dataclasses.replace(
+            Wav2Vec2Config.xls_r_2b(attention_impl="flash", **PORT_UNFUSED), num_attention_heads=20))
     names = [w[0] for w in wav2vec2.kernel_widths(Wav2Vec2Config(**PORT_UNFUSED,
                                                                  attention_impl="flash"))]
     assert any("flash" in n for n in names) and not any("FFN block" in n for n in names)
