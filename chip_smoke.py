@@ -40,7 +40,11 @@ non-zero before the result line is printed:
    kernels at 384, 512, 768 and 1920, the LN backward at 384, 768 and 1920;
    the attention backwards beside PyTorch's memory-efficient attention
    backward with the key or segment mask as its bias, the LN backwards beside
-   ``aten.native_layer_norm_backward``; then the H100 probes
+   ``aten.native_layer_norm_backward``; each row's share of its bound and
+   its ratio to the library call, by events and by device time (a single
+   call's events time holds its host launch path); the host time a forward
+   launch spends
+   encoding its TMA tensor maps, at head_dim 64, 80 and 120; then the H100 probes
    (``coral_tpu_torch/tools``): the K3 backward's seven modes at FE blocks 1
    and 5 (batch 8 x 10 s; ``full`` bit for bit the production backward),
    each launch timed by CUDA events, and the gelu_cost and lane_reduce
@@ -803,11 +807,17 @@ def _measure(results: dict, card: str, name: str, kernel, plain, check, work, li
     res["device_ms"] = device_ms(kernel)
     res["plain_ms"] = median_ms(plain)
     res["library_ms"] = None if library is None else median_ms(library)
+    res["library_device_ms"] = None if library is None else device_ms(library)
     res["bound_ms"], res["bound_by"] = bound(*work)
-    lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
+    lib = ("none" if library is None else
+           f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f} ms)")
+    ratio = "" if library is None else (
+        f", {res['ms'] / res['library_ms']:.3f}x the library's events time, "
+        f"{res['device_ms'] / res['library_device_ms']:.3f}x its device time")
     print(f"  {name}: kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms), plain "
           f"{res['plain_ms']:.4f} ms, library {lib}, bound {res['bound_ms']:.4f} ms by "
-          f"{res['bound_by']} (median of {REPS}; {card})", flush=True)
+          f"{res['bound_by']} ({res['bound_ms'] / res['ms']:.1%} of it{ratio}; median of "
+          f"{REPS}; {card})", flush=True)
     results[name] = res
 
 
@@ -919,6 +929,25 @@ def kernel_checks(card: str) -> dict:
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * 4096 * 2))
     return results
+
+
+def map_encode_us(card: str) -> None:
+    """Prints the host time a forward launch spends encoding its TMA tensor
+    maps (q, k and v; two per operand at head_dim 80): the mean of 1,000
+    encodings at the serving shapes' strides, packed q, k, v."""
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
+
+    for d in KERNEL_HEAD_DIMS:
+        x = torch.empty(BATCH, 1499, 3 * 16 * d, device="cuda", dtype=torch.bfloat16)
+        q, k, v = x.split(16 * d, dim=-1)
+        ns = _build.library().coral_attention_fwd_map_ns(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), BATCH, 1499, 16, d, q.stride(0),
+            q.stride(1), 1000)
+        if ns < 0:
+            fail(f"the tensor maps at head_dim {d} could not be encoded")
+        print(f"  tensor maps of one forward launch at head_dim {d}: {ns / 1e3:.3f} us of "
+              f"host time ({6 if d == 80 else 3} maps, mean of 1000; {card})", flush=True)
 
 
 def train_kernel_checks(card: str) -> dict:
@@ -3763,6 +3792,7 @@ def main() -> int:
     print(f"kernel checks of the attention's other routes (bf16, batch {BATCH}: the forwards "
           f"at 1499 rows, the backwards at 499, head_dim 64, 80 and 120):", flush=True)
     checks.update(variant_kernel_checks(card))
+    map_encode_us(card)
     mark("kernel checks")
     print(f"the H100 probes (bf16: the K3 backward's modes at batch {BATCH} x 10 s, FE blocks 1 "
           f"and 5; gelu_cost and lane_reduce checked at {PROBE_CHECK_STEPS} steps, timed at "
@@ -3884,7 +3914,8 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": counts[name],
          "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-         "library_ms": res["library_ms"], "device_ms": res["device_ms"]}
+         "library_ms": res["library_ms"], "device_ms": res["device_ms"],
+         "library_device_ms": res["library_device_ms"]}
         for name, res in rows.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

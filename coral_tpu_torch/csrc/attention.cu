@@ -22,137 +22,33 @@
 // only 4 * T * d * 2 bytes per head. The TPU kernels keep the whole (T, T)
 // score tile on chip, which does not fit a Hopper SM at T = 1499.
 //
-// Design: one block per (64-query tile, head, batch row), four warps of 16
-// query rows each. The online forward walks 64-key tiles with an online
-// softmax in fp32, so nothing of size T x T exists anywhere; it rounds the
-// unnormalised e = exp(s - m_running) to bf16 for P @ V and divides by l at
-// the end, as the TPU kernels round e against the row max and divide after
-// the product. v1 rounds the normalised p, which needs the final m and l
-// before any product with V: it walks the key tiles twice in one block, the
-// first sweep building m and l, the second forming p = e / l, rounding it and
-// accumulating p v in the WMMA accumulators (no rescale). That costs one more
-// score product. A fully padded row (every key at -1e30) comes out as the
-// uniform average (not NaN), as in the JAX kernels, with lse clamped at -1e25.
-// Scores and P @ V go through bf16 WMMA fragments; the fragments are staged in
-// shared memory where two lanes share each query row for the softmax and the
-// rescaled running output (DP / 2 columns a lane).
+// Design: the forwards with and without biases and stats
+// (`attention_fwd_kernel`) run on the Hopper mainloop of `attention.cuh`
+// (namespace fwd: 128 query rows a block, TMA copies of 128-key tiles into a
+// three-stage ring, both products on wgmma, the online softmax in registers);
+// it rounds the unnormalised e = exp(s - m_running) to bf16 for P @ V and
+// divides by l at the end, as the TPU kernels round e against the row max
+// and divide after the product. A fully padded row (every key at -1e30)
+// comes out as the uniform average (not NaN), as in the JAX kernels, with
+// lse clamped at -1e25. v1 rounds the normalised p, which needs the final m
+// and l before any product with V: it walks 64-key tiles twice in one block
+// of four warps of 16 query rows, the first sweep building m and l, the
+// second forming p = e / l, rounding it and accumulating p v in WMMA
+// accumulators (no rescale), its scores staged in shared memory where two
+// lanes share each query row. The backward is `attention.cuh`'s.
+#include <chrono>
+
 #include "attention.cuh"
 
 namespace {
 
-// q, k, v: (B, T, H*D) bf16 with strides (stride_b, stride_t, 1), the same for
-// all three; bq, bk, bv: (H*D,) bf16 (kBias, else not read); key_bias: (B, T)
-// fp32 (0 or -1e30); o: (B, T, H*D) bf16 contiguous; lse: (B, H, T) fp32
-// (kLse, else not written).
+// The forward on the Hopper mainloop (`attention.cuh`, namespace fwd): q, k, v
+// through the tensor maps; args.bq, bk, bv (kBias), key_bias, o and (kLse)
+// the lse in args.stat_a.
 template <int D, bool kBias, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ bq,
-                         const bf16* __restrict__ bk, const bf16* __restrict__ bv,
-                         const float* __restrict__ key_bias, bf16* __restrict__ o,
-                         float* __restrict__ lse, int T, int H, long long stride_b,
-                         long long stride_t, float scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kHalf = Hd::kHalf;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBQ * kLdH;
-  bf16* Vs = Ks + kBKV * kLdH;
-  bf16* Ps = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdP);
-  float* kbias = Ss + kBQ * kLdS;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;   // this lane's query row within the warp's 16
-  const int half = lane & 1;   // and which half of the keys (and of the head) it handles
-  const long long head = (long long)b * stride_b + h * D;
-
-  load_tile<D, kBias>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
-
-  float m = -INFINITY;  // running max of this row's scores
-  float l = 0.0f;       // running sum of exp(score - m)
-  float acc[kHalf];     // running sum of p * v for this lane's kHalf columns
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
-
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdP;
-  const bf16* Qw = Qs + warp * 16 * kLdH;
-
-  for (int k0 = 0; k0 < T; k0 += kBKV) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile<D, kBias>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
-    load_tile<D, kBias>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
-    load_key_bias(kbias, key_bias + (long long)b * T, k0, T);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows.
-    product_abt<D>(Sw, Qw, Ks);
-
-    // Online softmax over this tile; two lanes per row, 32 keys each.
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      sv[j] = Sw[row * kLdS + half * 32 + j] + kbias[half * 32 + j];
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // finite: every tile holds a key < T
-    const float alpha = expf(m - m_new);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(sv[j] - m_new);
-      psum += p;
-      Pw[row * kLdP + half * 32 + j] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
-
-    // P @ V for this warp's 16 rows, staged over S.
-    FragC pv[Hd::kNF];
-#pragma unroll
-    for (int j = 0; j < Hd::kNF; ++j) wmma::fill_fragment(pv[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kBKV; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, Pw + kk, kLdP);
-#pragma unroll
-      for (int j = 0; j < Hd::kNF; ++j) {
-        FragBr bvf;
-        wmma::load_matrix_sync(bvf, Vs + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(pv[j], a, bvf, pv[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < Hd::kNF; ++j)
-      wmma::store_matrix_sync(Sw + j * 16, pv[j], kLdS, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) acc[j] = acc[j] * alpha + Sw[row * kLdS + half * kHalf + j];
-    __syncwarp();
-  }
-
-  const int t = q0 + warp * 16 + row;
-  if (t < T) {
-    float out[kHalf];
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) out[j] = acc[j] / l;
-    bf16* orow = o + ((long long)b * T + t) * ((long long)H * D) + h * D + half * kHalf;
-#pragma unroll
-    for (int j = 0; j < kHalf; j += 8)
-      if (half * kHalf + j < D) coral_store8(orow + j, out + j);
-    // A fully padded row has m = -1e30; the clamp keeps the backward's
-    // exp(s - lse) at 0 for it, as in the JAX kernel.
-    if (kLse && half == 0) lse[((long long)b * H + h) * T + t] = fmaxf(m + logf(l), -1e25f);
-  }
+__global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
+    attention_fwd_kernel(const __grid_constant__ fwd::Maps maps, const fwd::Args args) {
+  fwd::mainloop<D, fwd::K4<kBias, kLse>>(maps, args);
 }
 
 // The v1 forward: arguments as attention_fwd_kernel without biases, lse
@@ -336,17 +232,37 @@ extern "C" int coral_attention_fwd(const void* q, const void* k, const void* v,
   float* lp = static_cast<float*>(lse);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    constexpr int smem = Head<kD>::kFwdSmem;
     if (v1)
-      return launch_fwd(attention_fwd_v1_kernel<kD>, smem, B, T, H, stride_b, stride_t, scale, s,
-                        qp, kp, vp, kbp, op, lp);
+      return launch_fwd(attention_fwd_v1_kernel<kD>, Head<kD>::kFwdSmem, B, T, H, stride_b,
+                        stride_t, scale, s, qp, kp, vp, kbp, op, lp);
+    const fwd::Args args{bqp, bkp, bvp, kbp, nullptr, op, lp, nullptr, T, T, H, scale};
     if (bqp != nullptr)
-      return launch_fwd(attention_fwd_kernel<kD, true, true>, smem, B, T, H, stride_b, stride_t,
-                        scale, s, qp, kp, vp, bqp, bkp, bvp, kbp, op, lp);
+      return fwd::launch<kD, fwd::K4<true, true>>(attention_fwd_kernel<kD, true, true>, q, k, v,
+                                                  args, B, stride_b, stride_t, s);
     if (lp != nullptr)
-      return launch_fwd(attention_fwd_kernel<kD, false, true>, smem, B, T, H, stride_b, stride_t,
-                        scale, s, qp, kp, vp, bqp, bkp, bvp, kbp, op, lp);
-    return launch_fwd(attention_fwd_kernel<kD, false, false>, smem, B, T, H, stride_b, stride_t,
-                      scale, s, qp, kp, vp, bqp, bkp, bvp, kbp, op, lp);
+      return fwd::launch<kD, fwd::K4<false, true>>(attention_fwd_kernel<kD, false, true>, q, k,
+                                                   v, args, B, stride_b, stride_t, s);
+    return fwd::launch<kD, fwd::K4<false, false>>(attention_fwd_kernel<kD, false, false>, q, k, v,
+                                                  args, B, stride_b, stride_t, s);
+  });
+}
+
+// Host nanoseconds per forward launch spent encoding its tensor maps (q, k and
+// v at head dim D): the mean over `reps` encodings. -1 for a head dim the
+// kernels were not built for, or if the encoder fails.
+extern "C" int coral_attention_fwd_map_ns(const void* q, const void* k, const void* v, int B,
+                                          int T, int H, int D, long long stride_b,
+                                          long long stride_t, int reps) {
+  if ((D != 64 && D != 80 && D != 120) || reps <= 0) return -1;
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    fwd::Maps maps;
+    const auto start = std::chrono::steady_clock::now();
+    for (int i = 0; i < reps; ++i)
+      if (fwd::encode<kD>(&maps, q, k, v, B, T, H, stride_b, stride_t, 128) != 0) return -1;
+    const auto ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                        std::chrono::steady_clock::now() - start)
+                        .count();
+    return (int)(ns / reps);
   });
 }

@@ -1,8 +1,11 @@
 // The short-T attention's shared pieces: tile shapes by head dim, tile loads,
 // the WMMA score product, and the two backward kernels, which
 // `attention.cu` (the v3 backward) and `attention_rows.cu` (the backwards of
-// the other variants) instantiate; `flash_attention.cu` builds its kernels on
-// the same tiles, loads, score product and row stores.
+// the other variants) instantiate; `flash_attention.cu` builds its backward
+// kernels on the same tiles, loads, score product and row stores. The
+// forwards of `attention.cu` and `flash_attention.cu` (v1 aside) share the
+// Hopper mainloop at the end of this file (namespace fwd), with tiles and
+// loads of its own.
 //
 // Layout: q, k, v are (B, T, H*d) with strides (stride_b, stride_t, 1), the
 // same for all three; head h is the lane slice h*d .. h*d+d-1 of each row,
@@ -25,6 +28,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -531,5 +535,649 @@ int with_head_dim(int D, Fn&& f) {
     default: return -1;
   }
 }
+
+// --- The forward mainloop (Hopper: TMA, mbarriers, wgmma) ---------------------------
+//
+// One mainloop for both forward families, `attention_fwd_kernel` (K4 and its
+// variants, `attention.cu`) and `flash_fwd_kernel` (K7 and K7 with segment
+// ids, `flash_attention.cu`), each a thin kernel over it with its policy.
+//
+// Bound on the H100: the tensor cores and the exponentials. A head makes
+// 4 T^2 DP flops and T^2 exponentials from 4 T d bf16 values; at T = 1499 and
+// d = 120 that is about 1,500 flops a byte, far above the card's 295, and
+// at d = 64 the T^2 exponentials (16 a clock per SM) take about as long as
+// the products.
+//
+// Design: a block takes 64 x kWG query rows of one head of one batch row
+// (kWG = 3 consumer warpgroups at d = 64, else 2) and has a
+// producer warpgroup before its consumers. The producer's first warp issues
+// TMA copies (Q once; K and V a 128-key tile at a time into a ring of
+// kStages = 3 stages, each with a `full` and an `empty` mbarrier, so the
+// copies of the next tiles run while the current one is multiplied) and
+// stages each tile's key vector (the K4 key bias in log2 units, or the
+// segment ids); with the q/k/v biases all four of its warps add bk and bv to
+// each tile once it landed (below). Each consumer warpgroup takes 64 query
+// rows: S = Q K^T by `wgmma` m64n128k16 from shared memory, the online
+// softmax in registers (each row's 32 values a thread: the row max over the
+// 4 lanes that share a row by two shuffles), and O += P V by `wgmma` with P
+// as the register A operand: the accumulator layout of S, packed to bf16
+// pairs, is the A fragment layout of the second product, so nothing of S, P
+// or P V touches shared memory. Within a warpgroup the product P_i V_i runs
+// while the softmax of tile i+1 is computed, and O is rescaled while S of
+// the next tile is multiplied (FlashAttention-3's intra-warpgroup overlap);
+// across warpgroups named barriers make them take turns to issue their
+// products (its ping-pong), so one warpgroup's exponentials run beside
+// another's products. `setmaxnreg` splits the registers (producer_regs,
+// consumer_regs: 24 and 240 a thread, 56 and 224 with the bias pass, 32 and
+// 160 with three consumers).
+//
+// Layout: the head's DP columns are one or two column blocks, each a
+// swizzled tile (128 rows of K or V, 64 x kWG of Q): 64 columns in 128-byte
+// rows, then kW1 more (0 at
+// d = 64; 16 in 32-byte rows at d = 80, so its products run over 80 and not a
+// padded 128; 64 at d = 120, whose columns 120..127 TMA fills with zeros).
+// The tensor maps see q, k, v as the 4-D tensor (d, H, T, B) with the row
+// strides of the (B, T, H*d) tensor, so views of one packed projection load
+// as they lie, and rows past T arrive as zeros. o is stored from registers,
+// only columns below d and rows below T: nothing is written past a head.
+//
+// Rounding, as the TPU kernels (see the top of this file): K4 adds bq, bk,
+// bv and rounds to bf16 (a bf16x2 add, single-rounded, which equals the fp32
+// add rounded once for two bf16 operands), q then times the bf16 scale
+// rounded again; the scores get the key bias (the caller's -1e30 for padded
+// keys, -inf past T), the exponentials rounded to bf16 for P V against the
+// running max, the sum divided by l at the end, lse = max(m + log l, -1e25).
+// K7 scales the fp32 scores by d**-0.5 and masks keys past Tk or of another
+// segment with -inf; a row with no key of its segment yet uses m = 0. The
+// exponentials are ex2.approx with log2 e folded into one FMA (K4 carries
+// its scores and key bias in log2 units, K7 folds it into d**-0.5); the
+// stats leave in natural units. Every instantiation of a family runs the
+// same arithmetic in the same order, the stats and the biases aside.
+namespace fwd {
+
+constexpr int kKeys = 128;        // keys of a K/V tile
+constexpr int kStages = 3;        // K/V tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Consumer warpgroups of a block: three (192 query rows) at d = 64, as
+// FlashAttention-3's d = 64 tile: more rows share each K/V tile (a third
+// less of the L2 traffic and of the blocks' prologues) and a third
+// warpgroup overlaps the exponentials with the products, in 160 registers a
+// thread; two (128 rows) at 80 and 120, whose O needs more.
+__host__ __device__ constexpr int consumers(int D) { return D == 64 ? 3 : 2; }
+
+// setmaxnreg's split of a block's registers: the producer warpgroup's and
+// each consumer thread's. Beside two consumers the bias pass loads 4 rows
+// before it stores them (56 registers); beside three it has 32 and goes a
+// row at a time.
+__host__ __device__ constexpr int producer_regs(int wg, bool bias) {
+  return wg == 3 ? 32 : bias ? 56 : 24;
+}
+__host__ __device__ constexpr int consumer_regs(int wg, bool bias) {
+  return wg == 3 ? 160 : bias ? 224 : 240;
+}
+__host__ __device__ constexpr int pass_group(int wg) { return wg == 3 ? 1 : 4; }
+
+// Shared-memory layout at head dim D with kWG consumers: Q (64 kWG rows),
+// then kStages x (K, V) (128 rows each), each a 1024-aligned tile of two
+// column blocks; the stages' key vectors; the mbarriers.
+template <int D, int kWG>
+struct Tile {
+  static constexpr int kW1 = D == 64 ? 0 : D == 80 ? 16 : 64;
+  static_assert(D == 64 || D == 80 || D == 120, "the head dims of the configs");
+  static constexpr int kRows = 64 * kWG;         // query rows of a block
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kRB1 = kW1 * 2;           // row bytes of column block 1
+  static constexpr int kQBlk0 = kRows * 128;     // Q's column blocks
+  static constexpr int kQ = kQBlk0 + kRows * kRB1;
+  static constexpr int kBlk0 = kKeys * 128;      // K's and V's
+  static constexpr int kOperand = kBlk0 + kKeys * kRB1;
+  static_assert(kQBlk0 % 1024 == 0 && kQ % 1024 == 0 && kOperand % 1024 == 0,
+                "each tile 1024-aligned");
+  static constexpr int kKvec = kQ + 2 * kStages * kOperand;
+  static constexpr int kBars = kKvec + kStages * kKeys * 4;
+  // Q's barrier, full, empty and (with biases) landed per stage, and 1 KB to
+  // align the base.
+  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "the forward's tiles must fit a block");
+  static __host__ __device__ constexpr int k_tile(int s) { return kQ + kOperand * 2 * s; }
+  static __host__ __device__ constexpr int v_tile(int s) { return kQ + kOperand * (2 * s + 1); }
+};
+
+// K4 (`_fwd_kernel_stats_v2_qb` and its variants): q scaled (and the biases
+// added) where the tiles enter shared memory, the key bias added to the
+// scores, the lse written with kStats.
+template <bool kBias_, bool kLse>
+struct K4 {
+  static constexpr bool kK4 = true, kBias = kBias_, kSeg = false, kStats = kLse;
+};
+// K7 (the stock TPU flash kernel): scores scaled by d**-0.5, keys past Tk
+// masked (and, with kSeg, keys of another segment); m and l with kStats.
+template <bool kStats_, bool kSeg_>
+struct K7 {
+  static constexpr bool kK4 = false, kBias = false, kSeg = kSeg_, kStats = kStats_;
+};
+
+// One map per operand and column block (block 1's equals block 0's at d =
+// 120, where both are 64 wide; unused at d = 64).
+struct Maps {
+  CUtensorMap q0, q1, k0, k1, v0, v1;
+};
+
+struct Args {
+  const bf16* bq;        // K4 with biases: (H*D,) bf16 each
+  const bf16* bk;
+  const bf16* bv;
+  const float* key_bias;  // K4: (B, T) fp32, 0 or -1e30
+  const int* seg;         // K7 with segments: (B, Tk) int32
+  bf16* o;                // (B, T, H*D) bf16 contiguous
+  float* stat_a;          // K4 the lse, K7 m: (B, H, T) fp32
+  float* stat_l;          // K7 l
+  int T, Tk, H;           // keys run to Tk (K4: T)
+  float scale;            // K4: the bf16 scale of q; K7: the scores' d**-0.5
+};
+
+__device__ __forceinline__ uint32_t bf2_add(uint32_t x, uint32_t y) {
+  __nv_bfloat162 r = __hadd2(*reinterpret_cast<__nv_bfloat162*>(&x),
+                             *reinterpret_cast<__nv_bfloat162*>(&y));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t x, uint32_t y) {
+  __nv_bfloat162 r = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&x),
+                             *reinterpret_cast<__nv_bfloat162*>(&y));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 16-byte chunk of 8 bf16: x = bf16(x + bias) (kBias), then
+// bf16(x * scale) (kScale).
+template <int kRowBytes, bool kBias, bool kScale>
+__device__ __forceinline__ uint4 transform_chunk(uint4 x, uint4 bb, uint32_t scale2) {
+  if constexpr (kBias) {
+    x.x = bf2_add(x.x, bb.x);
+    x.y = bf2_add(x.y, bb.y);
+    x.z = bf2_add(x.z, bb.z);
+    x.w = bf2_add(x.w, bb.w);
+  }
+  if constexpr (kScale) {
+    x.x = bf2_mul(x.x, scale2);
+    x.y = bf2_mul(x.y, scale2);
+    x.z = bf2_mul(x.z, scale2);
+    x.w = bf2_mul(x.w, scale2);
+  }
+  return x;
+}
+
+// Rows r0 .. r0+rows-1 of a column block with kRowBytes-wide swizzled rows
+// at shared address `blk`, in place, by 128 threads (transform_chunk). A
+// thread takes one logical chunk of every 128 / kChunks-th row, which the
+// swizzle puts at one physical chunk in each (the pattern repeats every 8
+// rows). Chunks at or past `cols` (the head's end) stay zero. The loads are
+// volatile shared-memory instructions, kept in program order: kGroup rows'
+// loads are issued before their stores, so that many are in flight.
+template <int kRowBytes, bool kBias, bool kScale, int kGroup>
+__device__ __forceinline__ void transform_rows(uint32_t blk, const bf16* bias, uint32_t scale2,
+                                               int t, int r0, int rows, int cols) {
+  constexpr int kChunks = kRowBytes / 16, kStep = 128 / kChunks;
+  const int c = t % kChunks;
+  if (c * 8 >= cols) return;
+  uint4 bb = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kBias) bb = *reinterpret_cast<const uint4*>(bias + c * 8);
+  const int first = r0 + t / kChunks;
+  uint32_t addr = blk + first * kRowBytes + hopper::swizzle_chunk(kRowBytes, first, c) * 16;
+#pragma unroll 1
+  for (int r = first; r < r0 + rows; r += kGroup * kStep, addr += kGroup * kStep * kRowBytes) {
+    uint4 x[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g)
+      if (r + g * kStep < r0 + rows) x[g] = hopper::ld_shared_v4(addr + g * kStep * kRowBytes);
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g)
+      if (r + g * kStep < r0 + rows)
+        hopper::st_shared_v4(addr + g * kStep * kRowBytes,
+                             transform_chunk<kRowBytes, kBias, kScale>(x[g], bb, scale2));
+  }
+}
+
+// Both column blocks of an operand tile at shared address `tile` (block 1
+// at `tile + blk1`), rows r0 .. r0+rows-1, by 128 threads.
+template <int D, bool kBias, bool kScale, int kGroup>
+__device__ __forceinline__ void transform_tile(uint32_t tile, int blk1, const bf16* bias,
+                                               uint32_t scale2, int t, int r0, int rows) {
+  constexpr int kW1 = Tile<D, 2>::kW1;
+  transform_rows<128, kBias, kScale, kGroup>(tile, bias, scale2, t, r0, rows, D);
+  if constexpr (kW1 > 0)
+    transform_rows<kW1 * 2, kBias, kScale, kGroup>(tile + blk1, kBias ? bias + 64 : nullptr,
+                                                   scale2, t, r0, rows, D - 64);
+}
+
+// The producer warpgroup: TMA copies of Q and of each K/V tile into its
+// stage once the consumers released it, and the tile's key vector, by its
+// first warp; with kBias all four warps then add bk and bv to the tile once
+// it landed (the copy of the next tile follows the pass: issuing it before,
+// or from a warp of its own beside three pass warps, measured slower).
+template <int D, class P>
+__device__ __forceinline__ void produce(const Maps& maps, const Args& a, uint32_t base, int q0,
+                                        int h, int b, int n_tiles) {
+  using L = Tile<D, consumers(D)>;
+  constexpr int kProducers = P::kBias ? 128 : 32;
+  hopper::reg_dealloc<producer_regs(consumers(D), P::kBias)>();
+  const int t = threadIdx.x;
+  if (t >= kProducers) return;
+  const uint32_t bars = base + L::kBars;
+  if (t == 0) {
+    hopper::prefetch_tensormap(&maps.k0);
+    hopper::prefetch_tensormap(&maps.v0);
+    hopper::mbar_arrive_expect_tx(bars, L::kQ);
+    hopper::tma_load_4d(base, &maps.q0, bars, 0, h, q0, b);
+    if constexpr (L::kW1 > 0) hopper::tma_load_4d(base + L::kQBlk0, &maps.q1, bars, 64, h, q0, b);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t phase = (i / kStages) & 1;
+    const uint32_t full = bars + 8 + 8 * s, landed = bars + 8 + 8 * (2 * kStages + s);
+    const int k0 = i * kKeys;
+    hopper::mbar_wait(bars + 8 + 8 * (kStages + s), phase ^ 1);
+    if (t == 0) {
+      const uint32_t tx = P::kBias ? landed : full;
+      hopper::mbar_arrive_expect_tx(tx, 2 * L::kOperand);
+      const uint32_t kt = base + L::k_tile(s), vt = base + L::v_tile(s);
+      hopper::tma_load_4d(kt, &maps.k0, tx, 0, h, k0, b);
+      hopper::tma_load_4d(vt, &maps.v0, tx, 0, h, k0, b);
+      if constexpr (L::kW1 > 0) {
+        hopper::tma_load_4d(kt + L::kBlk0, &maps.k1, tx, 64, h, k0, b);
+        hopper::tma_load_4d(vt + L::kBlk0, &maps.v1, tx, 64, h, k0, b);
+      }
+    }
+    if constexpr (P::kK4 || P::kSeg) {
+      const uint32_t kvec = base + L::kKvec + 4 * s * kKeys;
+      for (int j = t; j < kKeys; j += kProducers) {
+        const int key = k0 + j;
+        uint32_t word;
+        if constexpr (P::kK4)
+          word = __float_as_uint(key < a.T ? a.key_bias[(long long)b * a.T + key] * kLog2e
+                                           : -INFINITY);
+        else
+          word = key < a.Tk ? (uint32_t)a.seg[(long long)b * a.Tk + key] : 0u;
+        hopper::st_shared_b32(kvec + 4 * j, word);
+      }
+    }
+    if constexpr (P::kBias) {
+      hopper::mbar_wait(landed, phase);
+      constexpr int kGroup = pass_group(consumers(D));
+      transform_tile<D, true, false, kGroup>(base + L::k_tile(s), L::kBlk0, a.bk + h * D, 0u, t,
+                                             0, kKeys);
+      transform_tile<D, true, false, kGroup>(base + L::v_tile(s), L::kBlk0, a.bv + h * D, 0u, t,
+                                             0, kKeys);
+      hopper::fence_proxy_async();
+    }
+    hopper::mbar_arrive(full);
+  }
+}
+
+// A consumer warpgroup: 64 query rows against every K/V tile, then o and
+// the stats of its rows.
+template <int D, class P>
+__device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint32_t base, int q0,
+                                        int h, int b, int n_tiles) {
+  constexpr int kWG = consumers(D);
+  using L = Tile<D, kWG>;
+  constexpr int kW1 = L::kW1;
+  hopper::reg_alloc<consumer_regs(kWG, P::kBias)>();
+  const int wg = threadIdx.x / 128 - 1;  // rows 64 wg .. 64 wg + 63 of the block
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row = 16 * (t / 32) + lane / 4;  // this thread's rows: row and row + 8
+  const int quad = lane % 4;                 // and columns 8 j + 2 quad + {0, 1}
+  const int t0 = q0 + 64 * wg + row, t1 = t0 + 8;
+  const uint32_t bars = base + L::kBars;
+  const float* kvec_all = reinterpret_cast<const float*>(smem + L::kKvec);
+
+  hopper::mbar_wait(bars, 0);
+  if constexpr (P::kK4) {
+    const __nv_bfloat162 s2 = __float2bfloat162_rn(a.scale);
+    transform_tile<D, P::kBias, true, 4>(base, L::kQBlk0, P::kBias ? a.bq + h * D : nullptr,
+                                         *reinterpret_cast<const uint32_t*>(&s2), t, 64 * wg,
+                                         64);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + wg, 128);
+  }
+  const uint32_t qa0 = base + wg * 64 * 128;
+  const uint32_t qa1 = base + L::kQBlk0 + wg * 64 * L::kRB1;
+  int seg0 = 0, seg1 = 0;
+  if constexpr (P::kSeg) {
+    const int* seg = a.seg + (long long)b * a.Tk;
+    seg0 = t0 < a.T ? seg[t0] : 0;
+    seg1 = t1 < a.T ? seg[t1] : 0;
+  }
+  // The exponent's factor: K4's scores are in log2 units already.
+  const float ex = P::kK4 ? 1.0f : a.scale * kLog2e;
+
+  float s[64];                                     // S, then its exponentials
+  float o0[32], o1[kW1 > 0 ? kW1 / 2 : 1];         // O by column block
+  uint32_t p[8][4];                                // P: the A fragments of 8 k-steps
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o0[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (kW1 > 0 ? kW1 / 2 : 1); ++i) o1[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running row maxima (K4: log2 units; K7: raw q k)
+  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the row sums
+
+  auto qk = [&](int st) {
+    const uint32_t kt = base + L::k_tile(st);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      hopper::wgmma_m64n128k16_ss(s, hopper::smem_desc(qa0 + 32 * j, 1024, 128),
+                                  hopper::smem_desc(kt + 32 * j, 1024, 128), j > 0);
+    if constexpr (kW1 == 64) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        hopper::wgmma_m64n128k16_ss(s, hopper::smem_desc(qa1 + 32 * j, 1024, 128),
+                                    hopper::smem_desc(kt + L::kBlk0 + 32 * j, 1024, 128), 1);
+    } else if constexpr (kW1 == 16) {
+      hopper::wgmma_m64n128k16_ss(s, hopper::smem_desc(qa1, 256, 32),
+                                  hopper::smem_desc(kt + L::kBlk0, 256, 32), 1);
+    }
+  };
+  auto pv = [&](int st) {
+    const uint32_t vt = base + L::v_tile(st);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      hopper::wgmma_m64n64k16_rs(o0, p[kk], hopper::smem_desc(vt + kk * 2048, 1024, 128));
+      if constexpr (kW1 == 64)
+        hopper::wgmma_m64n64k16_rs(o1, p[kk],
+                                   hopper::smem_desc(vt + L::kBlk0 + kk * 2048, 1024, 128));
+      else if constexpr (kW1 == 16)
+        hopper::wgmma_m64n16k16_rs(o1, p[kk],
+                                   hopper::smem_desc(vt + L::kBlk0 + kk * 512, 256, 32));
+    }
+  };
+  // The tile of keys k0.. in stage st: masks, the running max, s <- exp2 of
+  // the scores against it, the row sums; returns the rows' rescale factors.
+  auto softmax = [&](int k0, int st, float& alpha0, float& alpha1) {
+    const float* kvec = kvec_all + st * kKeys;
+    const int n_valid = a.Tk - k0;  // K7: keys past Tk in a partial last tile
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * quad;
+      if constexpr (P::kK4) {
+        const float2 kb = *reinterpret_cast<const float2*>(kvec + c);
+        s[4 * j] = fmaf(s[4 * j], kLog2e, kb.x);
+        s[4 * j + 1] = fmaf(s[4 * j + 1], kLog2e, kb.y);
+        s[4 * j + 2] = fmaf(s[4 * j + 2], kLog2e, kb.x);
+        s[4 * j + 3] = fmaf(s[4 * j + 3], kLog2e, kb.y);
+      } else {
+        if constexpr (P::kSeg) {
+          const int2 id = *reinterpret_cast<const int2*>(kvec + c);
+          if (id.x != seg0) s[4 * j] = -INFINITY;
+          if (id.y != seg0) s[4 * j + 1] = -INFINITY;
+          if (id.x != seg1) s[4 * j + 2] = -INFINITY;
+          if (id.y != seg1) s[4 * j + 3] = -INFINITY;
+        }
+        if (n_valid < kKeys) {
+          if (c >= n_valid) s[4 * j] = s[4 * j + 2] = -INFINITY;
+          if (c + 1 >= n_valid) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+        }
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // K4 and unmasked K7: finite, every tile holds a key below T. With
+    // segments: -inf while no key of the row's segment was seen, and the
+    // update then uses 0 (p = 0 and alpha = 0).
+    float mu0 = mn0, mu1 = mn1;
+    if constexpr (P::kSeg) {
+      mu0 = mn0 == -INFINITY ? 0.0f : mn0;
+      mu1 = mn1 == -INFINITY ? 0.0f : mn1;
+    }
+    alpha0 = fast_exp2((m0 - mu0) * ex);
+    alpha1 = fast_exp2((m1 - mu1) * ex);
+    const float nm0 = -mu0 * ex, nm1 = -mu1 * ex;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      s[4 * j] = fast_exp2(fmaf(s[4 * j], ex, nm0));
+      s[4 * j + 1] = fast_exp2(fmaf(s[4 * j + 1], ex, nm0));
+      s[4 * j + 2] = fast_exp2(fmaf(s[4 * j + 2], ex, nm1));
+      s[4 * j + 3] = fast_exp2(fmaf(s[4 * j + 3], ex, nm1));
+      ps0 += s[4 * j] + s[4 * j + 1];
+      ps1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  auto rescale = [&](float alpha0, float alpha1) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      o0[i] *= alpha0;
+      o0[i + 1] *= alpha0;
+      o0[i + 2] *= alpha1;
+      o0[i + 3] *= alpha1;
+    }
+    if constexpr (kW1 > 0) {
+#pragma unroll
+      for (int i = 0; i < kW1 / 2; i += 4) {
+        o1[i] *= alpha0;
+        o1[i + 1] *= alpha0;
+        o1[i + 2] *= alpha1;
+        o1[i + 3] *= alpha1;
+      }
+    }
+  };
+  auto release = [&](int st) {
+    if (lane == 0) hopper::mbar_arrive(bars + 8 + 8 * (kStages + st));
+  };
+
+  // The warpgroups take turns, in order, to issue their products
+  // (FlashAttention-3's ping-pong): named barrier 1 + kWG + wg is this
+  // warpgroup's turn, which the one before it grants by arriving on it after
+  // issuing its own, so one warpgroup's softmax runs while another's
+  // products do. The last warpgroup grants the first turn and skips its last
+  // grant, so every barrier phase completes.
+  auto my_turn = [&]() { hopper::named_barrier(1 + kWG + wg, 256); };
+  auto their_turn = [&](bool last) {
+    if (!(last && wg == kWG - 1)) hopper::named_barrier_arrive(1 + kWG + (wg + 1) % kWG, 256);
+  };
+  if (wg == kWG - 1) hopper::named_barrier_arrive(1 + kWG, 256);
+
+  // Tile 0: S, its softmax, P.
+  float alpha0, alpha1;
+  hopper::mbar_wait(bars + 8, 0);
+  my_turn();
+  hopper::fence_regs(s);
+  hopper::wgmma_fence();
+  qk(0);
+  hopper::wgmma_commit();
+  their_turn(false);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  softmax(0, 0, alpha0, alpha1);
+  pack();
+  int st = 0;
+  for (int i = 1; i < n_tiles; ++i) {
+    const int sn = i % kStages;
+    hopper::mbar_wait(bars + 8 + 8 * sn, (i / kStages) & 1);
+    my_turn();
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+    qk(sn);  // S of tile i; meanwhile O is rescaled to tile i - 1's max ...
+    hopper::wgmma_commit();
+    hopper::fence_regs(o0);
+    hopper::fence_regs(o1);
+    rescale(alpha0, alpha1);
+    hopper::fence_regs(o0);
+    hopper::fence_regs(o1);
+    hopper::wgmma_fence();
+    pv(st);  // ... and O += P V of tile i - 1 follows it
+    hopper::wgmma_commit();
+    their_turn(false);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+    softmax(i * kKeys, sn, alpha0, alpha1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o0);
+    hopper::fence_regs(o1);
+    hopper::fence_regs(s);
+    release(st);
+    pack();
+    st = sn;
+  }
+  my_turn();
+  hopper::fence_regs(o0);
+  hopper::fence_regs(o1);
+  rescale(alpha0, alpha1);
+  hopper::fence_regs(o0);
+  hopper::fence_regs(o1);
+  hopper::wgmma_fence();
+  pv(st);
+  hopper::wgmma_commit();
+  their_turn(true);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o0);
+  hopper::fence_regs(o1);
+  release(st);
+
+  // o = O / l for rows below T, columns below d; the stats.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const long long HD = (long long)a.H * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int tq = half ? t1 : t0;
+    if (tq >= a.T) continue;
+    const float l = half ? l1 : l0;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(a.o + ((long long)b * a.T + tq) * HD + h * D);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      orow[4 * j + quad] = pack_bf16(o0[4 * j + 2 * half] / l, o0[4 * j + 2 * half + 1] / l);
+    if constexpr (kW1 > 0) {
+#pragma unroll
+      for (int j = 0; j < kW1 / 8; ++j)
+        if (64 + 8 * j < D)
+          orow[32 + 4 * j + quad] =
+              pack_bf16(o1[4 * j + 2 * half] / l, o1[4 * j + 2 * half + 1] / l);
+    }
+    if (P::kStats && quad == 0) {
+      const long long i = ((long long)b * a.H + h) * a.T + tq;
+      const float m = half ? m1 : m0;
+      if constexpr (P::kK4) {
+        // A fully padded row has m = -1e30; the clamp keeps the backward's
+        // exp(s - lse) at 0 for it, as in the JAX kernel.
+        a.stat_a[i] = fmaxf(m * kLn2 + logf(l), -1e25f);
+      } else {
+        a.stat_a[i] = m * a.scale;
+        a.stat_l[i] = l;
+      }
+    }
+  }
+}
+
+// The mainloop of a forward kernel over (ceil(T / kRows), H, B) blocks of
+// kThreads threads with kSmem bytes of dynamic shared memory (Tile).
+template <int D, class P>
+__device__ __forceinline__ void mainloop(const Maps& maps, const Args& a) {
+  constexpr int kWG = consumers(D);
+  using L = Tile<D, kWG>;
+  // The split must fit what the launch gives the block: 65536 registers
+  // over its threads, in units of 8 a thread.
+  static_assert(128 * producer_regs(kWG, P::kBias) + 128 * kWG * consumer_regs(kWG, P::kBias) <=
+                    L::kThreads * (65536 / L::kThreads / 8 * 8),
+                "setmaxnreg's split exceeds the block's registers");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle patterns need 1024
+  unsigned char* smem = smem_raw + (base - raw);
+  const int q0 = blockIdx.x * L::kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (a.Tk + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    const uint32_t bars = base + L::kBars;
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // full: the producer threads' arrivals (without the bias pass, also the
+      // expect_tx of the copy); empty: the consumers' warps.
+      hopper::mbar_init(bars + 8 + 8 * s, P::kBias ? 128 : 33);
+      hopper::mbar_init(bars + 8 + 8 * (kStages + s), 4 * consumers(D));
+      hopper::mbar_init(bars + 8 + 8 * (2 * kStages + s), 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128)
+    produce<D, P>(maps, a, base, q0, h, b, n_tiles);
+  else
+    consume<D, P>(a, smem, base, q0, h, b, n_tiles);
+}
+
+// The tensor maps of q, k and v at head dim D, Q's boxes `q_rows` rows
+// tall; 0 or the encoder's error.
+template <int D>
+int encode(Maps* m, const void* q, const void* k, const void* v, int B, int T, int H,
+           long long stride_b, long long stride_t, int q_rows) {
+  constexpr int kW1 = Tile<D, 2>::kW1;
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap* blk0[3] = {&m->q0, &m->k0, &m->v0};
+  CUtensorMap* blk1[3] = {&m->q1, &m->k1, &m->v1};
+  for (int i = 0; i < 3; ++i) {
+    const int rows = i == 0 ? q_rows : kKeys;
+    int err = hopper::encode_heads(blk0[i], ptrs[i], D, H, T, B, stride_t, stride_b, 64, rows);
+    if (err != 0) return err;
+    if (kW1 == 64) {
+      *blk1[i] = *blk0[i];
+    } else if (kW1 > 0) {
+      err = hopper::encode_heads(blk1[i], ptrs[i], D, H, T, B, stride_t, stride_b, kW1, rows);
+      if (err != 0) return err;
+    }
+  }
+  return 0;
+}
+
+// Encodes the maps and launches `kernel` (a forward over this mainloop with
+// policy P) on `s`; the encoder's error or the cudaError_t.
+template <int D, class P, typename Kernel>
+int launch(Kernel kernel, const void* q, const void* k, const void* v, const Args& args, int B,
+           long long stride_b, long long stride_t, cudaStream_t s) {
+  using L = Tile<D, consumers(D)>;
+  Maps maps;
+  const int enc = encode<D>(&maps, q, k, v, B, args.T, args.H, stride_b, stride_t, L::kRows);
+  if (enc != 0) return enc;
+  // Once per kernel and process (the port drives one card): on the host
+  // path of every launch it showed in the events time of a single call.
+  static const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((args.T + L::kRows - 1) / L::kRows), (unsigned)args.H, (unsigned)B);
+  kernel<<<grid, L::kThreads, L::kSmem, s>>>(maps, args);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd
 
 }  // namespace

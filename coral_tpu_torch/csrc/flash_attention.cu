@@ -13,26 +13,26 @@
 // 4 * T * d * 2 bytes of q, k, v and o. At the encoder's T = 1500 that is
 // about 750 flops per byte, far above the card's 295.
 //
-// Design: one block per (64-query tile, head, batch row), four warps of 16
-// query rows each; the block walks 64-key tiles with an online softmax in
-// fp32, so nothing of size T x T exists anywhere. Head h is the lane slice
-// h*d .. h*d+d-1 of each row, read through the row strides: no (B, H, T, d)
-// copy is made. Every kernel is a template over the head dim d, built for 64
-// (Whisper; XLS-R-300M), 80 (XLS-R-1B) and 120 (XLS-R-2B), with the tiles of
-// `attention.cuh`: d padded with zero columns to DP, the next multiple of
-// WMMA's k = 16 (120 -> 128), so the padding adds nothing to q k^T, and the
-// products with V compute DP - d columns that are never stored (the next
-// head starts there). The scale is the caller's d**-0.5, of d, not DP. T
-// need not be a multiple of the tile: keys at or past T get -inf in the last
-// tile and contribute exactly 0 (the TPU wrapper pads T to its block grid and
-// masks the padding with segment ids instead). As in the
-// stock TPU kernel, scores are the bf16 product accumulated in fp32, then
-// multiplied by the scale; the unnormalised probabilities are rounded to bf16
-// for the product with V, and the sum is divided by the fp32 row sum at the
-// end. Scores and P @ V go through bf16 WMMA fragments staged in shared memory,
-// where two lanes share each query row for the softmax and the running output.
-// The training launch also writes each row's final max m and its sum of
-// exp(s - m), l (the stock kernel's residuals), in fp32 (B, H, T).
+// Design: the forward (`flash_fwd_kernel`) runs on the Hopper mainloop of
+// `attention.cuh` (namespace fwd): 128 query rows of one head a block, two
+// consumer warpgroups and a producer that copies 128-key tiles of K and V by
+// TMA into a three-stage ring, both products on wgmma and the online softmax in
+// registers, so nothing of size T x T exists anywhere and S, P and P V never
+// touch shared memory. Head h is the lane slice h*d .. h*d+d-1 of each row,
+// read through the row strides (the tensor maps' 4-D view): no (B, H, T, d)
+// copy is made. Built for head dims 64 (Whisper; XLS-R-300M), 80 (XLS-R-1B,
+// products over 80 columns) and 120 (XLS-R-2B, its tiles padded with zero
+// columns to 128 by TMA); o is stored only below d, so nothing lands in the
+// next head. The scale is the caller's d**-0.5. T need not be a multiple of
+// the tile: keys at or past T get -inf in the last tile and contribute
+// exactly 0 (the TPU wrapper pads T to its block grid and masks the padding
+// with segment ids instead). As in the stock TPU kernel, scores are the bf16
+// product accumulated in fp32, then multiplied by the scale (folded into the
+// exponent's base-2 factor); the unnormalised probabilities are rounded to
+// bf16 for the product with V, and the sum is divided by the fp32 row sum at
+// the end. The training launch also writes each row's final max m and its
+// sum of exp(s - m), l (the stock kernel's residuals), in fp32 (B, H, T).
+// The backward's kernels are on the WMMA tiles of `attention.cuh`.
 //
 // Segment ids (kSeg): replaces coral_tpu/models/wav2vec2.py `_flash_attention`
 // (:440), the same stock kernel over q, k, v padded with zero rows to the
@@ -75,123 +75,13 @@ __device__ __forceinline__ void times_b(FragC (&acc)[Head<D>::kNF], const bf16* 
   }
 }
 
-// q, k, v: (B, T, H*D) bf16 with strides (stride_b, stride_t, 1), the same for
-// all three; o: (B, T, H*D) bf16 contiguous; with kStats, m and l: (B, H, T)
-// fp32; with kSeg, seg: (B, Tk) int32 and keys run to Tk (else Tk = T).
+// The forward on the Hopper mainloop (`attention.cuh`, namespace fwd): q, k, v
+// through the tensor maps; args.o, with kStats m and l (args.stat_a, stat_l),
+// with kSeg args.seg (B, Tk) and keys running to Tk (else Tk = T).
 template <int D, bool kStats, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ m_out,
-                     float* __restrict__ l_out, const int* __restrict__ seg, int T, int Tk,
-                     int H, long long stride_b, long long stride_t, float scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF, kHalf = Hd::kHalf;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBQ * kLdH;
-  bf16* Vs = Ks + kBKV * kLdH;
-  bf16* Ps = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdP);
-  int* seg_k = reinterpret_cast<int*>(Ss + kBQ * kLdS);  // kSeg: this tile's key ids
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;  // this lane's query row within the warp's 16
-  const int half = lane & 1;  // which 32 of the 64 keys, and which kHalf of DP columns
-  const long long head = (long long)b * stride_b + h * D;
-
-  load_rows<D>(Qs, q + head, q0, T, stride_t);
-  int seg_q = 0;  // this lane's query's segment
-  if constexpr (kSeg) {
-    seg += (long long)b * Tk;
-    const int t = q0 + warp * 16 + row;
-    seg_q = t < T ? seg[t] : 0;
-  }
-
-  float m = -INFINITY;  // running max of this row's scaled scores
-  float l = 0.0f;       // running sum of exp(score - m)
-  float acc[kHalf];     // running sum of bf16(p) * v for this lane's columns
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
-
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdP;
-  const bf16* Qw = Qs + warp * 16 * kLdH;
-
-  for (int k0 = 0; k0 < (kSeg ? Tk : T); k0 += kBKV) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_rows<D>(Ks, k + head, k0, T, stride_t);
-    load_rows<D>(Vs, v + head, k0, T, stride_t);
-    if constexpr (kSeg) load_seg(seg_k, seg, k0, Tk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows.
-    product_abt<D>(Sw, Qw, Ks);
-
-    // Online softmax over this tile; two lanes per row. Keys past T (Tk) or
-    // of another segment: -inf.
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      bool in;
-      if constexpr (kSeg) in = k0 + c < Tk && seg_k[c] == seg_q;
-      else in = k0 + c < T;
-      sv[j] = in ? Sw[row * kLdS + c] * scale : -INFINITY;
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    // Unmasked: finite, every tile holds a key < T. Segments: -inf while no
-    // key of the row's segment was seen, and the tile's p and alpha are 0.
-    const float m_new = fmaxf(m, mx);
-    float m_use = m_new;
-    if constexpr (kSeg) m_use = m_new == -INFINITY ? 0.0f : m_new;
-    const float alpha = expf(m - m_use);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(sv[j] - m_use);
-      psum += p;
-      Pw[row * kLdP + half * 32 + j] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();
-
-    // P @ V for this warp's 16 rows, staged over S.
-    FragC pv[kNF];
-#pragma unroll
-    for (int j = 0; j < kNF; ++j) wmma::fill_fragment(pv[j], 0.0f);
-    times_b<D>(pv, Pw, Vs);
-#pragma unroll
-    for (int j = 0; j < kNF; ++j)
-      wmma::store_matrix_sync(Sw + j * 16, pv[j], kLdS, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) acc[j] = acc[j] * alpha + Sw[row * kLdS + half * kHalf + j];
-    __syncwarp();
-  }
-
-  const int t = q0 + warp * 16 + row;
-  if (t < T) {
-    float out[kHalf];
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) out[j] = acc[j] / l;
-    bf16* orow = o + ((long long)b * T + t) * ((long long)H * D) + h * D + half * kHalf;
-#pragma unroll
-    for (int j = 0; j < kHalf; j += 8)
-      if (half * kHalf + j < D) coral_store8(orow + j, out + j);
-    if (kStats && half == 0) {
-      const long long i = ((long long)b * H + h) * T + t;
-      m_out[i] = m;
-      l_out[i] = l;
-    }
-  }
+__global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ fwd::Maps maps, const fwd::Args args) {
+  fwd::mainloop<D, fwd::K7<kStats, kSeg>>(maps, args);
 }
 
 // --- Backward ------------------------------------------------------------------
@@ -468,21 +358,6 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, bool kStats, bool kSeg>
-cudaError_t launch_fwd(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k, const bf16* v,
-                       bf16* o, float* m, float* l, const int* seg, int T, int Tk, int H,
-                       long long stride_b, long long stride_t, float scale) {
-  using Hd = Head<D>;
-  constexpr int kSmem = 3 * 64 * Hd::kLdH * 2 + 64 * kLdP * 2 + 64 * Hd::kLdS * 4;
-  static_assert(kSmem + kSegSmem <= kMaxSmem, "the forward's tiles must fit a block");
-  const int smem = kSmem + (kSeg ? kSegSmem : 0);
-  const cudaError_t err = set_smem(flash_fwd_kernel<D, kStats, kSeg>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D, kStats, kSeg><<<grid, kThreads, smem, s>>>(q, k, v, o, m, l, seg, T, Tk, H,
-                                                                 stride_b, stride_t, scale);
-  return cudaGetLastError();
-}
-
 template <int D, bool kSeg>
 cudaError_t launch_flash_bwd(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
                              const bf16* v, const bf16* o, const bf16* dout, const float* m,
@@ -520,27 +395,20 @@ extern "C" int coral_flash_attention_fwd(const void* q, const void* k, const voi
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535) return -1;
   if ((m == nullptr) != (l == nullptr)) return -1;
   if (seg == nullptr ? Tk != T : Tk < T) return -1;
-  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  float *mp = static_cast<float*>(m), *lp = static_cast<float*>(l);
-  const int* sp = static_cast<const int*>(seg);
+  const fwd::Args args{nullptr, nullptr, nullptr, nullptr, static_cast<const int*>(seg),
+                       static_cast<bf16*>(o), static_cast<float*>(m), static_cast<float*>(l),
+                       T, Tk, H, scale};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    cudaError_t err;
+    auto go = [&](auto kernel, auto policy) {
+      return fwd::launch<kD, decltype(policy)>(kernel, q, k, v, args, B, stride_b, stride_t, s);
+    };
     if (seg == nullptr)
-      err = m != nullptr ? launch_fwd<kD, true, false>(grid, s, qp, kp, vp, op, mp, lp, sp, T,
-                                                       Tk, H, stride_b, stride_t, scale)
-                         : launch_fwd<kD, false, false>(grid, s, qp, kp, vp, op, mp, lp, sp, T,
-                                                        Tk, H, stride_b, stride_t, scale);
-    else
-      err = m != nullptr ? launch_fwd<kD, true, true>(grid, s, qp, kp, vp, op, mp, lp, sp, T,
-                                                      Tk, H, stride_b, stride_t, scale)
-                         : launch_fwd<kD, false, true>(grid, s, qp, kp, vp, op, mp, lp, sp, T,
-                                                       Tk, H, stride_b, stride_t, scale);
-    return (int)err;
+      return m != nullptr ? go(flash_fwd_kernel<kD, true, false>, fwd::K7<true, false>{})
+                          : go(flash_fwd_kernel<kD, false, false>, fwd::K7<false, false>{});
+    return m != nullptr ? go(flash_fwd_kernel<kD, true, true>, fwd::K7<true, true>{})
+                        : go(flash_fwd_kernel<kD, false, true>, fwd::K7<false, true>{});
   });
 }
 

@@ -66,6 +66,9 @@ _SIGNATURES = {
     # stride_t, scale, v1, stream (bq null: without biases; lse null: o alone;
     # v1: the v1 forward)
     "coral_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _LL, _LL, _F, _I, _P],
+    # q, k, v, B, T, H, D, stride_b, stride_t, reps: host ns per forward
+    # launch spent encoding its tensor maps (no launch)
+    "coral_attention_fwd_map_ns": [_P] * 3 + [_I, _I, _I, _I, _LL, _LL, _I],
     # q, k, v, bq, bk, bv, key_bias, do, lse, o, dq, dk, dv, db_part, B, T, H,
     # head_dim, stride_b, stride_t, stride_d, scale, sm_scale, stream (bq null:
     # the kernels without biases)

@@ -191,6 +191,27 @@ def attention_bwd_plain(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int
     return dq, dk, dv, db
 
 
+def tma_layout_error(head_dim: int, stride_b: int, stride_t: int, data_ptrs) -> str | None:
+    """Why the forward kernels' tensor maps cannot read bf16 q, k, v of this
+    layout, or None if they can.
+
+    A map reads a (B, T, H*d) tensor whose rows are contiguous as the 4-D
+    tensor (d, H, T, B): its base must be 16-byte aligned, and each stride
+    past the innermost, in bytes (``2 head_dim``, ``2 stride_t``, ``2
+    stride_b``), a positive multiple of 16 below 2**40. The views of one
+    packed (B, T, 3 H*d) projection pass where the separate tensors do.
+    """
+    for what, stride in (("head_dim", head_dim), ("row stride", stride_t),
+                         ("batch stride", stride_b)):
+        nbytes = 2 * stride
+        if nbytes % 16 or not 0 < nbytes < 2**40:
+            return (f"the {what} is {nbytes} bytes; the tensor maps need a positive multiple "
+                    "of 16 bytes below 2**40")
+    if any(ptr % 16 for ptr in data_ptrs):
+        return "q, k and v must start 16-byte aligned"
+    return None
+
+
 def _check(name, q, k, v, bq, bk, bv, key_bias, head_dim):
     B, T, HD = q.shape
     if head_dim not in KERNEL_HEAD_DIMS or HD % head_dim:
@@ -204,10 +225,11 @@ def _check(name, q, k, v, bq, bk, bv, key_bias, head_dim):
         if t.shape != q.shape or t.stride() != q.stride() or t.device != q.device:
             raise ValueError(f"{name}: q, k, v must share shape, strides and device")
     stride_b, stride_t, stride_c = q.stride()
-    if stride_c != 1 or stride_t % 8 or stride_b % 8:
-        raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: the kernel needs 16-byte aligned q, k, v")
+    if stride_c != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    error = tma_layout_error(head_dim, stride_b, stride_t, (t.data_ptr() for t in (q, k, v)))
+    if error is not None:
+        raise ValueError(f"{name}: {error}")
     if (bq is None) != (bk is None) or (bq is None) != (bv is None):
         raise ValueError(f"{name}: give all three biases or none")
     if bq is not None:

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import KERNEL_HEAD_DIMS  # the head dims of attention.cuh's tiles
+from .attention import KERNEL_HEAD_DIMS, tma_layout_error  # attention.cuh's tiles
 
 # The row grid wav2vec2's flash route pads T to (its block sizes, all 128).
 SEGMENT_BLOCK = 128
@@ -146,10 +146,11 @@ def _check(name, q, k, v):
         if t.shape != q.shape or t.stride() != q.stride() or t.device != q.device:
             raise ValueError(f"{name}: q, k, v must share shape, strides and device")
     stride_b, stride_t, stride_h, stride_d = q.stride()
-    if stride_d != 1 or stride_h != d or stride_t % 8 or stride_b % 8:
-        raise ValueError(f"{name}: each row's H*d values must be contiguous and 16-byte aligned")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: the kernel needs 16-byte aligned q, k, v")
+    if stride_d != 1 or stride_h != d:
+        raise ValueError(f"{name}: each row's H*d values must be contiguous")
+    error = tma_layout_error(d, stride_b, stride_t, (t.data_ptr() for t in (q, k, v)))
+    if error is not None:
+        raise ValueError(f"{name}: {error}")
     return B, T, H, stride_b, stride_t
 
 

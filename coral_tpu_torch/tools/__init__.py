@@ -16,6 +16,10 @@ that times every case on the card:
 - ``probe_lane_reduce``: a LayerNorm's row means by lane sums or by a
   ones-matrix product (``tools/probe_lane_reduce.py``).
 
+Beside them, ``fwd_variants`` (no TPU counterpart) times the attention
+forwards against builds with one of their design choices undone
+(``python -m coral_tpu_torch.tools.fwd_variants``).
+
 Each prints one JSON line per case: the median of CUDA-event times, the
 floor (the larger of the case's operations at the H100's dense bf16 peak and
 its bytes at its memory rate), and the card's name and power limit. Without a

@@ -55,6 +55,11 @@ The packed QKV projection of ``fused_qkv_ln`` (``ln_dense``, D 1024, 1280 and
 outputs, dx as the other gradients, db, dgamma and dbeta as fp32 partial
 sums. The attention without in-kernel biases at head_dim 64, 80 and 120 as
 the biased one, and bit for bit the biased kernels' output at zero biases.
+
+The forwards' Hopper mainloop (``attention.cuh``): every instantiation of
+``attention_fwd_kernel`` and ``flash_fwd_kernel`` at head_dim 64, 80 and 120
+and T around its 128-row and 128-key tiles (1 to 1500), separate and packed,
+against the plain versions at the tolerances above.
 """
 
 import numpy as np
@@ -1399,3 +1404,79 @@ def test_qkv_routes_of_a_width_the_kernels_do_not_take_raise_on_the_card(cuda, f
                         ln=layer.layer_norm if flags.get("fused_qkv_ln") else None)
     assert not _build.launch_counts
 
+
+
+# -- the forwards' Hopper mainloop: every instantiation at the tile edges -------------
+
+MAINLOOP_T = [1, 127, 128, 129, 499, 1499, 1500]
+
+
+def _mainloop_qkv(cuda, B, T, H, d, packed):
+    """bf16 (B, T, H*d) q, k, v: separate, or the lane thirds of one packed
+    projection (strided rows)."""
+    q, k, v = (_np(B, T, H * d, seed=11 + i) for i in range(3))
+    if packed:
+        qkv = _on(cuda, np.concatenate([q, k, v], axis=-1), torch.bfloat16)
+        return qkv.split(H * d, dim=-1)
+    return tuple(_on(cuda, a, torch.bfloat16) for a in (q, k, v))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+@pytest.mark.parametrize("T", MAINLOOP_T)
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_attention_forward_mainloop_matches_plain(cuda, d, T, packed):
+    """The three K4 instantiations (with biases and lse, without biases, without
+    stats) at T around the 128-row and 128-key tiles, with a full row, a
+    half-length row, a length-1 row and a fully padded row; o at 8e-3, lse at
+    1e-4; the fully padded row's lse clamped."""
+    H = 2
+    q, k, v = _mainloop_qkv(cuda, 4, T, H, d, packed)
+    bias = tuple(_on(cuda, _np(H * d, seed=20 + i, scale=0.5), torch.bfloat16) for i in range(3))
+    lengths = torch.tensor([T, max(1, T // 2), 1, 0], device=cuda)
+    mask = torch.arange(T, device=cuda)[None, :] < lengths[:, None]
+    key_bias = attention._key_bias(mask)
+    for biases, route in ((bias, "stats_v3"), ((None,) * 3, "stats_v2"), ((None,) * 3, "attention")):
+        o, lse = attention._fwd(q, k, v, *biases, key_bias, d, d**-0.5, route)
+        want_o, want_lse = attention._fwd_plain(q, k, v, *biases, key_bias, d, d**-0.5, route)
+        assert o.shape == (4, T, H * d) and o.is_contiguous()
+        _close(o, want_o, 8e-3)
+        if route == "attention":
+            assert lse is None
+        else:
+            torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+            assert (lse[3] == -1e25).all()
+
+
+def _mainloop_segments(cuda, B, T):
+    """Segment ids of the padded call (B, Tp) whose first key tile holds no
+    key of some rows' segments: rows 0-2 from pad masks (a full, a 200-frame
+    and a length-1 row: the padded queries of row 1 see only valid keys in
+    keys 0..127 when T > 200), row 3 ids (t // 200) % 3 + 1, so its queries
+    past 199 find no key of their segment among the first 128 keys."""
+    lengths = torch.tensor([T, min(T, 200), 1], device=cuda)
+    ids = flash_attention.segment_ids(torch.arange(T, device=cuda)[None, :] < lengths[:, None])
+    Tp = ids.shape[1]
+    custom = (torch.arange(Tp, device=cuda) // 200) % 3 + 1
+    custom[T:] = 0
+    return torch.cat([ids, custom[None].to(torch.int32)])[:B].contiguous()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+@pytest.mark.parametrize("T", MAINLOOP_T)
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_flash_forward_mainloop_matches_plain(cuda, d, T, packed):
+    """The four K7 instantiations (unmasked and with segment ids, each with
+    and without m and l) at T around the tiles, against the plain versions
+    of the padded call: o at 8e-3, m and l at rtol 1e-5; the serving o is the
+    training o bit for bit."""
+    B, H = 4, 2
+    q, k, v = (t.view(B, T, H, d) for t in _mainloop_qkv(cuda, B, T, H, d, packed))
+    for ids in (None, _mainloop_segments(cuda, B, T)):
+        o_serve = flash_attention.flash_self_attention(q, k, v, segment_ids=ids)
+        o, l, m = flash_attention.flash_attention_fwd(q, k, v, segment_ids=ids)
+        want = flash_attention._padded_fwd_plain(q, k, v, ids)
+        assert o.shape == (B, T, H, d) and o.is_contiguous()
+        _close(o, want[0], 8e-3)
+        assert torch.equal(o, o_serve)
+        torch.testing.assert_close(l, want[1], rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(m, want[2], rtol=1e-5, atol=1e-6)
