@@ -33,8 +33,11 @@ non-zero before the result line is printed:
    Whisper's encoder flash attention, decode self-attention (K = 1, and K = 5
    beams at a reduced batch), decode cross-attention and the FFN at D = 1280;
    Whisper training's flash forward with its row stats, the flash backward's
-   dkv and dq kernels, and the FFN's dropout forward, its backward (at the
-   encoder's and the decoder's rows) and the LN backward at D = 1280; and
+   dq and dkv kernels (dq first: it writes the di that dkv reads) and the
+   pair as one call, launched twice for the same bits (so too with segment
+   ids at head_dim 64, 80 and 120), each instantiation's registers and spill
+   bytes from ptxas's report, and the FFN's dropout forward, its backward (at
+   the encoder's and the decoder's rows) and the LN backward at D = 1280; and
    each kernel at the other configs' widths: the LN forward at 1280 and 1920,
    the attention forward and backward at head_dim 80 and 120, the FFN's three
    kernels at 384, 512, 768 and 1920, the LN backward at 384, 768 and 1920;
@@ -43,8 +46,8 @@ non-zero before the result line is printed:
    ``aten.native_layer_norm_backward``; each row's share of its bound and
    its ratio to the library call, by events and by device time (a single
    call's events time holds its host launch path); the host time a forward
-   launch spends
-   encoding its TMA tensor maps, at head_dim 64, 80 and 120; then the H100 probes
+   launch and a flash backward launch spend encoding their TMA tensor maps,
+   at head_dim 64, 80 and 120; then the H100 probes
    (``coral_tpu_torch/tools``): the K3 backward's seven modes at FE blocks 1
    and 5 (batch 8 x 10 s; ``full`` bit for bit the production backward),
    each launch timed by CUDA events, and the gelu_cost and lane_reduce
@@ -180,6 +183,7 @@ import collections
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -931,10 +935,36 @@ def kernel_checks(card: str) -> dict:
     return results
 
 
+def flash_bwd_registers(lines: list[str]) -> list[str]:
+    """The flash backward kernels' registers and spill bytes, one line per
+    instantiation, from ptxas's report (``-Xptxas -v``): the launch's
+    registers a thread (setmaxnreg then splits them between the producer and
+    the consumers: 24 / 240 for dq, 40 / 232 for dkv) and the spill stores
+    and loads."""
+    found, current, spill = [], None, "spills not reported"
+    pattern = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)ELb([01])E")
+    for line in lines:
+        match = pattern.search(line)
+        if "Compiling entry function" in line:
+            current = None if match is None else (
+                f"{match[1]}<{match[2]}, {'true' if match[3] == '1' else 'false'}>")
+            spill = "spills not reported"
+        elif current and "spill" in line:
+            spill = line.strip()
+        elif current and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            found.append(f"{current}: {regs[1] if regs else '?'} registers at launch, {spill}")
+            current = None
+        elif current and ("setmaxnreg" in line or "warning" in line):
+            found.append(f"{current}: {line.strip()}")
+    return found
+
+
 def map_encode_us(card: str) -> None:
     """Prints the host time a forward launch spends encoding its TMA tensor
-    maps (q, k and v; two per operand at head_dim 80): the mean of 1,000
-    encodings at the serving shapes' strides, packed q, k, v."""
+    maps (q, k and v; two per operand at head_dim 80), and a flash backward
+    launch (q, k, v and do): the mean of 1,000 encodings at the serving
+    shapes' strides, packed q, k, v."""
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 
@@ -948,6 +978,14 @@ def map_encode_us(card: str) -> None:
             fail(f"the tensor maps at head_dim {d} could not be encoded")
         print(f"  tensor maps of one forward launch at head_dim {d}: {ns / 1e3:.3f} us of "
               f"host time ({6 if d == 80 else 3} maps, mean of 1000; {card})", flush=True)
+        do = torch.empty(BATCH, 1499, 16 * d, device="cuda", dtype=torch.bfloat16)
+        ns = _build.library().coral_flash_attention_bwd_map_ns(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), BATCH, 1499, 16, d,
+            q.stride(0), q.stride(1), 1000)
+        if ns < 0:
+            fail(f"the backward's tensor maps at head_dim {d} could not be encoded")
+        print(f"  tensor maps of one flash backward launch at head_dim {d}: {ns / 1e3:.3f} us of "
+              f"host time ({8 if d == 80 else 4} maps, mean of 1000; {card})", flush=True)
 
 
 def train_kernel_checks(card: str) -> dict:
@@ -1930,6 +1968,58 @@ def layer_norm_bwd_yardstick(x, g, b, dy):
                                                              [True, True, True])
 
 
+def flash_bwd_rows(measure, key, args, ids, want, dkv_flops: float, dq_flops: float,
+                   library) -> None:
+    """Checks and times the flash backward's two kernels at one shape: dq
+    (which also writes di), dkv (from that di) and the pair as one call
+    (``flash_attention_bwd``, under the name ``flash_attention_bwd`` or its
+    segment-id and head-dim form, no kernel row), each beside the plain
+    backward and the library's. ``args`` = (q, k, v, o, l, m, do); ``want``
+    the plain (dq, dk, dv); ``key`` names the rows from the launch names
+    (None: the launch names themselves). The pair is also launched twice and
+    must give the same bits."""
+    from coral_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, o, l, m, do = args
+    T = q.shape[1]
+    name = key or (lambda n: fa._counter(n, ids, q.shape[-1]))
+    want = dict(zip(("dq", "dk", "dv"), want))
+    di = fa.flash_attention_bwd_dq(*args, ids)[1]
+
+    def check(which):
+        if which == "dkv":
+            got = dict(zip(("dk", "dv"), fa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, ids)))
+        elif which == "dq":
+            got = {"dq": fa.flash_attention_bwd_dq(*args, ids)[0]}
+        else:
+            first, again = fa.flash_attention_bwd(*args, ids), fa.flash_attention_bwd(*args, ids)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+            print(f"  {name('flash_attention_bwd')} (T {T}): two launches give the same bits: "
+                  f"{same}", flush=True)
+            got = dict(zip(("dq", "dk", "dv"), first))
+        label = name("flash_attention_bwd" + ("" if which == "bwd" else f"_{which}"))
+        res = merge(*(compare_grad(f"{label} {n} (T {T})", g, want[n], GRAD_FRAC["flash_bwd"])
+                      for n, g in got.items()))
+        if which == "bwd":
+            res["ok"] = res["ok"] and same
+        return res
+
+    # Inputs read once (q, k, v, o, do, l, m, the ids), the gradients and di
+    # written once (di read once more by dkv).
+    moved = nbytes(q, k, v, o, do, l, m) + (0 if ids is None else nbytes(ids))
+    plain = (lambda: fa._padded_bwd_plain(*args, ids))
+    measure(name("flash_attention_bwd_dq"), lambda: fa.flash_attention_bwd_dq(*args, ids), plain,
+            functools.partial(check, "dq"),
+            (dq_flops, BF16_FLOPS, moved + nbytes(q, di)), library)
+    measure(name("flash_attention_bwd_dkv"),
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, ids), plain,
+            functools.partial(check, "dkv"),
+            (dkv_flops, BF16_FLOPS, moved - nbytes(o) + nbytes(di) + 2 * nbytes(q)), library)
+    measure(name("flash_attention_bwd"), lambda: fa.flash_attention_bwd(*args, ids), plain,
+            functools.partial(check, "bwd"),
+            (dq_flops + dkv_flops, BF16_FLOPS, moved + 3 * nbytes(q)), library)
+
+
 def whisper_train_kernel_checks(card: str) -> dict:
     """Whisper training's kernels against their plain versions at its shapes:
     whisper-large-v3 (d 1280, 20 heads x 64, FFN 5120), 8 x 30 s (T = 1500
@@ -1966,34 +2056,15 @@ def whisper_train_kernel_checks(card: str) -> dict:
             (4 * BATCH * H * T * T * d, BF16_FLOPS, 4 * nbytes(q) + 2 * BATCH * H * T * 4),
             lib_fwd)
 
-    # Its backward: dk and dv (key-major) and dq (query-major), from the
-    # forward's o, l and m. The plain and library times are of the whole
-    # backward (dq, dk and dv).
+    # Its backward: dq (query-major, launched first; it writes di) and dk, dv
+    # (key-major, from di), from the forward's o, l and m; then the pair as
+    # one call. The plain and library times are of the whole backward (dq, dk
+    # and dv).
     o, l, m = flash_attention.flash_attention_fwd(q, k, v)
     args = (q, k, v, o, l, m, do)
-    want = {}
-
-    def bwd_check(which):
-        if not want:
-            want.update(zip(("dq", "dk", "dv"), flash_attention.flash_attention_bwd_plain(*args)))
-        if which == "dkv":
-            got = dict(zip(("dk", "dv"), flash_attention.flash_attention_bwd_dkv(*args)))
-        else:
-            got = {"dq": flash_attention.flash_attention_bwd_dq(*args)}
-        return merge(*(compare_grad(f"flash_attention_bwd_{which} {n}", g, want[n],
-                                    GRAD_FRAC["flash_bwd"]) for n, g in got.items()))
-
-    # Inputs read once (q, k, v, o, do, l, m), the gradients written once.
-    moved = nbytes(q, k, v, o, do, l, m)
-    measure("flash_attention_bwd_dkv", lambda: flash_attention.flash_attention_bwd_dkv(*args),
-            lambda: flash_attention.flash_attention_bwd_plain(*args),
-            functools.partial(bwd_check, "dkv"),
-            (8 * BATCH * H * T * T * d, BF16_FLOPS, moved + 2 * nbytes(q)), lib_bwd)
-    measure("flash_attention_bwd_dq", lambda: flash_attention.flash_attention_bwd_dq(*args),
-            lambda: flash_attention.flash_attention_bwd_plain(*args),
-            functools.partial(bwd_check, "dq"),
-            (6 * BATCH * H * T * T * d, BF16_FLOPS, moved + nbytes(q)), lib_bwd)
-    del q, k, v, do, heads, o, l, m, args, want, lib_fwd, lib_bwd
+    flash_bwd_rows(measure, None, args, None, flash_attention.flash_attention_bwd_plain(*args),
+                   8 * BATCH * H * T * T * d, 6 * BATCH * H * T * T * d, lib_bwd)
+    del q, k, v, do, heads, o, l, m, args, lib_fwd, lib_bwd
     torch.cuda.empty_cache()
 
     # The FFN block at D = 1280 with activation dropout 0.1: the encoder's
@@ -2728,29 +2799,13 @@ def unfused_kernel_checks(card: str) -> dict:
                     lambda: sdpa(*heads, attn_mask=same))
             o, l, m = fa.flash_attention_fwd(q, k, v, ids)
             args = (q, k, v, o, l, m, do)
-            want = dict(zip(("dq", "dk", "dv"), fa._padded_bwd_plain(*args, ids)))
-
-            def bwd_check(which):
-                if which == "dkv":
-                    got = dict(zip(("dk", "dv"), fa.flash_attention_bwd_dkv(*args, ids)))
-                else:
-                    got = {"dq": fa.flash_attention_bwd_dq(*args, ids)}
-                return merge(*(compare_grad(f"{key('flash_attention_bwd_' + which)} {n} (T {T})",
-                                            g, want[n], GRAD_FRAC["flash_bwd"])
-                               for n, g in got.items()))
-
-            moved = nbytes(q, k, v, o, do, l, m, ids)
             library = sdpa_bwd_yardstick(
                 *heads, fa._pad_rows(do, Tp).transpose(1, 2),
                 attention_bias(torch.where(same, 0.0, float("-inf")), (BATCH, H, Tp, Tp)),
                 d**-0.5)
-            measure(key("flash_attention_bwd_dkv"), lambda: fa.flash_attention_bwd_dkv(*args, ids),
-                    lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dkv"),
-                    (8 * H * d * pairs_bwd, BF16_FLOPS, moved + 2 * nbytes(q)), library)
-            measure(key("flash_attention_bwd_dq"), lambda: fa.flash_attention_bwd_dq(*args, ids),
-                    lambda: fa._padded_bwd_plain(*args, ids), functools.partial(bwd_check, "dq"),
-                    (6 * H * d * pairs_bwd, BF16_FLOPS, moved + nbytes(q)), library)
-            del q, k, v, do, heads, same, o, l, m, args, want, library
+            flash_bwd_rows(measure, key, args, ids, fa._padded_bwd_plain(*args, ids),
+                           8 * H * d * pairs_bwd, 6 * H * d * pairs_bwd, library)
+            del q, k, v, do, heads, same, o, l, m, args, library
             torch.cuda.empty_cache()
 
     # GELU + dropout, rate 0.1: the mask exact (the plain version's Philox bits).
@@ -3761,6 +3816,8 @@ def main() -> int:
                 spills.append(f"{function[:80]}: {line.strip()}")
         print(f"  ptxas, {len(used)} kernels: {'; '.join(used)}; spills: {spills or 'none'}",
               flush=True)
+        for line in flash_bwd_registers(lines):
+            print(f"  {line}", flush=True)
 
     print(f"kernel checks at serving shapes (bf16, batch {BATCH}):", flush=True)
     checks = kernel_checks(card)

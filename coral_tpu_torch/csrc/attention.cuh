@@ -1,11 +1,11 @@
-// The short-T attention's shared pieces: tile shapes by head dim, tile loads,
-// the WMMA score product, and the two backward kernels, which
-// `attention.cu` (the v3 backward) and `attention_rows.cu` (the backwards of
-// the other variants) instantiate; `flash_attention.cu` builds its backward
-// kernels on the same tiles, loads, score product and row stores. The
-// forwards of `attention.cu` and `flash_attention.cu` (v1 aside) share the
-// Hopper mainloop at the end of this file (namespace fwd), with tiles and
-// loads of its own.
+// The attention's shared pieces. On the WMMA tiles (tile shapes by head dim,
+// tile loads, the WMMA score product and row stores): the v1 forward and the
+// two backward kernels that `attention.cu` (the v3 backward) and
+// `attention_rows.cu` (the backwards of the other variants) instantiate. On
+// Hopper's TMA, mbarriers and wgmma, with tiles and loads of their own: the
+// forward mainloop (namespace fwd) that the forwards of `attention.cu` (v1
+// aside) and `flash_attention.cu` share, and the backward mainloop (namespace
+// bwd) of `flash_attention.cu`'s dq and dkv kernels.
 //
 // Layout: q, k, v are (B, T, H*d) with strides (stride_b, stride_t, 1), the
 // same for all three; head h is the lane slice h*d .. h*d+d-1 of each row,
@@ -1179,5 +1179,609 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, const Arg
 }
 
 }  // namespace fwd
+
+// --- The backward mainloop (Hopper: TMA, mbarriers, wgmma) --------------------------
+//
+// Two kernels over one set of pieces, `flash_bwd_dq_kernel` and
+// `flash_bwd_dkv_kernel` (K7's backward, unmasked and with segment ids,
+// `flash_attention.cu`), each a thin kernel over dq() or dkv() with a policy
+// (K7<kSeg>), as the forwards are over fwd::mainloop.
+//
+// Bound on the H100: the tensor cores and the exponentials. Per head the dq
+// kernel makes three T x T x DP products (S = Q K^T, dP = dO V^T, dQ = dS K)
+// and the dkv kernel four (S^T, dP^T, dV = P^T dO, dK = dS^T Q), each with
+// T^2 exponentials, from 5-6 T d bf16 values read or written: 750-1,000 flops
+// a byte at T = 1500, far above the card's 295.
+//
+// Design: a block holds 64 x kWG rows of its own side (kWG = 2 consumer
+// warpgroups) in shared memory, copied once by TMA, and a producer warp
+// streams tiles of the other side into a ring (two stages for dq, three for
+// dkv), each with a `full` and an `empty` mbarrier, as the forward streams K
+// and V:
+// - dq(): one block per 128 query rows of one head holds Q and dO and walks
+//   the key tiles (kN = 128 keys, 64 at d = 120). S = Q K^T and dP = dO V^T
+//   by wgmma from shared memory (both K-major); p and dS = p (dP - di) scale
+//   in registers; dS, packed to bf16 pairs, is the register A operand of dQ
+//   += dS K, K the N-major B operand (the transpose bit, as the forward's
+//   V). The block first forms di = rowsum(o do) of its rows in fp32 from o
+//   and do, once, and writes it to a (B, H, T) scratch.
+// - dkv(): one block per 128 keys holds K and V and walks the query tiles
+//   (kN = 64 queries, 32 at d = 120), in the transposed space: S^T = K Q^T
+//   and dP^T = V dO^T from shared memory; P^T and dS^T per column (query)
+//   from the staged row stats; dV += bf16(P^T) dO and dK += bf16(dS^T) Q, both
+//   with the A operand from registers and dO, Q as N-major B operands. The
+//   producer stages each query tile's c = m log2 e + log2 l and the dq
+//   kernel's di (and, with segments, the ids) beside the tile by plain loads,
+//   issued before it waits for the stage: a (B, H, T) fp32 row at T = 499 is
+//   1,996 bytes, not the 16-byte multiple a tensor map or bulk copy needs.
+// Within a warpgroup a tile's products and its exponentials take turns; the
+// two warpgroups' turns interleave on the SM. (Issuing the scores of tile i +
+// 1 before the accumulating products of tile i, FlashAttention-3's
+// intra-warpgroup overlap, measured slower for dq and no faster for dkv on
+// the card, with three stages each; not kept.) Computing S = Q K^T in the
+// dkv kernel (FlashAttention-3's choice) would make P and dS the B operands
+// of dV and dK, which wgmma reads only from shared memory; in the transposed
+// space both accumulating products take them from registers, so nothing of
+// S, P, dP or dS passes through shared memory in either kernel. There are no
+// atomics: dq is summed in registers over every key tile by the one block
+// that owns its rows, so the gradients are the same bits on every run.
+//
+// Tiles and registers (setmaxnreg): the dq consumer holds dQ (DP / 2
+// registers a thread), S and dP (kN) and dS's fragments (kN / 4): 128-key
+// tiles at d = 64 and 80, 64 at 120, in 240 registers beside a 24-register
+// producer. The dkv consumer holds dK and dV (64, 80, 128 registers a thread
+// at d = 64, 80, 120), S^T and dP^T (kN) and their fragments (kN / 2): 64
+// queries, 32 at d = 120, in 232 registers; its producer keeps a tile's row
+// stats in flight in 40 (at 24 it spilled 20-36 bytes). No instantiation
+// spills (ptxas, `chip_smoke.py`).
+namespace bwd {
+
+constexpr int kWG = 2;             // consumer warpgroups of a block
+constexpr int kRows = 64 * kWG;    // the block's own rows (queries or keys)
+constexpr int kThreads = 128 * (kWG + 1);
+
+// Keys of a dq tile and queries of a dkv tile at head dim D.
+__host__ __device__ constexpr int dq_tile(int D) { return D == 120 ? 64 : 128; }
+__host__ __device__ constexpr int dkv_tile(int D) { return D == 120 ? 32 : 64; }
+
+// The policies. K7 (the stock TPU flash kernel's backward): p rebuilt from
+// the forward's m and l, scores scaled by d**-0.5, keys (dq) or queries
+// (dkv) past T masked; with kSeg, pairs of different segment ids too.
+template <bool kSeg_>
+struct K7 {
+  static constexpr bool kSeg = kSeg_;
+};
+
+// A kernel's tiles at head dim D: kN-row streamed tiles in a ring of
+// kStages, kVecs words per streamed row, and setmaxnreg's split (kProducer
+// registers a producer thread, kConsumer a consumer's). Shared memory: two
+// resident operands (kRows rows: the dq kernel's Q and dO, the dkv kernel's
+// K and V), then kStages x two streamed ones (kN rows: K and V; Q and dO),
+// each a 1024-aligned tile of the forward's two column blocks; the stages'
+// row vectors; the mbarriers (the resident copy's, then full and empty per
+// stage) and 1 KB to align the base.
+template <int D, int kN_, int kVecs_, int kStages_, int kProducer_, int kConsumer_>
+struct Layout {
+  static constexpr int kN = kN_, kVecs = kVecs_, kStages = kStages_;
+  static constexpr int kProducer = kProducer_, kConsumer = kConsumer_;
+  // The split must fit what the launch gives the block: 65536 registers over
+  // its threads, in units of 8 a thread.
+  static_assert(128 * kProducer + 128 * kWG * kConsumer <= kThreads * (65536 / kThreads / 8 * 8),
+                "setmaxnreg's split exceeds the block's registers");
+  static constexpr int kW1 = fwd::Tile<D, 2>::kW1;
+  static constexpr int kRB1 = kW1 * 2;
+  static constexpr int kResBlk0 = kRows * 128;
+  static constexpr int kRes = kResBlk0 + kRows * kRB1;
+  static constexpr int kBlk0 = kN * 128;
+  static constexpr int kTile = kBlk0 + kN * kRB1;
+  static_assert(kResBlk0 % 1024 == 0 && kRes % 1024 == 0 && kBlk0 % 1024 == 0 &&
+                    kTile % 1024 == 0,
+                "each tile 1024-aligned");
+  static constexpr int kVec = 2 * kRes + 2 * kStages * kTile;
+  static constexpr int kBars = kVec + kStages * kVecs * kN * 4;
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "the backward's tiles must fit a block");
+  static __host__ __device__ constexpr int res(int i) { return i * kRes; }
+  static __host__ __device__ constexpr int tile(int s, int i) { return 2 * kRes + (2 * s + i) * kTile; }
+  static __host__ __device__ constexpr int vec(int s, int j) {
+    return kVec + (s * kVecs + j) * kN * 4;
+  }
+};
+// dq: the key ids with kSeg, two stages. dkv: c, di (and the query ids),
+// three stages, and 40 producer registers for the row stats in flight (at
+// 24 they spilled).
+template <int D, bool kSeg>
+using DqLayout = Layout<D, dq_tile(D), kSeg ? 1 : 0, 2, 24, 240>;
+template <int D, bool kSeg>
+using DkvLayout = Layout<D, dkv_tile(D), kSeg ? 3 : 2, 3, 40, 232>;
+
+// The tensor maps: the resident operands' (boxes of kRows rows) and the
+// streamed ones' (boxes of kN rows), [operand][column block].
+struct Maps {
+  CUtensorMap res[2][2], str[2][2];
+};
+
+struct Args {
+  const bf16* o;     // dq: (B, T, H*D) bf16 contiguous
+  const bf16* dout;  // the same layout
+  const float* m;    // (B, H, T) fp32: the forward's row max of the scaled scores
+  const float* l;    // and row sum of exp(s - m)
+  const int* seg;    // kSeg: (B, Tk) int32
+  float* di;         // (B, H, T) fp32: rowsum(o do), written by dq, read by dkv
+  bf16* out0;        // dq: dq; dkv: dk; (B, T, H*D) bf16 contiguous
+  bf16* out1;        // dkv: dv
+  int T, Tk, H;
+  float scale;       // d**-0.5
+};
+
+// Initialises the mbarriers (thread 0), then a block-wide barrier.
+template <int kStages>
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // full: the producer warp's 32 arrivals and the copy's expect_tx;
+      // empty: the consumers' warps.
+      hopper::mbar_init(bars + 8 + 8 * s, 33);
+      hopper::mbar_init(bars + 8 + 8 * (kStages + s), 4 * kWG);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// The producer warp: the resident operands once, then each streamed tile into
+// its stage once the consumers released it, with its row vectors:
+// vec(row, words) gives words[0 .. kVecs) of streamed row `row` (all rows,
+// also those past T), by the warp's 32 lanes, loaded before the wait for
+// the stage so that their latency overlaps it.
+template <class L, class Vec>
+__device__ __forceinline__ void produce(const Maps& maps, uint32_t base, int r0, int h, int b,
+                                        int n_tiles, Vec&& vec) {
+  constexpr int kN = L::kN, kVecs = L::kVecs, kStages = L::kStages;
+  hopper::reg_dealloc<L::kProducer>();
+  const int t = threadIdx.x;
+  if (t >= 32) return;
+  const uint32_t bars = base + L::kBars;
+  if (t == 0) {
+    hopper::prefetch_tensormap(&maps.str[0][0]);
+    hopper::prefetch_tensormap(&maps.str[1][0]);
+    hopper::mbar_arrive_expect_tx(bars, 2 * L::kRes);
+    for (int i = 0; i < 2; ++i) {
+      hopper::tma_load_4d(base + L::res(i), &maps.res[i][0], bars, 0, h, r0, b);
+      if constexpr (L::kW1 > 0)
+        hopper::tma_load_4d(base + L::res(i) + L::kResBlk0, &maps.res[i][1], bars, 64, h, r0, b);
+    }
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t full = bars + 8 + 8 * s;
+    const int n0 = i * kN;
+    uint32_t words[kN / 32][kVecs > 0 ? kVecs : 1];
+    if constexpr (kVecs > 0) {
+#pragma unroll
+      for (int r = 0; r < kN / 32; ++r) vec(n0 + t + 32 * r, words[r]);
+    }
+    hopper::mbar_wait(bars + 8 + 8 * (kStages + s), ((i / kStages) & 1) ^ 1);
+    if (t == 0) {
+      hopper::mbar_arrive_expect_tx(full, 2 * L::kTile);
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t dst = base + L::tile(s, j);
+        hopper::tma_load_4d(dst, &maps.str[j][0], full, 0, h, n0, b);
+        if constexpr (L::kW1 > 0)
+          hopper::tma_load_4d(dst + L::kBlk0, &maps.str[j][1], full, 64, h, n0, b);
+      }
+    }
+    if constexpr (kVecs > 0) {
+#pragma unroll
+      for (int r = 0; r < kN / 32; ++r)
+#pragma unroll
+        for (int j = 0; j < kVecs; ++j)
+          hopper::st_shared_b32(base + L::vec(s, j) + 4 * (t + 32 * r), words[r][j]);
+    }
+    hopper::mbar_arrive(full);
+  }
+}
+
+// A consumer thread's place in its warpgroup's 64 x N accumulators: rows
+// `row` and row + 8, columns 8 j + 2 quad + {0, 1}.
+struct Lane {
+  int wg, lane, row, quad;
+  __device__ Lane() {
+    wg = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    lane = t % 32;
+    row = 16 * (t / 32) + lane / 4;
+    quad = lane % 4;
+  }
+};
+
+// The 64 x kN product A B^T into d (fresh): A the warpgroup's 64 resident rows
+// (column blocks at a0, a1), B a streamed tile at bt, both K-major.
+template <int D, class L, int kN>
+__device__ __forceinline__ void product_abt(float (&d)[kN / 2], uint32_t a0, uint32_t a1,
+                                            uint32_t bt) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    hopper::wgmma_ss<kN>(d, hopper::smem_desc(a0 + 32 * j, 1024, 128),
+                         hopper::smem_desc(bt + 32 * j, 1024, 128), j > 0);
+  if constexpr (L::kW1 == 64) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      hopper::wgmma_ss<kN>(d, hopper::smem_desc(a1 + 32 * j, 1024, 128),
+                           hopper::smem_desc(bt + L::kBlk0 + 32 * j, 1024, 128), 1);
+  } else if constexpr (L::kW1 == 16) {
+    hopper::wgmma_ss<kN>(d, hopper::smem_desc(a1, 256, 32),
+                         hopper::smem_desc(bt + L::kBlk0, 256, 32), 1);
+  }
+}
+
+// acc (64 x DP, column blocks acc0 and acc1) += A B: A (64 x kN) the bf16
+// register fragments a, B a streamed kN x DP tile at bt, N-major.
+template <class L, int kN>
+__device__ __forceinline__ void product_ab(float (&acc0)[32], float (&acc1)[L::kW1 > 0 ? L::kW1 / 2 : 1],
+                                           const uint32_t (&a)[kN / 16][4], uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    hopper::wgmma_m64n64k16_rs(acc0, a[kk], hopper::smem_desc(bt + kk * 2048, 1024, 128));
+    if constexpr (L::kW1 == 64)
+      hopper::wgmma_m64n64k16_rs(acc1, a[kk],
+                                 hopper::smem_desc(bt + L::kBlk0 + kk * 2048, 1024, 128));
+    else if constexpr (L::kW1 == 16)
+      hopper::wgmma_m64n16k16_rs(acc1, a[kk], hopper::smem_desc(bt + L::kBlk0 + kk * 512, 256, 32));
+  }
+}
+
+// The 64 x kN accumulator x as bf16 A fragments of kN / 16 k-steps.
+template <int kN>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[kN / 16][4], const float (&x)[kN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    a[kk][0] = fwd::pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = fwd::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = fwd::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = fwd::pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.0f;
+}
+
+// Rows t0 and t0 + 8 of a (B, T, H*D) bf16 output from a 64 x DP accumulator
+// (column blocks x0, x1): only rows below T and columns below D.
+template <int D, class L>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&x0)[32],
+                                           const float (&x1)[L::kW1 > 0 ? L::kW1 / 2 : 1],
+                                           int b, int h, int t0, int T, int H, int quad) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = t0 + 8 * half;
+    if (t >= T) continue;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(out + (((long long)b * T + t) * H + h) * D);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      orow[4 * j + quad] = fwd::pack_bf16(x0[4 * j + 2 * half], x0[4 * j + 2 * half + 1]);
+    if constexpr (L::kW1 > 0) {
+#pragma unroll
+      for (int j = 0; j < L::kW1 / 8; ++j)
+        if (64 + 8 * j < D)
+          orow[32 + 4 * j + quad] = fwd::pack_bf16(x1[4 * j + 2 * half], x1[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// di = rowsum(o do) of query row t (0 past T) in fp32: the four lanes that
+// share the row take its 16-byte chunks in turn, then sum across the four.
+template <int D>
+__device__ __forceinline__ float row_di(const Args& a, int b, int h, int t, int quad) {
+  float s = 0.0f;
+  if (t < a.T) {
+    const long long off = (((long long)b * a.T + t) * a.H + h) * D;
+    for (int c = quad; c < D / 8; c += 4) {
+      float x[8], y[8];
+      coral_load8(a.o + off + 8 * c, x);
+      coral_load8(a.dout + off + 8 * c, y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += x[e] * y[e];
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+// p's offset in log2 units, m log2 e + log2 l, of query row t; +inf past T
+// (p = 0).
+__device__ __forceinline__ float row_c(const Args& a, int b, int h, int t) {
+  if (t >= a.T) return INFINITY;
+  const long long i = ((long long)b * a.H + h) * a.T + t;
+  return a.m[i] * fwd::kLog2e + log2f(a.l[i]);
+}
+
+// The query-major kernel's block: dq of 128 query rows, and their di.
+template <int D, class P>
+__device__ __forceinline__ void dq(const Maps& maps, const Args& a) {
+  using L = DqLayout<D, P::kSeg>;
+  constexpr int kN = L::kN, kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const float* vecs = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kVec);
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (a.T + kN - 1) / kN;  // keys past T add nothing: k = v = 0 there
+  const uint32_t bars = base + L::kBars;
+  init_bars<kStages>(bars);
+  if (threadIdx.x < 128) {
+    produce<L>(maps, base, q0, h, b, n_tiles, [&](int key, uint32_t* w) {
+      w[0] = key < a.Tk ? (uint32_t)a.seg[(long long)b * a.Tk + key] : 0u;
+    });
+    return;
+  }
+  hopper::reg_alloc<L::kConsumer>();
+  const Lane ln;
+  const int t0 = q0 + 64 * ln.wg + ln.row, t1 = t0 + 8;
+  const float di0 = row_di<D>(a, b, h, t0, ln.quad), di1 = row_di<D>(a, b, h, t1, ln.quad);
+  if (ln.quad == 0) {
+    const long long i = ((long long)b * a.H + h) * a.T;
+    if (t0 < a.T) a.di[i + t0] = di0;
+    if (t1 < a.T) a.di[i + t1] = di1;
+  }
+  const float nc0 = -row_c(a, b, h, t0), nc1 = -row_c(a, b, h, t1);
+  int seg0 = 0, seg1 = 0;
+  if constexpr (P::kSeg) {
+    const int* seg = a.seg + (long long)b * a.Tk;
+    seg0 = t0 < a.T ? seg[t0] : 0;
+    seg1 = t1 < a.T ? seg[t1] : 0;
+  }
+  const float ex = a.scale * fwd::kLog2e;
+  const uint32_t qa0 = base + L::res(0) + ln.wg * 64 * 128;
+  const uint32_t qa1 = base + L::res(0) + L::kResBlk0 + ln.wg * 64 * L::kRB1;
+  const uint32_t da0 = base + L::res(1) + ln.wg * 64 * 128;
+  const uint32_t da1 = base + L::res(1) + L::kResBlk0 + ln.wg * 64 * L::kRB1;
+
+  float dq0[32], dq1[L::kW1 > 0 ? L::kW1 / 2 : 1];
+  float sc[kN / 2], dp[kN / 2];  // S and dP of a key tile, then p and dS in place
+  uint32_t ds[kN / 16][4];       // dS, the A operand of dQ += dS K
+  zero(dq0);
+  zero(dq1);
+  // S = Q K^T and dP = dO V^T of the key tile in stage s, issued as one group.
+  auto scores = [&](int s) {
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+    product_abt<D, L, kN>(sc, qa0, qa1, base + L::tile(s, 0));
+    product_abt<D, L, kN>(dp, da0, da1, base + L::tile(s, 1));
+    hopper::wgmma_commit();
+  };
+  // dp <- dS = p (dP - di) scale of key tile i in stage s, p = 0 for keys
+  // past T or of another segment.
+  auto grads = [&](int i, int s) {
+    const int n_valid = a.T - i * kN;
+    const float* ids = vecs + s * L::kVecs * kN;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int c = 8 * j + 2 * ln.quad;
+      bool in00 = c < n_valid, in01 = c + 1 < n_valid;
+      bool in10 = in00, in11 = in01;
+      if constexpr (P::kSeg) {
+        const int2 id = *reinterpret_cast<const int2*>(ids + c);
+        in00 = in00 && id.x == seg0;
+        in01 = in01 && id.y == seg0;
+        in10 = in10 && id.x == seg1;
+        in11 = in11 && id.y == seg1;
+      }
+      const float p00 = in00 ? fwd::fast_exp2(fmaf(sc[4 * j], ex, nc0)) : 0.0f;
+      const float p01 = in01 ? fwd::fast_exp2(fmaf(sc[4 * j + 1], ex, nc0)) : 0.0f;
+      const float p10 = in10 ? fwd::fast_exp2(fmaf(sc[4 * j + 2], ex, nc1)) : 0.0f;
+      const float p11 = in11 ? fwd::fast_exp2(fmaf(sc[4 * j + 3], ex, nc1)) : 0.0f;
+      dp[4 * j] = (dp[4 * j] - di0) * p00 * a.scale;
+      dp[4 * j + 1] = (dp[4 * j + 1] - di0) * p01 * a.scale;
+      dp[4 * j + 2] = (dp[4 * j + 2] - di1) * p10 * a.scale;
+      dp[4 * j + 3] = (dp[4 * j + 3] - di1) * p11 * a.scale;
+    }
+  };
+  hopper::mbar_wait(bars, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    hopper::mbar_wait(bars + 8 + 8 * s, (i / kStages) & 1);
+    scores(s);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    grads(i, s);
+    pack_a<kN>(ds, dp);
+    hopper::fence_regs(dq0);
+    hopper::fence_regs(dq1);
+    hopper::wgmma_fence();
+    product_ab<L, kN>(dq0, dq1, ds, base + L::tile(s, 0));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq0);
+    hopper::fence_regs(dq1);
+    if (ln.lane == 0) hopper::mbar_arrive(bars + 8 + 8 * (kStages + s));
+  }
+  store_rows<D, L>(a.out0, dq0, dq1, b, h, t0, a.T, a.H, ln.quad);
+}
+
+// The key-major kernel's block: dk and dv of 128 keys.
+template <int D, class P>
+__device__ __forceinline__ void dkv(const Maps& maps, const Args& a) {
+  using L = DkvLayout<D, P::kSeg>;
+  constexpr int kN = L::kN, kVecs = L::kVecs, kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const float* vecs = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kVec);
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (a.T + kN - 1) / kN;  // queries past T add nothing: do = 0 there
+  const uint32_t bars = base + L::kBars;
+  init_bars<kStages>(bars);
+  if (threadIdx.x < 128) {
+    const long long stat = ((long long)b * a.H + h) * a.T;
+    produce<L>(maps, base, k0, h, b, n_tiles, [&](int q, uint32_t* w) {
+      const bool in = q < a.T;
+      w[0] = __float_as_uint(row_c(a, b, h, q));
+      w[1] = __float_as_uint(in ? a.di[stat + q] : 0.0f);
+      if constexpr (P::kSeg) w[2] = in ? (uint32_t)a.seg[(long long)b * a.Tk + q] : 0u;
+    });
+    return;
+  }
+  hopper::reg_alloc<L::kConsumer>();
+  const Lane ln;
+  const int r0 = k0 + 64 * ln.wg + ln.row, r1 = r0 + 8;  // this thread's keys
+  int seg0 = 0, seg1 = 0;
+  if constexpr (P::kSeg) {
+    const int* seg = a.seg + (long long)b * a.Tk;
+    seg0 = r0 < a.T ? seg[r0] : 0;
+    seg1 = r1 < a.T ? seg[r1] : 0;
+  }
+  const float ex = a.scale * fwd::kLog2e;
+  const uint32_t ka0 = base + L::res(0) + ln.wg * 64 * 128;
+  const uint32_t ka1 = base + L::res(0) + L::kResBlk0 + ln.wg * 64 * L::kRB1;
+  const uint32_t va0 = base + L::res(1) + ln.wg * 64 * 128;
+  const uint32_t va1 = base + L::res(1) + L::kResBlk0 + ln.wg * 64 * L::kRB1;
+
+  float dk0[32], dk1[L::kW1 > 0 ? L::kW1 / 2 : 1], dv0[32], dv1[L::kW1 > 0 ? L::kW1 / 2 : 1];
+  float st[kN / 2], dpt[kN / 2];  // S^T and dP^T of a query tile, then P^T and dS^T
+  uint32_t pa[kN / 16][4], da[kN / 16][4];  // P^T and dS^T as A operands
+  zero(dk0);
+  zero(dk1);
+  zero(dv0);
+  zero(dv1);
+  // S^T = K Q^T and dP^T = V dO^T of the query tile in stage s, one group.
+  auto scores = [&](int s) {
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    hopper::wgmma_fence();
+    product_abt<D, L, kN>(st, ka0, ka1, base + L::tile(s, 0));
+    product_abt<D, L, kN>(dpt, va0, va1, base + L::tile(s, 1));
+    hopper::wgmma_commit();
+  };
+  // st <- P^T and dpt <- dS^T per column (query) of the tile in stage s,
+  // from its c and di staged beside it.
+  auto grads = [&](int s) {
+    const float* cs = vecs + s * kVecs * kN;
+    const float* dis = cs + kN;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int col = 8 * j + 2 * ln.quad;
+      const float2 c = *reinterpret_cast<const float2*>(cs + col);
+      const float2 di = *reinterpret_cast<const float2*>(dis + col);
+      float p00 = fwd::fast_exp2(fmaf(st[4 * j], ex, -c.x));
+      float p01 = fwd::fast_exp2(fmaf(st[4 * j + 1], ex, -c.y));
+      float p10 = fwd::fast_exp2(fmaf(st[4 * j + 2], ex, -c.x));
+      float p11 = fwd::fast_exp2(fmaf(st[4 * j + 3], ex, -c.y));
+      if constexpr (P::kSeg) {
+        const int2 id = *reinterpret_cast<const int2*>(dis + kN + col);
+        if (id.x != seg0) p00 = 0.0f;
+        if (id.y != seg0) p01 = 0.0f;
+        if (id.x != seg1) p10 = 0.0f;
+        if (id.y != seg1) p11 = 0.0f;
+      }
+      dpt[4 * j] = (dpt[4 * j] - di.x) * p00 * a.scale;
+      dpt[4 * j + 1] = (dpt[4 * j + 1] - di.y) * p01 * a.scale;
+      dpt[4 * j + 2] = (dpt[4 * j + 2] - di.x) * p10 * a.scale;
+      dpt[4 * j + 3] = (dpt[4 * j + 3] - di.y) * p11 * a.scale;
+      st[4 * j] = p00;
+      st[4 * j + 1] = p01;
+      st[4 * j + 2] = p10;
+      st[4 * j + 3] = p11;
+    }
+  };
+  hopper::mbar_wait(bars, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    hopper::mbar_wait(bars + 8 + 8 * s, (i / kStages) & 1);
+    scores(s);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    grads(s);
+    pack_a<kN>(pa, st);
+    pack_a<kN>(da, dpt);
+    hopper::fence_regs(dv0);
+    hopper::fence_regs(dv1);
+    hopper::fence_regs(dk0);
+    hopper::fence_regs(dk1);
+    hopper::wgmma_fence();
+    product_ab<L, kN>(dv0, dv1, pa, base + L::tile(s, 1));
+    product_ab<L, kN>(dk0, dk1, da, base + L::tile(s, 0));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv0);
+    hopper::fence_regs(dv1);
+    hopper::fence_regs(dk0);
+    hopper::fence_regs(dk1);
+    if (ln.lane == 0) hopper::mbar_arrive(bars + 8 + 8 * (kStages + s));
+  }
+  store_rows<D, L>(a.out0, dk0, dk1, b, h, r0, a.T, a.H, ln.quad);
+  store_rows<D, L>(a.out1, dv0, dv1, b, h, r0, a.T, a.H, ln.quad);
+}
+
+// The maps of one operand (a (B, T, H*D) bf16 tensor with these strides):
+// its column blocks with boxes `rows` rows tall; 0 or the encoder's error.
+template <int D>
+int encode_operand(CUtensorMap (&m)[2], const void* ptr, int B, int T, int H, long long stride_b,
+                   long long stride_t, int rows) {
+  constexpr int kW1 = fwd::Tile<D, 2>::kW1;
+  int err = hopper::encode_heads(&m[0], ptr, D, H, T, B, stride_t, stride_b, 64, rows);
+  if (err != 0 || kW1 == 0) return err;
+  if (kW1 == 64) {
+    m[1] = m[0];
+    return 0;
+  }
+  return hopper::encode_heads(&m[1], ptr, D, H, T, B, stride_t, stride_b, kW1, rows);
+}
+
+// The maps of one launch: q, k, v with the given strides, do contiguous; the
+// dq kernel holds q, do and streams k, v, the dkv kernel the other way round.
+template <int D>
+int encode(Maps* m, bool dq_kernel, const void* q, const void* k, const void* v, const void* dout,
+           int B, int T, int H, long long stride_b, long long stride_t) {
+  struct Operand {
+    const void* ptr;
+    long long stride_b, stride_t;
+  };
+  const long long HD = (long long)H * D;
+  const Operand qo{q, stride_b, stride_t}, ko{k, stride_b, stride_t}, vo{v, stride_b, stride_t},
+      doo{dout, T * HD, HD};
+  const Operand own[2] = {dq_kernel ? qo : ko, dq_kernel ? doo : vo};
+  const Operand other[2] = {dq_kernel ? ko : qo, dq_kernel ? vo : doo};
+  const int n = dq_kernel ? dq_tile(D) : dkv_tile(D);  // the streamed tiles' rows
+  for (int i = 0; i < 2; ++i) {
+    int err = encode_operand<D>(m->res[i], own[i].ptr, B, T, H, own[i].stride_b,
+                                own[i].stride_t, kRows);
+    if (err == 0)
+      err = encode_operand<D>(m->str[i], other[i].ptr, B, T, H, other[i].stride_b,
+                              other[i].stride_t, n);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// Encodes the maps and launches `kernel` (the dq kernel over dq() with
+// kDq, else the dkv kernel over dkv(), policy P) on `s`; the encoder's error
+// or the cudaError_t.
+template <int D, class P, bool kDq, typename Kernel>
+int launch(Kernel kernel, const void* q, const void* k, const void* v, const Args& args, int B,
+           long long stride_b, long long stride_t, cudaStream_t s) {
+  constexpr int kSmem = kDq ? DqLayout<D, P::kSeg>::kSmem : DkvLayout<D, P::kSeg>::kSmem;
+  Maps maps;
+  const int enc = encode<D>(&maps, kDq, q, k, v, args.dout, B, args.T, args.H, stride_b,
+                            stride_t);
+  if (enc != 0) return enc;
+  // Once per kernel and process, as the forwards'.
+  static const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((args.T + kRows - 1) / kRows), (unsigned)args.H, (unsigned)B);
+  kernel<<<grid, kThreads, kSmem, s>>>(maps, args);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
 
 }  // namespace

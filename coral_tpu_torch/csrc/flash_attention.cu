@@ -32,7 +32,7 @@
 // bf16 for the product with V, and the sum is divided by the fp32 row sum at
 // the end. The training launch also writes each row's final max m and its
 // sum of exp(s - m), l (the stock kernel's residuals), in fp32 (B, H, T).
-// The backward's kernels are on the WMMA tiles of `attention.cuh`.
+// The backward's two kernels run on the backward mainloop beside it (below).
 //
 // Segment ids (kSeg): replaces coral_tpu/models/wav2vec2.py `_flash_attention`
 // (:440), the same stock kernel over q, k, v padded with zero rows to the
@@ -45,35 +45,11 @@
 // of the padded call. A tile can hold no key of a row's segment, so a row's
 // running max may still be -inf after a tile, which the update treats as 0.
 // Without segments (kSeg false) the code is the unmasked kernel's.
+#include <chrono>
+
 #include "attention.cuh"
 
 namespace {
-
-constexpr int kSegSmem = 64 * 4;  // one tile's segment ids, after the tiles
-
-// Segment ids of rows r0 .. r0+63 (those at or past n: 0); threads 0..63.
-__device__ __forceinline__ void load_seg(int* dst, const int* seg, int r0, int n) {
-  if (threadIdx.x < 64) dst[threadIdx.x] = r0 + (int)threadIdx.x < n ? seg[r0 + threadIdx.x] : 0;
-}
-
-// acc[j] (16 x 16 each, columns 16j ..) += A (16 x 64, pitch kLdP) times B
-// (64 x DP, pitch kLdH).
-template <int D>
-__device__ __forceinline__ void times_b(FragC (&acc)[Head<D>::kNF], const bf16* A,
-                                        const bf16* B) {
-  using Hd = Head<D>;
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + kk, kLdP);
-#pragma unroll
-    for (int j = 0; j < Hd::kNF; ++j) {
-      FragBr bf;
-      wmma::load_matrix_sync(bf, B + kk * Hd::kLdH + j * 16, Hd::kLdH);
-      wmma::mma_sync(acc[j], a, bf, acc[j]);
-    }
-  }
-}
 
 // The forward on the Hopper mainloop (`attention.cuh`, namespace fwd): q, k, v
 // through the tensor maps; args.o, with kStats m and l (args.stat_a, stat_l),
@@ -86,29 +62,34 @@ __global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
 
 // --- Backward ------------------------------------------------------------------
 //
-// Replaces: coral_tpu/ops/flash_attention.py `_grads`: the stock TPU kernel's
-// dkv backward (`_flash_attention_bwd_dkv`) and coral_tpu/ops/_flash_bwd_patch.py
-// `flash_attention_bwd_dq_fixed`, from the forward's o, l and m.
+// Replaces: coral_tpu/ops/flash_attention.py `_grads` (:123): the stock TPU
+// kernel's dkv backward (`_flash_attention_bwd_dkv`) and coral_tpu/ops/
+// _flash_bwd_patch.py `flash_attention_bwd_dq_fixed` (:145), from the
+// forward's o, l and m.
 //
-// Bound on the H100: the tensor cores: the dkv kernel makes four T x T x d
-// products per head (s, dp, dv, dk), the dq kernel three (s, dp, dq), plus
-// T^2 exponentials in each; the TPU kernels hold (block, block) tiles in VMEM
-// that a Hopper SM cannot.
+// Bound on the H100: the tensor cores and the exponentials: the dq kernel
+// makes three T x T x d products per head (s, dp, dq), the dkv kernel four
+// (s, dp, dv, dk), each with T^2 exponentials; the TPU kernels hold (block,
+// block) tiles in VMEM that a Hopper SM cannot.
 //
-// Design: two kernels and no atomics, so the gradients are reproducible, the
-// split of the wav2vec2 attention backward (csrc/attention.cu). The key-major
-// kernel (one block per 64-key tile, head, batch row) walks the query tiles and
-// accumulates dk and dv in registers, in the transposed space S^T = K Q^T; the
-// query-major kernel walks the key tiles and accumulates dq. Both rebuild the
-// stock kernel's p = exp(s * scale - m) / l from the saved stats and form
-// ds = (dp - di) p scale, with di = rowsum(o * do) in fp32 computed per query
-// tile in each kernel from o and do (the TPU package computes di once, outside
-// its kernels: here each dkv block reads o once more per query tile, 64 x d
-// bf16, half again the q and do it reads anyway). p and ds are rounded to bf16
-// for the products dv = p^T do, dk = ds^T q and dq = ds k, as the stock kernel
-// rounds them to the operands' dtype; sums are fp32. Keys past T are zero rows
-// (s = 0), whose dk and dv are never written; queries past T get m = +inf and
-// so p = 0; the dq kernel gives keys past T p = 0.
+// Design: the two kernels run on the backward mainloop of `attention.cuh`
+// (namespace bwd, policy bwd::K7<kSeg>): TMA copies into an mbarrier ring,
+// wgmma for all seven products, two consumer warpgroups of 64
+// rows and a producer warp, S, P, dP and dS in registers only. The query-major
+// kernel (dq, launched first) holds 128 query rows of Q and dO, streams
+// 128-key tiles of K and V (64 at d = 120, where S, dP and dQ would not fit
+// the registers at 128), and forms di = rowsum(o do) of its rows once,
+// writing it to a (B, H, T) fp32 scratch; the key-major kernel (dk, dv) holds
+// 128 keys of K and V and streams 64-query tiles of Q and dO (32 at d = 120,
+// for dK and dV's 128 registers a thread), with each tile's c = m log2 e +
+// log2 l and di staged beside it. Each kernel computes p = exp2(s scale log2
+// e - c) and ds = ((dp - di) p) scale as the stock kernel does (with ex2 and
+// log2 e folded into one FMA), rounding p and ds to bf16 only as the products'
+// operands; sums are fp32, and there are no atomics, so the gradients are the
+// same bits on every run. Measured on an H100 at Whisper's (8, 1500, 20 x 64):
+// dq at 44% of its bound, dkv at 33% (PERF.md). Keys past T are zero rows (s = 0): the dq kernel masks them by index and
+// the dkv kernel never writes their dk and dv; queries past T get c = +inf
+// and so p = 0. dq, dk and dv are stored only below T and d.
 //
 // With segment ids (kSeg), p = 0 where the query's and the key's ids differ.
 // The padded call's rows at or past T are left out: a query there has do = 0
@@ -116,269 +97,19 @@ __global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
 // has k = v = 0 and adds nothing to dq; its own dk and dv are sliced away.
 // The stats l and m of the forward over Tk keys carry what they did add.
 
-// The shared memory of the two kernels at head dim D: the bf16 tiles (K, V,
-// Q, dO at pitch kLdH; P, dS at kLdP), the staged fp32 S, the query rows' m,
-// 1/l and di; kSeg launches add one tile's segment ids (kSegSmem) after di.
-template <int D>
-struct BwdSmem {
-  using Hd = Head<D>;
-  static constexpr int kDkv = 4 * 64 * Hd::kLdH * 2 + 2 * 64 * kLdP * 2 + 64 * Hd::kLdS * 4 + 3 * 64 * 4;
-  static constexpr int kDq = 4 * 64 * Hd::kLdH * 2 + 64 * kLdP * 2 + 64 * Hd::kLdS * 4 + 3 * 64 * 4;
-  static_assert(kDkv + kSegSmem <= kMaxSmem && kDq + kSegSmem <= kMaxSmem,
-                "each kernel's tiles must fit a block's shared memory");
-};
-
-// m, 1/l and di = rowsum(o * do) of query rows q0 .. q0+63 (dOs already in
-// shared memory); rows past T get m = +inf, 1/l = 1 and di = 0. Two threads a
-// row.
-template <int D>
-__device__ __forceinline__ void flash_query_stats(float* m_s, float* il_s, float* di_s,
-                                                  const float* m_row, const float* l_row,
-                                                  const bf16* dOs, const bf16* o_head, int q0,
-                                                  int T, long long stride_o) {
-  using Hd = Head<D>;
-  const int r = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-  float s = 0.f;
-  if (q0 + r < T) {
-#pragma unroll
-    for (int j = 0; j < Hd::kHalf; j += 8) {
-      const int c = half * Hd::kHalf + j;
-      if (c >= D) break;
-      float a[8], d[8];
-      coral_load8(o_head + (long long)(q0 + r) * stride_o + c, a);
-      coral_load8(dOs + r * Hd::kLdH + c, d);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += a[e] * d[e];
-    }
-  }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  if (half == 0) {
-    const bool in = q0 + r < T;
-    m_s[r] = in ? m_row[q0 + r] : INFINITY;
-    il_s[r] = in ? 1.0f / l_row[q0 + r] : 1.0f;
-    di_s[r] = s;
-  }
-}
-
-// q, k, v as the forward; o, dout: (B, T, H*D) bf16 contiguous; m, l:
-// (B, H, T) fp32; dk, dv: (B, T, H*D) bf16 contiguous; with kSeg, seg:
-// (B, Tk) int32.
+// The query-major kernel: dq and di of 128 query rows of one head.
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ o,
-                         const bf16* __restrict__ dout, const float* __restrict__ m,
-                         const float* __restrict__ l, const int* __restrict__ seg,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Tk, int H,
-                         long long stride_b, long long stride_t, float scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBKV * kLdH;
-  bf16* Qs = Vs + kBKV * kLdH;
-  bf16* dOs = Qs + kBQ * kLdH;
-  bf16* Ps = dOs + kBQ * kLdH;
-  bf16* dSs = Ps + kBKV * kLdP;
-  float* Ss = reinterpret_cast<float*>(dSs + kBKV * kLdP);
-  float* m_s = Ss + kBKV * kLdS;
-  float* il_s = m_s + 64;
-  float* di_s = il_s + 64;
-  int* seg_s = reinterpret_cast<int*>(di_s + 64);  // kSeg: the query tile's ids
-
-  const int k0 = blockIdx.x * kBKV;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;  // this lane's key row within the warp's 16
-  const int half = lane & 1;
-  const long long HD = (long long)H * D;
-  const long long head = (long long)b * stride_b + h * D;
-  const long long ohead = (long long)b * T * HD + h * D;
-  const long long stat = ((long long)b * H + h) * T;
-
-  load_rows<D>(Ks, k + head, k0, T, stride_t);
-  load_rows<D>(Vs, v + head, k0, T, stride_t);
-  int seg_r = 0;  // this lane's key's segment
-  if constexpr (kSeg) {
-    seg += (long long)b * Tk;
-    const int t = k0 + warp * 16 + row;
-    seg_r = t < Tk ? seg[t] : 0;
-  }
-
-  FragC dk_acc[kNF], dv_acc[kNF];
-#pragma unroll
-  for (int j = 0; j < kNF; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.0f);
-    wmma::fill_fragment(dv_acc[j], 0.0f);
-  }
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdP;
-  bf16* dSw = dSs + warp * 16 * kLdP;
-  const bf16* Kw = Ks + warp * 16 * kLdH;
-  const bf16* Vw = Vs + warp * 16 * kLdH;
-
-  for (int q0 = 0; q0 < T; q0 += kBQ) {
-    __syncthreads();  // the previous query tile is no longer read
-    load_rows<D>(Qs, q + head, q0, T, stride_t);
-    load_rows<D>(dOs, dout + ohead, q0, T, HD);
-    if constexpr (kSeg) load_seg(seg_s, seg, q0, T);
-    __syncthreads();
-    flash_query_stats<D>(m_s, il_s, di_s, m + stat, l + stat, dOs, o + ohead, q0, T, HD);
-    __syncthreads();
-
-    // S^T = K_w Q^T for this warp's 16 keys; p^T.
-    product_abt<D>(Sw, Kw, Qs);
-    float p[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      p[j] = expf(Sw[row * kLdS + c] * scale - m_s[c]) * il_s[c];
-      if constexpr (kSeg) p[j] = seg_s[c] == seg_r ? p[j] : 0.0f;
-      Pw[row * kLdP + c] = __float2bfloat16(p[j]);
-    }
-    __syncwarp();
-
-    // dP^T = V_w dO^T; dS^T.
-    product_abt<D>(Sw, Vw, dOs);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      dSw[row * kLdP + c] = __float2bfloat16((Sw[row * kLdS + c] - di_s[c]) * p[j] * scale);
-    }
-    __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q.
-    times_b<D>(dv_acc, Pw, dOs);
-    times_b<D>(dk_acc, dSw, Qs);
-    __syncwarp();
-  }
-
-  store_rows<D, false>(dk_acc, 1.0f, Sw, nullptr, dk + ohead, HD, k0, T, nullptr);
-  store_rows<D, false>(dv_acc, 1.0f, Sw, nullptr, dv + ohead, HD, k0, T, nullptr);
+__global__ void __launch_bounds__(bwd::kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ bwd::Maps maps, const bwd::Args args) {
+  bwd::dq<D, bwd::K7<kSeg>>(maps, args);
 }
 
-// As flash_bwd_dkv_kernel, for dq: (B, T, H*D) bf16 contiguous.
+// The key-major kernel: dk and dv of 128 keys of one head, from the dq
+// kernel's di.
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout, const float* __restrict__ m,
-                        const float* __restrict__ l, const int* __restrict__ seg,
-                        bf16* __restrict__ dq, int T, int Tk, int H, long long stride_b,
-                        long long stride_t, float scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBQ * kLdH;
-  bf16* Ks = dOs + kBQ * kLdH;
-  bf16* Vs = Ks + kBKV * kLdH;
-  bf16* dSs = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdP);
-  float* m_s = Ss + kBQ * kLdS;
-  float* il_s = m_s + 64;
-  float* di_s = il_s + 64;
-  int* seg_s = reinterpret_cast<int*>(di_s + 64);  // kSeg: the key tile's ids
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  const long long HD = (long long)H * D;
-  const long long head = (long long)b * stride_b + h * D;
-  const long long ohead = (long long)b * T * HD + h * D;
-  const long long stat = ((long long)b * H + h) * T;
-
-  load_rows<D>(Qs, q + head, q0, T, stride_t);
-  load_rows<D>(dOs, dout + ohead, q0, T, HD);
-  __syncthreads();
-  flash_query_stats<D>(m_s, il_s, di_s, m + stat, l + stat, dOs, o + ohead, q0, T, HD);
-  int seg_r = 0;  // this lane's query's segment
-  if constexpr (kSeg) {
-    seg += (long long)b * Tk;
-    const int t = q0 + warp * 16 + row;
-    seg_r = t < T ? seg[t] : 0;
-  }
-
-  FragC dq_acc[kNF];
-#pragma unroll
-  for (int j = 0; j < kNF; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* dSw = dSs + warp * 16 * kLdP;
-  const bf16* Qw = Qs + warp * 16 * kLdH;
-  const bf16* dOw = dOs + warp * 16 * kLdH;
-
-  for (int k0 = 0; k0 < T; k0 += kBKV) {
-    __syncthreads();  // the previous key tile is no longer read
-    load_rows<D>(Ks, k + head, k0, T, stride_t);
-    load_rows<D>(Vs, v + head, k0, T, stride_t);
-    if constexpr (kSeg) load_seg(seg_s, seg, k0, T);
-    __syncthreads();
-    const float m_r = m_s[warp * 16 + row];
-    const float il_r = il_s[warp * 16 + row];
-    const float di_r = di_s[warp * 16 + row];
-
-    // S = Q_w K^T; p, 0 for keys past T.
-    product_abt<D>(Sw, Qw, Ks);
-    float p[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      bool in = k0 + c < T;
-      if constexpr (kSeg) in = in && seg_s[c] == seg_r;
-      p[j] = in ? expf(Sw[row * kLdS + c] * scale - m_r) * il_r : 0.0f;
-    }
-    __syncwarp();
-
-    // dP = dO_w V^T; dS.
-    product_abt<D>(Sw, dOw, Vs);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      dSw[row * kLdP + c] = __float2bfloat16((Sw[row * kLdS + c] - di_r) * p[j] * scale);
-    }
-    __syncwarp();
-
-    // dQ += dS K.
-    times_b<D>(dq_acc, dSw, Ks);
-    __syncwarp();
-  }
-
-  store_rows<D, false>(dq_acc, 1.0f, Sw, nullptr, dq + ohead, HD, q0, T, nullptr);
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <int D, bool kSeg>
-cudaError_t launch_flash_bwd(dim3 grid, cudaStream_t s, const bf16* q, const bf16* k,
-                             const bf16* v, const bf16* o, const bf16* dout, const float* m,
-                             const float* l, const int* seg, bf16* dq, bf16* dk, bf16* dv, int T,
-                             int Tk, int H, long long stride_b, long long stride_t, float scale) {
-  const int extra = kSeg ? kSegSmem : 0;
-  cudaError_t err;
-  if (dq == nullptr) {
-    const int smem = BwdSmem<D>::kDkv + extra;
-    err = set_smem(flash_bwd_dkv_kernel<D, kSeg>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<D, kSeg><<<grid, kThreads, smem, s>>>(
-        q, k, v, o, dout, m, l, seg, dk, dv, T, Tk, H, stride_b, stride_t, scale);
-  } else {
-    const int smem = BwdSmem<D>::kDq + extra;
-    err = set_smem(flash_bwd_dq_kernel<D, kSeg>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<D, kSeg><<<grid, kThreads, smem, s>>>(
-        q, k, v, o, dout, m, l, seg, dq, T, Tk, H, stride_b, stride_t, scale);
-  }
-  return cudaGetLastError();
+__global__ void __launch_bounds__(bwd::kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ bwd::Maps maps, const bwd::Args args) {
+  bwd::dkv<D, bwd::K7<kSeg>>(maps, args);
 }
 
 }  // namespace
@@ -412,34 +143,61 @@ extern "C" int coral_flash_attention_fwd(const void* q, const void* k, const voi
   });
 }
 
-// The backward's key-major kernel (dk, dv) when dq is null, else its
-// query-major kernel (dq), at head dim D; the other outputs are then not read.
-// seg as the forward's. Returns the cudaError_t of the launch, or -1 for a
-// shape it was not built for.
+// The backward's query-major kernel (dq, and di = rowsum(o do) into the
+// (B, H, T) fp32 scratch `di`) when dq is non-null, else its key-major kernel
+// (dk, dv, reading di; o is then not read), at head dim D; the dq launch comes
+// first. seg as the forward's. Returns the cudaError_t of the launch, the
+// tensor-map encoder's error, or -1 for a shape it was not built for.
 extern "C" int coral_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* m,
-                                         const void* l, const void* seg, void* dq, void* dk,
-                                         void* dv, int B, int T, int Tk, int H, int D,
+                                         const void* l, const void* seg, void* di, void* dq,
+                                         void* dk, void* dv, int B, int T, int Tk, int H, int D,
                                          long long stride_b, long long stride_t, float scale,
                                          void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 65535 || B > 65535) return -1;
   if (seg == nullptr ? Tk != T : Tk < T) return -1;
-  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  if (di == nullptr || (dq == nullptr && (dk == nullptr || dv == nullptr))) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *op = static_cast<const bf16*>(o),
-             *dop = static_cast<const bf16*>(dout);
-  const float *mp = static_cast<const float*>(m), *lp = static_cast<const float*>(l);
-  const int* sp = static_cast<const int*>(seg);
-  bf16 *dqp = static_cast<bf16*>(dq), *dkp = static_cast<bf16*>(dk), *dvp = static_cast<bf16*>(dv);
+  const bool is_dq = dq != nullptr;
+  const bwd::Args args{static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+                       static_cast<const float*>(m), static_cast<const float*>(l),
+                       static_cast<const int*>(seg), static_cast<float*>(di),
+                       static_cast<bf16*>(is_dq ? dq : dk), static_cast<bf16*>(dv),
+                       T, Tk, H, scale};
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    const cudaError_t err =
-        seg == nullptr
-            ? launch_flash_bwd<kD, false>(grid, s, qp, kp, vp, op, dop, mp, lp, sp, dqp, dkp, dvp,
-                                          T, Tk, H, stride_b, stride_t, scale)
-            : launch_flash_bwd<kD, true>(grid, s, qp, kp, vp, op, dop, mp, lp, sp, dqp, dkp, dvp,
-                                         T, Tk, H, stride_b, stride_t, scale);
-    return (int)err;
+    auto go = [&](auto kernel, auto policy, auto is_dq_kernel) {
+      return bwd::launch<kD, decltype(policy), decltype(is_dq_kernel)::value>(
+          kernel, q, k, v, args, B, stride_b, stride_t, s);
+    };
+    using Yes = std::true_type;
+    using No = std::false_type;
+    if (seg == nullptr)
+      return is_dq ? go(flash_bwd_dq_kernel<kD, false>, bwd::K7<false>{}, Yes{})
+                   : go(flash_bwd_dkv_kernel<kD, false>, bwd::K7<false>{}, No{});
+    return is_dq ? go(flash_bwd_dq_kernel<kD, true>, bwd::K7<true>{}, Yes{})
+                 : go(flash_bwd_dkv_kernel<kD, true>, bwd::K7<true>{}, No{});
+  });
+}
+
+// Host nanoseconds a backward launch spends encoding its tensor maps (four
+// operands, two maps each at d = 80), the mean of `reps` encodings of the dq
+// kernel's maps; -1 for an unbuilt head dim or a failed encoding.
+extern "C" int coral_flash_attention_bwd_map_ns(const void* q, const void* k, const void* v,
+                                                const void* dout, int B, int T, int H, int D,
+                                                long long stride_b, long long stride_t,
+                                                int reps) {
+  if (reps <= 0) return -1;
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    bwd::Maps maps;
+    const auto start = std::chrono::steady_clock::now();
+    for (int i = 0; i < reps; ++i)
+      if (bwd::encode<kD>(&maps, true, q, k, v, dout, B, T, H, stride_b, stride_t) != 0)
+        return -1;
+    const auto ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                        std::chrono::steady_clock::now() - start)
+                        .count();
+    return (int)(ns / reps);
   });
 }

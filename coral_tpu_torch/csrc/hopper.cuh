@@ -1,8 +1,9 @@
-// The Hopper (sm_90a) instructions the attention forwards are built on, as
-// thin PTX wrappers: mbarriers, TMA tensor loads and the host side's tensor
-// maps, warpgroup matrix multiplies (wgmma) with their shared-memory
-// descriptors, named barriers, the async-proxy fence and setmaxnreg. Raw PTX
-// keeps each source's nvcc run at seconds (no CuTe headers).
+// The Hopper (sm_90a) instructions the attention forwards and the flash
+// backward are built on, as thin PTX wrappers: mbarriers, TMA tensor loads and
+// the host side's tensor maps, warpgroup matrix multiplies (wgmma) with their
+// shared-memory descriptors, named barriers, the async-proxy fence and
+// setmaxnreg. Raw PTX keeps each source's nvcc run at seconds (no CuTe
+// headers).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
@@ -185,6 +186,51 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// As wgmma_m64n128k16_ss with B 64 x 16 (D 64 x 64, 32 a thread).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// As wgmma_m64n128k16_ss with B 32 x 16 (D 64 x 32, 16 a thread).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x N fp32, N / 2 a thread) = (scale_d ? D : 0) + A B^T for N = 128, 64
+// or 32, both operands K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 128 || N == 64 || N == 32, "the backward's tile widths");
+  if constexpr (N == 128) wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  else wgmma_m64n32k16_ss(d, desc_a, desc_b, scale_d);
 }
 
 // D (64 x 64 fp32, 32 a thread) += A B: A (64 x 16) bf16 in registers, B (16 x

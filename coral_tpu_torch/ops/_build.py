@@ -114,9 +114,13 @@ _SIGNATURES = {
     # q, k, v, o, m, l, seg, B, T, Tk, H, head_dim, stride_b, stride_t, scale,
     # stream
     "coral_flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_LL, _LL, _F, _P],
-    # q, k, v, o, dout, m, l, seg, dq, dk, dv, B, T, Tk, H, head_dim, stride_b,
-    # stride_t, scale, stream
-    "coral_flash_attention_bwd": [_P] * 11 + [_I] * 5 + [_LL, _LL, _F, _P],
+    # q, k, v, o, dout, m, l, seg, di, dq, dk, dv, B, T, Tk, H, head_dim,
+    # stride_b, stride_t, scale, stream (dq non-null: the dq kernel, which
+    # writes di; else the dkv kernel, which reads it)
+    "coral_flash_attention_bwd": [_P] * 12 + [_I] * 5 + [_LL, _LL, _F, _P],
+    # q, k, v, dout, B, T, H, head_dim, stride_b, stride_t, reps: host ns per
+    # backward launch spent encoding its tensor maps (no launch)
+    "coral_flash_attention_bwd_map_ns": [_P] * 4 + [_I] * 4 + [_LL, _LL, _I],
     # x, dy, out, seeds, B, T, F, threshold, scale, stream
     "coral_gelu_dropout": [_P] * 4 + [_I, _I, _I, _U, _F, _P],
     # q, k, v, mask, part_o, part_ml, out, B, K, n_keys, H, layer, scale, stream

@@ -18,7 +18,12 @@ m is each query row's max of the scaled scores and l its sum of ``exp(s -
 m)``, both fp32 (B, H, T). The backward is the stock kernel's formula:
 ``di = rowsum(o do)`` in fp32, ``p = exp(s scale - m) / l``, ``dv =
 bf16(p)^T do``, ``ds = (do v^T - di) p scale``, ``dk = bf16(ds)^T q``, ``dq =
-bf16(ds) k``, sums in fp32, results in q's dtype.
+bf16(ds) k``, sums in fp32, results in q's dtype. ``flash_attention_bwd``
+launches the dq kernel first, which also writes di as a (B, H, T) fp32
+scratch, then the dkv kernel, which reads it (di is formed once, not once per
+key block); both kernels take q, k, v and do through TMA tensor maps, so their
+layout rule is the forwards' (``tma_layout_error``), checked before the launch
+by ``_check_bwd``, which needs no card.
 
 Segment ids port ``coral_tpu/models/wav2vec2.py`` ``_flash_attention``
 (:440-478): the same stock kernel over q, k and v padded with zero rows to a
@@ -82,22 +87,47 @@ def flash_attention_fwd_plain(q, k, v, segment_ids=None):
     return o.to(dt).transpose(1, 2), l, m
 
 
+def _bwd_p(q, k, l, m, segment_ids):
+    """The stock backward's fp32 (B, H, T, T) ``p = exp(s scale - m) / l``."""
+    return torch.exp(_scores(q, k, segment_ids) - m[..., None]) * (1.0 / l)[..., None]
+
+
+def _bwd_di(o, do):
+    """``di = rowsum(o do)`` in fp32, (B, H, T)."""
+    return (_heads(o) * _heads(do)).sum(dim=-1)
+
+
+def _bwd_ds(v, do, di, p):
+    """``ds = (do v^T - di) p scale`` rounded to the working dtype, in fp32."""
+    scale = v.shape[-1] ** -0.5
+    return ((_heads(do) @ _heads(v).transpose(-1, -2) - di[..., None]) * p * scale).to(
+        v.dtype).float()
+
+
+def _bwd_dq_plain(q, k, v, o, l, m, do, segment_ids=None):
+    """The dq kernel's plain version on (B, T, H, d) at T rows (no padding):
+    (dq (B, T, H, d) in q.dtype, di (B, H, T) fp32)."""
+    di = _bwd_di(o, do)
+    dq = _bwd_ds(v, do, di, _bwd_p(q, k, l, m, segment_ids)) @ _heads(k)
+    return dq.to(q.dtype).transpose(1, 2), di
+
+
+def _bwd_dkv_plain(q, k, v, l, m, do, di, segment_ids=None):
+    """The dkv kernel's plain version: (dk, dv) from di, arguments as
+    ``_bwd_dq_plain``."""
+    p = _bwd_p(q, k, l, m, segment_ids)
+    dv = p.to(q.dtype).float().transpose(-1, -2) @ _heads(do)
+    dk = _bwd_ds(v, do, di, p).transpose(-1, -2) @ _heads(q)
+    return tuple(t.to(q.dtype).transpose(1, 2) for t in (dk, dv))
+
+
 def flash_attention_bwd_plain(q, k, v, o, l, m, do, segment_ids=None):
     """The stock TPU backward (dkv and dq kernels) in plain ops; see the
     module docstring. q, k, v, o, do (B, T, H, d); l, m (B, H, T) fp32;
     ``segment_ids`` (B, T) as the forward's. Returns (dq, dk, dv), (B, T, H,
     d) in q.dtype."""
-    dt = q.dtype
-    scale = q.shape[-1] ** -0.5
-    qh, kh, vh, oh, doh = (_heads(t) for t in (q, k, v, o, do))
-    s = _scores(q, k, segment_ids)
-    p = torch.exp(s - m[..., None]) * (1.0 / l)[..., None]
-    di = (oh * doh).sum(dim=-1, keepdim=True)
-    dv = p.to(dt).float().transpose(-1, -2) @ doh
-    ds = ((doh @ vh.transpose(-1, -2) - di) * p * scale).to(dt).float()
-    dk = ds.transpose(-1, -2) @ qh
-    dq = ds @ kh
-    return tuple(t.to(dt).transpose(1, 2) for t in (dq, dk, dv))
+    dq, di = _bwd_dq_plain(q, k, v, o, l, m, do, segment_ids)
+    return (dq, *_bwd_dkv_plain(q, k, v, l, m, do, di, segment_ids))
 
 
 def _pad_rows(t, Tp):
@@ -115,16 +145,42 @@ def _padded_fwd_plain(q, k, v, segment_ids=None):
     return o[:, :T], l[..., :T], m[..., :T]
 
 
+def _padded_rows(q, l, m, segment_ids):
+    """The padded call's row count Tp (T without ids) and l, m padded to it
+    with 1 and +inf, which give the padded query rows p = 0 (what they add is
+    0 either way: their do is the slice's zero cotangent)."""
+    T = q.shape[1]
+    Tp = T if segment_ids is None else segment_ids.shape[1]
+    lp, mp = (F.pad(t, (0, Tp - T), value=value) for t, value in ((l, 1.0), (m, float("inf"))))
+    return Tp, lp, mp
+
+
+def _padded_dq_plain(q, k, v, o, l, m, do, segment_ids=None):
+    """The dq wrapper's plain version, through the stock call: q, k, v, o, do
+    padded with zero rows to the ids' Tp, then T rows of dq and of di."""
+    T = q.shape[1]
+    Tp, lp, mp = _padded_rows(q, l, m, segment_ids)
+    dq, di = _bwd_dq_plain(*(_pad_rows(t, Tp) for t in (q, k, v, o)), lp, mp, _pad_rows(do, Tp),
+                           segment_ids)
+    return dq[:, :T], di[..., :T]
+
+
+def _padded_dkv_plain(q, k, v, l, m, do, di, segment_ids=None):
+    """The dkv wrapper's plain version, through the stock call, from the dq
+    wrapper's di (0 on the padded rows, as rowsum(o do) is there)."""
+    T = q.shape[1]
+    Tp, lp, mp = _padded_rows(q, l, m, segment_ids)
+    grads = _bwd_dkv_plain(*(_pad_rows(t, Tp) for t in (q, k, v)), lp, mp, _pad_rows(do, Tp),
+                           F.pad(di, (0, Tp - T)), segment_ids)
+    return tuple(g[:, :T] for g in grads)
+
+
 def _padded_bwd_plain(q, k, v, o, l, m, do, segment_ids=None):
     """The wrappers' plain backward, through the stock call: the padded rows
     get do = 0 (the slice's cotangent), and l = 1, m = +inf, which give them
     p = 0 (what they add is 0 either way); then T rows of dq, dk, dv."""
-    T = q.shape[1]
-    Tp = T if segment_ids is None else segment_ids.shape[1]
-    lp, mp = (F.pad(t, (0, Tp - T), value=value) for t, value in ((l, 1.0), (m, float("inf"))))
-    grads = flash_attention_bwd_plain(*(_pad_rows(t, Tp) for t in (q, k, v, o)), lp, mp,
-                                      _pad_rows(do, Tp), segment_ids)
-    return tuple(g[:, :T] for g in grads)
+    dq, di = _padded_dq_plain(q, k, v, o, l, m, do, segment_ids)
+    return (dq, *_padded_dkv_plain(q, k, v, l, m, do, di, segment_ids))
 
 
 def flash_self_attention_plain(q, k, v, segment_ids=None):
@@ -223,57 +279,76 @@ def flash_attention_fwd(q, k, v, segment_ids=None):
     return _launch_fwd(name, "flash_attention_train", q, k, v, True, segment_ids)
 
 
-def _launch_bwd(name, kernel, q, k, v, o, l, m, do, dq, dk, dv, segment_ids):
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: {kernel} takes CUDA tensors; the plain version of the "
-                         "backward is flash_attention_bwd_plain")
+def _check_bwd(name, q, k, v, l, m, do, segment_ids, o=None, di=None):
+    """Raises unless the backward kernels take these tensors (on any device:
+    it runs before the launch); returns (B, T, Tk, H, stride_b, stride_t, the
+    ids' pointer). q, k, v as the forward; o (the dq kernel), do (B, T, H, d)
+    bf16 contiguous; l, m and di (the dkv kernel) (B, H, T) fp32 contiguous;
+    every tensor 16-byte aligned (the tensor maps read do, and q, k, v
+    through ``tma_layout_error``'s rule)."""
     B, T, H, stride_b, stride_t = _check(name, q, k, v)
     seg, Tk = _check_segments(name, q, segment_ids)
-    _build.check_cuda(name, torch.bfloat16, o, do)
-    _build.check_cuda(name, torch.float32, l, m)
-    if o.shape != q.shape or do.shape != q.shape or l.shape != (B, H, T) or m.shape != l.shape:
-        raise ValueError(f"{name}: o and do must be {tuple(q.shape)}, l and m ({B}, {H}, {T})")
-    if o.device != q.device:
-        raise ValueError(f"{name}: tensors on {o.device} and {q.device}")
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    d = q.shape[-1]
-    _build.launch(name, _counter(kernel, segment_ids, d), q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), seg,
-                  ptr(dq), ptr(dk), ptr(dv), B, T, Tk, H, d, stride_b, stride_t, float(d) ** -0.5)
-
-
-def flash_attention_bwd_dkv(q, k, v, o, l, m, do, segment_ids=None):
-    """The key-major backward kernel (the stock ``_flash_attention_bwd_dkv``):
-    (dk, dv), (B, T, H, d) bf16 contiguous. q, k, v and ``segment_ids`` as the
-    forward took them; o, do (B, T, H, d) bf16 contiguous; l, m (B, H, T)
-    fp32. CUDA only."""
-    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    _launch_bwd("coral_flash_attention_bwd", "flash_attention_bwd_dkv", q, k, v, o, l, m, do,
-                None, dk, dv, segment_ids)
-    return dk, dv
+    _build.check_cuda(name, torch.bfloat16, *(t for t in (o, do) if t is not None))
+    _build.check_cuda(name, torch.float32, *(t for t in (l, m, di) if t is not None))
+    if any(t is not None and t.shape != q.shape for t in (o, do)):
+        raise ValueError(f"{name}: o and do must be {tuple(q.shape)}")
+    if any(t is not None and t.shape != (B, H, T) for t in (l, m, di)):
+        raise ValueError(f"{name}: l, m and di must be ({B}, {H}, {T})")
+    if any(t.device != q.device for t in (l, m, do, o, di) if t is not None):
+        raise ValueError(f"{name}: tensors on other devices than {q.device}")
+    return B, T, Tk, H, stride_b, stride_t, seg
 
 
 def flash_attention_bwd_dq(q, k, v, o, l, m, do, segment_ids=None):
-    """The query-major backward kernel (``flash_attention_bwd_dq_fixed``):
-    dq, arguments as ``flash_attention_bwd_dkv``. CUDA only."""
+    """The query-major backward kernel (``flash_attention_bwd_dq_fixed``),
+    launched first: dq and ``di = rowsum(o do)``, the scratch the dkv kernel
+    reads. q, k, v and ``segment_ids`` as the forward took them; o, do (B, T,
+    H, d) bf16 contiguous; l, m (B, H, T) fp32. Returns (dq (B, T, H, d)
+    bf16 contiguous, di (B, H, T) fp32)."""
+    name = "coral_flash_attention_bwd"
+    if not _build.require_cuda(name, q):
+        return _padded_dq_plain(q, k, v, o, l, m, do, segment_ids)
+    B, T, Tk, H, stride_b, stride_t, seg = _check_bwd(name, q, k, v, l, m, do, segment_ids, o=o)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("coral_flash_attention_bwd", "flash_attention_bwd_dq", q, k, v, o, l, m, do,
-                dq, None, None, segment_ids)
-    return dq
+    di = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    d = q.shape[-1]
+    _build.launch(name, _counter("flash_attention_bwd_dq", segment_ids, d), q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(),
+                  l.data_ptr(), seg, di.data_ptr(), dq.data_ptr(), None, None, B, T, Tk, H, d,
+                  stride_b, stride_t, float(d) ** -0.5)
+    return dq, di
+
+
+def flash_attention_bwd_dkv(q, k, v, l, m, do, di, segment_ids=None):
+    """The key-major backward kernel (the stock ``_flash_attention_bwd_dkv``)
+    from the dq kernel's ``di``: (dk, dv), (B, T, H, d) bf16 contiguous;
+    arguments as ``flash_attention_bwd_dq``."""
+    name = "coral_flash_attention_bwd"
+    if not _build.require_cuda(name, q):
+        return _padded_dkv_plain(q, k, v, l, m, do, di, segment_ids)
+    B, T, Tk, H, stride_b, stride_t, seg = _check_bwd(name, q, k, v, l, m, do, segment_ids,
+                                                      di=di)
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    d = q.shape[-1]
+    _build.launch(name, _counter("flash_attention_bwd_dkv", segment_ids, d), q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), None, do.data_ptr(), m.data_ptr(), l.data_ptr(),
+                  seg, di.data_ptr(), None, dk.data_ptr(), dv.data_ptr(), B, T, Tk, H, d,
+                  stride_b, stride_t, float(d) ** -0.5)
+    return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=None):
-    """The backward kernels, dk and dv in one launch and dq in another;
-    arguments and results as ``flash_attention_bwd_plain``, T rows.
+    """The backward kernels: dq (and di) in one launch, then dk and dv from
+    di in another; arguments and results as ``flash_attention_bwd_plain``, T
+    rows. On a CPU tensor the two wrappers' plain versions, which give
+    ``_padded_bwd_plain``'s values.
 
     Args:
         q, k, v, segment_ids: as the forward took them; o, do: (B, T, H, d)
             bf16 contiguous; l, m: (B, H, T) fp32.
     """
-    if not _build.require_cuda("coral_flash_attention_bwd", q):
-        return _padded_bwd_plain(q, k, v, o, l, m, do, segment_ids)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, o, l, m, do, segment_ids)
-    return flash_attention_bwd_dq(q, k, v, o, l, m, do, segment_ids), dk, dv
+    dq, di = flash_attention_bwd_dq(q, k, v, o, l, m, do, segment_ids)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, l, m, do, di, segment_ids))
 
 
 class _FlashAttention(torch.autograd.Function):

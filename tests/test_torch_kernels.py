@@ -59,7 +59,11 @@ the biased one, and bit for bit the biased kernels' output at zero biases.
 The forwards' Hopper mainloop (``attention.cuh``): every instantiation of
 ``attention_fwd_kernel`` and ``flash_fwd_kernel`` at head_dim 64, 80 and 120
 and T around its 128-row and 128-key tiles (1 to 1500), separate and packed,
-against the plain versions at the tolerances above.
+against the plain versions at the tolerances above. The backward mainloop:
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` likewise, at T around
+their 32-, 64- and 128-row tiles, with and without segment ids; the dq
+launch's di against the plain rowsum at 1e-5 of its max; two launches give
+the same bits. Run them with ``-k flash``.
 """
 
 import numpy as np
@@ -1020,7 +1024,9 @@ def test_flash_attention_kernels_write_nothing_past_a_head(cuda, d):
     longer than the output, filled with a sentinel: the last head of the last
     row, if it wrote past its d columns (120 .. 127 of the padded tile at d =
     120), would overwrite it; with H = 2 a spill of the first head would land
-    in the second's columns, which the values' match checks."""
+    in the second's columns, which the values' match checks. The dq launch's
+    di scratch goes to a buffer one (b, h) row longer, which the dkv launch
+    reads."""
     B, T, H = 2, 130, 2
     ids = flash_attention.segment_ids(torch.arange(T, device=cuda)[None, :]
                                       < torch.tensor((130, 70), device=cuda)[:, None])
@@ -1042,12 +1048,16 @@ def test_flash_attention_kernels_write_nothing_past_a_head(cuda, d):
     assert torch.equal(o_buf[:n].view(B, T, H, d), o)
     assert torch.equal(l, l2) and torch.equal(m, m2)
     grads = [buffer() for _ in range(3)]
-    for dq, dk, dv in ((grads[0], None, None), (None, grads[1], grads[2])):
+    di = torch.full((B * H * T + T,), sentinel, device=cuda)  # one (b, h) row longer
+    for dq, dk, dv in ((grads[0], None, None), (None, grads[1], grads[2])):  # dq first
         _build.launch("coral_flash_attention_bwd", "sentinel", *ptrs, o.data_ptr(),
-                      do.data_ptr(), m.data_ptr(), l.data_ptr(), ids.data_ptr(),
+                      do.data_ptr(), m.data_ptr(), l.data_ptr(), ids.data_ptr(), di.data_ptr(),
                       *(None if g is None else g.data_ptr() for g in (dq, dk, dv)), B, T,
                       ids.shape[1], H, d, stride_b, stride_t, float(d) ** -0.5)
     torch.cuda.synchronize()
+    assert (di[B * H * T:] == sentinel).all()
+    assert torch.equal(di[:B * H * T].view(B, H, T),
+                       flash_attention.flash_attention_bwd_dq(q, k, v, o, l, m, do, ids)[1])
     want = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
     for g, w in zip(grads, want):
         assert (g[n:] == sentinel).all()
@@ -1480,3 +1490,47 @@ def test_flash_forward_mainloop_matches_plain(cuda, d, T, packed):
         assert torch.equal(o, o_serve)
         torch.testing.assert_close(l, want[1], rtol=1e-5, atol=0.0)
         torch.testing.assert_close(m, want[2], rtol=1e-5, atol=1e-6)
+
+
+BWD_MAINLOOP_T = (1, 63, 64, 65, 127, 128, 129, 499, 1500)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+@pytest.mark.parametrize("T", BWD_MAINLOOP_T)
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_flash_backward_mainloop_matches_plain(cuda, d, T, packed):
+    """The backward mainloop's four instantiations at each head dim (dq and
+    dkv, unmasked and with segment ids: a full, a 200-frame and a length-1
+    row, and a row whose queries find no key of their segment in the first
+    tiles) at T around its tiles (64 and 128 rows, 32 queries at d = 120),
+    against the plain versions of the padded call: dq, dk and dv as the other
+    gradients, di at 1e-5 of its max; two launches give the same bits. At T =
+    1 every query sees one key, p = 1 and dp = di but for the fp32 rounding of
+    two sums of the same products, so dq and dk are that rounding, on both
+    sides: each is held under 2**-20 d**0.5 max|do| max|v| max|k| (max|q|),
+    about 1e-3 of their size at any other T."""
+    B, H = 4, 2
+    q, k, v = (t.view(B, T, H, d) for t in _mainloop_qkv(cuda, B, T, H, d, packed))
+    do = _on(cuda, _np(B, T, H, d, seed=7), torch.bfloat16)
+    for ids in (None, _mainloop_segments(cuda, B, T)):
+        o, l, m = flash_attention.flash_attention_fwd(q, k, v, segment_ids=ids)
+        base = flash_attention._counter("flash_attention_bwd", ids, d)
+        _build.reset_launch_counts()
+        got = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
+        assert _build.launch_counts == {base.replace("bwd", "bwd_dq"): 1,
+                                        base.replace("bwd", "bwd_dkv"): 1}
+        want = flash_attention._padded_bwd_plain(q, k, v, o, l, m, do, ids)
+        for g, w, other in zip(got, want, (k, q, None)):
+            assert g.shape == (B, T, H, d) and g.is_contiguous()
+            if T == 1 and other is not None:
+                cancelled = 2.0**-20 * d**0.5 * float(do.abs().max() * v.abs().max()
+                                                       * other.abs().max())
+                torch.cuda.synchronize()
+                assert float(g.float().abs().max()) <= cancelled
+                assert float(w.float().abs().max()) <= cancelled
+            else:
+                _close_rel(g, w)
+        di = flash_attention.flash_attention_bwd_dq(q, k, v, o, l, m, do, ids)[1]
+        _close_rel(di, flash_attention._padded_dq_plain(q, k, v, o, l, m, do, ids)[1], 1e-5)
+        again = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
