@@ -23,7 +23,8 @@ non-zero before the result line is printed:
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
 2. the kernels are built from ``coral_tpu_torch/csrc`` and the build time is
-   printed;
+   printed, with the registers and spill bytes of the flash backward's and
+   v1's instantiations from ptxas's report;
 3. each kernel runs at its path's own shapes in bf16 against its plain
    PyTorch version: errors against a stated tolerance, and both times (CUDA
    events, median of 10), with the least time the card could take for the
@@ -149,11 +150,13 @@ non-zero before the result line is printed:
    steps; each with exact launch counts and its ms per step beside (c)'s;
 16. the attention's other routes: the forward without stats, v1's forward
    and the three backwards with their per-row pre-pass checked and timed with
-   the other kernels in phase 3 (forwards at 8 x 1499 rows beside SDPA,
-   backwards at 8 x 499, head_dim 64, 80 and 120; the fully masked row without
-   gradient on the stats routes, with the uniform average's on the others;
-   the forward without stats bit for bit the v2 forward's o; one backward on
-   packed lane thirds); (q) (c)'s configuration with
+   the other kernels in phase 3 (forwards at 8 x 1499 rows beside SDPA, v1's
+   at 8 x 499 too, backwards at 8 x 499, head_dim 64, 80 and 120; the fully
+   masked row without gradient on the stats routes, with the uniform
+   average's on the others; the forward without stats bit for bit the v2
+   forward's o, v1's lse bit for bit the v2 forward's lse; v1's p = e times
+   1 / l against e / l, rounded to bf16 on the card; one backward on packed
+   lane thirds); (q) (c)'s configuration with
    ``attention_save_stats: false``: one serving batch, the kernel path against
    the plain path on one microbatch at activation dropout 0.1, 2 steps; (q')
    with ``attention_o_residual: true``, (r) ``attention_save_stats: v2``: kernel
@@ -265,6 +268,7 @@ GRAD_FRAC = {"attention_bwd": 1e-2, "ffn_bwd": 2e-2, "partials": 1e-3, "conv_bwd
              # alone on the same operands (sums in another order) 1e-3.
              "dw": 1e-2, "dw_kernel": 1e-3}
 LSE_ATOL = 1e-3  # lse is fp32 on both sides; sums in another order
+LOG2E = math.log2(math.e)
 # Kernel path vs plain path logits over the whole model: max |diff| / max |plain|.
 # Both paths round the bf16 residual stream after each of the 24 layers at
 # slightly different values, so the bound is loose; the argmax agreement over
@@ -725,22 +729,28 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def device_ms(fn, reps: int = REPS) -> float | None:
     """The device time of one call of ``fn``: the summed durations of the CUDA
     kernels of ``reps`` calls under ``torch.profiler``, over ``reps``. Unlike
     the events' time it leaves out the host's time to launch them, which sets
-    the events' time of a launch shorter than its Python wrapper."""
+    the events' time of a launch shorter than its Python wrapper. A window in
+    which the profiler caught no kernel is profiled once more; None (not
+    measured) if it caught none again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        total = sum(e.time_range.end - e.time_range.start for e in kernels)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
 
 
 def timed(fn, reps: int) -> float:
@@ -813,12 +823,15 @@ def _measure(results: dict, card: str, name: str, kernel, plain, check, work, li
     res["library_ms"] = None if library is None else median_ms(library)
     res["library_device_ms"] = None if library is None else device_ms(library)
     res["bound_ms"], res["bound_by"] = bound(*work)
-    lib = ("none" if library is None else
-           f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f} ms)")
+    dev = {key: "not measured" if res[key] is None else f"{res[key]:.4f} ms"
+           for key in ("device_ms", "library_device_ms")}
+    lib = "none" if library is None else (
+        f"{res['library_ms']:.4f} ms (device {dev['library_device_ms']})")
     ratio = "" if library is None else (
-        f", {res['ms'] / res['library_ms']:.3f}x the library's events time, "
-        f"{res['device_ms'] / res['library_device_ms']:.3f}x its device time")
-    print(f"  {name}: kernel {res['ms']:.4f} ms (device {res['device_ms']:.4f} ms), plain "
+        f", {res['ms'] / res['library_ms']:.3f}x the library's events time" +
+        ("" if None in (res["device_ms"], res["library_device_ms"]) else
+         f", {res['device_ms'] / res['library_device_ms']:.3f}x its device time"))
+    print(f"  {name}: kernel {res['ms']:.4f} ms (device {dev['device_ms']}), plain "
           f"{res['plain_ms']:.4f} ms, library {lib}, bound {res['bound_ms']:.4f} ms by "
           f"{res['bound_by']} ({res['bound_ms'] / res['ms']:.1%} of it{ratio}; median of "
           f"{REPS}; {card})", flush=True)
@@ -935,20 +948,26 @@ def kernel_checks(card: str) -> dict:
     return results
 
 
-def flash_bwd_registers(lines: list[str]) -> list[str]:
-    """The flash backward kernels' registers and spill bytes, one line per
-    instantiation, from ptxas's report (``-Xptxas -v``): the launch's
-    registers a thread (setmaxnreg then splits them between the producer and
-    the consumers: 24 / 240 for dq, 40 / 232 for dkv) and the spill stores
-    and loads."""
+def mainloop_registers(lines: list[str]) -> list[str]:
+    """The registers and spill bytes of the flash backward's kernels and v1's
+    forward, one line per instantiation, from ptxas's report (``-Xptxas
+    -v``): the launch's registers a thread (setmaxnreg then splits them
+    between the producer and the consumers: 24 / 240 for dq, 40 / 232 for
+    dkv; for v1 24 / 240, 32 / 160 with three consumers at head_dim 64) and
+    the spill stores and loads."""
     found, current, spill = [], None, "spills not reported"
-    pattern = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)ELb([01])E")
+    pattern = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)ELb([01])E"
+                         r"|(attention_fwd_v1_kernel)ILi(\d+)E")
     for line in lines:
         match = pattern.search(line)
         if "Compiling entry function" in line:
-            current = None if match is None else (
-                f"{match[1]}<{match[2]}, {'true' if match[3] == '1' else 'false'}>")
             spill = "spills not reported"
+            if match is None:
+                current = None
+            elif match[1]:
+                current = f"{match[1]}<{match[2]}, {'true' if match[3] == '1' else 'false'}>"
+            else:
+                current = f"{match[4]}<{match[5]}>"
         elif current and "spill" in line:
             spill = line.strip()
         elif current and "Used" in line:
@@ -3473,6 +3492,14 @@ def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool
             print(f"  {tag} lse: max_abs_err {lse_err:.6g} (tolerance {LSE_ATOL}); masked row "
                   f"clamped: {clamped}", flush=True)
             res["ok"] = res["ok"] and lse_err <= LSE_ATOL and clamped
+            if route == "stats":
+                _, lse_v2 = attention._fwd(q, k, v, None, None, None, key_bias, d, scale,
+                                           "stats_v2")
+                same = bool(torch.equal(lse, lse_v2))
+                print(f"  {tag}: lse the v2 forward's (attention_nb) bit for bit: {same}",
+                      flush=True)
+                res["ok"] = res["ok"] and same
+                reciprocal_rounding(tag, q, k, v, key_bias, d, scale)
             return res
 
         heads = [t.reshape(BATCH, T, H, d).transpose(1, 2) for t in (q, k, v)]
@@ -3539,12 +3566,48 @@ def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool
     return check, launch, plain, work, library
 
 
+def reciprocal_rounding(tag: str, q, k, v, key_bias, d: int, scale: float) -> None:
+    """Prints how far v1's p = e r, r = 1 / l in fp32, lies from e / l, on
+    the card's fp32 arithmetic: the largest difference before rounding, in
+    bf16 ulps of p, and the share of p (e > 0) whose bf16 rounding (as the
+    kernel's pack) it changes, with the largest such change in ulps. e =
+    exp2(s - m) in log2 units, as the kernel forms it but by torch's exp2,
+    one batch row at a time."""
+    from coral_tpu_torch.ops import attention
+
+    H = q.shape[-1] // d
+    worst_fp32 = worst_bf16 = 0.0
+    changed = total = 0
+    for b in range(q.shape[0]):
+        qh, kh, _ = attention._biased(q[b:b + 1], k[b:b + 1], v[b:b + 1], None, None, None, d,
+                                      scale)
+        s = (qh @ kh.transpose(-1, -2)) * LOG2E + key_bias[b][None, None, None, :] * LOG2E
+        e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        del s
+        l = e.sum(dim=-1, keepdim=True)
+        by_mul, by_div = e * (1.0 / l), e / l
+        keep = by_div > 2.0**-126
+        ulp = torch.ldexp(torch.ones_like(by_div), torch.frexp(by_div).exponent - 8)
+        worst_fp32 = max(worst_fp32, float(((by_mul - by_div).abs() / ulp)[keep].max()))
+        flips = (by_mul.to(torch.bfloat16).float() - by_div.to(torch.bfloat16).float()).abs()
+        changed += int((flips[keep] > 0).sum())
+        total += int(keep.sum())
+        worst_bf16 = max(worst_bf16, float((flips / ulp)[keep].max()))
+        del e, l, by_mul, by_div, keep, ulp, flips
+    print(f"  {tag}: p = e (1 / l) against e / l (fp32 on the card, {H} heads): at most "
+          f"{worst_fp32:.6g} bf16 ulp of p apart before rounding; the bf16 rounding changed "
+          f"for {changed} of {total} p ({changed / total:.3g}), by at most {worst_bf16:g} ulp",
+          flush=True)
+
+
 # The K15 kernels at their paths' shapes (XLS-R-300M serving 8 x 1499 rows
 # for the forwards, training 8 x 499 for the backwards): the rows of the
 # kernels line, then the same at head_dim 80 and 120 (timed, launched on no
-# main path), and one backward on packed lane thirds (checked).
-VARIANT_ROWS = (("attention", "fwd", 1499), ("stats", "fwd", 1499), ("attention", "bwd", 499),
-                ("ctx", "bwd", 499), ("stats", "bwd", 499))
+# main path), and one backward on packed lane thirds (checked). v1's forward
+# runs at both shapes ((r') serves 8 x 1499 and trains at 8 x 499); its 8 x
+# 499 rows are printed under their shape and give no row of the kernels line.
+VARIANT_ROWS = (("attention", "fwd", 1499), ("stats", "fwd", 1499), ("stats", "fwd", 499),
+                ("attention", "bwd", 499), ("ctx", "bwd", 499), ("stats", "bwd", 499))
 
 
 def variant_kernel_checks(card: str) -> dict:
@@ -3564,8 +3627,10 @@ def variant_kernel_checks(card: str) -> dict:
     for d in (64, 80, 120):
         for route, direction, T in VARIANT_ROWS:
             check, launch, plain, work, library = variant_case(route, direction, d, T, randn)
-            measure(attention._name(direction, d, False, route), launch, plain, check, work,
-                    library)
+            name = attention._name(direction, d, False, route)
+            if direction == "fwd" and T != 1499:
+                name = f"{name} ({BATCH}, {T})"
+            measure(name, launch, plain, check, work, library)
             del check, launch, plain, library
             torch.cuda.empty_cache()
     check, *_ = variant_case("attention", "bwd", 64, 499, randn, packed=True)
@@ -3816,7 +3881,7 @@ def main() -> int:
                 spills.append(f"{function[:80]}: {line.strip()}")
         print(f"  ptxas, {len(used)} kernels: {'; '.join(used)}; spills: {spills or 'none'}",
               flush=True)
-        for line in flash_bwd_registers(lines):
+        for line in mainloop_registers(lines):
             print(f"  {line}", flush=True)
 
     print(f"kernel checks at serving shapes (bf16, batch {BATCH}):", flush=True)

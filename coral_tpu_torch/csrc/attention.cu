@@ -12,7 +12,7 @@
 //   for bit;
 // - `_fwd_pallas_stats` / `_fwd_kernel_stats` (:631, :74), v1: p = exp(s - m)
 //   / l normalised in fp32 before its bf16 rounding, then o = bf16(p) v
-//   (`attention_fwd_v1_kernel`);
+//   (`attention_fwd_v1_kernel`, the mainloop's two-sweep policy);
 // - `_bwd_pallas_stats_ctx_qb` / `_bwd_kernel_stats_ctx_qb` and without
 //   biases `_bwd_pallas_stats_ctx` / `_bwd_kernel_stats_ctx` (:698, :348):
 //   the v3 backward from the saved lse and o (`coral_attention_bwd`).
@@ -31,11 +31,11 @@
 // and divide after the product. A fully padded row (every key at -1e30)
 // comes out as the uniform average (not NaN), as in the JAX kernels, with
 // lse clamped at -1e25. v1 rounds the normalised p, which needs the final m
-// and l before any product with V: it walks 64-key tiles twice in one block
-// of four warps of 16 query rows, the first sweep building m and l, the
-// second forming p = e / l, rounding it and accumulating p v in WMMA
-// accumulators (no rescale), its scores staged in shared memory where two
-// lanes share each query row. The backward is `attention.cuh`'s.
+// and l before any product with V: on the same mainloop it walks the keys
+// twice (policy fwd::V1), the first sweep copying K alone and building m and
+// l as the forwards above do, the second forming p = e / l in registers,
+// rounding it and accumulating P V on wgmma with no rescale. The backward is
+// `attention.cuh`'s.
 #include <chrono>
 
 #include "attention.cuh"
@@ -51,123 +51,12 @@ __global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
   fwd::mainloop<D, fwd::K4<kBias, kLse>>(maps, args);
 }
 
-// The v1 forward: arguments as attention_fwd_kernel without biases, lse
-// always written.
+// The v1 forward on the mainloop's two-sweep policy (fwd::V1): arguments as
+// attention_fwd_kernel's without biases, the lse always written.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_v1_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                            bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
-                            long long stride_b, long long stride_t, float scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kHalf = Hd::kHalf;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBQ * kLdH;
-  bf16* Vs = Ks + kBKV * kLdH;
-  bf16* Ps = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(Ps + kBQ * kLdP);
-  float* kbias = Ss + kBQ * kLdS;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  const long long head = (long long)b * stride_b + h * D;
-  const float* kb_row = key_bias + (long long)b * T;
-
-  load_tile<D, false>(Qs, q + head, nullptr, q0, T, stride_t, scale);
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdP;
-  const bf16* Qw = Qs + warp * 16 * kLdH;
-
-  // Sweep 1: the row max m and sum l = sum exp(s - m), online.
-  float m = -INFINITY, l = 0.0f;
-  for (int k0 = 0; k0 < T; k0 += kBKV) {
-    __syncthreads();
-    load_tile<D, false>(Ks, k + head, nullptr, k0, T, stride_t, 0.0f);
-    load_key_bias(kbias, kb_row, k0, T);
-    __syncthreads();
-    product_abt<D>(Sw, Qw, Ks);
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      sv[j] = Sw[row * kLdS + half * 32 + j] + kbias[half * 32 + j];
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) psum += expf(sv[j] - m_new);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * expf(m - m_new) + psum;
-    m = m_new;
-    __syncwarp();
-  }
-
-  // Sweep 2: p = exp(s - m) / l rounded to bf16, o += p v.
-  FragC pv[Hd::kNF];
-#pragma unroll
-  for (int j = 0; j < Hd::kNF; ++j) wmma::fill_fragment(pv[j], 0.0f);
-  for (int k0 = 0; k0 < T; k0 += kBKV) {
-    __syncthreads();
-    load_tile<D, false>(Ks, k + head, nullptr, k0, T, stride_t, 0.0f);
-    load_tile<D, false>(Vs, v + head, nullptr, k0, T, stride_t, 0.0f);
-    load_key_bias(kbias, kb_row, k0, T);
-    __syncthreads();
-    product_abt<D>(Sw, Qw, Ks);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      Pw[row * kLdP + c] = __float2bfloat16(expf(Sw[row * kLdS + c] + kbias[c] - m) / l);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kBKV; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, Pw + kk, kLdP);
-#pragma unroll
-      for (int j = 0; j < Hd::kNF; ++j) {
-        FragBr bvf;
-        wmma::load_matrix_sync(bvf, Vs + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(pv[j], a, bvf, pv[j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < Hd::kNF; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, pv[j], kLdS, wmma::mem_row_major);
-  __syncwarp();
-  const int t = q0 + warp * 16 + row;
-  if (t < T) {
-    float out[kHalf];
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) out[j] = Sw[row * kLdS + half * kHalf + j];
-    bf16* orow = o + ((long long)b * T + t) * ((long long)H * D) + h * D + half * kHalf;
-#pragma unroll
-    for (int j = 0; j < kHalf; j += 8)
-      if (half * kHalf + j < D) coral_store8(orow + j, out + j);
-    if (half == 0) lse[((long long)b * H + h) * T + t] = fmaxf(m + logf(l), -1e25f);
-  }
-}
-
-// Launches a forward kernel over (query tiles, H, B): its pointer arguments,
-// then T, H, stride_b, stride_t, scale.
-template <typename Kernel, typename... Args>
-int launch_fwd(Kernel kernel, int smem, int B, int T, int H, long long stride_b,
-               long long stride_t, float scale, cudaStream_t s, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  kernel<<<grid, kThreads, smem, s>>>(args..., T, H, stride_b, stride_t, scale);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
+    attention_fwd_v1_kernel(const __grid_constant__ fwd::Maps maps, const fwd::Args args) {
+  fwd::mainloop<D, fwd::V1>(maps, args);
 }
 
 }  // namespace
@@ -232,10 +121,10 @@ extern "C" int coral_attention_fwd(const void* q, const void* k, const void* v,
   float* lp = static_cast<float*>(lse);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (v1)
-      return launch_fwd(attention_fwd_v1_kernel<kD>, Head<kD>::kFwdSmem, B, T, H, stride_b,
-                        stride_t, scale, s, qp, kp, vp, kbp, op, lp);
     const fwd::Args args{bqp, bkp, bvp, kbp, nullptr, op, lp, nullptr, T, T, H, scale};
+    if (v1)
+      return fwd::launch<kD, fwd::V1>(attention_fwd_v1_kernel<kD>, q, k, v, args, B, stride_b,
+                                      stride_t, s);
     if (bqp != nullptr)
       return fwd::launch<kD, fwd::K4<true, true>>(attention_fwd_kernel<kD, true, true>, q, k, v,
                                                   args, B, stride_b, stride_t, s);

@@ -1,11 +1,11 @@
 // The attention's shared pieces. On the WMMA tiles (tile shapes by head dim,
-// tile loads, the WMMA score product and row stores): the v1 forward and the
-// two backward kernels that `attention.cu` (the v3 backward) and
-// `attention_rows.cu` (the backwards of the other variants) instantiate. On
-// Hopper's TMA, mbarriers and wgmma, with tiles and loads of their own: the
-// forward mainloop (namespace fwd) that the forwards of `attention.cu` (v1
-// aside) and `flash_attention.cu` share, and the backward mainloop (namespace
-// bwd) of `flash_attention.cu`'s dq and dkv kernels.
+// tile loads, the WMMA score product and row stores): the two backward
+// kernels that `attention.cu` (the v3 backward) and `attention_rows.cu` (the
+// backwards of the other variants) instantiate. On Hopper's TMA, mbarriers
+// and wgmma, with tiles and loads of their own: the forward mainloop
+// (namespace fwd) that every forward of `attention.cu` (v1's as its
+// two-sweep policy) and `flash_attention.cu` share, and the backward mainloop
+// (namespace bwd) of `flash_attention.cu`'s dq and dkv kernels.
 //
 // Layout: q, k, v are (B, T, H*d) with strides (stride_b, stride_t, 1), the
 // same for all three; head h is the lane slice h*d .. h*d+d-1 of each row,
@@ -50,14 +50,12 @@ struct Head {
   static constexpr int kNF = kDP / 16;            // 16-wide fragments across the head
   static constexpr int kHalf = kDP / 2;           // columns of each of a row's two lanes
   static constexpr int kChunks = kDP / 8;         // 8-value chunks of a tile row
-  static constexpr int kFwdSmem = 3 * kBQ * kLdH * 2 + kBQ * kLdP * 2 + kBQ * kLdS * 4 + kBKV * 4;
   // Query rows' stats (lse or m, l, delta), key bias; the column sums.
   static constexpr int kStats = 4 * 64 * 4 + 4 * kDP * 4;
   static constexpr int kDkdvSmem = 4 * kBQ * kLdH * 2 + 2 * kBQ * kLdP * 2 + kBQ * kLdS * 4 + kStats;
   static constexpr int kDqSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdP * 2 + kBQ * kLdS * 4 + kStats;
   static constexpr int kRowsSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + kBKV * 4;
-  static_assert(kFwdSmem <= kMaxSmem && kDkdvSmem <= kMaxSmem && kDqSmem <= kMaxSmem &&
-                    kRowsSmem <= kMaxSmem,
+  static_assert(kDkdvSmem <= kMaxSmem && kDqSmem <= kMaxSmem && kRowsSmem <= kMaxSmem,
                 "each kernel's tiles must fit a block's shared memory");
 };
 
@@ -539,8 +537,9 @@ int with_head_dim(int D, Fn&& f) {
 // --- The forward mainloop (Hopper: TMA, mbarriers, wgmma) ---------------------------
 //
 // One mainloop for both forward families, `attention_fwd_kernel` (K4 and its
-// variants, `attention.cu`) and `flash_fwd_kernel` (K7 and K7 with segment
-// ids, `flash_attention.cu`), each a thin kernel over it with its policy.
+// variants, `attention.cu`) with `attention_fwd_v1_kernel` (v1, K4's
+// two-sweep policy V1) and `flash_fwd_kernel` (K7 and K7 with segment ids,
+// `flash_attention.cu`), each a thin kernel over it with its policy.
 //
 // Bound on the H100: the tensor cores and the exponentials. A head makes
 // 4 T^2 DP flops and T^2 exponentials from 4 T d bf16 values; at T = 1499 and
@@ -593,6 +592,17 @@ int with_head_dim(int D, Fn&& f) {
 // its scores and key bias in log2 units, K7 folds it into d**-0.5); the
 // stats leave in natural units. Every instantiation of a family runs the
 // same arithmetic in the same order, the stats and the biases aside.
+//
+// Two sweeps (V1, the TPU kernel `_fwd_kernel_stats`): p = e / l is rounded
+// to bf16 after it is normalised, so P V needs the final m and l before its
+// first product. The ring then runs 2 n_tiles iterations, its stages and
+// phases continued from one sweep into the other. Sweep 1 copies K alone
+// and runs the scores and the online softmax above (the same arithmetic in
+// the same order, so its lse is K4's without biases bit for bit) with no P,
+// P V or rescale; sweep 2 copies K and V and computes the scores again, e =
+// exp2(s - m) against the final max, p = e r with r = 1 / l formed once a
+// row, rounded to bf16 as P, and O += P V with no rescale, the products of
+// tile i overlapping those of tile i - 1 as above; o is stored as O.
 namespace fwd {
 
 constexpr int kKeys = 128;        // keys of a K/V tile
@@ -650,13 +660,21 @@ struct Tile {
 // scores, the lse written with kStats.
 template <bool kBias_, bool kLse>
 struct K4 {
-  static constexpr bool kK4 = true, kBias = kBias_, kSeg = false, kStats = kLse;
+  static constexpr bool kK4 = true, kBias = kBias_, kSeg = false, kStats = kLse,
+                        kTwoSweep = false;
 };
 // K7 (the stock TPU flash kernel): scores scaled by d**-0.5, keys past Tk
 // masked (and, with kSeg, keys of another segment); m and l with kStats.
 template <bool kStats_, bool kSeg_>
 struct K7 {
-  static constexpr bool kK4 = false, kBias = false, kSeg = kSeg_, kStats = kStats_;
+  static constexpr bool kK4 = false, kBias = false, kSeg = kSeg_, kStats = kStats_,
+                        kTwoSweep = false;
+};
+// v1 (`_fwd_kernel_stats`): K4 without biases, with the lse, in two sweeps
+// over the keys (above).
+struct V1 {
+  static constexpr bool kK4 = true, kBias = false, kSeg = false, kStats = true,
+                        kTwoSweep = true;
 };
 
 // One map per operand and column block (block 1's equals block 0's at d =
@@ -696,6 +714,14 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+// V1's p = e / l as e times the row's reciprocal r = 1 / l, within 2^-16 of
+// a bf16 ulp of p before its rounding. l is for the `divide` variant of
+// `tools/fwd_variants.py`, which divides a score at a time (__fdiv_rn):
+// 2.8-3.4x v1's time on an H100 at 8 x 1499 rows.
+__device__ __forceinline__ float normalise(float e, float r, float l) {
+  (void)l;
+  return e * r;
 }
 
 // One 16-byte chunk of 8 bf16: x = bf16(x + bias) (kBias), then
@@ -761,10 +787,11 @@ __device__ __forceinline__ void transform_tile(uint32_t tile, int blk1, const bf
 }
 
 // The producer warpgroup: TMA copies of Q and of each K/V tile into its
-// stage once the consumers released it, and the tile's key vector, by its
-// first warp; with kBias all four warps then add bk and bv to the tile once
-// it landed (the copy of the next tile follows the pass: issuing it before,
-// or from a warp of its own beside three pass warps, measured slower).
+// stage once the consumers released it (K alone in the first of two
+// sweeps), and the tile's key vector, by its first warp; with kBias all four
+// warps then add bk and bv to the tile once it landed (the copy of the next
+// tile follows the pass: issuing it before, or from a warp of its own beside
+// three pass warps, measured slower).
 template <int D, class P>
 __device__ __forceinline__ void produce(const Maps& maps, const Args& a, uint32_t base, int q0,
                                         int h, int b, int n_tiles) {
@@ -781,21 +808,24 @@ __device__ __forceinline__ void produce(const Maps& maps, const Args& a, uint32_
     hopper::tma_load_4d(base, &maps.q0, bars, 0, h, q0, b);
     if constexpr (L::kW1 > 0) hopper::tma_load_4d(base + L::kQBlk0, &maps.q1, bars, 64, h, q0, b);
   }
-  for (int i = 0; i < n_tiles; ++i) {
+  // The ring's iteration i: stage i % kStages, phase (i / kStages) & 1, over
+  // both sweeps; tile i % n_tiles.
+  for (int i = 0; i < (P::kTwoSweep ? 2 : 1) * n_tiles; ++i) {
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
     const uint32_t full = bars + 8 + 8 * s, landed = bars + 8 + 8 * (2 * kStages + s);
-    const int k0 = i * kKeys;
+    const int k0 = (i < n_tiles ? i : i - n_tiles) * kKeys;
+    const bool with_v = !P::kTwoSweep || i >= n_tiles;
     hopper::mbar_wait(bars + 8 + 8 * (kStages + s), phase ^ 1);
     if (t == 0) {
       const uint32_t tx = P::kBias ? landed : full;
-      hopper::mbar_arrive_expect_tx(tx, 2 * L::kOperand);
+      hopper::mbar_arrive_expect_tx(tx, (with_v ? 2 : 1) * L::kOperand);
       const uint32_t kt = base + L::k_tile(s), vt = base + L::v_tile(s);
       hopper::tma_load_4d(kt, &maps.k0, tx, 0, h, k0, b);
-      hopper::tma_load_4d(vt, &maps.v0, tx, 0, h, k0, b);
+      if (with_v) hopper::tma_load_4d(vt, &maps.v0, tx, 0, h, k0, b);
       if constexpr (L::kW1 > 0) {
         hopper::tma_load_4d(kt + L::kBlk0, &maps.k1, tx, 64, h, k0, b);
-        hopper::tma_load_4d(vt + L::kBlk0, &maps.v1, tx, 64, h, k0, b);
+        if (with_v) hopper::tma_load_4d(vt + L::kBlk0, &maps.v1, tx, 64, h, k0, b);
       }
     }
     if constexpr (P::kK4 || P::kSeg) {
@@ -824,8 +854,8 @@ __device__ __forceinline__ void produce(const Maps& maps, const Args& a, uint32_
   }
 }
 
-// A consumer warpgroup: 64 query rows against every K/V tile, then o and
-// the stats of its rows.
+// A consumer warpgroup: 64 query rows against every K/V tile (in two
+// sweeps with P::kTwoSweep), then o and the stats of its rows.
 template <int D, class P>
 __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint32_t base, int q0,
                                         int h, int b, int n_tiles) {
@@ -958,10 +988,38 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
       ps0 += s[4 * j] + s[4 * j + 1];
       ps1 += s[4 * j + 2] + s[4 * j + 3];
     }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
+    l0 = fmaf(l0, alpha0, ps0);  // written out: every instantiation contracts alike
+    l1 = fmaf(l1, alpha1, ps1);
     m0 = mn0;
     m1 = mn1;
+  };
+  // V1's second sweep: the tile of stage st, s <- p = exp2(s - m) / l
+  // against the rows' final max and sum (K4's log2 units).
+  float r0 = 0.0f, r1 = 0.0f;
+  auto normalised = [&](int st) {
+    static_assert(!P::kTwoSweep || (P::kK4 && !P::kBias),
+                  "the two-sweep policy is K4's without biases");
+    const float* kvec = kvec_all + st * kKeys;
+    const float nm0 = -m0 * ex, nm1 = -m1 * ex;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * j + 2 * quad;
+      const float2 kb = *reinterpret_cast<const float2*>(kvec + c);
+      s[4 * j] = normalise(fast_exp2(fmaf(fmaf(s[4 * j], kLog2e, kb.x), ex, nm0)), r0, l0);
+      s[4 * j + 1] =
+          normalise(fast_exp2(fmaf(fmaf(s[4 * j + 1], kLog2e, kb.y), ex, nm0)), r0, l0);
+      s[4 * j + 2] =
+          normalise(fast_exp2(fmaf(fmaf(s[4 * j + 2], kLog2e, kb.x), ex, nm1)), r1, l1);
+      s[4 * j + 3] =
+          normalise(fast_exp2(fmaf(fmaf(s[4 * j + 3], kLog2e, kb.y), ex, nm1)), r1, l1);
+    }
+  };
+  // The row sums over the 4 lanes that share each row.
+  auto reduce_l = [&]() {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   };
   auto pack = [&]() {
 #pragma unroll
@@ -1006,40 +1064,74 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
   };
   if (wg == kWG - 1) hopper::named_barrier_arrive(1 + kWG, 256);
 
-  // Tile 0: S, its softmax, P.
+  auto full = [&](int i) {  // waits for the ring's iteration i
+    hopper::mbar_wait(bars + 8 + 8 * (i % kStages), (i / kStages) & 1);
+  };
   float alpha0, alpha1;
-  hopper::mbar_wait(bars + 8, 0);
+  if constexpr (P::kTwoSweep) {
+    // Sweep 1: S of each tile and the running max and sum, the stage
+    // released after its softmax.
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      full(i);
+      my_turn();
+      hopper::fence_regs(s);
+      hopper::wgmma_fence();
+      qk(st);
+      hopper::wgmma_commit();
+      their_turn(false);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      softmax(i * kKeys, st, alpha0, alpha1);
+      release(st);
+    }
+    reduce_l();
+    r0 = 1.0f / l0;
+    r1 = 1.0f / l1;
+  }
+  // The P V sweep, ring iterations i0 .. i0 + n_tiles - 1; tile j's
+  // exponentials (kTwoSweep: normalised; else against the running max).
+  const int i0 = P::kTwoSweep ? n_tiles : 0;
+  auto exps = [&](int j, int st) {
+    if constexpr (P::kTwoSweep)
+      normalised(st);
+    else
+      softmax(j * kKeys, st, alpha0, alpha1);
+  };
+
+  // Tile 0: S, its exponentials, P.
+  int st = i0 % kStages;
+  full(i0);
   my_turn();
   hopper::fence_regs(s);
   hopper::wgmma_fence();
-  qk(0);
+  qk(st);
   hopper::wgmma_commit();
   their_turn(false);
   hopper::wgmma_wait<0>();
   hopper::fence_regs(s);
-  softmax(0, 0, alpha0, alpha1);
+  exps(0, st);
   pack();
-  int st = 0;
-  for (int i = 1; i < n_tiles; ++i) {
-    const int sn = i % kStages;
-    hopper::mbar_wait(bars + 8 + 8 * sn, (i / kStages) & 1);
+  for (int j = 1; j < n_tiles; ++j) {
+    const int sn = (i0 + j) % kStages;
+    full(i0 + j);
     my_turn();
     hopper::fence_regs(s);
     hopper::wgmma_fence();
-    qk(sn);  // S of tile i; meanwhile O is rescaled to tile i - 1's max ...
+    qk(sn);  // S of tile j; meanwhile (one sweep) O is rescaled to tile j - 1's max ...
     hopper::wgmma_commit();
     hopper::fence_regs(o0);
     hopper::fence_regs(o1);
-    rescale(alpha0, alpha1);
+    if constexpr (!P::kTwoSweep) rescale(alpha0, alpha1);
     hopper::fence_regs(o0);
     hopper::fence_regs(o1);
     hopper::wgmma_fence();
-    pv(st);  // ... and O += P V of tile i - 1 follows it
+    pv(st);  // ... and O += P V of tile j - 1 follows it
     hopper::wgmma_commit();
     their_turn(false);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(s);
-    softmax(i * kKeys, sn, alpha0, alpha1);
+    exps(j, sn);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o0);
     hopper::fence_regs(o1);
@@ -1051,7 +1143,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
   my_turn();
   hopper::fence_regs(o0);
   hopper::fence_regs(o1);
-  rescale(alpha0, alpha1);
+  if constexpr (!P::kTwoSweep) rescale(alpha0, alpha1);
   hopper::fence_regs(o0);
   hopper::fence_regs(o1);
   hopper::wgmma_fence();
@@ -1063,11 +1155,9 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
   hopper::fence_regs(o1);
   release(st);
 
-  // o = O / l for rows below T, columns below d; the stats.
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // o = O / l (kTwoSweep: O) for rows below T, columns below d; the stats.
+  if constexpr (!P::kTwoSweep) reduce_l();
+  auto out = [](float x, float l) { return P::kTwoSweep ? x : x / l; };
   const long long HD = (long long)a.H * D;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1077,13 +1167,14 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
     uint32_t* orow = reinterpret_cast<uint32_t*>(a.o + ((long long)b * a.T + tq) * HD + h * D);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      orow[4 * j + quad] = pack_bf16(o0[4 * j + 2 * half] / l, o0[4 * j + 2 * half + 1] / l);
+      orow[4 * j + quad] =
+          pack_bf16(out(o0[4 * j + 2 * half], l), out(o0[4 * j + 2 * half + 1], l));
     if constexpr (kW1 > 0) {
 #pragma unroll
       for (int j = 0; j < kW1 / 8; ++j)
         if (64 + 8 * j < D)
           orow[32 + 4 * j + quad] =
-              pack_bf16(o1[4 * j + 2 * half] / l, o1[4 * j + 2 * half + 1] / l);
+              pack_bf16(out(o1[4 * j + 2 * half], l), out(o1[4 * j + 2 * half + 1], l));
     }
     if (P::kStats && quad == 0) {
       const long long i = ((long long)b * a.H + h) * a.T + tq;
@@ -1091,7 +1182,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
       if constexpr (P::kK4) {
         // A fully padded row has m = -1e30; the clamp keeps the backward's
         // exp(s - lse) at 0 for it, as in the JAX kernel.
-        a.stat_a[i] = fmaxf(m * kLn2 + logf(l), -1e25f);
+        a.stat_a[i] = fmaxf(fmaf(m, kLn2, logf(l)), -1e25f);
       } else {
         a.stat_a[i] = m * a.scale;
         a.stat_l[i] = l;

@@ -1436,16 +1436,17 @@ def _mainloop_qkv(cuda, B, T, H, d, packed):
 @pytest.mark.parametrize("d", [64, 80, 120])
 def test_attention_forward_mainloop_matches_plain(cuda, d, T, packed):
     """The three K4 instantiations (with biases and lse, without biases, without
-    stats) at T around the 128-row and 128-key tiles, with a full row, a
-    half-length row, a length-1 row and a fully padded row; o at 8e-3, lse at
-    1e-4; the fully padded row's lse clamped."""
+    stats) and v1's two sweeps at T around the 128-row and 128-key tiles, with
+    a full row, a half-length row, a length-1 row and a fully padded row; o at
+    8e-3, lse at 1e-4; the fully padded row's lse clamped."""
     H = 2
     q, k, v = _mainloop_qkv(cuda, 4, T, H, d, packed)
     bias = tuple(_on(cuda, _np(H * d, seed=20 + i, scale=0.5), torch.bfloat16) for i in range(3))
     lengths = torch.tensor([T, max(1, T // 2), 1, 0], device=cuda)
     mask = torch.arange(T, device=cuda)[None, :] < lengths[:, None]
     key_bias = attention._key_bias(mask)
-    for biases, route in ((bias, "stats_v3"), ((None,) * 3, "stats_v2"), ((None,) * 3, "attention")):
+    for biases, route in ((bias, "stats_v3"), ((None,) * 3, "stats_v2"), ((None,) * 3, "attention"),
+                          ((None,) * 3, "stats")):
         o, lse = attention._fwd(q, k, v, *biases, key_bias, d, d**-0.5, route)
         want_o, want_lse = attention._fwd_plain(q, k, v, *biases, key_bias, d, d**-0.5, route)
         assert o.shape == (4, T, H * d) and o.is_contiguous()
@@ -1455,6 +1456,23 @@ def test_attention_forward_mainloop_matches_plain(cuda, d, T, packed):
         else:
             torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
             assert (lse[3] == -1e25).all()
+
+
+@pytest.mark.parametrize("T", [1, 129, 1499])
+@pytest.mark.parametrize("d", [64, 80, 120])
+def test_v1_lse_is_the_v2_forwards_bit_for_bit(cuda, d, T):
+    """v1's first sweep runs the bias-free forward's scores and softmax in the
+    same order, so its lse is the ``"stats_v2"`` forward's bit for bit, the
+    fully padded row's -1e25 included; its o is the plain v1's within 8e-3."""
+    q, k, v = _mainloop_qkv(cuda, 4, T, 2, d, False)
+    lengths = torch.tensor([T, max(1, T // 2), 1, 0], device=cuda)
+    key_bias = attention._key_bias(torch.arange(T, device=cuda)[None, :] < lengths[:, None])
+    o, lse = attention._fwd(q, k, v, None, None, None, key_bias, d, d**-0.5, "stats")
+    _, lse_v2 = attention._fwd(q, k, v, None, None, None, key_bias, d, d**-0.5, "stats_v2")
+    assert torch.equal(lse, lse_v2)
+    assert (lse[3] == -1e25).all()
+    want_o, _ = attention._fwd_plain(q, k, v, None, None, None, key_bias, d, d**-0.5, "stats")
+    _close(o, want_o, 8e-3)
 
 
 def _mainloop_segments(cuda, B, T):
