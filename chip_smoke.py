@@ -23,8 +23,9 @@ non-zero before the result line is printed:
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
 2. the kernels are built from ``coral_tpu_torch/csrc`` and the build time is
-   printed, with the registers and spill bytes of the flash backward's and
-   v1's instantiations from ptxas's report;
+   printed, with the registers and spill bytes of the backward mainloop's
+   instantiations (the flash backward's and the short-T backwards' pairs)
+   and v1's from ptxas's report;
 3. each kernel runs at its path's own shapes in bf16 against its plain
    PyTorch version: errors against a stated tolerance, and both times (CUDA
    events, median of 10), with the least time the card could take for the
@@ -149,7 +150,7 @@ non-zero before the result line is printed:
    ``attention_fused_qkv_bias: false``: one batch, kernel against plain, 2
    steps; each with exact launch counts and its ms per step beside (c)'s;
 16. the attention's other routes: the forward without stats, v1's forward
-   and the three backwards with their per-row pre-pass checked and timed with
+   and the three backwards (their dq kernels sweeping twice) checked and timed with
    the other kernels in phase 3 (forwards at 8 x 1499 rows beside SDPA, v1's
    at 8 x 499 too, backwards at 8 x 499, head_dim 64, 80 and 120; the fully
    masked row without gradient on the stats routes, with the uniform
@@ -394,7 +395,7 @@ for _d in (80, 120):
 # The attention's other routes (K15): the forward without stats (`_fwd_kernel`
 # through `_fwd_pallas` :565) and v1's (`_fwd_kernel_stats`, :631), which
 # normalises p before rounding it (its o as the online forward's, within the
-# same tolerance); the backwards with the per-row pre-pass: recomputing the
+# same tolerance); the backwards whose dq kernel sweeps twice: recomputing the
 # softmax (`_bwd_kernel`, :581), with o's delta (`_bwd_kernel_ctx`, :597),
 # from the lse alone (`_bwd_kernel_stats`, :676). The rows at head_dim 64; at
 # 80 and 120 they are checked and timed but launched on no main path.
@@ -949,15 +950,19 @@ def kernel_checks(card: str) -> dict:
 
 
 def mainloop_registers(lines: list[str]) -> list[str]:
-    """The registers and spill bytes of the flash backward's kernels and v1's
+    """The registers and spill bytes of the backward mainloop's kernels (the
+    flash backward's and the short-T backwards' pairs, by policy) and v1's
     forward, one line per instantiation, from ptxas's report (``-Xptxas
     -v``): the launch's registers a thread (setmaxnreg then splits them
-    between the producer and the consumers: 24 / 240 for dq, 40 / 232 for
-    dkv; for v1 24 / 240, 32 / 160 with three consumers at head_dim 64) and
-    the spill stores and loads."""
+    between the producer and the consumers: 24 / 240 for dq, 40 / 232 with
+    K4's bias pass; 40 / 232 for K7's dkv, 56 / 224 for the short-T dkv; for
+    v1 24 / 240, 32 / 160 with three consumers at head_dim 64) and the spill
+    stores and loads."""
     found, current, spill = [], None, "spills not reported"
     pattern = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)ELb([01])E"
-                         r"|(attention_fwd_v1_kernel)ILi(\d+)E")
+                         r"|(attention_fwd_v1_kernel)ILi(\d+)E"
+                         r"|(attention_bwd_(?:dq|dkv)_kernel)ILi(\d+)E.*?bwd\d+"
+                         r"(?:K4ILb([01])E|(Stats|Recompute|Ctx))")
     for line in lines:
         match = pattern.search(line)
         if "Compiling entry function" in line:
@@ -966,8 +971,11 @@ def mainloop_registers(lines: list[str]) -> list[str]:
                 current = None
             elif match[1]:
                 current = f"{match[1]}<{match[2]}, {'true' if match[3] == '1' else 'false'}>"
-            else:
+            elif match[4]:
                 current = f"{match[4]}<{match[5]}>"
+            else:
+                policy = match[9] or f"K4<{'true' if match[8] == '1' else 'false'}>"
+                current = f"{match[6]}<{match[7]}, {policy}>"
         elif current and "spill" in line:
             spill = line.strip()
         elif current and "Used" in line:
@@ -3542,6 +3550,8 @@ def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool
             bound_err = (GRAD_FRAC["attention_bwd"] + 2.0**-6) * float(mean_do.abs().max())
             ok = all(bool(t.any()) for t in masked) and err <= bound_err
             what = f"nonzero gradients, every key's dv the mean of do within {err:.3g}"
+            if not packed:  # p = e (1 / l), as v1's forward forms it
+                reciprocal_rounding(tag, q, k, v, key_bias, d, scale)
         print(f"  {tag}: fully masked row: {what}: {ok}", flush=True)
         if packed:
             same = all(bool(torch.equal(g, w)) for g, w in zip(
@@ -3553,7 +3563,7 @@ def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool
         return res
 
     # Five T x T x d products per head (s, dp, dv, dq, dk), as the TPU kernel;
-    # the pre-pass's products count against the bound, not into it. Inputs
+    # the first sweep's products count against the bound, not into it. Inputs
     # q, k, v, key_bias, do and lse or o where the route reads them; dq, dk,
     # dv out.
     reads = [t for t, used in ((lse, route in attention.LSE_ROUTES),
@@ -3567,7 +3577,8 @@ def variant_case(route: str, direction: str, d: int, T: int, randn, packed: bool
 
 
 def reciprocal_rounding(tag: str, q, k, v, key_bias, d: int, scale: float) -> None:
-    """Prints how far v1's p = e r, r = 1 / l in fp32, lies from e / l, on
+    """Prints how far p = e r, r = 1 / l in fp32, lies from e / l (v1's
+    forward and the backwards that recompute the softmax form it so), on
     the card's fp32 arithmetic: the largest difference before rounding, in
     bf16 ulps of p, and the share of p (e > 0) whose bf16 rounding (as the
     kernel's pack) it changes, with the largest such change in ulps. e =
@@ -3870,6 +3881,10 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - start:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)",
           flush=True)
+    if _build.source_seconds:
+        print("  nvcc seconds by source (all started together): " + ", ".join(
+            f"{name} {secs:.1f}" for name, secs in sorted(_build.source_seconds.items(),
+                                                         key=lambda kv: -kv[1])), flush=True)
     for path in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
         lines = path.read_text().splitlines()
         used = [line.split(":", 1)[1].strip() for line in lines if "Used" in line]

@@ -13,14 +13,15 @@
 // - `_fwd_pallas_stats` / `_fwd_kernel_stats` (:631, :74), v1: p = exp(s - m)
 //   / l normalised in fp32 before its bf16 rounding, then o = bf16(p) v
 //   (`attention_fwd_v1_kernel`, the mainloop's two-sweep policy);
-// - `_bwd_pallas_stats_ctx_qb` / `_bwd_kernel_stats_ctx_qb` and without
-//   biases `_bwd_pallas_stats_ctx` / `_bwd_kernel_stats_ctx` (:698, :348):
-//   the v3 backward from the saved lse and o (`coral_attention_bwd`).
+// - `_bwd_pallas_stats_ctx_qb` / `_bwd_kernel_stats_ctx_qb` (:752, :276) and
+//   without biases `_bwd_pallas_stats_ctx` / `_bwd_kernel_stats_ctx` (:698,
+//   :348): the v3 backward from the saved lse and o (`coral_attention_bwd`).
 //
-// Bound on the H100: the tensor cores and the fp32 softmax between the two
-// products (T^2 * d * 4 flops and T^2 exponentials per head); q/k/v/o are
-// only 4 * T * d * 2 bytes per head. The TPU kernels keep the whole (T, T)
-// score tile on chip, which does not fit a Hopper SM at T = 1499.
+// Bound on the H100: the tensor cores and the fp32 softmax between the
+// products (T^2 * d * 4 flops and T^2 exponentials per head forward, five
+// products backward); q/k/v/o are only 4 * T * d * 2 bytes per head. The TPU
+// kernels keep the whole (T, T) score tile on chip, which does not fit a
+// Hopper SM at T = 1499.
 //
 // Design: the forwards with and without biases and stats
 // (`attention_fwd_kernel`) run on the Hopper mainloop of `attention.cuh`
@@ -35,7 +36,11 @@
 // twice (policy fwd::V1), the first sweep copying K alone and building m and
 // l as the forwards above do, the second forming p = e / l in registers,
 // rounding it and accumulating P V on wgmma with no rescale. The backward is
-// `attention.cuh`'s.
+// the backward mainloop's pair with policy bwd::K4<kBias>
+// (`attention_bwd_dq_kernel`, then `attention_bwd_dkv_kernel`): p from the
+// lse, delta = rowsum(o do) formed and written by the dq kernel, the biases
+// added to the tiles in shared memory and their gradients' column sums
+// written per 128-row block.
 #include <chrono>
 
 #include "attention.cuh"
@@ -61,40 +66,37 @@ __global__ void __launch_bounds__(fwd::Tile<D, fwd::consumers(D)>::kThreads, 1)
 
 }  // namespace
 
-// Launches both v3 backward kernels on `stream` at head dim D (64, 80 or
-// 120), with the q/k/v biases when bq is not null (then bk, bv and db_part
-// are read and written too), else without (the three and db_part are not
-// read). dq, dk, dv: (B, T, H*D) bf16 each with row stride stride_d. scale
-// is the bf16-rounded score scale applied to q (+ bq) (as the forward);
-// sm_scale the fp32 one dq is multiplied by (as the JAX kernel). Returns the
-// cudaError_t of the launches, or -1 for a head dim they were not built for.
+// Launches the v3 backward's pair on `stream` at head dim D (64, 80 or 120),
+// the dq kernel first, with the q/k/v biases when bq is not null (then bk,
+// bv are read and db_part, (B, ceil(T / 128), 3, H*D) fp32, written), else
+// without (the four are not touched). lse (B, H, T) fp32 and o (B, T, H*D)
+// bf16 from the forward; delta: (B, H, T) fp32 scratch, rowsum(o do)
+// written by the dq kernel for the dkv kernel. dq, dk, dv: (B, T, H*D) bf16
+// each with row stride stride_d. scale is the bf16-rounded score scale
+// applied to q (+ bq) (as the forward); sm_scale the fp32 one dq is
+// multiplied by (as the JAX kernel). Returns the tensor-map encoder's error
+// or the cudaError_t of the launches, or -1 for a head dim they were not
+// built for.
 extern "C" int coral_attention_bwd(const void* q, const void* k, const void* v, const void* bq,
                                    const void* bk, const void* bv, const void* key_bias,
-                                   const void* dout, const void* lse, const void* o, void* dq,
-                                   void* dk, void* dv, void* db_part, int B, int T, int H, int D,
-                                   long long stride_b, long long stride_t, long long stride_d,
-                                   float scale, float sm_scale, void* stream) {
+                                   const void* dout, const void* lse, const void* o, void* delta,
+                                   void* dq, void* dk, void* dv, void* db_part, int B, int T,
+                                   int H, int D, long long stride_b, long long stride_t,
+                                   long long stride_d, float scale, float sm_scale,
+                                   void* stream) {
   if (D != 64 && D != 80 && D != 120) return -1;
   if (B <= 0 || T <= 0 || H <= 0) return 0;
+  if (H > 65535 || B > 65535) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *bqp = static_cast<const bf16*>(bq),
-             *bkp = static_cast<const bf16*>(bk), *bvp = static_cast<const bf16*>(bv),
-             *dop = static_cast<const bf16*>(dout), *op = static_cast<const bf16*>(o);
-  const float* kbp = static_cast<const float*>(key_bias);
-  const RowStats stats{static_cast<const float*>(lse), nullptr, nullptr};
-  float* dbp = static_cast<float*>(db_part);
-  bf16 *dqp = static_cast<bf16*>(dq), *dkp = static_cast<bf16*>(dk),
-       *dvp = static_cast<bf16*>(dv);
+  const bwd::Args args = bwd::short_t_args(dout, o, lse, bq, bk, bv, key_bias, nullptr, nullptr,
+                                           delta, db_part, T, H, stride_d, scale, sm_scale);
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (bqp != nullptr)
-      return launch_bwd<kD, true, false, true>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, stats, op,
-                                               dqp, dkp, dvp, dbp, B, T, H, stride_b, stride_t,
-                                               stride_d, scale, sm_scale, s);
-    return launch_bwd<kD, false, false, true>(qp, kp, vp, bqp, bkp, bvp, kbp, dop, stats, op,
-                                              dqp, dkp, dvp, dbp, B, T, H, stride_b, stride_t,
-                                              stride_d, scale, sm_scale, s);
+    if (bq != nullptr)
+      return bwd::launch_pair<kD, bwd::K4<true>>(q, k, v, args, dq, dk, dv, B, stride_b,
+                                                 stride_t, s);
+    return bwd::launch_pair<kD, bwd::K4<false>>(q, k, v, args, dq, dk, dv, B, stride_b, stride_t,
+                                                s);
   });
 }
 

@@ -1,29 +1,31 @@
-// The attention's shared pieces. On the WMMA tiles (tile shapes by head dim,
-// tile loads, the WMMA score product and row stores): the two backward
-// kernels that `attention.cu` (the v3 backward) and `attention_rows.cu` (the
-// backwards of the other variants) instantiate. On Hopper's TMA, mbarriers
-// and wgmma, with tiles and loads of their own: the forward mainloop
-// (namespace fwd) that every forward of `attention.cu` (v1's as its
-// two-sweep policy) and `flash_attention.cu` share, and the backward mainloop
-// (namespace bwd) of `flash_attention.cu`'s dq and dkv kernels.
+// The attention's Hopper mainloops (TMA copies into mbarrier rings, wgmma,
+// setmaxnreg), each a set of pieces that thin kernels instantiate with a
+// policy:
+// - the forward mainloop (namespace fwd), of every forward of `attention.cu`
+//   (K4 and its variants; v1 as its two-sweep policy) and of
+//   `flash_attention.cu` (K7, with and without segment ids);
+// - the backward mainloop (namespace bwd), a dq and a dkv kernel, of
+//   `flash_attention.cu` (K7's backward), `attention.cu` (K4's, the v3
+//   backward with and without the q/k/v biases) and `attention_rows.cu` (the
+//   K15 routes' backwards, whose dq kernel sweeps the keys twice).
 //
 // Layout: q, k, v are (B, T, H*d) with strides (stride_b, stride_t, 1), the
 // same for all three; head h is the lane slice h*d .. h*d+d-1 of each row,
-// read through the row strides, so no (B, H, T, d) copy is made. Every kernel
-// is a template over the head dim d, built for the repository's three: 64
-// (XLS-R-300M), 80 (XLS-R-1B) and 120 (XLS-R-2B). The tiles in shared memory
-// hold d padded with zero columns to DP, the next multiple of WMMA's k = 16
-// (120 -> 128): exact for q k^T, and products with V then compute DP - d
-// columns that are never written, so a head writes nothing past its d columns
-// (the next head starts there). q, k, v get their bias added (where the
-// kernel has one) and rounded to bf16 on load, and q is then scaled and
-// rounded again, in the JAX kernels' order (80**-0.5 and 120**-0.5 are not
-// exact in bf16, so the order shows). Padded keys carry the caller's finite
-// -1e30 bias; keys past T in the last tile get -inf and contribute exactly 0.
+// read through the row strides by the tensor maps, so no (B, H, T, d) copy is
+// made. Every kernel is a template over the head dim d, built for the
+// repository's three: 64 (XLS-R-300M, Whisper), 80 (XLS-R-1B) and 120
+// (XLS-R-2B). The tiles in shared memory hold a head as one or two swizzled
+// column blocks (64 columns, then 16 at d = 80 or 64 at d = 120, whose
+// columns 120..127 TMA fills with zeros: exact for every product), and
+// nothing is stored past a head's d columns (the next head starts there).
+// K4 and K15 add the q/k/v biases (where the kernel has them) and round to
+// bf16 once a tile has landed, and multiply q by the bf16 scale and round
+// again, in the JAX kernels' order (80**-0.5 and 120**-0.5 are not exact in
+// bf16, so the order shows). Padded keys carry the caller's finite -1e30
+// bias; keys past T get -inf and contribute exactly 0.
 #pragma once
 
 #include <math.h>
-#include <mma.h>
 
 #include <type_traits>
 
@@ -32,495 +34,7 @@
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBKV = 64;       // keys per tile
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kLdP = kBKV + 8;  // bf16 row pitch of the P and dS tiles (64 wide)
-constexpr int kMaxSmem = 232448;
-
-// The shapes that follow from head dim D.
-template <int D>
-struct Head {
-  static_assert(D % 8 == 0, "a head is whole 16-byte chunks");
-  static constexpr int kDP = (D + 15) / 16 * 16;  // padded to WMMA's k
-  static constexpr int kLdH = kDP + 8;            // bf16 pitch of the Q, K, V, dO tiles
-  static constexpr int kLdS = (kDP > kBKV ? kDP : kBKV) + 4;  // fp32 pitch of staged S, P@V
-  static constexpr int kNF = kDP / 16;            // 16-wide fragments across the head
-  static constexpr int kHalf = kDP / 2;           // columns of each of a row's two lanes
-  static constexpr int kChunks = kDP / 8;         // 8-value chunks of a tile row
-  // Query rows' stats (lse or m, l, delta), key bias; the column sums.
-  static constexpr int kStats = 4 * 64 * 4 + 4 * kDP * 4;
-  static constexpr int kDkdvSmem = 4 * kBQ * kLdH * 2 + 2 * kBQ * kLdP * 2 + kBQ * kLdS * 4 + kStats;
-  static constexpr int kDqSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdP * 2 + kBQ * kLdS * 4 + kStats;
-  static constexpr int kRowsSmem = 4 * kBQ * kLdH * 2 + kBQ * kLdS * 4 + kBKV * 4;
-  static_assert(kDkdvSmem <= kMaxSmem && kDqSmem <= kMaxSmem && kRowsSmem <= kMaxSmem,
-                "each kernel's tiles must fit a block's shared memory");
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Loads a 64 x DP tile of rows r0.. of one head, adds the bias (kBias) and
-// rounds to bf16, then (scale != 0) multiplies by scale and rounds again; rows
-// at or past T and the padding columns d .. DP-1 are zero.
-template <int D, bool kBias>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, const bf16* bvec,
-                                          int r0, int T, long long stride_t, float scale) {
-  using H = Head<D>;
-  for (int i = threadIdx.x; i < 64 * H::kChunks; i += kThreads) {
-    const int r = i / H::kChunks;
-    const int c = (i % H::kChunks) * 8;
-    float f[8];
-    if (r0 + r < T && c < D) {
-      coral_load8(src + (long long)(r0 + r) * stride_t + c, f);
-      if constexpr (kBias) {
-        float bb[8];
-        coral_load8(bvec + c, bb);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = coral_round_bf16(f[e] + bb[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (scale != 0.0f) f[e] = coral_round_bf16(f[e] * scale);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-    }
-    coral_store8(dst + r * H::kLdH + c, f);
-  }
-}
-
-// Rows r0 .. r0+63 of one head without a bias; rows at or past T and the
-// padding columns are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int T,
-                                          long long stride_t) {
-  using H = Head<D>;
-  for (int i = threadIdx.x; i < 64 * H::kChunks; i += kThreads) {
-    const int r = i / H::kChunks;
-    const int c = (i % H::kChunks) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T && c < D)
-      u = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride_t + c);
-    *reinterpret_cast<uint4*>(dst + r * H::kLdH + c) = u;
-  }
-}
-
-// The key bias of keys k0 .. k0+63 (-inf past T), by the block's first 64 threads.
-__device__ __forceinline__ void load_key_bias(float* kb, const float* key_bias_row, int k0,
-                                              int T) {
-  if (threadIdx.x < kBKV) {
-    const int key = k0 + threadIdx.x;
-    kb[threadIdx.x] = key < T ? key_bias_row[key] : -INFINITY;
-  }
-}
-
-// One warp's 16 x 64 fp32 product A_w B^T, staged into Sw (pitch kLdS): A_w
-// is the warp's 16 rows of a tile, B a 64-row tile, both DP wide (pitch
-// kLdH). Sw is complete for every lane of the warp on return.
-template <int D>
-__device__ __forceinline__ void product_abt(float* Sw, const bf16* Aw, const bf16* B) {
-  using H = Head<D>;
-  FragC s[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < H::kDP; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, Aw + kk, H::kLdH);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      FragBc bt;
-      wmma::load_matrix_sync(bt, B + (j * 16) * H::kLdH + kk, H::kLdH);
-      wmma::mma_sync(s[j], a, bt, s[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(Sw + j * 16, s[j], H::kLdS, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// --- Backward ------------------------------------------------------------------
-//
-// Two kernels, neither with atomics, so the gradients are deterministic. The
-// key-major kernel (one block per 64-key tile, head, batch row) walks the
-// query tiles and accumulates dk and dv in registers, in the TPU kernels'
-// transposed space (S^T = K Q^T). The query-major kernel walks the key tiles
-// and accumulates dq; it rebuilds p and dp instead of summing dq across key
-// blocks. Bound on the H100: the tensor cores (five T x T x d products per
-// head, two more for dq's pass) and the exponentials; the (T, T) score tile
-// the TPU kernels hold in VMEM does not fit an SM at T = 499 or 1499.
-//
-// p and delta come from per-query-row stats, by two template flags:
-// - kML false: p = exp(s + key_bias - lse) from the saved lse, clamped at
-//   -1e25 by the forward, so a fully masked row gets p = 0 (no gradient);
-//   kML true: p = exp(s + key_bias - m) / l from the row max m and sum l of
-//   the pre-pass (`attention_rows.cu`), with no clamp, as the TPU kernels
-//   that recompute the softmax: a fully masked row has every s at -1e30
-//   exactly, so s - m = 0 and p = 1/T, nonzero gradients ("uniform garbage",
-//   as the JAX package calls them). m and l are kept apart and m is
-//   subtracted first: exp(s - (m + log l)) cancels to p = 1 there.
-// - kDeltaO true: delta = rowsum(do * o) per query tile from the saved o;
-//   false: delta = sum_j p_ij dp_ij in fp32, written by the pre-pass.
-// Queries past T get lse (or m) = +inf and so p = 0; keys past T get -inf.
-//
-// Each block writes the column sums of its 64 rows of bf16-rounded dq (or dk,
-// dv) as one partial when the kernels take the q/k/v biases (kBias); the sum
-// over tiles and batch rows runs outside, as the JAX package sums its
-// per-batch-row partials outside. The padding columns of dq, dk, dv are
-// neither written nor summed. dq, dk and dv are written through their own row
-// stride, so for q, k, v sliced from one packed (B, T, 3 H*D) projection they
-// land in the lane thirds of one packed gradient, the projection's dy, with no
-// copy.
-
-// The stats of query rows q0 .. q0+63 (dOs already in shared memory): a_s the
-// lse (or m with kML), l_s the l (kML), delta_s either rowsum(do * o) from
-// the saved o (kDeltaO) or the pre-pass's delta. Rows past T get a_s = +inf,
-// l_s = 1 and delta_s = 0. Two threads a row.
-template <int D, bool kML, bool kDeltaO>
-__device__ __forceinline__ void load_query_stats(float* a_s, float* l_s, float* delta_s,
-                                                 const float* a_row, const float* l_row,
-                                                 const float* delta_row, const bf16* dOs,
-                                                 const bf16* o_head, int q0, int T,
-                                                 long long stride_o) {
-  using H = Head<D>;
-  const int r = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-  const bool valid = q0 + r < T;
-  float s = 0.f;
-  if constexpr (kDeltaO) {
-    if (valid) {
-#pragma unroll
-      for (int j = 0; j < H::kHalf; j += 8) {
-        const int c = half * H::kHalf + j;
-        if (c >= D) break;
-        float a[8], d[8];
-        coral_load8(o_head + (long long)(q0 + r) * stride_o + c, a);
-        coral_load8(dOs + r * H::kLdH + c, d);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += d[e] * a[e];
-      }
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-  } else if (valid) {
-    s = delta_row[q0 + r];
-  }
-  if (half == 0) {
-    a_s[r] = valid ? a_row[q0 + r] : INFINITY;
-    if constexpr (kML) l_s[r] = valid ? l_row[q0 + r] : 1.f;
-    delta_s[r] = s;
-  }
-}
-
-// p from a score with its key bias, as kML says.
-template <bool kML>
-__device__ __forceinline__ float prob(float s_kb, float a, float l) {
-  if constexpr (kML) return expf(s_kb - a) / l;
-  return expf(s_kb - a);
-}
-
-// A warp's 16 x DP fp32 accumulators times `mul`, rounded to bf16, go to rows
-// r0 + 16 warp .. of dst, columns 0 .. d-1 (rows at or past T are skipped);
-// with kSum the column sums of the rounded values over the block's 64 rows go
-// to part[0 .. d-1]. Called by every thread of the block.
-template <int D, bool kSum>
-__device__ __forceinline__ void store_rows(FragC (&acc)[Head<D>::kNF], float mul, float* Sw,
-                                           float* red, bf16* dst, long long stride, int r0, int T,
-                                           float* part) {
-  using H = Head<D>;
-  constexpr int kHalf = H::kHalf;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;
-  const int half = lane & 1;
-#pragma unroll
-  for (int j = 0; j < H::kNF; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, acc[j], H::kLdS, wmma::mem_row_major);
-  __syncwarp();
-  const int t = r0 + warp * 16 + row;
-  float out[kHalf];
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j)
-    out[j] = t < T ? coral_round_bf16(Sw[row * H::kLdS + half * kHalf + j] * mul) : 0.f;
-  if (t < T) {
-#pragma unroll
-    for (int j = 0; j < kHalf; j += 8)
-      if (half * kHalf + j < D)
-        coral_store8(dst + (long long)t * stride + half * kHalf + j, out + j);
-  }
-  __syncwarp();
-  if constexpr (kSum) {
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) Sw[row * H::kLdS + half * kHalf + j] = out[j];
-    __syncwarp();
-    for (int c = lane; c < D; c += 32) {
-      float cs = 0.f;
-      for (int r = 0; r < 16; ++r) cs += Sw[r * H::kLdS + c];
-      red[warp * H::kDP + c] = cs;
-    }
-    __syncthreads();
-    if (threadIdx.x < D)
-      part[threadIdx.x] = ((red[threadIdx.x] + red[H::kDP + threadIdx.x]) +
-                           red[2 * H::kDP + threadIdx.x]) + red[3 * H::kDP + threadIdx.x];
-    __syncthreads();
-  }
-}
-
-// The per-query-row inputs of the backward kernels: stat_a the lse (B, H, T)
-// or, with kML, m, stat_l l (kML), delta (B, H, T) fp32 (without kDeltaO).
-struct RowStats {
-  const float* a;
-  const float* l;
-  const float* delta;
-};
-
-// q, k, v, bq, bk, bv, key_bias as the forward; dout, o: (B, T, H*D) bf16
-// contiguous (o read with kDeltaO); dk, dv: (B, T, H*D) bf16 with row stride
-// stride_d (batch stride T stride_d); db_part (kBias): (B, nT, 3, H*D) fp32
-// with nT = ceil(T / 64).
-template <int D, bool kBias, bool kML, bool kDeltaO>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ bq,
-                              const bf16* __restrict__ bk, const bf16* __restrict__ bv,
-                              const float* __restrict__ key_bias, const bf16* __restrict__ dout,
-                              RowStats stats, const bf16* __restrict__ o,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                              float* __restrict__ db_part, int T, int H, long long stride_b,
-                              long long stride_t, long long stride_d, float scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBQ * kLdH;
-  bf16* Qs = Vs + kBQ * kLdH;
-  bf16* dOs = Qs + kBQ * kLdH;
-  bf16* Ps = dOs + kBQ * kLdH;
-  bf16* dSs = Ps + kBQ * kLdP;
-  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdP);
-  float* a_s = Ss + kBQ * kLdS;
-  float* l_s = a_s + 64;
-  float* delta_s = l_s + 64;
-  float* kb = delta_s + 64;
-  float* red = kb + 64;
-
-  const int k0 = blockIdx.x * kBKV;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  const long long HD = (long long)H * D;
-  const long long head = (long long)b * stride_b + h * D;
-  const long long ohead = (long long)b * T * HD + h * D;
-  const long long dhead = (long long)b * T * stride_d + h * D;
-  const long long srow = ((long long)b * H + h) * T;
-
-  load_tile<D, kBias>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
-  load_tile<D, kBias>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
-  load_key_bias(kb, key_bias + (long long)b * T, k0, T);
-
-  FragC dk_acc[kNF], dv_acc[kNF];
-#pragma unroll
-  for (int j = 0; j < kNF; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.0f);
-    wmma::fill_fragment(dv_acc[j], 0.0f);
-  }
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* Pw = Ps + warp * 16 * kLdP;
-  bf16* dSw = dSs + warp * 16 * kLdP;
-  const bf16* Kw = Ks + warp * 16 * kLdH;
-  const bf16* Vw = Vs + warp * 16 * kLdH;
-
-  for (int q0 = 0; q0 < T; q0 += kBQ) {
-    __syncthreads();  // the previous query tile is no longer read
-    load_tile<D, kBias>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
-    load_rows<D>(dOs, dout + ohead, q0, T, HD);
-    __syncthreads();
-    load_query_stats<D, kML, kDeltaO>(a_s, l_s, delta_s, stats.a + srow, stats.l + srow,
-                                      stats.delta + srow, dOs, o + ohead, q0, T, HD);
-    __syncthreads();
-
-    // S^T = K_w Q^T for this warp's 16 keys.
-    product_abt<D>(Sw, Kw, Qs);
-    float p[32];
-    const float kbr = kb[warp * 16 + row];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      p[j] = prob<kML>(Sw[row * kLdS + c] + kbr, a_s[c], kML ? l_s[c] : 1.f);
-      Pw[row * kLdP + c] = __float2bfloat16(p[j]);
-    }
-    __syncwarp();
-
-    // dP^T = V_w dO^T.
-    product_abt<D>(Sw, Vw, dOs);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      dSw[row * kLdP + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_s[c]));
-    }
-    __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q.
-#pragma unroll
-    for (int kk = 0; kk < kBQ; kk += 16) {
-      FragA ap, as;
-      wmma::load_matrix_sync(ap, Pw + kk, kLdP);
-      wmma::load_matrix_sync(as, dSw + kk, kLdP);
-#pragma unroll
-      for (int j = 0; j < kNF; ++j) {
-        FragBr bo, bqf;
-        wmma::load_matrix_sync(bo, dOs + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(dv_acc[j], ap, bo, dv_acc[j]);
-        wmma::load_matrix_sync(bqf, Qs + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(dk_acc[j], as, bqf, dk_acc[j]);
-      }
-    }
-    __syncwarp();
-  }
-
-  float* part = kBias ? db_part + ((long long)b * gridDim.x + blockIdx.x) * 3 * HD + h * D
-                      : nullptr;
-  store_rows<D, kBias>(dk_acc, 1.0f, Sw, red, dk + dhead, stride_d, k0, T, kBias ? part + HD : part);
-  store_rows<D, kBias>(dv_acc, 1.0f, Sw, red, dv + dhead, stride_d, k0, T,
-                       kBias ? part + 2 * HD : part);
-}
-
-// As attention_bwd_dkdv_kernel, for dq (and the first third of db_part).
-template <int D, bool kBias, bool kML, bool kDeltaO>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ bq,
-                            const bf16* __restrict__ bk, const bf16* __restrict__ bv,
-                            const float* __restrict__ key_bias, const bf16* __restrict__ dout,
-                            RowStats stats, const bf16* __restrict__ o,
-                            bf16* __restrict__ dq, float* __restrict__ db_part, int T, int H,
-                            long long stride_b, long long stride_t, long long stride_d,
-                            float scale, float sm_scale) {
-  using Hd = Head<D>;
-  constexpr int kLdH = Hd::kLdH, kLdS = Hd::kLdS, kNF = Hd::kNF;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBQ * kLdH;
-  bf16* Ks = dOs + kBQ * kLdH;
-  bf16* Vs = Ks + kBKV * kLdH;
-  bf16* dSs = Vs + kBKV * kLdH;
-  float* Ss = reinterpret_cast<float*>(dSs + kBQ * kLdP);
-  float* a_s = Ss + kBQ * kLdS;
-  float* l_s = a_s + 64;
-  float* delta_s = l_s + 64;
-  float* kb = delta_s + 64;
-  float* red = kb + 64;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = lane >> 1;
-  const int half = lane & 1;
-  const long long HD = (long long)H * D;
-  const long long head = (long long)b * stride_b + h * D;
-  const long long ohead = (long long)b * T * HD + h * D;
-  const long long dhead = (long long)b * T * stride_d + h * D;
-  const long long srow = ((long long)b * H + h) * T;
-
-  load_tile<D, kBias>(Qs, q + head, bq + h * D, q0, T, stride_t, scale);
-  load_rows<D>(dOs, dout + ohead, q0, T, HD);
-  __syncthreads();
-  load_query_stats<D, kML, kDeltaO>(a_s, l_s, delta_s, stats.a + srow, stats.l + srow,
-                                    stats.delta + srow, dOs, o + ohead, q0, T, HD);
-
-  FragC dq_acc[kNF];
-#pragma unroll
-  for (int j = 0; j < kNF; ++j) wmma::fill_fragment(dq_acc[j], 0.0f);
-  float* Sw = Ss + warp * 16 * kLdS;
-  bf16* dSw = dSs + warp * 16 * kLdP;
-  const bf16* Qw = Qs + warp * 16 * kLdH;
-  const bf16* dOw = dOs + warp * 16 * kLdH;
-
-  for (int k0 = 0; k0 < T; k0 += kBKV) {
-    __syncthreads();  // the previous key tile is no longer read
-    load_tile<D, kBias>(Ks, k + head, bk + h * D, k0, T, stride_t, 0.0f);
-    load_tile<D, kBias>(Vs, v + head, bv + h * D, k0, T, stride_t, 0.0f);
-    load_key_bias(kb, key_bias + (long long)b * T, k0, T);
-    __syncthreads();
-    const float a_r = a_s[warp * 16 + row];
-    const float l_r = kML ? l_s[warp * 16 + row] : 1.f;
-    const float delta_r = delta_s[warp * 16 + row];
-
-    // S = Q_w K^T.
-    product_abt<D>(Sw, Qw, Ks);
-    float p[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      p[j] = prob<kML>(Sw[row * kLdS + c] + kb[c], a_r, l_r);
-    }
-    __syncwarp();
-
-    // dP = dO_w V^T.
-    product_abt<D>(Sw, dOw, Vs);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      dSw[row * kLdP + c] = __float2bfloat16(p[j] * (Sw[row * kLdS + c] - delta_r));
-    }
-    __syncwarp();
-
-    // dQ += dS K.
-#pragma unroll
-    for (int kk = 0; kk < kBKV; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, dSw + kk, kLdP);
-#pragma unroll
-      for (int j = 0; j < kNF; ++j) {
-        FragBr bkf;
-        wmma::load_matrix_sync(bkf, Ks + kk * kLdH + j * 16, kLdH);
-        wmma::mma_sync(dq_acc[j], a, bkf, dq_acc[j]);
-      }
-    }
-    __syncwarp();
-  }
-
-  float* part = kBias ? db_part + ((long long)b * gridDim.x + blockIdx.x) * 3 * HD + h * D
-                      : nullptr;
-  store_rows<D, kBias>(dq_acc, sm_scale, Sw, red, dq + dhead, stride_d, q0, T, part);
-}
-
-// Launches the dkdv and dq kernels on `s`; returns the cudaError_t.
-template <int D, bool kBias, bool kML, bool kDeltaO>
-int launch_bwd(const bf16* qp, const bf16* kp, const bf16* vp, const bf16* bqp, const bf16* bkp,
-               const bf16* bvp, const float* kbp, const bf16* dop, RowStats stats,
-               const bf16* op, bf16* dq, bf16* dk, bf16* dv, float* dbp, int B, int T, int H,
-               long long stride_b, long long stride_t, long long stride_d, float scale,
-               float sm_scale, cudaStream_t s) {
-  using Hd = Head<D>;
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<D, kBias, kML, kDeltaO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Hd::kDkdvSmem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D, kBias, kML, kDeltaO>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Hd::kDqSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  attention_bwd_dkdv_kernel<D, kBias, kML, kDeltaO><<<grid, kThreads, Hd::kDkdvSmem, s>>>(
-      qp, kp, vp, bqp, bkp, bvp, kbp, dop, stats, op, dk, dv, dbp, T, H, stride_b, stride_t,
-      stride_d, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<D, kBias, kML, kDeltaO><<<grid, kThreads, Hd::kDqSmem, s>>>(
-      qp, kp, vp, bqp, bkp, bvp, kbp, dop, stats, op, dq, dbp, T, H, stride_b, stride_t,
-      stride_d, scale, sm_scale);
-  return (int)cudaGetLastError();
-}
+constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
 
 // Calls f(std::integral_constant<int, D>{}) for a built head dim D (64, 80,
 // 120); returns -1 for any other.
@@ -1273,16 +787,23 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, const Arg
 
 // --- The backward mainloop (Hopper: TMA, mbarriers, wgmma) --------------------------
 //
-// Two kernels over one set of pieces, `flash_bwd_dq_kernel` and
-// `flash_bwd_dkv_kernel` (K7's backward, unmasked and with segment ids,
-// `flash_attention.cu`), each a thin kernel over dq() or dkv() with a policy
-// (K7<kSeg>), as the forwards are over fwd::mainloop.
+// Two kernels over one set of pieces, a query-major one over dq() and a
+// key-major one over dkv(), each a thin kernel with a policy, as the
+// forwards are over fwd::mainloop:
+// - K7<kSeg>: `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel` (K7's
+//   backward, unmasked and with segment ids, `flash_attention.cu`);
+// - K4<kBias>: `attention_bwd_dq_kernel` and `attention_bwd_dkv_kernel` of
+//   the v3 backward, with and without the q/k/v biases (`attention.cu`);
+// - Stats, Recompute, Ctx: the same pair for the K15 routes' backwards
+//   (`attention_rows.cu`).
+// Every pair launches its dq kernel first.
 //
 // Bound on the H100: the tensor cores and the exponentials. Per head the dq
 // kernel makes three T x T x DP products (S = Q K^T, dP = dO V^T, dQ = dS K)
 // and the dkv kernel four (S^T, dP^T, dV = P^T dO, dK = dS^T Q), each with
 // T^2 exponentials, from 5-6 T d bf16 values read or written: 750-1,000 flops
-// a byte at T = 1500, far above the card's 295.
+// a byte at T = 1500, far above the card's 295. The K15 routes' dq kernel
+// adds a first sweep of one or two products and T^2 exponentials.
 //
 // Design: a block holds 64 x kWG rows of its own side (kWG = 2 consumer
 // warpgroups) in shared memory, copied once by TMA, and a producer warp
@@ -1317,14 +838,63 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, const Arg
 // atomics: dq is summed in registers over every key tile by the one block
 // that owns its rows, so the gradients are the same bits on every run.
 //
+// The short-T policies (K4, K15; kK4) differ from K7 in five places, each a
+// flag of the policy, not a fork of the loop:
+// - Operands. q, k, v get their biases added (kBias) and are rounded to
+//   bf16; q is then multiplied by the bf16 scale and rounded again, the JAX
+//   kernels' order (`coral_tpu/ops/attention_pallas.py:292-296`), and the
+//   scores are not scaled again. A resident operand is transformed once by
+//   its consumer warpgroup after its copy landed (dq's Q, dkv's K and V); a
+//   streamed one by the producer warpgroup's four warps once each tile
+//   landed (dq's K and V with kBias, dkv's Q always), as the forward's bias
+//   pass (fwd::transform_tile, then the async-proxy fence before wgmma reads
+//   the tile).
+// - Scores in log2 units: s log2 e + b by one FMA, b the key's bias times
+//   log2 e (the caller's finite -1e30 for a padded key, -inf past T), as the
+//   forward's K4: the dq tile's staged row vector, the dkv thread's two keys'
+//   in registers.
+// - p. From the forward's lse (K4, Stats): p = exp2(s - lse log2 e); the
+//   forward clamps the lse at -1e25, so a fully masked row gets p = 0 (no
+//   gradient). From the row's own max m and sum l (Recompute, Ctx, swept by
+//   the dq kernel): p = exp2(s - m) r with r = 1 / l, s - m subtracted first
+//   and r applied after the exponential, with no clamp, as the JAX kernels
+//   that recompute the softmax. A fully masked row has every s equal to the
+//   key bias -1e30 log2 e exactly (the FMA absorbs the score), m equals it,
+//   s - m = 0 and p = 1 / T: nonzero gradients ("uniform garbage", as the
+//   JAX package calls them), every key's dv the mean of do. That holds only
+//   because the score and its key bias are formed by the same FMA in both
+//   kernels and both sweeps, and m and l are kept apart: K7's one constant
+//   m log2 e + log2 l would lose log2 l at -1.44e30 and its rounding (~1e23)
+//   would send p to 0 or inf.
+// - dS = p (dP - delta) carries no scale; the dq accumulator is multiplied
+//   by the fp32 sm_scale at its store (dK gets it from the scaled q).
+// - Stores go through the row stride stride_d, so the lane thirds of one
+//   packed dqkv are written in place; with kBias each block writes the
+//   column sums of its 128 rows of bf16-rounded dq (or dk, dv) as one
+//   partial, summed outside as the JAX package sums its per-batch-row ones.
+// delta is rowsum(o do) (K7's di; K4, Ctx) or swept (Stats, Recompute); the
+// dq kernel writes it to the (B, H, T) scratch di for the dkv kernel.
+// Stats, Recompute and Ctx sweep the key tiles twice in the dq kernel, the
+// ring's stages and phases continued from the first sweep into the second
+// as in fwd::V1: Ctx's first sweep copies K alone (its expect_tx counts one
+// operand) and computes S and the online m and l; Stats' S and dP, and u =
+// sum_j p dp against the lse; Recompute's S and dP, the online m, l and u =
+// sum_j e dp rescaled with m, delta = u / l. The block writes m (log2
+// units), l and delta to the scratch, and its second sweep is K7's loop with
+// the policy's p and dS. The dkv producer stages beside each query tile c
+// (the lse times log2 e, or m), then 1 / l (Recompute, Ctx), then delta, by
+// plain loads as K7's row stats.
+//
 // Tiles and registers (setmaxnreg): the dq consumer holds dQ (DP / 2
 // registers a thread), S and dP (kN) and dS's fragments (kN / 4): 128-key
 // tiles at d = 64 and 80, 64 at 120, in 240 registers beside a 24-register
-// producer. The dkv consumer holds dK and dV (64, 80, 128 registers a thread
-// at d = 64, 80, 120), S^T and dP^T (kN) and their fragments (kN / 2): 64
-// queries, 32 at d = 120, in 232 registers; its producer keeps a tile's row
-// stats in flight in 40 (at 24 it spilled 20-36 bytes). No instantiation
-// spills (ptxas, `chip_smoke.py`).
+// producer warp (232 beside a 40-register producer warpgroup with the bias
+// pass, a row at a time). The dkv consumer holds dK and dV (64, 80, 128
+// registers a thread at d = 64, 80, 120), S^T and dP^T (kN) and their
+// fragments (kN / 2): 64 queries, 32 at d = 120, in 232 registers; its
+// producer keeps a tile's row stats in flight in 40 (at 24 it spilled 20-36
+// bytes), in 56 with the pass over Q (224 for the consumers). No
+// instantiation spills (ptxas, `chip_smoke.py`).
 namespace bwd {
 
 constexpr int kWG = 2;             // consumer warpgroups of a block
@@ -1335,26 +905,50 @@ constexpr int kThreads = 128 * (kWG + 1);
 __host__ __device__ constexpr int dq_tile(int D) { return D == 120 ? 64 : 128; }
 __host__ __device__ constexpr int dkv_tile(int D) { return D == 120 ? 32 : 64; }
 
-// The policies. K7 (the stock TPU flash kernel's backward): p rebuilt from
-// the forward's m and l, scores scaled by d**-0.5, keys (dq) or queries
-// (dkv) past T masked; with kSeg, pairs of different segment ids too.
-template <bool kSeg_>
-struct K7 {
-  static constexpr bool kSeg = kSeg_;
+// A policy's flags: kK4 the short-T family (above); kBias the q/k/v biases;
+// kSeg K7's segment ids; kML p from m and 1 / l swept by a first sweep of
+// the dq kernel; kSweepU delta = sum_j p dp, swept there too.
+template <bool kK4_, bool kBias_, bool kSeg_, bool kML_, bool kSweepU_>
+struct Policy {
+  static constexpr bool kK4 = kK4_, kBias = kBias_, kSeg = kSeg_, kML = kML_,
+                        kSweepU = kSweepU_;
+  static constexpr bool kSweep = kML || kSweepU;  // the dq kernel's first sweep
 };
+// K7 (the stock TPU flash kernel's backward): p rebuilt from the forward's m
+// and l, scores scaled by d**-0.5, keys (dq) or queries (dkv) past T masked;
+// with kSeg, pairs of different segment ids too.
+template <bool kSeg>
+struct K7 : Policy<false, false, kSeg, false, false> {};
+// K4, the v3 backward (`_bwd_kernel_stats_ctx_qb` and, without biases,
+// `_bwd_kernel_stats_ctx`): p from the lse, delta = rowsum(o do).
+template <bool kBias>
+struct K4 : Policy<true, kBias, false, false, false> {};
+// `_bwd_kernel_stats` (mode 0): p from the lse, delta = sum_j p dp swept.
+struct Stats : Policy<true, false, false, false, true> {};
+// `_bwd_kernel` (mode 1): m and l swept, delta = sum_j p dp swept.
+struct Recompute : Policy<true, false, false, true, true> {};
+// `_bwd_kernel_ctx` (mode 2): m and l swept, delta = rowsum(o do).
+struct Ctx : Policy<true, false, false, true, false> {};
 
 // A kernel's tiles at head dim D: kN-row streamed tiles in a ring of
 // kStages, kVecs words per streamed row, and setmaxnreg's split (kProducer
-// registers a producer thread, kConsumer a consumer's). Shared memory: two
-// resident operands (kRows rows: the dq kernel's Q and dO, the dkv kernel's
-// K and V), then kStages x two streamed ones (kN rows: K and V; Q and dO),
-// each a 1024-aligned tile of the forward's two column blocks; the stages'
-// row vectors; the mbarriers (the resident copy's, then full and empty per
-// stage) and 1 KB to align the base.
-template <int D, int kN_, int kVecs_, int kStages_, int kProducer_, int kConsumer_>
+// registers a producer thread, kConsumer a consumer's). kPass: the producer
+// warpgroup transforms each streamed tile once it landed (the copy completes
+// on a `landed` mbarrier of its own, and the four warps arrive on `full`
+// after the pass). kFirstBoth: a first sweep copies both streamed operands,
+// else the first alone. kSums: column-sum buffers (8 warps x 128 fp32 each).
+// Shared memory: two resident operands (kRows rows: the dq kernel's Q and
+// dO, the dkv kernel's K and V), then kStages x two streamed ones (kN rows: K
+// and V; Q and dO), each a 1024-aligned tile of the forward's two column
+// blocks; the stages' row vectors; the column-sum buffers; the mbarriers (the
+// resident copy's, then full and empty, with kPass landed, per stage) and 1
+// KB to align the base.
+template <int D, int kN_, int kVecs_, int kStages_, int kProducer_, int kConsumer_,
+          bool kPass_ = false, bool kFirstBoth_ = true, int kSums_ = 0>
 struct Layout {
-  static constexpr int kN = kN_, kVecs = kVecs_, kStages = kStages_;
+  static constexpr int kN = kN_, kVecs = kVecs_, kStages = kStages_, kSums = kSums_;
   static constexpr int kProducer = kProducer_, kConsumer = kConsumer_;
+  static constexpr bool kPass = kPass_, kFirstBoth = kFirstBoth_;
   // The split must fit what the launch gives the block: 65536 registers over
   // its threads, in units of 8 a thread.
   static_assert(128 * kProducer + 128 * kWG * kConsumer <= kThreads * (65536 / kThreads / 8 * 8),
@@ -1369,22 +963,32 @@ struct Layout {
                     kTile % 1024 == 0,
                 "each tile 1024-aligned");
   static constexpr int kVec = 2 * kRes + 2 * kStages * kTile;
-  static constexpr int kBars = kVec + kStages * kVecs * kN * 4;
-  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kSum = kVec + kStages * kVecs * kN * 4;
+  static constexpr int kBars = kSum + kSums * 4 * kWG * 128 * 4;
+  static constexpr int kSmem = kBars + 8 * (1 + (kPass ? 3 : 2) * kStages) + 1024;
   static_assert(kSmem <= kMaxSmem, "the backward's tiles must fit a block");
   static __host__ __device__ constexpr int res(int i) { return i * kRes; }
   static __host__ __device__ constexpr int tile(int s, int i) { return 2 * kRes + (2 * s + i) * kTile; }
   static __host__ __device__ constexpr int vec(int s, int j) {
     return kVec + (s * kVecs + j) * kN * 4;
   }
+  static __host__ __device__ constexpr int sum(int i) { return kSum + i * 4 * kWG * 128 * 4; }
 };
-// dq: the key ids with kSeg, two stages. dkv: c, di (and the query ids),
-// three stages, and 40 producer registers for the row stats in flight (at
-// 24 they spilled).
-template <int D, bool kSeg>
-using DqLayout = Layout<D, dq_tile(D), kSeg ? 1 : 0, 2, 24, 240>;
-template <int D, bool kSeg>
-using DkvLayout = Layout<D, dkv_tile(D), kSeg ? 3 : 2, 3, 40, 232>;
+// dq: two stages; the key vector (K7 with kSeg: the ids; K4, K15: the key
+// bias in log2 units); with the bias pass over K and V, a 40-register
+// producer warpgroup (a row at a time: with two in flight it spilled 4
+// bytes at d = 80) and 232 for the consumers, and one column-sum buffer; a
+// first sweep copies V only to form dP (kSweepU).
+template <int D, class P>
+using DqLayout = Layout<D, dq_tile(D), P::kK4 || P::kSeg ? 1 : 0, 2, P::kBias ? 40 : 24,
+                        P::kBias ? 232 : 240, P::kBias, P::kSweepU, P::kBias ? 1 : 0>;
+// dkv: three stages; K7: c, di (and the query ids), 40 producer registers
+// for the row stats in flight (at 24 they spilled); K4, K15: c, 1 / l (kML)
+// and delta, and the pass over Q in a 56-register producer warpgroup (224
+// for the consumers), two column-sum buffers with kBias.
+template <int D, class P>
+using DkvLayout = Layout<D, dkv_tile(D), P::kK4 ? (P::kML ? 3 : 2) : (P::kSeg ? 3 : 2), 3,
+                         P::kK4 ? 56 : 40, P::kK4 ? 224 : 232, P::kK4, true, P::kBias ? 2 : 0>;
 
 // The tensor maps: the resident operands' (boxes of kRows rows) and the
 // streamed ones' (boxes of kN rows), [operand][column block].
@@ -1395,44 +999,60 @@ struct Maps {
 struct Args {
   const bf16* o;     // dq: (B, T, H*D) bf16 contiguous
   const bf16* dout;  // the same layout
-  const float* m;    // (B, H, T) fp32: the forward's row max of the scaled scores
+  const float* m;    // K7: (B, H, T) fp32: the forward's row max of the scaled scores
   const float* l;    // and row sum of exp(s - m)
-  const int* seg;    // kSeg: (B, Tk) int32
-  float* di;         // (B, H, T) fp32: rowsum(o do), written by dq, read by dkv
-  bf16* out0;        // dq: dq; dkv: dk; (B, T, H*D) bf16 contiguous
+  const int* seg;    // K7 with kSeg: (B, Tk) int32
+  float* di;         // (B, H, T) fp32: delta, written by dq, read by dkv
+  bf16* out0;        // dq: dq; dkv: dk; (B, T, H*D) bf16, rows `stride_d` apart (K7: H*D)
   bf16* out1;        // dkv: dv
   int T, Tk, H;
-  float scale;       // d**-0.5
+  float scale;       // K7: d**-0.5; K4, K15: the bf16 scale q is multiplied by
+  // The short-T policies (kK4):
+  const float* lse;       // K4, Stats: the forward's (B, H, T) fp32 lse
+  const bf16* bq;         // kBias: (H*D,) bf16 each
+  const bf16* bk;
+  const bf16* bv;
+  const float* key_bias;  // (B, T) fp32: 0 or the caller's -1e30
+  float* row_m;           // kML: (B, H, T) fp32 scratch, m (log2 units) and l,
+  float* row_l;           //   written by dq's first sweep, read by dkv
+  float* db_part;         // kBias: (B, ceil(T / kRows), 3, H*D) fp32 column sums
+  long long stride_d;     // the outputs' row stride (batch stride T stride_d)
+  float sm_scale;         // fp32, dq's accumulator times it at the store
 };
 
 // Initialises the mbarriers (thread 0), then a block-wide barrier.
-template <int kStages>
+template <class L>
 __device__ __forceinline__ void init_bars(uint32_t bars) {
   if (threadIdx.x == 0) {
     hopper::mbar_init(bars, 1);
-    for (int s = 0; s < kStages; ++s) {
-      // full: the producer warp's 32 arrivals and the copy's expect_tx;
-      // empty: the consumers' warps.
-      hopper::mbar_init(bars + 8 + 8 * s, 33);
-      hopper::mbar_init(bars + 8 + 8 * (kStages + s), 4 * kWG);
+    for (int s = 0; s < L::kStages; ++s) {
+      // full: the producer warp's 32 arrivals and the copy's expect_tx (with
+      // the pass: the producer warpgroup's 128 arrivals, and the expect_tx
+      // on landed); empty: the consumers' warps.
+      hopper::mbar_init(bars + 8 + 8 * s, L::kPass ? 128 : 33);
+      hopper::mbar_init(bars + 8 + 8 * (L::kStages + s), 4 * kWG);
+      if (L::kPass) hopper::mbar_init(bars + 8 + 8 * (2 * L::kStages + s), 1);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 }
 
-// The producer warp: the resident operands once, then each streamed tile into
-// its stage once the consumers released it, with its row vectors:
-// vec(row, words) gives words[0 .. kVecs) of streamed row `row` (all rows,
-// also those past T), by the warp's 32 lanes, loaded before the wait for
-// the stage so that their latency overlaps it.
-template <class L, class Vec>
+// The producer: the resident operands once, then n_first + n_tiles streamed
+// tiles (a first sweep, then the second, tile i % n_tiles), each into its
+// stage once the consumers released it, with its row vectors: vec(row,
+// words) gives words[0 .. kVecs) of streamed row `row` (all rows, also those
+// past T), by the first warp's 32 lanes, loaded before the wait for the
+// stage so that their latency overlaps it. A first sweep without
+// L::kFirstBoth copies the first operand alone. With L::kPass the whole
+// warpgroup waits for the tile to land and runs pass(stage, both) on it.
+template <class L, class Vec, class Pass>
 __device__ __forceinline__ void produce(const Maps& maps, uint32_t base, int r0, int h, int b,
-                                        int n_tiles, Vec&& vec) {
+                                        int n_first, int n_tiles, Vec&& vec, Pass&& pass) {
   constexpr int kN = L::kN, kVecs = L::kVecs, kStages = L::kStages;
   hopper::reg_dealloc<L::kProducer>();
   const int t = threadIdx.x;
-  if (t >= 32) return;
+  if (t >= (L::kPass ? 128 : 32)) return;
   const uint32_t bars = base + L::kBars;
   if (t == 0) {
     hopper::prefetch_tensormap(&maps.str[0][0]);
@@ -1444,46 +1064,60 @@ __device__ __forceinline__ void produce(const Maps& maps, uint32_t base, int r0,
         hopper::tma_load_4d(base + L::res(i) + L::kResBlk0, &maps.res[i][1], bars, 64, h, r0, b);
     }
   }
-  for (int i = 0; i < n_tiles; ++i) {
+  for (int i = 0; i < n_first + n_tiles; ++i) {
     const int s = i % kStages;
-    const uint32_t full = bars + 8 + 8 * s;
-    const int n0 = i * kN;
+    const uint32_t phase = (i / kStages) & 1;
+    const uint32_t full = bars + 8 + 8 * s, landed = bars + 8 + 8 * (2 * kStages + s);
+    const int n0 = (i < n_first ? i : i - n_first) * kN;
+    const bool both = L::kFirstBoth || i >= n_first;
     uint32_t words[kN / 32][kVecs > 0 ? kVecs : 1];
     if constexpr (kVecs > 0) {
+      if (t < 32) {
 #pragma unroll
-      for (int r = 0; r < kN / 32; ++r) vec(n0 + t + 32 * r, words[r]);
+        for (int r = 0; r < kN / 32; ++r) vec(n0 + t + 32 * r, words[r]);
+      }
     }
-    hopper::mbar_wait(bars + 8 + 8 * (kStages + s), ((i / kStages) & 1) ^ 1);
+    hopper::mbar_wait(bars + 8 + 8 * (kStages + s), phase ^ 1);
     if (t == 0) {
-      hopper::mbar_arrive_expect_tx(full, 2 * L::kTile);
-      for (int j = 0; j < 2; ++j) {
+      const uint32_t tx = L::kPass ? landed : full;
+      hopper::mbar_arrive_expect_tx(tx, (both ? 2 : 1) * L::kTile);
+      for (int j = 0; j < (both ? 2 : 1); ++j) {
         const uint32_t dst = base + L::tile(s, j);
-        hopper::tma_load_4d(dst, &maps.str[j][0], full, 0, h, n0, b);
+        hopper::tma_load_4d(dst, &maps.str[j][0], tx, 0, h, n0, b);
         if constexpr (L::kW1 > 0)
-          hopper::tma_load_4d(dst + L::kBlk0, &maps.str[j][1], full, 64, h, n0, b);
+          hopper::tma_load_4d(dst + L::kBlk0, &maps.str[j][1], tx, 64, h, n0, b);
       }
     }
     if constexpr (kVecs > 0) {
+      if (t < 32) {
 #pragma unroll
-      for (int r = 0; r < kN / 32; ++r)
+        for (int r = 0; r < kN / 32; ++r)
 #pragma unroll
-        for (int j = 0; j < kVecs; ++j)
-          hopper::st_shared_b32(base + L::vec(s, j) + 4 * (t + 32 * r), words[r][j]);
+          for (int j = 0; j < kVecs; ++j)
+            hopper::st_shared_b32(base + L::vec(s, j) + 4 * (t + 32 * r), words[r][j]);
+      }
+    }
+    if constexpr (L::kPass) {
+      hopper::mbar_wait(landed, phase);
+      pass(s, both);
+      hopper::fence_proxy_async();
     }
     hopper::mbar_arrive(full);
   }
 }
 
 // A consumer thread's place in its warpgroup's 64 x N accumulators: rows
-// `row` and row + 8, columns 8 j + 2 quad + {0, 1}.
+// `row` and row + 8, columns 8 j + 2 quad + {0, 1}; `warp` of the block's
+// 4 kWG consumer warps.
 struct Lane {
-  int wg, lane, row, quad;
+  int wg, lane, row, quad, warp;
   __device__ Lane() {
     wg = threadIdx.x / 128 - 1;
     const int t = threadIdx.x % 128;
     lane = t % 32;
     row = 16 * (t / 32) + lane / 4;
     quad = lane % 4;
+    warp = 4 * wg + t / 32;
   }
 };
 
@@ -1541,17 +1175,24 @@ __device__ __forceinline__ void zero(float (&x)[N]) {
   for (int i = 0; i < N; ++i) x[i] = 0.0f;
 }
 
-// Rows t0 and t0 + 8 of a (B, T, H*D) bf16 output from a 64 x DP accumulator
-// (column blocks x0, x1): only rows below T and columns below D.
+template <int N>
+__device__ __forceinline__ void scale_by(float (&x)[N], float f) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] *= f;
+}
+
+// Rows t0 and t0 + 8 of a (B, T, ...) bf16 output with row stride `ld` from
+// a 64 x DP accumulator (column blocks x0, x1): only rows below T and
+// columns below D of head h.
 template <int D, class L>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&x0)[32],
+__device__ __forceinline__ void store_rows(bf16* out, long long ld, const float (&x0)[32],
                                            const float (&x1)[L::kW1 > 0 ? L::kW1 / 2 : 1],
-                                           int b, int h, int t0, int T, int H, int quad) {
+                                           int b, int h, int t0, int T, int quad) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int t = t0 + 8 * half;
     if (t >= T) continue;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(out + (((long long)b * T + t) * H + h) * D);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(out + ((long long)b * T + t) * ld + h * D);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       orow[4 * j + quad] = fwd::pack_bf16(x0[4 * j + 2 * half], x0[4 * j + 2 * half + 1]);
@@ -1561,6 +1202,53 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&x0)[32],
         if (64 + 8 * j < D)
           orow[32 + 4 * j + quad] = fwd::pack_bf16(x1[4 * j + 2 * half], x1[4 * j + 2 * half + 1]);
     }
+  }
+}
+
+// The column sums of a block's rows of bf16-rounded output (rows t0 and t0 +
+// 8 of each thread, those below T) into part[0 .. D), by the block's 256
+// consumer threads: a thread's two rows, the warp's 16 by shuffles across
+// its 8 row groups, then the 8 warps' in order through the buffer `red` (8 x
+// 128 fp32) after a named barrier over the consumers. The order is fixed, so
+// the sums are the same bits on every run.
+template <int D, class L>
+__device__ __forceinline__ void column_sums(float* part, float* red, const float (&x0)[32],
+                                            const float (&x1)[L::kW1 > 0 ? L::kW1 / 2 : 1],
+                                            const Lane& ln, int t0, int T) {
+  const bool in0 = t0 < T, in1 = t0 + 8 < T;
+  auto col = [&](float lo, float hi) {  // one column's two rows, then the warp's 16
+    float s = (in0 ? coral_round_bf16(lo) : 0.0f) + (in1 ? coral_round_bf16(hi) : 0.0f);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    return s;
+  };
+  float* mine = red + 128 * ln.warp;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float s0 = col(x0[4 * j], x0[4 * j + 2]), s1 = col(x0[4 * j + 1], x0[4 * j + 3]);
+    if (ln.lane < 4) {
+      mine[8 * j + 2 * ln.quad] = s0;
+      mine[8 * j + 2 * ln.quad + 1] = s1;
+    }
+  }
+  if constexpr (L::kW1 > 0) {
+#pragma unroll
+    for (int j = 0; j < L::kW1 / 8; ++j) {
+      const float s0 = col(x1[4 * j], x1[4 * j + 2]), s1 = col(x1[4 * j + 1], x1[4 * j + 3]);
+      if (ln.lane < 4) {
+        mine[64 + 8 * j + 2 * ln.quad] = s0;
+        mine[64 + 8 * j + 2 * ln.quad + 1] = s1;
+      }
+    }
+  }
+  hopper::named_barrier(3, 128 * kWG);
+  const int c = threadIdx.x - 128;
+  if (c < D) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4 * kWG; ++w) s += red[128 * w + c];
+    part[c] = s;
   }
 }
 
@@ -1584,43 +1272,112 @@ __device__ __forceinline__ float row_di(const Args& a, int b, int h, int t, int 
   return s;
 }
 
-// p's offset in log2 units, m log2 e + log2 l, of query row t; +inf past T
-// (p = 0).
+// K7: p's offset in log2 units, m log2 e + log2 l, of query row t; +inf past
+// T (p = 0).
 __device__ __forceinline__ float row_c(const Args& a, int b, int h, int t) {
   if (t >= a.T) return INFINITY;
   const long long i = ((long long)b * a.H + h) * a.T + t;
   return a.m[i] * fwd::kLog2e + log2f(a.l[i]);
 }
 
-// The query-major kernel's block: dq of 128 query rows, and their di.
+// K4, Stats: p's offset, the lse of query row t in log2 units; +inf past T
+// (p = 0). The forward's -1e25 clamp gives a fully masked row p = 0.
+__device__ __forceinline__ float row_lse(const Args& a, int b, int h, int t) {
+  if (t >= a.T) return INFINITY;
+  return a.lse[((long long)b * a.H + h) * a.T + t] * fwd::kLog2e;
+}
+
+// K4, K15: the bias of key `key` in log2 units (-inf past T).
+__device__ __forceinline__ float key_bias_log2(const Args& a, int b, int key) {
+  return key < a.T ? a.key_bias[(long long)b * a.T + key] * fwd::kLog2e : -INFINITY;
+}
+
+// K4, K15: p of a score s in log2 units (the key bias in it) against its
+// row's c (the lse in log2 units, or the swept m), with kML times r = 1 / l
+// after the exponential.
+template <class P>
+__device__ __forceinline__ float prob(float s, float c, float r) {
+  const float e = fwd::fast_exp2(s - c);
+  return P::kML ? e * r : e;
+}
+
+// The outputs' row stride: K4's and K15's stride_d, K7's contiguous H*D.
+template <int D, class P>
+__device__ __forceinline__ long long out_stride(const Args& a) {
+  return P::kK4 ? a.stride_d : (long long)a.H * D;
+}
+
+// kBias: the partial of output `which` (0 dq, 1 dk, 2 dv) of this block.
+template <int D>
+__device__ __forceinline__ float* bias_part(const Args& a, int b, int h, int which) {
+  return a.db_part + ((long long)(b * gridDim.x + blockIdx.x) * 3 + which) * a.H * D + h * D;
+}
+
+// q's bf16 scale as a bf16 pair.
+__device__ __forceinline__ uint32_t scale_pair(float scale) {
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(scale);
+  return *reinterpret_cast<const uint32_t*>(&s2);
+}
+
+// The query-major kernel's block: dq of 128 query rows, their delta (and,
+// with kML, m and l) for the dkv kernel.
 template <int D, class P>
 __device__ __forceinline__ void dq(const Maps& maps, const Args& a) {
-  using L = DqLayout<D, P::kSeg>;
-  constexpr int kN = L::kN, kStages = L::kStages;
+  using L = DqLayout<D, P>;
+  constexpr int kN = L::kN, kVecs = L::kVecs, kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const float* vecs = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kVec);
+  unsigned char* smem = smem_raw + (base - raw);
+  const float* vecs = reinterpret_cast<const float*>(smem + L::kVec);
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (a.T + kN - 1) / kN;  // keys past T add nothing: k = v = 0 there
+  const int n_first = P::kSweep ? n_tiles : 0;  // the first sweep's ring iterations
   const uint32_t bars = base + L::kBars;
-  init_bars<kStages>(bars);
+  init_bars<L>(bars);
   if (threadIdx.x < 128) {
-    produce<L>(maps, base, q0, h, b, n_tiles, [&](int key, uint32_t* w) {
-      w[0] = key < a.Tk ? (uint32_t)a.seg[(long long)b * a.Tk + key] : 0u;
-    });
+    produce<L>(
+        maps, base, q0, h, b, n_first, n_tiles,
+        [&](int key, uint32_t* w) {
+          if constexpr (P::kK4)
+            w[0] = __float_as_uint(key_bias_log2(a, b, key));
+          else
+            w[0] = key < a.Tk ? (uint32_t)a.seg[(long long)b * a.Tk + key] : 0u;
+        },
+        [&](int s, bool both) {  // kBias: K + bk, V + bv, a row at a time
+          if constexpr (P::kBias) {
+            fwd::transform_tile<D, true, false, 1>(base + L::tile(s, 0), L::kBlk0, a.bk + h * D,
+                                                   0u, threadIdx.x, 0, kN);
+            if (both)
+              fwd::transform_tile<D, true, false, 1>(base + L::tile(s, 1), L::kBlk0,
+                                                     a.bv + h * D, 0u, threadIdx.x, 0, kN);
+          }
+        });
     return;
   }
   hopper::reg_alloc<L::kConsumer>();
   const Lane ln;
   const int t0 = q0 + 64 * ln.wg + ln.row, t1 = t0 + 8;
-  const float di0 = row_di<D>(a, b, h, t0, ln.quad), di1 = row_di<D>(a, b, h, t1, ln.quad);
-  if (ln.quad == 0) {
-    const long long i = ((long long)b * a.H + h) * a.T;
-    if (t0 < a.T) a.di[i + t0] = di0;
-    if (t1 < a.T) a.di[i + t1] = di1;
+  const long long stat = ((long long)b * a.H + h) * a.T;
+  // delta: rowsum(o do) from o (K7's di), else swept below.
+  float d0 = 0.0f, d1 = 0.0f;
+  if constexpr (!P::kSweepU) {
+    d0 = row_di<D>(a, b, h, t0, ln.quad);
+    d1 = row_di<D>(a, b, h, t1, ln.quad);
+    if (ln.quad == 0) {
+      if (t0 < a.T) a.di[stat + t0] = d0;
+      if (t1 < a.T) a.di[stat + t1] = d1;
+    }
   }
-  const float nc0 = -row_c(a, b, h, t0), nc1 = -row_c(a, b, h, t1);
+  // p's offset c (log2 units; with kML the swept m) and r = 1 / l (kML).
+  float c0 = 0.0f, c1 = 0.0f, r0 = 1.0f, r1 = 1.0f;
+  if constexpr (!P::kK4) {
+    c0 = row_c(a, b, h, t0);
+    c1 = row_c(a, b, h, t1);
+  } else if constexpr (!P::kML) {
+    c0 = row_lse(a, b, h, t0);
+    c1 = row_lse(a, b, h, t1);
+  }
   int seg0 = 0, seg1 = 0;
   if constexpr (P::kSeg) {
     const int* seg = a.seg + (long long)b * a.Tk;
@@ -1638,51 +1395,178 @@ __device__ __forceinline__ void dq(const Maps& maps, const Args& a) {
   uint32_t ds[kN / 16][4];       // dS, the A operand of dQ += dS K
   zero(dq0);
   zero(dq1);
-  // S = Q K^T and dP = dO V^T of the key tile in stage s, issued as one group.
-  auto scores = [&](int s) {
+  // S = Q K^T and, with dP, dP = dO V^T of the key tile in stage s, issued
+  // as one group.
+  auto scores = [&](int s, bool with_dp) {
     hopper::fence_regs(sc);
     hopper::fence_regs(dp);
     hopper::wgmma_fence();
     product_abt<D, L, kN>(sc, qa0, qa1, base + L::tile(s, 0));
-    product_abt<D, L, kN>(dp, da0, da1, base + L::tile(s, 1));
+    if (with_dp) product_abt<D, L, kN>(dp, da0, da1, base + L::tile(s, 1));
     hopper::wgmma_commit();
-  };
-  // dp <- dS = p (dP - di) scale of key tile i in stage s, p = 0 for keys
-  // past T or of another segment.
-  auto grads = [&](int i, int s) {
-    const int n_valid = a.T - i * kN;
-    const float* ids = vecs + s * L::kVecs * kN;
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-      const int c = 8 * j + 2 * ln.quad;
-      bool in00 = c < n_valid, in01 = c + 1 < n_valid;
-      bool in10 = in00, in11 = in01;
-      if constexpr (P::kSeg) {
-        const int2 id = *reinterpret_cast<const int2*>(ids + c);
-        in00 = in00 && id.x == seg0;
-        in01 = in01 && id.y == seg0;
-        in10 = in10 && id.x == seg1;
-        in11 = in11 && id.y == seg1;
-      }
-      const float p00 = in00 ? fwd::fast_exp2(fmaf(sc[4 * j], ex, nc0)) : 0.0f;
-      const float p01 = in01 ? fwd::fast_exp2(fmaf(sc[4 * j + 1], ex, nc0)) : 0.0f;
-      const float p10 = in10 ? fwd::fast_exp2(fmaf(sc[4 * j + 2], ex, nc1)) : 0.0f;
-      const float p11 = in11 ? fwd::fast_exp2(fmaf(sc[4 * j + 3], ex, nc1)) : 0.0f;
-      dp[4 * j] = (dp[4 * j] - di0) * p00 * a.scale;
-      dp[4 * j + 1] = (dp[4 * j + 1] - di0) * p01 * a.scale;
-      dp[4 * j + 2] = (dp[4 * j + 2] - di1) * p10 * a.scale;
-      dp[4 * j + 3] = (dp[4 * j + 3] - di1) * p11 * a.scale;
-    }
-  };
-  hopper::mbar_wait(bars, 0);
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % kStages;
-    hopper::mbar_wait(bars + 8 + 8 * s, (i / kStages) & 1);
-    scores(s);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
     hopper::fence_regs(dp);
-    grads(i, s);
+  };
+  // K4, K15: sc <- the scores of the key tile in stage s in log2 units,
+  // their key bias added by the same FMA in every sweep and both kernels.
+  auto scores_log2 = [&](int s) {
+    const float* kb = vecs + s * kVecs * kN;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const float2 k2 = *reinterpret_cast<const float2*>(kb + 8 * j + 2 * ln.quad);
+      sc[4 * j] = fmaf(sc[4 * j], fwd::kLog2e, k2.x);
+      sc[4 * j + 1] = fmaf(sc[4 * j + 1], fwd::kLog2e, k2.y);
+      sc[4 * j + 2] = fmaf(sc[4 * j + 2], fwd::kLog2e, k2.x);
+      sc[4 * j + 3] = fmaf(sc[4 * j + 3], fwd::kLog2e, k2.y);
+    }
+  };
+  // dp <- dS of key tile i in stage s: K7's p (dP - di) scale, p = 0 for
+  // keys past T or of another segment; K4's and K15's p (dP - delta).
+  auto grads = [&](int i, int s) {
+    if constexpr (P::kK4) {
+      scores_log2(s);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        dp[4 * j] = (dp[4 * j] - d0) * prob<P>(sc[4 * j], c0, r0);
+        dp[4 * j + 1] = (dp[4 * j + 1] - d0) * prob<P>(sc[4 * j + 1], c0, r0);
+        dp[4 * j + 2] = (dp[4 * j + 2] - d1) * prob<P>(sc[4 * j + 2], c1, r1);
+        dp[4 * j + 3] = (dp[4 * j + 3] - d1) * prob<P>(sc[4 * j + 3], c1, r1);
+      }
+    } else {
+      const int n_valid = a.T - i * kN;
+      const float* ids = vecs + s * kVecs * kN;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int c = 8 * j + 2 * ln.quad;
+        bool in00 = c < n_valid, in01 = c + 1 < n_valid;
+        bool in10 = in00, in11 = in01;
+        if constexpr (P::kSeg) {
+          const int2 id = *reinterpret_cast<const int2*>(ids + c);
+          in00 = in00 && id.x == seg0;
+          in01 = in01 && id.y == seg0;
+          in10 = in10 && id.x == seg1;
+          in11 = in11 && id.y == seg1;
+        }
+        const float p00 = in00 ? fwd::fast_exp2(fmaf(sc[4 * j], ex, -c0)) : 0.0f;
+        const float p01 = in01 ? fwd::fast_exp2(fmaf(sc[4 * j + 1], ex, -c0)) : 0.0f;
+        const float p10 = in10 ? fwd::fast_exp2(fmaf(sc[4 * j + 2], ex, -c1)) : 0.0f;
+        const float p11 = in11 ? fwd::fast_exp2(fmaf(sc[4 * j + 3], ex, -c1)) : 0.0f;
+        dp[4 * j] = (dp[4 * j] - d0) * p00 * a.scale;
+        dp[4 * j + 1] = (dp[4 * j + 1] - d0) * p01 * a.scale;
+        dp[4 * j + 2] = (dp[4 * j + 2] - d1) * p10 * a.scale;
+        dp[4 * j + 3] = (dp[4 * j + 3] - d1) * p11 * a.scale;
+      }
+    }
+  };
+  auto release = [&](int s) {
+    if (ln.lane == 0) hopper::mbar_arrive(bars + 8 + 8 * (kStages + s));
+  };
+
+  hopper::mbar_wait(bars, 0);
+  if constexpr (P::kK4) {  // Q (+ bq) times the scale: this warpgroup's rows
+    fwd::transform_tile<D, P::kBias, true, 4>(base + L::res(0), L::kResBlk0,
+                                              P::kBias ? a.bq + h * D : nullptr,
+                                              scale_pair(a.scale), threadIdx.x % 128,
+                                              64 * ln.wg, 64);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + ln.wg, 128);
+  }
+  if constexpr (P::kSweep) {
+    // The first sweep, ring iterations 0 .. n_tiles - 1: the rows' online
+    // max m and sum l (kML), u = sum_j p dp against the lse (Stats) or
+    // sum_j e dp against the running max, rescaled with it (Recompute).
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, u0 = 0.0f, u1 = 0.0f;
+    for (int i = 0; i < n_first; ++i) {
+      const int s = i % kStages;
+      hopper::mbar_wait(bars + 8 + 8 * s, (i / kStages) & 1);
+      scores(s, P::kSweepU);
+      scores_log2(s);
+      if constexpr (!P::kML) {
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          u0 += fwd::fast_exp2(sc[4 * j] - c0) * dp[4 * j] +
+                fwd::fast_exp2(sc[4 * j + 1] - c0) * dp[4 * j + 1];
+          u1 += fwd::fast_exp2(sc[4 * j + 2] - c1) * dp[4 * j + 2] +
+                fwd::fast_exp2(sc[4 * j + 3] - c1) * dp[4 * j + 3];
+        }
+      } else {
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        // Finite: every tile holds a key below T, whose bias is 0 or -1e30.
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float alpha0 = fwd::fast_exp2(m0 - mn0), alpha1 = fwd::fast_exp2(m1 - mn1);
+        float ps0 = 0.0f, ps1 = 0.0f, us0 = 0.0f, us1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          const float e00 = fwd::fast_exp2(sc[4 * j] - mn0);
+          const float e01 = fwd::fast_exp2(sc[4 * j + 1] - mn0);
+          const float e10 = fwd::fast_exp2(sc[4 * j + 2] - mn1);
+          const float e11 = fwd::fast_exp2(sc[4 * j + 3] - mn1);
+          ps0 += e00 + e01;
+          ps1 += e10 + e11;
+          if constexpr (P::kSweepU) {
+            us0 += e00 * dp[4 * j] + e01 * dp[4 * j + 1];
+            us1 += e10 * dp[4 * j + 2] + e11 * dp[4 * j + 3];
+          }
+        }
+        l0 = fmaf(l0, alpha0, ps0);
+        l1 = fmaf(l1, alpha1, ps1);
+        if constexpr (P::kSweepU) {
+          u0 = fmaf(u0, alpha0, us0);
+          u1 = fmaf(u1, alpha1, us1);
+        }
+        m0 = mn0;
+        m1 = mn1;
+      }
+      release(s);
+    }
+    // The row sums over the 4 lanes that share each row.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    u0 += __shfl_xor_sync(0xffffffffu, u0, 1);
+    u0 += __shfl_xor_sync(0xffffffffu, u0, 2);
+    u1 += __shfl_xor_sync(0xffffffffu, u1, 1);
+    u1 += __shfl_xor_sync(0xffffffffu, u1, 2);
+    if constexpr (P::kML) {
+      c0 = m0;
+      c1 = m1;
+      r0 = 1.0f / l0;
+      r1 = 1.0f / l1;
+    }
+    if constexpr (P::kSweepU) {
+      d0 = P::kML ? u0 / l0 : u0;
+      d1 = P::kML ? u1 / l1 : u1;
+    }
+    if (ln.quad == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = half ? t1 : t0;
+        if (t >= a.T) continue;
+        if constexpr (P::kSweepU) a.di[stat + t] = half ? d1 : d0;
+        if constexpr (P::kML) {
+          a.row_m[stat + t] = half ? m1 : m0;
+          a.row_l[stat + t] = half ? l1 : l0;
+        }
+      }
+    }
+  }
+  // The dq sweep, ring iterations n_first .. n_first + n_tiles - 1.
+  for (int j = 0; j < n_tiles; ++j) {
+    const int i = n_first + j, s = i % kStages;
+    hopper::mbar_wait(bars + 8 + 8 * s, (i / kStages) & 1);
+    scores(s, true);
+    grads(j, s);
     pack_a<kN>(ds, dp);
     hopper::fence_regs(dq0);
     hopper::fence_regs(dq1);
@@ -1692,32 +1576,55 @@ __device__ __forceinline__ void dq(const Maps& maps, const Args& a) {
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dq0);
     hopper::fence_regs(dq1);
-    if (ln.lane == 0) hopper::mbar_arrive(bars + 8 + 8 * (kStages + s));
+    release(s);
   }
-  store_rows<D, L>(a.out0, dq0, dq1, b, h, t0, a.T, a.H, ln.quad);
+  if constexpr (P::kK4) {
+    scale_by(dq0, a.sm_scale);
+    scale_by(dq1, a.sm_scale);
+  }
+  store_rows<D, L>(a.out0, out_stride<D, P>(a), dq0, dq1, b, h, t0, a.T, ln.quad);
+  if constexpr (P::kBias)
+    column_sums<D, L>(bias_part<D>(a, b, h, 0), reinterpret_cast<float*>(smem + L::sum(0)), dq0,
+                      dq1, ln, t0, a.T);
 }
 
 // The key-major kernel's block: dk and dv of 128 keys.
 template <int D, class P>
 __device__ __forceinline__ void dkv(const Maps& maps, const Args& a) {
-  using L = DkvLayout<D, P::kSeg>;
+  using L = DkvLayout<D, P>;
   constexpr int kN = L::kN, kVecs = L::kVecs, kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const float* vecs = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kVec);
+  unsigned char* smem = smem_raw + (base - raw);
+  const float* vecs = reinterpret_cast<const float*>(smem + L::kVec);
   const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (a.T + kN - 1) / kN;  // queries past T add nothing: do = 0 there
   const uint32_t bars = base + L::kBars;
-  init_bars<kStages>(bars);
+  init_bars<L>(bars);
   if (threadIdx.x < 128) {
     const long long stat = ((long long)b * a.H + h) * a.T;
-    produce<L>(maps, base, k0, h, b, n_tiles, [&](int q, uint32_t* w) {
-      const bool in = q < a.T;
-      w[0] = __float_as_uint(row_c(a, b, h, q));
-      w[1] = __float_as_uint(in ? a.di[stat + q] : 0.0f);
-      if constexpr (P::kSeg) w[2] = in ? (uint32_t)a.seg[(long long)b * a.Tk + q] : 0u;
-    });
+    produce<L>(
+        maps, base, k0, h, b, 0, n_tiles,
+        [&](int q, uint32_t* w) {
+          const bool in = q < a.T;
+          if constexpr (P::kK4) {  // c, 1 / l (kML), delta
+            w[0] = __float_as_uint(P::kML ? (in ? a.row_m[stat + q] : INFINITY)
+                                          : row_lse(a, b, h, q));
+            if constexpr (P::kML) w[1] = __float_as_uint(in ? 1.0f / a.row_l[stat + q] : 1.0f);
+            w[kVecs - 1] = __float_as_uint(in ? a.di[stat + q] : 0.0f);
+          } else {
+            w[0] = __float_as_uint(row_c(a, b, h, q));
+            w[1] = __float_as_uint(in ? a.di[stat + q] : 0.0f);
+            if constexpr (P::kSeg) w[2] = in ? (uint32_t)a.seg[(long long)b * a.Tk + q] : 0u;
+          }
+        },
+        [&](int s, bool) {  // K4, K15: Q (+ bq) times the scale
+          if constexpr (P::kK4)
+            fwd::transform_tile<D, P::kBias, true, 4>(base + L::tile(s, 0), L::kBlk0,
+                                                      P::kBias ? a.bq + h * D : nullptr,
+                                                      scale_pair(a.scale), threadIdx.x, 0, kN);
+        });
     return;
   }
   hopper::reg_alloc<L::kConsumer>();
@@ -1728,6 +1635,11 @@ __device__ __forceinline__ void dkv(const Maps& maps, const Args& a) {
     const int* seg = a.seg + (long long)b * a.Tk;
     seg0 = r0 < a.T ? seg[r0] : 0;
     seg1 = r1 < a.T ? seg[r1] : 0;
+  }
+  float kb0 = 0.0f, kb1 = 0.0f;  // K4, K15: the keys' bias in log2 units
+  if constexpr (P::kK4) {
+    kb0 = key_bias_log2(a, b, r0);
+    kb1 = key_bias_log2(a, b, r1);
   }
   const float ex = a.scale * fwd::kLog2e;
   const uint32_t ka0 = base + L::res(0) + ln.wg * 64 * 128;
@@ -1752,30 +1664,45 @@ __device__ __forceinline__ void dkv(const Maps& maps, const Args& a) {
     hopper::wgmma_commit();
   };
   // st <- P^T and dpt <- dS^T per column (query) of the tile in stage s,
-  // from its c and di staged beside it.
+  // from the row stats staged beside it.
   auto grads = [&](int s) {
     const float* cs = vecs + s * kVecs * kN;
-    const float* dis = cs + kN;
 #pragma unroll
     for (int j = 0; j < kN / 8; ++j) {
       const int col = 8 * j + 2 * ln.quad;
       const float2 c = *reinterpret_cast<const float2*>(cs + col);
-      const float2 di = *reinterpret_cast<const float2*>(dis + col);
-      float p00 = fwd::fast_exp2(fmaf(st[4 * j], ex, -c.x));
-      float p01 = fwd::fast_exp2(fmaf(st[4 * j + 1], ex, -c.y));
-      float p10 = fwd::fast_exp2(fmaf(st[4 * j + 2], ex, -c.x));
-      float p11 = fwd::fast_exp2(fmaf(st[4 * j + 3], ex, -c.y));
-      if constexpr (P::kSeg) {
-        const int2 id = *reinterpret_cast<const int2*>(dis + kN + col);
-        if (id.x != seg0) p00 = 0.0f;
-        if (id.y != seg0) p01 = 0.0f;
-        if (id.x != seg1) p10 = 0.0f;
-        if (id.y != seg1) p11 = 0.0f;
+      float p00, p01, p10, p11;
+      float2 di;
+      if constexpr (P::kK4) {
+        di = *reinterpret_cast<const float2*>(cs + (kVecs - 1) * kN + col);
+        float2 r = make_float2(1.0f, 1.0f);
+        if constexpr (P::kML) r = *reinterpret_cast<const float2*>(cs + kN + col);
+        p00 = prob<P>(fmaf(st[4 * j], fwd::kLog2e, kb0), c.x, r.x);
+        p01 = prob<P>(fmaf(st[4 * j + 1], fwd::kLog2e, kb0), c.y, r.y);
+        p10 = prob<P>(fmaf(st[4 * j + 2], fwd::kLog2e, kb1), c.x, r.x);
+        p11 = prob<P>(fmaf(st[4 * j + 3], fwd::kLog2e, kb1), c.y, r.y);
+        dpt[4 * j] = (dpt[4 * j] - di.x) * p00;
+        dpt[4 * j + 1] = (dpt[4 * j + 1] - di.y) * p01;
+        dpt[4 * j + 2] = (dpt[4 * j + 2] - di.x) * p10;
+        dpt[4 * j + 3] = (dpt[4 * j + 3] - di.y) * p11;
+      } else {
+        di = *reinterpret_cast<const float2*>(cs + kN + col);
+        p00 = fwd::fast_exp2(fmaf(st[4 * j], ex, -c.x));
+        p01 = fwd::fast_exp2(fmaf(st[4 * j + 1], ex, -c.y));
+        p10 = fwd::fast_exp2(fmaf(st[4 * j + 2], ex, -c.x));
+        p11 = fwd::fast_exp2(fmaf(st[4 * j + 3], ex, -c.y));
+        if constexpr (P::kSeg) {
+          const int2 id = *reinterpret_cast<const int2*>(cs + 2 * kN + col);
+          if (id.x != seg0) p00 = 0.0f;
+          if (id.y != seg0) p01 = 0.0f;
+          if (id.x != seg1) p10 = 0.0f;
+          if (id.y != seg1) p11 = 0.0f;
+        }
+        dpt[4 * j] = (dpt[4 * j] - di.x) * p00 * a.scale;
+        dpt[4 * j + 1] = (dpt[4 * j + 1] - di.y) * p01 * a.scale;
+        dpt[4 * j + 2] = (dpt[4 * j + 2] - di.x) * p10 * a.scale;
+        dpt[4 * j + 3] = (dpt[4 * j + 3] - di.y) * p11 * a.scale;
       }
-      dpt[4 * j] = (dpt[4 * j] - di.x) * p00 * a.scale;
-      dpt[4 * j + 1] = (dpt[4 * j + 1] - di.y) * p01 * a.scale;
-      dpt[4 * j + 2] = (dpt[4 * j + 2] - di.x) * p10 * a.scale;
-      dpt[4 * j + 3] = (dpt[4 * j + 3] - di.y) * p11 * a.scale;
       st[4 * j] = p00;
       st[4 * j + 1] = p01;
       st[4 * j + 2] = p10;
@@ -1783,6 +1710,15 @@ __device__ __forceinline__ void dkv(const Maps& maps, const Args& a) {
     }
   };
   hopper::mbar_wait(bars, 0);
+  if constexpr (P::kBias) {  // K + bk, V + bv: this warpgroup's rows
+    const int t = threadIdx.x % 128;
+    fwd::transform_tile<D, true, false, 4>(base + L::res(0), L::kResBlk0, a.bk + h * D, 0u, t,
+                                           64 * ln.wg, 64);
+    fwd::transform_tile<D, true, false, 4>(base + L::res(1), L::kResBlk0, a.bv + h * D, 0u, t,
+                                           64 * ln.wg, 64);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1 + ln.wg, 128);
+  }
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStages;
     hopper::mbar_wait(bars + 8 + 8 * s, (i / kStages) & 1);
@@ -1808,8 +1744,15 @@ __device__ __forceinline__ void dkv(const Maps& maps, const Args& a) {
     hopper::fence_regs(dk1);
     if (ln.lane == 0) hopper::mbar_arrive(bars + 8 + 8 * (kStages + s));
   }
-  store_rows<D, L>(a.out0, dk0, dk1, b, h, r0, a.T, a.H, ln.quad);
-  store_rows<D, L>(a.out1, dv0, dv1, b, h, r0, a.T, a.H, ln.quad);
+  const long long ld = out_stride<D, P>(a);
+  store_rows<D, L>(a.out0, ld, dk0, dk1, b, h, r0, a.T, ln.quad);
+  store_rows<D, L>(a.out1, ld, dv0, dv1, b, h, r0, a.T, ln.quad);
+  if constexpr (P::kBias) {
+    column_sums<D, L>(bias_part<D>(a, b, h, 1), reinterpret_cast<float*>(smem + L::sum(0)), dk0,
+                      dk1, ln, r0, a.T);
+    column_sums<D, L>(bias_part<D>(a, b, h, 2), reinterpret_cast<float*>(smem + L::sum(1)), dv0,
+                      dv1, ln, r0, a.T);
+  }
 }
 
 // The maps of one operand (a (B, T, H*D) bf16 tensor with these strides):
@@ -1859,7 +1802,7 @@ int encode(Maps* m, bool dq_kernel, const void* q, const void* k, const void* v,
 template <int D, class P, bool kDq, typename Kernel>
 int launch(Kernel kernel, const void* q, const void* k, const void* v, const Args& args, int B,
            long long stride_b, long long stride_t, cudaStream_t s) {
-  constexpr int kSmem = kDq ? DqLayout<D, P::kSeg>::kSmem : DkvLayout<D, P::kSeg>::kSmem;
+  constexpr int kSmem = kDq ? DqLayout<D, P>::kSmem : DkvLayout<D, P>::kSmem;
   Maps maps;
   const int enc = encode<D>(&maps, kDq, q, k, v, args.dout, B, args.T, args.H, stride_b,
                             stride_t);
@@ -1871,6 +1814,69 @@ int launch(Kernel kernel, const void* q, const void* k, const void* v, const Arg
   const dim3 grid((unsigned)((args.T + kRows - 1) / kRows), (unsigned)args.H, (unsigned)B);
   kernel<<<grid, kThreads, kSmem, s>>>(maps, args);
   return (int)cudaGetLastError();
+}
+
+// The arguments of a short-T pair (K4, K15): q, k, v as the forward took
+// them; dout, o (K4, Ctx) (B, T, H*D) bf16 contiguous; lse (K4, Stats) and
+// the scratch m, l (Recompute, Ctx) and delta, (B, H, T) fp32; bq, bk, bv
+// and db_part with K4's biases; scale the bf16 scale of q, sm_scale dq's.
+inline Args short_t_args(const void* dout, const void* o, const void* lse, const void* bq,
+                         const void* bk, const void* bv, const void* key_bias, void* m, void* l,
+                         void* delta, void* db_part, int T, int H, long long stride_d,
+                         float scale, float sm_scale) {
+  Args a{};
+  a.o = static_cast<const bf16*>(o);
+  a.dout = static_cast<const bf16*>(dout);
+  a.di = static_cast<float*>(delta);
+  a.T = a.Tk = T;
+  a.H = H;
+  a.scale = scale;
+  a.lse = static_cast<const float*>(lse);
+  a.bq = static_cast<const bf16*>(bq);
+  a.bk = static_cast<const bf16*>(bk);
+  a.bv = static_cast<const bf16*>(bv);
+  a.key_bias = static_cast<const float*>(key_bias);
+  a.row_m = static_cast<float*>(m);
+  a.row_l = static_cast<float*>(l);
+  a.db_part = static_cast<float*>(db_part);
+  a.stride_d = stride_d;
+  a.sm_scale = sm_scale;
+  return a;
+}
+
+}  // namespace bwd
+
+// The short-T pair of policy P (bwd::K4<kBias>, Stats, Recompute, Ctx): the
+// query-major kernel (dq of 128 query rows, their delta and, with kML, m and
+// l) and the key-major kernel (dk, dv of 128 keys, from them).
+template <int D, class P>
+__global__ void __launch_bounds__(bwd::kThreads, 1)
+    attention_bwd_dq_kernel(const __grid_constant__ bwd::Maps maps, const bwd::Args args) {
+  bwd::dq<D, P>(maps, args);
+}
+
+template <int D, class P>
+__global__ void __launch_bounds__(bwd::kThreads, 1)
+    attention_bwd_dkv_kernel(const __grid_constant__ bwd::Maps maps, const bwd::Args args) {
+  bwd::dkv<D, P>(maps, args);
+}
+
+namespace bwd {
+
+// Launches policy P's pair on `s`, the dq kernel first: dq, dk, dv (B, T,
+// H*D) bf16 with the row stride args.stride_d. The encoder's error or the
+// cudaError_t of the first launch that failed.
+template <int D, class P>
+int launch_pair(const void* q, const void* k, const void* v, Args args, void* dq, void* dk,
+                void* dv, int B, long long stride_b, long long stride_t, cudaStream_t s) {
+  args.out0 = static_cast<bf16*>(dq);
+  int err = launch<D, P, true>(attention_bwd_dq_kernel<D, P>, q, k, v, args, B, stride_b,
+                               stride_t, s);
+  if (err != 0) return err;
+  args.out0 = static_cast<bf16*>(dk);
+  args.out1 = static_cast<bf16*>(dv);
+  return launch<D, P, false>(attention_bwd_dkv_kernel<D, P>, q, k, v, args, B, stride_b,
+                             stride_t, s);
 }
 
 }  // namespace bwd

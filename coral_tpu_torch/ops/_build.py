@@ -69,13 +69,14 @@ _SIGNATURES = {
     # q, k, v, B, T, H, D, stride_b, stride_t, reps: host ns per forward
     # launch spent encoding its tensor maps (no launch)
     "coral_attention_fwd_map_ns": [_P] * 3 + [_I, _I, _I, _I, _LL, _LL, _I],
-    # q, k, v, bq, bk, bv, key_bias, do, lse, o, dq, dk, dv, db_part, B, T, H,
-    # head_dim, stride_b, stride_t, stride_d, scale, sm_scale, stream (bq null:
-    # the kernels without biases)
-    "coral_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _LL, _LL, _LL, _F, _F, _P],
+    # q, k, v, bq, bk, bv, key_bias, do, lse, o, delta, dq, dk, dv, db_part, B,
+    # T, H, head_dim, stride_b, stride_t, stride_d, scale, sm_scale, stream (bq
+    # null: the kernels without biases; delta: the dq kernel's scratch)
+    "coral_attention_bwd": [_P] * 15 + [_I, _I, _I, _I, _LL, _LL, _LL, _F, _F, _P],
     # q, k, v, key_bias, do, lse, o, m, l, delta, dq, dk, dv, B, T, H,
     # head_dim, stride_b, stride_t, stride_d, scale, sm_scale, mode, stream
-    # (the backwards with a per-row pre-pass, csrc/attention_rows.cu)
+    # (the other routes' backwards, whose dq kernel sweeps the keys twice and
+    # writes m, l and delta for the dkv kernel, csrc/attention_rows.cu)
     "coral_attention_bwd_rows": [_P] * 13 + [_I, _I, _I, _I, _LL, _LL, _LL, _F, _F, _I, _P],
     # x, w1, b1, gamma, beta, seeds, g, M, D, F, T, threshold, scale, eps,
     # stream
@@ -130,6 +131,8 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
+# Each source's nvcc seconds in the last build (the processes run together).
+source_seconds: dict[str, float] = {}
 
 
 def reset_launch_counts() -> None:
@@ -158,13 +161,23 @@ def _flags() -> list[str]:
 
 
 def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
-    """Runs the commands as processes started together; waits for every one."""
+    """Runs the commands as processes started together; waits for every one.
+    Each result's ``seconds`` is its process's wall time."""
+    start = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    done = []
-    for cmd, proc in zip(cmds, procs):
-        out, err = proc.communicate()
-        done.append(subprocess.CompletedProcess(cmd, proc.returncode, out, err))
+    done: list = [None] * len(cmds)
+
+    def wait(i: int) -> None:
+        out, err = procs[i].communicate()
+        done[i] = subprocess.CompletedProcess(cmds[i], procs[i].returncode, out, err)
+        done[i].seconds = time.perf_counter() - start
+
+    waiters = [threading.Thread(target=wait, args=(i,)) for i in range(len(cmds))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     return done
 
 
@@ -183,6 +196,8 @@ def _compile(sources: list[Path], target: Path) -> str:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(proc.args)}\n"
                                    f"{proc.stdout}\n{proc.stderr}")
         os.replace(lib, target)  # atomic: concurrent builds agree
+    source_seconds.clear()
+    source_seconds.update({src.name: p.seconds for src, p in zip(sources, steps[0])})
     return "".join(p.stderr for p in steps[0])
 
 

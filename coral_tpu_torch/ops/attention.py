@@ -33,7 +33,9 @@ Only ``"stats_v3"`` takes ``qkv_bias``, as in the JAX package.
 returns their gradient as one packed tensor, which the backward kernels write
 through its row stride. On a CUDA tensor the wrappers launch
 ``csrc/attention.cu`` (the forwards and the v3 backward) and
-``csrc/attention_rows.cu`` (the backwards that need a per-row pre-pass); on a
+``csrc/attention_rows.cu`` (the other routes' backwards, whose dq kernel
+sweeps the keys twice to form the row stats); every backward is a dq kernel,
+then a dkv kernel, on the backward mainloop of ``csrc/attention.cuh``. On a
 CPU tensor they run the plain versions beside them; ``plain=True`` runs the
 plain versions on any device.
 
@@ -57,7 +59,9 @@ from .ln_gelu import WIDTHS_ROADMAP
 # Head dims the kernels take, each its own instantiation: XLS-R-300M's 64,
 # XLS-R-1B's 80 and XLS-R-2B's 120.
 KERNEL_HEAD_DIMS = (64, 80, 120)
-_TILE = 64
+# Rows of a backward kernel's block: the bias gradients come as one column-sum
+# partial per block.
+_TILE = 128
 
 ROUTES = ("stats_v3", "stats_v2", "stats", "ctx", "attention")
 # The routes whose forward writes the lse, and those whose backward reads o.
@@ -321,9 +325,10 @@ def attention_bwd(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int,
         dq, dk, dv = out.chunk(3, dim=-1)
     scale = float(torch.tensor(sm_scale, dtype=q.dtype))
     kernel = _name("bwd", head_dim, bq is not None, route)
+    # The dq kernel's (B, H, T) fp32 scratch for the dkv kernel: delta, and m
+    # and l on the routes that sweep them.
+    m, l, delta = torch.empty((3, B, H, T), dtype=torch.float32, device=q.device)
     if route != "stats_v3":
-        # The pre-pass's (B, H, T) fp32 scratch: m, l and delta.
-        m, l, delta = torch.empty((3, B, H, T), dtype=torch.float32, device=q.device)
         _build.launch(
             "coral_attention_bwd_rows", kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_bias.data_ptr(), do.data_ptr(), _ptr(lse), _ptr(o), m.data_ptr(), l.data_ptr(),
@@ -337,9 +342,9 @@ def attention_bwd(q, k, v, bq, bk, bv, key_bias, do, lse, o, head_dim: int,
         db_part = torch.empty((B, n_tiles, 3, HD), dtype=torch.float32, device=q.device)
     _build.launch(
         name, kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bq), _ptr(bk), _ptr(bv),
-        key_bias.data_ptr(), do.data_ptr(), lse.data_ptr(), o.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _ptr(db_part), B, T, H, head_dim, stride_b, stride_t,
-        dq.stride(1), scale, float(sm_scale),
+        key_bias.data_ptr(), do.data_ptr(), lse.data_ptr(), o.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(db_part), B, T, H, head_dim, stride_b,
+        stride_t, dq.stride(1), scale, float(sm_scale),
     )
     return dq, dk, dv, None if db_part is None else db_part.sum(dim=(0, 1))
 

@@ -119,7 +119,9 @@ def test_the_row_stats_at_the_training_length_are_staged_by_plain_loads():
     refuses it as a row stride (as bf16 columns, its 998-element width), so
     the backward encodes maps of the four operands alone and its dkv
     producer stages c = m log2 e + log2 l and di by plain loads, rows past T
-    at c = +inf (p = 0) and di = 0."""
+    at c = +inf (p = 0) and di = 0. The short-T policies' dkv producer (K4,
+    K15) stages theirs the same way: c (the lse in log2 units, or the dq
+    kernel's swept m), 1 / l with m and l swept, and delta."""
     row_bytes = 499 * 4
     assert row_bytes % 16
     assert "row stride" in attention.tma_layout_error(64, 8 * row_bytes // 2, row_bytes // 2,
@@ -131,6 +133,12 @@ def test_the_row_stats_at_the_training_length_are_staged_by_plain_loads():
     assert "w[0] = __float_as_uint(row_c(a, b, h, q));" in bwd
     assert "w[1] = __float_as_uint(in ? a.di[stat + q] : 0.0f);" in bwd
     assert "if (t >= a.T) return INFINITY;" in bwd
+    assert ("w[0] = __float_as_uint(P::kML ? (in ? a.row_m[stat + q] : INFINITY)\n"
+            "                                          : row_lse(a, b, h, q));") in bwd
+    assert ("if constexpr (P::kML) w[1] = __float_as_uint(in ? 1.0f / a.row_l[stat + q] : "
+            "1.0f);") in bwd
+    assert "w[kVecs - 1] = __float_as_uint(in ? a.di[stat + q] : 0.0f);" in bwd
+    assert "return a.lse[((long long)b * a.H + h) * a.T + t] * fwd::kLog2e;" in bwd
 
 
 @pytest.mark.parametrize("segments", [False, True], ids=["unmasked", "segment_ids"])

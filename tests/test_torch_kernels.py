@@ -63,7 +63,10 @@ against the plain versions at the tolerances above. The backward mainloop:
 ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` likewise, at T around
 their 32-, 64- and 128-row tiles, with and without segment ids; the dq
 launch's di against the plain rowsum at 1e-5 of its max; two launches give
-the same bits. Run them with ``-k flash``.
+the same bits. Run them with ``-k flash``. The short-T backwards on the same
+mainloop (``attention_bwd_dq_kernel`` and ``attention_bwd_dkv_kernel``, every
+route, with and without the q/k/v biases) likewise, separate and packed, the
+packed gradient bit for bit the separate one's: ``-k mainloop``.
 """
 
 import numpy as np
@@ -835,8 +838,8 @@ def test_attention_kernels_write_nothing_past_a_head(cuda, d):
     a sentinel, so that the last head of the last row, if it wrote past its d
     columns, would overwrite the sentinel; H = 2, so a head's spill would land
     in the next head's columns, which the values' match checks. The same for
-    the v1 forward and the recomputing backward (the pre-pass and its dkdv
-    and dq kernels)."""
+    the v1 forward and the recomputing backward (its dq kernel's two sweeps
+    and its dkv kernel)."""
     B, T, H = 2, 70, 2
     q, k, v, bias, mask = _attention_args(cuda, B, T, H, d)
     key_bias = attention._key_bias(mask)
@@ -858,17 +861,18 @@ def test_attention_kernels_write_nothing_past_a_head(cuda, d):
     assert torch.equal(o_buf[:n].view(B, T, H * d), o)
     do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
     grads = [buffer() for _ in range(3)]
-    db_part = torch.empty(B, -(-T // 64), 3, H * d, device=cuda)
+    db_part = torch.empty(B, -(-T // attention._TILE), 3, H * d, device=cuda)
+    delta = torch.empty(B, H, T, device=cuda)
     _build.launch("coral_attention_bwd", "sentinel", *ptrs, do.data_ptr(), lse.data_ptr(),
-                  o.data_ptr(), *(g.data_ptr() for g in grads), db_part.data_ptr(), B, T, H, d,
-                  stride_b, stride_t, H * d, scale, d**-0.5)
+                  o.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
+                  db_part.data_ptr(), B, T, H, d, stride_b, stride_t, H * d, scale, d**-0.5)
     torch.cuda.synchronize()
     want = attention.attention_bwd(q, k, v, *bias, key_bias, do, lse, o, d, d**-0.5)
     for g, w in zip(grads, want[:3]):
         assert (g[n:] == sentinel).all()
         assert torch.equal(g[:n].view(B, T, H * d), w)
     assert torch.equal(db_part.sum(dim=(0, 1)), want[3])
-    # The v1 forward and a backward with the per-row pre-pass, without biases.
+    # The v1 forward and a backward whose dq kernel sweeps twice, without biases.
     ptrs = [t.data_ptr() for t in (q, k, v)]
     o_buf = buffer()
     _build.launch("coral_attention_fwd", "sentinel", *ptrs, None, None, None,
@@ -1320,8 +1324,8 @@ VARIANT_FLAGS = {"attention": dict(save_stats=False),
 @pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
 @pytest.mark.parametrize("route", VARIANT_FLAGS)
 def test_attention_variant_kernels_match_plain(cuda, route, d, packed):
-    """Each route's forward and backward kernels (the backward with its
-    per-row pre-pass) against the plain versions at each head dim, T = 150,
+    """Each route's forward and backward kernels (the backward's dq kernel
+    sweeping twice) against the plain versions at each head dim, T = 150,
     padded keys and a fully padded row: the stats routes clamp its lse at
     -1e25 and give it no gradient; the routes without stats give it the
     uniform average's nonzero gradients, as the plain version; on packed q, k,
@@ -1552,3 +1556,75 @@ def test_flash_backward_mainloop_matches_plain(cuda, d, T, packed):
         _close_rel(di, flash_attention._padded_dq_plain(q, k, v, o, l, m, do, ids)[1], 1e-5)
         again = flash_attention.flash_attention_bwd(q, k, v, o, l, m, do, segment_ids=ids)
         assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# The short-T backwards on the backward mainloop: every route, by the policy
+# of its pair (bwd::K4 with and without biases, Stats, Recompute, Ctx).
+BWD_ROUTES = {"stats_v3_qb": ("stats_v3", True), "stats_v3": ("stats_v3", False),
+              "stats_v2": ("stats_v2", False), "stats": ("stats", False), "ctx": ("ctx", False),
+              "attention": ("attention", False)}
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed_qkv"])
+@pytest.mark.parametrize("T", BWD_MAINLOOP_T)
+@pytest.mark.parametrize("d", [64, 80, 120])
+@pytest.mark.parametrize("case", BWD_ROUTES)
+def test_attention_backward_mainloop_matches_plain(cuda, case, d, T, packed):
+    """Each short-T backward's pair (``attention_bwd_dq_kernel``, then
+    ``attention_bwd_dkv_kernel``) at each head dim and T around its tiles (128
+    rows a block, 128- or 64-key dq tiles, 64- or 32-query dkv tiles), with a
+    full row, a half-length row, a length-1 row and a fully padded row, on
+    separate q, k, v and on the lane thirds of one packed projection (with the
+    biases too: the kernels take any row stride): dq, dk and dv against
+    ``attention_bwd_plain`` as the other gradients, db at 1e-2 of its largest
+    value. The fully padded row: no gradient where p comes from the lse (its
+    -1e25 clamp), and on Recompute and Ctx p = 1/T, every key's dv the mean
+    of do. Two launches give the same bits; the packed gradient is the
+    separate one's bit for bit. At T = 1 dq and dk are fp32 rounding on both
+    sides (p = 1, dp = delta but for the order of two sums of the same
+    products), held under the flash test's bound."""
+    route, bias = BWD_ROUTES[case]
+    B, H = 4, 2
+    q, k, v = _mainloop_qkv(cuda, B, T, H, d, packed)
+    biases = (tuple(_on(cuda, _np(H * d, seed=20 + i, scale=0.5), torch.bfloat16)
+                    for i in range(3)) if bias else (None,) * 3)
+    lengths = torch.tensor([T, max(1, T // 2), 1, 0], device=cuda)
+    key_bias = attention._key_bias(torch.arange(T, device=cuda)[None, :] < lengths[:, None])
+    do = _on(cuda, _np(B, T, H * d, seed=7), torch.bfloat16)
+    fwd_route = "stats_v2" if route == "stats" else route
+    o, lse = attention._fwd(q, k, v, *biases, key_bias, d, d**-0.5, fwd_route)
+    args = (q, k, v, *biases, key_bias, do, lse, o, d, d**-0.5)
+    out = torch.empty(B, T, 3 * H * d, dtype=torch.bfloat16, device=cuda) if packed else None
+    _build.reset_launch_counts()
+    got = attention.attention_bwd(*args, out=out, route=route)
+    assert _build.launch_counts == {attention._name("bwd", d, bias, route): 1}
+    want = attention.attention_bwd_plain(*args, route=route)
+    qb, kb, vb = (t if b is None else t + b for t, b in zip((q, k, v), biases))
+    for g, w, other in zip(got[:3], want[:3], (kb, qb, None)):
+        assert g.shape == (B, T, H * d)
+        if T == 1 and other is not None:
+            cancelled = 2.0**-20 * d**0.5 * float(do.abs().max() * vb.abs().max()
+                                                   * other.abs().max())
+            torch.cuda.synchronize()
+            assert float(g.float().abs().max()) <= cancelled
+            assert float(w.float().abs().max()) <= cancelled
+        else:
+            _close_rel(g, w)
+    if bias:
+        _close_rel(got[3], want[3], 1e-2)
+    else:
+        assert got[3] is None
+    if route in attention.LSE_ROUTES:
+        assert not any(g[3].any() for g in got[:3])
+    else:
+        mean = do[3].float().mean(dim=0)
+        _close_rel(got[2][3], mean.expand(T, -1), 2e-2)
+    again = attention.attention_bwd(*args, route=route)
+    assert all(torch.equal(a, g) for a, g in zip(again[:3], got[:3]))
+    if bias:
+        assert torch.equal(again[3], got[3])
+    if packed:
+        apart = attention.attention_bwd(*(t.contiguous() for t in (q, k, v)), *args[3:],
+                                        route=route)
+        assert all(torch.equal(a, g) for a, g in zip(apart[:3], got[:3]))
+        assert torch.equal(torch.cat(apart[:3], dim=-1), out)
