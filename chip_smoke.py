@@ -25,7 +25,10 @@ non-zero before the result line is printed:
 2. the kernels are built from ``coral_tpu_torch/csrc`` and the build time is
    printed, with the registers and spill bytes of the backward mainloop's
    instantiations (the flash backward's and the short-T backwards' pairs)
-   and v1's from ptxas's report;
+   and v1's from ptxas's report; then the LayerNorm wrappers' host path
+   piece by piece (``coral_tpu_torch/tools/probe_ln_host.py``, microseconds
+   a call over 1,000 calls), with the pieces the earlier path ran and this
+   one no longer does timed as it ran them;
 3. each kernel runs at its path's own shapes in bf16 against its plain
    PyTorch version: errors against a stated tolerance, and both times (CUDA
    events, median of 10), with the least time the card could take for the
@@ -45,7 +48,10 @@ non-zero before the result line is printed:
    kernels at 384, 512, 768 and 1920, the LN backward at 384, 768 and 1920;
    the attention backwards beside PyTorch's memory-efficient attention
    backward with the key or segment mask as its bias, the LN backwards beside
-   ``aten.native_layer_norm_backward``; each row's share of its bound and
+   ``aten.native_layer_norm_backward``; one LayerNorm as training runs it
+   (``ln_fused`` forward and backward under autograd with bf16 work copies of
+   gamma and beta, at 8 x 499 x 1024) beside ``F.layer_norm``'s, each side's
+   events and device time and its device kernels by the profiler; each row's share of its bound and
    its ratio to the library call, by events and by device time (a single
    call's events time holds its host launch path); the host time a forward
    launch and a flash backward launch spend encoding their TMA tensor maps,
@@ -847,6 +853,74 @@ def merge(*results) -> dict:
     return out
 
 
+def ln_host_split(card: str, calls: int = 1000) -> None:
+    """The LayerNorm wrappers' host path piece by piece
+    (``coral_tpu_torch/tools/probe_ln_host.py``): microseconds a call over
+    ``calls`` calls with no synchronise between them; what the parent tree's
+    wrappers ran and these no longer run ("gone:") timed as it ran."""
+    from coral_tpu_torch.ops import _build, ln_gelu
+    from coral_tpu_torch.tools import probe_ln_host
+
+    for wrapper, fns in probe_ln_host.pieces(ln_gelu, _build).items():
+        parts = [f"{piece} {probe_ln_host.per_call_us(fn, calls):.2f}"
+                 for piece, fn in fns.items()]
+        print(f"  {wrapper} host path, us a call over {calls} calls ({card}): "
+              + "; ".join(parts), flush=True)
+    _build.reset_launch_counts()
+
+
+def device_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of ``fn`` launches, by
+    ``torch.profiler`` (after one call outside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def ln_training_pattern(card: str, randn) -> dict:
+    """One LayerNorm as a training step runs it: ``ln_fused`` forward and
+    backward under autograd at (8, 499, 1024), x and bf16 work copies of
+    gamma and beta requiring gradients, against ``F.layer_norm`` forward and
+    backward under autograd with the same bf16 weights: the kernel path's
+    gradients against the plain path's, then each side's events and device
+    ms (median of ``REPS``) and its device kernels by the profiler."""
+    from coral_tpu_torch.ops import ln_gelu
+
+    bf16 = torch.bfloat16
+    x = randn(BATCH, 499, 1024, dtype=bf16).requires_grad_(True)
+    g = randn(1024, scale=0.1, offset=1.0, dtype=bf16).requires_grad_(True)
+    b = randn(1024, scale=0.1, dtype=bf16).requires_grad_(True)
+    dy = randn(BATCH, 499, 1024, dtype=bf16)
+    leaves = (x, g, b)
+
+    def port(plain=False):
+        return torch.autograd.grad(ln_gelu.ln_fused(*leaves, plain=plain), leaves, dy)
+
+    def library():
+        return torch.autograd.grad(torch.nn.functional.layer_norm(x, (1024,), g, b, 1e-5),
+                                   leaves, dy)
+
+    got, want = port(), port(plain=True)
+    res = merge(compare("ln training pattern dx", got[0], want[0], "ln_bwd"),
+                *(compare_grad(f"ln training pattern {n} (bf16)", gg, ww, GRAD_FRAC["partials"])
+                  for n, gg, ww in zip(("dgamma", "dbeta"), got[1:], want[1:])))
+    res["ok"] = res["ok"] and all(t.dtype == bf16 for t in got)
+    for name, fn in (("ln_fused", port), ("F.layer_norm", library)):
+        ms, dev, names = median_ms(fn), device_ms(fn), device_kernels(fn)
+        print(f"  ln training pattern, {name} forward and backward under autograd, bf16 "
+              f"gamma and beta: {ms:.4f} ms (device "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'}), {len(names)} device "
+              f"kernels: {', '.join(n[:48] for n in names)} (median of {REPS}; {card})",
+              flush=True)
+    return res
+
+
 def kernel_checks(card: str) -> dict:
     """Each kernel against its plain version at the serving slice's shapes."""
     from coral_tpu_torch.ops import attention, conv_ln_gelu, ffn, ln_gelu
@@ -1057,6 +1131,7 @@ def train_kernel_checks(card: str) -> dict:
             (LN_BWD_OPS * x.numel(), FP32_FLOPS, 3 * nbytes(x) + 3 * nbytes(g)),
             layer_norm_bwd_yardstick(x, g, b, dy))
     del x, dy
+    results["ln training pattern"] = ln_training_pattern(card, randn)
 
     # The feature encoder's training forward and backward: FE block 1 (k = 3,
     # 31999 -> 15999 rows), timed, and block 5 (k = 2, 1999 -> 999 rows: input
@@ -3898,6 +3973,7 @@ def main() -> int:
               flush=True)
         for line in mainloop_registers(lines):
             print(f"  {line}", flush=True)
+    ln_host_split(card)
 
     print(f"kernel checks at serving shapes (bf16, batch {BATCH}):", flush=True)
     checks = kernel_checks(card)

@@ -461,7 +461,7 @@ def _train_layer_norm(model, ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """``_train_layer_norm``: the ln_fused kernel where ``_kernel_layer_norm``
     says so, else plain."""
     if _kernel_layer_norm(model.config, x.shape[-1]):
-        return model.ops.ln_fused(x, ln.weight.float(), ln.bias.float()).to(x.dtype)
+        return model.ops.ln_fused(x, ln.weight, ln.bias).to(x.dtype)
     return _layer_norm(ln, x)
 
 

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from .gelu_poly import GELU_POLY_CHOICE
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -42,14 +44,16 @@ _F = ctypes.c_float
 
 # C entry points and their argument types (see each csrc/*.cu).
 _SIGNATURES = {
-    # x, gamma, beta, y, rows, C, is_bf16, apply_gelu, eps, stream
-    "coral_ln_gelu": [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
-    # x, gamma, beta, dy, dx, part, rows, C, blocks, x_bf16, dy_bf16,
-    # apply_gelu, eps, stream
-    "coral_ln_bwd": [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _F, _P],
-    # rows, C, x_bf16, dy_bf16, apply_gelu: the blocks coral_ln_bwd launches
-    # on the current card, -1 for an unbuilt combination (no launch)
-    "coral_ln_bwd_blocks": [_LL, _I, _I, _I, _I],
+    # x, gamma, beta, y, rows, C, is_bf16, gb_bf16, apply_gelu, eps, stream
+    "coral_ln_gelu": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    # x, gamma, beta, dy, dx, part, part_blocks, dvec, rows, C, x_bf16,
+    # dy_bf16, gb_bf16, apply_gelu, eps, stream (the row kernel, then the
+    # column kernel that writes dvec)
+    "coral_ln_bwd": [_P] * 6 + [_I, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
+    # C, x_bf16, dy_bf16, apply_gelu: the row kernel's grid on the current
+    # card, the rows of part coral_ln_bwd needs at most (found once per card),
+    # -1 for an unbuilt combination (no launch)
+    "coral_ln_bwd_blocks": [_I, _I, _I, _I],
     # x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, C, K, eps, stream
     "coral_conv_ln_gelu": [_P] * 8 + [_I] * 5 + [_F, _P],
     # x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
@@ -202,8 +206,11 @@ def _compile(sources: list[Path], target: Path) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built from ``csrc/`` on first use."""
+    """The loaded kernel library, built from ``csrc/`` on first use; once it
+    is loaded, without taking the lock."""
     global _lib, build_seconds
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -227,13 +234,17 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def current_stream() -> int:
+    """The current device's current CUDA stream, the handle that
+    ``torch.cuda.current_stream().cuda_stream`` gives, without making a
+    ``Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(symbol: str, kernel: str, *args) -> None:
     """Calls C entry point ``symbol`` on the current stream, raises unless the
     launch succeeded, and counts it under ``kernel``."""
-    import torch
-
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), symbol)(*args, stream)
+    err = getattr(library(), symbol)(*args, current_stream())
     if err != 0:
         raise RuntimeError(f"{symbol}: launch failed with CUDA error {err}")
     launch_counts[kernel] += 1
@@ -242,6 +253,15 @@ def launch(symbol: str, kernel: str, *args) -> None:
 def check_cuda(name: str, dtype, *tensors) -> None:
     """Raises unless every tensor is a contiguous CUDA tensor on one device,
     16-byte aligned and of ``dtype``."""
+    dev = tensors[0].get_device()
+    for t in tensors:
+        if (t.get_device() != dev or t.dtype != dtype or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            _layout_error(name, dtype, tensors)
+
+
+def _layout_error(name: str, dtype, tensors) -> None:
+    """Raises for the first tensor that ``check_cuda`` refuses, saying why."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -257,7 +277,7 @@ def check_cuda(name: str, dtype, *tensors) -> None:
 def require_cuda(name: str, x) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); raises for any other device."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
     if x.device.type == "cpu":
         return False

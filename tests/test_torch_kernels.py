@@ -926,19 +926,146 @@ def test_new_widths_are_counted_apart_and_unbuilt_widths_raise(cuda):
 
 
 def test_ln_bwd_block_count_comes_from_the_card(cuda):
-    """The LN backward's block count is the library's: a grid-filling count
-    for many rows (at most 4 blocks an SM), one block of 8 rows per 8 rows for
-    few, and -1 for a combination not built (a width, fp32 x with bf16 dy)."""
+    """The LN backward's grid is the library's, found once per card: a
+    grid-filling count (at most 4 blocks an SM), the same on every call, and
+    -1 for a combination not built (a width, fp32 x with bf16 dy)."""
     lib = _build.library()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for C in (384, 512, 768, 1024, 1280, 1920):
         for dy_bf16 in (0, 1):
-            many = lib.coral_ln_bwd_blocks(8 * 1500, C, 1, dy_bf16, 0)
-            assert 1 <= many <= 4 * sms and many % sms == 0, (C, dy_bf16, many)
-            assert lib.coral_ln_bwd_blocks(17, C, 1, dy_bf16, 1) == 3
-    assert lib.coral_ln_bwd_blocks(64, 640, 1, 1, 0) == -1
-    assert lib.coral_ln_bwd_blocks(64, 1024, 0, 1, 0) == -1
-    assert lib.coral_ln_bwd_blocks(64, 1920, 0, 0, 0) == -1
+            for gelu in (0, 1):
+                many = lib.coral_ln_bwd_blocks(C, 1, dy_bf16, gelu)
+                assert 1 <= many <= 4 * sms and many % sms == 0, (C, dy_bf16, gelu, many)
+                assert lib.coral_ln_bwd_blocks(C, 1, dy_bf16, gelu) == many
+    assert lib.coral_ln_bwd_blocks(640, 1, 1, 0) == -1
+    assert lib.coral_ln_bwd_blocks(1024, 0, 1, 0) == -1
+    assert lib.coral_ln_bwd_blocks(1920, 0, 0, 0) == -1
+
+
+# -- the LayerNorm pair's Hopper design: one C call each way, gamma in its own dtype --
+
+
+def _ln_bwd_built():
+    """Every built (x, dy, C) of the LN backward."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return ([(bf16, dy, C) for dy in (bf16, fp32) for C in ln_gelu.KERNEL_C_BWD[bf16]]
+            + [(fp32, fp32, C) for C in ln_gelu.KERNEL_C_BWD[fp32]])
+
+
+def _ln_bwd_inputs(cuda, rows, C, xd, dyd, gd):
+    x = _on(cuda, _np(rows, C, seed=0, scale=2.0, offset=0.3), xd)
+    dy = _on(cuda, _np(rows, C, seed=1), dyd)
+    gamma = _on(cuda, _np(C, seed=2, scale=0.1, offset=1.0), gd)
+    beta = _on(cuda, _np(C, seed=3, scale=0.1), gd)
+    return x, gamma, beta, dy
+
+
+@pytest.mark.parametrize("xd,dyd,C", _ln_bwd_built(),
+                         ids=lambda v: str(v).replace("torch.", "") if not isinstance(v, int)
+                         else str(v))
+@pytest.mark.parametrize("gd", [torch.bfloat16, torch.float32], ids=["g_bf16", "g_fp32"])
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 3992, 12000, "grid"])
+def test_ln_bwd_at_every_built_combination_matches_plain(cuda, xd, dyd, C, gd, rows):
+    """dx, dgamma and dbeta of every built (x, dy, gamma dtype, C) against the
+    plain version, at row counts about the teams, the blocks and the grid
+    ("grid": one more than the cached grid x 8 rows); dgamma and dbeta in
+    gamma's dtype; one launch count."""
+    gelu = bool(C % 3) if rows == "grid" else rows % 2 == 1
+    flags = (int(xd == torch.bfloat16), int(dyd == torch.bfloat16), int(gelu))
+    if rows == "grid":
+        rows = _build.library().coral_ln_bwd_blocks(C, *flags) * 8 + 1
+    x, gamma, beta, dy = _ln_bwd_inputs(cuda, rows, C, xd, dyd, gd)
+    _build.reset_launch_counts()
+    got = ln_gelu.ln_bwd(x, gamma, beta, dy, apply_gelu=gelu)
+    assert _build.launch_counts == {ln_gelu._name("ln_bwd", C): 1}
+    want = ln_gelu.ln_bwd_plain(x, gamma, beta, dy, apply_gelu=gelu)
+    assert got[0].dtype == xd and got[1].dtype == gd and got[2].dtype == gd
+    _close(got[0], want[0], 1e-2)
+    for g, w in zip(got[1:], want[1:]):
+        _close_rel(g, w, 1e-2)
+
+
+@pytest.mark.parametrize("C", [384, 1024, 1920])
+def test_ln_bwd_gives_the_same_bits_twice(cuda, C):
+    """The column sums run in a fixed order over a fixed grid: two calls, the
+    same bits."""
+    x, gamma, beta, dy = _ln_bwd_inputs(cuda, 3992, C, torch.bfloat16, torch.bfloat16,
+                                        torch.bfloat16)
+    first = ln_gelu.ln_bwd(x, gamma, beta, dy, apply_gelu=False)
+    second = ln_gelu.ln_bwd(x, gamma, beta, dy, apply_gelu=False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C", [512, 1024, 1280, 1920])
+@pytest.mark.parametrize("apply_gelu", [False, True])
+def test_ln_with_bf16_gamma_is_the_fp32_gamma_kernel_bit_for_bit(cuda, C, apply_gelu):
+    """bf16 gamma and beta, widened in registers, give the kernels' own results
+    for the same values in fp32: y and dx exactly, dgamma and dbeta the fp32
+    sums rounded once to bf16."""
+    bf16 = torch.bfloat16
+    x, g16, b16, dy = _ln_bwd_inputs(cuda, 3992, C, bf16, bf16, bf16)
+    g32, b32 = g16.float(), b16.float()
+    fwd = ln_gelu.ln_gelu if apply_gelu else ln_gelu.ln_fused
+    if C in ln_gelu.KERNEL_C[bf16]:
+        assert torch.equal(fwd(x, g16, b16), fwd(x, g32, b32))
+    dx16, dg16, db16 = ln_gelu.ln_bwd(x, g16, b16, dy, apply_gelu=apply_gelu)
+    dx32, dg32, db32 = ln_gelu.ln_bwd(x, g32, b32, dy, apply_gelu=apply_gelu)
+    assert torch.equal(dx16, dx32)
+    assert dg16.dtype == db16.dtype == bf16 and dg32.dtype == db32.dtype == torch.float32
+    assert torch.equal(dg16, dg32.to(bf16)) and torch.equal(db16, db32.to(bf16))
+
+
+def _device_kernels(fn) -> list:
+    """The names of the device kernels ``fn`` launched, by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memset", "Memcpy"))]
+
+
+@pytest.mark.parametrize("C", [1024, 1280, 1920])
+def test_ln_with_bf16_work_copies_launches_one_kernel_forward_two_backward(cuda, C):
+    """One LayerNorm under autograd with bf16 gamma and beta that require a
+    gradient, as the training step's work copies: the profiler counts one
+    device kernel for the forward and at most two for the backward (the row
+    and column kernels), no cast and no sum."""
+    bf16 = torch.bfloat16
+    x, gamma, beta, dy = _ln_bwd_inputs(cuda, 3992, C, bf16, bf16, bf16)
+    leaves = [t.requires_grad_(True) for t in (x, gamma, beta)]
+    ln_gelu.ln_fused(*leaves)  # the library is built and the grid found
+    out = {}
+    fwd = _device_kernels(lambda: out.setdefault("y", ln_gelu.ln_fused(*leaves)))
+    bwd = _device_kernels(lambda: out.setdefault("g", torch.autograd.grad(out["y"], leaves, dy)))
+    assert len(fwd) == 1, fwd
+    assert 1 <= len(bwd) <= 2, bwd
+    assert [g.dtype for g in out["g"]] == [bf16] * 3
+
+
+def test_ln_direct_path_gives_the_functions_bits(cuda):
+    """Without a gradient to record, ln_fused and ln_gelu call the forward
+    wrapper directly: the same bits as through autograd; ``saved`` still
+    launches nothing."""
+    bf16 = torch.bfloat16
+    x, gamma, beta, _ = _ln_bwd_inputs(cuda, 999, 1024, bf16, bf16, bf16)
+    for fn in (ln_gelu.ln_fused, ln_gelu.ln_gelu):
+        with torch.no_grad():
+            direct = fn(x, gamma, beta)
+        plain_inputs = fn(x, gamma, beta)
+        recorded = fn(x.clone().requires_grad_(True), gamma, beta)
+        assert recorded.requires_grad and not direct.requires_grad
+        assert torch.equal(direct, recorded) and torch.equal(plain_inputs, recorded)
+    _build.reset_launch_counts()
+    saved = torch.ones_like(x)
+    with torch.no_grad():
+        assert torch.equal(ln_gelu.ln_fused(x, gamma, beta, saved=saved), saved)
+    assert ln_gelu.ln_fused(x, gamma, beta, saved=saved) is not saved
+    assert not _build.launch_counts
 
 
 # -- the unfused routes: flash attention with segment ids, GELU + dropout ------------
