@@ -36,7 +36,9 @@ non-zero before the result line is printed:
    the same function, that call's time as a yardstick the port never uses;
    the feature encoder's training forward and backward at FE blocks 1 and 5;
    Whisper's encoder flash attention, decode self-attention (K = 1, and K = 5
-   beams at a reduced batch), decode cross-attention and the FFN at D = 1280;
+   beams at a reduced batch), decode cross-attention (each decode wrapper's
+   device kernels a call by the profiler, which must be 1, and its host
+   microseconds a call over 1,000 calls) and the FFN at D = 1280;
    Whisper training's flash forward with its row stats, the flash backward's
    dq and dkv kernels (dq first: it writes the di that dkv reads) and the
    pair as one call, launched twice for the same bits (so too with segment
@@ -871,16 +873,22 @@ def ln_host_split(card: str, calls: int = 1000) -> None:
 
 def device_kernels(fn) -> list[str]:
     """The names of the device kernels one call of ``fn`` launches, by
-    ``torch.profiler`` (after one call outside it)."""
+    ``torch.profiler`` (after one call outside it). A window in which the
+    profiler caught no kernel is profiled again, up to three times, as in
+    ``device_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return names
 
 
 def ln_training_pattern(card: str, randn) -> dict:
@@ -1720,6 +1728,26 @@ def training_run(card: str) -> dict:
             for name in {*counts_b, *counts_c}}
 
 
+def decode_launch_path(card: str, calls: dict, host_calls: int = 1000) -> None:
+    """Each decode wrapper at the rows' shapes: its device kernels a call by the
+    profiler (fails unless 1: the key split is combined inside the kernel's
+    cluster) and its host microseconds a call over ``host_calls`` calls with
+    no synchronise between them."""
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.tools.probe_ln_host import per_call_us
+
+    for name, fn in calls.items():
+        kernels = device_kernels(fn)
+        print(f"  {name}: {len(kernels)} device kernel(s) a call: "
+              f"{', '.join(k[:60] for k in kernels)}", flush=True)
+        if len(kernels) != 1:
+            fail(f"{name} launched {len(kernels)} device kernels a call, not 1")
+    parts = [f"{name} {per_call_us(fn, host_calls):.2f}" for name, fn in calls.items()]
+    print(f"  decode wrappers' host path, us a call over {host_calls} calls, no synchronise "
+          f"between them ({card}): " + "; ".join(parts), flush=True)
+    _build.reset_launch_counts()
+
+
 def whisper_kernel_checks(card: str) -> dict:
     """Whisper serving's kernels against their plain versions at its shapes:
     whisper-large-v3 (d 1280, 20 heads x 64, 32 layers), 8 x 30 s (T = 1500
@@ -1787,7 +1815,7 @@ def whisper_kernel_checks(card: str) -> dict:
             self_check,
             (4 * BATCH * T_b * D, FP32_FLOPS, 2 * nbytes(qd) + 2 * nbytes(ck[layer]) + nbytes(onehot)),
             lambda: sdpa(sq, sk, sv, attn_mask=smask))
-    del ck, cv, c5k, c5v, sk, sv
+    del c5k, c5v, sk, sv
 
     # Decode cross-attention over layer 17 of the (32, 8, 1500, 1280) encoder K/V.
     xk, xv = (randn(L, BATCH, T, D, dtype=bf16) for _ in range(2))
@@ -1800,7 +1828,13 @@ def whisper_kernel_checks(card: str) -> dict:
                             decode_attention.decode_cross_attention_plain(qd, xk, xv, H, layer)),
             (4 * BATCH * T * D, FP32_FLOPS, 2 * nbytes(qd) + 2 * nbytes(xk[layer])),
             lambda: sdpa(sq, hk, hv))
-    del xk, xv, hk, hv
+    decode_calls = {
+        "decode_self_attention": lambda: decode_attention.decode_self_attention(
+            qd, ck, cv, onehot, H, layer),
+        "decode_cross_attention": lambda: decode_attention.decode_cross_attention(
+            qd, xk, xv, H, layer)}
+    decode_launch_path(card, decode_calls)
+    del ck, cv, xk, xv, hk, hv, decode_calls
 
     # The encoder FFN's LN + fc1 + GELU at D = 1280: (8, 1500, 1280) -> 5120.
     x = randn(BATCH, T, D, dtype=bf16)

@@ -1,9 +1,9 @@
-// The Hopper (sm_90a) instructions the attention forwards and the flash
-// backward are built on, as thin PTX wrappers: mbarriers, TMA tensor loads and
-// the host side's tensor maps, warpgroup matrix multiplies (wgmma) with their
-// shared-memory descriptors, named barriers, the async-proxy fence and
-// setmaxnreg. Raw PTX keeps each source's nvcc run at seconds (no CuTe
-// headers).
+// The Hopper (sm_90a) instructions the attention kernels are built on, as
+// thin PTX wrappers: mbarriers, thread-block clusters and their distributed
+// shared memory, TMA tensor loads and the host side's tensor maps, warpgroup
+// matrix multiplies (wgmma) with their shared-memory descriptors, named
+// barriers, the async-proxy fence and setmaxnreg. Raw PTX keeps each
+// source's nvcc run at seconds (no CuTe headers).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
@@ -69,6 +69,45 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
 }
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// --- thread-block clusters -------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared address `addr` of this block as the same offset in the shared
+// memory of cluster block `rank` (distributed shared memory).
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Every thread of every block of the cluster: writes to shared memory before
+// it are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// As cluster_sync with no memory ordering: every block of the cluster has
+// reached it (its reads of the others' shared memory are done).
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // --- TMA ---------------------------------------------------------------------------

@@ -128,8 +128,12 @@ _SIGNATURES = {
     "coral_flash_attention_bwd_map_ns": [_P] * 4 + [_I] * 4 + [_LL, _LL, _I],
     # x, dy, out, seeds, B, T, F, threshold, scale, stream
     "coral_gelu_dropout": [_P] * 4 + [_I, _I, _I, _U, _F, _P],
-    # q, k, v, mask, part_o, part_ml, out, B, K, n_keys, H, layer, scale, stream
-    "coral_decode_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, k, v, mask, out, B, K, n_keys, H, L, layer, C, scale, stream (mask
+    # null: the cross-attention; C: the cluster size, one launch)
+    "coral_decode_attention": [_P] * 5 + [_I] * 7 + [_F, _P],
+    # K: the blocks a call of K beams may launch on the current card (one
+    # wave, at most two an SM), -1 if the query fails
+    "coral_decode_wave_blocks": [_I],
 }
 
 _lock = threading.Lock()

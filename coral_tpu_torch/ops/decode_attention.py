@@ -4,12 +4,14 @@ Port of ``coral_tpu/ops/decode_attention.py``: ``decode_self_attention`` (the
 Whisper decoder's self-attention over its cache, with the beam slot mask) and
 ``decode_cross_attention`` (over the encoder's K/V, shared by the K beams of
 an item), with the JAX signatures and shapes. Each reads layer ``layer`` of
-the stacked store by offset; no per-layer slice is made. On a CUDA tensor the
-wrappers launch ``csrc/decode_attention.cu`` (split over 128-key chunks and
-combined, so the normalised probabilities are not rounded to bf16 before the
-product as the TPU kernel rounds them); on a CPU tensor they run the plain
-versions beside them, which are the JAX package's own off-TPU composition.
-Inference only.
+the stacked store as one coordinate of a tensor map; no per-layer slice is
+made. On a CUDA tensor the wrappers launch ``csrc/decode_attention.cu``: one
+kernel a call, whose thread-block cluster of ``cluster_size`` blocks splits
+each (item, head)'s keys into whole 64-key tiles (``cluster_shares``) and
+combines them in rank order, the normalised probabilities kept in fp32 until
+the output where the TPU kernel rounds them to bf16 before the product. On a
+CPU tensor they run the plain versions beside them, which are the JAX
+package's own off-TPU composition. Inference only.
 """
 
 from __future__ import annotations
@@ -20,8 +22,46 @@ from . import _build
 
 _NEG = -1e30
 KERNEL_HEAD_DIM = 64
-_CHUNK = 128
+TILE = 64  # keys a block streams at a time
+MAX_CLUSTER = 8  # the portable cluster size
+GROUP = 8  # beams a block takes
 _MAX_BEAMS = 64
+# (device, K == 1): the blocks a call may launch on that card (``wave_blocks``).
+_WAVE: dict = {}
+
+
+def wave_blocks(K: int, device: int) -> int:
+    """The blocks a call of K beams may launch on card ``device``: one wave
+    of the kernel's instantiation, at most two an SM (the kernel library's
+    occupancy query, once per card)."""
+    key = (device, K == 1)
+    blocks = _WAVE.get(key)
+    if blocks is None:
+        blocks = _build.library().coral_decode_wave_blocks(K)
+        if blocks < 1:
+            raise RuntimeError("coral_decode_wave_blocks: the occupancy query failed")
+        _WAVE[key] = blocks
+    return blocks
+
+
+def cluster_size(n_keys: int, items: int, wave: int) -> int:
+    """The blocks that split one (item, head, beam group)'s ``n_keys`` keys:
+    the largest power of two up to 8 that leaves every block a whole 64-key
+    tile and keeps the call's ``items`` x C blocks within ``wave``
+    (``wave_blocks``); at least 1."""
+    tiles = -(-n_keys // TILE)
+    c = 1
+    while 2 * c <= min(MAX_CLUSTER, tiles) and 2 * c * items <= wave:
+        c *= 2
+    return c
+
+
+def cluster_shares(n_keys: int, C: int) -> list[range]:
+    """The keys of each rank of a cluster of ``C``: tiles [c n / C, (c + 1) n
+    / C) of the n = ceil(n_keys / 64), cut at ``n_keys``."""
+    tiles = -(-n_keys // TILE)
+    return [range(c * tiles // C * TILE, min((c + 1) * tiles // C * TILE, n_keys))
+            for c in range(C)]
 
 
 def _attend(qh, kh, vh, mask, scale, dtype):
@@ -71,21 +111,18 @@ def _launch(kernel, q, k, v, mask, B, K, n_keys, n_heads, layer):
         raise ValueError(f"{name}: the kernel takes 1 to {_MAX_BEAMS} beams, got {K}")
     if not 0 <= layer < L:
         raise ValueError(f"{name}: layer {layer} of {L}")
+    if v.shape != k.shape:
+        raise ValueError(f"{name}: k and v of one shape")
     _build.check_cuda(name, torch.bfloat16, q, k, v)
     if mask is not None:
         _build.check_cuda(name, torch.float32, mask)
         if mask.device != q.device:
             raise ValueError(f"{name}: the mask must be on {q.device}")
-    if k.device != q.device or v.device != q.device or v.shape != k.shape:
-        raise ValueError(f"{name}: q, k, v on one device, k and v of one shape")
-    n_chunks = -(-n_keys // _CHUNK)
-    part_o = torch.empty((B * K, n_heads, n_chunks, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B * K, n_heads, n_chunks, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    C = cluster_size(n_keys, B * n_heads * -(-K // GROUP), wave_blocks(K, q.get_device()))
     _build.launch(name, kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  0 if mask is None else mask.data_ptr(), part_o.data_ptr(),
-                  part_ml.data_ptr(), out.data_ptr(), B, K, n_keys, n_heads, int(layer),
-                  float(d) ** -0.5)
+                  0 if mask is None else mask.data_ptr(), out.data_ptr(), B, K, n_keys,
+                  n_heads, L, int(layer), C, float(d) ** -0.5)
     return out
 
 

@@ -32,7 +32,12 @@ row stats m and l (fp32 on both sides, sums in another order) at rtol 1e-5,
 its backward's dq, dk and dv as the other gradients; the decode kernels at
 4e-3, which keep the probabilities in fp32 where the plain version (the JAX
 composition) rounds them to bf16 before p @ v: at most 2**-9 of each term,
-summed over keys whose weights add to 1.
+summed over keys whose weights add to 1. At every Whisper head count and
+cache phase (``-k decode``) the decode kernels are held to 2**-9 max|v| plus
+two bf16 ulps against the plain version, and to one bf16 ulp plus 1e-5
+against the same arithmetic with p in fp32; two calls give the same bits,
+the profiler sees one device kernel a call, and a CUDA graph that captured
+both wrappers replays their bits.
 
 The attention's other routes (``save_stats`` false, with ``o_residual``,
 true and "v2") at head_dim 64, 80 and 120 as the v3 kernels, on separate and
@@ -68,6 +73,11 @@ mainloop (``attention_bwd_dq_kernel`` and ``attention_bwd_dkv_kernel``, every
 route, with and without the q/k/v biases) likewise, separate and packed, the
 packed gradient bit for bit the separate one's: ``-k mainloop``.
 """
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -751,6 +761,106 @@ def test_whisper_kernels_reject_what_they_do_not_take(cuda):
     assert not _build.launch_counts
 
 
+# The decode kernel keeps p in fp32; the plain version (the JAX composition)
+# rounds p to bf16 before p @ v, each p within 2**-9 of itself over weights
+# that sum to 1: |kernel - plain| <= 2**-9 max|v| plus two bf16 ulps. Against
+# the same arithmetic with p in fp32 (``_decode_fp32``) only the sums' order
+# differs: one bf16 ulp of the output (2**-8 relative) and 1e-5.
+P_ROUNDING = 2.0**-9
+WHISPER_HEADS = [6, 8, 12, 16, 20]  # tiny, base, small, medium, large-v3 (head_dim 64)
+
+
+def _decode_fp32(q, k, v, mask, n_heads, layer):
+    """fp32 decode attention of q (B*K, HD) over layer ``layer`` of the (L, B,
+    N, HD) store k, v (the self cache read as (L, B, K*T, HD)); mask (B, K,
+    N) or None; p never rounded."""
+    _, B, N, HD = k.shape
+    K, d = q.shape[0] // B, HD // n_heads
+    qh = q.float().view(B, K, n_heads, d)
+    kh, vh = (t[layer].float().view(B, N, n_heads, d) for t in (k, v))
+    s = torch.einsum("bkhd,bnhd->bkhn", qh, kh) * d**-0.5
+    if mask is not None:
+        s = torch.where(mask[:, :, None, :] > 0, s, -1e30)
+    return torch.einsum("bkhn,bnhd->bkhd", torch.softmax(s, dim=-1), vh).reshape(B * K, HD)
+
+
+def _decode_close(got, want_plain, want_fp32, v):
+    torch.cuda.synchronize()
+    _close(got, want_plain, P_ROUNDING * float(v.float().abs().max()))
+    err = (got.float() - want_fp32).abs()
+    assert (err <= 1e-5 + 2.0**-8 * want_fp32.abs()).all(), f"max err {err.max().item()}"
+
+
+def _decode_self_inputs(cuda, B, K, T, H, pos, L=2):
+    q = _on(cuda, _np(B * K, H * 64, seed=0), torch.bfloat16)
+    ck = _on(cuda, _np(L, B * K, T, H * 64, seed=1), torch.bfloat16)
+    cv = _on(cuda, _np(L, B * K, T, H * 64, seed=2), torch.bfloat16)
+    return q, ck, cv, _on(cuda, _beam_onehot(B, K, T, pos, seed=3))
+
+
+@pytest.mark.parametrize("K", [1, 5, 64])
+@pytest.mark.parametrize("T", [64, 128, 225, 448])
+@pytest.mark.parametrize("H", WHISPER_HEADS)
+def test_decode_self_kernel_at_whisper_shapes_matches_plain(cuda, H, T, K):
+    """Layer 1 of a 2-layer cache at every Whisper head count, over the
+    greedy decode's cache phases (64, 128, 256 slots; 225 is large-v3's last,
+    448 its longest), with K = 1, 5 and 64 beams (64: eight beam groups) and
+    the causal or ancestor mask at position 2T/3 (at 448 slots the last of
+    four ranks holds only masked keys)."""
+    B = 1 if K == 64 else 2
+    q, ck, cv, onehot = _decode_self_inputs(cuda, B, K, T, H, 2 * T // 3)
+    _build.reset_launch_counts()
+    got = decode_attention.decode_self_attention(q, ck, cv, onehot, H, 1)
+    assert _build.launch_counts == {"decode_self_attention": 1}
+    B_, KT = onehot.shape[0], onehot.shape[2]
+    _decode_close(got, decode_attention.decode_self_attention_plain(q, ck, cv, onehot, H, 1),
+                  _decode_fp32(q, ck.view(2, B_, KT, -1), cv.view(2, B_, KT, -1), onehot, H, 1),
+                  cv[1])
+
+
+@pytest.mark.parametrize("K", [1, 2, 5])
+@pytest.mark.parametrize("S", [1, 100, 1500])
+@pytest.mark.parametrize("H", WHISPER_HEADS)
+def test_decode_cross_kernel_at_whisper_shapes_matches_plain(cuda, H, S, K):
+    """Layer 0 of a 2-layer store of S encoder rows (1: a single tile cut at
+    one key; 100; Whisper's 1500) at every Whisper head count, shared by K
+    beams."""
+    B = 2
+    q = _on(cuda, _np(B * K, H * 64, seed=0), torch.bfloat16)
+    k = _on(cuda, _np(2, B, S, H * 64, seed=1), torch.bfloat16)
+    v = _on(cuda, _np(2, B, S, H * 64, seed=2), torch.bfloat16)
+    _build.reset_launch_counts()
+    got = decode_attention.decode_cross_attention(q, k, v, H, 0)
+    assert _build.launch_counts == {"decode_cross_attention": 1}
+    _decode_close(got, decode_attention.decode_cross_attention_plain(q, k, v, H, 0),
+                  _decode_fp32(q, k, v, None, H, 0), v[0])
+
+
+@pytest.mark.parametrize("K", [2, 8, 9, 17])
+def test_decode_self_kernel_at_partial_beam_groups_matches_plain(cuda, K):
+    """K beams around the kernel's groups of 8 (9 and 17: a last group of one
+    beam), with one fully masked row, which averages its K*T slots."""
+    B, T, H = 2, 64, 20
+    q, ck, cv, onehot = _decode_self_inputs(cuda, B, K, T, H, 40)
+    onehot[1, K - 1] = 0.0
+    got = decode_attention.decode_self_attention(q, ck, cv, onehot, H, 0)
+    _decode_close(got, decode_attention.decode_self_attention_plain(q, ck, cv, onehot, H, 0),
+                  _decode_fp32(q, ck.view(2, B, K * T, -1), cv.view(2, B, K * T, -1), onehot,
+                               H, 0), cv[0])
+    mean = cv[0].view(B, K * T, -1)[1].float().mean(0)
+    assert (got[-1].float() - mean).abs().max() <= 1e-5 + 2.0**-8 * mean.abs().max()
+
+
+def test_decode_wave_is_two_blocks_an_sm(cuda):
+    """Both instantiations hold at least two blocks an SM (the K > 1 one at
+    its registers), so a call may launch two an SM: the wave that
+    ``cluster_size`` keeps a grid within, and that
+    ``tests/test_torch_decode_design.py`` takes for an H100."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dev = cuda.index or 0
+    assert decode_attention.wave_blocks(1, dev) == decode_attention.wave_blocks(5, dev) == 2 * sms
+
+
 # -- the widths of every config: XLS-R-1B and -2B, Whisper tiny, base, small --------
 
 
@@ -1017,16 +1127,24 @@ def test_ln_with_bf16_gamma_is_the_fp32_gamma_kernel_bit_for_bit(cuda, C, apply_
 
 
 def _device_kernels(fn) -> list:
-    """The names of the device kernels ``fn`` launched, by the profiler."""
+    """The names of the device kernels ``fn`` launched, by the profiler. On
+    the card machine the profiler at times records nothing of a whole window,
+    so a window with no kernel at all is profiled again, up to three times,
+    as ``chip_smoke.py``'s ``device_ms`` does; a call that launches nothing
+    still gives none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("Memset", "Memcpy"))]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memset", "Memcpy"))]
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.parametrize("C", [1024, 1280, 1920])
@@ -1755,3 +1873,82 @@ def test_attention_backward_mainloop_matches_plain(cuda, case, d, T, packed):
                                         route=route)
         assert all(torch.equal(a, g) for a, g in zip(apart[:3], got[:3]))
         assert torch.equal(torch.cat(apart[:3], dim=-1), out)
+
+
+# -- the decode wrappers' launch path ------------------------------------------------
+
+
+def _decode_calls(cuda, K):
+    """Both decode wrappers at Whisper large-v3's width (20 heads), as
+    zero-argument calls: the self-attention over a 225-slot cache, the
+    cross-attention over 1500 encoder rows, B = 2 items of K beams."""
+    B, H = 2, 20
+    q, ck, cv, onehot = _decode_self_inputs(cuda, B, K, 225, H, 150)
+    k = _on(cuda, _np(2, B, 1500, H * 64, seed=4), torch.bfloat16)
+    v = _on(cuda, _np(2, B, 1500, H * 64, seed=5), torch.bfloat16)
+    return q, {"self": lambda: decode_attention.decode_self_attention(q, ck, cv, onehot, H, 1),
+               "cross": lambda: decode_attention.decode_cross_attention(q, k, v, H, 1)}
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_decode_kernels_give_the_same_bits_twice(cuda, K):
+    """The cluster combines its blocks in rank order: no atomics, no order
+    that changes between calls."""
+    _, calls = _decode_calls(cuda, K)
+    for fn in calls.values():
+        assert torch.equal(fn(), fn())
+
+
+def _decode_kernels_a_call(K):
+    """The profiler's device kernels of one call of each decode wrapper."""
+    _, calls = _decode_calls(torch.device("cuda"), K)
+    counts = {}
+    for name, fn in calls.items():
+        fn()  # the library is built and the tensor maps encoded
+        counts[name] = len(_device_kernels(fn))
+    return counts
+
+
+@pytest.mark.parametrize("K", [1, 5, 64])
+def test_decode_kernels_launch_one_device_kernel_a_call(cuda, K):
+    """One device kernel a call by the profiler, as ``chip_smoke.py`` counts
+    them: the key split is combined inside the cluster, with no second
+    kernel and no scratch to clear. Counted in a process of its own: in this
+    one the profiler recorded no kernel at all once another test here had
+    profiled (the LayerNorm test below, or this one for that test)."""
+    tests = Path(__file__).resolve().parent
+    script = (f"import sys; sys.path[:0] = [{str(tests.parent)!r}, {str(tests)!r}]; "
+              f"import test_torch_kernels as t; print(t._decode_kernels_a_call({K}))")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    counts = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    assert counts == {"self": 1, "cross": 1}, counts
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_decode_kernels_replay_in_a_cuda_graph(cuda, K):
+    """Both decode wrappers captured in one ``torch.cuda.CUDAGraph``: a replay
+    gives the eager calls' bits, and again after q is overwritten in place
+    (the graph reads the buffers, nothing of the call is baked in)."""
+    q, calls = _decode_calls(cuda, K)
+    eager = {name: fn() for name, fn in calls.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls.values():
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = {name: fn() for name, fn in calls.items()}
+    graph.replay()
+    torch.cuda.synchronize()
+    for name in calls:
+        assert torch.equal(captured[name], eager[name]), name
+    q.copy_(torch.flip(q, dims=[0]))
+    eager = {name: fn() for name, fn in calls.items()}
+    graph.replay()
+    torch.cuda.synchronize()
+    for name in calls:
+        assert torch.equal(captured[name], eager[name]), name
