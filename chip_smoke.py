@@ -38,7 +38,11 @@ non-zero before the result line is printed:
    Whisper's encoder flash attention, decode self-attention (K = 1, and K = 5
    beams at a reduced batch), decode cross-attention (each decode wrapper's
    device kernels a call by the profiler, which must be 1, and its host
-   microseconds a call over 1,000 calls) and the FFN at D = 1280;
+   microseconds a call over 1,000 calls) and the FFN at D = 1280 (the
+   FFN wrappers' device kernels a call, the forward's must be 1, and their
+   microseconds a call at D 1280 on 16 rows; every K5 row of this
+   phase and of the width checks prints cuBLAS's fc1 product alone at its
+   shape beside it, a yardstick the port never calls);
    Whisper training's flash forward with its row stats, the flash backward's
    dq and dkv kernels (dq first: it writes the di that dkv reads) and the
    pair as one call, launched twice for the same bits (so too with segment
@@ -1028,6 +1032,7 @@ def kernel_checks(card: str) -> dict:
             lambda: compare("ffn_ln", ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * 4096 * 2))
+    fc1_yardstick(card, "ffn_ln", x, w1)
     return results
 
 
@@ -1261,6 +1266,7 @@ def train_kernel_checks(card: str) -> dict:
     measure("ffn_ln_drop", lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
             (2 * M * 1024 * 4096, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * 4096 * 2))
+    fc1_yardstick(card, "ffn_ln_drop", x, w1)
 
     def bwd_check():
         out = []
@@ -1290,6 +1296,7 @@ def train_kernel_checks(card: str) -> dict:
             (3 * 2 * M * 1024 * 4096, BF16_FLOPS,
              nbytes(x, w1, b1, g, b, dy, w2, seeds) + 2 * M * 4096 * 2 + 2 * nbytes(x)
              + (4096 + 2 * 1024) * 4))
+    fc1_yardstick(card, "ffn_bwd", x, w1)
     del x, dy, keep
 
     # CTC recursions: T' = 499, B = 8, L = 128 (S = 257), row 7 infeasible.
@@ -1748,6 +1755,53 @@ def decode_launch_path(card: str, calls: dict, host_calls: int = 1000) -> None:
     _build.reset_launch_counts()
 
 
+def fc1_yardstick(card: str, name: str, x: torch.Tensor, w1: torch.Tensor) -> None:
+    """cuBLAS's fc1 product alone at a K5 row's shape (x @ W1^T in bf16: no
+    LayerNorm, bias, GELU or mask), printed beside the row as its yardstick
+    (the backward's rows make three such products); the port never calls
+    it."""
+    x2 = x.reshape(-1, x.shape[-1])
+
+    def product():
+        return torch.matmul(x2, w1.t())
+
+    ms, dev = median_ms(product), device_ms(product)
+    print(f"  {name}: cuBLAS's fc1 product alone ({x2.shape[0]} x {x2.shape[1]} @ "
+          f"{w1.shape[1]} x {w1.shape[0]}, bf16) {ms:.4f} ms (device "
+          f"{'not measured' if dev is None else f'{dev:.4f} ms'}; median of {REPS}; {card})",
+          flush=True)
+
+
+def ffn_launch_path(card: str, randn, host_calls: int = 1000) -> None:
+    """``ffn_ln_fc1_fwd`` and ``ffn_bwd`` at D 1280, F 5120 on 16 rows: each
+    wrapper's device kernels a call by the profiler (the forward must launch
+    1) and its microseconds a call over ``host_calls`` calls with no
+    synchronise between them (the tensor maps of the weights kept, the
+    activations' encoded each call). The forward's is its host path; the
+    backward's dl kernel walks all of K = F in one block a column tile, so
+    its figure is the device's at that shape."""
+    from coral_tpu_torch.ops import _build, ffn
+    from coral_tpu_torch.tools.probe_ln_host import per_call_us
+
+    bf16 = torch.bfloat16
+    D, F = 1280, 5120
+    x, dy = randn(1, 16, D, dtype=bf16), randn(1, 16, D, dtype=bf16)
+    w1, w2 = randn(F, D, scale=D**-0.5, dtype=bf16), randn(D, F, scale=F**-0.5, dtype=bf16)
+    b1, g, b = randn(F, scale=0.1), randn(D, scale=0.1, offset=1.0), randn(D, scale=0.1)
+    calls = {"ffn_ln_fc1_fwd": lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
+             "ffn_bwd": lambda: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2)}
+    for name, fn in calls.items():
+        kernels = device_kernels(fn)
+        print(f"  {name} at 1280 x 5120: {len(kernels)} device kernel(s) a call: "
+              f"{', '.join(k[:48] for k in kernels)}", flush=True)
+        if name == "ffn_ln_fc1_fwd" and len(kernels) != 1:
+            fail(f"{name} launched {len(kernels)} device kernels a call, not 1")
+    parts = [f"{name} {per_call_us(fn, host_calls):.2f}" for name, fn in calls.items()]
+    print(f"  FFN wrappers at 1280 x 5120, 16 rows, us a call over {host_calls} "
+          f"calls, no synchronise between them ({card}): " + "; ".join(parts), flush=True)
+    _build.reset_launch_counts()
+
+
 def whisper_kernel_checks(card: str) -> dict:
     """Whisper serving's kernels against their plain versions at its shapes:
     whisper-large-v3 (d 1280, 20 heads x 64, 32 layers), 8 x 30 s (T = 1500
@@ -1846,6 +1900,8 @@ def whisper_kernel_checks(card: str) -> dict:
             lambda: compare("ffn_ln_1280", ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * F * 2))
+    fc1_yardstick(card, "ffn_ln_1280", x, w1)
+    ffn_launch_path(card, randn)
     return results
 
 
@@ -2229,6 +2285,7 @@ def whisper_train_kernel_checks(card: str) -> dict:
     measure("ffn_ln_drop_1280", lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * F * 2))
+    fc1_yardstick(card, "ffn_ln_drop_1280", x, w1)
 
     xd = randn(BATCH, L, D, offset=0.2, dtype=bf16)
     dyd = randn(BATCH, L, D, dtype=bf16)
@@ -2262,6 +2319,7 @@ def whisper_train_kernel_checks(card: str) -> dict:
             (3 * 2 * M * D * F, BF16_FLOPS,
              nbytes(x, w1, b1, g, b, dy, w2, seeds) + 2 * M * F * 2 + 2 * nbytes(x)
              + (F + 2 * D) * 4))
+    fc1_yardstick(card, "ffn_bwd_1280", x, w1)
     del keep, w1, w2, xd, dyd
 
     # The LN step of the FFN backward: x bf16, dl fp32, (8, 1500, 1280).
@@ -2415,16 +2473,17 @@ def width_kernel_checks(card: str) -> dict:
     # base and small (the encoder's 1500 rows; the decoder's 128 in the backward).
     for D, T_serve, T_train, T_dec in ((1920, 1499, 499, None), (384, 1500, 1500, 128),
                                        (512, 1500, 1500, 128), (768, 1500, 1500, 128)):
-        ffn_width_checks(measure, randn, gen, D, 4 * D, T_serve, T_train, T_dec)
+        ffn_width_checks(card, measure, randn, gen, D, 4 * D, T_serve, T_train, T_dec)
         torch.cuda.empty_cache()
     return results
 
 
-def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train: int,
-                     T_dec: int | None) -> None:
+def ffn_width_checks(card: str, measure, randn, gen, D: int, F: int, T_serve: int,
+                     T_train: int, T_dec: int | None) -> None:
     """The FFN block's three kernels at width D against their plain versions:
     rate 0 at the serving rows, the dropout forward and the backward at the
-    training rows (and the decoder's, when it has one), the masks exact."""
+    training rows (and the decoder's, when it has one), the masks exact;
+    each row with cuBLAS's fc1 product alone beside it."""
     from coral_tpu_torch.ops import ffn, philox
 
     bf16 = torch.bfloat16
@@ -2440,6 +2499,7 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
             lambda: compare(name, ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
                             ffn.ffn_ln_fc1_plain(x, w1, b1, g, b)),
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b) + M * F * 2))
+    fc1_yardstick(card, name, x, w1)
 
     x = randn(BATCH, T_train, D, offset=0.2, dtype=bf16)
     dy = randn(BATCH, T_train, D, dtype=bf16)
@@ -2465,6 +2525,7 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
     measure(name, lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1, seeds=seeds),
             lambda: ffn.ffn_ln_fc1_plain(x, w1, b1, g, b, rate=0.1, seeds=seeds), drop_check,
             (2 * M * D * F, BF16_FLOPS, nbytes(x, w1, b1, g, b, seeds) + M * F * 2))
+    fc1_yardstick(card, name, x, w1)
     del keep
     rows = [("training", x, dy)]
     if T_dec is not None:
@@ -2500,6 +2561,7 @@ def ffn_width_checks(measure, randn, gen, D: int, F: int, T_serve: int, T_train:
             (3 * 2 * M * D * F, BF16_FLOPS,
              nbytes(x, w1, b1, g, b, dy, w2, seeds) + 2 * M * F * 2 + 2 * nbytes(x)
              + (F + 2 * D) * 4))
+    fc1_yardstick(card, name, x, w1)
 
 
 def whisper_train_batch(seed: int, text_ids: int) -> tuple[dict, float]:

@@ -29,6 +29,7 @@
 // device memory (L2) into fragments, not staged; each block reads all of W1
 // and W2 once. The epilogue stages each y fragment through shared memory,
 // adds b2 and writes bf16 rows below M.
+#include "ffn_gemm.cuh"  // with_width, built_width
 #include "ffn_tiles.cuh"
 
 namespace {
@@ -67,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int ycol = warp * (D / 8);
 
-  ln_panel<D, kFcBM>(As, x, gamma, beta, m0, M, eps, nullptr);
+  ln_panel<D, kFcBM>(As, x, gamma, beta, m0, M, eps);
   __syncthreads();
   FragC yacc[kYF];
 #pragma unroll
@@ -162,15 +163,16 @@ cudaError_t launch_ffn_ln_fc2(const bf16* xp, const bf16* w1p, const float* bp,
                               cudaStream_t s) {
   const dim3 grid((unsigned)((M + kFcBM - 1) / kFcBM));
   if (sp != nullptr)
-    return launch_with_smem(ffn_ln_fc2_kernel<D, true>, grid, fc2_smem(D), s, xp, w1p, bp, gp,
-                            tp, w2p, b2p, sp, out, M, F, T, (uint32_t)threshold, scale, eps);
-  return launch_with_smem(ffn_ln_fc2_kernel<D, false>, grid, fc2_smem(D), s, xp, w1p, bp, gp,
-                          tp, w2p, b2p, sp, out, M, F, 1, 0u, 1.0f, eps);
+    return launch_with_smem<ffn_ln_fc2_kernel<D, true>>(grid, fc2_smem(D), s, xp, w1p, bp, gp,
+                                                        tp, w2p, b2p, sp, out, M, F, T,
+                                                        (uint32_t)threshold, scale, eps);
+  return launch_with_smem<ffn_ln_fc2_kernel<D, false>>(grid, fc2_smem(D), s, xp, w1p, bp, gp, tp,
+                                                       w2p, b2p, sp, out, M, F, 1, 0u, 1.0f, eps);
 }
 
 }  // namespace
 
-// At a built width D (coral_ffn_row_tile); seeds: (M / T,) int32, or null for
+// At a built width D (built_width); seeds: (M / T,) int32, or null for
 // rate 0 (threshold and scale are then not read). Returns the cudaError_t of
 // the launch, or -1 for a shape it was not built for.
 extern "C" int coral_ffn_ln_fc2_fwd(const void* x, const void* w1, const void* b1,
@@ -178,7 +180,7 @@ extern "C" int coral_ffn_ln_fc2_fwd(const void* x, const void* w1, const void* b
                                     const void* b2, const void* seeds, void* y, long long M,
                                     int D, int F, int T, unsigned int threshold, float scale,
                                     float eps, void* stream) {
-  if (built_row_tile(D) < 0 || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
+  if (!built_width(D) || F % kBN != 0 || (seeds != nullptr && T <= 0)) return -1;
   if (M <= 0) return 0;
   return with_width(D, [&](auto d) {
     return (int)launch_ffn_ln_fc2<decltype(d)::value>(

@@ -23,10 +23,11 @@
 //
 // Design:
 //  N5 is K5's backward with dg read from device memory (as N4) and g written
-//  (as N3): ffn_bwd_kernel<kLn, !kDgIn, kEmitG> (csrc/ffn_tiles.cuh), then
-//  dl_kernel in fp32, then the LayerNorm backward of csrc/ln_gelu.cu on (x,
-//  dl), launched by the wrapper, for dx and the dgamma/dbeta partials. Rows
-//  past M give dh = 0 and add nothing to the partials.
+//  (as N3): ffn_bwd_kernel<gemm::Bwd<D, kLn, kDrop, !kDgIn, kEmitG>>
+//  (csrc/ffn_gemm.cuh's Hopper mainloop), then dl_kernel in fp32, then the
+//  LayerNorm backward of csrc/ln_gelu.cu on (x, dl), launched by the
+//  wrapper, for dx and the dgamma/dbeta partials. Rows past M give dh = 0
+//  and add nothing to the partials.
 //  N6 cannot keep dW1 and dW2 in fast memory across the grid as the TPU
 //  kernel does: in fp32 each is 16.8 MB at 1024 x 4096, against a block's
 //  227 KB of shared memory. So it is N5's pass, which writes dh, g and
@@ -35,7 +36,9 @@
 //  then dl_kernel, then dw_kernel: one block per 128 x 128 tile of dW1 or
 //  dW2 that loops over all M rows in 32-row chunks, fp32 WMMA accumulators,
 //  no atomics, so each sum is taken in one order, the same every run. dg =
-//  dy W2^T and db2 stay outside, as in `_ffn_ln_block_dw_bwd`.
+//  dy W2^T and db2 stay outside, as in `_ffn_ln_block_dw_bwd`. The dW
+//  kernel is still on csrc/ffn_tiles.cuh's WMMA tiles (ROADMAP R4b).
+#include "ffn_gemm.cuh"
 #include "ffn_tiles.cuh"
 
 namespace {
@@ -111,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool bad_shape(int D, int F, const void* seeds, int T) {
-  return built_row_tile(D) < 0 || F % kBN != 0 || (seeds != nullptr && T <= 0);
+  return !built_width(D) || F % 256 != 0 || (seeds != nullptr && T <= 0);
 }
 
 }  // namespace
@@ -119,7 +122,7 @@ bool bad_shape(int D, int F, const void* seeds, int T) {
 // N5 at a built width D: dg (M, F) bf16; g, dh (M, F) bf16; ln_out (M, D)
 // bf16; db1_part (ceil(M / coral_ffn_row_tile(D)), F) fp32; dl (M, D) fp32;
 // seeds: (M / T,) int32, or null for rate 0. Returns the cudaError_t of the
-// launches, or -1 for a shape they were not built for.
+// launches or the encoder's error, or -1 for a shape they were not built for.
 extern "C" int coral_ffn_ln_g_bwd(const void* x, const void* w1, const void* b1,
                                   const void* gamma, const void* beta, const void* dg,
                                   const void* seeds, void* g, void* dh, void* ln_out,
@@ -127,15 +130,14 @@ extern "C" int coral_ffn_ln_g_bwd(const void* x, const void* w1, const void* b1,
                                   unsigned int threshold, float scale, float eps, void* stream) {
   if (bad_shape(D, F, seeds, T)) return -1;
   if (M <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_width(D, [&](auto d) {
-    return (int)launch_ffn_bwd<decltype(d)::value, true, false, true>(
+    return gemm::launch_bwd<decltype(d)::value, true, false, true>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
         static_cast<const float*>(gamma), static_cast<const float*>(beta),
         static_cast<const bf16*>(dg), nullptr, static_cast<const int*>(seeds),
         static_cast<bf16*>(g), static_cast<bf16*>(dh), static_cast<bf16*>(ln_out),
-        static_cast<float*>(db1_part), static_cast<float*>(dl), M, F, T, threshold, scale, eps,
-        s);
+        static_cast<float*>(db1_part), static_cast<float*>(dl), M, D, F, T, threshold, scale,
+        eps, static_cast<cudaStream_t>(stream));
   });
 }
 

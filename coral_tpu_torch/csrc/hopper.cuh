@@ -1,4 +1,4 @@
-// The Hopper (sm_90a) instructions the attention kernels are built on, as
+// The Hopper (sm_90a) instructions the attention and FFN kernels are built on, as
 // thin PTX wrappers: mbarriers, thread-block clusters and their distributed
 // shared memory, TMA tensor loads and the host side's tensor maps, warpgroup
 // matrix multiplies (wgmma) with their shared-memory descriptors, named
@@ -124,6 +124,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a 2-D tensor map (c0 the inner coordinate) to shared memory at
+// `dst`, as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -171,11 +182,14 @@ __device__ __forceinline__ int swizzle_chunk(int bytes, int r, int c) {
 
 // A wgmma shared-memory descriptor for a swizzled operand whose 8-row groups
 // (of the M/N rows for a K-major operand, of the K rows for an N-major one)
-// lie `sbo` bytes apart. The leading-byte offset is not read when one wgmma
-// spans no more than one swizzle atom across the contiguous dimension, which
-// holds for every product here.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo, int row_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+// lie `sbo` bytes apart. The leading-byte offset `lbo` is read only when one
+// wgmma spans more than one swizzle atom across the contiguous dimension: an
+// N-major operand wider than the atom (128 columns of two 64-column blocks,
+// the FFN's N-major weight tiles), whose atoms lie `lbo` bytes apart; the
+// attention's products span one atom and leave it at 16.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo, int row_bytes,
+                                              uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) |
          ((uint64_t)swizzle_layout(row_bytes) << 62);
 }
@@ -212,6 +226,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// As wgmma_m64n128k16_ss with B (16 x 128) N-major in shared memory (the
+// transpose bit set): D = A B, B's columns contiguous.
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -314,9 +355,15 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime (no
-// -lcuda); null if the driver has none.
+// cuTensorMapEncodeTiled, looked up once through the runtime (no -lcuda);
+// null if the CUDA installation has none. The encoder needs a current
+// context on the calling thread, which the runtime binds only at a thread's
+// first call that needs one: autograd's backward thread can reach a launch
+// before any (CUDA_ERROR_INVALID_CONTEXT), so each thread's first lookup
+// binds the device's primary context (cudaFree(nullptr)).
 inline EncodeTiledFn encode_tiled() {
+  thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
+  (void)bound;
   static const EncodeTiledFn fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -354,6 +401,23 @@ inline int encode_heads(CUtensorMap* map, const void* base, int d, int H, int T,
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A map of a row-major bf16 matrix of `outer` rows of `inner` elements (rows
+// `inner` apart) as the 2-D tensor (inner, outer); a box is 64 elements (128
+// bytes, swizzled by 128) by `box_rows` rows. Rows past `outer` load as zeros.
+// Returns 0, or the CUresult of the encoder (-1 without one).
+inline int encode_2d(CUtensorMap* map, const void* base, long long inner, long long outer,
+                     int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -29,10 +29,12 @@
 // block per 64 rows: ln_out with the forward panel's arithmetic, and the
 // fp32 column sums of dy over its rows (db's partial, summed over blocks
 // outside as the JAX package sums its per-batch-row partials); (ii)
-// dl_kernel (csrc/ffn_tiles.cuh) with dh := dy and K = F, dl in fp32; (iii)
+// dl_kernel (csrc/ffn_gemm.cuh's Hopper mainloop) with dh := dy and K = F, dl
+// in fp32; (iii)
 // the LayerNorm backward of csrc/ln_gelu.cu on (x, dl), launched by the
 // wrapper. Built at the packed projections of the repository's XLS-R
 // configs: D 1024, 1280 and 1920.
+#include "ffn_gemm.cuh"
 #include "ffn_tiles.cuh"
 
 namespace {
@@ -47,7 +49,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ b, const float* __restrict__ gamma,
                         const float* __restrict__ beta, bf16* __restrict__ y, long long M, int F,
                         float eps) {
-  constexpr int BM = row_tile(D);
+  constexpr int BM = panel_rows(D);
   static_assert(fwd_smem(D) <= kMaxSmem, "the forward's stage must fit a block's shared memory");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -59,7 +61,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  ln_panel<D, BM>(As, x, gamma, beta, m0, M, eps, nullptr);
+  ln_panel<D, BM>(As, x, gamma, beta, m0, M, eps);
   __syncthreads();
   FragC acc[BM / 32][4];
   panel_times_w1<D, BM, true>(acc, As, Bs, w, n0, F);
@@ -178,17 +180,18 @@ extern "C" int coral_ln_dense_fwd(const void* x, const void* w, const void* b,
   return with_qkv_width(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     if (M <= 0) return 0;
-    constexpr int BM = row_tile(kD);
+    constexpr int BM = panel_rows(kD);
     const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + kBN - 1) / kBN));
-    return (int)launch_with_smem(ln_dense_fwd_kernel<kD>, grid, fwd_smem(kD), s, xp, wp, bp, gp,
-                                 tp, yp, M, F, eps);
+    return (int)launch_with_smem<ln_dense_fwd_kernel<kD>>(grid, fwd_smem(kD), s, xp, wp, bp, gp,
+                                                          tp, yp, M, F, eps);
   });
 }
 
 // Backward kernels (i) and (ii) at a built width D: dy (M, F) bf16; ln_out
 // (M, D) bf16; db_part (ceil(M / 64), F) fp32; dl (M, D) fp32. The wrapper
 // then runs the LayerNorm backward on (x, dl). Returns the cudaError_t of
-// the launches, or -1 for a shape they were not built for.
+// the launches or the encoder's error, or -1 for a shape they were not built
+// for.
 extern "C" int coral_ln_dense_bwd(const void* x, const void* w, const void* gamma,
                                   const void* beta, const void* dy, void* ln_out, void* db_part,
                                   void* dl, long long M, int D, int F, float eps, void* stream) {
@@ -206,8 +209,6 @@ extern "C" int coral_ln_dense_bwd(const void* x, const void* w, const void* gamm
         xp, gp, tp, dyp, lnp, part, M, F, eps);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid_dl((unsigned)(kD / kGN), (unsigned)((M + kGM - 1) / kGM));
-    dl_kernel<kD, float><<<grid_dl, kThreads, 0, s>>>(dyp, wp, dlp, M, F);
-    return (int)cudaGetLastError();
+    return gemm::launch_dl<float>(dyp, wp, dlp, M, kD, F, s);
   });
 }

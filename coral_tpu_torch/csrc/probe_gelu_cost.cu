@@ -18,7 +18,7 @@
 // Design: csrc/ffn_tiles.cuh's fc1 panel product (the x panel, 256 x 32 tiles
 // of the weight stored (F, D), eight warps of 32 x 64 WMMA fragments) with
 // the epilogue swapped, so that the difference to the case without an
-// epilogue is the cost of the epilogue inside the port's own FFN tile. The
+// epilogue is the cost of the epilogue inside that WMMA tile. The
 // mask's bits are csrc/philox.cuh's for (seed, row, column), the bits of
 // coral_tpu_torch/ops/philox.py; the TPU probe draws its hardware PRNG per
 // grid step. The polynomials are template parameters, unrolled as the TPU
@@ -48,7 +48,7 @@ __global__ void __launch_bounds__(kThreads)
     gelu_cost_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                      bf16* __restrict__ out, long long M, int F, uint32_t seed) {
   constexpr int D = kProbeD;
-  constexpr int BM = row_tile(D);
+  constexpr int BM = panel_rows(D);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + BM * (D + 8);
@@ -98,7 +98,7 @@ int launch_gelu_cost(const bf16* x, const bf16* w, bf16* out, long long M, int F
   cudaError_t err = cudaFuncSetAttribute(gelu_cost_kernel<kN1, kN2, kPrng>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((M + row_tile(kProbeD) - 1) / row_tile(kProbeD)),
+  const dim3 grid((unsigned)((M + panel_rows(kProbeD) - 1) / panel_rows(kProbeD)),
                   (unsigned)(F / kBN));
   gelu_cost_kernel<kN1, kN2, kPrng><<<grid, kThreads, kSmem, s>>>(x, w, out, M, F, seed);
   return (int)cudaGetLastError();

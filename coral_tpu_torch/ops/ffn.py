@@ -200,7 +200,7 @@ def _check_dg(name, x, dg, F):
 
 
 def _db1_part(x, D, F):
-    """The kernels' db1 partials: one row per row tile (64 rows, 32 at D = 1920)."""
+    """The kernels' db1 partials: one row per 128-row tile (every width)."""
     M = x.numel() // D
     row_tile = _build.library().coral_ffn_row_tile(D)
     return M, torch.empty((-(-M // row_tile), F), dtype=torch.float32, device=x.device)

@@ -19,9 +19,13 @@ that times every case on the card:
 Beside them, ``fwd_variants`` (no TPU counterpart) times the attention
 forwards against builds with one of their design choices undone
 (``python -m coral_tpu_torch.tools.fwd_variants``), ``probe_ln_host`` the
-LayerNorm wrappers' host path piece by piece, and ``probe_decode`` the decode
+LayerNorm wrappers' host path piece by piece, ``probe_decode`` the decode
 attention wrappers at Whisper large-v3's decode shapes, at every cluster
-size (``python -m coral_tpu_torch.tools.probe_decode --clusters``).
+size (``python -m coral_tpu_torch.tools.probe_decode --clusters``), and
+``probe_ffn`` the FFN mainloop's wrappers at the main paths' shapes, by
+kernel, beside cuBLAS's fc1 product (``python -m
+coral_tpu_torch.tools.probe_ffn``; run from a copy of the package with an
+edited ``csrc/`` to time a variant).
 
 Each prints one JSON line per case: the median of CUDA-event times, the
 floor (the larger of the case's operations at the H100's dense bf16 peak and

@@ -72,6 +72,14 @@ the same bits. Run them with ``-k flash``. The short-T backwards on the same
 mainloop (``attention_bwd_dq_kernel`` and ``attention_bwd_dkv_kernel``, every
 route, with and without the q/k/v biases) likewise, separate and packed, the
 packed gradient bit for bit the separate one's: ``-k mainloop``.
+
+The FFN mainloop (``csrc/ffn_gemm.cuh``: K5's forward and backward, N1-N5
+and dl) at every width on 3 x 131 rows (a ragged last 128-row tile), at the
+FFN bounds above, masks exact and the backwards' g the forward's bit for
+bit; Whisper large-v3's encoder rows, where a block takes several column
+tiles; the same bits on two calls of each backward, db1 included; the
+device kernels a call (in a process of its own); nothing written past row
+M; and F not a multiple of 256 or an unbuilt width refused: ``-k ffn``.
 """
 
 import ast
@@ -497,6 +505,231 @@ def test_ffn_block_variants_launch_their_kernels(cuda, variant):
     assert counts == {fwd: 1, bwd: 1, "ln_bwd": 1}
     for got, want in zip(*grads):
         _close_rel(got, want, 2e-2)
+
+
+# The FFN mainloop (csrc/ffn_gemm.cuh): 128-row tiles at every width.
+FFN_ROW_TILE = 128
+
+
+def _ffn_mainloop_calls(x, w1, b1, gamma, beta, w2, dy, dg, rate, seeds, plain=False):
+    """Every wrapper on the FFN mainloop (K5 forward and backward, N1-N5),
+    or their plain versions, in one dict of output tuples."""
+    s = seeds if rate else None
+    sfx = "_plain" if plain else ""
+
+    def f(name):
+        return getattr(ffn, name + sfx)
+
+    return {
+        "ffn_ln": (f("ffn_ln_fc1" if plain else "ffn_ln_fc1_fwd")(x, w1, b1, gamma, beta,
+                                                                  rate=rate, seeds=s),),
+        "ffn_bwd": f("ffn_bwd")(x, w1, b1, gamma, beta, dy, w2, rate=rate, seeds=s),
+        "ffn_fc1": (f("ffn_fc1" if plain else "ffn_fc1_fwd")(x, w1, b1, rate=rate, seeds=s),),
+        "ffn_fc1_bwd": f("ffn_fc1_bwd")(x, w1, b1, dg, rate=rate, seeds=s),
+        "ffn_block_bwd": f("ffn_fc1_bwd")(x, w1, b1, dg, rate=rate, seeds=s, emit_g=True),
+        "ffn_ln_fc1_bwd": f("ffn_ln_fc1_bwd")(x, w1, b1, gamma, beta, dg, rate=rate, seeds=s),
+        "ffn_ln_g_bwd": f("ffn_ln_g_bwd")(x, w1, b1, gamma, beta, dg, rate=rate, seeds=s),
+    }
+
+
+# Which outputs of each wrapper are rounded outputs (o: atol 1e-2),
+# gradients (g: 2e-2 of their max; X, N2/N3's dx: 2**-8) and fp32 row-partial
+# sums (s: 5e-3 of their max; S, K5's: 1e-2), as the tests above hold them.
+_FFN_KINDS = {
+    "ffn_ln": "o", "ffn_bwd": "ogogSSS", "ffn_fc1": "o", "ffn_fc1_bwd": "gXs",
+    "ffn_block_bwd": "goXs", "ffn_ln_fc1_bwd": "ggosss", "ffn_ln_g_bwd": "ogogsss",
+}
+
+
+_FFN_FRAC = {"g": 2e-2, "X": 2.0**-8, "s": 5e-3, "S": 1e-2}
+
+
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_mainloop_kernels_at_rows_ragged_at_128_match_plain(cuda, rate, D):
+    """K5's forward and backward and N1-N5 at 3 x 131 rows (a last row tile
+    of 9 of the mainloop's 128) and F = 1024 (4 forward column tiles of 256,
+    8 backward of 128), against their plain versions at the bounds of the
+    tests above (dx of N2/N3 at 2**-8 of its max, as there)."""
+    _, w1, b1, gamma, beta, w2, _, _ = _ffn_inputs(cuda, F=1024, T=131, D=D)
+    x = _on(cuda, _np(3, 131, D, seed=10, offset=0.2), torch.bfloat16)
+    dy = _on(cuda, _np(3, 131, D, seed=6), torch.bfloat16)
+    seeds = torch.tensor([12345, -7, 99], dtype=torch.int32, device=cuda)
+    dg = _on(cuda, _np(3, 131, 1024, seed=7), torch.bfloat16)
+    got = _ffn_mainloop_calls(x, w1, b1, gamma, beta, w2, dy, dg, rate, seeds)
+    want = _ffn_mainloop_calls(x, w1, b1, gamma, beta, w2, dy, dg, rate, seeds, plain=True)
+    for name, kinds in _FFN_KINDS.items():
+        assert len(got[name]) == len(kinds) == len(want[name]), name
+        for kind, g, w in zip(kinds, got[name], want[name]):
+            if kind == "o":
+                _close(g, w, 1e-2)
+            elif kind == "g":
+                _close_rel(g, w)
+            else:
+                _close_rel(g, w, _FFN_FRAC[kind])
+    if rate:
+        keep = philox.keep_mask(seeds, 131, 1024, rate)
+        assert torch.equal(got["ffn_ln"][0] != 0, keep)
+        for name in ("ffn_bwd", "ffn_ln_g_bwd"):
+            assert torch.equal(got[name][0], got["ffn_ln"][0])  # g regenerated bit for bit
+            assert not got[name][1][~keep].any()
+        assert torch.equal(got["ffn_block_bwd"][1], got["ffn_fc1"][0])
+
+
+def test_ffn_mainloop_takes_several_column_tiles_a_block(cuda):
+    """Whisper large-v3's encoder rows (8 x 1500, D 1280, F 5120), where a
+    block takes several column tiles in turn: the forward and K5's backward
+    against their plain versions, g regenerated bit for bit."""
+    x, w1, b1, gamma, beta, w2, dy, _ = _ffn_inputs(cuda, F=5120, T=1500, D=1280)
+    x, dy = x.repeat(4, 1, 1), dy.repeat(4, 1, 1)
+    seeds = torch.arange(8, dtype=torch.int32, device=cuda) * 7919 - 3
+    g = ffn.ffn_ln_fc1_fwd(x, w1, b1, gamma, beta, rate=0.1, seeds=seeds)
+    _close(g, ffn.ffn_ln_fc1_plain(x, w1, b1, gamma, beta, rate=0.1, seeds=seeds), 1e-2)
+    got = ffn.ffn_bwd(x, w1, b1, gamma, beta, dy, w2, rate=0.1, seeds=seeds)
+    want = ffn.ffn_bwd_plain(x, w1, b1, gamma, beta, dy, w2, rate=0.1, seeds=seeds)
+    assert torch.equal(got[0], g)
+    for kind, a, w in zip(_FFN_KINDS["ffn_bwd"], got, want):
+        if kind == "o":
+            _close(a, w, 1e-2)
+        else:
+            _close_rel(a, w, _FFN_FRAC[kind])
+
+
+@pytest.mark.parametrize("D", [384, 1280, 1920])
+def test_ffn_backwards_give_the_same_bits_twice(cuda, D):
+    """Two calls of each backward on the mainloop give the same bits, db1's
+    fixed-order sums included (no atomics)."""
+    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda, F=1024, T=131, D=D)
+    dg = _on(cuda, _np(2, 131, 1024, seed=7), torch.bfloat16)
+    first = _ffn_mainloop_calls(x, w1, b1, gamma, beta, w2, dy, dg, 0.1, seeds)
+    second = _ffn_mainloop_calls(x, w1, b1, gamma, beta, w2, dy, dg, 0.1, seeds)
+    for name in first:
+        for a, b in zip(first[name], second[name]):
+            assert torch.equal(a, b), name
+
+
+# Each wrapper's device kernels a call: its own kernels (once each), the
+# LayerNorm backward's row and column kernels and the sum of the db1
+# partials; the mainloop's wrappers launch no more than before it.
+_FFN_DEVICE_KERNELS = {
+    "ffn_ln": (["ffn_fwd_kernel"], 1), "ffn_fc1": (["ffn_fwd_kernel"], 1),
+    "ffn_bwd": (["ffn_bwd_kernel", "dl_kernel"], 5),
+    "ffn_fc1_bwd": (["ffn_bwd_kernel", "dl_kernel"], 3),
+    "ffn_block_bwd": (["ffn_bwd_kernel", "dl_kernel"], 3),
+    "ffn_ln_fc1_bwd": (["ffn_bwd_kernel", "dl_kernel"], 5),
+    "ffn_ln_g_bwd": (["ffn_bwd_kernel", "dl_kernel"], 5),
+}
+
+
+def _ffn_kernels_a_call():
+    """For each wrapper on the FFN mainloop: how many of the profiler's device
+    kernels of one call are ffn_fwd_kernel, ffn_bwd_kernel and dl_kernel,
+    and how many it launched in all."""
+    cuda = torch.device("cuda")
+    x, w1, b1, gamma, beta, w2, dy, seeds = _ffn_inputs(cuda, F=1024, T=131, D=1280)
+    dg = _on(cuda, _np(2, 131, 1024, seed=7), torch.bfloat16)
+    counts = {}
+    for name, call in _FFN_ONE.items():
+        def fn(call=call):
+            return call(x, w1, b1, gamma, beta, w2, dy, dg, seeds)
+
+        fn()  # the library is built and the weights' maps kept
+        names = _device_kernels(fn)
+        counts[name] = [sum(k in n for n in names)
+                        for k in ("ffn_fwd_kernel", "ffn_bwd_kernel", "dl_kernel")] + [len(names)]
+    return counts
+
+
+def test_ffn_wrappers_launch_their_device_kernels_once_a_call(cuda):
+    """By the profiler, as ``chip_smoke.device_kernels`` counts them: the
+    forwards one device kernel a call, the backwards their first kernel and
+    dl once each and at most the kernels they launched before the mainloop
+    (``_FFN_DEVICE_KERNELS``). Counted in a process of its own, as the
+    decode kernels' count below: in one pytest process the profiler can
+    stop recording once another test has profiled."""
+    tests = Path(__file__).resolve().parent
+    script = (f"import sys; sys.path[:0] = [{str(tests.parent)!r}, {str(tests)!r}]; "
+              f"import test_torch_kernels as t; print(t._ffn_kernels_a_call())")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    counts = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    kinds = ("ffn_fwd_kernel", "ffn_bwd_kernel", "dl_kernel")
+    for name, (own, most) in _FFN_DEVICE_KERNELS.items():
+        assert counts[name][:3] == [int(k in own) for k in kinds], (name, counts[name])
+        assert counts[name][3] <= most, (name, counts[name])
+
+
+_FFN_ONE = {
+    "ffn_ln": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b, rate=0.1,
+                                                                        seeds=s),
+    "ffn_fc1": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_fc1_fwd(x, w1, b1, 0.1, s),
+    "ffn_bwd": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2,
+                                                                  rate=0.1, seeds=s),
+    "ffn_fc1_bwd": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_fc1_bwd(x, w1, b1, dg, 0.1, s),
+    "ffn_block_bwd": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_fc1_bwd(x, w1, b1, dg, 0.1, s,
+                                                                            emit_g=True),
+    "ffn_ln_fc1_bwd": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_ln_fc1_bwd(
+        x, w1, b1, g, b, dg, rate=0.1, seeds=s),
+    "ffn_ln_g_bwd": lambda x, w1, b1, g, b, w2, dy, dg, s: ffn.ffn_ln_g_bwd(
+        x, w1, b1, g, b, dg, rate=0.1, seeds=s),
+}
+
+
+@pytest.mark.parametrize("D", [384, 1920])
+def test_ffn_kernels_write_nothing_past_row_m(cuda, D):
+    """The C entries on buffers with 128 sentinel rows past M = 131: g, dh,
+    ln_out, dl and the db1 partials' rows past ceil(M / 128) keep them."""
+    lib, bf16 = _build.library(), torch.bfloat16
+    F, M = 512, 131
+    x, w1, b1, gamma, beta, w2, dy, _ = _ffn_inputs(cuda, F=F, T=M, D=D)
+    x, dy = x[0], dy[0]
+    sentinel = -3.0
+
+    def buf(cols, dtype):
+        return torch.full((M + FFN_ROW_TILE, cols), sentinel, device=cuda, dtype=dtype)
+
+    g, dh, ln_out, dl = buf(F, bf16), buf(F, bf16), buf(D, bf16), buf(D, torch.float32)
+    part = torch.full((3, F), sentinel, device=cuda)
+    stream = _build.current_stream()
+    assert lib.coral_ffn_ln_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
+                                beta.data_ptr(), None, g.data_ptr(), M, D, F, 1, 0, 1.0, 1e-5,
+                                stream) == 0
+    torch.cuda.synchronize()
+    assert (g[M:] == sentinel).all()
+    assert lib.coral_ffn_bwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(),
+                             beta.data_ptr(), dy.data_ptr(), w2.data_ptr(), None, g.data_ptr(),
+                             dh.data_ptr(), ln_out.data_ptr(), part.data_ptr(), dl.data_ptr(),
+                             M, D, F, 1, 0, 1.0, 1e-5, stream) == 0
+    torch.cuda.synchronize()
+    for t in (g, dh, ln_out, dl):
+        assert (t[M:] == sentinel).all()
+        assert (t[:M] != sentinel).any()
+    assert (part[2] == sentinel).all() and (part[:2] != sentinel).any()
+
+
+def test_ffn_kernels_reject_what_they_do_not_take(cuda):
+    """F not a multiple of 256 and a width no config uses: the wrappers raise
+    before launching, the C entries return -1 and launch nothing."""
+    lib = _build.library()
+    x, w1, b1, gamma, beta, w2, dy, _ = _ffn_inputs(cuda, F=384, T=9, D=1024)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 256"):
+        ffn.ffn_ln_fc1_fwd(x, w1, b1, gamma, beta)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        ffn.ffn_bwd(x, w1, b1, gamma, beta, dy, w2)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        ffn.ffn_fc1_fwd(x, w1, b1)
+    assert not _build.launch_counts
+    stream = _build.current_stream()
+    for D, F in ((1024, 384), (640, 512)):
+        assert lib.coral_ffn_ln_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                    gamma.data_ptr(), beta.data_ptr(), None, None, 18, D, F, 1,
+                                    0, 1.0, 1e-5, stream) == -1
+        assert lib.coral_ffn_fc1_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), None, None, 18,
+                                     D, F, 1, 0, 1.0, stream) == -1
+        assert lib.coral_ffn_fc1_bwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), None, None, None,
+                                     None, None, None, 18, D, F, 1, 0, 1.0, stream) == -1
 
 
 def _conv_inputs(cuda, k, T_in, B=2):
@@ -1032,7 +1265,7 @@ def test_new_widths_are_counted_apart_and_unbuilt_widths_raise(cuda):
                                                              device=cuda), 96, (b, b, b))
     assert not _build.launch_counts
     assert _build.library().coral_ffn_row_tile(640) == -1
-    assert [_build.library().coral_ffn_row_tile(D) for D in ALL_D] == [64] * 5 + [32]
+    assert [_build.library().coral_ffn_row_tile(D) for D in ALL_D] == [128] * 6
 
 
 def test_ln_bwd_block_count_comes_from_the_card(cuda):
