@@ -34,7 +34,10 @@ non-zero before the result line is printed:
    events, median of 10), with the least time the card could take for the
    same work (its bound, from the shapes) and, where one PyTorch call computes
    the same function, that call's time as a yardstick the port never uses;
-   the feature encoder's training forward and backward at FE blocks 1 and 5;
+   the feature encoder's training forward and backward at FE blocks 1 and 5,
+   its rows with cuDNN's convolution alone beside them (the forward; dgrad
+   and wgrad for the backward), a yardstick the port never calls, and the
+   device kernels one K3 backward call launches;
    Whisper's encoder flash attention, decode self-attention (K = 1, and K = 5
    beams at a reduced batch), decode cross-attention (each decode wrapper's
    device kernels a call by the profiler, which must be 1, and its host
@@ -936,6 +939,7 @@ def ln_training_pattern(card: str, randn) -> dict:
 def kernel_checks(card: str) -> dict:
     """Each kernel against its plain version at the serving slice's shapes."""
     from coral_tpu_torch.ops import attention, conv_ln_gelu, ffn, ln_gelu
+    from coral_tpu_torch.tools import probe_conv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -992,6 +996,8 @@ def kernel_checks(card: str) -> dict:
     measure("conv_ln_gelu", lambda: conv_ln_gelu.conv_ln_gelu(*a3),
             lambda: conv_ln_gelu.conv_ln_gelu_plain(*a3), conv_check,
             (2 * BATCH * T_out * 512 * 512 * 3, BF16_FLOPS, nbytes(*a3) + y_bytes))
+    conv_yardstick(card, "conv_ln_gelu", probe_conv.cudnn_forward(a3[0], a3[1]),
+                   "convolution (8 x 95999 -> 47999, k 3, bf16)")
     del a3
 
     # Attention: (8, 1499, 16 x 64), padded rows and one fully masked row.
@@ -1106,6 +1112,7 @@ def train_kernel_checks(card: str) -> dict:
     """The training slice's kernels against their plain versions at its
     shapes: 8 clips of 10 s (T' = 499 frames), XLS-R-300M widths."""
     from coral_tpu_torch.ops import attention, conv_ln_gelu, ctc, ffn, ln_gelu, philox
+    from coral_tpu_torch.tools import probe_conv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1173,6 +1180,8 @@ def train_kernel_checks(card: str) -> dict:
             lambda: conv_ln_gelu.conv_ln_gelu_fwd_plain(*c1), conv_fwd_check,
             (2 * BATCH * T1 * 512 * 512 * 3, BF16_FLOPS,
              nbytes(*c1) + 2 * BATCH * T1 * 512 * 2 + BATCH * T1 * 4))
+    conv_yardstick(card, "conv_ln_gelu_train", probe_conv.cudnn_forward(c1[0], c1[1]),
+                   "convolution (8 x 31999 -> 15999, k 3, bf16)")
     bwd_args = {}
     for name, args in blocks.items():
         _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(*args)
@@ -1207,6 +1216,11 @@ def train_kernel_checks(card: str) -> dict:
             lambda: conv_ln_gelu.conv_ln_gelu_bwd_plain(*b1), conv_bwd_check,
             (2 * 2 * BATCH * T1 * 512 * 512 * 3, BF16_FLOPS,
              nbytes(*b1) + nbytes(b1[0], b1[1]) + 3 * 512 * 4))
+    conv_yardstick(card, "conv_ln_gelu_bwd", probe_conv.cudnn_backward(b1[0], b1[1], b1[6]),
+                   "convolution backward, dgrad and wgrad (8 x 31999 -> 15999, k 3, bf16)")
+    names = device_kernels(lambda: conv_ln_gelu.conv_ln_gelu_bwd(*b1))
+    print(f"  conv_ln_gelu_bwd: {len(names)} device kernels a call: "
+          f"{', '.join(n.split('(')[0][:48] for n in names)}", flush=True)
     del blocks, bwd_args, c1, b1
 
     # Attention backward: (8, 499, 16 x 64), padded keys and a fully masked row.
@@ -1768,6 +1782,18 @@ def fc1_yardstick(card: str, name: str, x: torch.Tensor, w1: torch.Tensor) -> No
     ms, dev = median_ms(product), device_ms(product)
     print(f"  {name}: cuBLAS's fc1 product alone ({x2.shape[0]} x {x2.shape[1]} @ "
           f"{w1.shape[1]} x {w1.shape[0]}, bf16) {ms:.4f} ms (device "
+          f"{'not measured' if dev is None else f'{dev:.4f} ms'}; median of {REPS}; {card})",
+          flush=True)
+
+
+def conv_yardstick(card: str, name: str, fn, what: str) -> None:
+    """cuDNN's stride-2 convolution alone at a K3 row's shape
+    (``coral_tpu_torch/tools/probe_conv.py``: ``F.conv1d(x.transpose(1, 2),
+    w, stride=2)``, or its dgrad and wgrad for the backward; no bias,
+    LayerNorm or GELU), printed beside the row as its yardstick; the port
+    never calls it."""
+    ms, dev = median_ms(fn), device_ms(fn)
+    print(f"  {name}: cuDNN's {what} alone {ms:.4f} ms (device "
           f"{'not measured' if dev is None else f'{dev:.4f} ms'}; median of {REPS}; {card})",
           flush=True)
 

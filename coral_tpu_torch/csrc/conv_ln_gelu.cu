@@ -1,198 +1,47 @@
 // Feature-encoder block: gelu(layer_norm(conv1d(x, w, stride=2) + bias)), forward
-// and backward.
+// and backward, on csrc/ffn_gemm.cuh's TMA ring and wgmma.
 //
 // Forward. Replaces: coral_tpu/ops/conv_ln_gelu_pallas.py `_fwd_pallas` /
-// `_fwd_kernel` (FE convs 1-6 of XLS-R: k = 3, 3, 3, 3, 2, 2; 512 -> 512
+// `_fwd_kernel` (:133; FE convs 1-6 of XLS-R: k = 3, 3, 3, 3, 2, 2; 512 -> 512
 // channels). Serving writes y only; training also writes the TPU kernel's
 // residuals, xhat (the pre-affine normalised rows, rounded to bf16) and rstd.
 //
-// Bound on the H100: the tensor cores, at about 1.6 GFLOP per output row block
-// against 64 KB of input, plus the weight (1.5 MB at k = 3) that every block
-// streams from L2. The input rows are read once from device memory.
+// Bound on the H100: the tensor cores, 2 k C^2 flops an output row against
+// 2 k C bytes of input read and 2 C of output written; beside the products,
+// the L2 traffic of the operand tiles each block streams.
 //
-// Design: output row t reads input rows 2t .. 2t+k-1, which are k*C contiguous
-// values, so the conv is a GEMM whose A row t is a strided view of x (row
-// stride 2C) and whose reduction runs over k*C. The TPU's deinterleave fold
-// and halo view are not needed: rows are read straight from device memory, and
-// any T_in works. One block owns 64 output rows across all 512 output
-// channels, because the LayerNorm needs whole rows: 16 warps, each a 32 x 64
-// tile of bf16 WMMA fragments with fp32 accumulators. The accumulators are
-// staged through shared memory (132 KB, reusing the operand tiles), where one
-// warp per row adds the bias and runs the fp32 LayerNorm and the polynomial
-// GELU before one bf16 store.
-#include <mma.h>
-
-#include "common.cuh"
-#include "gelu_poly.cuh"
-
-using namespace nvcuda;
-
-namespace {
-
-constexpr int kC = 512;        // input and output channels
-constexpr int kBM = 64;        // output rows per block
-constexpr int kBK = 32;        // reduction chunk per shared-memory stage
-constexpr int kThreads = 512;  // 16 warps: 2 row groups x 8 column groups
-constexpr int kLdA = kBK + 8;  // bf16 row pitch of the A and B tiles
-constexpr int kLdB = kBK + 8;
-constexpr int kLdC = kC + 4;  // fp32 row pitch of the staged accumulators
-constexpr int kSmemMain = (kBM * kLdA + kC * kLdB) * 2;
-constexpr int kSmemEpi = kBM * kLdC * 4;
-constexpr int kSmem = kSmemMain > kSmemEpi ? kSmemMain : kSmemEpi;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// x: (B, T_in, C) bf16; w: (C_out, K, C_in) bf16, i.e. each output channel's
-// K*C_in reduction values contiguous; bias, gamma, beta: (C,) fp32;
-// y: (B, T_out, C) bf16; xhat: (B, T_out, C) bf16 and rstd: (B, T_out) fp32, or
-// both null (serving).
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    conv_ln_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        const float* __restrict__ bias, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, bf16* __restrict__ y,
-                        bf16* __restrict__ xhat, float* __restrict__ rstd_out, int T_in,
-                        int T_out, float eps) {
-  constexpr int kRed = K * kC;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kBM * kLdA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kBM;
-  const bf16* xb = x + (long long)b * T_in * kC;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wr = warp >> 3;  // 0..1: rows wr*32 .. +31
-  const int wc = warp & 7;   // 0..7: columns wc*64 .. +63
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < kRed; k0 += kBK) {
-    if (tid < kBM * (kBK / 8)) {  // A: 64 rows x 32 values, 16 bytes a thread
-      const int r = tid >> 2;
-      const int c = (tid & 3) * 8;
-      const int t = t0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (t < T_out)
-        v = *reinterpret_cast<const uint4*>(xb + (long long)(2 * t) * kC + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * kLdA + c) = v;
-    }
-    for (int i = tid; i < kC * (kBK / 8); i += kThreads) {  // B: 512 x 32
-      const int n = i >> 2;
-      const int c = (i & 3) * 8;
-      *reinterpret_cast<uint4*>(Bs + n * kLdB + c) =
-          *reinterpret_cast<const uint4*>(w + (long long)n * kRed + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA a[2];
-      FragB bf[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bf[j], Bs + (wc * 64 + j * 16) * kLdB + kk, kLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // The loop ended on a barrier, so the operand tiles may now be overwritten.
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * kLdC + wc * 64 + j * 16, acc[i][j],
-                              kLdC, wmma::mem_row_major);
-  __syncthreads();
-
-  // Epilogue: warp w normalises rows 4w .. 4w+3; lane owns columns
-  // lane*8 .. +7 and 256 + lane*8 .. +7.
-#pragma unroll 1
-  for (int rr = 0; rr < kBM / 16; ++rr) {
-    const int r = warp * (kBM / 16) + rr;
-    const int t = t0 + r;
-    if (t >= T_out) break;  // uniform over the warp
-    const float* cr = Cs + r * kLdC;
-    float v[16];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = h * 256 + lane * 8;
-      float bb[8];
-      coral_load4(bias + col, bb);
-      coral_load4(bias + col + 4, bb + 4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[h * 8 + e] = cr[col + e] + bb[e];
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) s += v[j];
-    const float mean = coral_warp_sum(s) / kC;
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      v[j] -= mean;
-      q += v[j] * v[j];
-    }
-    const float rstd = rsqrtf(coral_warp_sum(q) / kC + eps);
-    const long long row = (long long)b * T_out + t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = h * 256 + lane * 8;
-      float g[8], be[8], n[8], out[8];
-      coral_load4(gamma + col, g);
-      coral_load4(gamma + col + 4, g + 4);
-      coral_load4(beta + col, be);
-      coral_load4(beta + col + 4, be + 4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        n[e] = v[h * 8 + e] * rstd;
-        out[e] = coral_gelu(n[e] * g[e] + be[e]);
-      }
-      coral_store8(y + row * kC + col, out);
-      if (xhat != nullptr) coral_store8(xhat + row * kC + col, n);
-    }
-    if (rstd_out != nullptr && lane == 0) rstd_out[row] = rstd;
-  }
-}
-
-template <int K>
-int launch(const void* x, const void* w, const void* bias, const void* gamma,
-           const void* beta, void* y, void* xhat, void* rstd, int B, int T_in, int T_out,
-           float eps, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv_ln_gelu_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T_out + kBM - 1) / kBM), (unsigned)B);
-  conv_ln_gelu_kernel<K><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<bf16*>(y), static_cast<bf16*>(xhat),
-      static_cast<float*>(rstd), T_in, T_out, eps);
-  return (int)cudaGetLastError();
-}
-
-// --- Backward ------------------------------------------------------------------
+// Design: an implicit GEMM. Output row t reads input rows 2t .. 2t+k-1, so
+// the conv is a GEMM of M = T_out rows of a batch row, N = 512 output
+// channels and K = k x 512, whose A operand for tap j is x from row j on with
+// rows 2C apart: one TMA tensor map a tap (hopper::encode_heads' 4-D (64, 8,
+// T_out, B) over x + j C, row stride 2 C, batch stride T_in C). A map has T_out
+// rows, so TMA loads zeros past the last output row and never reads past a
+// batch row, for any T_in, odd or even (a view of x as (T_in / 2, 2 C) pairs
+// would read past the allocation at an odd T_in). The K loop runs 64-deep
+// chunks (chunk c: tap c / 8, channels 64 (c % 8) ..) through the ring of
+// ffn_gemm.cuh (gemm::Ring): a producer thread keeps TMA copies of the x chunk
+// and of the (C_out, k C_in) K-major weight's tile in flight, two consumer
+// warpgroups run wgmma m64n128k16 on them with fp32 accumulators in
+// registers (setmaxnreg 40 / 232). The LayerNorm needs whole 512-wide rows
+// and 128 x 512 fp32 accumulators exceed two warpgroups' registers, so a
+// 2-block cluster takes 128 rows, each block 256 of the columns (each
+// warpgroup 64 rows x 256 columns, 128 accumulators a thread), and the row
+// sums cross the pair through distributed shared memory. The epilogue runs in
+// registers: + bias, the two-pass fp32 mean and variance over all 512 columns
+// (the pair's halves added in rank order, so both blocks agree), xhat, y =
+// gelu(xhat gamma + beta) (csrc/gelu_poly.cuh), y (and xhat) stored as bf16
+// pairs, rows past T_out never stored. A cluster walks row tiles in turn
+// (one cluster a pair of SMs), so the producer copies the next tile's first
+// chunks while the consumers run the epilogue. The other candidate, one
+// block a tile of 64 rows x 512 (each warpgroup one column half of the same
+// rows, the row sums crossing the warpgroups in shared memory; 72 KB from L2
+// a chunk against the pair's 48), was 1.22x slower at FE block 1 serving and
+// 1.05x in training (NVIDIA H100 80GB HBM3, 700 W; tools/probe_conv.py from
+// an edited copy, PERF.md).
 //
-// Replaces: coral_tpu/ops/conv_ln_gelu_pallas.py `_bwd_pallas` / `_bwd_kernel`
-// (dGELU, dLN, conv dx and dW, dbias/dgamma/dbeta) and `_halo_fixup` /
-// `_fixup_kernel` (the k = 3 dx row that crosses a TPU slab).
+// Backward. Replaces: `_bwd_pallas` / `_bwd_kernel` (:174; dGELU, dLN, conv dx
+// and dW, dbias/dgamma/dbeta) and `_halo_fixup` / `_fixup_kernel` (:374; the
+// k = 3 dx row that crosses a TPU slab).
 //
 // Bound on the H100: the tensor cores. dx and dW are each k x 2 x 512 x 512
 // flops per output row (about 200 GFLOP apiece for FE block 1 at 8 x 10 s),
@@ -200,31 +49,43 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma,
 //
 // Design. The TPU kernel does all of it in one pass over row slabs and carries
 // dW in VMEM from grid step to grid step; blocks here run in no order, so the
-// work is split in three kernels around a materialised bf16 da, each of which
+// work is split in four kernels around a materialised bf16 da, each of which
 // owns its outputs:
 // (i)   a row kernel, one warp per output row (the whole 512-wide row in
-//       registers, as the forward's epilogue), forms dh = dy gelu'(h), the
-//       LayerNorm backward da = (dn - mean(dn) - xhat mean(dn xhat)) rstd,
-//       rounds da to bf16, and keeps fp32 dgamma/dbeta/dbias sums per warp; each
-//       block adds its warps in a fixed order and writes one (3, C) partial.
-// (ii)  dx: input row 2s is da[s] W0^T (+ da[s-1] W2^T for k = 3) and row 2s+1 is
-//       da[s] W1^T. A block owns the 128 input rows 2s0 .. 2s0+127 for 128 input
-//       channels and reads da rows s0-1 .. s0+63 itself, so the row that the TPU
-//       adds with `_halo_fixup` is part of its own product: no fixup pass and no
-//       atomics. da rows outside [0, T_out) load as zeros, which also writes
-//       dx = 0 on every input row that no output reads (past 2(T_out-1)+k-1).
-// (iii) dW_j = sum_t x[2t+j]^T da[t], a product whose reduction runs over all
-//       B*T_out rows: split-K, each block reduces one chunk of one batch row for
-//       one tap and a 128 x 128 tile and writes an fp32 partial; the partials
-//       are summed outside in a fixed order, so dW is deterministic. Rows past
-//       T_out load as zeros on both operands and add nothing.
-// All products are bf16 WMMA with fp32 accumulators, as the forward.
+//       registers), forms dh = dy gelu'(h), the LayerNorm backward da = (dn -
+//       mean(dn) - xhat mean(dn xhat)) rstd, rounds da to bf16, and keeps fp32
+//       dgamma/dbeta/dbias sums per warp; each block adds its warps in a fixed
+//       order and writes one (3, C) partial.
+// (ii)  dx on the ring: input row 2s is da[s] W0 + da[s-1] W2 (k = 3) and row
+//       2s+1 is da[s] W1. A tile is 128 row pairs x 128 input channels, K = 512
+//       output channels in 64-deep chunks; each consumer warpgroup keeps two
+//       accumulators (even and odd rows). A stage holds da's chunk for rows s0
+//       .. s0+127 and, for k = 3, a second box of rows s0-1 .. s0+126 (a
+//       one-row shift of a 128-byte-swizzled box is not the same box; TMA
+//       loads zeros at row -1), and each tap's (c_out x c_in) tile, N-major
+//       (the transpose bit), from the same K-major weight. So the row that the
+//       TPU adds with `_halo_fixup` is part of the tile's own product: no
+//       fixup pass and no atomics. da rows outside [0, T_out) load as zeros,
+//       which also writes dx = 0 on every input row that no output reads
+//       (past 2(T_out-1)+k-1); the tiles cover every input row. Blocks walk
+//       tiles in turn, as the forward's clusters.
+// (iii) dW_j = sum_t da[t]^T x[2t+j], a product whose reduction runs over all
+//       B T_out rows: gemm::atb's A^T B over rows, A = da's chunk and B = tap
+//       j's rows (the forward's tap maps, 64-row boxes), both M/N-major.
+//       The row chunks (64 rows of one batch row) are split into R ranges, R
+//       from the shape alone (the wrapper's `dw_ranges`), so that 16 k R
+//       blocks fill the card; each block writes the fp32 partial of one tap's
+//       128 x 128 tile over its range.
+// (iv)  a finish kernel sums the R partials in range order into dW in the
+//       Conv1d layout (C_out, C_in, k) and the row kernel's partials in block
+//       order into dvec (3, C): no float atomics, so two calls give the same
+//       bits.
 //
 // Probe modes. Replaces tools/probe_fe_bwd.py `_bwd_variant` (:138, its
 // `pallas_call` :148) -> `_variant_kernel` (:50): the production backward
 // with one phase taken out, so that each phase's cost is the difference to
 // the full backward (and, here, also each launch's own time). The modes are
-// template instantiations of the three launches above:
+// template instantiations of the launches above:
 //   kFull     the production kernels (the same instantiation the backward
 //             launches);
 //   kNoVpu    the row kernel is a copy da = dy (no dGELU, LayerNorm backward
@@ -232,8 +93,8 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma,
 //   kNoDvec   the row kernel without its three dvec partial sums;
 //   kNoDw     the dW launch is skipped;
 //   kNoDx     the dx launch is skipped; the row kernel writes da into rows
-//             t < T_out of dx (the dW kernel reads it there), as the TPU
-//             variant writes dx[:, :T_out] = da;
+//             t < T_out of dx (the dW kernel reads it there, batch rows T_in
+//             apart), as the TPU variant writes dx[:, :T_out] = da;
 //   kNoInter  the dx kernel writes the even rows of each 256-pair slab to the
 //             slab's first 256 rows and the odd rows to its last 256, the TPU
 //             variant's two half writes at its 256-row tile, instead of
@@ -243,6 +104,302 @@ int launch(const void* x, const void* w, const void* bias, const void* gamma,
 //             TPU variant's unmasked read has no counterpart.
 // What a mode does not compute is not written: the caller zeroes dvec (kNoVpu,
 // kNoDvec), dW (kNoDw) and dx (kNoDx, kNoInter) where it needs them.
+#include <algorithm>
+
+#include "common.cuh"
+#include "ffn_gemm.cuh"
+#include "gelu_poly.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kC = 512;                   // input and output channels
+constexpr int kChunk = 64;                // a stage's K depth: 128 bytes of bf16
+constexpr int kBlocks = kC / kChunk;      // a row's 64-channel blocks: a tap's chunks
+constexpr int kThreads = gemm::kThreads;  // the producer warpgroup and two consumers
+constexpr int kConsumerWarps = 8;
+
+// Tap j's A operand: x from row j on, rows 2 C apart, as the 4-D tensor (64,
+// 8, T_out, B), a box 64 channels by box_rows rows of one batch row. 0, or
+// the encoder's CUresult.
+inline int tap_maps(CUtensorMap* maps, const void* x, int K, int B, int T_in, int T_out,
+                    int box_rows) {
+  for (int j = 0; j < K; ++j) {
+    const int err = hopper::encode_heads(&maps[j], static_cast<const bf16*>(x) + j * kC, kChunk,
+                                         kBlocks, T_out, B, 2LL * kC, (long long)T_in * kC,
+                                         kChunk, box_rows);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// da, (B, rows, C) bf16 with T_out rows of a batch row read (rows = T_out, or
+// T_in where da lives in dx), as the 4-D tensor (64, 8, T_out, B).
+inline int da_map(CUtensorMap* map, const void* da, int B, int rows, int T_out, int box_rows) {
+  return hopper::encode_heads(map, da, kChunk, kBlocks, T_out, B, kC, (long long)rows * kC,
+                              kChunk, box_rows);
+}
+
+// Kernel attributes once per kernel and process, off every later call's path.
+template <auto kKernel, int kSmem>
+cudaError_t smem_attribute() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  return attr;
+}
+
+// --- Forward -----------------------------------------------------------------------
+
+// A 2-block cluster takes 128 output rows, each block 256 of the 512
+// columns and each of its consumer warpgroups 64 rows x 256.
+template <int K>
+struct FwdShape {
+  static constexpr int kRows = 128;
+  static constexpr int kChunks = K * kBlocks;
+  static constexpr int kA = kRows * 128;  // the chunk of x
+  static constexpr int kB = 256 * 128;    // the weight's tile, K-major
+  static constexpr int kStage = kA + kB;
+  static constexpr int kStages = 4;
+  static constexpr int kRed = kStages * kStage;  // two exchange buffers of 128 fp32
+  static constexpr int kBars = kRed + 2 * 128 * 4;
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;
+  static_assert(kStage % 1024 == 0, "each tile 1024-aligned");
+  static_assert(kSmem <= gemm::kMaxSmem, "the ring must fit a block");
+};
+
+struct FwdMaps {
+  CUtensorMap tap[3], w;
+};
+
+struct FwdArgs {
+  const float* bias;   // (C,) fp32
+  const float* gamma;  // (C,) fp32
+  const float* beta;   // (C,) fp32
+  bf16* y;             // (B, T_out, C)
+  bf16* xhat;          // the training launch: (B, T_out, C), else null
+  float* rstd;         // the training launch: (B, T_out), else null
+  int T_out;
+  int tiles_b;         // row tiles of a batch row
+  int n_tiles;         // B tiles_b
+  int groups;          // clusters: cluster g takes tiles g, g + groups, ..
+  float eps;
+};
+
+// The epilogue of a tile at (b, t0), from acc0 and acc1 (columns cb .. cb+127
+// and cb+128 .. cb+255, cb = 256 rank, of the thread's rows lr and lr + 8 of
+// the tile).
+template <bool kTrain>
+__device__ __forceinline__ void fwd_epilogue(const FwdArgs& a, const gemm::Lane& ln,
+                                             float (&acc0)[64], float (&acc1)[64], float* red,
+                                             int rank, int b, int t0) {
+  const int lr = 64 * ln.wg + ln.row;
+  const int cb = 256 * rank;
+  // The row sums over all 512 columns of v[0] (row lr) and v[1] (row lr + 8),
+  // each thread's values first, then the quad's (all four lanes get the same
+  // bits), then the pair's two halves in rank order through buffer `buf` of
+  // each block's shared memory: both blocks get the same bits.
+  auto row_sums = [&](float (&v)[2], int buf) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[h] += __shfl_xor_sync(0xffffffffu, v[h], 1);
+      v[h] += __shfl_xor_sync(0xffffffffu, v[h], 2);
+    }
+    float* r = red + 128 * buf;
+    if (ln.quad == 0) r[lr] = v[0], r[lr + 8] = v[1];
+    hopper::cluster_sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t at = hopper::smem_u32(r + lr + 8 * h);
+      v[h] = hopper::ld_cluster_f32(hopper::map_to_rank(at, 0)) +
+             hopper::ld_cluster_f32(hopper::map_to_rank(at, 1));
+    }
+  };
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 b0 = *reinterpret_cast<const float2*>(a.bias + cb + 8 * j + 2 * ln.quad);
+    const float2 b1 = *reinterpret_cast<const float2*>(a.bias + cb + 128 + 8 * j + 2 * ln.quad);
+    acc0[4 * j] += b0.x, acc0[4 * j + 1] += b0.y, acc0[4 * j + 2] += b0.x, acc0[4 * j + 3] += b0.y;
+    acc1[4 * j] += b1.x, acc1[4 * j + 1] += b1.y, acc1[4 * j + 2] += b1.x, acc1[4 * j + 3] += b1.y;
+    s[0] += (acc0[4 * j] + acc0[4 * j + 1]) + (acc1[4 * j] + acc1[4 * j + 1]);
+    s[1] += (acc0[4 * j + 2] + acc0[4 * j + 3]) + (acc1[4 * j + 2] + acc1[4 * j + 3]);
+  }
+  row_sums(s, 0);
+  const float mean[2] = {s[0] / kC, s[1] / kC};
+  float q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const int h = (e >> 1) & 1;
+    acc0[e] -= mean[h];
+    acc1[e] -= mean[h];
+    q[h] += acc0[e] * acc0[e] + acc1[e] * acc1[e];
+  }
+  row_sums(q, 1);
+  const bool own_rstd = kTrain && rank == 0 && ln.quad == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + lr + 8 * h;
+    if (t >= a.T_out) continue;
+    const float rstd = rsqrtf(q[h] / kC + a.eps);
+    const long long row = (long long)b * a.T_out + t;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float* acc = c == 0 ? acc0 : acc1;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = cb + 128 * c + 8 * j + 2 * ln.quad;
+        const float2 g = *reinterpret_cast<const float2*>(a.gamma + col);
+        const float2 be = *reinterpret_cast<const float2*>(a.beta + col);
+        const float n0 = acc[4 * j + 2 * h] * rstd, n1 = acc[4 * j + 2 * h + 1] * rstd;
+        *reinterpret_cast<uint32_t*>(a.y + row * kC + col) =
+            gemm::pack_bf16(coral_gelu(n0 * g.x + be.x), coral_gelu(n1 * g.y + be.y));
+        if constexpr (kTrain)
+          *reinterpret_cast<uint32_t*>(a.xhat + row * kC + col) = gemm::pack_bf16(n0, n1);
+      }
+    }
+    if (own_rstd) a.rstd[row] = rstd;
+  }
+}
+
+// One launch of the forward: grid (2, groups) in clusters of (2, 1, 1),
+// kThreads threads, FwdShape::kSmem bytes of dynamic shared memory.
+template <int K, bool kTrain>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_ln_gelu_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
+  using S = FwdShape<K>;
+  unsigned char* smem = gemm::aligned_smem();
+  const uint32_t base = hopper::smem_u32(smem);
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
+  const gemm::Ring<S::kStages> ring{base + S::kBars};
+  const int rank = (int)hopper::cluster_rank();
+  const int g = blockIdx.y;
+  const int n_tiles = (a.n_tiles - g + a.groups - 1) / a.groups;
+  const int n_iter = n_tiles * S::kChunks;
+  auto tile_at = [&](int ti, int& b, int& t0) {
+    const int id = g + ti * a.groups;
+    b = id / a.tiles_b;
+    t0 = (id - b * a.tiles_b) * S::kRows;
+  };
+  // Ring iteration i: chunk i % kChunks of the block's tile i / kChunks.
+  auto load = [&](int i) {
+    const int ti = i / S::kChunks, c = i - ti * S::kChunks;
+    int b, t0;
+    tile_at(ti, b, t0);
+    const uint32_t st = base + (i % S::kStages) * S::kStage, bar = ring.full(i % S::kStages);
+    hopper::mbar_arrive_expect_tx(bar, S::kStage);
+    hopper::tma_load_4d(st, &maps.tap[c / kBlocks], bar, 0, c % kBlocks, t0, b);
+    hopper::tma_load_2d(st + S::kA, &maps.w, bar, c * kChunk, 256 * rank);
+  };
+  if (threadIdx.x == 0) {
+    ring.init(kConsumerWarps);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::prefetch_tensormap(&maps.w);
+    for (int i = 0; i < S::kStages && i < n_iter; ++i) load(i);
+  }
+
+  if (threadIdx.x < 128) {
+    hopper::reg_dealloc<gemm::kProducerRegs>();
+    // Every thread of the cluster joins the consumers' two cluster barriers
+    // of each tile (and the last one): warp 0 between its copies, once the
+    // next tile's first kStages copies are in flight (they need only the
+    // stages that the tile's last chunks freed), the other warps at once.
+    int synced = 0;
+    if (threadIdx.x < 32) {
+#pragma unroll 1
+      for (int i = S::kStages; i < n_iter; ++i) {
+        ring.wait_empty(i);
+        if (threadIdx.x == 0) load(i);
+        __syncwarp();
+        if (i % S::kChunks == S::kStages - 1 && i >= S::kChunks) {
+          hopper::cluster_sync();
+          hopper::cluster_sync();
+          ++synced;
+        }
+      }
+    }
+#pragma unroll 1
+    for (; synced < n_tiles; ++synced) {
+      hopper::cluster_sync();
+      hopper::cluster_sync();
+    }
+    hopper::cluster_sync_relaxed();
+    return;
+  }
+
+  hopper::reg_alloc<gemm::kConsumerRegs>();
+  const gemm::Lane ln;
+  const uint32_t a_rows = ln.wg * 64 * 128;  // the warpgroup's rows of x
+#pragma unroll 1
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    int b, t0;
+    tile_at(ti, b, t0);
+    float acc0[64], acc1[64];
+    ring.template consume<S::kStage>(base, ti * S::kChunks, S::kChunks, ln.lane,
+                            [&](uint32_t st, bool first) {
+      hopper::fence_regs(acc0);
+      hopper::fence_regs(acc1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int keep = !first || kk > 0;
+        const uint64_t da = hopper::smem_desc(st + a_rows + 32 * kk, 1024, 128);
+        const uint32_t wb = st + S::kA + 32 * kk;
+        hopper::wgmma_m64n128k16_ss(acc0, da, hopper::smem_desc(wb, 1024, 128), keep);
+        hopper::wgmma_m64n128k16_ss(acc1, da, hopper::smem_desc(wb + 128 * 128, 1024, 128),
+                                    keep);
+      }
+    });
+    hopper::fence_regs(acc0);
+    hopper::fence_regs(acc1);
+    fwd_epilogue<kTrain>(a, ln, acc0, acc1, red, rank, b, t0);
+  }
+  hopper::cluster_sync_relaxed();  // no block leaves while its pair reads
+}
+
+template <int K, bool kTrain>
+int launch_fwd(const void* x, const void* w, const void* bias, const void* gamma,
+               const void* beta, void* y, void* xhat, void* rstd, int B, int T_in, int T_out,
+               float eps, cudaStream_t stream) {
+  using S = FwdShape<K>;
+  constexpr auto kKernel = conv_ln_gelu_kernel<K, kTrain>;
+  FwdMaps maps;
+  int err = tap_maps(maps.tap, x, K, B, T_in, T_out, S::kRows);
+  if (err == 0) err = gemm::weight_map(&maps.w, w, K * kC, kC, 256);
+  if (err != 0) return err;
+  FwdArgs a;
+  a.bias = static_cast<const float*>(bias);
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.y = static_cast<bf16*>(y);
+  a.xhat = static_cast<bf16*>(xhat);
+  a.rstd = static_cast<float*>(rstd);
+  a.T_out = T_out;
+  a.tiles_b = (T_out + S::kRows - 1) / S::kRows;
+  a.n_tiles = B * a.tiles_b;
+  a.eps = eps;
+  const cudaError_t attr = smem_attribute<kKernel, S::kSmem>();
+  if (attr != cudaSuccess) return (int)attr;
+  a.groups = std::min(a.n_tiles, std::max(1, gemm::sm_count() / 2));  // a cluster a pair of SMs
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 2;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2, (unsigned)a.groups);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kKernel, maps, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// --- Backward ------------------------------------------------------------------
+
 enum BwdMode { kFull = 0, kNoVpu = 1, kNoDvec = 2, kNoDw = 3, kNoDx = 4, kNoInter = 5,
                kMmOnly = 6 };
 
@@ -342,235 +499,274 @@ __global__ void __launch_bounds__(kRowWarps * 32)
     part[(long long)blockIdx.x * 3 * kC + i] = red[i];
 }
 
-constexpr int kDxBM = 64;        // row pairs (s) per block: input rows 2s, 2s+1
-constexpr int kDxBN = 128;       // input channels per block
-constexpr int kDxBK = 32;        // output channels per shared-memory stage
-constexpr int kDxThreads = 256;  // 8 warps: 2 row groups x 4 column groups
-// A da tile row of 48 bf16 is 96 bytes, so the tile shifted by one row (da[s-1]
-// for tap 2) still starts on the 32 bytes WMMA asks of a fragment's pointer.
-constexpr int kLdDa = kDxBK + 16;
-constexpr int kLdWt = kDxBN + 8;
+// dx: a tile of 128 row pairs (input rows 2s, 2s+1 for s = s0 ..) x 128 input
+// channels; a stage holds da's chunk (rows s0 ..), for k = 3 its box at s0 -
+// 1, and the taps' 64 x 128 weight tiles.
+template <int K>
+struct DxShape {
+  static constexpr int kPairs = 128;
+  static constexpr int kA = kPairs * 128;         // da rows s0 .. s0+127
+  static constexpr int kW = K == 3 ? 2 * kA : kA;  // the taps' tiles from here
+  static constexpr int kTap = 64 * 128 * 2;       // W_j's (64 c_out x 128 c_in) tile
+  static constexpr int kStage = kW + K * kTap;
+  static constexpr int kStages = K == 3 ? 2 : 4;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;
+  static_assert(kSmem <= gemm::kMaxSmem, "the ring must fit a block");
+};
 
 // kSplit (kNoInter): the rows of pair s of slab s / 256 go to row 512 (s /
 // 256) + s % 256 (even) and that + 256 (odd), instead of 2s and 2s + 1.
 constexpr int kSlabPairs = 256;
 
-template <int K, bool kSplit = false>
-__global__ void __launch_bounds__(kDxThreads)
-    conv_bwd_dx_kernel(const bf16* __restrict__ da, const bf16* __restrict__ w,
-                       bf16* __restrict__ dx, int T_in, int T_out) {
-  __shared__ __align__(128) bf16 As[(kDxBM + 1) * kLdDa];  // da rows s0-1 .. s0+63
-  __shared__ __align__(128) bf16 Bs[K * kDxBK * kLdWt];    // W_j rows k0 .. k0+31
-  __shared__ __align__(128) float Cw[8 * 16 * 16];         // one 16 x 16 tile a warp
+struct DxMaps {
+  CUtensorMap da, w;
+};
 
-  const int b = blockIdx.z;
-  const int s0 = blockIdx.x * kDxBM;
-  const int n0 = blockIdx.y * kDxBN;
-  const bf16* dab = da + (long long)b * T_out * kC;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wr = warp >> 2;  // row pairs wr*32 .. +31
-  const int wc = warp & 3;   // input channels wc*32 .. +31
+struct DxArgs {
+  bf16* dx;  // (B, T_in, C)
+  int T_in;
+  int pair_tiles;  // tiles of 128 pairs a batch row
+  int n_tiles;     // B pair_tiles 4
+  int groups;      // blocks: block g takes tiles g, g + groups, ..
+};
 
-  FragC ev[2][2], od[2][2];
+// One launch of dx: grid (groups), kThreads threads, DxShape::kSmem bytes.
+template <int K, bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_bwd_dx_kernel(const __grid_constant__ DxMaps maps, const DxArgs a) {
+  using S = DxShape<K>;
+  const uint32_t base = hopper::smem_u32(gemm::aligned_smem());
+  const gemm::Ring<S::kStages> ring{base + S::kBars};
+  const int g = blockIdx.x;
+  const int n_tiles = (a.n_tiles - g + a.groups - 1) / a.groups;
+  const int n_iter = n_tiles * kBlocks;
+  // Tile id: the column tile fastest, so neighbouring blocks share da's rows.
+  auto tile_at = [&](int ti, int& b, int& s0, int& n0) {
+    const int id = g + ti * a.groups, rest = id / (kC / 128);
+    n0 = (id - rest * (kC / 128)) * 128;
+    b = rest / a.pair_tiles;
+    s0 = (rest - b * a.pair_tiles) * S::kPairs;
+  };
+  auto load = [&](int i) {
+    const int ti = i / kBlocks, c = i - ti * kBlocks;
+    int b, s0, n0;
+    tile_at(ti, b, s0, n0);
+    const uint32_t st = base + (i % S::kStages) * S::kStage, bar = ring.full(i % S::kStages);
+    hopper::mbar_arrive_expect_tx(bar, S::kStage);
+    hopper::tma_load_4d(st, &maps.da, bar, 0, c, s0, b);
+    if constexpr (K == 3) hopper::tma_load_4d(st + S::kA, &maps.da, bar, 0, c, s0 - 1, b);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(ev[i][j], 0.0f);
-      wmma::fill_fragment(od[i][j], 0.0f);
+    for (int j = 0; j < K; ++j) {
+      hopper::tma_load_2d(st + S::kW + j * S::kTap, &maps.w, bar, j * kC + n0, c * kChunk);
+      hopper::tma_load_2d(st + S::kW + j * S::kTap + S::kTap / 2, &maps.w, bar,
+                          j * kC + n0 + 64, c * kChunk);
     }
-
-  for (int k0 = 0; k0 < kC; k0 += kDxBK) {
-    for (int i = tid; i < (kDxBM + 1) * (kDxBK / 8); i += kDxThreads) {
-      const int r = i >> 2;
-      const int c = (i & 3) * 8;
-      const int s = s0 - 1 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (s >= 0 && s < T_out) v = *reinterpret_cast<const uint4*>(dab + (long long)s * kC + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * kLdDa + c) = v;
-    }
-    for (int i = tid; i < K * kDxBK * (kDxBN / 8); i += kDxThreads) {
-      const int j = i / (kDxBK * (kDxBN / 8));
-      const int r = (i >> 4) % kDxBK;
-      const int c = (i & 15) * 8;
-      *reinterpret_cast<uint4*>(Bs + (j * kDxBK + r) * kLdWt + c) =
-          *reinterpret_cast<const uint4*>(w + ((long long)(k0 + r) * K + j) * kC + n0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDxBK; kk += 16) {
-      FragA a[2], a_prev[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(a[i], As + (1 + wr * 32 + i * 16) * kLdDa + kk, kLdDa);
-        if (K == 3) wmma::load_matrix_sync(a_prev[i], As + (wr * 32 + i * 16) * kLdDa + kk, kLdDa);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int col = wc * 32 + jj * 16;
-        FragBr w0, w1;
-        wmma::load_matrix_sync(w0, Bs + (0 * kDxBK + kk) * kLdWt + col, kLdWt);
-        wmma::load_matrix_sync(w1, Bs + (1 * kDxBK + kk) * kLdWt + col, kLdWt);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(ev[i][jj], a[i], w0, ev[i][jj]);
-          wmma::mma_sync(od[i][jj], a[i], w1, od[i][jj]);
-        }
-        if (K == 3) {
-          FragBr w2;
-          wmma::load_matrix_sync(w2, Bs + (2 * kDxBK + kk) * kLdWt + col, kLdWt);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(ev[i][jj], a_prev[i], w2, ev[i][jj]);
-        }
-      }
-    }
-    __syncthreads();
+  };
+  if (threadIdx.x == 0) {
+    ring.init(kConsumerWarps);
+    hopper::fence_barrier_init();
   }
-
-  // Each warp stages one 16 x 16 tile at a time and writes it as bf16 rows of 8
-  // values, even tiles to rows 2s and odd tiles to rows 2s+1, rows < T_in only.
-  float* cw = Cw + warp * 256;
-  const int r = lane >> 1;
-  const int c = (lane & 1) * 8;
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    hopper::reg_dealloc<gemm::kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    hopper::prefetch_tensormap(&maps.w);
+    for (int i = 0; i < S::kStages && i < n_iter; ++i) load(i);
+    ring.produce(S::kStages, n_iter, load);
+    return;
+  }
+  hopper::reg_alloc<gemm::kConsumerRegs>();
+  const gemm::Lane ln;
+  const uint32_t a_rows = ln.wg * 64 * 128;
+#pragma unroll 1
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    int b, s0, n0;
+    tile_at(ti, b, s0, n0);
+    float ev[64], od[64];
+    ring.template consume<S::kStage>(base, ti * kBlocks, kBlocks, ln.lane, [&](uint32_t st, bool first) {
+      hopper::fence_regs(ev);
+      hopper::fence_regs(od);
 #pragma unroll
-  for (int par = 0; par < 2; ++par)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        wmma::store_matrix_sync(cw, par ? od[i][jj] : ev[i][jj], 16, wmma::mem_row_major);
-        __syncwarp();
-        const long long pair = s0 + wr * 32 + i * 16 + r;
-        const long long row = kSplit ? 2LL * kSlabPairs * (pair / kSlabPairs) +
-                                           par * kSlabPairs + pair % kSlabPairs
-                                     : 2LL * pair + par;
-        if (row < T_in)
-          coral_store8(dx + ((long long)b * T_in + row) * kC + n0 + wc * 32 + jj * 16 + c,
-                       cw + r * 16 + c);
-        __syncwarp();
+      for (int kk = 0; kk < 4; ++kk) {
+        const int keep = !first || kk > 0;
+        const uint64_t d0 = hopper::smem_desc(st + a_rows + 32 * kk, 1024, 128);
+        auto tap = [&](int j) {
+          return hopper::smem_desc(st + S::kW + j * S::kTap + 2048 * kk, 1024, 128, S::kTap / 2);
+        };
+        hopper::wgmma_m64n128k16_ss_tb(ev, d0, tap(0), keep);
+        hopper::wgmma_m64n128k16_ss_tb(od, d0, tap(1), keep);
+        if constexpr (K == 3)
+          hopper::wgmma_m64n128k16_ss_tb(
+              ev, hopper::smem_desc(st + S::kA + a_rows + 32 * kk, 1024, 128), tap(2), 1);
       }
+    });
+    hopper::fence_regs(ev);
+    hopper::fence_regs(od);
+    // Pair s: even row (ev) and odd row (od), rows below T_in only.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long s = s0 + 64 * ln.wg + ln.row + 8 * h;
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const long long r = kSplit ? 2LL * kSlabPairs * (s / kSlabPairs) + par * kSlabPairs +
+                                         s % kSlabPairs
+                                   : 2 * s + par;
+        if (r >= a.T_in) continue;
+        const float* acc = par ? od : ev;
+        bf16* out = a.dx + ((long long)b * a.T_in + r) * kC + n0 + 2 * ln.quad;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) =
+              gemm::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
 }
 
-constexpr int kWBM = 128;       // output channels per block
-constexpr int kWBN = 128;       // input channels per block
-constexpr int kWBK = 32;        // rows t per shared-memory stage
-constexpr int kWThreads = 256;  // 8 warps: 4 row groups x 2 column groups
-constexpr int kLdT = 128 + 8;
+// dW's partials: grid (16 tiles, K taps, R ranges); block (tile, j, r) writes
+// part[r][j] (C_out x C_in fp32), the tile's sum over the range's chunks.
+struct DwMaps {
+  CUtensorMap da, tap[3];
+};
 
-// grid (16 tiles, K taps, B * n_chunks): the partial of tap j over rows
-// t in [c*chunk, (c+1)*chunk) of batch row b; da holds da_rows rows a batch
-// row (T_out; T_in in kNoDx, where da is dx).
+struct DwArgs {
+  float* part;     // (R, K, C, C)
+  int chunks_b;    // 64-row chunks of a batch row
+  int n_chunks;    // B chunks_b
+};
+
 template <int K>
-__global__ void __launch_bounds__(kWThreads)
-    conv_bwd_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ da,
-                       float* __restrict__ part, int T_in, int T_out, int chunk, int n_chunks,
-                       int da_rows) {
-  __shared__ __align__(128) bf16 As[kWBK * kLdT];  // da[t][c_out]: A = da^T, col-major
-  __shared__ __align__(128) bf16 Bs[kWBK * kLdT];  // x[2t+j][c_in]
-
-  const int m0 = (blockIdx.x >> 2) * kWBM;
-  const int n0 = (blockIdx.x & 3) * kWBN;
-  const int j = blockIdx.y;
-  const int p = blockIdx.z;
-  const int b = p / n_chunks;
-  const int t_begin = (p % n_chunks) * chunk;
-  const int t_end = min(T_out, t_begin + chunk);
-  const bf16* dab = da + (long long)b * da_rows * kC;
-  const bf16* xb = x + (long long)b * T_in * kC;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;  // output channels wr*32 .. +31
-  const int wc = warp & 1;   // input channels wc*64 .. +63
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
-
-  for (int t0 = t_begin; t0 < t_end; t0 += kWBK) {
-    for (int i = tid; i < kWBK * 16; i += kWThreads) {
-      const int r = i >> 4;
-      const int c = (i & 15) * 8;
-      const int t = t0 + r;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u), vx = va;
-      if (t < t_end) {
-        va = *reinterpret_cast<const uint4*>(dab + (long long)t * kC + m0 + c);
-        vx = *reinterpret_cast<const uint4*>(xb + (long long)(2 * t + j) * kC + n0 + c);
-      }
-      *reinterpret_cast<uint4*>(As + r * kLdT + c) = va;
-      *reinterpret_cast<uint4*>(Bs + r * kLdT + c) = vx;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWBK; kk += 16) {
-      FragAc a[2];
-      FragBr bx[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + kk * kLdT + wr * 32 + i * 16, kLdT);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        wmma::load_matrix_sync(bx[jj], Bs + kk * kLdT + wc * 64 + jj * 16, kLdT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) wmma::mma_sync(acc[i][jj], a[i], bx[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-
-  float* out = part + ((long long)p * K + j) * kC * kC;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      wmma::store_matrix_sync(out + (long long)(m0 + wr * 32 + i * 16) * kC + n0 + wc * 64 + jj * 16,
-                              acc[i][jj], kC, wmma::mem_row_major);
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_bwd_dw_kernel(const __grid_constant__ DwMaps maps, const DwArgs a) {
+  const int m0 = (blockIdx.x / (kC / 128)) * 128, n0 = (blockIdx.x % (kC / 128)) * 128;
+  const int j = blockIdx.y, r = blockIdx.z, R = gridDim.z;
+  const int lo = (int)((long long)r * a.n_chunks / R);
+  const int hi = (int)((long long)(r + 1) * a.n_chunks / R);
+  const CUtensorMap* tap = &maps.tap[j];
+  gemm::atb::tile(
+      [&](int i, uint32_t st, uint32_t bar) {
+        const int id = lo + i, b = id / a.chunks_b, t0 = (id - b * a.chunks_b) * kChunk;
+        using gemm::atb::kBox;
+        hopper::tma_load_4d(st, &maps.da, bar, 0, m0 / 64, t0, b);
+        hopper::tma_load_4d(st + kBox, &maps.da, bar, 0, m0 / 64 + 1, t0, b);
+        hopper::tma_load_4d(st + 2 * kBox, tap, bar, 0, n0 / 64, t0, b);
+        hopper::tma_load_4d(st + 3 * kBox, tap, bar, 0, n0 / 64 + 1, t0, b);
+      },
+      hi - lo, a.part + ((long long)r * K + j) * kC * kC, kC, m0, n0);
 }
 
-// The backward's three launches in mode kMode; with events (4 cudaEvent_t, the
-// probe's), records events[0] before the row kernel and events[i] after
-// launch i, a skipped launch included.
+// The finish: blocks [0, dw_blocks) sum dW's R partials (R, K, C, C) in range
+// order into dw (C_out, C_in, K), a (c_out, c_in) a thread; the next 3 C / 32
+// blocks sum the row kernel's n_parts (3, C) partials into dvec, 32 values a
+// block: warp w adds partials w, w + 8, .. in order, then the 8 warps' sums in
+// order.
+constexpr int kFinishThreads = 256;
+
+__global__ void __launch_bounds__(kFinishThreads)
+    conv_bwd_finish_kernel(const float* __restrict__ part, int R, int K, float* __restrict__ dw,
+                           int dw_blocks, const float* __restrict__ dvec_part, int n_parts,
+                           float* __restrict__ dvec) {
+  if ((int)blockIdx.x < dw_blocks) {
+    const long long e = (long long)blockIdx.x * kFinishThreads + threadIdx.x;
+    float s[3] = {0.f, 0.f, 0.f};
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        if (j < K) s[j] += part[((long long)r * K + j) * kC * kC + e];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (j < K) dw[e * K + j] = s[j];
+    return;
+  }
+  __shared__ float red[kFinishThreads / 32][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int e = (blockIdx.x - dw_blocks) * 32 + lane;
+  float s = 0.f;
+  for (int p = warp; p < n_parts; p += kFinishThreads / 32) s += dvec_part[(long long)p * 3 * kC + e];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFinishThreads / 32; ++w) t += red[w][lane];
+    dvec[e] = t;
+  }
+}
+
+struct BwdBuffers {
+  const void *x, *w, *gamma, *beta, *xhat, *rstd, *dy;
+  void *da, *dx, *dw_part, *dvec_part, *dw, *dvec;
+};
+
+// The backward's launches in mode kMode; with events (4 cudaEvent_t, the
+// probe's), records events[0] before the row kernel and events[i] after the
+// row kernel (1), dx (2), dW and the finish (3), a skipped launch included.
 template <int K, int kMode>
-int launch_bwd(const void* x, const void* w, const void* gamma, const void* beta,
-               const void* xhat, const void* rstd, const void* dy, void* da, void* dx,
-               void* dw_part, void* dvec_part, int B, int T_in, int T_out, int row_blocks,
-               int chunk, int n_chunks, cudaStream_t stream, void* const* events = nullptr) {
+int launch_bwd(const BwdBuffers& p, int B, int T_in, int T_out, int row_blocks, int R,
+               cudaStream_t stream, void* const* events = nullptr) {
+  constexpr bool kDw = kMode != kNoDw;
+  constexpr bool kDvec = kMode != kNoVpu && kMode != kNoDvec;
   auto mark = [&](int i) {
     return events == nullptr ? cudaSuccess
                              : cudaEventRecord(static_cast<cudaEvent_t>(events[i]), stream);
   };
   // kNoDx: da lives in dx's rows t < T_out.
-  bf16* da_buf = static_cast<bf16*>(kMode == kNoDx ? dx : da);
+  void* da_buf = kMode == kNoDx ? p.dx : p.da;
   const int da_rows = kMode == kNoDx ? T_in : T_out;
+  const int sms = gemm::sm_count();
   cudaError_t err = mark(0);
   if (err != cudaSuccess) return (int)err;
   conv_bwd_rows_kernel<kMode><<<row_blocks, kRowWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(xhat), static_cast<const float*>(rstd),
-      static_cast<const bf16*>(dy), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), da_buf, static_cast<float*>(dvec_part),
-      (long long)B * T_out, T_out, da_rows);
+      static_cast<const bf16*>(p.xhat), static_cast<const float*>(p.rstd),
+      static_cast<const bf16*>(p.dy), static_cast<const float*>(p.gamma),
+      static_cast<const float*>(p.beta), static_cast<bf16*>(da_buf),
+      static_cast<float*>(p.dvec_part), (long long)B * T_out, T_out, da_rows);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(1);
   if (err != cudaSuccess) return (int)err;
   if constexpr (kMode != kNoDx) {
-    const int pairs = (T_in + 1) / 2;
-    const dim3 dx_grid((unsigned)((pairs + kDxBM - 1) / kDxBM), kC / kDxBN, (unsigned)B);
-    conv_bwd_dx_kernel<K, kMode == kNoInter><<<dx_grid, kDxThreads, 0, stream>>>(
-        static_cast<const bf16*>(da), static_cast<const bf16*>(w), static_cast<bf16*>(dx), T_in,
-        T_out);
+    using S = DxShape<K>;
+    constexpr auto kKernel = conv_bwd_dx_kernel<K, kMode == kNoInter>;
+    DxMaps maps;
+    int e = da_map(&maps.da, da_buf, B, da_rows, T_out, S::kPairs);
+    if (e == 0) e = gemm::weight_map(&maps.w, p.w, K * kC, kC, 64);
+    if (e != 0) return e;
+    err = smem_attribute<kKernel, S::kSmem>();
+    if (err != cudaSuccess) return (int)err;
+    DxArgs a;
+    a.dx = static_cast<bf16*>(p.dx);
+    a.T_in = T_in;
+    a.pair_tiles = ((T_in + 1) / 2 + S::kPairs - 1) / S::kPairs;
+    a.n_tiles = B * a.pair_tiles * (kC / 128);
+    a.groups = std::min(a.n_tiles, sms);
+    kKernel<<<a.groups, kThreads, S::kSmem, stream>>>(maps, a);
     err = cudaGetLastError();
   }
   if (err == cudaSuccess) err = mark(2);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kMode != kNoDw) {
-    const dim3 dw_grid((kC / kWBM) * (kC / kWBN), K, (unsigned)(B * n_chunks));
-    conv_bwd_dw_kernel<K><<<dw_grid, kWThreads, 0, stream>>>(
-        static_cast<const bf16*>(x), da_buf, static_cast<float*>(dw_part), T_in, T_out, chunk,
-        n_chunks, da_rows);
+  if constexpr (kDw) {
+    constexpr auto kKernel = conv_bwd_dw_kernel<K>;
+    DwMaps maps;
+    int e = da_map(&maps.da, da_buf, B, da_rows, T_out, 64);
+    if (e == 0) e = tap_maps(maps.tap, p.x, K, B, T_in, T_out, 64);
+    if (e != 0) return e;
+    err = smem_attribute<kKernel, gemm::atb::kSmem>();
+    if (err != cudaSuccess) return (int)err;
+    DwArgs a;
+    a.part = static_cast<float*>(p.dw_part);
+    a.chunks_b = (T_out + kChunk - 1) / kChunk;
+    a.n_chunks = B * a.chunks_b;
+    kKernel<<<dim3((kC / 128) * (kC / 128), K, R), kThreads, gemm::atb::kSmem, stream>>>(maps,
+                                                                                       a);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && (kDw || kDvec)) {
+    const int dw_blocks = kDw ? kC * kC / kFinishThreads : 0;
+    const int blocks = dw_blocks + (kDvec ? 3 * kC / 32 : 0);
+    conv_bwd_finish_kernel<<<blocks, kFinishThreads, 0, stream>>>(
+        static_cast<const float*>(p.dw_part), R, K, static_cast<float*>(p.dw), dw_blocks,
+        static_cast<const float*>(p.dvec_part), row_blocks, static_cast<float*>(p.dvec));
     err = cudaGetLastError();
   }
   if (err == cudaSuccess) err = mark(3);
@@ -578,62 +774,79 @@ int launch_bwd(const void* x, const void* w, const void* gamma, const void* beta
 }
 
 template <int K>
-int launch_probe(int mode, const void* x, const void* w, const void* gamma, const void* beta,
-                 const void* xhat, const void* rstd, const void* dy, void* da, void* dx,
-                 void* dw_part, void* dvec_part, int B, int T_in, int T_out, int row_blocks,
-                 int chunk, int n_chunks, cudaStream_t s, void* const* events) {
-#define CORAL_PROBE(M)                                                                     \
-  return launch_bwd<K, M>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, \
-                          T_in, T_out, row_blocks, chunk, n_chunks, s, events)
+int launch_probe(int mode, const BwdBuffers& p, int B, int T_in, int T_out, int row_blocks,
+                 int R, cudaStream_t s, void* const* events) {
   switch (mode) {
-    case kFull: CORAL_PROBE(kFull);
+    case kFull: return launch_bwd<K, kFull>(p, B, T_in, T_out, row_blocks, R, s, events);
     case kNoVpu:
-    case kMmOnly: CORAL_PROBE(kNoVpu);
-    case kNoDvec: CORAL_PROBE(kNoDvec);
-    case kNoDw: CORAL_PROBE(kNoDw);
-    case kNoDx: CORAL_PROBE(kNoDx);
-    case kNoInter: CORAL_PROBE(kNoInter);
+    case kMmOnly: return launch_bwd<K, kNoVpu>(p, B, T_in, T_out, row_blocks, R, s, events);
+    case kNoDvec: return launch_bwd<K, kNoDvec>(p, B, T_in, T_out, row_blocks, R, s, events);
+    case kNoDw: return launch_bwd<K, kNoDw>(p, B, T_in, T_out, row_blocks, R, s, events);
+    case kNoDx: return launch_bwd<K, kNoDx>(p, B, T_in, T_out, row_blocks, R, s, events);
+    case kNoInter: return launch_bwd<K, kNoInter>(p, B, T_in, T_out, row_blocks, R, s, events);
     default: return -1;
   }
-#undef CORAL_PROBE
 }
+
+// The dW row split the kernels were built for: R ranges of 64-row chunks, at
+// least one chunk each.
+inline bool valid_ranges(int B, int T_out, int R) {
+  const long long chunks = (long long)B * ((T_out + kChunk - 1) / kChunk);
+  return R >= 1 && R <= chunks && R <= 65535;
+}
+
 }  // namespace
 
-// The forward; xhat and rstd null for the serving (y-only) launch. Returns the
-// cudaError_t of the launch, or -1 for a shape it was not built for.
+// The forward; xhat and rstd null for the serving (y-only) launch. x: (B,
+// T_in, C) bf16; w: (C_out, K, C_in) bf16, each output channel's K C_in
+// reduction values contiguous; bias, gamma, beta: (C,) fp32; y: (B, T_out,
+// C) bf16. Returns the cudaError_t of the launch, the encoder's CUresult, or
+// -1 for a shape it was not built for.
 extern "C" int coral_conv_ln_gelu(const void* x, const void* w, const void* bias,
                                   const void* gamma, const void* beta, void* y, void* xhat,
                                   void* rstd, int B, int T_in, int T_out, int C, int K,
                                   float eps, void* stream) {
-  if (C != kC) return -1;
+  if (C != kC || (xhat == nullptr) != (rstd == nullptr)) return -1;
   if (B <= 0 || T_out <= 0) return 0;
+  if (B > 65535 || T_out > (T_in - K) / 2 + 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K == 2) return launch<2>(x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, eps, s);
-  if (K == 3) return launch<3>(x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, eps, s);
+  const bool train = xhat != nullptr;
+#define CORAL_FWD(KK, TRAIN) \
+  return launch_fwd<KK, TRAIN>(x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, eps, s)
+  if (K == 2) {
+    if (train) CORAL_FWD(2, true);
+    CORAL_FWD(2, false);
+  }
+  if (K == 3) {
+    if (train) CORAL_FWD(3, true);
+    CORAL_FWD(3, false);
+  }
+#undef CORAL_FWD
   return -1;
 }
 
-// The backward: three launches on one stream, (i) the row kernel (da, dvec
-// partials), (ii) dx, (iii) the dW partials. x: (B, T_in, C) bf16; w: (C_out, K,
-// C_in) bf16; gamma, beta: (C,) fp32; xhat, dy: (B, T_out, C) bf16; rstd: (B,
-// T_out) fp32; da: (B, T_out, C) bf16 scratch; dx: (B, T_in, C) bf16; dw_part:
-// (B * n_chunks, K, C_out, C_in) fp32; dvec_part: (row_blocks, 3, C) fp32.
-// Returns the first launch's cudaError_t that is not 0, or -1 for a shape it
-// was not built for.
+// The backward, on one stream: (i) the row kernel (da, dvec partials), (ii)
+// dx, (iii) dW's partials over R row ranges, (iv) the finish (dw, dvec). x:
+// (B, T_in, C) bf16; w: (C_out, K, C_in) bf16; gamma, beta: (C,) fp32; xhat,
+// dy: (B, T_out, C) bf16; rstd: (B, T_out) fp32; da: (B, T_out, C) bf16
+// scratch; dx: (B, T_in, C) bf16; dw_part: (R, K, C_out, C_in) fp32 scratch;
+// dvec_part: (row_blocks, 3, C) fp32 scratch; dw: (C_out, C_in, K) fp32; dvec:
+// (3, C) fp32 (dgamma, dbeta, dbias). Returns the first launch's cudaError_t
+// that is not 0, the encoder's CUresult, or -1 for a shape it was not built
+// for.
 extern "C" int coral_conv_ln_gelu_bwd(const void* x, const void* w, const void* gamma,
                                       const void* beta, const void* xhat, const void* rstd,
                                       const void* dy, void* da, void* dx, void* dw_part,
-                                      void* dvec_part, int B, int T_in, int T_out, int C, int K,
-                                      int row_blocks, int chunk, int n_chunks, void* stream) {
-  if (C != kC || chunk <= 0 || chunk % kWBK) return -1;
-  if (B <= 0 || T_out <= 0 || row_blocks <= 0 || n_chunks <= 0) return 0;
+                                      void* dvec_part, void* dw, void* dvec, int B, int T_in,
+                                      int T_out, int C, int K, int row_blocks, int R,
+                                      void* stream) {
+  if (C != kC) return -1;
+  if (B <= 0 || T_out <= 0 || row_blocks <= 0) return 0;
+  if (!valid_ranges(B, T_out, R)) return -1;
+  const BwdBuffers p{x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, dw, dvec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K == 2)
-    return launch_bwd<2, kFull>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B,
-                                T_in, T_out, row_blocks, chunk, n_chunks, s);
-  if (K == 3)
-    return launch_bwd<3, kFull>(x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B,
-                                T_in, T_out, row_blocks, chunk, n_chunks, s);
+  if (K == 2) return launch_bwd<2, kFull>(p, B, T_in, T_out, row_blocks, R, s);
+  if (K == 3) return launch_bwd<3, kFull>(p, B, T_in, T_out, row_blocks, R, s);
   return -1;
 }
 
@@ -646,17 +859,14 @@ extern "C" int coral_conv_ln_gelu_bwd_probe(int mode, const void* x, const void*
                                             const void* gamma, const void* beta,
                                             const void* xhat, const void* rstd, const void* dy,
                                             void* da, void* dx, void* dw_part, void* dvec_part,
-                                            int B, int T_in, int T_out, int C, int K,
-                                            int row_blocks, int chunk, int n_chunks,
+                                            void* dw, void* dvec, int B, int T_in, int T_out,
+                                            int C, int K, int row_blocks, int R,
                                             void* const* events, void* stream) {
-  if (C != kC || chunk <= 0 || chunk % kWBK || mode < 0 || mode > kMmOnly) return -1;
-  if (B <= 0 || T_out <= 0 || row_blocks <= 0 || n_chunks <= 0) return -1;
+  if (C != kC || mode < 0 || mode > kMmOnly) return -1;
+  if (B <= 0 || T_out <= 0 || row_blocks <= 0 || !valid_ranges(B, T_out, R)) return -1;
+  const BwdBuffers p{x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, dw, dvec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K == 2)
-    return launch_probe<2>(mode, x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part,
-                           B, T_in, T_out, row_blocks, chunk, n_chunks, s, events);
-  if (K == 3)
-    return launch_probe<3>(mode, x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part,
-                           B, T_in, T_out, row_blocks, chunk, n_chunks, s, events);
+  if (K == 2) return launch_probe<2>(mode, p, B, T_in, T_out, row_blocks, R, s, events);
+  if (K == 3) return launch_probe<3>(mode, p, B, T_in, T_out, row_blocks, R, s, events);
   return -1;
 }

@@ -159,6 +159,74 @@ struct Dl {
   using OutT = OutT_;
 };
 
+// The ring's mbarriers, kS stages of them from shared address `bars`: stage s
+// is `full` once its copies landed and `empty` once its consumers' warps are
+// done with it; ring iteration i uses stage i % kS in phase i / kS. The FFN
+// kernels' Layout places one after its buffers (Layout::ring), and the
+// feature encoder's conv kernels (csrc/conv_ln_gelu.cu) run on the same ring.
+template <int kS>
+struct Ring {
+  uint32_t bars;
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8 * (kS + s); }
+  // One thread: `full` counts the TMA's expect_tx, `empty` the consumer warps.
+  __device__ __forceinline__ void init(int consumer_warps) const {
+    for (int s = 0; s < kS; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), consumer_warps);
+    }
+  }
+  __device__ __forceinline__ void wait_full(int i) const {
+    hopper::mbar_wait(full(i % kS), (i / kS) & 1);
+  }
+  __device__ __forceinline__ void wait_empty(int i) const {
+    hopper::mbar_wait(empty(i % kS), ((i / kS) & 1) ^ 1);
+  }
+  // A consumer warp's lane 0: iteration i's stage may be refilled.
+  __device__ __forceinline__ void release(int i) const { hopper::mbar_arrive(empty(i % kS)); }
+  // The producer's thread: iterations first .. n_iter - 1, each started by
+  // load(i) once its stage is free (the prologue started the ones before).
+  template <class Load>
+  __device__ __forceinline__ void produce(int first, int n_iter, Load&& load) const {
+#pragma unroll 1
+    for (int i = first; i < n_iter; ++i) {
+      wait_empty(i);
+      load(i);
+    }
+  }
+  // A consumer warpgroup's pass over iterations i0 .. i0 + n - 1 (n >= 1) of a
+  // ring of kStage-byte stages from `base`: once a stage's copies landed,
+  // products(stage address, first) issues its wgmma (first: the pass's first
+  // chunk, which starts the accumulators), committed as one group; the
+  // previous stage is released once its group is done, the last once all are.
+  template <int kStage, class Products>
+  __device__ __forceinline__ void consume(uint32_t base, int i0, int n, int lane,
+                                          Products&& products) const {
+#pragma unroll 1
+    for (int c = 0; c < n; ++c) {
+      const int i = i0 + c;
+      wait_full(i);
+      hopper::wgmma_fence();
+      products(base + (i % kS) * kStage, c == 0);
+      hopper::wgmma_commit();
+      if (c > 0) {
+        hopper::wgmma_wait<1>();
+        if (lane == 0) release(i - 1);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    if (lane == 0) release(i0 + n - 1);
+  }
+};
+
+// The block's dynamic shared memory from its first 1024-byte boundary, the
+// alignment the 128-byte swizzle patterns need.
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  return smem_raw + (((raw + 1023u) & ~1023u) - raw);
+}
+
 // Shared memory: the ring (per stage A, B, and with kDgIn dy's chunk and
 // W2's tile, each 1024-aligned), then the forward's staging (2 x 64 x 256
 // bf16), the backward's dg tile (without kDgIn: 128 x 128 bf16 as two
@@ -185,12 +253,7 @@ struct Layout {
   static_assert(kStage % 1024 == 0 && kStaging % 1024 == 0 && kDg % 1024 == 0,
                 "each tile 1024-aligned");
   static_assert(kSmem <= kMaxSmem, "the ring and the epilogue's buffers must fit a block");
-  static __device__ __forceinline__ uint32_t full(uint32_t base, int s) {
-    return base + kBars + 8 * s;
-  }
-  static __device__ __forceinline__ uint32_t empty(uint32_t base, int s) {
-    return base + kBars + 8 * (kS + s);
-  }
+  static __device__ __forceinline__ Ring<kS> ring(uint32_t base) { return {base + kBars}; }
   static __device__ __forceinline__ uint32_t dg_full(uint32_t base) {
     return base + kBars + 8 * 2 * kS;
   }
@@ -277,7 +340,7 @@ __device__ __forceinline__ void load_stage(const Maps& m, uint32_t base, int i, 
   const int s = i % P::kStages, tile = i / n_k, k = i - tile * n_k;
   const int n0 = (c0 + tile) * P::kN, k0 = k * kChunk;
   const uint32_t st = base + s * L::kStage;
-  const uint32_t bar = L::full(base, s);
+  const uint32_t bar = L::ring(base).full(s);
   hopper::mbar_arrive_expect_tx(bar, L::kStage);
   hopper::tma_load_2d(st + L::kA, &m.a, bar, k0, m0);
   if constexpr (P::kDl) {
@@ -350,12 +413,8 @@ __device__ __forceinline__ void produce(const Maps& m, const Args& a, uint32_t b
   using L = Layout<P>;
   hopper::reg_dealloc<kProducerRegs>();
   if (threadIdx.x != 0) return;
-  const int n_iter = a.tiles * n_k;
-#pragma unroll 1
-  for (int i = P::kStages; i < n_iter; ++i) {
-    hopper::mbar_wait(L::empty(base, i % P::kStages), ((i / P::kStages) & 1) ^ 1);
-    load_stage<P>(m, base, i, n_k, m0, c0);
-  }
+  L::ring(base).produce(P::kStages, a.tiles * n_k,
+                        [&](int i) { load_stage<P>(m, base, i, n_k, m0, c0); });
 }
 
 // The keep flags of columns 2 q and 2 q + 1 of an 8-column group whose
@@ -573,6 +632,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
     }
   }
   const uint32_t a_rows = L::kA + ln.wg * 64 * 128;  // the warpgroup's rows of A
+  const Ring<kS> ring = L::ring(base);
   const float2* stats = reinterpret_cast<const float2*>(smem + L::kStats);
   // kLn: waits for ring iteration j's copy and normalises the warpgroup's
   // rows of its x chunk (k0 its first column, emit: column tile 0).
@@ -581,7 +641,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
     float ga[8], be[8];
     coral_loadv<8>(gamma + k0 + 8 * (ln.t % 8), ga);
     coral_loadv<8>(gamma + P::D + k0 + 8 * (ln.t % 8), be);
-    hopper::mbar_wait(L::full(base, j % kS), (j / kS) & 1);
+    ring.wait_full(j);
     normalise<P>(a, base + (j % kS) * L::kStage + L::kA, stats, 64 * ln.wg, ln.t, k0, m0, emit,
                  ga, be);
     hopper::fence_proxy_async();
@@ -598,7 +658,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
 #pragma unroll 1
     for (int k = 0; k < n_k; ++k) {
       const int i = tile * n_k + k, s = i % kS;
-      if constexpr (!P::kLn) hopper::mbar_wait(L::full(base, s), (i / kS) & 1);
+      if constexpr (!P::kLn) ring.wait_full(i);
       const uint32_t st = base + s * L::kStage;
       hopper::fence_regs(acc0);
       if constexpr (kAcc1 > 1) hopper::fence_regs(acc1);
@@ -626,7 +686,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
       hopper::wgmma_commit();
       if (k > 0) {
         hopper::wgmma_wait<1>();  // the previous chunk's products are done with its stage
-        if (ln.lane == 0) hopper::mbar_arrive(L::empty(base, (i - 1) % kS));
+        if (ln.lane == 0) ring.release(i - 1);
       }
       // The next chunk's LayerNorm pass while this chunk's products run; after
       // the release above, so the producer's copies keep the ring full.
@@ -640,7 +700,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc0);
     if constexpr (kAcc1 > 1) hopper::fence_regs(acc1);
-    if (ln.lane == 0) hopper::mbar_arrive(L::empty(base, (tile * n_k + n_k - 1) % kS));
+    if (ln.lane == 0) ring.release(tile * n_k + n_k - 1);
     if constexpr (P::kFwd) {
       epilogue_fwd<P>(a, ln, base + L::kStaging + ln.wg * (64 * 512), acc0, acc1, n0, r0,
                       t_mine, seed_mine);
@@ -663,17 +723,12 @@ __device__ __forceinline__ void mainloop(const Maps& m, const Args& a) {
   static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
                     kThreads * (65536 / kThreads / 8 * 8),
                 "setmaxnreg's split exceeds the block's registers");
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = hopper::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle patterns need 1024
-  unsigned char* smem = smem_raw + (base - raw);
+  unsigned char* smem = aligned_smem();
+  const uint32_t base = hopper::smem_u32(smem);
   const int n_k = a.K / kChunk;
   const int m0 = blockIdx.x * kRows, c0 = blockIdx.y * a.tiles;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < P::kStages; ++s) {
-      hopper::mbar_init(L::full(base, s), 1);   // the TMA's expect_tx
-      hopper::mbar_init(L::empty(base, s), 8);  // the consumers' warps
-    }
+    L::ring(base).init(8);  // the consumers' warps free a stage
     hopper::mbar_init(L::dg_full(base), 1);
     hopper::mbar_init(L::dg_empty(base), 8);
     hopper::fence_barrier_init();
@@ -865,6 +920,80 @@ int launch_bwd(const bf16* x, const bf16* w1, const float* b1, const float* gamm
   if (err != 0) return err;
   return launch_dl<OutT>(dh, w1, out, M, K, F, s);
 }
+
+// --- A^T B over rows ------------------------------------------------------------------
+//
+// out (M x N) = the sum over rows of A^T B, for A (rows x M) and B (rows x N)
+// row-major bf16: a weight gradient, whose reduction runs over every row of a
+// batch (K3's dW_j = da^T x_j, csrc/conv_ln_gelu.cu; the shape of N6's dW1 =
+// dh^T ln_out and dW2 = g^T dy). A block takes one 128 x 128 tile of out over
+// one range of 64-row chunks and writes it as an fp32 partial; the caller
+// sums the ranges' partials in a fixed order, so two calls give the same
+// bits (no atomics). A stage holds a chunk's 64 rows of the tile's two
+// 64-column blocks of A, then of B, as four 64 x 64 TMA boxes (128-byte
+// swizzled, rows past the data zero); both operands enter wgmma M- and
+// N-major (both transpose bits), each consumer warpgroup 64 of the M rows.
+namespace atb {
+
+constexpr int kBox = 64 * 128;    // 64 rows of one 64-column block: 8 KB
+constexpr int kStage = 4 * kBox;  // A's two boxes, then B's
+constexpr int kStages = 4;
+constexpr int kBars = kStages * kStage;
+constexpr int kSmem = kBars + 16 * kStages + 1024;
+
+// The block's tile: load(i, stage, bar) issues chunk i's four boxes (A's at
+// stage and stage + kBox, B's at stage + 2 kBox and + 3 kBox) completing on
+// `bar`; the tile's fp32 sum over chunks 0 .. n_chunks - 1 (zero for none) is
+// stored to out (rows ld_out floats apart) from row m0 and column n0. A
+// kernel of kThreads threads with kSmem bytes of dynamic shared memory.
+template <class Load>
+__device__ __forceinline__ void tile(Load&& load, int n_chunks, float* out, long long ld_out,
+                                     int m0, int n0) {
+  const uint32_t base = hopper::smem_u32(aligned_smem());
+  const Ring<kStages> ring{base + kBars};
+  auto start = [&](int i) {
+    const uint32_t bar = ring.full(i % kStages);
+    hopper::mbar_arrive_expect_tx(bar, kStage);
+    load(i, base + (i % kStages) * kStage, bar);
+  };
+  if (threadIdx.x == 0) {
+    ring.init(8);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    for (int i = 0; i < n_chunks && i < kStages; ++i) start(i);
+    ring.produce(kStages, n_chunks, start);
+    return;
+  }
+  hopper::reg_alloc<kConsumerRegs>();
+  const Lane ln;
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  if (n_chunks > 0)
+    ring.consume<kStage>(base, 0, n_chunks, ln.lane, [&](uint32_t st, bool first) {
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_m64n128k16_ss_tt(
+            acc, hopper::smem_desc(st + ln.wg * kBox + 2048 * kk, 1024, 128, kBox),
+            hopper::smem_desc(st + 2 * kBox + 2048 * kk, 1024, 128, kBox), !first || kk > 0);
+    });
+  hopper::fence_regs(acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* row = out + (long long)(m0 + 64 * ln.wg + ln.row + 8 * h) * ld_out + n0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * ln.quad) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+}  // namespace atb
 
 }  // namespace gemm
 

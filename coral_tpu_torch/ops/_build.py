@@ -56,12 +56,12 @@ _SIGNATURES = {
     "coral_ln_bwd_blocks": [_I, _I, _I, _I],
     # x, w, bias, gamma, beta, y, xhat, rstd, B, T_in, T_out, C, K, eps, stream
     "coral_conv_ln_gelu": [_P] * 8 + [_I] * 5 + [_F, _P],
-    # x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, B, T_in,
-    # T_out, C, K, row_blocks, chunk, n_chunks, stream
-    "coral_conv_ln_gelu_bwd": [_P] * 11 + [_I] * 8 + [_P],
-    # mode, then coral_conv_ln_gelu_bwd's arguments up to n_chunks, events (4
+    # x, w, gamma, beta, xhat, rstd, dy, da, dx, dw_part, dvec_part, dw, dvec,
+    # B, T_in, T_out, C, K, row_blocks, R, stream
+    "coral_conv_ln_gelu_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    # mode, then coral_conv_ln_gelu_bwd's arguments up to R, events (4
     # cudaEvent_t or null), stream: the probe's modes (tools/probe_fe_bwd.py)
-    "coral_conv_ln_gelu_bwd_probe": [_I] + [_P] * 11 + [_I] * 8 + [_P, _P],
+    "coral_conv_ln_gelu_bwd_probe": [_I] + [_P] * 13 + [_I] * 7 + [_P, _P],
     # x, w, out, M, D, F, n1, n2, prng, seed, stream (tools/probe_gelu_cost.py)
     "coral_probe_gelu_cost": [_P] * 3 + [_LL, _I, _I, _I, _I, _I, _U, _P],
     # x, w, ones, out, M, D, mxu, nred, stream (tools/probe_lane_reduce.py)

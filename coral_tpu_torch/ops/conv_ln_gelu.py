@@ -27,7 +27,25 @@ from .gelu_poly import _dgelu, gelu_poly
 
 KERNEL_C = 512
 _BWD_ROW_BLOCKS = 528  # 4 blocks of 8 rows per SM of an H100; partials (528, 3, C)
-_DW_CHUNK = 2048  # rows of one batch row per dW partial (a multiple of 32)
+_DW_CHUNK = 64  # rows of one batch row in a chunk of dW's reduction
+# The dW kernel's blocks at most: 16 tiles of 128 x 128 a tap times R row
+# ranges. A constant (four waves of one block an SM on an H100's 132 SMs),
+# so that the split, and with it dW's bits, depends on the shape alone.
+_DW_BLOCKS = 528
+
+
+def dw_ranges(B: int, T_out: int, k: int) -> int:
+    """R, the ranges of 64-row chunks (one batch row each, ``B * ceil(T_out /
+    64)`` of them) over which the dW kernel splits its reduction: as many as
+    keep ``16 k R`` within ``_DW_BLOCKS``, at least one chunk each."""
+    chunks = B * -(-T_out // _DW_CHUNK)
+    return max(1, min(chunks, _DW_BLOCKS // (16 * k)))
+
+
+def bwd_partials(B: int, T_out: int, k: int) -> tuple[int, int]:
+    """(row_blocks, R): the row kernel's blocks, each writing one (3, C)
+    partial of dvec, and dW's row ranges, each writing a (k, C, C) partial."""
+    return max(1, min(-(-B * T_out // 8), _BWD_ROW_BLOCKS)), dw_ranges(B, T_out, k)
 
 
 def conv_ln_gelu_fwd_plain(x, w, b, gamma, beta, eps: float = 1e-5):
@@ -149,6 +167,9 @@ def conv_ln_gelu_fwd(x, w, b, gamma, beta, eps: float = 1e-5, residuals: bool = 
 
 def conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, dy):
     """The backward kernels; arguments and results as ``conv_ln_gelu_bwd_plain``.
+    One launch: the row kernel, dx, dW's partials over ``dw_ranges`` row
+    ranges, and the finish that sums them (and dvec's) in a fixed order into
+    dW in the Conv1d layout: two calls give the same bits.
 
     Args:
         x: (B, T_in, 512) bf16, the forward's input; w: (C_out, C_in, k).
@@ -165,26 +186,25 @@ def conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, dy):
     _build.check_cuda(name, torch.float32, rstd)
     if xhat.shape != (B, T_out, C) or dy.shape != (B, T_out, C) or rstd.shape != (B, T_out):
         raise ValueError(f"{name}: xhat and dy must be ({B}, {T_out}, {C}), rstd ({B}, {T_out})")
-    rows = B * T_out
-    row_blocks = max(1, min(-(-rows // 8), _BWD_ROW_BLOCKS))
-    n_chunks = -(-T_out // _DW_CHUNK)
+    row_blocks, R = bwd_partials(B, T_out, k)
     da = torch.empty_like(dy)
     dx = torch.empty_like(x)
-    dw_part = torch.empty((B * n_chunks, k, C, C), dtype=torch.float32, device=x.device)
+    dw_part = torch.empty((R, k, C, C), dtype=torch.float32, device=x.device)
     dvec_part = torch.empty((row_blocks, 3, C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((C, C, k), dtype=torch.float32, device=x.device)
+    dvec = torch.empty((3, C), dtype=torch.float32, device=x.device)
     _build.launch(
         name, "conv_ln_gelu_bwd", x.data_ptr(), wp.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), xhat.data_ptr(), rstd.data_ptr(), dy.data_ptr(), da.data_ptr(),
-        dx.data_ptr(), dw_part.data_ptr(), dvec_part.data_ptr(), B, T_in, T_out, C, k,
-        row_blocks, _DW_CHUNK, n_chunks,
+        dx.data_ptr(), dw_part.data_ptr(), dvec_part.data_ptr(), dw.data_ptr(), dvec.data_ptr(),
+        B, T_in, T_out, C, k, row_blocks, R,
     )
-    # (k, C_out, C_in) -> the Conv1d layout (C_out, C_in, k)
-    return dx, dw_part.sum(0).permute(1, 2, 0), dvec_part.sum(0)
+    return dx, dw, dvec
 
 
 class _ConvLnGelu(torch.autograd.Function):
     """``_conv_ln_gelu``'s custom VJP: residuals (x, w, gamma, beta, xhat,
-    rstd); dW summed over its partials in fp32 and rounded to the working
+    rstd); dW summed in fp32 and rounded to the working
     dtype (the JAX kernel's w is ``w.astype(x.dtype)``), then to w's; db in
     fp32, then b's dtype; dgamma and dbeta cast to their parameters' dtypes."""
 

@@ -21,11 +21,13 @@ forwards against builds with one of their design choices undone
 (``python -m coral_tpu_torch.tools.fwd_variants``), ``probe_ln_host`` the
 LayerNorm wrappers' host path piece by piece, ``probe_decode`` the decode
 attention wrappers at Whisper large-v3's decode shapes, at every cluster
-size (``python -m coral_tpu_torch.tools.probe_decode --clusters``), and
+size (``python -m coral_tpu_torch.tools.probe_decode --clusters``),
 ``probe_ffn`` the FFN mainloop's wrappers at the main paths' shapes, by
 kernel, beside cuBLAS's fc1 product (``python -m
 coral_tpu_torch.tools.probe_ffn``; run from a copy of the package with an
-edited ``csrc/`` to time a variant).
+edited ``csrc/`` to time a variant), and ``probe_conv`` K3's wrappers at FE
+blocks 1 and 5, by kernel, beside cuDNN's convolution alone (``python -m
+coral_tpu_torch.tools.probe_conv``, likewise).
 
 Each prints one JSON line per case: the median of CUDA-event times, the
 floor (the larger of the case's operations at the H100's dense bf16 peak and

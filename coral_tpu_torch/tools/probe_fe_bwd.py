@@ -2,9 +2,9 @@
 
 Port of ``tools/probe_fe_bwd.py`` (``_bwd_variant`` :138 -> ``_variant_kernel``
 :50) to the H100: each mode runs the port's K3 backward
-(``csrc/conv_ln_gelu.cu``: the row kernel, the dx kernel, the dW kernel)
-with one phase removed, so that the difference to ``full`` is that phase's
-cost; each launch is timed on its own too. The modes, as the kernels' source
+(``csrc/conv_ln_gelu.cu``: the row kernel, the dx kernel, the dW kernel and
+its finish) with one phase removed, so that the difference to ``full`` is
+that phase's cost; each launch is timed on its own too (dW with the finish). The modes, as the kernels' source
 describes them:
 
   full      the production kernels (``conv_ln_gelu_bwd``'s, bit for bit)
@@ -150,7 +150,8 @@ def bwd_variant(x, w, gamma, beta, xhat, rstd, dy, mode: str, events=None):
     Args:
         events: None, or 4 ``torch.cuda.Event`` (already recorded once, so
             that they exist) that the kernels record before the row kernel
-            and after each of the three launches, a skipped one included.
+            and after the row kernel, dx, and dW with the finish, a skipped
+            one included.
     """
     name = "coral_conv_ln_gelu_bwd_probe"
     _check_mode(mode)
@@ -164,28 +165,22 @@ def bwd_variant(x, w, gamma, beta, xhat, rstd, dy, mode: str, events=None):
         raise ValueError(f"{name}: xhat and dy must be ({B}, {T_out}, {C}), rstd ({B}, {T_out})")
     if events is not None and len(events) != 4:
         raise ValueError(f"{name}: events must be 4 CUDA events")
-    rows = B * T_out
-    row_blocks = max(1, min(-(-rows // 8), _conv._BWD_ROW_BLOCKS))
-    n_chunks = -(-T_out // _conv._DW_CHUNK)
+    row_blocks, R = _conv.bwd_partials(B, T_out, k)
     da = torch.empty_like(dy)
-    # The modes that leave rows of dx unwritten get zeros there.
+    # The modes that leave rows of dx, dW or dvec unwritten get zeros there.
     dx = torch.zeros_like(x) if mode in ("no_dx", "no_inter") else torch.empty_like(x)
-    dw_part = torch.empty((B * n_chunks, k, C, C), dtype=torch.float32, device=x.device)
+    new = {True: torch.zeros, False: torch.empty}
+    dw = new[mode == "no_dw"]((C, C, k), dtype=torch.float32, device=x.device)
+    dvec = new[mode in ("no_vpu", "no_dvec", "mm_only")]((3, C), dtype=torch.float32,
+                                                          device=x.device)
+    dw_part = torch.empty((R, k, C, C), dtype=torch.float32, device=x.device)
     dvec_part = torch.empty((row_blocks, 3, C), dtype=torch.float32, device=x.device)
     handles = None if events is None else (ctypes.c_void_p * 4)(*(e.cuda_event for e in events))
     _build.launch(name, f"probe_fe_bwd_{mode}", MODES.index(mode), x.data_ptr(), wp.data_ptr(),
                   gamma.data_ptr(), beta.data_ptr(), xhat.data_ptr(), rstd.data_ptr(),
                   dy.data_ptr(), da.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
-                  dvec_part.data_ptr(), B, T_in, T_out, C, k, row_blocks, _conv._DW_CHUNK,
-                  n_chunks, None if handles is None else ctypes.addressof(handles))
-    if mode == "no_dw":
-        dw = torch.zeros((C, C, k), dtype=torch.float32, device=x.device)
-    else:
-        dw = dw_part.sum(0).permute(1, 2, 0)
-    if mode in ("no_vpu", "no_dvec", "mm_only"):
-        dvec = torch.zeros((3, C), dtype=torch.float32, device=x.device)
-    else:
-        dvec = dvec_part.sum(0)
+                  dvec_part.data_ptr(), dw.data_ptr(), dvec.data_ptr(), B, T_in, T_out, C, k,
+                  row_blocks, R, None if handles is None else ctypes.addressof(handles))
     return dx, dw, dvec
 
 

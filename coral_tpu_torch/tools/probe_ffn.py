@@ -46,10 +46,10 @@ PRODUCTS = {"ffn_ln_fc1_fwd": 1, "ffn_fc1_fwd": 1, "ffn_bwd": 3, "ffn_fc1_bwd": 
 KERNELS = ("ffn_fwd_kernel", "ffn_bwd_kernel", "dl_kernel", "ln_bwd")
 
 
-def device_ms_by_kernel(fn, reps: int) -> dict:
-    """Device ms a call of ``fn`` by kernel name under the profiler: the FFN
-    mainloop's kernels and the LayerNorm backward by name, the rest summed
-    as "other"."""
+def device_ms_by_kernel(fn, reps: int, kernels=KERNELS) -> dict:
+    """Device ms a call of ``fn`` by kernel name under the profiler: the
+    names in ``kernels`` (by default the FFN mainloop's kernels and the
+    LayerNorm backward), the rest summed as "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -62,7 +62,7 @@ def device_ms_by_kernel(fn, reps: int) -> dict:
     out: dict = defaultdict(float)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = next((k for k in KERNELS if k in e.name), "other")
+            name = next((k for k in kernels if k in e.name), "other")
             out[name] += (e.time_range.end - e.time_range.start) / 1e3 / reps
     return dict(out)
 

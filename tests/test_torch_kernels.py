@@ -50,6 +50,14 @@ against the plain versions through the padded call, at head_dim 64, 80 and
 120; the GELU+dropout kernel at rtol 2**-6 and atol 1e-2 as the other row
 kernels, its masks exact.
 
+K3, the feature encoder's conv block (``-k "conv or fe_bwd"``): the serving
+and training forwards and the backward at T_out 63 to 129 around the
+forward's 128-row tiles and dW's 64-row chunks, from odd and even T_in, with
+B = 3 where one batch row's last tile meets the next one's rows, at the
+tolerances above; input rows no output reads get dx = 0; one launch a call;
+dx, dW and dvec the same bits over two calls (dW's row ranges and dvec's
+partials summed in a fixed order), the forwards too.
+
 The probes (``coral_tpu_torch/tools``): the K3 backward's modes as the
 production backward's gradients (``full`` bit for bit its kernels' output);
 the gelu_cost and lane_reduce kernels' bf16 outputs as the other rounded
@@ -147,15 +155,22 @@ def test_ln_kernel_matches_plain(cuda, C, dtype, apply_gelu):
            1e-2)
 
 
-@pytest.mark.parametrize("k,T_in", [(3, 1001), (2, 258), (3, 3)])
-def test_conv_kernel_matches_plain(cuda, k, T_in):
+# K3's (k, T_in, B): T_out (T_in - k) // 2 + 1 around the forward's 128-row
+# tiles and the dW chunks' 64 (63, 64, 65, 127, 128, 129), from odd and even
+# T_in, B > 1 where one batch row's last tile meets the next one's rows.
+CONV_EDGES = [(3, 127, 2), (3, 130, 3), (3, 131, 2), (3, 256, 2), (3, 257, 3), (3, 260, 2),
+              (2, 126, 3), (2, 129, 2), (2, 130, 2), (2, 255, 2), (2, 256, 3), (2, 258, 2)]
+
+
+@pytest.mark.parametrize("k,T_in,B", [(3, 1001, 2), (2, 258, 2), (3, 3, 2), *CONV_EDGES])
+def test_conv_kernel_matches_plain(cuda, k, T_in, B):
     C = 512
-    x = _on(cuda, _np(2, T_in, C, seed=0), torch.bfloat16)
+    x = _on(cuda, _np(B, T_in, C, seed=0), torch.bfloat16)
     w = _on(cuda, _np(C, C, k, seed=1, scale=0.05), torch.bfloat16)
     b, gamma, beta = (_on(cuda, _np(C, seed=s, scale=0.1, offset=o))
                       for s, o in ((2, 0.0), (3, 1.0), (4, 0.0)))
     y = conv_ln_gelu.conv_ln_gelu(x, w, b, gamma, beta)
-    assert y.shape == (2, (T_in - k) // 2 + 1, C)
+    assert y.shape == (B, (T_in - k) // 2 + 1, C)
     _close(y, conv_ln_gelu.conv_ln_gelu_plain(x, w, b, gamma, beta), 1e-2)
 
 
@@ -741,11 +756,11 @@ def _conv_inputs(cuda, k, T_in, B=2):
     return x, w, b, gamma, beta
 
 
-@pytest.mark.parametrize("k,T_in", [(3, 1001), (2, 258), (3, 1025)])
-def test_conv_train_forward_kernel_matches_plain(cuda, k, T_in):
+@pytest.mark.parametrize("k,T_in,B", [(3, 1001, 2), (2, 258, 2), (3, 1025, 2), *CONV_EDGES])
+def test_conv_train_forward_kernel_matches_plain(cuda, k, T_in, B):
     """The training launch: y as the serving launch, plus xhat (bf16) and
     rstd (fp32)."""
-    args = _conv_inputs(cuda, k, T_in)
+    args = _conv_inputs(cuda, k, T_in, B)
     _build.reset_launch_counts()
     y, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(*args)
     assert _build.launch_counts == {"conv_ln_gelu_train": 1}
@@ -757,13 +772,15 @@ def test_conv_train_forward_kernel_matches_plain(cuda, k, T_in):
     assert torch.equal(y, conv_ln_gelu.conv_ln_gelu_fwd(*args, residuals=False)[0])
 
 
-@pytest.mark.parametrize("k,T_in", [(3, 1101), (3, 1102), (2, 999), (3, 1025), (2, 5)])
-def test_conv_bwd_kernel_matches_plain(cuda, k, T_in):
+@pytest.mark.parametrize("k,T_in,B", [(3, 1101, 2), (3, 1102, 2), (2, 999, 2), (3, 1025, 2),
+                                     (2, 5, 2), *CONV_EDGES])
+def test_conv_bwd_kernel_matches_plain(cuda, k, T_in, B):
     """dx, dW and (dgamma, dbeta, dbias) against the plain formula; ragged
-    tiles of rows and of dW chunks, and input rows that no output reads (past
-    2 (T_out - 1) + k - 1) come out exactly 0 even where the allocator hands
-    back memory full of NaN."""
-    x, w, b, gamma, beta = _conv_inputs(cuda, k, T_in)
+    tiles of rows, of dx's 128 row pairs (the k = 3 halo row at a tile edge)
+    and of dW's 64-row chunks, batch rows meeting inside a tile, and input
+    rows that no output reads (past 2 (T_out - 1) + k - 1) come out exactly 0
+    even where the allocator hands back memory full of NaN."""
+    x, w, b, gamma, beta = _conv_inputs(cuda, k, T_in, B)
     _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)
     dy = _on(cuda, _np(*xhat.shape, seed=5), torch.bfloat16)
     torch.full((4 * x.numel(),), float("nan"), device=cuda)  # freed: dirty memory
@@ -777,6 +794,23 @@ def test_conv_bwd_kernel_matches_plain(cuda, k, T_in):
     _close_rel(got[2], want[2], 1e-2)
     read = 2 * (xhat.shape[1] - 1) + k
     assert not got[0][:, read:].any() and not want[0][:, read:].any()
+
+
+@pytest.mark.parametrize("k,T_in,B", [(3, 31999, 2), (2, 1999, 8), (3, 259, 3)])
+def test_conv_bwd_gives_the_same_bits_twice(cuda, k, T_in, B):
+    """dW's row ranges and dvec's block partials are summed in a fixed order
+    (no atomics): two calls give the same bits, dx too; at FE block 1's and
+    5's row counts and at a ragged one."""
+    x, w, b, gamma, beta = _conv_inputs(cuda, k, T_in, B)
+    _, xhat, rstd = conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)
+    dy = _on(cuda, _np(*xhat.shape, seed=5), torch.bfloat16)
+    first = conv_ln_gelu.conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, dy)
+    second = conv_ln_gelu.conv_ln_gelu_bwd(x, w, gamma, beta, xhat, rstd, dy)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    y1 = conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)
+    for a, c in zip(y1, conv_ln_gelu.conv_ln_gelu_fwd(x, w, b, gamma, beta)):
+        assert torch.equal(a, c)
 
 
 def test_conv_autograd_kernel_path_matches_plain(cuda):
