@@ -145,8 +145,10 @@ non-zero before the result line is printed:
    each with exact launch counts;
 14. the LayerNorm-folded block's variants: N5 (dg read in), N6 (the weight
    gradients in the kernels) and N7 (fc2 in the forward kernel) checked with
-   the other kernels in phase 3 (at rate 0 and 0.1, at D 384 and 1920 too;
-   N7's mask against N5's, bit for bit); (n) (c)'s configuration with
+   the other kernels in phase 3 (at rate 0 and 0.1, at D 384, 512, 768 and
+   1920 too; N7's mask against N5's, bit for bit; N7's y and N6's dW1 and
+   dW2 the same bits on a second call; N7's cluster size and the clusters
+   the card holds at once, N6's row ranges); (n) (c)'s configuration with
    ``fused_ffn_block_fc2: true``: one serving batch, the kernel path against
    the plain path on one microbatch at activation dropout 0.1, 3 steps; (n')
    with ``fused_ffn_block_dw: true``: kernel against plain, 3 steps; (n'')
@@ -199,6 +201,7 @@ did.
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 import json
 import math
@@ -2083,14 +2086,14 @@ def whisper_run(card: str) -> dict:
     full = {"input_values": np.stack([np.resize(c, T) for c in clips[-BATCH:]]),
             "input_lengths": np.full((BATCH,), T, np.int32)}
     encoder_ms, n, step_ms = whisper_device_times(model, feats, ids[:, 0])
-    latency = timed(lambda: predictor(full), 2)
+    latency = timed(lambda: predictor(full), 1)
     full_steps = decode_steps(predictor.generate(model, full).cpu().numpy(), eos)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    wall = timed(lambda: asr.transcribe_batch(clips), 2)
+    wall = timed(lambda: asr.transcribe_batch(clips), 1)
     peak = torch.cuda.max_memory_allocated()
     print(f"whisper serving ({card}): {seconds.sum() / wall:.3f} audio-s/s over "
-          f"{seconds.sum():.1f} s of audio in {len(clips)} clips (median of 2); latency "
+          f"{seconds.sum():.1f} s of audio in {len(clips)} clips (one timed call); latency "
           f"{latency * 1e3:.3f} ms per batch of {BATCH} x 30 s ({full_steps} decode steps); "
           f"encoder {encoder_ms:.3f} ms per batch (median of 3); {step_ms:.3f} ms per decode "
           f"step (host clock over {n} steps, cache of 64); peak memory {peak / 2**30:.3f} GiB",
@@ -3342,7 +3345,11 @@ def block_case(kernel: str, D: int, T: int, rate: float, randn, seeds):
             return ffn.ffn_ln_fc2_fwd_plain(x, w1, b1, g, b, w2, b2, rate=rate, seeds=s)
 
         def check():
-            res = compare(tag, launch(), plain(), key="ffn_ln_fc2")
+            y = launch()
+            res = compare(tag, y, plain(), key="ffn_ln_fc2")
+            twice = bool(torch.equal(y, launch()))
+            print(f"  {tag}: the same bits on a second call: {twice}", flush=True)
+            res["ok"] = res["ok"] and twice
             # The mask: y's columns under selection weights against N5's g.
             g5 = ffn.ffn_ln_g_bwd(x, w1, b1, g, b, torch.zeros_like(dg), rate=rate, seeds=s)[0]
             same = True
@@ -3427,6 +3434,10 @@ def block_case(kernel: str, D: int, T: int, rate: float, randn, seeds):
             res["ok"] = res["ok"] and all(
                 compare_grad(f"{tag} {n} on N5's operands", k, p, GRAD_FRAC["dw_kernel"])["ok"]
                 for n, k, p in zip(("dW1", "dW2"), got[1:3], ffn.ffn_dw_plain(dh5, ln5, dy, g5)))
+            twice = all(bool(torch.equal(a, b_)) for a, b_ in zip(got, launch()))
+            print(f"  {tag}: dW over {ffn.ffn_dw_ranges(M, D, F)} row range(s); the same bits "
+                  f"on a second call (dx, dW1, dW2, db1, dgamma, dbeta): {twice}", flush=True)
+            res["ok"] = res["ok"] and twice
         return res
 
     return check, launch, plain, work, yardstick, note
@@ -3447,7 +3458,7 @@ BLOCK_CHECKS = (("fc2", 1024, 1499, 0.1), ("fc2", 1024, 499, 0.0), ("g_bwd", 102
                 ("dw_bwd", 1024, 499, 0.0), ("g_bwd", 1280, 1500, 0.0),
                 ("dw_bwd", 1280, 1500, 0.0),
                 *((k, 1280, 128, 0.1) for k in ("fc2", "g_bwd", "dw_bwd")),
-                *((k, D, T, r) for D, T in ((384, 1500), (1920, 499))
+                *((k, D, T, r) for D, T in ((384, 1500), (512, 1500), (768, 1500), (1920, 499))
                   for k in ("fc2", "g_bwd", "dw_bwd") for r in (0.0, 0.1)))
 
 
@@ -3464,13 +3475,25 @@ def block_variant_checks(card: str) -> dict:
 
     seeds = torch.randint(-(2**31), 2**31, (BATCH,), generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
+    from coral_tpu_torch.ops import _build, ffn
+
+    for D in ffn.KERNEL_D:
+        c = ctypes.c_int(0)
+        n = _build.library().coral_ffn_ln_fc2_clusters(D, ctypes.byref(c))
+        print(f"  ffn_ln_fc2 D {D}: clusters of {c.value} blocks ({D // c.value} of y's columns "
+              f"each), {n} clusters on the card at once (cudaOccupancyMaxActiveClusters; "
+              f"{card}); N6's dW row ranges at {BATCH} x 499 / 1500 rows: "
+              f"{ffn.ffn_dw_ranges(BATCH * 499, D, 4 * D)} / "
+              f"{ffn.ffn_dw_ranges(BATCH * 1500, D, 4 * D)}", flush=True)
     results = {}
     measure = functools.partial(_measure, results, card)
     for name, kernel, D, T, rate in BLOCK_ROWS:
         check, launch, plain, work, yardstick, note = block_case(kernel, D, T, rate, randn, seeds)
         measure(name, launch, plain, check, work)
-        print(f"  {name}: {note}: {median_ms(yardstick):.4f} ms (median of {REPS}; {card})",
-              flush=True)
+        lib_dev = device_ms(yardstick)
+        print(f"  {name}: {note}: {median_ms(yardstick):.4f} ms (device "
+              f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'}; median of {REPS}; "
+              f"{card})", flush=True)
         del check, launch, plain, yardstick
         torch.cuda.empty_cache()
     for kernel, D, T, rate in BLOCK_CHECKS:
@@ -4119,7 +4142,8 @@ def main() -> int:
           flush=True)
     checks.update(fc1_kernel_checks(card))
     print(f"kernel checks of the LayerNorm-folded block's variants (bf16, batch {BATCH}: N5-N7 "
-          f"at XLS-R-300M's and Whisper large-v3's shapes, at D 384 and 1920):", flush=True)
+          f"at XLS-R-300M's and Whisper large-v3's shapes, at D 384, 512, 768 and 1920):",
+          flush=True)
     checks.update(block_variant_checks(card))
     print(f"kernel checks of the packed QKV projection and the attention without biases "
           f"(bf16, batch {BATCH}: XLS-R-300M's shapes, D 1280 and 1920):", flush=True)

@@ -21,6 +21,11 @@
 //   kernels fold it into their pass while dh is in VMEM; here all D columns
 //   of a row's dl must be complete before its LayerNorm backward, and a
 //   128-row fp32 dl tile is 640 KB at D = 1280, so it is a second kernel.
+// Beside them, on the same ring and helpers: N7's cluster kernel
+// (csrc/ffn_ln_fc2.cu: the row statistics' and chunk pass's arithmetic
+// applied once a row, the forward's epilogue arithmetic, fc2 from the
+// cluster's g tiles) and the A^T B tile at the end of this file (`atb`: K3's
+// dW, N6's dW1 and dW2).
 //
 // Bound on the H100: the tensor cores. The forward makes 2 D F flops a row
 // against 2 D bytes of x in and 2 F of g out (D = 1280, F = 5120: 13 MFLOP
@@ -52,7 +57,7 @@
 // does not grow with D and every width takes the same tile: before the
 // split the block's 12 warps compute each row's mean and rstd in fp32,
 // two-pass as `_ln_rows` (and csrc/ffn_tiles.cuh's ln_panel, bit for bit:
-// N7 and ln_dense normalise there), into shared memory beside gamma and
+// ln_dense normalises there), into shared memory beside gamma and
 // beta (staged there once: a global load of them in every pass was on its
 // critical path); each consumer warpgroup then normalises its own 64 rows
 // of each landed x chunk in place with the chunk's gamma and beta, rounds
@@ -925,36 +930,50 @@ int launch_bwd(const bf16* x, const bf16* w1, const float* b1, const float* gamm
 //
 // out (M x N) = the sum over rows of A^T B, for A (rows x M) and B (rows x N)
 // row-major bf16: a weight gradient, whose reduction runs over every row of a
-// batch (K3's dW_j = da^T x_j, csrc/conv_ln_gelu.cu; the shape of N6's dW1 =
-// dh^T ln_out and dW2 = g^T dy). A block takes one 128 x 128 tile of out over
-// one range of 64-row chunks and writes it as an fp32 partial; the caller
-// sums the ranges' partials in a fixed order, so two calls give the same
-// bits (no atomics). A stage holds a chunk's 64 rows of the tile's two
-// 64-column blocks of A, then of B, as four 64 x 64 TMA boxes (128-byte
-// swizzled, rows past the data zero); both operands enter wgmma M- and
-// N-major (both transpose bits), each consumer warpgroup 64 of the M rows.
+// batch (K3's dW_j = da^T x_j, csrc/conv_ln_gelu.cu; N6's dW1 = dh^T ln_out
+// and dW2 = dy^T g, csrc/ffn_ln_g.cu). A block takes one kMT x kNT tile of
+// out (128 x 128, or 256 x 128 and 128 x 256 where one side of the product
+// is F) over one range of 64-row chunks and writes it as an fp32 partial;
+// the caller sums the ranges' partials in a fixed order, so two calls give
+// the same bits (no atomics). A stage holds a chunk's 64 rows of the tile's
+// 64-column blocks of A, then of B, as 64 x 64 TMA boxes (128-byte swizzled,
+// rows past the data zero); both operands enter wgmma M- and N-major (both
+// transpose bits), each consumer warpgroup kMT / 2 of the M rows, as kMT /
+// 128 x kNT / 128 products m64n128k16 a k-step (a wider tile re-reads its
+// narrow side's operand from L2 half as often).
 namespace atb {
 
-constexpr int kBox = 64 * 128;    // 64 rows of one 64-column block: 8 KB
-constexpr int kStage = 4 * kBox;  // A's two boxes, then B's
-constexpr int kStages = 4;
-constexpr int kBars = kStages * kStage;
-constexpr int kSmem = kBars + 16 * kStages + 1024;
+constexpr int kBox = 64 * 128;  // 64 rows of one 64-column block: 8 KB
 
-// The block's tile: load(i, stage, bar) issues chunk i's four boxes (A's at
-// stage and stage + kBox, B's at stage + 2 kBox and + 3 kBox) completing on
-// `bar`; the tile's fp32 sum over chunks 0 .. n_chunks - 1 (zero for none) is
-// stored to out (rows ld_out floats apart) from row m0 and column n0. A
-// kernel of kThreads threads with kSmem bytes of dynamic shared memory.
-template <class Load>
+template <int kMT, int kNT>
+struct Shape {
+  static constexpr int kABoxes = kMT / 64, kBBoxes = kNT / 64;
+  static constexpr int kStage = (kABoxes + kBBoxes) * kBox;  // A's boxes, then B's
+  static constexpr int kStages = 4;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;
+  static_assert(kMT % 128 == 0 && kNT % 128 == 0 && kMT * kNT <= 256 * 128,
+                "128 x 128, 256 x 128 or 128 x 256: 128 accumulators a thread at most");
+  static_assert(kSmem <= kMaxSmem, "the ring must fit a block");
+};
+constexpr int kSmem = Shape<128, 128>::kSmem;  // K3's dW tile
+
+// The block's tile: load(i, stage, bar) issues chunk i's boxes (A's kMT / 64
+// at stage + a kBox, B's kNT / 64 after them) completing on `bar`; the tile's
+// fp32 sum over chunks 0 .. n_chunks - 1 (zero for none) is stored to out
+// (rows ld_out floats apart) from row m0 and column n0. A kernel of kThreads
+// threads with Shape<kMT, kNT>::kSmem bytes of dynamic shared memory.
+template <int kMT = 128, int kNT = 128, class Load>
 __device__ __forceinline__ void tile(Load&& load, int n_chunks, float* out, long long ld_out,
                                      int m0, int n0) {
+  using S = Shape<kMT, kNT>;
+  constexpr int kI = kMT / 128, kJ = kNT / 128;  // a warpgroup's m64 blocks, the n128 blocks
   const uint32_t base = hopper::smem_u32(aligned_smem());
-  const Ring<kStages> ring{base + kBars};
+  const Ring<S::kStages> ring{base + S::kBars};
   auto start = [&](int i) {
-    const uint32_t bar = ring.full(i % kStages);
-    hopper::mbar_arrive_expect_tx(bar, kStage);
-    load(i, base + (i % kStages) * kStage, bar);
+    const uint32_t bar = ring.full(i % S::kStages);
+    hopper::mbar_arrive_expect_tx(bar, S::kStage);
+    load(i, base + (i % S::kStages) * S::kStage, bar);
   };
   if (threadIdx.x == 0) {
     ring.init(8);
@@ -964,33 +983,50 @@ __device__ __forceinline__ void tile(Load&& load, int n_chunks, float* out, long
   if (threadIdx.x < 128) {
     hopper::reg_dealloc<kProducerRegs>();
     if (threadIdx.x != 0) return;
-    for (int i = 0; i < n_chunks && i < kStages; ++i) start(i);
-    ring.produce(kStages, n_chunks, start);
+    for (int i = 0; i < n_chunks && i < S::kStages; ++i) start(i);
+    ring.produce(S::kStages, n_chunks, start);
     return;
   }
   hopper::reg_alloc<kConsumerRegs>();
   const Lane ln;
-  float acc[64];
+  float acc[kI * kJ][64];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  for (int b = 0; b < kI * kJ; ++b)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[b][e] = 0.f;
   if (n_chunks > 0)
-    ring.consume<kStage>(base, 0, n_chunks, ln.lane, [&](uint32_t st, bool first) {
-      hopper::fence_regs(acc);
+    ring.template consume<S::kStage>(base, 0, n_chunks, ln.lane, [&](uint32_t st, bool first) {
+#pragma unroll
+      for (int b = 0; b < kI * kJ; ++b) hopper::fence_regs(acc[b]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_m64n128k16_ss_tt(
-            acc, hopper::smem_desc(st + ln.wg * kBox + 2048 * kk, 1024, 128, kBox),
-            hopper::smem_desc(st + 2 * kBox + 2048 * kk, 1024, 128, kBox), !first || kk > 0);
+#pragma unroll
+        for (int i = 0; i < kI; ++i) {
+          const uint64_t da =
+              hopper::smem_desc(st + (ln.wg * kI + i) * kBox + 2048 * kk, 1024, 128, kBox);
+#pragma unroll
+          for (int j = 0; j < kJ; ++j)
+            hopper::wgmma_m64n128k16_ss_tt(
+                acc[i * kJ + j], da,
+                hopper::smem_desc(st + (S::kABoxes + 2 * j) * kBox + 2048 * kk, 1024, 128, kBox),
+                !first || kk > 0);
+        }
     });
-  hopper::fence_regs(acc);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float* row = out + (long long)(m0 + 64 * ln.wg + ln.row + 8 * h) * ld_out + n0;
+  for (int b = 0; b < kI * kJ; ++b) hopper::fence_regs(acc[b]);
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<float2*>(row + 8 * j + 2 * ln.quad) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  }
+  for (int i = 0; i < kI; ++i)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* row = out + (long long)(m0 + 64 * (ln.wg * kI + i) + ln.row + 8 * h) * ld_out +
+                     n0 + 128 * j;
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          *reinterpret_cast<float2*>(row + 8 * e + 2 * ln.quad) =
+              make_float2(acc[i * kJ + j][4 * e + 2 * h], acc[i * kJ + j][4 * e + 2 * h + 1]);
+      }
 }
 
 }  // namespace atb

@@ -31,86 +31,107 @@
 //  N6 cannot keep dW1 and dW2 in fast memory across the grid as the TPU
 //  kernel does: in fp32 each is 16.8 MB at 1024 x 4096, against a block's
 //  227 KB of shared memory. So it is N5's pass, which writes dh, g and
-//  ln_out for M rows exactly (the ragged tile's rows past M are never
-//  stored, and the dW kernel reads them as zeros, as `:319-332` masks them),
-//  then dl_kernel, then dw_kernel: one block per 128 x 128 tile of dW1 or
-//  dW2 that loops over all M rows in 32-row chunks, fp32 WMMA accumulators,
-//  no atomics, so each sum is taken in one order, the same every run. dg =
-//  dy W2^T and db2 stay outside, as in `_ffn_ln_block_dw_bwd`. The dW
-//  kernel is still on csrc/ffn_tiles.cuh's WMMA tiles (ROADMAP R4b).
+//  ln_out for M rows exactly, then dl_kernel, then ffn_dw_kernel on
+//  csrc/ffn_gemm.cuh's A^T B tile (gemm::atb, as K3's dW): one block per
+//  128 x 128 tile of dW1 = dh^T ln_out or dW2 = dy^T g and per range of
+//  64-row chunks, the operands read through 2-D tensor maps in 64 x 64
+//  boxes with the 128-byte swizzle (rows past M load as TMA's zeros, so the
+//  ragged chunk adds nothing, as `:319-332` masks them), wgmma with both
+//  transpose bits, fp32 accumulators. The R row ranges are fixed by the
+//  shape alone (`ffn_dw_ranges` in ops/ffn.py): where the 2 (F / 128) (D /
+//  128) tiles fill the card R = 1 and each block writes its tile of dW1 or
+//  dW2; otherwise each writes an fp32 partial and ffn_dw_finish_kernel sums
+//  the R partials in range order. No atomics: two calls give the same bits.
+//  dg = dy W2^T and db2 stay outside, as in `_ffn_ln_block_dw_bwd`.
 #include "ffn_gemm.cuh"
-#include "ffn_tiles.cuh"
 
 namespace {
 
-constexpr int kWT = 128;          // a dW tile is kWT x kWT
-constexpr int kLdWT = kWT + 8;    // bf16 row pitch of a staged 32-row chunk
+// ffn_dw_kernel: grid ((F / 256) (D / 128), 2, R); block (tile, p, r)
+// computes tile `tile` of product p over range r's 64-row chunks, into the
+// product itself (R = 1) or its partial part[r][p] (F D fp32). Product 0:
+// dW1 (F, D) = dh^T ln_out in 256 x 128 tiles; 1: dW2 (D, F) = dy^T g in 128
+// x 256: the tile's wide side is F's, a multiple of 256 at every width.
+using DwShape = gemm::atb::Shape<256, 128>;  // and <128, 256>: the same stage and ring
+static_assert(gemm::atb::Shape<128, 256>::kSmem == DwShape::kSmem, "one shared-memory size");
 
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+struct DwMaps {
+  CUtensorMap a[2], b[2];  // dh and dy; ln_out and g: (M, cols) in 64 x 64 boxes
+};
 
-// blockIdx.y 0: dW1 (F, D) = dh^T ln_out; 1: dW2 (D, F) = dy^T g. Each is
-// out (P, Q) = A^T B with A (M, P) and B (M, Q) bf16, row-major; P and Q are
-// multiples of kWT. blockIdx.x walks the (P / kWT) x (Q / kWT) tiles; eight
-// warps of 32 x 64 (2 x 4 fragments), as dl_kernel.
-__global__ void __launch_bounds__(kThreads)
-    dw_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ ln_out,
-              const bf16* __restrict__ dy, const bf16* __restrict__ g, float* __restrict__ dw1,
-              float* __restrict__ dw2, long long M, int D, int F) {
-  __shared__ __align__(128) bf16 As[kBK * kLdWT];
-  __shared__ __align__(128) bf16 Bs[kBK * kLdWT];
-  const bool first = blockIdx.y == 0;
-  const bf16* A = first ? dh : dy;
-  const bf16* B = first ? ln_out : g;
-  float* out = first ? dw1 : dw2;
-  const int P = first ? F : D;
-  const int Q = first ? D : F;
-  const int p0 = (int)(blockIdx.x / (Q / kWT)) * kWT;
-  const int q0 = (int)(blockIdx.x % (Q / kWT)) * kWT;
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 1;  // 0..3: rows p0 + wr*32 .. +31
-  const int wc = warp & 1;   // 0..1: columns q0 + wc*64 .. +63
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+struct DwArgs {
+  float* out[2];  // dw1, dw2
+  float* part;    // (R, 2, F D) fp32 where R > 1
+  int D, F;
+  int n_chunks;   // ceil(M / 64)
+};
 
-  for (long long m0 = 0; m0 < M; m0 += kBK) {
-    for (int i = threadIdx.x; i < kBK * (kWT / 8); i += kThreads) {
-      const int r = i >> 4;
-      const int c = (i & 15) * 8;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
-      if (m0 + r < M) {
-        a = *reinterpret_cast<const uint4*>(A + (m0 + r) * P + p0 + c);
-        b = *reinterpret_cast<const uint4*>(B + (m0 + r) * Q + q0 + c);
-      }
-      *reinterpret_cast<uint4*>(As + r * kLdWT + c) = a;
-      *reinterpret_cast<uint4*>(Bs + r * kLdWT + c) = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragAc a[2];  // A^T: element (p, m) at As[m * kLdWT + p]
-      FragBr b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + kk * kLdWT + wr * 32 + i * 16, kLdWT);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * kLdWT + wc * 64 + j * 16, kLdWT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+__global__ void __launch_bounds__(gemm::kThreads, 1)
+    ffn_dw_kernel(const __grid_constant__ DwMaps maps, const DwArgs a) {
+  const int p = blockIdx.y, r = blockIdx.z, R = gridDim.z;
+  const int lo = (int)((long long)r * a.n_chunks / R);
+  const int hi = (int)((long long)(r + 1) * a.n_chunks / R);
+  const long long size = (long long)a.D * a.F;
+  float* out = R == 1 ? a.out[p] : a.part + ((long long)r * 2 + p) * size;
+  const CUtensorMap* A = &maps.a[p];
+  const CUtensorMap* B = &maps.b[p];
+  // The tile's boxes: kA of A's columns from m0, kB of B's from n0.
+  auto boxes = [&](int kA, int kB, int m0, int n0) {
+    return [=](int i, uint32_t st, uint32_t bar) {
+      const int row = (lo + i) * gemm::kChunk;
+      for (int c = 0; c < kA; ++c)
+        hopper::tma_load_2d(st + c * gemm::atb::kBox, A, bar, m0 + 64 * c, row);
+      for (int c = 0; c < kB; ++c)
+        hopper::tma_load_2d(st + (kA + c) * gemm::atb::kBox, B, bar, n0 + 64 * c, row);
+    };
+  };
+  if (p == 0) {
+    const int qt = a.D / 128, m0 = (int)(blockIdx.x / qt) * 256, n0 = (int)(blockIdx.x % qt) * 128;
+    gemm::atb::tile<256, 128>(boxes(4, 2, m0, n0), hi - lo, out, a.D, m0, n0);
+  } else {
+    const int qt = a.F / 256, m0 = (int)(blockIdx.x / qt) * 128, n0 = (int)(blockIdx.x % qt) * 256;
+    gemm::atb::tile<128, 256>(boxes(2, 4, m0, n0), hi - lo, out, a.F, m0, n0);
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(out + (long long)(p0 + wr * 32 + i * 16) * Q + q0 + wc * 64 + j * 16,
-                              acc[i][j], Q, wmma::mem_row_major);
+}
+
+// The R partials (R, 2, size) summed in range order into dw1 and dw2, an
+// element a thread.
+__global__ void __launch_bounds__(256)
+    ffn_dw_finish_kernel(const float* __restrict__ part, int R, long long size,
+                         float* __restrict__ dw1, float* __restrict__ dw2) {
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= 2 * size) return;
+  float s = 0.f;
+  for (int r = 0; r < R; ++r) s += part[(long long)r * 2 * size + e];
+  if (e < size)
+    dw1[e] = s;
+  else
+    dw2[e - size] = s;
+}
+
+int launch_dw(const bf16* dh, const bf16* ln_out, const bf16* dy, const bf16* g, float* dw1,
+              float* dw2, float* part, long long M, int D, int F, int R, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ffn_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DwShape::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  DwMaps maps;
+  int err = hopper::encode_2d(&maps.a[0], dh, F, M, 64);
+  if (err == 0) err = hopper::encode_2d(&maps.b[0], ln_out, D, M, 64);
+  if (err == 0) err = hopper::encode_2d(&maps.a[1], dy, D, M, 64);
+  if (err == 0) err = hopper::encode_2d(&maps.b[1], g, F, M, 64);
+  if (err != 0) return err;
+  DwArgs a;
+  a.out[0] = dw1, a.out[1] = dw2, a.part = part;
+  a.D = D, a.F = F;
+  a.n_chunks = (int)((M + gemm::kChunk - 1) / gemm::kChunk);
+  const dim3 grid((unsigned)((F / 256) * (D / 128)), 2u, (unsigned)R);
+  ffn_dw_kernel<<<grid, gemm::kThreads, DwShape::kSmem, s>>>(maps, a);
+  err = (int)cudaGetLastError();
+  if (err != 0 || R == 1) return err;
+  const long long size = (long long)F * D;
+  ffn_dw_finish_kernel<<<(unsigned)((2 * size + 255) / 256), 256, 0, s>>>(part, R, size, dw1,
+                                                                          dw2);
+  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int D, int F, const void* seeds, int T) {
@@ -143,21 +164,23 @@ extern "C" int coral_ffn_ln_g_bwd(const void* x, const void* w1, const void* b1,
 
 // N6 at a built width D: N5's arguments, and dy (M, D) bf16, dw1 (F, D) and
 // dw2 (D, F) fp32; g, dh and ln_out are the dW kernel's operands (scratch to
-// the caller). Returns the cudaError_t of the launches, or -1 for a shape
-// they were not built for.
+// the caller); R >= 1 the row ranges of dW's reduction and dw_part (R, 2, F
+// D) fp32 their partials (read only where R > 1). Returns the cudaError_t of
+// the launches or the encoder's error, or -1 for a shape they were not built
+// for.
 extern "C" int coral_ffn_ln_dw_bwd(const void* x, const void* w1, const void* b1,
                                    const void* gamma, const void* beta, const void* dy,
                                    const void* dg, const void* seeds, void* g, void* dh,
                                    void* ln_out, void* db1_part, void* dl, void* dw1, void* dw2,
-                                   long long M, int D, int F, int T, unsigned int threshold,
-                                   float scale, float eps, void* stream) {
+                                   void* dw_part, long long M, int D, int F, int T,
+                                   unsigned int threshold, float scale, float eps, int R,
+                                   void* stream) {
+  if (R < 1 || (R > 1 && dw_part == nullptr)) return -1;
   const int err = coral_ffn_ln_g_bwd(x, w1, b1, gamma, beta, dg, seeds, g, dh, ln_out,
                                      db1_part, dl, M, D, F, T, threshold, scale, eps, stream);
   if (err != 0 || M <= 0) return err;
-  const dim3 grid((unsigned)((F / kWT) * (D / kWT)), 2u);
-  dw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dh), static_cast<const bf16*>(ln_out),
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(g), static_cast<float*>(dw1),
-      static_cast<float*>(dw2), M, D, F);
-  return (int)cudaGetLastError();
+  return launch_dw(static_cast<const bf16*>(dh), static_cast<const bf16*>(ln_out),
+                   static_cast<const bf16*>(dy), static_cast<const bf16*>(g),
+                   static_cast<float*>(dw1), static_cast<float*>(dw2),
+                   static_cast<float*>(dw_part), M, D, F, R, static_cast<cudaStream_t>(stream));
 }

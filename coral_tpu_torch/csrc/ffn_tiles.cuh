@@ -1,11 +1,10 @@
-// The WMMA tiles the FFN's remaining legacy kernels are built on, for a later
-// redesign (ROADMAP R4b): N6's dW kernel (csrc/ffn_ln_g.cu `dw_kernel`), N7's
-// fused kernel (csrc/ffn_ln_fc2.cu, which normalises its rows with ln_panel)
-// and the packed QKV projection's forward (csrc/ln_dense.cu: ln_panel,
-// panel_times_w1, stage); the H100 probes (csrc/probe_gelu_cost.cu,
-// csrc/probe_lane_reduce.cu) time this tile as it is. The FFN
-// up-projection's kernels (K5, N1-N5, and dl = dh W1 of every backward) run
-// on csrc/ffn_gemm.cuh's Hopper mainloop.
+// The WMMA tiles of the packed QKV projection's forward (csrc/ln_dense.cu:
+// ln_panel, panel_times_w1, stage), the last FFN kernel on them (ROADMAP
+// R4b), and of the H100 probes (csrc/probe_gelu_cost.cu,
+// csrc/probe_lane_reduce.cu), which time this tile as it is. Every other FFN
+// kernel runs on csrc/ffn_gemm.cuh's Hopper mainloop: K5, N1-N5 and dl = dh
+// W1 of every backward, N6's dW (its A^T B tile) and N7 (a thread-block
+// cluster of the mainloop's blocks, csrc/ffn_ln_fc2.cu).
 //
 // The panel: BM rows of the bf16 LayerNorm (two-pass fp32 as `_ln_rows`,
 // rounded as `_ln_matmul`; csrc/ffn_gemm.cuh's row statistics and chunk pass

@@ -103,11 +103,16 @@ _SIGNATURES = {
     # T, threshold, scale, eps, stream
     "coral_ffn_ln_g_bwd": [_P] * 12 + [_LL, _I, _I, _I, _U, _F, _F, _P],
     # x, w1, b1, gamma, beta, dy, dg, seeds, g, dh, ln_out, db1_part, dl, dw1,
-    # dw2, M, D, F, T, threshold, scale, eps, stream
-    "coral_ffn_ln_dw_bwd": [_P] * 15 + [_LL, _I, _I, _I, _U, _F, _F, _P],
-    # x, w1, b1, gamma, beta, w2, b2, seeds, y, M, D, F, T, threshold, scale,
-    # eps, stream
-    "coral_ffn_ln_fc2_fwd": [_P] * 9 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # dw2, dw_part, M, D, F, T, threshold, scale, eps, R, stream (dw_part: dW's
+    # (R, 2, F D) fp32 partials, read where R > 1)
+    "coral_ffn_ln_dw_bwd": [_P] * 16 + [_LL, _I, _I, _I, _U, _F, _F, _I, _P],
+    # x, w1, b1, gamma, beta, w2, b2, seeds, y, ln (the normalised rows,
+    # scratch), M, D, F, T, threshold, scale, eps, stream
+    "coral_ffn_ln_fc2_fwd": [_P] * 10 + [_LL, _I, _I, _I, _U, _F, _F, _P],
+    # D, *cluster: N7's cluster size at width D into *cluster; returns the
+    # clusters the current card holds at once, -1 for an unbuilt width or a
+    # failed query (no launch)
+    "coral_ffn_ln_fc2_clusters": [_I, _P],
     # x, w, b, gamma, beta, y, M, D, F, eps, stream
     "coral_ln_dense_fwd": [_P] * 6 + [_LL, _I, _I, _F, _P],
     # x, w, gamma, beta, dy, ln_out, db_part, dl, M, D, F, eps, stream

@@ -84,6 +84,36 @@ KERNEL_F_TILE = 256
 # encoders' (300M, 1B, 2B), F = 3 D; counted as "ln_dense", "ln_dense_bwd" at
 # 1024 and with the width elsewhere ("ln_dense_bwd_1920").
 KERNEL_QKV_D = (1024, 1280, 1920)
+# N6's dW kernel: 64-row chunks of its reduction; a tile's side along F (the
+# other is 128); the tiles that fill the card once (an H100's 132 SMs, one
+# block an SM) and the blocks at most (four such waves). Constants, so that
+# the row ranges, and with them dW's bits, depend on the shape alone.
+_DW_CHUNK = 64
+_DW_TILE_F = 256
+_DW_FILL = 132
+_DW_BLOCKS = 528
+
+
+def ffn_fc2_cluster(D: int) -> int:
+    """C, the blocks of N7's thread-block cluster at width D
+    (``csrc/ffn_ln_fc2.cu`` ``cluster_size``): each owns D / C of y's columns
+    and computes every C-th of the F / 128 h tiles; D / 128 up to the
+    portable cluster size 8 (128 columns a block; 160 at 1280), and 15 at
+    1920 (128 columns; a non-portable size, faster there than 8, 10 or 12)."""
+    return 15 if D == 1920 else min(D // 128, 8)
+
+
+def ffn_dw_ranges(M: int, D: int, F: int) -> int:
+    """R, the ranges of 64-row chunks (``ceil(M / 64)`` of them) over which N6's
+    dW kernel splits its reduction: 1 where its ``2 (F / 256) (D / 128)``
+    tiles alone fill the card (each block then writes its tile of dW1 or
+    dW2, with no partials to sum), else as many as keep the tiles times R
+    within ``_DW_BLOCKS``, at least one chunk each."""
+    chunks = -(-M // _DW_CHUNK)
+    tiles = 2 * (F // _DW_TILE_F) * (D // 128)
+    if tiles >= _DW_FILL:
+        return 1
+    return max(1, min(chunks, _DW_BLOCKS // tiles))
 
 
 def _name(base: str, D: int) -> str:
@@ -254,13 +284,14 @@ def ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: floa
                    seeds=None):
     """The whole block's forward in one kernel (N7): ``dropout(gelu(bf16(
     layer_norm(x)) @ W1^T + b1)) @ W2^T + b2``; g never reaches device
-    memory.
+    memory (the normalised rows do, once, as an (M, D) scratch the kernel's
+    clusters stream).
 
     Args:
         x: (B, T, D); on CUDA bf16 with D in ``KERNEL_D``.
         w1: (F, D); w2: (D, F); cast to ``x.dtype``; on CUDA F a multiple of
-            256 and both 32-byte aligned (the kernel reads their WMMA tiles
-            from device memory).
+            256 (the kernel reads them through TMA tensor maps: 16-byte
+            aligned, as every kernel operand).
         b1: (F,), gamma, beta, b2: (D,), fp32.
         rate, seeds: as ``ffn_ln_fc1_fwd``.
 
@@ -275,14 +306,14 @@ def ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2, eps: float = 1e-5, rate: floa
     _build.check_cuda(name, torch.bfloat16, w2)
     if w2.shape != (D, F) or w2.device != x.device:
         raise ValueError(f"{name}: w2 must be ({D}, {F}) on {x.device}")
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError(f"{name}: the kernel needs 32-byte aligned weights")
     seed_ptr, T, thr, scale = _check_seeds(name, x, rate, seeds)
     y = torch.empty_like(x)
+    ln = torch.empty_like(x)  # the normalised rows, scratch
     _build.launch(
         name, _name("ffn_ln_fc2_drop" if rate > 0.0 else "ffn_ln_fc2", D), x.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), seed_ptr, y.data_ptr(), x.numel() // D, D, F, T, thr, scale, float(eps),
+        b2.data_ptr(), seed_ptr, y.data_ptr(), ln.data_ptr(), x.numel() // D, D, F, T, thr,
+        scale, float(eps),
     )
     return y
 
@@ -420,7 +451,8 @@ def ffn_ln_dw_bwd(x, w1, b1, gamma, beta, dy, dg, eps: float = 1e-5, rate: float
     """The backward with the weight gradients in the kernels (N6: N5's pass,
     dl = dh W1 and the dW kernel in one call) and the LayerNorm backward;
     arguments and results as ``ffn_ln_dw_bwd_plain``. g, dh and ln_out are
-    scratch, freed on return.
+    scratch, freed on return, and so are dW's fp32 partials where the
+    reduction is split over ``ffn_dw_ranges`` row ranges.
 
     Args:
         x, dy: (B, T, D) bf16, D in ``KERNEL_D``; dg: (B, T, F), cast to
@@ -441,11 +473,15 @@ def ffn_ln_dw_bwd(x, w1, b1, gamma, beta, dy, dg, eps: float = 1e-5, rate: float
     g, dh, ln_out, dl = _ln_g_outputs(x, F)
     dw1 = torch.empty((F, D), dtype=torch.float32, device=x.device)
     dw2 = torch.empty((D, F), dtype=torch.float32, device=x.device)
+    R = ffn_dw_ranges(M, D, F)
+    part = (torch.empty((R, 2, F * D), dtype=torch.float32, device=x.device) if R > 1
+            else None)
     _build.launch(
         name, _name("ffn_ln_dw_bwd", D), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), dg.data_ptr(), seed_ptr, g.data_ptr(),
         dh.data_ptr(), ln_out.data_ptr(), db1_part.data_ptr(), dl.data_ptr(), dw1.data_ptr(),
-        dw2.data_ptr(), M, D, F, T, thr, scale, float(eps),
+        dw2.data_ptr(), None if part is None else part.data_ptr(), M, D, F, T, thr, scale,
+        float(eps), R,
     )
     dx, dgamma, dbeta = ln_bwd(x, gamma, beta, dl, eps, apply_gelu=False)
     return dx, dw1, dw2, db1_part.sum(0), dgamma, dbeta

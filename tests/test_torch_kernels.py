@@ -88,6 +88,12 @@ bit; Whisper large-v3's encoder rows, where a block takes several column
 tiles; the same bits on two calls of each backward, db1 included; the
 device kernels a call (in a process of its own); nothing written past row
 M; and F not a multiple of 256 or an unbuilt width refused: ``-k ffn``.
+N7 (``csrc/ffn_ln_fc2.cu``, a thread-block cluster a 128-row tile) and N6's
+dW kernel (``gemm::atb``) at every width and both rates on ragged rows (M <
+128, not a multiple of 128), y as the other rounded outputs and dW1, dW2 on
+N5's own operands at 1e-3 of their max, the same bits on a second call, the
+cluster size and its occupancy, N7 one device kernel a call: ``-k
+"ffn_ln_fc2 or ffn_ln_dw"``.
 """
 
 import ast
@@ -494,6 +500,97 @@ def test_ffn_ln_fc2_kernel_matches_plain(cuda, rate, D):
     for w2_sel, cols, n in _selections(D, F, cuda):
         y_sel = ffn.ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2_sel, zero, rate=rate, seeds=seeds)
         assert torch.equal(y_sel[..., :n], g[..., cols])
+
+
+# Rows around the 128-row tile of N7's clusters and N6's 64-row dW chunks: M
+# < 128, a multiple of neither, and two batch rows meeting inside a tile.
+N67_ROWS = [(1, 37), (1, 127), (1, 131), (2, 129)]
+
+
+@pytest.mark.parametrize("B,T", N67_ROWS)
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_ln_fc2_kernel_at_ragged_rows_gives_the_same_bits_twice(cuda, rate, D, B, T):
+    """N7's cluster kernel at every built width and both rates on ragged
+    rows, F = 4 D (every round of the cluster whole, 7.5 rounds at 1920):
+    y as the plain version at the bounds above, the same bits on a second
+    call (y's sum in a fixed order: rounds, then peers in rank order)."""
+    x, w1, b1, gamma, beta, w2, _, _ = _ffn_inputs(cuda, F=4 * D, T=T, D=D)
+    x = _on(cuda, _np(B, T, D, seed=11, offset=0.2), torch.bfloat16)
+    b2 = _on(cuda, _np(D, seed=8, scale=0.1))
+    seeds = torch.tensor([12345, -7][:B], dtype=torch.int32, device=cuda) if rate else None
+    y = ffn.ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2, rate=rate, seeds=seeds)
+    _close(y, ffn.ffn_ln_fc2_fwd_plain(x, w1, b1, gamma, beta, w2, b2, rate=rate, seeds=seeds),
+           1e-2)
+    assert torch.equal(y, ffn.ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2, rate=rate,
+                                              seeds=seeds))
+
+
+@pytest.mark.parametrize("B,T", N67_ROWS + [(8, 499)])
+@pytest.mark.parametrize("D", ALL_D)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_ln_dw_bwd_kernel_at_ragged_rows_gives_the_same_bits_twice(cuda, rate, D, B, T):
+    """N6 at every built width and both rates on ragged rows, F = 4 D: dW1
+    and dW2 against the plain products on N5's own dh, g and ln_out (1e-3 of
+    their max), over ``ffn_dw_ranges`` row ranges (R > 1 at 384 and 512 on
+    more than one 64-row chunk, partials finished in range order; 1
+    elsewhere), and the same bits on a second call."""
+    F = 4 * D
+    _, w1, b1, gamma, beta, _, _, _ = _ffn_inputs(cuda, F=F, T=T, D=D)
+    x = _on(cuda, _np(B, T, D, seed=11, offset=0.2), torch.bfloat16)
+    dy = _on(cuda, _np(B, T, D, seed=12), torch.bfloat16)
+    dg = _on(cuda, _np(B, T, F, seed=13), torch.bfloat16)
+    seeds = torch.tensor(list(range(1, B + 1)), dtype=torch.int32, device=cuda) if rate else None
+    got = ffn.ffn_ln_dw_bwd(x, w1, b1, gamma, beta, dy, dg, rate=rate, seeds=seeds)
+    g, dh, ln_out, *_ = ffn.ffn_ln_g_bwd(x, w1, b1, gamma, beta, dg, rate=rate, seeds=seeds)
+    for a, w in zip(got[1:3], ffn.ffn_dw_plain(dh, ln_out, dy, g)):
+        _close_rel(a, w, 1e-3)
+    again = ffn.ffn_ln_dw_bwd(x, w1, b1, gamma, beta, dy, dg, rate=rate, seeds=seeds)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_ffn_ln_fc2_clusters_schedule_at_every_width(cuda):
+    """N7's C entry gives each width's cluster size as ``ffn_fc2_cluster``
+    and a cluster the card can hold (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    lib = _build.library()
+    for D in ALL_D:
+        c = ctypes.c_int(0)
+        assert lib.coral_ffn_ln_fc2_clusters(D, ctypes.byref(c)) >= 1
+        assert c.value == ffn.ffn_fc2_cluster(D)
+    assert lib.coral_ffn_ln_fc2_clusters(640, ctypes.byref(ctypes.c_int(0))) == -1
+
+
+def _n7_kernels_a_call():
+    """The device kernels of one N7 call at D 1280 and 384, by the profiler."""
+    cuda = torch.device("cuda")
+    out = {}
+    for D, T in ((1280, 131), (384, 499)):
+        x, w1, b1, gamma, beta, w2, _, _ = _ffn_inputs(cuda, F=4 * D, T=T, D=D)
+        b2 = _on(cuda, _np(D, seed=8, scale=0.1))
+
+        def fn():
+            return ffn.ffn_ln_fc2_fwd(x, w1, b1, gamma, beta, w2, b2)
+
+        fn()
+        out[D] = _device_kernels(fn)
+    return out
+
+
+def test_ffn_ln_fc2_is_one_device_kernel_a_call(cuda):
+    """By the profiler, in a process of its own (as the mainloop's count
+    above): N7 launches one device kernel a call, its cluster kernel."""
+    tests = Path(__file__).resolve().parent
+    script = (f"import sys; sys.path[:0] = [{str(tests.parent)!r}, {str(tests)!r}]; "
+              f"import test_torch_kernels as t; print(t._n7_kernels_a_call())")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    names = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    for D in (1280, 384):
+        assert len(names[D]) == 1 and "ffn_ln_fc2_kernel" in names[D][0], names[D]
 
 
 @pytest.mark.parametrize("variant", ["dg_in", "dg_out", "fc2", "dw"])
