@@ -57,7 +57,12 @@ non-zero before the result line is printed:
    kernels at 384, 512, 768 and 1920, the LN backward at 384, 768 and 1920;
    the attention backwards beside PyTorch's memory-efficient attention
    backward with the key or segment mask as its bias, the LN backwards beside
-   ``aten.native_layer_norm_backward``; one LayerNorm as training runs it
+   ``aten.native_layer_norm_backward``; the CTC recursions at T' 499, B 8,
+   S 257 with the same bits on two calls, the kernel alone, its latency
+   floor (``coral_tpu_torch/tools/probe_ctc.py``: the recursion without
+   the emission ring or stores) and ``F.ctc_loss`` forward and backward at
+   the same shapes (it computes the loss and gradient too: no yardstick of
+   K6's function); one LayerNorm as training runs it
    (``ln_fused`` forward and backward under autograd with bf16 work copies of
    gamma and beta, at 8 x 499 x 1024) beside ``F.layer_norm``'s, each side's
    events and device time and its device kernels by the profiler; each row's share of its bound and
@@ -160,8 +165,10 @@ non-zero before the result line is printed:
    LayerNorm-folded projection's forward and backward and the v3 attention's
    kernels without their bias loads checked with the other kernels in phase
    3 (at D 1024 on the paths' shapes, at 1280 and 1920, head_dim 80 and 120;
-   the attention's outputs those of the biased kernels at zero biases, bit
-   for bit); (p) (c)'s configuration with ``fused_qkv_ln: true``: one
+   the projection's forward beside cuBLAS's product alone and the two-call
+   composition, ``F.layer_norm`` then ``F.linear``, and timed at 1280 and
+   1920 too; the attention's outputs those of the biased kernels at zero
+   biases, bit for bit); (p) (c)'s configuration with ``fused_qkv_ln: true``: one
    serving batch, the kernel path against the plain path on one microbatch
    at activation dropout 0.1, 3 steps; (p') with
    ``attention_fused_qkv_bias: false``: one batch, kernel against plain, 2
@@ -1114,7 +1121,7 @@ def map_encode_us(card: str) -> None:
 def train_kernel_checks(card: str) -> dict:
     """The training slice's kernels against their plain versions at its
     shapes: 8 clips of 10 s (T' = 499 frames), XLS-R-300M widths."""
-    from coral_tpu_torch.ops import attention, conv_ln_gelu, ctc, ffn, ln_gelu, philox
+    from coral_tpu_torch.ops import attention, conv_ln_gelu, ffn, ln_gelu, philox
     from coral_tpu_torch.tools import probe_conv
 
     dev = torch.device("cuda")
@@ -1316,14 +1323,29 @@ def train_kernel_checks(card: str) -> dict:
     fc1_yardstick(card, "ffn_bwd", x, w1)
     del x, dy, keep
 
-    # CTC recursions: T' = 499, B = 8, L = 128 (S = 257), row 7 infeasible.
+    ctc_rows(card, results, measure, randn, gen)
+    return results
+
+
+def ctc_rows(card: str, results: dict, measure, randn, gen) -> None:
+    """K6 at T' = 499, B = 8, L = 128 (S = 257), row 7 infeasible: each
+    recursion against its plain version and timed (the wrapper, its mask
+    conversions included), the same bits on two calls, the kernel alone
+    and its latency floor (``tools/probe_ctc.py``: coral_ctc_probe's modes),
+    and ``F.ctc_loss`` at the same shapes, which computes the loss and its
+    gradient too (no single call computes K6's function: ``library_ms``
+    stays null)."""
+    from coral_tpu_torch.ops import ctc
+    from coral_tpu_torch.tools import probe_ctc
+
+    dev, T = torch.device("cuda"), 499
     log_probs = torch.log_softmax(randn(T, BATCH, 46, scale=3.0), dim=-1)
     labels = torch.randint(1, 46, (BATCH, MAX_LABEL), generator=gen, device=dev)
-    in_len = torch.tensor([499, 450, 400, 350, 300, 499, 499, 100], device=dev)
-    lab_len = torch.tensor([128, 100, 64, 128, 32, 1, 0, 128], device=dev)
+    in_len = torch.tensor(probe_ctc.IN_LEN, device=dev)
+    lab_len = torch.tensor(probe_ctc.LAB_LEN, device=dev)
     ext = ctc._extended_labels(labels, 0)
     skip, skip_fwd, valid, terminal = ctc._state_masks(ext, lab_len, 0)
-    emit = ctc._emissions(log_probs, ext).contiguous()
+    emit = ctc._emissions(log_probs, ext)  # rows of S rounded up to 4, as ctc_loss gathers them
     a_args, b_args = (emit, skip, valid, in_len), (emit, skip_fwd, valid, in_len, terminal)
     # The recursion visits every (t, b, s) cell once; it reads the emissions
     # and masks and writes one fp32 value per cell.
@@ -1333,12 +1355,42 @@ def train_kernel_checks(card: str) -> dict:
     measure("ctc_beta", lambda: ctc.ctc_beta(*b_args), lambda: ctc.ctc_beta_plain(*b_args),
             lambda: compare("ctc_beta", ctc.ctc_beta(*b_args), ctc.ctc_beta_plain(*b_args)),
             (CTC_CELL_OPS * emit.numel(), FP32_FLOPS, nbytes(*b_args) + nbytes(emit)))
+
+    def dev(fn) -> str:
+        ms = device_ms(fn)
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    for name, fn, beta, args in (("ctc_alpha", ctc.ctc_alpha, False, a_args),
+                                 ("ctc_beta", ctc.ctc_beta, True, b_args)):
+        same = bool(torch.equal(fn(*args), fn(*args)))
+        floor = device_ms(probe_ctc.launcher(args, beta, 1))
+        floor_text = ("not measured" if floor is None else
+                      f"{floor:.4f} ms device, {floor * 1e6 / T:.1f} ns a step over {T} steps")
+        print(f"  {name}: two calls give the same bits: {same}; the kernel alone (masks "
+              f"converted outside) {dev(probe_ctc.launcher(args, beta, 0))} device; latency "
+              f"floor (the recursion alone: state in registers, no emission ring, no stores) "
+              f"{floor_text} ({card})", flush=True)
+        results[name]["ok"] = results[name]["ok"] and same
+    lp = log_probs.detach().clone().requires_grad_(True)
+
+    def loss():
+        return torch.nn.functional.ctc_loss(lp, labels, in_len, lab_len, blank=0,
+                                            reduction="sum", zero_infinity=True)
+
+    def loss_and_grad():
+        lp.grad = None
+        loss().backward()
+
+    print(f"  F.ctc_loss at ({T}, {BATCH}, V 46, L {MAX_LABEL}), which computes the loss and "
+          f"its gradient too (not K6's function; the port never calls it): forward "
+          f"{median_ms(loss):.4f} ms (device {dev(loss)}), forward and backward "
+          f"{median_ms(loss_and_grad):.4f} ms (device {dev(loss_and_grad)}; median of {REPS}; "
+          f"{card})", flush=True)
     nll = ctc.ctc_loss(log_probs, labels, in_len, lab_len, reduction="none")
     print(f"  ctc_loss: per-row losses {[round(float(v), 3) for v in nll]} (row 7 "
           f"infeasible -> 0)", flush=True)
     if float(nll[7]) != 0.0 or not bool(torch.isfinite(nll).all()):
         results["ctc_alpha"]["ok"] = False
-    return results
 
 
 def w2v2_forward_launches(cfg) -> dict:
@@ -3509,8 +3561,9 @@ def qkv_case(kernel: str, D: int, T: int, randn):
     at (8, T) rows of width D (F = 3 D, head_dim D / 16), on the layout of
     phase (p): q, k, v the lane thirds of one packed projection, the backward
     writing one packed gradient. Returns (check, launch, plain, work, library,
-    yardstick, note) for ``_measure``; ``kernel``: "fwd", "bwd" (``ln_dense``)
-    or "attn_fwd", "attn_bwd"."""
+    yardsticks) for ``_measure``, yardsticks a list of (note, call) timed
+    beside the kernel; ``kernel``: "fwd", "bwd" (``ln_dense``) or "attn_fwd",
+    "attn_bwd"."""
     from coral_tpu_torch.ops import attention, ffn
 
     bf16 = torch.bfloat16
@@ -3531,12 +3584,21 @@ def qkv_case(kernel: str, D: int, T: int, randn):
             def check():
                 return compare(tag, launch(), plain(), key="ln_dense")
 
-            def yardstick():
+            def product():
                 return torch.matmul(x.view(M, D), w.t())
+
+            b16, g16, bt16 = b.to(bf16), g.to(bf16), bt.to(bf16)
+
+            def two_calls():
+                return torch.nn.functional.linear(
+                    torch.nn.functional.layer_norm(x, (D,), g16, bt16), w, b16)
 
             work = (2 * M * D * F + LN_OPS * M * D, BF16_FLOPS,
                     nbytes(x, w, b, g, bt) + M * F * 2)
-            return check, launch, plain, work, None, yardstick, "cuBLAS's (3D, D) product alone"
+            return check, launch, plain, work, None, [
+                ("cuBLAS's (3D, D) product alone", product),
+                ("the two-call yardstick (F.layer_norm, then F.linear with the bias; bf16 "
+                 "vectors)", two_calls)]
         dy = randn(BATCH, T, F, dtype=bf16)
 
         def launch():
@@ -3553,14 +3615,14 @@ def qkv_case(kernel: str, D: int, T: int, randn):
                     for n, gg, ww in zip(("db", "dgamma", "dbeta"), got[2:], want[2:])]
             return merge(*out)
 
-        def yardstick():
+        def product():
             return torch.matmul(dy.view(M, F), w)
 
         # One product (dl = dy W), the LayerNorm's rows both ways and db's
         # sums; dx, ln_out and the vectors out.
         work = (2 * M * D * F + (LN_OPS + LN_BWD_OPS) * M * D + M * F, BF16_FLOPS,
                 nbytes(x, w, g, bt, dy) + 2 * M * D * 2 + (F + 2 * D) * 4)
-        return check, launch, plain, work, None, yardstick, "cuBLAS's dl = dy W product alone"
+        return check, launch, plain, work, None, [("cuBLAS's dl = dy W product alone", product)]
 
     dev = torch.device("cuda")
     qkv = randn(BATCH, T, F, dtype=bf16)
@@ -3599,7 +3661,7 @@ def qkv_case(kernel: str, D: int, T: int, randn):
 
         work = (4 * BATCH * H * T * T * hd, BF16_FLOPS,
                 nbytes(qkv, mask) + nbytes(q) + BATCH * H * T * 4)
-        return check, launch, plain, work, library, None, None
+        return check, launch, plain, work, library, []
     do = randn(BATCH, T, D, dtype=bf16)
     o, lse = attention._fwd(q, k, v, None, None, None, key_bias, hd, scale)
     args = (q, k, v, None, None, None, key_bias, do, lse, o, hd, scale)
@@ -3630,7 +3692,7 @@ def qkv_case(kernel: str, D: int, T: int, randn):
     library = sdpa_bwd_yardstick(*(heads_of(t, H) for t in (q, k, v, do)),
                                  attention_bias(key_bias[:, None, None, :], (BATCH, H, T, T)),
                                  scale)
-    return check, launch, plain, work, library, None, None
+    return check, launch, plain, work, library, []
 
 
 # The packed projection's and the bias-free attention's kernels at their
@@ -3647,7 +3709,9 @@ QKV_CHECKS = (("fwd", 1024, 499), ("attn_fwd", 1024, 499),
 def qkv_kernel_checks(card: str) -> dict:
     """The packed QKV projection's kernels and the attention without biases
     against their plain versions: the rows at their paths' shapes, timed, the
-    projection's beside its cuBLAS yardstick; then ``QKV_CHECKS``."""
+    projection's beside its yardsticks (cuBLAS's product alone; the forward's
+    two-call composition); then ``QKV_CHECKS``, the forward timed at XLS-R-1B's
+    and -2B's widths too."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
 
@@ -3657,17 +3721,25 @@ def qkv_kernel_checks(card: str) -> dict:
     results = {}
     measure = functools.partial(_measure, results, card)
     for name, kernel, D, T in QKV_ROWS:
-        check, launch, plain, work, library, yardstick, note = qkv_case(kernel, D, T, randn)
+        check, launch, plain, work, library, yardsticks = qkv_case(kernel, D, T, randn)
         measure(name, launch, plain, check, work, library)
-        if yardstick is not None:
-            print(f"  {name}: {note}: {median_ms(yardstick):.4f} ms (median of {REPS}; {card})",
-                  flush=True)
-        del check, launch, plain, library, yardstick
+        for note, yardstick in yardsticks:
+            lib_dev = device_ms(yardstick)
+            print(f"  {name}: {note}: {median_ms(yardstick):.4f} ms (device "
+                  f"{'not measured' if lib_dev is None else f'{lib_dev:.4f} ms'}; median of "
+                  f"{REPS}; {card})", flush=True)
+        del check, launch, plain, library, yardsticks
         torch.cuda.empty_cache()
     for kernel, D, T in QKV_CHECKS:
-        check, *_ = qkv_case(kernel, D, T, randn)
+        check, launch, _, work, _, yardsticks = qkv_case(kernel, D, T, randn)
         results[f"{kernel} D {D} T {T}"] = check()
-        del check
+        if kernel == "fwd" and T == 1499:  # the projection at XLS-R-1B's and -2B's serving rows
+            dev_ms, two = device_ms(launch), device_ms(yardsticks[1][1])
+            print(f"  ln_dense D {D}, {BATCH} x {T} rows: {median_ms(launch):.4f} ms (device "
+                  f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), bound "
+                  f"{bound(*work)[0]:.4f} ms; the two-call yardstick device "
+                  f"{'not measured' if two is None else f'{two:.4f} ms'} ({card})", flush=True)
+        del check, launch, yardsticks
         torch.cuda.empty_cache()
     return results
 

@@ -5,7 +5,9 @@
 //   bf16(layer_norm(x)) (kLn) or x. K5's forward (csrc/ffn.cu, kLn; replaces
 //   coral_tpu/ops/ffn_pallas.py `_fwd_kernel_ln` :163 and
 //   `_fwd_kernel_ln_drop` :169) and N1 (csrc/ffn_fc1.cu; `_fwd_kernel` :87,
-//   `_fwd_kernel_drop` :92).
+//   `_fwd_kernel_drop` :92); with kGelu false, y = A W1^T + b1 rounded once,
+//   the packed QKV projection's forward (csrc/ln_dense.cu, kLn;
+//   `_fwd_kernel_lnmm` :485), whose F = 5760 at D 1920 ends in half a tile.
 // - ffn_bwd_kernel<Bwd<D, kLn, kDrop, kDgIn, kEmitG>>: h = A W1^T + b1
 //   recomputed, dg = dy W2^T beside it (kDgIn) or read in, dh = dg * mask /
 //   keep * gelu'(h), g (kEmitG), ln_out (kLn), the db1 row partials. K5's
@@ -39,28 +41,29 @@
 // Design: a block of 384 threads takes a 128-row tile of the output and
 // `tiles` of its column tiles in turn (kN = 256 columns forward, 128
 // backward and for dl; `tiles_per_block` picks how many from the grid's
-// waves), so the row statistics, the ring's fill and the barriers' set-up
-// are paid once per block. Warpgroup 0 produces: its first warp's lane 0
-// keeps TMA copies in flight into a ring of kStages stages (3, 4 where a
-// stage is 32 KB), each stage a 64-deep K chunk (one 128-byte swizzle row of
-// bf16) of A (128 x 64) and B (the W1 tile, kN x 64 K-major; or 64 x 128
-// N-major for dl, and W2's for dg, with the transpose bit), with `full` and
-// `empty` mbarriers; it runs ahead over the next tile's chunks while the
-// consumers finish the current tile's epilogue. Warpgroups 1 and 2 consume,
-// 64 rows each: wgmma m64n128k16 from shared memory, fp32 accumulators in
-// registers (128 a thread: h's 256 columns forward; h and dg side by side
-// in the backward), a chunk's products committed as one group and the
-// previous chunk's stage released when it completes. setmaxnreg splits the
-// registers 40 / 232.
+// waves: 1, 2, 4 or 8 dividing the count, or for the bias-only forward any
+// of 1 .. 8, a row's last block taking the rest), so the row statistics,
+// the ring's fill and the barriers' set-up are paid once per block.
+// Warpgroup 0 produces: its first warp's lane 0 keeps TMA copies in flight
+// into a ring of kStages stages (3, 4 where a stage is 32 KB), each stage a
+// 64-deep K chunk (one 128-byte swizzle row of bf16) of A (128 x 64) and B
+// (the W1 tile, kN x 64 K-major; or 64 x 128 N-major for dl, and W2's for
+// dg, with the transpose bit), with `full` and `empty` mbarriers; it runs
+// ahead over the next tile's chunks while the consumers finish the current
+// tile's epilogue. Warpgroups 1 and 2 consume, 64 rows each: wgmma
+// m64n128k16 from shared memory, fp32 accumulators in registers (128 a
+// thread: h's 256 columns forward; h and dg side by side in the backward), a
+// chunk's products committed as one group and the previous chunk's stage
+// released when it completes. setmaxnreg splits the registers 40 / 232.
 //
 // The LayerNorm (kLn) is applied to the streamed chunks, so shared memory
 // does not grow with D and every width takes the same tile: before the
 // split the block's 12 warps compute each row's mean and rstd in fp32,
-// two-pass as `_ln_rows` (and csrc/ffn_tiles.cuh's ln_panel, bit for bit:
-// ln_dense normalises there), into shared memory beside gamma and
-// beta (staged there once: a global load of them in every pass was on its
-// critical path); each consumer warpgroup then normalises its own 64 rows
-// of each landed x chunk in place with the chunk's gamma and beta, rounds
+// two-pass as `_ln_rows` (and csrc/ln_dense.cu's rows kernel, bit for
+// bit: its ln_out is this forward's operand), into shared memory beside
+// gamma and beta (staged there once: a global load of them in every pass
+// was on its critical path); each consumer warpgroup then normalises its
+// own 64 rows of each landed x chunk in place with the chunk's gamma and beta, rounds
 // them to bf16 (the product's operand, as `_ln_matmul`), writes them to
 // ln_out where the backward's column tile 0 runs (the dW1 operand, once),
 // fences the async proxy and meets its warpgroup at a named barrier before
@@ -139,12 +142,15 @@ constexpr int kATile = kRows * kChunk * 2;  // 16 KB: an A chunk (x, dy or dh)
 constexpr int kNTile = 64 * 128 * 2;        // 16 KB: an N-major 64 x 128 weight tile
 constexpr int kMaxSmem = 232448;            // a block's shared memory on the H100
 
-// The forward: one product, 256 columns a tile (two m64n128 accumulators).
-template <int D_, bool kLn_, bool kDrop_>
+// The forward: one product, 256 columns a tile (two m64n128 accumulators);
+// the epilogue's GELU (kGelu), or + b alone (the packed QKV projection,
+// csrc/ln_dense.cu).
+template <int D_, bool kLn_, bool kDrop_, bool kGelu_ = true>
 struct Fwd {
   static constexpr int D = D_, kN = 256, kStages = 3;
   static constexpr bool kFwd = true, kBwd = false, kDl = false, kLn = kLn_, kDrop = kDrop_,
-                        kDgIn = false;
+                        kDgIn = false, kGelu = kGelu_;
+  static_assert(kGelu_ || !kDrop_, "the bias-only epilogue has no dropout");
 };
 
 // The backward's first kernel: h and (kDgIn) dg side by side, 128 columns.
@@ -297,7 +303,8 @@ struct Args {
   int T;
   uint32_t threshold;
   float scale, eps;
-  int tiles;           // column tiles a block takes in turn
+  int tiles;           // column tiles a block takes in turn (the last block of a row fewer)
+  int col_tiles;       // the output's column tiles
 };
 
 // The row statistics of rows m0 .. m0+127 into stats (mean, rstd), by the
@@ -413,12 +420,12 @@ __device__ __forceinline__ void normalise(const Args& a, uint32_t slot, const fl
 // iteration kStages on (the prologue started the first); the other threads
 // have nothing to do.
 template <class P>
-__device__ __forceinline__ void produce(const Maps& m, const Args& a, uint32_t base, int n_k,
-                                        int m0, int c0) {
+__device__ __forceinline__ void produce(const Maps& m, uint32_t base, int n_k, int m0, int c0,
+                                        int tiles) {
   using L = Layout<P>;
   hopper::reg_dealloc<kProducerRegs>();
   if (threadIdx.x != 0) return;
-  L::ring(base).produce(P::kStages, a.tiles * n_k,
+  L::ring(base).produce(P::kStages, tiles * n_k,
                         [&](int i) { load_stage<P>(m, base, i, n_k, m0, c0); });
 }
 
@@ -463,16 +470,23 @@ struct Lane {
 // g of the 128 columns 128 H .. of the forward's tile at column n0 from acc
 // (h - b1), into the warpgroup's staging buffer at stg (64 rows of 512
 // bytes, 16-byte chunk c of row r at c ^ (r % 8): conflict-free both ways).
+// Columns at or past N (the last tile's second half where N is an odd
+// multiple of 128) are neither read from b1 nor staged.
 template <class P, int H>
 __device__ __forceinline__ void stage_half(const Args& a, const Lane& ln, uint32_t stg,
                                            const float (&acc)[64], int n0, uint32_t t_mine,
                                            uint32_t seed_mine) {
+  if (n0 + 128 * H >= a.N) return;  // uniform over the block
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int jj = 16 * H + j;  // the 8-column group of the tile
     const float2 bb = *reinterpret_cast<const float2*>(a.b1 + n0 + 8 * jj + 2 * ln.quad);
-    float v[4] = {coral_gelu(acc[4 * j] + bb.x), coral_gelu(acc[4 * j + 1] + bb.y),
-                  coral_gelu(acc[4 * j + 2] + bb.x), coral_gelu(acc[4 * j + 3] + bb.y)};
+    float v[4] = {acc[4 * j] + bb.x, acc[4 * j + 1] + bb.y, acc[4 * j + 2] + bb.x,
+                  acc[4 * j + 3] + bb.y};
+    if constexpr (P::kGelu) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = coral_gelu(v[e]);
+    }
     if constexpr (P::kDrop) {
       bool k0[2], k1[2];
       keep_pairs((uint32_t)(n0 + 8 * jj) >> 2, ln.quad, t_mine, seed_mine, a.threshold, k0, k1);
@@ -488,7 +502,8 @@ __device__ __forceinline__ void stage_half(const Args& a, const Lane& ln, uint32
 }
 
 // The forward's epilogue of the tile at column n0: g staged (stage_half),
-// then stored 16 bytes a thread, a 512-byte row of g a warp, rows below M.
+// then stored 16 bytes a thread, a 512-byte row of g a warp, rows below M
+// and columns below N.
 template <class P>
 __device__ __forceinline__ void epilogue_fwd(const Args& a, const Lane& ln, uint32_t stg,
                                              const float (&acc0)[64], const float (&acc1)[64],
@@ -499,11 +514,12 @@ __device__ __forceinline__ void epilogue_fwd(const Args& a, const Lane& ln, uint
   stage_half<P, 1>(a, ln, stg, acc1, n0, t_mine, seed_mine);
   hopper::named_barrier(1 + ln.wg, 128);
   const long long wrow0 = r0 - ln.row;  // the warpgroup's first row
+  const bool in_cols = 8 * ln.lane < a.N - n0;
 #pragma unroll 4
   for (int r = ln.warp; r < 64; r += 4) {
     if (wrow0 + r >= a.M) break;  // uniform over the warp
     const uint4 v = hopper::ld_shared_v4(stg + r * 512 + ((ln.lane ^ (r & 7)) * 16));
-    *reinterpret_cast<uint4*>(a.g + (wrow0 + r) * a.N + n0 + 8 * ln.lane) = v;
+    if (in_cols) *reinterpret_cast<uint4*>(a.g + (wrow0 + r) * a.N + n0 + 8 * ln.lane) = v;
   }
 }
 
@@ -616,11 +632,11 @@ __device__ __forceinline__ void epilogue_dl(const Args& a, const Lane& ln,
   }
 }
 
-// A consumer warpgroup: for each of the block's column tiles, its 64 rows'
-// products over every chunk, then the tile's epilogue.
+// A consumer warpgroup: for each of the block's `tiles` column tiles, its 64
+// rows' products over every chunk, then the tile's epilogue.
 template <class P>
 __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint32_t base,
-                                        int n_k, long long m0, int c0) {
+                                        int n_k, long long m0, int c0, int tiles) {
   using L = Layout<P>;
   constexpr int kS = P::kStages;
   constexpr int kAcc1 = P::kFwd || P::kDgIn ? 64 : 1;
@@ -652,7 +668,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* smem, uint
     hopper::fence_proxy_async();
   };
 #pragma unroll 1
-  for (int tile = 0; tile < a.tiles; ++tile) {
+  for (int tile = 0; tile < tiles; ++tile) {
     const int n0 = (c0 + tile) * P::kN;
     const bool emit = P::kBwd && c0 + tile == 0;  // the backward's ln_out, once
     float acc0[64], acc1[kAcc1];
@@ -732,6 +748,7 @@ __device__ __forceinline__ void mainloop(const Maps& m, const Args& a) {
   const uint32_t base = hopper::smem_u32(smem);
   const int n_k = a.K / kChunk;
   const int m0 = blockIdx.x * kRows, c0 = blockIdx.y * a.tiles;
+  const int tiles = min(a.tiles, a.col_tiles - c0);
   if (threadIdx.x == 0) {
     L::ring(base).init(8);  // the consumers' warps free a stage
     hopper::mbar_init(L::dg_full(base), 1);
@@ -741,7 +758,7 @@ __device__ __forceinline__ void mainloop(const Maps& m, const Args& a) {
   __syncthreads();
   if (threadIdx.x == 0) {
     hopper::prefetch_tensormap(&m.b);
-    const int n_first = a.tiles * n_k < P::kStages ? a.tiles * n_k : P::kStages;
+    const int n_first = tiles * n_k < P::kStages ? tiles * n_k : P::kStages;
     for (int i = 0; i < n_first; ++i) load_stage<P>(m, base, i, n_k, m0, c0);
   }
   if constexpr (P::kLn) {
@@ -756,9 +773,9 @@ __device__ __forceinline__ void mainloop(const Maps& m, const Args& a) {
     __syncthreads();
   }
   if (threadIdx.x < 128)
-    produce<P>(m, a, base, n_k, m0, c0);
+    produce<P>(m, base, n_k, m0, c0, tiles);
   else
-    consume<P>(a, smem, base, n_k, m0, c0);
+    consume<P>(a, smem, base, n_k, m0, c0, tiles);
 }
 
 }  // namespace gemm
@@ -834,16 +851,18 @@ inline int sm_count() {
   return n;
 }
 
-// The column tiles a block takes (1, 2, 4 or 8, dividing col_tiles): the
-// fewest block-waves (one block an SM) times a block's work, a tile each
-// plus a quarter of one for the row statistics and the ring's fill.
-inline int tiles_per_block(long long row_tiles, int col_tiles) {
+// The column tiles a block takes (1, 2, 4 or 8, dividing col_tiles; with
+// any_count any of 1 .. 8, a row's last block taking the rest): the fewest
+// block-waves (one block an SM) times a block's work, a tile each plus a
+// quarter of one for the row statistics and the ring's fill.
+inline int tiles_per_block(long long row_tiles, int col_tiles, bool any_count = false) {
   const long long sms = sm_count();
   int best = 1;
   double best_cost = -1.0;
-  for (int n = 1; n <= 8; n *= 2) {
-    if (col_tiles % n != 0) continue;
-    const long long waves = (row_tiles * (col_tiles / n) + sms - 1) / sms;
+  for (int n = 1; n <= 8; n += any_count ? 1 : n) {
+    if (!any_count && col_tiles % n != 0) continue;
+    const long long groups = (col_tiles + n - 1) / n;
+    const long long waves = (row_tiles * groups + sms - 1) / sms;
     const double cost = (double)waves * (n + 0.25);
     if (best_cost < 0.0 || cost < best_cost) best = n, best_cost = cost;
   }
@@ -851,24 +870,29 @@ inline int tiles_per_block(long long row_tiles, int col_tiles) {
 }
 
 // Launches kKernel (a kernel over this mainloop with policy P) on `s` over M
-// rows and col_tiles column tiles; the cudaError_t.
+// rows and col_tiles column tiles (any_count: as tiles_per_block); the
+// cudaError_t.
 template <class P, auto kKernel>
-int launch(const Maps& maps, Args a, int col_tiles, cudaStream_t s) {
+int launch(const Maps& maps, Args a, int col_tiles, cudaStream_t s, bool any_count = false) {
   // Once per instantiation and process, off every later call's path.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<P>::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const long long row_tiles = (a.M + kRows - 1) / kRows;
-  a.tiles = tiles_per_block(row_tiles, col_tiles);
-  const dim3 grid((unsigned)row_tiles, (unsigned)(col_tiles / a.tiles));
+  a.tiles = tiles_per_block(row_tiles, col_tiles, any_count);
+  a.col_tiles = col_tiles;
+  const dim3 grid((unsigned)row_tiles, (unsigned)((col_tiles + a.tiles - 1) / a.tiles));
   kKernel<<<grid, kThreads, Layout<P>::kSmem, s>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
 // The forward at width D (kLn: a built width; without it D is 0 and the
 // width K a runtime value): g (M, F) = dropout(gelu(A W1^T + b1)), dropout
-// where seeds are given.
-template <int D, bool kLn>
+// where seeds are given; without kGelu y (M, F) = A W1^T + b1 (seeds null).
+// F is a multiple of 128: where it is not one of 256 (5760, the packed QKV
+// projection at D 1920) the last column tile's second half lies past F, its
+// W1 rows TMA's zeros, and nothing of it is stored.
+template <int D, bool kLn, bool kGelu = true>
 int launch_fwd(const bf16* x, const bf16* w1, const float* b1, const float* gamma,
                const float* beta, const int* seeds, bf16* g, long long M, int K, int F, int T,
                uint32_t threshold, float scale, float eps, cudaStream_t s) {
@@ -879,9 +903,15 @@ int launch_fwd(const bf16* x, const bf16* w1, const float* b1, const float* gamm
   Args a{};
   a.x = x, a.b1 = b1, a.gamma = gamma, a.beta = beta, a.seeds = seeds, a.g = g;
   a.M = M, a.K = K, a.N = F, a.T = T, a.threshold = threshold, a.scale = scale, a.eps = eps;
-  if (seeds != nullptr)
-    return launch<Fwd<D, kLn, true>, ffn_fwd_kernel<Fwd<D, kLn, true>>>(maps, a, F / 256, s);
-  return launch<Fwd<D, kLn, false>, ffn_fwd_kernel<Fwd<D, kLn, false>>>(maps, a, F / 256, s);
+  const int col_tiles = (F + 255) / 256;
+  if constexpr (kGelu) {
+    if (seeds != nullptr)
+      return launch<Fwd<D, kLn, true>, ffn_fwd_kernel<Fwd<D, kLn, true>>>(maps, a, col_tiles, s);
+  }
+  // The bias-only forward (F = 3 D: 12 and 23 column tiles at D 1024 and
+  // 1920, where no power of two divides the count usefully) takes any count.
+  using Keep = Fwd<D, kLn, false, kGelu>;
+  return launch<Keep, ffn_fwd_kernel<Keep>>(maps, a, col_tiles, s, !kGelu);
 }
 
 // out (M, N) = dh (M, K) W1 (K, N), in fp32 or bf16.

@@ -1,9 +1,10 @@
-// The Hopper (sm_90a) instructions the attention and FFN kernels are built on, as
-// thin PTX wrappers: mbarriers, thread-block clusters and their distributed
-// shared memory, TMA tensor loads and the host side's tensor maps, warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors, named
-// barriers, the async-proxy fence and setmaxnreg. Raw PTX keeps each
-// source's nvcc run at seconds (no CuTe headers).
+// The Hopper (sm_90a) instructions the attention, FFN and CTC kernels are
+// built on, as thin PTX wrappers: mbarriers, thread-block clusters and their
+// distributed shared memory, TMA tensor loads, bulk copies both ways and the
+// host side's tensor maps, warpgroup matrix multiplies (wgmma) with their
+// shared-memory descriptors, named barriers, the async-proxy fence and
+// setmaxnreg. Raw PTX keeps each source's nvcc run at seconds (no CuTe
+// headers).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
@@ -143,6 +144,41 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared memory at `dst`,
+// both 16-byte aligned, completing transactions on `bar`: a bulk copy
+// without a tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory at `src` to global `dst`,
+// both 16-byte aligned, in this thread's current bulk group: a bulk copy out.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// Closes this thread's bulk group of copies out.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk copies out have read their shared memory
+// (kRead) or completed.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {

@@ -6,13 +6,24 @@
 // `_fwd_kernel_lnmm` :485, the forward of `ln_dense`.
 // Bound on the H100: the tensor cores: 2 * D * F flops per row (F = 3 D)
 // against 2 KB of x in and 6 KB of y out at D = 1024 (2.5 and 7.5 KB at 1280,
-// 3.75 and 11.25 KB at 1920), hundreds of flops per byte.
-// Design: K5's forward (csrc/ffn_tiles.cuh: the LayerNorm panel rounded to
-// bf16 as `_ln_matmul`, the K loop over W (F, D), the staged accumulators)
-// with an epilogue that adds b and rounds, no GELU. F = 3 D is a multiple of
-// the 256-column tile at D 1024 and 1280 but not at 1920 (5760 = 22.5 x 256):
-// the last column tile there loads zero rows of W past F and writes nothing
-// past F.
+// 3.75 and 11.25 KB at 1920), hundreds of flops per byte. What costs beside
+// the product: the LayerNorm (a few flops an element of x, once per column
+// tile) and re-reading x per column tile and W per row tile from L2.
+// Design: K5's forward without its GELU. ffn_fwd_kernel<gemm::Fwd<D, true,
+// false, false>> runs csrc/ffn_gemm.cuh's Hopper mainloop (TMA copies into
+// an mbarrier ring, the LayerNorm applied to each streamed x chunk in place,
+// wgmma m64n128k16 with fp32 accumulators in registers, 384 threads, 128-row
+// and 256-column tiles) with the bias-only epilogue: + b in fp32, rounded
+// once to bf16, no GELU, no mask. One device kernel a call. F = 3 D gives
+// 12, 15 and 23 column tiles at D 1024, 1280 and 1920, counts that powers
+// of two do not divide usefully, so `tiles_per_block` may give this forward
+// any count (a row's last block takes the rest): 3 tiles a block at 1024
+// serving (0.80x the time at 1 tile; 2, 4 and 6 tiles 0.95-1.02x), 6 at
+// 1920 (0.76x the time at 1), timed on an H100 from edited copies
+// (tools/probe_ffn.py, PERF.md §6). F is not a multiple of the 256-column
+// tile at 1920 (5760 = 22.5 x 256): the tile count is rounded up, the last
+// tile's W rows past F are TMA's zeros, and its epilogue reads no b and
+// stores nothing past F.
 //
 // Backward. Replaces: `_bwd_pallas_lnmm` :1013 -> `_bwd_kernel_lnmm` :493:
 // the LayerNorm rebuilt from x and written once as ln_out (the outside dW =
@@ -26,71 +37,33 @@
 // dl complete over all D columns; on an SM a 64-row fp32 dl tile is 256 KB at
 // D = 1024, over the 227 KB a block has, so the work is N4's composition
 // (csrc/ffn_ln_fc1.cu) without its h product: (i) ln_dense_rows_kernel, one
-// block per 64 rows: ln_out with the forward panel's arithmetic, and the
-// fp32 column sums of dy over its rows (db's partial, summed over blocks
-// outside as the JAX package sums its per-batch-row partials); (ii)
-// dl_kernel (csrc/ffn_gemm.cuh's Hopper mainloop) with dh := dy and K = F, dl
-// in fp32; (iii)
-// the LayerNorm backward of csrc/ln_gelu.cu on (x, dl), launched by the
-// wrapper. Built at the packed projections of the repository's XLS-R
-// configs: D 1024, 1280 and 1920.
+// block per 64 rows: ln_out with the mainloop's LayerNorm arithmetic (its
+// row statistics and chunk pass, so ln_out is the forward's product operand
+// bit for bit, as a card test holds it), and the fp32 column sums of dy over
+// its rows (db's partial, summed over blocks outside as the JAX package sums
+// its per-batch-row partials); (ii) dl_kernel (csrc/ffn_gemm.cuh's Hopper
+// mainloop) with dh := dy and K = F, dl in fp32; (iii) the LayerNorm
+// backward of csrc/ln_gelu.cu on (x, dl), launched by the wrapper. Built at
+// the packed projections of the repository's XLS-R configs: D 1024, 1280 and
+// 1920.
+//
+// No model path includes csrc/ffn_tiles.cuh's WMMA panel product any more;
+// only the two probes do (csrc/probe_gelu_cost.cu and
+// csrc/probe_lane_reduce.cu, which time that tile as the JAX tools time
+// theirs). The rows kernel below needs none of its helpers.
 #include "ffn_gemm.cuh"
-#include "ffn_tiles.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // rows per block of the rows kernel
+constexpr int kRows = 64;         // rows per block of the rows kernel
+constexpr int kRowThreads = 256;  // its 8 warps, 8 rows each
 
-// y (M, F) bf16 = bf16(LN(x)) @ w^T + b: x (M, D) bf16, w (F, D) bf16, b (F,)
-// fp32, gamma, beta (D,) fp32; F a multiple of 128.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    ln_dense_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        const float* __restrict__ b, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, bf16* __restrict__ y, long long M, int F,
-                        float eps) {
-  constexpr int BM = panel_rows(D);
-  static_assert(fwd_smem(D) <= kMaxSmem, "the forward's stage must fit a block's shared memory");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + BM * (D + 8);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  ln_panel<D, BM>(As, x, gamma, beta, m0, M, eps);
-  __syncthreads();
-  FragC acc[BM / 32][4];
-  panel_times_w1<D, BM, true>(acc, As, Bs, w, n0, F);
-  stage<BM>(Cs, acc);  // the K loop ended on a barrier: the panel and tile are dead
-  __syncthreads();
-
-  // Epilogue: warp w writes rows w*BM/8 .. ; lane owns columns lane*8 .. +7.
-  const int col = lane * 8;
-  if (n0 + col >= F) return;  // the column tail; no barrier follows
-  float bias[8];
-  coral_load4(b + n0 + col, bias);
-  coral_load4(b + n0 + col + 4, bias + 4);
-#pragma unroll 1
-  for (int rr = 0; rr < BM / 8; ++rr) {
-    const int r = warp * (BM / 8) + rr;
-    const long long row = m0 + r;
-    if (row >= M) break;
-    float out[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = Cs[r * kLdC + col + e] + bias[e];
-    coral_store8(y + row * F + n0 + col, out);
-  }
-}
-
-// Rows m0 .. m0+63: ln_out (M, D) bf16 = bf16(LN(x)) with ln_panel's
-// arithmetic (the forward's product operand, bit for bit), and db_part
+// Rows m0 .. m0+63: ln_out (M, D) bf16 = bf16(LN(x)) with the mainloop's
+// arithmetic (gemm::row_stats, then gemm::normalise's (x - mean) rstd gamma +
+// beta: the forward's product operand, bit for bit), and db_part
 // (ceil(M / 64), F) fp32 = the column sums of dy (M, F) bf16 over the rows.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowThreads)
     ln_dense_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                          const float* __restrict__ beta, const bf16* __restrict__ dy,
                          bf16* __restrict__ ln_out, float* __restrict__ db_part, long long M,
@@ -136,7 +109,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // db's partial: a thread sums 8 columns at a time over the block's rows.
   const int rows = (int)(M - m0 < kRows ? M - m0 : kRows);
-  for (int c = threadIdx.x * 8; c < F; c += kThreads * 8) {
+  for (int c = threadIdx.x * 8; c < F; c += kRowThreads * 8) {
     float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int r = 0; r < rows; ++r) {
       float d[8];
@@ -166,24 +139,20 @@ int with_qkv_width(int D, Fn&& f) {
 
 // The forward at a built width D (1024, 1280, 1920): x (M, D) bf16, w (F, D)
 // bf16, b (F,) fp32, gamma, beta (D,) fp32, y (M, F) bf16; F a multiple of
-// 128. Returns the cudaError_t of the launch, or -1 for a shape it was not
-// built for.
+// 128. Returns the cudaError_t of the launch or the encoder's error, or -1
+// for a shape it was not built for.
 extern "C" int coral_ln_dense_fwd(const void* x, const void* w, const void* b,
                                   const void* gamma, const void* beta, void* y, long long M,
                                   int D, int F, float eps, void* stream) {
   if (F <= 0 || F % 128 != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *xp = static_cast<const bf16*>(x), *wp = static_cast<const bf16*>(w);
-  const float *bp = static_cast<const float*>(b), *gp = static_cast<const float*>(gamma),
-              *tp = static_cast<const float*>(beta);
-  bf16* yp = static_cast<bf16*>(y);
   return with_qkv_width(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     if (M <= 0) return 0;
-    constexpr int BM = panel_rows(kD);
-    const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + kBN - 1) / kBN));
-    return (int)launch_with_smem<ln_dense_fwd_kernel<kD>>(grid, fwd_smem(kD), s, xp, wp, bp, gp,
-                                                          tp, yp, M, F, eps);
+    return gemm::launch_fwd<kD, true, false>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta), nullptr,
+        static_cast<bf16*>(y), M, kD, F, 1, 0u, 1.f, eps, s);
   });
 }
 
@@ -205,7 +174,7 @@ extern "C" int coral_ln_dense_bwd(const void* x, const void* w, const void* gamm
   return with_qkv_width(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     if (M <= 0) return 0;
-    ln_dense_rows_kernel<kD><<<(unsigned)((M + kRows - 1) / kRows), kThreads, 0, s>>>(
+    ln_dense_rows_kernel<kD><<<(unsigned)((M + kRows - 1) / kRows), kRowThreads, 0, s>>>(
         xp, gp, tp, dyp, lnp, part, M, F, eps);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

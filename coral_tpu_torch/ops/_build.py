@@ -117,10 +117,14 @@ _SIGNATURES = {
     "coral_ln_dense_fwd": [_P] * 6 + [_LL, _I, _I, _F, _P],
     # x, w, gamma, beta, dy, ln_out, db_part, dl, M, D, F, eps, stream
     "coral_ln_dense_bwd": [_P] * 8 + [_LL, _I, _I, _F, _P],
-    # emit, skip, valid, lengths, out, T, B, S, stream
-    "coral_ctc_alpha": [_P] * 5 + [_I, _I, _I, _P],
-    # emit, skip, valid, lengths, last, out, T, B, S, stream
-    "coral_ctc_beta": [_P] * 6 + [_I, _I, _I, _P],
+    # emit, skip, valid, lengths, out, T, B, S, ld (emit's row pitch), stream
+    "coral_ctc_alpha": [_P] * 5 + [_I] * 4 + [_P],
+    # emit, skip, valid, lengths, last, out, T, B, S, ld, stream
+    "coral_ctc_beta": [_P] * 6 + [_I] * 4 + [_P],
+    # mode (0 the kernel, 1 its latency floor), R (states a thread, 0: the
+    # kernel's choice), beta, emit, skip, valid, lengths, last, out, T, B, S,
+    # ld, stream (tools/probe_ctc.py)
+    "coral_ctc_probe": [_I, _I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # q, k, v, o, m, l, seg, B, T, Tk, H, head_dim, stride_b, stride_t, scale,
     # stream
     "coral_flash_attention_fwd": [_P] * 7 + [_I] * 5 + [_LL, _LL, _F, _P],

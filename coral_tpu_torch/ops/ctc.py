@@ -6,7 +6,12 @@ Port of ``coral_tpu/ops/ctc.py`` ``ctc_loss`` (:354) with its ``custom_vjp``
 :125), which the JAX package runs on its accelerator. On a CUDA tensor
 ``ctc_alpha`` and ``ctc_beta`` launch ``csrc/ctc.cu``; on a CPU tensor they run
 the plain versions beside them (a Python loop over time); ``plain=True`` runs
-the plain versions on any device.
+the plain versions on any device. The kernels copy each time step's row of
+emissions in, and of outputs out, with one bulk copy of 16-byte multiples,
+so ``_emissions`` gathers the emissions into rows of S rounded up to 4
+floats and hands out the (T, B, S) view, the wrappers take that view as it
+is (and copy any other layout into such rows), and they return (T, B, S)
+views of outputs in such rows.
 
 Semantics are torch's ``ctc_loss``, as the JAX package's: per-sample
 ``-log p(y|x)``, reductions none/sum/mean (mean divides by the target length
@@ -24,6 +29,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+# The kernels' largest S (csrc/ctc.cu: 1024 threads x 6 states a thread).
+MAX_STATES = 6144
 
 
 def _log_add(a, b):
@@ -41,17 +48,22 @@ def _extended_labels(labels, blank_id: int):
 
 
 def _emissions(log_probs, ext):
-    """emit[t, b, s] = log_probs[t, b, ext[b, s]]."""
+    """emit[t, b, s] = log_probs[t, b, ext[b, s]]: a (T, B, S) view of rows
+    of S rounded up to 4 values (the kernels' 16-byte rows), the padding
+    gathered at label 0 and never read as a state."""
     T = log_probs.shape[0]
-    return torch.gather(log_probs, 2, ext[None].expand(T, -1, -1))
+    B, S = ext.shape
+    if S % 4:
+        ext = torch.cat([ext, ext.new_zeros(B, -S % 4)], 1)
+    return torch.gather(log_probs, 2, ext[None].expand(T, -1, -1))[..., :S]
 
 
 def _state_masks(ext, label_lengths, blank_id: int):
     """(skip s-2 -> s, skip s -> s+2, valid state, terminal state), each (B, S) bool."""
     B, S = ext.shape
     pad = torch.full((B, 2), -1, dtype=ext.dtype, device=ext.device)
-    prev2 = torch.cat([pad, ext[:, :-2]], dim=1)
-    next2 = torch.cat([ext[:, 2:], pad], dim=1)
+    prev2 = torch.cat([pad, ext[:, :-2]], dim=1)[:, :S]  # S columns at S = 1 too
+    next2 = torch.cat([ext[:, 2:], pad], dim=1)[:, :S]
     not_blank = ext != blank_id
     pos = torch.arange(S, device=ext.device)[None, :]
     valid = pos < (2 * label_lengths[:, None] + 1)
@@ -61,9 +73,11 @@ def _state_masks(ext, label_lengths, blank_id: int):
 
 
 def _shift(x, k):
-    """x shifted toward higher s by k (k < 0: lower s), filled with NEG_INF."""
-    fill = torch.full((x.shape[0], abs(k)), NEG_INF, dtype=x.dtype, device=x.device)
-    return torch.cat([fill, x[:, :-k]], 1) if k > 0 else torch.cat([x[:, -k:], fill], 1)
+    """x shifted toward higher s by k (k < 0: lower s), filled with NEG_INF
+    (all of it where |k| >= S)."""
+    S = x.shape[1]
+    fill = torch.full((x.shape[0], min(abs(k), S)), NEG_INF, dtype=x.dtype, device=x.device)
+    return torch.cat([fill, x[:, :S - k]], 1) if k > 0 else torch.cat([x[:, -k:], fill], 1)
 
 
 def ctc_alpha_plain(emit, skip, valid, lengths):
@@ -99,9 +113,26 @@ def ctc_beta_plain(emit, skip_fwd, valid, lengths, terminal):
     return torch.stack(out)
 
 
+def _rows(name, emit):
+    """emit (T, B, S) fp32 as the kernels read it: (tensor, ld), row (t, b) at
+    (t B + b) ld floats, ld a multiple of 4 and at least S. ``_emissions``'s
+    view passes as it is; any other layout is copied into such rows."""
+    T, B, S = emit.shape
+    if emit.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes {torch.float32}, got {emit.dtype}")
+    ld = emit.stride(1)
+    if (emit.stride(2) == 1 and ld % 4 == 0 and ld >= S and emit.stride(0) == B * ld
+            and emit.data_ptr() % 16 == 0):
+        return emit, ld
+    ld = -(-S // 4) * 4
+    return torch.nn.functional.pad(emit, (0, ld - S), value=NEG_INF), ld
+
+
 def _launch(name, kernel, emit, masks, lengths):
     T, B, S = emit.shape
-    _build.check_cuda(name, torch.float32, emit)
+    if S > MAX_STATES:
+        raise ValueError(f"{name}: the kernel takes S <= {MAX_STATES} states, got {S}")
+    emit, ld = _rows(name, emit)
     masks = [m.to(torch.uint8).contiguous() for m in masks]
     lengths = lengths.to(torch.int32).contiguous()
     for m in masks:
@@ -109,17 +140,16 @@ def _launch(name, kernel, emit, masks, lengths):
             raise ValueError(f"{name}: masks must be ({B}, {S}) on {emit.device}")
     if lengths.shape != (B,) or lengths.device != emit.device:
         raise ValueError(f"{name}: lengths must be ({B},) on {emit.device}")
-    if 2 * S * 4 > 48 * 1024:
-        raise ValueError(f"{name}: the kernel takes S <= 6144 states, got {S}")
-    out = torch.empty_like(emit)
+    # The kernels write rows of ld floats too (bulk copies out); the view is (T, B, S).
+    out = torch.empty((T, B, ld), dtype=torch.float32, device=emit.device)
     ptrs = [m.data_ptr() for m in masks]
     if kernel == "ctc_alpha":
         args = (emit.data_ptr(), *ptrs, lengths.data_ptr(), out.data_ptr())
     else:
         skip, valid, terminal = ptrs
         args = (emit.data_ptr(), skip, valid, lengths.data_ptr(), terminal, out.data_ptr())
-    _build.launch(name, kernel, *args, T, B, S)
-    return out
+    _build.launch(name, kernel, *args, T, B, S, ld)
+    return out[..., :S]
 
 
 def ctc_alpha(emit, skip, valid, lengths):
@@ -127,15 +157,14 @@ def ctc_alpha(emit, skip, valid, lengths):
     lengths (B,) -> alphas (T, B, S) fp32, frozen past each row's length."""
     if not _build.require_cuda("coral_ctc_alpha", emit):
         return ctc_alpha_plain(emit, skip, valid, lengths)
-    return _launch("coral_ctc_alpha", "ctc_alpha", emit.contiguous(), (skip, valid), lengths)
+    return _launch("coral_ctc_alpha", "ctc_alpha", emit, (skip, valid), lengths)
 
 
 def ctc_beta(emit, skip_fwd, valid, lengths, terminal):
     """The beta recursion: as ``ctc_alpha`` plus the terminal-state mask."""
     if not _build.require_cuda("coral_ctc_beta", emit):
         return ctc_beta_plain(emit, skip_fwd, valid, lengths, terminal)
-    return _launch("coral_ctc_beta", "ctc_beta", emit.contiguous(),
-                   (skip_fwd, valid, terminal), lengths)
+    return _launch("coral_ctc_beta", "ctc_beta", emit, (skip_fwd, valid, terminal), lengths)
 
 
 class _CTC(torch.autograd.Function):
@@ -145,7 +174,7 @@ class _CTC(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_probs, ext, input_lengths, label_lengths, blank_id, plain):
         skip, skip_fwd, valid, terminal = _state_masks(ext, label_lengths, blank_id)
-        emit = _emissions(log_probs, ext).float().contiguous()
+        emit = _emissions(log_probs.float(), ext)
         alphas = (ctc_alpha_plain if plain else ctc_alpha)(emit, skip, valid, input_lengths)
         final = alphas[-1]
         last = 2 * label_lengths[:, None]

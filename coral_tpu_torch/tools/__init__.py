@@ -25,9 +25,11 @@ size (``python -m coral_tpu_torch.tools.probe_decode --clusters``),
 ``probe_ffn`` the FFN mainloop's wrappers at the main paths' shapes, by
 kernel, beside cuBLAS's fc1 product (``python -m
 coral_tpu_torch.tools.probe_ffn``; run from a copy of the package with an
-edited ``csrc/`` to time a variant), and ``probe_conv`` K3's wrappers at FE
+edited ``csrc/`` to time a variant), ``probe_conv`` K3's wrappers at FE
 blocks 1 and 5, by kernel, beside cuDNN's convolution alone (``python -m
-coral_tpu_torch.tools.probe_conv``, likewise).
+coral_tpu_torch.tools.probe_conv``, likewise), and ``probe_ctc`` K6 at the
+training shape beside its latency floor and ``F.ctc_loss`` (``python -m
+coral_tpu_torch.tools.probe_ctc``, likewise).
 
 Each prints one JSON line per case: the median of CUDA-event times, the
 floor (the larger of the case's operations at the H100's dense bf16 peak and

@@ -21,6 +21,14 @@ below does what its kernels do, in the kernels' order:
   then the 8 consumer warps in order;
 - dl = dh W1 over K = F in 64-deep chunks, in fp32.
 
+The bias-only policy (``ln_dense``'s forward, ``csrc/ln_dense.cu``) is walked
+too (``_walk_ln_dense``): the same LayerNorm chunks, column tiles of 256
+rounded up (W's rows past F zero), any number of tiles a block with a row's
+last block taking the rest, + b and one rounding, nothing stored past F;
+held against ``_fwd_pallas_lnmm`` in interpret mode (fp32, D 128, F 384: the
+half tile of F = 5760) and ``ln_dense_plain`` (bf16), at the tolerances
+below.
+
 The walk is held against the JAX package's own function
 (``coral_tpu.ops.ffn_pallas.ffn_ln_block`` with ``interpret=True,
 dg_in_kernel=True``, forward and VJP, as ``tests/test_torch_ops.py`` runs
@@ -332,3 +340,100 @@ def test_db1_partials_sum_in_the_kernels_fixed_order():
     assert torch.equal(parts, _db1_partials(dh.clone()))
     padded = torch.cat([dh, torch.zeros(84, 256)])
     assert torch.equal(_db1_partials(padded), parts)
+
+
+# -- the bias-only policy: ln_dense's forward (csrc/ln_dense.cu) ----------------------
+
+COLS = 256  # the forward's column tile
+
+
+def _tiles_per_block(row_tiles, col_tiles, any_count, sms=132):
+    """``gemm::tiles_per_block``: the column tiles a block takes, the fewest
+    block-waves times a block's work (its tiles plus a quarter of one); 1,
+    2, 4 or 8 dividing the count, or with any_count any of 1 .. 8."""
+    best, best_cost = 1, None
+    n = 1
+    while n <= 8:
+        if any_count or col_tiles % n == 0:
+            groups = -(-col_tiles // n)
+            cost = -(-(row_tiles * groups) // sms) * (n + 0.25)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = n, cost
+        n += 1 if any_count else n
+    return best
+
+
+def _walk_ln_dense(x, w, b, gamma, beta):
+    """The bias-only forward, walked: the row statistics and each chunk's
+    LayerNorm as ``_walk``'s kLn; column tiles of 256 rounded up (W's rows
+    past F are the tensor map's zeros), taken ``_tiles_per_block(..., True)``
+    at a time by a block, a row's last block the rest; the epilogue + b in
+    fp32, rounded once, stored below F only. Returns y (B, T, F) and the
+    column tiles each block took."""
+    dt = x.dtype
+    B, T, D = x.shape
+    F = w.shape[0]
+    M = B * T
+    x32 = x.reshape(M, D).float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    cen = x32 - mean
+    rstd = torch.rsqrt((cen * cen).mean(dim=-1, keepdim=True) + EPS)
+
+    def a_chunk(k0):
+        xc = x32[:, k0:k0 + CHUNK]
+        return (((xc - mean) * rstd) * gamma[k0:k0 + CHUNK].float()
+                + beta[k0:k0 + CHUNK].float()).to(dt).float()
+
+    col_tiles = -(-F // COLS)
+    w_pad = torch.zeros(col_tiles * COLS, D, dtype=w.dtype)
+    w_pad[:F] = w
+    tiles = _tiles_per_block(-(-M // ROWS), col_tiles, True)
+    y = torch.full((M, F), float("nan"), dtype=dt)
+    taken = []
+    for c0 in range(0, col_tiles, tiles):
+        block = list(range(c0, min(c0 + tiles, col_tiles)))
+        taken.append(block)
+        for c in block:
+            n0 = c * COLS
+            acc = _chunked(a_chunk, w_pad[n0:n0 + COLS], D)
+            cols = min(COLS, F - n0)  # the last tile's second half lies past F at F = 5760
+            y[:, n0:n0 + cols] = (acc[:, :cols] + b[n0:n0 + cols].float()).to(dt)
+    return y.view(B, T, F), taken
+
+
+@pytest.mark.parametrize("rows", [75, 130])
+def test_ln_dense_walk_matches_the_jax_forward(rows):
+    """fp32, D 128, F = 384 = 1.5 column tiles (the tail of F = 5760 at D
+    1920): the walk against ``_fwd_pallas_lnmm`` in interpret mode within
+    ``2e-5 + 1e-5 |y|`` (chunked sums in another order); every column written
+    once, by the blocks the tile count gives."""
+    D, F = 128, 384
+    x, w, b, gamma, beta, *_ = _inputs(D, F, rows, torch.float32, seed=11)
+    want = jffn._fwd_pallas_lnmm(*(jnp.asarray(a.numpy()) for a in (x, w.t(), b, gamma, beta)),
+                                 EPS, True)
+    got, taken = _walk_ln_dense(x, w, b, gamma, beta)
+    _close(got, np.asarray(want), 2e-5, 1e-5)
+    assert sorted(c for block in taken for c in block) == [0, 1]
+
+
+@pytest.mark.parametrize("D,F,rows", [(128, 384, 130), (384, 1152, 75)])
+def test_ln_dense_walk_matches_the_plain_version(D, F, rows):
+    """bf16: the walk against ``ln_dense_plain`` within one bf16 ulp plus
+    1e-6 (the same arithmetic, the product's fp32 sums chunk by chunk against
+    torch's), at F = 1.5 and 4.5 column tiles."""
+    x, w, b, gamma, beta, *_ = _inputs(D, F, rows, torch.bfloat16, seed=rows)
+    got, _ = _walk_ln_dense(x, w, b, gamma, beta)
+    want = ffn.ln_dense_plain(x, w, b, gamma, beta)
+    _close(got.float(), want.float(), 1e-6, BF16_ULP)
+
+
+def test_ln_dense_takes_any_tile_count_and_the_others_keep_theirs():
+    """At the serving rows (8 x 1499: 94 row tiles, 132 SMs) the bias-only
+    forward takes 3 of D 1024's 12 column tiles a block, 4 of 1280's 15 and 6
+    of 1920's 23 (4 blocks a row, the last with 5); the counts of the FFN
+    forward (F = 4 D, 16 column tiles at 1024) stay the powers of two that
+    divide theirs."""
+    assert [_tiles_per_block(94, c, True) for c in (12, 15, 23)] == [3, 4, 6]
+    assert _tiles_per_block(94, 16, False) == 4 and _tiles_per_block(94, 30, False) == 2
+    groups = [list(range(c0, min(c0 + 6, 23))) for c0 in range(0, 23, 6)]
+    assert [len(g) for g in groups] == [6, 6, 6, 5]

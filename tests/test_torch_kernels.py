@@ -66,7 +66,15 @@ outputs, the mask exact.
 The packed QKV projection of ``fused_qkv_ln`` (``ln_dense``, D 1024, 1280 and
 1920, F = 3 D, at 1920 a 128-column tail): y and ln_out as the other rounded
 outputs, dx as the other gradients, db, dgamma and dbeta as fp32 partial
-sums. The attention without in-kernel biases at head_dim 64, 80 and 120 as
+sums; the backward's ln_out is the forward's product operand bit for bit
+(through three stacked identities and b = 0, y is that operand); the
+forward one device kernel a call, the FFN mainloop's.
+
+K6, the CTC recursions (``-k ctc``), at the training shape (T' 499, B 8, S
+257), at S on each side of a warp's 32 and 64 states, at 1,025 (two states
+a thread) and at 6,143 (six): alpha and beta at rtol 1e-5 and atol 1e-3 as
+above, one launch and one device kernel a call, the same bits on two calls
+and from a contiguous copy of the emissions. The attention without in-kernel biases at head_dim 64, 80 and 120 as
 the biased one, and bit for bit the biased kernels' output at zero biases.
 
 The forwards' Hopper mainloop (``attention.cuh``): every instantiation of
@@ -980,6 +988,84 @@ def test_ctc_loss_kernel_path_matches_plain(cuda):
     torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-4, atol=1e-5)
 
 
+# K6 at the training shape (T' 499, B 8, L 128: S 257, R = 1 state a thread,
+# 9 warps) and around its layout: S 31 / 33 on each side of a warp's 32
+# states, 63 / 65 of two warps', 1025 (R = 2) and 6143 (R = 6, the last
+# states of the 6144 limit).
+CTC_SHAPES = [(499, 8, 128), (150, 3, 15), (150, 3, 16), (130, 3, 31), (130, 3, 32),
+              (70, 2, 512), (9, 2, 3071)]
+
+
+def _ctc_case(cuda, T, B, L, V=46):
+    """log-probs (T, B, V) and labels with repeats (skip false there); the
+    rows' lengths: T, 1, under one 64-step chunk, T - 1, an infeasible row
+    (more labels than frames), and L = 0."""
+    rng = np.random.default_rng(T * 1000 + L)
+    log_probs = torch.log_softmax(_on(cuda, _np(T, B, V, seed=L, scale=3.0)), dim=-1)
+    labels = rng.integers(1, V, size=(B, L))
+    labels[:, 1::7] = labels[:, 0::7][:, :labels[:, 1::7].shape[1]]  # repeated labels
+    labels = torch.from_numpy(labels).to(cuda)
+    in_len = torch.tensor([T, 1, min(T, 40), T - 1, max(1, L // 2), T, T, T][:B], device=cuda)
+    lab_len = torch.tensor([L, 0, min(L, 15), L, L, 0, L // 2, L][:B], device=cuda)
+    ext = ctc._extended_labels(labels, 0)
+    skip, skip_fwd, valid, terminal = ctc._state_masks(ext, lab_len, 0)
+    emit = ctc._emissions(log_probs, ext)
+    return (emit, skip, valid, in_len), (emit, skip_fwd, valid, in_len, terminal)
+
+
+@pytest.mark.parametrize("T,B,L", CTC_SHAPES)
+def test_ctc_kernels_match_plain_at_every_layout(cuda, T, B, L):
+    """Alpha and beta against their plain versions at atol 1e-3 and rtol
+    1e-5, one launch a call; two calls give the same bits; a contiguous copy
+    of the emissions (copied into 16-byte rows by the wrapper) gives the bits
+    of the gathered view."""
+    a_args, b_args = _ctc_case(cuda, T, B, L)
+    for name, kernel, plain, args in (("ctc_alpha", ctc.ctc_alpha, ctc.ctc_alpha_plain, a_args),
+                                      ("ctc_beta", ctc.ctc_beta, ctc.ctc_beta_plain, b_args)):
+        _build.reset_launch_counts()
+        got = kernel(*args)
+        assert _build.launch_counts == {name: 1}
+        torch.testing.assert_close(got, plain(*args), rtol=1e-5, atol=1e-3)
+        assert torch.equal(got, kernel(*args))
+        assert torch.equal(got, kernel(args[0].contiguous(), *args[1:]))
+
+
+def _ctc_kernels_a_call():
+    """The profiler's device kernels of one call of each K6 wrapper on the
+    gathered emissions, and of one ``ln_dense_fwd`` call at D 1024 and 1920."""
+    cuda = torch.device("cuda")
+    (emit, skip, valid, in_len), (_, skip_fwd, _, _, terminal) = _ctc_case(cuda, 499, 8, 128)
+    # Masks in uint8 and lengths in int32, as the kernels take them: the
+    # wrappers convert nothing.
+    skip, skip_fwd, valid, terminal = (m.to(torch.uint8) for m in (skip, skip_fwd, valid,
+                                                                    terminal))
+    in_len = in_len.to(torch.int32)
+    out = {"ctc_alpha": _device_kernels(lambda: ctc.ctc_alpha(emit, skip, valid, in_len)),
+           "ctc_beta": _device_kernels(lambda: ctc.ctc_beta(emit, skip_fwd, valid, in_len,
+                                                            terminal))}
+    for D in (1024, 1920):
+        x, w, b, gamma, beta, _ = _ln_dense_args(cuda, D)
+        ffn.ln_dense_fwd(x, w, b, gamma, beta)
+        out[f"ln_dense {D}"] = _device_kernels(lambda: ffn.ln_dense_fwd(x, w, b, gamma, beta))
+    return out
+
+
+def test_ctc_and_ln_dense_are_one_device_kernel_a_call(cuda):
+    """By the profiler, in a process of its own (as the FFN mainloop's count):
+    each K6 wrapper launches its one kernel, ``ln_dense``'s forward the
+    mainloop's forward kernel alone."""
+    tests = Path(__file__).resolve().parent
+    script = (f"import sys; sys.path[:0] = [{str(tests.parent)!r}, {str(tests)!r}]; "
+              f"import test_torch_kernels as t; print(t._ctc_kernels_a_call())")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    names = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    for key, want in (("ctc_alpha", "ctc_kernel"), ("ctc_beta", "ctc_kernel"),
+                      ("ln_dense 1024", "ffn_fwd_kernel"), ("ln_dense 1920", "ffn_fwd_kernel")):
+        assert len(names[key]) == 1 and want in names[key][0], (key, names[key])
+
+
 def test_backward_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(2, 10, 256, device=cuda)
     with pytest.raises(ValueError, match="C in"):
@@ -1847,6 +1933,22 @@ def test_ln_dense_writes_nothing_past_its_columns(cuda):
     torch.cuda.synchronize()
     assert (buf[M * F:] == 7.0).all()
     assert torch.equal(buf[:M * F].view(2, 75, F), ffn.ln_dense_fwd(x, w, b, gamma, beta))
+
+
+@pytest.mark.parametrize("D", QKV_D)
+def test_ln_dense_rows_kernel_writes_the_forward_operand(cuda, D):
+    """The backward's rows kernel recomputes the LayerNorm with the forward
+    mainloop's arithmetic: through W = three stacked identities and b = 0
+    the forward's y is its bf16 operand itself (one product term a column,
+    accumulated in fp32 with zeros), so each third of y equals the
+    backward's ln_out bit for bit, the 1920 tail tile included."""
+    x, _, _, gamma, beta, dy = _ln_dense_args(cuda, D)
+    eye = torch.eye(D, device=cuda, dtype=torch.bfloat16)
+    w = torch.cat([eye, eye, eye])
+    y = ffn.ln_dense_fwd(x, w, torch.zeros(3 * D, device=cuda), gamma, beta)
+    ln_out = ffn.ln_dense_bwd(x, w, gamma, beta, dy)[1]
+    for third in y.chunk(3, dim=-1):
+        assert torch.equal(third, ln_out)
 
 
 def test_ln_dense_autograd_launches_its_kernels(cuda):
