@@ -7,11 +7,13 @@ Run from the root of the repository:
 
 It drives the port's paths through the hand-written CUDA kernels, with seeded
 random weights in bf16, at every model config of the repository: wav2vec2
-serving, ``ASRPipeline`` with XLS-R-300M (24 layers, 30 s window, batch 8);
+serving, ``ASRPipeline`` with XLS-R-300M (24 layers, 30 s window, batch 8),
+also from a checkpoint written to disk with an n-gram LM beside it;
 wav2vec2 training, the CTC train step of ``Wav2Vec2Setup.make_train_step`` (8
 clips of 6-10 s padded to 10 s, 2 accumulation microbatches); Whisper
 serving, ``ASRPipeline("openai/whisper-large-v3")`` (32 + 32 layers, d 1280,
-30 s windows, batch 8, greedy generation to 225 tokens); Whisper training,
+30 s windows, batch 8, greedy generation to 225 tokens), also from an F16
+checkpoint written to disk; Whisper training,
 the seq2seq train step of ``WhisperSetup.make_train_step`` (8 clips of 6-10 s
 padded to 30 s, 2 accumulation microbatches); XLS-R-2B's production
 fine-tune and serving at full width and depth (48 layers, d 1920, 16 heads x
@@ -22,7 +24,8 @@ non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
-2. the kernels are built from ``coral_tpu_torch/csrc`` and the build time is
+2. the kernels are built from ``coral_tpu_torch/csrc`` (the native decoder
+   from ``coral_tpu_torch/native`` with g++ beside them) and the build time is
    printed, with the registers and spill bytes of the backward mainloop's
    instantiations (the flash backward's and the short-T backwards' pairs)
    and v1's from ptxas's report; then the LayerNorm wrappers' host path
@@ -80,7 +83,19 @@ non-zero before the result line is printed:
    run; then finite logits, the kernel path's logits against the plain path's
    on the same weights and batch, audio-seconds per second, latency per batch
    and peak device memory;
-5. training: (a) the kernel path's loss and gradients against the plain
+5. serving from disk (t): the serving phase's seeded XLS-R-300M written as
+   an F32 ``Wav2Vec2ForCTC`` checkpoint (``model.safetensors``, the
+   positional conv as weight norm's g and v) beside a ``3gram.arpa`` that
+   the port's ``NGramModel.train`` makes from seeded sentences, then
+   ``ASRPipeline(dir)`` (its load seconds): every parameter bit for bit the
+   written one (the folded conv within 1e-6 relative), the logits on 8 x
+   30 s against the seeded model's and the plain path's, one forward's
+   launches the greedy serving phase's exactly, ``no_lm=True`` the greedy
+   decode of the same logits; then the 12 clips through ``transcribe_batch``
+   with the LM (launches counted; each device batch split into its forward
+   and the host's decode) and without it, audio-s/s each, and the four
+   shortest clips' LM transcripts again (the same strings);
+6. training: (a) the kernel path's loss and gradients against the plain
    path's (``Wav2Vec2ForCTC(plain=True)``: every kernel's plain version,
    forward and backward, and the plain CTC recursions) on the same weights,
    batch and generator seed, the feature encoder training under save_qk_ctx,
@@ -92,7 +107,7 @@ non-zero before the result line is printed:
    first step, finite losses and a last loss below the first, training
    audio-s/s, ms per step against the plain path's, peak memory, and a
    ``torch.profiler`` breakdown of one step;
-6. Whisper serving (d): ``transcribe_batch`` on 12 clips of 3-30 s (two
+7. Whisper serving (d): ``transcribe_batch`` on 12 clips of 3-30 s (two
    device batches, the second partial) with exact launch counts (flash
    attention and the 1280-wide FFN 32 per encoder call, decode self- and
    cross-attention 32 per decode step) and the number of decode steps;
@@ -101,7 +116,15 @@ non-zero before the result line is printed:
    (``WhisperForConditionalGeneration(plain=True)``) on the same weights and
    batch: the encoder output, and the logits of every decode step with both
    paths fed the kernel path's ids;
-7. Whisper training (e): config/model/whisper-large.yaml with
+8. Whisper serving from disk (u): a seeded large-v3 at the published
+   vocabulary written as F16 (``model.safetensors``, ~3.2 GB) beside a
+   ``vocab.json`` of 50,257 BPE tokens and ``merges.txt``, then
+   ``ASRPipeline(dir)`` (its load seconds): 51,866 ids, every parameter
+   bit for bit the file's after the cast to fp32; one batch of 8 x 30 s
+   through the encoder and greedy decoding capped at 16 tokens with exact
+   launch counts, the encoder output and the teacher-forced logits against
+   the plain path;
+9. Whisper training (e): config/model/whisper-large.yaml with
    config/asr_finetuning.yaml (save_flash_ctx, activation dropout 0.1,
    SpecAugment, the augmentation chain with a seeded synthetic noise bank,
    bf16 gradients over fp32 masters, a bf16 first Adam moment): the kernel
@@ -109,7 +132,7 @@ non-zero before the result line is printed:
    then several optimizer steps on one fixed batch with exact launch counts
    over the first, finite losses and a last loss below the first, ms per
    step, training audio-s/s, peak memory and a profile of one step;
-8. training (f), the slice's main path: config/model/wav2vec2-large.yaml
+10. training (f), the slice's main path: config/model/wav2vec2-large.yaml
    (XLS-R-2B) with config/asr_finetuning.yaml through
    ``Wav2Vec2Setup.make_train_step``, (c)'s configuration and traffic: the
    kernel path's loss and gradients against the plain path's on one
@@ -118,50 +141,51 @@ non-zero before the result line is printed:
    with exact launch counts over the first, a
    falling loss, ms per step, audio-s/s, the step state against the peak
    memory and a profile of one step;
-9. serving (f'): ``ASRPipeline("facebook/wav2vec2-xls-r-2b")`` on the 12 clips
+11. serving (f'): ``ASRPipeline("facebook/wav2vec2-xls-r-2b")`` on the 12 clips
    of phase 4, the logits against the plain path, audio-s/s, latency and
    peak memory;
-10. (g) XLS-R-1B (wav2vec2-medium.yaml): serving as (f'), then 3 steps of
+12. (g) XLS-R-1B (wav2vec2-medium.yaml): serving as (f'), then 3 steps of
    the production step with exact launch counts and finite losses;
-11. (h), (i) whisper-small, whisper-xsmall (base), whisper-xxsmall and
+13. (h), (i) whisper-small, whisper-xsmall (base), whisper-xxsmall and
    test-whisper (tiny) through ``WhisperSetup``: one batch of 8 clips served
    greedily with exact launch counts, the encoder output and 32 steps of
    teacher-forced logits against the plain path; then (test-whisper aside)
    3 steps of the seq2seq step with exact launch counts over the first and
    finite losses;
-12. the unfused routes: the flash kernels with segment ids and GELU +
+14. the unfused routes: the flash kernels with segment ids and GELU +
    dropout checked with the other kernels in phase 3; (j)
    config/model/wav2vec2-small.yaml + config/asr_finetuning.yaml with
    ``attention_impl: flash`` and ``fused_ffn: false``: the serving clips
    through ``Wav2Vec2Setup.make_predictor``, the kernel path against the
    plain path on one microbatch with activation dropout on, 10 steps of (c)
-   with exact launch counts and a falling loss; (j') the same with
-   ``attention_impl: xla``, one batch and 3 steps; (k) (e) with
-   ``fused_ffn: false``, the kernel path against the plain path and 3 steps;
-13. the FFN without the folded LayerNorm or the block: fc1's kernels N1-N4
+   with exact launch counts and a falling loss (the route phases (j)-(s')
+   time no plain step); (j') the same with
+   ``attention_impl: xla``, one batch and 2 steps; (k) (e) with
+   ``fused_ffn: false``, the kernel path against the plain path and 2 steps;
+15. the FFN without the folded LayerNorm or the block: fc1's kernels N1-N4
    checked with the other kernels in phase 3 (at rate 0 and 0.1, at D 384
    and 1920 too); (l) (c)'s configuration with ``fused_ffn_ln: false`` (LN2
    apart, the LayerNorm-less block): one serving batch through the setup's
    predictor, the kernel path against the plain path on one microbatch at
-   activation dropout 0.1, 3 steps; (l') with ``fused_ffn_block: false``
-   added (fc1 alone, its forward again in each replay): one batch and 3
+   activation dropout 0.1, 2 steps; (l') with ``fused_ffn_block: false``
+   added (fc1 alone, its forward again in each replay): one batch and 2
    steps; (m) (e) with ``fused_ffn_block: false`` (the LayerNorm-folded fc1
-   and its backward N4): the kernel path against the plain path and 3 steps;
+   and its backward N4): the kernel path against the plain path and 2 steps;
    each with exact launch counts;
-14. the LayerNorm-folded block's variants: N5 (dg read in), N6 (the weight
+16. the LayerNorm-folded block's variants: N5 (dg read in), N6 (the weight
    gradients in the kernels) and N7 (fc2 in the forward kernel) checked with
    the other kernels in phase 3 (at rate 0 and 0.1, at D 384, 512, 768 and
    1920 too; N7's mask against N5's, bit for bit; N7's y and N6's dW1 and
    dW2 the same bits on a second call; N7's cluster size and the clusters
    the card holds at once, N6's row ranges); (n) (c)'s configuration with
    ``fused_ffn_block_fc2: true``: one serving batch, the kernel path against
-   the plain path on one microbatch at activation dropout 0.1, 3 steps; (n')
-   with ``fused_ffn_block_dw: true``: kernel against plain, 3 steps; (n'')
+   the plain path on one microbatch at activation dropout 0.1, 2 steps; (n')
+   with ``fused_ffn_block_dw: true``: kernel against plain, 2 steps; (n'')
    with ``fused_ffn_block_dg: false``: 2 steps; (o) (e) with
-   ``fused_ffn_block_dw: true``: kernel against plain, 3 steps; (o') (e)
+   ``fused_ffn_block_dw: true``: kernel against plain, 2 steps; (o') (e)
    with ``fused_ffn_block_fc2: true``: one batch served, 2 steps; each with
    exact launch counts;
-15. the packed QKV projection and the attention without biases: the
+17. the packed QKV projection and the attention without biases: the
    LayerNorm-folded projection's forward and backward and the v3 attention's
    kernels without their bias loads checked with the other kernels in phase
    3 (at D 1024 on the paths' shapes, at 1280 and 1920, head_dim 80 and 120;
@@ -170,10 +194,10 @@ non-zero before the result line is printed:
    1920 too; the attention's outputs those of the biased kernels at zero
    biases, bit for bit); (p) (c)'s configuration with ``fused_qkv_ln: true``: one
    serving batch, the kernel path against the plain path on one microbatch
-   at activation dropout 0.1, 3 steps; (p') with
+   at activation dropout 0.1, 2 steps; (p') with
    ``attention_fused_qkv_bias: false``: one batch, kernel against plain, 2
    steps; each with exact launch counts and its ms per step beside (c)'s;
-16. the attention's other routes: the forward without stats, v1's forward
+18. the attention's other routes: the forward without stats, v1's forward
    and the three backwards (their dq kernels sweeping twice) checked and timed with
    the other kernels in phase 3 (forwards at 8 x 1499 rows beside SDPA, v1's
    at 8 x 499 too, backwards at 8 x 499, head_dim 64, 80 and 120; the fully
@@ -188,7 +212,7 @@ non-zero before the result line is printed:
    against plain, 2 steps each; (r') ``attention_save_stats: true``: one
    batch, kernel against plain, 2 steps; each with exact launch counts and
    its ms per step beside (c)'s;
-17. the flash route at XLS-R-1B's and -2B's widths: the flash kernels with
+19. the flash route at XLS-R-1B's and -2B's widths: the flash kernels with
    segment ids at head_dim 80 and 120 checked and timed with the other
    kernels in phase 3 (8 x 1499 -> 1536 and 8 x 499 -> 512); (s) (g)'s
    configuration (wav2vec2-medium.yaml) and (s') (f)'s (wav2vec2-large.yaml)
@@ -196,7 +220,7 @@ non-zero before the result line is printed:
    predictor, the kernel path against the plain path on one microbatch at
    activation dropout 0.1 (24 of the 48 layers), 2 steps at full depth, each
    with exact launch counts and its ms per step beside (g)'s and (f)'s;
-18. a JSON line with every kernel (its launches summed over the counted runs
+20. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths; the probes' 0), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -484,6 +508,26 @@ PHILOX_OPS = 25
 WHISPER_ID = "openai/whisper-large-v3"
 WHISPER_ENC_TOL = 5e-2
 WHISPER_LOGITS_TOL = 5e-2
+# Phases (t) and (u): checkpoints written here in the Hugging Face layout and
+# served from disk. (t): the serving phase's seeded XLS-R-300M as an F32
+# Wav2Vec2ForCTC checkpoint (the positional conv as weight norm's g and v)
+# beside a 3-gram LM trained on LM_SENTENCES seeded sentences of LM_WORDS
+# words over the pipeline's characters; the folded conv within
+# FOLD_RTOL of the weight it was split from, and the loaded model's logits
+# bit for bit those of the seeded model given the folded conv. The seeded
+# logits are nearly flat, so many tokens a frame pass the beam search's
+# token floor: its decode time is bracketed by peaked log-probs of the same
+# shape (PEAK_P on one token a frame, the rest below the floor) laying out
+# corpus sentences. (u): a seeded large-v3 in F16
+# beside a vocab.json of V3_BPE_TOKENS tokens (51,866 ids with the specials,
+# the golden manifest's), greedy decoding capped at V3_MAX_LENGTH tokens.
+W2V2_ID = "facebook/wav2vec2-xls-r-300m"
+PIPELINE_CHARS = "abcdefghijklmnopqrstuvwxyzæøå0123456789éü"
+LM_WORDS, LM_SENTENCES = 2000, 20_000
+FOLD_RTOL = 1e-6
+PEAK_P = 0.95
+V3_BPE_TOKENS, V3_VOCAB = 50_257, 51_866
+V3_MAX_LENGTH = 16
 # Training (b): XLS-R-300M with config/model/test-wav2vec2.yaml's values and
 # config/asr_finetuning.yaml's optimisation, the feature encoder frozen,
 # augmentation off and the replay of everything (nothing_saveable).
@@ -599,6 +643,10 @@ W2V2_MEDIUM_CONFIG = {**PRODUCTION_CONFIG, "model": {
 XLSR_2B_COMPARE_LAYERS = 24
 # (g): a few steps at full depth, the loss finite (no claim that it falls).
 FEW_STEPS = 3
+# The route phases (j')-(s'): two steps (the first counted, the second
+# timed), the plain path's time per step not taken; the kernel path is held
+# against the plain path on one microbatch where the phase compares.
+ROUTE_STEPS = 2
 # (h), (i): whisper-small.yaml, -xsmall.yaml (whisper-base), -xxsmall.yaml and
 # test-whisper.yaml (whisper-tiny): whisper-large.yaml's values but for the
 # checkpoint id and the learning rate (test-whisper also sets dropout and
@@ -2151,6 +2199,415 @@ def whisper_run(card: str) -> dict:
           f"step (host clock over {n} steps, cache of 64); peak memory {peak / 2**30:.3f} GiB",
           flush=True)
     profile_window(card, f"one whisper batch of {BATCH} x 30 s", lambda: predictor(full))
+    return counts
+
+
+def serving_clips(T: int) -> tuple[list, np.ndarray, dict]:
+    """The serving phase's 12 clips of 3-30 s (seed 0), their lengths in
+    seconds and a batch of 8 full 30 s windows of them."""
+    rng = np.random.default_rng(0)
+    seconds = np.linspace(3.0, 30.0, 12)
+    clips = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+    full = {"input_values": np.stack([np.resize(c, T) for c in clips[-BATCH:]]),
+            "input_lengths": np.full((BATCH,), T, np.int32)}
+    return clips, seconds, full
+
+
+def write_safetensors(path: Path, tensors: dict[str, torch.Tensor],
+                      metadata: dict[str, str] | None = None) -> None:
+    """Write ``tensors`` (F32, F16 or BF16, on any device) to ``path`` in
+    the safetensors layout, as a published checkpoint holds them: an 8-byte
+    little-endian header length, the JSON header (the largest dtypes first,
+    then by name) padded with spaces to a multiple of 8 bytes, the bytes."""
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    order = sorted(tensors, key=lambda k: (-tensors[k].dtype.itemsize, k))
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for name in order:
+        t = tensors[name]
+        nbytes = t.numel() * t.dtype.itemsize
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for name in order:
+            t = tensors[name].detach()
+            if t.numel():
+                f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
+
+
+def lm_corpus(path: Path) -> int:
+    """LM_SENTENCES sentences of 2-12 words drawn from LM_WORDS seeded words
+    over the pipeline's characters (Zipf-weighted); returns the lines."""
+    rng = np.random.default_rng(5)
+    letters = list(PIPELINE_CHARS[:29])
+    words = np.array(["".join(rng.choice(letters, size=int(n)))
+                      for n in rng.integers(1, 10, size=LM_WORDS)])
+    weights = 1.0 / np.arange(1, LM_WORDS + 1)
+    weights /= weights.sum()
+    lines = [" ".join(rng.choice(words, size=int(n), p=weights))
+             for n in rng.integers(2, 13, size=LM_SENTENCES)]
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return len(lines)
+
+
+def peaked_log_probs(tokenizer, corpus: Path, lengths: np.ndarray, frames: int,
+                     blank_id: int) -> tuple[np.ndarray, list[str]]:
+    """(len(lengths), frames, V) log-probs that spell corpus sentences in
+    each row's first ``lengths`` frames (sentences drawn until 20 in turn
+    do not fit): a token's frame, then 1-3 blank frames, blanks to the end;
+    PEAK_P on the frame's token and the rest shared by the others (each log
+    below the beam search's token floor). Returns them and the texts they
+    spell ('' for a row of no frame)."""
+    rng = np.random.default_rng(6)
+    lines = corpus.read_text(encoding="utf-8").splitlines()
+    V = tokenizer.vocab_size
+    out = np.full((len(lengths), frames, V), np.log((1.0 - PEAK_P) / (V - 1)), np.float32)
+    texts = []
+    for b, n in enumerate(int(x) for x in lengths):
+        words: list[str] = []
+        path: list[int] = []
+        misses = 0
+        while n > 0 and misses < 20:
+            sentence = lines[int(rng.integers(len(lines)))].split()
+            ids = tokenizer.encode(" ".join(words + sentence))
+            steps = [int(g) for g in rng.integers(2, 5, size=len(ids))]
+            if sum(steps) > n:
+                misses += 1
+                continue
+            misses = 0
+            words += sentence
+            path = [i for i, k in zip(ids, steps) for i in [i] + [blank_id] * (k - 1)]
+        path += [blank_id] * (frames - len(path))
+        out[b, np.arange(frames), path] = np.log(PEAK_P)
+        texts.append(" ".join(words))
+    return out, texts
+
+
+def checkpoint_lm_run(card: str) -> dict:
+    """Phase (t): XLS-R-300M served from an HF-layout checkpoint with an
+    n-gram LM beside it through ``ASRPipeline(dir)``; returns the launch
+    counts of the LM path's transcription of the 12 clips."""
+    import tempfile
+
+    from coral_tpu_torch import ASRPipeline
+    from coral_tpu_torch.decoding import NGramModel
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training.model_setup import BeamCtcPredictor, GreedyCtcPredictor
+
+    pos = "wav2vec2.encoder.pos_conv_embed.conv"
+    seeded = ASRPipeline(W2V2_ID, batch_size=BATCH, device="cuda").predictor
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = Path(tmp) / "wav2vec2-xls-r-300m-lm"
+        directory.mkdir()
+        # The Wav2Vec2ForCTC layout: the positional conv as weight norm's g
+        # (the norm over dims 0 and 1) and v.
+        tensors = dict(seeded.model.state_dict())
+        weight = tensors.pop(f"{pos}.weight")
+        tensors[f"{pos}.parametrizations.weight.original0"] = weight.square().sum(
+            dim=(0, 1), keepdim=True).sqrt()
+        tensors[f"{pos}.parametrizations.weight.original1"] = weight
+        start = time.perf_counter()
+        write_safetensors(directory / "model.safetensors", tensors, {"format": "pt"})
+        write_s = time.perf_counter() - start
+        start = time.perf_counter()
+        lines = lm_corpus(Path(tmp) / "corpus.txt")
+        NGramModel.train(Path(tmp) / "corpus.txt", directory / "3gram.arpa", order=3)
+        lm_s = time.perf_counter() - start
+        size = (directory / "model.safetensors").stat().st_size
+        print(f"(t) wrote model.safetensors ({size / 2**30:.3f} GiB, F32, {len(tensors)} "
+              f"tensors) in {write_s:.2f} s; trained 3gram.arpa on {lines} sentences "
+              f"({(directory / '3gram.arpa').stat().st_size / 2**20:.3f} MiB) in {lm_s:.2f} s",
+              flush=True)
+
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        asr = ASRPipeline(directory, batch_size=BATCH, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        predictor = asr.predictor
+        cfg = predictor.model.config
+        print(f"(t) ASRPipeline({directory.name}) loaded the checkpoint and the LM in "
+              f"{load_s:.2f} s ({card}): hidden {cfg.hidden_size}, {cfg.num_hidden_layers} "
+              f"layers, {cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, "
+              f"{cfg.dtype}, {type(predictor).__name__}, beam {predictor.decoder.beam_width}, "
+              f"alpha {predictor.decoder.alpha}, beta {predictor.decoder.beta}", flush=True)
+        if not isinstance(predictor, BeamCtcPredictor) or (
+                cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads,
+                cfg.intermediate_size, cfg.dtype) != (1024, 24, 16, 4096, torch.bfloat16):
+            fail("(t): the pipeline did not build XLS-R-300M in bf16 with the LM")
+        got, want = predictor.model.state_dict(), seeded.model.state_dict()
+        if got.keys() != want.keys():
+            fail("(t): the loaded model's keys differ from the seeded model's")
+        differ = [k for k in want if k != f"{pos}.weight" and not torch.equal(got[k], want[k])]
+        fold = float((got[f"{pos}.weight"] - want[f"{pos}.weight"]).abs().max()
+                     / want[f"{pos}.weight"].abs().max())
+        print(f"(t) {len(want) - 1} tensors bit for bit the written ones: {not differ}; the "
+              f"folded positional conv max|diff|/max|written| {fold:.3g} (tolerance "
+              f"{FOLD_RTOL})", flush=True)
+        if differ or fold > FOLD_RTOL:
+            fail(f"(t): loaded parameters differ from the written ones: {differ[:5]}")
+
+        T = int(asr.window_seconds * SR)
+        clips, seconds, full = serving_clips(T)
+        logits, frames = predictor.logits(full)
+        # The seeded model given the folded conv holds the loaded model's
+        # every parameter: the same kernels give the same bits.
+        with torch.no_grad():
+            seeded.model.get_parameter(f"{pos}.weight").copy_(got[f"{pos}.weight"])
+        seeded_logits, _ = seeded.logits(full)
+        with torch.device("meta"):
+            plain_model = Wav2Vec2ForCTC(cfg, plain=True)
+        plain_model = plain_model.to_empty(device="cuda").eval()
+        plain_model.load_state_dict(predictor.model.state_dict())
+        plain_logits, _ = GreedyCtcPredictor(plain_model, predictor.tokenizer).logits(full)
+        del plain_model
+        torch.cuda.synchronize()
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+        same_bits, vs_plain = torch.equal(logits, seeded_logits), rel(logits, plain_logits)
+        print(f"(t) logits on {BATCH} x 30 s: loaded bit for bit the seeded model's given "
+              f"the folded conv: {same_bits}; kernel against plain max|diff|/max|ref| "
+              f"{vs_plain:.6g} (tolerance {LOGITS_TOL}); finite "
+              f"{bool(torch.isfinite(logits).all())}", flush=True)
+        if (not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 1499, 46)
+                or not same_bits or vs_plain > LOGITS_TOL):
+            fail("(t): the loaded model's logits disagree")
+
+        # One forward each way: the LM path's launches are the greedy path's.
+        forward = {}
+        for name, fn in (("beam", lambda: predictor.log_probs(full)),
+                         ("greedy", lambda: seeded(full))):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            forward[name] = dict(_build.launch_counts)
+        expected = w2v2_forward_launches(cfg)
+        print(f"(t) launches of one forward: LM path {forward['beam']}, greedy serving "
+              f"{forward['greedy']}", flush=True)
+        if not forward["beam"] == forward["greedy"] == expected:
+            fail(f"(t): forward launches {forward}, expected {expected} each")
+
+        greedy_asr = ASRPipeline(directory, batch_size=BATCH, no_lm=True, device="cuda")
+        greedy = greedy_asr.predictor
+        ids = logits.argmax(-1).cpu().numpy()
+        want_texts = [predictor.tokenizer.decode(ids[i, : frames[i]]) for i in range(BATCH)]
+        same = type(greedy) is GreedyCtcPredictor and greedy(full) == want_texts
+        print(f"(t) no_lm=True: {type(greedy).__name__}, the greedy decode of the LM path's "
+              f"logits: {same}", flush=True)
+        if not same:
+            fail("(t): no_lm=True did not decode greedily")
+
+        # The main path, counted: the 12 clips through transcribe_batch with
+        # the LM, each device batch split into its forward (the model, the
+        # log-softmax and the copy to the host) and the host's decode.
+        splits, seen, frame_lengths = [], [], []
+        log_probs, decode = predictor.log_probs, predictor.decode
+
+        def timed_log_probs(batch):
+            seen.append(batch)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = log_probs(batch)
+            splits.append([time.perf_counter() - start])
+            frame_lengths.append(out[1])
+            return out
+
+        def timed_decode(*args):
+            start = time.perf_counter()
+            out = decode(*args)
+            splits[-1].append(time.perf_counter() - start)
+            return out
+
+        predictor.log_probs, predictor.decode = timed_log_probs, timed_decode
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        start = time.perf_counter()
+        texts = asr.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        lm_wall = time.perf_counter() - start
+        counts = dict(_build.launch_counts)
+        predictor.log_probs, predictor.decode = log_probs, decode
+        batches = len(splits)
+        print(f"(t) LM path main path: {batches} forwards, launch counts {counts}", flush=True)
+        if counts != {k: v * batches for k, v in expected.items()}:
+            fail(f"(t): launch counts {counts}, expected {expected} a forward")
+        # The four shortest clips (3-10.4 s) through the LM path again, the
+        # other rows of the first device batch filler rows.
+        short = {k: v.copy() for k, v in seen[0].items()}
+        short["input_values"][4:] = 0.0
+        short["input_lengths"][4:] = 1
+        again = predictor(short)
+        print(f"(t) the LM path's first 4 transcripts twice: the same strings "
+              f"{again[:4] == texts[:4]} (the filler rows empty: {again[4:] == [''] * 4}); "
+              f"first {texts[0][:40]!r}", flush=True)
+        if again[:4] != texts[:4] or any(again[4:]) or len(texts) != len(clips):
+            fail("(t): the LM path decoded other strings the second time")
+        greedy_asr.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        greedy_texts = greedy_asr.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        greedy_wall = time.perf_counter() - start
+        print(f"(t) serving from the checkpoint ({card}): {seconds.sum() / lm_wall:.3f} "
+              f"audio-s/s with the LM (beam {predictor.decoder.beam_width}) against "
+              f"{seconds.sum() / greedy_wall:.3f} with no_lm, over {seconds.sum():.1f} s of "
+              f"audio in 12 clips (one timed call each; {sum(a != b for a, b in zip(texts, greedy_texts))} "
+              f"of 12 transcripts differ); per device batch, forward ms (host clock: the "
+              f"model, the log-softmax, the copy of the log-probs) / host decode ms: "
+              + ", ".join(f"{f * 1e3:.3f} / {d * 1e3:.3f}" for f, d in splits)
+              + " (seeded logits, nearly flat: the decode an upper bound)", flush=True)
+        # The decode's lower bound: each device batch's rows again as peaked
+        # log-probs of the same shape and frame lengths (one token a frame
+        # passes the token floor), against the seeded model's nearly flat ones.
+        peaked_ms = []
+        for lengths in frame_lengths:
+            peaked, peaked_texts = peaked_log_probs(
+                predictor.tokenizer, Path(tmp) / "corpus.txt", lengths, logits.shape[1],
+                predictor.tokenizer.pad_token_id)
+            start = time.perf_counter()
+            peaked_got = predictor.decode(peaked, lengths)
+            peaked_ms.append((time.perf_counter() - start) * 1e3)
+            if peaked_got != peaked_texts:
+                fail("(t): the beam search did not decode the peaked rows to their text")
+        print(f"(t) host decode a device batch ({card}; one timed call each, beam "
+              f"{predictor.decoder.beam_width}), forward ms / decode ms on the seeded "
+              f"model's log-probs / on peaked log-probs of the same shape and frame lengths "
+              f"(p {PEAK_P} on one token a frame, the rows decoded to their text): "
+              + ", ".join(f"{f * 1e3:.3f} / {d * 1e3:.3f} / {p:.3f}"
+                          for (f, d), p in zip(splits, peaked_ms))
+              + "; decode / forward between "
+              + ", ".join(f"{p / (f * 1e3):.3f} and {d / f:.3f}"
+                          for (f, d), p in zip(splits, peaked_ms)), flush=True)
+        del greedy_asr, greedy, asr, predictor, seeded
+    torch.cuda.empty_cache()
+    return counts
+
+
+def whisper_checkpoint_run(card: str) -> dict:
+    """Phase (u): Whisper large-v3 served from an HF-layout F16 checkpoint
+    with a vocab.json of the published size beside it; returns the launch
+    counts of one batch's greedy generation."""
+    import dataclasses
+    import tempfile
+
+    from coral_tpu_torch import ASRPipeline
+    from coral_tpu_torch.audio.augment import peak_normalize
+    from coral_tpu_torch.audio.mel import log_mel_spectrogram
+    from coral_tpu_torch.models import whisper as W
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.text.bpe import bytes_to_unicode
+    from coral_tpu_torch.training.model_setup import WhisperPredictor, load_model_setup
+    from coral_tpu_torch.training.train_state import make_whisper_generate_step
+
+    # The seeded model: (d)'s setup's config at the published vocabulary.
+    config = load_model_setup({"model": {"type": "whisper", "pretrained_model_id": WHISPER_ID}},
+                              device="cuda").model_config
+    seeded = W.build_model(dataclasses.replace(config, vocab_size=V3_VOCAB), "cuda", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = Path(tmp) / "whisper-large-v3"
+        directory.mkdir()
+        units = sorted(set(bytes_to_unicode().values()))
+        vocab = {**{u: i for i, u in enumerate(units)},
+                 **{f"tok{i}": i for i in range(len(units), V3_BPE_TOKENS)},
+                 "<|endoftext|>": V3_BPE_TOKENS}
+        (directory / "vocab.json").write_text(json.dumps(vocab), encoding="utf-8")
+        (directory / "merges.txt").write_text("#version: 0.2\n", encoding="utf-8")
+        tensors = {k: v.half() for k, v in seeded.state_dict().items()}
+        start = time.perf_counter()
+        write_safetensors(directory / "model.safetensors", tensors, {"format": "pt"})
+        write_s = time.perf_counter() - start
+        size = (directory / "model.safetensors").stat().st_size
+        print(f"(u) wrote model.safetensors ({size / 2**30:.3f} GiB, F16, {len(tensors)} "
+              f"tensors, proj_out tied) and a vocab.json of {len(vocab)} tokens in "
+              f"{write_s:.2f} s", flush=True)
+
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        asr = ASRPipeline(directory, batch_size=BATCH, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        predictor = asr.predictor
+        model, tokenizer = predictor.model, predictor.tokenizer
+        cfg = model.config
+        print(f"(u) ASRPipeline({directory.name}) loaded the checkpoint in {load_s:.2f} s "
+              f"({card}): d_model {cfg.d_model}, {cfg.encoder_layers} + {cfg.decoder_layers} "
+              f"layers, {cfg.num_mel_bins} mels, vocab {cfg.vocab_size} (tokenizer "
+              f"{tokenizer.vocab_size}), {cfg.dtype}", flush=True)
+        if (not isinstance(predictor, WhisperPredictor)
+                or tokenizer.vocab_size != V3_VOCAB or cfg.vocab_size != V3_VOCAB
+                or (cfg.d_model, cfg.encoder_layers, cfg.decoder_layers, cfg.dtype)
+                != (1280, 32, 32, torch.bfloat16)):
+            fail("(u): the pipeline did not build large-v3 at the published vocabulary")
+        got, want = model.state_dict(), seeded.state_dict()
+        differ = [k for k in want if not torch.equal(got[k], tensors[k].float())]
+        print(f"(u) {len(want)} tensors bit for bit the file's after the cast to fp32: "
+              f"{not differ}", flush=True)
+        if got.keys() != want.keys() or differ:
+            fail(f"(u): loaded parameters differ from the file's: {differ[:5]}")
+        del seeded, tensors, got, want
+        torch.cuda.empty_cache()
+
+        T = int(asr.window_seconds * SR)
+        clips, _, full = serving_clips(T)
+        generate = make_whisper_generate_step(
+            cfg, forced_ids=tokenizer.forced_decoder_ids, max_length=V3_MAX_LENGTH,
+            eos_id=tokenizer.eos_token_id)
+        capped = WhisperPredictor(model, tokenizer, generate)
+        seen = []
+
+        def keep_ids(m, batch):
+            ids = generate(m, batch)
+            seen.append(ids.cpu().numpy())
+            return ids
+
+        # The main path, counted: one batch through the capped generation.
+        capped.generate = keep_ids
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        texts = capped(full)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        capped.generate = generate
+        eos = tokenizer.eos_token_id
+        steps = decode_steps(seen[0], eos)
+        expected = {"flash_attention": cfg.encoder_layers, "ffn_ln_1280": cfg.encoder_layers,
+                    "decode_self_attention": cfg.decoder_layers * steps,
+                    "decode_cross_attention": cfg.decoder_layers * steps}
+        print(f"(u) main path: 1 encoder call, {steps} decode steps (max_length "
+              f"{V3_MAX_LENGTH}), launch counts {counts}", flush=True)
+        if counts != expected:
+            fail(f"(u): launch counts {counts}, expected {expected}")
+        if len(texts) != BATCH or not all(isinstance(t, str) for t in texts):
+            fail("(u): the capped generation returned the wrong transcripts")
+
+        audio = torch.from_numpy(full["input_values"]).cuda()
+        feats = log_mel_spectrogram(peak_normalize(audio), n_mels=cfg.num_mel_bins,
+                                    dtype=cfg.dtype)
+        ids = torch.from_numpy(seen[0]).cuda().long()
+        enc_diff, worst, agree_k, parted = whisper_compare(
+            model, feats, ids, steps, len(tokenizer.forced_decoder_ids), eos)
+        print(f"(u) kernel vs plain on the loaded weights: encoder output max|diff|/max|plain| "
+              f"{enc_diff:.6g} (tolerance {WHISPER_ENC_TOL}); teacher-forced logits over "
+              f"{steps} steps, worst {worst:.6g} (tolerance {WHISPER_LOGITS_TOL}); the kernel "
+              f"path's argmax gives its ids: {agree_k}; first step where the plain path's "
+              f"greedy token parts: {parted if parted is not None else 'none'}", flush=True)
+        if enc_diff > WHISPER_ENC_TOL or worst > WHISPER_LOGITS_TOL or not agree_k:
+            fail("(u): the kernel path and the plain path disagree on the loaded weights")
+        latency = timed(lambda: capped(full), 1)
+        print(f"(u) serving from the checkpoint ({card}): {latency * 1e3:.3f} ms for a batch "
+              f"of {BATCH} x 30 s to {V3_MAX_LENGTH} tokens; first transcript "
+              f"{texts[0][:40]!r}", flush=True)
+        del asr, predictor, model, capped
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4116,15 +4573,14 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str,
 
 def route_run(card: str, label: str, config: dict, route: str, steps: int,
               serve_batches: int, compare: bool, arch: tuple = (1024, 24),
-              compare_layers: int | None = None, plain_steps: int | None = None) -> dict:
+              compare_layers: int | None = None) -> dict:
     """Phases (j)-(s'): serving through the setup's predictor
     (``serve_batches`` device batches, none for 0), then ``steps`` of (c)'s
     production step on ``config``'s routes (the FFN on ``route``) at
     ``arch`` (hidden size, layers; the kernel path against the plain path on
     one microbatch first, when ``compare``, at ``compare_layers`` of the
-    layers where given; ``plain_steps`` of the plain path for its time, by
-    default one where ``compare``); returns the launch counts of the counted
-    runs."""
+    layers where given; no plain step is timed); returns the launch counts
+    of the counted runs."""
     import tempfile
 
     from coral_tpu_torch.training.model_setup import load_model_setup
@@ -4141,9 +4597,7 @@ def route_run(card: str, label: str, config: dict, route: str, steps: int,
         train_counts, _ = production_run(card, label, with_noise_bank(config, tmp),
                                          route_launches(cfg, serving=False), batch,
                                          audio_seconds, arch=arch, steps=steps,
-                                         plain_steps=(int(compare) if plain_steps is None
-                                                      else plain_steps),
-                                         falling=steps >= TRAIN_STEPS)
+                                         plain_steps=0, falling=steps >= TRAIN_STEPS)
     counts.update(train_counts)
     torch.cuda.empty_cache()
     return dict(counts)
@@ -4165,14 +4619,24 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}, allow_tf32 matmul/cudnn False/False", flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from coral_tpu_torch import decoding
     from coral_tpu_torch.ops import _build
 
     print(run([_build._nvcc(), "--version"]).splitlines()[-1], flush=True)
     start = time.perf_counter()
-    _build.library()
-    print(f"kernels built and loaded in {time.perf_counter() - start:.2f} s "
-          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)",
-          flush=True)
+    # The native decoder (phase (t)) builds with g++ beside the kernels.
+    with ThreadPoolExecutor(1) as pool:
+        decoder = pool.submit(lambda: (decoding.build_native_library(),
+                                       time.perf_counter() - start))
+        _build.library()
+        print(f"kernels built and loaded in {time.perf_counter() - start:.2f} s "
+              f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'}"
+              f" s)", flush=True)
+        decoder_lib, decoder_s = decoder.result()
+    print(f"native decoder {decoder_lib.name} ready {decoder_s:.2f} s after the start "
+          f"(g++ started beside nvcc)", flush=True)
     if _build.source_seconds:
         print("  nvcc seconds by source (all started together): " + ", ".join(
             f"{name} {secs:.1f}" for name, secs in sorted(_build.source_seconds.items(),
@@ -4238,16 +4702,21 @@ def main() -> int:
     serve_counts, _ = serving_run(card)
     torch.cuda.empty_cache()
     mark("serving")
+    lm_counts = checkpoint_lm_run(card)
+    mark("(t) XLS-R-300M from a checkpoint with an n-gram LM")
     train_counts = training_run(card)
     torch.cuda.empty_cache()
     mark("training (a)-(c)")
     whisper_counts = whisper_run(card)
     torch.cuda.empty_cache()
     mark("Whisper serving (d)")
+    whisper_ckpt_counts = whisper_checkpoint_run(card)
+    mark("(u) Whisper large-v3 from a checkpoint")
     whisper_train_counts = whisper_train_run(card)
     torch.cuda.empty_cache()
     mark("Whisper training (e)")
-    main_counts = [serve_counts, train_counts, whisper_counts, whisper_train_counts]
+    main_counts = [serve_counts, train_counts, whisper_counts, whisper_train_counts,
+                   lm_counts, whisper_ckpt_counts]
     # (f) XLS-R-2B's production fine-tune, (f') its serving.
     main_counts.append(xlsr_train_run(card, "(f)", W2V2_LARGE_CONFIG, "xls_r_2b", TRAIN_STEPS,
                                       XLSR_2B_COMPARE_LAYERS, falling=True,
@@ -4272,33 +4741,37 @@ def main() -> int:
     main_counts.append(route_run(card, "(j)", UNFUSED_FLASH_CONFIG, "unfused", TRAIN_STEPS, 2,
                                  True))
     mark("(j) flash attention, unfused FFN")
-    main_counts.append(route_run(card, "(j')", UNFUSED_XLA_CONFIG, "unfused", FEW_STEPS, 1,
+    main_counts.append(route_run(card, "(j')", UNFUSED_XLA_CONFIG, "unfused", ROUTE_STEPS, 1,
                                  False))
     mark("(j') xla attention, unfused FFN")
     main_counts.append(whisper_train_run(card, "(k)", WHISPER_UNFUSED_CONFIG,
-                                         WHISPER_UNFUSED_PER_MICROBATCH, FEW_STEPS,
+                                         WHISPER_UNFUSED_PER_MICROBATCH, ROUTE_STEPS,
                                          falling=False, route="unfused"))
     torch.cuda.empty_cache()
     mark("(k) Whisper large-v3, unfused FFN")
     # (l), (l'), (m): the FFN without the folded LayerNorm or the block.
-    main_counts.append(route_run(card, "(l)", LN_APART_CONFIG, "ffn_block", FEW_STEPS, 1, True))
+    main_counts.append(route_run(card, "(l)", LN_APART_CONFIG, "ffn_block", ROUTE_STEPS, 1,
+                                 True))
     mark("(l) fused_ffn_ln: false, the LayerNorm-less block")
-    main_counts.append(route_run(card, "(l')", FC1_CONFIG, "ffn_fc1", FEW_STEPS, 1, False))
+    main_counts.append(route_run(card, "(l')", FC1_CONFIG, "ffn_fc1", ROUTE_STEPS, 1, False))
     mark("(l') fused_ffn_ln and fused_ffn_block false, fc1 alone")
     main_counts.append(whisper_train_run(card, "(m)", WHISPER_FC1_CONFIG,
-                                         WHISPER_FC1_PER_MICROBATCH, FEW_STEPS, falling=False,
+                                         WHISPER_FC1_PER_MICROBATCH, ROUTE_STEPS, falling=False,
                                          route="ffn_ln_fc1"))
     torch.cuda.empty_cache()
     mark("(m) Whisper large-v3, fused_ffn_block: false")
     # (n)-(o'): the LayerNorm-folded block's variants.
-    main_counts.append(route_run(card, "(n)", FC2_CONFIG, "ffn_ln_block", FEW_STEPS, 1, True))
+    main_counts.append(route_run(card, "(n)", FC2_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1,
+                                 True))
     mark("(n) fused_ffn_block_fc2: true")
-    main_counts.append(route_run(card, "(n')", DW_CONFIG, "ffn_ln_block", FEW_STEPS, 0, True))
+    main_counts.append(route_run(card, "(n')", DW_CONFIG, "ffn_ln_block", ROUTE_STEPS, 0,
+                                 True))
     mark("(n') fused_ffn_block_dw: true")
-    main_counts.append(route_run(card, "(n'')", DG_OUT_CONFIG, "ffn_ln_block", 2, 0, False))
+    main_counts.append(route_run(card, "(n'')", DG_OUT_CONFIG, "ffn_ln_block", ROUTE_STEPS, 0,
+                                 False))
     mark("(n'') fused_ffn_block_dg: false")
     main_counts.append(whisper_train_run(card, "(o)", WHISPER_DW_CONFIG,
-                                         WHISPER_DW_PER_MICROBATCH, FEW_STEPS, falling=False))
+                                         WHISPER_DW_PER_MICROBATCH, ROUTE_STEPS, falling=False))
     torch.cuda.empty_cache()
     mark("(o) Whisper large-v3, fused_ffn_block_dw: true")
     main_counts.append(whisper_size_run(card, "(o')", "whisper-large", WHISPER_ID, 1e-6,
@@ -4306,23 +4779,24 @@ def main() -> int:
                                         2))
     mark("(o') Whisper large-v3, fused_ffn_block_fc2: true")
     # (p), (p'): the packed QKV projection, the attention without biases.
-    main_counts.append(route_run(card, "(p)", QKV_LN_CONFIG, "ffn_ln_block", FEW_STEPS, 1, True))
+    main_counts.append(route_run(card, "(p)", QKV_LN_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1,
+                                 True))
     mark("(p) fused_qkv_ln: true")
-    main_counts.append(route_run(card, "(p')", QKV_BIAS_OFF_CONFIG, "ffn_ln_block", 2, 1, True))
+    main_counts.append(route_run(card, "(p')", QKV_BIAS_OFF_CONFIG, "ffn_ln_block", ROUTE_STEPS,
+                                 1, True))
     mark("(p') attention_fused_qkv_bias: false")
     # (q)-(r'): the attention's other routes.
     for label, config, serve in VARIANT_PHASES:
-        main_counts.append(route_run(card, label, config, "ffn_ln_block", 2, serve, True))
+        main_counts.append(route_run(card, label, config, "ffn_ln_block", ROUTE_STEPS, serve,
+                                     True))
         mark(f"{label} attention_save_stats: {config['model']['attention_save_stats']}, "
              f"attention_o_residual: {config['model'].get('attention_o_residual', False)}")
     # (s), (s'): the flash route at XLS-R-1B's and -2B's head dims.
-    main_counts.append(route_run(card, "(s)", FLASH_1B_CONFIG, "ffn_ln_block", 2, 1, True,
-                                 arch=(1280, 48), compare_layers=XLSR_2B_COMPARE_LAYERS,
-                                 plain_steps=0))
+    main_counts.append(route_run(card, "(s)", FLASH_1B_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1, True,
+                                 arch=(1280, 48), compare_layers=XLSR_2B_COMPARE_LAYERS))
     mark("(s) XLS-R-1B, attention_impl: flash")
-    main_counts.append(route_run(card, "(s')", FLASH_2B_CONFIG, "ffn_ln_block", 2, 1, True,
-                                 arch=(1920, 48), compare_layers=XLSR_2B_COMPARE_LAYERS,
-                                 plain_steps=0))
+    main_counts.append(route_run(card, "(s')", FLASH_2B_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1, True,
+                                 arch=(1920, 48), compare_layers=XLSR_2B_COMPARE_LAYERS))
     mark("(s') XLS-R-2B, attention_impl: flash")
     for label, base in (("(p)", "(c)"), ("(p')", "(c)"),
                         *((phase[0], "(c)") for phase in VARIANT_PHASES),
@@ -4330,9 +4804,11 @@ def main() -> int:
         print(f"training {label} ({card}): {STEP_MS[label]:.3f} ms per optimizer step against "
               f"{base}'s {STEP_MS[base]:.3f} ms in this run ({STEP_MS[label] / STEP_MS[base]:.4f}"
               f"x)", flush=True)
-    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "coral_tpu"))
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "coral_tpu", "safetensors", "transformers"))
     if imported:
-        fail(f"the port imported jax or the JAX package: {imported[:5]}")
+        fail(f"the port imported jax, the JAX package, safetensors or transformers: "
+             f"{imported[:5]}")
     rows = {name: res for name, res in checks.items() if name in SOURCES}
     counts = {name: sum(c.get(name, 0) for c in main_counts) for name in rows}
     # The probes run on no main path; every other kernel must have.

@@ -1,13 +1,16 @@
 """coral-tpu-torch: the coral-tpu serving path in PyTorch with CUDA kernels for Hopper.
 
 A port of ``coral_tpu`` (JAX, TPU) that runs on one NVIDIA H100. It serves
-wav2vec2-CTC (``ASRPipeline`` -> ``load_saved_predictor`` ->
-``Wav2Vec2Setup.make_predictor`` -> ``Wav2Vec2ForCTC``, greedy CTC decoding)
-and Whisper (``WhisperSetup.make_predictor`` -> the log-mel frontend and greedy
+published Hugging Face checkpoints or seeded weights: wav2vec2-CTC
+(``ASRPipeline`` -> ``load_saved_predictor`` -> ``Wav2Vec2Setup.make_predictor``
+-> ``Wav2Vec2ForCTC``, greedy CTC decoding, or ``make_beam_predictor``'s CTC
+beam search with an n-gram LM, ``decoding/``) and Whisper
+(``WhisperSetup.make_predictor`` -> the log-mel frontend and greedy
 generation of ``WhisperForConditionalGeneration``), and trains wav2vec2-CTC
 (``Wav2Vec2Setup.make_train_step``). It imports ``torch`` and never ``jax``,
 and nothing of ``coral_tpu``: the few jax-free pieces it needs (the
-tokenisers, ``chunk_waveform``) are copied into it. Its entry points run on
+tokenisers, ``chunk_waveform``, the native decoder's C++ sources) are copied
+into it. Its entry points run on
 the card unless the caller asks for the CPU.
 """
 

@@ -27,10 +27,15 @@ class ASRPipeline:
     Args:
         model_id: A pretrained checkpoint id or path (its name picks the
             family and architecture, e.g. ``facebook/wav2vec2-xls-r-300m`` or
-            ``openai/whisper-large-v3``).
+            ``openai/whisper-large-v3``): a directory holding an HF-layout
+            ``model.safetensors`` or ``pytorch_model.bin`` (beside it, a
+            Whisper model's ``vocab.json`` and ``merges.txt``, a wav2vec2
+            model's ``*gram.arpa``), or an id of the Hugging Face cache;
+            seeded random weights where no checkpoint is on disk.
         batch_size: Device batch size for transcription.
-        no_lm: Decode greedily even when an n-gram LM is stored with the model
-            (beam search is not ported yet).
+        no_lm: Decode greedily even when an n-gram LM (``*gram.arpa``) is
+            stored beside a wav2vec2 model, which otherwise serves by CTC
+            beam search with it.
         sampling_rate: Input audio is resampled to this rate.
         device: Where the model runs: the card (the kernels), or ``"cpu"``
             (the kernels' plain versions).
@@ -52,6 +57,7 @@ class ASRPipeline:
             "model_id": str(model_id),
             "no_lm": no_lm,
             "sampling_rate": sampling_rate,
+            "lower_case": True,
             "characters_to_keep": "abcdefghijklmnopqrstuvwxyzæøå0123456789éü",
             "max_seconds_per_example": 30,
         }

@@ -23,12 +23,17 @@ v3 attention without in-kernel biases. ``WhisperSetup`` (:440-628):
 ``_infer_arch``, the tokenizer, the model config from the YAML surface with
 the JAX setup's kernel flags and its remat policy by width, the training
 fields, ``init_params``, the greedy ``make_predictor`` and
-``make_train_step`` (the seq2seq step). What is not ported raises
-``NotImplementedError`` naming its ROADMAP item rather than running something
-else in silence: beam search (with an n-gram LM, or Whisper's), Whisper
-timestamps, loading a checkpoint, training on more than one device, and in
-wav2vec2 training the ``dots_saveable`` policy and
-``remat_feature_encoder: true``. A setup on the card also refuses, before it
+``make_train_step`` (the seq2seq step). ``init_params`` loads the published
+checkpoint that ``pretrained_model_id`` names where one is on disk (a path,
+or the Hugging Face cache; ``model.safetensors`` or ``pytorch_model.bin``),
+as the JAX setups do (wav2vec2 :308-324, Whisper :446-470 and :552-566),
+and seeds the weights otherwise; Whisper's tokenizer comes from the
+``vocab.json`` beside the checkpoint. ``Wav2Vec2Setup.make_beam_predictor``
+is the CTC beam search with an n-gram LM (:373-438). What is not ported
+raises ``NotImplementedError`` naming its ROADMAP item rather than running
+something else in silence: Whisper's beam search and timestamps, training on
+more than one device, and in wav2vec2 training the ``dots_saveable`` policy
+and ``remat_feature_encoder: true``. A setup on the card also refuses, before it
 builds anything, a model width that no kernel on its path was built for
 (``check_kernel_widths``, ROADMAP.md Queue 2 item 3); every config in
 ``config/model/`` passes on every route, ``attention_impl`` pallas, flash
@@ -54,8 +59,11 @@ import torch
 
 from ..audio.features import znorm
 from ..audio.noise_bank import download_background_noises, load_noise_bank
+from ..decoding import BeamSearchDecoder, NGramModel
 from ..models import wav2vec2
 from ..models import whisper as W
+from ..models.convert import (LM_HEAD, load_torch_state_dict, wav2vec2_state_dict_from_hf,
+                              whisper_state_dict_from_hf)
 from ..models.wav2vec2 import (NOT_PORTED, Wav2Vec2Config, Wav2Vec2ForCTC, build_model,
                                remat_names)
 from ..text.tokenizer import CtcTokenizer
@@ -88,7 +96,8 @@ _KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
 
 
 def _find_local_checkpoint(pretrained_model_id: str | None) -> Path | None:
-    """Resolve a local safetensors/pytorch checkpoint for a pretrained id.
+    """Resolve a local safetensors/pytorch checkpoint for a pretrained id:
+    the file, or the index of a sharded one.
 
     Checks the id as a filesystem path and the HF cache layout; returns None
     when nothing is on disk.
@@ -104,7 +113,8 @@ def _find_local_checkpoint(pretrained_model_id: str | None) -> Path | None:
         if cand.is_file():
             return cand
         if cand.is_dir():
-            for name in ("model.safetensors", "pytorch_model.bin"):
+            for name in ("model.safetensors", "model.safetensors.index.json",
+                         "pytorch_model.bin", "pytorch_model.bin.index.json"):
                 if (cand / name).exists():
                     return cand / name
     return None
@@ -178,23 +188,6 @@ def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
                 "not ported yet (ROADMAP.md, Queue 2 item 3)")
 
 
-def _refuse_checkpoint(pretrained: str | None, is_main: bool) -> None:
-    """Raise if a checkpoint for ``pretrained`` is on disk: the port cannot
-    load one yet and does not serve random weights in its place."""
-    ckpt = _find_local_checkpoint(pretrained)
-    if ckpt is not None:
-        raise NotImplementedError(
-            f"found checkpoint {ckpt}; loading it is "
-            + NOT_PORTED.format("2 (HF checkpoints)")
-            + ", and the port does not serve random weights in its place"
-        )
-    if is_main and pretrained:
-        logger.warning(
-            f"Pretrained checkpoint {pretrained!r} not found locally; "
-            "initialising from scratch."
-        )
-
-
 def _augmentation_settings(config: Mapping[str, Any],
                            is_main: bool) -> tuple[bool, np.ndarray | None]:
     """Resolve train-time augmentation (the reference trains with the
@@ -243,6 +236,35 @@ class GreedyCtcPredictor:
             self.tokenizer.decode(pred_ids[i, : frame_lengths[i]])
             for i in range(pred_ids.shape[0])
         ]
+
+
+class BeamCtcPredictor(GreedyCtcPredictor):
+    """Host batch -> transcripts by CTC beam search with n-gram shallow
+    fusion (the JAX ``make_beam_predictor``'s ``predict``): the model's
+    forward, an fp32 log-softmax on its device, one copy of the (B, T', V)
+    log-probs and the frame lengths to the host a batch, then the native
+    decoder row by row. A row with no valid frame (a filler row of a partial
+    batch, whose frame length is below 1) decodes no frame; the JAX predictor
+    slices such a row with its negative length."""
+
+    def __init__(self, model: Wav2Vec2ForCTC, tokenizer: CtcTokenizer,
+                 decoder: BeamSearchDecoder) -> None:
+        super().__init__(model, tokenizer)
+        self.decoder = decoder
+
+    @torch.inference_mode()
+    def log_probs(self, batch: Mapping[str, Any]) -> tuple[np.ndarray, np.ndarray]:
+        """(log-probs (B, T', V) fp32, frame lengths (B,)) on the host."""
+        logits, frame_lengths = self.logits(batch)
+        log_probs = torch.log_softmax(logits.float(), dim=-1)
+        return log_probs.cpu().numpy(), frame_lengths.cpu().numpy()
+
+    def decode(self, log_probs: np.ndarray, frame_lengths: np.ndarray) -> list[str]:
+        """The beam search over each row's valid frames."""
+        return self.decoder.decode_batch(log_probs, np.maximum(frame_lengths, 0))
+
+    def __call__(self, batch: Mapping[str, Any]) -> list[str]:
+        return self.decode(*self.log_probs(batch))
 
 
 class Wav2Vec2Setup:
@@ -310,7 +332,12 @@ class Wav2Vec2Setup:
                 "or nothing_saveable with the stats variants."
             )
         self.audio_pad_seconds = float(config["max_seconds_per_example"])
-        _refuse_checkpoint(model_cfg.get("pretrained_model_id"), is_main)
+        self._ckpt = _find_local_checkpoint(model_cfg.get("pretrained_model_id"))
+        if self._ckpt is None and is_main and model_cfg.get("pretrained_model_id"):
+            logger.warning(
+                f"Pretrained checkpoint {model_cfg['pretrained_model_id']!r} not "
+                "found locally; initialising from scratch."
+            )
 
     @staticmethod
     def _infer_arch(model_cfg: Mapping[str, Any]) -> Callable[..., Wav2Vec2Config]:
@@ -326,10 +353,31 @@ class Wav2Vec2Setup:
         return Wav2Vec2Config.xls_r_300m
 
     def init_params(self, seed: int = 0) -> Wav2Vec2ForCTC:
-        """A randomly initialised model on the setup's device, from ``seed``."""
+        """The model on the setup's device, seeded from ``seed``, with the
+        checkpoint's weights loaded where one was found. A checkpoint without
+        ``lm_head`` (a pretraining checkpoint) keeps the seeded CTC head, as
+        ``Wav2Vec2ForCTC.from_pretrained`` initialises it; one whose head has
+        another row count than the tokenizer's vocabulary raises
+        ``ValueError``. The parameters stay fp32."""
         model = build_model(self.model_config, self.device, seed=seed)
         model.wav2vec2.encoder.gradient_checkpointing = self.gradient_checkpointing
         model.wav2vec2.encoder.remat_policy = self.remat_policy
+        if self._ckpt is not None:
+            if self.is_main:
+                logger.info(f"Loading pretrained weights from {self._ckpt}")
+            sd = load_torch_state_dict(self._ckpt)
+            head = sd.get(LM_HEAD[0])
+            if head is not None and head.shape[0] != self.tokenizer.vocab_size:
+                raise ValueError(
+                    f"{self._ckpt}: lm_head has {head.shape[0]} rows, but the tokenizer "
+                    f"of characters_to_keep has {self.tokenizer.vocab_size} ids")
+            sd = wav2vec2_state_dict_from_hf(sd, model)
+            if LM_HEAD[0] not in sd:
+                logger.warning(f"{self._ckpt} holds no lm_head (a pretraining checkpoint); "
+                               "the CTC head keeps its seeded weights")
+            # Each tensor copied once, from the file's view to the device, cast
+            # to the parameter's dtype; the key sets were matched above.
+            model.load_state_dict(sd, strict=False)
         return model
 
     def make_train_step(self, tx, schedule) -> Callable:
@@ -362,11 +410,19 @@ class Wav2Vec2Setup:
         """Greedy CTC decode: host batch -> list of transcript strings."""
         return GreedyCtcPredictor(model, self.tokenizer)
 
-    def make_beam_predictor(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CTC beam search with an n-gram LM: "
-            + NOT_PORTED.format("4 (beam search + n-gram LM)")
+    def make_beam_predictor(self, model: Wav2Vec2ForCTC, arpa_path: str | Path,
+                            alpha: float = 0.5, beta: float = 1.5,
+                            beam_width: int = 100) -> BeamCtcPredictor:
+        """CTC beam search with n-gram shallow fusion: the device gives
+        log-probs, the native decoder (``coral_tpu_torch/decoding``) fuses
+        the LM at ``arpa_path`` on the host."""
+        vocab = [self.tokenizer.ids_to_tokens[i] for i in range(self.tokenizer.vocab_size)]
+        decoder = BeamSearchDecoder(
+            vocab, blank_id=self.blank_id,
+            word_sep_id=vocab.index(self.tokenizer.word_delimiter_token),
+            lm=NGramModel(arpa_path), alpha=alpha, beta=beta, beam_width=beam_width,
         )
+        return BeamCtcPredictor(model, self.tokenizer, decoder)
 
 
 # Ordered: the first key found in the architecture or checkpoint id wins
@@ -419,12 +475,22 @@ class WhisperSetup:
         self.config = config
         self.device = torch.device(device)
         self._is_main = is_main
-        arch = self._infer_arch(model_cfg)
-        _refuse_checkpoint(model_cfg.get("pretrained_model_id"), is_main)
-        self.tokenizer = WhisperTokenizer.byte_fallback(
-            language=model_cfg.get("language", "danish"),
-            task=model_cfg.get("task", "transcribe"),
-        )
+        arch, is_v3 = self._infer_arch(model_cfg)
+        pretrained = model_cfg.get("pretrained_model_id")
+        self._ckpt = _find_local_checkpoint(pretrained)
+        language = model_cfg.get("language", "danish")
+        task = model_cfg.get("task", "transcribe")
+        if self._ckpt is not None and (self._ckpt.parent / "vocab.json").exists():
+            self.tokenizer = WhisperTokenizer.from_pretrained(
+                self._ckpt.parent, language=language, task=task, multilingual_v3=is_v3)
+        else:
+            # As the JAX setup: a checkpoint without its vocabulary is not used.
+            if is_main and pretrained:
+                logger.warning(
+                    f"Pretrained checkpoint {pretrained!r} not found locally; using a "
+                    "byte-fallback tokenizer and random init.")
+            self.tokenizer = WhisperTokenizer.byte_fallback(language=language, task=task)
+            self._ckpt = None
         use_bf16 = bool(config.get("bf16_allowed", True))
         self.model_config = arch(
             vocab_size=self.tokenizer.vocab_size,
@@ -459,20 +525,31 @@ class WhisperSetup:
                                     self.model_config.max_target_positions)
 
     @staticmethod
-    def _infer_arch(model_cfg: Mapping[str, Any]) -> Callable[..., W.WhisperConfig]:
+    def _infer_arch(model_cfg: Mapping[str, Any]) -> tuple[Callable[..., W.WhisperConfig],
+                                                           bool]:
+        """(the architecture's factory, whether its vocabulary is large-v3's,
+        with the "yue" language token)."""
         explicit = model_cfg.get("architecture")
         pretrained = (model_cfg.get("pretrained_model_id") or "").lower()
         key_source = explicit if explicit is not None else pretrained
         for key, factory in _WHISPER_ARCHS:
             if key in key_source:
-                return factory
+                return factory, key in ("turbo", "large-v3")
         if explicit is not None:
             raise ValueError(f"Unknown whisper architecture {explicit!r}")
-        return W.WhisperConfig.small
+        return W.WhisperConfig.small, False
 
     def init_params(self, seed: int = 0) -> W.WhisperForConditionalGeneration:
-        """A randomly initialised model on the setup's device, from ``seed``."""
-        return W.build_model(self.model_config, self.device, seed=seed)
+        """The model on the setup's device, seeded from ``seed``, with the
+        checkpoint's weights loaded where one was found (the parameters stay
+        fp32)."""
+        model = W.build_model(self.model_config, self.device, seed=seed)
+        if self._ckpt is not None:
+            if self._is_main:
+                logger.info(f"Loading pretrained weights from {self._ckpt}")
+            model.load_state_dict(whisper_state_dict_from_hf(
+                load_torch_state_dict(self._ckpt), model))
+        return model
 
     def make_train_step(self, tx, schedule) -> Callable:
         """The seq2seq train step ``(state, batch, generator) -> (state,
