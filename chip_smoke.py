@@ -124,6 +124,18 @@ non-zero before the result line is printed:
    through the encoder and greedy decoding capped at 16 tokens with exact
    launch counts, the encoder output and the teacher-forced logits against
    the plain path;
+8'. Whisper beam search (v): config/model/whisper-large.yaml with
+   ``generation_num_beams: 5`` through ``WhisperSetup.make_predictor`` on one
+   batch of 8 x 30 s (max_length 225): exact launch counts (flash attention
+   and the 1280-wide FFN 32 per encoder call, decode self- and
+   cross-attention 32 per beam step), the first 72 steps' logits against the
+   plain path fed the kernel path's tokens and slot masks; beam 5 against
+   greedy on the same batch at large-v3 and whisper-small (ms per batch and
+   per decode step, the host's ms a step outside ``decode_step``, the busy
+   share of a beam batch); ``return_timestamps: true`` greedy and beam 5,
+   every row held to the timestamp grammar; ``transcribe_longform`` and
+   ``transcribe_longform_timestamps`` on a 75 s clip; ``run_validation``
+   with the beam predictor over (d)'s 12 clips against seeded references;
 9. Whisper training (e): config/model/whisper-large.yaml with
    config/asr_finetuning.yaml (save_flash_ctx, activation dropout 0.1,
    SpecAugment, the augmentation chain with a seeded synthetic noise bank,
@@ -521,6 +533,22 @@ WHISPER_LOGITS_TOL = 5e-2
 # corpus sentences. (u): a seeded large-v3 in F16
 # beside a vocab.json of V3_BPE_TOKENS tokens (51,866 ids with the specials,
 # the golden manifest's), greedy decoding capped at V3_MAX_LENGTH tokens.
+# Phase (v): Whisper beam search, timestamps, long-form and the eval loop
+# through WhisperSetup, seeded weights at full width and depth, max_length
+# 225: (d)'s whisper-large.yaml and (h)'s whisper-small.yaml with
+# `generation_num_beams: BEAMS`, on one batch of 8 x 30 s of seeded noise.
+# Kernel path vs plain path: the main path's logits of its first REPLAY_STEPS
+# beam steps (the first cache phase and the start of the second) against the
+# plain path fed its tokens and slot masks, max |diff| / max |plain| within
+# WHISPER_LOGITS_TOL. Long-form: one LONGFORM_SECONDS clip in windows of 30 s
+# with a 5 s stride (four windows, one generate call); run_validation over
+# (d)'s 12 clips in one batch against seeded strings of REFERENCE_WORDS. Beam
+# against greedy: two runs of each on one batch, alternated, their medians.
+BEAMS = 5
+REPLAY_STEPS = 72
+LONGFORM_SECONDS = 75.0
+REFERENCE_WORDS = ["hej", "med", "dig", "og", "tak", "for", "sidst", "det", "er", "en",
+                   "god", "dag", "i", "dag", "vi", "ses", "i", "morgen", "klokken", "tre"]
 W2V2_ID = "facebook/wav2vec2-xls-r-300m"
 PIPELINE_CHARS = "abcdefghijklmnopqrstuvwxyzæøå0123456789éü"
 LM_WORDS, LM_SENTENCES = 2000, 20_000
@@ -1563,8 +1591,11 @@ def serving_run(card: str, model_id: str = "facebook/wav2vec2-xls-r-300m",
 
 def profile_window(card: str, label: str, fn) -> float:
     """Runs ``fn`` once under ``torch.profiler`` and prints the device's busy
-    share (the union of the kernels' intervals over the window) and the
-    device time by kernel; returns the busy share."""
+    share (the union of the kernels' intervals over the window), the device
+    time by kernel and the host's self time by op; returns the busy share.
+    It reads the profiler's raw events: building its event tree
+    (``prof.events()``, ``key_averages()``) takes minutes for a decode loop's
+    million events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1572,20 +1603,23 @@ def profile_window(card: str, label: str, fn) -> float:
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    cpu = [e.time_range for e in prof.events() if e.device_type == DeviceType.CPU]
-    window = (max(r.end for r in cpu) - min(r.start for r in cpu)) / 1e3
+    kernels, cpu = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            kernels.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.device_type() == DeviceType.CPU:
+            cpu.append((e.start_thread_id(), e.start_ns(), -e.end_ns(), e.name()))
+    window = (max(-e[2] for e in cpu) - min(e[1] for e in cpu)) / 1e6
     busy, end = 0.0, -math.inf
-    for a, b in spans:
+    for a, b, _ in sorted(kernels):
         if b > end:
             busy += b - max(a, end)
             end = b
-    busy /= 1e3
+    busy /= 1e6
     by_name: dict = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    for a, b, name in kernels:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e6, n + 1)
     rows = sorted(((ms, n, k) for k, (ms, n) in by_name.items()), reverse=True)
     print(f"profile of {label} ({card}): window {window:.3f} ms (profiler on), device busy "
           f"{busy:.3f} ms (union of {len(kernels)} kernels), busy share {busy / window:.4f}; "
@@ -1594,9 +1628,20 @@ def profile_window(card: str, label: str, fn) -> float:
         print(f"    {ms:10.3f} ms  {n:6d}x  {key[:96]}", flush=True)
     print(f"    {sum(r[0] for r in rows[16:]):10.3f} ms  {sum(r[1] for r in rows[16:]):6d}x  "
           f"the other {max(len(rows) - 16, 0)} kernels", flush=True)
-    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    # Self time: an op's span less its children's, ops nested by thread and time.
+    self_ns: dict = collections.defaultdict(lambda: [0, 0])
+    stack: list = []
+    for thread, start, neg_end, name in sorted(cpu):
+        while stack and (stack[-1][0] != thread or stack[-1][1] <= start):
+            stack.pop()
+        if stack:
+            self_ns[stack[-1][2]][0] -= -neg_end - start
+        self_ns[name][0] += -neg_end - start
+        self_ns[name][1] += 1
+        stack.append((thread, -neg_end, name))
+    host = sorted(self_ns.items(), key=lambda kv: kv[1][0], reverse=True)
     print("  host time by op (self CPU ms, profiler on): " + "; ".join(
-        f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ({e.count}x)" for e in host[:8]), flush=True)
+        f"{name} {ns / 1e6:.1f} ({n}x)" for name, (ns, n) in host[:8]), flush=True)
     return busy / window
 
 
@@ -2011,6 +2056,48 @@ def whisper_kernel_checks(card: str) -> dict:
                             decode_attention.decode_cross_attention_plain(qd, xk, xv, H, layer)),
             (4 * BATCH * T * D, FP32_FLOPS, 2 * nbytes(qd) + 2 * nbytes(xk[layer])),
             lambda: sdpa(sq, hk, hv))
+    # Phase (v)'s shapes: K = 5 beams of each of the 8 items (40 query rows),
+    # the self cache at its last phase (225 slots) with a slot mask from
+    # ancestor chains that branch as a beam search's do, and K9's five query
+    # rows an item over that item's encoder K/V. Checked and timed; their
+    # launches are K8's and K9's rows.
+    from coral_tpu_torch.models.whisper import beam_slot_mask
+
+    anc = torch.arange(K, device=dev, dtype=torch.int32)[None, :, None].repeat(BATCH, 1, T_b)
+    for step in range(pos):
+        parent = torch.randint(0, K, (BATCH, K), generator=gen, device=dev)
+        anc = anc.gather(1, parent[:, :, None].expand(BATCH, K, T_b))
+        anc[:, :, step + 1] = torch.arange(K, device=dev, dtype=torch.int32)
+    onehot_v = beam_slot_mask(anc, pos, T_b)
+    q_v = randn(BATCH * K, D, dtype=bf16)
+    ck_v, cv_v = (randn(L, BATCH * K, T_b, D, dtype=bf16) for _ in range(2))
+    kt = K * T_b
+    mask_v = torch.where(onehot_v > 0, 0.0, -1e30).to(bf16).view(BATCH, 1, K, kt)
+    measure("decode_self_attention_k5",
+            lambda: decode_attention.decode_self_attention(q_v, ck_v, cv_v, onehot_v, H, layer),
+            lambda: decode_attention.decode_self_attention_plain(q_v, ck_v, cv_v, onehot_v, H,
+                                                                 layer),
+            lambda: compare("decode_self_attention_k5",
+                            decode_attention.decode_self_attention(q_v, ck_v, cv_v, onehot_v, H,
+                                                                   layer),
+                            decode_attention.decode_self_attention_plain(q_v, ck_v, cv_v,
+                                                                         onehot_v, H, layer),
+                            "decode_self_attention"),
+            (4 * BATCH * K * kt * D, FP32_FLOPS,
+             2 * nbytes(q_v) + 2 * nbytes(ck_v[layer]) + nbytes(onehot_v)),
+            lambda: sdpa(q_v.view(BATCH, K, H, d).transpose(1, 2),
+                         *(t[layer].view(BATCH, kt, H, d).transpose(1, 2) for t in (ck_v, cv_v)),
+                         attn_mask=mask_v))
+    del ck_v, cv_v, mask_v
+    measure("decode_cross_attention_k5",
+            lambda: decode_attention.decode_cross_attention(q_v, xk, xv, H, layer),
+            lambda: decode_attention.decode_cross_attention_plain(q_v, xk, xv, H, layer),
+            lambda: compare("decode_cross_attention_k5",
+                            decode_attention.decode_cross_attention(q_v, xk, xv, H, layer),
+                            decode_attention.decode_cross_attention_plain(q_v, xk, xv, H, layer),
+                            "decode_cross_attention"),
+            (4 * BATCH * K * T * D, FP32_FLOPS, 2 * nbytes(q_v) + 2 * nbytes(xk[layer])),
+            lambda: sdpa(q_v.view(BATCH, K, H, d).transpose(1, 2), hk, hv))
     decode_calls = {
         "decode_self_attention": lambda: decode_attention.decode_self_attention(
             qd, ck, cv, onehot, H, layer),
@@ -2609,6 +2696,277 @@ def whisper_checkpoint_run(card: str) -> dict:
         del asr, predictor, model, capped
     torch.cuda.empty_cache()
     return counts
+
+
+class DecodeSpy:
+    """Wraps ``models.whisper.decode_step`` (which ``greedy_generate`` and
+    ``beam_generate`` call) for the runs inside ``with``: counts the decode
+    steps, sums the host seconds spent inside ``decode_step``, notes when the
+    first step began and, for the first ``keep`` steps, keeps each step's
+    position, tokens, slot mask and logits for a replay (three device copies
+    a step, made outside the timed ``decode_step``)."""
+
+    def __init__(self, keep: int = 0) -> None:
+        self.keep, self.steps, self.host, self.first, self.kept = keep, 0, 0.0, None, []
+
+    def __enter__(self):
+        from coral_tpu_torch.models import whisper as W
+
+        self._orig = W.decode_step
+
+        def step(model, tokens, pos, cache, cross_kv, onehot=None, linears=None):
+            start = time.perf_counter()
+            if self.first is None:
+                self.first = start
+            out = self._orig(model, tokens, pos, cache, cross_kv, onehot, linears)
+            self.host += time.perf_counter() - start
+            self.steps += 1
+            if len(self.kept) < self.keep:
+                self.kept.append((pos, tokens.clone(), onehot.clone(), out[0].clone()))
+            return out
+
+        W.decode_step = step
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from coral_tpu_torch.models import whisper as W
+
+        W.decode_step = self._orig
+
+
+def generation_times(predictor, batch, keep: int = 0) -> tuple[dict, torch.Tensor, DecodeSpy]:
+    """One synchronised generate call of ``predictor`` on ``batch``: ms per
+    batch, the decode steps, ms per step (host clock from the first step's
+    start to the end), the host ms a step inside ``decode_step``, and the
+    rest of a step (the loop's bookkeeping and its stop test's read); the ids
+    and the spy (``keep`` steps kept)."""
+    with DecodeSpy(keep) as spy:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ids = predictor.generate(predictor.model, batch)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    step = (end - spy.first) / spy.steps * 1e3
+    inside = spy.host / spy.steps * 1e3
+    return ({"batch_ms": (end - start) * 1e3, "steps": spy.steps, "step_ms": step,
+             "decode_step_ms": inside, "rest_ms": step - inside}, ids, spy)
+
+
+def beam_replay(model, feats, kept: list) -> float:
+    """The kernel path's logits of its first beam steps against the plain
+    path's (``WhisperForConditionalGeneration(plain=True)`` on ``model``'s
+    weights), fed the kernel path's tokens and slot masks (``kept``: position,
+    tokens, slot mask and logits) over a cache of B x K rows grown by the same
+    phases; returns the worst step's max|diff| / max|plain|."""
+    from coral_tpu_torch.models import whisper as W
+
+    cfg, dev = model.config, feats.device
+    with torch.device("meta"):
+        plain = W.WhisperForConditionalGeneration(cfg, plain=True)
+    plain = plain.to_empty(device=dev).eval()
+    plain.load_state_dict(model.state_dict())
+    rows = kept[0][1].shape[0]
+    worst = 0.0
+    with torch.inference_mode():
+        kv = W.precompute_cross_kv(plain, W.encode(plain, feats))
+        lin, cache = W.decoder_linears(plain), W.init_self_cache(cfg, rows, 64, dev)
+        for pos, tokens, onehot, got in kept:
+            t_b = onehot.shape[2] // (rows // feats.shape[0])
+            want, cache = W.decode_step(plain, tokens, pos, W._pad_cache(cache, t_b), kv, onehot,
+                                        lin)
+            if not bool(torch.isfinite(got).all()):
+                fail(f"whisper beam logits not finite at step {pos}")
+            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    del plain, kv, cache
+    torch.cuda.empty_cache()
+    return worst
+
+
+def timestamp_grammar(ids: np.ndarray, n_forced: int, tokenizer) -> list[str]:
+    """The rows of ``ids`` that break the timestamp grammar (the checks of
+    ``tests/test_whisper_generation.py::test_timestamp_grammar``): the first
+    generated token a timestamp of at most ``timestamp_begin + 50``,
+    ``<|notimestamps|>`` never, no three timestamps in a row, timestamps never
+    decreasing."""
+    tb, eos = tokenizer.timestamp_begin, tokenizer.eos_token_id
+    bad = []
+    for r, row in enumerate(ids):
+        gen = [int(t) for t in row[n_forced:]]
+        gen = gen[: gen.index(eos)] if eos in gen else gen
+        ts = [t for t in gen if t >= tb]
+        run, runs = 0, []
+        for t in gen:
+            run = run + 1 if t >= tb else 0
+            runs.append(run)
+        if not gen or not tb <= gen[0] <= tb + 50 or tokenizer.notimestamps_token_id in gen \
+                or max(runs) > 2 or ts != sorted(ts):
+            bad.append(f"row {r}: {gen[:12]}")
+    return bad
+
+
+def whisper_beam_run(card: str) -> dict:
+    """Phase (v): Whisper beam search, the timestamp grammar, long-form
+    merging and the validation loop through ``WhisperSetup`` on the card;
+    returns the launch counts of the counted beam batches (large-v3 and
+    whisper-small)."""
+    from coral_tpu_torch.evaluation.eval_loop import run_validation
+    from coral_tpu_torch.evaluation.longform import (chunk_waveform, transcribe_longform,
+                                                     transcribe_longform_timestamps)
+    from coral_tpu_torch.audio.augment import peak_normalize
+    from coral_tpu_torch.audio.mel import log_mel_spectrogram
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training.model_setup import load_model_setup
+
+    def setup_of(name, checkpoint, **keys):
+        return load_model_setup({**WHISPER_TRAIN_CONFIG, "model": {
+            **WHISPER_TRAIN_CONFIG["model"], "name": name, "pretrained_model_id": checkpoint,
+            **keys}}, device="cuda")
+
+    rng = np.random.default_rng(8)
+    T = 30 * SR
+    batch = {"input_values": (rng.standard_normal((BATCH, T)) * 0.1).astype(np.float32),
+             "input_lengths": np.full((BATCH,), T, np.int32)}
+    counts: collections.Counter = collections.Counter()
+    figures = {}
+    for label, name, checkpoint in (("large-v3", "whisper-large", WHISPER_ID),
+                                    ("whisper-small", "whisper-small", "openai/whisper-small")):
+        t0 = time.perf_counter()
+        setup = setup_of(name, checkpoint, generation_num_beams=BEAMS)
+        cfg = setup.model_config
+        model = setup.init_params(seed=0)
+        beam = setup.make_predictor(model)
+        greedy = setup_of(name, checkpoint).make_predictor(model)
+        Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+        print(f"(v) {label}: d_model {cfg.d_model}, {Le} + {Ld} layers, vocab "
+              f"{cfg.vocab_size}, {BEAMS} beams, max_length {setup.generation_max_length}, "
+              f"built in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # The main path, counted and timed: one beam batch, its first steps
+        # kept for the replay.
+        _build.reset_launch_counts()
+        beam_times, ids, spy = generation_times(beam, batch,
+                                                REPLAY_STEPS if label == "large-v3" else 0)
+        run = dict(_build.launch_counts)
+        expected = {"flash_attention": Le, block_kernels(cfg, cfg.d_model)[0]: Le,
+                    "decode_self_attention": Ld * spy.steps,
+                    "decode_cross_attention": Ld * spy.steps}
+        texts = beam.tokenizer.batch_decode(ids.cpu().numpy())
+        print(f"(v) {label} beam {BEAMS} main path: 1 batch of {BATCH} x 30 s, {spy.steps} "
+              f"beam steps ({BATCH * BEAMS} decode rows), launch counts {run}", flush=True)
+        if run != expected:
+            fail(f"(v) {label}: launch counts {run}, expected {expected}")
+        if ids.shape != (BATCH, setup.generation_max_length) or len(texts) != BATCH:
+            fail(f"(v) {label}: beam ids of shape {tuple(ids.shape)}")
+        counts.update(run)
+        if spy.kept:
+            feats = log_mel_spectrogram(peak_normalize(torch.from_numpy(batch["input_values"])
+                                                       .cuda()),
+                                        n_mels=cfg.num_mel_bins, dtype=cfg.dtype)
+            start = time.perf_counter()
+            worst = beam_replay(model, feats, spy.kept)
+            phases = sorted({k[2].shape[2] // BEAMS for k in spy.kept})
+            print(f"(v) {label} kernel vs plain: the main path's logits of its first "
+                  f"{len(spy.kept)} of {spy.steps} beam steps (slot masks at cache phases "
+                  f"{phases}) against the plain path fed its tokens and masks, worst "
+                  f"max|diff|/max|plain| {worst:.6g} (tolerance {WHISPER_LOGITS_TOL}; the "
+                  f"plain replay {time.perf_counter() - start:.1f} s) ({card})", flush=True)
+            if worst > WHISPER_LOGITS_TOL:
+                fail(f"(v) {label}: kernel path and plain path disagree")
+            del feats
+        del spy
+
+        # Beam against greedy on the same batch.
+        # Beam against greedy on the same batch, alternated (beam, greedy,
+        # greedy, beam: the counted run is the first), medians of two: the
+        # host's speed drifts within a run.
+        runs = {"beam": [beam_times], "greedy": []}
+        for what in ("greedy", "greedy", "beam"):
+            runs[what].append(generation_times(beam if what == "beam" else greedy, batch)[0])
+        b, g = ({key: float(np.median([r[key] for r in runs[what]])) for key in beam_times}
+                for what in ("beam", "greedy"))
+        busy = profile_window(card, f"(v) one {label} beam-{BEAMS} batch of {BATCH} x 30 s",
+                              lambda: beam.generate(model, batch))
+        figures[label] = (b, g, busy)
+        print(f"(v) {label} ms per step of each run, in turn: beam "
+              f"{[round(r['step_ms'], 3) for r in runs['beam']]}, greedy "
+              f"{[round(r['step_ms'], 3) for r in runs['greedy']]}", flush=True)
+        print(f"(v) {label} beam {BEAMS} against greedy ({card}; medians of two): "
+              f"{b['batch_ms']:.3f} against "
+              f"{g['batch_ms']:.3f} ms per batch ({b['batch_ms'] / g['batch_ms']:.4f}x), "
+              f"{b['steps']:.0f} against {g['steps']:.0f} decode steps, {b['step_ms']:.3f} against "
+              f"{g['step_ms']:.3f} ms per step ({b['step_ms'] / g['step_ms']:.4f}x; host clock, "
+              f"synchronised); host ms a step inside decode_step {b['decode_step_ms']:.3f} / "
+              f"{g['decode_step_ms']:.3f}, the rest of a step (bookkeeping and the stop "
+              f"test's read) {b['rest_ms']:.3f} / {g['rest_ms']:.3f}; busy share of a beam "
+              f"batch {busy:.4f}", flush=True)
+        if label != "large-v3":
+            del model, beam, greedy
+            torch.cuda.empty_cache()
+            continue
+
+        # Timestamps: greedy and beam 5, every row held to the grammar.
+        ts_beam = setup_of(name, checkpoint, generation_num_beams=BEAMS,
+                           return_timestamps=True).make_predictor(model)
+        ts_greedy = setup_of(name, checkpoint, return_timestamps=True).make_predictor(model)
+        tok = beam.tokenizer
+        n_forced = len(tok.forced_decoder_ids_timestamps)
+        for what, predictor in (("greedy", ts_greedy), (f"beam {BEAMS}", ts_beam)):
+            ts_ids = predictor.generate(model, batch).cpu().numpy()
+            bad = timestamp_grammar(ts_ids, n_forced, tok)
+            n_ts = int((ts_ids[:, n_forced:] >= tok.timestamp_begin).sum())
+            print(f"(v) {label} return_timestamps {what}: {len(ts_ids)} rows, {n_ts} timestamp "
+                  f"tokens, the grammar holds on {len(ts_ids) - len(bad)} of {len(ts_ids)} rows",
+                  flush=True)
+            if bad:
+                fail(f"(v) timestamps {what}: the grammar fails on {bad[:3]}")
+
+        # Long-form: one clip in overlapping 30 s windows, one generate call.
+        clip = (np.random.default_rng(9).standard_normal(int(LONGFORM_SECONDS * SR)) * 0.1
+                ).astype(np.float32)
+        start = time.perf_counter()
+        text = transcribe_longform(clip, lambda b: beam.generate(model, b), tok)
+        text_s = time.perf_counter() - start
+        start = time.perf_counter()
+        segments = transcribe_longform_timestamps(clip, lambda b: ts_beam.generate(model, b),
+                                                  tok)
+        seg_s = time.perf_counter() - start
+        mids = [(a + z) / 2 for a, z, _ in segments]
+        offsets = [s0 / SR for s0, _ in chunk_waveform(clip, T, 5 * SR)]
+        inside = all(0.0 <= a and z <= offsets[-1] + 30.0 for a, z, _ in segments)
+        beyond = sum(z > LONGFORM_SECONDS for _, z, _ in segments)
+        print(f"(v) long-form {LONGFORM_SECONDS} s, {len(offsets)} windows of 30 s with a 5 s "
+              f"stride (at {offsets} s), one generate call each, beam "
+              f"{BEAMS}: {len(text)} characters in {text_s:.3f} s; timestamped: "
+              f"{len(segments)} segments in {seg_s:.3f} s, from "
+              f"{segments[0][0] if segments else 0:.2f} to "
+              f"{segments[-1][1] if segments else 0:.2f} s, midpoints in order "
+              f"{mids == sorted(mids)}, {beyond} ending past the clip's end (seeded weights "
+              f"place timestamps past the audio)", flush=True)
+        if not isinstance(text, str) or mids != sorted(mids) or not inside:
+            fail("(v) long-form segments out of order or outside their windows")
+
+        # run_validation with the beam predictor over (d)'s 12 clips.
+        clips_rng = np.random.default_rng(3)
+        words = np.random.default_rng(10)
+        samples = [{"audio_array": (clips_rng.standard_normal(int(s * SR)) * 0.1)
+                    .astype(np.float32),
+                    "text": " ".join(words.choice(REFERENCE_WORDS, size=int(s)))}
+                   for s in np.linspace(3.0, 30.0, 12)]
+        start = time.perf_counter()
+        rates = run_validation(beam, lambda: iter(samples), len(samples), 30.0, SR)
+        print(f"(v) run_validation, beam {BEAMS}, 12 clips of 3-30 s in one batch against "
+              f"seeded references: cer {rates['cer']:.6f}, wer {rates['wer']:.6f} in "
+              f"{time.perf_counter() - start:.3f} s", flush=True)
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in rates.values()):
+            fail(f"(v) run_validation rates {rates}")
+        del model, beam, greedy, ts_beam, ts_greedy
+        torch.cuda.empty_cache()
+    for label, (b, g, busy) in figures.items():
+        print(f"(v) summary {label} ({card}): beam {BEAMS} / greedy per batch "
+              f"{b['batch_ms'] / g['batch_ms']:.4f}x, per step {b['step_ms'] / g['step_ms']:.4f}x;"
+              f" beam {b['step_ms']:.3f} ms a step, {b['rest_ms']:.3f} of it outside "
+              f"decode_step; busy share {busy:.4f}", flush=True)
+    return dict(counts)
 
 
 def sdpa_flash_yardsticks(qh, kh, vh, do_h, scale):
@@ -4712,11 +5070,13 @@ def main() -> int:
     mark("Whisper serving (d)")
     whisper_ckpt_counts = whisper_checkpoint_run(card)
     mark("(u) Whisper large-v3 from a checkpoint")
+    whisper_beam_counts = whisper_beam_run(card)
+    mark("(v) Whisper beam search, timestamps, long-form, run_validation")
     whisper_train_counts = whisper_train_run(card)
     torch.cuda.empty_cache()
     mark("Whisper training (e)")
     main_counts = [serve_counts, train_counts, whisper_counts, whisper_train_counts,
-                   lm_counts, whisper_ckpt_counts]
+                   lm_counts, whisper_ckpt_counts, whisper_beam_counts]
     # (f) XLS-R-2B's production fine-tune, (f') its serving.
     main_counts.append(xlsr_train_run(card, "(f)", W2V2_LARGE_CONFIG, "xls_r_2b", TRAIN_STEPS,
                                       XLSR_2B_COMPARE_LAYERS, falling=True,

@@ -1,12 +1,13 @@
-"""Whisper encoder-decoder in PyTorch: greedy generation and the training forward.
+"""Whisper encoder-decoder in PyTorch: greedy and beam generation, the
+timestamp grammar, and the training forward.
 
 Port of ``coral_tpu/models/whisper.py``: ``WhisperConfig`` (every checkpoint
 family and ``tiny_test``), ``REMAT_POLICIES``, ``sinusoidal_positions``,
 ``encode`` (with ``_spec_augment``), ``decode_train``, ``forward``,
 ``precompute_cross_kv``, ``init_self_cache``, ``decode_step``,
-``_decode_phases``/``_pad_cache``, ``greedy_generate`` and
-``segments_from_tokens``. Beam search and the timestamp rules (ROADMAP.md,
-Queue 1 item 6b) are not ported.
+``_decode_phases``/``_pad_cache``, ``greedy_generate`` (with token
+suppression and the timestamp mode), ``apply_timestamp_rules``,
+``segments_from_tokens`` and ``beam_generate``.
 
 Routes follow the JAX model at the JAX setup's serving defaults. The encoder
 convs run as ``F.conv1d`` with exact erf GELU. Encoder self-attention takes
@@ -41,6 +42,11 @@ the kernel path is held against on the card.
 Generation runs eagerly: a host loop over positions that updates the caches
 in place (JAX carries them functionally through a ``while_loop``), with the
 same prompt forcing, EOS fill of finished rows, early exit and phase buckets.
+Its stop test reads one host scalar a step; everything else stays on the
+device. Beam search never reorders the cache: as in JAX, each beam's ancestry
+is a chain of slot indices resolved inside the decode self-attention kernel
+through a (B, K, K*T) slot mask (``beam_slot_mask``). Its top-k selections
+break ties toward the lower index, as ``jax.lax.top_k`` does (``_top_k``).
 
 Training (``forward(..., deterministic=False, generator=...)``) is the JAX
 model's ``deterministic=False``: SpecAugment on the mel features, the FFN's
@@ -867,6 +873,35 @@ def _pad_cache(cache: tuple[torch.Tensor, torch.Tensor], new_len: int):
     return F.pad(k, (0, 0, 0, extra)), F.pad(v, (0, 0, 0, extra))
 
 
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_softmax`` over the last axis, in its order: the row max
+    subtracted first, then the log of the sum of the exponentials."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def _logsumexp(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """``jax.nn.logsumexp`` over the last axis: a row max that is not finite
+    counts as 0."""
+    amax = x.amax(dim=-1, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    out = torch.log(torch.exp(x - amax).sum(dim=-1, keepdim=True)) + amax
+    return out if keepdim else out.squeeze(-1)
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values of each row of fp32 ``x`` and their indices,
+    descending, equal values in index order: ``jax.lax.top_k``'s order, which
+    ``torch.topk`` does not promise. One ``topk`` over int64 keys that hold a
+    value's order in the high word and the reversed index in the low one."""
+    n = x.shape[-1]
+    bits = x.contiguous().view(torch.int32)
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    key = ordered * (1 << 32) + (n - 1 - torch.arange(n, device=x.device))
+    idx = torch.topk(key, k, dim=-1).indices
+    return x.gather(-1, idx), idx
+
+
 @torch.inference_mode()
 def greedy_generate(
     model: WhisperForConditionalGeneration,
@@ -874,15 +909,24 @@ def greedy_generate(
     forced_ids: Sequence[int],
     max_length: int,
     eos_id: int,
+    suppress_ids: Sequence[int] | torch.Tensor | None = None,
+    timestamps: bool = False,
+    timestamp_begin: int | None = None,
 ) -> torch.Tensor:
     """Greedy decoding.
 
     Args:
         input_features: (B, T_mel, mels).
-        forced_ids: the decoder prompt, ``[sot, lang, task, notimestamps]``,
-            teacher-forced before free decoding starts.
+        forced_ids: the decoder prompt, ``[sot, lang, task, notimestamps]``
+            (without ``notimestamps`` for timestamps), teacher-forced before
+            free decoding starts.
         max_length: total output length including the prompt.
         eos_id: end-of-text id; finished rows keep emitting it.
+        suppress_ids: optional token ids never to emit, set to -inf in the raw
+            logits (the reference clears the HF defaults, so None matches).
+        timestamps: hold the raw logits to the timestamp grammar
+            (``apply_timestamp_rules``) before the argmax.
+        timestamp_begin: id of ``<|0.00|>`` when ``timestamps``.
 
     Returns:
         (B, max_length) int32 ids, prompt included, EOS-padded, on the
@@ -893,6 +937,7 @@ def greedy_generate(
     B = input_features.shape[0]
     forced = [int(t) for t in forced_ids]
     n_forced = len(forced)
+    suppress = None if suppress_ids is None else torch.as_tensor(suppress_ids, device=dev).long()
     encoder_out = encode(model, input_features)
     cross_kv = precompute_cross_kv(model, encoder_out)
     del encoder_out
@@ -914,6 +959,11 @@ def greedy_generate(
             if pos + 1 < n_forced:  # inside the prompt the next id is forced
                 next_token = torch.full_like(tokens, forced[pos + 1])
             else:
+                if suppress is not None:
+                    logits[:, suppress] = -torch.inf
+                if timestamps:
+                    logits = apply_timestamp_rules(logits, buffer, pos, n_forced,
+                                                   timestamp_begin, eos_id)
                 next_token = logits.argmax(dim=-1)
             next_token = torch.where(finished, eos_id, next_token)
             finished |= next_token == eos_id
@@ -921,6 +971,90 @@ def greedy_generate(
             tokens = next_token
             pos += 1
     return buffer
+
+
+# --------------------------------------------------------------------------------
+# Timestamp decoding rules (HF WhisperTimeStampLogitsProcessor semantics)
+# --------------------------------------------------------------------------------
+
+
+def apply_timestamp_rules(
+    logits: torch.Tensor,
+    buffer: torch.Tensor,
+    pos: int,
+    n_forced: int,
+    timestamp_begin: int,
+    eos_id: int,
+    max_initial_index: int = 50,
+) -> torch.Tensor:
+    """Constrain next-token logits to Whisper's timestamp grammar.
+
+    The HF/openai-whisper timestamp logits processor: timestamps open every
+    segment and come in non-decreasing pairs, ``<|notimestamps|>`` is never
+    emitted, the first timestamp is clamped to ``max_initial_index`` (1 s by
+    default), and where the probability mass on timestamps beats the best
+    text token the next token must be a timestamp. Masked entries take -1e30
+    in the logits' dtype.
+
+    Args:
+        logits: (N, V) next-token logits (position ``pos + 1``).
+        buffer: (N, L) token buffer filled up to ``pos`` inclusive.
+        pos: the current position.
+        n_forced: prompt length (the grammar starts after it).
+        timestamp_begin: id of ``<|0.00|>``.
+        eos_id: end-of-text id (ids below it are text).
+        max_initial_index: highest timestamp offset allowed first.
+
+    Returns:
+        The masked logits, a new tensor of the same shape.
+    """
+    V = logits.shape[1]
+    L = buffer.shape[1]
+    dev = logits.device
+    neg = torch.tensor(-1e30, dtype=logits.dtype, device=dev)
+    vocab = torch.arange(V, device=dev)
+    is_ts = vocab >= timestamp_begin
+    is_text = vocab < eos_id
+
+    gen_len = pos + 1 - n_forced  # tokens generated so far
+    last = buffer[:, pos]
+    penult = buffer[:, max(pos - 1, 0)]
+    last_was_ts = (last >= timestamp_begin) & (gen_len >= 1)
+    penult_was_ts = (penult >= timestamp_begin) | (gen_len < 2)
+
+    # A completed pair must be followed by text; a lone timestamp only by its
+    # pair (or EOS).
+    suppress_ts = last_was_ts & penult_was_ts
+    force_pair = last_was_ts & ~penult_was_ts
+    logits = torch.where(suppress_ts[:, None] & is_ts, neg, logits)
+    logits = torch.where(force_pair[:, None] & is_text, neg, logits)
+
+    # Timestamps never decrease. Completing a pair allows an equal one, else
+    # the next must be larger. HF cuts at the LAST emitted timestamp (the max
+    # only for grammar-valid prefixes).
+    t = torch.arange(L, device=dev)
+    ts_at = (t >= n_forced) & (t <= pos) & (buffer >= timestamp_begin)
+    last_p = torch.where(ts_at, t, -1).amax(dim=1)  # -1 when none yet
+    last_ts = buffer.gather(1, last_p.clamp(min=0)[:, None])[:, 0]
+    cutoff = torch.where(force_pair, last_ts, last_ts + 1)
+    below = vocab < cutoff[:, None]
+    logits = torch.where((last_p >= 0)[:, None] & is_ts & below, neg, logits)
+
+    # The transcript opens with a timestamp, clamped to max_initial_index.
+    if gen_len == 0:
+        logits = torch.where(~is_ts | (vocab > timestamp_begin + max_initial_index), neg,
+                             logits)
+
+    # <|notimestamps|> is incompatible with timestamp decoding.
+    logits[:, timestamp_begin - 1] = neg
+
+    # Probability-mass rule: timestamps that jointly outweigh the best text
+    # token force a timestamp.
+    logp = _log_softmax(logits)
+    ts_mass = _logsumexp(torch.where(is_ts, logp, -torch.inf))
+    best_text = torch.where(is_ts, -torch.inf, logp).amax(dim=-1)
+    force_ts = ts_mass > best_text
+    return torch.where(force_ts[:, None] & ~is_ts, neg, logits)
 
 
 def segments_from_tokens(
@@ -959,3 +1093,194 @@ def segments_from_tokens(
     if current and start is not None:
         segments.append((start, start, current))
     return segments
+
+
+# --------------------------------------------------------------------------------
+# Beam search generation (beams flattened into the batch axis)
+# --------------------------------------------------------------------------------
+
+
+def beam_slot_mask(anc: torch.Tensor, pos: int, t_b: int) -> torch.Tensor:
+    """The decode self-attention's slot mask from the ancestor chains.
+
+    Beam k of item b may attend slot j at position t iff its history there
+    lives in slot j (``anc[b, k, t] == j``) and t <= pos. Layer-independent,
+    built once a step at the phase's cache length ``t_b``.
+
+    Args:
+        anc: (B, K, max_length) slot of each beam's token at each position.
+
+    Returns:
+        (B, K, K * t_b) fp32, contiguous: ``mask[b, k, j * t_b + t]``.
+    """
+    B, K, _ = anc.shape
+    slots = torch.arange(K, device=anc.device)
+    causal = torch.arange(t_b, device=anc.device) <= pos
+    mask = (anc[:, :, None, :t_b] == slots[None, None, :, None]) & causal
+    return mask.reshape(B, K, K * t_b).float()
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, ...) gathered along axis 1 at idx (B, M): (B, M, ...)."""
+    shape = idx.shape + x.shape[2:]
+    return x.gather(1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape))
+
+
+@torch.inference_mode()
+def beam_generate(
+    model: WhisperForConditionalGeneration,
+    input_features: torch.Tensor,
+    forced_ids: Sequence[int],
+    max_length: int,
+    eos_id: int,
+    num_beams: int = 5,
+    length_penalty: float = 1.0,
+    early_stopping: bool | str = False,
+    timestamps: bool = False,
+    timestamp_begin: int | None = None,
+    suppress_ids: Sequence[int] | torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Beam search, HF ``_beam_search`` step for step, as the JAX ``beam_generate``.
+
+    Log-probs are processed (token suppression, the timestamp grammar) after
+    the softmax without renormalising; 2K candidate continuations are drawn
+    per item; finished hypotheses move to a K-slot store guarded by HF's
+    ``-1e9`` additions; finished scores are normalised by the generated
+    length (prompt excluded, EOS included) ** ``length_penalty``; the loop
+    stops on HF's improvement heuristic (``early_stopping`` False / True /
+    ``"never"``). ``num_beams=1`` is greedy, as HF ``generate`` routes it.
+
+    The KV cache is never reordered: each slot writes its own row at every
+    position, and beams carry ancestor chains of slot indices that the decode
+    self-attention resolves through ``beam_slot_mask``. Everything stays on
+    the device; the stop test reads one host scalar a step.
+
+    Returns:
+        (B, max_length) int32 best sequences, prompt included, EOS-padded.
+    """
+    if num_beams == 1:
+        return greedy_generate(model, input_features, forced_ids, max_length, eos_id,
+                               suppress_ids=suppress_ids, timestamps=timestamps,
+                               timestamp_begin=timestamp_begin)
+    cfg = model.config
+    dev = input_features.device
+    B, K = input_features.shape[0], num_beams
+    K2 = 2 * K  # HF beams_to_keep = max(2, 1 + n_eos_tokens) * num_beams
+    forced = [int(t) for t in forced_ids]
+    n_forced = len(forced)
+    L = max_length
+    suppress = None if suppress_ids is None else torch.as_tensor(suppress_ids, device=dev).long()
+    f32 = torch.float32
+
+    encoder_out = encode(model, input_features)
+    cross_kv = precompute_cross_kv(model, encoder_out)
+    del encoder_out
+    linears = decoder_linears(model)
+    phases = _decode_phases(max_length)
+    cache = init_self_cache(cfg, B * K, phases[0], dev)
+
+    tokens = torch.full((B * K,), forced[0], dtype=torch.int64, device=dev)
+    run_seq = torch.full((B, K, L), eos_id, dtype=torch.int32, device=dev)
+    run_seq[:, :, 0] = forced[0]
+    # Only beam 0 carries probability mass at the start (HF: -1e9 fill).
+    run_scores = torch.full((B, K), -1e9, dtype=f32, device=dev)
+    run_scores[:, 0] = 0.0
+    fin_seq = torch.full((B, K, L), eos_id, dtype=torch.int32, device=dev)
+    fin_scores = torch.full((B, K), -1e9, dtype=f32, device=dev)
+    is_fin = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    unsat = torch.ones((B, 1), dtype=torch.bool, device=dev)  # early-stop heuristic
+    slot_ids = torch.arange(K, dtype=torch.int32, device=dev)
+    anc = slot_ids[None, :, None].expand(B, K, L).contiguous()
+    top_beam_mask = torch.arange(K2, device=dev) < K  # the first K of the 2K
+    # Length-penalty denominators by generated length, and the best case's.
+    lengths = torch.arange(L + 1, dtype=f32, device=dev)
+    denominators = lengths ** float(length_penalty)
+    best_len = (L - n_forced if early_stopping == "never" and length_penalty > 0.0
+                else None)
+
+    pos, go = 0, True
+    for t_b in phases:
+        cache = _pad_cache(cache, t_b)
+        while pos < min(t_b, max_length - 1) and go:
+            onehot = beam_slot_mask(anc, pos, t_b)
+            logits, cache = decode_step(model, tokens, pos, cache, cross_kv, onehot, linears)
+            if pos + 1 < n_forced:
+                tokens = torch.full_like(tokens, forced[pos + 1])
+                run_seq[:, :, pos + 1] = forced[pos + 1]
+                pos += 1
+                continue
+
+            V = logits.shape[1]
+            if timestamps:
+                # The grammar reads the whole distribution (mass over the
+                # timestamp block), so the full log-probs are formed here. HF
+                # processes log-probs, not logits; masks do not renormalise.
+                logp = _log_softmax(logits.float())
+                if suppress is not None:
+                    logp[:, suppress] = -torch.inf
+                logp = apply_timestamp_rules(logp, run_seq.view(B * K, L), pos, n_forced,
+                                             timestamp_begin, eos_id)
+                cand = logp.view(B, K, V) + run_scores[:, :, None]
+                scores2k, flat = _top_k(cand.view(B, K * V), K2)
+                parent, token = flat // V, flat % V
+            else:
+                # The exact two-stage top-k: the global top-2K of logp +
+                # run_score holds at most 2K entries of one beam, and within a
+                # beam the shift is monotone, so a top-2K of each beam's RAW
+                # logits, then one over the K * 2K, is HF's flat top-k. The lse
+                # is over the unsuppressed logits (HF suppresses after the
+                # softmax without renormalising).
+                logits32 = logits.float()
+                lse = _logsumexp(logits32, keepdim=True)
+                if suppress is not None:
+                    logits32 = logits32.index_fill(1, suppress, -torch.inf)
+                vals, idx = _top_k(logits32, K2)  # (B*K, 2K)
+                cand = (vals - lse).view(B, K, K2) + run_scores[:, :, None]
+                scores2k, sel = _top_k(cand.view(B, K * K2), K2)
+                parent = sel // K2
+                token = idx.view(B, K * K2).gather(1, sel)
+            token = token.to(torch.int32)
+
+            seq2k = _rows(run_seq, parent)
+            seq2k[:, :, pos + 1] = token
+            anc2k = _rows(anc, parent)
+
+            # Stopping criteria on all 2K candidates (EOS, max length).
+            hits = (token == eos_id) | (pos + 2 >= max_length)
+
+            # The running beams of the next step: the top K unfinished; the
+            # -1e9 stays folded into the carried scores, as in HF.
+            masked = scores2k + hits.to(f32) * -1e9
+            _, idx_r = _top_k(masked, K)
+            run_seq = _rows(seq2k, idx_r)
+            run_scores = masked.gather(1, idx_r)
+            anc = _rows(anc2k, idx_r)
+            anc[:, :, pos + 1] = slot_ids  # the next step writes each slot's own row
+            tokens = token.gather(1, idx_r).view(B * K).long()
+
+            # The finished store (HF _update_finished_beams).
+            did_fin = hits & top_beam_mask
+            gen_len = pos + 2 - n_forced
+            lp_fin = scores2k / denominators[gen_len]
+            if early_stopping is True:
+                lp_fin = lp_fin + is_fin.all(dim=-1, keepdim=True).to(f32) * -1e9
+            lp_fin = lp_fin + (~unsat).to(f32) * -1e9
+            lp_fin = lp_fin + (~did_fin).to(f32) * -1e9
+            merged_scores = torch.cat([fin_scores, lp_fin], dim=1)
+            fin_scores, idx_f = _top_k(merged_scores, K)
+            fin_seq = _rows(torch.cat([fin_seq, seq2k], dim=1), idx_f)
+            is_fin = torch.cat([is_fin, did_fin], dim=1).gather(1, idx_f)
+
+            # The early-stop heuristic for the next step (HF
+            # _check_early_stop_heuristic at cur_len = pos + 2).
+            best_possible = run_scores[:, :1] / denominators[
+                gen_len if best_len is None else best_len]
+            worst_fin = torch.where(is_fin, fin_scores.amin(dim=1, keepdim=True), -1e9)
+            unsat = unsat & (best_possible > worst_fin).any(dim=-1, keepdim=True)
+            stop = ~unsat.any() | hits.all()
+            if early_stopping is True:
+                stop = stop | is_fin.all()
+            pos += 1
+            go = not bool(stop)  # the step's one host read
+    # The finished store is sorted by score, descending: slot 0 is the best.
+    return fin_seq[:, 0]

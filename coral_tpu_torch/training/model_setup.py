@@ -22,7 +22,8 @@ only for ``pallas`` with the v3 stats and no ``fused_qkv_ln``; false runs the
 v3 attention without in-kernel biases. ``WhisperSetup`` (:440-628):
 ``_infer_arch``, the tokenizer, the model config from the YAML surface with
 the JAX setup's kernel flags and its remat policy by width, the training
-fields, ``init_params``, the greedy ``make_predictor`` and
+fields, ``init_params``, ``make_predictor`` (greedy or beam generation, with
+or without timestamps) and
 ``make_train_step`` (the seq2seq step). ``init_params`` loads the published
 checkpoint that ``pretrained_model_id`` names where one is on disk (a path,
 or the Hugging Face cache; ``model.safetensors`` or ``pytorch_model.bin``),
@@ -31,9 +32,9 @@ and seeds the weights otherwise; Whisper's tokenizer comes from the
 ``vocab.json`` beside the checkpoint. ``Wav2Vec2Setup.make_beam_predictor``
 is the CTC beam search with an n-gram LM (:373-438). What is not ported
 raises ``NotImplementedError`` naming its ROADMAP item rather than running
-something else in silence: Whisper's beam search and timestamps, training on
-more than one device, and in wav2vec2 training the ``dots_saveable`` policy
-and ``remat_feature_encoder: true``. A setup on the card also refuses, before it
+something else in silence: training on more than one device, and in wav2vec2
+training the ``dots_saveable`` policy and ``remat_feature_encoder: true``. A
+setup on the card also refuses, before it
 builds anything, a model width that no kernel on its path was built for
 (``check_kernel_widths``, ROADMAP.md Queue 2 item 3); every config in
 ``config/model/`` passes on every route, ``attention_impl`` pallas, flash
@@ -465,7 +466,8 @@ def _refuse_devices(config: Mapping[str, Any]) -> None:
 
 
 class WhisperSetup:
-    """Whisper seq2seq family: serving (greedy generation) and the train step."""
+    """Whisper seq2seq family: serving (greedy or beam generation, with or
+    without timestamps) and the train step."""
 
     CHUNK_SECONDS = 30  # published checkpoints expect 30 s / 3000 mel frames
 
@@ -574,9 +576,12 @@ class WhisperSetup:
         )
 
     def make_predictor(self, model: W.WhisperForConditionalGeneration) -> WhisperPredictor:
-        """Greedy generation: host batch -> list of transcript strings.
-        ``generation_num_beams`` > 1 and ``return_timestamps`` raise (not
-        ported)."""
+        """Generation: host batch -> list of transcript strings.
+        ``generation_num_beams`` > 1 in the model config takes the beam search
+        (with ``generation_length_penalty``; the reference's
+        ``predict_with_generate`` beam surface, src/coral/whisper.py:214-230),
+        1 greedy; ``return_timestamps`` the timestamp grammar, on the prompt
+        without ``<|notimestamps|>``."""
         from .train_state import make_whisper_generate_step
 
         model_cfg = self.config["model"]
@@ -588,7 +593,9 @@ class WhisperSetup:
             max_length=self.generation_max_length,
             eos_id=self.tokenizer.eos_token_id,
             num_beams=int(model_cfg.get("generation_num_beams", 1)),
+            length_penalty=float(model_cfg.get("generation_length_penalty", 1.0)),
             timestamps=timestamps,
+            timestamp_begin=self.tokenizer.timestamp_begin,
         )
         return WhisperPredictor(model, self.tokenizer, generate)
 

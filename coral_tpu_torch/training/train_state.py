@@ -2,8 +2,8 @@
 
 Port of ``coral_tpu/training/train_state.py`` (``_device_audio`` :28,
 ``TrainState`` :35, ``make_ctc_train_step`` :51-183,
-``make_seq2seq_train_step`` :203-326, and the greedy half of
-``make_whisper_generate_step`` :329-374) for one device. Per microbatch of
+``make_seq2seq_train_step`` :203-326, and ``make_whisper_generate_step``
+:329-374) for one device. Per microbatch of
 the CTC step: the augmentation chain (``augment=True``, ``audio/augment.py``,
 with the background-noise bank when one is given), z-norm, the model in
 training mode, fp32 log-softmax, the CTC loss (sum divided by the microbatch
@@ -283,23 +283,22 @@ def make_whisper_generate_step(
     max_length: int,
     eos_id: int,
     num_beams: int = 1,
+    length_penalty: float = 1.0,
     timestamps: bool = False,
+    timestamp_begin: int | None = None,
 ) -> Callable:
     """The eval forward ``(model, batch) -> (B, max_length) ids``: generation
-    from raw waveforms (peak normalisation, the log-mel frontend, greedy
-    decoding). Beam search and timestamps raise: they are not ported yet."""
+    from raw waveforms (peak normalisation, the log-mel frontend, then
+    decoding). ``num_beams=1`` runs the greedy loop, ``num_beams > 1`` the
+    beam search with ``length_penalty`` (reference surface: HF
+    ``predict_with_generate`` / ``generation_max_length``,
+    src/coral/whisper.py:214-230). ``timestamps`` holds either to the Whisper
+    timestamp grammar from ``timestamp_begin`` (pass the prompt without
+    ``<|notimestamps|>``)."""
     from ..audio.augment import peak_normalize
     from ..audio.mel import log_mel_spectrogram
     from ..models import whisper as W
-    from ..models.wav2vec2 import NOT_PORTED
 
-    if num_beams > 1:
-        raise NotImplementedError(
-            f"beam search (num_beams={num_beams}): "
-            + NOT_PORTED.format("6b (Whisper beam search and timestamps)"))
-    if timestamps:
-        raise NotImplementedError(
-            "timestamps: " + NOT_PORTED.format("6b (Whisper beam search and timestamps)"))
     forced = [int(t) for t in np.asarray(forced_ids)]
 
     @torch.inference_mode()
@@ -308,6 +307,11 @@ def make_whisper_generate_step(
         audio = torch.as_tensor(np.asarray(batch["input_values"])).to(device)
         feats = log_mel_spectrogram(peak_normalize(_device_audio(audio).float()),
                                     n_mels=model_config.num_mel_bins, dtype=model_config.dtype)
-        return W.greedy_generate(model, feats, forced, max_length=max_length, eos_id=eos_id)
+        if num_beams > 1:
+            return W.beam_generate(model, feats, forced, max_length=max_length, eos_id=eos_id,
+                                   num_beams=num_beams, length_penalty=length_penalty,
+                                   timestamps=timestamps, timestamp_begin=timestamp_begin)
+        return W.greedy_generate(model, feats, forced, max_length=max_length, eos_id=eos_id,
+                                 timestamps=timestamps, timestamp_begin=timestamp_begin)
 
     return generate_step

@@ -1301,6 +1301,44 @@ def test_decode_self_kernel_at_partial_beam_groups_matches_plain(cuda, K):
     assert (got[-1].float() - mean).abs().max() <= 1e-5 + 2.0**-8 * mean.abs().max()
 
 
+def test_decode_self_kernel_over_branched_ancestor_chains_matches_plain(cuda):
+    """K = 5 beams of 3 items whose ancestries branch as a beam search's do
+    (each step every beam takes a seeded parent, then writes its own slot),
+    the mask from ``beam_slot_mask`` at two cache phases: 64 slots at position
+    40, then the cache padded to 128 and the chains run on to position 100."""
+    from coral_tpu_torch.models.whisper import _pad_cache, beam_slot_mask
+
+    B, K, H, L, layer = 3, 5, 20, 2, 1
+    rng = np.random.default_rng(11)
+    anc = torch.arange(K, dtype=torch.int32)[None, :, None].repeat(B, 1, 225)
+    cache = (_on(cuda, _np(L, B * K, 64, H * 64, seed=1), torch.bfloat16),
+             _on(cuda, _np(L, B * K, 64, H * 64, seed=2), torch.bfloat16))
+    torch.manual_seed(0)
+    pos = 0
+    for t_b, until in ((64, 40), (128, 100)):
+        if t_b > cache[0].shape[2]:
+            cache = _pad_cache(cache, t_b)
+            cache[0][:, :, 64:].normal_()  # the rows the second phase writes
+            cache[1][:, :, 64:].normal_()
+        while pos < until:
+            parent = torch.from_numpy(rng.integers(0, K, size=(B, K)))
+            anc = anc.gather(1, parent[:, :, None].expand(B, K, 225))
+            anc[:, :, pos + 1] = torch.arange(K, dtype=torch.int32)
+            pos += 1
+        assert len({tuple(a) for a in anc[0, :, : pos + 1].tolist()}) > 1, "no branching"
+        onehot = beam_slot_mask(anc.to(cuda), pos, t_b)
+        assert onehot.shape == (B, K, K * t_b) and onehot.is_contiguous()
+        q = _on(cuda, _np(B * K, H * 64, seed=pos), torch.bfloat16)
+        ck, cv = cache
+        _build.reset_launch_counts()
+        got = decode_attention.decode_self_attention(q, ck, cv, onehot, H, layer)
+        assert _build.launch_counts == {"decode_self_attention": 1}
+        _decode_close(got, decode_attention.decode_self_attention_plain(q, ck, cv, onehot, H,
+                                                                        layer),
+                      _decode_fp32(q, ck.view(L, B, K * t_b, -1), cv.view(L, B, K * t_b, -1),
+                                   onehot, H, layer), cv[layer])
+
+
 def test_decode_wave_is_two_blocks_an_sm(cuda):
     """Both instantiations hold at least two blocks an SM (the K > 1 one at
     its registers), so a call may launch two an SM: the wave that

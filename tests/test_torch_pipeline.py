@@ -174,15 +174,6 @@ def test_saved_model_directory_is_rejected(tmp_path):
         load_saved_predictor({"model_id": str(tmp_path)}, device="cpu")
 
 
-def test_whisper_and_beam_search_are_rejected(offline_hub):
-    """Whisper serves greedily; its beam search raises."""
-    whisper = port_setup.load_model_setup(
-        {"model": {"type": "whisper", "architecture": "tiny_test", "generation_num_beams": 5}},
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Whisper beam search"):
-        whisper.make_predictor(whisper.init_params(seed=0))
-
-
 @pytest.mark.parametrize("flag,value", [("encoder_ln_impl", "xla"), ("fused_fe_conv", False)])
 def test_off_default_kernel_flags_are_rejected(flag, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
@@ -235,7 +226,9 @@ new = {"coral_tpu_torch.ops.ctc", "coral_tpu_torch.ops.philox",
        "coral_tpu_torch.ops.gelu_dropout", "coral_tpu_torch.tools",
        "coral_tpu_torch.tools.probe_fe_bwd", "coral_tpu_torch.tools.probe_gelu_cost",
        "coral_tpu_torch.tools.probe_lane_reduce", "coral_tpu_torch.decoding",
-       "coral_tpu_torch.models.safetensors_io"}
+       "coral_tpu_torch.models.safetensors_io", "coral_tpu_torch.text.normalization",
+       "coral_tpu_torch.text.numerals", "coral_tpu_torch.evaluation.metrics",
+       "coral_tpu_torch.evaluation.eval_loop"}
 assert new <= set(names), new - set(names)
 print(len(names))
 """
