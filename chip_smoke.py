@@ -18,9 +18,11 @@ the seq2seq train step of ``WhisperSetup.make_train_step`` (8 clips of 6-10 s
 padded to 30 s, 2 accumulation microbatches); XLS-R-2B's production
 fine-tune and serving at full width and depth (48 layers, d 1920, 16 heads x
 120); XLS-R-1B (d 1280, 16 x 80), whisper-small, -base and -tiny at full
-width, each served and trained; and the production fine-tune's kernel routes
-off the defaults. It runs in phases; any failing phase exits
-non-zero before the result line is printed:
+width, each served and trained; the production fine-tune's kernel routes
+off the defaults; and fine-tuning through the port's loop (``finetune``:
+the config composer, the data pipeline, checkpoints, resume, evaluation and
+the saved model served), wav2vec2-small and whisper-small. It runs in
+phases; any failing phase exits non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
    (nvidia-smi), torch, CUDA and nvcc versions are printed;
@@ -232,7 +234,26 @@ non-zero before the result line is printed:
    predictor, the kernel path against the plain path on one microbatch at
    activation dropout 0.1 (24 of the 48 layers), 2 steps at full depth, each
    with exact launch counts and its ms per step beside (g)'s and (f)'s;
-20. a JSON line with every kernel (its launches summed over the counted runs
+20. fine-tuning through the port's loop (w): ``compose("asr_finetuning")``
+   with config/model/wav2vec2-small.yaml (``model.use_decoder=false``), the
+   ``synthetic://`` data source, 2 x 8 clips a step and an eval pass and a
+   checkpoint every 2 steps, then three runs of ``finetune``: A to step 2, B
+   resuming A to step 4 (steps 3-4 traced through ``profile_step``), C
+   straight to step 4; each with exact launch counts (the production step's
+   a step, the serving forward's a batch of each eval pass) and its
+   checkpoint steps, best and latest step against orbax's rule; B's batches
+   at steps 3-4 (their hashes) and losses against C's, the masters' max|diff|
+   after step 4; C's saved directory through ``load_saved_predictor`` on the
+   serving clips, the strings (and logits) of a predictor on C's final state;
+   the loop's step against the bare train step on one of C's batches, the
+   device busy share of B's traced steps, audio-s/s and infeed MB a step, the
+   eval pass, and the train state's checkpoint: GB, host snapshot, write and
+   restore ms; (w') the same loop on config/model/whisper-small.yaml (max_length
+   32) to step 2 with one eval pass over 8 clips: exact launch counts (the
+   train step's, the eval generation's encoder and decode steps), the saved
+   directory served with the in-memory predictor's strings and ids, the
+   loop's step against the bare step;
+21. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths; the probes' 0), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -804,7 +825,10 @@ STEP_MS: dict = {}
 
 
 def fail(msg: str) -> None:
+    """Prints the failure on both streams (a caller that keeps only the
+    errors' tail still sees which check failed) and exits 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -982,6 +1006,48 @@ def device_kernels(fn) -> list[str]:
         if names:
             return names
     return names
+
+
+def graph_device_nodes(fn) -> int:
+    """The device work of one call of ``fn`` (after one call outside it)
+    captured into a CUDA graph: its kernel, memcpy and memset nodes, read
+    through `libcuda` (`cuGraphGetNodes`). It needs no profiler."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes could not count a captured call's nodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes[: n.value]:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    del graph
+    # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET
+    return sum(kind in (0, 1, 2) for kind in kinds)
+
+
+def one_kernel_a_call(name: str, fn) -> list[str]:
+    """Fails unless one call of ``fn`` launches one device kernel, counted
+    twice: by the profiler (``device_kernels``; on the card it at times
+    records nothing of any window, and then gives no count) and by the
+    nodes of the call captured into a CUDA graph (``graph_device_nodes``).
+    Returns the profiler's kernel names."""
+    kernels = device_kernels(fn)
+    nodes = graph_device_nodes(fn)
+    if kernels and len(kernels) != 1:
+        fail(f"{name} launched {len(kernels)} device kernels a call, not 1")
+    if nodes != 1:
+        fail(f"{name}: a captured call holds {nodes} kernel, memcpy or memset nodes, not 1")
+    return kernels
 
 
 def ln_training_pattern(card: str, randn) -> dict:
@@ -1898,19 +1964,17 @@ def training_run(card: str) -> dict:
 
 
 def decode_launch_path(card: str, calls: dict, host_calls: int = 1000) -> None:
-    """Each decode wrapper at the rows' shapes: its device kernels a call by the
-    profiler (fails unless 1: the key split is combined inside the kernel's
-    cluster) and its host microseconds a call over ``host_calls`` calls with
+    """Each decode wrapper at the rows' shapes: its device kernels a call
+    (``one_kernel_a_call``: fails unless 1, the key split combined inside the
+    kernel's cluster) and its host microseconds a call over ``host_calls`` calls with
     no synchronise between them."""
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.tools.probe_ln_host import per_call_us
 
     for name, fn in calls.items():
-        kernels = device_kernels(fn)
-        print(f"  {name}: {len(kernels)} device kernel(s) a call: "
-              f"{', '.join(k[:60] for k in kernels)}", flush=True)
-        if len(kernels) != 1:
-            fail(f"{name} launched {len(kernels)} device kernels a call, not 1")
+        kernels = one_kernel_a_call(name, fn)
+        print(f"  {name}: {len(kernels)} device kernel(s) a call by the profiler: "
+              f"{', '.join(k[:60] for k in kernels)}; 1 node a captured call", flush=True)
     parts = [f"{name} {per_call_us(fn, host_calls):.2f}" for name, fn in calls.items()]
     print(f"  decode wrappers' host path, us a call over {host_calls} calls, no synchronise "
           f"between them ({card}): " + "; ".join(parts), flush=True)
@@ -1949,8 +2013,8 @@ def conv_yardstick(card: str, name: str, fn, what: str) -> None:
 def ffn_launch_path(card: str, randn, host_calls: int = 1000) -> None:
     """``ffn_ln_fc1_fwd`` and ``ffn_bwd`` at D 1280, F 5120 on 16 rows: each
     wrapper's device kernels a call by the profiler (the forward must launch
-    1) and its microseconds a call over ``host_calls`` calls with no
-    synchronise between them (the tensor maps of the weights kept, the
+    1, ``one_kernel_a_call``) and its microseconds a call over ``host_calls``
+    calls with no synchronise between them (the tensor maps of the weights kept, the
     activations' encoded each call). The forward's is its host path; the
     backward's dl kernel walks all of K = F in one block a column tile, so
     its figure is the device's at that shape."""
@@ -1965,11 +2029,10 @@ def ffn_launch_path(card: str, randn, host_calls: int = 1000) -> None:
     calls = {"ffn_ln_fc1_fwd": lambda: ffn.ffn_ln_fc1_fwd(x, w1, b1, g, b),
              "ffn_bwd": lambda: ffn.ffn_bwd(x, w1, b1, g, b, dy, w2)}
     for name, fn in calls.items():
-        kernels = device_kernels(fn)
-        print(f"  {name} at 1280 x 5120: {len(kernels)} device kernel(s) a call: "
-              f"{', '.join(k[:48] for k in kernels)}", flush=True)
-        if name == "ffn_ln_fc1_fwd" and len(kernels) != 1:
-            fail(f"{name} launched {len(kernels)} device kernels a call, not 1")
+        kernels = one_kernel_a_call(name, fn) if name == "ffn_ln_fc1_fwd" else device_kernels(fn)
+        print(f"  {name} at 1280 x 5120: {len(kernels)} device kernel(s) a call by the "
+              f"profiler: {', '.join(k[:48] for k in kernels)}"
+              f"{'; 1 node a captured call' if name == 'ffn_ln_fc1_fwd' else ''}", flush=True)
     parts = [f"{name} {per_call_us(fn, host_calls):.2f}" for name, fn in calls.items()]
     print(f"  FFN wrappers at 1280 x 5120, 16 rows, us a call over {host_calls} "
           f"calls, no synchronise between them ({card}): " + "; ".join(parts), flush=True)
@@ -4961,6 +5024,398 @@ def route_run(card: str, label: str, config: dict, route: str, steps: int,
     return dict(counts)
 
 
+# Phases (w) and (w'): fine-tuning through the port's loop. `compose` gives
+# asr_finetuning.yaml with these overrides (the synthetic source offline, A =
+# 2 as (c) runs, a checkpoint and an eval every 2 steps); (w) runs
+# wav2vec2-small.yaml with `model.use_decoder=false` (its n-gram decoder is
+# ROADMAP Queue 1 item 7(e)), (w') whisper-small.yaml with max_length 32 (cut
+# from 225) and 8 eval clips.
+FINETUNE_OVERRIDES = [
+    "datasets=[synthetic]", "enable_experiment_tracking=false", "per_device_batch_size=8",
+    "total_batch_size=16", "warmup_steps=2", "logging_steps=1", "eval_steps=2",
+    "save_steps=2", "save_total_limit=1"]
+FINETUNE_VAL_CLIPS = 16
+WHISPER_FINETUNE_VAL_CLIPS = 8
+WHISPER_FINETUNE_MAX_LENGTH = 32
+# B resumes A (2 steps) to 4; C runs 4 straight. B's losses at steps 3-4
+# within this of C's (cuDNN's positional-conv backward need not be
+# deterministic on the card, so the masters are printed, not held).
+RESUME_LOSS_RTOL = 1e-2
+BARE_STEPS = 5
+
+
+class LoopSpy:
+    """For the ``finetune`` runs inside ``with``: wraps what the loop builds.
+    The setup's train step keeps the last state and each step's batch (and
+    the masters, flattened on the device, after step ``keep_step``); the
+    infeed's ``put_fn`` hashes each host batch, in the order the loop takes
+    them (the batches skipped on a resume are never put); the tracker keeps
+    each logged step's metrics and the host time of its log (the loss read
+    synchronises it)."""
+
+    def __init__(self, keep_step: int | None = None) -> None:
+        self.keep_step, self.kept = keep_step, None
+        self.hashes, self.logs, self.times, self.batches = [], {}, {}, {}
+        self.setup = self.step_fn = self.state = None
+
+    def __enter__(self):
+        import hashlib
+        import importlib
+
+        from coral_tpu_torch.tracking import TrackingSetup
+
+        ft = self.ft = importlib.import_module("coral_tpu_torch.training.finetune")
+        self._orig = (ft.load_model_setup, ft.device_put_fn, ft.load_tracking_setup)
+        spy = self
+
+        def load_model_setup(config, is_main=True, device="cuda"):
+            setup = spy._orig[0](config, is_main=is_main, device=device)
+            make = setup.make_train_step
+
+            def make_train_step(tx, schedule):
+                step = spy.step_fn = make(tx, schedule)
+
+                def wrapped(state, batch, generator):
+                    spy.state, spy.batches[state.step + 1] = state, batch
+                    out = step(state, batch, generator)
+                    if state.step == spy.keep_step:
+                        spy.kept = torch.cat([p.reshape(-1) for p in state.params.values()])
+                    return out
+
+                return wrapped
+
+            setup.make_train_step = make_train_step
+            spy.setup = setup
+            return setup
+
+        def device_put_fn(device):
+            put = spy._orig[1](device)
+
+            def hashed(batch):
+                digest = hashlib.blake2b(digest_size=8)
+                for key in sorted(batch):
+                    digest.update(np.ascontiguousarray(batch[key]).tobytes())
+                spy.hashes.append(digest.hexdigest())
+                return put(batch)
+
+            return hashed
+
+        class Tracker(TrackingSetup):
+            def run_initialization(self):
+                pass
+
+            def log_metrics(self, metrics, step):
+                if "loss" in metrics:
+                    spy.times[step] = time.perf_counter()
+                else:
+                    spy.times[f"val {step}"] = time.perf_counter()
+                spy.logs.setdefault(step, {}).update(metrics)
+
+            def run_finalization(self):
+                pass
+
+        ft.load_model_setup, ft.device_put_fn = load_model_setup, device_put_fn
+        ft.load_tracking_setup = Tracker
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ft.load_model_setup, self.ft.device_put_fn, self.ft.load_tracking_setup = self._orig
+
+    def step_ms(self, step: int) -> float:
+        """Host ms from step - 1's loss read to step's (an eval pass and a
+        save at step - 1 fall inside)."""
+        return (self.times[step] - self.times[step - 1]) * 1e3
+
+    def eval_ms(self, step: int) -> float:
+        """Host ms from step's loss read to its eval pass's log."""
+        return (self.times[f"val {step}"] - self.times[step]) * 1e3
+
+    def release(self) -> None:
+        self.setup = self.step_fn = self.state = None
+        self.batches.clear()
+
+
+def trace_busy_share(path: Path) -> tuple[float, float, int]:
+    """(device busy ms, window ms, kernels) of a Chrome trace that
+    ``finetune``'s ``profile_step`` wrote: the union of the kernels' intervals
+    over the span of every event."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                     if e.get("cat") == "kernel")
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+              - min(float(e["ts"]) for e in events)) / 1e3
+    busy, end = 0.0, -math.inf
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, window, len(kernels)
+
+
+def bare_step_ms(spy: LoopSpy, reps: int, step: int) -> float:
+    """The median host ms of ``reps`` bare train steps on the loop's state
+    and the batch of its step ``step``, each synchronised by its loss read."""
+    from coral_tpu_torch.training.finetune import step_generator
+
+    walls = []
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        spy.state, metrics = spy.step_fn(spy.state, spy.batches[step],
+                                         step_generator(0, rep, torch.device("cuda")))
+        float(metrics["loss"])
+        walls.append(time.perf_counter() - start)
+    return float(np.median(walls)) * 1e3
+
+
+def saved_model_strings(card: str, label: str, spy: LoopSpy, model_dir: Path, clips: list
+                        ) -> int:
+    """``load_saved_predictor`` on the loop's saved directory against a
+    predictor on the loop's final in-memory state (the model pointed at its
+    fp32 masters): the same strings on ``clips`` in batches of 8, or fail.
+    Returns the clips served."""
+    from coral_tpu_torch.evaluation.eval_loop import batch_for_eval
+    from coral_tpu_torch.evaluation.evaluate import load_saved_predictor
+    from coral_tpu_torch.training.train_state import _load_work_params
+
+    start = time.perf_counter()
+    saved, geometry = load_saved_predictor({"model_id": str(model_dir), "sampling_rate": SR},
+                                           device="cuda")
+    load_s = time.perf_counter() - start
+    _load_work_params(spy.state.model, spy.state.params, None)
+    spy.state.model.eval()
+    live = spy.setup.make_predictor(spy.state.model)
+    samples = [{"audio_array": c, "text": ""} for c in clips]
+    got, want, same = [], [], []
+    for batch, texts in batch_for_eval(samples, BATCH, **geometry):
+        got += saved(batch)[: len(texts)]
+        want += live(batch)[: len(texts)]
+        # Under the strings: Whisper's generated ids, wav2vec2's logits.
+        if hasattr(saved, "generate"):
+            same.append(torch.equal(saved.generate(saved.model, batch),
+                                    live.generate(live.model, batch)))
+        else:
+            same.append(torch.equal(saved.logits(batch)[0], live.logits(batch)[0]))
+    print(f"{label} served from the saved directory (load_saved_predictor, {load_s:.2f} s to "
+          f"load): {len(got)} clips, the in-memory predictor's strings: {got == want}, "
+          f"{'ids' if hasattr(saved, 'generate') else 'logits'} bit for bit: {all(same)}; "
+          f"first {got[0][:40]!r} ({card})", flush=True)
+    if got != want or not all(same) or len(got) != len(clips):
+        fail(f"{label}: the saved model's strings differ from the loop's in-memory predictor's")
+    del saved, live
+    return len(got)
+
+
+def finetune_run(card: str) -> dict:
+    """Phase (w): three runs of ``finetune`` on wav2vec2-small.yaml, composed
+    by the port's ``compose``: A to step 2, B resuming A to step 4 (steps 3-4
+    profiled through ``profile_step``), C straight to step 4. Exact launch
+    counts (the train step's (c) counts a step, the serving forward's a
+    batch of each eval pass), the resume (B's batches at steps 3-4 are C's,
+    its losses within RESUME_LOSS_RTOL, the masters' max|diff|), the
+    retention by orbax's rule after each run, the saved directory served with
+    the in-memory predictor's strings, and the timings; returns the launch
+    counts of the three runs."""
+    import shutil
+    import tempfile
+
+    from coral_tpu_torch.config import compose
+    from coral_tpu_torch.ops import _build
+    from coral_tpu_torch.training.checkpoint import Checkpointer
+    from coral_tpu_torch.training.finetune import finetune
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_w_"))
+    val = f"synthetic://{FINETUNE_VAL_CLIPS}"
+    overrides = ["model=wav2vec2-small", "model.use_decoder=false", *FINETUNE_OVERRIDES,
+                 f"evaluation_datasets=[{{id: {val}, val_name: val}}]"]
+    metric = f"val_{FINETUNE_VAL_CLIPS}_cer"
+    eval_batches = -(-FINETUNE_VAL_CLIPS // BATCH)
+    total: collections.Counter = collections.Counter()
+    spies = {}
+    try:
+        # (label, directory, overrides, the steps it trains, eval passes)
+        for label, run_dir, extra, trained, evals in (
+                ("A", "ab", ["max_steps=2"], [1, 2], 1),
+                ("B", "ab", ["max_steps=4", "resume_from_checkpoint=true", "profile_step=2",
+                             "profile_num_steps=2"], [3, 4], 1),
+                ("C", "c", ["max_steps=4"], [1, 2, 3, 4], 2)):
+            steps = len(trained)
+            config = compose("asr_finetuning",
+                             overrides=overrides + [f"model_dir={tmp / run_dir}", *extra])
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            with LoopSpy(keep_step=4) as spy:
+                start = time.perf_counter()
+                history = finetune(config, device="cuda")
+                wall = time.perf_counter() - start
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            cfg = spy.setup.model_config
+            if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype) != (1024, 24, torch.bfloat16):
+                fail(f"(w) {label}: the loop did not build XLS-R-300M in bf16")
+            serve = w2v2_forward_launches(cfg)
+            expected = {k: PRODUCTION_PER_MICROBATCH.get(k, 0) * ACCUM * steps
+                        + serve.get(k, 0) * eval_batches * evals
+                        for k in {*PRODUCTION_PER_MICROBATCH, *serve}}
+            losses = {s: round(m["loss"], 4) for s, m in sorted(spy.logs.items()) if "loss" in m}
+            cers = {s: m[metric] for s, m in sorted(spy.logs.items()) if metric in m}
+            print(f"(w) run {label} ({config.model.name}, hidden {cfg.hidden_size}, "
+                  f"{cfg.num_hidden_layers} layers, A {ACCUM} x {BATCH}): {wall:.2f} s, losses "
+                  f"{losses}, eval CER {cers}, launch counts {counts}", flush=True)
+            if counts != expected:
+                fail(f"(w) run {label}: launch counts {counts}, expected {expected} ({steps} "
+                     f"steps, {evals} eval passes of {eval_batches} batches)")
+            if sorted(losses) != trained or not all(map(math.isfinite, losses.values())):
+                fail(f"(w) run {label}: logged steps {sorted(losses)} or a loss not finite")
+            total.update(counts)
+            # Retention: one kept (save_total_limit 1), every save with
+            # metrics: the least CER, the later of equals, is kept, best and
+            # latest.
+            ckpt = Checkpointer(tmp / run_dir / "checkpoints", 1, metric)
+            every = {**(spies["A"].cers if label == "B" else {}), **cers}
+            keep = min(every, key=lambda s: (every[s], -s))
+            got = (ckpt.all_steps(), ckpt.best_step(), ckpt.latest_step())
+            print(f"(w) run {label} checkpoints: steps {got[0]}, best {got[1]}, latest {got[2]} "
+                  f"(orbax's rule, max_to_keep 1, min of {metric}: {[keep], keep, keep}); "
+                  f"history {({k: float(f'{v:.6g}') for k, v in history.items()})}", flush=True)
+            if got != ([keep], keep, keep):
+                fail(f"(w) run {label}: checkpoints {got}, orbax's rule gives {keep}")
+            spy.cers, spy.wall = cers, wall
+            spies[label] = spy
+            if label != "C":
+                spy.release()
+        a, b, c = spies["A"], spies["B"], spies["C"]
+        # Resume: B's steps 3-4 took C's batches 3-4, and their losses.
+        same_batches = b.hashes[:2] == c.hashes[2:4]
+        rel = [abs(b.logs[s]["loss"] - c.logs[s]["loss"]) / abs(c.logs[s]["loss"])
+               for s in (3, 4)]
+        diff = float((b.kept - c.kept).abs().max())
+        print(f"(w) resume ({card}): B's batches at steps 3-4 are C's: {same_batches} (blake2b "
+              f"{b.hashes[:2]} / {c.hashes[2:4]}); A's at 1-2 C's: {a.hashes[:2] == c.hashes[:2]}; "
+              f"losses at 3-4 B {[b.logs[s]['loss'] for s in (3, 4)]} C "
+              f"{[c.logs[s]['loss'] for s in (3, 4)]} (rel {[f'{r:.3g}' for r in rel]}, "
+              f"tolerance {RESUME_LOSS_RTOL}); masters after step 4 max|B - C| {diff:.6g} "
+              f"(max|C| {float(c.kept.abs().max()):.6g})", flush=True)
+        if not (same_batches and a.hashes[:2] == c.hashes[:2]
+                and max(rel) <= RESUME_LOSS_RTOL and math.isfinite(diff)):
+            fail("(w): the resumed run did not take the straight run's batches and losses")
+        b.kept = c.kept = None
+        busy, window, kernels = trace_busy_share(next((tmp / "ab" / "profile").glob("*.json")))
+        clips = serving_clips(30 * SR)[0]
+        saved_model_strings(card, "(w)", c, tmp / "c", clips)
+        c.state.model.train()
+        loop_ms = [c.step_ms(s) for s in (2, 3, 4)]
+        loop = float(np.median(loop_ms))
+        bare, bare2 = bare_step_ms(c, BARE_STEPS, 4), bare_step_ms(c, BARE_STEPS, 2)
+        logs = [c.logs[s] for s in (2, 3, 4)]
+        print(f"(w) loop vs bare step ({card}): the loop's step {loop:.3f} ms (median of C's "
+              f"steps 2-4: {', '.join(f'{v:.3f}' for v in loop_ms)}; step 3 holds step 2's "
+              f"eval pass and save, step 4 runs while step 2's checkpoint is written), the bare "
+              f"train step on C's last batch {bare:.3f} ms (median of {BARE_STEPS}): ratio "
+              f"{loop / bare:.4f}; step by step on the same batch: step 2 (no eval, save or "
+              f"write in its window) {loop_ms[0] / bare2:.4f}x its bare {bare2:.3f} ms, step 4 "
+              f"{loop_ms[2] / bare:.4f}x; device busy "
+              f"{busy:.3f} ms of a {window:.3f} ms window of B's steps 3-4 ({kernels} kernels, "
+              f"profile_step 2, profiler on): busy share {busy / window:.4f}; "
+              f"audio_seconds_per_second {[round(m['audio_seconds_per_second'], 3) for m in logs]}"
+              f", infeed_mb_per_step {[round(m['infeed_mb_per_step'], 4) for m in logs]}; eval "
+              f"pass ({FINETUNE_VAL_CLIPS} clips, {eval_batches} batches) "
+              f"{c.eval_ms(2):.3f} / {c.eval_ms(4):.3f} ms at steps 2 / 4", flush=True)
+        ckpt = Checkpointer(tmp / "timing", 1)
+        ckpt.save(1, c.state)
+        ckpt.wait()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ckpt.restore(c.state, 1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+        print(f"(w) checkpoint of the train state ({card}): {ckpt.saved_bytes / 1e9:.3f} GB "
+              f"(fp32 masters, fp32 second moment, bf16 first moment), host snapshot "
+              f"{ckpt.snapshot_seconds * 1e3:.3f} ms, write {ckpt.write_seconds * 1e3:.3f} ms "
+              f"(background thread, torch.save then rename), restore "
+              f"{restore_s * 1e3:.3f} ms (read warm from the page cache, copied in place)",
+              flush=True)
+        ckpt.close()
+    finally:
+        spies.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"(w) done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(total)
+
+
+def whisper_finetune_run(card: str) -> dict:
+    """Phase (w'): ``finetune`` on whisper-small.yaml (12 + 12 layers, d 768)
+    to step 2 with one eval pass over WHISPER_FINETUNE_VAL_CLIPS clips:
+    exact launch counts (the train step's a step, the encoder's and each
+    decode step's in the eval's generation), the saved directory served with
+    the in-memory predictor's strings, the loop's step ms against the bare
+    step's; returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from coral_tpu_torch.config import compose
+    from coral_tpu_torch.ops import _build, ln_gelu
+    from coral_tpu_torch.training.finetune import finetune
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_w2_"))
+    val = f"synthetic://{WHISPER_FINETUNE_VAL_CLIPS}"
+    overrides = ["model=whisper-small", f"model.max_length={WHISPER_FINETUNE_MAX_LENGTH}",
+                 *FINETUNE_OVERRIDES, f"evaluation_datasets=[{{id: {val}, val_name: val}}]",
+                 "max_steps=2", f"model_dir={tmp / 'run'}"]
+    try:
+        config = compose("asr_finetuning", overrides=overrides)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with LoopSpy() as spy, DecodeSpy() as decode:
+            start = time.perf_counter()
+            finetune(config, device="cuda")
+            wall = time.perf_counter() - start
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        cfg = spy.setup.model_config
+        D, Le, Ld = cfg.d_model, cfg.encoder_layers, cfg.decoder_layers
+        if (D, Le, Ld, cfg.dtype) != (768, 12, 12, torch.bfloat16):
+            fail("(w'): the loop did not build whisper-small in bf16")
+        serve_fwd, train_fwd, bwd = block_kernels(cfg, D)
+        per_step = {"flash_attention_train": Le, "flash_attention_bwd_dkv": Le,
+                    "flash_attention_bwd_dq": Le, train_fwd: Le + Ld, bwd: Le + Ld,
+                    ln_gelu._name("ln_bwd", D): Le + Ld}
+        batches = -(-WHISPER_FINETUNE_VAL_CLIPS // BATCH)
+        evals = {"flash_attention": Le * batches, serve_fwd: Le * batches,
+                 "decode_self_attention": Ld * decode.steps,
+                 "decode_cross_attention": Ld * decode.steps}
+        expected = {k: per_step.get(k, 0) * ACCUM * 2 + evals.get(k, 0)
+                    for k in {*per_step, *evals}}
+        losses = {s: round(m["loss"], 4) for s, m in sorted(spy.logs.items()) if "loss" in m}
+        print(f"(w') {config.model.name} (d {D}, {Le} + {Ld} layers, max_length "
+              f"{WHISPER_FINETUNE_MAX_LENGTH}, A {ACCUM} x {BATCH} x 30 s): {wall:.2f} s, losses "
+              f"{losses}, eval {spy.logs.get(2, {}).get(f'val_{WHISPER_FINETUNE_VAL_CLIPS}_cer')} "
+              f"CER over {decode.steps} decode steps, launch counts {counts}", flush=True)
+        if counts != expected:
+            fail(f"(w'): launch counts {counts}, expected {expected}")
+        if sorted(losses) != [1, 2] or not all(map(math.isfinite, losses.values())):
+            fail("(w'): a loss not finite, or steps missing")
+        clips = serving_clips(30 * SR)[0][-BATCH:]
+        saved_model_strings(card, "(w')", spy, tmp / "run", clips)
+        spy.state.model.train()
+        loop = spy.step_ms(2)
+        bare = bare_step_ms(spy, 3, 2)
+        print(f"(w') loop vs bare step ({card}): the loop's step 2 {loop:.3f} ms, the bare "
+              f"train step on its last batch {bare:.3f} ms (median of 3): ratio "
+              f"{loop / bare:.4f}; eval pass ({WHISPER_FINETUNE_VAL_CLIPS} clips, "
+              f"{decode.steps} decode steps) {spy.eval_ms(2):.3f} ms", flush=True)
+        spy.release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"(w') done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     t0 = time.perf_counter()
 
@@ -5158,6 +5613,12 @@ def main() -> int:
     main_counts.append(route_run(card, "(s')", FLASH_2B_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1, True,
                                  arch=(1920, 48), compare_layers=XLSR_2B_COMPARE_LAYERS))
     mark("(s') XLS-R-2B, attention_impl: flash")
+    # (w), (w'): fine-tuning through the port's loop (finetune), composed by
+    # its config composer.
+    main_counts.append(finetune_run(card))
+    mark("(w) finetune: wav2vec2-small, resume, saved model served")
+    main_counts.append(whisper_finetune_run(card))
+    mark("(w') finetune: whisper-small, saved model served")
     for label, base in (("(p)", "(c)"), ("(p')", "(c)"),
                         *((phase[0], "(c)") for phase in VARIANT_PHASES),
                         ("(s)", "(g)"), ("(s')", "(f)")):

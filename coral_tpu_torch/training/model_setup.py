@@ -333,6 +333,9 @@ class Wav2Vec2Setup:
                 "or nothing_saveable with the stats variants."
             )
         self.audio_pad_seconds = float(config["max_seconds_per_example"])
+        # The batcher's geometry, as the JAX setup gives it (finetune.py).
+        self.force_single_bucket = False
+        self.max_label_length = self.tokenizer.model_max_length
         self._ckpt = _find_local_checkpoint(model_cfg.get("pretrained_model_id"))
         if self._ckpt is None and is_main and model_cfg.get("pretrained_model_id"):
             logger.warning(
@@ -353,17 +356,18 @@ class Wav2Vec2Setup:
                 return factory
         return Wav2Vec2Config.xls_r_300m
 
-    def init_params(self, seed: int = 0) -> Wav2Vec2ForCTC:
+    def init_params(self, seed: int = 0, pretrained: bool = True) -> Wav2Vec2ForCTC:
         """The model on the setup's device, seeded from ``seed``, with the
-        checkpoint's weights loaded where one was found. A checkpoint without
-        ``lm_head`` (a pretraining checkpoint) keeps the seeded CTC head, as
-        ``Wav2Vec2ForCTC.from_pretrained`` initialises it; one whose head has
-        another row count than the tokenizer's vocabulary raises
-        ``ValueError``. The parameters stay fp32."""
+        checkpoint's weights loaded where one was found (unless
+        ``pretrained`` is false: a saved model's weights replace them). A
+        checkpoint without ``lm_head`` (a pretraining checkpoint) keeps the
+        seeded CTC head, as ``Wav2Vec2ForCTC.from_pretrained`` initialises
+        it; one whose head has another row count than the tokenizer's
+        vocabulary raises ``ValueError``. The parameters stay fp32."""
         model = build_model(self.model_config, self.device, seed=seed)
         model.wav2vec2.encoder.gradient_checkpointing = self.gradient_checkpointing
         model.wav2vec2.encoder.remat_policy = self.remat_policy
-        if self._ckpt is not None:
+        if self._ckpt is not None and pretrained:
             if self.is_main:
                 logger.info(f"Loading pretrained weights from {self._ckpt}")
             sd = load_torch_state_dict(self._ckpt)
@@ -520,6 +524,7 @@ class WhisperSetup:
         self.gradient_checkpointing = bool(config.get("gradient_checkpointing", True))
         self.grad_dtype = config.get("grad_dtype", "bfloat16")
         self.audio_pad_seconds = float(model_cfg.get("chunk_seconds", self.CHUNK_SECONDS))
+        self.force_single_bucket = True
         self.chunk_length = int(self.audio_pad_seconds * int(model_cfg.get("sampling_rate",
                                                                            16_000)))
         # Label padding must stay within the decoder's position table.
@@ -541,12 +546,13 @@ class WhisperSetup:
             raise ValueError(f"Unknown whisper architecture {explicit!r}")
         return W.WhisperConfig.small, False
 
-    def init_params(self, seed: int = 0) -> W.WhisperForConditionalGeneration:
+    def init_params(self, seed: int = 0,
+                    pretrained: bool = True) -> W.WhisperForConditionalGeneration:
         """The model on the setup's device, seeded from ``seed``, with the
-        checkpoint's weights loaded where one was found (the parameters stay
-        fp32)."""
+        checkpoint's weights loaded where one was found, unless
+        ``pretrained`` is false (the parameters stay fp32)."""
         model = W.build_model(self.model_config, self.device, seed=seed)
-        if self._ckpt is not None:
+        if self._ckpt is not None and pretrained:
             if self._is_main:
                 logger.info(f"Loading pretrained weights from {self._ckpt}")
             model.load_state_dict(whisper_state_dict_from_hf(

@@ -228,7 +228,13 @@ new = {"coral_tpu_torch.ops.ctc", "coral_tpu_torch.ops.philox",
        "coral_tpu_torch.tools.probe_lane_reduce", "coral_tpu_torch.decoding",
        "coral_tpu_torch.models.safetensors_io", "coral_tpu_torch.text.normalization",
        "coral_tpu_torch.text.numerals", "coral_tpu_torch.evaluation.metrics",
-       "coral_tpu_torch.evaluation.eval_loop"}
+       "coral_tpu_torch.evaluation.eval_loop", "coral_tpu_torch.config",
+       "coral_tpu_torch.data", "coral_tpu_torch.data.synthetic",
+       "coral_tpu_torch.data.interleave", "coral_tpu_torch.data.processing",
+       "coral_tpu_torch.data.loading", "coral_tpu_torch.data.batching",
+       "coral_tpu_torch.tracking", "coral_tpu_torch.utils",
+       "coral_tpu_torch.utils.logging_utils", "coral_tpu_torch.utils.hub",
+       "coral_tpu_torch.training.checkpoint", "coral_tpu_torch.training.finetune"}
 assert new <= set(names), new - set(names)
 print(len(names))
 """
