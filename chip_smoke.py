@@ -21,7 +21,9 @@ fine-tune and serving at full width and depth (48 layers, d 1920, 16 heads x
 width, each served and trained; the production fine-tune's kernel routes
 off the defaults; and fine-tuning through the port's loop (``finetune``:
 the config composer, the data pipeline, checkpoints, resume, evaluation and
-the saved model served), wav2vec2-small and whisper-small. It runs in
+the saved model served), wav2vec2-small and whisper-small, then
+evaluation, validation, the n-gram LM and the demo through ``python -m
+coral_tpu_torch`` on the directories it saved. It runs in
 phases; any failing phase exits non-zero before the result line is printed:
 
 1. a CUDA card is required (no CPU fallback); the card's name and power limit
@@ -253,7 +255,19 @@ phases; any failing phase exits non-zero before the result line is printed:
    train step's, the eval generation's encoder and decode steps), the saved
    directory served with the in-memory predictor's strings and ids, the
    loop's step against the bare step;
-21. a JSON line with every kernel (its launches summed over the counted runs
+21. the port's entry points on those saved directories (x): ``python -m
+   coral_tpu_torch train-ngram`` trains the n-gram LM into (w)'s (synthetic
+   sentences less those of the evaluation set; ARPA and binary at order 3),
+   ``evaluate`` in-process without the LM (exact launch counts; its overall
+   CER/WER those of a fresh predictor's strings), the stream's forward
+   against the LM's host decode, then the ``evaluate`` command with the LM
+   (200 bootstrap samples) and without it (its overall row the in-process
+   one), ``validate`` (its predictions ``add_validations``'s in-process,
+   whose kept and dropped rows add up) and ``demo``'s stdin loop on a 4 s and
+   a 25 s WAV (``make_transcriber``'s lines), the four started together, and
+   Whisper's ``evaluate`` on (w')'s (exact launch counts), with each
+   command's wall seconds;
+22. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths; the probes' 0), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -272,6 +286,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -5207,7 +5222,17 @@ def saved_model_strings(card: str, label: str, spy: LoopSpy, model_dir: Path, cl
     return len(got)
 
 
-def finetune_run(card: str) -> dict:
+def keep_saved_model(run_dir: Path, saved_to: Path | None) -> None:
+    """Move a loop's saved model directory (its checkpoints dropped) to
+    ``saved_to`` for phase (x), if asked."""
+    import shutil
+
+    if saved_to is not None:
+        shutil.rmtree(run_dir / "checkpoints", ignore_errors=True)
+        shutil.move(str(run_dir), str(saved_to))
+
+
+def finetune_run(card: str, saved_to: Path | None = None) -> dict:
     """Phase (w): three runs of ``finetune`` on wav2vec2-small.yaml, composed
     by the port's ``compose``: A to step 2, B resuming A to step 4 (steps 3-4
     profiled through ``profile_step``), C straight to step 4. Exact launch
@@ -5215,8 +5240,9 @@ def finetune_run(card: str) -> dict:
     batch of each eval pass), the resume (B's batches at steps 3-4 are C's,
     its losses within RESUME_LOSS_RTOL, the masters' max|diff|), the
     retention by orbax's rule after each run, the saved directory served with
-    the in-memory predictor's strings, and the timings; returns the launch
-    counts of the three runs."""
+    the in-memory predictor's strings, and the timings; C's saved directory
+    is moved to ``saved_to`` where given; returns the launch counts of the three
+    runs."""
     import shutil
     import tempfile
 
@@ -5338,6 +5364,7 @@ def finetune_run(card: str) -> dict:
               f"{restore_s * 1e3:.3f} ms (read warm from the page cache, copied in place)",
               flush=True)
         ckpt.close()
+        keep_saved_model(tmp / "c", saved_to)
     finally:
         spies.clear()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5346,13 +5373,14 @@ def finetune_run(card: str) -> dict:
     return dict(total)
 
 
-def whisper_finetune_run(card: str) -> dict:
+def whisper_finetune_run(card: str, saved_to: Path | None = None) -> dict:
     """Phase (w'): ``finetune`` on whisper-small.yaml (12 + 12 layers, d 768)
     to step 2 with one eval pass over WHISPER_FINETUNE_VAL_CLIPS clips:
     exact launch counts (the train step's a step, the encoder's and each
     decode step's in the eval's generation), the saved directory served with
     the in-memory predictor's strings, the loop's step ms against the bare
-    step's; returns the launch counts."""
+    step's; the saved directory is moved to ``saved_to`` where given; returns
+    the launch counts."""
     import shutil
     import tempfile
 
@@ -5409,11 +5437,382 @@ def whisper_finetune_run(card: str) -> dict:
               f"{loop / bare:.4f}; eval pass ({WHISPER_FINETUNE_VAL_CLIPS} clips, "
               f"{decode.steps} decode steps) {spy.eval_ms(2):.3f} ms", flush=True)
         spy.release()
+        keep_saved_model(tmp / "run", saved_to)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
     print(f"(w') done in {time.perf_counter() - t0:.1f} s", flush=True)
     return counts
+
+
+# Phase (x): the evaluation set, the LM and the dataset QA on (w)'s run-C
+# directory, the demo, and Whisper's evaluation on (w')'s directory.
+EVAL_DATASET = "synthetic://16"
+WHISPER_EVAL_DATASET = "synthetic://8"
+LM_DECODER_DATASET = "synthetic://256"
+DEMO_SECONDS = (4.0, 25.0)
+CLI_TIMEOUT_S = 300
+
+
+class PredictorSpy:
+    """Wraps ``load_saved_predictor`` of ``evaluation.evaluate`` for the
+    runs inside ``with``: keeps the predictors it built and the raw strings
+    each returned, a list a predictor."""
+
+    def __enter__(self):
+        from coral_tpu_torch.evaluation import evaluate as E
+
+        self._orig = E.load_saved_predictor
+        self.predictors, self.strings = [], []
+
+        def load(*args, **kwargs):
+            predict, geometry = self._orig(*args, **kwargs)
+            self.predictors.append(predict)
+            strings = []
+            self.strings.append(strings)
+
+            def recorded(batch):
+                out = predict(batch)
+                strings.extend(out)
+                return out
+            return recorded, geometry
+
+        E.load_saved_predictor = load
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from coral_tpu_torch.evaluation import evaluate as E
+
+        E.load_saved_predictor = self._orig
+
+
+class Command:
+    """``python -m coral_tpu_torch <args>`` started from ``cwd`` (the
+    repository on its path; the card, as by default), its standard input
+    read from ``stdin`` and its streams written to files; ``wait`` gives its
+    wall seconds and standard output, or fails with its errors' tail."""
+
+    def __init__(self, label: str, cwd: Path, args: list[str], stdin: str = "") -> None:
+        import os
+
+        self.label, self.name = label, args[0]
+        self.out, self.err = (cwd / f"{label.strip('()x ').replace(' ', '_')}.{part}"
+                              for part in ("stdout", "stderr"))
+        source = cwd / f"{self.out.stem}.stdin"
+        source.write_text(stdin, encoding="utf-8")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+        with source.open() as i, self.out.open("w") as o, self.err.open("w") as e:
+            self.start = time.perf_counter()
+            self.proc = subprocess.Popen([sys.executable, "-m", "coral_tpu_torch", *args],
+                                         cwd=cwd, env=env, stdin=i, stdout=o, stderr=e)
+        # A thread notes when the process ends, whatever the caller does then.
+        self.end = None
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self) -> None:
+        self.proc.wait()
+        self.end = time.perf_counter()
+
+    def wait(self) -> tuple[float, str]:
+        self.watcher.join(timeout=max(0.0, self.start + CLI_TIMEOUT_S - time.perf_counter()))
+        if self.end is None:
+            self.proc.kill()
+            self.proc.wait()
+            fail(f"{self.label}: python -m coral_tpu_torch {self.name} ran over "
+                 f"{CLI_TIMEOUT_S} s")
+        wall, code = self.end - self.start, self.proc.returncode
+        if code != 0:
+            fail(f"{self.label}: python -m coral_tpu_torch {self.name} exited {code}: "
+                 f"{self.err.read_text()[-1500:]}")
+        return wall, self.out.read_text(encoding="utf-8")
+
+
+def counted_evaluate(config) -> tuple[object, dict, float, PredictorSpy]:
+    """``evaluate(config, device="cuda")`` with the launch counts set to 0
+    before and read after: its grid, the counts, its wall seconds and the
+    predictor it built."""
+    from coral_tpu_torch.evaluation.evaluate import evaluate
+    from coral_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with PredictorSpy() as spy:
+        start = time.perf_counter()
+        grid = evaluate(config, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return grid, dict(_build.launch_counts), wall, spy
+
+
+def overall_row(grid) -> dict:
+    row = grid[grid[["age_group", "gender", "dialect"]].isna().all(axis=1)]
+    if len(row) != 1:
+        fail(f"(x): the grid has {len(row)} overall rows")
+    return row.iloc[0].to_dict()
+
+
+def write_wav(path: Path, audio: np.ndarray, rate: int) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+def evaluation_run(card: str, root: Path) -> dict:
+    """Phase (x) on ``root``'s ``wav2vec2-small`` ((w)'s run C) and
+    ``whisper-small`` ((w')) saved directories, through the port's entry
+    points: the LM trained by the ``train-ngram`` command into the former
+    (loaded from ARPA and binary at order 3); ``evaluate`` in-process with
+    ``no_lm`` (exact launches: the serving forward's a batch; its overall
+    CER/WER those of a fresh ``load_saved_predictor``'s strings on the same
+    stream, re-normalised), and that stream's forward against the LM's host
+    decode; then four commands at once: ``evaluate`` with the LM and 200
+    bootstrap samples and with ``no_lm`` (its overall row the in-process
+    one), ``validate`` at max_cer 1e9 (its predictions the in-process
+    ``add_validations`` strings, lower-cased) and ``demo``'s stdin loop on a
+    4 s and a 25 s WAV (its lines ``make_transcriber``'s); beside them
+    ``add_validations`` in-process at max_cer 0.6 (kept plus dropped the
+    filtered rows), ``make_transcriber`` on the WAVs and ``evaluate`` on
+    Whisper with ``generation_max_length`` 32 (exact launches a batch and
+    decode step). Validation runs greedy (``+no_lm=true``): the LM's host
+    decode is timed on the evaluation set. Returns the launch counts of the
+    two in-process ``evaluate`` runs."""
+    import importlib.util
+    import logging
+
+    import pandas as pd
+
+    from coral_tpu_torch.cli import make_transcriber, read_wav, results_filename
+    from coral_tpu_torch.config import compose
+    from coral_tpu_torch.data.loading import load_dataset_for_evaluation, make_raw_source
+    from coral_tpu_torch.data.processing import filter_example, process_example
+    from coral_tpu_torch.data.validation import add_validations
+    from coral_tpu_torch.decoding import NGramModel
+    from coral_tpu_torch.evaluation.eval_loop import batch_for_eval
+    from coral_tpu_torch.evaluation.evaluate import load_saved_predictor
+    from coral_tpu_torch.evaluation.metrics import cer, wer
+
+    t0 = time.perf_counter()
+    root = root.resolve()  # the commands run from it, and read paths under it
+    w2v2, whisper = root / "wav2vec2-small", root / "whisper-small"
+    cache = root / "cache"
+    walls = {}
+    for saved in (w2v2, whisper):
+        if not (saved / "config.yaml").exists():
+            fail(f"(x): no saved model in {saved}; {root} holds "
+                 f"{sorted(str(p.relative_to(root)) for p in root.rglob('*'))[:20]}")
+
+    # The LM, by the train-ngram command.
+    walls["train-ngram"], _ = Command("(x) train-ngram", root, [
+        "train-ngram", "model=wav2vec2-small", "decoder_datasets=[]",
+        f"+decoder_datasets.synthetic={{id: {LM_DECODER_DATASET}}}",
+        f"+decoder_excision_dataset={EVAL_DATASET}", f"cache_dir={cache}",
+        f"model_dir={w2v2}"]).wait()
+    arpa = w2v2 / "3gram.arpa"
+    if not (arpa.exists() and arpa.with_suffix(".bin").exists()):
+        fail("(x) train-ngram: no 3gram.arpa and 3gram.bin beside the model")
+    orders = [NGramModel(path).order for path in (arpa, arpa.with_suffix(".bin"))]
+    corpus = next(cache.glob("ngram-sentences-*.txt")).read_text(encoding="utf-8").split("\n")
+    header = [line for line in arpa.read_text(encoding="utf-8").splitlines()
+              if line.startswith("ngram ")]
+    print(f"(x) LM by `python -m coral_tpu_torch train-ngram` ({card}): "
+          f"{walls['train-ngram']:.2f} s wall; {LM_DECODER_DATASET} less every sentence of "
+          f"{EVAL_DATASET}: {len(corpus)} corpus lines, {sum(map(bool, corpus))} not empty; "
+          f"{arpa.name} {arpa.stat().st_size} B ({', '.join(header)}), .bin "
+          f"{arpa.with_suffix('.bin').stat().st_size} B; orders {orders}", flush=True)
+    if orders != [3, 3]:
+        fail(f"(x): the trained LM loads at orders {orders}, not 3")
+
+    # evaluate in-process, greedy (no_lm).
+    overrides = [f"model_id={w2v2}", f"dataset={EVAL_DATASET}", f"batch_size={BATCH}",
+                 f"cache_dir={cache}"]
+    config = compose("evaluation", overrides=overrides + ["no_lm=true"])
+    grid, counts, eval_s, spy = counted_evaluate(config)
+    cfg = spy.predictors[0].model.config
+    batches = -(-len(spy.strings[0]) // BATCH)
+    expected = {k: v * batches for k, v in w2v2_forward_launches(cfg).items()}
+    overall = overall_row(grid)
+    print(f"(x) evaluate in-process, no_lm ({card}): {eval_s:.2f} s for {len(spy.strings[0])} "
+          f"clips in {batches} batches (hidden {cfg.hidden_size}, {cfg.num_hidden_layers} "
+          f"layers); grid {len(grid)} rows, overall CER {overall['cer']:.6f} WER "
+          f"{overall['wer']:.6f}; launch counts {counts}", flush=True)
+    if counts != expected:
+        fail(f"(x) evaluate: launch counts {counts}, expected {expected}")
+    total = collections.Counter(counts)
+
+    # The same stream through a fresh predictor, re-normalised and scored;
+    # with the LM beside it, the forward against the host's beam search.
+    texts, raw, times = [], [], {"greedy": [], "lm forward": [], "lm decode": []}
+    greedy, geometry = load_saved_predictor(config, device="cuda")
+    beam, _ = load_saved_predictor(dict(config, no_lm=False), device="cuda")
+    lm_start = time.perf_counter()
+    for batch, chunk in batch_for_eval(load_dataset_for_evaluation(config)(), BATCH,
+                                       **geometry):
+        start = time.perf_counter()
+        raw += greedy(batch)[: len(chunk)]
+        times["greedy"].append(time.perf_counter() - start)
+        start = time.perf_counter()
+        log_probs, frames = beam.log_probs(batch)
+        times["lm forward"].append(time.perf_counter() - start)
+        start = time.perf_counter()
+        beam.decode(log_probs, frames)
+        times["lm decode"].append(time.perf_counter() - start)
+        texts += chunk
+    stream_s = time.perf_counter() - lm_start
+    normed = [process_example({"text": r}, characters_to_keep=config.characters_to_keep,
+                              text_column="text", audio_column=None, lower_case=True,
+                              convert_numerals=True)["text"] for r in raw]
+    scores = (cer(predictions=normed, labels=texts), wer(predictions=normed, labels=texts))
+    ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    print(f"(x) the stream through a fresh load_saved_predictor ({card}): the evaluate run's "
+          f"strings {raw == spy.strings[0]}; CER/WER {scores[0]:.6f} / {scores[1]:.6f} "
+          f"(the grid's overall {overall['cer']:.6f} / {overall['wer']:.6f}); per batch of "
+          f"{BATCH} (median of {batches}): greedy {ms['greedy']:.3f} ms, with the LM forward "
+          f"{ms['lm forward']:.3f} ms against host decode {ms['lm decode']:.3f} ms "
+          f"({ms['lm decode'] / ms['lm forward']:.3f}x); both over the set {stream_s:.2f} s",
+          flush=True)
+    if raw != spy.strings[0] or scores != (overall["cer"], overall["wer"]):
+        fail("(x) evaluate: the grid's overall CER/WER are not its predictor's strings' scores")
+    del greedy, beam, spy
+
+    # Four commands at once.
+    rng = np.random.default_rng(0)
+    wavs = []
+    for seconds in DEMO_SECONDS:
+        path = root / f"demo_{seconds:g}s.wav"
+        write_wav(path, rng.standard_normal(int(seconds * SR)) * 0.1, SR)
+        wavs.append(path)
+    val_overrides = [f"dataset={EVAL_DATASET}", f"model_id={w2v2}", "+no_lm=true"]
+    gradio = importlib.util.find_spec("gradio") is not None
+    commands = {
+        "evaluate lm": Command("(x) evaluate lm", root,
+                               ["evaluate", *overrides, "bootstrap_samples=200"]),
+        "evaluate no-lm": Command("(x) evaluate no-lm", root,
+                                  ["evaluate", *overrides, "no_lm=true"]),
+        "validate": Command("(x) validate", root, [
+            "validate", *val_overrides, "max_cer=1e9", f"output_path={root / 'validated'}"]),
+    }
+    if not gradio:
+        commands["demo"] = Command("(x) demo", root, ["demo", f"model_id={w2v2}"],
+                                   stdin="".join(f"{path}\n" for path in wavs))
+
+    # Beside them: add_validations at 0.6, the demo's transcriber, Whisper.
+    val_config = compose("dataset_validation", overrides=val_overrides)
+    raw_source = make_raw_source(EVAL_DATASET, None, split="train")
+    filtered = sum(filter_example(ex, "audio", "text", 0.25, 3600) for ex in raw_source())
+    predict, _ = load_saved_predictor(val_config, device="cuda")
+    strings, lines = [], []
+
+    def recorded(batch):
+        out = predict(batch)
+        strings.extend(out)
+        return out
+
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    data_logger = logging.getLogger("coral_tpu_torch.data")
+    data_logger.addHandler(handler)
+    data_logger.setLevel(logging.INFO)
+    start = time.perf_counter()
+    try:
+        kept_rows = list(add_validations(
+            raw_source(), predictor=recorded, model_id=str(w2v2),
+            characters_to_keep=val_config.characters_to_keep,
+            batch_size=int(val_config.batch_size), max_cer=float(val_config.max_cer),
+            max_pad_seconds=float(val_config.max_seconds_per_example)))
+    finally:
+        data_logger.removeHandler(handler)
+    validate_s = time.perf_counter() - start
+    found = [m for m in (re.match(r"Validation kept ([\d,]+) samples, dropped ([\d,]+)", line)
+                         for line in lines) if m]
+    kept, dropped = ((int(g.replace(",", "")) for g in found[-1].groups()) if found
+                     else (-1, -1))
+    del predict, recorded
+
+    start = time.perf_counter()
+    transcribe = make_transcriber(compose("demo", overrides=[f"model_id={w2v2}"]), "cuda")
+    demo_lines = [transcribe(read_wav(str(path))) for path in wavs]
+    demo_s = time.perf_counter() - start
+    del transcribe
+
+    w_config = compose("evaluation", overrides=[
+        f"model_id={whisper}", f"dataset={WHISPER_EVAL_DATASET}", f"batch_size={BATCH}",
+        f"cache_dir={cache}", f"generation_max_length={WHISPER_FINETUNE_MAX_LENGTH}"])
+    with DecodeSpy() as decode:
+        w_grid, w_counts, w_s, w_spy = counted_evaluate(w_config)
+    wcfg = w_spy.predictors[0].model.config
+    D, Le, Ld = wcfg.d_model, wcfg.encoder_layers, wcfg.decoder_layers
+    w_batches = -(-len(w_spy.strings[0]) // BATCH)
+    w_expected = {"flash_attention": Le * w_batches, block_kernels(wcfg, D)[0]: Le * w_batches,
+                  "decode_self_attention": Ld * decode.steps,
+                  "decode_cross_attention": Ld * decode.steps}
+    w_overall = overall_row(w_grid)
+    del w_spy
+
+    outputs = {}
+    for name, command in commands.items():
+        walls[name], outputs[name] = command.wait()
+
+    # The commands' results against the in-process ones.
+    print(f"(x) add_validations in-process at max_cer {val_config.max_cer}, greedy ({card}): "
+          f"{validate_s:.2f} s, kept {kept} + dropped {dropped} of {filtered} filtered rows "
+          f"({len(kept_rows)} yielded)", flush=True)
+    if kept + dropped != filtered or kept != len(kept_rows) or len(strings) != filtered:
+        fail(f"(x) add_validations: kept {kept} + dropped {dropped} != {filtered} filtered rows")
+    rows = [json.loads(line) for line in
+            (root / "validated" / "validated.jsonl").read_text(encoding="utf-8").splitlines()]
+    same = [r["asr_prediction"] for r in rows] == [t.lower().strip() for t in strings]
+    print(f"(x) `python -m coral_tpu_torch validate` at max_cer 1e9 ({card}): {len(rows)} rows, "
+          f"their asr_prediction the in-process strings lower-cased: {same}", flush=True)
+    if not same:
+        fail("(x) validate: the command's predictions are not the in-process strings")
+
+    csvs = {}
+    for name, extra in (("evaluate lm", ["bootstrap_samples=200"]),
+                        ("evaluate no-lm", ["no_lm=true"])):
+        path = root / results_filename(compose("evaluation", overrides=overrides + extra))
+        if not path.exists():
+            fail(f"(x) {name}: {path.name} was not written")
+        csvs[name] = overall_row(pd.read_csv(path, float_precision="round_trip"))
+    lm_row, no_lm_row = csvs["evaluate lm"], csvs["evaluate no-lm"]
+    print(f"(x) `python -m coral_tpu_torch evaluate` ({card}): with the LM, overall CER "
+          f"{lm_row['cer']:.6f} [{lm_row['cer_ci_low']:.6f}, {lm_row['cer_ci_high']:.6f}] WER "
+          f"{lm_row['wer']:.6f}; no_lm {no_lm_row['cer']:.6f} / {no_lm_row['wer']:.6f} "
+          f"(in-process {overall['cer']:.6f} / {overall['wer']:.6f})", flush=True)
+    if (no_lm_row["cer"], no_lm_row["wer"]) != (overall["cer"], overall["wer"]):
+        fail("(x) evaluate: the no_lm command's overall row is not the in-process one")
+    if not lm_row["cer_ci_low"] <= lm_row["cer"] <= lm_row["cer_ci_high"]:
+        fail("(x) evaluate: the LM's overall CER lies outside its bootstrap interval")
+
+    if gradio:
+        print(f"(x) demo ({card}): gradio imports here, so the command would serve a page; "
+              f"make_transcriber called directly instead: {demo_s:.2f} s for {DEMO_SECONDS} s "
+              f"WAVs, {[len(t) for t in demo_lines]} characters", flush=True)
+    else:
+        got = outputs["demo"].splitlines()
+        print(f"(x) `python -m coral_tpu_torch demo`, stdin loop ({card}): its lines "
+              f"make_transcriber's ({demo_s:.2f} s in-process for {DEMO_SECONDS} s WAVs, with "
+              f"the LM): {got == demo_lines} ({[len(t) for t in got]} characters)", flush=True)
+        if got != demo_lines:
+            fail("(x) demo: the command's lines are not make_transcriber's")
+
+    print(f"(x) evaluate in-process, whisper-small (d {D}, {Le} + {Ld} layers, "
+          f"generation_max_length {WHISPER_FINETUNE_MAX_LENGTH}) ({card}): {w_s:.2f} s for "
+          f"{WHISPER_EVAL_DATASET}, {decode.steps} decode steps; overall CER "
+          f"{w_overall['cer']:.6f} WER {w_overall['wer']:.6f}; launch counts {w_counts}",
+          flush=True)
+    if w_counts != w_expected:
+        fail(f"(x) Whisper evaluate: launch counts {w_counts}, expected {w_expected}")
+    total.update(w_counts)
+    print(f"(x) command walls ({card}; train-ngram alone, the rest started together): " +
+          ", ".join(f"{name} {secs:.2f} s" for name, secs in walls.items()), flush=True)
+    print(f"(x) done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(total)
 
 
 def main() -> int:
@@ -5615,10 +6014,22 @@ def main() -> int:
     mark("(s') XLS-R-2B, attention_impl: flash")
     # (w), (w'): fine-tuning through the port's loop (finetune), composed by
     # its config composer.
-    main_counts.append(finetune_run(card))
-    mark("(w) finetune: wav2vec2-small, resume, saved model served")
-    main_counts.append(whisper_finetune_run(card))
-    mark("(w') finetune: whisper-small, saved model served")
+    # (x) takes over their saved directories.
+    import shutil
+    import tempfile
+
+    saved = Path(tempfile.mkdtemp(prefix="chip_smoke_x_"))
+    try:
+        main_counts.append(finetune_run(card, saved_to=saved / "wav2vec2-small"))
+        mark("(w) finetune: wav2vec2-small, resume, saved model served")
+        main_counts.append(whisper_finetune_run(card, saved_to=saved / "whisper-small"))
+        mark("(w') finetune: whisper-small, saved model served")
+        # (x): evaluation, the LM, validation and the demo through the
+        # port's entry points.
+        main_counts.append(evaluation_run(card, saved))
+        mark("(x) evaluate, train-ngram, validate, demo")
+    finally:
+        shutil.rmtree(saved, ignore_errors=True)
     for label, base in (("(p)", "(c)"), ("(p')", "(c)"),
                         *((phase[0], "(c)") for phase in VARIANT_PHASES),
                         ("(s)", "(g)"), ("(s')", "(f)")):

@@ -1,5 +1,5 @@
-"""Data pipeline: sources, interleaving, processing, batching, device prefetch
-(the JAX package's ``data/``, less ``validation.py``)."""
+"""Data pipeline: sources, interleaving, processing, batching, device prefetch,
+and the ASR-based dataset QA (``validation.py``); the JAX package's ``data/``."""
 
 from .batching import BucketBatcher, StreamedBatch, device_put_fn, prefetch_to_device
 from .interleave import interleave_iterables

@@ -4,11 +4,14 @@ Port of ``coral_tpu/decoding/__init__.py``. The decoder is native code:
 ``coral_tpu_torch/native/ngram.cc`` (modified Kneser-Ney training, ARPA and
 binary I/O, backoff queries) and ``ctc_beam.cc`` (pyctcdecode's beam search
 with the LM fused inside the frame loop) are copies of ``coral_tpu/native/``'s
-sources; the binding reaches the parts that serving uses: training an ARPA
-file, loading it, and the beam search at pyctcdecode's defaults. They are built with ``g++ -O3 -std=c++17 -shared -fPIC`` at first
-use into ``coral_tpu_torch/_build/``, under a name that hashes the sources and
-the flags, so an edited source builds anew and a stale library is never
-loaded; a failed build raises. Nothing is built at import.
+sources; the binding reaches what serving and the LM pipeline use: training
+an ARPA file (in memory or streamed through sorted shards on disk), loading
+it or its compact binary, writing the binary, scoring words and sentences,
+and the beam search at pyctcdecode's defaults. They are built with ``g++ -O3
+-std=c++17 -shared -fPIC`` at first use into ``coral_tpu_torch/_build/``,
+under a name that hashes the sources and the flags, so an edited source builds
+anew and a stale library is never loaded; a failed build raises. Nothing is
+built at import.
 """
 
 from __future__ import annotations
@@ -75,7 +78,13 @@ def _load() -> ctypes.CDLL:
         for name, restype, argtypes in (
             ("coral_ngram_train", c_int,
              [c_char_p, c_char_p, c_int, ctypes.POINTER(ctypes.c_uint64), c_int]),
+            ("coral_ngram_train_streamed", c_int,
+             [c_char_p, c_char_p, c_int, ctypes.POINTER(ctypes.c_uint64), c_int,
+              ctypes.c_uint64, c_char_p]),
             ("coral_ngram_load_any", c_void_p, [c_char_p]),
+            ("coral_ngram_save_binary", c_int, [c_void_p, c_char_p]),
+            ("coral_ngram_logprob", c_float, [c_void_p, c_char_p, c_char_p]),
+            ("coral_ngram_sentence_logprob", c_float, [c_void_p, c_char_p]),
             ("coral_ngram_free", None, [c_void_p]),
             ("coral_ngram_order", c_int, [c_void_p]),
             # char*, freed by coral_free
@@ -108,21 +117,48 @@ class NGramModel:
 
     @classmethod
     def train(cls, corpus_path: str | Path, arpa_path: str | Path, order: int = 3,
-              prune: list[int] | None = None) -> "NGramModel":
+              prune: list[int] | None = None, streamed: bool = False,
+              budget_entries: int = 20_000_000,
+              scratch_dir: str | Path | None = None) -> "NGramModel":
         """Estimate the LM from a one-sentence-per-line corpus file.
 
         Args:
             prune: Per-order count thresholds (default ``[0, 1, 1, ...]``, the
                 reference's).
+            streamed: Count through sorted shards on disk (under
+                ``scratch_dir``), spilled whenever the in-memory map reaches
+                ``budget_entries``, as lmplz does, so the corpus's size does
+                not bound memory. The ARPA entries are the in-memory path's.
         """
         if prune is None:
             prune = [0] + [1] * (order - 1)
         arr = (ctypes.c_uint64 * len(prune))(*prune)
-        rc = _load().coral_ngram_train(
-            str(corpus_path).encode(), str(arpa_path).encode(), order, arr, len(prune))
+        if streamed:
+            rc = _load().coral_ngram_train_streamed(
+                str(corpus_path).encode(), str(arpa_path).encode(), order, arr, len(prune),
+                budget_entries, str(scratch_dir).encode() if scratch_dir else None)
+        else:
+            rc = _load().coral_ngram_train(
+                str(corpus_path).encode(), str(arpa_path).encode(), order, arr, len(prune))
         if rc != 0:
             raise RuntimeError(f"n-gram training failed with code {rc}")
         return cls(arpa_path)
+
+    def save_binary(self, path: str | Path) -> Path:
+        """Write the LM in the compact binary format (the reference's
+        ``build_binary`` step), which ``NGramModel(path)`` loads too."""
+        rc = _load().coral_ngram_save_binary(self._handle, str(path).encode())
+        if rc != 0:
+            raise RuntimeError(f"binary serialisation failed with code {rc}")
+        return Path(path)
+
+    def logprob(self, word: str, context: str = "") -> float:
+        """log10 P(word | the context's words)."""
+        return _load().coral_ngram_logprob(self._handle, context.encode(), word.encode())
+
+    def sentence_logprob(self, sentence: str) -> float:
+        """log10 P(<s> sentence </s>)."""
+        return _load().coral_ngram_sentence_logprob(self._handle, sentence.encode())
 
     def __del__(self) -> None:
         if getattr(self, "_handle", None):

@@ -23,14 +23,16 @@ Where the JAX loop does what has no counterpart on one card:
 - ``prng_impl`` names a JAX PRNG and is not read; ``shard_params`` and
   ``shard_optimizer_state`` shard nothing on one device, in JAX too;
 - a ``mesh`` of more than one device, or ``distributed``, raises before any
-  work (ROADMAP Queue 1 item 7(d)), and so does ``model.use_decoder`` (the
-  n-gram decoder trained after fine-tuning, item 7(e)), before the first step
-  rather than after training;
+  work (ROADMAP Queue 1 item 7(d));
 - ``profile_step`` traces ``profile_num_steps`` steps with ``torch.profiler``
   into ``model_dir/profile`` (a Chrome trace), in place of ``jax.profiler``;
 - before each eval pass the model's parameters are pointed at the current
   fp32 masters (the train step leaves the work copies of the step before the
   update in them) and the model runs in ``eval()`` mode.
+
+With ``model.use_decoder`` rank 0 trains the n-gram decoder into the model's
+directory after the final save (``decoding/ngram_pipeline.py``); a failure
+there is logged as a warning and the loop still returns.
 
 Gradient accumulation matches the reference's arithmetic: ``accumulation =
 total_batch_size // (num_devices * per_device_batch_size)`` (reference:
@@ -54,7 +56,6 @@ from ..config import to_yaml
 from ..data.batching import BucketBatcher, device_put_fn, prefetch_to_device
 from ..data.loading import is_main_process, load_data_for_finetuning
 from ..evaluation.eval_loop import run_validation
-from ..models.wav2vec2 import NOT_PORTED
 from ..tracking import load_tracking_setup
 from .checkpoint import Checkpointer
 from .model_setup import _refuse_devices, load_model_setup
@@ -96,10 +97,6 @@ def finetune(config: Any, device: str | torch.device = "cuda") -> dict[str, floa
         The final metrics (last logged train metrics + last validation scores).
     """
     _refuse_devices(config)
-    if config.model.get("use_decoder", False):
-        raise NotImplementedError(
-            "model.use_decoder=true (the n-gram decoder trained after fine-tuning, "
-            "decoding/ngram_pipeline.py): " + NOT_PORTED.format("7(e)"))
     device = torch.device(device)
 
     is_main = is_main_process()
@@ -380,6 +377,15 @@ def finetune(config: Any, device: str | torch.device = "cuda") -> dict[str, floa
 
     if tracking is not None:
         tracking.run_finalization()
+
+    # The n-gram decoder (reference: src/coral/finetune.py:86-87).
+    if config.model.get("use_decoder", False) and is_main:
+        from ..decoding.ngram_pipeline import train_and_store_ngram_model
+
+        try:
+            train_and_store_ngram_model(config)
+        except Exception as error:
+            logger.warning(f"n-gram decoder training failed: {error}")
 
     if config.get("push_to_hub", False) and is_main:
         from ..utils.hub import push_model_to_hub

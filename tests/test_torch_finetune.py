@@ -17,8 +17,8 @@ run's state bit for bit (its step-4 checkpoint and saved masters), the data
 skip included; ``save_model`` then ``load_saved_predictor`` gives the
 in-memory predictor's strings for both families (with Whisper's eval-time
 overrides), and a JAX-style saved directory (orbax ``model/``) raises naming
-ROADMAP Queue 1 item 3; ``use_decoder`` and more than one device raise before
-any work; ``profile_step`` writes a trace; the Hub push calls a stub
+ROADMAP Queue 1 item 3; more than one device raises before any work;
+``profile_step`` writes a trace; the Hub push calls a stub
 ``huggingface_hub`` with the JAX push's arguments, so no test reaches the
 network; the tracking factory degrades as JAX's.
 """
@@ -257,9 +257,8 @@ def test_a_jax_saved_directory_raises_naming_item_3(tmp_path):
                              device="cpu")
 
 
-@pytest.mark.parametrize("override,item", [
-    ("model.use_decoder=true", "item 7\\(e\\)"), ("mesh=[2,1]", "item 7"),
-    ("distributed=true", "item 7")])
+@pytest.mark.parametrize("override,item", [("mesh=[2,1]", "item 7"),
+                                           ("distributed=true", "item 7")])
 def test_refusals_come_before_any_work(override, item, monkeypatch, tmp_path):
     monkeypatch.setattr(port_ft, "load_model_setup", lambda *a, **k: pytest.fail("built"))
     config = compose("asr_finetuning", overrides=BASE + [override, f"model_dir={tmp_path}"])

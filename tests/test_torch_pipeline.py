@@ -151,9 +151,10 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from coral_tpu_torch import ASRPipeline
-    from coral_tpu_torch.evaluation.evaluate import load_saved_predictor
+    from coral_tpu_torch.evaluation.evaluate import evaluate, load_saved_predictor
+    from coral_tpu_torch.training.finetune import finetune
 
-    for fn in (ASRPipeline, load_saved_predictor, port_setup.Wav2Vec2Setup,
+    for fn in (ASRPipeline, load_saved_predictor, evaluate, finetune, port_setup.Wav2Vec2Setup,
                port_setup.WhisperSetup, port_setup.load_model_setup):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     # whisper-tiny: a width the kernels take (on the card the setup refuses
@@ -234,7 +235,10 @@ new = {"coral_tpu_torch.ops.ctc", "coral_tpu_torch.ops.philox",
        "coral_tpu_torch.data.loading", "coral_tpu_torch.data.batching",
        "coral_tpu_torch.tracking", "coral_tpu_torch.utils",
        "coral_tpu_torch.utils.logging_utils", "coral_tpu_torch.utils.hub",
-       "coral_tpu_torch.training.checkpoint", "coral_tpu_torch.training.finetune"}
+       "coral_tpu_torch.training.checkpoint", "coral_tpu_torch.training.finetune",
+       "coral_tpu_torch.evaluation.evaluate", "coral_tpu_torch.data.validation",
+       "coral_tpu_torch.decoding.ngram_pipeline", "coral_tpu_torch.cli",
+       "coral_tpu_torch.__main__"}
 assert new <= set(names), new - set(names)
 print(len(names))
 """
