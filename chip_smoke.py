@@ -267,7 +267,27 @@ phases; any failing phase exits non-zero before the result line is printed:
    a 25 s WAV (``make_transcriber``'s lines), the four started together, and
    Whisper's ``evaluate`` on (w')'s (exact launch counts), with each
    command's wall seconds;
-22. a JSON line with every kernel (its launches summed over the counted runs
+22. the wav2vec2 configurations off XLS-R's routes: (y) facebook/wav2vec2-base's
+   published architecture (hidden 768, 12 layers of 12 x 64 heads, FFN 3072,
+   the feature encoder's 7 x 512 convs without biases under group norm, the
+   post-LN encoder; ``Wav2Vec2Config.base`` with the production kernel flags
+   passed explicitly, the LayerNorm-less FFN block) on (c)'s configuration
+   otherwise: one serving batch, the kernel path against the plain path on
+   one microbatch at activation dropout 0.1, 3 steps; (z) (c) with
+   ``do_stable_layer_norm: false`` (post-LN; ``fused_ffn_ln`` and
+   ``fused_qkv_ln`` false); (z') (c) with ``fused_fe_conv: false`` and
+   ``remat_feature_encoder: true`` (every feature-encoder block as the conv
+   + K1, K1 replayed in the backward); (z'') (c) with ``encoder_ln_impl:
+   xla`` and ``remat_policy: dots_saveable``: each one batch, kernel vs
+   plain, 2 steps (post-LN, the query and key gradients bf16 cannot
+   resolve held to an fp32 plain path that must reject a planted fault);
+   (c remat) (c) with ``remat_feature_encoder: true``, kernel vs plain, 2
+   steps, and (z' no remat) (z') without it, 2 steps; each with exact
+   launch counts, and their ms per step and forward and backward's peak
+   memory beside (c)'s; the LayerNorm forward at 768 and K1 forward and
+   backward at the feature encoder's blocks 1-6 are checked and timed with
+   the other kernels in phase 3;
+23. a JSON line with every kernel (its launches summed over the counted runs
    of the main paths; the probes' 0), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -298,6 +318,10 @@ sys.path.insert(0, str(ROOT))
 
 SR = 16_000
 BATCH = 8
+# The feature encoder's output rows at a 30 s window, blocks 0-6.
+FE_ROWS = (95999, 47999, 23999, 11999, 5999, 2999, 1499)
+# The same at the training clips' 10 s.
+FE_TRAIN_ROWS = (31999, 15999, 7999, 3999, 1999, 999, 499)
 REPS = 10
 # |kernel - plain| <= atol + rtol |plain|, elementwise, outputs in bf16. Both
 # sides compute in fp32 and round once to bf16; a reordered fp32 sum may move
@@ -462,7 +486,7 @@ for _D in NEW_FFN_D:
                                     f"coral_tpu/ops/ffn_pallas.py:{_line}")
         if _base in TOLERANCE:
             TOLERANCE[f"{_base}_{_D}"] = TOLERANCE[_base]
-for _C in (1280, 1920):
+for _C in (768, 1280, 1920):
     SOURCES[f"ln_fused_{_C}"] = SOURCES["ln_fused"]
     TOLERANCE[f"ln_fused_{_C}"] = TOLERANCE["ln_fused"]
 for _C in (384, 768, 1920):
@@ -649,6 +673,24 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_NORM_RTOL = 5e-3
 TRAIN_GRAD_TOL = 0.1
 K_BIAS_NOISE = 1e-2
+# Post-LN at seeded weights ((y), (z)) the token states are nearly alike, so
+# the late layers' query and key gradients nearly cancel and bf16 cannot
+# resolve them: the plain bf16 path itself misses an fp32 plain path by
+# 0.15-0.41 of its max there (H100, 700 W). Only on a post-LN model, and only
+# for the parameters ``POST_LN_ARBITRATED`` names, a gradient beyond
+# TRAIN_GRAD_TOL is held to an fp32 plain path on the same weights and draws
+# instead: the plain bf16 path must miss fp32 by more than TRAIN_GRAD_TOL of
+# its max, and the kernel path's distance from fp32 (the L2 norm of the
+# difference) stay within FP32_ARBITER times the plain path's. The same
+# comparison runs on a planted fault, the attention backward's dq and dk
+# (and the q and k bias gradients) scaled by PLANTED_DQK_SCALE, and must
+# reject it on every parameter it admitted. The limit lies between two
+# readings (H100, 700 W): the sound runs' largest ratio, 1.527 ((z), 1.302 in
+# (y)), and the planted fault's smallest, 1.976 ((z), 2.143 in (y)).
+POST_LN_ARBITRATED = re.compile(
+    r"encoder\.layers\.\d+\.attention\.(q_proj\.(weight|bias)|k_proj\.weight)$")
+FP32_ARBITER = 1.75
+PLANTED_DQK_SCALE = 0.5
 # Launches of each kernel per microbatch of a training step. (b), frozen
 # encoder, nothing_saveable: the 24 layers run forward and again in the
 # replay, except the FFN block, whose residuals are its inputs; ln_bwd is LN1's
@@ -835,8 +877,49 @@ VARIANT_PHASES = [(label, {**PRODUCTION_CONFIG, "model": {**PRODUCTION_CONFIG["m
 # 0.1 (at 24 of the 48 layers, as (f)), 2 steps at full depth.
 FLASH_1B_CONFIG, FLASH_2B_CONFIG = ({**cfg, "model": {**cfg["model"], "attention_impl": "flash"}}
                                     for cfg in (W2V2_MEDIUM_CONFIG, W2V2_LARGE_CONFIG))
-# Each production step's ms (``production_run``), to set a phase beside (c).
+# Phases (y)-(z''): the wav2vec2 configurations off XLS-R's routes. (y)
+# facebook/wav2vec2-base's published architecture (``Wav2Vec2Config.base``:
+# hidden 768, 12 layers of 12 x 64 heads, FFN 3072, FE 7 x 512 without conv
+# biases under group norm, post-LN, positional conv 128 taps / 16 groups) at
+# vocab 46, on (c)'s configuration otherwise (config/asr_finetuning.yaml's
+# optimisation and augmentation, save_qk_ctx, the feature encoder training).
+# The setups have no base architecture, as the JAX setup has none
+# (coral_tpu/training/model_setup.py:35-40), so ``phase_setup`` builds (c)'s
+# setup and gives it this config, the production kernel flags passed
+# explicitly: the dataclass has the JAX dataclass's defaults. Post-LN the JAX
+# setup refuses the LayerNorm folds, so the FFN is the LayerNorm-less block.
+BASE_FLAGS = dict(attention_impl="pallas", attention_save_stats="v3",
+                  attention_o_residual=False, attention_fused_qkv_bias=True,
+                  fused_qkv_ln=False, fused_ffn=True, fused_ffn_ln=False, fused_ffn_block=True,
+                  fused_ffn_block_dw=False, fused_ffn_block_fc2=False, fused_ffn_block_dg=True,
+                  fused_fe_conv=True, encoder_ln_impl="pallas")
+BASE_CONFIG = {**PRODUCTION_CONFIG, "model": {**PRODUCTION_CONFIG["model"],
+                                              "name": "wav2vec2-base"},
+               "architecture": "wav2vec2-base"}
+BASE_STEPS = 3
+# (z) (c) post-LN; (z') (c) with every feature-encoder block as the conv +
+# K1, the feature encoder replayed in the backward; (z'') (c) with the plain
+# encoder LayerNorms and the dots_saveable policy. Each: one served batch,
+# kernel vs plain on one microbatch (the feature encoder's replay included),
+# and 2 steps.
+POST_LN_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "do_stable_layer_norm": False, "fused_ffn_ln": False,
+    "fused_qkv_ln": False}}
+FE_APART_CONFIG = {**PRODUCTION_CONFIG, "model": {**PRODUCTION_CONFIG["model"],
+                                                  "fused_fe_conv": False},
+                   "remat_feature_encoder": True}
+LN_XLA_DOTS_CONFIG = {**PRODUCTION_CONFIG, "model": {
+    **PRODUCTION_CONFIG["model"], "encoder_ln_impl": "xla", "remat_policy": "dots_saveable"}}
+# The feature encoder's replay alone, on each of its routes: (c) with it (K3's
+# training forward twice; kernel vs plain, 2 steps) and (z') without it (2
+# steps). Nothing served: their peaks set against (c)'s and (z')'s show what
+# the replay saves.
+REMAT_FE_CONFIG = {**PRODUCTION_CONFIG, "remat_feature_encoder": True}
+FE_APART_KEPT_CONFIG = {**FE_APART_CONFIG, "remat_feature_encoder": False}
+# Each production step's ms and its forward and backward's peak GiB
+# (``production_run``), to set a phase beside (c).
 STEP_MS: dict = {}
+FWD_BWD_PEAK_GIB: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -1726,6 +1809,28 @@ def profile_window(card: str, label: str, fn) -> float:
     return busy / window
 
 
+def phase_setup(config: dict):
+    """``load_model_setup(config)`` on the card; for ``config["architecture"]
+    == "wav2vec2-base"`` its model config is wav2vec2-base's (``BASE_FLAGS``,
+    the model keys' dropouts and masks), its widths checked as a setup
+    checks them."""
+    from coral_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from coral_tpu_torch.training.model_setup import check_kernel_widths, load_model_setup
+
+    setup = load_model_setup(config, device="cuda")
+    if config.get("architecture") == "wav2vec2-base":
+        m = config["model"]
+        setup.model_config = Wav2Vec2Config.base(
+            vocab_size=setup.tokenizer.vocab_size, dtype=torch.bfloat16,
+            **{k: m[k] for k in ("hidden_dropout", "activation_dropout", "attention_dropout",
+                                 "feat_proj_dropout", "final_dropout", "layerdrop",
+                                 "mask_time_prob", "mask_time_length", "mask_feature_prob",
+                                 "mask_feature_length")},
+            **BASE_FLAGS)
+        check_kernel_widths(setup.model_config)
+    return setup
+
+
 def train_batch(seed: int) -> tuple[dict, float]:
     """A fixed (ACCUM, 8, 160000) batch: clips of 6-10 s of seeded noise, padded
     to 10 s, with random label sequences of 64-128 ids (the blank excluded).
@@ -1749,7 +1854,8 @@ def train_batch(seed: int) -> tuple[dict, float]:
 
 def plain_twin(model):
     """The plain-path model (``Wav2Vec2ForCTC(plain=True)``) on ``model``'s
-    weights, checkpointed under its remat policy."""
+    weights, checkpointed under its remat policy, its feature encoder
+    replayed where ``model``'s is."""
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
 
     with torch.device("meta"):
@@ -1759,6 +1865,7 @@ def plain_twin(model):
     encoder = model.wav2vec2.encoder
     plain.wav2vec2.encoder.gradient_checkpointing = encoder.gradient_checkpointing
     plain.wav2vec2.encoder.remat_policy = encoder.remat_policy
+    plain.wav2vec2.feature_extractor.remat = model.wav2vec2.feature_extractor.remat
     return plain
 
 
@@ -1766,34 +1873,40 @@ def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
                      label: str = "(a)", layers: int | None = None,
                      activation_dropout: float = 0.0) -> dict:
     """Training (a): the kernel path's loss and gradients against the plain
-    path's on one microbatch, the feature encoder training under save_qk_ctx;
-    ``layers`` cuts the encoder's depth (the plain twin is a second model);
-    ``activation_dropout`` (both paths draw the same Philox bits)."""
+    path's on one microbatch, the feature encoder training under the
+    config's remat policy (save_qk_ctx unless it names one); ``layers`` cuts
+    the encoder's depth (the plain twin is a second model);
+    ``activation_dropout`` (both paths draw the same Philox bits). On a
+    post-LN model a ``POST_LN_ARBITRATED`` parameter beyond
+    ``TRAIN_GRAD_TOL`` is held to an fp32 plain path (``FP32_ARBITER``),
+    which must reject the planted fault (``PLANTED_DQK_SCALE``)."""
     import copy
     import dataclasses
 
-    from coral_tpu_torch.training.model_setup import load_model_setup
+    from coral_tpu_torch.ops import attention
     from coral_tpu_torch.training.optimizer import global_norm
     from coral_tpu_torch.training.train_state import _load_work_params, ctc_loss_and_grads
 
     cfg_a = copy.deepcopy(config)
     cfg_a["model"]["activation_dropout"] = activation_dropout
     cfg_a["augment_audio"] = False
-    setup = load_model_setup(cfg_a, device="cuda")
+    policy = cfg_a["model"].get("remat_policy", "save_qk_ctx")
+    setup = phase_setup(cfg_a)
     if layers is not None:
         setup.model_config = dataclasses.replace(setup.model_config, num_hidden_layers=layers)
     model = setup.init_params(seed=0)
-    if (setup.freeze_feature_encoder, model.wav2vec2.encoder.remat_policy) != (
-            False, "save_qk_ctx"):
-        fail(f"training {label} did not get the feature encoder training under save_qk_ctx")
+    if (setup.freeze_feature_encoder, model.wav2vec2.encoder.remat_policy) != (False, policy):
+        fail(f"training {label} did not get the feature encoder training under {policy}")
     plain = plain_twin(model)
     masters = {n: p.detach().float().clone() for n, p in model.named_parameters()}
     one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
-    out = {}
-    for name, m in (("kernel", model), ("plain", plain)):
-        _load_work_params(m, masters, torch.bfloat16)
+
+    def grads_of(m, dtype=torch.bfloat16):
+        _load_work_params(m, masters, dtype)
         gen = torch.Generator(device="cuda").manual_seed(7)
-        out[name] = ctc_loss_and_grads(m, one, gen, setup.blank_id, "sum", False)
+        return ctc_loss_and_grads(m, one, gen, setup.blank_id, "sum", False)
+
+    out = {name: grads_of(m) for name, m in (("kernel", model), ("plain", plain))}
     torch.cuda.synchronize()
     (loss_k, grads_k), (loss_p, grads_p) = out["kernel"], out["plain"]
     norm_k, norm_p = float(global_norm(list(grads_k.values()))), float(
@@ -1815,6 +1928,52 @@ def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
             continue
         ratios.append((float((grads_k[n] - gp).abs().max()) / scale, n))
     ratios.sort(reverse=True)
+    post_ln = not model.config.do_stable_layer_norm
+    unresolved = sorted(n for r, n in ratios
+                        if r > TRAIN_GRAD_TOL and post_ln and POST_LN_ARBITRATED.search(n))
+    arbitrated = []
+    if unresolved:
+        from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
+
+        del plain
+        torch.cuda.empty_cache()
+        with torch.device("meta"):
+            f32 = Wav2Vec2ForCTC(dataclasses.replace(model.config, dtype=torch.float32),
+                                 plain=True)
+        f32 = f32.to_empty(device="cuda")
+        f32.load_state_dict(model.state_dict())
+        f32.wav2vec2.encoder.gradient_checkpointing = True
+        f32.wav2vec2.encoder.remat_policy = model.wav2vec2.encoder.remat_policy
+        _, grads_f = grads_of(f32, torch.float32)
+        del f32
+        # The planted fault: the kernel path again, the attention backward's
+        # dq and dk (and the q and k bias gradients) scaled.
+        sound_bwd, planted = attention.attention_bwd, []
+
+        def faulty_bwd(*args, **kwargs):
+            dq, dk, dv, db = sound_bwd(*args, **kwargs)
+            planted.append(1)
+            if db is not None:
+                db = torch.cat([db[:2] * PLANTED_DQK_SCALE, db[2:]])
+            return dq * PLANTED_DQK_SCALE, dk * PLANTED_DQK_SCALE, dv, db
+
+        attention.attention_bwd = faulty_bwd
+        try:
+            _, grads_x = grads_of(model)
+        finally:
+            attention.attention_bwd = sound_bwd
+        if len(planted) != model.config.num_hidden_layers:
+            fail(f"training {label}: the planted fault reached {len(planted)} attention "
+                 f"backwards, not one a layer")
+        for n in unresolved:
+            gf = grads_f[n].float()
+            d_p = (grads_p[n].float() - gf).norm()
+            missed = float((grads_p[n].float() - gf).abs().max()) / float(gf.abs().max())
+            arbitrated.append((n, missed, float((grads_k[n].float() - gf).norm() / d_p),
+                               float((grads_x[n].float() - gf).norm() / d_p)))
+        del grads_f, grads_x
+        ratios = [(r, n) for r, n in ratios if n not in unresolved]
+        plain = None
     worst = ratios[0][0]
     fe = [(r, n) for r, n in ratios if "feature_extractor" in n]
     cfg = model.config
@@ -1822,13 +1981,27 @@ def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
     torch.cuda.empty_cache()
     print(f"training {label} kernel vs plain, hidden {cfg.hidden_size}, {cfg.num_hidden_layers} "
           f"layers, one microbatch of {BATCH}, feature encoder training, activation dropout "
-          f"{activation_dropout}, save_qk_ctx: loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+          f"{activation_dropout}, {policy}: loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
           f"(rel {loss_rel:.6g}, tolerance {TRAIN_LOSS_RTOL}); grad norm {norm_k:.6f} vs {norm_p:.6f} (rel "
           f"{norm_rel:.6g}, tolerance {TRAIN_GRAD_NORM_RTOL}); gradient max|diff|/max|plain| over "
           f"{len(ratios)} parameters (tolerance {TRAIN_GRAD_TOL}), worst: "
           + "; ".join(f"{r:.6g} {n}" for r, n in ratios[:5]), flush=True)
     print(f"  feature encoder, {len(fe)} parameters with gradients: worst "
           + "; ".join(f"{r:.6g} {n}" for r, n in fe[:3]), flush=True)
+    arbiter_ok = all(missed > TRAIN_GRAD_TOL and k <= FP32_ARBITER < x
+                     for _, missed, k, x in arbitrated)
+    if arbitrated:
+        ks, xs = [a[2] for a in arbitrated], [a[3] for a in arbitrated]
+        print(f"  post-LN: {len(arbitrated)} query/key parameters beyond {TRAIN_GRAD_TOL} held to "
+              f"an fp32 plain path (the plain bf16 path's max|diff| / max|fp32| must exceed "
+              f"{TRAIN_GRAD_TOL}: {min(a[1] for a in arbitrated):.4g} to "
+              f"{max(a[1] for a in arbitrated):.4g}; the L2 distance from fp32, kernel / plain, "
+              f"must be within {FP32_ARBITER}: {min(ks):.4g} to {max(ks):.4g}; with dq and dk "
+              f"scaled by {PLANTED_DQK_SCALE}, planted, it must exceed {FP32_ARBITER} on each: "
+              f"{min(xs):.4g} to {max(xs):.4g}), worst by the kernel's ratio: " + "; ".join(
+                  f"{n} plain {m:.4g}, kernel/plain {k:.4g}, planted {x:.4g}"
+                  for n, m, k, x in sorted(arbitrated, key=lambda a: -a[2])[:5])
+              + ("" if arbiter_ok else " FAILED"), flush=True)
     print(f"  k_proj.bias gradients (0 in exact arithmetic), max|g| / max|g of v_proj.bias| "
           f"over {len(k_bias)} layers: worst {max(k_bias):.6g} (tolerance "
           f"{K_BIAS_NOISE})", flush=True)
@@ -1837,7 +2010,8 @@ def training_compare(card: str, batch: dict, config: dict = PRODUCTION_CONFIG,
                   for n in fe_params)
     if not (math.isfinite(float(loss_k)) and loss_rel <= TRAIN_LOSS_RTOL
             and norm_rel <= TRAIN_GRAD_NORM_RTOL and worst <= TRAIN_GRAD_TOL
-            and max(k_bias) <= K_BIAS_NOISE and fe_live and len(fe) == len(fe_params)):
+            and max(k_bias) <= K_BIAS_NOISE and fe_live and len(fe) == len(fe_params)
+            and arbiter_ok):
         fail(f"the training {label} kernel path and plain path disagree")
     return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "worst_grad": worst,
             "worst_fe_grad": fe[0][0]}
@@ -1853,9 +2027,8 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
     metrics)."""
     from coral_tpu_torch.ops import _build
     from coral_tpu_torch.training import TrainState, create_optimizer
-    from coral_tpu_torch.training.model_setup import load_model_setup
 
-    setup = load_model_setup(config, device="cuda")
+    setup = phase_setup(config)
     model = setup.init_params(seed=0)
     cfg = setup.model_config
     print(f"training {label}: hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers, "
@@ -1895,6 +2068,19 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
         fail(f"training {label}: launch counts {counts}, expected {expected}")
     losses = [float(metrics["loss"])]
     walls = []
+    # The forward and backward alone: the first timed step's peak from its
+    # start (the optimizer state exists) to the optimizer's update, above
+    # what was held at its start.
+    update, fb_peaks = tx.update, []
+
+    def peak_then_update(*args):
+        torch.cuda.synchronize()
+        fb_peaks.append(torch.cuda.max_memory_allocated())
+        return update(*args)
+
+    tx.update = peak_then_update
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(steps - 1):
         torch.cuda.synchronize()
@@ -1903,6 +2089,7 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
         losses.append(float(metrics["loss"]))  # synchronises
         walls.append(time.perf_counter() - start)
     peak = torch.cuda.max_memory_allocated()
+    tx.update = update
     # The step state: fp32 masters and second moment, the bf16 first moment
     # and work copies; the rest of the peak is activations and temporaries.
     state_bytes = sum(nbytes(*d.values()) for d in (state.params, state.opt_state.mu,
@@ -1945,15 +2132,18 @@ def production_run(card: str, label: str, config: dict, per_microbatch: dict,
         "ms_per_step": wall * 1e3,
         "plain_ms_per_step": pwalls[-1] * 1e3 if pwalls else None,
         "peak_memory_gib": peak / 2**30,
+        "fwd_bwd_peak_gib": (fb_peaks[0] - held) / 2**30,
         "losses": losses,
     }
     STEP_MS[label] = metrics["ms_per_step"]
+    FWD_BWD_PEAK_GIB[label] = metrics["fwd_bwd_peak_gib"]
     plain_text = (f"; plain path {metrics['plain_ms_per_step']:.3f} ms" if pwalls else "")
     print(f"training {label} ({card}): {metrics['train_audio_s_per_s']:.3f} audio-s/s "
           f"({audio_seconds:.3f} s of audio per step of {ACCUM} x {BATCH} clips); "
           f"{metrics['ms_per_step']:.3f} ms per optimizer step (median of "
-          f"{len(walls)}{plain_text}); peak memory {metrics['peak_memory_gib']:.3f} GiB",
-          flush=True)
+          f"{len(walls)}{plain_text}); peak memory {metrics['peak_memory_gib']:.3f} GiB, "
+          f"of the forward and backward {metrics['fwd_bwd_peak_gib']:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held at the step's start", flush=True)
     return counts, metrics
 
 
@@ -3315,8 +3505,11 @@ def whisper_train_kernel_checks(card: str) -> dict:
 
 def width_kernel_checks(card: str) -> dict:
     """The ported kernels at the other widths of the repository's configs, at
-    their paths' shapes: the LN forward at XLS-R-1B's and -2B's serving rows
-    (8 x 1499 x 1280, 1920); the attention at head_dim 80 and 120, 16 heads (8
+    their paths' shapes: the LN forward at wav2vec2-base's, XLS-R-1B's and
+    -2B's serving rows (8 x 1499 x 768, 1280, 1920), and K1 (LayerNorm +
+    GELU at 512) at the feature encoder's blocks 1-6 (``fused_fe_conv:
+    false``; 8 x 30 s: 47,999 to 1,499 rows) and its backward there (8 x 10
+    s: 15,999 to 499 rows), checked and timed under keys of their own (the kernels line's K1 row is block 0's); the attention at head_dim 80 and 120, 16 heads (8
     x 1499 serving, 8 x 499 training, padded rows and a fully masked one); the
     FFN block at XLS-R-2B's width (8 x 1499 serving rows, 8 x 499 training
     rows) and at Whisper tiny's, base's and small's (8 x 1500 encoder rows,
@@ -3336,8 +3529,8 @@ def width_kernel_checks(card: str) -> dict:
     results = {}
     measure = functools.partial(_measure, results, card)
 
-    # The encoder LN forward of XLS-R-1B and -2B.
-    for C in (1280, 1920):
+    # The encoder LN forward of wav2vec2-base, XLS-R-1B and -2B.
+    for C in (768, 1280, 1920):
         x = randn(BATCH, 1499, C, dtype=bf16)
         g, b = randn(C, scale=0.1, offset=1.0), randn(C, scale=0.1)
         gb, bb = g.to(bf16), b.to(bf16)
@@ -3349,6 +3542,40 @@ def width_kernel_checks(card: str) -> dict:
                 (LN_OPS * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(g, b)),
                 lambda: torch.nn.functional.layer_norm(x, (C,), gb, bb))
     del x
+
+    # K1 at FE blocks 1-6's outputs, the conv apart (8 x 30 s).
+    for i, T in enumerate(FE_ROWS[1:], 1):
+        x = randn(BATCH, T, 512, scale=2.0, offset=0.3, dtype=bf16)
+        g, b = randn(512, scale=0.1, offset=1.0), randn(512, scale=0.1)
+        name = f"ln_gelu FE block {i}"
+        measure(name, lambda: ln_gelu.ln_gelu(x, g, b), lambda: ln_gelu.ln_gelu_plain(x, g, b),
+                lambda: compare(name, ln_gelu.ln_gelu(x, g, b), ln_gelu.ln_gelu_plain(x, g, b),
+                                "ln_gelu"),
+                ((LN_OPS + GELU_OPS) * x.numel(), FP32_FLOPS, 2 * nbytes(x) + nbytes(g, b)))
+    del x
+
+    # K1's backward (``ln_bwd`` with GELU at 512) at FE blocks 1-6's training
+    # rows (8 x 10 s: 15,999 to 499), the route of ``fused_fe_conv: false``:
+    # its column partials reduce over a last block the rows fill in part. It
+    # recomputes the LN and GELU forward (GELU's derivative, 12 operations).
+    for i, T in enumerate(FE_TRAIN_ROWS[1:], 1):
+        x = randn(BATCH, T, 512, scale=2.0, offset=0.3, dtype=bf16)
+        dy = randn(BATCH, T, 512, dtype=bf16)
+        g, b = randn(512, scale=0.1, offset=1.0), randn(512, scale=0.1)
+        name = f"ln_bwd FE block {i}"
+
+        def ln_gelu_bwd_check():
+            got = ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=True)
+            want = ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=True)
+            return merge(compare(name, got[0], want[0], "ln_bwd"),
+                         *(compare_grad(f"{name} partials", gg, ww, GRAD_FRAC["partials"])
+                           for gg, ww in zip(got[1:], want[1:])))
+
+        measure(name, lambda: ln_gelu.ln_bwd(x, g, b, dy, apply_gelu=True),
+                lambda: ln_gelu.ln_bwd_plain(x, g, b, dy, apply_gelu=True), ln_gelu_bwd_check,
+                ((LN_OPS + 12 + LN_BWD_OPS) * x.numel(), FP32_FLOPS,
+                 2 * nbytes(x) + nbytes(dy) + 4 * nbytes(g)))
+    del x, dy
 
     # The LN backward: 1920 (the encoder LN's gradient, bf16 dy, timed; the
     # FFN's LN step, fp32 dy), 384 and 768 (the FFN's LN step, timed; bf16 dy),
@@ -4846,24 +5073,41 @@ def block_kernels(cfg, D: int) -> tuple[str, str, str]:
     return ffn._name(fwd, D), ffn._name(f"{fwd}_drop", D), ffn._name(bwd, D)
 
 
-def route_launches(cfg, serving: bool) -> dict:
+def route_launches(cfg, serving: bool, policy: str = "save_qk_ctx",
+                   remat_fe: bool = False) -> dict:
     """Launches per forward (serving) or per microbatch (the production step:
-    the feature encoder training, save_qk_ctx) of a wav2vec2 config off the
-    production routes, at cfg's widths. LN1 is ``ln_fused``, and so is LN2
-    where the FFN's kernels do not fold it in; in training each runs again in
-    the replay (neither "attn_in" nor "ffn_in" is kept), and so do the flash
-    forward with its stats (its o, l, m have no name), the GELU+dropout
-    forward and the fc1 kernel of the fc1 routes (fc2's weight gradient reads
-    their output, and save_qk_ctx keeps no "ffn_act"); the blocks' forward
-    never. ln_bwd counts the LayerNorms' backward (LN2's inside N4's and K5's
-    wrappers, LN1's inside the packed projection's) and FE conv 0's. Under
+    the feature encoder training, under ``policy``, save_qk_ctx by default,
+    the feature encoder replayed under ``remat_fe``) of a wav2vec2 config off
+    the production routes, at cfg's widths.
+
+    The feature encoder: under layer norm K3 at each block
+    ``Wav2Vec2Config.fe_fused`` names, else the conv + K1 (``ln_gelu``, its
+    backward ``ln_bwd`` at 512); under ``remat_fe`` K3's training forward
+    runs again in the replay (the fused blocks name no "conv_raw"), and so
+    does K1 at every block but the last (the next conv's weight gradient
+    reads its output); under group norm no kernel.
+
+    The encoder, pre-LN: LN1 is ``ln_fused``, and so is LN2 where the FFN's
+    kernels do not fold it in; in training each runs again in the replay
+    (neither "attn_in" nor "ffn_in" is kept), and so do the flash forward
+    with its stats (its o, l, m have no name), the GELU+dropout forward and
+    the fc1 kernel of the fc1 routes (fc2's weight gradient reads their
+    output, and save_qk_ctx keeps no "ffn_act"); the blocks' forward never.
+    Post-LN both LayerNorms are ``ln_fused``; the replay runs the first again
+    (the FFN packs its output) but not the final one, whose output it never
+    reads, and runs the FFN block's forward again (the final LayerNorm packs
+    the block's output). Under ``encoder_ln_impl: xla`` no encoder LayerNorm
+    launches. ln_bwd counts the LayerNorms' backward (LN2's inside N4's and
+    K5's wrappers, LN1's inside the packed projection's). Under
     ``fused_qkv_ln`` LN1 is in the packed projection (``ln_dense``), whose
-    forward runs again in the replay (save_qk_ctx keeps q and k but not v);
-    the attention then runs without in-kernel biases, as with
+    forward runs again in the replay (neither policy keeps all of q, k and
+    v); the attention then runs without in-kernel biases, as with
     ``attention_fused_qkv_bias: false``. The pallas attention takes the
     kernels of its route (``attention_route``); its forward runs once a layer
-    under save_qk_ctx (o, and the lse where the backward reads it, are kept),
-    but twice on v1, whose lse has no name."""
+    where the policy keeps o and, where the backward reads it, the lse
+    (save_qk_ctx), else twice, as on v1, whose lse has no name, and under
+    dots_saveable."""
+    from coral_tpu_torch.models.wav2vec2 import remat_names
     from coral_tpu_torch.ops import attention, ffn, ln_gelu
     from coral_tpu_torch.ops.flash_attention import _counter as flash
 
@@ -4871,13 +5115,18 @@ def route_launches(cfg, serving: bool) -> dict:
     route = cfg.ffn_route
     hd = D // cfg.num_attention_heads
     ln = ln_gelu._name("ln_fused", D)
+    pre_ln, pallas_ln = cfg.do_stable_layer_norm, cfg.encoder_ln_impl == "pallas"
     ln_apart = route in ("unfused", "ffn_block", "ffn_fc1")
-    qkv_ln = cfg.fused_qkv_ln
+    qkv_ln = cfg.qkv_ln
+    # The encoder LayerNorms through ln_fused, a layer.
+    lns = int(pallas_ln) * (int(ln_apart) + int(not qkv_ln) if pre_ln else 2)
+    fused = [cfg.fe_fused(i) for i in range(len(cfg.conv_dim))]
+    k1 = sum(not f for f in fused) if cfg.feat_extract_norm == "layer" else 0
+    k3 = sum(fused)
     attn = {d: attention._name(d, hd, cfg.attention_fused_qkv_bias, cfg.attention_route)
             for d in ("fwd", "bwd")} if cfg.attention_impl == "pallas" else {}
     if serving:
-        counts = collections.Counter({"ln_gelu": 1, "conv_ln_gelu": 6,
-                                      ln: (int(ln_apart) + int(not qkv_ln)) * L})
+        counts = collections.Counter({"ln_gelu": k1, "conv_ln_gelu": k3, ln: lns * L})
         if cfg.attention_impl == "flash":
             counts[flash("flash_attention", True, hd)] += L
         elif cfg.attention_impl == "pallas":
@@ -4890,24 +5139,30 @@ def route_launches(cfg, serving: bool) -> dict:
         elif fwd is not None:
             counts[ffn._name(fwd, D)] += L
         return dict(+counts)
+    k1_replays = k1 - int(k1 > 0 and not fused[-1]) if remat_fe else 0
     counts = collections.Counter({
-        "ln_gelu": 1, "conv_ln_gelu_train": 6, "conv_ln_gelu_bwd": 6, "ctc_alpha": 1,
-        "ctc_beta": 1, ln: 2 * (int(ln_apart) + int(not qkv_ln)) * L})
+        "ln_gelu": k1 + k1_replays, "conv_ln_gelu_train": k3 * (2 if remat_fe else 1),
+        "conv_ln_gelu_bwd": k3, "ln_bwd": k1, "ctc_alpha": 1, "ctc_beta": 1,
+        ln: (2 * lns if pre_ln else lns + int(pallas_ln)) * L})
     if qkv_ln:
         counts.update({ffn._name("ln_dense", D): 2 * L, ffn._name("ln_dense_bwd", D): L})
-    counts[ln_gelu._name("ln_bwd", D)] += 2 * L
-    counts["ln_bwd"] += 1
+    ln_bwds = (int(pallas_ln or qkv_ln) + int(pallas_ln or not ln_apart) if pre_ln
+               else 2 * int(pallas_ln))
+    counts[ln_gelu._name("ln_bwd", D)] += ln_bwds * L
+    names = remat_names(policy, cfg)
+    kept = "attn_ctx" in names and ("attn_lse" in names
+                                    or cfg.attention_route not in ("stats_v3", "stats_v2"))
     if cfg.attention_impl == "flash":
         counts.update({flash("flash_attention_train", True, hd): 2 * L,
                        flash("flash_attention_bwd_dkv", True, hd): L,
                        flash("flash_attention_bwd_dq", True, hd): L})
     elif cfg.attention_impl == "pallas":
-        counts.update({attn["fwd"]: (2 if cfg.attention_route == "stats" else 1) * L,
+        counts.update({attn["fwd"]: (1 if kept and cfg.attention_route != "stats" else 2) * L,
                        attn["bwd"]: L})
     fwd, fwd_runs, bwd = {
         "unfused": (f"gelu_dropout_{F}", 2, f"gelu_dropout_bwd_{F}"),
         "ffn_ln_block": (None, 1, None),
-        "ffn_block": ("ffn_fc1_drop", 1, "ffn_block_bwd"),
+        "ffn_block": ("ffn_fc1_drop", 1 if pre_ln else 2, "ffn_block_bwd"),
         "ffn_ln_fc1": ("ffn_ln_drop", 2, "ffn_ln_fc1_bwd"),
         "ffn_fc1": ("ffn_fc1_drop", 2, "ffn_fc1_bwd"),
     }[route]
@@ -4930,9 +5185,9 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str,
     latency. Returns the launch counts."""
     from coral_tpu_torch.models.wav2vec2 import Wav2Vec2ForCTC
     from coral_tpu_torch.ops import _build
-    from coral_tpu_torch.training.model_setup import GreedyCtcPredictor, load_model_setup
+    from coral_tpu_torch.training.model_setup import GreedyCtcPredictor
 
-    setup = load_model_setup(config, device="cuda")
+    setup = phase_setup(config)
     model = setup.init_params(seed=0)
     cfg = setup.model_config
     predictor = setup.make_predictor(model)
@@ -4940,7 +5195,10 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str,
           f"attention {cfg.attention_impl} (route {cfg.attention_route}, q/k/v biases in the "
           f"kernel: "
           f"{cfg.attention_fused_qkv_bias}, LN1 folded into the packed QKV projection: "
-          f"{cfg.fused_qkv_ln}), FFN {cfg.ffn_route}, {cfg.dtype}", flush=True)
+          f"{cfg.fused_qkv_ln}), FFN {cfg.ffn_route}, {cfg.dtype}; encoder "
+          f"{'pre' if cfg.do_stable_layer_norm else 'post'}-LN, LayerNorms "
+          f"{cfg.encoder_ln_impl}; feature encoder {cfg.feat_extract_norm} norm, fused conv "
+          f"blocks {sum(cfg.fe_fused(i) for i in range(len(cfg.conv_dim)))}", flush=True)
     if (cfg.hidden_size, cfg.num_hidden_layers, cfg.dtype, cfg.ffn_route,
             cfg.attention_impl) != (*arch, torch.bfloat16, route,
                                     config["model"].get("attention_impl", "pallas")):
@@ -5010,7 +5268,7 @@ def route_serving(card: str, label: str, config: dict, batches: int, route: str,
 def route_run(card: str, label: str, config: dict, route: str, steps: int,
               serve_batches: int, compare: bool, arch: tuple = (1024, 24),
               compare_layers: int | None = None) -> dict:
-    """Phases (j)-(s'): serving through the setup's predictor
+    """Phases (j)-(s') and (y)-(z' no remat): serving through the setup's predictor
     (``serve_batches`` device batches, none for 0), then ``steps`` of (c)'s
     production step on ``config``'s routes (the FFN on ``route``) at
     ``arch`` (hidden size, layers; the kernel path against the plain path on
@@ -5019,8 +5277,6 @@ def route_run(card: str, label: str, config: dict, route: str, steps: int,
     of the counted runs."""
     import tempfile
 
-    from coral_tpu_torch.training.model_setup import load_model_setup
-
     counts = collections.Counter(route_serving(card, label, config, serve_batches, route, arch)
                                  if serve_batches else {})
     batch, audio_seconds = train_batch(0)
@@ -5028,10 +5284,12 @@ def route_run(card: str, label: str, config: dict, route: str, steps: int,
         training_compare(card, batch, config, label, layers=compare_layers,
                          activation_dropout=0.1)
         torch.cuda.empty_cache()
-    cfg = load_model_setup(config, device="cuda").model_config
+    setup = phase_setup(config)
+    expected = route_launches(setup.model_config, serving=False, policy=setup.remat_policy,
+                              remat_fe=setup.remat_feature_encoder)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, _ = production_run(card, label, with_noise_bank(config, tmp),
-                                         route_launches(cfg, serving=False), batch,
+                                         expected, batch,
                                          audio_seconds, arch=arch, steps=steps,
                                          plain_steps=0, falling=steps >= TRAIN_STEPS)
     counts.update(train_counts)
@@ -6012,6 +6270,26 @@ def main() -> int:
     main_counts.append(route_run(card, "(s')", FLASH_2B_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1, True,
                                  arch=(1920, 48), compare_layers=XLSR_2B_COMPARE_LAYERS))
     mark("(s') XLS-R-2B, attention_impl: flash")
+    # (y)-(z''): wav2vec2-base, post-LN, the feature encoder's conv apart
+    # with its replay, the plain encoder LayerNorms under dots_saveable.
+    main_counts.append(route_run(card, "(y)", BASE_CONFIG, "ffn_block", BASE_STEPS, 1, True,
+                                 arch=(768, 12)))
+    mark("(y) wav2vec2-base: group norm, post-LN, hidden 768")
+    main_counts.append(route_run(card, "(z)", POST_LN_CONFIG, "ffn_block", ROUTE_STEPS, 1,
+                                 True))
+    mark("(z) do_stable_layer_norm: false")
+    main_counts.append(route_run(card, "(z')", FE_APART_CONFIG, "ffn_ln_block", ROUTE_STEPS, 1,
+                                 True))
+    mark("(z') fused_fe_conv: false, remat_feature_encoder: true")
+    main_counts.append(route_run(card, "(z'')", LN_XLA_DOTS_CONFIG, "ffn_ln_block",
+                                 ROUTE_STEPS, 1, True))
+    mark("(z'') encoder_ln_impl: xla, remat_policy: dots_saveable")
+    main_counts.append(route_run(card, "(c remat)", REMAT_FE_CONFIG, "ffn_ln_block",
+                                 ROUTE_STEPS, 0, True))
+    mark("(c remat) remat_feature_encoder: true")
+    main_counts.append(route_run(card, "(z' no remat)", FE_APART_KEPT_CONFIG, "ffn_ln_block",
+                                 ROUTE_STEPS, 0, False))
+    mark("(z' no remat) fused_fe_conv: false")
     # (w), (w'): fine-tuning through the port's loop (finetune), composed by
     # its config composer.
     # (x) takes over their saved directories.
@@ -6032,10 +6310,19 @@ def main() -> int:
         shutil.rmtree(saved, ignore_errors=True)
     for label, base in (("(p)", "(c)"), ("(p')", "(c)"),
                         *((phase[0], "(c)") for phase in VARIANT_PHASES),
-                        ("(s)", "(g)"), ("(s')", "(f)")):
+                        ("(s)", "(g)"), ("(s')", "(f)"), ("(z)", "(c)"), ("(z')", "(c)"),
+                        ("(z'')", "(c)"), ("(c remat)", "(c)"), ("(z' no remat)", "(c)")):
         print(f"training {label} ({card}): {STEP_MS[label]:.3f} ms per optimizer step against "
               f"{base}'s {STEP_MS[base]:.3f} ms in this run ({STEP_MS[label] / STEP_MS[base]:.4f}"
               f"x)", flush=True)
+    for label, base in (("(z)", "(c)"), ("(z')", "(c)"), ("(z'')", "(c)"),
+                        ("(c remat)", "(c)"), ("(z' no remat)", "(c)"),
+                        ("(z')", "(z' no remat)")):
+        print(f"training {label} ({card}): forward and backward peak "
+              f"{FWD_BWD_PEAK_GIB[label]:.3f} GiB above the step's start against {base}'s "
+              f"{FWD_BWD_PEAK_GIB[base]:.3f} GiB in this run "
+              f"({FWD_BWD_PEAK_GIB[label] / FWD_BWD_PEAK_GIB[base]:.4f}x)",
+              flush=True)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "coral_tpu", "safetensors", "transformers"))
     if imported:

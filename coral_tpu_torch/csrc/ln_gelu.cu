@@ -11,8 +11,8 @@
 // Design: one warp owns one row of C channels and keeps it in registers (C /
 // 32 values a lane), so the two-pass fp32 statistics of the JAX `_norm`
 // (mean, then the mean of squared deviations) cost no second read. Built for
-// bf16 C = 512, 1024, 1280 and 1920 (XLS-R-300M, -1B and -2B's encoder LNs)
-// and fp32 C = 512, 1024. Loads and stores are 16 bytes a lane where C is a
+// bf16 C = 512, 768, 1024, 1280 and 1920 (wav2vec2-base's, XLS-R-300M's, -1B's
+// and -2B's encoder LNs) and fp32 C = 512, 1024. Loads and stores are 16 bytes a lane where C is a
 // multiple of 256 bf16 values, else 8 (1920 = 15 x 128: lane vectors of 4),
 // neighbouring lanes on neighbouring addresses. Eight rows (warps) per
 // 256-thread block; no shared memory. gamma and beta come in bf16 or fp32
@@ -521,6 +521,7 @@ extern "C" int coral_ln_gelu(const void* x, const void* gamma, const void* beta,
   if (is_bf16) {
     switch (C) {
       case 512: return run(bf16{}, Width<512>{});
+      case 768: return run(bf16{}, Width<768>{});
       case 1024: return run(bf16{}, Width<1024>{});
       case 1280: return run(bf16{}, Width<1280>{});
       case 1920: return run(bf16{}, Width<1920>{});

@@ -18,11 +18,13 @@ with ``config.yaml`` and ``model/params.pt`` builds the setup from the saved
 config, with the eval-time overrides ``generation_num_beams``,
 ``generation_length_penalty``, ``return_timestamps`` and
 ``generation_max_length`` (-> ``model.max_length``) applied as JAX applies
-them, and loads the fp32 masters into it. A ``config.yaml`` beside any other
-``model/`` (the JAX package's orbax tree) raises ``NotImplementedError``
-naming its ROADMAP item. The pretrained-id branch builds the family the id
-names (wav2vec2, or Whisper when the id contains "whisper") with the
-checkpoint on disk where there is one (a directory holding
+them, and loads the fp32 masters into it. A directory that the JAX package
+saved (``config.yaml`` beside an orbax ``model/`` tree) serves once
+``tools/convert_coral_tpu_model.py`` has written its ``model/params.pt``
+into a new directory; unconverted, it raises ``ValueError`` naming that
+command. The pretrained-id branch builds the family the id names
+(wav2vec2, or Whisper when the id contains "whisper") with the checkpoint on
+disk where there is one (a directory holding
 ``model.safetensors`` or ``pytorch_model.bin``, whole or sharded, or the
 Hugging Face cache) and seeded random weights otherwise. Either way a
 wav2vec2 model whose directory also holds ``*gram.arpa`` serves by CTC beam
@@ -41,7 +43,6 @@ import torch
 
 from ..data.loading import load_dataset_for_evaluation
 from ..data.processing import process_example
-from ..models.wav2vec2 import NOT_PORTED
 from ..training.finetune import SAVED_PARAMS, load_saved_params
 from ..training.model_setup import Wav2Vec2Setup, load_model_setup
 from .eval_loop import batch_for_eval
@@ -236,10 +237,10 @@ def load_saved_predictor(
     model_dir = Path(model_id)
     if (model_dir / "config.yaml").exists():
         if not (model_dir / SAVED_PARAMS).exists():
-            raise NotImplementedError(
-                f"{model_dir} is a saved coral-tpu model without {SAVED_PARAMS} (orbax "
-                "params of the JAX package): " + NOT_PORTED.format("3 (saved model directories)")
-            )
+            raise ValueError(
+                f"{model_dir} is a saved coral-tpu model without {SAVED_PARAMS} (the JAX "
+                "package's orbax params?): convert it on a host with JAX with "
+                f"`python tools/convert_coral_tpu_model.py {model_dir} DST`, then serve DST")
         import yaml
 
         from ..config import DictConfig

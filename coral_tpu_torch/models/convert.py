@@ -13,7 +13,8 @@ exactly. ``load_torch_state_dict`` reads ``.safetensors`` (mapped, with
 
 The JAX bridge is the reverse of ``coral_tpu/models/convert.py``'s maps: the flax tree of
 ``coral_tpu.models.Wav2Vec2ForCTC`` (as numpy arrays) becomes the ``state_dict``
-of ``coral_tpu_torch.models.Wav2Vec2ForCTC``, and the stacked tree of
+of ``coral_tpu_torch.models.Wav2Vec2ForCTC`` (a base model's ``group_norm``
+under HF's ``conv_layers.0.layer_norm``), and the stacked tree of
 ``init_whisper_params`` that of ``WhisperForConditionalGeneration``. Flax stacks the scanned encoder
 layers on a leading (L,) axis, keeps dense kernels as (in, out) and conv
 kernels as (K, C_in/groups, C_out); the bridge unstacks the layers and
@@ -170,7 +171,10 @@ def wav2vec2_state_dict_from_jax(
         layer = fe[f"conv_layers_{i}"]
         p = f"wav2vec2.feature_extractor.conv_layers.{i}"
         _conv(layer, f"{p}.conv", sd)
-        _layer_norm(layer["layer_norm"], f"{p}.layer_norm", sd)
+        # The base models' GroupNorm (block 0 only) keeps HF's name too.
+        for norm in ("layer_norm", "group_norm"):
+            if norm in layer:
+                _layer_norm(layer[norm], f"{p}.layer_norm", sd)
 
     proj = w2v["feature_projection"]
     _layer_norm(proj["layer_norm"], "wav2vec2.feature_projection.layer_norm", sd)

@@ -1,7 +1,10 @@
 """wav2vec2 encoder + CTC head in PyTorch, for serving and for training.
 
-Port of ``coral_tpu/models/wav2vec2.py``: pre-LN encoder layers, the fused
-feature-encoder conv blocks and the ``ln_fused`` pre-attention LayerNorm. The
+Port of ``coral_tpu/models/wav2vec2.py``: the encoder layers pre-LN (XLS-R,
+``do_stable_layer_norm``) or post-LN (the base models), the feature
+encoder's blocks (the fused conv blocks, or the conv + ``ln_gelu``, or the
+base models' conv + GroupNorm + GELU) and the ``ln_fused`` encoder
+LayerNorms (or a plain fp32 LayerNorm, ``encoder_ln_impl="xla"``). The
 config dataclass has the JAX dataclass's defaults (the short-T attention
 without stats, the unfused FFN); the setups pass the JAX setups' production
 flags (``coral_tpu/training/model_setup.py``): the v3-stats attention with
@@ -34,8 +37,8 @@ the JAX model's ``deterministic=False``: SpecAugment (``_span_mask``, the time
 mask ANDed with the padding mask, the feature mask over all frames), every
 ``nn.Dropout`` site, the FFN's activation dropout, the feature encoder with
 its gradients (FE conv 0 as a product + the ``ln_gelu`` kernel, blocks 1-6
-through the ``conv_ln_gelu`` kernels forward and backward) or frozen
-(``freeze_feature_encoder``: the conv stack runs under ``torch.no_grad()``,
+through the ``conv_ln_gelu`` kernels forward and backward on XLS-R's route)
+or frozen (``freeze_feature_encoder``: the conv stack runs under ``torch.no_grad()``,
 the JAX ``stop_gradient``), and ``gradient_checkpointing`` of each encoder
 layer under the JAX package's named remat policies (``REMAT_POLICIES``). All
 randomness is drawn from the generator before the layer stack and passed in
@@ -53,8 +56,10 @@ its save and its replay instead (``_Remat``): under the non-reentrant
 checkpoint the backward runs the autograd nodes of the first forward on the
 tensors that the replay packs, so in the replay an op whose output was kept
 returns it, packs the same residuals and launches nothing. The FFN block's
-residuals are its inputs, so the replay never runs its forward, under every
-policy, as the JAX replay drops it.
+residuals are its inputs, so the pre-LN replay never runs its forward, under
+every policy, as the JAX replay drops it; post-LN the final LayerNorm packs
+the block's output, so the replay runs it (and that LayerNorm's forward
+not).
 
 Parameters use PyTorch's layouts and Hugging Face's names
 (``wav2vec2.encoder.layers.3.attention.q_proj.weight`` is (out, in)), one
@@ -62,9 +67,16 @@ module per layer instead of the flax scan's stacked (L, ...) arrays; they stay
 fp32 and are cast to ``config.dtype`` where they are used, as the flax modules
 do. ``models/convert.py`` maps the JAX package's weights onto them.
 
-Routes follow the JAX model: a conv block takes the fused kernel only for
-stride 2, k in {2, 3}, C_in == C_out and C % 128 == 0 (else the conv as one
-product + ``ln_gelu``), so CPU parity at small widths covers the same routes.
+Routes follow the JAX model: a conv block takes the fused kernel only under
+``fused_fe_conv`` and layer norm, for stride 2, k in {2, 3}, C_in == C_out
+and C % 128 == 0 (else the conv as one product + ``ln_gelu``), so CPU parity
+at small widths covers the same routes. Under group norm (the base models)
+no block takes a kernel: the conv, on block 0 a GroupNorm of one channel a
+group over every frame, padded ones included, as flax's ``nn.GroupNorm``
+does, then exact GELU. ``remat_feature_encoder`` replays the feature
+encoder in the backward keeping each conv's output ("conv_raw", the JAX
+``save_only_these_names("conv_raw")``): the fused blocks name none, so
+their training forward runs again; elsewhere only ``ln_gelu`` does.
 Every other route is taken by flag, never by width: the FFN block always
 calls ``ffn_ln_block``, the flash route the flash kernel: on the CPU their
 plain versions at any width, and on the card the kernels, which raise for
@@ -175,8 +187,12 @@ class Wav2Vec2Config(FFNBlockVariant):
     # with it fused_ffn_ln folds the LayerNorm into them, and fused_ffn_block
     # runs the whole FFN as one block (``ffn_route``). On the
     # LayerNorm-folded block, fused_ffn_block_dw, _fc2 and _dg pick its
-    # variant (``ffn_variant``). The setup raises for the flags the port has
-    # no route for.
+    # variant (``ffn_variant``). fused_fe_conv: the feature encoder's fused
+    # conv blocks (False: each conv as a product + ``ln_gelu``);
+    # encoder_ln_impl: the encoder LayerNorms through ``ln_fused`` ("pallas")
+    # or a plain fp32 LayerNorm ("xla", flax ``nn.LayerNorm``). The post-LN
+    # encoder folds no LayerNorm (the JAX model reads fused_ffn_ln and
+    # fused_qkv_ln only pre-LN; the setup refuses them with it).
     attention_impl: str = "pallas"
     attention_save_stats: bool | str = False
     attention_o_residual: bool = False
@@ -188,23 +204,21 @@ class Wav2Vec2Config(FFNBlockVariant):
     fused_ffn_block_dw: bool = False
     fused_ffn_block_fc2: bool = False
     fused_ffn_block_dg: bool = False
+    fused_fe_conv: bool = True
+    encoder_ln_impl: str = "pallas"
 
     def __post_init__(self) -> None:
-        if self.feat_extract_norm != "layer":
-            raise NotImplementedError(
-                f"feat_extract_norm={self.feat_extract_norm!r}: "
-                + NOT_PORTED.format("8 (wav2vec2 base models)")
-            )
-        if not self.do_stable_layer_norm:
-            raise NotImplementedError(
-                "post-LN encoder layers (do_stable_layer_norm=False): "
-                + NOT_PORTED.format("8 (wav2vec2 base models)")
-            )
+        if self.feat_extract_norm not in ("layer", "group"):
+            raise ValueError(f"feat_extract_norm={self.feat_extract_norm!r}: expected 'layer' "
+                             "or 'group'")
+        if self.encoder_ln_impl not in ("pallas", "xla"):
+            raise ValueError(f"encoder_ln_impl={self.encoder_ln_impl!r}: expected 'pallas' or "
+                             "'xla'")
         if self.attention_impl not in ("pallas", "flash", "xla"):
             raise ValueError(f"attention_impl={self.attention_impl!r}: expected 'pallas', "
                              "'flash' or 'xla'")
         # The JAX model's two refusals (coral_tpu/models/wav2vec2.py:494-530).
-        if self.fused_qkv_ln and self.attention_fused_qkv_bias:
+        if self.qkv_ln and self.attention_fused_qkv_bias:
             raise ValueError("attention_fused_qkv_bias is mutually exclusive with fused_qkv_ln "
                              "(the LN fold already owns the q/k/v biases)")
         if self.attention_fused_qkv_bias and (self.attention_impl != "pallas"
@@ -212,6 +226,13 @@ class Wav2Vec2Config(FFNBlockVariant):
             raise ValueError("attention_fused_qkv_bias requires attention_impl='pallas' and "
                              f"attention_save_stats='v3' (got {self.attention_impl!r} / "
                              f"{self.attention_save_stats!r})")
+
+    @property
+    def qkv_ln(self) -> bool:
+        """The pre-attention LayerNorm folded into the packed QKV projection:
+        ``fused_qkv_ln`` on the pre-LN encoder, the only one where the JAX
+        model reads it."""
+        return self.fused_qkv_ln and self.do_stable_layer_norm
 
     @property
     def attention_route(self) -> str | None:
@@ -227,10 +248,11 @@ class Wav2Vec2Config(FFNBlockVariant):
         """The FFN's route, as the JAX model picks it
         (coral_tpu/models/wav2vec2.py:624-697, :751-765): "ffn_ln_block",
         "ffn_block" (LN2 outside), "ffn_ln_fc1", "ffn_fc1" (LN2 outside),
-        each with fc2 outside the kernels, or "unfused"."""
+        each with fc2 outside the kernels, or "unfused". The post-LN encoder
+        takes no LayerNorm-folded route."""
         if not self.fused_ffn:
             return "unfused"
-        return (("ffn_ln_" if self.fused_ffn_ln else "ffn_")
+        return (("ffn_ln_" if self.fused_ffn_ln and self.do_stable_layer_norm else "ffn_")
                 + ("block" if self.fused_ffn_block else "fc1"))
 
     @classmethod
@@ -252,6 +274,18 @@ class Wav2Vec2Config(FFNBlockVariant):
         )
 
     @classmethod
+    def base(cls, vocab_size: int = 46, **kw) -> "Wav2Vec2Config":
+        """facebook/wav2vec2-base's published architecture: hidden 768, 12
+        layers of 12 heads, FFN 3072, the feature encoder's 7 x 512 convs
+        without biases under group norm, the post-LN encoder. The JAX setup
+        has no base architecture; the JAX model takes the same fields."""
+        return cls(
+            vocab_size=vocab_size, hidden_size=768, num_hidden_layers=12,
+            num_attention_heads=12, intermediate_size=3072, conv_bias=False,
+            feat_extract_norm="group", do_stable_layer_norm=False, **kw,
+        )
+
+    @classmethod
     def tiny(cls, vocab_size: int = 46, **kw) -> "Wav2Vec2Config":
         """The JAX package's tiny test config (production 320x downsampling)."""
         return cls(
@@ -261,6 +295,22 @@ class Wav2Vec2Config(FFNBlockVariant):
             conv_kernel=(10, 3, 3, 3),
             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=2, **kw,
         )
+
+    def fe_fused(self, i: int) -> bool:
+        """Whether feature-encoder block i takes the fused conv block (K3),
+        the JAX ``ConvLayer``'s condition (coral_tpu/models/wav2vec2.py:282-286)."""
+        c_in = (1, *self.conv_dim)[i]
+        return (self.fused_fe_conv and self.feat_extract_norm == "layer"
+                and self.conv_stride[i] == 2 and self.conv_kernel[i] in (2, 3)
+                and c_in == self.conv_dim[i] and c_in % 128 == 0)
+
+    @property
+    def ln_fused_runs(self) -> bool:
+        """Whether an encoder LayerNorm goes through ``ln_fused``: under
+        ``encoder_ln_impl="pallas"``, post-LN, or pre-LN where LN1 or LN2 is
+        not folded into a kernel."""
+        folded = self.qkv_ln and self.ffn_route in ("ffn_ln_block", "ffn_ln_fc1")
+        return self.encoder_ln_impl == "pallas" and not folded
 
     def feat_extract_output_lengths(self, input_lengths):
         """Raw-audio lengths -> feature-frame lengths through the conv stack
@@ -292,17 +342,22 @@ def kernel_widths(config: Wav2Vec2Config) -> list[tuple[str, float, tuple]]:
         "flash": [("head_dim (the flash attention)", head_dim, _flash.KERNEL_HEAD_DIMS)],
         "xla": [],
     }[config.attention_impl]
-    if config.fused_qkv_ln:
+    if config.qkv_ln:
         attention.append(("hidden_size (the LayerNorm-folded packed QKV projection)", D,
                           _ffn.KERNEL_QKV_D))
+    ln = ([("hidden_size (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[bf16])]
+          if config.ln_fused_runs else [])
+    # Under group norm no feature-encoder block takes a kernel.
+    fe = [(f"conv_dim[{i}] (the conv block)", c, (_conv_ln_gelu.KERNEL_C,))
+          if config.fe_fused(i) else
+          (f"conv_dim[{i}] (LayerNorm + GELU)", c, _ln_gelu.KERNEL_C[bf16])
+          for i, c in enumerate(config.conv_dim) if config.feat_extract_norm == "layer"]
     return [
         *ffn,
-        ("hidden_size (the encoder LayerNorm)", D, _ln_gelu.KERNEL_C[bf16]),
+        *ln,
         ("hidden_size (the LayerNorm backward)", D, _ln_gelu.KERNEL_C_BWD[bf16]),
         *attention,
-        ("conv_dim[0] (LayerNorm + GELU)", config.conv_dim[0], _ln_gelu.KERNEL_C[bf16]),
-        *((f"conv_dim[{i}] (the conv block)", c, (_conv_ln_gelu.KERNEL_C,))
-          for i, c in enumerate(config.conv_dim[1:], 1)),
+        *fe,
     ]
 
 
@@ -370,8 +425,22 @@ _ATTN_OUT, _FFN_ACT, _FFN_OUT = range(3)
 # is kept only with all three names (save_qkv_ctx, save_matmul_inputs[_ffn]),
 # and else the replay runs the projection's forward again for all of it, as
 # the JAX replay runs the custom VJP's forward for a v it does not keep.
-REMAT_POLICIES: dict[str, tuple[str, ...]] = {
+# The post-LN encoder names no "attn_in" or "ffn_in" (:766-770).
+# dots_saveable is ``dots_with_no_batch_dims_saveable``: it keeps the outputs
+# of the XLA products with no batch dimension that the backward reads, and no
+# Pallas kernel's output or batched attention product. By
+# ``jax.ad_checkpoint.print_saved_residuals`` on the JAX layer at width 128
+# (the kernels' route; PERF.md) those are the q, k and v projections (not
+# under fused_qkv_ln, where they are lane thirds of a kernel's output), the
+# out projection's output ("attn_out"), fc1's output on the unfused FFN
+# ("ffn_hidden") and, post-LN, fc2's output where it is a product
+# ("ffn_out": the final LayerNorm reads it); ``product_names`` picks those of
+# a route, so its entry here is None. (Below width 128 the JAX FFN runs in XLA
+# and keeps fc1's output too; the port's FFN takes its kernels at every
+# width.)
+REMAT_POLICIES: dict[str, tuple[str, ...] | None] = {
     "nothing_saveable": (),
+    "dots_saveable": None,
     "save_matmul_inputs": ("attn_in", "q", "k", "v", "attn_ctx", "ffn_in"),
     "save_attn_ctx": ("attn_ctx",),
     "save_ctx_act": ("attn_ctx", "ffn_act"),
@@ -383,17 +452,27 @@ REMAT_POLICIES: dict[str, tuple[str, ...]] = {
 }
 
 
-def remat_names(policy: str) -> frozenset[str]:
-    """The names ``policy`` keeps; raises for a policy the port does not have."""
-    if policy == "dots_saveable":
-        raise NotImplementedError(
-            "remat_policy='dots_saveable' (keep every product's output): "
-            + NOT_PORTED.format("5c")
-        )
+def remat_names(policy: str, config: Wav2Vec2Config) -> frozenset[str]:
+    """The names ``policy`` keeps on ``config``'s route; raises for a policy
+    the port does not have."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"Unknown remat_policy {policy!r}; choose from "
-                         f"{sorted(REMAT_POLICIES)} or 'dots_saveable'")
-    return frozenset(REMAT_POLICIES[policy])
+                         f"{sorted(REMAT_POLICIES)}")
+    names = REMAT_POLICIES[policy]
+    return product_names(config) if names is None else frozenset(names)
+
+
+def product_names(config: Wav2Vec2Config) -> frozenset[str]:
+    """The products' outputs that ``dots_saveable`` keeps on ``config``'s
+    route (the comment above ``REMAT_POLICIES``)."""
+    names = {"attn_out"}
+    if not config.qkv_ln:
+        names |= {"q", "k", "v"}
+    if config.ffn_route == "unfused":
+        names.add("ffn_hidden")
+    if not config.do_stable_layer_norm and config.ffn_route in ("unfused", "ffn_fc1"):
+        names.add("ffn_out")
+    return frozenset(names)
 
 
 class _Remat:
@@ -522,36 +601,60 @@ def _project(x, layer: nn.Linear, dtype, remat: _Remat, name: str, bias: bool = 
                              layer.bias.to(dtype) if bias else None, saved)
 
 
-def _conv1d(x, weight, bias, stride: int, dtype):
+def _conv1d(x, weight, bias, stride: int, dtype, remat: _Remat = _NO_REMAT, name: str = ""):
     """Strided conv on (B, T, C_in) as one product over the unfolded windows;
-    the output comes out in (B, T', C_out) without a layout copy."""
+    the output comes out in (B, T', C_out) without a layout copy. Where
+    ``remat`` keeps ``name``, the product (before the bias) is kept and a
+    replay skips it (``_Projection``)."""
     C_out, C_in, K = weight.shape
     patches = x.to(dtype).unfold(1, K, stride)  # (B, T', C_in, K)
-    out = patches.reshape(*patches.shape[:2], C_in * K) @ weight.to(dtype).reshape(
-        C_out, C_in * K
-    ).t()
+    patches = patches.reshape(*patches.shape[:2], C_in * K)
+    w = weight.to(dtype).reshape(C_out, C_in * K)
+    if name in remat.names:
+        out = remat.keep(name, _Projection.apply(patches, w, None, remat.saved(name)))
+    else:
+        out = patches @ w.t()
     if bias is not None:
         out = out + bias.to(dtype)
     return out
 
 
-class ConvLayer(nn.Module):
-    """One feature-encoder block: conv -> LayerNorm -> GELU."""
+def _group_norm(x, gn: nn.GroupNorm, dtype):
+    """flax ``nn.GroupNorm`` on (B, T, C) in fp32, output in ``dtype``: each
+    group's statistics over every frame, padded ones included."""
+    y = F.group_norm(x.float().transpose(1, 2), gn.num_groups, gn.weight.float(),
+                     gn.bias.float(), gn.eps)
+    return y.transpose(1, 2).to(dtype)
 
-    def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int,
-                 config: Wav2Vec2Config, ops: _Ops) -> None:
+
+class ConvLayer(nn.Module):
+    """One feature-encoder block, routed as the JAX ``ConvLayer``
+    (coral_tpu/models/wav2vec2.py:257-318): under layer norm the fused conv
+    block (K3) where ``Wav2Vec2Config.fe_fused`` says so, else conv -> K1
+    (LayerNorm + GELU); under group norm conv -> GroupNorm (block 0 only) ->
+    exact GELU. The norm keeps HF's name, ``layer_norm``, in both. The conv
+    output outside K3 is JAX's "conv_raw"."""
+
+    def __init__(self, i: int, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
-        self.conv = nn.Conv1d(in_dim, out_dim, kernel, stride, bias=config.conv_bias)
-        self.layer_norm = nn.LayerNorm(out_dim, eps=config.layer_norm_eps)
-        self.fused = (
-            stride == 2 and kernel in (2, 3) and in_dim == out_dim and in_dim % 128 == 0
-        )
+        in_dim, out_dim = (1, *config.conv_dim)[i], config.conv_dim[i]
+        self.conv = nn.Conv1d(in_dim, out_dim, config.conv_kernel[i], config.conv_stride[i],
+                              bias=config.conv_bias)
+        self.norm = (config.feat_extract_norm
+                     if config.feat_extract_norm == "layer" or i == 0 else None)
+        if self.norm == "layer":
+            self.layer_norm = nn.LayerNorm(out_dim, eps=config.layer_norm_eps)
+        elif self.norm == "group":
+            self.layer_norm = nn.GroupNorm(out_dim, out_dim, eps=config.layer_norm_eps)
+        self.fused = config.fe_fused(i)
+        self.raw_name = f"conv_raw{i}"
+        self.last = i == len(config.conv_dim) - 1
         self.dtype = config.dtype
         self.ops = ops
 
-    def forward(self, x):
-        ln = self.layer_norm
+    def forward(self, x, remat: _Remat = _NO_REMAT):
         if self.fused:
+            ln = self.layer_norm
             bias = self.conv.bias
             if bias is None:
                 bias = torch.zeros_like(ln.bias)
@@ -559,8 +662,17 @@ class ConvLayer(nn.Module):
                 x.to(self.dtype), self.conv.weight, bias.float(), ln.weight.float(),
                 ln.bias.float(), ln.eps
             )
-        x = _conv1d(x, self.conv.weight, self.conv.bias, self.conv.stride[0], self.dtype)
-        return self.ops.ln_gelu(x, ln.weight, ln.bias, ln.eps)
+        x = _conv1d(x, self.conv.weight, self.conv.bias, self.conv.stride[0], self.dtype,
+                    remat, self.raw_name)
+        if self.norm == "layer":
+            ln = self.layer_norm
+            # A replay reads no output of the last block: K1 packs its
+            # residuals there and launches nothing.
+            unread = torch.empty_like(x) if remat.replaying and self.last else None
+            return self.ops.ln_gelu(x, ln.weight, ln.bias, ln.eps, saved=unread)
+        if self.norm == "group":
+            x = _group_norm(x, self.layer_norm, self.dtype)
+        return F.gelu(x)
 
 
 class FeatureEncoder(nn.Module):
@@ -568,16 +680,24 @@ class FeatureEncoder(nn.Module):
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
-        dims = (1, *config.conv_dim)
         self.conv_layers = nn.ModuleList(
-            ConvLayer(dims[i], dims[i + 1], k, s, config, ops)
-            for i, (k, s) in enumerate(zip(config.conv_kernel, config.conv_stride))
-        )
+            ConvLayer(i, config, ops) for i in range(len(config.conv_dim)))
+        # Replay the blocks in the backward, keeping only each conv's output
+        # (the JAX ``remat_feature_encoder``); set by the train setup.
+        self.remat = False
 
     def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            names = frozenset(layer.raw_name for layer in self.conv_layers)
+            return torch.utils.checkpoint.checkpoint(self._blocks, x, _Remat(names),
+                                                     use_reentrant=False)
+        return self._blocks(x)
+
+    def _blocks(self, x, remat: _Remat = _NO_REMAT):
         x = x[..., None]
         for layer in self.conv_layers:
-            x = layer(x)
+            x = layer(x, remat)
+        remat.replaying = remat is not _NO_REMAT
         return x
 
 
@@ -664,9 +784,10 @@ class Attention(nn.Module):
 
     def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT,
                 skip_out: bool = False, ln: nn.LayerNorm | None = None):
-        """skip_out: a kept "ffn_in" is the replay's residual stream (the FFN
-        block's route), so the replay reads no output of the out projection,
-        which then only packs its residuals. ln: the pre-attention LayerNorm
+        """skip_out: a kept "ffn_in" is the replay's residual stream (the
+        LayerNorm-folded FFN's routes), so the replay reads no output of the
+        out projection, which then only packs its residuals; elsewhere its
+        output is "attn_out". ln: the pre-attention LayerNorm
         to fold into the packed projection (x is then the residual stream)."""
         dt = self.dtype
         projections = (self.q_proj, self.k_proj, self.v_proj)
@@ -714,15 +835,17 @@ class Attention(nn.Module):
                      if torch.is_grad_enabled()
                      else self.ops.flash_self_attention(q4, k4, v4, segment_ids=ids))
             o = o.reshape(B, T, D)
-        if not skip_out:
-            return _dropout(_linear(o, self.out_proj, dt), self.rate, seeds)
-        unread = None if remat.saved("ffn_in") is None else torch.empty_like(o)
-        return _dropout(_project(o, self.out_proj, dt, remat, "ffn_in", saved=unread),
-                        self.rate, seeds)
+        if skip_out and "ffn_in" in remat.names:
+            unread = None if remat.saved("ffn_in") is None else torch.empty_like(o)
+            out = _project(o, self.out_proj, dt, remat, "ffn_in", saved=unread)
+        else:
+            out = remat.keep("attn_out", _project(o, self.out_proj, dt, remat, "attn_out",
+                                                  saved=remat.saved("attn_out")))
+        return _dropout(out, self.rate, seeds)
 
 
 class FeedForward(nn.Module):
-    """The pre-LN FFN on the route of ``config.ffn_route``: one of the fused
+    """The FFN on the route of ``config.ffn_route``: one of the fused
     entry points of ``ops/ffn.py`` (the blocks take fc2 in, the fc1 routes
     leave it to a product), else fc1, GELU (+ dropout) and fc2."""
 
@@ -733,6 +856,9 @@ class FeedForward(nn.Module):
         self.output_dense = nn.Linear(Fi, D)
         self.route = config.ffn_route
         self.block_flags = config.ffn_block_flags
+        # Post-LN, the final LayerNorm packs the FFN's output, so a replay
+        # runs the block's forward.
+        self.replay_reads_out = not config.do_stable_layer_norm
         self.ops = ops
         self.activation_rate = config.activation_dropout
         self.rate = config.hidden_dropout
@@ -743,15 +869,16 @@ class FeedForward(nn.Module):
         """x: the residual stream on the routes that fold ``ln`` in, else
         the LN2 output; act_seeds: (B,) seeds of the activation dropout
         (None: rate 0, the deterministic forward); out_seeds: those of the
-        hidden dropout; remat: the layer's checkpoint record (a block's
-        replay reads no output of it; a kept "ffn_act" skips the fc1 kernel,
-        a kept "ffn_hidden" the unfused fc1)."""
+        hidden dropout; remat: the layer's checkpoint record (a pre-LN
+        block's replay reads no output of it; a kept "ffn_act" skips the fc1
+        kernel, a kept "ffn_hidden" the unfused fc1, a kept "ffn_out" fc2)."""
         fc1, fc2 = self.intermediate_dense, self.output_dense
         rate = self.activation_rate if act_seeds is not None else 0.0
         seeds = act_seeds if rate > 0.0 else None
         dt, ops = self.dtype, self.ops
         if self.route in ("ffn_ln_block", "ffn_block"):
-            stand_in = torch.empty_like(x) if remat.replaying else None
+            stand_in = (torch.empty_like(x) if remat.replaying and not self.replay_reads_out
+                        else None)
             if self.route == "ffn_ln_block":
                 x = ops.ffn_ln_block(x, fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight,
                                      fc2.bias, ln.eps, rate, seeds, saved=stand_in,
@@ -766,19 +893,24 @@ class FeedForward(nn.Module):
                                    seeds, saved=saved)
             else:
                 g = ops.ffn_fc1(x, fc1.weight, fc1.bias, rate, seeds, saved=saved)
-            x = _linear(remat.keep("ffn_act", g), fc2, dt)
+            x = self._fc2(remat.keep("ffn_act", g), remat)
         else:
             h = remat.keep("ffn_hidden", _project(x, fc1, dt, remat, "ffn_hidden",
                                                   saved=remat.saved("ffn_hidden")))
             # The JAX model: the kernel only for dropout in training, else
             # exact erf GELU (coral_tpu/models/wav2vec2.py:684-695).
             h = ops.gelu_dropout(h, rate, act_seeds) if rate > 0.0 else F.gelu(h)
-            x = _linear(h, fc2, dt)
+            x = self._fc2(h, remat)
         return _dropout(x, self.rate, out_seeds)
+
+    def _fc2(self, g, remat: _Remat):
+        return remat.keep("ffn_out", _project(g, self.output_dense, self.dtype, remat, "ffn_out",
+                                              saved=remat.saved("ffn_out")))
 
 
 class EncoderLayer(nn.Module):
-    """Pre-LN transformer layer (XLS-R)."""
+    """Transformer layer: pre-LN (XLS-R) under ``do_stable_layer_norm``, else
+    post-LN (the base models)."""
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
@@ -786,23 +918,46 @@ class EncoderLayer(nn.Module):
         self.layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
         self.feed_forward = FeedForward(config, ops)
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
+        self.pre_ln = config.do_stable_layer_norm
         # The FFN's kernels take the residual stream and fold LN2 in.
         self.ln_folded = config.ffn_route in ("ffn_ln_block", "ffn_ln_fc1")
-        self.qkv_ln = config.fused_qkv_ln
+        self.qkv_ln = config.qkv_ln
+        self.ln_impl = config.encoder_ln_impl
+        self.dtype = config.dtype
         self.ops = ops
+
+    def norm(self, x, ln: nn.LayerNorm, remat: _Remat = _NO_REMAT, name: str = "",
+             saved=None):
+        """The encoder LayerNorm: ``ln_fused`` under ``encoder_ln_impl`` pallas,
+        its output kept as ``name`` and skipped in a replay where ``remat``
+        keeps it (or ``saved``, a stand-in the replay never reads, given); a
+        plain fp32 LayerNorm under xla (flax ``nn.LayerNorm``,
+        coral_tpu/models/wav2vec2.py:726-729), which a replay runs again."""
+        if self.ln_impl == "xla":
+            return _layer_norm(x, ln, self.dtype)
+        if saved is None:
+            saved = remat.saved(name)
+        return remat.keep(name, self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps, saved=saved))
 
     def forward(self, x, pad_mask, seeds=None, remat: _Remat = _NO_REMAT):
         """seeds: (3, B) int32, this layer's dropout seeds (None: deterministic);
         remat: this layer's checkpoint record (``_Remat``)."""
         ln, fln = self.layer_norm, self.final_layer_norm
         s = [None] * 3 if seeds is None else seeds
+        if not self.pre_ln:
+            # coral_tpu/models/wav2vec2.py:766-770; names no "attn_in" or
+            # "ffn_in". A replay reads no output of the final LayerNorm.
+            x = self.norm(x + self.attention(x, pad_mask, s[_ATTN_OUT], remat), ln)
+            h = self.feed_forward(x, fln, s[_FFN_ACT], s[_FFN_OUT], remat)
+            out = self.norm(x + h, fln, saved=torch.empty_like(x) if remat.replaying else None)
+            remat.replaying = remat is not _NO_REMAT
+            return out
         if self.qkv_ln:
             # LN1 folded into the packed QKV projection; "attn_in" names x.
             h = self.attention(x, pad_mask, s[_ATTN_OUT], remat, skip_out=self.ln_folded, ln=ln)
         else:
-            attn_in = remat.keep("attn_in", self.ops.ln_fused(x, ln.weight, ln.bias, ln.eps,
-                                                              saved=remat.saved("attn_in")))
-            h = self.attention(attn_in, pad_mask, s[_ATTN_OUT], remat, skip_out=self.ln_folded)
+            h = self.attention(self.norm(x, ln, remat, "attn_in"), pad_mask, s[_ATTN_OUT],
+                               remat, skip_out=self.ln_folded)
         if self.ln_folded:
             # "ffn_in" names the residual stream, the FFN kernels' input.
             ffn_in = remat.saved("ffn_in")
@@ -812,15 +967,15 @@ class EncoderLayer(nn.Module):
         else:
             # "ffn_in" names the LN2 output (coral_tpu/models/wav2vec2.py:762-765).
             x = x + h
-            ffn_in = remat.keep("ffn_in", self.ops.ln_fused(x, fln.weight, fln.bias, fln.eps,
-                                                            saved=remat.saved("ffn_in")))
+            ffn_in = self.norm(x, fln, remat, "ffn_in")
         out = x + self.feed_forward(ffn_in, fln, s[_FFN_ACT], s[_FFN_OUT], remat)
         remat.replaying = remat is not _NO_REMAT
         return out
 
 
 class Encoder(nn.Module):
-    """Positional conv + the transformer layers + the final LayerNorm."""
+    """Positional conv + the transformer layers, the plain LayerNorm after
+    them (pre-LN) or before them (post-LN, coral_tpu/models/wav2vec2.py:861-863)."""
 
     def __init__(self, config: Wav2Vec2Config, ops: _Ops) -> None:
         super().__init__()
@@ -831,7 +986,9 @@ class Encoder(nn.Module):
         )
         self.dtype = config.dtype
         self.rate = config.hidden_dropout
+        self.pre_ln = config.do_stable_layer_norm
         self.attention_route = config.attention_route
+        self.config = config
         # Replay each layer's forward in the backward, keeping what the
         # policy names (the JAX ``nn.remat(..., policy=...)``); both are set
         # by the train setup.
@@ -843,9 +1000,11 @@ class Encoder(nn.Module):
         # through the positional conv window.
         x = x * pad_mask[..., None].to(x.dtype)
         x = x + self.pos_conv_embed(x)
+        if not self.pre_ln:
+            x = _layer_norm(x, self.layer_norm, self.dtype)
         x = _dropout(x, self.rate, None if rnd is None else rnd.encoder)
         remat = self.gradient_checkpointing and torch.is_grad_enabled()
-        names = remat_names(self.remat_policy) if remat else frozenset()
+        names = remat_names(self.remat_policy, self.config) if remat else frozenset()
         # o and lse go together only where the attention's backward reads lse.
         groups = (_CTX_LSE,) if self.attention_route in ("stats_v3", "stats_v2") else ()
         for i, layer in enumerate(self.layers):
@@ -855,7 +1014,7 @@ class Encoder(nn.Module):
                                                       _Remat(names, groups), use_reentrant=False)
             else:
                 x = layer(x, pad_mask, seeds)
-        return _layer_norm(x, self.layer_norm, self.dtype)
+        return _layer_norm(x, self.layer_norm, self.dtype) if self.pre_ln else x
 
 
 class Wav2Vec2Model(nn.Module):
@@ -957,7 +1116,7 @@ def _trunc_normal(w: torch.Tensor, fan_in: int, scale: float, generator) -> None
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init with the flax model's distributions: he-normal convs,
-    lecun-normal dense layers, zero biases, unit LayerNorm scales, and
+    lecun-normal dense layers, zero biases, unit LayerNorm and GroupNorm scales, and
     ``masked_spec_embed`` uniform in [0, 1) (drawn last)."""
     for module in model.modules():
         if isinstance(module, nn.Conv1d):
@@ -965,7 +1124,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             _trunc_normal(w, w.shape[1] * w.shape[2], 2.0, generator)
         elif isinstance(module, nn.Linear):
             _trunc_normal(module.weight, module.in_features, 1.0, generator)
-        elif isinstance(module, nn.LayerNorm):
+        elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             module.weight.fill_(1.0)
         else:
             continue

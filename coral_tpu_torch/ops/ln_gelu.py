@@ -32,10 +32,10 @@ WIDTHS_ROADMAP = "other widths: ROADMAP.md, Queue 2 item 3"
 
 _EPS = 1e-5
 # Widths the kernels take, by the dtype of x (csrc/ln_gelu.cu): the forward
-# at every wav2vec2 encoder width in bf16 (XLS-R-300M, -1B, -2B; 512 is the
-# feature encoder's), the backward at every model width with a bf16 x (the
+# at every wav2vec2 encoder width in bf16 (wav2vec2-base, XLS-R-300M, -1B,
+# -2B; 512 is the feature encoder's), the backward at every model width with a bf16 x (the
 # encoder LNs' gradients, and the FFN backward's LN step with an fp32 dy).
-KERNEL_C = {torch.bfloat16: (512, 1024, 1280, 1920), torch.float32: (512, 1024)}
+KERNEL_C = {torch.bfloat16: (512, 768, 1024, 1280, 1920), torch.float32: (512, 1024)}
 KERNEL_C_BWD = {torch.bfloat16: (384, 512, 768, 1024, 1280, 1920),
                 torch.float32: (512, 1024, 1280)}
 
@@ -206,7 +206,7 @@ def _layer_norm(x, gamma, beta, eps, apply_gelu, plain, saved):
     return (ln_gelu_plain if plain else _ln)(x, gamma, beta, eps, apply_gelu)
 
 
-def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False):
+def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False, saved=None):
     """``gelu(layer_norm(x) * gamma + beta)`` over the last axis, differentiable.
 
     Args:
@@ -214,11 +214,13 @@ def ln_gelu(x, gamma, beta, eps: float = _EPS, plain: bool = False):
         gamma, beta: (C,), both bf16 or both fp32, read in their own dtype;
             their gradients come back in it.
         plain: run the plain versions (forward and backward) on any device.
+        saved: the output a checkpoint replay already holds, or a stand-in it
+            never reads (no launch).
 
     Returns:
         Same shape and dtype as ``x``.
     """
-    return _layer_norm(x, gamma, beta, eps, True, plain, None)
+    return _layer_norm(x, gamma, beta, eps, True, plain, saved)
 
 
 def ln_fused(x, gamma, beta, eps: float = _EPS, plain: bool = False, saved=None):

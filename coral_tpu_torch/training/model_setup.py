@@ -32,9 +32,11 @@ and seeds the weights otherwise; Whisper's tokenizer comes from the
 ``vocab.json`` beside the checkpoint. ``Wav2Vec2Setup.make_beam_predictor``
 is the CTC beam search with an n-gram LM (:373-438). What is not ported
 raises ``NotImplementedError`` naming its ROADMAP item rather than running
-something else in silence: training on more than one device, and in wav2vec2
-training the ``dots_saveable`` policy and ``remat_feature_encoder: true``. A
-setup on the card also refuses, before it
+something else in silence: training on more than one device. The wav2vec2
+setup also resolves ``fused_fe_conv``, ``encoder_ln_impl`` and
+``do_stable_layer_norm`` (:152-153, :200-217) and reads the top-level
+``remat_feature_encoder`` (:273-274); every named remat policy,
+``dots_saveable`` included, runs. A setup on the card also refuses, before it
 builds anything, a model width that no kernel on its path was built for
 (``check_kernel_widths``, ROADMAP.md Queue 2 item 3); every config in
 ``config/model/`` passes on every route, ``attention_impl`` pallas, flash
@@ -79,23 +81,6 @@ _W2V2_ARCHS: dict[str, Callable[..., Wav2Vec2Config]] = {
     "2b": Wav2Vec2Config.xls_r_2b,
 }
 
-# The JAX model's kernel and layout flags whose other values the port has no
-# route for (coral_tpu/training/model_setup.py): any other value raises, as
-# the JAX package's own trap rule asks (tests/test_model_setup_traps.py): it
-# must not run a path other than the one configured. attention_impl,
-# attention_save_stats, attention_o_residual, attention_fused_qkv_bias,
-# fused_qkv_ln, fused_ffn, fused_ffn_ln, fused_ffn_block and the block's
-# variants are resolved instead, raising as the JAX setup and model do for
-# the pairs that contradict each other (``_w2v2_kernel_flags``), and
-# pos_conv_fold is absent because both of its values are the same math, which
-# the port computes as a plain grouped conv.
-_KERNEL_FLAG_DEFAULTS: dict[str, Any] = {
-    "fused_fe_conv": True,
-    "encoder_ln_impl": "pallas",
-    "do_stable_layer_norm": True,
-}
-
-
 def _find_local_checkpoint(pretrained_model_id: str | None) -> Path | None:
     """Resolve a local safetensors/pytorch checkpoint for a pretrained id:
     the file, or the index of a sharded one.
@@ -121,16 +106,6 @@ def _find_local_checkpoint(pretrained_model_id: str | None) -> Path | None:
     return None
 
 
-def _check_kernel_flags(model_cfg: Mapping[str, Any], defaults: Mapping[str, Any]) -> None:
-    """Raise for a kernel flag set to a value whose route the port lacks."""
-    for key, default in defaults.items():
-        if key in model_cfg and model_cfg[key] != default:
-            raise NotImplementedError(
-                f"model.{key}={model_cfg[key]!r} (the port implements "
-                f"{default!r}): " + NOT_PORTED.format("9 (off-default kernel flags)")
-            )
-
-
 def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> dict[str, bool]:
     """fused_ffn, fused_ffn_ln, fused_ffn_block and the block's variants
     (fused_ffn_block_dw, _fc2, _dg) as both JAX setups resolve them
@@ -148,20 +123,22 @@ def _fused_ffn_flags(model_cfg: Mapping[str, Any]) -> dict[str, bool]:
 
 def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
     """The wav2vec2 model's routes (attention_impl, the attention's stats and
-    o residual, fused_qkv_ln, the q/k/v biases and the FFN's flags) as the
-    JAX setup resolves them (coral_tpu/training/model_setup.py:127-217);
-    raises as the JAX setup does for a LayerNorm fold without the pre-LN
-    encoder, as the JAX model does (coral_tpu/models/wav2vec2.py:494-530) for
-    in-kernel q/k/v biases with fused_qkv_ln, off the pallas route or with
-    stats other than "v3" (``Wav2Vec2Config``), and for a flag whose route
-    the port lacks."""
+    o residual, fused_qkv_ln, the q/k/v biases, the FFN's flags,
+    fused_fe_conv, encoder_ln_impl and do_stable_layer_norm) as the JAX
+    setup resolves them (coral_tpu/training/model_setup.py:127-217); raises
+    as the JAX setup does for a LayerNorm fold (fused_ffn_ln, which defaults
+    to fused_ffn, or fused_qkv_ln) with the post-LN encoder, and as the JAX
+    model does (coral_tpu/models/wav2vec2.py:494-530) for in-kernel q/k/v
+    biases with fused_qkv_ln, off the pallas route or with stats other than
+    "v3" (``Wav2Vec2Config``)."""
     qkv_ln = bool(model_cfg.get("fused_qkv_ln", False))
-    if qkv_ln and not bool(model_cfg.get("do_stable_layer_norm", True)):
+    ffn = _fused_ffn_flags(model_cfg)
+    stable = bool(model_cfg.get("do_stable_layer_norm", True))
+    if not stable and (ffn["fused_ffn_ln"] or qkv_ln):
         raise ValueError(
             "fused_ffn_ln / fused_qkv_ln require do_stable_layer_norm "
             "(pre-LN, the XLS-R architecture); set fused_ffn_ln=false "
             "and fused_qkv_ln=false for post-LN configs.")
-    _check_kernel_flags(model_cfg, _KERNEL_FLAG_DEFAULTS)
     impl = model_cfg.get("attention_impl", "pallas")
     stats = model_cfg.get("attention_save_stats", "v3")
     # Unset, the in-kernel biases are on where their prerequisites hold.
@@ -170,7 +147,9 @@ def _w2v2_kernel_flags(model_cfg: Mapping[str, Any]) -> dict[str, Any]:
     return dict(attention_impl=impl, attention_save_stats=stats,
                 attention_o_residual=bool(model_cfg.get("attention_o_residual", False)),
                 fused_qkv_ln=qkv_ln, attention_fused_qkv_bias=bool(qkv_bias),
-                **_fused_ffn_flags(model_cfg))
+                fused_fe_conv=bool(model_cfg.get("fused_fe_conv", True)),
+                encoder_ln_impl=model_cfg.get("encoder_ln_impl", "pallas"),
+                do_stable_layer_norm=stable, **ffn)
 
 
 def check_kernel_widths(model_config: Wav2Vec2Config | W.WhisperConfig) -> None:
@@ -303,6 +282,8 @@ class Wav2Vec2Setup:
         self.learning_rate = float(model_cfg.get("learning_rate", 1e-4))
         self.grad_dtype = config.get("grad_dtype", "bfloat16")
         self.gradient_checkpointing = bool(config.get("gradient_checkpointing", True))
+        # A top-level key, as the JAX setup reads it.
+        self.remat_feature_encoder = bool(config.get("remat_feature_encoder", False))
         # As the JAX setup: model.remat_policy wins over the top-level key,
         # and the default is save_qk_ctx.
         self.remat_policy = model_cfg.get(
@@ -367,6 +348,7 @@ class Wav2Vec2Setup:
         model = build_model(self.model_config, self.device, seed=seed)
         model.wav2vec2.encoder.gradient_checkpointing = self.gradient_checkpointing
         model.wav2vec2.encoder.remat_policy = self.remat_policy
+        model.wav2vec2.feature_extractor.remat = self.remat_feature_encoder
         if self._ckpt is not None and pretrained:
             if self.is_main:
                 logger.info(f"Loading pretrained weights from {self._ckpt}")
@@ -387,17 +369,13 @@ class Wav2Vec2Setup:
 
     def make_train_step(self, tx, schedule) -> Callable:
         """The CTC train step ``(state, batch, generator) -> (state, metrics)``
-        (``training/train_state.py``), after refusing what is not ported."""
+        (``training/train_state.py``), after refusing more than one device; an
+        unknown remat policy raises ``ValueError``."""
         from .train_state import make_ctc_train_step
 
         cfg = self.config
         if self.gradient_checkpointing:
-            remat_names(self.remat_policy)  # raises for dots_saveable
-        if bool(cfg.get("remat_feature_encoder", False)):
-            raise NotImplementedError(
-                "remat_feature_encoder=true (replay the conv stack in the backward): "
-                + NOT_PORTED.format("9 (off-default kernel flags)")
-            )
+            remat_names(self.remat_policy, self.model_config)
         _refuse_devices(cfg)
         augment, noise_bank = _augmentation_settings(cfg, self.is_main)
         return make_ctc_train_step(

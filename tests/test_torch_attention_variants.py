@@ -245,7 +245,8 @@ def test_one_step_gradients_match_jax(variant, qkv_ln):
 # and o_residual name o "attn_ctx" (on the op's output, or on its residual),
 # so a policy that keeps it skips the forward; v2's backward also reads its
 # lse, "attn_lse", so both must be kept; v1's lse has no name, so its forward
-# runs again under every policy. No checkpointing runs it once.
+# runs again under every policy, and dots_saveable keeps no kernel's output.
+# No checkpointing runs it once.
 FORWARD_RUNS = {
     "nothing_saveable": (2, 2, 2, 2),
     "save_attn_ctx": (1, 1, 2, 2),
@@ -255,6 +256,7 @@ FORWARD_RUNS = {
     "save_qk_ctx": (1, 1, 2, 1),
     "save_matmul_inputs": (1, 1, 2, 2),
     "save_matmul_inputs_ffn": (1, 1, 2, 2),
+    "dots_saveable": (2, 2, 2, 2),
     None: (1, 1, 1, 1),
 }
 

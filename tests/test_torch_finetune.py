@@ -17,7 +17,8 @@ run's state bit for bit (its step-4 checkpoint and saved masters), the data
 skip included; ``save_model`` then ``load_saved_predictor`` gives the
 in-memory predictor's strings for both families (with Whisper's eval-time
 overrides), and a JAX-style saved directory (orbax ``model/``) raises naming
-ROADMAP Queue 1 item 3; more than one device raises before any work;
+the converter (tests/test_torch_convert_jax_dir.py converts and serves one);
+more than one device raises before any work;
 ``profile_step`` writes a trace; the Hub push calls a stub
 ``huggingface_hub`` with the JAX push's arguments, so no test reaches the
 network; the tracking factory degrades as JAX's.
@@ -249,10 +250,10 @@ def test_saved_model_serves_the_in_memory_strings(family, tmp_path):
         assert ids.shape[1] == 5
 
 
-def test_a_jax_saved_directory_raises_naming_item_3(tmp_path):
+def test_a_jax_saved_directory_raises_naming_the_converter(tmp_path):
     (tmp_path / "config.yaml").write_text("model:\n  type: wav2vec2\n")
     (tmp_path / "model" / "d").mkdir(parents=True)  # an orbax tree
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="tools/convert_coral_tpu_model.py"):
         load_saved_predictor({"model_id": str(tmp_path), "sampling_rate": 16_000},
                              device="cpu")
 

@@ -1365,6 +1365,25 @@ def test_ln_forward_kernel_at_xls_r_widths_matches_plain(cuda, C):
     _close(got, ln_gelu.ln_gelu_plain(x, gamma, beta, apply_gelu=False), 1e-2)
 
 
+@pytest.mark.parametrize("apply_gelu", [False, True])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [(3, 333), (1, 5), (2, 1499)])
+def test_ln_forward_kernel_at_the_base_width_matches_plain(cuda, apply_gelu, gdtype, rows):
+    """The LayerNorm forward at wav2vec2-base's 768 (bf16 x; lane vectors of
+    8, three chunks a lane): with and without the GELU, gamma and beta in
+    fp32 and bf16, row counts that leave the last block of 8 rows part
+    empty (999, 5) and the serving shape's 11,992."""
+    C = 768
+    x = _on(cuda, _np(*rows, C, seed=0, scale=2.0, offset=0.3), torch.bfloat16)
+    gamma = _on(cuda, _np(C, seed=1, scale=0.1, offset=1.0), gdtype)
+    beta = _on(cuda, _np(C, seed=2, scale=0.1), gdtype)
+    fn = ln_gelu.ln_gelu if apply_gelu else ln_gelu.ln_fused
+    _build.reset_launch_counts()
+    got = fn(x, gamma, beta)
+    assert _build.launch_counts == {f"{'ln_gelu' if apply_gelu else 'ln_fused'}_768": 1}
+    _close(got, ln_gelu.ln_gelu_plain(x, gamma, beta, apply_gelu=apply_gelu), 1e-2)
+
+
 @pytest.mark.parametrize("C", [384, 768, 1920])
 @pytest.mark.parametrize("dtypes", ["bf16/bf16", "bf16/fp32"])
 @pytest.mark.parametrize("apply_gelu", [True, False])
@@ -1595,7 +1614,7 @@ def test_ln_bwd_gives_the_same_bits_twice(cuda, C):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("C", [512, 1024, 1280, 1920])
+@pytest.mark.parametrize("C", [512, 768, 1024, 1280, 1920])
 @pytest.mark.parametrize("apply_gelu", [False, True])
 def test_ln_with_bf16_gamma_is_the_fp32_gamma_kernel_bit_for_bit(cuda, C, apply_gelu):
     """bf16 gamma and beta, widened in registers, give the kernels' own results

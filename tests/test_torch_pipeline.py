@@ -168,20 +168,28 @@ def test_entry_points_default_to_the_card():
 
 
 def test_saved_model_directory_is_rejected(tmp_path):
+    """A saved directory without the port's params (the JAX package's orbax
+    tree) is refused, naming the converter that writes them."""
     from coral_tpu_torch.evaluation.evaluate import load_saved_predictor
 
     (tmp_path / "config.yaml").write_text("model: {}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*saved model"):
+    with pytest.raises(ValueError, match="tools/convert_coral_tpu_model.py"):
         load_saved_predictor({"model_id": str(tmp_path)}, device="cpu")
 
 
 @pytest.mark.parametrize("flag,value", [("encoder_ln_impl", "xla"), ("fused_fe_conv", False)])
-def test_off_default_kernel_flags_are_rejected(flag, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*kernel flags"):
-        port_setup.Wav2Vec2Setup(
-            {"model": {"architecture": "tiny", "characters_to_keep": CHARS, flag: value},
-             "max_seconds_per_example": 5.0}, device="cpu"
-        )
+def test_off_default_kernel_flags_take_their_routes(flag, value):
+    """The flags reach the model's routes: the encoder LayerNorms as plain
+    LayerNorms, or every feature-encoder block as the conv + K1."""
+    setup = port_setup.Wav2Vec2Setup(
+        {"model": {"architecture": "tiny", "characters_to_keep": CHARS, flag: value},
+         "max_seconds_per_example": 5.0}, device="cpu")
+    assert getattr(setup.model_config, flag) == value
+    model = setup.init_params(seed=0)
+    if flag == "encoder_ln_impl":
+        assert all(layer.ln_impl == "xla" for layer in model.wav2vec2.encoder.layers)
+    else:
+        assert not any(c.fused for c in model.wav2vec2.feature_extractor.conv_layers)
 
 
 @pytest.mark.parametrize("flags", [

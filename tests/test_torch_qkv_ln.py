@@ -515,7 +515,7 @@ QKV_FORWARDS = {
     "nothing_saveable": (2, 2), "save_attn_ctx": (2, 2), "save_ctx_act": (2, 2),
     "save_matmul_inputs": (1, 2), "save_matmul_inputs_ffn": (1, 2),
     "save_attn_ctx_lse": (2, 1), "save_qkv_ctx": (1, 1), "save_qk_ctx": (2, 1),
-    None: (1, 1),
+    "dots_saveable": (2, 2), None: (1, 1),
 }
 
 

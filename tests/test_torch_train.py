@@ -10,8 +10,9 @@ streams differ by design; their laws are checked separately): on the JAX
 128-wide feature encoder takes the fused conv route with the encoder
 training, under ``nothing_saveable`` and ``save_qk_ctx``. The JAX side runs
 as its own tests run it on the CPU: Pallas kernels in interpret mode or their
-off-TPU paths. The named remat policies are checked against no checkpointing
-(the same gradient bits) and by the forwards each replays.
+off-TPU paths. The named remat policies, ``dots_saveable`` included, are
+checked against no checkpointing (the same gradient bits) and by the
+forwards each replays.
 
 Tolerances, fp32 throughout with sums in another order: the loss 1e-4 and the
 gradient norm 5e-4 relative (both move apart once the parameters do, after
@@ -210,7 +211,7 @@ FORWARDS = {
     "nothing_saveable": (2, 2), "save_attn_ctx": (2, 2), "save_ctx_act": (2, 2),
     "save_matmul_inputs": (2, 1), "save_matmul_inputs_ffn": (2, 1),
     "save_attn_ctx_lse": (1, 2), "save_qkv_ctx": (1, 2), "save_qk_ctx": (1, 2),
-    None: (1, 1),
+    "dots_saveable": (2, 2), None: (1, 1),
 }
 
 
@@ -314,8 +315,6 @@ def test_production_settings_train_through_the_setup(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"remat_policy": "dots_saveable"}, "item 5c"),
-    ({"remat_feature_encoder": True}, "item 9"),
     ({"mesh": [2, 1]}, "item 7"),
     ({"distributed": True}, "item 7"),
 ])
@@ -324,6 +323,27 @@ def test_unported_training_inputs_raise(over, match):
     tx, schedule = create_optimizer(1e-3, 1, 10)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         setup.make_train_step(tx, schedule)
+
+
+@pytest.mark.parametrize("over", [{"remat_policy": "dots_saveable"},
+                                  {"remat_feature_encoder": True,
+                                   "model.freeze_feature_encoder": False}],
+                         ids=["dots_saveable", "remat_feature_encoder"])
+def test_training_inputs_once_refused_now_train(over):
+    """``dots_saveable`` and ``remat_feature_encoder: true`` reach the model
+    through the setup and its step runs (their parity with JAX's step is in
+    tests/test_torch_kernel_flags.py)."""
+    setup = load_model_setup(_setup_config(**over), device="cpu")
+    model = setup.init_params(seed=0)
+    assert model.wav2vec2.encoder.remat_policy == setup.remat_policy
+    assert model.wav2vec2.feature_extractor.remat == bool(over.get("remat_feature_encoder"))
+    tx, schedule = create_optimizer(1e-3, 1, 10)
+    state = TrainState.create(model, tx)
+    batch = _batch(seed=0)
+    batch["labels"] = np.where(batch["labels"] == setup.blank_id, 0, batch["labels"])
+    state, metrics = setup.make_train_step(tx, schedule)(state, batch,
+                                                         torch.Generator().manual_seed(0))
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
 
 
 def test_whisper_training_raises():

@@ -302,7 +302,8 @@ def test_unfused_policies_replay_what_they_do_not_keep(policy, monkeypatch):
 # -- the setups' flag resolution -------------------------------------------------------
 
 W2V2_RESOLVED = ("attention_impl", "fused_ffn", "fused_ffn_ln", "fused_ffn_block",
-                 "fused_ffn_block_dw", "fused_ffn_block_fc2", "fused_ffn_block_dg")
+                 "fused_ffn_block_dw", "fused_ffn_block_fc2", "fused_ffn_block_dg",
+                 "fused_fe_conv", "encoder_ln_impl", "do_stable_layer_norm")
 
 
 @pytest.mark.parametrize("flags", [
@@ -314,6 +315,8 @@ W2V2_RESOLVED = ("attention_impl", "fused_ffn", "fused_ffn_ln", "fused_ffn_block
     {"fused_ffn_block_dw": True}, {"fused_ffn_block_fc2": True}, {"fused_ffn_block_dg": False},
     {"fused_ffn_block_dw": True, "fused_ffn_block_fc2": True, "fused_ffn_block_dg": False},
     {"fused_ffn": False, "fused_ffn_block_dw": True},
+    {"fused_fe_conv": False}, {"encoder_ln_impl": "xla"},
+    {"do_stable_layer_norm": False, "fused_ffn_ln": False},
 ], ids=lambda f: ",".join(f"{k}={v}" for k, v in f.items()) or "defaults")
 def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
     config = {"model": {"type": "wav2vec2", "architecture": "tiny", "characters_to_keep": CHARS,
@@ -328,16 +331,16 @@ def test_wav2vec2_flags_resolve_as_the_jax_setup(flags, tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     ({"attention_impl": "flash", "attention_fused_qkv_bias": True}, ValueError, "requires"),
     ({"attention_impl": "xla", "attention_fused_qkv_bias": True}, ValueError, "requires"),
-    ({"fused_fe_conv": False}, NotImplementedError, "item 9"),
-    ({"do_stable_layer_norm": False}, NotImplementedError, "item 9"),
-    ({"encoder_ln_impl": "xla"}, NotImplementedError, "item 9"),
+    ({"do_stable_layer_norm": False}, ValueError, "do_stable_layer_norm"),
     ({"attention_impl": "softmax"}, ValueError, "attention_impl"),
+    ({"encoder_ln_impl": "rms"}, ValueError, "encoder_ln_impl"),
 ])
 def test_wav2vec2_flags_without_a_route_raise(flags, error, match):
     """The explicit in-kernel biases off the pallas route raise as the JAX
-    model does; the routes the port lacks (the feature encoder's unfused
-    conv, the post-LN encoder, the plain encoder LayerNorm) raise naming their
-    ROADMAP item. The attention variants resolve as the JAX setup's
+    model does; the post-LN encoder with the LayerNorm folded into the FFN
+    (fused_ffn_ln defaults to fused_ffn) raises as the JAX setup does; an
+    attention or encoder LayerNorm the package has no route for raises. The
+    attention variants resolve as the JAX setup's
     (tests/test_torch_attention_variants.py)."""
     config = {"model": {"architecture": "tiny", "characters_to_keep": CHARS, **flags},
               "max_seconds_per_example": 1.0}

@@ -155,6 +155,17 @@ def test_plain_model_is_the_same_function(case):
 
 @pytest.mark.parametrize("kw", [{"feat_extract_norm": "group"},
                                 {"do_stable_layer_norm": False}])
-def test_unported_architectures_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Wav2Vec2Config(**kw)
+def test_base_architectures_build(kw):
+    """The base models' two fields build their routes (parity with JAX in
+    tests/test_torch_base_models.py): block 0's GroupNorm and no norm after
+    the other convs, or the post-LN layers, which fold no LayerNorm."""
+    model = Wav2Vec2ForCTC(Wav2Vec2Config.tiny(**PORT_FLAGS, **kw))
+    convs = model.wav2vec2.feature_extractor.conv_layers
+    layers = model.wav2vec2.encoder.layers
+    if "feat_extract_norm" in kw:
+        assert [c.norm for c in convs] == ["group", None, None, None]
+    else:
+        assert all(not layer.pre_ln and not layer.ln_folded for layer in layers)
+        assert model.config.ffn_route == "ffn_block"
+    with pytest.raises(ValueError, match="feat_extract_norm"):
+        Wav2Vec2Config(feat_extract_norm="batch")
